@@ -1,0 +1,179 @@
+"""Command-line frontend of the PyTorch port — the ``crz`` codec.
+
+Counterpart of :mod:`comprox_tpu.cli.main`: the same switches, defaults
+and ``make_params``, so an archive written here is the one the JAX
+package writes for the same command line.  Supported: ``crz e|d`` with
+``-b -l -F -p -q -m`` and, for encode, ``-f0`` (the greedy parse).
+
+Not yet ported, refused with an error (the ROADMAP.md item in brackets):
+encode without ``-f0`` (the flexible parse, kernels K4-K6 [7-9]), ``-c``
+and ``-C`` [11], ``-j`` and ``-g`` [15], the ``crp``/``crx``/``crf``
+codecs [12-14].  Nothing switches silently to another format.
+
+    python -m comprox_tpu_torch.cli.main crz e in out -f0 -b8 -l512
+    python -m comprox_tpu_torch.cli.main crz d out in.copy
+
+The command line runs on the first CUDA device and fails without one; the
+library call :func:`run` takes the device explicitly.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+
+from comprox_tpu_torch.codec.block import BlockParams
+from comprox_tpu_torch.codec.container import (
+    ContainerParams,
+    decode_stream,
+    encode_stream,
+)
+
+USAGE = """\
+usage: {prog} e|d <input> <output> [switches]   ('-' = stdin/stdout)
+switches:
+  -b<n>  block size in MB (default 16)
+  -l<n>  lanes per block (default 256)
+  -F     enable content filters
+  -p     dictionary precompress only
+  -q     quiet mode
+  -m<n>  match search depth (default 40 -> top-4 bucket candidates)
+  -f0    greedy+lazy parsing (required for encode: the flexible parse
+         is not ported yet)
+"""
+
+CODEC_BYTE = {"crp": b"P", "crx": b"X", "crz": b"R", "crf": b"F"}
+
+_NOT_PORTED = {
+    "-c": "chain mode (-c) is not yet ported (ROADMAP.md item 11)",
+    "-C": "chain mode v2 (-C) is not yet ported (ROADMAP.md item 11)",
+    "-j": "device parallelism (-j) is not yet ported (ROADMAP.md item 15)",
+    "-g": "block batching (-g) is not yet ported (ROADMAP.md item 15)",
+}
+
+
+def parse_args(argv):
+    prog = argv[0] if argv else "crz"
+    args = [a for a in argv[1:] if a == "-" or not a.startswith("-")]
+    switches = [a for a in argv[1:] if a != "-" and a.startswith("-")]
+    opts = {"block_mb": 16, "lanes": 256, "filters": False, "quiet": False,
+            "precomp": False, "window": 250, "depth": 40, "flexible": True}
+    for s in switches:
+        if s[:2] in _NOT_PORTED:
+            raise NotImplementedError(_NOT_PORTED[s[:2]])
+        if s.startswith("-b"):
+            opts["block_mb"] = float(s[2:])
+        elif s.startswith("-l"):
+            opts["lanes"] = int(s[2:])
+        elif s == "-F":
+            opts["filters"] = True
+        elif s == "-p":
+            opts["precomp"] = True
+        elif s == "-q":
+            opts["quiet"] = True
+        elif s.startswith("-f"):
+            opts["flexible"] = s[2:] != "0"
+        elif s.startswith("-m"):
+            opts["depth"] = max(1, int(s[2:] or "40"))
+        else:
+            raise SystemExit(USAGE.format(prog=prog))
+    if len(args) != 3 or args[0] not in ("e", "d"):
+        raise SystemExit(USAGE.format(prog=prog))
+    return prog, args[0], args[1], args[2], opts
+
+
+def make_params(codec_name: str, opts) -> ContainerParams:
+    """The JAX package's make_params for crz: same BlockParams."""
+    if codec_name != "crz":
+        raise NotImplementedError(
+            f"codec {codec_name} is not yet ported to comprox_tpu_torch "
+            "(ROADMAP.md items 12-14): only crz is"
+        )
+    lanes = opts["lanes"]
+    cap = int(opts["block_mb"] * 1048576)
+    bp = BlockParams(
+        lanes=lanes,
+        steps=max(1, cap // lanes),
+        mode="R",
+        min_len=5,
+        window=opts.get("window", 250),
+        top_k=max(1, min(8, round(opts.get("depth", 40) / 10))),
+        flexible=opts.get("flexible", True),
+        rolz_ctx_bytes=4 if cap >= 4 * 1048576 else 3,
+        rolz_dec=2,
+        short_depth=0,
+        chain_match=False,
+    )
+    return ContainerParams(codec=CODEC_BYTE["crz"], block=bp)
+
+
+def log(quiet, msg):
+    if not quiet:
+        print(msg, file=sys.stderr)
+
+
+def run(codec_name: str, argv, device) -> int:
+    """Run one ``crz e|d`` command line on ``device``."""
+    import torch
+
+    prog, mode, inp, outp, opts = parse_args([codec_name] + list(argv))
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("comprox_tpu_torch runs on a CUDA device; none found")
+    quiet = opts["quiet"]
+    t0 = time.time()
+    if mode == "e":
+        cp = make_params(codec_name, opts)
+        if cp.block.flexible and not opts["precomp"]:
+            raise NotImplementedError(
+                "encode needs -f0: the flexible parse (kernels K4-K6) is not "
+                "yet ported (ROADMAP.md items 7-9)"
+            )
+        data = (
+            np.frombuffer(sys.stdin.buffer.read(), np.uint8)
+            if inp == "-" else np.fromfile(inp, np.uint8)
+        )
+        f = sys.stdout.buffer if outp == "-" else open(outp, "wb")
+        try:
+            csize = encode_stream(
+                data, f, cp, device, filters=opts["filters"],
+                precomp_only=opts["precomp"],
+            )
+        finally:
+            if outp != "-":
+                f.close()
+        dt = max(time.time() - t0, 1e-9)
+        log(quiet, f"encode-speed: {data.size / dt / 1e6:.2f} MB/s")
+        log(quiet, f"cost-time:    {dt:.3f} s")
+        if data.size:
+            log(quiet, f"compress-ratio: {csize / data.size:.4f}")
+            log(quiet, f"bits-per-byte:  {csize * 8 / data.size:.3f}")
+    else:
+        if codec_name != "crz":
+            make_params(codec_name, opts)  # raises: codec not ported
+        f = open(inp, "rb") if inp != "-" else sys.stdin.buffer
+        g = sys.stdout.buffer if outp == "-" else open(outp, "wb")
+        try:
+            total = decode_stream(f, g, device)
+        finally:
+            if inp != "-":
+                f.close()
+            if outp != "-":
+                g.close()
+        dt = max(time.time() - t0, 1e-9)
+        log(quiet, f"decode-speed: {total / dt / 1e6:.2f} MB/s")
+        log(quiet, f"cost-time:    {dt:.3f} s")
+    return 0
+
+
+def main() -> int:
+    argv = sys.argv[1:]
+    if argv and argv[0] in CODEC_BYTE:
+        return run(argv[0], argv[1:], "cuda")
+    return run("crz", argv, "cuda")
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,911 @@
+"""Block codec, mode R: S lock-step lanes over one block — ROLZ + PPM + rANS.
+
+Counterpart of :mod:`comprox_tpu.codec.block` (mode R, ``short_depth=0``,
+unchained): a block of n bytes is cut into S contiguous lanes of T steps,
+``position(lane, step) = lane * T + step``, and all lanes advance one byte
+per step through shared model and bucket tables.  The payload layout, the
+table evolution and every intermediate grid are the JAX package's.
+
+Encode runs three passes (the greedy ``-f0`` parse): the search scan (KS)
+finds one ROLZ candidate per position, ``_greedy_decisions`` picks the
+matches (two elementwise ops), the modeling scan (K2) turns the decisions
+into normalised rANS events, and the backward rANS scan (K3) emits the
+words.  Decode is one scan (K1).  Each scan has a plain PyTorch version,
+a step loop vectorised over lanes, and a CUDA kernel; the wrapper picks the
+plain version for a CPU tensor and the kernel for a CUDA tensor, and
+raises for anything else.  There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import os as _os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from comprox_tpu.ops.rans_scalar import M, RANS_L
+from comprox_tpu_torch.models import ppm
+from comprox_tpu_torch.models import tables as tb
+from comprox_tpu_torch.ops import rans
+from comprox_tpu_torch.utils import build
+
+_i32 = torch.int32
+_i64 = torch.int64
+MASK32 = rans.MASK32
+_PACK_TAIL = 66  # zero words after the block (block.py::_pack_words)
+N_SLOTS = 3  # events per step and lane: A, B, C
+
+
+@dataclass(frozen=True)
+class BlockParams:
+    """The JAX package's BlockParams: same fields, defaults and checks."""
+
+    lanes: int = 256
+    steps: int = 4096
+    mode: str = "P"
+    match: bool = True
+    min_len: int = 4
+    window: int = 250
+    o3_bits: int = 22
+    rolz_bits: int = 18
+    rolz_depth: int = 64
+    rolz_ctx_bytes: int = 3
+    rolz_dec: int = 1
+    short_depth: int = 0
+    top_k: int = 4
+    lazy_top_k: int = 4
+    probe: int = 32
+    flexible: bool = True
+    chain_match: bool = False
+
+    def __post_init__(self):
+        if self.lanes % 8 or self.lanes < 8:
+            raise ValueError("lanes must be a positive multiple of 8")
+        if self.window > 256:
+            raise ValueError("window must be <= 256")
+        if (
+            self.mode == "R"
+            and self.short_depth
+            and self.lanes * self.steps > (1 << 24)
+        ):
+            raise ValueError(
+                "ROLZ short-match table requires block capacity <= 16 MiB "
+                "(set short_depth=0 for larger blocks)"
+            )
+        if self.mode == "R" and self.short_depth not in (0, 8, 16):
+            raise ValueError("short_depth must be 0, 8 or 16")
+        if self.rolz_dec not in (1, 2, 4):
+            raise ValueError("rolz_dec must be 1, 2 or 4")
+        if self.mode == "R" and self.rolz_depth + self.short_depth > ppm.IDX_W:
+            raise ValueError(
+                f"rolz_depth + short_depth must be <= {ppm.IDX_W}"
+            )
+        if self.chain_match and (
+            self.mode != "R"
+            or not self.match
+            or not self.flexible
+            or self.short_depth
+        ):
+            raise ValueError(
+                "chain_match requires mode R with the match layer, "
+                "flexible parse and short_depth=0"
+            )
+        if self.mode in ("X", "F") and self.lanes * self.steps > (1 << 24):
+            raise ValueError(
+                "mode 'X' block capacity is capped at 16 MiB "
+                f"(got {self.lanes * self.steps})"
+            )
+
+    @property
+    def capacity(self) -> int:
+        return self.lanes * self.steps
+
+    @property
+    def stream_fallback_words(self) -> int:
+        return self.capacity // 2 + 16
+
+    @property
+    def stream_pad(self) -> int:
+        return self.stream_fallback_words + self.n_slots * self.lanes
+
+    @property
+    def n_slots(self) -> int:
+        return 5 if self.mode == "X" else 3
+
+    @property
+    def stream_pad_max(self) -> int:
+        return self.n_slots * self.capacity + 16 + self.n_slots * self.lanes
+
+
+# Encoder and read-strategy knobs of the JAX package that the port does not
+# implement: any value but the default raises (read at import, like JAX).
+_ENV_DEFAULTS = {
+    "CPX_R_FINDER": "sort",
+    "CPX_SHORT_EXTRA": "2",
+    "CPX_STREAM_READ": "auto",
+    "CPX_DEBUG_EVT": "",
+}
+_ENV = {k: _os.environ.get(k, v) for k, v in _ENV_DEFAULTS.items()}
+
+
+def check_supported(p: BlockParams) -> None:
+    """Raise for a block configuration or knob the port does not have."""
+    ppm.check_knobs()
+    for k, default in _ENV_DEFAULTS.items():
+        if _ENV[k] != default:
+            raise NotImplementedError(
+                f"{k}={_ENV[k]!r} is not ported to comprox_tpu_torch "
+                f"(only the default {default!r})"
+            )
+    if p.mode != "R":
+        raise NotImplementedError(
+            f"mode {p.mode!r} is not yet ported to comprox_tpu_torch "
+            "(ROADMAP.md items 12-14); only mode R (crz) is"
+        )
+    if p.short_depth:
+        raise NotImplementedError(
+            "short_depth > 0 is not ported (ROADMAP.md item 17)"
+        )
+    if p.chain_match:
+        raise NotImplementedError(
+            "chain_match (crz -C) is not yet ported (ROADMAP.md item 11)"
+        )
+
+
+# --------------------------------------------------------------------------
+# u32 helpers: uint32 values live in int64 tensors masked to 32 bits
+# --------------------------------------------------------------------------
+
+
+def _mul32(a, c: int):
+    """(a * c) mod 2^32 for a in [0, 2^32), without int64 overflow."""
+    lo, hi = a & 0xFFFF, a >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & MASK32
+
+
+def _to_i32(v):
+    """int64 in [0, 2^32) -> int32 with the same bits."""
+    v = v & MASK32
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(_i32)
+
+
+def _byteswap32(v):
+    return (
+        ((v & 0xFF) << 24) | ((v & 0xFF00) << 8)
+        | ((v >> 8) & 0xFF00) | (v >> 24)
+    ) & MASK32
+
+
+def rolz_hash3(key3, bits: int):
+    """Context key -> ROLZ bucket (multiplicative hash, top ``bits``)."""
+    v = _mul32(key3.to(_i64) & MASK32, 2654435761)
+    return (v >> (32 - bits)) & ((1 << bits) - 1)
+
+
+def _rolz_key(ctx4, p: BlockParams):
+    return ctx4 & (0xFFFFFF if p.rolz_ctx_bytes == 3 else MASK32)
+
+
+def _rolz_ctx(c, p: BlockParams):
+    return rolz_hash3(_rolz_key(c["ctx4"], p), p.rolz_bits)
+
+
+def _rec_bucket(sym_idx):
+    """len-model context: recency bucket of the index (0 / 1-3 / 4-15 / 16+)."""
+    return (sym_idx >= 1).to(_i32) + (sym_idx >= 4).to(_i32) + (
+        sym_idx >= 16
+    ).to(_i32)
+
+
+def _fill_bucket(fill):
+    """idx-model context: bucket fill quartile."""
+    return torch.div(fill - 1, 16, rounding_mode="floor").clamp(0, 3)
+
+
+def _recency_ranks(cand_pos):
+    """[S, D] bucket positions -> recency rank of every slot (how many
+    entries are newer; equal positions order by slot id)."""
+    d = cand_pos.shape[1]
+    pi = cand_pos[:, :, None]
+    pj = cand_pos[:, None, :]
+    slot = torch.arange(d, device=cand_pos.device)
+    newer = (pj > pi) | ((pj == pi) & (slot[None, None, :] > slot[None, :, None]))
+    return newer.sum(dim=2, dtype=_i32)
+
+
+def _rolz_src_of_rows(ent_rows, rec_idx):
+    """Entry position (minus 1) whose recency rank is the coded index; -1
+    when no slot has that rank."""
+    pos = ent_rows[..., 0]
+    sel = _recency_ranks(pos) == rec_idx[:, None]
+    return torch.where(sel, pos, 0).sum(dim=1, dtype=_i32) - 1
+
+
+def rolz_from_numpy(a, device):
+    """The JAX bucket table ``rolz_ent`` [2^bits, D, 2] -> a port tensor
+    (a copy: the port updates it in place)."""
+    return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
+
+
+def rolz_to_numpy(t) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def _init_rolz(p: BlockParams, device):
+    return torch.zeros(
+        (1 << p.rolz_bits, p.rolz_depth, 2), dtype=_i32, device=device
+    )
+
+
+def _init_carry(p: BlockParams, device):
+    z = torch.zeros(p.lanes, dtype=_i64, device=device)
+    return {"ctx4": z, "ctx4b": z.clone(), "copy_rem": z.clone(),
+            "copy_src": z.clone()}
+
+
+def _common_reads(c, t, n, p: BlockParams, tables):
+    """Per-step contexts shared by the modeling scan and decode."""
+    dev = c["ctx4"].device
+    lanes = torch.arange(p.lanes, device=dev)
+    pos = lanes * p.steps + t
+    active = pos < n
+    coding = active & (c["copy_rem"] == 0)
+    copying = active & (c["copy_rem"] > 0)
+    ctx4 = c["ctx4"]
+    p1 = ctx4 & 0xFF
+    p2 = (ctx4 >> 8) & 0xFF
+    ctx2 = (p2 << 8) | p1
+    ctx3 = ctx4 & 0xFFFFFF
+    h3 = ppm.o3_hash(ctx3, tables["o3"].numel())
+    pred, conf, pred2, conf2, raw = ppm.o3_read(tables, h3)
+    return (lanes, pos, active, coding, copying, p1, ctx2, h3, pred, conf,
+            pred2, conf2, raw)
+
+
+def _bucket_insert(rolz, p: BlockParams, rctx, ins, pos, nx4):
+    """Insert (q+1, prefix) for q = pos-3 into each bucket's oldest slot,
+    IN PLACE; lanes inserting into one bucket in one step take consecutive
+    oldest slots in lane order."""
+    s = rctx.shape[0]
+    lower = torch.ones((s, s), dtype=torch.bool, device=rctx.device).tril(-1)
+    same = (rctx[:, None] == rctx[None, :]) & ins[None, :]
+    rank = (same & lower).sum(dim=1)
+    ins = ins & (rank < p.rolz_depth)
+    old = rolz[rctx]
+    age = (p.rolz_depth - 1) - _recency_ranks(old[..., 0])
+    slot_ids = torch.arange(p.rolz_depth, device=rctx.device)
+    slot = torch.where(age == rank[:, None], slot_ids, 0).sum(dim=1)
+    r, sl = rctx[ins], slot[ins]
+    rolz[r, sl, 0] = (pos - 3 + 1)[ins].to(_i32)
+    rolz[r, sl, 1] = _to_i32(nx4[ins])
+
+
+def _post_step(c, t, p: BlockParams, pos, active, byte, is_match, src,
+               sym_len, rolz=None):
+    """End-of-step state: copy state, context registers and, where the
+    caller keeps the bucket table, the insert of position pos-3."""
+    ctx4, ctx4b = c["ctx4"], c["ctx4b"]
+    c["copy_rem"] = torch.where(
+        is_match, sym_len + (p.min_len - 1), (c["copy_rem"] - 1).clamp_min(0)
+    ).to(_i64)
+    c["copy_src"] = torch.where(is_match, src + 1, c["copy_src"] + 1).to(_i64)
+    ctx4n = torch.where(active, ((ctx4 << 8) | byte.to(_i64)) & MASK32, ctx4)
+    ctx4bn = torch.where(active, ((ctx4b << 8) | (ctx4 >> 24)) & MASK32, ctx4b)
+    c["ctx4"], c["ctx4b"] = ctx4n, ctx4bn
+    if rolz is not None:
+        ins = active & (t >= (7 if p.rolz_ctx_bytes == 4 else 6))
+        if p.rolz_dec > 1:
+            ins = ins & (pos % p.rolz_dec == 0)
+        rctx = rolz_hash3(_rolz_key(ctx4bn, p), p.rolz_bits)
+        _bucket_insert(rolz, p, rctx, ins, pos, _byteswap32(ctx4n))
+
+
+def _pack_words(inp_flat):
+    """[n] u8 -> [n/4 + tail] little-endian u32 words (int64 tensor)."""
+    pad = (-inp_flat.shape[0]) % 4 + 4 * _PACK_TAIL
+    b = torch.cat([inp_flat, inp_flat.new_zeros(pad)]).to(_i64).view(-1, 4)
+    return b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+
+
+def _gather_windows(inp_w32, src, width: int):
+    """[S, width] byte windows of the word-packed block at per-lane ``src``
+    (negative src reads from 0).  Windows may run into the next lane's
+    bytes and into the zero tail."""
+    nw = width // 4 + 2
+    base = src.clamp_min(0).to(_i64)
+    idx = (base >> 2)[:, None] + torch.arange(nw, device=src.device)
+    words = inp_w32[idx.clamp(0, inp_w32.shape[0] - 1)]
+    by = torch.stack(
+        [words & 0xFF, (words >> 8) & 0xFF, (words >> 16) & 0xFF,
+         (words >> 24) & 0xFF], dim=-1,
+    ).reshape(src.shape[0], nw * 4)
+    cols = (base & 3)[:, None] + torch.arange(width, device=src.device)
+    return torch.gather(by, 1, cols).to(_i32)
+
+
+def _prefix_len(cur_win, cand):
+    """Common-prefix length per lane (positions before the first mismatch)."""
+    neq = (cand != cur_win).to(_i32)
+    return (torch.cumsum(neq, dim=-1) == 0).sum(dim=-1, dtype=_i32)
+
+
+def _cur_windows(inp, t: int, width: int):
+    """[S, width] upcoming bytes of each lane's own row, zero past T."""
+    s, steps = inp.shape
+    pad = inp.new_zeros((s, width))
+    return torch.cat([inp[:, t:], pad], dim=1)[:, :width].to(_i32)
+
+
+def _rolz_best_match(c, rolz, pos, t, n, p: BlockParams, inp_w32, cur_win):
+    """Encoder-side candidate search at pos: score every bucket entry by
+    its 4-byte prefix cache, probe the top-k to ``probe`` bytes, extend the
+    winner to the full window, cap.  ``(length, src, rec_idx, fill)``."""
+    nx = cur_win[:, :4].to(_i64)
+    own = nx[:, 0] | (nx[:, 1] << 8) | (nx[:, 2] << 16) | (nx[:, 3] << 24)
+    ent = rolz[_rolz_ctx(c, p)]
+    cand_pos = ent[..., 0]
+    diff = (ent[..., 1].to(_i64) & MASK32) ^ own[:, None]
+    score = (
+        ((diff & 0xFF) == 0).to(_i32) + ((diff & 0xFFFF) == 0).to(_i32)
+        + ((diff & 0xFFFFFF) == 0).to(_i32) + (diff == 0).to(_i32)
+    )
+    rec = _recency_ranks(cand_pos)
+    fill = (cand_pos > 0).sum(dim=1, dtype=_i32)
+    score = torch.where(cand_pos > 0, score, -1)
+    d = p.rolz_depth
+    rank_key = score * d + (d - 1 - rec)
+    k_top = min(p.top_k, d)
+    top_slots = torch.topk(rank_key, k_top, dim=1).indices
+    lens, srcs, recs = [], [], []
+    for k in range(k_top):
+        sl = top_slots[:, k : k + 1]
+        src_k = torch.gather(cand_pos, 1, sl)[:, 0] - 1
+        sc_k = torch.gather(score, 1, sl)[:, 0]
+        cand = _gather_windows(inp_w32, src_k, p.probe)
+        len_k = _prefix_len(cur_win[:, : p.probe], cand)
+        lens.append(torch.where(sc_k == 4, len_k, 0))
+        srcs.append(src_k)
+        recs.append(torch.gather(rec, 1, sl)[:, 0])
+    lens_m = torch.stack(lens, 1)
+    pick = torch.argmax(lens_m, dim=1, keepdim=True)  # first maximum
+    length = torch.gather(lens_m, 1, pick)[:, 0]
+    src = torch.gather(torch.stack(srcs, 1), 1, pick)[:, 0]
+    sym_idx = torch.gather(torch.stack(recs, 1), 1, pick)[:, 0]
+    cand = _gather_windows(inp_w32, src, p.window)
+    full = _prefix_len(cur_win[:, : p.window], cand)
+    length = torch.where(length >= p.probe, full, length)
+    cap = torch.minimum(
+        torch.clamp(n - pos, max=p.steps - t),
+        torch.tensor(min(p.window, p.min_len + ppm.LEN_W - 1), device=pos.device),
+    )
+    return torch.minimum(length, cap).to(_i32), src, sym_idx, fill
+
+
+# --------------------------------------------------------------------------
+# KS: the search scan (greedy parse)
+# --------------------------------------------------------------------------
+
+
+def search_scan_plain(p: BlockParams, inp, n: int, rolz):
+    """Plain KS: ``[4, T, S]`` int32 grids (length, src, rec_idx, fill);
+    ``rolz`` evolves IN PLACE (block.py::_search_body, R branch)."""
+    dev = inp.device
+    c = _init_carry(p, dev)
+    inp_w32 = _pack_words(inp.reshape(-1))
+    out = torch.empty((4, p.steps, p.lanes), dtype=_i32, device=dev)
+    width = p.window + 1
+    for t in range(p.steps):
+        pos = torch.arange(p.lanes, device=dev) * p.steps + t
+        active = pos < n
+        cur_win = _cur_windows(inp, t, width)
+        length, src, sym_idx, fill = _rolz_best_match(
+            c, rolz, pos, t, n, p, inp_w32, cur_win
+        )
+        out[0, t] = torch.where(active & (t >= 7), length, 0)
+        out[1, t] = src
+        out[2, t] = sym_idx
+        out[3, t] = fill
+        zero = torch.zeros_like(pos)
+        _post_step(c, t, p, pos, active, cur_win[:, 0], zero.bool(), zero,
+                   zero, rolz)
+    return out
+
+
+def _greedy_decisions(p: BlockParams, length, src):
+    """Greedy accept-longest with a one-step lazy check over the whole
+    [T, S] grid (block.py::_greedy_decisions, R branch): ``(take, src)``."""
+    len_next = torch.cat([length[1:], torch.zeros_like(length[:1])], dim=0)
+    do = (length >= p.min_len) & (len_next <= length + 1)
+    return torch.where(do, length, 0), src
+
+
+# --------------------------------------------------------------------------
+# K2: the modeling scan
+# --------------------------------------------------------------------------
+
+
+def _model_step(p: BlockParams, inp, n, c, tables, t, dec_t):
+    (lanes, pos, active, coding, copying, p1, ctx2, h3, pred, conf,
+     pred2, conf2, raw) = _common_reads(c, t, n, p, tables)
+    valid2 = conf2 > 0
+    byte = inp[:, t].to(_i64)
+    length, src, sym_idx, fill = (g.to(_i64) for g in dec_t)
+    do_match = coding & (length > 0)
+    rows2, rowmod, cums_a, tot_a, o2_hd, sse_st = ppm.read_o2(
+        tables, ctx2, pred, coding, conf,
+        sse_fill=fill if p.match else None,
+    )
+    f_byte = torch.gather(rowmod, 1, byte[:, None])[:, 0]
+    sym_a = torch.where(
+        do_match, ppm.SYM_MATCH,
+        torch.where(byte == pred, ppm.SYM_HIT,
+                    torch.where(f_byte > 0, byte, ppm.SYM_ESC)),
+    )
+    ca_raw, fa_raw = tb.cum_frq_of(rowmod, cums_a, sym_a)
+    ca, fa = rans.norm_cf(ca_raw, fa_raw.clamp_min(1), tot_a.clamp_min(1))
+    ca, fa = rans.select_cf(coding, ca, fa)
+    is_esc = coding & (sym_a == ppm.SYM_ESC)
+    is_match = coding & (sym_a == ppm.SYM_MATCH)
+
+    rows1, wmod, cums1, tot1 = ppm.read_o1_excl(
+        tables, p1, rows2, pred, pred2, valid2
+    )
+    c1_raw, f1_raw = tb.cum_frq_of(wmod, cums1, byte)
+    idx_ctx = _fill_bucket(fill)
+    len_ctx = _rec_bucket(sym_idx)
+    rows_i, cums_i, tot_i = ppm.read_idx(tables, is_match, idx_ctx)
+    ci_raw, fi_raw = tb.cum_frq_of(rows_i, cums_i, sym_idx)
+    cb_raw = torch.where(is_esc, c1_raw, ci_raw)
+    fb_raw = torch.where(is_esc, f1_raw, fi_raw)
+    tot_b = torch.where(is_esc, tot1, tot_i)
+    act_b = is_esc | is_match
+    cb, fb = rans.norm_cf(cb_raw, fb_raw.clamp_min(1), tot_b.clamp_min(1))
+    cb, fb = rans.select_cf(act_b, cb, fb)
+
+    sym_len = (length - p.min_len).clamp(0, ppm.LEN_W - 1)
+    rows_l, cums_l, tot_l = ppm.read_len(tables, is_match, len_ctx)
+    cl_raw, fl_raw = tb.cum_frq_of(rows_l, cums_l, sym_len)
+    cc, fc = rans.norm_cf(cl_raw, fl_raw.clamp_min(1), tot_l.clamp_min(1))
+    cc, fc = rans.select_cf(is_match, cc, fc)
+
+    ppm.apply_updates(
+        tables, coding, ctx2, sym_a, byte, f_byte, p1, h3, pred, conf,
+        sym_len, sym_idx, o2_hd, len_ctx, idx_ctx, raw,
+    )
+    if sse_st is not None:
+        ppm.sse_update(tables, sse_st, coding, is_match,
+                       coding & (sym_a == ppm.SYM_HIT))
+    # K2 reads idx and fill from the search pass, never the bucket table,
+    # so it keeps no table and does no insert (the bytes are the same)
+    _post_step(c, t, p, pos, active, byte, is_match, src, sym_len)
+    return torch.stack([ca, fa, coding.to(_i64), cb, fb, act_b.to(_i64),
+                        cc, fc, is_match.to(_i64)]).to(_i32)
+
+
+def model_scan_plain(p: BlockParams, inp, n: int, dec, tables):
+    """Plain K2: ``ev [T, 9, S]`` int32 — (c, f, active) for slots A, B, C;
+    ``tables`` evolve IN PLACE (block.py::_encode_model_body, R branch)."""
+    c = _init_carry(p, inp.device)
+    ev = torch.empty((p.steps, 9, p.lanes), dtype=_i32, device=inp.device)
+    for t in range(p.steps):
+        ev[t] = _model_step(p, inp, n, c, tables, t, dec[:, t])
+    return ev
+
+
+# --------------------------------------------------------------------------
+# K3: the backward rANS scan
+# --------------------------------------------------------------------------
+
+
+def rans_scan_plain(p: BlockParams, ev):
+    """Plain K3: ``(states [S] int64, emit [T, 3, S] bool, words [T, 3, S]
+    int32)`` (the rans_body scan of block.py::_encode_passes)."""
+    steps, _, s = ev.shape
+    x = rans.init_states(s, ev.device)
+    emit = torch.empty((steps, N_SLOTS, s), dtype=torch.bool, device=ev.device)
+    words = torch.empty((steps, N_SLOTS, s), dtype=_i32, device=ev.device)
+    for t in range(steps - 1, -1, -1):
+        for si in range(N_SLOTS - 1, -1, -1):
+            cx = ev[t, 3 * si].to(_i64) & 0xFFFF
+            fx = (ev[t, 3 * si + 1].to(_i64) & 0xFFFF).clamp_min(1)
+            cv, fv = rans.select_cf(ev[t, 3 * si + 2] != 0, cx, fx)
+            x, emit[t, si], wd = rans.enc_put(x, cv, fv)
+            words[t, si] = wd.to(_i32)
+    return x, emit, words
+
+
+# --------------------------------------------------------------------------
+# K1: the decode scan
+# --------------------------------------------------------------------------
+
+
+def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t):
+    (lanes, pos, active, coding, copying, p1, ctx2, h3, pred, conf,
+     pred2, conf2, raw) = _common_reads(c, t, n, p, tables)
+    valid2 = conf2 > 0
+    step_off = 0
+
+    def advance(x, off, cx, fx):
+        x_tmp, need = rans.dec_advance(x, cx, fx)
+        w, used = rans.stream_window_read(stream, base + off, need)
+        return rans.dec_renorm(x_tmp, need, w), off + used
+
+    rolz_rows = rolz[_rolz_ctx(c, p)]
+    fill = (rolz_rows[..., 0] > 0).sum(dim=1, dtype=_i32)
+    rows2, rowmod, cums_a, tot_a, o2_hd, sse_st = ppm.read_o2(
+        tables, ctx2, pred, coding, conf,
+        sse_fill=fill if p.match else None,
+    )
+    tgt = rans.dec_target(rans.dec_slot(x), tot_a.clamp_min(1))
+    sym_a, ca_raw, fa_raw = tb.find_symbol(rowmod, cums_a, tgt)
+    ca, fa = rans.norm_cf(ca_raw, fa_raw.clamp_min(1), tot_a.clamp_min(1))
+    x, step_off = advance(x, step_off, *rans.select_cf(coding, ca, fa))
+    is_hit = coding & (sym_a == ppm.SYM_HIT)
+    is_esc = coding & (sym_a == ppm.SYM_ESC)
+    is_match = coding & (sym_a == ppm.SYM_MATCH)
+    is_lit = coding & (sym_a < 256)
+
+    rows1, wmod, cums1, tot1 = ppm.read_o1_excl(
+        tables, p1, rows2, pred, pred2, valid2
+    )
+    slot_b = rans.dec_slot(x)
+    sym1, c1_raw, f1_raw = tb.find_symbol(
+        wmod, cums1, rans.dec_target(slot_b, tot1.clamp_min(1))
+    )
+    idx_ctx = _fill_bucket(fill)
+    rows_i, cums_i, tot_i = ppm.read_idx(tables, is_match, idx_ctx)
+    sym_idx, ci_raw, fi_raw = tb.find_symbol(
+        rows_i, cums_i, rans.dec_target(slot_b, tot_i.clamp_min(1))
+    )
+    len_ctx = _rec_bucket(sym_idx)
+    cb_raw = torch.where(is_esc, c1_raw, ci_raw)
+    fb_raw = torch.where(is_esc, f1_raw, fi_raw)
+    tot_b = torch.where(is_esc, tot1, tot_i)
+    cb, fb = rans.norm_cf(cb_raw, fb_raw.clamp_min(1), tot_b.clamp_min(1))
+    x, step_off = advance(x, step_off,
+                          *rans.select_cf(is_esc | is_match, cb, fb))
+
+    rows_l, cums_l, tot_l = ppm.read_len(tables, is_match, len_ctx)
+    sym_l, cl_raw, fl_raw = tb.find_symbol(
+        rows_l, cums_l, rans.dec_target(rans.dec_slot(x), tot_l.clamp_min(1))
+    )
+    cc, fc = rans.norm_cf(cl_raw, fl_raw.clamp_min(1), tot_l.clamp_min(1))
+    x, step_off = advance(x, step_off, *rans.select_cf(is_match, cc, fc))
+
+    src = _rolz_src_of_rows(rolz_rows, sym_idx).to(_i64)
+    out_flat = out.view(-1)
+    gsrc = torch.where(is_match, src, c["copy_src"]).clamp(
+        0, out_flat.shape[0] - 1
+    )
+    copied = out_flat[gsrc].to(_i64)
+    byte = torch.where(is_lit, sym_a.to(_i64), 0)
+    byte = torch.where(is_hit, pred.to(_i64), byte)
+    byte = torch.where(is_esc, sym1.to(_i64), byte)
+    byte = torch.where(is_match | copying, copied, byte).clamp(0, 255)
+    f_byte = torch.where(is_lit, fa_raw, 0)
+    sym_len = torch.where(is_match, sym_l, 0)
+
+    ppm.apply_updates(
+        tables, coding, ctx2, sym_a, byte, f_byte, p1, h3, pred, conf,
+        sym_len, sym_idx, o2_hd, len_ctx, idx_ctx, raw,
+    )
+    if sse_st is not None:
+        ppm.sse_update(tables, sse_st, coding, is_match, is_hit)
+    _post_step(c, t, p, pos, active, byte, is_match, src, sym_len, rolz)
+    out[:, t] = torch.where(active, byte, 0).to(torch.uint8)
+    return x, base + step_off
+
+
+def decode_scan_plain(p: BlockParams, states, stream, n: int, tables, rolz):
+    """Plain K1: ``(states, words_used, out [S, T] uint8)``; ``tables`` and
+    ``rolz`` evolve IN PLACE (block.py::_decode_scan/_decode_body, R)."""
+    c = _init_carry(p, states.device)
+    out = torch.zeros((p.lanes, p.steps), dtype=torch.uint8,
+                      device=states.device)
+    x, base = states.to(_i64), 0
+    for t in range(p.steps):
+        x, base = _decode_step(p, stream, n, c, tables, rolz, x, base, out, t)
+    return x, base, out
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers: plain version for a CPU tensor, the CUDA kernel for a
+# CUDA tensor, an error for anything else.
+# --------------------------------------------------------------------------
+
+# Launches per kernel; each wrapper adds one where it launches its kernel,
+# and records a pair of CUDA events around the launch (device time).
+LAUNCHES = {"KS": 0, "K2": 0, "K3": 0, "K1": 0}
+_EVENTS: dict = {k: [] for k in LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+        _EVENTS[k].clear()
+
+
+def kernel_ms() -> dict:
+    """Device milliseconds per kernel since the last reset (synchronises)."""
+    torch.cuda.synchronize()
+    return {k: sum(a.elapsed_time(b) for a, b in ev) for k, ev in _EVENTS.items()}
+
+
+def _launch(name: str, fn, *args) -> None:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    LAUNCHES[name] += 1
+    err = fn(*args)
+    end.record()
+    _EVENTS[name].append((start, end))
+    build.check(err, name)
+
+
+_CFG_FIELDS = 23  # ints in csrc/ppm_r.cuh::Cfg
+
+
+def _cfg_array(p: BlockParams, n: int, stream_len: int = 0) -> np.ndarray:
+    cfg = np.array(
+        [p.lanes, p.steps, n, p.min_len, p.window, p.o3_bits, p.rolz_bits,
+         p.rolz_depth, p.rolz_ctx_bytes, p.rolz_dec, p.top_k, p.probe,
+         int(p.match), int(p.match and ppm.SSE), ppm.INC2, ppm.CAP2,
+         ppm.INC1, ppm.CAP1, ppm.LEN_INC, ppm.LEN_CAP, ppm.IDX_INC,
+         ppm.IDX_CAP, stream_len],
+        np.int32,
+    )
+    assert cfg.size == _CFG_FIELDS
+    return cfg
+
+
+def _dispatch(*tensors) -> str:
+    dev = tensors[0].device
+    for x in tensors:
+        if x.device != dev:
+            raise ValueError(f"tensors on {x.device} and {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type
+
+
+def _expect(x, name, dtype, shape):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: expected {dtype} {tuple(shape)}, got {x.dtype} "
+            f"{tuple(x.shape)}"
+        )
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_kernel_geometry(p: BlockParams):
+    if p.lanes > 1024:
+        raise NotImplementedError(
+            f"the CUDA kernels run one CTA of one thread per lane: "
+            f"lanes <= 1024 (got {p.lanes})"
+        )
+
+
+def _expect_tables(p: BlockParams, tables):
+    _expect(tables["o2"], "o2", _i32, (ppm.O2_NCTX, ppm.O2_W))
+    _expect(tables["o1"], "o1", _i32, (ppm.O1_NCTX, ppm.O1_NCTX))
+    _expect(tables["o3"], "o3", _i32, (1 << p.o3_bits,))
+    _expect(tables["len"], "len", _i32, (ppm.N_SHARED_CTX, ppm.LEN_W))
+    _expect(tables["idx"], "idx", _i32, (ppm.N_SHARED_CTX, ppm.IDX_W))
+    _expect(tables["sse"], "sse", _i32, (ppm.SSE_NCTX * 33,))
+    _expect(tables["sse_h"], "sse_h", _i32, (ppm.SSE_HCTX * 33,))
+
+
+def _stream_ptr():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _pos_scratch(p: BlockParams, device):
+    """Scratch of the bucket-reading kernels (KS, K1) for each lane's copy
+    of a bucket row ([S, D+1] positions, then KS's [S, D+1] byte scores),
+    used where it does not fit in shared memory
+    (csrc/ppm_r.cuh::pos_smem_bytes)."""
+    return torch.empty((2, p.lanes, p.rolz_depth + 1), dtype=_i32, device=device)
+
+
+def _table_ptrs(tables):
+    return [tables[k].data_ptr()
+            for k in ("o2", "o1", "o3", "len", "idx", "sse", "sse_h")]
+
+
+def search_scan(p: BlockParams, inp, n: int, rolz):
+    """KS — the ROLZ search scan of the greedy parse.
+
+    Replaces comprox_tpu/codec/block.py::_search_body (1333-1388) with
+    _rolz_best_match (939-1056) under _search_and_parse's scan
+    (1630-1635).  Kernel: csrc/search.cu (one CTA, one thread per lane,
+    latency bound; see the source note).  ``inp`` [S, T] uint8, ``rolz``
+    [2^bits, D, 2] int32 (updated in place) -> [4, T, S] int32.
+    """
+    if _dispatch(inp, rolz) == "cpu":
+        return search_scan_plain(p, inp, n, rolz)
+    _check_kernel_geometry(p)
+    if p.top_k > 8:
+        raise NotImplementedError(
+            f"the search kernel keeps at most 8 candidates (top_k={p.top_k})"
+        )
+    _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
+    _expect(rolz, "rolz", _i32, (1 << p.rolz_bits, p.rolz_depth, 2))
+    if inp.data_ptr() % 8 or rolz.data_ptr() % 8:
+        raise ValueError("inp and rolz must be 8-byte aligned (64-bit loads)")
+    out = torch.empty((4, p.steps, p.lanes), dtype=_i32, device=inp.device)
+    cfg = _cfg_array(p, n)
+    _launch("KS", build.lib().cpx_ks_launch, cfg.ctypes.data,
+            inp.data_ptr(), rolz.data_ptr(), out.data_ptr(),
+            _pos_scratch(p, inp.device).data_ptr(), _stream_ptr())
+    return out
+
+
+def model_scan(p: BlockParams, inp, n: int, dec, tables):
+    """K2 — the forward modeling scan of encode.
+
+    Replaces comprox_tpu/codec/block.py::_encode_model_body (1677-1895, R)
+    under _encode_passes (1898-1941).  Kernel: csrc/model.cu.  ``dec``
+    [4, T, S] int32 (take, src, rec_idx, fill); ``tables`` evolve in place
+    -> ev [T, 9, S] int32.
+    """
+    if _dispatch(inp, dec, tables["o2"]) == "cpu":
+        return model_scan_plain(p, inp, n, dec, tables)
+    _check_kernel_geometry(p)
+    _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
+    _expect(dec, "dec", _i32, (4, p.steps, p.lanes))
+    _expect_tables(p, tables)
+    ev = torch.empty((p.steps, 9, p.lanes), dtype=_i32, device=inp.device)
+    cfg = _cfg_array(p, n)
+    _launch("K2", build.lib().cpx_k2_launch, cfg.ctypes.data,
+            inp.data_ptr(), dec.data_ptr(), *_table_ptrs(tables),
+            ev.data_ptr(), _stream_ptr())
+    return ev
+
+
+def rans_scan(p: BlockParams, ev):
+    """K3 — the backward rANS scan of encode.
+
+    Replaces the rans_body scan of comprox_tpu/codec/block.py::
+    _encode_passes (1945-1969).  Kernel: csrc/rans.cu (one thread per
+    lane).  ev [T, 9, S] int32 -> (states [S] int64, emit [T, 3, S] bool,
+    words [T, 3, S] int32).
+    """
+    if _dispatch(ev) == "cpu":
+        return rans_scan_plain(p, ev)
+    _expect(ev, "ev", _i32, (p.steps, 9, p.lanes))
+    dev = ev.device
+    states = torch.empty(p.lanes, dtype=_i64, device=dev)
+    emit = torch.empty((p.steps, N_SLOTS, p.lanes), dtype=torch.uint8,
+                       device=dev)
+    words = torch.empty((p.steps, N_SLOTS, p.lanes), dtype=_i32, device=dev)
+    _launch("K3", build.lib().cpx_k3_launch, p.lanes, p.steps,
+            ev.data_ptr(), states.data_ptr(), emit.data_ptr(),
+            words.data_ptr(), _stream_ptr())
+    return states, emit.bool(), words
+
+
+def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz):
+    """K1 — the fused decode scan of mode R.
+
+    Replaces comprox_tpu/codec/block.py::_decode_scan (2218-2248) and the
+    R branch of _decode_body (1980-2215).  Kernel: csrc/decode.cu.
+    ``states`` [S] int64, ``stream`` [pad] int32 (u16 words); ``tables``
+    and ``rolz`` evolve in place -> (states, words_used, out [S, T] uint8).
+    """
+    if _dispatch(states, stream, tables["o2"], rolz) == "cpu":
+        return decode_scan_plain(p, states, stream, n, tables, rolz)
+    _check_kernel_geometry(p)
+    _expect(states, "states", _i64, (p.lanes,))
+    if stream.dtype != _i32 or stream.dim() != 1 or stream.shape[0] < p.lanes:
+        raise ValueError("stream: expected a 1-D int32 tensor of >= S words")
+    _expect(stream, "stream", _i32, stream.shape)
+    _expect_tables(p, tables)
+    _expect(rolz, "rolz", _i32, (1 << p.rolz_bits, p.rolz_depth, 2))
+    dev = states.device
+    x = states.clone()
+    out = torch.zeros((p.lanes, p.steps), dtype=torch.uint8, device=dev)
+    used = torch.zeros(1, dtype=_i64, device=dev)
+    cfg = _cfg_array(p, n, stream.shape[0])
+    _launch("K1", build.lib().cpx_k1_launch, cfg.ctypes.data,
+            stream.data_ptr(), x.data_ptr(), *_table_ptrs(tables),
+            rolz.data_ptr(), out.data_ptr(), used.data_ptr(),
+            _pos_scratch(p, dev).data_ptr(), _stream_ptr())
+    return x, int(used.item()), out
+
+
+# --------------------------------------------------------------------------
+# Host-facing block API
+# --------------------------------------------------------------------------
+
+
+def _pack_payload(states, emit, words) -> bytes:
+    emit_np = emit.cpu().numpy().astype(bool)  # [T, 3, S]: decode order
+    stream = words.cpu().numpy()[emit_np]  # C-order compaction
+    header = np.array([stream.size], np.uint32)
+    return (
+        header.tobytes()
+        + states.cpu().numpy().astype("<u4").tobytes()
+        + stream.astype("<u2").tobytes()
+    )
+
+
+def _unpack_payload(payload: bytes, p: BlockParams):
+    n_words = int(np.frombuffer(payload[:4], "<u4")[0])
+    off = 4
+    states = np.frombuffer(payload[off : off + 4 * p.lanes], "<u4").copy()
+    off += 4 * p.lanes
+    stream = np.frombuffer(payload[off : off + 2 * n_words], "<u2").copy()
+    pad = (
+        p.stream_pad
+        if n_words <= p.stream_fallback_words
+        else p.stream_pad_max
+    )
+    stream_padded = np.zeros(pad, np.uint16)
+    stream_padded[:n_words] = stream
+    return n_words, states, stream_padded
+
+
+def _check_drain(x, base, n_words):
+    drained = bool((np.asarray(x) == RANS_L).all())
+    if int(base) != n_words or not drained:
+        raise ValueError(
+            f"corrupt block: consumed {int(base)}/{n_words} words, "
+            f"states drained={drained}"
+        )
+
+
+def encode_passes(p: BlockParams, inp, n: int):
+    """KS + greedy parse + K2 + K3 on one [S, T] block tensor.  Returns
+    ``(states, emit, words, ev, tables)``."""
+    dev = inp.device
+    if p.match:
+        grids = search_scan(p, inp, n, _init_rolz(p, dev))
+        take, src = _greedy_decisions(p, grids[0], grids[1])
+        dec = torch.stack([take, src, grids[2], grids[3]]).contiguous()
+    else:
+        dec = torch.zeros((4, p.steps, p.lanes), dtype=_i32, device=dev)
+    tables = ppm.init_tables(p.match, p.o3_bits, dev)
+    ev = model_scan(p, inp, n, dec, tables)
+    states, emit, words = rans_scan(p, ev)
+    return states, emit, words, ev, tables
+
+
+def _check_encode(p: BlockParams):
+    check_supported(p)
+    if p.match and p.flexible:
+        raise NotImplementedError(
+            "the flexible parse (kernels K4-K6) is not yet ported to "
+            "comprox_tpu_torch (ROADMAP.md items 7-9): encode with the greedy "
+            "parse (flexible=False, crz -f0)"
+        )
+
+
+def encode_block(data: np.ndarray, p: BlockParams, device) -> bytes:
+    """Encode up to p.capacity bytes on ``device``; returns the payload."""
+    _check_encode(p)
+    n = int(data.size)
+    if not 0 < n <= p.capacity:
+        raise ValueError(f"block of {n} bytes for capacity {p.capacity}")
+    buf = np.zeros((p.lanes, p.steps), np.uint8)
+    buf.reshape(-1)[:n] = data
+    inp = torch.from_numpy(buf).to(device)
+    states, emit, words, _, _ = encode_passes(p, inp, n)
+    return _pack_payload(states, emit, words)
+
+
+def decode_block(payload: bytes, n: int, p: BlockParams, device) -> np.ndarray:
+    """Decode a block payload back to its n raw bytes on ``device``."""
+    check_supported(p)
+    n_words, states, stream_padded = _unpack_payload(payload, p)
+    x, used, out = decode_scan(
+        p,
+        torch.from_numpy(states.astype(np.int64)).to(device),
+        torch.from_numpy(stream_padded.astype(np.int32)).to(device),
+        n,
+        ppm.init_tables(p.match, p.o3_bits, device),
+        _init_rolz(p, device),
+    )
+    _check_drain(x.cpu().numpy(), used, n_words)
+    return out.cpu().numpy().reshape(-1)[:n]

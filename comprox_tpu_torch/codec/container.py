@@ -1,0 +1,243 @@
+"""Container format and stream coder, unchained codec-R path.
+
+Counterpart of :mod:`comprox_tpu.codec.container`: the same bytes for the
+same input (magic ``CPXTPU02``, header with CRC and the model-knob
+fingerprint, optional dictionary blob, filter spans, per-block headers
+with CRC, the stored-block fallback, the zero sentinel).  The dictionary
+and filter stages are the JAX package's own host modules, imported.
+
+Not yet ported, and refused with an error instead of another format:
+chain mode (``F_CHAIN``, ``F_CHAIN_MATCH``; ROADMAP.md item 11) and the
+codecs P, X and F (items 12-14).
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from dataclasses import dataclass, field
+from typing import BinaryIO, Callable, Optional
+
+import numpy as np
+
+from comprox_tpu.codec import dictionary as dic
+from comprox_tpu.ops import filters as flt
+from comprox_tpu_torch.codec.block import BlockParams, decode_block, encode_block
+from comprox_tpu_torch.models.ppm import format_fingerprint
+
+MAGIC = b"CPXTPU02"
+_OLD_MAGICS = (b"CPXTPU01",)
+BF_STORED = 1
+BF_FILTERED = 2
+BF_DICT = 4
+F_DICT = 1
+F_FILTER = 2
+F_CHAIN = 4
+F_CHAIN_MATCH = 8
+_HDR_FMT = "<BHIBBBBBBBBI"
+HEADER_LEN = 8 + 1 + struct.calcsize(_HDR_FMT) + 4
+BLKHDR = "<IIBI"  # raw_n, payload len, flags, payload CRC32
+BLKHDR_LEN = struct.calcsize(BLKHDR)
+
+
+@dataclass(frozen=True)
+class ContainerParams:
+    codec: bytes = b"R"
+    block: BlockParams = field(default_factory=lambda: BlockParams(mode="R"))
+
+
+def _check_codec(codec: bytes) -> None:
+    if codec != b"R":
+        raise NotImplementedError(
+            f"codec {codec!r} is not yet ported to comprox_tpu_torch "
+            "(ROADMAP.md items 12-14): only R (crz) is"
+        )
+
+
+def write_header(f: BinaryIO, cp: ContainerParams, flags: int = 0) -> None:
+    b = cp.block
+    body = cp.codec + struct.pack(
+        _HDR_FMT, flags, b.lanes, b.steps, b.o3_bits, b.min_len,
+        1 if b.match else 0, b.rolz_bits, b.rolz_depth, b.rolz_ctx_bytes,
+        b.short_depth, b.rolz_dec, format_fingerprint(),
+    )
+    f.write(MAGIC + body + struct.pack("<I", zlib.crc32(body) & 0xFFFFFFFF))
+
+
+def read_header(f: BinaryIO) -> tuple[ContainerParams, int]:
+    magic = f.read(8)
+    if magic != MAGIC:
+        if magic in _OLD_MAGICS:
+            raise ValueError(
+                f"incompatible archive version {magic!r}: this build reads "
+                f"{MAGIC!r} archives (the stream format changed)"
+            )
+        raise ValueError(f"bad magic {magic!r}: not a comprox_tpu archive")
+    body = f.read(1 + struct.calcsize(_HDR_FMT))
+    crc_raw = f.read(4)
+    if len(body) < 1 + struct.calcsize(_HDR_FMT) or len(crc_raw) < 4:
+        raise ValueError("truncated archive: short container header")
+    if struct.unpack("<I", crc_raw)[0] != zlib.crc32(body) & 0xFFFFFFFF:
+        raise ValueError("corrupt archive: container header CRC mismatch")
+    codec = body[:1]
+    (
+        flags, lanes, steps, o3_bits, min_len, match, rolz_bits,
+        rolz_depth, rolz_ctx_bytes, short_depth, rolz_dec, knobs_crc,
+    ) = struct.unpack(_HDR_FMT, body[1:])
+    if knobs_crc != format_fingerprint():
+        raise ValueError(
+            "archive was encoded with different model constants "
+            "(CPX_* env knobs); decode in a matching environment"
+        )
+    if (flags & F_CHAIN_MATCH) and not (flags & F_CHAIN):
+        raise ValueError("corrupt archive: F_CHAIN_MATCH without F_CHAIN")
+    if flags & (F_CHAIN | F_CHAIN_MATCH):
+        raise NotImplementedError(
+            "chained archives (crz -c / -C) are not yet ported to "
+            "comprox_tpu_torch (ROADMAP.md item 11)"
+        )
+    _check_codec(codec)
+    bp = BlockParams(
+        lanes=lanes, steps=steps, mode="R", match=bool(match),
+        min_len=min_len, o3_bits=o3_bits, rolz_bits=rolz_bits,
+        rolz_depth=rolz_depth, rolz_ctx_bytes=rolz_ctx_bytes,
+        short_depth=short_depth, rolz_dec=rolz_dec,
+    )
+    return ContainerParams(codec=codec, block=bp), flags
+
+
+def encode_stream(
+    src: np.ndarray,
+    dst: BinaryIO,
+    cp: ContainerParams,
+    device,
+    filters: bool = False,
+    dictionary: bool = True,
+    precomp_only: bool = False,
+    progress: Optional[Callable[[int, int], None]] = None,
+) -> int:
+    """Encode ``src`` into ``dst`` on ``device``; returns the archive size.
+
+    The same bytes as ``comprox_tpu.codec.container.encode_stream`` with
+    the same arguments (unchained, one block at a time).  ``precomp_only``
+    runs just the dictionary stage and stores the substituted bytes.
+    """
+    _check_codec(cp.codec)
+    if precomp_only:
+        filters = False
+    wd = dic.build_dictionary(src) if dictionary else None
+    flags = (F_FILTER if filters else 0) | (F_DICT if wd else 0)
+    write_header(dst, cp, flags=flags)
+    written = HEADER_LEN
+    if wd is not None:
+        blob = dic.pack_dict(wd)
+        coded = dic.blob_encode(blob)
+        crc = zlib.crc32(blob) & 0xFFFFFFFF
+        if len(coded) < len(blob):
+            dst.write(struct.pack("<III", len(blob), len(coded), crc) + coded)
+            written += 12 + len(coded)
+        else:
+            dst.write(struct.pack("<III", len(blob), 0, crc) + blob)
+            written += 12 + len(blob)
+
+    total, done = src.size, 0
+    cap = cp.block.capacity
+    for off in range(0, src.size, cap):
+        raw_blk = src[off : off + cap]
+        blk, prefix, bflags = raw_blk, b"", 0
+        if filters:
+            spans = flt.detect_spans(blk)
+            if spans:
+                blk = flt.apply_spans(blk, spans, encode=True)
+                prefix = flt.pack_spans(spans)
+                bflags |= BF_FILTERED
+        if wd is not None:
+            sub = dic.dict_encode(blk, wd)
+            if sub.size < blk.size and sub.size <= cap:
+                blk = sub
+                prefix += struct.pack("<I", sub.size)
+                bflags |= BF_DICT
+        if precomp_only:
+            payload, bflags = prefix + blk.tobytes(), bflags | BF_STORED
+        else:
+            payload = prefix + encode_block(blk, cp.block, device)
+            if len(payload) >= raw_blk.size:  # stored fallback
+                payload, bflags = raw_blk.tobytes(), BF_STORED
+        dst.write(struct.pack(BLKHDR, raw_blk.size, len(payload), bflags,
+                              zlib.crc32(payload) & 0xFFFFFFFF))
+        dst.write(payload)
+        written += BLKHDR_LEN + len(payload)
+        done += raw_blk.size
+        if progress:
+            progress(done, total)
+    dst.write(struct.pack(BLKHDR, 0, 0, 0, 0))
+    return written + BLKHDR_LEN
+
+
+def decode_stream(
+    src: BinaryIO,
+    dst: BinaryIO,
+    device,
+    progress: Optional[Callable[[int, int], None]] = None,
+) -> int:
+    """Decode an unchained codec-R archive on ``device``; returns the raw
+    byte count."""
+    cp, flags = read_header(src)
+    wd = None
+    if flags & F_DICT:
+        hdr = src.read(12)
+        if len(hdr) < 12:
+            raise ValueError("truncated archive: short dictionary header")
+        blob_len, clen, crc = struct.unpack("<III", hdr)
+        blob = dic.blob_decode(src.read(clen), blob_len) if clen else src.read(blob_len)
+        if len(blob) != blob_len or zlib.crc32(blob) & 0xFFFFFFFF != crc:
+            raise ValueError("corrupt archive: dictionary blob CRC mismatch")
+        wd = dic.unpack_dict(blob)
+    total = 0
+    while True:
+        hdr = src.read(BLKHDR_LEN)
+        if len(hdr) < BLKHDR_LEN:
+            raise ValueError("truncated archive: missing block header")
+        raw_n, blen, bflags, crc = struct.unpack(BLKHDR, hdr)
+        if raw_n == 0:
+            break
+        payload = src.read(blen)
+        if len(payload) < blen:
+            raise ValueError("truncated archive: short block payload")
+        if zlib.crc32(payload) & 0xFFFFFFFF != crc:
+            raise ValueError("corrupt archive: block payload CRC mismatch")
+        if bflags & BF_DICT and wd is None:
+            raise ValueError(
+                "corrupt archive: block flagged dictionary-coded but the "
+                "header carries no dictionary"
+            )
+        spans = []
+        if bflags & BF_FILTERED and not bflags & BF_STORED:
+            spans, off = flt.unpack_spans(payload)
+            payload = payload[off:]
+        if bflags & BF_STORED:
+            if bflags & BF_DICT:  # precomp-only block: expand the dictionary
+                out = dic.dict_decode(np.frombuffer(payload[4:], np.uint8), wd)
+            else:
+                out = np.frombuffer(payload, np.uint8)
+        else:
+            n_dec = raw_n
+            if bflags & BF_DICT:
+                if len(payload) < 4:
+                    raise ValueError("corrupt block: missing dict-size prefix")
+                (n_dec,) = struct.unpack("<I", payload[:4])
+                payload = payload[4:]
+            out = decode_block(payload, n_dec, cp.block, device)
+            if bflags & BF_DICT:
+                out = dic.dict_decode(out, wd)
+        if out.size != raw_n:
+            raise ValueError(
+                f"corrupt block: decoded {out.size} bytes, header says {raw_n}"
+            )
+        if spans:
+            out = flt.apply_spans(out, spans, encode=False)
+        dst.write(out.tobytes())
+        total += raw_n
+        if progress:
+            progress(total, total)
+    return total

@@ -1,0 +1,248 @@
+// K1: the fused decode scan of mode R.
+//
+// Replaces comprox_tpu/codec/block.py::_decode_scan (2218-2248) and the R
+// branch of _decode_body (1980-2215).  Per step and lane: contexts, o3 and
+// bucket-row reads; the A event (o2 + SSE, slot -> symbol, rANS advance
+// with a lane-ordered word read); B (o1 literal with exclusion, or the
+// ROLZ index); C (match length); byte resolve (literal, o3 prediction, o1
+// literal or a copy from the output); the shared model updates; the
+// bucket insert of position pos-3.
+//
+// Bound on the H100: one CTA runs T dependent steps of ~12 barrier-
+// separated phases, and a coding lane reads ~1-2 KB of table rows per
+// step, so latency (global round trips and barriers) bounds it, not
+// bandwidth.  The lane-ordered word reads need one CTA-wide exclusive
+// prefix per slot, done with warp ballots and a 32-entry shared scan
+// instead of the JAX one-hot [S, S] product; the updates are winner-only
+// stores or integer atomics (no float path, no per-lane serialisation);
+// an event's symbol search runs only on the lanes that code it (JAX
+// computes every lane and masks the result); o2 rows (the A event) and
+// bucket rows are read by whole warps (coalesced), the bucket rows into a
+// shared-memory copy per lane, where the slot selections run.
+#include "ppm_r.cuh"
+
+namespace {
+
+struct StreamRead {
+  const int* stream;
+  int len, lanes;
+  // Word for lane-order index excl of a window starting at base + off,
+  // with the start clamped as lax.dynamic_slice clamps it.
+  __device__ uint32_t word(uint32_t start, int excl) const {
+    long long s = start >= 0x80000000u ? 0 : (long long)start;
+    s = max(0LL, min(s, (long long)(len - lanes)));
+    return (uint32_t)stream[s + excl] & 0xFFFFu;
+  }
+};
+
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__ stream,
+                          long long* __restrict__ states, Tables tb,
+                          int* __restrict__ rolz, uint8_t* __restrict__ out,
+                          long long* __restrict__ used, int* __restrict__ gpos,
+                          bool pos_in_smem) {
+  __shared__ SmemModel sm;
+  extern __shared__ int spos[];
+  const int i = threadIdx.x;
+  const bool alive = i < c.S;
+  const int d = c.rolz_depth;
+  const long long cap_n = (long long)c.S * c.T;
+  const StreamRead sr{stream, c.stream_len, c.S};
+  model_load(sm, tb);
+  __syncthreads();
+  uint32_t x = alive ? (uint32_t)states[i] : RANS_L;
+  uint32_t base = 0;
+  uint32_t ctx4 = 0, ctx4b = 0;
+  int copy_rem = 0, copy_src = 0;
+  // the lanes' copies of bucket rows: the A event's row until the byte is
+  // resolved, then the insert row
+  int* const posbuf = pos_in_smem ? spos : gpos;
+  const int pitch = pos_pitch(d);
+  int* const col = posbuf + (size_t)i * pitch;
+
+  for (int t = 0; t < c.T; ++t) {
+    o1_rescale(tb.o1, sm.o1sum, c.cap1);
+    __syncthreads();
+
+    // ---- A event
+    Ctx cx = common_reads(c, tb, i, t, ctx4, copy_rem, alive);
+    Upd u = {};
+    uint32_t xt = 0;
+    bool need = false;
+    const bool coding = alive && cx.coding;
+    int fill = warp_load_rows(
+        rolz, d, coding,
+        rolz_hash3(rolz_key(ctx4, c.rolz_ctx_bytes), c.rolz_bits), posbuf, pitch);
+    const AEvent a = warp_a_event<true>(c, tb.o2, coding, cx.ctx2, cx.pred,
+                                        cx.conf, fill, sm.sse, sm.sse_h, x, 0,
+                                        false);
+    if (coding) {
+      u.sse = a.sse;
+      u.halvings = a.h;
+      u.sym_a = a.sym;
+      uint32_t ca, fa;
+      norm_cf(a.c, max(a.f, 1), max(a.tot, 1), ca, fa);
+      xt = dec_advance(x, ca, fa);
+      need = xt < RANS_L;
+    } else if (alive) {
+      xt = dec_advance(x, 0, RANS_M);  // the identity event
+      need = xt < RANS_L;
+    }
+    int inw = cta_excl_prefix_a(need, sm.wtot[0]);
+    __syncthreads();
+    {
+      int total;
+      int ex = cta_excl_prefix_b(inw, sm.wtot[0], total);
+      if (need) x = (xt << 16) | sr.word(base, ex);
+      else if (alive) x = xt;
+      base += (uint32_t)total;
+    }
+    if (alive) {
+      u.coding = cx.coding;
+      u.is_lit = cx.coding && u.sym_a < 256;
+      u.is_hit = cx.coding && u.sym_a == SYM_HIT;
+      u.is_esc = cx.coding && u.sym_a == SYM_ESC;
+      u.is_match = cx.coding && u.sym_a == SYM_MATCH;
+      u.ctx2 = cx.ctx2; u.p1 = cx.p1; u.h3 = cx.h3; u.pred = cx.pred;
+      u.conf = cx.conf; u.raw = cx.raw;
+      u.idx_ctx = fill_bucket(fill);
+      if (u.is_match) sm.hot_idx[clampi(u.idx_ctx, 0, 3)] = 1;
+    }
+    upd_keys(sm, i, alive, u);
+    __syncthreads();
+    idx_rescale(c, sm);
+    __syncthreads();
+
+    // ---- B event: o1 literal (escape lanes) or ROLZ index (match lanes)
+    int sym1 = 0;
+    need = false;
+    const O1Event b = warp_o1_event<true>(tb.o1, tb.o2, u.is_esc, cx.p1, cx.ctx2,
+                                          a.h, cx.pred, cx.pred2, cx.conf2 > 0,
+                                          x, 0);
+    if (alive) {
+      uint32_t cb = 0, fb = RANS_M;
+      if (u.is_esc) {
+        sym1 = b.sym;
+        norm_cf(b.c, max(b.f, 1), max(b.tot, 1), cb, fb);
+      } else if (u.is_match) {
+        int ic = clampi(u.idx_ctx, 0, 3);
+        int tot_i = sm.idx_sum[ic];
+        int ci_raw, fi_raw;
+        u.sym_idx = find_symbol(PlainRow{sm.idx + ic * IDX_W}, IDX_W,
+                                (int)dec_target(x, max(tot_i, 1)), ci_raw, fi_raw);
+        u.len_ctx = rec_bucket(u.sym_idx);
+        norm_cf(ci_raw, max(fi_raw, 1), max(tot_i, 1), cb, fb);
+        sm.hot_len[clampi(u.len_ctx, 0, 3)] = 1;
+      }
+      xt = dec_advance(x, cb, fb);
+      need = xt < RANS_L;
+    }
+    inw = cta_excl_prefix_a(need, sm.wtot[1]);
+    __syncthreads();
+    {
+      int total;
+      int ex = cta_excl_prefix_b(inw, sm.wtot[1], total);
+      if (need) x = (xt << 16) | sr.word(base, ex);
+      else if (alive) x = xt;
+      base += (uint32_t)total;
+    }
+    len_rescale(c, sm);
+    __syncthreads();
+
+    // ---- C event: match length
+    int sym_l = 0;
+    need = false;
+    if (alive) {
+      uint32_t cc = 0, fc = RANS_M;
+      if (u.is_match) {
+        int lc = clampi(u.len_ctx, 0, 3);
+        int tot_l = sm.len_sum[lc];
+        int cl_raw, fl_raw;
+        sym_l = find_symbol(PlainRow{sm.len + lc * LEN_W}, LEN_W,
+                            (int)dec_target(x, max(tot_l, 1)), cl_raw, fl_raw);
+        norm_cf(cl_raw, max(fl_raw, 1), max(tot_l, 1), cc, fc);
+      }
+      xt = dec_advance(x, cc, fc);
+      need = xt < RANS_L;
+    }
+    inw = cta_excl_prefix_a(need, sm.wtot[2]);
+    __syncthreads();
+    {
+      int total;
+      int ex = cta_excl_prefix_b(inw, sm.wtot[2], total);
+      if (need) x = (xt << 16) | sr.word(base, ex);
+      else if (alive) x = xt;
+      base += (uint32_t)total;
+    }
+
+    // ---- resolve the byte, prepare the updates and the bucket insert
+    int byte = 0, src = 0, ins_key = -1;
+    uint32_t ctx4n = ctx4, ctx4bn = ctx4b;
+    const int s_match = warp_slot_of_rank(posbuf, pitch, d, u.is_match, u.sym_idx);
+    if (alive) {
+      if (u.is_match) src = (s_match >= 0 ? col[s_match] : 0) - 1;
+      byte = u.is_lit ? u.sym_a : 0;
+      if (u.is_hit) byte = cx.pred;
+      if (u.is_esc) byte = sym1;
+      if (u.is_match || cx.copying) {
+        long long g = u.is_match ? src : copy_src;
+        byte = out[max(0LL, min(g, cap_n - 1))];
+      }
+      byte = clampi(byte, 0, 255);
+      u.byte = byte;
+      u.f_byte = u.is_lit ? a.f : 0;
+      u.sym_len = u.is_match ? sym_l : 0;
+      if (cx.active) {
+        ctx4n = (ctx4 << 8) | (uint32_t)byte;
+        ctx4bn = (ctx4b << 8) | (ctx4 >> 24);
+      }
+      if (insert_here(c, cx.active, t, cx.pos))
+        ins_key = (int)rolz_hash3(rolz_key(ctx4bn, c.rolz_ctx_bytes), c.rolz_bits);
+    }
+    sm.key_ins[i] = ins_key;
+    __syncthreads();
+    int slot = bucket_slot(rolz, c, sm.key_ins, ins_key, posbuf, pitch);
+    __syncthreads();
+
+    // ---- stores, then additive updates
+    if (alive) {
+      upd_store(tb, sm, i, u);
+      if (slot >= 0) bucket_store(rolz, c, (uint32_t)ins_key, slot, cx.pos, byteswap32(ctx4n));
+      out[(size_t)i * c.T + t] = (uint8_t)(cx.active ? byte : 0);
+    }
+    __syncthreads();
+    if (alive) {
+      upd_add(c, tb, sm, u);
+      copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
+      copy_src = u.is_match ? src + 1 : copy_src + 1;
+      ctx4 = ctx4n;
+      ctx4b = ctx4bn;
+    }
+    __syncthreads();
+    upd_finish(sm);
+  }
+  __syncthreads();
+  model_store(sm, tb);
+  if (alive) states[i] = (long long)x;
+  if (i == 0) *used = (long long)base;
+}
+
+}  // namespace
+
+extern "C" int cpx_k1_launch(const int* cfg, const void* stream, void* states,
+                             void* o2, void* o1, void* o3, void* len, void* idx,
+                             void* sse, void* sse_h, void* rolz, void* out,
+                             void* used, void* gpos, void* cuda_stream) {
+  Cfg c;
+  memcpy(&c, cfg, sizeof(Cfg));
+  Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse, (int*)sse_h};
+  int threads = (c.S + 31) / 32 * 32;
+  size_t smem = pos_smem_bytes(c);
+  auto kernel = threads <= 512 ? k1_kernel<512> : k1_kernel<CPX_MAX_LANES>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<1, threads, smem, (cudaStream_t)cuda_stream>>>(
+      c, (const int*)stream, (long long*)states, tb, (int*)rolz,
+      (uint8_t*)out, (long long*)used, (int*)gpos, smem > 0);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,154 @@
+// K2: the forward modeling scan of encode.
+//
+// Replaces comprox_tpu/codec/block.py::_encode_model_body (1677-1895, mode
+// R) under the lax.scan of _encode_passes (1898-1941).  With the symbols
+// known from the parse, each step reads the A (o2 + SSE), B (o1 with
+// exclusion, or the ROLZ index) and C (match length) distributions, emits
+// the normalised (c, f, active) triple of each slot, then applies the
+// shared model updates.  Output: ev [T, 9, S] int32.
+//
+// The R branch reads its ROLZ index and bucket fill from the search pass
+// (block.py:1704-1713), never the bucket table, so this kernel keeps no
+// bucket table and does no bucket insert: the bytes are the same.
+//
+// Bound on the H100: T dependent steps in one CTA; per step a coding lane
+// reads its 260-entry o2 row (and an escaping lane its 256-entry o1 row)
+// and the step ends in four barriers.  Row loads by one thread per lane
+// would touch 32 rows per warp load, so the o2 row of each coding lane is
+// read by its whole warp (coalesced, warp reductions; the A event shared
+// with K1).  The design keeps the small models (len, idx, APMs, o1 row
+// sums) in shared memory, turns every table update into a winner-only
+// store or an integer atomicAdd, and does an event's work only on the
+// lanes that code it (JAX computes every lane and masks).
+#include "ppm_r.cuh"
+
+namespace {
+
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restrict__ inp,
+                          const int* __restrict__ dec, Tables tb,
+                          int* __restrict__ ev) {
+  __shared__ SmemModel sm;
+  const int i = threadIdx.x;
+  const bool alive = i < c.S;
+  model_load(sm, tb);
+  __syncthreads();
+  const size_t plane = (size_t)c.T * c.S;
+  uint32_t ctx4 = 0, ctx4b = 0;
+  int copy_rem = 0, copy_src = 0;
+
+  for (int t = 0; t < c.T; ++t) {
+    o1_rescale(tb.o1, sm.o1sum, c.cap1);
+    __syncthreads();
+
+    Ctx x = common_reads(c, tb, i, t, ctx4, copy_rem, alive);
+    Upd u = {};
+    int length = 0, src = 0, fill = 0, byte = 0;
+    int c1_raw = 0, f1_raw = 0, tot1 = 0;
+    uint32_t ca = 0, fa = RANS_M;
+    if (alive) {
+      size_t o = (size_t)t * c.S + i;
+      if (c.match) {
+        length = dec[o];
+        src = dec[plane + o];
+        u.sym_idx = dec[2 * plane + o];
+        fill = dec[3 * plane + o];
+      }
+      byte = inp[(size_t)i * c.T + t];
+      u.byte = byte;
+      u.ctx2 = x.ctx2; u.p1 = x.p1; u.h3 = x.h3; u.pred = x.pred;
+      u.conf = x.conf; u.raw = x.raw;
+      u.idx_ctx = fill_bucket(fill);
+      u.len_ctx = rec_bucket(u.sym_idx);
+      u.sym_len = clampi(length - c.min_len, 0, LEN_W - 1);
+    }
+    const bool coding = alive && x.coding;
+    const AEvent a = warp_a_event<false>(c, tb.o2, coding, x.ctx2, x.pred, x.conf,
+                                         fill, sm.sse, sm.sse_h, 0u, byte,
+                                         length > 0);
+    if (coding) {
+      u.sse = a.sse;
+      u.halvings = a.h;
+      const int sym_a = a.sym;
+      norm_cf(a.c, max(a.f, 1), max(a.tot, 1), ca, fa);
+      u.coding = true;
+      u.sym_a = sym_a;
+      u.f_byte = a.fbyte;
+      u.is_lit = sym_a < 256;
+      u.is_hit = sym_a == SYM_HIT;
+      u.is_esc = sym_a == SYM_ESC;
+      u.is_match = sym_a == SYM_MATCH;
+      if (u.is_match) {
+        sm.hot_idx[clampi(u.idx_ctx, 0, 3)] = 1;
+        sm.hot_len[clampi(u.len_ctx, 0, 3)] = 1;
+      }
+    }
+    // B, o1 part (the o1 table is final for this step after its rescale)
+    const O1Event b = warp_o1_event<false>(tb.o1, tb.o2, u.is_esc, x.p1, x.ctx2,
+                                           a.h, x.pred, x.pred2, x.conf2 > 0,
+                                           0u, byte);
+    if (u.is_esc) {
+      tot1 = b.tot;
+      c1_raw = b.c;
+      f1_raw = b.f;
+    }
+    upd_keys(sm, i, alive, u);
+    __syncthreads();
+
+    idx_rescale(c, sm);
+    len_rescale(c, sm);
+    __syncthreads();
+
+    if (alive) {
+      uint32_t cb = 0, fb = RANS_M, cc = 0, fc = RANS_M;
+      if (u.is_esc) norm_cf(c1_raw, max(f1_raw, 1), max(tot1, 1), cb, fb);
+      if (u.is_match) {
+        int ic = clampi(u.idx_ctx, 0, 3), lc = clampi(u.len_ctx, 0, 3);
+        int ci_raw, fi_raw, cl_raw, fl_raw;
+        cum_frq_of(PlainRow{sm.idx + ic * IDX_W}, IDX_W, u.sym_idx, ci_raw, fi_raw);
+        norm_cf(ci_raw, max(fi_raw, 1), max(sm.idx_sum[ic], 1), cb, fb);
+        cum_frq_of(PlainRow{sm.len + lc * LEN_W}, LEN_W, u.sym_len, cl_raw, fl_raw);
+        norm_cf(cl_raw, max(fl_raw, 1), max(sm.len_sum[lc], 1), cc, fc);
+      }
+      int* e = ev + (size_t)t * 9 * c.S + i;
+      e[0 * c.S] = (int)ca; e[1 * c.S] = (int)fa; e[2 * c.S] = x.coding;
+      e[3 * c.S] = (int)cb; e[4 * c.S] = (int)fb; e[5 * c.S] = u.is_esc || u.is_match;
+      e[6 * c.S] = (int)cc; e[7 * c.S] = (int)fc; e[8 * c.S] = u.is_match;
+      upd_store(tb, sm, i, u);
+    }
+    __syncthreads();
+
+    if (alive) {
+      upd_add(c, tb, sm, u);
+      // block.py::_post_step, R branch, without the bucket insert
+      copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
+      copy_src = u.is_match ? src + 1 : copy_src + 1;
+      if (x.active) {
+        ctx4b = (ctx4b << 8) | (ctx4 >> 24);
+        ctx4 = (ctx4 << 8) | (uint32_t)byte;
+      }
+    }
+    __syncthreads();
+    upd_finish(sm);
+  }
+  __syncthreads();
+  model_store(sm, tb);
+}
+
+}  // namespace
+
+extern "C" int cpx_k2_launch(const int* cfg, const void* inp, const void* dec,
+                             void* o2, void* o1, void* o3, void* len, void* idx,
+                             void* sse, void* sse_h, void* ev, void* stream) {
+  Cfg c;
+  memcpy(&c, cfg, sizeof(Cfg));
+  Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse, (int*)sse_h};
+  int threads = (c.S + 31) / 32 * 32;
+  if (threads <= 512)
+    k2_kernel<512><<<1, threads, 0, (cudaStream_t)stream>>>(
+        c, (const uint8_t*)inp, (const int*)dec, tb, (int*)ev);
+  else
+    k2_kernel<CPX_MAX_LANES><<<1, threads, 0, (cudaStream_t)stream>>>(
+        c, (const uint8_t*)inp, (const int*)dec, tb, (int*)ev);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,855 @@
+// Mode-R model code shared by the search (KS), modeling (K2) and decode
+// (K1) kernels: one set of __device__ functions for encode and decode, so
+// the table evolution is the same on both sides (the JAX package's rule
+// that encode and decode share their model read/update functions).
+//
+// Counterpart of comprox_tpu/models/{tables,ppm}.py (mode-R subset, default
+// knobs) and of the ROLZ helpers of comprox_tpu/codec/block.py.  Integer
+// semantics follow the JAX code exactly: int32 tables and model arithmetic
+// (floor division and arithmetic shifts), uint32 rANS states and context
+// registers.  No value ever goes through a floating-point unit.
+//
+// Execution model of the three scan kernels: one CTA per block, one thread
+// per lane, the step loop inside the kernel.  Every step has read phases
+// and update phases separated by __syncthreads(): each read of step t sees
+// the tables after step t-1, each update of step t is computed from step
+// t's reads (the semantics of one lax.scan step).  Threads past the lane
+// count ("dead" lanes) join every barrier and do no lane work.
+#pragma once
+
+#include <cstdint>
+#include <cstring>
+#include <cuda_runtime.h>
+
+#define CPX_MAX_LANES 1024
+#define CPX_MAX_DEPTH 80  // rolz_depth <= IDX_W
+#define O2_W 260
+#define SYM_HIT 256
+#define SYM_ESC 257
+#define SYM_MATCH 258
+#define SYM_HIT2 259
+#define O1_N 256
+#define LEN_W 256
+#define IDX_W 80
+#define N_SHARED_CTX 4
+#define SSE_NCTX 20
+#define SSE_HCTX 6
+#define SSE_K (SSE_NCTX * 33)
+#define SSE_HK (SSE_HCTX * 33)
+#define SSE_LO 16
+#define SSE_HI 65520
+#define SSE_RATE_SH 5
+#define M_BITS 15
+#define RANS_M (1u << M_BITS)
+#define RANS_L (1u << 16)
+
+// Block geometry and model knobs, filled from a host int32 array in field
+// order (comprox_tpu_torch/codec/block.py::_cfg_array builds it).
+struct Cfg {
+  int S, T, n, min_len, window, o3_bits, rolz_bits, rolz_depth,
+      rolz_ctx_bytes, rolz_dec, top_k, probe, match, use_sse, inc2, cap2,
+      inc1, cap1, len_inc, len_cap, idx_inc, idx_cap, stream_len;
+};
+
+static __device__ const int kSseThr[33] = {
+    22,    36,    60,    98,    162,   267,   439,   720,   1179,
+    1921,  3108,  4971,  7812,  11955, 17625, 24743, 32768, 40793,
+    47911, 53581, 57724, 60565, 62428, 63615, 64357, 64816, 65097,
+    65269, 65374, 65438, 65476, 65500, 65514};
+
+static __device__ __forceinline__ int floordiv(int a, int b) {
+  int q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
+  return q;
+}
+
+static __device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return min(max(x, lo), hi);
+}
+
+// ---------------------------------------------------------------- rANS ----
+static __device__ __forceinline__ void norm_cf(int cum, int frq, int tot,
+                                        uint32_t& c, uint32_t& f) {
+  uint32_t uc = (uint32_t)cum, uf = (uint32_t)frq, ut = (uint32_t)tot;
+  uint32_t c1 = (uc << M_BITS) / ut;
+  uint32_t c2 = ((uc + uf) << M_BITS) / ut;
+  c = c1;
+  f = c2 - c1;
+}
+
+static __device__ __forceinline__ uint32_t dec_target(uint32_t x, int tot) {
+  uint32_t slot = x & (RANS_M - 1), ut = (uint32_t)tot;
+  return (slot * ut + ut - 1u) >> M_BITS;
+}
+
+static __device__ __forceinline__ uint32_t dec_advance(uint32_t x, uint32_t c,
+                                                uint32_t f) {
+  return f * (x >> M_BITS) + (x & (RANS_M - 1)) - c;
+}
+
+// ---------------------------------------------------------- ROLZ helpers --
+static __device__ __forceinline__ uint32_t rolz_hash3(uint32_t key, int bits) {
+  uint32_t v = key * 2654435761u;
+  return (v >> (32 - bits)) & ((1u << bits) - 1u);
+}
+
+static __device__ __forceinline__ uint32_t rolz_key(uint32_t ctx4, int ctx_bytes) {
+  return ctx_bytes == 3 ? (ctx4 & 0xFFFFFFu) : ctx4;
+}
+
+static __device__ __forceinline__ uint32_t byteswap32(uint32_t v) {
+  return ((v & 0xFFu) << 24) | ((v & 0xFF00u) << 8) | ((v >> 8) & 0xFF00u) |
+         (v >> 24);
+}
+
+static __device__ __forceinline__ int rec_bucket(int idx) {
+  return (idx >= 1) + (idx >= 4) + (idx >= 16);
+}
+
+static __device__ __forceinline__ int fill_bucket(int fill) {
+  return clampi(floordiv(fill - 1, 16), 0, 3);
+}
+
+// (pos, slot) order: entry a is newer than entry b.  Positions strictly
+// increase with time; equal positions (empties) order by slot id.
+static __device__ __forceinline__ bool newer(int pa, int sa, int pb, int sb) {
+  return pa > pb || (pa == pb && sa > sb);
+}
+
+// Recency rank of slot s: how many entries of the row are newer.
+static __device__ __forceinline__ int recency_rank(const int* pos, int d, int s) {
+  int r = 0, ps = pos[s];
+  for (int j = 0; j < d; ++j) r += newer(pos[j], j, ps, s);
+  return r;
+}
+
+// The k-th slot in newest-first (or oldest-first) order: k + 1 passes of
+// selecting the next entry after the last pick.
+static __device__ int select_kth(const int* pos, int d, int k, bool newest_first) {
+  int ps = 0, ss = -1;
+  for (int pass = 0; pass <= k; ++pass) {
+    int bp = 0, bs = -1;
+    for (int j = 0; j < d; ++j) {
+      int pj = pos[j];
+      if (ss >= 0 && (newest_first ? !newer(ps, ss, pj, j)
+                                   : !newer(pj, j, ps, ss)))
+        continue;  // picked already
+      if (bs < 0 || (newest_first ? newer(pj, j, bp, bs) : newer(bp, bs, pj, j))) {
+        bp = pj;
+        bs = j;
+      }
+    }
+    ps = bp;
+    ss = bs;
+  }
+  return ss;
+}
+
+// The slot whose recency rank is r (r-th newest), or -1 if r is outside
+// [0, d).  Rank and age (d-1-rank) index one total order from its two
+// ends: select from the nearer end.
+static __device__ int slot_of_rank(const int* pos, int d, int r) {
+  if (r < 0 || r >= d) return -1;
+  return 2 * r < d ? select_kth(pos, d, r, true)
+                   : select_kth(pos, d, d - 1 - r, false);
+}
+
+// ------------------------------------------------------------ o2 / SSE ----
+static __device__ __forceinline__ int halve1(int x, bool sticky) {
+  x = max(x, 0);
+  return sticky ? (x + 1) >> 1 : x >> 1;
+}
+
+static __device__ __forceinline__ bool o2_sticky(int k) { return k >= SYM_HIT; }
+
+// x after h (0..3) read-time halving rounds.  Written as three guarded
+// steps: nvcc 12.8 did not finish compiling the loop form `for (j < h)`
+// once inlined into the SSE read.
+static __device__ __forceinline__ int halve_n(int x, int h, bool sticky) {
+  if (h > 0) x = halve1(x, sticky);
+  if (h > 1) x = halve1(x, sticky);
+  if (h > 2) x = halve1(x, sticky);
+  return x;
+}
+
+// Sum of row(k) for k < n.
+template <typename RowFn>
+static __device__ int sum_prefix(RowFn row, int n) {
+  int s = 0;
+  for (int k = 0; k < n; ++k) s += row(k);
+  return s;
+}
+
+struct ApmPt {
+  int flat, w, ti, tip1;
+};
+
+static __device__ int apm_read(const int* tab, int k, int ctx, int p16, ApmPt& st) {
+  int i = 0;
+  for (int j = 1; j < 32; ++j) i += (p16 >= kSseThr[j]);
+  int thr_i = kSseThr[i];
+  int span_i = max(kSseThr[i + 1] - thr_i, 1);
+  st.w = clampi(floordiv((p16 - thr_i) * 64, span_i), 0, 64);
+  st.flat = ctx * 33 + i;
+  st.ti = (st.flat >= 0 && st.flat < k) ? tab[st.flat] : 0;
+  st.tip1 = (st.flat + 1 >= 0 && st.flat + 1 < k) ? tab[st.flat + 1] : 0;
+  return ((64 - st.w) * st.ti + st.w * st.tip1) >> 6;
+}
+
+static __device__ void apm_add(int* tab, int k, const ApmPt& st, bool outcome) {
+  int h = outcome ? (1 << 16) : 0;
+  int d_i = ((64 - st.w) * (h - st.ti)) >> (6 + SSE_RATE_SH);
+  int d_ip1 = (st.w * (h - st.tip1)) >> (6 + SSE_RATE_SH);
+  if (st.flat >= 0 && st.flat < k) atomicAdd(&tab[st.flat], d_i);
+  if (st.flat + 1 >= 0 && st.flat + 1 < k) atomicAdd(&tab[st.flat + 1], d_ip1);
+}
+
+struct SseState {
+  ApmPt m, h;
+  bool act_h;
+};
+
+// The SSE stage on the A distribution (hit APM, then match APM): rewrites
+// the HIT and MATCH frequencies of a rowmod whose sum is tot; returns the
+// new sum.
+static __device__ int sse_reshape(int& f_hit, int& f_match, int f_hit2, int tot,
+                                  const int* sse, const int* sse_h, int fill,
+                                  int conf, SseState& st) {
+  int f_h0 = f_hit;
+  int tot_h = max(tot, 1);
+  int p16h = clampi(floordiv(f_h0 * 4096, tot_h), 1, 4095) << 4;
+  int hctx = (clampi(conf, 1, 3) - 1) * 2 + (fill > 0 ? 1 : 0);
+  int ph = apm_read(sse_h, SSE_HK, hctx, p16h, st.h);
+  int ph12 = clampi(ph >> 4, 1, 4095);
+  int f_h_new = floordiv(ph12 * (tot_h - f_h0), 4096 - ph12);
+  f_h_new = min(max(f_h_new, 1), f_h0 + max(32768 - tot_h, 0));
+  st.act_h = conf > 0;
+  int fh = st.act_h ? f_h_new : f_h0;
+  f_hit = fh;
+  int tot0 = tot - f_h0 + fh;
+
+  int f_m = f_match;
+  int rest = max(tot0 - fh - f_hit2, 1);
+  int p16 = clampi(floordiv(f_m * 4096, rest), 1, 4095) << 4;
+  int fillc = fill > 0 ? 1 + clampi(floordiv(fill - 1, 16), 0, 3) : 0;
+  int mctx = fillc * 4 + clampi(conf, 0, 3);
+  int ps = apm_read(sse, SSE_K, mctx, p16, st.m);
+  int ps12 = clampi(ps >> 4, 1, 4095);
+  int f_new = floordiv(ps12 * (rest - f_m), 4096 - ps12);
+  f_new = min(max(f_new, 1), f_m + max(32768 - tot0, 0));
+  f_match = f_new;
+  return tot0 - f_m + f_new;
+}
+
+// One slot of the A event's distribution (ppm.read_o2's rowmod) from its
+// raw step-start count: h halving rounds, the predicted byte's slot
+// zeroed, the escape, HIT and MATCH slots as the read set them.
+static __device__ __forceinline__ int rowmod_slot(int k, int raw, int h, int pred,
+                                                  int esc, int hit, int match) {
+  if (k == pred) return 0;
+  if (k == SYM_ESC) return esc;
+  if (k == SYM_HIT) return hit;
+  if (k == SYM_MATCH) return match;
+  return halve_n(raw, h, o2_sticky(k));
+}
+
+// v[m] for a warp-uniform m < N, without indexing a register array.
+template <int N>
+static __device__ __forceinline__ int pick(const int (&v)[N], int m) {
+  int r = 0;
+#pragma unroll
+  for (int u = 0; u < N; ++u) r = u == m ? v[u] : r;
+  return r;
+}
+
+// Over a row the warp holds as w[m] = slot 32*m + lane (0 past width n):
+// count(cums <= tgt) of the exclusive cumulative counts, by a warp scan
+// per 32-slot chunk (the JAX find_symbol's count; zero or negative slots
+// make it differ from a search for the first prefix above tgt).
+template <int N>
+static __device__ int warp_count_le(const int (&w)[N], int n, int tgt) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  int base = 0, cnt = 0;
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    int incl = w[m];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      int y = __shfl_up_sync(full, incl, off);
+      if (lane >= off) incl += y;
+    }
+    cnt += (32 * m + lane < n) && base + incl - w[m] <= tgt;
+    base += __shfl_sync(full, incl, 31);
+  }
+  return __reduce_add_sync(full, cnt);
+}
+
+// (cum, freq) of slot sym (warp-uniform, in the row) of such a row.
+template <int N>
+static __device__ void warp_cum_frq(const int (&w)[N], int sym, int& c, int& f) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  int part = 0;
+#pragma unroll
+  for (int m = 0; m < N; ++m) part += 32 * m + lane < sym ? w[m] : 0;
+  c = __reduce_add_sync(full, part);
+  f = __shfl_sync(full, pick(w, sym >> 5), sym & 31);
+}
+
+#define O2_CHUNKS 9  // ceil(O2_W / 32): slot k = 32 * m + lane of the warp
+#define O1_CHUNKS (O1_N / 32)
+
+// The A event of one lane: its distribution's total, the halving rounds
+// of its o2 row (for the winner's table write), the coded symbol with its
+// raw (cum, freq), the byte's frequency (encode) and the SSE state.
+struct AEvent {
+  int tot, h, sym, c, f, fbyte;
+  SseState sse;
+};
+
+// The A event of every lane of the warp with want set (ppm.read_o2 with
+// the SSE stage, then decode's slot search or encode's lookup of the known
+// symbol), the whole warp reading one lane's o2 row at a time: slot
+// 32*m + lane in register m, so that every load is coalesced, the row sums
+// and cumulative counts by warp reductions and scans.  Decode (DECODE)
+// finds count(cums <= target) - 1, clipped, for the lane's rANS state x;
+// encode takes the symbol from the lane's byte and match flag (the JAX
+// rule of block.py::_encode_model_body).  Call with the warp converged.
+template <bool DECODE>
+static __device__ AEvent warp_a_event(const Cfg& cfg, const int* o2, bool want,
+                                      int ctx2, int pred, int conf, int fill,
+                                      const int* sse, const int* sse_h, uint32_t x,
+                                      int byte, bool is_match) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  AEvent mine{};
+  unsigned todo = __ballot_sync(full, want);
+  while (todo) {
+    const int l = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int pr = __shfl_sync(full, pred, l);
+    const int* row = o2 + (size_t)__shfl_sync(full, ctx2, l) * O2_W;
+    int v[O2_CHUNKS];
+#pragma unroll
+    for (int m = 0; m < O2_CHUNKS; ++m) {
+      int k = 32 * m + lane;
+      v[m] = k < O2_W ? row[k] : 0;
+    }
+    // the row sum after 0, 1, 2 and 3 halving rounds
+    int s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+#pragma unroll
+    for (int m = 0; m < O2_CHUNKS; ++m) {
+      bool st = o2_sticky(32 * m + lane);
+      int y = v[m];  // 0 past the row
+      s0 += y;
+      y = halve1(y, st);
+      s1 += y;
+      y = halve1(y, st);
+      s2 += y;
+      s3 += halve1(y, st);
+    }
+    s0 = __reduce_add_sync(full, s0);
+    s1 = __reduce_add_sync(full, s1);
+    s2 = __reduce_add_sync(full, s2);
+    s3 = __reduce_add_sync(full, s3);
+    // a round halves while the sum is over the cap, at most three rounds
+    int h = 0, sum = s0;
+    if (sum > cfg.cap2) { h = 1; sum = s1; }
+    if (h == 1 && sum > cfg.cap2) { h = 2; sum = s2; }
+    if (h == 2 && sum > cfg.cap2) { h = 3; sum = s3; }
+    // slots 256..259 are register 8 of lanes 0..3
+    const int esc0 = halve_n(__shfl_sync(full, v[8], SYM_ESC - 256), h, true);
+    const int esc = max(esc0, 1);
+    int hit = halve_n(__shfl_sync(full, v[8], SYM_HIT - 256), h, true);
+    int match = halve_n(__shfl_sync(full, v[8], SYM_MATCH - 256), h, true);
+    sum += esc - esc0 - halve_n(__shfl_sync(full, pick(v, pr >> 5), pr & 31), h, false);
+    SseState st{};
+    if (cfg.use_sse)
+      sum = sse_reshape(hit, match,
+                        halve_n(__shfl_sync(full, v[8], SYM_HIT2 - 256), h, true), sum,
+                        sse, sse_h, __shfl_sync(full, fill, l),
+                        __shfl_sync(full, conf, l), st);
+    int w[O2_CHUNKS];
+#pragma unroll
+    for (int m = 0; m < O2_CHUNKS; ++m) {
+      int k = 32 * m + lane;
+      w[m] = k < O2_W ? rowmod_slot(k, v[m], h, pr, esc, hit, match) : 0;
+    }
+    int sym, fbyte = 0;
+    if (DECODE) {
+      const int tgt = (int)dec_target(__shfl_sync(full, x, l), max(sum, 1));
+      sym = clampi(warp_count_le(w, O2_W, tgt) - 1, 0, O2_W - 1);
+    } else {
+      const int bt = __shfl_sync(full, byte, l);
+      fbyte = __shfl_sync(full, pick(w, bt >> 5), bt & 31);
+      sym = __shfl_sync(full, (int)is_match, l) ? SYM_MATCH
+            : bt == pr                           ? SYM_HIT
+            : fbyte > 0                          ? bt
+                                                 : SYM_ESC;
+    }
+    int cum, frq;
+    warp_cum_frq(w, sym, cum, frq);
+    if (lane == l) mine = AEvent{sum, h, sym, cum, frq, fbyte, st};
+  }
+  return mine;
+}
+
+// ---- symbol search / lookup in a row (exclusive prefix sums, int32) ----
+// count(cums <= tgt) - 1, clipped: the JAX find_symbol (not a search for
+// the first prefix above tgt: zero or negative slots change the count).
+template <typename RowFn>
+static __device__ int find_symbol(RowFn row, int w, int tgt, int& c, int& f) {
+  int cum = 0, cnt = 0;
+  for (int k = 0; k < w; ++k) {
+    cnt += (cum <= tgt);
+    cum += row(k);
+  }
+  int sym = clampi(cnt - 1, 0, w - 1);
+  c = sum_prefix(row, sym);
+  f = row(sym);
+  return sym;
+}
+
+// (cum, frq) of a known symbol; 0 outside the row.
+template <typename RowFn>
+static __device__ void cum_frq_of(RowFn row, int w, int sym, int& c, int& f) {
+  if (sym < 0 || sym >= w) { c = 0; f = 0; return; }
+  c = sum_prefix(row, sym);
+  f = row(sym);
+}
+
+// The o1 part of the B event (ppm.read_o1_excl) for every escaping lane
+// of the warp (want): the o1 row under the lane's p1, weighted 8f-7,
+// excluding the predicted bytes and every byte present in its o2 row
+// after the A event's h halving rounds; then decode's slot search for the
+// lane's state x, or encode's lookup of the lane's byte.  The whole warp
+// reads one lane's rows at a time, slot 32*m + lane in register m.  Call
+// with the warp converged.  Returns (tot, sym, cum, freq) on each lane.
+struct O1Event {
+  int tot, sym, c, f;
+};
+
+template <bool DECODE>
+static __device__ O1Event warp_o1_event(const int* o1, const int* o2, bool want,
+                                        int p1, int ctx2, int h, int pred,
+                                        int pred2, bool valid2, uint32_t x,
+                                        int byte) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  O1Event mine{};
+  unsigned todo = __ballot_sync(full, want);
+  while (todo) {
+    const int l = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int* o1row = o1 + __shfl_sync(full, p1, l) * O1_N;
+    const int* o2row = o2 + (size_t)__shfl_sync(full, ctx2, l) * O2_W;
+    const int hl = __shfl_sync(full, h, l), pr = __shfl_sync(full, pred, l);
+    const int pr2 = __shfl_sync(full, valid2 ? pred2 : -1, l);
+    int a[O1_CHUNKS], b[O1_CHUNKS];
+#pragma unroll
+    for (int m = 0; m < O1_CHUNKS; ++m) {
+      a[m] = o1row[32 * m + lane];
+      b[m] = o2row[32 * m + lane];
+    }
+    int w[O1_CHUNKS], tot = 0;
+#pragma unroll
+    for (int m = 0; m < O1_CHUNKS; ++m) {
+      int k = 32 * m + lane;
+      bool ex = k == pr || k == pr2 || halve_n(b[m], hl, false) > 0;
+      w[m] = ex ? 0 : a[m] * 8 - 7;
+      tot += w[m];
+    }
+    tot = __reduce_add_sync(full, tot);
+    int sym;
+    if (DECODE) {
+      const int tgt = (int)dec_target(__shfl_sync(full, x, l), max(tot, 1));
+      sym = clampi(warp_count_le(w, O1_N, tgt) - 1, 0, O1_N - 1);
+    } else {
+      sym = __shfl_sync(full, byte, l);
+    }
+    int cum, frq;
+    warp_cum_frq(w, sym, cum, frq);
+    if (lane == l) mine = O1Event{tot, sym, cum, frq};
+  }
+  return mine;
+}
+
+struct PlainRow {
+  const int* p;
+  __device__ int operator()(int k) const { return p[k]; }
+};
+
+// ------------------------------------------------------ shared updates ----
+static __device__ __forceinline__ int o3_nc(int cf) {
+  return (cf > 1) + (cf > 2) + (cf > 4) + (cf > 8);
+}
+
+// The winner's o2 rescale write: apply the same h halving rounds the read
+// applied (rows0 is still the step-start row: winners are unique per row
+// and no lane adds before the next barrier).
+static __device__ void o2_write_halved(int* o2row, int h) {
+  if (h == 0) return;
+  for (int k = 0; k < O2_W; ++k) o2row[k] = halve_n(o2row[k], h, o2_sticky(k));
+}
+
+// Number of lower lanes with the same key as lane i (the insert rank).
+// keys is a 16-byte aligned shared array: four keys per broadcast load.
+static __device__ __forceinline__ int lower_same(const int* keys, int i) {
+  const int4* k4 = reinterpret_cast<const int4*>(keys);
+  int k = keys[i], r = 0, j = 0;
+  for (; j + 4 <= i; j += 4) {
+    int4 v = k4[j >> 2];
+    r += (v.x == k) + (v.y == k) + (v.z == k) + (v.w == k);
+  }
+  for (; j < i; ++j) r += keys[j] == k;
+  return r;
+}
+
+// Is lane i the minimum lane with its key among the keyed lanes (key >= 0)?
+static __device__ __forceinline__ bool is_winner(const int* keys, int i) {
+  return keys[i] >= 0 && lower_same(keys, i) == 0;
+}
+
+// Halve (in place) every o1 row whose maintained sum is over the cap and
+// refresh that sum.  o1sum[] lives in shared memory.  Warp-cooperative.
+static __device__ void o1_rescale(int* o1, int* o1sum, int cap1) {
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int nwarps = blockDim.x >> 5;
+  for (int row = warp; row < O1_N; row += nwarps) {
+    if (o1sum[row] <= cap1) continue;
+    int s = 0;
+    for (int k = lane; k < O1_N; k += 32) {
+      int v = (o1[row * O1_N + k] + 1) >> 1;
+      o1[row * O1_N + k] = v;
+      s += v;
+    }
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    __syncwarp();
+    if (lane == 0) o1sum[row] = s;
+  }
+}
+
+// Rescale the hot rows of a dense shared model (len or idx) and refresh
+// its row sums; run by one thread per context row.
+static __device__ void shared_rescale_row(int* row, int w, bool hot, int cap,
+                                   int& sum_out) {
+  int s = 0;
+  for (int k = 0; k < w; ++k) s += row[k];
+  for (int round = 0; round < 3; ++round) {
+    if (!(hot && s > cap)) break;
+    s = 0;
+    for (int k = 0; k < w; ++k) {
+      row[k] = (row[k] + 1) >> 1;
+      s += row[k];
+    }
+  }
+  sum_out = s;
+}
+
+// Exclusive lane-order prefix of a per-lane flag across the CTA.  Call by
+// every thread; wtot is a shared [32] scratch this call owns until the
+// next barrier after it.  Returns the exclusive prefix, sets total.
+static __device__ __forceinline__ int cta_excl_prefix_a(bool flag, int* wtot) {
+  unsigned b = __ballot_sync(0xffffffffu, flag);
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) wtot[warp] = __popc(b);
+  return __popc(b & ((1u << lane) - 1u));
+}
+
+static __device__ __forceinline__ int cta_excl_prefix_b(int in_warp, const int* wtot,
+                                                 int& total) {
+  int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  int before = 0, tot = 0;
+  for (int w = 0; w < nwarps; ++w) {
+    before += (w < warp) ? wtot[w] : 0;
+    tot += wtot[w];
+  }
+  total = tot;
+  return before + in_warp;
+}
+
+// ROLZ bucket insert, last phase: the entry for position q = pos-3.
+static __device__ __forceinline__ void bucket_store(int* rolz, const Cfg& cfg,
+                                             uint32_t rctx, int slot, int pos,
+                                             uint32_t nx4) {
+  int* e = rolz + ((size_t)rctx * cfg.rolz_depth + slot) * 2;
+  e[0] = pos - 3 + 1;
+  e[1] = (int)nx4;
+}
+
+// Whether a lane inserts at this step (both sides: position-driven).
+static __device__ __forceinline__ bool insert_here(const Cfg& cfg, bool active, int t,
+                                            int pos) {
+  bool ins = active && (t >= (cfg.rolz_ctx_bytes == 4 ? 7 : 6));
+  if (cfg.rolz_dec > 1) ins = ins && (pos % cfg.rolz_dec == 0);
+  return ins;
+}
+
+// The bucket-reading kernels (KS, K1) keep each lane's copy of a bucket
+// row's positions in an [S, D+1] array: lane i's at pos + i * (D+1).  The
+// odd pitch keeps both a warp's stores of one row and the lanes' scans of
+// their own rows free of shared-memory bank conflicts.  The array is in
+// dynamic shared memory up to this size, else in a global scratch array.
+#define CPX_POS_SMEM_MAX (200 * 1024)
+
+static __host__ __device__ __forceinline__ int pos_pitch(int d) { return d + 1; }
+
+// score_bytes: the bytes per entry of an array a kernel keeps beside the
+// positions (KS keeps a one-byte prefix score; the global scratch has room
+// for up to four).
+static inline size_t pos_smem_bytes(const Cfg& c, int score_bytes = 0) {
+  size_t need = (size_t)pos_pitch(c.rolz_depth) * c.S * (sizeof(int) + score_bytes);
+  return need <= CPX_POS_SMEM_MAX ? need : 0;
+}
+
+// Copy bucket rows into the lanes' position arrays, a warp at a time: for
+// each lane of the warp with want set, the whole warp reads row rctx with
+// consecutive entries on consecutive threads (coalesced), eight rows in
+// flight, and stores the positions into that lane's array.  Returns the
+// lane's fill (the used slots of its row).  Call with the warp converged;
+// d <= CPX_MAX_DEPTH (three entries a thread).
+static __device__ int warp_load_rows(const int* rolz, int d, bool want,
+                                     uint32_t rctx, int* pos, int pitch) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, wbase = threadIdx.x & ~31;
+  const unsigned wanted = __ballot_sync(full, want);
+  int fill = 0;
+  for (int g = 0; g < 32; g += 8) {
+    if (!((wanted >> g) & 0xFFu)) continue;
+    int v[8][3];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      uint32_t r = __shfl_sync(full, rctx, g + u);
+      bool w = (wanted >> (g + u)) & 1u;
+      const int* row = rolz + (size_t)r * d * 2;
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        int j = lane + 32 * m;
+        v[u][m] = (w && j < d) ? row[2 * j] : 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (!((wanted >> (g + u)) & 1u)) continue;
+      int* dst = pos + (size_t)(wbase + g + u) * pitch;
+      int cnt = 0;
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        int j = lane + 32 * m;
+        if (j < d) {
+          dst[j] = v[u][m];
+          cnt += v[u][m] > 0;
+        }
+      }
+      cnt = __reduce_add_sync(full, cnt);
+      if (lane == g + u) fill = cnt;
+    }
+  }
+  return fill;
+}
+
+// For each querying lane, the slot of its row (in pos) whose recency rank
+// is k, or -1 if k is outside [0, d).  A lane whose k is within one of
+// either end of the order selects alone (at most two passes over its
+// row); the other queries are answered one at a time by the whole warp:
+// every thread ranks slots of that row (broadcast shared-memory reads)
+// and a ballot finds the one of rank k, so a query costs the same for
+// any k.  Call with the warp converged.
+static __device__ int warp_slot_of_rank(const int* pos, int pitch, int d,
+                                        bool query, int k) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, wbase = threadIdx.x & ~31;
+  const bool in_range = query && k >= 0 && k < d;
+  const bool near_end = in_range && min(k, d - 1 - k) <= 1;
+  int result = near_end ? slot_of_rank(pos + (size_t)threadIdx.x * pitch, d, k) : -1;
+  unsigned todo = __ballot_sync(full, in_range && !near_end);
+  while (todo) {
+    const int l = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int kl = __shfl_sync(full, k, l);
+    const int* row = pos + (size_t)(wbase + l) * pitch;
+    int found = -1;
+    for (int base = 0; base < d && found < 0; base += 32) {
+      int s = base + lane;
+      unsigned hit = __ballot_sync(full, s < d && recency_rank(row, d, s) == kl);
+      if (hit) found = base + __ffs(hit) - 1;
+    }
+    if (lane == l) result = found;
+  }
+  return result;
+}
+
+// The insert slot of every inserting lane (ins_key >= 0), -1 elsewhere:
+// the lane's rank among same-bucket inserters (lower lanes first) picks
+// the rank-th oldest slot of the old bucket row, read before any write of
+// this step.  Call with the warp converged, after keys[] holds every
+// lane's ins_key.
+static __device__ int bucket_slot(const int* rolz, const Cfg& c, const int* keys,
+                                  int ins_key, int* pos, int pitch) {
+  const int d = c.rolz_depth;
+  int rank = ins_key >= 0 ? lower_same(keys, threadIdx.x) : d;
+  bool ins = rank < d;
+  warp_load_rows(rolz, d, ins, (uint32_t)ins_key, pos, pitch);
+  // the rank-th oldest is the (d-1-rank)-th newest
+  return warp_slot_of_rank(pos, pitch, d, ins, d - 1 - rank);
+}
+
+// ------------------------------------------- modeling-scan shared state ----
+// Shared memory of the modeling (K2) and decode (K1) scans: election keys,
+// the small dense models (len, idx, the two APMs) and the o1 row sums.
+struct SmemModel {
+  __align__(16) int key_o2[CPX_MAX_LANES];   // ctx2 of lanes that rescaled their o2 row
+  __align__(16) int key_o3[CPX_MAX_LANES];   // h3 of lanes that update the o3 predictor
+  __align__(16) int key_ins[CPX_MAX_LANES];  // bucket of lanes that insert (decode only)
+  int o1sum[O1_N];
+  int len[N_SHARED_CTX * LEN_W];
+  int idx[N_SHARED_CTX * IDX_W];
+  int len_sum[N_SHARED_CTX], idx_sum[N_SHARED_CTX];
+  int hot_len[N_SHARED_CTX], hot_idx[N_SHARED_CTX];
+  int sse[SSE_K];
+  int sse_h[SSE_HK];
+  int wtot[3][32];
+};
+
+struct Tables {
+  int* o2;
+  int* o1;
+  int* o3;
+  int* len;
+  int* idx;
+  int* sse;
+  int* sse_h;
+};
+
+static __device__ void model_load(SmemModel& sm, const Tables& tb) {
+  for (int k = threadIdx.x; k < N_SHARED_CTX * LEN_W; k += blockDim.x) sm.len[k] = tb.len[k];
+  for (int k = threadIdx.x; k < N_SHARED_CTX * IDX_W; k += blockDim.x) sm.idx[k] = tb.idx[k];
+  for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) sm.sse[k] = tb.sse[k];
+  for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) sm.sse_h[k] = tb.sse_h[k];
+  for (int k = threadIdx.x; k < N_SHARED_CTX; k += blockDim.x) {
+    sm.hot_len[k] = 0;
+    sm.hot_idx[k] = 0;
+  }
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int row = warp; row < O1_N; row += nwarps) {
+    int s = 0;
+    for (int k = lane; k < O1_N; k += 32) s += tb.o1[row * O1_N + k];
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) sm.o1sum[row] = s;
+  }
+}
+
+static __device__ void model_store(const SmemModel& sm, const Tables& tb) {
+  for (int k = threadIdx.x; k < N_SHARED_CTX * LEN_W; k += blockDim.x) tb.len[k] = sm.len[k];
+  for (int k = threadIdx.x; k < N_SHARED_CTX * IDX_W; k += blockDim.x) tb.idx[k] = sm.idx[k];
+  for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) tb.sse[k] = sm.sse[k];
+  for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) tb.sse_h[k] = sm.sse_h[k];
+}
+
+// Rescale the idx rows that a match lane reads this step (thread r < 4).
+static __device__ void idx_rescale(const Cfg& c, SmemModel& sm) {
+  int r = threadIdx.x;
+  if (r < N_SHARED_CTX)
+    shared_rescale_row(sm.idx + r * IDX_W, IDX_W, sm.hot_idx[r] != 0,
+                       c.idx_cap, sm.idx_sum[r]);
+}
+
+// Rescale the len rows that a match lane reads this step (thread 4+r).
+static __device__ void len_rescale(const Cfg& c, SmemModel& sm) {
+  int r = threadIdx.x - N_SHARED_CTX;
+  if (r >= 0 && r < N_SHARED_CTX)
+    shared_rescale_row(sm.len + r * LEN_W, LEN_W, sm.hot_len[r] != 0,
+                       c.len_cap, sm.len_sum[r]);
+}
+
+// One lane's step, as the model updates need it (ppm.apply_updates and
+// sse_update arguments).
+struct Upd {
+  bool coding, is_lit, is_hit, is_esc, is_match;
+  int ctx2, sym_a, byte, f_byte, p1, h3, pred, conf, raw;
+  int sym_len, sym_idx, len_ctx, idx_ctx, halvings;
+  SseState sse;
+};
+
+static __device__ __forceinline__ void upd_keys(SmemModel& sm, int i, bool alive,
+                                         const Upd& u) {
+  sm.key_o2[i] = (alive && u.coding && u.halvings > 0) ? u.ctx2 : -1;
+  bool o3_upd = alive && (u.is_hit || u.is_lit || u.is_esc);
+  sm.key_o3[i] = o3_upd ? u.h3 : -1;
+}
+
+// Store phase (after the keys barrier): the winners' o2 rescale write and
+// o3 predictor write.  Nothing else touches these words before the next
+// barrier.
+static __device__ void upd_store(const Tables& tb, const SmemModel& sm, int i,
+                          const Upd& u) {
+  if (is_winner(sm.key_o2, i)) o2_write_halved(tb.o2 + (size_t)u.ctx2 * O2_W, u.halvings);
+  if (is_winner(sm.key_o3, i)) {
+    int nc = o3_nc(u.conf);
+    int new_pred = (u.is_hit || nc > 0) ? u.pred : u.byte;
+    int new_conf = u.is_hit ? min(u.conf + 1, 15) : max(nc, 1);
+    tb.o3[u.h3] = (new_conf << 8) | new_pred;
+  }
+}
+
+// Add phase (after the store barrier): every additive update.
+static __device__ void upd_add(const Cfg& c, const Tables& tb, SmemModel& sm,
+                        const Upd& u) {
+  if (!u.coding) return;
+  int* row = tb.o2 + (size_t)u.ctx2 * O2_W;
+  if (u.sym_a >= 0 && u.sym_a < O2_W) atomicAdd(&row[u.sym_a], c.inc2);
+  if (u.is_esc && u.byte >= 0 && u.byte < O2_W) atomicAdd(&row[u.byte], c.inc2);
+  if (u.is_lit && u.f_byte == c.inc2) atomicAdd(&row[SYM_ESC], -c.inc2);
+  if (u.is_esc && u.byte >= 0 && u.byte < O1_N) {
+    atomicAdd(&tb.o1[u.p1 * O1_N + u.byte], c.inc1);
+    atomicAdd(&sm.o1sum[u.p1], c.inc1);
+  }
+  if (u.is_match) {
+    int lc = clampi(u.len_ctx, 0, N_SHARED_CTX - 1);
+    int ic = clampi(u.idx_ctx, 0, N_SHARED_CTX - 1);
+    if (u.sym_len >= 0 && u.sym_len < LEN_W) atomicAdd(&sm.len[lc * LEN_W + u.sym_len], c.len_inc);
+    if (u.sym_idx >= 0 && u.sym_idx < IDX_W) atomicAdd(&sm.idx[ic * IDX_W + u.sym_idx], c.idx_inc);
+  }
+  if (c.use_sse) {
+    apm_add(sm.sse, SSE_K, u.sse.m, u.is_match);
+    if (u.sse.act_h) apm_add(sm.sse_h, SSE_HK, u.sse.h, u.is_hit);
+  }
+}
+
+// Last phase of a step: clip the APMs, clear the hot-row flags.
+static __device__ void upd_finish(SmemModel& sm) {
+  for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) sm.sse[k] = clampi(sm.sse[k], SSE_LO, SSE_HI);
+  for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) sm.sse_h[k] = clampi(sm.sse_h[k], SSE_LO, SSE_HI);
+  if (threadIdx.x < N_SHARED_CTX) {
+    sm.hot_len[threadIdx.x] = 0;
+    sm.hot_idx[threadIdx.x] = 0;
+  }
+}
+
+// Per-lane contexts at step start (block.py::_common_reads).
+struct Ctx {
+  int pos, p1, ctx2, h3, pred, conf, pred2, conf2, raw;
+  bool active, coding, copying;
+};
+
+static __device__ __forceinline__ Ctx common_reads(const Cfg& c, const Tables& tb,
+                                            int i, int t, uint32_t ctx4,
+                                            int copy_rem, bool alive) {
+  Ctx x;
+  x.pos = i * c.T + t;
+  x.active = alive && x.pos < c.n;
+  x.coding = x.active && copy_rem == 0;
+  x.copying = x.active && copy_rem > 0;
+  x.p1 = (int)(ctx4 & 0xFFu);
+  int p2 = (int)((ctx4 >> 8) & 0xFFu);
+  x.ctx2 = (p2 << 8) | x.p1;
+  int ctx3 = (int)(ctx4 & 0xFFFFFFu);
+  x.h3 = (ctx3 ^ (ctx3 >> 2)) & ((1 << c.o3_bits) - 1);
+  x.raw = alive ? tb.o3[x.h3] : 0;
+  x.pred = x.raw & 0xFF;
+  x.conf = clampi((x.raw >> 8) & 0xF, 0, 15);
+  x.pred2 = (x.raw >> 12) & 0xFF;
+  x.conf2 = clampi((x.raw >> 20) & 0xF, 0, 15);
+  return x;
+}

@@ -1,0 +1,153 @@
+"""The CUDA kernels against their plain PyTorch versions, and the build.
+
+This file imports no JAX, so that the ``cuda``-marked tests also run on a
+card's machine without it (``tests/conftest.py`` imports JAX, hence
+``--noconftest`` there):
+
+    python -m pytest tests/test_torch_kernels.py -m cuda -q --noconftest
+
+The ``cuda`` tests skip where there is no card.  The others check, on any
+machine, what the kernels' callers rely on: the C configuration layout,
+the build cache key, and that a missing ``nvcc`` is an error.
+"""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from comprox_tpu_torch.codec import block as blk
+from comprox_tpu_torch.models import ppm
+from comprox_tpu_torch.utils import build
+
+# the plain versions run many tiny ops: more intra-op threads would only
+# contend with the other test workers
+torch.set_num_threads(1)
+
+# the main path's ROLZ knobs at S=512, with small tables
+WIDE = dict(lanes=512, steps=32, mode="R", min_len=5, window=32, o3_bits=14,
+            rolz_bits=10, rolz_depth=16, flexible=False, rolz_ctx_bytes=4,
+            rolz_dec=2)
+
+
+def text(n, seed):
+    rng = np.random.default_rng(seed)
+    words = [b"the ", b"quick ", b"brown ", b"fox ", b"jumps ", b"over "]
+    buf = b"".join(words[rng.integers(0, len(words))] for _ in range(n))
+    return np.frombuffer(buf[:n], np.uint8)
+
+
+def test_cfg_layout_matches_the_c_struct():
+    """_cfg_array fills csrc/ppm_r.cuh::Cfg field by field, in order."""
+    src = (build.CSRC / "ppm_r.cuh").read_text()
+    body = re.search(r"struct Cfg \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"\b(\w+)\s*[,;]", body.replace("int ", ""))
+    assert len(fields) == blk._CFG_FIELDS
+    p = blk.BlockParams(**WIDE)
+    cfg = blk._cfg_array(p, 1234, 99)
+    by_name = dict(zip(fields, cfg.tolist()))
+    assert by_name["S"] == p.lanes and by_name["T"] == p.steps
+    assert by_name["n"] == 1234 and by_name["stream_len"] == 99
+    assert by_name["rolz_dec"] == 2 and by_name["probe"] == p.probe
+    assert by_name["use_sse"] == 1 and by_name["cap1"] == ppm.CAP1
+
+
+def test_build_cache_key_and_entry_points():
+    path = build.library_path()
+    assert path.parent == build.BUILD_DIR and path == build.library_path()
+    assert path.name.startswith("libcpx_kernels_")
+    names = set(re.findall(r'extern "C" int (\w+)\(', "".join(
+        p.read_text() for p in build.CSRC.glob("*.cu"))))
+    assert names == set(build._SIGNATURES)
+
+
+def test_entry_point_arity_matches_signatures():
+    """The ctypes argument lists have one entry per C parameter."""
+    src = "".join(p.read_text() for p in build.CSRC.glob("*.cu"))
+    for name, argtypes in build._SIGNATURES.items():
+        params = re.search(rf'extern "C" int {name}\((.*?)\)', src, re.S)
+        assert params.group(1).count(",") + 1 == len(argtypes), name
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build.os.path, "isfile", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ (sm_90a)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["KS", "K2", "K3", "K1"])
+def test_kernel_matches_plain(cuda_device, kernel):
+    p = blk.BlockParams(**WIDE)
+    n = p.capacity - 100
+    buf = np.zeros(p.capacity, np.uint8)
+    buf[:n] = text(n, seed=7)
+    inp = torch.from_numpy(buf.reshape(p.lanes, p.steps)).to(cuda_device)
+
+    def fresh():
+        return (ppm.init_tables(True, p.o3_bits, cuda_device),
+                blk._init_rolz(p, cuda_device))
+
+    rk = fresh()[1]
+    grids = blk.search_scan(p, inp, n, rk)
+    if kernel == "KS":
+        rp = fresh()[1]
+        assert torch.equal(grids, blk.search_scan_plain(p, inp, n, rp))
+        assert torch.equal(rk, rp)
+        return
+    take, src = blk._greedy_decisions(p, grids[0], grids[1])
+    dec = torch.stack([take, src, grids[2], grids[3]]).contiguous()
+    tk, tp = fresh()[0], fresh()[0]
+    ev = blk.model_scan(p, inp, n, dec, tk)
+    if kernel == "K2":
+        assert torch.equal(ev, blk.model_scan_plain(p, inp, n, dec, tp))
+        assert all(torch.equal(tk[k], tp[k]) for k in tk)
+        return
+    got = blk.rans_scan(p, ev)
+    if kernel == "K3":
+        want = blk.rans_scan_plain(p, ev)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        return
+    n_words, states, stream = blk._unpack_payload(blk._pack_payload(*got), p)
+    st = torch.from_numpy(states.astype(np.int64)).to(cuda_device)
+    sw = torch.from_numpy(stream.astype(np.int32)).to(cuda_device)
+    (tk, rk), (tp, rp) = fresh(), fresh()
+    xk, uk, ok = blk.decode_scan(p, st, sw, n, tk, rk)
+    xp, up, op = blk.decode_scan_plain(p, st, sw, n, tp, rp)
+    assert uk == up == n_words
+    assert torch.equal(xk, xp) and torch.equal(ok, op)
+    assert torch.equal(rk, rp) and all(torch.equal(tk[k], tp[k]) for k in tk)
+    assert np.array_equal(ok.cpu().numpy().reshape(-1)[:n], buf[:n])
+
+
+@pytest.mark.cuda
+def test_wide_block_keeps_positions_in_global_scratch(cuda_device):
+    """S=1024, D=64: the [S, D+1] position array (260 KB) is over the shared
+    memory budget, so KS and K1 use the global scratch array."""
+    p = blk.BlockParams(**dict(WIDE, lanes=1024, steps=16, rolz_depth=64))
+    data = text(p.capacity - 5, seed=9)
+    payload = blk.encode_block(data, p, cuda_device)
+    assert payload == blk.encode_block(data, p, "cpu")
+    np.testing.assert_array_equal(
+        blk.decode_block(payload, data.size, p, cuda_device), data)
+
+
+@pytest.mark.cuda
+def test_block_roundtrip_on_card(cuda_device):
+    p = blk.BlockParams(**dict(WIDE, lanes=64, steps=64))
+    data = text(p.capacity - 7, seed=8)
+    payload = blk.encode_block(data, p, cuda_device)
+    assert payload == blk.encode_block(data, p, "cpu")
+    np.testing.assert_array_equal(
+        blk.decode_block(payload, data.size, p, cuda_device), data)
