@@ -10,23 +10,29 @@ no result line:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit.
-2. build: compiles the four kernels (``comprox_tpu_torch/csrc``) with nvcc.
+2. build: compiles the seven kernels (``comprox_tpu_torch/csrc``) with
+   nvcc, one process per source.
 3. golden: decodes the committed JAX-package archives
-   (``tests/data/torch_golden.json``: ``bench.build_corpus`` of 1 MiB and
-   8 MiB under ``crz e -f0 -l512``) on the card and checks the decoded
-   bytes' SHA-256; re-encodes the 1 MiB corpus with the port and checks
-   that the archive's SHA-256 equals the JAX package's.  The decoded
-   corpora are the inputs of the next phases, so every machine runs the
-   same bytes.
-4. kernels: each of KS, K2, K3, K1 against its plain PyTorch version on
-   the card, at S=512 lanes, full-size tables, T=256 steps, on corpus
-   bytes; every output and table must be equal (tolerance 0: the codec is
-   integer arithmetic).
-5. full width, the main path: ``crz e -f0 -b8 -l512`` then ``crz d``
-   through ``comprox_tpu_torch.cli.main`` on the 8 MiB corpus, one block
-   of S=512 and T=16384.  The archive's SHA-256 must equal the JAX
-   package's and the round trip must be bit-exact; prints MB/s, bpb and
-   the kernel times, and fails if a kernel was not launched.
+   (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
+   under ``crz e -l512`` with the flexible parse and with ``-f0``) on the
+   card and checks the decoded bytes' SHA-256; re-encodes the 1 MiB corpus
+   with the port under both parses and checks that each archive's SHA-256
+   equals the JAX package's.  The decoded corpora are the inputs of the
+   next phases, so every machine runs the same bytes.
+4. kernels: each of KS, K4, K5, K6, K2, K3, K1 against its plain PyTorch
+   version on the card, at S=512 lanes, full-size tables, T=256 steps, on
+   corpus bytes (K4 also at the main path's N = 8 Mi positions, where its
+   sort stage is timed beside ``torch.sort`` on the same keys); every
+   output and table must be equal (tolerance 0: the codec is integer
+   arithmetic).  Computes each kernel's bound from these inputs.
+5. full width, the main path: ``crz e -b8 -l512`` (the flexible parse) then
+   ``crz d`` through ``comprox_tpu_torch.cli.main`` on the 8 MiB corpus,
+   one block of S=512 and T=16384.  The archive's SHA-256 must equal the
+   JAX package's and the round trip must be bit-exact; prints MB/s, bpb
+   and the kernel times, and fails if K4, K5, K6, K2, K3 or K1 was not
+   launched.
+6. full width, the greedy path: the same with ``-f0``; fails if KS, K2, K3
+   or K1 was not launched.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -45,13 +51,25 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data"
 WORK = ROOT / "build" / "smoke"
-MAIN_ARCHIVE = "crz_f0_8MiB_S512.cpx"  # crz e -f0 -b8 -l512
+MAIN_ARCHIVE = "crz_flex_8MiB_S512.cpx"  # crz e -b8 -l512
+GREEDY_ARCHIVE = "crz_f0_8MiB_S512.cpx"  # crz e -f0 -b8 -l512
 KERNEL_STEPS = 256
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate, and the float32 rate outside the tensor cores, taken for the
+# kernels' 32-bit integer operations (the data sheet has no integer row)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 
 KERNELS = [
     # name, source, the JAX scan it replaces (file:line)
     ("KS", "comprox_tpu_torch/csrc/search.cu",
      "comprox_tpu/codec/block.py:1333"),
+    ("K4", "comprox_tpu_torch/csrc/sortfind.cu",
+     "comprox_tpu/codec/block.py:809"),
+    ("K5", "comprox_tpu_torch/csrc/rank.cu",
+     "comprox_tpu/codec/block.py:1188"),
+    ("K6", "comprox_tpu_torch/csrc/parse.cu",
+     "comprox_tpu/codec/block.py:1414"),
     ("K2", "comprox_tpu_torch/csrc/model.cu",
      "comprox_tpu/codec/block.py:1677"),
     ("K3", "comprox_tpu_torch/csrc/rans.cu",
@@ -100,6 +118,7 @@ def phase_device():
     ).stdout.strip()
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    return smi
 
 
 def phase_build():
@@ -132,17 +151,19 @@ def phase_golden():
             raise AssertionError(f"{name}: decoded bytes differ from the input")
         print(f"{name}: JAX archive decoded on the card ({t_dec:.2f} s)")
         corpora[name] = np.frombuffer(raw, np.uint8)
-    name = "crz_f0_1MiB_S512.cpx"
-    cp = make_params("crz", {"lanes": 512, "block_mb": 1, "flexible": False})
-    buf = io.BytesIO()
-    t0 = time.perf_counter()
-    encode_stream(corpora[name], buf, cp, "cuda")
-    t_enc = time.perf_counter() - t0
-    got = buf.getvalue()
-    if sha256(got) != meta[name]["archive_sha256"]:
-        raise AssertionError(f"{name}: port archive differs from JAX's")
-    print(f"{name}: port archive {len(got)} B, sha256 == JAX golden "
-          f"({t_enc:.2f} s)")
+    for name, flexible in (("crz_f0_1MiB_S512.cpx", False),
+                           ("crz_flex_1MiB_S512.cpx", True)):
+        cp = make_params("crz", {"lanes": 512, "block_mb": 1,
+                                 "flexible": flexible})
+        buf = io.BytesIO()
+        t0 = time.perf_counter()
+        encode_stream(corpora[name], buf, cp, "cuda")
+        t_enc = time.perf_counter() - t0
+        got = buf.getvalue()
+        if sha256(got) != meta[name]["archive_sha256"]:
+            raise AssertionError(f"{name}: port archive differs from JAX's")
+        print(f"{name}: port archive {len(got)} B, sha256 == JAX golden "
+              f"({t_enc:.2f} s)")
     return corpora
 
 
@@ -150,8 +171,34 @@ def _tables_pairs(ta, tb_):
     return [(ta[k], tb_[k]) for k in ta]
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _touched_bytes(final, init) -> int:
+    """Bytes of a table updated in place that this run's data needed: the
+    rows that differ from the initial table, read once and written once."""
+    f = final.reshape(final.shape[0], -1)
+    rows = int((f != init.reshape(f.shape)).any(dim=1).sum())
+    return 2 * rows * f.shape[1] * final.element_size()
+
+
+def _bound(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate."""
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
 def phase_kernels(corpus):
-    """Each kernel against its plain version on the card."""
+    """Each kernel against its plain version on the card.  Returns
+    {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms)}.
+
+    The bound counts each input read once and each output written once (of
+    a table updated in place: the rows this run changed, both ways), and a
+    model of the 32-bit operations the function needs on these inputs,
+    stated beside each kernel below; the scans' T dependent steps are what
+    keeps them far from it."""
     import numpy as np
     import torch
 
@@ -160,9 +207,9 @@ def phase_kernels(corpus):
 
     dev = "cuda"
     p = blk.BlockParams(lanes=512, steps=KERNEL_STEPS, mode="R", min_len=5,
-                        window=250, rolz_ctx_bytes=4, rolz_dec=2,
-                        flexible=False)
+                        window=250, rolz_ctx_bytes=4, rolz_dec=2)
     n = p.capacity
+    big, d = p.capacity, p.rolz_depth
     data = corpus[:n]
     inp = torch.from_numpy(data.reshape(p.lanes, p.steps).copy()).to(dev)
     reps = 3
@@ -185,13 +232,31 @@ def phase_kernels(corpus):
             raise AssertionError(f"{name}: {blk.LAUNCHES[name]} launches")
         return ms
 
+    def event_ms(fn):
+        fn()  # warm up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
     def rolz0():
         return blk._init_rolz(p, dev)
 
     def tables0():
         return ppm.init_tables(True, p.o3_bits, dev)
 
-    # KS
+    def record(name, err, ms, plain_ms, nbytes, ops, library_ms=None):
+        bound_ms, bound_by = _bound(nbytes, ops)
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms)
+
+    # KS.  Operations: per position, D entries scored and ranked (6 each),
+    # top_k probes of `probe` bytes and one window, 8 bytes a compare.
     rk, rp = rolz0(), rolz0()
     blk.reset_launch_counts()
     gk = blk.search_scan(p, inp, n, rk)
@@ -200,26 +265,72 @@ def phase_kernels(corpus):
     gp, plain_ms = timed_plain(blk.search_scan_plain, p, inp, n, rp)
     err = max_err([(gk, gp), (rk, rp)])
     ms = kernel_ms("KS", lambda: (p, inp, n, rolz0()), blk.search_scan)
-    res["KS"] = (err, ms, plain_ms)
+    record("KS", err, ms, plain_ms,
+           _nbytes(inp, gk) + _touched_bytes(rk, rolz0()),
+           big * (6 * d + p.top_k * p.probe // 8 + p.window // 8))
 
-    # K2, on the kernel's search grids through the greedy parse
-    take, src = blk._greedy_decisions(p, gk[0], gk[1])
-    dec = torch.stack([take, src, gk[2], gk[3]]).contiguous()
+    # K4 at this window.  Operations: four radix passes (digit, count,
+    # place), 2 * probe chain entries a position (key compare, usable,
+    # 8-byte probe: 4), and the extension of each proposal, 8 bytes a
+    # compare (from the lengths found).
+    propk = blk.sort_candidates(p, inp, n)
+    propp, plain_ms = timed_plain(blk.sort_candidates_plain, p, inp, n)
+    err = max_err([(propk, propp)])
+    ms = kernel_ms("K4", lambda: (p, inp, n), blk.sort_candidates)
+
+    def k4_ops(props, size):
+        ext = int((props[0::2].long() // 8 + 1).sum())
+        return size * (4 * 3 + 2 * blk._R_PROBE * 4) + 2 * ext
+
+    record("K4", err, ms, plain_ms, _nbytes(inp, propk), k4_ops(propk, big))
+    k4_small = dict(res["K4"])
+
+    # K5, on the finder's proposals.  Operations: per position, D entries
+    # (score 4, membership of n_cands proposals 2 each, best entry 2), and
+    # the window compare where the cache matched (from the lengths found).
+    rk, rp = rolz0(), rolz0()
+    ck = blk.rank_scan(p, inp, n, propk, rk)
+    cp, plain_ms = timed_plain(blk.rank_scan_plain, p, inp, n, propk, rp)
+    err = max_err([(ck, cp), (rk, rp)])
+    ms = kernel_ms("K5", lambda: (p, inp, n, propk, rolz0()), blk.rank_scan)
+    n_c = blk._R_CANDS
+    record("K5", err, ms, plain_ms,
+           _nbytes(inp, propk, ck) + _touched_bytes(rk, rolz0()),
+           big * d * (6 + 2 * n_c) + 2 * int((ck[3 * n_c].long() // 8 + 1).sum()))
+
+    # K6, on the rank scan's candidates.  Operations: per position the
+    # literal (4), and per candidate each admissible length (add, clamp,
+    # key, min: 4).
+    dk = blk.parse_scan(p, n, ck)
+    dp, plain_ms = timed_plain(blk.parse_scan_plain, p, n, ck)
+    err = max_err([(dk, dp)])
+    ms = kernel_ms("K6", lambda: (p, n, ck), blk.parse_scan)
+    lens = ck[0 : 3 * (n_c + 1) : 3].long()
+    record("K6", err, ms, plain_ms, _nbytes(ck, dk),
+           4 * big + 4 * int((lens - p.min_len + 1).clamp_min(0).sum()))
+
+    # K2, on the flexible parse's decisions.  Operations: per position the
+    # o2 row (260 slots: read, adjust, sum: 3) and the side models (64).
     tk, tp = tables0(), tables0()
-    evk = blk.model_scan(p, inp, n, dec, tk)
-    evp, plain_ms = timed_plain(blk.model_scan_plain, p, inp, n, dec, tp)
+    evk = blk.model_scan(p, inp, n, dk, tk)
+    evp, plain_ms = timed_plain(blk.model_scan_plain, p, inp, n, dk, tp)
     err = max_err([(evk, evp)] + _tables_pairs(tk, tp))
-    ms = kernel_ms("K2", lambda: (p, inp, n, dec, tables0()), blk.model_scan)
-    res["K2"] = (err, ms, plain_ms)
+    ms = kernel_ms("K2", lambda: (p, inp, n, dk, tables0()), blk.model_scan)
+    t0_ = tables0()
+    tab_bytes = sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
+    record("K2", err, ms, plain_ms, _nbytes(inp, dk, evk) + tab_bytes,
+           big * (3 * 260 + 64))
 
-    # K3
+    # K3.  Operations: three events a position, 8 each.
     sk, ek, wk = blk.rans_scan(p, evk)
     (sp, ep, wp), plain_ms = timed_plain(blk.rans_scan_plain, p, evk)
     err = max_err([(sk, sp), (ek, ep), (wk, wp)])
     ms = kernel_ms("K3", lambda: (p, evk), blk.rans_scan)
-    res["K3"] = (err, ms, plain_ms)
+    record("K3", err, ms, plain_ms, _nbytes(evk, sk, wk) + ek.numel(),
+           big * 3 * 8)
 
-    # K1, on the payload the kernels wrote
+    # K1, on the payload the kernels wrote.  Operations: as K2 plus the
+    # bucket row (D entries, 4 each).  Bytes: the words the stream holds.
     payload = blk._pack_payload(sk, ek, wk)
     n_words, st, stream = blk._unpack_payload(payload, p)
     st_t = torch.from_numpy(st.astype(np.int64)).to(dev)
@@ -237,33 +348,69 @@ def phase_kernels(corpus):
     ms = kernel_ms(
         "K1", lambda: (p, st_t, stream_t, n, tables0(), rolz0()),
         blk.decode_scan)
-    res["K1"] = (err, ms, plain_ms)
+    tab_bytes = sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
+    record("K1", err, ms, plain_ms,
+           4 * n_words + _nbytes(st_t, ok) + tab_bytes
+           + _touched_bytes(rk, rolz0()), big * (3 * 260 + 64 + 4 * d))
 
-    for name, (err, ms, plain_ms) in res.items():
-        print(f"{name}: max_abs_err {err} (tolerance 0)  kernel {ms:.3f} ms "
-              f"({ms * 1e3 / p.steps:.1f} us/step)  plain {plain_ms:.3f} ms "
-              f"({plain_ms * 1e3 / p.steps:.1f} us/step)  "
-              f"[S={p.lanes} T={p.steps} full tables]")
-        if err != 0:
-            raise AssertionError(f"{name}: kernel != plain (max err {err})")
+    for name, r in res.items():
+        print(f"{name}: max_abs_err {r['max_abs_err']} (tolerance 0)  kernel "
+              f"{r['ms']:.3f} ms ({r['ms'] * 1e3 / p.steps:.1f} us/step)  "
+              f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  [S={p.lanes} T={p.steps} full tables]")
+
+    # K4 at the main path's size: the whole 8 MiB corpus as one block, with
+    # its sort stage beside torch.sort (stable) on the same keys.
+    pf = blk.BlockParams(lanes=512, steps=corpus.size // 512, mode="R",
+                         min_len=5, window=250, rolz_ctx_bytes=4, rolz_dec=2)
+    nf = pf.capacity
+    inpf = torch.from_numpy(corpus[:nf].reshape(pf.lanes, pf.steps).copy()).to(dev)
+    propk = blk.sort_candidates(pf, inpf, nf)
+    propp, plain_ms = timed_plain(blk.sort_candidates_plain, pf, inpf, nf)
+    err = max_err([(propk, propp)])
+    del propp
+    ms = kernel_ms("K4", lambda: (pf, inpf, nf), blk.sort_candidates)
+    bytes_pad = blk.pad_block(pf, inpf)
+    keys = blk.sort_keys_plain(pf, bytes_pad, nf)
+    hs, ps = blk.sort_positions(pf, bytes_pad, nf)
+    hp, pp = torch.sort(keys, stable=True)
+    err = max(err, max_err([(hs, hp), (ps, pp)]))
+    sort_ms = event_ms(lambda: blk.sort_positions(pf, bytes_pad, nf))
+    lib_ms = event_ms(lambda: torch.sort(keys, stable=True))
+    lib32_ms = event_ms(lambda: torch.sort(keys.to(torch.int32), stable=True))
+    record("K4", max(err, k4_small["max_abs_err"]), ms, plain_ms,
+           _nbytes(inpf, propk), k4_ops(propk, nf), library_ms=lib_ms)
+    r = res["K4"]
+    print(f"K4 at N={nf} (S=512 T={pf.steps}): max_abs_err {err}  kernel "
+          f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}); its sort stage (keys + 4 radix passes) "
+          f"{sort_ms:.3f} ms, torch.sort(stable) of the same keys as int64 "
+          f"{lib_ms:.3f} ms, as int32 bit patterns {lib32_ms:.3f} ms; at "
+          f"T={KERNEL_STEPS}: kernel {k4_small['ms']:.3f} ms, plain "
+          f"{k4_small['plain_ms']:.3f} ms")
+    for name, r in res.items():
+        if r["max_abs_err"] != 0:
+            raise AssertionError(
+                f"{name}: kernel != plain (max err {r['max_abs_err']})")
     return res
 
 
-def phase_full_width(corpus):
-    """The main path: crz e -f0 -b8 -l512 and crz d through the CLI."""
+def phase_full_width(corpus, archive, flags, needed):
+    """One path through the CLI: crz e [flags] -b8 -l512 and crz d.  The
+    launch counts are set to 0 just before and read just after."""
     import numpy as np
 
     from comprox_tpu_torch.cli import main as cli
     from comprox_tpu_torch.codec import block as blk
 
-    want = json.loads((GOLDEN / "torch_golden.json").read_text())[MAIN_ARCHIVE]
+    want = json.loads((GOLDEN / "torch_golden.json").read_text())[archive]
     WORK.mkdir(parents=True, exist_ok=True)
     n = corpus.size
     src, arc, dst = WORK / "corpus8.bin", WORK / "corpus8.crz", WORK / "out8.bin"
     corpus.tofile(src)
     blk.reset_launch_counts()
     t0 = time.perf_counter()
-    cli.run("crz", ["e", str(src), str(arc), "-f0", "-b8", "-l512", "-q"],
+    cli.run("crz", ["e", str(src), str(arc), *flags, "-b8", "-l512", "-q"],
             device="cuda")
     t_enc = time.perf_counter() - t0
     ms_enc = blk.kernel_ms()
@@ -274,21 +421,23 @@ def phase_full_width(corpus):
     launches = dict(blk.LAUNCHES)
     got = arc.read_bytes()
     if sha256(got) != want["archive_sha256"]:
-        raise AssertionError("8 MiB archive differs from the JAX package's")
+        raise AssertionError(
+            f"8 MiB archive ({want['argv']}) differs from the JAX package's")
     if not np.array_equal(np.fromfile(dst, np.uint8), corpus):
         raise AssertionError("8 MiB round trip is not bit-exact")
-    print(f"full width: {n} B, S=512, T=16384, one block; archive "
+    print(f"{want['argv']}: {n} B, S=512, T=16384, one block; archive "
           f"{len(got)} B == JAX golden, {len(got) * 8 / n:.4f} bpb; round "
           f"trip bit-exact")
     print(f"encode {n / t_enc / 1e6:.3f} MB/s ({t_enc:.3f} s wall); "
           f"decode {n / t_dec / 1e6:.3f} MB/s ({t_dec:.3f} s wall)")
     print("kernel time (CUDA events): " + ", ".join(
-        f"{k} {ms_all[k]:.1f} ms" for k in ms_all)
+        f"{k} {ms_all[k]:.1f} ms" for k in ms_all if launches[k])
         + f"; encode kernels {sum(ms_enc.values()):.1f} ms, decode "
         f"{ms_all['K1'] - ms_enc['K1']:.1f} ms")
-    for name, cnt in launches.items():
-        if cnt < 1:
-            raise AssertionError(f"{name} was not launched on the main path")
+    print("launches: " + json.dumps(launches))
+    for name in needed:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on this path")
     for p in (src, arc, dst):
         p.unlink()
     return launches
@@ -297,19 +446,27 @@ def phase_full_width(corpus):
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     ph = Phases()
-    ph.run("device", phase_device)
+    smi = ph.run("device", phase_device)
     ph.run("build", phase_build)
     corpora = ph.run("golden", phase_golden)
     res = ph.run("kernels", phase_kernels, corpora[MAIN_ARCHIVE])
-    launches = ph.run("full width", phase_full_width, corpora[MAIN_ARCHIVE])
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    launches = ph.run(
+        "full width, flexible parse", phase_full_width, corpora[MAIN_ARCHIVE],
+        MAIN_ARCHIVE, [], ("K4", "K5", "K6", "K2", "K3", "K1"))
+    greedy = ph.run(
+        "full width, greedy parse", phase_full_width, corpora[GREEDY_ARCHIVE],
+        GREEDY_ARCHIVE, ["-f0"], ("KS", "K2", "K3", "K1"))
+    launches["KS"] = greedy["KS"]
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "comprox_tpu")]
+    if bad:
+        raise AssertionError(f"the port imported {bad}")
     import torch
 
+    print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": repl,
-         "launches": launches[name], "max_abs_err": res[name][0],
-         "ms": res[name][1], "plain_ms": res[name][2]}
+         "launches": launches[name], **res[name]}
         for name, source, repl in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

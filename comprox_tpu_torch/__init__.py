@@ -6,12 +6,15 @@ grids.  Device code is hand-written CUDA for Hopper (``csrc/``), built at
 first use by :mod:`comprox_tpu_torch.utils.build`; every kernel has a plain
 PyTorch version beside it, which the CPU tests compare with the JAX package.
 
-Ported so far: codec R (``crz``), unchained, with the greedy parse for
-encode (``-f0``) and decode of every unchained mode-R archive with
-``short_depth=0``.  ROADMAP.md lists what is still to port.
+Ported so far: codec R (``crz``), unchained: encode with the flexible
+parse (the default) or the greedy parse (``-f0``), and decode of every
+unchained mode-R archive with ``short_depth=0``.  ROADMAP.md lists what is
+still to port.
 
 Layout mirrors the JAX package: ops/ (rANS), models/ (tables, PPM),
-codec/ (block, container), cli/, utils/ (kernel build), csrc/ (CUDA).
-Host-only modules of comprox_tpu that import no JAX are reused by import:
-ops/rans_scalar.py, ops/filters.py, codec/dictionary.py, utils/native.py.
+codec/ (block, container, dictionary), cli/, utils/ (kernel build, host
+helper build), csrc/ (CUDA kernels and the host helpers' C source).
+The port imports nothing of comprox_tpu: it keeps its own copies of the
+host-only modules it needs (ops/rans_scalar.py, ops/filters.py,
+codec/dictionary.py, utils/native.py with csrc/native.c).
 """

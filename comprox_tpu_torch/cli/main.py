@@ -3,14 +3,14 @@
 Counterpart of :mod:`comprox_tpu.cli.main`: the same switches, defaults
 and ``make_params``, so an archive written here is the one the JAX
 package writes for the same command line.  Supported: ``crz e|d`` with
-``-b -l -F -p -q -m`` and, for encode, ``-f0`` (the greedy parse).
+``-b -l -F -p -q -m``; encode uses the flexible parse unless ``-f0`` asks
+for the greedy one.
 
 Not yet ported, refused with an error (the ROADMAP.md item in brackets):
-encode without ``-f0`` (the flexible parse, kernels K4-K6 [7-9]), ``-c``
-and ``-C`` [11], ``-j`` and ``-g`` [15], the ``crp``/``crx``/``crf``
+``-c`` and ``-C`` [11], ``-j`` and ``-g`` [15], the ``crp``/``crx``/``crf``
 codecs [12-14].  Nothing switches silently to another format.
 
-    python -m comprox_tpu_torch.cli.main crz e in out -f0 -b8 -l512
+    python -m comprox_tpu_torch.cli.main crz e in out -b8 -l512
     python -m comprox_tpu_torch.cli.main crz d out in.copy
 
 The command line runs on the first CUDA device and fails without one; the
@@ -40,8 +40,7 @@ switches:
   -p     dictionary precompress only
   -q     quiet mode
   -m<n>  match search depth (default 40 -> top-4 bucket candidates)
-  -f0    greedy+lazy parsing (required for encode: the flexible parse
-         is not ported yet)
+  -f0    greedy+lazy parsing instead of flexible parsing
 """
 
 CODEC_BYTE = {"crp": b"P", "crx": b"X", "crz": b"R", "crf": b"F"}
@@ -126,11 +125,6 @@ def run(codec_name: str, argv, device) -> int:
     t0 = time.time()
     if mode == "e":
         cp = make_params(codec_name, opts)
-        if cp.block.flexible and not opts["precomp"]:
-            raise NotImplementedError(
-                "encode needs -f0: the flexible parse (kernels K4-K6) is not "
-                "yet ported (ROADMAP.md items 7-9)"
-            )
         data = (
             np.frombuffer(sys.stdin.buffer.read(), np.uint8)
             if inp == "-" else np.fromfile(inp, np.uint8)

@@ -6,14 +6,19 @@ unchained): a block of n bytes is cut into S contiguous lanes of T steps,
 per step through shared model and bucket tables.  The payload layout, the
 table evolution and every intermediate grid are the JAX package's.
 
-Encode runs three passes (the greedy ``-f0`` parse): the search scan (KS)
-finds one ROLZ candidate per position, ``_greedy_decisions`` picks the
-matches (two elementwise ops), the modeling scan (K2) turns the decisions
-into normalised rANS events, and the backward rANS scan (K3) emits the
-words.  Decode is one scan (K1).  Each scan has a plain PyTorch version,
-a step loop vectorised over lanes, and a CUDA kernel; the wrapper picks the
-plain version for a CPU tensor and the kernel for a CUDA tensor, and
-raises for anything else.  There is no fallback between the two.
+Encode has two parses.  The flexible parse (the default) runs the
+whole-block sort finder (K4: up to four context-keyed proposals per
+position), the rank scan (K5: each proposal checked against the evolving
+bucket table, plus one cache-scored bucket candidate) and the backward
+price DP (K6: literal against any admissible truncation of the five
+candidates).  The greedy parse (``-f0``) runs the search scan (KS: one
+ROLZ candidate per position) and ``_greedy_decisions`` (two elementwise
+ops).  Either way the modeling scan (K2) turns the decisions into
+normalised rANS events and the backward rANS scan (K3) emits the words.
+Decode is one scan (K1).  Each pass has a plain PyTorch version and a
+CUDA kernel; the wrapper picks the plain version for a CPU tensor and the
+kernel for a CUDA tensor, and raises for anything else.  There is no
+fallback between the two.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from comprox_tpu.ops.rans_scalar import M, RANS_L
+from comprox_tpu_torch.ops.rans_scalar import M, RANS_L
 from comprox_tpu_torch.models import ppm
 from comprox_tpu_torch.models import tables as tb
 from comprox_tpu_torch.ops import rans
@@ -128,6 +133,19 @@ _ENV_DEFAULTS = {
 }
 _ENV = {k: _os.environ.get(k, v) for k, v in _ENV_DEFAULTS.items()}
 
+# Encoder-only knobs of the flexible parse, read at import like JAX's
+# (block.py::_R_CANDS, _R_PROBE, _SORT_EXT, _P_LIT_R, _P_RM, _P_RI).
+_R_CANDS = int(_os.environ.get("CPX_R_CANDS", "4"))  # proposals per position
+_R_PROBE = int(_os.environ.get("CPX_R_PROBE", "16"))  # chain depth, each way
+_SORT_EXT = int(_os.environ.get("CPX_SORT_EXT", "250"))  # word extension, bytes
+# parse prices in fifths of a bit: literal, match, per idx recency bucket
+_P_LIT_R = int(_os.environ.get("CPX_PARSE_LIT_R", "14"))
+_P_RM = int(_os.environ.get("CPX_PARSE_RM", "50"))
+_P_RI = int(_os.environ.get("CPX_PARSE_RI", "6"))
+_P_INF = 1 << 22  # cost-to-go ceiling of the price DP (key packing: * 256)
+_INSERT_LATE = 3  # a bucket entry for position q is inserted at step q + 3
+MAX_CANDS = 7  # proposals the kernels keep per position (plus the bucket's)
+
 
 def check_supported(p: BlockParams) -> None:
     """Raise for a block configuration or knob the port does not have."""
@@ -150,6 +168,20 @@ def check_supported(p: BlockParams) -> None:
     if p.chain_match:
         raise NotImplementedError(
             "chain_match (crz -C) is not yet ported (ROADMAP.md item 11)"
+        )
+    if not 1 <= _R_CANDS <= MAX_CANDS:
+        raise NotImplementedError(
+            f"CPX_R_CANDS={_R_CANDS}: the port keeps 1..{MAX_CANDS} proposals"
+        )
+    if not 1 <= _R_PROBE <= 64:
+        raise NotImplementedError(
+            f"CPX_R_PROBE={_R_PROBE}: the port probes 1..64 chain entries"
+        )
+    if _SORT_EXT < 1:
+        raise NotImplementedError(f"CPX_SORT_EXT={_SORT_EXT} must be positive")
+    if min(_P_LIT_R, _P_RM, _P_RI) < 0 or max(_P_LIT_R, _P_RM + 3 * _P_RI) >= 1 << 20:
+        raise NotImplementedError(
+            "CPX_PARSE_LIT_R/RM/RI must be non-negative prices below 2^20"
         )
 
 
@@ -337,22 +369,28 @@ def _cur_windows(inp, t: int, width: int):
     return torch.cat([inp[:, t:], pad], dim=1)[:, :width].to(_i32)
 
 
-def _rolz_best_match(c, rolz, pos, t, n, p: BlockParams, inp_w32, cur_win):
-    """Encoder-side candidate search at pos: score every bucket entry by
-    its 4-byte prefix cache, probe the top-k to ``probe`` bytes, extend the
-    winner to the full window, cap.  ``(length, src, rec_idx, fill)``."""
+def _cache_scores(ent, cur_win):
+    """[S, D] leading bytes (0..4) of each bucket entry's 4-byte prefix
+    cache that equal the lane's next bytes; -1 for an empty slot."""
     nx = cur_win[:, :4].to(_i64)
     own = nx[:, 0] | (nx[:, 1] << 8) | (nx[:, 2] << 16) | (nx[:, 3] << 24)
-    ent = rolz[_rolz_ctx(c, p)]
-    cand_pos = ent[..., 0]
     diff = (ent[..., 1].to(_i64) & MASK32) ^ own[:, None]
     score = (
         ((diff & 0xFF) == 0).to(_i32) + ((diff & 0xFFFF) == 0).to(_i32)
         + ((diff & 0xFFFFFF) == 0).to(_i32) + (diff == 0).to(_i32)
     )
+    return torch.where(ent[..., 0] > 0, score, -1)
+
+
+def _rolz_best_match(c, rolz, pos, t, n, p: BlockParams, inp_w32, cur_win):
+    """Encoder-side candidate search at pos: score every bucket entry by
+    its 4-byte prefix cache, probe the top-k to ``probe`` bytes, extend the
+    winner to the full window, cap.  ``(length, src, rec_idx, fill)``."""
+    ent = rolz[_rolz_ctx(c, p)]
+    cand_pos = ent[..., 0]
+    score = _cache_scores(ent, cur_win)
     rec = _recency_ranks(cand_pos)
     fill = (cand_pos > 0).sum(dim=1, dtype=_i32)
-    score = torch.where(cand_pos > 0, score, -1)
     d = p.rolz_depth
     rank_key = score * d + (d - 1 - rec)
     k_top = min(p.top_k, d)
@@ -418,6 +456,241 @@ def _greedy_decisions(p: BlockParams, length, src):
     len_next = torch.cat([length[1:], torch.zeros_like(length[:1])], dim=0)
     do = (length >= p.min_len) & (len_next <= length + 1)
     return torch.where(do, length, 0), src
+
+
+# --------------------------------------------------------------------------
+# K4: the whole-block sort finder (flexible parse)
+# --------------------------------------------------------------------------
+
+
+def _bytes_eq_count(x):
+    """Leading equal bytes of a xor'd little-endian word: 0..4."""
+    return torch.where(
+        x == 0, 4,
+        ((x & 0xFF) == 0).to(_i64) + ((x & 0xFFFF) == 0).to(_i64)
+        + ((x & 0xFFFFFF) == 0).to(_i64),
+    )
+
+
+def _rev_runmin(m, inf: int):
+    """Reverse running minimum by Hillis-Steele doubling."""
+    n, k = m.shape[0], 1
+    while k < n:
+        m = torch.minimum(m, torch.cat([m[k:], m.new_full((k,), inf)]))
+        k <<= 1
+    return m
+
+
+def _diag_run_len(eq1, diag):
+    """Per-position run length of eq1 along the candidate diagonal, plus
+    one for a last byte that matches where the diagonal ends."""
+    n = eq1.shape[0]
+    idx = torch.arange(n, device=eq1.device)
+    nf = _rev_runmin(torch.where(eq1 & diag, n + 1, idx), n + 1)
+    tail = torch.where(nf < n, eq1[nf.clamp_max(n - 1)].to(_i64), 0)
+    return nf.clamp_max(n) - idx + tail
+
+
+def sort_ext(p: BlockParams) -> int:
+    """Bytes of the finder's word extension (a multiple of 4 is compared)."""
+    return min(_SORT_EXT, p.window)
+
+
+def pad_block_len(p: BlockParams) -> int:
+    pad = sort_ext(p) + 16
+    return p.capacity + pad + (-(p.capacity + pad)) % 8
+
+
+def pad_block(p: BlockParams, inp):
+    """The block's bytes in position order with the finder's zero tail
+    (ext + 16 bytes, and up to the next multiple of 8): uint8."""
+    return torch.cat([inp.reshape(-1),
+                      inp.new_zeros(pad_block_len(p) - p.capacity)])
+
+
+def sort_keys_plain(p: BlockParams, bytes_pad, n: int):
+    """The finder's key of every position: the Knuth hash (mod 2^32) of the
+    rolz_ctx_bytes bytes before it; 0xFFFFFFFF where there is no such
+    context or the position is past n.  int64 [N] in [0, 2^32)."""
+    big, cb = p.capacity, p.rolz_ctx_bytes
+    b = bytes_pad[: big + 3].to(_i64)
+    w = b[:big] | (b[1 : big + 1] << 8) | (b[2 : big + 2] << 16) | (b[3 : big + 3] << 24)
+    wp = torch.cat([w.new_zeros(cb), w[: big - cb]])
+    if cb == 3:
+        wp = wp & 0xFFFFFF
+    idx = torch.arange(big, device=bytes_pad.device)
+    return torch.where((idx >= cb) & (idx < n), _mul32(wp, 2654435761), MASK32)
+
+
+def sort_candidates_plain(p: BlockParams, inp, n: int):
+    """Plain K4: ``[2 * n_cands, T, S]`` int32 grids (len_0, src_0, len_1,
+    ...) — for every position the n_cands best of the 2 * probe nearest
+    positions in (key, position) sort order with the same preceding
+    context, each with its match length (block.py::sort_candidates, the R
+    configuration: keyed by the context bytes, decode-causal, decimated
+    like the bucket inserts)."""
+    dev = inp.device
+    big, steps = p.capacity, p.steps
+    n_c, dec = _R_CANDS, p.rolz_dec
+    chain_b = max(_R_PROBE, n_c)
+    chain = chain_b + _R_PROBE
+    ext = sort_ext(p)
+    bi = pad_block(p, inp).to(_i64)
+    nw = big + ext + 12
+    w_all = bi[:nw] | (bi[1 : nw + 1] << 8) | (bi[2 : nw + 2] << 16) | (bi[3 : nw + 3] << 24)
+    idx = torch.arange(big, device=dev)
+    h = sort_keys_plain(p, bi, n)
+    hs, ps = torch.sort(h, stable=True)
+    rows = torch.full((big, chain), -1, dtype=_i64, device=dev)
+    for k in range(1, chain_b + 1):  # earlier in sort order
+        same = hs[k:] == hs[:-k]
+        rows[ps[k:], k - 1] = torch.where(same, ps[:-k], -1)
+    for k in range(1, _R_PROBE + 1):  # later in sort order
+        same = hs[:-k] == hs[k:]
+        rows[ps[:-k], chain_b + k - 1] = torch.where(same, ps[k:], -1)
+    t_of = idx % steps
+
+    def causal(cand):
+        ok = (cand >= 0) & ((cand % steps) < t_of)
+        if dec > 1:
+            ok = ok & ((cand + _INSERT_LATE) % dec == 0)
+        return ok
+
+    if chain > n_c:
+        own0, own1 = w_all[:big], w_all[4 : 4 + big]
+        score = torch.empty((big, chain), dtype=_i64, device=dev)
+        for k in range(chain):
+            cand = rows[:, k]
+            safe = cand.clamp(0, big - 1)
+            m0 = _bytes_eq_count(w_all[safe] ^ own0)
+            m1 = _bytes_eq_count(w_all[safe + 4] ^ own1)
+            plen = torch.where(causal(cand), m0 + torch.where(m0 == 4, m1, 0), -1)
+            score[:, k] = plen * chain + (chain - 1 - k)
+        top = torch.topk(score, n_c, dim=1).indices  # scores are distinct
+        rows = torch.gather(rows, 1, top)
+    cap = torch.minimum(steps - t_of, n - idx).clamp(
+        max=min(p.window, p.min_len + ppm.LEN_W - 1)).clamp_min(0)
+    out = []
+    for k in range(n_c):
+        cand = rows[:, k]
+        ok = causal(cand)
+        safe = cand.clamp(0, big - 1)
+        length = torch.zeros(big, dtype=_i64, device=dev)
+        alive = ok
+        for j in range(0, ext, 4):
+            x = w_all[safe + j] ^ w_all[j : j + big]
+            length = length + torch.where(alive, _bytes_eq_count(x), 0)
+            alive = alive & (x == 0)
+        eq1 = (bi[:big] == bi[safe]) & ok
+        diag = torch.cat([cand[1:] == cand[:-1] + 1,
+                          torch.zeros(1, dtype=torch.bool, device=dev)])
+        length = torch.maximum(length, _diag_run_len(eq1, diag))
+        out += [torch.minimum(torch.where(ok, length, 0), cap), cand]
+    grids = torch.stack(out).to(_i32).view(2 * n_c, p.lanes, steps)
+    return grids.transpose(1, 2).contiguous()
+
+
+# --------------------------------------------------------------------------
+# K5: the rank scan (flexible parse)
+# --------------------------------------------------------------------------
+
+
+def rank_scan_plain(p: BlockParams, inp, n: int, props, rolz):
+    """Plain K5: ``[3 * (n_c + 1) + 1, T, S]`` int32 grids — (len, src,
+    recency index) of every proposal, its length zeroed unless the evolving
+    bucket of the position's context holds the source, then of one
+    cache-scored bucket candidate, then the bucket fill.  ``props`` is K4's
+    ``[2 * n_c, T, S]``; ``rolz`` evolves IN PLACE
+    (block.py::_rolz_rank_body)."""
+    dev = inp.device
+    n_c = props.shape[0] // 2
+    c = _init_carry(p, dev)
+    inp_w32 = _pack_words(inp.reshape(-1))
+    out = torch.empty((3 * (n_c + 1) + 1, p.steps, p.lanes), dtype=_i32,
+                      device=dev)
+    len_cap = min(p.window, p.min_len + ppm.LEN_W - 1)
+    d = p.rolz_depth
+    for t in range(p.steps):
+        pos = torch.arange(p.lanes, device=dev) * p.steps + t
+        active = pos < n
+        cur_win = _cur_windows(inp, t, p.window + 1)
+        ent = rolz[_rolz_ctx(c, p)]
+        ent_pos = ent[..., 0]
+        rec = _recency_ranks(ent_pos)
+        for k in range(n_c):
+            l_k, s_k = props[2 * k, t], props[2 * k + 1, t]
+            present = ent_pos == (s_k + 1)[:, None]
+            valid = present.any(dim=1) & active & (t >= 7) & (l_k > 0)
+            out[3 * k, t] = torch.where(valid, l_k, 0)
+            out[3 * k + 1, t] = s_k
+            out[3 * k + 2, t] = torch.where(present, rec, 0).sum(dim=1)
+        score = _cache_scores(ent, cur_win)
+        slot = torch.argmax(score * d + (d - 1 - rec), dim=1, keepdim=True)
+        src_b = torch.gather(ent_pos, 1, slot)[:, 0] - 1
+        sc_b = torch.gather(score, 1, slot)[:, 0]
+        cand_w = _gather_windows(inp_w32, src_b.clamp_min(0), p.window)
+        len_b = _prefix_len(cur_win[:, : p.window], cand_w)
+        cap = torch.clamp(n - pos, max=min(p.steps - t, len_cap)).clamp_min(0)
+        valid_b = (sc_b == 4) & active & (t >= 7)
+        out[3 * n_c, t] = torch.where(valid_b, torch.minimum(len_b, cap), 0)
+        out[3 * n_c + 1, t] = src_b
+        out[3 * n_c + 2, t] = torch.gather(rec, 1, slot)[:, 0]
+        out[3 * n_c + 3, t] = (ent_pos > 0).sum(dim=1)
+        zero = torch.zeros_like(pos)
+        _post_step(c, t, p, pos, active, cur_win[:, 0], zero.bool(), zero,
+                   zero, rolz)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K6: the backward price DP (flexible parse)
+# --------------------------------------------------------------------------
+
+
+def _cand_min_cost(p: BlockParams, cw, length, price):
+    """min over l in [min_len, length] of price + cost[t + l] with the
+    achieving l, ties to the longest l; ``cw[:, j]`` holds cost[t + 1 + j].
+    Real costs saturate below _P_INF; no admissible l gives _P_INF."""
+    offs = torch.arange(cw.shape[1], device=cw.device)[None, :]
+    mask = (offs + 1 >= p.min_len) & (offs + 1 <= length[:, None])
+    cost = (cw + price[:, None]).clamp_max(_P_INF - 1)
+    key = torch.where(mask, cost * 256 + (255 - offs), _P_INF * 256)
+    best = key.min(dim=1).values
+    return best // 256, 256 - best % 256
+
+
+def parse_scan_plain(p: BlockParams, n: int, cands):
+    """Plain K6: ``dec [4, T, S]`` int32 (take, src, recency index, fill) —
+    per lane, backward over the steps, the cheaper of a literal and any
+    admissible truncation of a candidate, priced against the cost-to-go of
+    the next ``window`` steps.  ``cands`` is K5's grids; the fill grid is
+    passed through (block.py::_parse_body under the reversed scan)."""
+    dev = cands.device
+    n_c = (cands.shape[0] - 1) // 3
+    cg = cands.to(_i64)
+    dec = torch.empty((4, p.steps, p.lanes), dtype=_i32, device=dev)
+    dec[3] = cands[3 * n_c]
+    cw = torch.zeros((p.lanes, p.window), dtype=_i64, device=dev)
+    lanes = torch.arange(p.lanes, device=dev)
+    for t in range(p.steps - 1, -1, -1):
+        active = lanes * p.steps + t < n
+        best_cost = _P_LIT_R + cw[:, 0]
+        best_len = torch.zeros_like(best_cost)
+        best_src, best_idx = best_len, best_len
+        for k in range(n_c):
+            lx, sx, ix = cg[3 * k, t], cg[3 * k + 1, t], cg[3 * k + 2, t]
+            cost_m, l_m = _cand_min_cost(p, cw, lx, _P_RM + _P_RI * _rec_bucket(ix))
+            better = (cost_m <= best_cost) & (cost_m < _P_INF)
+            best_len = torch.where(better, l_m, best_len)
+            best_src = torch.where(better, sx, best_src)
+            best_idx = torch.where(better, ix, best_idx)
+            best_cost = torch.minimum(best_cost, cost_m)
+        best_cost = torch.where(active, best_cost.clamp_max(_P_INF - 1), 0)
+        dec[0, t] = torch.where(active, best_len, 0)
+        dec[1, t] = best_src
+        dec[2, t] = best_idx
+        cw = torch.cat([best_cost[:, None], cw[:, :-1]], dim=1)
+    return dec
 
 
 # --------------------------------------------------------------------------
@@ -616,7 +889,7 @@ def decode_scan_plain(p: BlockParams, states, stream, n: int, tables, rolz):
 
 # Launches per kernel; each wrapper adds one where it launches its kernel,
 # and records a pair of CUDA events around the launch (device time).
-LAUNCHES = {"KS": 0, "K2": 0, "K3": 0, "K1": 0}
+LAUNCHES = {"KS": 0, "K4": 0, "K5": 0, "K6": 0, "K2": 0, "K3": 0, "K1": 0}
 _EVENTS: dict = {k: [] for k in LAUNCHES}
 
 
@@ -643,7 +916,7 @@ def _launch(name: str, fn, *args) -> None:
     build.check(err, name)
 
 
-_CFG_FIELDS = 23  # ints in csrc/ppm_r.cuh::Cfg
+_CFG_FIELDS = 29  # ints in csrc/ppm_r.cuh::Cfg
 
 
 def _cfg_array(p: BlockParams, n: int, stream_len: int = 0) -> np.ndarray:
@@ -652,7 +925,8 @@ def _cfg_array(p: BlockParams, n: int, stream_len: int = 0) -> np.ndarray:
          p.rolz_depth, p.rolz_ctx_bytes, p.rolz_dec, p.top_k, p.probe,
          int(p.match), int(p.match and ppm.SSE), ppm.INC2, ppm.CAP2,
          ppm.INC1, ppm.CAP1, ppm.LEN_INC, ppm.LEN_CAP, ppm.IDX_INC,
-         ppm.IDX_CAP, stream_len],
+         ppm.IDX_CAP, stream_len, _R_CANDS, _R_PROBE, sort_ext(p), _P_LIT_R,
+         _P_RM, _P_RI],
         np.int32,
     )
     assert cfg.size == _CFG_FIELDS
@@ -740,6 +1014,127 @@ def search_scan(p: BlockParams, inp, n: int, rolz):
             inp.data_ptr(), rolz.data_ptr(), out.data_ptr(),
             _pos_scratch(p, inp.device).data_ptr(), _stream_ptr())
     return out
+
+
+K4_TILE = 2048  # keys per warp and radix pass (csrc/sortfind.cu)
+
+
+def sort_positions_plain(p: BlockParams, bytes_pad, n: int):
+    """Plain first stage of K4: ``(hs, ps)`` — the keys in ascending order
+    (int64 in [0, 2^32)) and the positions in (key, position) order."""
+    return torch.sort(sort_keys_plain(p, bytes_pad, n), stable=True)
+
+
+def _k4_sort(p: BlockParams, bytes_pad, n: int):
+    """The key and radix-sort kernels of K4: ``(hs, ps)`` int32 [N] (hs
+    holds the uint32 keys' bits)."""
+    big, dev = p.capacity, bytes_pad.device
+    keys = torch.empty((2, big), dtype=_i32, device=dev)
+    poss = torch.empty((2, big), dtype=_i32, device=dev)
+    tiles = -(-big // K4_TILE)
+    hist = torch.empty(256 * tiles + 1, dtype=_i32, device=dev)
+    cfg = _cfg_array(p, n)
+    err = build.lib().cpx_k4_sort_launch(
+        cfg.ctypes.data, bytes_pad.data_ptr(), keys.data_ptr(),
+        poss.data_ptr(), hist.data_ptr(), _stream_ptr())
+    return err, keys[0], poss[0]
+
+
+def sort_positions(p: BlockParams, bytes_pad, n: int):
+    """First stage of K4 on its own, for a comparison with a library sort:
+    ``(hs, ps)`` as :func:`sort_positions_plain` gives them.  The main path
+    goes through :func:`sort_candidates`, which counts the launch."""
+    if _dispatch(bytes_pad) == "cpu":
+        return sort_positions_plain(p, bytes_pad, n)
+    _check_k4(p, bytes_pad)
+    err, hs, ps = _k4_sort(p, bytes_pad, n)
+    build.check(err, "K4 sort")
+    return hs.to(_i64) & MASK32, ps.to(_i64)
+
+
+def _check_k4(p: BlockParams, bytes_pad):
+    if p.capacity >= 1 << 30:
+        raise NotImplementedError("the sort finder takes blocks below 1 GiB")
+    _expect(bytes_pad, "bytes_pad", torch.uint8, (pad_block_len(p),))
+    if bytes_pad.data_ptr() % 8:
+        raise ValueError("bytes_pad must be 8-byte aligned (64-bit loads)")
+
+
+def sort_candidates(p: BlockParams, inp, n: int):
+    """K4 — the whole-block sort finder of the flexible parse.
+
+    Replaces comprox_tpu/codec/block.py::sort_candidates (809-936) in the
+    configuration _search_and_parse calls it with for mode R (1586-1590).
+    Kernels: csrc/sortfind.cu (key build, a radix sort of (key, position),
+    neighbour probe + select + extend, diagonal runs + cap).  ``inp``
+    [S, T] uint8 -> [2 * n_cands, T, S] int32 (len, src per proposal).
+    """
+    if _dispatch(inp) == "cpu":
+        return sort_candidates_plain(p, inp, n)
+    _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
+    bytes_pad = pad_block(p, inp)
+    _check_k4(p, bytes_pad)
+    big, dev, n_c = p.capacity, inp.device, _R_CANDS
+    cand = torch.empty((n_c, big), dtype=_i32, device=dev)
+    lw = torch.empty((n_c, big), dtype=_i32, device=dev)
+    out = torch.empty((2 * n_c, p.steps, p.lanes), dtype=_i32, device=dev)
+    cfg = _cfg_array(p, n)
+
+    def stages():
+        err, hs, ps = _k4_sort(p, bytes_pad, n)
+        return err or build.lib().cpx_k4_find_launch(
+            cfg.ctypes.data, bytes_pad.data_ptr(), hs.data_ptr(),
+            ps.data_ptr(), cand.data_ptr(), lw.data_ptr(), out.data_ptr(),
+            _stream_ptr())
+
+    _launch("K4", stages)
+    return out
+
+
+def rank_scan(p: BlockParams, inp, n: int, props, rolz):
+    """K5 — the rank scan of the flexible parse.
+
+    Replaces comprox_tpu/codec/block.py::_rolz_rank_body (1188-1252) under
+    _rolz_rank_scan (1265-1283).  Kernel: csrc/rank.cu (one CTA, one
+    thread per lane, as KS).  ``props`` [2 * n_c, T, S] int32 from K4;
+    ``rolz`` [2^bits, D, 2] int32 (updated in place) ->
+    [3 * (n_c + 1) + 1, T, S] int32.
+    """
+    if _dispatch(inp, props, rolz) == "cpu":
+        return rank_scan_plain(p, inp, n, props, rolz)
+    _check_kernel_geometry(p)
+    _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
+    _expect(props, "props", _i32, (2 * _R_CANDS, p.steps, p.lanes))
+    _expect(rolz, "rolz", _i32, (1 << p.rolz_bits, p.rolz_depth, 2))
+    if inp.data_ptr() % 8 or rolz.data_ptr() % 8:
+        raise ValueError("inp and rolz must be 8-byte aligned (64-bit loads)")
+    out = torch.empty((3 * (_R_CANDS + 1) + 1, p.steps, p.lanes), dtype=_i32,
+                      device=inp.device)
+    cfg = _cfg_array(p, n)
+    _launch("K5", build.lib().cpx_k5_launch, cfg.ctypes.data,
+            inp.data_ptr(), props.data_ptr(), rolz.data_ptr(), out.data_ptr(),
+            _pos_scratch(p, inp.device).data_ptr(), _stream_ptr())
+    return out
+
+
+def parse_scan(p: BlockParams, n: int, cands):
+    """K6 — the backward price DP of the flexible parse.
+
+    Replaces comprox_tpu/codec/block.py::_parse_body (1414-1477, R) with
+    _cand_min_cost (1391-1411) under the reversed scan of
+    _search_and_parse (1596-1600).  Kernel: csrc/parse.cu (one warp per
+    lane, all SMs).  ``cands`` [3 * (n_c + 1) + 1, T, S] int32 from K5 ->
+    dec [4, T, S] int32 (take, src, recency index, fill).
+    """
+    if _dispatch(cands) == "cpu":
+        return parse_scan_plain(p, n, cands)
+    n_c = _R_CANDS + 1
+    _expect(cands, "cands", _i32, (3 * n_c + 1, p.steps, p.lanes))
+    dec = torch.empty((4, p.steps, p.lanes), dtype=_i32, device=cands.device)
+    cfg = _cfg_array(p, n)
+    _launch("K6", build.lib().cpx_k6_launch, cfg.ctypes.data,
+            cands.data_ptr(), dec.data_ptr(), _stream_ptr())
+    return dec
 
 
 def model_scan(p: BlockParams, inp, n: int, dec, tables):
@@ -857,10 +1252,15 @@ def _check_drain(x, base, n_words):
 
 
 def encode_passes(p: BlockParams, inp, n: int):
-    """KS + greedy parse + K2 + K3 on one [S, T] block tensor.  Returns
-    ``(states, emit, words, ev, tables)``."""
+    """The parse (flexible: K4, K5, K6; greedy: KS and two elementwise
+    ops), then K2 and K3, on one [S, T] block tensor.  Returns ``(states,
+    emit, words, ev, tables)``."""
     dev = inp.device
-    if p.match:
+    if p.match and p.flexible:
+        props = sort_candidates(p, inp, n)
+        cands = rank_scan(p, inp, n, props, _init_rolz(p, dev))
+        dec = parse_scan(p, n, cands)
+    elif p.match:
         grids = search_scan(p, inp, n, _init_rolz(p, dev))
         take, src = _greedy_decisions(p, grids[0], grids[1])
         dec = torch.stack([take, src, grids[2], grids[3]]).contiguous()
@@ -872,19 +1272,9 @@ def encode_passes(p: BlockParams, inp, n: int):
     return states, emit, words, ev, tables
 
 
-def _check_encode(p: BlockParams):
-    check_supported(p)
-    if p.match and p.flexible:
-        raise NotImplementedError(
-            "the flexible parse (kernels K4-K6) is not yet ported to "
-            "comprox_tpu_torch (ROADMAP.md items 7-9): encode with the greedy "
-            "parse (flexible=False, crz -f0)"
-        )
-
-
 def encode_block(data: np.ndarray, p: BlockParams, device) -> bytes:
     """Encode up to p.capacity bytes on ``device``; returns the payload."""
-    _check_encode(p)
+    check_supported(p)
     n = int(data.size)
     if not 0 < n <= p.capacity:
         raise ValueError(f"block of {n} bytes for capacity {p.capacity}")

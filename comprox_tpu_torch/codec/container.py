@@ -4,7 +4,8 @@ Counterpart of :mod:`comprox_tpu.codec.container`: the same bytes for the
 same input (magic ``CPXTPU02``, header with CRC and the model-knob
 fingerprint, optional dictionary blob, filter spans, per-block headers
 with CRC, the stored-block fallback, the zero sentinel).  The dictionary
-and filter stages are the JAX package's own host modules, imported.
+and filter stages are the port's own copies of the JAX package's host
+modules (codec/dictionary.py, ops/filters.py).
 
 Not yet ported, and refused with an error instead of another format:
 chain mode (``F_CHAIN``, ``F_CHAIN_MATCH``; ROADMAP.md item 11) and the
@@ -20,8 +21,8 @@ from typing import BinaryIO, Callable, Optional
 
 import numpy as np
 
-from comprox_tpu.codec import dictionary as dic
-from comprox_tpu.ops import filters as flt
+from comprox_tpu_torch.codec import dictionary as dic
+from comprox_tpu_torch.ops import filters as flt
 from comprox_tpu_torch.codec.block import BlockParams, decode_block, encode_block
 from comprox_tpu_torch.models.ppm import format_fingerprint
 

@@ -1,0 +1,109 @@
+// K6: the backward price DP of the flexible-parse encode.
+//
+// Replaces comprox_tpu/codec/block.py::_parse_body (1414-1477, mode R)
+// with _cand_min_cost (1391-1411), run under a reversed lax.scan by
+// _search_and_parse (1596-1600).  Per lane, from the last step to the
+// first: cost[t] = min(literal price + cost[t+1], over the candidates and
+// every admissible length l of price + cost[t+l]); the decision at t is
+// the literal, or the candidate and length that reach the minimum.  Ties:
+// the longest l within a candidate, a match over the literal, a later
+// candidate over an earlier one; a candidate with no admissible length
+// never wins.  Costs saturate at 2^22 - 1.
+//
+// Bound on the H100: lanes are independent and the T steps of a lane are
+// dependent, so the kernel is bound by the latency of one step times T,
+// not by bytes (it reads 3 * n_cands + 1 and writes 4 int32 per position)
+// or by operations.  The design spreads the lanes over the card, one warp
+// per lane (S = 512 gives 512 warps on 132 SMs); the lane's cost window
+// (cost[t+1 .. t+window], window <= 256) is a ring of 256 ints in shared
+// memory, so a step shifts nothing; the minimum over the lengths is eight
+// keys per thread and one warp reduction per candidate, taken only for
+// candidates long enough to be admissible (most are not); the step's
+// inputs are loaded one grid per thread, a step ahead of their use.
+#include "ppm_r.cuh"
+
+namespace {
+
+#define K6_WARPS 4
+#define K6_MAX_CANDS 8  // the finder's proposals (<= 7) and the bucket's
+#define P_INF (1 << 22)
+
+__global__ void __launch_bounds__(K6_WARPS * 32) k6_kernel(
+    Cfg c, const int* __restrict__ cands, int* __restrict__ dec) {
+  __shared__ int ring_all[K6_WARPS][256];
+  const unsigned full = 0xffffffffu;
+  const int warp = threadIdx.x >> 5, j = threadIdx.x & 31;
+  const int lane = blockIdx.x * K6_WARPS + warp;
+  if (lane >= c.S) return;  // the whole warp: no CTA barrier below
+  int* const ring = ring_all[warp];
+  for (int u = j; u < 256; u += 32) ring[u] = 0;  // cost past the block: 0
+  __syncwarp();
+  const int n_c = c.n_cands + 1, n_in = 3 * n_c + 1;
+  const size_t plane = (size_t)c.T * c.S;
+  const int lo = max(c.min_len, 1);
+  const int* const mine = cands + (size_t)min(j, n_in - 1) * plane + lane;
+  int nxt = mine[(size_t)(c.T - 1) * c.S];
+  for (int t = c.T - 1; t >= 0; --t) {
+    const int in = nxt;
+    if (t > 0) nxt = mine[(size_t)(t - 1) * c.S];
+    int cwv[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int offs = j + 32 * m;
+      cwv[m] = offs < c.window ? ring[(t + 1 + offs) & 255] : 0;
+    }
+    int best_cost = c.p_lit + __shfl_sync(full, cwv[0], 0);
+    int best_len = 0, best_src = 0, best_idx = 0;
+#pragma unroll
+    for (int k = 0; k < K6_MAX_CANDS; ++k) {
+      if (k >= n_c) break;
+      const int lx = min(__shfl_sync(full, in, 3 * k), c.window);
+      if (lx < lo) continue;  // no admissible length: cost 2^22, never wins
+      const int sx = __shfl_sync(full, in, 3 * k + 1);
+      const int ix = __shfl_sync(full, in, 3 * k + 2);
+      const int price = c.p_rm + c.p_ri * rec_bucket(ix);
+      int key = P_INF * 256;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int offs = j + 32 * m;
+        if (offs + 1 >= lo && offs + 1 <= lx)
+          key = min(key, min(cwv[m] + price, P_INF - 1) * 256 + (255 - offs));
+      }
+      key = __reduce_min_sync(full, key);
+      const int cost_m = key >> 8, l_m = 256 - (key & 255);
+      if (cost_m <= best_cost) {
+        best_len = l_m;
+        best_src = sx;
+        best_idx = ix;
+        best_cost = cost_m;
+      }
+    }
+    const bool active = lane * c.T + t < c.n;
+    best_cost = active ? min(best_cost, P_INF - 1) : 0;
+    if (!active) best_len = 0;
+    const int fill = __shfl_sync(full, in, n_in - 1);
+    __syncwarp();  // every thread has read its window entries
+    if (j == 0) {
+      ring[t & 255] = best_cost;
+      const size_t o = (size_t)t * c.S + lane;
+      dec[o] = best_len;
+      dec[plane + o] = best_src;
+      dec[2 * plane + o] = best_idx;
+      dec[3 * plane + o] = fill;
+    }
+    __syncwarp();
+  }
+}
+
+}  // namespace
+
+extern "C" int cpx_k6_launch(const int* cfg, const void* cands, void* dec,
+                             void* stream) {
+  Cfg c;
+  memcpy(&c, cfg, sizeof(Cfg));
+  if (c.n_cands + 1 > K6_MAX_CANDS || c.window > 256) return (int)cudaErrorInvalidValue;
+  int blocks = (c.S + K6_WARPS - 1) / K6_WARPS;
+  k6_kernel<<<blocks, K6_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      c, (const int*)cands, (int*)dec);
+  return (int)cudaGetLastError();
+}

@@ -1,5 +1,5 @@
-// Mode-R model code shared by the search (KS), modeling (K2) and decode
-// (K1) kernels: one set of __device__ functions for encode and decode, so
+// Mode-R model code shared by the search (KS), rank (K5), modeling (K2) and
+// decode (K1) kernels: one set of __device__ functions for encode and decode, so
 // the table evolution is the same on both sides (the JAX package's rule
 // that encode and decode share their model read/update functions).
 //
@@ -44,11 +44,15 @@
 #define RANS_L (1u << 16)
 
 // Block geometry and model knobs, filled from a host int32 array in field
-// order (comprox_tpu_torch/codec/block.py::_cfg_array builds it).
+// order (comprox_tpu_torch/codec/block.py::_cfg_array builds it).  The last
+// six are encoder-only knobs of the flexible parse: proposals per position,
+// chain depth each way, word-extension bytes, and the parse prices
+// (literal, match, per recency bucket).
 struct Cfg {
   int S, T, n, min_len, window, o3_bits, rolz_bits, rolz_depth,
       rolz_ctx_bytes, rolz_dec, top_k, probe, match, use_sse, inc2, cap2,
-      inc1, cap1, len_inc, len_cap, idx_inc, idx_cap, stream_len;
+      inc1, cap1, len_inc, len_cap, idx_inc, idx_cap, stream_len,
+      n_cands, r_probe, sort_ext, p_lit, p_rm, p_ri;
 };
 
 static __device__ const int kSseThr[33] = {

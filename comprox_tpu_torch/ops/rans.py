@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from comprox_tpu.ops.rans_scalar import M, M_BITS, MASK16, MASK_M, RANS_L
+from comprox_tpu_torch.ops.rans_scalar import M, M_BITS, MASK16, MASK_M, RANS_L
 
 MASK32 = 0xFFFFFFFF
 _i64 = torch.int64

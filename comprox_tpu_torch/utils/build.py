@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 At first use, every ``comprox_tpu_torch/csrc/*.cu`` is compiled by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, under
-``build/kernels/`` at the repository root, named by a hash of the sources
-(an unchanged tree reuses its build).  The library is loaded with
+for ``sm_90a`` (one ``nvcc`` per source, all started together) and linked
+into one shared library with a plain C interface, under ``build/kernels/``
+at the repository root, named by a hash of the sources (an unchanged tree
+reuses its build).  The library is loaded with
 ``ctypes``.  Each C entry point returns ``cudaGetLastError()`` after its
 launch; :func:`check` raises on anything but 0.
 
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 NVCC_TIMEOUT_S = 600  # a whole build takes well under a minute
 
@@ -35,6 +36,10 @@ _I = ctypes.c_int
 # entry point -> argument types (pointers, the stream and ints)
 _SIGNATURES = {
     "cpx_ks_launch": [_P] * 6,
+    "cpx_k4_sort_launch": [_P] * 6,
+    "cpx_k4_find_launch": [_P] * 8,
+    "cpx_k5_launch": [_P] * 7,
+    "cpx_k6_launch": [_P] * 4,
     "cpx_k2_launch": [_P] * 12,
     "cpx_k3_launch": [_I, _I, _P, _P, _P, _P, _P],
     "cpx_k1_launch": [_P] * 15,
@@ -69,17 +74,42 @@ def build(verbose: bool = False) -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        if verbose:
+            cmd += ["-Xptxas", "-v"]
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    try:
+        for src, proc in procs:
+            _, err = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+            elif verbose:
+                print(err)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    r = subprocess.run(cmd, capture_output=True, text=True,
-                       timeout=NVCC_TIMEOUT_S)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    if verbose:
-        print(r.stderr)
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        r = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, so)
     return so
 

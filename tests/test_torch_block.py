@@ -11,7 +11,11 @@ tensors) and is held to the JAX pass on the same input, exactly:
   ``_encode_passes``, fed the JAX event grids; the payload vs
   ``encode_block``;
 - K1 (decode scan) decodes JAX payloads, and its final tables equal the
-  JAX decoder's.
+  JAX decoder's;
+- the flexible parse as a whole (K4, K5, K6, then K2 and K3; each pass has
+  its own file: test_torch_sortfind.py, test_torch_rank.py,
+  test_torch_parse.py): ``encode_block(flexible=True)`` vs the JAX payload,
+  at the default encoder knobs and at ``CPX_R_PROBE=32``.
 
 The CUDA kernels themselves are held to these plain versions by
 test_torch_kernels.py, on a card.
@@ -265,8 +269,8 @@ def test_windows_and_prefix(width):
 
 def test_unsupported_configurations_raise(monkeypatch):
     data = corpus("text", 100, seed=0)
-    with pytest.raises(NotImplementedError, match="flexible parse"):
-        blk.encode_block(data, blk.BlockParams(**dict(SMALL, flexible=True)), "cpu")
+    with pytest.raises(NotImplementedError, match="mode 'X'"):
+        blk.encode_block(data, blk.BlockParams(**dict(SMALL, mode="X", flexible=True)), "cpu")
     with pytest.raises(NotImplementedError, match="mode 'P'"):
         blk.encode_block(data, blk.BlockParams(**dict(SMALL, mode="P")), "cpu")
     with pytest.raises(NotImplementedError, match="short_depth"):
@@ -287,3 +291,76 @@ def test_unported_encoder_knobs_raise(monkeypatch, knob):
     monkeypatch.setitem(blk._ENV, knob, "1" if knob == "CPX_DEBUG_EVT" else "scan")
     with pytest.raises(NotImplementedError, match=knob):
         blk.encode_block(corpus("text", 100), blk.BlockParams(**SMALL), "cpu")
+
+
+FLEX = dict(SMALL, flexible=True)
+FLEX_WIDE = dict(WIDE, flexible=True)
+
+
+@pytest.mark.parametrize(
+    "name,kw,short",
+    [("text", FLEX, 0), ("zeros", FLEX, 0), ("period7", FLEX, 11),
+     ("random", FLEX, 0), ("lowentropy", FLEX, 37),
+     ("text", dict(FLEX, rolz_ctx_bytes=4, rolz_dec=2), 5),
+     ("text", FLEX_WIDE, 100), ("period7", FLEX_WIDE, 0)],
+)
+def test_flexible_encode_equals_jax(name, kw, short):
+    """encode_block with the flexible parse writes the JAX payload, and
+    both packages decode it."""
+    pj, pt = params(**kw)
+    data = corpus(name, pj.capacity - short, seed=8)
+    payload = jblk.encode_block(data, pj)
+    assert blk.encode_block(data, pt, "cpu") == payload
+    np.testing.assert_array_equal(blk.decode_block(payload, data.size, pt, "cpu"), data)
+    np.testing.assert_array_equal(jblk.decode_block(payload, data.size, pj), data)
+
+
+def test_flexible_decisions_equal_jax():
+    """The parse decisions (take, src, recency index, fill) that the
+    modeling scan is fed, against _search_and_parse."""
+    pj, pt = params(**FLEX_WIDE)
+    data = corpus("text", pj.capacity - 9, seed=9)
+    buf = block_buf(data, pj)
+    inp = torch.from_numpy(buf)
+    n = int(data.size)
+    cands = blk.rank_scan(pt, inp, n, blk.sort_candidates(pt, inp, n),
+                          blk._init_rolz(pt, "cpu"))
+    dec = blk.parse_scan(pt, n, cands)
+    _, take, src, idx, fill = _jax_search_and_parse(pj, jnp.asarray(buf), jnp.int32(n))
+    for a, b in zip(dec, (take, src, idx, fill)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int((dec[0] > 0).sum()) > 100
+
+
+@pytest.mark.parametrize("knob,value", [("_R_PROBE", 32), ("_R_CANDS", 2)])
+def test_flexible_encode_at_other_knobs(monkeypatch, knob, value):
+    """CPX_R_PROBE=32 (a deeper chain) and CPX_R_CANDS=2: the knobs bind at
+    import in both packages, so both module values are set here, on a
+    geometry that no other test has traced under jit."""
+    monkeypatch.setattr(jblk, knob, value)
+    monkeypatch.setattr(blk, knob, value)
+    kw = dict(FLEX_WIDE, o3_bits=12 if knob == "_R_PROBE" else 11)
+    pj, pt = params(**kw)
+    data = corpus("text", pj.capacity, seed=10)
+    inp = torch.from_numpy(block_buf(data, pj))
+    payload = jblk.encode_block(data, pj)
+    assert blk.encode_block(data, pt, "cpu") == payload
+    props = blk.sort_candidates(pt, inp, data.size)
+    assert props.shape[0] == 2 * getattr(blk, "_R_CANDS")
+    monkeypatch.undo()
+    default = blk.sort_candidates(pt, inp, data.size)
+    assert props.shape != default.shape or not torch.equal(props, default), \
+        "the knob must change the finder's proposals"
+    np.testing.assert_array_equal(blk.decode_block(payload, data.size, pt, "cpu"), data)
+    np.testing.assert_array_equal(jblk.decode_block(payload, data.size, pj), data)
+
+
+@pytest.mark.parametrize(
+    "knob,value",
+    [("_R_CANDS", 0), ("_R_CANDS", 8), ("_R_PROBE", 0), ("_R_PROBE", 65),
+     ("_SORT_EXT", 0), ("_P_RM", -1)],
+)
+def test_flexible_knobs_out_of_range_raise(monkeypatch, knob, value):
+    monkeypatch.setattr(blk, knob, value)
+    with pytest.raises(NotImplementedError, match="CPX_"):
+        blk.encode_block(corpus("text", 100), blk.BlockParams(**FLEX), "cpu")

@@ -105,7 +105,7 @@ def test_archive_equals_jax(kind, kw):
 def test_filter_span_applied():
     data = sample("elf")
     blob = data[700:1200]
-    from comprox_tpu.ops import filters as flt
+    from comprox_tpu_torch.ops import filters as flt
 
     assert flt.detect_spans(blob), "the sample must exercise the x86 filter"
     assert port_encode(data, filters=True) != port_encode(data, filters=False)
@@ -136,7 +136,7 @@ def test_cli_subprocess_imports_no_jax(tmp_path):
         m.run("crz", ["e", *a, "-f0", "-b0.0005", "-l8", "-q"], device="cpu")
         m.run("crz", ["d", a[1], {str(tmp_path / 'out.bin')!r}, "-q"],
               device="cpu")
-        print("jax" in sys.modules)
+        print("jax" in sys.modules or "comprox_tpu" in sys.modules)
     """)
     r = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                        env=dict(os.environ, OMP_NUM_THREADS="1"),
@@ -174,7 +174,7 @@ def test_chained_archives_and_other_codecs_raise():
         ["crz", "e", "a", "b", "-f0", "-C"],
         ["crz", "e", "a", "b", "-f0", "-j"],
         ["crz", "e", "a", "b", "-f0", "-g2"],
-        ["crz", "e", "a", "b"],
+        ["crz", "e", "a", "b", "-c"],
         ["crx", "e", "a", "b", "-f0"],
         ["crp", "e", "a", "b", "-f0"],
         ["crf", "e", "a", "b", "-f0"],
@@ -197,7 +197,11 @@ def test_cli_needs_a_card_for_cuda(tmp_path):
 def test_golden_fixture_metadata():
     """The committed JAX archives carry the digests chip_smoke.py checks."""
     meta = json.loads((ROOT / "tests/data/torch_golden.json").read_text())
-    assert "crz_f0_1MiB_S512.cpx" in meta
+    assert set(meta) == {f"crz_{parse}_{mb}MiB_S512.cpx"
+                         for parse in ("f0", "flex") for mb in (1, 8)}
+    for mb in (1, 8):  # both parses of one size code the same bytes
+        assert (meta[f"crz_flex_{mb}MiB_S512.cpx"]["input_sha256"]
+                == meta[f"crz_f0_{mb}MiB_S512.cpx"]["input_sha256"])
     import hashlib
 
     for name, m in meta.items():
@@ -206,3 +210,118 @@ def test_golden_fixture_metadata():
         assert len(arc) == m["archive_bytes"]
         cp, flags = con.read_header(io.BytesIO(arc))
         assert cp.block.lanes == 512 and not flags & (con.F_CHAIN | con.F_CHAIN_MATCH)
+
+
+FLEX = dict(SMALL, flexible=True)
+
+
+def flex_cps(**kw):
+    kw = dict(FLEX, **kw)
+    return (jcon.ContainerParams(codec=b"R", block=jblk.BlockParams(**kw)),
+            con.ContainerParams(codec=b"R", block=blk.BlockParams(**kw)))
+
+
+@pytest.mark.parametrize(
+    "kind,kw",
+    [
+        ("text", {}),
+        ("text", {"dictionary": False}),
+        ("elf", {"filters": True}),
+        ("stored", {}),
+    ],
+)
+def test_flexible_archive_equals_jax(kind, kw):
+    """The whole archive of the default (flexible) parse, several blocks,
+    dictionary and filter stages through the port's own copies."""
+    data = sample(kind)
+    cpj, cpt = flex_cps()
+    ref, got = io.BytesIO(), io.BytesIO()
+    jcon.encode_stream(data, ref, cpj, **kw)
+    con.encode_stream(data, got, cpt, "cpu", **kw)
+    assert got.getvalue() == ref.getvalue()
+    cross_decode(got.getvalue(), data)
+
+
+def test_flexible_cli_archive_equals_jax(tmp_path):
+    """crz e without -f0 through both command lines: the same file; each
+    package decodes it."""
+    src = tmp_path / "in.bin"
+    sample("text").tofile(src)
+    args = ["-b0.0005", "-l8", "-q"]
+    cli.run("crz", ["e", str(src), str(tmp_path / "port.crz"), *args], device="cpu")
+    jcli.run("crz", ["e", str(src), str(tmp_path / "jax.crz"), *args])
+    arc = (tmp_path / "port.crz").read_bytes()
+    assert arc == (tmp_path / "jax.crz").read_bytes()
+    cp, _ = con.read_header(io.BytesIO(arc))
+    assert cp.block.lanes == 8 and cp.block.steps == 65
+    cli.run("crz", ["d", str(tmp_path / "jax.crz"), str(tmp_path / "out.bin"), "-q"],
+            device="cpu")
+    assert (tmp_path / "out.bin").read_bytes() == src.read_bytes()
+    cross_decode(arc, sample("text"))
+    # -f0 still selects the greedy parse: another archive
+    cli.run("crz", ["e", str(src), str(tmp_path / "f0.crz"), "-f0", *args], device="cpu")
+    assert (tmp_path / "f0.crz").read_bytes() != arc
+
+
+def test_host_stages_are_the_ports_own_copies():
+    """The dictionary and filter modules the container uses are the port's,
+    and give the JAX package's results on the same bytes."""
+    from comprox_tpu.codec import dictionary as jdic
+    from comprox_tpu.ops import filters as jflt
+    from comprox_tpu_torch.codec import dictionary as dic
+    from comprox_tpu_torch.ops import filters as flt
+
+    assert con.dic is dic and con.flt is flt
+    assert dic.__name__.startswith("comprox_tpu_torch.")
+    data = np.frombuffer(corpus("text", 6000, seed=3).tobytes()
+                         + b" Capital Words AND lower words " * 40, np.uint8)
+    d, dj = dic.build_dictionary(data), jdic.build_dictionary(data)
+    assert d is not None and dic.pack_dict(d) == jdic.pack_dict(dj)
+    enc = dic.dict_encode(data, d)
+    np.testing.assert_array_equal(enc, jdic.dict_encode(data, dj))
+    np.testing.assert_array_equal(dic.dict_decode(enc, d), data)
+    blob = dic.pack_dict(d)
+    assert dic.blob_encode(blob) == jdic.blob_encode(blob)
+    assert dic.blob_decode(dic.blob_encode(blob), len(blob)) == blob
+    elf = np.frombuffer(elf_blob(np.random.default_rng(2), 4096), np.uint8)
+    spans = flt.detect_spans(elf)
+    assert spans and flt.pack_spans(spans) == jflt.pack_spans(jflt.detect_spans(elf))
+    fwd = flt.apply_spans(elf, spans, encode=True)
+    np.testing.assert_array_equal(fwd, jflt.apply_spans(elf, spans, encode=True))
+    np.testing.assert_array_equal(flt.apply_spans(fwd, spans, encode=False), elf)
+
+
+def test_native_and_python_host_paths_agree(tmp_path, monkeypatch):
+    """The C loops (built into build/native/ from the port's csrc/native.c)
+    and the Python paths give the same bytes: E8/E9 transform, dictionary
+    count, substitution and expansion."""
+    from comprox_tpu_torch.codec import dictionary as dic
+    from comprox_tpu_torch.utils import native
+
+    lib = native.get_lib()
+    if lib is None:
+        pytest.skip("no C compiler: only the Python paths exist here")
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    assert list(native.BUILD_DIR.glob("libcpx_native_*.so"))
+    rng = np.random.default_rng(5)
+    elf = np.frombuffer(elf_blob(rng, 3000), np.uint8)
+    for en_de in (0, 1):
+        a, b = elf.copy(), elf.copy()
+        native._e8e9_python(a, 0, a.size, en_de)
+        lib.e8e9_transform(b.ctypes.data, b.size, 0, b.size, en_de)
+        np.testing.assert_array_equal(a, b)
+    base = corpus("text", 40000, seed=11).tobytes()
+    extra = (b" The quick Brown fox THE the ThE " * 20
+             + bytes(rng.integers(0, 256, 2000, dtype=np.uint8)))
+    data = np.frombuffer(base + extra, np.uint8).copy()
+    d = dic.build_dictionary(data, max_words2=4096)
+    assert d is not None and len(d.words2) > 0
+    for part in (data, data[:777], data[-3001:]):
+        enc = dic.dict_encode(part, d)
+        np.testing.assert_array_equal(enc, dic._dict_encode_py(part, d))
+        np.testing.assert_array_equal(dic.dict_decode(enc, d), dic._dict_decode_py(enc, d))
+        np.testing.assert_array_equal(dic.dict_decode(enc, d), part)
+    # the count pass: with the library switched off the same dictionary
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    d_py = dic.build_dictionary(data, max_words2=4096)
+    assert dic.pack_dict(d_py) == dic.pack_dict(d)

@@ -51,6 +51,10 @@ def test_cfg_layout_matches_the_c_struct():
     assert by_name["n"] == 1234 and by_name["stream_len"] == 99
     assert by_name["rolz_dec"] == 2 and by_name["probe"] == p.probe
     assert by_name["use_sse"] == 1 and by_name["cap1"] == ppm.CAP1
+    assert by_name["n_cands"] == blk._R_CANDS and by_name["r_probe"] == blk._R_PROBE
+    assert by_name["sort_ext"] == min(blk._SORT_EXT, p.window)
+    assert (by_name["p_lit"], by_name["p_rm"], by_name["p_ri"]) == (
+        blk._P_LIT_R, blk._P_RM, blk._P_RI)
 
 
 def test_build_cache_key_and_entry_points():
@@ -131,11 +135,64 @@ def test_kernel_matches_plain(cuda_device, kernel):
     assert np.array_equal(ok.cpu().numpy().reshape(-1)[:n], buf[:n])
 
 
+def _flex_inputs(name, p, n):
+    buf = np.zeros(p.capacity, np.uint8)
+    if name == "text":
+        buf[:n] = text(n, seed=11)
+    elif name == "period3":
+        buf[:n] = np.tile(np.array([7, 200, 31], np.uint8), n // 3 + 1)[:n]
+    elif name == "random":
+        buf[:n] = np.random.default_rng(5).integers(0, 256, n, dtype=np.uint8)
+    return buf  # "zeros": all zero
+
+
 @pytest.mark.cuda
-def test_wide_block_keeps_positions_in_global_scratch(cuda_device):
+@pytest.mark.parametrize("name", ["text", "zeros", "period3", "random"])
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K6"])
+def test_flexible_kernel_matches_plain(cuda_device, kernel, name):
+    """K4, K5, K6 against their plain versions, each fed the plain
+    version's output of the pass before it."""
+    p = blk.BlockParams(**dict(WIDE, flexible=True))
+    n = p.capacity - 100
+    inp = torch.from_numpy(
+        _flex_inputs(name, p, n).reshape(p.lanes, p.steps)).to(cuda_device)
+    props = blk.sort_candidates_plain(p, inp, n)
+    if kernel == "K4":
+        bytes_pad = blk.pad_block(p, inp)
+        hs, ps = blk.sort_positions(p, bytes_pad, n)
+        hp, pp = blk.sort_positions_plain(p, bytes_pad, n)
+        assert torch.equal(hs, hp) and torch.equal(ps, pp)
+        assert torch.equal(blk.sort_candidates(p, inp, n), props)
+        return
+    rk, rp = blk._init_rolz(p, cuda_device), blk._init_rolz(p, cuda_device)
+    cands = blk.rank_scan_plain(p, inp, n, props, rp)
+    if kernel == "K5":
+        assert torch.equal(blk.rank_scan(p, inp, n, props, rk), cands)
+        assert torch.equal(rk, rp)
+        return
+    assert torch.equal(blk.parse_scan(p, n, cands), blk.parse_scan_plain(p, n, cands))
+
+
+@pytest.mark.cuda
+def test_flexible_block_roundtrip_on_card(cuda_device):
+    p = blk.BlockParams(**dict(WIDE, lanes=64, steps=64, flexible=True))
+    data = text(p.capacity - 7, seed=8)
+    before = dict(blk.LAUNCHES)
+    payload = blk.encode_block(data, p, cuda_device)
+    assert all(blk.LAUNCHES[k] == before[k] + 1 for k in ("K4", "K5", "K6"))
+    assert blk.LAUNCHES["KS"] == before["KS"]
+    assert payload == blk.encode_block(data, p, "cpu")
+    np.testing.assert_array_equal(
+        blk.decode_block(payload, data.size, p, cuda_device), data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flexible", [False, True])
+def test_wide_block_keeps_positions_in_global_scratch(cuda_device, flexible):
     """S=1024, D=64: the [S, D+1] position array (260 KB) is over the shared
-    memory budget, so KS and K1 use the global scratch array."""
-    p = blk.BlockParams(**dict(WIDE, lanes=1024, steps=16, rolz_depth=64))
+    memory budget, so KS (or K5) and K1 use the global scratch array."""
+    p = blk.BlockParams(**dict(WIDE, lanes=1024, steps=16, rolz_depth=64,
+                               flexible=flexible))
     data = text(p.capacity - 5, seed=9)
     payload = blk.encode_block(data, p, cuda_device)
     assert payload == blk.encode_block(data, p, "cpu")
