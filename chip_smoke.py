@@ -10,29 +10,39 @@ no result line:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit.
-2. build: compiles the seven kernels (``comprox_tpu_torch/csrc``) with
+2. build: compiles the eleven kernels (``comprox_tpu_torch/csrc``) with
    nvcc, one process per source.
 3. golden: decodes the committed JAX-package archives
    (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
-   under ``crz e -l512`` with the flexible parse and with ``-f0``) on the
-   card and checks the decoded bytes' SHA-256; re-encodes the 1 MiB corpus
-   with the port under both parses and checks that each archive's SHA-256
-   equals the JAX package's.  The decoded corpora are the inputs of the
-   next phases, so every machine runs the same bytes.
-4. kernels: each of KS, K4, K5, K6, K2, K3, K1 against its plain PyTorch
-   version on the card, at S=512 lanes, full-size tables, T=256 steps, on
-   corpus bytes (K4 also at the main path's N = 8 Mi positions, where its
-   sort stage is timed beside ``torch.sort`` on the same keys); every
-   output and table must be equal (tolerance 0: the codec is integer
+   under ``crz e -l512`` with the flexible parse and with ``-f0``, and
+   under ``crf e -l512``) on the card and checks the decoded bytes'
+   SHA-256; re-encodes the 1 MiB corpus with the port under each of the
+   three and checks that each archive's SHA-256 equals the JAX package's.
+   The decoded corpora are the inputs of the next phases, so every machine
+   runs the same bytes.
+4. kernels, mode R: each of KS, K4, K5, K6, K2, K3, K1 against its plain
+   PyTorch version on the card, at S=512 lanes, full-size tables, T=256
+   steps, on corpus bytes (K4 also at the main path's N = 8 Mi positions,
+   where its sort stage is timed beside ``torch.sort`` on the same keys);
+   every output and table must be equal (tolerance 0: the codec is integer
    arithmetic).  Computes each kernel's bound from these inputs.
-5. full width, the main path: ``crz e -b8 -l512`` (the flexible parse) then
-   ``crz d`` through ``comprox_tpu_torch.cli.main`` on the 8 MiB corpus,
-   one block of S=512 and T=16384.  The archive's SHA-256 must equal the
-   JAX package's and the round trip must be bit-exact; prints MB/s, bpb
-   and the kernel times, and fails if K4, K5, K6, K2, K3 or K1 was not
-   launched.
-6. full width, the greedy path: the same with ``-f0``; fails if KS, K2, K3
-   or K1 was not launched.
+5. kernels, mode F: K7 and K8 against their plain versions at the full
+   N = 8 Mi (S=512, T=16384) on the 8 MiB corpus, K9 and K10 on the first
+   S * 256 tokens of that block, K6's mode-F entry at T=256; tolerance 0.
+   Beside K7's sort stage, K8's scans and K9's histogram it times the one
+   PyTorch call for the same function (``torch.sort``, ``torch.cumsum``,
+   ``torch.bincount``), which the port never uses.
+6. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
+   through ``comprox_tpu_torch.cli.main`` on the 8 MiB corpus, one block of
+   S=512 and T=16384.  The archive's SHA-256 must equal the JAX package's
+   and the round trip must be bit-exact; prints MB/s, bpb and the kernel
+   times, and fails if K4, K5, K6, K2, K3 or K1 was not launched.
+7. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
+   K3 or K1 was not launched.
+8. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
+   way; fails if K7, K6, K8, K9 or K10 was not launched.  Then the host's
+   share of that path, stage by stage (dictionary, block encode and decode,
+   the LZ copy walk, the CRC).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -53,6 +63,7 @@ GOLDEN = ROOT / "tests" / "data"
 WORK = ROOT / "build" / "smoke"
 MAIN_ARCHIVE = "crz_flex_8MiB_S512.cpx"  # crz e -b8 -l512
 GREEDY_ARCHIVE = "crz_f0_8MiB_S512.cpx"  # crz e -f0 -b8 -l512
+FAST_ARCHIVE = "crf_flex_8MiB_S512.cpx"  # crf e -b8 -l512
 KERNEL_STEPS = 256
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, and the float32 rate outside the tensor cores, taken for the
@@ -76,6 +87,14 @@ KERNELS = [
      "comprox_tpu/codec/block.py:1945"),
     ("K1", "comprox_tpu_torch/csrc/decode.cu",
      "comprox_tpu/codec/block.py:1980"),
+    ("K7", "comprox_tpu_torch/csrc/f2find.cu",
+     "comprox_tpu/codec/fast.py:178"),
+    ("K8", "comprox_tpu_torch/csrc/f2tok.cu",
+     "comprox_tpu/codec/fast.py:287"),
+    ("K9", "comprox_tpu_torch/csrc/f2enc.cu",
+     "comprox_tpu/codec/fast.py:446"),
+    ("K10", "comprox_tpu_torch/csrc/f2dec.cu",
+     "comprox_tpu/codec/fast.py:538"),
 ]
 
 
@@ -152,9 +171,10 @@ def phase_golden():
         print(f"{name}: JAX archive decoded on the card ({t_dec:.2f} s)")
         corpora[name] = np.frombuffer(raw, np.uint8)
     for name, flexible in (("crz_f0_1MiB_S512.cpx", False),
-                           ("crz_flex_1MiB_S512.cpx", True)):
-        cp = make_params("crz", {"lanes": 512, "block_mb": 1,
-                                 "flexible": flexible})
+                           ("crz_flex_1MiB_S512.cpx", True),
+                           ("crf_flex_1MiB_S512.cpx", True)):
+        cp = make_params(name[:3], {"lanes": 512, "block_mb": 1,
+                                    "flexible": flexible})
         buf = io.BytesIO()
         t0 = time.perf_counter()
         encode_stream(corpora[name], buf, cp, "cuda")
@@ -190,6 +210,52 @@ def _bound(nbytes: int, ops: int):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def _timed_plain(fn, *args):
+    """One run of a plain version on the card: (result, host-clock ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _kernel_ms(name, make_args, fn, reps=3):
+    """Mean CUDA-event time of ``reps`` launches through the wrapper."""
+    from comprox_tpu_torch.codec import block as blk
+
+    blk.reset_launch_counts()
+    arg_sets = [make_args() for _ in range(reps)]
+    for a in arg_sets:
+        fn(*a)
+    ms = blk.kernel_ms()[name] / reps
+    if blk.LAUNCHES[name] != reps:
+        raise AssertionError(f"{name}: {blk.LAUNCHES[name]} launches")
+    return ms
+
+
+def _event_ms(fn, reps=3):
+    import torch
+
+    fn()  # warm up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _record(res, name, err, ms, plain_ms, nbytes, ops, library_ms=None):
+    bound_ms, bound_by = _bound(nbytes, ops)
+    res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=library_ms)
+
+
 def phase_kernels(corpus):
     """Each kernel against its plain version on the card.  Returns
     {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms)}.
@@ -212,48 +278,15 @@ def phase_kernels(corpus):
     big, d = p.capacity, p.rolz_depth
     data = corpus[:n]
     inp = torch.from_numpy(data.reshape(p.lanes, p.steps).copy()).to(dev)
-    reps = 3
     res = {}
-
-    def timed_plain(fn, *args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    def kernel_ms(name, make_args, fn):
-        blk.reset_launch_counts()
-        arg_sets = [make_args() for _ in range(reps)]
-        for a in arg_sets:
-            fn(*a)
-        ms = blk.kernel_ms()[name] / reps
-        if blk.LAUNCHES[name] != reps:
-            raise AssertionError(f"{name}: {blk.LAUNCHES[name]} launches")
-        return ms
-
-    def event_ms(fn):
-        fn()  # warm up
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
     def rolz0():
         return blk._init_rolz(p, dev)
 
     def tables0():
         return ppm.init_tables(True, p.o3_bits, dev)
 
-    def record(name, err, ms, plain_ms, nbytes, ops, library_ms=None):
-        bound_ms, bound_by = _bound(nbytes, ops)
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library_ms)
+    def record(*args, **kw):
+        _record(res, *args, **kw)
 
     # KS.  Operations: per position, D entries scored and ranked (6 each),
     # top_k probes of `probe` bytes and one window, 8 bytes a compare.
@@ -262,9 +295,9 @@ def phase_kernels(corpus):
     gk = blk.search_scan(p, inp, n, rk)
     if blk.LAUNCHES["KS"] != 1:
         raise AssertionError("KS did not launch")
-    gp, plain_ms = timed_plain(blk.search_scan_plain, p, inp, n, rp)
+    gp, plain_ms = _timed_plain(blk.search_scan_plain, p, inp, n, rp)
     err = max_err([(gk, gp), (rk, rp)])
-    ms = kernel_ms("KS", lambda: (p, inp, n, rolz0()), blk.search_scan)
+    ms = _kernel_ms("KS", lambda: (p, inp, n, rolz0()), blk.search_scan)
     record("KS", err, ms, plain_ms,
            _nbytes(inp, gk) + _touched_bytes(rk, rolz0()),
            big * (6 * d + p.top_k * p.probe // 8 + p.window // 8))
@@ -274,9 +307,9 @@ def phase_kernels(corpus):
     # 8-byte probe: 4), and the extension of each proposal, 8 bytes a
     # compare (from the lengths found).
     propk = blk.sort_candidates(p, inp, n)
-    propp, plain_ms = timed_plain(blk.sort_candidates_plain, p, inp, n)
+    propp, plain_ms = _timed_plain(blk.sort_candidates_plain, p, inp, n)
     err = max_err([(propk, propp)])
-    ms = kernel_ms("K4", lambda: (p, inp, n), blk.sort_candidates)
+    ms = _kernel_ms("K4", lambda: (p, inp, n), blk.sort_candidates)
 
     def k4_ops(props, size):
         ext = int((props[0::2].long() // 8 + 1).sum())
@@ -290,9 +323,9 @@ def phase_kernels(corpus):
     # the window compare where the cache matched (from the lengths found).
     rk, rp = rolz0(), rolz0()
     ck = blk.rank_scan(p, inp, n, propk, rk)
-    cp, plain_ms = timed_plain(blk.rank_scan_plain, p, inp, n, propk, rp)
+    cp, plain_ms = _timed_plain(blk.rank_scan_plain, p, inp, n, propk, rp)
     err = max_err([(ck, cp), (rk, rp)])
-    ms = kernel_ms("K5", lambda: (p, inp, n, propk, rolz0()), blk.rank_scan)
+    ms = _kernel_ms("K5", lambda: (p, inp, n, propk, rolz0()), blk.rank_scan)
     n_c = blk._R_CANDS
     record("K5", err, ms, plain_ms,
            _nbytes(inp, propk, ck) + _touched_bytes(rk, rolz0()),
@@ -302,9 +335,9 @@ def phase_kernels(corpus):
     # literal (4), and per candidate each admissible length (add, clamp,
     # key, min: 4).
     dk = blk.parse_scan(p, n, ck)
-    dp, plain_ms = timed_plain(blk.parse_scan_plain, p, n, ck)
+    dp, plain_ms = _timed_plain(blk.parse_scan_plain, p, n, ck)
     err = max_err([(dk, dp)])
-    ms = kernel_ms("K6", lambda: (p, n, ck), blk.parse_scan)
+    ms = _kernel_ms("K6", lambda: (p, n, ck), blk.parse_scan)
     lens = ck[0 : 3 * (n_c + 1) : 3].long()
     record("K6", err, ms, plain_ms, _nbytes(ck, dk),
            4 * big + 4 * int((lens - p.min_len + 1).clamp_min(0).sum()))
@@ -313,9 +346,9 @@ def phase_kernels(corpus):
     # o2 row (260 slots: read, adjust, sum: 3) and the side models (64).
     tk, tp = tables0(), tables0()
     evk = blk.model_scan(p, inp, n, dk, tk)
-    evp, plain_ms = timed_plain(blk.model_scan_plain, p, inp, n, dk, tp)
+    evp, plain_ms = _timed_plain(blk.model_scan_plain, p, inp, n, dk, tp)
     err = max_err([(evk, evp)] + _tables_pairs(tk, tp))
-    ms = kernel_ms("K2", lambda: (p, inp, n, dk, tables0()), blk.model_scan)
+    ms = _kernel_ms("K2", lambda: (p, inp, n, dk, tables0()), blk.model_scan)
     t0_ = tables0()
     tab_bytes = sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
     record("K2", err, ms, plain_ms, _nbytes(inp, dk, evk) + tab_bytes,
@@ -323,9 +356,9 @@ def phase_kernels(corpus):
 
     # K3.  Operations: three events a position, 8 each.
     sk, ek, wk = blk.rans_scan(p, evk)
-    (sp, ep, wp), plain_ms = timed_plain(blk.rans_scan_plain, p, evk)
+    (sp, ep, wp), plain_ms = _timed_plain(blk.rans_scan_plain, p, evk)
     err = max_err([(sk, sp), (ek, ep), (wk, wp)])
-    ms = kernel_ms("K3", lambda: (p, evk), blk.rans_scan)
+    ms = _kernel_ms("K3", lambda: (p, evk), blk.rans_scan)
     record("K3", err, ms, plain_ms, _nbytes(evk, sk, wk) + ek.numel(),
            big * 3 * 8)
 
@@ -337,7 +370,7 @@ def phase_kernels(corpus):
     stream_t = torch.from_numpy(stream.astype(np.int32)).to(dev)
     tk, tp, rk, rp = tables0(), tables0(), rolz0(), rolz0()
     xk, uk, ok = blk.decode_scan(p, st_t, stream_t, n, tk, rk)
-    (xp, up, op), plain_ms = timed_plain(
+    (xp, up, op), plain_ms = _timed_plain(
         blk.decode_scan_plain, p, st_t, stream_t, n, tp, rp)
     if uk != up:
         raise AssertionError(f"K1 words used {uk} vs plain {up}")
@@ -345,7 +378,7 @@ def phase_kernels(corpus):
     blk._check_drain(xk.cpu().numpy(), uk, n_words)
     if not np.array_equal(ok.cpu().numpy().reshape(-1), data):
         raise AssertionError("K1 did not decode the block")
-    ms = kernel_ms(
+    ms = _kernel_ms(
         "K1", lambda: (p, st_t, stream_t, n, tables0(), rolz0()),
         blk.decode_scan)
     tab_bytes = sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
@@ -366,18 +399,18 @@ def phase_kernels(corpus):
     nf = pf.capacity
     inpf = torch.from_numpy(corpus[:nf].reshape(pf.lanes, pf.steps).copy()).to(dev)
     propk = blk.sort_candidates(pf, inpf, nf)
-    propp, plain_ms = timed_plain(blk.sort_candidates_plain, pf, inpf, nf)
+    propp, plain_ms = _timed_plain(blk.sort_candidates_plain, pf, inpf, nf)
     err = max_err([(propk, propp)])
     del propp
-    ms = kernel_ms("K4", lambda: (pf, inpf, nf), blk.sort_candidates)
+    ms = _kernel_ms("K4", lambda: (pf, inpf, nf), blk.sort_candidates)
     bytes_pad = blk.pad_block(pf, inpf)
     keys = blk.sort_keys_plain(pf, bytes_pad, nf)
     hs, ps = blk.sort_positions(pf, bytes_pad, nf)
     hp, pp = torch.sort(keys, stable=True)
     err = max(err, max_err([(hs, hp), (ps, pp)]))
-    sort_ms = event_ms(lambda: blk.sort_positions(pf, bytes_pad, nf))
-    lib_ms = event_ms(lambda: torch.sort(keys, stable=True))
-    lib32_ms = event_ms(lambda: torch.sort(keys.to(torch.int32), stable=True))
+    sort_ms = _event_ms(lambda: blk.sort_positions(pf, bytes_pad, nf))
+    lib_ms = _event_ms(lambda: torch.sort(keys, stable=True))
+    lib32_ms = _event_ms(lambda: torch.sort(keys.to(torch.int32), stable=True))
     record("K4", max(err, k4_small["max_abs_err"]), ms, plain_ms,
            _nbytes(inpf, propk), k4_ops(propk, nf), library_ms=lib_ms)
     r = res["K4"]
@@ -395,9 +428,149 @@ def phase_kernels(corpus):
     return res
 
 
-def phase_full_width(corpus, archive, flags, needed):
-    """One path through the CLI: crz e [flags] -b8 -l512 and crz d.  The
-    launch counts are set to 0 just before and read just after."""
+def phase_kernels_fast(corpus):
+    """The mode-F kernels against their plain versions on the card, on the
+    whole 8 MiB corpus as one block (S=512, T=16384, n = N).  Returns the
+    same per-kernel dicts as phase_kernels for K7-K10, and K6's F entry
+    under "K6F"."""
+    import numpy as np
+    import torch
+
+    from comprox_tpu_torch.cli.main import make_params
+    from comprox_tpu_torch.codec import block as blk
+    from comprox_tpu_torch.codec import fast
+
+    dev = "cuda"
+    p = make_params("crf", {"lanes": 512, "block_mb": 8}).block
+    big = n = p.capacity
+    if corpus.size != big:
+        raise AssertionError(f"corpus of {corpus.size} B for a block of {big}")
+    inp = torch.from_numpy(corpus.reshape(p.lanes, p.steps).copy()).to(dev)
+    n_c, ext = fast._F_CANDS, 4 * (fast._EXTW - 1)
+    res = {}
+
+    # K7 at N = 8 Mi.  Operations: four radix passes (digit, count, place),
+    # per candidate the key compare and the scatter (4), and its extension,
+    # 8 bytes a compare (from the lengths found, at most ext).
+    ck = fast.f2_find(p, inp, n)
+    cp, plain_ms = _timed_plain(fast.f2_find_plain, p, inp, n)
+    err = max_err([(ck, cp)])
+    del cp
+    ms = _kernel_ms("K7", lambda: (p, inp, n), fast.f2_find)
+    bytes_pad = fast.pad_block(p, inp)
+    keys = fast.sort_keys_plain(p, bytes_pad, n)
+    hs, ps = fast.sort_positions(p, bytes_pad, n)
+    hp, pp = torch.sort(keys, stable=True)
+    err = max(err, max_err([(hs, hp), (ps, pp)]))
+    del hs, ps, hp, pp
+    sort_ms = _event_ms(lambda: fast.sort_positions(p, bytes_pad, n))
+    lib_ms = _event_ms(lambda: torch.sort(keys, stable=True))
+    del keys
+    ext_ops = int((ck[0::2].long().clamp_max(ext) // 8 + 1).sum())
+    _record(res, "K7", err, ms, plain_ms, _nbytes(inp, ck),
+            big * (4 * 3 + 4 * n_c) + 2 * ext_ops, library_ms=lib_ms)
+    print(f"K7 at N={big}: max_abs_err {err}  kernel {ms:.3f} ms  plain "
+          f"{plain_ms:.3f} ms  bound {res['K7']['bound_ms']:.4f} ms "
+          f"({res['K7']['bound_by']}); its sort stage {sort_ms:.3f} ms, "
+          f"torch.sort(stable) of the same keys (int64) {lib_ms:.3f} ms")
+
+    # K6, F entry, at T=256 on the finder's candidates of the first S * 256
+    # bytes.  Operations: as the R entry (literal 4, each admissible length 4).
+    ps_ = blk.BlockParams(lanes=p.lanes, steps=KERNEL_STEPS, mode="F",
+                          min_len=p.min_len, window=p.window)
+    ns = ps_.capacity
+    inps = torch.from_numpy(corpus[:ns].reshape(ps_.lanes, ps_.steps).copy()).to(dev)
+    cs = fast.f2_find(ps_, inps, ns)
+    kw = dict(prices=fast._F_PRICES, n_c=n_c)
+    dk = blk.parse_scan(ps_, ns, cs, **kw)
+    dp, plain_ms = _timed_plain(lambda: blk.parse_scan_plain(ps_, ns, cs, **kw))
+    err = max_err([(dk, dp)])
+    ms = _kernel_ms("K6", lambda: (ps_, ns, cs), lambda *a: blk.parse_scan(*a, **kw))
+    # Bytes: the candidates read, (take, src) written (the F entry's third
+    # grid is all zero and nothing reads it).
+    _record(res, "K6F", err, ms, plain_ms, _nbytes(cs, dk[:2]),
+            4 * ns + 4 * int((cs[0::2].long() - ps_.min_len + 1).clamp_min(0).sum()))
+    r = res["K6F"]
+    print(f"K6, F entry at T={KERNEL_STEPS}: max_abs_err {err}  kernel {ms:.3f} ms "
+          f"({ms * 1e3 / KERNEL_STEPS:.1f} us/step)  plain {plain_ms:.3f} ms  bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    # K8 at N = 8 Mi on the kernel parse's decisions (the plain parse takes
+    # ~3 ms a step).  Operations: per position the replay (4), the event
+    # (10), one scan of two values (4) and the token's code (20 a token).
+    # Bytes: the block and (take, src) read, 12 a token written.  The plain
+    # version also lines the other positions up behind the tokens, as JAX
+    # does; the kernel's n_tok tokens are held against its first n_tok.
+    dec = blk.parse_scan(p, n, ck, **kw)
+    n_tok, sym, xtr, tbits = fast.tokenize(p, inp, n, dec)
+    tp, plain_ms = _timed_plain(fast.tokenize_plain, p, inp, n, dec)
+    if n_tok != tp[1]:
+        raise AssertionError(f"K8 n_tok {n_tok} vs plain {tp[1]}")
+    err = max_err([(a, b[:n_tok]) for a, b in zip((sym, xtr, tbits), tp[2:])])
+    del tp
+    ms = _kernel_ms("K8", lambda: (p, inp, n, dec), fast.tokenize)
+    starts = (dec[0].reshape(-1) > 0).to(torch.int32)  # an [N] int32 for the library scan
+    lib_ms = _event_ms(lambda: torch.cumsum(starts, 0))
+    _record(res, "K8", err, ms, plain_ms, _nbytes(inp, dec[:2]) + 12 * n_tok,
+            big * 18 + n_tok * 20, library_ms=lib_ms)
+    print(f"K8 at N={big}: {n_tok} tokens; max_abs_err {err}  kernel {ms:.3f} ms  "
+          f"plain {plain_ms:.3f} ms  bound {res['K8']['bound_ms']:.4f} ms "
+          f"({res['K8']['bound_by']}); one torch.cumsum over N int32 {lib_ms:.3f} ms "
+          f"(the kernel's scan carries a count and a last nonzero value)")
+
+    # K9 on the first S * 256 tokens.  Operations: three events a token, 8
+    # each, and the histogram (2).  Bytes: 12 a token read, the table and
+    # the states written, 2 a word written.
+    cut = min(n_tok, p.lanes * KERNEL_STEPS)
+    ek = fast.encode_scan(p, sym, xtr, tbits, cut)
+    ep, plain_ms = _timed_plain(fast.encode_scan_plain, p, sym, xtr, tbits, cut)
+    err = max_err(list(zip(ek, ep)))
+    ms = _kernel_ms("K9", lambda: (p, sym, xtr, tbits, cut), fast.encode_scan)
+    full_ms = _kernel_ms("K9", lambda: (p, sym, xtr, tbits, n_tok), fast.encode_scan)
+    sym64 = sym[:cut].long()
+    lib_ms = _event_ms(lambda: torch.bincount(sym64, minlength=fast.W_SYM))
+    freq, states, words = ek
+    _record(res, "K9", err, ms, plain_ms,
+            12 * cut + _nbytes(freq, states) + 2 * words.numel(),
+            cut * (3 * 8 + 2), library_ms=lib_ms)
+    print(f"K9 on {cut} tokens ({-(-cut // p.lanes)} steps): max_abs_err {err}  "
+          f"kernel {ms:.3f} ms ({ms * 1e3 / -(-cut // p.lanes):.2f} us/step)  plain "
+          f"{plain_ms:.3f} ms  bound {res['K9']['bound_ms']:.4f} ms "
+          f"({res['K9']['bound_by']}); torch.bincount of the same symbols "
+          f"{lib_ms:.3f} ms (the histogram alone); on all {n_tok} tokens: "
+          f"kernel {full_ms:.3f} ms")
+
+    # K10 on the stream K9 wrote.  Operations: three events a token, 8
+    # each, the slot table (M * 10) and the plane (10 a token).  Bytes: 2 a
+    # word read, the table and the states, 4 a token written.  The plain
+    # version's plane has JAX's N slots; the kernel's n_tok are its first.
+    stream = torch.zeros(fast._max_words(p), dtype=torch.int32, device=dev)
+    stream[: words.numel()] = words.flip(0)
+    xk, uk, plk = fast.decode_scan(p, freq, states, stream, cut)
+    (xp, up, plp), plain_ms = _timed_plain(
+        fast.decode_scan_plain, p, freq, states, stream, cut)
+    if not uk == up == words.numel():
+        raise AssertionError(f"K10 words used {uk} vs plain {up} of {words.numel()}")
+    if not bool((xk == fast.RANS_L).all()):
+        raise AssertionError("K10 did not drain the states")
+    err = max_err([(xk, xp), (plk, plp[:cut])])
+    ms = _kernel_ms("K10", lambda: (p, freq, states, stream, cut), fast.decode_scan)
+    _record(res, "K10", err, ms, plain_ms,
+            2 * words.numel() + _nbytes(freq, states) + 4 * cut,
+            cut * 3 * 8 + fast.M * 10 + cut * 10)
+    print(f"K10 on {cut} tokens: max_abs_err {err}  kernel {ms:.3f} ms "
+          f"({ms * 1e3 / -(-cut // p.lanes):.2f} us/step)  plain {plain_ms:.3f} ms  "
+          f"bound {res['K10']['bound_ms']:.4f} ms ({res['K10']['bound_by']})")
+    for name, r in res.items():
+        if r["max_abs_err"] != 0:
+            raise AssertionError(
+                f"{name}: kernel != plain (max err {r['max_abs_err']})")
+    return res
+
+
+def phase_full_width(corpus, codec, archive, flags, needed):
+    """One path through the CLI: <codec> e [flags] -b8 -l512 and <codec> d.
+    The launch counts are set to 0 just before and read just after."""
     import numpy as np
 
     from comprox_tpu_torch.cli import main as cli
@@ -406,16 +579,16 @@ def phase_full_width(corpus, archive, flags, needed):
     want = json.loads((GOLDEN / "torch_golden.json").read_text())[archive]
     WORK.mkdir(parents=True, exist_ok=True)
     n = corpus.size
-    src, arc, dst = WORK / "corpus8.bin", WORK / "corpus8.crz", WORK / "out8.bin"
+    src, arc, dst = WORK / "corpus8.bin", WORK / f"corpus8.{codec}", WORK / "out8.bin"
     corpus.tofile(src)
     blk.reset_launch_counts()
     t0 = time.perf_counter()
-    cli.run("crz", ["e", str(src), str(arc), *flags, "-b8", "-l512", "-q"],
+    cli.run(codec, ["e", str(src), str(arc), *flags, "-b8", "-l512", "-q"],
             device="cuda")
     t_enc = time.perf_counter() - t0
     ms_enc = blk.kernel_ms()
     t0 = time.perf_counter()
-    cli.run("crz", ["d", str(arc), str(dst), "-q"], device="cuda")
+    cli.run(codec, ["d", str(arc), str(dst), "-q"], device="cuda")
     t_dec = time.perf_counter() - t0
     ms_all = blk.kernel_ms()
     launches = dict(blk.LAUNCHES)
@@ -431,9 +604,9 @@ def phase_full_width(corpus, archive, flags, needed):
     print(f"encode {n / t_enc / 1e6:.3f} MB/s ({t_enc:.3f} s wall); "
           f"decode {n / t_dec / 1e6:.3f} MB/s ({t_dec:.3f} s wall)")
     print("kernel time (CUDA events): " + ", ".join(
-        f"{k} {ms_all[k]:.1f} ms" for k in ms_all if launches[k])
-        + f"; encode kernels {sum(ms_enc.values()):.1f} ms, decode "
-        f"{ms_all['K1'] - ms_enc['K1']:.1f} ms")
+        f"{k} {ms_all[k]:.3f} ms" for k in ms_all if launches[k])
+        + f"; encode kernels {sum(ms_enc.values()):.3f} ms, decode "
+        f"{sum(ms_all.values()) - sum(ms_enc.values()):.3f} ms")
     print("launches: " + json.dumps(launches))
     for name in needed:
         if launches[name] < 1:
@@ -443,20 +616,80 @@ def phase_full_width(corpus, archive, flags, needed):
     return launches
 
 
+def phase_fast_host_split(corpus):
+    """Where the crf wall time goes on the host: the stages of ``crf e`` and
+    ``crf d`` on the 8 MiB corpus, each called once more on its own and
+    timed by the host clock (the block codec's calls end in a device
+    synchronisation)."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from comprox_tpu_torch.cli.main import make_params
+    from comprox_tpu_torch.codec import block as blk
+    from comprox_tpu_torch.codec import dictionary as dic
+    from comprox_tpu_torch.codec import fast
+    from comprox_tpu_torch.utils import native
+
+    p = make_params("crf", {"lanes": 512, "block_mb": 8}).block
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    wd, t_build = timed(dic.build_dictionary, corpus)
+    sub, t_sub = timed(dic.dict_encode, corpus, wd)
+    blk.reset_launch_counts()
+    payload, t_enc = timed(fast.encode_block_fast, sub, p, "cuda")
+    k_enc = sum(blk.kernel_ms().values())
+    _, t_crc = timed(zlib.crc32, sub.tobytes())
+    blk.reset_launch_counts()
+    out, t_dec = timed(fast.decode_block_fast, payload, sub.size, p, "cuda")
+    k_dec = sum(blk.kernel_ms().values())
+    if not np.array_equal(out, sub):
+        raise AssertionError("crf block round trip is not bit-exact")
+    tok, t_tok = timed(fast.decode_tokens, payload, sub.size, p, "cuda")
+    res, t_exec = timed(native.f2_execute, tok, p.min_len, sub.size)
+    if res is None or not np.array_equal(res, sub):
+        raise AssertionError("f2_execute did not rebuild the block")
+    _, t_undict = timed(dic.dict_decode, sub, wd)
+    print(f"crf host split, 8 MiB corpus -> {sub.size} B after the dictionary, "
+          f"{tok.size} tokens, payload {len(payload)} B (host clock, ms): "
+          f"dictionary build {t_build:.1f}, dictionary encode {t_sub:.1f}, "
+          f"block encode {t_enc:.1f} (kernels {k_enc:.3f}), content CRC "
+          f"{t_crc:.1f}; block decode {t_dec:.1f} (kernel {k_dec:.3f}; unpack, "
+          f"K10 and the token plane to the host {t_tok:.1f}, f2_execute "
+          f"{t_exec:.1f}, CRC as above), dictionary decode {t_undict:.1f}")
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     ph = Phases()
     smi = ph.run("device", phase_device)
     ph.run("build", phase_build)
     corpora = ph.run("golden", phase_golden)
-    res = ph.run("kernels", phase_kernels, corpora[MAIN_ARCHIVE])
+    res = ph.run("kernels, mode R", phase_kernels, corpora[MAIN_ARCHIVE])
+    res_f = ph.run("kernels, mode F", phase_kernels_fast, corpora[FAST_ARCHIVE])
+    k6f = res_f.pop("K6F")
+    res.update(res_f)
+    res["K6"]["max_abs_err"] = max(res["K6"]["max_abs_err"], k6f["max_abs_err"])
     launches = ph.run(
-        "full width, flexible parse", phase_full_width, corpora[MAIN_ARCHIVE],
-        MAIN_ARCHIVE, [], ("K4", "K5", "K6", "K2", "K3", "K1"))
+        "full width, crz flexible parse", phase_full_width, corpora[MAIN_ARCHIVE],
+        "crz", MAIN_ARCHIVE, [], ("K4", "K5", "K6", "K2", "K3", "K1"))
     greedy = ph.run(
-        "full width, greedy parse", phase_full_width, corpora[GREEDY_ARCHIVE],
-        GREEDY_ARCHIVE, ["-f0"], ("KS", "K2", "K3", "K1"))
+        "full width, crz greedy parse", phase_full_width, corpora[GREEDY_ARCHIVE],
+        "crz", GREEDY_ARCHIVE, ["-f0"], ("KS", "K2", "K3", "K1"))
     launches["KS"] = greedy["KS"]
+    fast = ph.run(
+        "full width, crf", phase_full_width, corpora[FAST_ARCHIVE], "crf",
+        FAST_ARCHIVE, [], ("K7", "K6", "K8", "K9", "K10"))
+    for name in ("K7", "K8", "K9", "K10"):
+        launches[name] = fast[name]
+    ph.run("crf host split", phase_fast_host_split, corpora[FAST_ARCHIVE])
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "comprox_tpu")]
     if bad:

@@ -1,17 +1,19 @@
-"""Command-line frontend of the PyTorch port — the ``crz`` codec.
+"""Command-line frontend of the PyTorch port — the ``crz`` and ``crf`` codecs.
 
 Counterpart of :mod:`comprox_tpu.cli.main`: the same switches, defaults
 and ``make_params``, so an archive written here is the one the JAX
-package writes for the same command line.  Supported: ``crz e|d`` with
-``-b -l -F -p -q -m``; encode uses the flexible parse unless ``-f0`` asks
-for the greedy one.
+package writes for the same command line.  Supported: ``crz e|d`` (mode
+R: ROLZ + PPM + adaptive rANS) and ``crf e|d`` (mode F: the fast profile,
+LZ77 tokens + static rANS) with ``-b -l -F -p -q -m``; encode uses the
+flexible parse unless ``-f0`` asks for the greedy one.
 
 Not yet ported, refused with an error (the ROADMAP.md item in brackets):
-``-c`` and ``-C`` [11], ``-j`` and ``-g`` [15], the ``crp``/``crx``/``crf``
-codecs [12-14].  Nothing switches silently to another format.
+``-c`` and ``-C`` [11], ``-j`` and ``-g`` [15], the ``crx``/``crp`` codecs
+[13-14].  Nothing switches silently to another format.
 
     python -m comprox_tpu_torch.cli.main crz e in out -b8 -l512
     python -m comprox_tpu_torch.cli.main crz d out in.copy
+    python -m comprox_tpu_torch.cli.main crf e in out -b8 -l512
 
 The command line runs on the first CUDA device and fails without one; the
 library call :func:`run` takes the device explicitly.
@@ -83,29 +85,35 @@ def parse_args(argv):
     return prog, args[0], args[1], args[2], opts
 
 
+_MODE = {"crz": "R", "crf": "F"}
+
+
 def make_params(codec_name: str, opts) -> ContainerParams:
-    """The JAX package's make_params for crz: same BlockParams."""
-    if codec_name != "crz":
+    """The JAX package's make_params for crz and crf: same BlockParams."""
+    if codec_name not in _MODE:
         raise NotImplementedError(
             f"codec {codec_name} is not yet ported to comprox_tpu_torch "
-            "(ROADMAP.md items 12-14): only crz is"
+            "(ROADMAP.md items 13-14): only crz and crf are"
         )
+    mode = _MODE[codec_name]
     lanes = opts["lanes"]
     cap = int(opts["block_mb"] * 1048576)
+    if mode == "F":  # the distance code space caps a block at 16 MiB
+        cap = min(cap, 1 << 24)
     bp = BlockParams(
         lanes=lanes,
         steps=max(1, cap // lanes),
-        mode="R",
-        min_len=5,
+        mode=mode,
+        min_len={"R": 5, "F": 6}[mode],
         window=opts.get("window", 250),
         top_k=max(1, min(8, round(opts.get("depth", 40) / 10))),
         flexible=opts.get("flexible", True),
-        rolz_ctx_bytes=4 if cap >= 4 * 1048576 else 3,
-        rolz_dec=2,
+        rolz_ctx_bytes=4 if (mode == "R" and cap >= 4 * 1048576) else 3,
+        rolz_dec=2 if mode == "R" else 1,
         short_depth=0,
         chain_match=False,
     )
-    return ContainerParams(codec=CODEC_BYTE["crz"], block=bp)
+    return ContainerParams(codec=CODEC_BYTE[codec_name], block=bp)
 
 
 def log(quiet, msg):
@@ -114,7 +122,7 @@ def log(quiet, msg):
 
 
 def run(codec_name: str, argv, device) -> int:
-    """Run one ``crz e|d`` command line on ``device``."""
+    """Run one ``crz e|d`` or ``crf e|d`` command line on ``device``."""
     import torch
 
     prog, mode, inp, outp, opts = parse_args([codec_name] + list(argv))
@@ -145,7 +153,7 @@ def run(codec_name: str, argv, device) -> int:
             log(quiet, f"compress-ratio: {csize / data.size:.4f}")
             log(quiet, f"bits-per-byte:  {csize * 8 / data.size:.3f}")
     else:
-        if codec_name != "crz":
+        if codec_name not in _MODE:
             make_params(codec_name, opts)  # raises: codec not ported
         f = open(inp, "rb") if inp != "-" else sys.stdin.buffer
         g = sys.stdout.buffer if outp == "-" else open(outp, "wb")

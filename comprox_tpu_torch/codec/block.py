@@ -1,4 +1,6 @@
 """Block codec, mode R: S lock-step lanes over one block — ROLZ + PPM + rANS.
+(Mode F, the static-table fast profile, is :mod:`comprox_tpu_torch.codec.fast`;
+it shares this module's parameters, launch accounting and price DP.)
 
 Counterpart of :mod:`comprox_tpu.codec.block` (mode R, ``short_depth=0``,
 unchained): a block of n bytes is cut into S contiguous lanes of T steps,
@@ -156,10 +158,10 @@ def check_supported(p: BlockParams) -> None:
                 f"{k}={_ENV[k]!r} is not ported to comprox_tpu_torch "
                 f"(only the default {default!r})"
             )
-    if p.mode != "R":
+    if p.mode not in ("R", "F"):
         raise NotImplementedError(
             f"mode {p.mode!r} is not yet ported to comprox_tpu_torch "
-            "(ROADMAP.md items 12-14); only mode R (crz) is"
+            "(ROADMAP.md items 13-14); only modes R (crz) and F (crf) are"
         )
     if p.short_depth:
         raise NotImplementedError(
@@ -221,6 +223,14 @@ def _rolz_key(ctx4, p: BlockParams):
 
 def _rolz_ctx(c, p: BlockParams):
     return rolz_hash3(_rolz_key(c["ctx4"], p), p.rolz_bits)
+
+
+def _dist_bucket(dist):
+    """floor(log2(dist)) by integer compares, at most 24."""
+    k = torch.zeros_like(dist)
+    for j in range(1, 25):
+        k = k + (dist >= (1 << j)).to(dist.dtype)
+    return k
 
 
 def _rec_bucket(sym_idx):
@@ -450,12 +460,32 @@ def search_scan_plain(p: BlockParams, inp, n: int, rolz):
     return out
 
 
-def _greedy_decisions(p: BlockParams, length, src):
+def _greedy_decisions(p: BlockParams, length, src, accept=None):
     """Greedy accept-longest with a one-step lazy check over the whole
-    [T, S] grid (block.py::_greedy_decisions, R branch): ``(take, src)``."""
+    [T, S] grid (block.py::_greedy_decisions): ``(take, src)``.  ``accept``
+    is the least length taken (default ``min_len``, the R branch)."""
     len_next = torch.cat([length[1:], torch.zeros_like(length[:1])], dim=0)
-    do = (length >= p.min_len) & (len_next <= length + 1)
+    do = (length >= (p.min_len if accept is None else accept)) & (
+        len_next <= length + 1)
     return torch.where(do, length, 0), src
+
+
+def _greedy_decisions_dist(p: BlockParams, cands):
+    """The mode-X branch of block.py::_greedy_decisions on ``[2 * n_c, T, S]``
+    (len, src) grids: the longest candidate (ties to the earlier, nearer
+    one), accepted from ``max(min_len, 2 + 3k/4)`` bytes on, k the distance
+    bucket of its source."""
+    l1, s1 = cands[0], cands[1]
+    for i in range(1, cands.shape[0] // 2):
+        use = cands[2 * i] > l1
+        l1 = torch.where(use, cands[2 * i], l1)
+        s1 = torch.where(use, cands[2 * i + 1], s1)
+    dev = cands.device
+    pos = (torch.arange(p.lanes, device=dev)[None, :] * p.steps
+           + torch.arange(p.steps, device=dev)[:, None])
+    k = _dist_bucket((pos - s1).clamp_min(1))
+    accept = (2 + torch.div(3 * k, 4, rounding_mode="floor")).clamp_min(p.min_len)
+    return _greedy_decisions(p, l1, s1, accept)
 
 
 # --------------------------------------------------------------------------
@@ -481,12 +511,15 @@ def _rev_runmin(m, inf: int):
     return m
 
 
-def _diag_run_len(eq1, diag):
+def _diag_run_len(eq1, diag, with_tail: bool = True):
     """Per-position run length of eq1 along the candidate diagonal, plus
-    one for a last byte that matches where the diagonal ends."""
+    (``with_tail``) one for a last byte that matches where the diagonal
+    ends."""
     n = eq1.shape[0]
     idx = torch.arange(n, device=eq1.device)
     nf = _rev_runmin(torch.where(eq1 & diag, n + 1, idx), n + 1)
+    if not with_tail:
+        return nf.clamp_max(n) - idx
     tail = torch.where(nf < n, eq1[nf.clamp_max(n - 1)].to(_i64), 0)
     return nf.clamp_max(n) - idx + tail
 
@@ -496,16 +529,17 @@ def sort_ext(p: BlockParams) -> int:
     return min(_SORT_EXT, p.window)
 
 
-def pad_block_len(p: BlockParams) -> int:
-    pad = sort_ext(p) + 16
+def pad_block_len(p: BlockParams, ext=None) -> int:
+    pad = (sort_ext(p) if ext is None else ext) + 16
     return p.capacity + pad + (-(p.capacity + pad)) % 8
 
 
-def pad_block(p: BlockParams, inp):
-    """The block's bytes in position order with the finder's zero tail
-    (ext + 16 bytes, and up to the next multiple of 8): uint8."""
+def pad_block(p: BlockParams, inp, ext=None):
+    """The block's bytes in position order with a sort finder's zero tail
+    (ext + 16 bytes, and up to the next multiple of 8; ext defaults to
+    K4's): uint8."""
     return torch.cat([inp.reshape(-1),
-                      inp.new_zeros(pad_block_len(p) - p.capacity)])
+                      inp.new_zeros(pad_block_len(p, ext) - p.capacity)])
 
 
 def sort_keys_plain(p: BlockParams, bytes_pad, n: int):
@@ -659,27 +693,48 @@ def _cand_min_cost(p: BlockParams, cw, length, price):
     return best // 256, 256 - best % 256
 
 
-def parse_scan_plain(p: BlockParams, n: int, cands):
-    """Plain K6: ``dec [4, T, S]`` int32 (take, src, recency index, fill) —
-    per lane, backward over the steps, the cheaper of a literal and any
-    admissible truncation of a candidate, priced against the cost-to-go of
-    the next ``window`` steps.  ``cands`` is K5's grids; the fill grid is
-    passed through (block.py::_parse_body under the reversed scan)."""
+def parse_scan_plain(p: BlockParams, n: int, cands, prices=None, n_c=None):
+    """Plain K6: per lane, backward over the steps, the cheaper of a literal
+    and any admissible truncation of a candidate, priced against the
+    cost-to-go of the next ``window`` steps (block.py::_parse_body under the
+    reversed scan).
+
+    Mode R (``prices`` None): ``cands`` is K5's ``[3 * n_c + 1, T, S]`` grids
+    (len, src, recency index per candidate, then the fill, which is passed
+    through) -> ``dec [4, T, S]`` int32 (take, src, recency index, fill).
+
+    Mode F (``prices`` = (literal, match, per distance bucket), ``n_c``
+    candidates): ``cands`` is the fast finder's ``[2 * n_c, T, S]`` (len,
+    src); a match costs ``match + bucket * floor(log2(pos - src))`` ->
+    ``dec [3, T, S]`` int32 (take, src, zeros)."""
     dev = cands.device
-    n_c = (cands.shape[0] - 1) // 3
+    fast = prices is not None
+    if fast:
+        per, (lit, p_m, p_k) = 2, prices[:3]
+    else:
+        per, lit, n_c = 3, _P_LIT_R, (cands.shape[0] - 1) // 3
     cg = cands.to(_i64)
-    dec = torch.empty((4, p.steps, p.lanes), dtype=_i32, device=dev)
-    dec[3] = cands[3 * n_c]
+    dec = torch.zeros((3 if fast else 4, p.steps, p.lanes), dtype=_i32,
+                      device=dev)
+    if not fast:
+        dec[3] = cands[3 * n_c]
     cw = torch.zeros((p.lanes, p.window), dtype=_i64, device=dev)
     lanes = torch.arange(p.lanes, device=dev)
     for t in range(p.steps - 1, -1, -1):
-        active = lanes * p.steps + t < n
-        best_cost = _P_LIT_R + cw[:, 0]
+        pos = lanes * p.steps + t
+        active = pos < n
+        best_cost = lit + cw[:, 0]
         best_len = torch.zeros_like(best_cost)
         best_src, best_idx = best_len, best_len
         for k in range(n_c):
-            lx, sx, ix = cg[3 * k, t], cg[3 * k + 1, t], cg[3 * k + 2, t]
-            cost_m, l_m = _cand_min_cost(p, cw, lx, _P_RM + _P_RI * _rec_bucket(ix))
+            lx, sx = cg[per * k, t], cg[per * k + 1, t]
+            if fast:
+                ix = torch.zeros_like(lx)
+                price = p_m + p_k * _dist_bucket((pos - sx).clamp_min(1))
+            else:
+                ix = cg[3 * k + 2, t]
+                price = _P_RM + _P_RI * _rec_bucket(ix)
+            cost_m, l_m = _cand_min_cost(p, cw, lx, price)
             better = (cost_m <= best_cost) & (cost_m < _P_INF)
             best_len = torch.where(better, l_m, best_len)
             best_src = torch.where(better, sx, best_src)
@@ -889,7 +944,8 @@ def decode_scan_plain(p: BlockParams, states, stream, n: int, tables, rolz):
 
 # Launches per kernel; each wrapper adds one where it launches its kernel,
 # and records a pair of CUDA events around the launch (device time).
-LAUNCHES = {"KS": 0, "K4": 0, "K5": 0, "K6": 0, "K2": 0, "K3": 0, "K1": 0}
+LAUNCHES = {"KS": 0, "K4": 0, "K5": 0, "K6": 0, "K2": 0, "K3": 0, "K1": 0,
+            "K7": 0, "K8": 0, "K9": 0, "K10": 0}
 _EVENTS: dict = {k: [] for k in LAUNCHES}
 
 
@@ -916,21 +972,34 @@ def _launch(name: str, fn, *args) -> None:
     build.check(err, name)
 
 
-_CFG_FIELDS = 29  # ints in csrc/ppm_r.cuh::Cfg
+# ints in csrc/ppm_r.cuh::Cfg, in field order
+_CFG_NAMES = (
+    "S", "T", "n", "min_len", "window", "o3_bits", "rolz_bits", "rolz_depth",
+    "rolz_ctx_bytes", "rolz_dec", "top_k", "probe", "match", "use_sse",
+    "inc2", "cap2", "inc1", "cap1", "len_inc", "len_cap", "idx_inc",
+    "idx_cap", "stream_len", "n_cands", "r_probe", "sort_ext", "p_lit",
+    "p_rm", "p_ri", "diag_tail",
+)
+_CFG_FIELDS = len(_CFG_NAMES)
 
 
-def _cfg_array(p: BlockParams, n: int, stream_len: int = 0) -> np.ndarray:
-    cfg = np.array(
-        [p.lanes, p.steps, n, p.min_len, p.window, p.o3_bits, p.rolz_bits,
-         p.rolz_depth, p.rolz_ctx_bytes, p.rolz_dec, p.top_k, p.probe,
-         int(p.match), int(p.match and ppm.SSE), ppm.INC2, ppm.CAP2,
-         ppm.INC1, ppm.CAP1, ppm.LEN_INC, ppm.LEN_CAP, ppm.IDX_INC,
-         ppm.IDX_CAP, stream_len, _R_CANDS, _R_PROBE, sort_ext(p), _P_LIT_R,
-         _P_RM, _P_RI],
-        np.int32,
+def _cfg_array(p: BlockParams, n: int, stream_len: int = 0, **finder) -> np.ndarray:
+    """The kernels' configuration struct.  ``finder`` overrides the encoder
+    knobs of the last seven fields (mode F has its own candidates,
+    extension, prices and diagonal-tail rule)."""
+    cfg = dict(
+        S=p.lanes, T=p.steps, n=n, min_len=p.min_len, window=p.window,
+        o3_bits=p.o3_bits, rolz_bits=p.rolz_bits, rolz_depth=p.rolz_depth,
+        rolz_ctx_bytes=p.rolz_ctx_bytes, rolz_dec=p.rolz_dec, top_k=p.top_k,
+        probe=p.probe, match=int(p.match), use_sse=int(p.match and ppm.SSE),
+        inc2=ppm.INC2, cap2=ppm.CAP2, inc1=ppm.INC1, cap1=ppm.CAP1,
+        len_inc=ppm.LEN_INC, len_cap=ppm.LEN_CAP, idx_inc=ppm.IDX_INC,
+        idx_cap=ppm.IDX_CAP, stream_len=stream_len, n_cands=_R_CANDS,
+        r_probe=_R_PROBE, sort_ext=sort_ext(p), p_lit=_P_LIT_R, p_rm=_P_RM,
+        p_ri=_P_RI, diag_tail=1,
     )
-    assert cfg.size == _CFG_FIELDS
-    return cfg
+    cfg.update(finder)
+    return np.array([cfg[k] for k in _CFG_NAMES], np.int32)
 
 
 def _dispatch(*tensors) -> str:
@@ -1019,45 +1088,43 @@ def search_scan(p: BlockParams, inp, n: int, rolz):
 K4_TILE = 2048  # keys per warp and radix pass (csrc/sortfind.cu)
 
 
-def sort_positions_plain(p: BlockParams, bytes_pad, n: int):
-    """Plain first stage of K4: ``(hs, ps)`` — the keys in ascending order
-    (int64 in [0, 2^32)) and the positions in (key, position) order."""
-    return torch.sort(sort_keys_plain(p, bytes_pad, n), stable=True)
-
-
-def _k4_sort(p: BlockParams, bytes_pad, n: int):
-    """The key and radix-sort kernels of K4: ``(hs, ps)`` int32 [N] (hs
-    holds the uint32 keys' bits)."""
-    big, dev = p.capacity, bytes_pad.device
+def _sort_stage(entry: str, cfg, big: int, bytes_pad):
+    """The key and radix-sort kernels of a sort finder (K4's or K7's entry
+    of csrc/sortlib.cuh): ``(err, hs, ps)`` int32 [N] (hs holds the uint32
+    keys' bits)."""
+    dev = bytes_pad.device
     keys = torch.empty((2, big), dtype=_i32, device=dev)
     poss = torch.empty((2, big), dtype=_i32, device=dev)
-    tiles = -(-big // K4_TILE)
-    hist = torch.empty(256 * tiles + 1, dtype=_i32, device=dev)
-    cfg = _cfg_array(p, n)
-    err = build.lib().cpx_k4_sort_launch(
+    hist = torch.empty(256 * -(-big // K4_TILE) + 1, dtype=_i32, device=dev)
+    err = getattr(build.lib(), entry)(
         cfg.ctypes.data, bytes_pad.data_ptr(), keys.data_ptr(),
         poss.data_ptr(), hist.data_ptr(), _stream_ptr())
     return err, keys[0], poss[0]
 
 
-def sort_positions(p: BlockParams, bytes_pad, n: int):
-    """First stage of K4 on its own, for a comparison with a library sort:
-    ``(hs, ps)`` as :func:`sort_positions_plain` gives them.  The main path
-    goes through :func:`sort_candidates`, which counts the launch."""
-    if _dispatch(bytes_pad) == "cpu":
-        return sort_positions_plain(p, bytes_pad, n)
-    _check_k4(p, bytes_pad)
-    err, hs, ps = _k4_sort(p, bytes_pad, n)
-    build.check(err, "K4 sort")
-    return hs.to(_i64) & MASK32, ps.to(_i64)
-
-
-def _check_k4(p: BlockParams, bytes_pad):
+def _check_finder(p: BlockParams, bytes_pad, ext=None):
     if p.capacity >= 1 << 30:
         raise NotImplementedError("the sort finder takes blocks below 1 GiB")
-    _expect(bytes_pad, "bytes_pad", torch.uint8, (pad_block_len(p),))
+    _expect(bytes_pad, "bytes_pad", torch.uint8, (pad_block_len(p, ext),))
     if bytes_pad.data_ptr() % 8:
         raise ValueError("bytes_pad must be 8-byte aligned (64-bit loads)")
+
+
+def sort_positions(p: BlockParams, bytes_pad, n: int, keys=sort_keys_plain,
+                   entry="cpx_k4_sort_launch", cfg=None, ext=None):
+    """First stage of a sort finder on its own, for a comparison with a
+    library sort: ``(hs, ps)`` — the keys in ascending order (int64 in
+    [0, 2^32)) and the positions in (key, position) order.  K4's by
+    default; K7 passes its keys, its entry, its configuration and its
+    padding.  The main path goes through :func:`sort_candidates` (or
+    codec/fast.py::f2_find), which counts the launch."""
+    if _dispatch(bytes_pad) == "cpu":
+        return torch.sort(keys(p, bytes_pad, n), stable=True)
+    _check_finder(p, bytes_pad, ext)
+    cfg = _cfg_array(p, n) if cfg is None else cfg  # alive across the call
+    err, hs, ps = _sort_stage(entry, cfg, p.capacity, bytes_pad)
+    build.check(err, entry)
+    return hs.to(_i64) & MASK32, ps.to(_i64)
 
 
 def sort_candidates(p: BlockParams, inp, n: int):
@@ -1073,7 +1140,7 @@ def sort_candidates(p: BlockParams, inp, n: int):
         return sort_candidates_plain(p, inp, n)
     _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
     bytes_pad = pad_block(p, inp)
-    _check_k4(p, bytes_pad)
+    _check_finder(p, bytes_pad)
     big, dev, n_c = p.capacity, inp.device, _R_CANDS
     cand = torch.empty((n_c, big), dtype=_i32, device=dev)
     lw = torch.empty((n_c, big), dtype=_i32, device=dev)
@@ -1081,7 +1148,7 @@ def sort_candidates(p: BlockParams, inp, n: int):
     cfg = _cfg_array(p, n)
 
     def stages():
-        err, hs, ps = _k4_sort(p, bytes_pad, n)
+        err, hs, ps = _sort_stage("cpx_k4_sort_launch", cfg, big, bytes_pad)
         return err or build.lib().cpx_k4_find_launch(
             cfg.ctypes.data, bytes_pad.data_ptr(), hs.data_ptr(),
             ps.data_ptr(), cand.data_ptr(), lw.data_ptr(), out.data_ptr(),
@@ -1117,23 +1184,33 @@ def rank_scan(p: BlockParams, inp, n: int, props, rolz):
     return out
 
 
-def parse_scan(p: BlockParams, n: int, cands):
+def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None):
     """K6 — the backward price DP of the flexible parse.
 
-    Replaces comprox_tpu/codec/block.py::_parse_body (1414-1477, R) with
+    Replaces comprox_tpu/codec/block.py::_parse_body (1414-1477) with
     _cand_min_cost (1391-1411) under the reversed scan of
-    _search_and_parse (1596-1600).  Kernel: csrc/parse.cu (one warp per
-    lane, all SMs).  ``cands`` [3 * (n_c + 1) + 1, T, S] int32 from K5 ->
-    dec [4, T, S] int32 (take, src, recency index, fill).
+    _search_and_parse (1596-1600, mode R) or of codec/fast.py::
+    _fast_find_matches (265-276, mode F: the non-R branch 1435-1450 with
+    the fast profile's prices).  Kernel: csrc/parse.cu (one warp per lane,
+    all SMs; one source, an entry per mode).  Mode R: ``cands``
+    [3 * (n_c + 1) + 1, T, S] int32 from K5 -> dec [4, T, S] int32 (take,
+    src, recency index, fill).  Mode F (``prices`` and ``n_c`` given):
+    ``cands`` [2 * n_c, T, S] int32 from K7 -> dec [3, T, S] (take, src, 0).
     """
     if _dispatch(cands) == "cpu":
-        return parse_scan_plain(p, n, cands)
-    n_c = _R_CANDS + 1
-    _expect(cands, "cands", _i32, (3 * n_c + 1, p.steps, p.lanes))
-    dec = torch.empty((4, p.steps, p.lanes), dtype=_i32, device=cands.device)
-    cfg = _cfg_array(p, n)
-    _launch("K6", build.lib().cpx_k6_launch, cfg.ctypes.data,
-            cands.data_ptr(), dec.data_ptr(), _stream_ptr())
+        return parse_scan_plain(p, n, cands, prices, n_c)
+    if prices is None:
+        _expect(cands, "cands", _i32, (3 * (_R_CANDS + 1) + 1, p.steps, p.lanes))
+        dec = torch.empty((4, p.steps, p.lanes), dtype=_i32, device=cands.device)
+        cfg, entry = _cfg_array(p, n), build.lib().cpx_k6_launch
+    else:
+        _expect(cands, "cands", _i32, (2 * n_c, p.steps, p.lanes))
+        dec = torch.empty((3, p.steps, p.lanes), dtype=_i32, device=cands.device)
+        cfg = _cfg_array(p, n, n_cands=n_c, p_lit=prices[0], p_rm=prices[1],
+                         p_ri=prices[2])
+        entry = build.lib().cpx_k6f_launch
+    _launch("K6", entry, cfg.ctypes.data, cands.data_ptr(), dec.data_ptr(),
+            _stream_ptr())
     return dec
 
 

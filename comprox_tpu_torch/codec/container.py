@@ -1,4 +1,4 @@
-"""Container format and stream coder, unchained codec-R path.
+"""Container format and stream coder, unchained, codecs R (crz) and F (crf).
 
 Counterpart of :mod:`comprox_tpu.codec.container`: the same bytes for the
 same input (magic ``CPXTPU02``, header with CRC and the model-knob
@@ -9,7 +9,7 @@ modules (codec/dictionary.py, ops/filters.py).
 
 Not yet ported, and refused with an error instead of another format:
 chain mode (``F_CHAIN``, ``F_CHAIN_MATCH``; ROADMAP.md item 11) and the
-codecs P, X and F (items 12-14).
+codecs P and X (items 13-14).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 from comprox_tpu_torch.codec import dictionary as dic
 from comprox_tpu_torch.ops import filters as flt
 from comprox_tpu_torch.codec.block import BlockParams, decode_block, encode_block
+from comprox_tpu_torch.codec.fast import decode_block_fast, encode_block_fast
 from comprox_tpu_torch.models.ppm import format_fingerprint
 
 MAGIC = b"CPXTPU02"
@@ -47,12 +48,38 @@ class ContainerParams:
     block: BlockParams = field(default_factory=lambda: BlockParams(mode="R"))
 
 
-def _check_codec(codec: bytes) -> None:
-    if codec != b"R":
+_CODEC_MODE = {b"R": "R", b"F": "F"}
+
+
+def _codec_mode(codec: bytes) -> str:
+    """The block mode a codec byte stands for; raises for an unported one."""
+    if codec not in _CODEC_MODE:
         raise NotImplementedError(
             f"codec {codec!r} is not yet ported to comprox_tpu_torch "
-            "(ROADMAP.md items 12-14): only R (crz) is"
+            "(ROADMAP.md items 13-14): only R (crz) and F (crf) are"
         )
+    return _CODEC_MODE[codec]
+
+
+def _check_codec(cp: ContainerParams) -> None:
+    mode = _codec_mode(cp.codec)
+    if cp.block.mode != mode:
+        raise ValueError(
+            f"codec {cp.codec!r} codes mode {mode!r} blocks, "
+            f"not {cp.block.mode!r}"
+        )
+
+
+def _block_encoder(bp: BlockParams, device):
+    """Per-mode block encoder (the static-table fast profile has its own
+    passes; see codec/fast.py)."""
+    fn = encode_block_fast if bp.mode == "F" else encode_block
+    return lambda blk: fn(blk, bp, device)
+
+
+def _block_decoder(bp: BlockParams, device):
+    fn = decode_block_fast if bp.mode == "F" else decode_block
+    return lambda payload, n: fn(payload, n, bp, device)
 
 
 def write_header(f: BinaryIO, cp: ContainerParams, flags: int = 0) -> None:
@@ -97,9 +124,8 @@ def read_header(f: BinaryIO) -> tuple[ContainerParams, int]:
             "chained archives (crz -c / -C) are not yet ported to "
             "comprox_tpu_torch (ROADMAP.md item 11)"
         )
-    _check_codec(codec)
     bp = BlockParams(
-        lanes=lanes, steps=steps, mode="R", match=bool(match),
+        lanes=lanes, steps=steps, mode=_codec_mode(codec), match=bool(match),
         min_len=min_len, o3_bits=o3_bits, rolz_bits=rolz_bits,
         rolz_depth=rolz_depth, rolz_ctx_bytes=rolz_ctx_bytes,
         short_depth=short_depth, rolz_dec=rolz_dec,
@@ -123,7 +149,8 @@ def encode_stream(
     the same arguments (unchained, one block at a time).  ``precomp_only``
     runs just the dictionary stage and stores the substituted bytes.
     """
-    _check_codec(cp.codec)
+    _check_codec(cp)
+    encode = _block_encoder(cp.block, device)
     if precomp_only:
         filters = False
     wd = dic.build_dictionary(src) if dictionary else None
@@ -161,7 +188,7 @@ def encode_stream(
         if precomp_only:
             payload, bflags = prefix + blk.tobytes(), bflags | BF_STORED
         else:
-            payload = prefix + encode_block(blk, cp.block, device)
+            payload = prefix + encode(blk)
             if len(payload) >= raw_blk.size:  # stored fallback
                 payload, bflags = raw_blk.tobytes(), BF_STORED
         dst.write(struct.pack(BLKHDR, raw_blk.size, len(payload), bflags,
@@ -181,9 +208,10 @@ def decode_stream(
     device,
     progress: Optional[Callable[[int, int], None]] = None,
 ) -> int:
-    """Decode an unchained codec-R archive on ``device``; returns the raw
-    byte count."""
+    """Decode an unchained codec-R or codec-F archive on ``device``; returns
+    the raw byte count."""
     cp, flags = read_header(src)
+    decode = _block_decoder(cp.block, device)
     wd = None
     if flags & F_DICT:
         hdr = src.read(12)
@@ -228,7 +256,7 @@ def decode_stream(
                     raise ValueError("corrupt block: missing dict-size prefix")
                 (n_dec,) = struct.unpack("<I", payload[:4])
                 payload = payload[4:]
-            out = decode_block(payload, n_dec, cp.block, device)
+            out = decode(payload, n_dec)
             if bflags & BF_DICT:
                 out = dic.dict_decode(out, wd)
         if out.size != raw_n:

@@ -1,0 +1,75 @@
+// Prefix scans over the whole block, shared by the mode-F tokenizer (K8,
+// f2tok.cu) and decoder (K10, f2dec.cu).
+//
+// One scan carries two values per position: a count (how many token starts
+// lie before it) and "the last nonzero value before it" (the previous match
+// distance).  Both are associative, so a scan over N positions is three
+// launches: every CTA reduces its tile of SCAN_TILE positions to one pair;
+// one CTA turns the tile pairs into exclusive prefixes (scan_parts); every
+// CTA scans its tile again from its prefix and uses the result.  This is
+// what JAX's Hillis-Steele doubling passes (fast.py::_flat_excl_cumsum,
+// _last_nonzero_fill) and its one-bit stable sort compute.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define SCAN_THREADS 256
+#define SCAN_PER 8  // consecutive positions per thread
+#define SCAN_TILE (SCAN_THREADS * SCAN_PER)  // fast.py::SCAN_TILE
+
+struct CountLast {
+  int cnt, last;
+};
+
+// a's positions come before b's
+static __device__ __forceinline__ CountLast combine(CountLast a, CountLast b) {
+  return CountLast{a.cnt + b.cnt, b.last ? b.last : a.last};
+}
+
+// Exclusive prefix, in thread order, of every thread's v across the CTA.
+// Call by every thread; wsum is a shared [32] scratch this call owns until
+// the next barrier after it.  total = all threads' v combined.
+static __device__ CountLast cta_excl_scan(CountLast v, CountLast* wsum,
+                                          CountLast& total) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  CountLast inc = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const CountLast o{__shfl_up_sync(full, inc.cnt, off),
+                      __shfl_up_sync(full, inc.last, off)};
+    if (lane >= off) inc = combine(o, inc);
+  }
+  if (lane == 31) wsum[warp] = inc;
+  CountLast ex{__shfl_up_sync(full, inc.cnt, 1), __shfl_up_sync(full, inc.last, 1)};
+  if (lane == 0) ex = CountLast{0, 0};
+  __syncthreads();
+  CountLast before{0, 0}, tot{0, 0};
+  for (int w = 0; w < nwarps; ++w) {
+    if (w < warp) before = combine(before, wsum[w]);
+    tot = combine(tot, wsum[w]);
+  }
+  total = tot;
+  return combine(before, ex);
+}
+
+// In place: parts[0 .. n) -> their exclusive prefixes, parts[n] = the total.
+// One CTA of 1024 threads.
+static __global__ void __launch_bounds__(1024) scan_parts(CountLast* __restrict__ parts,
+                                                          int n) {
+  __shared__ CountLast wsum[32];
+  const int tid = threadIdx.x;
+  const int chunk = (n + 1023) / 1024;
+  const int b = min(tid * chunk, n), e = min(b + chunk, n);
+  CountLast s{0, 0};
+  for (int k = b; k < e; ++k) s = combine(s, parts[k]);
+  CountLast total;
+  CountLast run = cta_excl_scan(s, wsum, total);
+  for (int k = b; k < e; ++k) {
+    const CountLast v = parts[k];
+    parts[k] = run;
+    run = combine(run, v);
+  }
+  if (tid == 0) parts[n] = total;
+}

@@ -282,3 +282,37 @@ int64_t dict_count_c(const uint8_t *inp, int64_t n, int32_t space_mode,
     free(offs);
     return ne;
 }
+
+/* ---------------------------------------------------------------------- */
+/* Mode-F sequence executor (decode half of the fast profile).            */
+/*                                                                        */
+/* The device entropy-decodes the tokens (comprox_tpu_torch/codec/fast.py)*/
+/* and ships one u32 per token: values < 256 are literal bytes; values >= */
+/* 256 are matches packed (dist << 8) | (len - min_len), dist >= 1, the   */
+/* repeat distances already resolved.  This walk materializes the output  */
+/* bytes: the LZ copy chain is the one sequential dependency of the       */
+/* profile, and a host core does it at memcpy speed.                      */
+/*                                                                        */
+/* Returns the number of bytes written, or -1 on a malformed token stream */
+/* (source underrun or output overrun): it never reads or writes out of   */
+/* bounds on corrupt input.                                               */
+int64_t f2_execute(const uint32_t *tok, int64_t n_tok, int64_t min_len,
+                   uint8_t *out, int64_t out_cap) {
+    int64_t o = 0;
+    for (int64_t i = 0; i < n_tok; i++) {
+        uint32_t v = tok[i];
+        if (v < 256u) {
+            if (o >= out_cap) return -1;
+            out[o++] = (uint8_t)v;
+        } else {
+            int64_t len = (int64_t)(v & 255) + min_len;
+            int64_t dist = (int64_t)(v >> 8); /* >= 1 since v >= 256 */
+            int64_t src = o - dist;
+            if (src < 0 || o + len > out_cap) return -1;
+            /* forward byte copy: an overlap (dist < len) replicates */
+            for (int64_t j = 0; j < len; j++) out[o + j] = out[src + j];
+            o += len;
+        }
+    }
+    return o;
+}

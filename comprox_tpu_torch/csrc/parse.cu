@@ -1,8 +1,13 @@
-// K6: the backward price DP of the flexible-parse encode.
+// K6: the backward price DP of the flexible-parse encode, modes R and F.
 //
-// Replaces comprox_tpu/codec/block.py::_parse_body (1414-1477, mode R)
-// with _cand_min_cost (1391-1411), run under a reversed lax.scan by
-// _search_and_parse (1596-1600).  Per lane, from the last step to the
+// Replaces comprox_tpu/codec/block.py::_parse_body (1414-1477) with
+// _cand_min_cost (1391-1411), run under a reversed lax.scan by
+// _search_and_parse (1596-1600, mode R) and by codec/fast.py::
+// _fast_find_matches (265-276, mode F: the non-R branch 1435-1450 without
+// a repeat pair).  One kernel, an entry per mode: mode R prices a candidate
+// (len, src, recency index) by its recency bucket and passes the bucket
+// fill through; mode F prices a candidate (len, src) by the distance bucket
+// floor(log2(pos - src)) and writes index 0.  Per lane, from the last step to the
 // first: cost[t] = min(literal price + cost[t+1], over the candidates and
 // every admissible length l of price + cost[t+l]); the decision at t is
 // the literal, or the candidate and length that reach the minimum.  Ties:
@@ -28,6 +33,7 @@ namespace {
 #define K6_MAX_CANDS 8  // the finder's proposals (<= 7) and the bucket's
 #define P_INF (1 << 22)
 
+template <bool FAST>
 __global__ void __launch_bounds__(K6_WARPS * 32) k6_kernel(
     Cfg c, const int* __restrict__ cands, int* __restrict__ dec) {
   __shared__ int ring_all[K6_WARPS][256];
@@ -38,7 +44,9 @@ __global__ void __launch_bounds__(K6_WARPS * 32) k6_kernel(
   int* const ring = ring_all[warp];
   for (int u = j; u < 256; u += 32) ring[u] = 0;  // cost past the block: 0
   __syncwarp();
-  const int n_c = c.n_cands + 1, n_in = 3 * n_c + 1;
+  const int per = FAST ? 2 : 3;  // grids per candidate
+  const int n_c = FAST ? c.n_cands : c.n_cands + 1;
+  const int n_in = FAST ? 2 * n_c : 3 * n_c + 1;
   const size_t plane = (size_t)c.T * c.S;
   const int lo = max(c.min_len, 1);
   const int* const mine = cands + (size_t)min(j, n_in - 1) * plane + lane;
@@ -57,11 +65,17 @@ __global__ void __launch_bounds__(K6_WARPS * 32) k6_kernel(
 #pragma unroll
     for (int k = 0; k < K6_MAX_CANDS; ++k) {
       if (k >= n_c) break;
-      const int lx = min(__shfl_sync(full, in, 3 * k), c.window);
+      const int lx = min(__shfl_sync(full, in, per * k), c.window);
       if (lx < lo) continue;  // no admissible length: cost 2^22, never wins
-      const int sx = __shfl_sync(full, in, 3 * k + 1);
-      const int ix = __shfl_sync(full, in, 3 * k + 2);
-      const int price = c.p_rm + c.p_ri * rec_bucket(ix);
+      const int sx = __shfl_sync(full, in, per * k + 1);
+      int ix = 0, price;
+      if (FAST) {
+        const int d = max(lane * c.T + t - sx, 1);
+        price = c.p_rm + c.p_ri * min(31 - __clz(d), 24);
+      } else {
+        ix = __shfl_sync(full, in, 3 * k + 2);
+        price = c.p_rm + c.p_ri * rec_bucket(ix);
+      }
       int key = P_INF * 256;
 #pragma unroll
       for (int m = 0; m < 8; ++m) {
@@ -89,7 +103,7 @@ __global__ void __launch_bounds__(K6_WARPS * 32) k6_kernel(
       dec[o] = best_len;
       dec[plane + o] = best_src;
       dec[2 * plane + o] = best_idx;
-      dec[3 * plane + o] = fill;
+      if (!FAST) dec[3 * plane + o] = fill;
     }
     __syncwarp();
   }
@@ -97,13 +111,28 @@ __global__ void __launch_bounds__(K6_WARPS * 32) k6_kernel(
 
 }  // namespace
 
+// Mode R: cands [3 * (n_cands + 1) + 1, T, S] -> dec [4, T, S].
 extern "C" int cpx_k6_launch(const int* cfg, const void* cands, void* dec,
                              void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
   if (c.n_cands + 1 > K6_MAX_CANDS || c.window > 256) return (int)cudaErrorInvalidValue;
   int blocks = (c.S + K6_WARPS - 1) / K6_WARPS;
-  k6_kernel<<<blocks, K6_WARPS * 32, 0, (cudaStream_t)stream>>>(
+  k6_kernel<false><<<blocks, K6_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      c, (const int*)cands, (int*)dec);
+  return (int)cudaGetLastError();
+}
+
+// Mode F: cands [2 * n_cands, T, S] -> dec [3, T, S]; the prices in p_lit
+// (literal), p_rm (match) and p_ri (per distance bucket).
+extern "C" int cpx_k6f_launch(const int* cfg, const void* cands, void* dec,
+                              void* stream) {
+  Cfg c;
+  memcpy(&c, cfg, sizeof(Cfg));
+  if (c.n_cands < 1 || c.n_cands > K6_MAX_CANDS || c.window > 256)
+    return (int)cudaErrorInvalidValue;
+  int blocks = (c.S + K6_WARPS - 1) / K6_WARPS;
+  k6_kernel<true><<<blocks, K6_WARPS * 32, 0, (cudaStream_t)stream>>>(
       c, (const int*)cands, (int*)dec);
   return (int)cudaGetLastError();
 }

@@ -45,14 +45,15 @@
 
 // Block geometry and model knobs, filled from a host int32 array in field
 // order (comprox_tpu_torch/codec/block.py::_cfg_array builds it).  The last
-// six are encoder-only knobs of the flexible parse: proposals per position,
-// chain depth each way, word-extension bytes, and the parse prices
-// (literal, match, per recency bucket).
+// seven are encoder-only knobs of the flexible parse: proposals per
+// position, chain depth each way, word-extension bytes, the parse prices
+// (literal, match, per recency bucket in mode R or per distance bucket in
+// mode F), and whether a diagonal run counts the matching byte at its end.
 struct Cfg {
   int S, T, n, min_len, window, o3_bits, rolz_bits, rolz_depth,
       rolz_ctx_bytes, rolz_dec, top_k, probe, match, use_sse, inc2, cap2,
       inc1, cap1, len_inc, len_cap, idx_inc, idx_cap, stream_len,
-      n_cands, r_probe, sort_ext, p_lit, p_rm, p_ri;
+      n_cands, r_probe, sort_ext, p_lit, p_rm, p_ri, diag_tail;
 };
 
 static __device__ const int kSseThr[33] = {

@@ -40,6 +40,12 @@ _SIGNATURES = {
     "cpx_k4_find_launch": [_P] * 8,
     "cpx_k5_launch": [_P] * 7,
     "cpx_k6_launch": [_P] * 4,
+    "cpx_k6f_launch": [_P] * 4,
+    "cpx_k7_sort_launch": [_P] * 6,
+    "cpx_k7_find_launch": [_P] * 8,
+    "cpx_k8_launch": [_P] * 7,
+    "cpx_k9_launch": [_I] * 2 + [_P] * 9,
+    "cpx_k10_launch": [_I] * 3 + [_P] * 9,
     "cpx_k2_launch": [_P] * 12,
     "cpx_k3_launch": [_I, _I, _P, _P, _P, _P, _P],
     "cpx_k1_launch": [_P] * 15,

@@ -3,7 +3,8 @@
 Compiles ``comprox_tpu_torch/csrc/native.c`` with ``cc`` into
 ``build/native/`` at the repository root (git-ignored), named by a hash of
 the source, and exposes typed wrappers.  These are host loops (the E8/E9
-filter transform and the dictionary stage), not kernels.  Every wrapper
+filter transform, the dictionary stage and mode F's LZ copy walk), not
+kernels.  Every wrapper
 has a byte-identical pure-Python path, so the port also runs on a machine
 without a C compiler; the tests hold both paths to the same bytes.
 """
@@ -104,6 +105,49 @@ def _e8e9_python(buf: np.ndarray, vbase: int, vsize: int, en_de: int) -> None:
             i += 4
         else:
             i += 1
+
+
+def f2_execute(tok: np.ndarray, min_len: int, n: int) -> Optional[np.ndarray]:
+    """Materialize mode-F output bytes from the decoded token plane
+    (native.c f2_execute): values < 256 are literal bytes, values >= 256
+    are matches (dist << 8) | (len - min_len).  ``n`` is the expected
+    output size; returns None (raising is the caller's job) when the token
+    stream is malformed or does not produce exactly n bytes."""
+    assert tok.dtype == np.uint32 and tok.flags.c_contiguous
+    lib = get_lib()
+    if lib is None:
+        return _f2_execute_python(tok, min_len, n)
+    if not getattr(lib, "_f2_setup", False):
+        lib.f2_execute.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib.f2_execute.restype = ctypes.c_int64
+        lib._f2_setup = True
+    out = np.empty(n, np.uint8)
+    got = lib.f2_execute(tok.ctypes.data, tok.size, min_len, out.ctypes.data, n)
+    return out if got == n else None
+
+
+def _f2_execute_python(tok: np.ndarray, min_len: int, n: int) -> Optional[np.ndarray]:
+    """The same walk without a C compiler, with the same fail-clean rule."""
+    out = np.empty(n, np.uint8)
+    o = 0
+    for v in tok.tolist():
+        if v < 256:
+            if o >= n:
+                return None
+            out[o] = v
+            o += 1
+        else:
+            length, dist = (v & 255) + min_len, v >> 8
+            src = o - dist
+            if src < 0 or o + length > n:
+                return None
+            for j in range(length):
+                out[o + j] = out[src + j]
+            o += length
+    return out if o == n else None
 
 
 def _setup_dict(lib: ctypes.CDLL) -> None:

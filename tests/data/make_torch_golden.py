@@ -1,4 +1,4 @@
-"""Write the golden crz archives that the PyTorch port must reproduce.
+"""Write the golden crz and crf archives that the PyTorch port must reproduce.
 
 Runs the JAX package (on the CPU) and writes, next to this script, for each
 corpus size (``--mb``, default 1):
@@ -10,6 +10,11 @@ corpus size (``--mb``, default 1):
   -b<mb> -l512``, the default flexible parse at the default encoder knobs);
 - ``torch_golden.json``: per archive, the SHA-256 and size of the input
   corpus and of the archive.
+
+With ``--codec crf`` it writes ``crf_flex_<mb>MiB_S512.cpx`` instead: the
+fast profile under ``make_params("crf", {"lanes": 512, "block_mb": mb})``
+(``crf e -b<mb> -l512``, the flexible parse at the default encoder knobs),
+on the same corpus.
 
 At 8 MiB an archive is one block of S=512 lanes and T=16384 steps.
 
@@ -25,6 +30,7 @@ Usage::
 
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --mb 1 --mb 8
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --mb 8 --parse flex
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crf --mb 1 --mb 8
 """
 
 from __future__ import annotations
@@ -45,8 +51,8 @@ sys.path.insert(0, str(HERE.parents[1]))
 PARSES = {"f0": False, "flex": True}  # archive tag -> BlockParams.flexible
 
 
-def archive_name(mb: int, parse: str = "f0") -> str:
-    return f"crz_{parse}_{mb}MiB_S512.cpx"
+def archive_name(mb: int, parse: str = "f0", codec: str = "crz") -> str:
+    return f"{codec}_{parse}_{mb}MiB_S512.cpx"
 
 
 def main() -> int:
@@ -55,6 +61,8 @@ def main() -> int:
                     help="corpus and block size in MiB (repeatable)")
     ap.add_argument("--parse", choices=sorted(PARSES), action="append",
                     help="which archives to write (default: both)")
+    ap.add_argument("--codec", choices=("crz", "crf"), default="crz",
+                    help="crf writes only the flexible-parse archive")
     ap.add_argument("--rebuild-corpus", action="store_true",
                     help="take bench.build_corpus, not the committed bytes")
     args = ap.parse_args()
@@ -68,6 +76,11 @@ def main() -> int:
     for mb in sizes:
         seed_arc = HERE / archive_name(mb)
         parses = args.parse or sorted(PARSES)
+        if args.codec == "crf":
+            if args.rebuild_corpus or not seed_arc.exists():
+                raise SystemExit("crf codes the corpus of the committed crz "
+                                 f"archive {seed_arc.name}: write that first")
+            parses = ["flex"]
         if args.rebuild_corpus or not seed_arc.exists():
             from bench import build_corpus
 
@@ -79,7 +92,7 @@ def main() -> int:
             data = np.frombuffer(out.getvalue(), np.uint8)
         for parse in parses:
             cp = make_params(
-                "crz",
+                args.codec,
                 {"lanes": 512, "block_mb": mb, "flexible": PARSES[parse]},
             )
             t0 = time.time()
@@ -93,11 +106,11 @@ def main() -> int:
             t_dec = time.time() - t0
             if out.getvalue() != data.tobytes():
                 raise SystemExit(f"{mb} MiB {parse}: JAX round trip failed")
-            name = archive_name(mb, parse)
+            name = archive_name(mb, parse, args.codec)
             (HERE / name).write_bytes(arc)
             flag = "" if PARSES[parse] else "-f0 "
             meta[name] = {
-                "argv": f"crz e {flag}-b{mb} -l512",
+                "argv": f"{args.codec} e {flag}-b{mb} -l512",
                 "input_bytes": int(data.size),
                 "input_sha256": hashlib.sha256(data.tobytes()).hexdigest(),
                 "archive_bytes": len(arc),

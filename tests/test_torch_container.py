@@ -1,5 +1,6 @@
-"""The port's crz container and CLI against the JAX package: the slice as a
-whole.  Archives must be byte-identical and decode across packages."""
+"""The port's crz and crf containers and CLI against the JAX package: each
+slice as a whole.  Archives must be byte-identical and decode across
+packages."""
 
 import io
 import json
@@ -155,7 +156,7 @@ def test_chained_archives_and_other_codecs_raise():
         (b"R", jcon.F_CHAIN | jcon.F_CHAIN_MATCH, NotImplementedError),
         (b"X", 0, NotImplementedError),
         (b"P", 0, NotImplementedError),
-        (b"F", 0, NotImplementedError),
+        (b"F", jcon.F_CHAIN, NotImplementedError),
     ):
         f = io.BytesIO()
         mode = {b"R": "R", b"X": "X", b"F": "F"}.get(codec, "P")
@@ -177,7 +178,10 @@ def test_chained_archives_and_other_codecs_raise():
         ["crz", "e", "a", "b", "-c"],
         ["crx", "e", "a", "b", "-f0"],
         ["crp", "e", "a", "b", "-f0"],
-        ["crf", "e", "a", "b", "-f0"],
+        ["crf", "e", "a", "b", "-c"],
+        ["crf", "e", "a", "b", "-C"],
+        ["crf", "e", "a", "b", "-g2"],
+        ["crf", "e", "a", "b", "-j"],
     ],
 )
 def test_cli_unported_switches_raise(argv, tmp_path):
@@ -198,10 +202,12 @@ def test_golden_fixture_metadata():
     """The committed JAX archives carry the digests chip_smoke.py checks."""
     meta = json.loads((ROOT / "tests/data/torch_golden.json").read_text())
     assert set(meta) == {f"crz_{parse}_{mb}MiB_S512.cpx"
-                         for parse in ("f0", "flex") for mb in (1, 8)}
-    for mb in (1, 8):  # both parses of one size code the same bytes
-        assert (meta[f"crz_flex_{mb}MiB_S512.cpx"]["input_sha256"]
-                == meta[f"crz_f0_{mb}MiB_S512.cpx"]["input_sha256"])
+                         for parse in ("f0", "flex") for mb in (1, 8)} | {
+        f"crf_flex_{mb}MiB_S512.cpx" for mb in (1, 8)}
+    for mb in (1, 8):  # every archive of one size codes the same bytes
+        for other in ("crz_flex", "crf_flex"):
+            assert (meta[f"{other}_{mb}MiB_S512.cpx"]["input_sha256"]
+                    == meta[f"crz_f0_{mb}MiB_S512.cpx"]["input_sha256"])
     import hashlib
 
     for name, m in meta.items():
@@ -210,6 +216,7 @@ def test_golden_fixture_metadata():
         assert len(arc) == m["archive_bytes"]
         cp, flags = con.read_header(io.BytesIO(arc))
         assert cp.block.lanes == 512 and not flags & (con.F_CHAIN | con.F_CHAIN_MATCH)
+        assert cp.block.mode == {"crz": "R", "crf": "F"}[name[:3]]
 
 
 FLEX = dict(SMALL, flexible=True)
@@ -325,3 +332,102 @@ def test_native_and_python_host_paths_agree(tmp_path, monkeypatch):
     monkeypatch.setattr(native, "get_lib", lambda: None)
     d_py = dic.build_dictionary(data, max_words2=4096)
     assert dic.pack_dict(d_py) == dic.pack_dict(d)
+
+
+# ---- crf: the fast profile behind the same container
+
+FAST = dict(lanes=8, steps=128, mode="F", min_len=6, window=64)
+
+
+def fast_cps(**kw):
+    kw = dict(FAST, **kw)
+    return (jcon.ContainerParams(codec=b"F", block=jblk.BlockParams(**kw)),
+            con.ContainerParams(codec=b"F", block=blk.BlockParams(**kw)))
+
+
+@pytest.mark.parametrize(
+    "kind,kw,block",
+    [
+        ("text", {}, {}),
+        ("text", {"dictionary": False}, {}),
+        ("elf", {"filters": True}, {}),
+        ("text", {"precomp_only": True}, {}),
+        ("text", {}, {"flexible": False}),
+        ("stored", {}, {"steps": 64}),
+    ],
+)
+def test_crf_archive_equals_jax(kind, kw, block):
+    """The whole crf archive, several blocks: with and without dictionary,
+    -F, -p, the greedy parse (-f0) and the stored-block fallback on random
+    bytes; each package decodes it."""
+    data = sample(kind)
+    cpj, cpt = fast_cps(**block)
+    ref, got = io.BytesIO(), io.BytesIO()
+    jcon.encode_stream(data, ref, cpj, **kw)
+    con.encode_stream(data, got, cpt, "cpu", **kw)
+    arc = got.getvalue()
+    assert arc == ref.getvalue()
+    cross_decode(arc, data)
+    cp, _ = con.read_header(io.BytesIO(arc))
+    assert cp.codec == b"F" and cp.block.mode == "F"
+    if kind == "stored":
+        assert arc.count(data[512:1024].tobytes()) == 1  # stored verbatim
+
+
+def test_crf_make_params_matches_jax():
+    for opts in (
+        {"lanes": 512, "block_mb": 8},
+        {"lanes": 512, "block_mb": 1, "flexible": False},
+        {"lanes": 256, "block_mb": 64, "depth": 70},  # capped at 16 MiB
+        {"lanes": 8, "block_mb": 0.001, "window": 200},
+    ):
+        mine = cli.make_params("crf", opts)
+        ref = jcli.make_params("crf", dict(opts))
+        assert mine.codec == ref.codec == b"F"
+        assert asdict(mine.block) == asdict(ref.block)
+    bp = cli.make_params("crf", {"lanes": 512, "block_mb": 8}).block
+    assert (bp.mode, bp.steps, bp.min_len, bp.window) == ("F", 16384, 6, 250)
+    assert (bp.rolz_ctx_bytes, bp.rolz_dec) == (3, 1)
+    assert cli.make_params("crf", {"lanes": 256, "block_mb": 64}).block.capacity == 1 << 24
+
+
+def test_crf_cli_archive_equals_jax(tmp_path):
+    """crf e / crf d through both command lines: the same file both ways,
+    with and without -f0."""
+    src = tmp_path / "in.bin"
+    sample("text").tofile(src)
+    for flags in ([], ["-f0"]):
+        args = [*flags, "-b0.001", "-l8", "-q"]
+        cli.run("crf", ["e", str(src), str(tmp_path / "port.crf"), *args], device="cpu")
+        jcli.run("crf", ["e", str(src), str(tmp_path / "jax.crf"), *args])
+        arc = (tmp_path / "port.crf").read_bytes()
+        assert arc == (tmp_path / "jax.crf").read_bytes()
+        cli.run("crf", ["d", str(tmp_path / "jax.crf"), str(tmp_path / "out.bin"), "-q"],
+                device="cpu")
+        assert (tmp_path / "out.bin").read_bytes() == src.read_bytes()
+        cross_decode(arc, sample("text"))
+
+
+def test_codec_and_mode_must_agree():
+    with pytest.raises(ValueError, match="codes mode"):
+        con.encode_stream(sample("text"), io.BytesIO(), con.ContainerParams(
+            codec=b"F", block=blk.BlockParams(**SMALL)), "cpu")
+    with pytest.raises(ValueError, match="codes mode"):
+        con.encode_stream(sample("text"), io.BytesIO(), con.ContainerParams(
+            codec=b"R", block=blk.BlockParams(**FAST)), "cpu")
+    with pytest.raises(NotImplementedError, match="items 13-14"):
+        cli.make_params("crx", {"lanes": 8, "block_mb": 1})
+
+
+def test_crf_golden_1mib_decodes_to_the_committed_corpus():
+    """The committed JAX crf archive (S=512, T=2048) through the port's plain
+    passes: the bytes the crz archives decode to."""
+    import hashlib
+
+    meta = json.loads((ROOT / "tests/data/torch_golden.json").read_text())
+    m = meta["crf_flex_1MiB_S512.cpx"]
+    out = io.BytesIO()
+    con.decode_stream(
+        io.BytesIO((ROOT / "tests/data/crf_flex_1MiB_S512.cpx").read_bytes()), out, "cpu")
+    assert len(out.getvalue()) == m["input_bytes"]
+    assert hashlib.sha256(out.getvalue()).hexdigest() == m["input_sha256"]

@@ -23,6 +23,7 @@ PORT_MODULES = [
     "comprox_tpu_torch.codec.block",
     "comprox_tpu_torch.codec.container",
     "comprox_tpu_torch.codec.dictionary",
+    "comprox_tpu_torch.codec.fast",
     "comprox_tpu_torch.models.ppm",
     "comprox_tpu_torch.models.tables",
     "comprox_tpu_torch.ops.filters",
@@ -82,6 +83,22 @@ def test_encode_and_decode_load_no_jax(tmp_path):
         f"m.run('crz', ['e', {str(src)!r}, {str(tmp_path / 'a.crz')!r}, "
         "'-b0.0005', '-l8', '-q'], device='cpu'); "
         f"m.run('crz', ['d', {str(tmp_path / 'a.crz')!r}, "
+        f"{str(tmp_path / 'out.bin')!r}, '-q'], device='cpu'); " + CHECK
+    )
+    r = run_fresh(code)
+    assert r.returncode == 0, r.stderr
+    assert (tmp_path / "out.bin").read_bytes() == src.read_bytes()
+
+
+def test_crf_encode_and_decode_load_no_jax(tmp_path):
+    """The same for the fast profile: crf e / crf d in a fresh interpreter."""
+    src = tmp_path / "in.bin"
+    src.write_bytes(b"the quick brown fox jumps over the lazy dog. " * 120)
+    code = (
+        "import comprox_tpu_torch.cli.main as m; "
+        f"m.run('crf', ['e', {str(src)!r}, {str(tmp_path / 'a.crf')!r}, "
+        "'-b0.002', '-l8', '-q'], device='cpu'); "
+        f"m.run('crf', ['d', {str(tmp_path / 'a.crf')!r}, "
         f"{str(tmp_path / 'out.bin')!r}, '-q'], device='cpu'); " + CHECK
     )
     r = run_fresh(code)

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from comprox_tpu_torch.codec import block as blk
+from comprox_tpu_torch.codec import fast as tfast
 from comprox_tpu_torch.models import ppm
 from comprox_tpu_torch.utils import build
 
@@ -55,6 +56,44 @@ def test_cfg_layout_matches_the_c_struct():
     assert by_name["sort_ext"] == min(blk._SORT_EXT, p.window)
     assert (by_name["p_lit"], by_name["p_rm"], by_name["p_ri"]) == (
         blk._P_LIT_R, blk._P_RM, blk._P_RI)
+
+
+def test_fast_cfg_carries_the_mode_f_knobs():
+    """fast._cfg overrides the encoder fields of Cfg with mode F's knobs and
+    leaves the geometry alone."""
+    p = blk.BlockParams(lanes=512, steps=32, mode="F", min_len=6, window=250)
+    by_name = dict(zip(blk._CFG_NAMES, tfast._cfg(p, 777, 5).tolist()))
+    assert (by_name["S"], by_name["T"], by_name["n"]) == (512, 32, 777)
+    assert by_name["min_len"] == 6 and by_name["stream_len"] == 5
+    assert by_name["n_cands"] == tfast._F_CANDS == 2
+    assert by_name["sort_ext"] == 4 * (tfast._EXTW - 1) == 60
+    assert (by_name["p_lit"], by_name["p_rm"], by_name["p_ri"]) == tfast._F_PRICES[:3]
+    assert by_name["diag_tail"] == 0
+    assert dict(zip(blk._CFG_NAMES, blk._cfg_array(p, 1).tolist()))["diag_tail"] == 1
+
+
+def test_kernel_sources_and_launch_table():
+    """Every kernel of the launch table has its source, the shared headers
+    are part of the build's key, and the scan tile is one number."""
+    assert set(blk.LAUNCHES) == {"KS", "K1", "K2", "K3", "K4", "K5", "K6", "K7",
+                                 "K8", "K9", "K10"}
+    assert set(blk._EVENTS) == set(blk.LAUNCHES)
+    names = {p.name for p in build._sources()}
+    assert {"search.cu", "decode.cu", "model.cu", "rans.cu", "sortfind.cu",
+            "rank.cu", "parse.cu", "f2find.cu", "f2tok.cu", "f2enc.cu",
+            "f2dec.cu", "sortlib.cuh", "f2scan.cuh", "ppm_r.cuh"} <= names
+    scan = (build.CSRC / "f2scan.cuh").read_text()
+    threads = int(re.search(r"#define SCAN_THREADS (\d+)", scan).group(1))
+    per = int(re.search(r"#define SCAN_PER (\d+)", scan).group(1))
+    assert threads * per == tfast.SCAN_TILE
+    sort = (build.CSRC / "sortlib.cuh").read_text()
+    assert int(re.search(r"#define RS_TILE (\d+)", sort).group(1)) == blk.K4_TILE
+    # one radix sort for both finders: neither source has a copy
+    for name in ("sortfind.cu", "f2find.cu"):
+        src = (build.CSRC / name).read_text()
+        assert "radix_sort_pairs(" in src and "__match_any_sync" not in src
+    blk.reset_launch_counts()
+    assert not any(blk.LAUNCHES.values())
 
 
 def test_build_cache_key_and_entry_points():
@@ -160,7 +199,7 @@ def test_flexible_kernel_matches_plain(cuda_device, kernel, name):
     if kernel == "K4":
         bytes_pad = blk.pad_block(p, inp)
         hs, ps = blk.sort_positions(p, bytes_pad, n)
-        hp, pp = blk.sort_positions_plain(p, bytes_pad, n)
+        hp, pp = torch.sort(blk.sort_keys_plain(p, bytes_pad, n), stable=True)
         assert torch.equal(hs, hp) and torch.equal(ps, pp)
         assert torch.equal(blk.sort_candidates(p, inp, n), props)
         return
@@ -208,3 +247,99 @@ def test_block_roundtrip_on_card(cuda_device):
     assert payload == blk.encode_block(data, p, "cpu")
     np.testing.assert_array_equal(
         blk.decode_block(payload, data.size, p, cuda_device), data)
+
+
+# ---- mode F: K7, K6's F entry, K8, K9, K10
+
+FAST_WIDE = dict(lanes=512, steps=64, mode="F", min_len=6, window=250)
+
+
+def _fast_inputs(name, p, n):
+    buf = np.zeros(p.capacity, np.uint8)
+    if name == "text":
+        buf[:n] = text(n, seed=13)
+    elif name == "period7":
+        buf[:n] = np.tile(np.array([7, 200, 31, 4, 4, 90, 1], np.uint8), n // 7 + 1)[:n]
+    elif name == "random":
+        buf[:n] = np.random.default_rng(6).integers(0, 256, n, dtype=np.uint8)
+    return buf  # "zeros": all zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["text", "zeros", "period7", "random"])
+@pytest.mark.parametrize("kernel", ["K7", "K6F", "K8", "K9", "K10"])
+def test_fast_kernel_matches_plain(cuda_device, kernel, name):
+    """K7, K6's F entry, K8, K9, K10 against their plain versions, each fed
+    the plain version's output of the pass before it."""
+    p = blk.BlockParams(**FAST_WIDE)
+    n = p.capacity - 100
+    inp = torch.from_numpy(
+        _fast_inputs(name, p, n).reshape(p.lanes, p.steps)).to(cuda_device)
+    cands = tfast.f2_find_plain(p, inp, n)
+    if kernel == "K7":
+        bytes_pad = tfast.pad_block(p, inp)
+        hs, ps = tfast.sort_positions(p, bytes_pad, n)
+        hp, pp = torch.sort(tfast.sort_keys_plain(p, bytes_pad, n), stable=True)
+        assert torch.equal(hs, hp) and torch.equal(ps, pp)
+        assert torch.equal(tfast.f2_find(p, inp, n), cands)
+        return
+    kw = dict(prices=tfast._F_PRICES, n_c=tfast._F_CANDS)
+    dec = blk.parse_scan_plain(p, n, cands, **kw)
+    if kernel == "K6F":
+        assert torch.equal(blk.parse_scan(p, n, cands, **kw), dec)
+        return
+    toks, n_tok, sym, xtr, tbits = tfast.tokenize_plain(p, inp, n, dec)
+    if kernel == "K8":
+        got = tfast.tokenize(p, inp, n, dec)
+        assert got[0] == n_tok
+        assert all(torch.equal(a, b[:n_tok]) for a, b in
+                   zip(got[1:], (sym, xtr, tbits)))
+        return
+    freq, states, words = tfast.encode_scan_plain(p, sym, xtr, tbits, n_tok)
+    if kernel == "K9":
+        got = tfast.encode_scan(p, sym, xtr, tbits, n_tok)
+        assert all(torch.equal(a, b) for a, b in zip(got, (freq, states, words)))
+        return
+    stream = torch.zeros(tfast._max_words(p), dtype=torch.int32, device=cuda_device)
+    stream[: words.numel()] = words.flip(0)
+    xk, uk, plk = tfast.decode_scan(p, freq, states, stream, n_tok)
+    xp, up, plp = tfast.decode_scan_plain(p, freq, states, stream, n_tok)
+    assert uk == up == words.numel()
+    assert torch.equal(xk, xp) and torch.equal(plk, plp[:n_tok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flexible", [True, False])
+def test_fast_block_roundtrip_on_card(cuda_device, flexible):
+    p = blk.BlockParams(**dict(FAST_WIDE, lanes=72, flexible=flexible))
+    data = text(p.capacity - 7, seed=8)
+    before = dict(blk.LAUNCHES)
+    payload = tfast.encode_block_fast(data, p, cuda_device)
+    assert all(blk.LAUNCHES[k] == before[k] + 1 for k in ("K7", "K8", "K9"))
+    assert blk.LAUNCHES["K6"] == before["K6"] + int(flexible)
+    assert payload == tfast.encode_block_fast(data, p, "cpu")
+    np.testing.assert_array_equal(
+        tfast.decode_block_fast(payload, data.size, p, cuda_device), data)
+    assert blk.LAUNCHES["K10"] == before["K10"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("name", ["period7", "zeros", "text"])
+def test_fast_finder_knobs_on_card(cuda_device, monkeypatch, name, tail):
+    """K7 with a two-word extension, where the diagonal runs carry the long
+    lengths, with and without the run's last byte, and with four candidates."""
+    monkeypatch.setattr(tfast, "_EXTW", 2)
+    monkeypatch.setattr(tfast, "_F_DIAG_TAIL", tail)
+    monkeypatch.setattr(tfast, "_F_CANDS", 4)
+    p = blk.BlockParams(**FAST_WIDE)
+    n = p.capacity - 321
+    inp = torch.from_numpy(
+        _fast_inputs(name, p, n).reshape(p.lanes, p.steps)).to(cuda_device)
+    want = tfast.f2_find_plain(p, inp, n)
+    assert torch.equal(tfast.f2_find(p, inp, n), want)
+    if name != "text":
+        assert int(want[0].max()) > 8
+    kw = dict(prices=tfast._F_PRICES, n_c=4)
+    assert torch.equal(blk.parse_scan(p, n, want, **kw),
+                       blk.parse_scan_plain(p, n, want, **kw))
