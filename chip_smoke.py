@@ -10,14 +10,16 @@ no result line:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit.
-2. build: compiles the eleven kernels (``comprox_tpu_torch/csrc``) with
-   nvcc, one process per source.
+2. build: compiles the kernels (``comprox_tpu_torch/csrc``: twelve
+   sources, fifteen kernels counting the mode-X entries) with nvcc, one
+   process per source.
 3. golden: decodes the committed JAX-package archives
    (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
-   under ``crz e -l512`` with the flexible parse and with ``-f0``, and
-   under ``crf e -l512``) on the card and checks the decoded bytes'
-   SHA-256; re-encodes the 1 MiB corpus with the port under each of the
-   three and checks that each archive's SHA-256 equals the JAX package's.
+   under ``crz e -l512`` with the flexible parse and with ``-f0``, under
+   ``crf e -l512`` and under ``crx e -l512``, the 1 MiB one also with
+   ``-f0``) on the card and checks the decoded bytes' SHA-256; re-encodes
+   the 1 MiB corpus with the port under each of the five and checks that
+   each archive's SHA-256 equals the JAX package's.
    The decoded corpora are the inputs of the next phases, so every machine
    runs the same bytes.
 4. kernels, mode R: each of KS, K4, K5, K6, K2, K3, K1 against its plain
@@ -32,14 +34,22 @@ no result line:
    Beside K7's sort stage, K8's scans and K9's histogram it times the one
    PyTorch call for the same function (``torch.sort``, ``torch.cumsum``,
    ``torch.bincount``), which the port never uses.
-6. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
+6. kernels, mode X: K4x at N = 8 Mi (its sort stage beside ``torch.sort``)
+   and at T=256; K6's X entry (both launches: without and with the repeat
+   pair), K11, K12e, K3 at five slots and K12d chained at S=512, full
+   tables, T=256, each against its plain version; tolerance 0 on every
+   output grid and every table.
+7. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
+   CLI on the 8 MiB corpus; archive SHA-256 == the JAX golden, round trip
+   bit-exact; fails if K4x, K11, K6, K12e, K3 or K12d was not launched.
+8. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
    through ``comprox_tpu_torch.cli.main`` on the 8 MiB corpus, one block of
    S=512 and T=16384.  The archive's SHA-256 must equal the JAX package's
    and the round trip must be bit-exact; prints MB/s, bpb and the kernel
    times, and fails if K4, K5, K6, K2, K3 or K1 was not launched.
-7. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
+9. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
    K3 or K1 was not launched.
-8. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
+10. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
    way; fails if K7, K6, K8, K9 or K10 was not launched.  Then the host's
    share of that path, stage by stage (dictionary, block encode and decode,
    the LZ copy walk, the CRC).
@@ -64,6 +74,7 @@ WORK = ROOT / "build" / "smoke"
 MAIN_ARCHIVE = "crz_flex_8MiB_S512.cpx"  # crz e -b8 -l512
 GREEDY_ARCHIVE = "crz_f0_8MiB_S512.cpx"  # crz e -f0 -b8 -l512
 FAST_ARCHIVE = "crf_flex_8MiB_S512.cpx"  # crf e -b8 -l512
+X_ARCHIVE = "crx_flex_8MiB_S512.cpx"  # crx e -b8 -l512
 KERNEL_STEPS = 256
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, and the float32 rate outside the tensor cores, taken for the
@@ -95,6 +106,19 @@ KERNELS = [
      "comprox_tpu/codec/fast.py:446"),
     ("K10", "comprox_tpu_torch/csrc/f2dec.cu",
      "comprox_tpu/codec/fast.py:538"),
+    # mode X (crx): entries of the sources above, and K11's own
+    ("K4x", "comprox_tpu_torch/csrc/sortfind.cu",
+     "comprox_tpu/codec/block.py:809"),
+    ("K11", "comprox_tpu_torch/csrc/xrep.cu",
+     "comprox_tpu/codec/block.py:1507"),
+    ("K6 (X)", "comprox_tpu_torch/csrc/parse.cu",
+     "comprox_tpu/codec/block.py:1414"),
+    ("K12e", "comprox_tpu_torch/csrc/model.cu",
+     "comprox_tpu/codec/block.py:1677"),
+    ("K3 (5 slots)", "comprox_tpu_torch/csrc/rans.cu",
+     "comprox_tpu/codec/block.py:1945"),
+    ("K12d", "comprox_tpu_torch/csrc/decode.cu",
+     "comprox_tpu/codec/block.py:1980"),
 ]
 
 
@@ -172,7 +196,9 @@ def phase_golden():
         corpora[name] = np.frombuffer(raw, np.uint8)
     for name, flexible in (("crz_f0_1MiB_S512.cpx", False),
                            ("crz_flex_1MiB_S512.cpx", True),
-                           ("crf_flex_1MiB_S512.cpx", True)):
+                           ("crf_flex_1MiB_S512.cpx", True),
+                           ("crx_f0_1MiB_S512.cpx", False),
+                           ("crx_flex_1MiB_S512.cpx", True)):
         cp = make_params(name[:3], {"lanes": 512, "block_mb": 1,
                                     "flexible": flexible})
         buf = io.BytesIO()
@@ -568,6 +594,161 @@ def phase_kernels_fast(corpus):
     return res
 
 
+def phase_kernels_x(corpus):
+    """The mode-X kernels against their plain versions on the card.  Returns
+    the same per-kernel dicts as phase_kernels for K4x, K11, "K6 (X)" (both
+    launches together), K12e, "K3 (5 slots)" and K12d."""
+    import numpy as np
+    import torch
+
+    from comprox_tpu_torch.cli.main import make_params
+    from comprox_tpu_torch.codec import block as blk
+    from comprox_tpu_torch.models import ppm
+
+    dev = "cuda"
+    pf = make_params("crx", {"lanes": 512, "block_mb": 8}).block
+    p = blk.BlockParams(lanes=512, steps=KERNEL_STEPS, mode="X",
+                        min_len=pf.min_len, window=pf.window,
+                        rolz_ctx_bytes=pf.rolz_ctx_bytes)
+    big = n = p.capacity
+    data = corpus[:n]
+    inp = torch.from_numpy(data.reshape(p.lanes, p.steps).copy()).to(dev)
+    n_c, chain_b, _, _ = blk._finder_config(p, True)
+    prices = blk.x_prices()
+    res = {}
+
+    def tables0():
+        return ppm.init_tables(True, p.o3_bits, dev)
+
+    def k4x_ops(props, size):
+        ext = int((props[0::2].long() // 8 + 1).sum())
+        return size * (4 * 3 + chain_b * 4) + 2 * ext
+
+    # K4x at this window.  Operations: as K4 with its chain of chain_b
+    # entries (backward only).
+    ck = blk.sort_candidates(p, inp, n, content=True)
+    cp, plain_ms = _timed_plain(blk.sort_candidates_plain, p, inp, n, True)
+    err = max_err([(ck, cp)])
+    ms = _kernel_ms("K4x", lambda: (p, inp, n, True), blk.sort_candidates)
+    _record(res, "K4x", err, ms, plain_ms, _nbytes(inp, ck), k4x_ops(ck, big))
+    k4x_small = dict(res["K4x"])
+
+    # K6, X entry, first launch (three distance-priced candidates).
+    # Operations: the literal (4) and each admissible length (4), as K6.
+    kw = dict(prices=prices, n_c=n_c)
+    d1k = blk.parse_scan(p, n, ck, **kw)
+    d1p, plain1 = _timed_plain(lambda: blk.parse_scan_plain(p, n, ck, **kw))
+    err1 = max_err([(d1k, d1p)])
+    ms1 = _kernel_ms("K6", lambda: (p, n, ck), lambda *a: blk.parse_scan(*a, **kw))
+
+    # K11 on the first parse.  Operations: twelve a position (two walks).
+    # Bytes: (take, src) and the block read, (len_rep, prev) written.
+    rk = blk.rep_scan(p, inp, n, d1k)
+    rp, plain_ms = _timed_plain(blk.rep_scan_plain, p, inp, n, d1k)
+    err = max_err([(rk, rp)])
+    ms = _kernel_ms("K11", lambda: (p, inp, n, d1k), blk.rep_scan)
+    _record(res, "K11", err, ms, plain_ms, _nbytes(inp, d1k[:2], rk), 12 * big)
+
+    # K6, X entry, second launch (with the repeat pair, tried last).
+    d2k = blk.parse_scan(p, n, ck, rep=rk, **kw)
+    d2p, plain2 = _timed_plain(lambda: blk.parse_scan_plain(p, n, ck, rep=rk, **kw))
+    err2 = max_err([(d2k, d2p)])
+    ms2 = _kernel_ms("K6", lambda: (p, n, ck),
+                     lambda *a: blk.parse_scan(*a, rep=rk, **kw))
+    adm = int((ck[0::2].long() - p.min_len + 1).clamp_min(0).sum())
+    adm_rep = int((rk[0].long() - p.min_len + 1).clamp_min(0).sum())
+    _record(res, "K6 (X)", max(err1, err2), ms1 + ms2, plain1 + plain2,
+            2 * _nbytes(ck, d1k[:2]) + _nbytes(rk),
+            2 * (4 * big + 4 * adm) + 4 * adm_rep)
+    print(f"K6, X entry at T={KERNEL_STEPS}: without the repeat pair {ms1:.3f} ms "
+          f"(plain {plain1:.3f}), with it {ms2:.3f} ms (plain {plain2:.3f}); "
+          f"max_abs_err {err1}, {err2}")
+
+    # K12e on the second parse's decisions.  Operations: as K2.
+    dec = d2k[:2]
+    tk, tp = tables0(), tables0()
+    evk = blk.model_scan(p, inp, n, dec, tk)
+    evp, plain_ms = _timed_plain(blk.model_scan_plain, p, inp, n, dec, tp)
+    err = max_err([(evk, evp)] + _tables_pairs(tk, tp))
+    ms = _kernel_ms("K12e", lambda: (p, inp, n, dec, tables0()), blk.model_scan)
+    t0_ = tables0()
+    tab_bytes = sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
+    _record(res, "K12e", err, ms, plain_ms, _nbytes(inp, dec, evk) + tab_bytes,
+            big * (3 * 260 + 64))
+
+    # K3 at five slots.  Operations: five events a position, 8 each.
+    sk, ek, wk = blk.rans_scan(p, evk)
+    (sp, ep, wp), plain_ms = _timed_plain(blk.rans_scan_plain, p, evk)
+    err = max_err([(sk, sp), (ek, ep), (wk, wp)])
+    ms = _kernel_ms("K3", lambda: (p, evk), blk.rans_scan)
+    _record(res, "K3 (5 slots)", err, ms, plain_ms,
+            _nbytes(evk, sk, wk) + ek.numel(), big * 5 * 8)
+
+    # K12d on the payload the kernels wrote.  Operations: as K12e.
+    payload = blk._pack_payload(sk, ek, wk)
+    n_words, st, stream = blk._unpack_payload(payload, p)
+    st_t = torch.from_numpy(st.astype(np.int64)).to(dev)
+    stream_t = torch.from_numpy(stream.astype(np.int32)).to(dev)
+    tk, tp = tables0(), tables0()
+    xk, uk, ok = blk.decode_scan(p, st_t, stream_t, n, tk)
+    (xp, up, op), plain_ms = _timed_plain(
+        blk.decode_scan_plain, p, st_t, stream_t, n, tp)
+    if uk != up:
+        raise AssertionError(f"K12d words used {uk} vs plain {up}")
+    err = max_err([(xk, xp), (ok, op)] + _tables_pairs(tk, tp))
+    blk._check_drain(xk.cpu().numpy(), uk, n_words)
+    if not np.array_equal(ok.cpu().numpy().reshape(-1), data):
+        raise AssertionError("K12d did not decode the block")
+    ms = _kernel_ms("K12d", lambda: (p, st_t, stream_t, n, tables0()),
+                    blk.decode_scan)
+    tab_bytes = sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
+    _record(res, "K12d", err, ms, plain_ms,
+            4 * n_words + _nbytes(st_t, ok) + tab_bytes, big * (3 * 260 + 64))
+
+    for name, r in res.items():
+        print(f"{name}: max_abs_err {r['max_abs_err']} (tolerance 0)  kernel "
+              f"{r['ms']:.3f} ms ({r['ms'] * 1e3 / p.steps:.1f} us/step)  "
+              f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  [mode X, S={p.lanes} T={p.steps} full tables]")
+
+    # K4x at the main path's size, its sort stage beside torch.sort.
+    nf = pf.capacity
+    inpf = torch.from_numpy(corpus[:nf].reshape(pf.lanes, pf.steps).copy()).to(dev)
+    propk = blk.sort_candidates(pf, inpf, nf, content=True)
+    propp, plain_ms = _timed_plain(blk.sort_candidates_plain, pf, inpf, nf, True)
+    err = max_err([(propk, propp)])
+    del propp
+    ms = _kernel_ms("K4x", lambda: (pf, inpf, nf, True), blk.sort_candidates)
+    bytes_pad = blk.pad_block(pf, inpf)
+    keys = blk.sort_keys_plain(pf, bytes_pad, nf, True)
+    cfg = blk.finder_cfg(pf, nf, True)
+
+    def sort_stage():
+        return blk.sort_positions(pf, bytes_pad, nf, entry="cpx_k4x_sort_launch",
+                                  cfg=cfg)
+
+    hs, ps = sort_stage()
+    hp, pp = torch.sort(keys, stable=True)
+    err = max(err, max_err([(hs, hp), (ps, pp)]))
+    del hs, ps, hp, pp
+    sort_ms = _event_ms(sort_stage)
+    lib_ms = _event_ms(lambda: torch.sort(keys, stable=True))
+    _record(res, "K4x", max(err, k4x_small["max_abs_err"]), ms, plain_ms,
+            _nbytes(inpf, propk), k4x_ops(propk, nf), library_ms=lib_ms)
+    r = res["K4x"]
+    print(f"K4x at N={nf} (S=512 T={pf.steps}): max_abs_err {err}  kernel "
+          f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}); its sort stage {sort_ms:.3f} ms, "
+          f"torch.sort(stable) of the same keys (int64) {lib_ms:.3f} ms; at "
+          f"T={KERNEL_STEPS}: kernel {k4x_small['ms']:.3f} ms, plain "
+          f"{k4x_small['plain_ms']:.3f} ms")
+    for name, r in res.items():
+        if r["max_abs_err"] != 0:
+            raise AssertionError(
+                f"{name}: kernel != plain (max err {r['max_abs_err']})")
+    return res
+
+
 def phase_full_width(corpus, codec, archive, flags, needed):
     """One path through the CLI: <codec> e [flags] -b8 -l512 and <codec> d.
     The launch counts are set to 0 just before and read just after."""
@@ -677,6 +858,10 @@ def main() -> int:
     k6f = res_f.pop("K6F")
     res.update(res_f)
     res["K6"]["max_abs_err"] = max(res["K6"]["max_abs_err"], k6f["max_abs_err"])
+    res.update(ph.run("kernels, mode X", phase_kernels_x, corpora[X_ARCHIVE]))
+    crx = ph.run(
+        "full width, crx", phase_full_width, corpora[X_ARCHIVE], "crx",
+        X_ARCHIVE, [], ("K4x", "K11", "K6", "K12e", "K3", "K12d"))
     launches = ph.run(
         "full width, crz flexible parse", phase_full_width, corpora[MAIN_ARCHIVE],
         "crz", MAIN_ARCHIVE, [], ("K4", "K5", "K6", "K2", "K3", "K1"))
@@ -689,6 +874,9 @@ def main() -> int:
         FAST_ARCHIVE, [], ("K7", "K6", "K8", "K9", "K10"))
     for name in ("K7", "K8", "K9", "K10"):
         launches[name] = fast[name]
+    for name in ("K4x", "K11", "K12e", "K12d"):
+        launches[name] = crx[name]
+    launches["K6 (X)"], launches["K3 (5 slots)"] = crx["K6"], crx["K3"]
     ph.run("crf host split", phase_fast_host_split, corpora[FAST_ARCHIVE])
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "comprox_tpu")]

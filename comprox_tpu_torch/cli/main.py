@@ -1,19 +1,22 @@
-"""Command-line frontend of the PyTorch port — the ``crz`` and ``crf`` codecs.
+"""Command-line frontend of the PyTorch port — the ``crz``, ``crf`` and ``crx``
+codecs.
 
 Counterpart of :mod:`comprox_tpu.cli.main`: the same switches, defaults
 and ``make_params``, so an archive written here is the one the JAX
 package writes for the same command line.  Supported: ``crz e|d`` (mode
-R: ROLZ + PPM + adaptive rANS) and ``crf e|d`` (mode F: the fast profile,
-LZ77 tokens + static rANS) with ``-b -l -F -p -q -m``; encode uses the
-flexible parse unless ``-f0`` asks for the greedy one.
+R: ROLZ + PPM + adaptive rANS), ``crf e|d`` (mode F: the fast profile,
+LZ77 tokens + static rANS) and ``crx e|d`` (mode X: LZ77 distances + PPM +
+adaptive rANS) with ``-b -l -F -p -q -m``; encode uses the flexible parse
+unless ``-f0`` asks for the greedy one.
 
 Not yet ported, refused with an error (the ROADMAP.md item in brackets):
-``-c`` and ``-C`` [11], ``-j`` and ``-g`` [15], the ``crx``/``crp`` codecs
-[13-14].  Nothing switches silently to another format.
+``-c`` and ``-C`` [11], ``-j`` and ``-g`` [15], the ``crp`` codec [14].
+Nothing switches silently to another format.
 
     python -m comprox_tpu_torch.cli.main crz e in out -b8 -l512
     python -m comprox_tpu_torch.cli.main crz d out in.copy
     python -m comprox_tpu_torch.cli.main crf e in out -b8 -l512
+    python -m comprox_tpu_torch.cli.main crx e in out -b8 -l512
 
 The command line runs on the first CUDA device and fails without one; the
 library call :func:`run` takes the device explicitly.
@@ -85,30 +88,30 @@ def parse_args(argv):
     return prog, args[0], args[1], args[2], opts
 
 
-_MODE = {"crz": "R", "crf": "F"}
+_MODE = {"crz": "R", "crf": "F", "crx": "X"}
 
 
 def make_params(codec_name: str, opts) -> ContainerParams:
-    """The JAX package's make_params for crz and crf: same BlockParams."""
+    """The JAX package's make_params for crz, crf and crx: same BlockParams."""
     if codec_name not in _MODE:
         raise NotImplementedError(
             f"codec {codec_name} is not yet ported to comprox_tpu_torch "
-            "(ROADMAP.md items 13-14): only crz and crf are"
+            "(ROADMAP.md item 14): only crz, crf and crx are"
         )
     mode = _MODE[codec_name]
     lanes = opts["lanes"]
     cap = int(opts["block_mb"] * 1048576)
-    if mode == "F":  # the distance code space caps a block at 16 MiB
+    if mode in ("X", "F"):  # the distance code space caps a block at 16 MiB
         cap = min(cap, 1 << 24)
     bp = BlockParams(
         lanes=lanes,
         steps=max(1, cap // lanes),
         mode=mode,
-        min_len={"R": 5, "F": 6}[mode],
+        min_len={"R": 5, "X": 6, "F": 6}[mode],
         window=opts.get("window", 250),
         top_k=max(1, min(8, round(opts.get("depth", 40) / 10))),
         flexible=opts.get("flexible", True),
-        rolz_ctx_bytes=4 if (mode == "R" and cap >= 4 * 1048576) else 3,
+        rolz_ctx_bytes=4 if (mode in ("R", "X") and cap >= 4 * 1048576) else 3,
         rolz_dec=2 if mode == "R" else 1,
         short_depth=0,
         chain_match=False,
@@ -122,7 +125,7 @@ def log(quiet, msg):
 
 
 def run(codec_name: str, argv, device) -> int:
-    """Run one ``crz e|d`` or ``crf e|d`` command line on ``device``."""
+    """Run one ``crz``, ``crf`` or ``crx`` ``e|d`` command line on ``device``."""
     import torch
 
     prog, mode, inp, outp, opts = parse_args([codec_name] + list(argv))

@@ -1,9 +1,10 @@
-"""Block codec, mode R: S lock-step lanes over one block — ROLZ + PPM + rANS.
-(Mode F, the static-table fast profile, is :mod:`comprox_tpu_torch.codec.fast`;
-it shares this module's parameters, launch accounting and price DP.)
+"""Block codec, modes R and X: S lock-step lanes over one block — ROLZ or
+LZ77 matches + PPM + rANS.  (Mode F, the static-table fast profile, is
+:mod:`comprox_tpu_torch.codec.fast`; it shares this module's parameters,
+launch accounting and price DP.)
 
-Counterpart of :mod:`comprox_tpu.codec.block` (mode R, ``short_depth=0``,
-unchained): a block of n bytes is cut into S contiguous lanes of T steps,
+Counterpart of :mod:`comprox_tpu.codec.block` (modes R and X,
+``short_depth=0``, unchained, the sort finders): a block of n bytes is cut into S contiguous lanes of T steps,
 ``position(lane, step) = lane * T + step``, and all lanes advance one byte
 per step through shared model and bucket tables.  The payload layout, the
 table evolution and every intermediate grid are the JAX package's.
@@ -17,7 +18,21 @@ candidates).  The greedy parse (``-f0``) runs the search scan (KS: one
 ROLZ candidate per position) and ``_greedy_decisions`` (two elementwise
 ops).  Either way the modeling scan (K2) turns the decisions into
 normalised rANS events and the backward rANS scan (K3) emits the words.
-Decode is one scan (K1).  Each pass has a plain PyTorch version and a
+Decode is one scan (K1).
+
+Mode X (the ``crx`` codec) codes a match as a distance: bucket
+floor(log2(dist)) or "the previous distance again" in slot B, the length in
+slot C and the distance's mantissa bits in two more slots D and E, five
+rANS events a step.  Its flexible parse runs the sort finder keyed by the
+position's own next six bytes (K4x: three causal earlier occurrences), the
+price DP with distance prices (K6, X entry), the repeat-distance pass (K11:
+the distance each lane would hold at each position under that parse, and
+the match length at that distance) and the DP again with the repeat
+candidate; ``-f0`` takes the longest candidate greedily.  The modeling scan
+(K12e), the rANS scan (K3 at five slots) and the decode scan (K12d, which
+keeps no match table) follow.
+
+Each pass has a plain PyTorch version and a
 CUDA kernel; the wrapper picks the plain version for a CPU tensor and the
 kernel for a CUDA tensor, and raises for anything else.  There is no
 fallback between the two.
@@ -41,7 +56,6 @@ _i32 = torch.int32
 _i64 = torch.int64
 MASK32 = rans.MASK32
 _PACK_TAIL = 66  # zero words after the block (block.py::_pack_words)
-N_SLOTS = 3  # events per step and lane: A, B, C
 
 
 @dataclass(frozen=True)
@@ -129,9 +143,13 @@ class BlockParams:
 # implement: any value but the default raises (read at import, like JAX).
 _ENV_DEFAULTS = {
     "CPX_R_FINDER": "sort",
+    "CPX_X_FINDER": "sort",
     "CPX_SHORT_EXTRA": "2",
     "CPX_STREAM_READ": "auto",
     "CPX_DEBUG_EVT": "",
+}
+_ENV_ITEMS = {  # where the other value of a knob is queued
+    "CPX_X_FINDER": ": the per-step X search is ROADMAP.md item 16",
 }
 _ENV = {k: _os.environ.get(k, v) for k, v in _ENV_DEFAULTS.items()}
 
@@ -144,9 +162,26 @@ _SORT_EXT = int(_os.environ.get("CPX_SORT_EXT", "250"))  # word extension, bytes
 _P_LIT_R = int(_os.environ.get("CPX_PARSE_LIT_R", "14"))
 _P_RM = int(_os.environ.get("CPX_PARSE_RM", "50"))
 _P_RI = int(_os.environ.get("CPX_PARSE_RI", "6"))
+# mode X: literal, match, per distance bucket, repeat-distance match
+_P_LIT_X = int(_os.environ.get("CPX_PARSE_LIT_X", "10"))
+_P_XM = int(_os.environ.get("CPX_PARSE_XM", "65"))
+_P_XK = int(_os.environ.get("CPX_PARSE_XK", "6"))
+_P_XREP = int(_os.environ.get("CPX_PARSE_XREP", "45"))
+SYM_DST_REPEAT = 24  # slot-B symbol "the previous distance again"
 _P_INF = 1 << 22  # cost-to-go ceiling of the price DP (key packing: * 256)
 _INSERT_LATE = 3  # a bucket entry for position q is inserted at step q + 3
 MAX_CANDS = 7  # proposals the kernels keep per position (plus the bucket's)
+
+
+def x_finder_knobs() -> tuple:
+    """Mode X's finder knobs ``(candidates, probed chain entries)``, read at
+    call time like the JAX package's (CPX_X_CANDS, CPX_X_PROBE)."""
+    return (int(_os.environ.get("CPX_X_CANDS", "3")),
+            int(_os.environ.get("CPX_X_PROBE", "16")))
+
+
+def x_prices() -> tuple:
+    return (_P_LIT_X, _P_XM, _P_XK, _P_XREP)
 
 
 def check_supported(p: BlockParams) -> None:
@@ -156,13 +191,39 @@ def check_supported(p: BlockParams) -> None:
         if _ENV[k] != default:
             raise NotImplementedError(
                 f"{k}={_ENV[k]!r} is not ported to comprox_tpu_torch "
-                f"(only the default {default!r})"
+                f"(only the default {default!r})" + _ENV_ITEMS.get(k, "")
             )
-    if p.mode not in ("R", "F"):
+    if p.mode not in ("R", "F", "X"):
         raise NotImplementedError(
             f"mode {p.mode!r} is not yet ported to comprox_tpu_torch "
-            "(ROADMAP.md items 13-14); only modes R (crz) and F (crf) are"
+            "(ROADMAP.md item 14); only modes R (crz), F (crf) and X (crx) are"
         )
+    if p.mode == "X":
+        if ppm.SSE_X != 1:
+            raise NotImplementedError(
+                f"CPX_SSE_X={ppm.SSE_X} is not ported to comprox_tpu_torch "
+                "(mode X codes with its hit APM on); see ROADMAP.md item 17"
+            )
+        if _os.environ.get("CPX_X_CTXCAND", "0") == "1":
+            raise NotImplementedError(
+                "CPX_X_CTXCAND=1 (context-keyed candidates in mode X) is not "
+                "ported (ROADMAP.md item 17)"
+            )
+        n_c, probe = x_finder_knobs()
+        if not 1 <= n_c <= MAX_CANDS:
+            raise NotImplementedError(
+                f"CPX_X_CANDS={n_c}: the port keeps 1..{MAX_CANDS} candidates"
+            )
+        if not 0 <= probe <= 64:
+            raise NotImplementedError(
+                f"CPX_X_PROBE={probe}: the port probes 0..64 chain entries"
+            )
+        if min(_P_LIT_X, _P_XM, _P_XK, _P_XREP) < 0 or max(
+                _P_LIT_X, _P_XM + 24 * _P_XK, _P_XREP) >= 1 << 20:
+            raise NotImplementedError(
+                "CPX_PARSE_LIT_X/XM/XK/XREP must be non-negative prices "
+                "below 2^20"
+            )
     if p.short_depth:
         raise NotImplementedError(
             "short_depth > 0 is not ported (ROADMAP.md item 17)"
@@ -245,6 +306,11 @@ def _fill_bucket(fill):
     return torch.div(fill - 1, 16, rounding_mode="floor").clamp(0, 3)
 
 
+def _len_cap(p: BlockParams) -> int:
+    """The longest match the format codes: the window, or the length model."""
+    return min(p.window, p.min_len + ppm.LEN_W - 1)
+
+
 def _recency_ranks(cand_pos):
     """[S, D] bucket positions -> recency rank of every slot (how many
     entries are newer; equal positions order by slot id)."""
@@ -282,8 +348,11 @@ def _init_rolz(p: BlockParams, device):
 
 def _init_carry(p: BlockParams, device):
     z = torch.zeros(p.lanes, dtype=_i64, device=device)
-    return {"ctx4": z, "ctx4b": z.clone(), "copy_rem": z.clone(),
-            "copy_src": z.clone()}
+    c = {"ctx4": z, "ctx4b": z.clone(), "copy_rem": z.clone(),
+         "copy_src": z.clone()}
+    if p.mode == "X":
+        c["prev_dist"] = torch.ones_like(z)
+    return c
 
 
 def _common_reads(c, t, n, p: BlockParams, tables):
@@ -324,9 +393,10 @@ def _bucket_insert(rolz, p: BlockParams, rctx, ins, pos, nx4):
 
 
 def _post_step(c, t, p: BlockParams, pos, active, byte, is_match, src,
-               sym_len, rolz=None):
-    """End-of-step state: copy state, context registers and, where the
-    caller keeps the bucket table, the insert of position pos-3."""
+               sym_len, rolz=None, dist=None):
+    """End-of-step state: copy state, context registers, mode X's previous
+    distance (``dist`` given) and, where the caller keeps the bucket table,
+    the insert of position pos-3."""
     ctx4, ctx4b = c["ctx4"], c["ctx4b"]
     c["copy_rem"] = torch.where(
         is_match, sym_len + (p.min_len - 1), (c["copy_rem"] - 1).clamp_min(0)
@@ -335,6 +405,8 @@ def _post_step(c, t, p: BlockParams, pos, active, byte, is_match, src,
     ctx4n = torch.where(active, ((ctx4 << 8) | byte.to(_i64)) & MASK32, ctx4)
     ctx4bn = torch.where(active, ((ctx4b << 8) | (ctx4 >> 24)) & MASK32, ctx4b)
     c["ctx4"], c["ctx4b"] = ctx4n, ctx4bn
+    if dist is not None:
+        c["prev_dist"] = torch.where(is_match, dist, c["prev_dist"])
     if rolz is not None:
         ins = active & (t >= (7 if p.rolz_ctx_bytes == 4 else 6))
         if p.rolz_dec > 1:
@@ -425,7 +497,7 @@ def _rolz_best_match(c, rolz, pos, t, n, p: BlockParams, inp_w32, cur_win):
     length = torch.where(length >= p.probe, full, length)
     cap = torch.minimum(
         torch.clamp(n - pos, max=p.steps - t),
-        torch.tensor(min(p.window, p.min_len + ppm.LEN_W - 1), device=pos.device),
+        torch.tensor(_len_cap(p), device=pos.device),
     )
     return torch.minimum(length, cap).to(_i32), src, sym_idx, fill
 
@@ -542,13 +614,20 @@ def pad_block(p: BlockParams, inp, ext=None):
                       inp.new_zeros(pad_block_len(p, ext) - p.capacity)])
 
 
-def sort_keys_plain(p: BlockParams, bytes_pad, n: int):
+def sort_keys_plain(p: BlockParams, bytes_pad, n: int, content: bool = False):
     """The finder's key of every position: the Knuth hash (mod 2^32) of the
     rolz_ctx_bytes bytes before it; 0xFFFFFFFF where there is no such
-    context or the position is past n.  int64 [N] in [0, 2^32)."""
+    context or the position is past n.  ``content`` (mode X) keys a
+    position by its own next six bytes instead (the two-multiplier hash of
+    the fast profile's finder).  int64 [N] in [0, 2^32)."""
     big, cb = p.capacity, p.rolz_ctx_bytes
-    b = bytes_pad[: big + 3].to(_i64)
+    b = bytes_pad[: big + 6].to(_i64)
     w = b[:big] | (b[1 : big + 1] << 8) | (b[2 : big + 2] << 16) | (b[3 : big + 3] << 24)
+    if content:
+        w45 = b[4 : big + 4] | (b[5 : big + 5] << 8)
+        h = _mul32(w, 0x9E3779B1) ^ _mul32(w45, 0x85EBCA77)
+        idx = torch.arange(big, device=bytes_pad.device)
+        return torch.where(idx < n, h, MASK32)
     wp = torch.cat([w.new_zeros(cb), w[: big - cb]])
     if cb == 3:
         wp = wp & 0xFFFFFF
@@ -556,30 +635,42 @@ def sort_keys_plain(p: BlockParams, bytes_pad, n: int):
     return torch.where((idx >= cb) & (idx < n), _mul32(wp, 2654435761), MASK32)
 
 
-def sort_candidates_plain(p: BlockParams, inp, n: int):
+def _finder_config(p: BlockParams, content: bool) -> tuple:
+    """``(n_cands, chain entries earlier in sort order, later in sort
+    order, insert decimation)`` of the sort finder: mode R's
+    configuration, or (``content``) mode X's."""
+    if content:
+        n_c, probe = x_finder_knobs()
+        return n_c, max(probe, n_c), 0, 1
+    return _R_CANDS, max(_R_PROBE, _R_CANDS), _R_PROBE, p.rolz_dec
+
+
+def sort_candidates_plain(p: BlockParams, inp, n: int, content: bool = False):
     """Plain K4: ``[2 * n_cands, T, S]`` int32 grids (len_0, src_0, len_1,
     ...) — for every position the n_cands best of the 2 * probe nearest
     positions in (key, position) sort order with the same preceding
     context, each with its match length (block.py::sort_candidates, the R
     configuration: keyed by the context bytes, decode-causal, decimated
-    like the bucket inserts)."""
+    like the bucket inserts).  ``content`` is the X configuration (K4x):
+    keyed by the position's own six bytes, the chain runs backward only
+    and every position counts as inserted; a chain no longer than n_cands
+    is taken whole, in chain order."""
     dev = inp.device
     big, steps = p.capacity, p.steps
-    n_c, dec = _R_CANDS, p.rolz_dec
-    chain_b = max(_R_PROBE, n_c)
-    chain = chain_b + _R_PROBE
+    n_c, chain_b, fwd, dec = _finder_config(p, content)
+    chain = chain_b + fwd
     ext = sort_ext(p)
     bi = pad_block(p, inp).to(_i64)
     nw = big + ext + 12
     w_all = bi[:nw] | (bi[1 : nw + 1] << 8) | (bi[2 : nw + 2] << 16) | (bi[3 : nw + 3] << 24)
     idx = torch.arange(big, device=dev)
-    h = sort_keys_plain(p, bi, n)
+    h = sort_keys_plain(p, bi, n, content)
     hs, ps = torch.sort(h, stable=True)
     rows = torch.full((big, chain), -1, dtype=_i64, device=dev)
     for k in range(1, chain_b + 1):  # earlier in sort order
         same = hs[k:] == hs[:-k]
         rows[ps[k:], k - 1] = torch.where(same, ps[:-k], -1)
-    for k in range(1, _R_PROBE + 1):  # later in sort order
+    for k in range(1, fwd + 1):  # later in sort order
         same = hs[:-k] == hs[k:]
         rows[ps[:-k], chain_b + k - 1] = torch.where(same, ps[k:], -1)
     t_of = idx % steps
@@ -603,7 +694,7 @@ def sort_candidates_plain(p: BlockParams, inp, n: int):
         top = torch.topk(score, n_c, dim=1).indices  # scores are distinct
         rows = torch.gather(rows, 1, top)
     cap = torch.minimum(steps - t_of, n - idx).clamp(
-        max=min(p.window, p.min_len + ppm.LEN_W - 1)).clamp_min(0)
+        max=_len_cap(p)).clamp_min(0)
     out = []
     for k in range(n_c):
         cand = rows[:, k]
@@ -642,7 +733,7 @@ def rank_scan_plain(p: BlockParams, inp, n: int, props, rolz):
     inp_w32 = _pack_words(inp.reshape(-1))
     out = torch.empty((3 * (n_c + 1) + 1, p.steps, p.lanes), dtype=_i32,
                       device=dev)
-    len_cap = min(p.window, p.min_len + ppm.LEN_W - 1)
+    len_cap = _len_cap(p)
     d = p.rolz_depth
     for t in range(p.steps):
         pos = torch.arange(p.lanes, device=dev) * p.steps + t
@@ -677,6 +768,49 @@ def rank_scan_plain(p: BlockParams, inp, n: int, props, rolz):
 
 
 # --------------------------------------------------------------------------
+# K11: the repeat-distance pass (flexible parse, mode X)
+# --------------------------------------------------------------------------
+
+
+def rep_scan_plain(p: BlockParams, inp, n: int, dec):
+    """Plain K11: ``[2, T, S]`` int32 grids (len_rep, prev).  ``prev`` is the
+    distance each lane would hold BEFORE each position when the modeling
+    scan executes the decisions ``dec`` (take, src): decisions inside a
+    running copy are skipped (block.py::_sim_prev_dist).  ``len_rep`` is
+    the length of the match at that distance: the run of positions whose
+    byte equals the byte ``prev`` back, whose source lies at an earlier
+    step of its lane and whose expected ``prev`` stays the same, capped
+    (block.py::_rep_lengths)."""
+    dev = inp.device
+    steps, lanes = p.steps, p.lanes
+    take, src = dec[0].to(_i64), dec[1].to(_i64)
+    base = torch.arange(lanes, device=dev) * steps
+    out = torch.empty((2, steps, lanes), dtype=_i32, device=dev)
+    rem = torch.zeros(lanes, dtype=_i64, device=dev)
+    prev = torch.ones(lanes, dtype=_i64, device=dev)
+    for t in range(steps):
+        out[1, t] = prev
+        start = (rem == 0) & (take[t] > 0)
+        prev = torch.where(start, (base + t - src[t]).clamp_min(1), prev)
+        rem = torch.where(rem > 0, rem - 1, torch.where(start, take[t] - 1, 0))
+    flat = inp.reshape(-1).to(_i64)
+    rl = torch.zeros(lanes, dtype=_i64, device=dev)
+    prev_next = torch.ones(lanes, dtype=_i64, device=dev)
+    for t in range(steps - 1, -1, -1):
+        pos = base + t
+        prev_t = out[1, t].to(_i64)
+        src_rep = pos - prev_t
+        back = flat[src_rep.clamp(0, flat.shape[0] - 1)]
+        eq = ((flat[pos] == back) & (src_rep >= 0)
+              & (src_rep % steps < t) & (pos < n))
+        rl = torch.where(eq, 1 + torch.where(prev_next == prev_t, rl, 0), 0)
+        prev_next = prev_t
+        cap = torch.clamp(n - pos, max=min(steps - t, _len_cap(p))).clamp_min(0)
+        out[0, t] = torch.minimum(rl, cap)
+    return out
+
+
+# --------------------------------------------------------------------------
 # K6: the backward price DP (flexible parse)
 # --------------------------------------------------------------------------
 
@@ -693,7 +827,8 @@ def _cand_min_cost(p: BlockParams, cw, length, price):
     return best // 256, 256 - best % 256
 
 
-def parse_scan_plain(p: BlockParams, n: int, cands, prices=None, n_c=None):
+def parse_scan_plain(p: BlockParams, n: int, cands, prices=None, n_c=None,
+                     rep=None):
     """Plain K6: per lane, backward over the steps, the cheaper of a literal
     and any admissible truncation of a candidate, priced against the
     cost-to-go of the next ``window`` steps (block.py::_parse_body under the
@@ -706,11 +841,19 @@ def parse_scan_plain(p: BlockParams, n: int, cands, prices=None, n_c=None):
     Mode F (``prices`` = (literal, match, per distance bucket), ``n_c``
     candidates): ``cands`` is the fast finder's ``[2 * n_c, T, S]`` (len,
     src); a match costs ``match + bucket * floor(log2(pos - src))`` ->
-    ``dec [3, T, S]`` int32 (take, src, zeros)."""
+    ``dec [3, T, S]`` int32 (take, src, zeros).
+
+    Mode X: as mode F with its own prices (literal, match, per distance
+    bucket, repeat) and, on its second run, ``rep`` = K11's ``[2, T, S]``
+    (len_rep, prev): a candidate at the distance ``prev`` costs the repeat
+    price, and the repeat candidate (len_rep, pos - prev) is tried last, so
+    that it wins a tie."""
     dev = cands.device
     fast = prices is not None
     if fast:
         per, (lit, p_m, p_k) = 2, prices[:3]
+        if rep is not None:
+            p_rep, rg = prices[3], rep.to(_i64)
     else:
         per, lit, n_c = 3, _P_LIT_R, (cands.shape[0] - 1) // 3
     cg = cands.to(_i64)
@@ -726,14 +869,23 @@ def parse_scan_plain(p: BlockParams, n: int, cands, prices=None, n_c=None):
         best_cost = lit + cw[:, 0]
         best_len = torch.zeros_like(best_cost)
         best_src, best_idx = best_len, best_len
+        tries = []
         for k in range(n_c):
             lx, sx = cg[per * k, t], cg[per * k + 1, t]
             if fast:
                 ix = torch.zeros_like(lx)
-                price = p_m + p_k * _dist_bucket((pos - sx).clamp_min(1))
+                d = (pos - sx).clamp_min(1)
+                price = p_m + p_k * _dist_bucket(d)
+                if rep is not None:
+                    price = torch.where(d == rg[1, t], p_rep, price)
             else:
                 ix = cg[3 * k + 2, t]
                 price = _P_RM + _P_RI * _rec_bucket(ix)
+            tries.append((lx, sx, ix, price))
+        if rep is not None:
+            tries.append((rg[0, t], pos - rg[1, t], torch.zeros_like(pos),
+                          torch.full_like(pos, p_rep)))
+        for lx, sx, ix, price in tries:
             cost_m, l_m = _cand_min_cost(p, cw, lx, price)
             better = (cost_m <= best_cost) & (cost_m < _P_INF)
             best_len = torch.where(better, l_m, best_len)
@@ -749,7 +901,75 @@ def parse_scan_plain(p: BlockParams, n: int, cands, prices=None, n_c=None):
 
 
 # --------------------------------------------------------------------------
-# K2: the modeling scan
+# Mode X: the distance mantissa (slots D and E).  For buckets k in [5, 16]
+# slot D codes the top 4 mantissa bits through the adaptive [16, 16] table
+# ``mant`` (row k - 5) and slot E the other k - 4 bits uniformly; the other
+# buckets split their k bits uniformly into a high part (k - 12 bits, k > 16
+# only) and a low part.  A uniform b-bit value v is the event
+# (v << (15 - b), 1 << (15 - b)).
+# --------------------------------------------------------------------------
+
+
+def _mant_read(tables, mctx):
+    rows = tables["mant"][mctx.long()]
+    return rows, tb.exclusive_cumsum(rows), tb.row_total(rows)
+
+
+def _mant_update(tables, mctx, sym, act):
+    """Every adaptive lane adds MANT_INC to its (row, symbol), IN PLACE;
+    then each row whose sum is over MANT_CAP is halved."""
+    tab = tables["mant"]
+    m = act & (sym >= 0) & (sym < 16)
+    flat = (mctx * 16 + sym)[m].long()
+    tab.view(-1).index_add_(
+        0, flat, torch.full(flat.shape, ppm.MANT_INC, dtype=_i32,
+                            device=tab.device))
+    need = tab.sum(dim=1, keepdim=True, dtype=_i32) > ppm.MANT_CAP
+    tab.copy_(torch.where(need, (tab + 1) >> 1, tab))
+
+
+def _mant_split(k_dist, has_extra):
+    """``(adaptive, mctx, b_hi, b_lo, b_e)`` of a distance bucket: both
+    sides derive the D/E layout from the bucket alone."""
+    adaptive = has_extra & (k_dist >= 5) & (k_dist <= 16)
+    mctx = (k_dist - 5).clamp(0, 11)
+    b_hi = torch.where(k_dist > 16, k_dist - 12, 0)
+    b_lo = k_dist.clamp_max(12)
+    b_e = torch.where(adaptive, k_dist - 4, b_lo)
+    return adaptive, mctx, b_hi, b_lo, b_e
+
+
+def _mant_events_enc(tables, dist, k_dist, has_extra):
+    """Encode side: ``(cd, fd, act_d, ce, fe, act_e)`` and the table update
+    (block.py::_mant_events_enc)."""
+    one = torch.ones_like(dist)
+    e = dist - (one << k_dist)
+    adaptive, mctx, b_hi, b_lo, b_e = _mant_split(k_dist, has_extra)
+    top4 = (e >> (k_dist - 4).clamp_min(0)) & 15
+    rows, cums, tot = _mant_read(tables, mctx)
+    cm_raw, fm_raw = tb.cum_frq_of(rows, cums, top4)
+    cm, fm = rans.norm_cf(cm_raw, fm_raw.clamp_min(1), tot.clamp_min(1))
+    fd_u = one << (15 - b_hi)
+    act_d = has_extra & (adaptive | (b_hi > 0))
+    cd = torch.where(adaptive, cm, (e >> b_lo) * fd_u)
+    fd = torch.where(adaptive, fm, fd_u)
+    cd, fd = rans.select_cf(act_d, cd, fd)
+    act_e = has_extra & (b_e > 0)
+    fe = one << (15 - b_e)
+    ce, fe = rans.select_cf(act_e, (e & ((one << b_e) - 1)) * fe, fe)
+    _mant_update(tables, mctx, top4, adaptive)
+    return cd & 0xFFFF, fd & 0xFFFF, act_d, ce & 0xFFFF, fe & 0xFFFF, act_e
+
+
+def _sse_hitx(p: BlockParams, conf, p1):
+    """Mode X's hit-only APM: (table key, contexts), else None."""
+    if p.mode == "X" and ppm.SSE_X:
+        return ("sse_x", ppm.sse_x_ctx_of(conf, p1))
+    return None
+
+
+# --------------------------------------------------------------------------
+# K2 / K12e: the modeling scan
 # --------------------------------------------------------------------------
 
 
@@ -758,11 +978,18 @@ def _model_step(p: BlockParams, inp, n, c, tables, t, dec_t):
      pred2, conf2, raw) = _common_reads(c, t, n, p, tables)
     valid2 = conf2 > 0
     byte = inp[:, t].to(_i64)
-    length, src, sym_idx, fill = (g.to(_i64) for g in dec_t)
+    x_mode = p.mode == "X"
+    if x_mode:
+        length, src = dec_t[0].to(_i64), dec_t[1].to(_i64)
+        sym_idx = fill = torch.zeros_like(length)
+    else:
+        length, src, sym_idx, fill = (g.to(_i64) for g in dec_t)
     do_match = coding & (length > 0)
+    sse_hitx = _sse_hitx(p, conf, p1)
     rows2, rowmod, cums_a, tot_a, o2_hd, sse_st = ppm.read_o2(
         tables, ctx2, pred, coding, conf,
-        sse_fill=fill if p.match else None,
+        sse_fill=fill if (p.match and not x_mode) else None,
+        sse_hitx=sse_hitx,
     )
     f_byte = torch.gather(rowmod, 1, byte[:, None])[:, 0]
     sym_a = torch.where(
@@ -780,10 +1007,21 @@ def _model_step(p: BlockParams, inp, n, c, tables, t, dec_t):
         tables, p1, rows2, pred, pred2, valid2
     )
     c1_raw, f1_raw = tb.cum_frq_of(wmod, cums1, byte)
-    idx_ctx = _fill_bucket(fill)
-    len_ctx = _rec_bucket(sym_idx)
-    rows_i, cums_i, tot_i = ppm.read_idx(tables, is_match, idx_ctx)
-    ci_raw, fi_raw = tb.cum_frq_of(rows_i, cums_i, sym_idx)
+    if x_mode:
+        # B of a match lane: the distance bucket, or "the previous distance"
+        dist = torch.where(do_match, (pos - src).clamp_min(1), 1)
+        k_dist = _dist_bucket(dist)
+        idx_ctx = torch.zeros_like(k_dist)
+        len_ctx = torch.div(k_dist, 6, rounding_mode="floor").clamp(0, 3)
+        repeat = is_match & (dist == c["prev_dist"])
+        sym_dst = torch.where(repeat, SYM_DST_REPEAT, k_dist)
+        rows_i, cums_i, tot_i = ppm.read_dst(tables, is_match)
+        ci_raw, fi_raw = tb.cum_frq_of(rows_i, cums_i, sym_dst)
+    else:
+        idx_ctx = _fill_bucket(fill)
+        len_ctx = _rec_bucket(sym_idx)
+        rows_i, cums_i, tot_i = ppm.read_idx(tables, is_match, idx_ctx)
+        ci_raw, fi_raw = tb.cum_frq_of(rows_i, cums_i, sym_idx)
     cb_raw = torch.where(is_esc, c1_raw, ci_raw)
     fb_raw = torch.where(is_esc, f1_raw, fi_raw)
     tot_b = torch.where(is_esc, tot1, tot_i)
@@ -800,22 +1038,34 @@ def _model_step(p: BlockParams, inp, n, c, tables, t, dec_t):
     ppm.apply_updates(
         tables, coding, ctx2, sym_a, byte, f_byte, p1, h3, pred, conf,
         sym_len, sym_idx, o2_hd, len_ctx, idx_ctx, raw,
+        sym_dst=sym_dst if x_mode else None,
     )
-    if sse_st is not None:
-        ppm.sse_update(tables, sse_st, coding, is_match,
-                       coding & (sym_a == ppm.SYM_HIT))
-    # K2 reads idx and fill from the search pass, never the bucket table,
-    # so it keeps no table and does no insert (the bytes are the same)
-    _post_step(c, t, p, pos, active, byte, is_match, src, sym_len)
-    return torch.stack([ca, fa, coding.to(_i64), cb, fb, act_b.to(_i64),
-                        cc, fc, is_match.to(_i64)]).to(_i32)
+    is_hit = coding & (sym_a == ppm.SYM_HIT)
+    if sse_hitx is not None:
+        ppm.sse_update_hit(tables, sse_hitx[0], sse_st, coding, is_hit)
+    elif sse_st is not None:
+        ppm.sse_update(tables, sse_st, coding, is_match, is_hit)
+    out = [ca, fa, coding.to(_i64), cb, fb, act_b.to(_i64),
+           cc, fc, is_match.to(_i64)]
+    if x_mode:
+        # D/E read the step-start mantissa table (no update above touches it)
+        cd, fd, act_d, ce, fe, act_e = _mant_events_enc(
+            tables, dist, k_dist, is_match & ~repeat)
+        out += [cd, fd, act_d.to(_i64), ce, fe, act_e.to(_i64)]
+    # the modeling scan reads its decisions from the parse, never a match
+    # table, so it keeps none and does no insert (the bytes are the same)
+    _post_step(c, t, p, pos, active, byte, is_match, src, sym_len,
+               dist=dist if x_mode else None)
+    return torch.stack(out).to(_i32)
 
 
 def model_scan_plain(p: BlockParams, inp, n: int, dec, tables):
-    """Plain K2: ``ev [T, 9, S]`` int32 — (c, f, active) for slots A, B, C;
-    ``tables`` evolve IN PLACE (block.py::_encode_model_body, R branch)."""
+    """Plain K2 / K12e: ``ev [T, 3 * n_slots, S]`` int32 — (c, f, active) for
+    slots A, B, C (mode X: and D, E); ``tables`` evolve IN PLACE
+    (block.py::_encode_model_body, R and X branches)."""
     c = _init_carry(p, inp.device)
-    ev = torch.empty((p.steps, 9, p.lanes), dtype=_i32, device=inp.device)
+    ev = torch.empty((p.steps, 3 * p.n_slots, p.lanes), dtype=_i32,
+                     device=inp.device)
     for t in range(p.steps):
         ev[t] = _model_step(p, inp, n, c, tables, t, dec[:, t])
     return ev
@@ -827,14 +1077,16 @@ def model_scan_plain(p: BlockParams, inp, n: int, dec, tables):
 
 
 def rans_scan_plain(p: BlockParams, ev):
-    """Plain K3: ``(states [S] int64, emit [T, 3, S] bool, words [T, 3, S]
-    int32)`` (the rans_body scan of block.py::_encode_passes)."""
-    steps, _, s = ev.shape
+    """Plain K3: ``(states [S] int64, emit [T, n_slots, S] bool, words
+    [T, n_slots, S] int32)``, the slots of a step from the last to the first
+    (the rans_body scan of block.py::_encode_passes)."""
+    steps, rows, s = ev.shape
+    n_slots = rows // 3
     x = rans.init_states(s, ev.device)
-    emit = torch.empty((steps, N_SLOTS, s), dtype=torch.bool, device=ev.device)
-    words = torch.empty((steps, N_SLOTS, s), dtype=_i32, device=ev.device)
+    emit = torch.empty((steps, n_slots, s), dtype=torch.bool, device=ev.device)
+    words = torch.empty((steps, n_slots, s), dtype=_i32, device=ev.device)
     for t in range(steps - 1, -1, -1):
-        for si in range(N_SLOTS - 1, -1, -1):
+        for si in range(n_slots - 1, -1, -1):
             cx = ev[t, 3 * si].to(_i64) & 0xFFFF
             fx = (ev[t, 3 * si + 1].to(_i64) & 0xFFFF).clamp_min(1)
             cv, fv = rans.select_cf(ev[t, 3 * si + 2] != 0, cx, fx)
@@ -859,11 +1111,17 @@ def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t):
         w, used = rans.stream_window_read(stream, base + off, need)
         return rans.dec_renorm(x_tmp, need, w), off + used
 
-    rolz_rows = rolz[_rolz_ctx(c, p)]
-    fill = (rolz_rows[..., 0] > 0).sum(dim=1, dtype=_i32)
+    x_mode = p.mode == "X"
+    sse_hitx = _sse_hitx(p, conf, p1)
+    if x_mode:  # distances are coded: the decoder keeps no match table
+        fill = torch.zeros_like(pos)
+    else:
+        rolz_rows = rolz[_rolz_ctx(c, p)]
+        fill = (rolz_rows[..., 0] > 0).sum(dim=1, dtype=_i32)
     rows2, rowmod, cums_a, tot_a, o2_hd, sse_st = ppm.read_o2(
         tables, ctx2, pred, coding, conf,
-        sse_fill=fill if p.match else None,
+        sse_fill=fill if (p.match and not x_mode) else None,
+        sse_hitx=sse_hitx,
     )
     tgt = rans.dec_target(rans.dec_slot(x), tot_a.clamp_min(1))
     sym_a, ca_raw, fa_raw = tb.find_symbol(rowmod, cums_a, tgt)
@@ -881,12 +1139,23 @@ def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t):
     sym1, c1_raw, f1_raw = tb.find_symbol(
         wmod, cums1, rans.dec_target(slot_b, tot1.clamp_min(1))
     )
-    idx_ctx = _fill_bucket(fill)
-    rows_i, cums_i, tot_i = ppm.read_idx(tables, is_match, idx_ctx)
-    sym_idx, ci_raw, fi_raw = tb.find_symbol(
-        rows_i, cums_i, rans.dec_target(slot_b, tot_i.clamp_min(1))
-    )
-    len_ctx = _rec_bucket(sym_idx)
+    if x_mode:
+        rows_i, cums_i, tot_i = ppm.read_dst(tables, is_match)
+        sym_dst, ci_raw, fi_raw = tb.find_symbol(
+            rows_i, cums_i, rans.dec_target(slot_b, tot_i.clamp_min(1))
+        )
+        sym_dst = sym_dst.to(_i64)
+        sym_idx = idx_ctx = torch.zeros_like(sym_dst)
+        k_pre = torch.where(sym_dst == SYM_DST_REPEAT,
+                            _dist_bucket(c["prev_dist"]), sym_dst).clamp(0, 24)
+        len_ctx = torch.div(k_pre, 6, rounding_mode="floor").clamp(0, 3)
+    else:
+        idx_ctx = _fill_bucket(fill)
+        rows_i, cums_i, tot_i = ppm.read_idx(tables, is_match, idx_ctx)
+        sym_idx, ci_raw, fi_raw = tb.find_symbol(
+            rows_i, cums_i, rans.dec_target(slot_b, tot_i.clamp_min(1))
+        )
+        len_ctx = _rec_bucket(sym_idx)
     cb_raw = torch.where(is_esc, c1_raw, ci_raw)
     fb_raw = torch.where(is_esc, f1_raw, fi_raw)
     tot_b = torch.where(is_esc, tot1, tot_i)
@@ -901,7 +1170,41 @@ def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t):
     cc, fc = rans.norm_cf(cl_raw, fl_raw.clamp_min(1), tot_l.clamp_min(1))
     x, step_off = advance(x, step_off, *rans.select_cf(is_match, cc, fc))
 
-    src = _rolz_src_of_rows(rolz_rows, sym_idx).to(_i64)
+    if x_mode:
+        # D, E: the distance's mantissa; a lane that codes no match reads
+        # nothing, whatever its (masked) bucket says
+        repeat = is_match & (sym_dst == SYM_DST_REPEAT)
+        k_dist = torch.where(repeat, 0, sym_dst).clamp(0, 24)
+        has_extra = is_match & ~repeat
+        adaptive, mctx, b_hi, b_lo, b_e = _mant_split(k_dist, has_extra)
+        rows_m, cums_m, tot_m = _mant_read(tables, mctx)
+        slot_d = rans.dec_slot(x)
+        sym_m, cm_raw, fm_raw = tb.find_symbol(
+            rows_m, cums_m, rans.dec_target(slot_d, tot_m.clamp_min(1))
+        )
+        cm, fm = rans.norm_cf(cm_raw, fm_raw.clamp_min(1), tot_m.clamp_min(1))
+        one = torch.ones_like(k_dist)
+        fd = one << (15 - b_hi)
+        act_d = has_extra & (adaptive | (b_hi > 0))
+        e_hi = torch.where(has_extra & (b_hi > 0),
+                           torch.div(slot_d, fd, rounding_mode="floor"), 0)
+        x, step_off = advance(x, step_off, *rans.select_cf(
+            act_d, torch.where(adaptive, cm, e_hi * fd),
+            torch.where(adaptive, fm, fd)))
+        act_e = has_extra & (b_e > 0)
+        fe = one << (15 - b_e)
+        e_lo = torch.where(
+            act_e, torch.div(rans.dec_slot(x), fe, rounding_mode="floor"), 0)
+        x, step_off = advance(x, step_off,
+                              *rans.select_cf(act_e, e_lo * fe, fe))
+        sym_m = torch.where(adaptive, sym_m.to(_i64), 0)
+        mant = torch.where(adaptive,
+                           (sym_m << (k_dist - 4).clamp_min(0)) + e_lo,
+                           (e_hi << b_lo) + e_lo)
+        dist = torch.where(repeat, c["prev_dist"], (one << k_dist) + mant)
+        src = pos - dist
+    else:
+        src = _rolz_src_of_rows(rolz_rows, sym_idx).to(_i64)
     out_flat = out.view(-1)
     gsrc = torch.where(is_match, src, c["copy_src"]).clamp(
         0, out_flat.shape[0] - 1
@@ -917,17 +1220,25 @@ def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t):
     ppm.apply_updates(
         tables, coding, ctx2, sym_a, byte, f_byte, p1, h3, pred, conf,
         sym_len, sym_idx, o2_hd, len_ctx, idx_ctx, raw,
+        sym_dst=sym_dst if x_mode else None,
     )
-    if sse_st is not None:
+    if x_mode:
+        _mant_update(tables, mctx, sym_m, adaptive)
+    if sse_hitx is not None:
+        ppm.sse_update_hit(tables, sse_hitx[0], sse_st, coding, is_hit)
+    elif sse_st is not None:
         ppm.sse_update(tables, sse_st, coding, is_match, is_hit)
-    _post_step(c, t, p, pos, active, byte, is_match, src, sym_len, rolz)
+    _post_step(c, t, p, pos, active, byte, is_match, src, sym_len, rolz,
+               dist=dist if x_mode else None)
     out[:, t] = torch.where(active, byte, 0).to(torch.uint8)
     return x, base + step_off
 
 
-def decode_scan_plain(p: BlockParams, states, stream, n: int, tables, rolz):
-    """Plain K1: ``(states, words_used, out [S, T] uint8)``; ``tables`` and
-    ``rolz`` evolve IN PLACE (block.py::_decode_scan/_decode_body, R)."""
+def decode_scan_plain(p: BlockParams, states, stream, n: int, tables,
+                      rolz=None):
+    """Plain K1 / K12d: ``(states, words_used, out [S, T] uint8)``;
+    ``tables`` and (mode R) ``rolz`` evolve IN PLACE; mode X takes no
+    ``rolz`` (block.py::_decode_scan/_decode_body, R and X branches)."""
     c = _init_carry(p, states.device)
     out = torch.zeros((p.lanes, p.steps), dtype=torch.uint8,
                       device=states.device)
@@ -945,7 +1256,8 @@ def decode_scan_plain(p: BlockParams, states, stream, n: int, tables, rolz):
 # Launches per kernel; each wrapper adds one where it launches its kernel,
 # and records a pair of CUDA events around the launch (device time).
 LAUNCHES = {"KS": 0, "K4": 0, "K5": 0, "K6": 0, "K2": 0, "K3": 0, "K1": 0,
-            "K7": 0, "K8": 0, "K9": 0, "K10": 0}
+            "K7": 0, "K8": 0, "K9": 0, "K10": 0,
+            "K4x": 0, "K11": 0, "K12e": 0, "K12d": 0}
 _EVENTS: dict = {k: [] for k in LAUNCHES}
 
 
@@ -978,25 +1290,29 @@ _CFG_NAMES = (
     "rolz_ctx_bytes", "rolz_dec", "top_k", "probe", "match", "use_sse",
     "inc2", "cap2", "inc1", "cap1", "len_inc", "len_cap", "idx_inc",
     "idx_cap", "stream_len", "n_cands", "r_probe", "sort_ext", "p_lit",
-    "p_rm", "p_ri", "diag_tail",
+    "p_rm", "p_ri", "diag_tail", "fwd_chain", "p_rep", "dst_inc", "dst_cap",
+    "mant_inc", "mant_cap",
 )
 _CFG_FIELDS = len(_CFG_NAMES)
 
 
 def _cfg_array(p: BlockParams, n: int, stream_len: int = 0, **finder) -> np.ndarray:
     """The kernels' configuration struct.  ``finder`` overrides the encoder
-    knobs of the last seven fields (mode F has its own candidates,
-    extension, prices and diagonal-tail rule)."""
+    knobs (mode F has its own candidates, extension, prices and
+    diagonal-tail rule, mode X its own finder configuration and prices)."""
     cfg = dict(
         S=p.lanes, T=p.steps, n=n, min_len=p.min_len, window=p.window,
         o3_bits=p.o3_bits, rolz_bits=p.rolz_bits, rolz_depth=p.rolz_depth,
         rolz_ctx_bytes=p.rolz_ctx_bytes, rolz_dec=p.rolz_dec, top_k=p.top_k,
-        probe=p.probe, match=int(p.match), use_sse=int(p.match and ppm.SSE),
+        probe=p.probe, match=int(p.match),
+        use_sse=int(ppm.SSE_X if p.mode == "X" else (p.match and ppm.SSE)),
         inc2=ppm.INC2, cap2=ppm.CAP2, inc1=ppm.INC1, cap1=ppm.CAP1,
         len_inc=ppm.LEN_INC, len_cap=ppm.LEN_CAP, idx_inc=ppm.IDX_INC,
         idx_cap=ppm.IDX_CAP, stream_len=stream_len, n_cands=_R_CANDS,
         r_probe=_R_PROBE, sort_ext=sort_ext(p), p_lit=_P_LIT_R, p_rm=_P_RM,
-        p_ri=_P_RI, diag_tail=1,
+        p_ri=_P_RI, diag_tail=1, fwd_chain=_R_PROBE, p_rep=0,
+        dst_inc=ppm.DST_INC, dst_cap=ppm.DST_CAP, mant_inc=ppm.MANT_INC,
+        mant_cap=ppm.MANT_CAP,
     )
     cfg.update(finder)
     return np.array([cfg[k] for k in _CFG_NAMES], np.int32)
@@ -1038,6 +1354,10 @@ def _expect_tables(p: BlockParams, tables):
     _expect(tables["idx"], "idx", _i32, (ppm.N_SHARED_CTX, ppm.IDX_W))
     _expect(tables["sse"], "sse", _i32, (ppm.SSE_NCTX * 33,))
     _expect(tables["sse_h"], "sse_h", _i32, (ppm.SSE_HCTX * 33,))
+    if p.mode == "X":
+        _expect(tables["dst"], "dst", _i32, (ppm.DST_W,))
+        _expect(tables["mant"], "mant", _i32, (16, 16))
+        _expect(tables["sse_x"], "sse_x", _i32, (ppm.SSE_XCTX * 33,))
 
 
 def _stream_ptr():
@@ -1052,9 +1372,11 @@ def _pos_scratch(p: BlockParams, device):
     return torch.empty((2, p.lanes, p.rolz_depth + 1), dtype=_i32, device=device)
 
 
-def _table_ptrs(tables):
-    return [tables[k].data_ptr()
-            for k in ("o2", "o1", "o3", "len", "idx", "sse", "sse_h")]
+def _table_ptrs(tables, x_mode: bool = False):
+    keys = ("o2", "o1", "o3", "len", "idx", "sse", "sse_h")
+    if x_mode:
+        keys += ("dst", "mant", "sse_x")
+    return [tables[k].data_ptr() for k in keys]
 
 
 def search_scan(p: BlockParams, inp, n: int, rolz):
@@ -1127,34 +1449,73 @@ def sort_positions(p: BlockParams, bytes_pad, n: int, keys=sort_keys_plain,
     return hs.to(_i64) & MASK32, ps.to(_i64)
 
 
-def sort_candidates(p: BlockParams, inp, n: int):
-    """K4 — the whole-block sort finder of the flexible parse.
+def finder_cfg(p: BlockParams, n: int, content: bool = False) -> np.ndarray:
+    """The sort finder's configuration struct: mode R's, or mode X's
+    (``content``: keys of the position's own bytes, no forward chain, no
+    decimation)."""
+    if not content:
+        return _cfg_array(p, n)
+    n_c, chain_b, fwd, dec = _finder_config(p, True)
+    return _cfg_array(p, n, n_cands=n_c, r_probe=chain_b, fwd_chain=fwd,
+                      rolz_dec=dec)
+
+
+def sort_candidates(p: BlockParams, inp, n: int, content: bool = False):
+    """K4 — the whole-block sort finder of the flexible parse; K4x
+    (``content``) — its content-keyed entry for mode X.
 
     Replaces comprox_tpu/codec/block.py::sort_candidates (809-936) in the
-    configuration _search_and_parse calls it with for mode R (1586-1590).
-    Kernels: csrc/sortfind.cu (key build, a radix sort of (key, position),
-    neighbour probe + select + extend, diagonal runs + cap).  ``inp``
-    [S, T] uint8 -> [2 * n_cands, T, S] int32 (len, src per proposal).
+    configuration _search_and_parse calls it with for mode R (1586-1590)
+    or for mode X (1616-1618: ``ctx_bytes=0``, ``n_cands=3``,
+    ``probe_from=16``).  Kernels: csrc/sortfind.cu (key build, a radix sort
+    of (key, position), neighbour probe + select + extend, diagonal runs +
+    cap; an entry per mode).  ``inp`` [S, T] uint8 -> [2 * n_cands, T, S]
+    int32 (len, src per proposal).
     """
     if _dispatch(inp) == "cpu":
-        return sort_candidates_plain(p, inp, n)
+        return sort_candidates_plain(p, inp, n, content)
     _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
     bytes_pad = pad_block(p, inp)
     _check_finder(p, bytes_pad)
-    big, dev, n_c = p.capacity, inp.device, _R_CANDS
+    big, dev = p.capacity, inp.device
+    n_c = _finder_config(p, content)[0]
     cand = torch.empty((n_c, big), dtype=_i32, device=dev)
     lw = torch.empty((n_c, big), dtype=_i32, device=dev)
     out = torch.empty((2 * n_c, p.steps, p.lanes), dtype=_i32, device=dev)
-    cfg = _cfg_array(p, n)
+    cfg = finder_cfg(p, n, content)
+    name = "K4x" if content else "K4"
+    tag = name.lower()
 
     def stages():
-        err, hs, ps = _sort_stage("cpx_k4_sort_launch", cfg, big, bytes_pad)
-        return err or build.lib().cpx_k4_find_launch(
+        err, hs, ps = _sort_stage(f"cpx_{tag}_sort_launch", cfg, big, bytes_pad)
+        return err or getattr(build.lib(), f"cpx_{tag}_find_launch")(
             cfg.ctypes.data, bytes_pad.data_ptr(), hs.data_ptr(),
             ps.data_ptr(), cand.data_ptr(), lw.data_ptr(), out.data_ptr(),
             _stream_ptr())
 
-    _launch("K4", stages)
+    _launch(name, stages)
+    return out
+
+
+def rep_scan(p: BlockParams, inp, n: int, dec):
+    """K11 — the repeat-distance pass of mode X's flexible parse.
+
+    Replaces comprox_tpu/codec/block.py::_sim_prev_dist (1507-1526) and
+    _rep_lengths (1529-1559).  Kernel: csrc/xrep.cu (one thread per lane:
+    a forward walk, then a backward walk).  ``inp`` [S, T] uint8, ``dec``
+    [>= 2, T, S] int32 (take, src of the first parse) -> [2, T, S] int32
+    (len_rep, prev).
+    """
+    if _dispatch(inp, dec) == "cpu":
+        return rep_scan_plain(p, inp, n, dec)
+    _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
+    _expect(dec, "dec", _i32, (dec.shape[0], p.steps, p.lanes))
+    if dec.shape[0] < 2:
+        raise ValueError("dec: expected the (take, src) grids")
+    out = torch.empty((2, p.steps, p.lanes), dtype=_i32, device=inp.device)
+    cfg = _cfg_array(p, n)
+    _launch("K11", build.lib().cpx_k11_launch, cfg.ctypes.data,
+            inp.data_ptr(), dec.data_ptr(), out.data_ptr(), _stream_ptr())
     return out
 
 
@@ -1184,7 +1545,7 @@ def rank_scan(p: BlockParams, inp, n: int, props, rolz):
     return out
 
 
-def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None):
+def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None, rep=None):
     """K6 — the backward price DP of the flexible parse.
 
     Replaces comprox_tpu/codec/block.py::_parse_body (1414-1477) with
@@ -1196,9 +1557,14 @@ def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None):
     [3 * (n_c + 1) + 1, T, S] int32 from K5 -> dec [4, T, S] int32 (take,
     src, recency index, fill).  Mode F (``prices`` and ``n_c`` given):
     ``cands`` [2 * n_c, T, S] int32 from K7 -> dec [3, T, S] (take, src, 0).
+    Mode X (the non-R branch with X's four prices; its second run with the
+    repeat pair, 1436-1455): ``cands`` from K4x and ``rep`` [2, T, S] int32
+    (len_rep, prev) from K11, or None -> dec [3, T, S].
     """
-    if _dispatch(cands) == "cpu":
-        return parse_scan_plain(p, n, cands, prices, n_c)
+    if rep is not None and len(prices) < 4:
+        raise ValueError("the repeat pair needs the repeat price")
+    if _dispatch(cands, *([] if rep is None else [rep])) == "cpu":
+        return parse_scan_plain(p, n, cands, prices, n_c, rep)
     if prices is None:
         _expect(cands, "cands", _i32, (3 * (_R_CANDS + 1) + 1, p.steps, p.lanes))
         dec = torch.empty((4, p.steps, p.lanes), dtype=_i32, device=cands.device)
@@ -1207,31 +1573,44 @@ def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None):
         _expect(cands, "cands", _i32, (2 * n_c, p.steps, p.lanes))
         dec = torch.empty((3, p.steps, p.lanes), dtype=_i32, device=cands.device)
         cfg = _cfg_array(p, n, n_cands=n_c, p_lit=prices[0], p_rm=prices[1],
-                         p_ri=prices[2])
+                         p_ri=prices[2],
+                         p_rep=prices[3] if len(prices) > 3 else 0)
         entry = build.lib().cpx_k6f_launch
+    if rep is not None:
+        _expect(rep, "rep", _i32, (2, p.steps, p.lanes))
+        _launch("K6", build.lib().cpx_k6x_launch, cfg.ctypes.data,
+                cands.data_ptr(), rep.data_ptr(), dec.data_ptr(),
+                _stream_ptr())
+        return dec
     _launch("K6", entry, cfg.ctypes.data, cands.data_ptr(), dec.data_ptr(),
             _stream_ptr())
     return dec
 
 
 def model_scan(p: BlockParams, inp, n: int, dec, tables):
-    """K2 — the forward modeling scan of encode.
+    """K2 — the forward modeling scan of encode; K12e — its mode-X entry.
 
-    Replaces comprox_tpu/codec/block.py::_encode_model_body (1677-1895, R)
-    under _encode_passes (1898-1941).  Kernel: csrc/model.cu.  ``dec``
-    [4, T, S] int32 (take, src, rec_idx, fill); ``tables`` evolve in place
-    -> ev [T, 9, S] int32.
+    Replaces comprox_tpu/codec/block.py::_encode_model_body (1677-1895, the
+    R and X branches) under _encode_passes (1898-1941).  Kernel:
+    csrc/model.cu (an entry per mode).  Mode R: ``dec`` [4, T, S] int32
+    (take, src, rec_idx, fill) -> ev [T, 9, S] int32.  Mode X: ``dec``
+    [2, T, S] int32 (take, src) -> ev [T, 15, S].  ``tables`` evolve in
+    place.
     """
     if _dispatch(inp, dec, tables["o2"]) == "cpu":
         return model_scan_plain(p, inp, n, dec, tables)
     _check_kernel_geometry(p)
+    x_mode = p.mode == "X"
     _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
-    _expect(dec, "dec", _i32, (4, p.steps, p.lanes))
+    _expect(dec, "dec", _i32, (2 if x_mode else 4, p.steps, p.lanes))
     _expect_tables(p, tables)
-    ev = torch.empty((p.steps, 9, p.lanes), dtype=_i32, device=inp.device)
+    ev = torch.empty((p.steps, 3 * p.n_slots, p.lanes), dtype=_i32,
+                     device=inp.device)
     cfg = _cfg_array(p, n)
-    _launch("K2", build.lib().cpx_k2_launch, cfg.ctypes.data,
-            inp.data_ptr(), dec.data_ptr(), *_table_ptrs(tables),
+    lib = build.lib()
+    _launch(*(("K12e", lib.cpx_k12e_launch) if x_mode
+              else ("K2", lib.cpx_k2_launch)), cfg.ctypes.data,
+            inp.data_ptr(), dec.data_ptr(), *_table_ptrs(tables, x_mode),
             ev.data_ptr(), _stream_ptr())
     return ev
 
@@ -1241,32 +1620,39 @@ def rans_scan(p: BlockParams, ev):
 
     Replaces the rans_body scan of comprox_tpu/codec/block.py::
     _encode_passes (1945-1969).  Kernel: csrc/rans.cu (one thread per
-    lane).  ev [T, 9, S] int32 -> (states [S] int64, emit [T, 3, S] bool,
-    words [T, 3, S] int32).
+    lane).  ev [T, 3 * n_slots, S] int32 (n_slots = 3, or 5 in mode X) ->
+    (states [S] int64, emit [T, n_slots, S] bool, words [T, n_slots, S]
+    int32).
     """
     if _dispatch(ev) == "cpu":
         return rans_scan_plain(p, ev)
-    _expect(ev, "ev", _i32, (p.steps, 9, p.lanes))
+    n_slots = p.n_slots
+    _expect(ev, "ev", _i32, (p.steps, 3 * n_slots, p.lanes))
     dev = ev.device
     states = torch.empty(p.lanes, dtype=_i64, device=dev)
-    emit = torch.empty((p.steps, N_SLOTS, p.lanes), dtype=torch.uint8,
+    emit = torch.empty((p.steps, n_slots, p.lanes), dtype=torch.uint8,
                        device=dev)
-    words = torch.empty((p.steps, N_SLOTS, p.lanes), dtype=_i32, device=dev)
-    _launch("K3", build.lib().cpx_k3_launch, p.lanes, p.steps,
+    words = torch.empty((p.steps, n_slots, p.lanes), dtype=_i32, device=dev)
+    _launch("K3", build.lib().cpx_k3_launch, p.lanes, p.steps, n_slots,
             ev.data_ptr(), states.data_ptr(), emit.data_ptr(),
             words.data_ptr(), _stream_ptr())
     return states, emit.bool(), words
 
 
-def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz):
-    """K1 — the fused decode scan of mode R.
+def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None):
+    """K1 — the fused decode scan of mode R; K12d — its mode-X entry.
 
     Replaces comprox_tpu/codec/block.py::_decode_scan (2218-2248) and the
-    R branch of _decode_body (1980-2215).  Kernel: csrc/decode.cu.
-    ``states`` [S] int64, ``stream`` [pad] int32 (u16 words); ``tables``
-    and ``rolz`` evolve in place -> (states, words_used, out [S, T] uint8).
+    R and X branches of _decode_body (1980-2215).  Kernel: csrc/decode.cu
+    (an entry per mode).  ``states`` [S] int64, ``stream`` [pad] int32 (u16
+    words); ``tables`` and (mode R) ``rolz`` evolve in place; mode X takes
+    no ``rolz`` -> (states, words_used, out [S, T] uint8).
     """
-    if _dispatch(states, stream, tables["o2"], rolz) == "cpu":
+    x_mode = p.mode == "X"
+    if x_mode != (rolz is None):
+        raise ValueError("mode R decodes with a bucket table, mode X without")
+    if _dispatch(states, stream, tables["o2"],
+                 *([] if x_mode else [rolz])) == "cpu":
         return decode_scan_plain(p, states, stream, n, tables, rolz)
     _check_kernel_geometry(p)
     _expect(states, "states", _i64, (p.lanes,))
@@ -1274,12 +1660,17 @@ def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz):
         raise ValueError("stream: expected a 1-D int32 tensor of >= S words")
     _expect(stream, "stream", _i32, stream.shape)
     _expect_tables(p, tables)
-    _expect(rolz, "rolz", _i32, (1 << p.rolz_bits, p.rolz_depth, 2))
     dev = states.device
     x = states.clone()
     out = torch.zeros((p.lanes, p.steps), dtype=torch.uint8, device=dev)
     used = torch.zeros(1, dtype=_i64, device=dev)
     cfg = _cfg_array(p, n, stream.shape[0])
+    if x_mode:
+        _launch("K12d", build.lib().cpx_k12d_launch, cfg.ctypes.data,
+                stream.data_ptr(), x.data_ptr(), *_table_ptrs(tables, True),
+                out.data_ptr(), used.data_ptr(), _stream_ptr())
+        return x, int(used.item()), out
+    _expect(rolz, "rolz", _i32, (1 << p.rolz_bits, p.rolz_depth, 2))
     _launch("K1", build.lib().cpx_k1_launch, cfg.ctypes.data,
             stream.data_ptr(), x.data_ptr(), *_table_ptrs(tables),
             rolz.data_ptr(), out.data_ptr(), used.data_ptr(),
@@ -1293,7 +1684,7 @@ def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz):
 
 
 def _pack_payload(states, emit, words) -> bytes:
-    emit_np = emit.cpu().numpy().astype(bool)  # [T, 3, S]: decode order
+    emit_np = emit.cpu().numpy().astype(bool)  # [T, n_slots, S]: decode order
     stream = words.cpu().numpy()[emit_np]  # C-order compaction
     header = np.array([stream.size], np.uint32)
     return (
@@ -1329,11 +1720,23 @@ def _check_drain(x, base, n_words):
 
 
 def encode_passes(p: BlockParams, inp, n: int):
-    """The parse (flexible: K4, K5, K6; greedy: KS and two elementwise
-    ops), then K2 and K3, on one [S, T] block tensor.  Returns ``(states,
-    emit, words, ev, tables)``."""
+    """The parse (mode R, flexible: K4, K5, K6; greedy: KS and two
+    elementwise ops.  Mode X, flexible: K4x, K6, K11, K6; greedy: K4x and
+    the elementwise choice), then the modeling scan and K3, on one [S, T]
+    block tensor.  Returns ``(states, emit, words, ev, tables)``."""
     dev = inp.device
-    if p.match and p.flexible:
+    if p.mode == "X":
+        dec = torch.zeros((2, p.steps, p.lanes), dtype=_i32, device=dev)
+        if p.match:
+            cands = sort_candidates(p, inp, n, content=True)
+            if p.flexible:
+                n_c = cands.shape[0] // 2
+                first = parse_scan(p, n, cands, x_prices(), n_c)
+                rep = rep_scan(p, inp, n, first)
+                dec = parse_scan(p, n, cands, x_prices(), n_c, rep)[:2]
+            else:
+                dec = torch.stack(_greedy_decisions_dist(p, cands))
+    elif p.match and p.flexible:
         props = sort_candidates(p, inp, n)
         cands = rank_scan(p, inp, n, props, _init_rolz(p, dev))
         dec = parse_scan(p, n, cands)
@@ -1372,7 +1775,7 @@ def decode_block(payload: bytes, n: int, p: BlockParams, device) -> np.ndarray:
         torch.from_numpy(stream_padded.astype(np.int32)).to(device),
         n,
         ppm.init_tables(p.match, p.o3_bits, device),
-        _init_rolz(p, device),
+        None if p.mode == "X" else _init_rolz(p, device),
     )
     _check_drain(x.cpu().numpy(), used, n_words)
     return out.cpu().numpy().reshape(-1)[:n]

@@ -1,4 +1,5 @@
-"""Container format and stream coder, unchained, codecs R (crz) and F (crf).
+"""Container format and stream coder, unchained, codecs R (crz), F (crf) and
+X (crx).
 
 Counterpart of :mod:`comprox_tpu.codec.container`: the same bytes for the
 same input (magic ``CPXTPU02``, header with CRC and the model-knob
@@ -9,7 +10,7 @@ modules (codec/dictionary.py, ops/filters.py).
 
 Not yet ported, and refused with an error instead of another format:
 chain mode (``F_CHAIN``, ``F_CHAIN_MATCH``; ROADMAP.md item 11) and the
-codecs P and X (items 13-14).
+codec P (item 14).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ class ContainerParams:
     block: BlockParams = field(default_factory=lambda: BlockParams(mode="R"))
 
 
-_CODEC_MODE = {b"R": "R", b"F": "F"}
+_CODEC_MODE = {b"R": "R", b"F": "F", b"X": "X"}
 
 
 def _codec_mode(codec: bytes) -> str:
@@ -56,7 +57,7 @@ def _codec_mode(codec: bytes) -> str:
     if codec not in _CODEC_MODE:
         raise NotImplementedError(
             f"codec {codec!r} is not yet ported to comprox_tpu_torch "
-            "(ROADMAP.md items 13-14): only R (crz) and F (crf) are"
+            "(ROADMAP.md item 14): only R (crz), F (crf) and X (crx) are"
         )
     return _CODEC_MODE[codec]
 
@@ -208,8 +209,8 @@ def decode_stream(
     device,
     progress: Optional[Callable[[int, int], None]] = None,
 ) -> int:
-    """Decode an unchained codec-R or codec-F archive on ``device``; returns
-    the raw byte count."""
+    """Decode an unchained codec-R, codec-F or codec-X archive on ``device``;
+    returns the raw byte count."""
     cp, flags = read_header(src)
     decode = _block_decoder(cp.block, device)
     wd = None

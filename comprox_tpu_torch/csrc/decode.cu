@@ -1,7 +1,8 @@
-// K1: the fused decode scan of mode R.
+// K1: the fused decode scan, with a kernel for mode R (K1) and one for mode
+// X (K12d).
 //
 // Replaces comprox_tpu/codec/block.py::_decode_scan (2218-2248) and the R
-// branch of _decode_body (1980-2215).  Per step and lane: contexts, o3 and
+// and X branches of _decode_body (1980-2215).  Mode R, per step and lane: contexts, o3 and
 // bucket-row reads; the A event (o2 + SSE, slot -> symbol, rANS advance
 // with a lane-ordered word read); B (o1 literal with exclusion, or the
 // ROLZ index); C (match length); byte resolve (literal, o3 prediction, o1
@@ -19,6 +20,18 @@
 // computes every lane and masks the result); o2 rows (the A event) and
 // bucket rows are read by whole warps (coalesced), the bucket rows into a
 // shared-memory copy per lane, where the slot selections run.
+//
+// Mode X (k12d_kernel) keeps no match table: a match lane decodes its
+// distance — B: the bucket, or symbol 24 for the lane's previous distance;
+// C: the length, under the context bucket / 6; D and E: the mantissa bits
+// (MantSplit in ppm_r.cuh), D through the adaptive [16, 16] table for
+// buckets 5..16 — and copies from pos - dist of the output.  Five
+// lane-ordered word reads a step, so five CTA-wide prefixes; the window
+// start of each is clamped as lax.dynamic_slice clamps it.  The mantissa
+// table is read as the step found it, then every adaptive lane adds to it
+// (integer atomics in shared memory) and a row over its cap is halved.  A
+// lane that codes no match runs none of the B (distance), C, D, E symbol
+// searches: whatever JAX computes there is masked before any table sees it.
 #include "ppm_r.cuh"
 
 namespace {
@@ -227,7 +240,237 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
   if (i == 0) *used = (long long)base;
 }
 
+// Feed one word to every lane whose advanced state xt fell below the rANS
+// lower bound, in lane order from the stream position base (one CTA-wide
+// exclusive prefix; contains a barrier: call by every thread).
+#define CPX_RENORM(slot)                                         \
+  {                                                              \
+    const int inw_ = cta_excl_prefix_a(need, sm.wtot[slot]);     \
+    __syncthreads();                                             \
+    int total_;                                                  \
+    const int ex_ = cta_excl_prefix_b(inw_, sm.wtot[slot], total_); \
+    if (need) x = (xt << 16) | sr.word(base, ex_);               \
+    else if (alive) x = xt;                                      \
+    base += (uint32_t)total_;                                    \
+  }
+
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict__ stream,
+                            long long* __restrict__ states, Tables tb,
+                            uint8_t* __restrict__ out,
+                            long long* __restrict__ used) {
+  __shared__ SmemModel sm;
+  const int i = threadIdx.x;
+  const bool alive = i < c.S;
+  const long long cap_n = (long long)c.S * c.T;
+  const StreamRead sr{stream, c.stream_len, c.S};
+  model_load<true>(sm, tb);
+  __syncthreads();
+  uint32_t x = alive ? (uint32_t)states[i] : RANS_L;
+  uint32_t base = 0;
+  uint32_t ctx4 = 0, ctx4b = 0;
+  int copy_rem = 0, copy_src = 0, prev_dist = 1;
+
+  for (int t = 0; t < c.T; ++t) {
+    o1_rescale(tb.o1, sm.o1sum, c.cap1);
+    __syncthreads();
+
+    // ---- A event
+    Ctx cx = common_reads(c, tb, i, t, ctx4, copy_rem, alive);
+    Upd u = {};
+    uint32_t xt = 0;
+    bool need = false;
+    const bool coding = alive && cx.coding;
+    const AEvent a = warp_a_event<true, true>(c, tb.o2, coding, cx.ctx2, cx.pred,
+                                              cx.conf, cx.p1, sm.sse, sm.sse_x, x,
+                                              0, false);
+    if (coding) {
+      u.sse = a.sse;
+      u.halvings = a.h;
+      u.sym_a = a.sym;
+      uint32_t ca, fa;
+      norm_cf(a.c, max(a.f, 1), max(a.tot, 1), ca, fa);
+      xt = dec_advance(x, ca, fa);
+      need = xt < RANS_L;
+    } else if (alive) {
+      xt = dec_advance(x, 0, RANS_M);  // the identity event
+      need = xt < RANS_L;
+    }
+    CPX_RENORM(0)
+    if (alive) {
+      u.coding = cx.coding;
+      u.is_lit = cx.coding && u.sym_a < 256;
+      u.is_hit = cx.coding && u.sym_a == SYM_HIT;
+      u.is_esc = cx.coding && u.sym_a == SYM_ESC;
+      u.is_match = cx.coding && u.sym_a == SYM_MATCH;
+      u.ctx2 = cx.ctx2; u.p1 = cx.p1; u.h3 = cx.h3; u.pred = cx.pred;
+      u.conf = cx.conf; u.raw = cx.raw;
+      if (u.is_match) sm.hot_dst = 1;
+    }
+    upd_keys(sm, i, alive, u);
+    __syncthreads();
+    dst_rescale(c, sm);
+    __syncthreads();
+
+    // ---- B event: o1 literal (escape lanes) or distance bucket (match lanes)
+    int sym1 = 0;
+    need = false;
+    const O1Event b = warp_o1_event<true>(tb.o1, tb.o2, u.is_esc, cx.p1, cx.ctx2,
+                                          a.h, cx.pred, cx.pred2, cx.conf2 > 0,
+                                          x, 0);
+    if (alive) {
+      uint32_t cb = 0, fb = RANS_M;
+      if (u.is_esc) {
+        sym1 = b.sym;
+        norm_cf(b.c, max(b.f, 1), max(b.tot, 1), cb, fb);
+      } else if (u.is_match) {
+        int cd_raw, fd_raw;
+        u.sym_dst = find_symbol(PlainRow{sm.dst}, DST_W,
+                                (int)dec_target(x, max(sm.dst_sum, 1)), cd_raw, fd_raw);
+        norm_cf(cd_raw, max(fd_raw, 1), max(sm.dst_sum, 1), cb, fb);
+        const int k_pre = clampi(
+            u.sym_dst == SYM_DST_REPEAT ? dist_bucket(prev_dist) : u.sym_dst, 0, 24);
+        u.len_ctx = min(k_pre / 6, 3);
+        sm.hot_len[u.len_ctx] = 1;
+      }
+      xt = dec_advance(x, cb, fb);
+      need = xt < RANS_L;
+    }
+    CPX_RENORM(1)
+    len_rescale(c, sm);
+    __syncthreads();
+
+    // ---- C event: match length
+    int sym_l = 0;
+    need = false;
+    if (alive) {
+      uint32_t cc = 0, fc = RANS_M;
+      if (u.is_match) {
+        int lc = clampi(u.len_ctx, 0, 3);
+        int tot_l = sm.len_sum[lc];
+        int cl_raw, fl_raw;
+        sym_l = find_symbol(PlainRow{sm.len + lc * LEN_W}, LEN_W,
+                            (int)dec_target(x, max(tot_l, 1)), cl_raw, fl_raw);
+        norm_cf(cl_raw, max(fl_raw, 1), max(tot_l, 1), cc, fc);
+      }
+      xt = dec_advance(x, cc, fc);
+      need = xt < RANS_L;
+    }
+    CPX_RENORM(2)
+
+    // ---- D event: the mantissa's top bits (adaptive or uniform)
+    const bool repeat = u.is_match && u.sym_dst == SYM_DST_REPEAT;
+    const int k_dist = clampi(repeat ? 0 : u.sym_dst, 0, 24);
+    const bool has_extra = u.is_match && !repeat;
+    const MantSplit ms = mant_split(k_dist, has_extra);
+    int sym_m = 0, e_hi = 0, e_lo = 0;
+    need = false;
+    if (alive) {
+      uint32_t cd = 0, fd = RANS_M;
+      if (ms.adaptive) {
+        const int* row = sm.mant + (k_dist - 5) * MANT_N;
+        const int tot_m = sum_prefix(PlainRow{row}, MANT_N);
+        int cm_raw, fm_raw;
+        sym_m = find_symbol(PlainRow{row}, MANT_N,
+                            (int)dec_target(x, max(tot_m, 1)), cm_raw, fm_raw);
+        norm_cf(cm_raw, max(fm_raw, 1), max(tot_m, 1), cd, fd);
+      } else if (has_extra && ms.b_hi > 0) {
+        fd = 1u << (15 - ms.b_hi);
+        e_hi = (int)((x & (RANS_M - 1)) / fd);
+        cd = (uint32_t)e_hi * fd;
+      }
+      xt = dec_advance(x, cd, fd);
+      need = xt < RANS_L;
+    }
+    CPX_RENORM(3)
+
+    // ---- E event: the mantissa's low bits (uniform)
+    need = false;
+    if (alive) {
+      uint32_t ce = 0, fe = RANS_M;
+      if (has_extra && ms.b_e > 0) {
+        fe = 1u << (15 - ms.b_e);
+        e_lo = (int)((x & (RANS_M - 1)) / fe);
+        ce = (uint32_t)e_lo * fe;
+      }
+      xt = dec_advance(x, ce, fe);
+      need = xt < RANS_L;
+    }
+    CPX_RENORM(4)
+
+    // ---- the distance; resolve the byte; prepare the updates
+    int byte = 0, src = 0, dist = 1;
+    uint32_t ctx4n = ctx4, ctx4bn = ctx4b;
+    if (alive) {
+      if (u.is_match) {
+        const int mant = ms.adaptive ? (sym_m << max(k_dist - 4, 0)) + e_lo
+                                     : (e_hi << ms.b_lo) + e_lo;
+        dist = repeat ? prev_dist : (1 << k_dist) + mant;
+        src = cx.pos - dist;
+        u.adaptive = ms.adaptive;
+        u.mant_row = clampi(k_dist - 5, 0, 11);
+        u.mant_sym = sym_m;
+      }
+      byte = u.is_lit ? u.sym_a : 0;
+      if (u.is_hit) byte = cx.pred;
+      if (u.is_esc) byte = sym1;
+      if (u.is_match || cx.copying) {
+        long long g = u.is_match ? src : copy_src;
+        byte = out[max(0LL, min(g, cap_n - 1))];
+      }
+      byte = clampi(byte, 0, 255);
+      u.byte = byte;
+      u.f_byte = u.is_lit ? a.f : 0;
+      u.sym_len = u.is_match ? sym_l : 0;
+      if (cx.active) {
+        ctx4n = (ctx4 << 8) | (uint32_t)byte;
+        ctx4bn = (ctx4b << 8) | (ctx4 >> 24);
+      }
+    }
+    __syncthreads();  // every copy has read the output before this step's write
+
+    // ---- stores, then additive updates
+    if (alive) {
+      upd_store(tb, sm, i, u);
+      out[(size_t)i * c.T + t] = (uint8_t)(cx.active ? byte : 0);
+    }
+    __syncthreads();
+    if (alive) {
+      upd_add<true>(c, tb, sm, u);
+      copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
+      copy_src = u.is_match ? src + 1 : copy_src + 1;
+      if (u.is_match) prev_dist = dist;
+      ctx4 = ctx4n;
+      ctx4b = ctx4bn;
+    }
+    __syncthreads();
+    upd_finish<true>(sm, c.mant_cap);
+  }
+  __syncthreads();
+  model_store<true>(sm, tb);
+  if (alive) states[i] = (long long)x;
+  if (i == 0) *used = (long long)base;
+}
+
 }  // namespace
+
+// Mode X: no bucket table; three more model tables.
+extern "C" int cpx_k12d_launch(const int* cfg, const void* stream, void* states,
+                               void* o2, void* o1, void* o3, void* len, void* idx,
+                               void* sse, void* sse_h, void* dst, void* mant,
+                               void* sse_x, void* out, void* used,
+                               void* cuda_stream) {
+  Cfg c;
+  memcpy(&c, cfg, sizeof(Cfg));
+  Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
+            (int*)sse_h, (int*)dst, (int*)mant, (int*)sse_x};
+  int threads = (c.S + 31) / 32 * 32;
+  auto kernel = threads <= 512 ? k12d_kernel<512> : k12d_kernel<CPX_MAX_LANES>;
+  kernel<<<1, threads, 0, (cudaStream_t)cuda_stream>>>(
+      c, (const int*)stream, (long long*)states, tb, (uint8_t*)out,
+      (long long*)used);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int cpx_k1_launch(const int* cfg, const void* stream, void* states,
                              void* o2, void* o1, void* o3, void* len, void* idx,
@@ -235,7 +478,8 @@ extern "C" int cpx_k1_launch(const int* cfg, const void* stream, void* states,
                              void* used, void* gpos, void* cuda_stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse, (int*)sse_h};
+  Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
+            (int*)sse_h, nullptr, nullptr, nullptr};
   int threads = (c.S + 31) / 32 * 32;
   size_t smem = pos_smem_bytes(c);
   auto kernel = threads <= 512 ? k1_kernel<512> : k1_kernel<CPX_MAX_LANES>;

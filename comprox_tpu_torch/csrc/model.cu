@@ -1,11 +1,22 @@
-// K2: the forward modeling scan of encode.
+// K2: the forward modeling scan of encode, with an entry for mode R (K2)
+// and one for mode X (K12e).
 //
-// Replaces comprox_tpu/codec/block.py::_encode_model_body (1677-1895, mode
-// R) under the lax.scan of _encode_passes (1898-1941).  With the symbols
-// known from the parse, each step reads the A (o2 + SSE), B (o1 with
-// exclusion, or the ROLZ index) and C (match length) distributions, emits
-// the normalised (c, f, active) triple of each slot, then applies the
+// Replaces comprox_tpu/codec/block.py::_encode_model_body (1677-1895, the R
+// and X branches) under the lax.scan of _encode_passes (1898-1941).  With
+// the symbols known from the parse, each step reads the A (o2 + SSE), B (o1
+// with exclusion, or the ROLZ index) and C (match length) distributions,
+// emits the normalised (c, f, active) triple of each slot, then applies the
 // shared model updates.  Output: ev [T, 9, S] int32.
+//
+// Mode X codes a match by its distance: B is the bucket floor(log2(dist))
+// from one shared row of 32 counts, or symbol 24 where the distance is the
+// lane's previous one; C's context is the bucket / 6; two more slots D and
+// E carry the distance's mantissa bits (MantSplit in ppm_r.cuh), D through
+// the adaptive [16, 16] table for buckets 5..16; the A event has the hit
+// APM only.  D and E read the table as the step found it; every adaptive
+// lane then adds to it (integer atomics in shared memory, where JAX takes
+// one-hot products), and a row over its cap is halved after the adds.
+// Output: ev [T, 15, S].
 //
 // The R branch reads its ROLZ index and bucket fill from the search pass
 // (block.py:1704-1713), never the bucket table, so this kernel keeps no
@@ -24,18 +35,48 @@
 
 namespace {
 
-template <int MAXT>
+// Slots D and E of a mode-X match lane (block.py::_mant_events_enc): the
+// normalised events, and in u what the mantissa update needs.
+static __device__ void mant_events(const SmemModel& sm, int dist, int k_dist,
+                                   bool has_extra, Upd& u, uint32_t& cd,
+                                   uint32_t& fd, bool& act_d, uint32_t& ce,
+                                   uint32_t& fe, bool& act_e) {
+  const MantSplit m = mant_split(k_dist, has_extra);
+  const uint32_t e = (uint32_t)(dist - (1 << k_dist));
+  act_d = has_extra && (m.adaptive || m.b_hi > 0);
+  act_e = has_extra && m.b_e > 0;
+  if (m.adaptive) {
+    const int top4 = (int)(e >> max(k_dist - 4, 0)) & 15;
+    const int* row = sm.mant + (k_dist - 5) * MANT_N;
+    int cm_raw, fm_raw;
+    cum_frq_of(PlainRow{row}, MANT_N, top4, cm_raw, fm_raw);
+    norm_cf(cm_raw, max(fm_raw, 1), max(sum_prefix(PlainRow{row}, MANT_N), 1), cd, fd);
+    u.adaptive = true;
+    u.mant_row = k_dist - 5;
+    u.mant_sym = top4;
+  } else if (act_d) {
+    fd = 1u << (15 - m.b_hi);
+    cd = (e >> m.b_lo) * fd;
+  }
+  if (act_e) {
+    fe = 1u << (15 - m.b_e);
+    ce = (e & ((1u << m.b_e) - 1u)) * fe;
+  }
+}
+
+template <int MAXT, bool XMODE>
 __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restrict__ inp,
                           const int* __restrict__ dec, Tables tb,
                           int* __restrict__ ev) {
   __shared__ SmemModel sm;
   const int i = threadIdx.x;
   const bool alive = i < c.S;
-  model_load(sm, tb);
+  model_load<XMODE>(sm, tb);
   __syncthreads();
   const size_t plane = (size_t)c.T * c.S;
+  const int n_ev = XMODE ? 15 : 9;
   uint32_t ctx4 = 0, ctx4b = 0;
-  int copy_rem = 0, copy_src = 0;
+  int copy_rem = 0, copy_src = 0, prev_dist = 1;
 
   for (int t = 0; t < c.T; ++t) {
     o1_rescale(tb.o1, sm.o1sum, c.cap1);
@@ -43,29 +84,37 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
 
     Ctx x = common_reads(c, tb, i, t, ctx4, copy_rem, alive);
     Upd u = {};
-    int length = 0, src = 0, fill = 0, byte = 0;
+    int length = 0, src = 0, fill = 0, byte = 0, dist = 1, k_dist = 0;
     int c1_raw = 0, f1_raw = 0, tot1 = 0;
     uint32_t ca = 0, fa = RANS_M;
+    const bool coding = alive && x.coding;
     if (alive) {
       size_t o = (size_t)t * c.S + i;
       if (c.match) {
         length = dec[o];
         src = dec[plane + o];
-        u.sym_idx = dec[2 * plane + o];
-        fill = dec[3 * plane + o];
+        if (!XMODE) {
+          u.sym_idx = dec[2 * plane + o];
+          fill = dec[3 * plane + o];
+        }
       }
       byte = inp[(size_t)i * c.T + t];
       u.byte = byte;
       u.ctx2 = x.ctx2; u.p1 = x.p1; u.h3 = x.h3; u.pred = x.pred;
       u.conf = x.conf; u.raw = x.raw;
-      u.idx_ctx = fill_bucket(fill);
-      u.len_ctx = rec_bucket(u.sym_idx);
+      if (XMODE) {
+        if (coding && length > 0) dist = max(x.pos - src, 1);
+        k_dist = dist_bucket(dist);
+        u.len_ctx = min(k_dist / 6, 3);
+      } else {
+        u.idx_ctx = fill_bucket(fill);
+        u.len_ctx = rec_bucket(u.sym_idx);
+      }
       u.sym_len = clampi(length - c.min_len, 0, LEN_W - 1);
     }
-    const bool coding = alive && x.coding;
-    const AEvent a = warp_a_event<false>(c, tb.o2, coding, x.ctx2, x.pred, x.conf,
-                                         fill, sm.sse, sm.sse_h, 0u, byte,
-                                         length > 0);
+    const AEvent a = warp_a_event<false, XMODE>(
+        c, tb.o2, coding, x.ctx2, x.pred, x.conf, XMODE ? x.p1 : fill, sm.sse,
+        XMODE ? sm.sse_x : sm.sse_h, 0u, byte, length > 0);
     if (coding) {
       u.sse = a.sse;
       u.halvings = a.h;
@@ -79,7 +128,8 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
       u.is_esc = sym_a == SYM_ESC;
       u.is_match = sym_a == SYM_MATCH;
       if (u.is_match) {
-        sm.hot_idx[clampi(u.idx_ctx, 0, 3)] = 1;
+        if (XMODE) sm.hot_dst = 1;
+        else sm.hot_idx[clampi(u.idx_ctx, 0, 3)] = 1;
         sm.hot_len[clampi(u.len_ctx, 0, 3)] = 1;
       }
     }
@@ -95,60 +145,95 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
     upd_keys(sm, i, alive, u);
     __syncthreads();
 
-    idx_rescale(c, sm);
+    if (XMODE) dst_rescale(c, sm);
+    else idx_rescale(c, sm);
     len_rescale(c, sm);
     __syncthreads();
 
     if (alive) {
       uint32_t cb = 0, fb = RANS_M, cc = 0, fc = RANS_M;
+      uint32_t cd = 0, fd = RANS_M, ce = 0, fe = RANS_M;
+      bool act_d = false, act_e = false;
       if (u.is_esc) norm_cf(c1_raw, max(f1_raw, 1), max(tot1, 1), cb, fb);
       if (u.is_match) {
-        int ic = clampi(u.idx_ctx, 0, 3), lc = clampi(u.len_ctx, 0, 3);
+        int lc = clampi(u.len_ctx, 0, 3);
         int ci_raw, fi_raw, cl_raw, fl_raw;
-        cum_frq_of(PlainRow{sm.idx + ic * IDX_W}, IDX_W, u.sym_idx, ci_raw, fi_raw);
-        norm_cf(ci_raw, max(fi_raw, 1), max(sm.idx_sum[ic], 1), cb, fb);
+        if (XMODE) {
+          const bool repeat = dist == prev_dist;
+          u.sym_dst = repeat ? SYM_DST_REPEAT : k_dist;
+          cum_frq_of(PlainRow{sm.dst}, DST_W, u.sym_dst, ci_raw, fi_raw);
+          norm_cf(ci_raw, max(fi_raw, 1), max(sm.dst_sum, 1), cb, fb);
+          mant_events(sm, dist, k_dist, !repeat, u, cd, fd, act_d, ce, fe, act_e);
+        } else {
+          int ic = clampi(u.idx_ctx, 0, 3);
+          cum_frq_of(PlainRow{sm.idx + ic * IDX_W}, IDX_W, u.sym_idx, ci_raw, fi_raw);
+          norm_cf(ci_raw, max(fi_raw, 1), max(sm.idx_sum[ic], 1), cb, fb);
+        }
         cum_frq_of(PlainRow{sm.len + lc * LEN_W}, LEN_W, u.sym_len, cl_raw, fl_raw);
         norm_cf(cl_raw, max(fl_raw, 1), max(sm.len_sum[lc], 1), cc, fc);
       }
-      int* e = ev + (size_t)t * 9 * c.S + i;
+      int* e = ev + (size_t)t * n_ev * c.S + i;
       e[0 * c.S] = (int)ca; e[1 * c.S] = (int)fa; e[2 * c.S] = x.coding;
       e[3 * c.S] = (int)cb; e[4 * c.S] = (int)fb; e[5 * c.S] = u.is_esc || u.is_match;
       e[6 * c.S] = (int)cc; e[7 * c.S] = (int)fc; e[8 * c.S] = u.is_match;
+      if (XMODE) {
+        e[9 * c.S] = (int)cd; e[10 * c.S] = (int)fd; e[11 * c.S] = act_d;
+        e[12 * c.S] = (int)ce; e[13 * c.S] = (int)fe; e[14 * c.S] = act_e;
+      }
       upd_store(tb, sm, i, u);
     }
     __syncthreads();
 
     if (alive) {
-      upd_add(c, tb, sm, u);
-      // block.py::_post_step, R branch, without the bucket insert
+      upd_add<XMODE>(c, tb, sm, u);
+      // block.py::_post_step without a bucket insert
       copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
       copy_src = u.is_match ? src + 1 : copy_src + 1;
+      if (XMODE && u.is_match) prev_dist = dist;
       if (x.active) {
         ctx4b = (ctx4b << 8) | (ctx4 >> 24);
         ctx4 = (ctx4 << 8) | (uint32_t)byte;
       }
     }
     __syncthreads();
-    upd_finish(sm);
+    upd_finish<XMODE>(sm, c.mant_cap);
   }
   __syncthreads();
-  model_store(sm, tb);
+  model_store<XMODE>(sm, tb);
 }
 
 }  // namespace
 
+template <bool XMODE>
+static int model_launch(const int* cfg, const void* inp, const void* dec,
+                        const Tables& tb, void* ev, void* stream) {
+  Cfg c;
+  memcpy(&c, cfg, sizeof(Cfg));
+  int threads = (c.S + 31) / 32 * 32;
+  if (threads <= 512)
+    k2_kernel<512, XMODE><<<1, threads, 0, (cudaStream_t)stream>>>(
+        c, (const uint8_t*)inp, (const int*)dec, tb, (int*)ev);
+  else
+    k2_kernel<CPX_MAX_LANES, XMODE><<<1, threads, 0, (cudaStream_t)stream>>>(
+        c, (const uint8_t*)inp, (const int*)dec, tb, (int*)ev);
+  return (int)cudaGetLastError();
+}
+
+// Mode R: dec [4, T, S] (take, src, recency index, fill) -> ev [T, 9, S].
 extern "C" int cpx_k2_launch(const int* cfg, const void* inp, const void* dec,
                              void* o2, void* o1, void* o3, void* len, void* idx,
                              void* sse, void* sse_h, void* ev, void* stream) {
-  Cfg c;
-  memcpy(&c, cfg, sizeof(Cfg));
-  Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse, (int*)sse_h};
-  int threads = (c.S + 31) / 32 * 32;
-  if (threads <= 512)
-    k2_kernel<512><<<1, threads, 0, (cudaStream_t)stream>>>(
-        c, (const uint8_t*)inp, (const int*)dec, tb, (int*)ev);
-  else
-    k2_kernel<CPX_MAX_LANES><<<1, threads, 0, (cudaStream_t)stream>>>(
-        c, (const uint8_t*)inp, (const int*)dec, tb, (int*)ev);
-  return (int)cudaGetLastError();
+  Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
+            (int*)sse_h, nullptr, nullptr, nullptr};
+  return model_launch<false>(cfg, inp, dec, tb, ev, stream);
+}
+
+// Mode X: dec [2, T, S] (take, src) -> ev [T, 15, S]; three more tables.
+extern "C" int cpx_k12e_launch(const int* cfg, const void* inp, const void* dec,
+                               void* o2, void* o1, void* o3, void* len, void* idx,
+                               void* sse, void* sse_h, void* dst, void* mant,
+                               void* sse_x, void* ev, void* stream) {
+  Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
+            (int*)sse_h, (int*)dst, (int*)mant, (int*)sse_x};
+  return model_launch<true>(cfg, inp, dec, tb, ev, stream);
 }

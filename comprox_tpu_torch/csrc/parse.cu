@@ -1,13 +1,18 @@
-// K6: the backward price DP of the flexible-parse encode, modes R and F.
+// K6: the backward price DP of the flexible-parse encode, modes R, F and X.
 //
 // Replaces comprox_tpu/codec/block.py::_parse_body (1414-1477) with
 // _cand_min_cost (1391-1411), run under a reversed lax.scan by
 // _search_and_parse (1596-1600, mode R) and by codec/fast.py::
 // _fast_find_matches (265-276, mode F: the non-R branch 1435-1450 without
-// a repeat pair).  One kernel, an entry per mode: mode R prices a candidate
-// (len, src, recency index) by its recency bucket and passes the bucket
-// fill through; mode F prices a candidate (len, src) by the distance bucket
-// floor(log2(pos - src)) and writes index 0.  Per lane, from the last step to the
+// a repeat pair; 1645 and 1652-1654, mode X: the same branch, the second
+// time with the repeat pair 1446-1455).  One kernel, an entry per mode:
+// mode R prices a candidate (len, src, recency index) by its recency bucket
+// and passes the bucket fill through; mode F prices a candidate (len, src)
+// by the distance bucket floor(log2(pos - src)) and writes index 0; mode X
+// is mode F's entry with its own prices, and its second run takes the
+// repeat pair (len_rep, prev) of K11 as two more grids: a candidate at the
+// distance prev costs the repeat price, and the repeat candidate (len_rep,
+// pos - prev) is tried last, so that it wins a tie.  Per lane, from the last step to the
 // first: cost[t] = min(literal price + cost[t+1], over the candidates and
 // every admissible length l of price + cost[t+l]); the decision at t is
 // the literal, or the candidate and length that reach the minimum.  Ties:
@@ -35,7 +40,8 @@ namespace {
 
 template <bool FAST>
 __global__ void __launch_bounds__(K6_WARPS * 32) k6_kernel(
-    Cfg c, const int* __restrict__ cands, int* __restrict__ dec) {
+    Cfg c, const int* __restrict__ cands, const int* __restrict__ rep,
+    int* __restrict__ dec) {
   __shared__ int ring_all[K6_WARPS][256];
   const unsigned full = 0xffffffffu;
   const int warp = threadIdx.x >> 5, j = threadIdx.x & 31;
@@ -49,7 +55,11 @@ __global__ void __launch_bounds__(K6_WARPS * 32) k6_kernel(
   const int n_in = FAST ? 2 * n_c : 3 * n_c + 1;
   const size_t plane = (size_t)c.T * c.S;
   const int lo = max(c.min_len, 1);
-  const int* const mine = cands + (size_t)min(j, n_in - 1) * plane + lane;
+  // thread j loads grid j of cands; the two after them the repeat pair
+  const bool has_rep = FAST && rep != nullptr;
+  const int* const mine =
+      (has_rep && j >= n_in ? rep + (size_t)min(j - n_in, 1) * plane
+                            : cands + (size_t)min(j, n_in - 1) * plane) + lane;
   int nxt = mine[(size_t)(c.T - 1) * c.S];
   for (int t = c.T - 1; t >= 0; --t) {
     const int in = nxt;
@@ -62,16 +72,21 @@ __global__ void __launch_bounds__(K6_WARPS * 32) k6_kernel(
     }
     int best_cost = c.p_lit + __shfl_sync(full, cwv[0], 0);
     int best_len = 0, best_src = 0, best_idx = 0;
+    const int pos = lane * c.T + t;
+    const int prev = has_rep ? __shfl_sync(full, in, n_in + 1) : 0;
 #pragma unroll
-    for (int k = 0; k < K6_MAX_CANDS; ++k) {
-      if (k >= n_c) break;
-      const int lx = min(__shfl_sync(full, in, per * k), c.window);
+    for (int k = 0; k <= K6_MAX_CANDS; ++k) {
+      // candidates 0 .. n_c - 1, then (k == n_c) the repeat candidate
+      if (k > n_c || (k == n_c && !has_rep)) break;
+      const bool is_rep = k == n_c;
+      const int lx = min(__shfl_sync(full, in, is_rep ? n_in : per * k), c.window);
       if (lx < lo) continue;  // no admissible length: cost 2^22, never wins
-      const int sx = __shfl_sync(full, in, per * k + 1);
+      const int sx = is_rep ? pos - prev : __shfl_sync(full, in, per * k + 1);
       int ix = 0, price;
       if (FAST) {
-        const int d = max(lane * c.T + t - sx, 1);
-        price = c.p_rm + c.p_ri * min(31 - __clz(d), 24);
+        const int d = max(pos - sx, 1);
+        price = c.p_rm + c.p_ri * dist_bucket(d);
+        if (has_rep && (is_rep || d == prev)) price = c.p_rep;
       } else {
         ix = __shfl_sync(full, in, 3 * k + 2);
         price = c.p_rm + c.p_ri * rec_bucket(ix);
@@ -92,7 +107,7 @@ __global__ void __launch_bounds__(K6_WARPS * 32) k6_kernel(
         best_cost = cost_m;
       }
     }
-    const bool active = lane * c.T + t < c.n;
+    const bool active = pos < c.n;
     best_cost = active ? min(best_cost, P_INF - 1) : 0;
     if (!active) best_len = 0;
     const int fill = __shfl_sync(full, in, n_in - 1);
@@ -119,12 +134,12 @@ extern "C" int cpx_k6_launch(const int* cfg, const void* cands, void* dec,
   if (c.n_cands + 1 > K6_MAX_CANDS || c.window > 256) return (int)cudaErrorInvalidValue;
   int blocks = (c.S + K6_WARPS - 1) / K6_WARPS;
   k6_kernel<false><<<blocks, K6_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      c, (const int*)cands, (int*)dec);
+      c, (const int*)cands, nullptr, (int*)dec);
   return (int)cudaGetLastError();
 }
 
-// Mode F: cands [2 * n_cands, T, S] -> dec [3, T, S]; the prices in p_lit
-// (literal), p_rm (match) and p_ri (per distance bucket).
+// Modes F and X: cands [2 * n_cands, T, S] -> dec [3, T, S]; the prices in
+// p_lit (literal), p_rm (match) and p_ri (per distance bucket).
 extern "C" int cpx_k6f_launch(const int* cfg, const void* cands, void* dec,
                               void* stream) {
   Cfg c;
@@ -133,6 +148,20 @@ extern "C" int cpx_k6f_launch(const int* cfg, const void* cands, void* dec,
     return (int)cudaErrorInvalidValue;
   int blocks = (c.S + K6_WARPS - 1) / K6_WARPS;
   k6_kernel<true><<<blocks, K6_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      c, (const int*)cands, (int*)dec);
+      c, (const int*)cands, nullptr, (int*)dec);
+  return (int)cudaGetLastError();
+}
+
+// Mode X with the repeat pair: as cpx_k6f_launch, and rep [2, T, S]
+// (len_rep, prev) with the repeat price in p_rep.
+extern "C" int cpx_k6x_launch(const int* cfg, const void* cands, const void* rep,
+                              void* dec, void* stream) {
+  Cfg c;
+  memcpy(&c, cfg, sizeof(Cfg));
+  if (c.n_cands < 1 || c.n_cands + 1 > K6_MAX_CANDS || c.window > 256 || !rep)
+    return (int)cudaErrorInvalidValue;
+  int blocks = (c.S + K6_WARPS - 1) / K6_WARPS;
+  k6_kernel<true><<<blocks, K6_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      c, (const int*)cands, (const int*)rep, (int*)dec);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,13 @@
-// Mode-R model code shared by the search (KS), rank (K5), modeling (K2) and
-// decode (K1) kernels: one set of __device__ functions for encode and decode, so
-// the table evolution is the same on both sides (the JAX package's rule
-// that encode and decode share their model read/update functions).
+// Model code of modes R and X shared by the search (KS), rank (K5), modeling
+// (K2, K12e) and decode (K1, K12d) kernels: one set of __device__ functions
+// for encode and decode, so the table evolution is the same on both sides
+// (the JAX package's rule that encode and decode share their model
+// read/update functions).  Mode X's parts (the distance-bucket row, the
+// mantissa table, the hit-only APM) are chosen by a template parameter.
 //
-// Counterpart of comprox_tpu/models/{tables,ppm}.py (mode-R subset, default
-// knobs) and of the ROLZ helpers of comprox_tpu/codec/block.py.  Integer
+// Counterpart of comprox_tpu/models/{tables,ppm}.py (the subset of modes R
+// and X, default knobs) and of the ROLZ helpers of
+// comprox_tpu/codec/block.py.  Integer
 // semantics follow the JAX code exactly: int32 tables and model arithmetic
 // (floor division and arithmetic shifts), uint32 rANS states and context
 // registers.  No value ever goes through a floating-point unit.
@@ -36,6 +39,11 @@
 #define SSE_HCTX 6
 #define SSE_K (SSE_NCTX * 33)
 #define SSE_HK (SSE_HCTX * 33)
+#define SSE_XCTX 48
+#define SSE_XK (SSE_XCTX * 33)
+#define DST_W 32
+#define SYM_DST_REPEAT 24  // slot-B symbol "the previous distance again"
+#define MANT_N 16          // mantissa table: MANT_N rows of MANT_N counts
 #define SSE_LO 16
 #define SSE_HI 65520
 #define SSE_RATE_SH 5
@@ -44,16 +52,19 @@
 #define RANS_L (1u << 16)
 
 // Block geometry and model knobs, filled from a host int32 array in field
-// order (comprox_tpu_torch/codec/block.py::_cfg_array builds it).  The last
-// seven are encoder-only knobs of the flexible parse: proposals per
-// position, chain depth each way, word-extension bytes, the parse prices
+// order (comprox_tpu_torch/codec/block.py::_cfg_array builds it).  From
+// n_cands to p_rep: encoder-only knobs of the flexible parse: proposals per
+// position, chain depth backward, word-extension bytes, the parse prices
 // (literal, match, per recency bucket in mode R or per distance bucket in
-// mode F), and whether a diagonal run counts the matching byte at its end.
+// modes F and X), whether a diagonal run counts the matching byte at its
+// end, the chain depth forward, and mode X's repeat-distance price.  Then
+// mode X's model knobs.
 struct Cfg {
   int S, T, n, min_len, window, o3_bits, rolz_bits, rolz_depth,
       rolz_ctx_bytes, rolz_dec, top_k, probe, match, use_sse, inc2, cap2,
       inc1, cap1, len_inc, len_cap, idx_inc, idx_cap, stream_len,
-      n_cands, r_probe, sort_ext, p_lit, p_rm, p_ri, diag_tail;
+      n_cands, r_probe, sort_ext, p_lit, p_rm, p_ri, diag_tail, fwd_chain,
+      p_rep, dst_inc, dst_cap, mant_inc, mant_cap;
 };
 
 static __device__ const int kSseThr[33] = {
@@ -109,6 +120,11 @@ static __device__ __forceinline__ uint32_t byteswap32(uint32_t v) {
 
 static __device__ __forceinline__ int rec_bucket(int idx) {
   return (idx >= 1) + (idx >= 4) + (idx >= 16);
+}
+
+// floor(log2(dist)) for dist >= 1, at most 24 (block.py::_dist_bucket).
+static __device__ __forceinline__ int dist_bucket(int dist) {
+  return min(31 - __clz(max(dist, 1)), 24);
 }
 
 static __device__ __forceinline__ int fill_bucket(int fill) {
@@ -214,24 +230,36 @@ struct SseState {
   bool act_h;
 };
 
+// The hit APM alone (ppm._hit_reshape; table tab of k entries, context
+// hctx): rewrites the HIT frequency, returns the new sum.
+static __device__ int hit_reshape(int& f_hit, int tot, const int* tab, int k,
+                                  int hctx, int conf, SseState& st) {
+  int f_h0 = f_hit;
+  int tot_h = max(tot, 1);
+  int p16h = clampi(floordiv(f_h0 * 4096, tot_h), 1, 4095) << 4;
+  int ph = apm_read(tab, k, hctx, p16h, st.h);
+  int ph12 = clampi(ph >> 4, 1, 4095);
+  int f_h_new = floordiv(ph12 * (tot_h - f_h0), 4096 - ph12);
+  f_h_new = min(max(f_h_new, 1), f_h0 + max(32768 - tot_h, 0));
+  st.act_h = conf > 0;
+  f_hit = st.act_h ? f_h_new : f_h0;
+  return tot - f_h0 + f_hit;
+}
+
+// Mode X's hit APM context: conf class x order-1 byte class.
+static __device__ __forceinline__ int sse_x_ctx(int conf, int p1) {
+  return (clampi(conf, 1, 3) - 1) * 16 + clampi(p1, 0, 255) / 16;
+}
+
 // The SSE stage on the A distribution (hit APM, then match APM): rewrites
 // the HIT and MATCH frequencies of a rowmod whose sum is tot; returns the
 // new sum.
 static __device__ int sse_reshape(int& f_hit, int& f_match, int f_hit2, int tot,
                                   const int* sse, const int* sse_h, int fill,
                                   int conf, SseState& st) {
-  int f_h0 = f_hit;
-  int tot_h = max(tot, 1);
-  int p16h = clampi(floordiv(f_h0 * 4096, tot_h), 1, 4095) << 4;
   int hctx = (clampi(conf, 1, 3) - 1) * 2 + (fill > 0 ? 1 : 0);
-  int ph = apm_read(sse_h, SSE_HK, hctx, p16h, st.h);
-  int ph12 = clampi(ph >> 4, 1, 4095);
-  int f_h_new = floordiv(ph12 * (tot_h - f_h0), 4096 - ph12);
-  f_h_new = min(max(f_h_new, 1), f_h0 + max(32768 - tot_h, 0));
-  st.act_h = conf > 0;
-  int fh = st.act_h ? f_h_new : f_h0;
-  f_hit = fh;
-  int tot0 = tot - f_h0 + fh;
+  int tot0 = hit_reshape(f_hit, tot, sse_h, SSE_HK, hctx, conf, st);
+  int fh = f_hit;
 
   int f_m = f_match;
   int rest = max(tot0 - fh - f_hit2, 1);
@@ -320,8 +348,10 @@ struct AEvent {
 // and cumulative counts by warp reductions and scans.  Decode (DECODE)
 // finds count(cums <= target) - 1, clipped, for the lane's rANS state x;
 // encode takes the symbol from the lane's byte and match flag (the JAX
-// rule of block.py::_encode_model_body).  Call with the warp converged.
-template <bool DECODE>
+// rule of block.py::_encode_model_body).  Mode X (XMODE) has the hit APM
+// only: its table is passed as sse_h and the order-1 byte, which keys it
+// with conf, as fill.  Call with the warp converged.
+template <bool DECODE, bool XMODE = false>
 static __device__ AEvent warp_a_event(const Cfg& cfg, const int* o2, bool want,
                                       int ctx2, int pred, int conf, int fill,
                                       const int* sse, const int* sse_h, uint32_t x,
@@ -370,7 +400,12 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, const int* o2, bool want,
     int match = halve_n(__shfl_sync(full, v[8], SYM_MATCH - 256), h, true);
     sum += esc - esc0 - halve_n(__shfl_sync(full, pick(v, pr >> 5), pr & 31), h, false);
     SseState st{};
-    if (cfg.use_sse)
+    if (XMODE) {
+      if (cfg.use_sse)
+        sum = hit_reshape(hit, sum, sse_h, SSE_XK,
+                          sse_x_ctx(__shfl_sync(full, conf, l), __shfl_sync(full, fill, l)),
+                          __shfl_sync(full, conf, l), st);
+    } else if (cfg.use_sse)
       sum = sse_reshape(hit, match,
                         halve_n(__shfl_sync(full, v[8], SYM_HIT2 - 256), h, true), sum,
                         sse, sse_h, __shfl_sync(full, fill, l),
@@ -701,8 +736,9 @@ static __device__ int bucket_slot(const int* rolz, const Cfg& c, const int* keys
 }
 
 // ------------------------------------------- modeling-scan shared state ----
-// Shared memory of the modeling (K2) and decode (K1) scans: election keys,
-// the small dense models (len, idx, the two APMs) and the o1 row sums.
+// Shared memory of the modeling (K2, K12e) and decode (K1, K12d) scans:
+// election keys, the small dense models (len, idx, the two APMs; mode X's
+// distance-bucket row, mantissa table and hit APM) and the o1 row sums.
 struct SmemModel {
   __align__(16) int key_o2[CPX_MAX_LANES];   // ctx2 of lanes that rescaled their o2 row
   __align__(16) int key_o3[CPX_MAX_LANES];   // h3 of lanes that update the o3 predictor
@@ -714,7 +750,11 @@ struct SmemModel {
   int hot_len[N_SHARED_CTX], hot_idx[N_SHARED_CTX];
   int sse[SSE_K];
   int sse_h[SSE_HK];
-  int wtot[3][32];
+  int dst[DST_W];
+  int dst_sum, hot_dst;
+  int mant[MANT_N * MANT_N];
+  int sse_x[SSE_XK];
+  int wtot[5][32];  // one lane-order prefix scratch per rANS slot
 };
 
 struct Tables {
@@ -725,9 +765,19 @@ struct Tables {
   int* idx;
   int* sse;
   int* sse_h;
+  int* dst;    // mode X only, as mant and sse_x
+  int* mant;
+  int* sse_x;
 };
 
+template <bool XMODE = false>
 static __device__ void model_load(SmemModel& sm, const Tables& tb) {
+  if (XMODE) {
+    for (int k = threadIdx.x; k < DST_W; k += blockDim.x) sm.dst[k] = tb.dst[k];
+    for (int k = threadIdx.x; k < MANT_N * MANT_N; k += blockDim.x) sm.mant[k] = tb.mant[k];
+    for (int k = threadIdx.x; k < SSE_XK; k += blockDim.x) sm.sse_x[k] = tb.sse_x[k];
+    if (threadIdx.x == 0) sm.hot_dst = 0;
+  }
   for (int k = threadIdx.x; k < N_SHARED_CTX * LEN_W; k += blockDim.x) sm.len[k] = tb.len[k];
   for (int k = threadIdx.x; k < N_SHARED_CTX * IDX_W; k += blockDim.x) sm.idx[k] = tb.idx[k];
   for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) sm.sse[k] = tb.sse[k];
@@ -745,7 +795,13 @@ static __device__ void model_load(SmemModel& sm, const Tables& tb) {
   }
 }
 
+template <bool XMODE = false>
 static __device__ void model_store(const SmemModel& sm, const Tables& tb) {
+  if (XMODE) {
+    for (int k = threadIdx.x; k < DST_W; k += blockDim.x) tb.dst[k] = sm.dst[k];
+    for (int k = threadIdx.x; k < MANT_N * MANT_N; k += blockDim.x) tb.mant[k] = sm.mant[k];
+    for (int k = threadIdx.x; k < SSE_XK; k += blockDim.x) tb.sse_x[k] = sm.sse_x[k];
+  }
   for (int k = threadIdx.x; k < N_SHARED_CTX * LEN_W; k += blockDim.x) tb.len[k] = sm.len[k];
   for (int k = threadIdx.x; k < N_SHARED_CTX * IDX_W; k += blockDim.x) tb.idx[k] = sm.idx[k];
   for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) tb.sse[k] = sm.sse[k];
@@ -768,12 +824,38 @@ static __device__ void len_rescale(const Cfg& c, SmemModel& sm) {
                        c.len_cap, sm.len_sum[r]);
 }
 
-// One lane's step, as the model updates need it (ppm.apply_updates and
-// sse_update arguments).
+// Rescale mode X's distance-bucket row if a match lane reads it this step
+// (thread 2 * N_SHARED_CTX, beside the len rows' threads).
+static __device__ void dst_rescale(const Cfg& c, SmemModel& sm) {
+  if (threadIdx.x == 2 * N_SHARED_CTX)
+    shared_rescale_row(sm.dst, DST_W, sm.hot_dst != 0, c.dst_cap, sm.dst_sum);
+}
+
+// How a distance bucket k splits its k mantissa bits over the slots D and E
+// (block.py::_mant_events_enc): for k in [5, 16] D codes the top 4 bits
+// through row k - 5 of the mantissa table and E the other k - 4 uniformly;
+// else D carries k - 12 uniform bits (k > 16 only) and E min(k, 12).
+struct MantSplit {
+  bool adaptive;
+  int b_hi, b_lo, b_e;
+};
+
+static __device__ __forceinline__ MantSplit mant_split(int k, bool has_extra) {
+  MantSplit m;
+  m.adaptive = has_extra && k >= 5 && k <= 16;
+  m.b_hi = k > 16 ? k - 12 : 0;
+  m.b_lo = min(k, 12);
+  m.b_e = m.adaptive ? k - 4 : m.b_lo;
+  return m;
+}
+
+// One lane's step, as the model updates need it (ppm.apply_updates,
+// sse_update and, in mode X, _mant_update arguments).
 struct Upd {
-  bool coding, is_lit, is_hit, is_esc, is_match;
+  bool coding, is_lit, is_hit, is_esc, is_match, adaptive;
   int ctx2, sym_a, byte, f_byte, p1, h3, pred, conf, raw;
   int sym_len, sym_idx, len_ctx, idx_ctx, halvings;
+  int sym_dst, mant_row, mant_sym;
   SseState sse;
 };
 
@@ -799,6 +881,7 @@ static __device__ void upd_store(const Tables& tb, const SmemModel& sm, int i,
 }
 
 // Add phase (after the store barrier): every additive update.
+template <bool XMODE = false>
 static __device__ void upd_add(const Cfg& c, const Tables& tb, SmemModel& sm,
                         const Upd& u) {
   if (!u.coding) return;
@@ -815,20 +898,41 @@ static __device__ void upd_add(const Cfg& c, const Tables& tb, SmemModel& sm,
     int ic = clampi(u.idx_ctx, 0, N_SHARED_CTX - 1);
     if (u.sym_len >= 0 && u.sym_len < LEN_W) atomicAdd(&sm.len[lc * LEN_W + u.sym_len], c.len_inc);
     if (u.sym_idx >= 0 && u.sym_idx < IDX_W) atomicAdd(&sm.idx[ic * IDX_W + u.sym_idx], c.idx_inc);
+    if (XMODE && u.sym_dst >= 0 && u.sym_dst < DST_W) atomicAdd(&sm.dst[u.sym_dst], c.dst_inc);
   }
-  if (c.use_sse) {
+  if (XMODE) {
+    if (u.adaptive && u.mant_sym >= 0 && u.mant_sym < MANT_N)
+      atomicAdd(&sm.mant[u.mant_row * MANT_N + u.mant_sym], c.mant_inc);
+    if (c.use_sse && u.sse.act_h) apm_add(sm.sse_x, SSE_XK, u.sse.h, u.is_hit);
+  } else if (c.use_sse) {
     apm_add(sm.sse, SSE_K, u.sse.m, u.is_match);
     if (u.sse.act_h) apm_add(sm.sse_h, SSE_HK, u.sse.h, u.is_hit);
   }
 }
 
-// Last phase of a step: clip the APMs, clear the hot-row flags.
-static __device__ void upd_finish(SmemModel& sm) {
-  for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) sm.sse[k] = clampi(sm.sse[k], SSE_LO, SSE_HI);
-  for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) sm.sse_h[k] = clampi(sm.sse_h[k], SSE_LO, SSE_HI);
-  if (threadIdx.x < N_SHARED_CTX) {
-    sm.hot_len[threadIdx.x] = 0;
-    sm.hot_idx[threadIdx.x] = 0;
+// Last phase of a step: clip the APMs, clear the hot-row flags; mode X:
+// halve each mantissa row whose sum is over the cap (every step, whoever
+// added).
+template <bool XMODE = false>
+static __device__ void upd_finish(SmemModel& sm, int mant_cap = 0) {
+  if (XMODE) {
+    for (int k = threadIdx.x; k < SSE_XK; k += blockDim.x) sm.sse_x[k] = clampi(sm.sse_x[k], SSE_LO, SSE_HI);
+    if (threadIdx.x < N_SHARED_CTX) sm.hot_len[threadIdx.x] = 0;
+    if (threadIdx.x == N_SHARED_CTX) sm.hot_dst = 0;
+    for (int r = threadIdx.x; r < MANT_N; r += blockDim.x) {
+      int* row = sm.mant + r * MANT_N;
+      int s = 0;
+      for (int k = 0; k < MANT_N; ++k) s += row[k];
+      if (s > mant_cap)
+        for (int k = 0; k < MANT_N; ++k) row[k] = (row[k] + 1) >> 1;
+    }
+  } else {
+    for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) sm.sse[k] = clampi(sm.sse[k], SSE_LO, SSE_HI);
+    for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) sm.sse_h[k] = clampi(sm.sse_h[k], SSE_LO, SSE_HI);
+    if (threadIdx.x < N_SHARED_CTX) {
+      sm.hot_len[threadIdx.x] = 0;
+      sm.hot_idx[threadIdx.x] = 0;
+    }
   }
 }
 

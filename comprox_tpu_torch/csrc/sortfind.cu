@@ -1,14 +1,22 @@
-// K4: the whole-block sort finder of the flexible-parse encode.
+// K4: the whole-block sort finder of the flexible-parse encode, with an
+// entry for mode R (K4) and one for mode X (K4x).
 //
 // Replaces comprox_tpu/codec/block.py::sort_candidates (809-936) in the
-// configuration _search_and_parse uses for mode R (1586-1590), with its
-// helpers _bytes_eq_count (798), _rev_runmin (764) and _diag_run_len (777).
+// configurations _search_and_parse uses for mode R (1586-1590) and for mode
+// X (1616-1618), with its helpers _bytes_eq_count (798), _rev_runmin (764)
+// and _diag_run_len (777).
 // For every position of the block: key = Knuth hash of the context bytes
 // before it; positions sorted by (key, position); the 2 * probe sort
 // neighbours with the same key are the chain; each chain entry that the
 // decoder could use (an earlier step of its lane, an inserted position) is
 // probed to 8 bytes; the n_cands best by (prefix, nearness in the chain)
 // are extended to the window; the result is capped to the lane's row.
+// Mode X's entry keys a position by a hash of its own next six bytes (the
+// key of the fast profile's finder, f2find.cu), walks the chain backward
+// only (fwd_chain = 0) and counts every position as inserted (rolz_dec =
+// 1); a chain no longer than n_cands is taken whole, in chain order.  Its
+// sources are written at every position, usable or not: the price DP
+// passes them through.
 //
 // Bound on the H100: bytes.  The function reads N bytes and writes
 // 2 * n_cands int32 per position; the work between is the sort (four
@@ -33,6 +41,7 @@ namespace {
 
 #define K4_INSERT_LATE 3  // block.py::_INSERT_LATE
 
+template <bool CONTENT>
 __global__ void k4_keys(Cfg c, const uint64_t* __restrict__ bytes,
                         uint32_t* __restrict__ key, int* __restrict__ pos) {
   const long long big = (long long)c.S * c.T;
@@ -40,7 +49,13 @@ __global__ void k4_keys(Cfg c, const uint64_t* __restrict__ bytes,
   if (i >= big) return;
   const int cb = c.rolz_ctx_bytes;
   uint32_t k = 0xFFFFFFFFu;
-  if (i >= cb && i < c.n) {
+  if (CONTENT) {
+    if (i < c.n) {
+      const uint64_t w = load_u64(bytes, i);
+      k = ((uint32_t)w * 0x9E3779B1u) ^
+          (((uint32_t)(w >> 32) & 0xFFFFu) * 0x85EBCA77u);
+    }
+  } else if (i >= cb && i < c.n) {
     uint32_t w = (uint32_t)load_u64(bytes, i - cb);
     if (cb == 3) w &= 0xFFFFFFu;
     k = w * 2654435761u;
@@ -67,7 +82,8 @@ __global__ void k4_find(Cfg c, const uint64_t* __restrict__ bytes,
   const uint32_t key = hs[r];
   const int t_of = i % c.T;
   const int n_c = c.n_cands;
-  const int chain_b = max(c.r_probe, n_c), chain = chain_b + c.r_probe;
+  const int chain_b = max(c.r_probe, n_c), chain = chain_b + c.fwd_chain;
+  const bool select = chain > n_c;  // else the chain is taken whole, in order
   const uint64_t own = load_u64(bytes, i);
   // the n_c largest of score = plen * chain + (chain - 1 - e), e the chain
   // index: distinct, so a sorted list of (score + chain) << 32 | cand + 1
@@ -77,8 +93,8 @@ __global__ void k4_find(Cfg c, const uint64_t* __restrict__ bytes,
   for (int e = 0; e < chain; ++e) {
     const int q = e < chain_b ? r - (e + 1) : r + (e - chain_b + 1);
     const int cand = (q >= 0 && q < big && hs[q] == key) ? ps[q] : -1;
-    int plen = -1;
-    if (usable(c, cand, t_of)) plen = eq_bytes(load_u64(bytes, cand) ^ own);
+    int plen = select ? -1 : 0;
+    if (select && usable(c, cand, t_of)) plen = eq_bytes(load_u64(bytes, cand) ^ own);
     const int score = plen * chain + (chain - 1 - e);
     const unsigned long long k =
         ((unsigned long long)(score + chain + 1) << 32) | (unsigned)(cand + 1);
@@ -109,16 +125,28 @@ __global__ void k4_find(Cfg c, const uint64_t* __restrict__ bytes,
 // Keys and the radix sort: on return key[0 .. N) and pos[0 .. N) (the
 // first halves of the [2, N] arrays) hold the sorted order.  hist has
 // 256 * ceil(N / RS_TILE) ints.
-extern "C" int cpx_k4_sort_launch(const int* cfg, const void* bytes, void* key,
-                                  void* pos, void* hist, void* stream) {
+template <bool CONTENT>
+static int sort_launch(const int* cfg, const void* bytes, void* key, void* pos,
+                       void* hist, void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
   cudaStream_t st = (cudaStream_t)stream;
   const int big = c.S * c.T;
-  k4_keys<<<(big + 255) / 256, 256, 0, st>>>(c, (const uint64_t*)bytes,
-                                             (uint32_t*)key, (int*)pos);
+  k4_keys<CONTENT><<<(big + 255) / 256, 256, 0, st>>>(
+      c, (const uint64_t*)bytes, (uint32_t*)key, (int*)pos);
   radix_sort_pairs((uint32_t*)key, (int*)pos, (int*)hist, big, st);
   return (int)cudaGetLastError();
+}
+
+extern "C" int cpx_k4_sort_launch(const int* cfg, const void* bytes, void* key,
+                                  void* pos, void* hist, void* stream) {
+  return sort_launch<false>(cfg, bytes, key, pos, hist, stream);
+}
+
+// Mode X: keys of the position's own six bytes.
+extern "C" int cpx_k4x_sort_launch(const int* cfg, const void* bytes, void* key,
+                                   void* pos, void* hist, void* stream) {
+  return sort_launch<true>(cfg, bytes, key, pos, hist, stream);
 }
 
 extern "C" int cpx_k4_find_launch(const int* cfg, const void* bytes,
@@ -136,4 +164,15 @@ extern "C" int cpx_k4_find_launch(const int* cfg, const void* bytes,
       c.S, c.T, c.n, c.n_cands, min(c.window, c.min_len + LEN_W - 1), 1,
       (const int*)cand, (const int*)lw, (int*)out);
   return (int)cudaGetLastError();
+}
+
+// Mode X: the same stages under its configuration (r_probe = the backward
+// chain, fwd_chain = 0, rolz_dec = 1).
+extern "C" int cpx_k4x_find_launch(const int* cfg, const void* bytes,
+                                   const void* hs, const void* ps, void* cand,
+                                   void* lw, void* out, void* stream) {
+  Cfg c;
+  memcpy(&c, cfg, sizeof(Cfg));
+  if (c.fwd_chain != 0 || c.rolz_dec != 1) return (int)cudaErrorInvalidValue;
+  return cpx_k4_find_launch(cfg, bytes, hs, ps, cand, lw, out, stream);
 }

@@ -1,8 +1,9 @@
 """Batched PPM compound model (o1 + o2 + o3 predictor) on torch tensors.
 
-Counterpart of :mod:`comprox_tpu.models.ppm`, the mode-R subset at the
-default knobs: the o2/o1/o3 tables, the shared len/idx models, the match
-and hit APMs (SSE) and the default branch of ``apply_updates``.  The
+Counterpart of :mod:`comprox_tpu.models.ppm`, the subset of modes R and X
+at the default knobs: the o2/o1/o3 tables, the shared len/idx models and
+mode X's distance-bucket model, mode R's match and hit APMs (SSE), mode
+X's hit-only APM and the default branch of ``apply_updates``.  The
 symbol space, constants and arithmetic are the JAX package's; the stream
 format therefore is too, and ``format_fingerprint`` gives the same value.
 
@@ -206,9 +207,11 @@ def _floordiv(a, b):
     return torch.div(a, b, rounding_mode="floor")
 
 
-def read_o2(t, ctx2, pred, coding, conf=None, sse_fill=None):
+def read_o2(t, ctx2, pred, coding, conf=None, sse_fill=None, sse_hitx=None):
     """The A event's distribution: gather, rescale, exclude the predicted
-    byte, then the SSE reshape where ``sse_fill`` is given.
+    byte, then mode R's SSE reshape where ``sse_fill`` is given, or the
+    hit-only reshape where ``sse_hitx`` = (table key, contexts) is (mode X;
+    the state then feeds :func:`sse_update_hit`).
 
     Returns ``(rows, rowmod, cums, tot, halve_delta, sse_state)``;
     ``halve_delta`` holds the rescale as row deltas on the winner lanes,
@@ -225,6 +228,9 @@ def read_o2(t, ctx2, pred, coding, conf=None, sse_fill=None):
     sse_state = None
     if sse_fill is not None:
         rowmod, sse_state = _sse_reshape(t, rowmod, sse_fill, conf)
+    elif sse_hitx is not None:
+        key, hctx = sse_hitx
+        rowmod, sse_state = _hit_reshape(t[key], hctx, rowmod, conf)
     cums = tb.exclusive_cumsum(rowmod)
     return rows, rowmod, cums, tb.row_total(rowmod), halve_delta, sse_state
 
@@ -257,6 +263,21 @@ def read_idx(t, match_mask, ctx):
     return _read_shared_ctx(t, match_mask, "idx", IDX_CAP, ctx)
 
 
+def read_dst(t, match_mask):
+    """Mode X's distance-bucket model (one shared row of DST_W counts),
+    halved IN PLACE when a match lane reads it over its cap.  Returns
+    ``(rows, cums, tots)`` per lane."""
+    tab = t["dst"]
+    hot = bool(match_mask.any())
+    for _ in range(tb.HALVE_ROUNDS):
+        if hot and int(tab.sum()) > DST_CAP:
+            tab.copy_((tab + 1) >> 1)
+    s = match_mask.shape[0]
+    cums = tb.exclusive_cumsum(tab[None, :])
+    return (tab[None, :].expand(s, -1), cums.expand(s, -1),
+            tab.sum(dtype=_i32).expand(s))
+
+
 def _read_shared_ctx(t, mask, key, cap, ctx):
     """Dense shared model with a tiny context: a row is halved (IN PLACE)
     when a participating lane reads it over its cap.  Returns
@@ -287,6 +308,11 @@ def sse_ctx_of(fill, conf):
 
 def sse_hit_ctx_of(conf, fill):
     return ((conf.clamp(1, 3) - 1) * 2 + (fill > 0).to(_i32)).to(_i32)
+
+
+def sse_x_ctx_of(conf, p1):
+    """Mode X's hit APM context: conf class x order-1 byte class."""
+    return ((conf.clamp(1, 3) - 1) * 16 + _floordiv(p1.clamp(0, 255), 16)).to(_i32)
 
 
 def _apm_read(sse_flat, ctx, p16):
@@ -368,6 +394,12 @@ def sse_update(t, state, coding, is_match, is_hit):
     _apm_add(t["sse_h"], flat_h, w_h, ti_h, tip1_h, is_hit, coding & act_h)
 
 
+def sse_update_hit(t, key, state, coding, is_hit):
+    """Hit-only APM update toward the observed hit flag (mode X), IN PLACE."""
+    flat_h, w_h, ti_h, tip1_h, act_h = state
+    _apm_add(t[key], flat_h, w_h, ti_h, tip1_h, is_hit, coding & act_h)
+
+
 def _nc(cf):
     return (
         (cf > 1).to(_i32) + (cf > 2).to(_i32)
@@ -375,11 +407,13 @@ def _nc(cf):
     )
 
 
-def _bump(tab, sym, mask, inc, ctx):
+def _bump(tab, sym, mask, inc, ctx=None):
     w = tab.shape[-1]
     m = mask & (sym >= 0) & (sym < w)
-    ctx = ctx.clamp(0, tab.shape[0] - 1)
-    flat = (ctx * w + sym)[m].long()
+    if tab.dim() == 1:  # one shared row (dst)
+        flat = sym[m].long()
+    else:
+        flat = (ctx.clamp(0, tab.shape[0] - 1) * w + sym)[m].long()
     tab.view(-1).index_add_(
         0, flat, torch.full(flat.shape, inc, dtype=_i32, device=tab.device)
     )
@@ -387,10 +421,11 @@ def _bump(tab, sym, mask, inc, ctx):
 
 def apply_updates(t, coding, ctx2, sym_a, byte, old_f_byte, p1, h3, pred,
                   conf, sym_len, sym_idx, o2_halve_delta, len_ctx, idx_ctx,
-                  o3_raw):
+                  o3_raw, sym_dst=None):
     """All model updates of one step, after the events are coded, IN
     PLACE: the o2 row delta (rescale + increments + escape elimination),
-    the o1 and len/idx count bumps, and the winner-only o3 write."""
+    the o1 and len/idx (mode X: len/dst, ``sym_dst`` given) count bumps,
+    and the winner-only o3 write."""
     is_lit = coding & (sym_a < 256)
     is_hit = coding & (sym_a == SYM_HIT)
     is_esc = coding & (sym_a == SYM_ESC)
@@ -422,6 +457,8 @@ def apply_updates(t, coding, ctx2, sym_a, byte, old_f_byte, p1, h3, pred,
 
     _bump(t["len"], sym_len, is_match, LEN_INC, len_ctx)
     _bump(t["idx"], sym_idx, is_match, IDX_INC, idx_ctx)
+    if sym_dst is not None:  # mode X (its zero idx symbol is bumped too)
+        _bump(t["dst"], sym_dst, is_match, DST_INC)
 
     # o3: hit strengthens, miss decays / replaces; the minimum lane per
     # entry writes (a delta equal to desired - current is an exact set)

@@ -47,8 +47,14 @@ _SIGNATURES = {
     "cpx_k9_launch": [_I] * 2 + [_P] * 9,
     "cpx_k10_launch": [_I] * 3 + [_P] * 9,
     "cpx_k2_launch": [_P] * 12,
-    "cpx_k3_launch": [_I, _I, _P, _P, _P, _P, _P],
+    "cpx_k3_launch": [_I, _I, _I, _P, _P, _P, _P, _P],
     "cpx_k1_launch": [_P] * 15,
+    "cpx_k4x_sort_launch": [_P] * 6,
+    "cpx_k4x_find_launch": [_P] * 8,
+    "cpx_k6x_launch": [_P] * 5,
+    "cpx_k11_launch": [_P] * 5,
+    "cpx_k12e_launch": [_P] * 15,
+    "cpx_k12d_launch": [_P] * 16,
 }
 
 

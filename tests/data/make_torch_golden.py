@@ -1,4 +1,4 @@
-"""Write the golden crz and crf archives that the PyTorch port must reproduce.
+"""Write the golden crz, crf and crx archives that the PyTorch port must reproduce.
 
 Runs the JAX package (on the CPU) and writes, next to this script, for each
 corpus size (``--mb``, default 1):
@@ -14,7 +14,9 @@ corpus size (``--mb``, default 1):
 With ``--codec crf`` it writes ``crf_flex_<mb>MiB_S512.cpx`` instead: the
 fast profile under ``make_params("crf", {"lanes": 512, "block_mb": mb})``
 (``crf e -b<mb> -l512``, the flexible parse at the default encoder knobs),
-on the same corpus.
+on the same corpus.  With ``--codec crx`` it writes ``crx_f0_...`` and
+``crx_flex_...`` (the LZ77 codec, mode X, under ``make_params("crx", ...)``;
+``--parse`` picks one of the two), again on the crz archive's corpus.
 
 At 8 MiB an archive is one block of S=512 lanes and T=16384 steps.
 
@@ -31,6 +33,8 @@ Usage::
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --mb 1 --mb 8
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --mb 8 --parse flex
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crf --mb 1 --mb 8
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --mb 1
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --mb 8 --parse flex
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ def main() -> int:
                     help="corpus and block size in MiB (repeatable)")
     ap.add_argument("--parse", choices=sorted(PARSES), action="append",
                     help="which archives to write (default: both)")
-    ap.add_argument("--codec", choices=("crz", "crf"), default="crz",
+    ap.add_argument("--codec", choices=("crz", "crf", "crx"), default="crz",
                     help="crf writes only the flexible-parse archive")
     ap.add_argument("--rebuild-corpus", action="store_true",
                     help="take bench.build_corpus, not the committed bytes")
@@ -76,11 +80,13 @@ def main() -> int:
     for mb in sizes:
         seed_arc = HERE / archive_name(mb)
         parses = args.parse or sorted(PARSES)
-        if args.codec == "crf":
+        if args.codec != "crz":
             if args.rebuild_corpus or not seed_arc.exists():
-                raise SystemExit("crf codes the corpus of the committed crz "
-                                 f"archive {seed_arc.name}: write that first")
-            parses = ["flex"]
+                raise SystemExit(f"{args.codec} codes the corpus of the "
+                                 f"committed crz archive {seed_arc.name}: "
+                                 "write that first")
+            if args.codec == "crf":
+                parses = ["flex"]
         if args.rebuild_corpus or not seed_arc.exists():
             from bench import build_corpus
 

@@ -269,8 +269,13 @@ def test_windows_and_prefix(width):
 
 def test_unsupported_configurations_raise(monkeypatch):
     data = corpus("text", 100, seed=0)
-    with pytest.raises(NotImplementedError, match="mode 'X'"):
-        blk.encode_block(data, blk.BlockParams(**dict(SMALL, mode="X", flexible=True)), "cpu")
+    # mode X is ported: the JAX payload, and it decodes (test_torch_xmode.py
+    # holds every pass)
+    kx = dict(SMALL, mode="X", min_len=6, flexible=True)
+    payload = blk.encode_block(data, blk.BlockParams(**kx), "cpu")
+    assert payload == jblk.encode_block(data, jblk.BlockParams(**kx))
+    np.testing.assert_array_equal(
+        blk.decode_block(payload, data.size, blk.BlockParams(**kx), "cpu"), data)
     with pytest.raises(NotImplementedError, match="mode 'P'"):
         blk.encode_block(data, blk.BlockParams(**dict(SMALL, mode="P")), "cpu")
     with pytest.raises(NotImplementedError, match="short_depth"):
@@ -285,7 +290,8 @@ def test_unsupported_configurations_raise(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "knob", ["CPX_R_FINDER", "CPX_SHORT_EXTRA", "CPX_STREAM_READ", "CPX_DEBUG_EVT"]
+    "knob", ["CPX_R_FINDER", "CPX_SHORT_EXTRA", "CPX_STREAM_READ", "CPX_DEBUG_EVT",
+             "CPX_X_FINDER"]
 )
 def test_unported_encoder_knobs_raise(monkeypatch, knob):
     monkeypatch.setitem(blk._ENV, knob, "1" if knob == "CPX_DEBUG_EVT" else "scan")

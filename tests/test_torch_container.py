@@ -1,5 +1,5 @@
-"""The port's crz and crf containers and CLI against the JAX package: each
-slice as a whole.  Archives must be byte-identical and decode across
+"""The port's crz, crf and crx containers and CLI against the JAX package:
+each codec as a whole.  Archives must be byte-identical and decode across
 packages."""
 
 import io
@@ -154,7 +154,7 @@ def test_chained_archives_and_other_codecs_raise():
     for codec, flags, exc in (
         (b"R", jcon.F_CHAIN, NotImplementedError),
         (b"R", jcon.F_CHAIN | jcon.F_CHAIN_MATCH, NotImplementedError),
-        (b"X", 0, NotImplementedError),
+        (b"X", jcon.F_CHAIN, NotImplementedError),
         (b"P", 0, NotImplementedError),
         (b"F", jcon.F_CHAIN, NotImplementedError),
     ):
@@ -166,6 +166,12 @@ def test_chained_archives_and_other_codecs_raise():
         f.write(b"\0" * 13)
         with pytest.raises(exc, match="not yet ported"):
             con.decode_stream(io.BytesIO(f.getvalue()), io.BytesIO(), "cpu")
+    # codec X is ported: an unchained X header with no block decodes to nothing
+    f = io.BytesIO()
+    jcon.write_header(f, jcon.ContainerParams(
+        codec=b"X", block=jblk.BlockParams(**dict(SMALL, mode="X"))))
+    f.write(b"\0" * 13)
+    assert con.decode_stream(io.BytesIO(f.getvalue()), io.BytesIO(), "cpu") == 0
 
 
 @pytest.mark.parametrize(
@@ -176,12 +182,16 @@ def test_chained_archives_and_other_codecs_raise():
         ["crz", "e", "a", "b", "-f0", "-j"],
         ["crz", "e", "a", "b", "-f0", "-g2"],
         ["crz", "e", "a", "b", "-c"],
-        ["crx", "e", "a", "b", "-f0"],
+        ["crx", "e", "a", "b", "-c"],
         ["crp", "e", "a", "b", "-f0"],
         ["crf", "e", "a", "b", "-c"],
         ["crf", "e", "a", "b", "-C"],
         ["crf", "e", "a", "b", "-g2"],
         ["crf", "e", "a", "b", "-j"],
+        ["crx", "e", "a", "b", "-C"],
+        ["crx", "e", "a", "b", "-j"],
+        ["crx", "e", "a", "b", "-g2"],
+        ["crp", "d", "a", "b"],
     ],
 )
 def test_cli_unported_switches_raise(argv, tmp_path):
@@ -203,9 +213,12 @@ def test_golden_fixture_metadata():
     meta = json.loads((ROOT / "tests/data/torch_golden.json").read_text())
     assert set(meta) == {f"crz_{parse}_{mb}MiB_S512.cpx"
                          for parse in ("f0", "flex") for mb in (1, 8)} | {
-        f"crf_flex_{mb}MiB_S512.cpx" for mb in (1, 8)}
+        f"crf_flex_{mb}MiB_S512.cpx" for mb in (1, 8)} | {
+        "crx_flex_1MiB_S512.cpx", "crx_f0_1MiB_S512.cpx", "crx_flex_8MiB_S512.cpx"}
+    assert (meta["crx_f0_1MiB_S512.cpx"]["input_sha256"]
+            == meta["crz_f0_1MiB_S512.cpx"]["input_sha256"])
     for mb in (1, 8):  # every archive of one size codes the same bytes
-        for other in ("crz_flex", "crf_flex"):
+        for other in ("crz_flex", "crf_flex", "crx_flex"):
             assert (meta[f"{other}_{mb}MiB_S512.cpx"]["input_sha256"]
                     == meta[f"crz_f0_{mb}MiB_S512.cpx"]["input_sha256"])
     import hashlib
@@ -216,7 +229,7 @@ def test_golden_fixture_metadata():
         assert len(arc) == m["archive_bytes"]
         cp, flags = con.read_header(io.BytesIO(arc))
         assert cp.block.lanes == 512 and not flags & (con.F_CHAIN | con.F_CHAIN_MATCH)
-        assert cp.block.mode == {"crz": "R", "crf": "F"}[name[:3]]
+        assert cp.block.mode == {"crz": "R", "crf": "F", "crx": "X"}[name[:3]]
 
 
 FLEX = dict(SMALL, flexible=True)
@@ -415,8 +428,12 @@ def test_codec_and_mode_must_agree():
     with pytest.raises(ValueError, match="codes mode"):
         con.encode_stream(sample("text"), io.BytesIO(), con.ContainerParams(
             codec=b"R", block=blk.BlockParams(**FAST)), "cpu")
-    with pytest.raises(NotImplementedError, match="items 13-14"):
-        cli.make_params("crx", {"lanes": 8, "block_mb": 1})
+    with pytest.raises(NotImplementedError, match="item 14"):
+        cli.make_params("crp", {"lanes": 8, "block_mb": 1})
+    with pytest.raises(ValueError, match="codes mode"):
+        con.encode_stream(sample("text"), io.BytesIO(), con.ContainerParams(
+            codec=b"X", block=blk.BlockParams(**SMALL)), "cpu")
+    assert cli.make_params("crx", {"lanes": 8, "block_mb": 1}).codec == b"X"
 
 
 def test_crf_golden_1mib_decodes_to_the_committed_corpus():
@@ -431,3 +448,109 @@ def test_crf_golden_1mib_decodes_to_the_committed_corpus():
         io.BytesIO((ROOT / "tests/data/crf_flex_1MiB_S512.cpx").read_bytes()), out, "cpu")
     assert len(out.getvalue()) == m["input_bytes"]
     assert hashlib.sha256(out.getvalue()).hexdigest() == m["input_sha256"]
+
+
+# --------------------------------------------------------------------------
+# crx: the LZ77 codec (mode X)
+# --------------------------------------------------------------------------
+
+XMODE = dict(lanes=8, steps=64, mode="X", min_len=6, window=32, o3_bits=14,
+             rolz_bits=10, rolz_depth=16)
+
+
+def x_cps(**kw):
+    p = dict(XMODE, **kw)
+    return (jcon.ContainerParams(codec=b"X", block=jblk.BlockParams(**p)),
+            con.ContainerParams(codec=b"X", block=blk.BlockParams(**p)))
+
+
+@pytest.mark.parametrize("flexible", [True, False])
+@pytest.mark.parametrize(
+    "kind,kw",
+    [
+        ("text", {}),
+        ("text", {"dictionary": False}),
+        ("elf", {"filters": True}),
+        ("text", {"precomp_only": True}),
+        ("stored", {}),
+    ],
+)
+def test_crx_archive_equals_jax(kind, kw, flexible):
+    """Whole crx archives byte for byte (flexible and ``-f0``; dictionary,
+    ``-F``, ``-p``, a stored block), decoded by both packages."""
+    data = sample(kind)
+    jcp, pcp = x_cps(flexible=flexible)
+    ref, got = io.BytesIO(), io.BytesIO()
+    jcon.encode_stream(data, ref, jcp, **kw)
+    con.encode_stream(data, got, pcp, "cpu", **kw)
+    assert got.getvalue() == ref.getvalue()
+    cross_decode(got.getvalue(), data)
+    if kind == "stored":
+        assert got.getvalue().count(data[512:1024].tobytes()) == 1
+
+
+def test_crx_make_params_matches_jax():
+    for opts in (
+        {"lanes": 512, "block_mb": 8, "flexible": True},
+        {"lanes": 512, "block_mb": 1, "flexible": False},
+        {"lanes": 256, "block_mb": 64, "flexible": True, "depth": 70},  # 16 MiB cap
+        {"lanes": 8, "block_mb": 0.0005, "flexible": False, "window": 200},
+    ):
+        mine = cli.make_params("crx", opts)
+        ref = jcli.make_params("crx", dict(opts))
+        assert mine.codec == ref.codec == b"X"
+        assert asdict(mine.block) == asdict(ref.block)
+    assert cli.make_params("crx", {"lanes": 256, "block_mb": 64}).block.capacity == 1 << 24
+
+
+def test_crx_cli_archive_equals_jax(tmp_path):
+    src = tmp_path / "in.bin"
+    sample("elf").tofile(src)
+    for flags in ([], ["-f0"], ["-F"], ["-p"], ["-m70"]):
+        args = [*flags, "-b0.0005", "-l8", "-q"]
+        cli.run("crx", ["e", str(src), str(tmp_path / "port.crx"), *args], device="cpu")
+        jcli.run("crx", ["e", str(src), str(tmp_path / "jax.crx"), *args])
+        arc = (tmp_path / "port.crx").read_bytes()
+        assert arc == (tmp_path / "jax.crx").read_bytes(), flags
+        cli.run("crx", ["d", str(tmp_path / "jax.crx"), str(tmp_path / "out.bin"), "-q"],
+                device="cpu")
+        assert (tmp_path / "out.bin").read_bytes() == src.read_bytes()
+        cross_decode(arc, sample("elf"))
+
+
+@pytest.mark.parametrize("cut", [12, 20, 40, 200, -3])
+def test_crx_truncated_archive_raises(cut):
+    data = sample("text")
+    _, pcp = x_cps()
+    buf = io.BytesIO()
+    con.encode_stream(data, buf, pcp, "cpu")
+    with pytest.raises(ValueError, match="truncated|short"):
+        con.decode_stream(io.BytesIO(buf.getvalue()[:cut]), io.BytesIO(), "cpu")
+
+
+@pytest.mark.parametrize("where", ["header", "payload", "stream"])
+def test_crx_corrupt_archive_raises(where):
+    data = sample("text")
+    _, pcp = x_cps()
+    buf = io.BytesIO()
+    con.encode_stream(data, buf, pcp, "cpu", dictionary=False)
+    arc = bytearray(buf.getvalue())
+    if where == "header":
+        arc[10] ^= 1
+        match = "header CRC"
+    elif where == "payload":
+        arc[con.HEADER_LEN + con.BLKHDR_LEN + 60] ^= 0x10
+        match = "payload CRC"
+    else:  # a flipped stream bit under a repaired CRC: the states do not drain
+        import struct
+        import zlib
+
+        off = con.HEADER_LEN
+        raw_n, blen, bflags, _ = struct.unpack(con.BLKHDR, arc[off:off + con.BLKHDR_LEN])
+        body = off + con.BLKHDR_LEN
+        arc[body + 4 + 4 * 8 + 10] ^= 0x10
+        arc[off:body] = struct.pack(con.BLKHDR, raw_n, blen, bflags,
+                                    zlib.crc32(bytes(arc[body:body + blen])) & 0xFFFFFFFF)
+        match = "corrupt block"
+    with pytest.raises(ValueError, match=match):
+        con.decode_stream(io.BytesIO(bytes(arc)), io.BytesIO(), "cpu")

@@ -58,6 +58,31 @@ def test_cfg_layout_matches_the_c_struct():
         blk._P_LIT_R, blk._P_RM, blk._P_RI)
 
 
+def test_x_cfg_carries_the_mode_x_knobs(monkeypatch):
+    """The mode-X entries read their finder configuration (no forward chain,
+    no decimation), the repeat price and the distance and mantissa model
+    knobs from the same struct; the slot count follows the mode."""
+    p = blk.BlockParams(lanes=512, steps=32, mode="X", min_len=6, window=250,
+                        rolz_ctx_bytes=4, rolz_dec=2)
+    by_name = dict(zip(blk._CFG_NAMES, blk.finder_cfg(p, 777, True).tolist()))
+    assert (by_name["n_cands"], by_name["r_probe"], by_name["fwd_chain"],
+            by_name["rolz_dec"]) == (3, 16, 0, 1)
+    assert by_name["use_sse"] == ppm.SSE_X == 1
+    assert (by_name["dst_inc"], by_name["dst_cap"], by_name["mant_inc"],
+            by_name["mant_cap"]) == (ppm.DST_INC, ppm.DST_CAP, ppm.MANT_INC, ppm.MANT_CAP)
+    monkeypatch.setenv("CPX_X_CANDS", "5")
+    monkeypatch.setenv("CPX_X_PROBE", "2")
+    by_name = dict(zip(blk._CFG_NAMES, blk.finder_cfg(p, 777, True).tolist()))
+    assert (by_name["n_cands"], by_name["r_probe"]) == (5, 5)
+    r = dict(zip(blk._CFG_NAMES, blk.finder_cfg(p, 777).tolist()))
+    assert (r["fwd_chain"], r["rolz_dec"], r["p_rep"]) == (blk._R_PROBE, 2, 0)
+    assert p.n_slots == 5 and blk.BlockParams(**WIDE).n_slots == 3
+    src = (build.CSRC / "ppm_r.cuh").read_text()
+    for name, value in (("DST_W", ppm.DST_W), ("SSE_XCTX", ppm.SSE_XCTX),
+                        ("SYM_DST_REPEAT", blk.SYM_DST_REPEAT), ("MANT_N", 16)):
+        assert int(re.search(rf"#define {name} (\d+)", src).group(1)) == value
+
+
 def test_fast_cfg_carries_the_mode_f_knobs():
     """fast._cfg overrides the encoder fields of Cfg with mode F's knobs and
     leaves the geometry alone."""
@@ -76,12 +101,12 @@ def test_kernel_sources_and_launch_table():
     """Every kernel of the launch table has its source, the shared headers
     are part of the build's key, and the scan tile is one number."""
     assert set(blk.LAUNCHES) == {"KS", "K1", "K2", "K3", "K4", "K5", "K6", "K7",
-                                 "K8", "K9", "K10"}
+                                 "K8", "K9", "K10", "K4x", "K11", "K12e", "K12d"}
     assert set(blk._EVENTS) == set(blk.LAUNCHES)
     names = {p.name for p in build._sources()}
     assert {"search.cu", "decode.cu", "model.cu", "rans.cu", "sortfind.cu",
             "rank.cu", "parse.cu", "f2find.cu", "f2tok.cu", "f2enc.cu",
-            "f2dec.cu", "sortlib.cuh", "f2scan.cuh", "ppm_r.cuh"} <= names
+            "f2dec.cu", "xrep.cu", "sortlib.cuh", "f2scan.cuh", "ppm_r.cuh"} <= names
     scan = (build.CSRC / "f2scan.cuh").read_text()
     threads = int(re.search(r"#define SCAN_THREADS (\d+)", scan).group(1))
     per = int(re.search(r"#define SCAN_PER (\d+)", scan).group(1))
@@ -343,3 +368,127 @@ def test_fast_finder_knobs_on_card(cuda_device, monkeypatch, name, tail):
     kw = dict(prices=tfast._F_PRICES, n_c=4)
     assert torch.equal(blk.parse_scan(p, n, want, **kw),
                        blk.parse_scan_plain(p, n, want, **kw))
+
+
+# ---- mode X: K4x, K6's X entry, K11, K12e, K3 at five slots, K12d
+
+X_WIDE = dict(lanes=512, steps=64, mode="X", min_len=6, window=250, o3_bits=14,
+              rolz_ctx_bytes=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["text", "zeros", "period7", "random"])
+@pytest.mark.parametrize("kernel", ["K4x", "K6X", "K11", "K6Xrep", "K12e", "K3",
+                                    "K12d"])
+def test_x_kernel_matches_plain(cuda_device, kernel, name):
+    """Each mode-X kernel against its plain version (every output grid and
+    every table equal), fed the plain version's output of the pass before."""
+    p = blk.BlockParams(**X_WIDE)
+    n = p.capacity - 100
+    inp = torch.from_numpy(
+        _fast_inputs(name, p, n).reshape(p.lanes, p.steps)).to(cuda_device)
+    cands = blk.sort_candidates_plain(p, inp, n, True)
+    if kernel == "K4x":
+        bytes_pad = blk.pad_block(p, inp)
+        cfg = blk.finder_cfg(p, n, True)
+        hs, ps = blk.sort_positions(p, bytes_pad, n, entry="cpx_k4x_sort_launch",
+                                    cfg=cfg)
+        hp, pp = torch.sort(blk.sort_keys_plain(p, bytes_pad, n, True), stable=True)
+        assert torch.equal(hs, hp) and torch.equal(ps, pp)
+        assert torch.equal(blk.sort_candidates(p, inp, n, content=True), cands)
+        return
+    kw = dict(prices=blk.x_prices(), n_c=cands.shape[0] // 2)
+    first = blk.parse_scan_plain(p, n, cands, **kw)
+    if kernel == "K6X":
+        assert torch.equal(blk.parse_scan(p, n, cands, **kw), first)
+        return
+    rep = blk.rep_scan_plain(p, inp, n, first)
+    if kernel == "K11":
+        assert torch.equal(blk.rep_scan(p, inp, n, first), rep)
+        return
+    dec = blk.parse_scan_plain(p, n, cands, rep=rep, **kw)
+    if kernel == "K6Xrep":
+        assert torch.equal(blk.parse_scan(p, n, cands, rep=rep, **kw), dec)
+        return
+    dec = dec[:2].contiguous()
+
+    def fresh():
+        return ppm.init_tables(True, p.o3_bits, cuda_device)
+
+    tk, tp = fresh(), fresh()
+    ev = blk.model_scan_plain(p, inp, n, dec, tp)
+    if kernel == "K12e":
+        assert torch.equal(blk.model_scan(p, inp, n, dec, tk), ev)
+        assert all(torch.equal(tk[k], tp[k]) for k in tk)
+        return
+    want = blk.rans_scan_plain(p, ev)
+    if kernel == "K3":
+        got = blk.rans_scan(p, ev)
+        assert got[1].shape == (p.steps, 5, p.lanes)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        return
+    n_words, states, stream = blk._unpack_payload(blk._pack_payload(*want), p)
+    st = torch.from_numpy(states.astype(np.int64)).to(cuda_device)
+    sw = torch.from_numpy(stream.astype(np.int32)).to(cuda_device)
+    tk, tp = fresh(), fresh()
+    xk, uk, ok = blk.decode_scan(p, st, sw, n, tk)
+    xp, up, op = blk.decode_scan_plain(p, st, sw, n, tp)
+    assert uk == up == n_words
+    assert torch.equal(xk, xp) and torch.equal(ok, op)
+    assert all(torch.equal(tk[k], tp[k]) for k in tk)
+    assert np.array_equal(ok.cpu().numpy().reshape(-1)[:n],
+                          inp.cpu().numpy().reshape(-1)[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_x_decode_kernel_on_garbage_matches_plain(cuda_device, seed):
+    """A random stream drives distance buckets past 24 and sources before
+    the block: the kernel must leave the state the plain version leaves."""
+    p = blk.BlockParams(**dict(X_WIDE, lanes=64))
+    rng = np.random.default_rng(seed)
+    st = torch.from_numpy(rng.integers(1 << 16, 1 << 32, p.lanes, dtype=np.int64)).to(cuda_device)
+    sw = torch.from_numpy(rng.integers(0, 1 << 16, p.stream_pad).astype(np.int32)).to(cuda_device)
+    tk = ppm.init_tables(True, p.o3_bits, cuda_device)
+    tp = ppm.init_tables(True, p.o3_bits, cuda_device)
+    xk, uk, ok = blk.decode_scan(p, st, sw, p.capacity, tk)
+    xp, up, op = blk.decode_scan_plain(p, st, sw, p.capacity, tp)
+    assert uk == up and torch.equal(xk, xp) and torch.equal(ok, op)
+    assert all(torch.equal(tk[k], tp[k]) for k in tk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flexible", [True, False])
+@pytest.mark.parametrize("lanes", [8, 72, 1024])
+def test_x_block_roundtrip_on_card(cuda_device, flexible, lanes):
+    p = blk.BlockParams(**dict(X_WIDE, lanes=lanes, steps=32, flexible=flexible))
+    data = text(p.capacity - 7, seed=8)
+    before = dict(blk.LAUNCHES)
+    payload = blk.encode_block(data, p, cuda_device)
+    assert all(blk.LAUNCHES[k] == before[k] + 1 for k in ("K4x", "K12e", "K3"))
+    assert blk.LAUNCHES["K6"] == before["K6"] + 2 * int(flexible)
+    assert blk.LAUNCHES["K11"] == before["K11"] + int(flexible)
+    assert payload == blk.encode_block(data, p, "cpu")
+    np.testing.assert_array_equal(
+        blk.decode_block(payload, data.size, p, cuda_device), data)
+    assert blk.LAUNCHES["K12d"] == before["K12d"] + 1
+    assert blk.LAUNCHES["K1"] == before["K1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cands,probe", [(2, 4), (3, 0), (7, 64)])
+def test_x_finder_knobs_on_card(cuda_device, monkeypatch, n_cands, probe):
+    monkeypatch.setenv("CPX_X_CANDS", str(n_cands))
+    monkeypatch.setenv("CPX_X_PROBE", str(probe))
+    p = blk.BlockParams(**X_WIDE)
+    n = p.capacity - 321
+    inp = torch.from_numpy(
+        _fast_inputs("text", p, n).reshape(p.lanes, p.steps)).to(cuda_device)
+    want = blk.sort_candidates_plain(p, inp, n, True)
+    assert want.shape[0] == 2 * n_cands
+    assert torch.equal(blk.sort_candidates(p, inp, n, content=True), want)
+    kw = dict(prices=blk.x_prices(), n_c=n_cands)
+    first = blk.parse_scan_plain(p, n, want, **kw)
+    rep = blk.rep_scan_plain(p, inp, n, first)
+    assert torch.equal(blk.parse_scan(p, n, want, rep=rep, **kw),
+                       blk.parse_scan_plain(p, n, want, rep=rep, **kw))

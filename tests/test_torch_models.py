@@ -322,3 +322,119 @@ def test_unported_knobs_raise(monkeypatch, knob, value):
     monkeypatch.setattr(ppm, knob, value)
     with pytest.raises(NotImplementedError, match=f"CPX_{knob}"):
         ppm.init_tables(True, O3_BITS, "cpu")
+
+
+# --------------------------------------------------------------------------
+# Mode X: the distance-bucket row, the hit-only APM, the mantissa table
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_read_dst(seed):
+    """The shared distance-bucket row: halved (up to three rounds) only
+    when a match lane reads it over DST_CAP."""
+    rng = np.random.default_rng(seed)
+    t_np = random_tables(rng)
+    t_np["dst"] = rng.integers(1, (400, 2000, 9000, 60000)[seed], 32).astype(np.int32)
+    jt, pt = both(t_np)
+    mask = (rng.random(S) < 0.3) if seed != 1 else np.zeros(S, bool)
+    jt2, jrows, jcums, jtots = jppm.read_dst(jt, jnp.asarray(mask))
+    rows, cums, tots = ppm.read_dst(pt, _t(mask, bool))
+    for a, b in ((rows, jrows), (cums, jcums), (tots, jtots)):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+    np.testing.assert_array_equal(pt["dst"].numpy(), _np(jt2["dst"]))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_read_o2_with_hit_only_sse_and_update(seed):
+    """read_o2 with mode X's hit-only APM (48 contexts on ``sse_x``: no
+    match-flag reshape), then apply_updates with the distance symbol and
+    sse_update_hit: every table equals the JAX package's."""
+    rng = np.random.default_rng(seed)
+    ln = lanes(rng)
+    t_np = randomise_rows(rng, random_tables(rng), ln["ctx2"], ln["p1"])
+    t_np["sse_x"] = rng.integers(16, 65521, t_np["sse_x"].shape).astype(np.int32)
+    jt, pt = both(t_np)
+    ji = lambda a: jnp.asarray(a, jnp.int32)  # noqa: E731
+    jctx = jppm.sse_x_ctx_of(ji(ln["conf"]), ji(ln["p1"]))
+    pctx = ppm.sse_x_ctx_of(_t(ln["conf"], np.int32), _t(ln["p1"], np.int32))
+    np.testing.assert_array_equal(pctx.numpy(), _np(jctx))
+    assert int(pctx.max()) < ppm.SSE_XCTX
+    j = jppm.read_o2(
+        jt, ji(ln["ctx2"]), ji(ln["pred"]), jnp.asarray(ln["coding"]),
+        ji(ln["conf"]), ji(ln["pred2"]), jnp.asarray(ln["valid2"]),
+        sse_hitx=("sse_x", jppm.SSE_XCTX, jctx))
+    p = ppm.read_o2(
+        pt, _t(ln["ctx2"]), _t(ln["pred"], np.int32), _t(ln["coding"], bool),
+        _t(ln["conf"], np.int32), sse_hitx=("sse_x", pctx))
+    for a, b in zip(p[:5], j[1:6]):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+    for a, b in zip(p[5], j[6]):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+    # the match slot is not reshaped in mode X
+    np.testing.assert_array_equal(p[1][:, ppm.SYM_MATCH].numpy(),
+                                  p[0][:, ppm.SYM_MATCH].numpy())
+
+    jh3 = ji(ln["h3"])
+    pred, conf, pred2, conf2, raw = ppm.o3_read(pt, _t(ln["h3"]))
+    jpred, jconf, jpred2, jconf2, jraw = jppm.o3_read(jt, jh3)
+    kind = rng.integers(0, 4, S)
+    byte = rng.integers(0, 256, S)
+    sym_a = np.where(kind == 0, ppm.SYM_HIT, np.where(
+        kind == 1, ppm.SYM_ESC, np.where(kind == 2, ppm.SYM_MATCH, byte)))
+    old_f = np.where(rng.random(S) < 0.5, ppm.INC2, rng.integers(0, 40, S))
+    sym_len = rng.integers(0, 256, S)
+    sym_dst = rng.integers(0, 34, S)  # past the row: dropped
+    len_ctx = rng.integers(0, 4, S)
+    zero = np.zeros(S, np.int64)
+    coding = ln["coding"]
+    is_hit = coding & (sym_a == ppm.SYM_HIT)
+    jt2 = jppm.apply_updates(
+        jt, jnp.asarray(coding), ji(ln["ctx2"]), ji(sym_a), ji(byte),
+        ji(old_f), ji(ln["p1"]), jh3, jpred, jconf, ji(sym_len), ji(zero),
+        ji(sym_dst), o2_halve_delta=j[5], len_ctx=ji(len_ctx), idx_ctx=ji(zero),
+        o3_raw=jraw, pred2=jpred2, conf2=jconf2)
+    jt2 = jppm.sse_update_hit(jt2, "sse_x", jppm.SSE_XCTX, j[6],
+                              jnp.asarray(coding), jnp.asarray(is_hit))
+    ppm.apply_updates(
+        pt, _t(coding, bool), _t(ln["ctx2"]), _t(sym_a), _t(byte), _t(old_f),
+        _t(ln["p1"]), _t(ln["h3"]), pred, conf, _t(sym_len), _t(zero),
+        p[4], _t(len_ctx), _t(zero), raw, sym_dst=_t(sym_dst))
+    ppm.sse_update_hit(pt, "sse_x", p[5], _t(coding, bool), _t(is_hit, bool))
+    assert_tables_equal(jt2, pt)
+    assert not np.array_equal(_np(jt2["dst"]), t_np["dst"])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_mantissa_read_update_and_events(seed):
+    """The adaptive mantissa table: the row read, the D/E events of the
+    encoder for every bucket 0..24, and the update (all adaptive lanes add,
+    then a row over MANT_CAP is halved) — summed by integers here, by an
+    exact one-hot product in the JAX package."""
+    from comprox_tpu.codec import block as jblk
+    from comprox_tpu_torch.codec import block as blk
+
+    rng = np.random.default_rng(seed)
+    s = 64
+    t_np = random_tables(rng)
+    t_np["mant"] = rng.integers(1, (30, 600, 1100, 3000)[seed], (16, 16)).astype(np.int32)
+    jt, pt = both(t_np)
+    k = rng.integers(0, 25, s)
+    k[:25] = np.arange(25)
+    dist = (1 << k) + (rng.integers(0, 1 << 24, s) & ((1 << k) - 1))
+    has_extra = rng.random(s) < 0.8
+    has_extra[:25] = True
+    ji = lambda a: jnp.asarray(a, jnp.int32)  # noqa: E731
+    np.testing.assert_array_equal(blk._dist_bucket(_t(dist)).numpy(), k)
+    mctx = np.clip(k - 5, 0, 11)
+    joh, jrows, jcums, jtot = jblk._mant_read(jt, ji(mctx))
+    rows, cums, tot = blk._mant_read(pt, _t(mctx))
+    for a, b in ((rows, jrows), (cums, jcums), (tot, jtot)):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+    jout = jblk._mant_events_enc(jt, ji(dist), ji(k), jnp.asarray(has_extra))
+    out = blk._mant_events_enc(pt, _t(dist), _t(k), _t(has_extra, bool))
+    for a, b in zip(out, jout[:6]):
+        np.testing.assert_array_equal(a.numpy().astype(np.int64),
+                                      _np(b).astype(np.int64))
+    np.testing.assert_array_equal(pt["mant"].numpy(), _np(jout[6]["mant"]))
+    assert_tables_equal(jout[6], pt)
