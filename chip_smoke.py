@@ -11,15 +11,16 @@ no result line:
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit.
 2. build: compiles the kernels (``comprox_tpu_torch/csrc``: twelve
-   sources, fifteen kernels counting the mode-X entries) with nvcc, one
-   process per source.
+   sources, eighteen kernels counting the entries of modes X and P) with
+   nvcc, one process per source.
 3. golden: decodes the committed JAX-package archives
    (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
    under ``crz e -l512`` with the flexible parse and with ``-f0``, under
-   ``crf e -l512`` and under ``crx e -l512``, the 1 MiB one also with
-   ``-f0``) on the card and checks the decoded bytes' SHA-256; re-encodes
-   the 1 MiB corpus with the port under each of the five and checks that
-   each archive's SHA-256 equals the JAX package's.
+   ``crf e -l512``, under ``crx e -l512`` (the 1 MiB one also with ``-f0``;
+   both sizes also under ``CPX_X_FINDER=scan``) and under ``crp e -l512``)
+   on the card and checks the decoded bytes' SHA-256; re-encodes the 1 MiB
+   corpus with the port under each of the nine and checks that each
+   archive's SHA-256 equals the JAX package's.
    The decoded corpora are the inputs of the next phases, so every machine
    runs the same bytes.
 4. kernels, mode R: each of KS, K4, K5, K6, K2, K3, K1 against its plain
@@ -38,18 +39,29 @@ no result line:
    and at T=256; K6's X entry (both launches: without and with the repeat
    pair), K11, K12e, K3 at five slots and K12d chained at S=512, full
    tables, T=256, each against its plain version; tolerance 0 on every
-   output grid and every table.
-7. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
+   output grid and every table.  KSx (the scan finder's search) the same
+   way: six grids, both bucket tables and the near-match cache.
+7. kernels, mode P: K13e, K3 and K13d chained at S=512, T=256, full-size
+   LZP tables, each against its plain version; tolerance 0 on every grid,
+   every PPM table, ``sse_p`` and ``lzp2/4/8``.
+8. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
+   CLI; archive SHA-256 == the JAX golden; fails if K13e, K3 or K13d was
+   not launched.
+9. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
+   ``CPX_X_FINDER=scan``; archive SHA-256 == the JAX golden written under
+   that knob; fails if KSx, K6, K11, K12e, K3 or K12d was not launched, or
+   if K4x was.
+10. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
    CLI on the 8 MiB corpus; archive SHA-256 == the JAX golden, round trip
    bit-exact; fails if K4x, K11, K6, K12e, K3 or K12d was not launched.
-8. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
+11. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
    through ``comprox_tpu_torch.cli.main`` on the 8 MiB corpus, one block of
    S=512 and T=16384.  The archive's SHA-256 must equal the JAX package's
    and the round trip must be bit-exact; prints MB/s, bpb and the kernel
    times, and fails if K4, K5, K6, K2, K3 or K1 was not launched.
-9. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
+12. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
    K3 or K1 was not launched.
-10. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
+13. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
    way; fails if K7, K6, K8, K9 or K10 was not launched.  Then the host's
    share of that path, stage by stage (dictionary, block encode and decode,
    the LZ copy walk, the CRC).
@@ -60,6 +72,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import json
@@ -75,6 +88,8 @@ MAIN_ARCHIVE = "crz_flex_8MiB_S512.cpx"  # crz e -b8 -l512
 GREEDY_ARCHIVE = "crz_f0_8MiB_S512.cpx"  # crz e -f0 -b8 -l512
 FAST_ARCHIVE = "crf_flex_8MiB_S512.cpx"  # crf e -b8 -l512
 X_ARCHIVE = "crx_flex_8MiB_S512.cpx"  # crx e -b8 -l512
+XSCAN_ARCHIVE = "crx_scan_flex_8MiB_S512.cpx"  # CPX_X_FINDER=scan crx e -b8 -l512
+P_ARCHIVE = "crp_8MiB_S512.cpx"  # crp e -b8 -l512
 KERNEL_STEPS = 256
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, and the float32 rate outside the tensor cores, taken for the
@@ -119,6 +134,13 @@ KERNELS = [
      "comprox_tpu/codec/block.py:1945"),
     ("K12d", "comprox_tpu_torch/csrc/decode.cu",
      "comprox_tpu/codec/block.py:1980"),
+    # mode X's scan finder, and mode P (crp)
+    ("KSx", "comprox_tpu_torch/csrc/search.cu",
+     "comprox_tpu/codec/block.py:1333"),
+    ("K13e", "comprox_tpu_torch/csrc/model.cu",
+     "comprox_tpu/codec/block.py:1677"),
+    ("K13d", "comprox_tpu_torch/csrc/decode.cu",
+     "comprox_tpu/codec/block.py:1980"),
 ]
 
 
@@ -134,6 +156,19 @@ def max_err(pairs) -> int:
         if a.numel():
             err = max(err, int((a.long() - b.long()).abs().max()))
     return err
+
+
+@contextlib.contextmanager
+def finder_knob(knob, value):
+    """The port's finder knob (read from the environment at import) set to
+    ``value`` for the block."""
+    from comprox_tpu_torch.codec import block as blk
+
+    old, blk._ENV[knob] = blk._ENV[knob], value
+    try:
+        yield
+    finally:
+        blk._ENV[knob] = old
 
 
 class Phases:
@@ -198,12 +233,16 @@ def phase_golden():
                            ("crz_flex_1MiB_S512.cpx", True),
                            ("crf_flex_1MiB_S512.cpx", True),
                            ("crx_f0_1MiB_S512.cpx", False),
-                           ("crx_flex_1MiB_S512.cpx", True)):
+                           ("crx_flex_1MiB_S512.cpx", True),
+                           ("crx_scan_f0_1MiB_S512.cpx", False),
+                           ("crx_scan_flex_1MiB_S512.cpx", True),
+                           ("crp_1MiB_S512.cpx", True)):
         cp = make_params(name[:3], {"lanes": 512, "block_mb": 1,
                                     "flexible": flexible})
         buf = io.BytesIO()
         t0 = time.perf_counter()
-        encode_stream(corpora[name], buf, cp, "cuda")
+        with finder_knob("CPX_X_FINDER", "scan" if "_scan_" in name else "sort"):
+            encode_stream(corpora[name], buf, cp, "cuda")
         t_enc = time.perf_counter() - t0
         got = buf.getvalue()
         if sha256(got) != meta[name]["archive_sha256"]:
@@ -633,6 +672,29 @@ def phase_kernels_x(corpus):
     _record(res, "K4x", err, ms, plain_ms, _nbytes(inp, ck), k4x_ops(ck, big))
     k4x_small = dict(res["K4x"])
 
+    # KSx, the scan finder's search.  Operations: per position two bucket
+    # rows (D entries scored and ranked, 6 each; top_k probes and one
+    # window, 8 bytes a compare) and the near-match cache (hash 12, one
+    # window).  Bytes: the block read, six grids written, the rows of the
+    # three tables that changed.
+    def xsearch0():
+        return blk._init_xsearch(p, dev)
+
+    xk, xp = xsearch0(), xsearch0()
+    blk.reset_launch_counts()
+    gk = blk.search_scan(p, inp, n, xk)
+    if blk.LAUNCHES["KSx"] != 1:
+        raise AssertionError("KSx did not launch")
+    gp, plain_ms = _timed_plain(blk.search_scan_plain, p, inp, n, xp)
+    err = max_err([(gk, gp)] + list(zip(xk, xp)))
+    ms = _kernel_ms("KSx", lambda: (p, inp, n, xsearch0()), blk.search_scan)
+    d = p.rolz_depth
+    _record(res, "KSx", err, ms, plain_ms,
+            _nbytes(inp, gk) + sum(_touched_bytes(a, b) for a, b in zip(xk, xsearch0())),
+            big * (2 * (6 * d + p.top_k * p.probe // 8 + p.window // 8)
+                   + 12 + p.window // 8))
+    del xk, xp
+
     # K6, X entry, first launch (three distance-priced candidates).
     # Operations: the literal (4) and each admissible length (4), as K6.
     kw = dict(prices=prices, n_c=n_c)
@@ -749,9 +811,100 @@ def phase_kernels_x(corpus):
     return res
 
 
-def phase_full_width(corpus, codec, archive, flags, needed):
-    """One path through the CLI: <codec> e [flags] -b8 -l512 and <codec> d.
-    The launch counts are set to 0 just before and read just after."""
+def phase_kernels_p(corpus):
+    """The mode-P kernels against their plain versions on the card: K13e,
+    K3 (three slots, counted under K3) and K13d chained at S=512, T=256 with
+    the full-size LZP tables.  Returns the per-kernel dicts of K13e, K13d."""
+    import numpy as np
+    import torch
+
+    from comprox_tpu_torch.cli.main import make_params
+    from comprox_tpu_torch.codec import block as blk
+    from comprox_tpu_torch.models import ppm
+
+    dev = "cuda"
+    pf = make_params("crp", {"lanes": 512, "block_mb": 8}).block
+    p = blk.BlockParams(lanes=512, steps=KERNEL_STEPS, mode="P",
+                        min_len=pf.min_len, window=pf.window)
+    big = n = p.capacity
+    data = corpus[:n]
+    inp = torch.from_numpy(data.reshape(p.lanes, p.steps).copy()).to(dev)
+    res = {}
+
+    def tables0():
+        return ppm.init_tables(True, p.o3_bits, dev)
+
+    def lzp0():
+        return blk._init_lzp(p, dev)
+
+    def touched(tk, zk):
+        t0_, z0_ = tables0(), lzp0()
+        return (sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
+                + sum(_touched_bytes(zk[k], z0_[k]) for k in zk))
+
+    # K13e.  Operations: per position the o2 row (260 slots: read, adjust,
+    # sum: 3), the side models (64) and the candidate (three hashes and
+    # table reads, the verify: 16; one window compare, 8 bytes at a time).
+    # Bytes: the block read, nine event grids written, the table rows and
+    # LZP slots this run changed.
+    ops = big * (3 * 260 + 64 + 16 + p.window // 8)
+    tk, tp, zk, zp = tables0(), tables0(), lzp0(), lzp0()
+    blk.reset_launch_counts()
+    evk = blk.model_scan(p, inp, n, None, tk, zk)
+    if blk.LAUNCHES["K13e"] != 1:
+        raise AssertionError("K13e did not launch")
+    evp, plain_ms = _timed_plain(blk.model_scan_plain, p, inp, n, None, tp, zp)
+    err = max_err([(evk, evp)] + _tables_pairs(tk, tp) + _tables_pairs(zk, zp))
+    ms = _kernel_ms("K13e", lambda: (p, inp, n, None, tables0(), lzp0()),
+                    blk.model_scan)
+    _record(res, "K13e", err, ms, plain_ms, _nbytes(inp, evk) + touched(tk, zk), ops)
+    n_match = int(evk[:, 8].sum())
+    if n_match == 0:
+        raise AssertionError("K13e coded no match on corpus bytes")
+
+    # K3 at three slots on K13e's events (the kernel mode R's phase holds).
+    sk, ek, wk = blk.rans_scan(p, evk)
+    sp, ep, wp = blk.rans_scan_plain(p, evk)
+    if max_err([(sk, sp), (ek, ep), (wk, wp)]) != 0:
+        raise AssertionError("K3 != plain on mode P's events")
+
+    # K13d on the payload the kernels wrote.  Operations: as K13e without
+    # the window compare.  Bytes: the words the stream holds.
+    payload = blk._pack_payload(sk, ek, wk)
+    n_words, st, stream = blk._unpack_payload(payload, p)
+    st_t = torch.from_numpy(st.astype(np.int64)).to(dev)
+    stream_t = torch.from_numpy(stream.astype(np.int32)).to(dev)
+    tk, tp, zk, zp = tables0(), tables0(), lzp0(), lzp0()
+    xk, uk, ok = blk.decode_scan(p, st_t, stream_t, n, tk, None, zk)
+    (xp, up, op), plain_ms = _timed_plain(
+        blk.decode_scan_plain, p, st_t, stream_t, n, tp, None, zp)
+    if uk != up:
+        raise AssertionError(f"K13d words used {uk} vs plain {up}")
+    err = max_err([(xk, xp), (ok, op)] + _tables_pairs(tk, tp) + _tables_pairs(zk, zp))
+    blk._check_drain(xk.cpu().numpy(), uk, n_words)
+    if not np.array_equal(ok.cpu().numpy().reshape(-1), data):
+        raise AssertionError("K13d did not decode the block")
+    ms = _kernel_ms("K13d", lambda: (p, st_t, stream_t, n, tables0(), None, lzp0()),
+                    blk.decode_scan)
+    _record(res, "K13d", err, ms, plain_ms,
+            4 * n_words + _nbytes(st_t, ok) + touched(tk, zk),
+            big * (3 * 260 + 64 + 16))
+    for name, r in res.items():
+        print(f"{name}: max_abs_err {r['max_abs_err']} (tolerance 0)  kernel "
+              f"{r['ms']:.3f} ms ({r['ms'] * 1e3 / p.steps:.1f} us/step)  "
+              f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  [mode P, S={p.lanes} T={p.steps} full tables, "
+              f"{n_match} matches]")
+        if r["max_abs_err"] != 0:
+            raise AssertionError(
+                f"{name}: kernel != plain (max err {r['max_abs_err']})")
+    return res
+
+
+def phase_full_width(corpus, codec, archive, flags, needed, finder="sort"):
+    """One path through the CLI: <codec> e [flags] -b8 -l512 and <codec> d
+    (mode X's candidates from ``finder``).  The launch counts are set to 0
+    just before and read just after."""
     import numpy as np
 
     from comprox_tpu_torch.cli import main as cli
@@ -764,8 +917,9 @@ def phase_full_width(corpus, codec, archive, flags, needed):
     corpus.tofile(src)
     blk.reset_launch_counts()
     t0 = time.perf_counter()
-    cli.run(codec, ["e", str(src), str(arc), *flags, "-b8", "-l512", "-q"],
-            device="cuda")
+    with finder_knob("CPX_X_FINDER", finder):
+        cli.run(codec, ["e", str(src), str(arc), *flags, "-b8", "-l512", "-q"],
+                device="cuda")
     t_enc = time.perf_counter() - t0
     ms_enc = blk.kernel_ms()
     t0 = time.perf_counter()
@@ -859,6 +1013,16 @@ def main() -> int:
     res.update(res_f)
     res["K6"]["max_abs_err"] = max(res["K6"]["max_abs_err"], k6f["max_abs_err"])
     res.update(ph.run("kernels, mode X", phase_kernels_x, corpora[X_ARCHIVE]))
+    res.update(ph.run("kernels, mode P", phase_kernels_p, corpora[P_ARCHIVE]))
+    crp = ph.run(
+        "full width, crp", phase_full_width, corpora[P_ARCHIVE], "crp",
+        P_ARCHIVE, [], ("K13e", "K3", "K13d"))
+    xscan = ph.run(
+        "full width, crx under the scan finder", phase_full_width,
+        corpora[XSCAN_ARCHIVE], "crx", XSCAN_ARCHIVE, [],
+        ("KSx", "K6", "K11", "K12e", "K3", "K12d"), "scan")
+    if xscan["K4x"]:
+        raise AssertionError("the scan finder's path launched K4x")
     crx = ph.run(
         "full width, crx", phase_full_width, corpora[X_ARCHIVE], "crx",
         X_ARCHIVE, [], ("K4x", "K11", "K6", "K12e", "K3", "K12d"))
@@ -876,6 +1040,8 @@ def main() -> int:
         launches[name] = fast[name]
     for name in ("K4x", "K11", "K12e", "K12d"):
         launches[name] = crx[name]
+    launches["KSx"] = xscan["KSx"]
+    launches["K13e"], launches["K13d"] = crp["K13e"], crp["K13d"]
     launches["K6 (X)"], launches["K3 (5 slots)"] = crx["K6"], crx["K3"]
     ph.run("crf host split", phase_fast_host_split, corpora[FAST_ARCHIVE])
     bad = [m for m in sys.modules

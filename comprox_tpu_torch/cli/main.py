@@ -1,22 +1,25 @@
-"""Command-line frontend of the PyTorch port — the ``crz``, ``crf`` and ``crx``
-codecs.
+"""Command-line frontend of the PyTorch port — the ``crz``, ``crf``, ``crx`` and
+``crp`` codecs.
 
 Counterpart of :mod:`comprox_tpu.cli.main`: the same switches, defaults
 and ``make_params``, so an archive written here is the one the JAX
 package writes for the same command line.  Supported: ``crz e|d`` (mode
 R: ROLZ + PPM + adaptive rANS), ``crf e|d`` (mode F: the fast profile,
-LZ77 tokens + static rANS) and ``crx e|d`` (mode X: LZ77 distances + PPM +
-adaptive rANS) with ``-b -l -F -p -q -m``; encode uses the flexible parse
-unless ``-f0`` asks for the greedy one.
+LZ77 tokens + static rANS), ``crx e|d`` (mode X: LZ77 distances + PPM +
+adaptive rANS) and ``crp e|d`` (mode P: LZP + PPM + adaptive rANS) with
+``-b -l -F -p -q -m``; encode uses the flexible parse unless ``-f0`` asks
+for the greedy one (``crp`` has no parse: ``-f0`` and ``-m`` are accepted
+and change nothing).
 
 Not yet ported, refused with an error (the ROADMAP.md item in brackets):
-``-c`` and ``-C`` [11], ``-j`` and ``-g`` [15], the ``crp`` codec [14].
-Nothing switches silently to another format.
+``-c`` and ``-C`` [11], ``-j`` and ``-g`` [15].  Nothing switches silently
+to another format.
 
     python -m comprox_tpu_torch.cli.main crz e in out -b8 -l512
     python -m comprox_tpu_torch.cli.main crz d out in.copy
     python -m comprox_tpu_torch.cli.main crf e in out -b8 -l512
     python -m comprox_tpu_torch.cli.main crx e in out -b8 -l512
+    python -m comprox_tpu_torch.cli.main crp e in out -b8 -l512
 
 The command line runs on the first CUDA device and fails without one; the
 library call :func:`run` takes the device explicitly.
@@ -88,15 +91,14 @@ def parse_args(argv):
     return prog, args[0], args[1], args[2], opts
 
 
-_MODE = {"crz": "R", "crf": "F", "crx": "X"}
+_MODE = {"crz": "R", "crf": "F", "crx": "X", "crp": "P"}
 
 
 def make_params(codec_name: str, opts) -> ContainerParams:
-    """The JAX package's make_params for crz, crf and crx: same BlockParams."""
+    """The JAX package's make_params: the same BlockParams per codec."""
     if codec_name not in _MODE:
-        raise NotImplementedError(
-            f"codec {codec_name} is not yet ported to comprox_tpu_torch "
-            "(ROADMAP.md item 14): only crz, crf and crx are"
+        raise ValueError(
+            f"unknown codec {codec_name!r}: crz, crf, crx and crp are the codecs"
         )
     mode = _MODE[codec_name]
     lanes = opts["lanes"]
@@ -107,7 +109,7 @@ def make_params(codec_name: str, opts) -> ContainerParams:
         lanes=lanes,
         steps=max(1, cap // lanes),
         mode=mode,
-        min_len={"R": 5, "X": 6, "F": 6}[mode],
+        min_len={"P": 4, "R": 5, "X": 6, "F": 6}[mode],
         window=opts.get("window", 250),
         top_k=max(1, min(8, round(opts.get("depth", 40) / 10))),
         flexible=opts.get("flexible", True),
@@ -125,7 +127,8 @@ def log(quiet, msg):
 
 
 def run(codec_name: str, argv, device) -> int:
-    """Run one ``crz``, ``crf`` or ``crx`` ``e|d`` command line on ``device``."""
+    """Run one ``crz``, ``crf``, ``crx`` or ``crp`` ``e|d`` command line on
+    ``device``."""
     import torch
 
     prog, mode, inp, outp, opts = parse_args([codec_name] + list(argv))
@@ -157,7 +160,7 @@ def run(codec_name: str, argv, device) -> int:
             log(quiet, f"bits-per-byte:  {csize * 8 / data.size:.3f}")
     else:
         if codec_name not in _MODE:
-            make_params(codec_name, opts)  # raises: codec not ported
+            make_params(codec_name, opts)  # raises: no such codec
         f = open(inp, "rb") if inp != "-" else sys.stdin.buffer
         g = sys.stdout.buffer if outp == "-" else open(outp, "wb")
         try:

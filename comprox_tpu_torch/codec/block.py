@@ -1,10 +1,10 @@
-"""Block codec, modes R and X: S lock-step lanes over one block — ROLZ or
-LZ77 matches + PPM + rANS.  (Mode F, the static-table fast profile, is
-:mod:`comprox_tpu_torch.codec.fast`; it shares this module's parameters,
+"""Block codec, modes R, X and P: S lock-step lanes over one block — ROLZ,
+LZ77 or LZP matches + PPM + rANS.  (Mode F, the static-table fast profile,
+is :mod:`comprox_tpu_torch.codec.fast`; it shares this module's parameters,
 launch accounting and price DP.)
 
-Counterpart of :mod:`comprox_tpu.codec.block` (modes R and X,
-``short_depth=0``, unchained, the sort finders): a block of n bytes is cut into S contiguous lanes of T steps,
+Counterpart of :mod:`comprox_tpu.codec.block` (modes R, X and P,
+``short_depth=0``, unchained): a block of n bytes is cut into S contiguous lanes of T steps,
 ``position(lane, step) = lane * T + step``, and all lanes advance one byte
 per step through shared model and bucket tables.  The payload layout, the
 table evolution and every intermediate grid are the JAX package's.
@@ -30,7 +30,19 @@ the distance each lane would hold at each position under that parse, and
 the match length at that distance) and the DP again with the repeat
 candidate; ``-f0`` takes the longest candidate greedily.  The modeling scan
 (K12e), the rANS scan (K3 at five slots) and the decode scan (K12d, which
-keeps no match table) follow.
+keeps no match table) follow.  Under ``CPX_X_FINDER=scan`` the candidates
+come from the per-step search scan instead (KSx: two bucket tables, keyed
+by the next eight bytes and by the preceding context, and a 6-byte-hash
+cache; three candidates a position); ``CPX_R_FINDER=scan`` sends mode R's
+KS candidate through the price DP.
+
+Mode P (the ``crp`` codec) is LZP: a match has no coded source.  Three
+tables shared by the lanes map the hash of the last 8, 4 and 2 bytes to
+the position that followed them last; both sides read the same candidate
+before each byte, so a match is the A symbol plus its length.  Encode is
+one modeling scan (K13e: candidate, match length against the window, A/B/C
+events with the hit APM keyed by the candidate's availability) and K3 at
+three slots; decode is one scan (K13d).  There is no search or parse pass.
 
 Each pass has a plain PyTorch version and a
 CUDA kernel; the wrapper picks the plain version for a CPU tensor and the
@@ -148,9 +160,10 @@ _ENV_DEFAULTS = {
     "CPX_STREAM_READ": "auto",
     "CPX_DEBUG_EVT": "",
 }
-_ENV_ITEMS = {  # where the other value of a knob is queued
-    "CPX_X_FINDER": ": the per-step X search is ROADMAP.md item 16",
-}
+# the candidate source of modes R and X: the whole-block sort finder, or the
+# per-step search scan (KS / KSx)
+_FINDERS = ("sort", "scan")
+_ENV_CHOICES = {"CPX_R_FINDER": _FINDERS, "CPX_X_FINDER": _FINDERS}
 _ENV = {k: _os.environ.get(k, v) for k, v in _ENV_DEFAULTS.items()}
 
 # Encoder-only knobs of the flexible parse, read at import like JAX's
@@ -170,6 +183,9 @@ _P_XREP = int(_os.environ.get("CPX_PARSE_XREP", "45"))
 SYM_DST_REPEAT = 24  # slot-B symbol "the previous distance again"
 _P_INF = 1 << 22  # cost-to-go ceiling of the price DP (key packing: * 256)
 _INSERT_LATE = 3  # a bucket entry for position q is inserted at step q + 3
+_X_INSERT_LATE = 7  # KSx's content-keyed entry: at step q + 7
+LZP4_BITS = 20  # mode P: the table keyed by the last 4 bytes
+LZP8_BITS = 23  # and by the last 8
 MAX_CANDS = 7  # proposals the kernels keep per position (plus the bucket's)
 
 
@@ -188,15 +204,16 @@ def check_supported(p: BlockParams) -> None:
     """Raise for a block configuration or knob the port does not have."""
     ppm.check_knobs()
     for k, default in _ENV_DEFAULTS.items():
-        if _ENV[k] != default:
+        allowed = _ENV_CHOICES.get(k, (default,))
+        if _ENV[k] not in allowed:
             raise NotImplementedError(
                 f"{k}={_ENV[k]!r} is not ported to comprox_tpu_torch "
-                f"(only the default {default!r})" + _ENV_ITEMS.get(k, "")
+                f"(only {' or '.join(repr(a) for a in allowed)})"
             )
-    if p.mode not in ("R", "F", "X"):
+    if p.mode not in ("R", "F", "X", "P"):
         raise NotImplementedError(
-            f"mode {p.mode!r} is not yet ported to comprox_tpu_torch "
-            "(ROADMAP.md item 14); only modes R (crz), F (crf) and X (crx) are"
+            f"mode {p.mode!r} is not a block mode of comprox_tpu_torch: "
+            "R (crz), F (crf), X (crx) and P (crp) are"
         )
     if p.mode == "X":
         if ppm.SSE_X != 1:
@@ -278,6 +295,33 @@ def rolz_hash3(key3, bits: int):
     return (v >> (32 - bits)) & ((1 << bits) - 1)
 
 
+def lzp_hash4(ctx4):
+    """Last 4 bytes -> slot of mode P's ``lzp4`` table."""
+    return (_mul32(ctx4 & MASK32, 2654435761) >> 12) & ((1 << LZP4_BITS) - 1)
+
+
+def lzp_hash8(ctx4, ctx4b):
+    """Last 8 bytes (two packed words, one odd multiplier each) -> slot of
+    mode P's ``lzp8`` table."""
+    v = _mul32(ctx4 & MASK32, 2654435761) ^ _mul32(ctx4b & MASK32, 0xC2B2AE3D)
+    return (v >> 10) & ((1 << LZP8_BITS) - 1)
+
+
+def x_hash8(nx4, fol4, bits: int):
+    """A position's next 8 bytes (two little-endian words) -> bucket of
+    KSx's content-keyed table."""
+    v = _mul32(nx4 & MASK32, 0x9E3779B1) ^ _mul32(fol4 & MASK32, 0x85EBCA77)
+    return (v >> (32 - bits)) & ((1 << bits) - 1)
+
+
+def x_hash6(win):
+    """[S, >= 6] byte window -> slot of KSx's 2^16-entry near-match cache."""
+    h = torch.zeros(win.shape[0], dtype=_i64, device=win.device)
+    for j in range(6):
+        h = _mul32(h, 123456791) ^ win[:, j].to(_i64)
+    return (h ^ (h >> 15)) & 0xFFFF
+
+
 def _rolz_key(ctx4, p: BlockParams):
     return ctx4 & (0xFFFFFF if p.rolz_ctx_bytes == 3 else MASK32)
 
@@ -346,6 +390,66 @@ def _init_rolz(p: BlockParams, device):
     )
 
 
+def _init_xsearch(p: BlockParams, device):
+    """KSx's three encoder-private tables: the content-keyed and the
+    context-keyed bucket table, and the near-match cache ``xshort``."""
+    return (_init_rolz(p, device), _init_rolz(p, device),
+            torch.zeros(1 << 16, dtype=_i32, device=device))
+
+
+LZP_KEYS = ("lzp2", "lzp4", "lzp8")
+
+
+def _init_lzp(p: BlockParams, device):
+    """Mode P's three shared tables (position + 1 per slot, 0 = empty)."""
+    sizes = (1 << 16, 1 << LZP4_BITS, 1 << LZP8_BITS)
+    return {k: torch.zeros(n, dtype=_i32, device=device)
+            for k, n in zip(LZP_KEYS, sizes)}
+
+
+def lzp_from_numpy(d: dict, device) -> dict:
+    """The JAX carry's ``lzp2/4/8`` -> port tensors (copies: the port
+    updates them in place)."""
+    return {k: torch.from_numpy(np.array(d[k], dtype=np.int32)).to(device)
+            for k in LZP_KEYS}
+
+
+def lzp_to_numpy(lzp: dict) -> dict:
+    return {k: lzp[k].cpu().numpy() for k in LZP_KEYS}
+
+
+def _lzp_candidate(c, lzp, t: int, p: BlockParams, hist_flat):
+    """Mode P's match source, the same on both sides: the ``lzp8`` entry
+    where it is causal (an earlier step of its lane) and its 8 preceding
+    bytes equal the lane's last 8, else ``lzp4``'s under the same rule with
+    4 bytes, else the exact ``lzp2`` entry.  A source too near its lane's
+    head to be verified from decoded bytes is taken unverified.
+    ``hist_flat`` is the block's bytes: the input on encode, the decoded
+    buffer on decode.  ``(src, ok)``
+    (block.py::_lzp_candidate)."""
+    ctx4, ctx4b = c["ctx4"], c["ctx4b"]
+    dev = ctx4.device
+    src8 = lzp["lzp8"][lzp_hash8(ctx4, ctx4b)].to(_i64) - 1
+    src4 = lzp["lzp4"][lzp_hash4(ctx4)].to(_i64) - 1
+    src2 = lzp["lzp2"][ctx4 & 0xFFFF].to(_i64) - 1
+    offs = torch.arange(8, device=dev)
+    # byte pos - 8 + offs: 0..3 from ctx4b, 4..7 from ctx4, newest lowest
+    packed = torch.where(offs[None, :] < 4, ctx4b[:, None], ctx4[:, None])
+    want = (packed >> (((7 - offs) * 8) % 32)[None, :]) & 0xFF
+
+    def verified(src, k, t_min):
+        ok = (src >= 0) & (src % p.steps < t) & (t >= t_min)
+        verifiable = ok & (src % p.steps >= k)
+        idx = ((src - k).clamp_min(0)[:, None] + offs[None, :k]).clamp(
+            0, hist_flat.shape[0] - 1)
+        eq = (hist_flat[idx].to(_i64) == want[:, 8 - k:]).all(dim=1)
+        return ok & (eq | ~verifiable)
+
+    ok8, ok4 = verified(src8, 8, 8), verified(src4, 4, 4)
+    ok2 = (src2 >= 0) & (src2 % p.steps < t) & (t >= 2)
+    return torch.where(ok8, src8, torch.where(ok4, src4, src2)), ok8 | ok4 | ok2
+
+
 def _init_carry(p: BlockParams, device):
     z = torch.zeros(p.lanes, dtype=_i64, device=device)
     c = {"ctx4": z, "ctx4b": z.clone(), "copy_rem": z.clone(),
@@ -374,8 +478,9 @@ def _common_reads(c, t, n, p: BlockParams, tables):
             pred2, conf2, raw)
 
 
-def _bucket_insert(rolz, p: BlockParams, rctx, ins, pos, nx4):
-    """Insert (q+1, prefix) for q = pos-3 into each bucket's oldest slot,
+def _bucket_insert(rolz, p: BlockParams, rctx, ins, pos, nx4,
+                   late: int = _INSERT_LATE):
+    """Insert (q+1, prefix) for q = pos-late into each bucket's oldest slot,
     IN PLACE; lanes inserting into one bucket in one step take consecutive
     oldest slots in lane order."""
     s = rctx.shape[0]
@@ -388,15 +493,18 @@ def _bucket_insert(rolz, p: BlockParams, rctx, ins, pos, nx4):
     slot_ids = torch.arange(p.rolz_depth, device=rctx.device)
     slot = torch.where(age == rank[:, None], slot_ids, 0).sum(dim=1)
     r, sl = rctx[ins], slot[ins]
-    rolz[r, sl, 0] = (pos - 3 + 1)[ins].to(_i32)
+    rolz[r, sl, 0] = (pos - late + 1)[ins].to(_i32)
     rolz[r, sl, 1] = _to_i32(nx4[ins])
 
 
 def _post_step(c, t, p: BlockParams, pos, active, byte, is_match, src,
-               sym_len, rolz=None, dist=None):
+               sym_len, rolz=None, dist=None, xsearch=None, lzp=None, n=None):
     """End-of-step state: copy state, context registers, mode X's previous
     distance (``dist`` given) and, where the caller keeps the bucket table,
-    the insert of position pos-3."""
+    the insert of position pos-3.  KSx (``xsearch``) inserts position pos-7
+    under its own next 8 bytes and position pos-3 under its context; mode P
+    (``lzp`` and the block length ``n``) maps the contexts of position
+    pos+1 to it, the highest position winning a slot."""
     ctx4, ctx4b = c["ctx4"], c["ctx4b"]
     c["copy_rem"] = torch.where(
         is_match, sym_len + (p.min_len - 1), (c["copy_rem"] - 1).clamp_min(0)
@@ -413,6 +521,24 @@ def _post_step(c, t, p: BlockParams, pos, active, byte, is_match, src,
             ins = ins & (pos % p.rolz_dec == 0)
         rctx = rolz_hash3(_rolz_key(ctx4bn, p), p.rolz_bits)
         _bucket_insert(rolz, p, rctx, ins, pos, _byteswap32(ctx4n))
+    if xsearch is not None:
+        nx4q = _byteswap32(ctx4bn)  # bytes q..q+3 of q = pos-7
+        _bucket_insert(xsearch[0], p,
+                       x_hash8(nx4q, _byteswap32(ctx4n), p.rolz_bits),
+                       active & (t >= 10), pos, nx4q, late=_X_INSERT_LATE)
+        _bucket_insert(xsearch[1], p,
+                       rolz_hash3(_rolz_key(ctx4bn, p), p.rolz_bits),
+                       active & (t >= (7 if p.rolz_ctx_bytes == 4 else 6)),
+                       pos, _byteswap32(ctx4n))
+    if lzp is not None:
+        ins2 = active & (t >= 1) & (t != p.steps - 1) & (pos + 1 < n)
+        ins4 = ins2 & (t >= 3)
+        val = (pos + 2).to(_i32)
+        for key, ins, slot in (
+                ("lzp2", ins2, ctx4n & 0xFFFF), ("lzp4", ins4, lzp_hash4(ctx4n)),
+                ("lzp8", ins4 & (t >= 7), lzp_hash8(ctx4n, ctx4bn))):
+            lzp[key].scatter_reduce_(0, slot[ins], val[ins], "amax",
+                                     include_self=True)
 
 
 def _pack_words(inp_flat):
@@ -464,13 +590,27 @@ def _cache_scores(ent, cur_win):
     return torch.where(ent[..., 0] > 0, score, -1)
 
 
-def _rolz_best_match(c, rolz, pos, t, n, p: BlockParams, inp_w32, cur_win):
+def _rolz_best_match(c, rolz, pos, t, n, p: BlockParams, inp_w32, cur_win,
+                     x_keyed: bool = False, mask_fwd: bool = False):
     """Encoder-side candidate search at pos: score every bucket entry by
     its 4-byte prefix cache, probe the top-k to ``probe`` bytes, extend the
-    winner to the full window, cap.  ``(length, src, rec_idx, fill)``."""
-    ent = rolz[_rolz_ctx(c, p)]
+    winner to the full window, cap.  ``(length, src, rec_idx, fill)``.
+    ``x_keyed`` reads the bucket of the position's own next 8 bytes, not of
+    its context; ``mask_fwd`` (KSx, both tables) drops the entries at or
+    after pos before the top-k: a distance cannot name them."""
+    if x_keyed:
+        nx = cur_win[:, :8].to(_i64)
+        rctx = x_hash8(
+            nx[:, 0] | (nx[:, 1] << 8) | (nx[:, 2] << 16) | (nx[:, 3] << 24),
+            nx[:, 4] | (nx[:, 5] << 8) | (nx[:, 6] << 16) | (nx[:, 7] << 24),
+            p.rolz_bits)
+    else:
+        rctx = _rolz_ctx(c, p)
+    ent = rolz[rctx]
     cand_pos = ent[..., 0]
     score = _cache_scores(ent, cur_win)
+    if mask_fwd:
+        score = torch.where(cand_pos - 1 < pos[:, None], score, -1)
     rec = _recency_ranks(cand_pos)
     fill = (cand_pos > 0).sum(dim=1, dtype=_i32)
     d = p.rolz_depth
@@ -495,11 +635,7 @@ def _rolz_best_match(c, rolz, pos, t, n, p: BlockParams, inp_w32, cur_win):
     cand = _gather_windows(inp_w32, src, p.window)
     full = _prefix_len(cur_win[:, : p.window], cand)
     length = torch.where(length >= p.probe, full, length)
-    cap = torch.minimum(
-        torch.clamp(n - pos, max=p.steps - t),
-        torch.tensor(_len_cap(p), device=pos.device),
-    )
-    return torch.minimum(length, cap).to(_i32), src, sym_idx, fill
+    return torch.minimum(length, _cap_at(p, pos, t, n)), src, sym_idx, fill
 
 
 # --------------------------------------------------------------------------
@@ -507,18 +643,74 @@ def _rolz_best_match(c, rolz, pos, t, n, p: BlockParams, inp_w32, cur_win):
 # --------------------------------------------------------------------------
 
 
+def _cap_at(p: BlockParams, pos, t: int, n: int):
+    """The longest match that may start at pos: to the end of the lane, of
+    the block and of what the format codes (below 0 past the block)."""
+    return torch.clamp(n - pos, max=min(p.steps - t, _len_cap(p))).to(_i32)
+
+
+def _match_window_len(inp_w32, pos, src, t: int, n: int, p: BlockParams,
+                      cur_win):
+    """Length of the one candidate at ``src`` against the lane's next
+    ``window`` bytes, capped (block.py::_match_window_len)."""
+    cand = _gather_windows(inp_w32, src, p.window)
+    length = _prefix_len(cur_win[:, : p.window], cand)
+    return torch.minimum(length, _cap_at(p, pos, t, n))
+
+
+def _search_step_x(p: BlockParams, inp_w32, n, c, xsearch, t, pos, active,
+                   cur_win):
+    """One KSx step before the inserts: the six grids' rows (length, src,
+    len2, cand, len3, src3) — the best entry of the content-keyed bucket, the
+    near-match cache's entry, the best entry of the context-keyed bucket —
+    and the cache's update, IN PLACE (block.py::_search_body, X branch)."""
+    ent_x, ent_c, xshort = xsearch
+
+    def bucket(table, x_keyed):
+        length, src, _, _ = _rolz_best_match(
+            c, table, pos, t, n, p, inp_w32, cur_win, x_keyed, mask_fwd=True)
+        ok = (src >= 0) & (src < pos) & active & (t >= 7)
+        return torch.where(ok, length, 0), src
+
+    length, src = bucket(ent_x, True)
+    len3, src3 = bucket(ent_c, False)
+    h6 = x_hash6(cur_win)
+    cand = xshort[h6] - 1
+    ok2 = (cand >= 0) & (cand < pos) & active & (t >= 7)
+    full = _prefix_len(cur_win[:, : p.window],
+                       _gather_windows(inp_w32, cand.clamp_min(0), p.window))
+    # the cap is below 0 past the block's end, and stays so in the grid
+    len2 = torch.minimum(torch.where(ok2, full, 0), _cap_at(p, pos, t, n))
+    xshort.scatter_reduce_(0, h6[active], (pos + 1).to(_i32)[active], "amax",
+                           include_self=True)
+    return length, src, len2, cand, len3, src3
+
+
 def search_scan_plain(p: BlockParams, inp, n: int, rolz):
     """Plain KS: ``[4, T, S]`` int32 grids (length, src, rec_idx, fill);
-    ``rolz`` evolves IN PLACE (block.py::_search_body, R branch)."""
+    ``rolz`` evolves IN PLACE (block.py::_search_body, R branch).  Plain
+    KSx (mode X; ``rolz`` is the three tables of :func:`_init_xsearch`):
+    ``[6, T, S]`` (length, src, len2, cand, len3, src3), K6's three (len,
+    src) candidates."""
     dev = inp.device
     c = _init_carry(p, dev)
     inp_w32 = _pack_words(inp.reshape(-1))
-    out = torch.empty((4, p.steps, p.lanes), dtype=_i32, device=dev)
+    x_mode = p.mode == "X"
+    out = torch.empty((6 if x_mode else 4, p.steps, p.lanes), dtype=_i32,
+                      device=dev)
     width = p.window + 1
     for t in range(p.steps):
         pos = torch.arange(p.lanes, device=dev) * p.steps + t
         active = pos < n
         cur_win = _cur_windows(inp, t, width)
+        zero = torch.zeros_like(pos)
+        if x_mode:
+            for k, g in enumerate(_search_step_x(
+                    p, inp_w32, n, c, rolz, t, pos, active, cur_win)):
+                out[k, t] = g
+            _post_step(c, t, p, pos, active, cur_win[:, 0], zero.bool(), zero,
+                       zero, xsearch=rolz)
+            continue
         length, src, sym_idx, fill = _rolz_best_match(
             c, rolz, pos, t, n, p, inp_w32, cur_win
         )
@@ -526,7 +718,6 @@ def search_scan_plain(p: BlockParams, inp, n: int, rolz):
         out[1, t] = src
         out[2, t] = sym_idx
         out[3, t] = fill
-        zero = torch.zeros_like(pos)
         _post_step(c, t, p, pos, active, cur_win[:, 0], zero.bool(), zero,
                    zero, rolz)
     return out
@@ -961,34 +1152,52 @@ def _mant_events_enc(tables, dist, k_dist, has_extra):
     return cd & 0xFFFF, fd & 0xFFFF, act_d, ce & 0xFFFF, fe & 0xFFFF, act_e
 
 
-def _sse_hitx(p: BlockParams, conf, p1):
-    """Mode X's hit-only APM: (table key, contexts), else None."""
+def _sse_hitx(p: BlockParams, conf, p1, lzp_ok=None):
+    """The hit-only APM of modes X and P: (table key, contexts), else None.
+    Mode P's is keyed by whether the lane has a candidate (``lzp_ok``; None
+    with the match layer off, which then has no APM)."""
     if p.mode == "X" and ppm.SSE_X:
         return ("sse_x", ppm.sse_x_ctx_of(conf, p1))
+    if p.mode == "P" and ppm.SSE_P and lzp_ok is not None:
+        return ("sse_p", ppm.sse_p_ctx_of(conf, lzp_ok, p1))
     return None
 
 
 # --------------------------------------------------------------------------
-# K2 / K12e: the modeling scan
+# K2 / K12e / K13e: the modeling scan
 # --------------------------------------------------------------------------
 
 
-def _model_step(p: BlockParams, inp, n, c, tables, t, dec_t):
+def _model_step(p: BlockParams, inp, n, c, tables, t, dec_t, lzp=None,
+                inp_w32=None):
     (lanes, pos, active, coding, copying, p1, ctx2, h3, pred, conf,
      pred2, conf2, raw) = _common_reads(c, t, n, p, tables)
     valid2 = conf2 > 0
     byte = inp[:, t].to(_i64)
-    x_mode = p.mode == "X"
-    if x_mode:
+    x_mode, p_mode = p.mode == "X", p.mode == "P"
+    lzp_ok = None
+    if p_mode:
+        # no parse: the shared tables name the one candidate; it is coded
+        # where it is long enough
+        src = length = sym_idx = fill = torch.zeros_like(pos)
+        do_match = torch.zeros_like(coding)
+        if lzp is not None:
+            src, lzp_ok = _lzp_candidate(c, lzp, t, p, inp.reshape(-1))
+            length = _match_window_len(
+                inp_w32, pos, src, t, n, p,
+                _cur_windows(inp, t, p.window)).to(_i64)
+            do_match = coding & lzp_ok & (length >= p.min_len)
+    elif x_mode:
         length, src = dec_t[0].to(_i64), dec_t[1].to(_i64)
         sym_idx = fill = torch.zeros_like(length)
+        do_match = coding & (length > 0)
     else:
         length, src, sym_idx, fill = (g.to(_i64) for g in dec_t)
-    do_match = coding & (length > 0)
-    sse_hitx = _sse_hitx(p, conf, p1)
+        do_match = coding & (length > 0)
+    sse_hitx = _sse_hitx(p, conf, p1, lzp_ok)
     rows2, rowmod, cums_a, tot_a, o2_hd, sse_st = ppm.read_o2(
         tables, ctx2, pred, coding, conf,
-        sse_fill=fill if (p.match and not x_mode) else None,
+        sse_fill=fill if (p.match and p.mode == "R") else None,
         sse_hitx=sse_hitx,
     )
     f_byte = torch.gather(rowmod, 1, byte[:, None])[:, 0]
@@ -1017,15 +1226,19 @@ def _model_step(p: BlockParams, inp, n, c, tables, t, dec_t):
         sym_dst = torch.where(repeat, SYM_DST_REPEAT, k_dist)
         rows_i, cums_i, tot_i = ppm.read_dst(tables, is_match)
         ci_raw, fi_raw = tb.cum_frq_of(rows_i, cums_i, sym_dst)
-    else:
+    elif not p_mode:
         idx_ctx = _fill_bucket(fill)
         len_ctx = _rec_bucket(sym_idx)
         rows_i, cums_i, tot_i = ppm.read_idx(tables, is_match, idx_ctx)
         ci_raw, fi_raw = tb.cum_frq_of(rows_i, cums_i, sym_idx)
-    cb_raw = torch.where(is_esc, c1_raw, ci_raw)
-    fb_raw = torch.where(is_esc, f1_raw, fi_raw)
-    tot_b = torch.where(is_esc, tot1, tot_i)
-    act_b = is_esc | is_match
+    if p_mode:  # a match has no source to code: B is the escape only
+        idx_ctx = len_ctx = torch.zeros_like(pos)
+        cb_raw, fb_raw, tot_b, act_b = c1_raw, f1_raw, tot1, is_esc
+    else:
+        cb_raw = torch.where(is_esc, c1_raw, ci_raw)
+        fb_raw = torch.where(is_esc, f1_raw, fi_raw)
+        tot_b = torch.where(is_esc, tot1, tot_i)
+        act_b = is_esc | is_match
     cb, fb = rans.norm_cf(cb_raw, fb_raw.clamp_min(1), tot_b.clamp_min(1))
     cb, fb = rans.select_cf(act_b, cb, fb)
 
@@ -1055,19 +1268,21 @@ def _model_step(p: BlockParams, inp, n, c, tables, t, dec_t):
     # the modeling scan reads its decisions from the parse, never a match
     # table, so it keeps none and does no insert (the bytes are the same)
     _post_step(c, t, p, pos, active, byte, is_match, src, sym_len,
-               dist=dist if x_mode else None)
+               dist=dist if x_mode else None, lzp=lzp, n=n)
     return torch.stack(out).to(_i32)
 
 
-def model_scan_plain(p: BlockParams, inp, n: int, dec, tables):
-    """Plain K2 / K12e: ``ev [T, 3 * n_slots, S]`` int32 — (c, f, active) for
-    slots A, B, C (mode X: and D, E); ``tables`` evolve IN PLACE
-    (block.py::_encode_model_body, R and X branches)."""
+def model_scan_plain(p: BlockParams, inp, n: int, dec, tables, lzp=None):
+    """Plain K2 / K12e / K13e: ``ev [T, 3 * n_slots, S]`` int32 — (c, f,
+    active) for slots A, B, C (mode X: and D, E); ``tables`` and mode P's
+    ``lzp`` evolve IN PLACE (block.py::_encode_model_body)."""
     c = _init_carry(p, inp.device)
     ev = torch.empty((p.steps, 3 * p.n_slots, p.lanes), dtype=_i32,
                      device=inp.device)
+    inp_w32 = None if lzp is None else _pack_words(inp.reshape(-1))
     for t in range(p.steps):
-        ev[t] = _model_step(p, inp, n, c, tables, t, dec[:, t])
+        ev[t] = _model_step(p, inp, n, c, tables, t,
+                            None if dec is None else dec[:, t], lzp, inp_w32)
     return ev
 
 
@@ -1100,7 +1315,8 @@ def rans_scan_plain(p: BlockParams, ev):
 # --------------------------------------------------------------------------
 
 
-def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t):
+def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t,
+                 lzp=None):
     (lanes, pos, active, coding, copying, p1, ctx2, h3, pred, conf,
      pred2, conf2, raw) = _common_reads(c, t, n, p, tables)
     valid2 = conf2 > 0
@@ -1111,16 +1327,23 @@ def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t):
         w, used = rans.stream_window_read(stream, base + off, need)
         return rans.dec_renorm(x_tmp, need, w), off + used
 
-    x_mode = p.mode == "X"
-    sse_hitx = _sse_hitx(p, conf, p1)
+    x_mode, p_mode = p.mode == "X", p.mode == "P"
+    lzp_ok = None
     if x_mode:  # distances are coded: the decoder keeps no match table
         fill = torch.zeros_like(pos)
+    elif p_mode:
+        # the candidate comes before the A event (its APM is keyed by it),
+        # from the bytes of earlier steps: this step's column is not written
+        fill = lzp_src = torch.zeros_like(pos)
+        if lzp is not None:
+            lzp_src, lzp_ok = _lzp_candidate(c, lzp, t, p, out.view(-1))
     else:
         rolz_rows = rolz[_rolz_ctx(c, p)]
         fill = (rolz_rows[..., 0] > 0).sum(dim=1, dtype=_i32)
+    sse_hitx = _sse_hitx(p, conf, p1, lzp_ok)
     rows2, rowmod, cums_a, tot_a, o2_hd, sse_st = ppm.read_o2(
         tables, ctx2, pred, coding, conf,
-        sse_fill=fill if (p.match and not x_mode) else None,
+        sse_fill=fill if (p.match and p.mode == "R") else None,
         sse_hitx=sse_hitx,
     )
     tgt = rans.dec_target(rans.dec_slot(x), tot_a.clamp_min(1))
@@ -1149,19 +1372,23 @@ def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t):
         k_pre = torch.where(sym_dst == SYM_DST_REPEAT,
                             _dist_bucket(c["prev_dist"]), sym_dst).clamp(0, 24)
         len_ctx = torch.div(k_pre, 6, rounding_mode="floor").clamp(0, 3)
-    else:
+    elif not p_mode:
         idx_ctx = _fill_bucket(fill)
         rows_i, cums_i, tot_i = ppm.read_idx(tables, is_match, idx_ctx)
         sym_idx, ci_raw, fi_raw = tb.find_symbol(
             rows_i, cums_i, rans.dec_target(slot_b, tot_i.clamp_min(1))
         )
         len_ctx = _rec_bucket(sym_idx)
-    cb_raw = torch.where(is_esc, c1_raw, ci_raw)
-    fb_raw = torch.where(is_esc, f1_raw, fi_raw)
-    tot_b = torch.where(is_esc, tot1, tot_i)
+    if p_mode:  # B is the escape only
+        sym_idx = idx_ctx = len_ctx = torch.zeros_like(pos)
+        cb_raw, fb_raw, tot_b, act_b = c1_raw, f1_raw, tot1, is_esc
+    else:
+        cb_raw = torch.where(is_esc, c1_raw, ci_raw)
+        fb_raw = torch.where(is_esc, f1_raw, fi_raw)
+        tot_b = torch.where(is_esc, tot1, tot_i)
+        act_b = is_esc | is_match
     cb, fb = rans.norm_cf(cb_raw, fb_raw.clamp_min(1), tot_b.clamp_min(1))
-    x, step_off = advance(x, step_off,
-                          *rans.select_cf(is_esc | is_match, cb, fb))
+    x, step_off = advance(x, step_off, *rans.select_cf(act_b, cb, fb))
 
     rows_l, cums_l, tot_l = ppm.read_len(tables, is_match, len_ctx)
     sym_l, cl_raw, fl_raw = tb.find_symbol(
@@ -1203,6 +1430,8 @@ def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t):
                            (e_hi << b_lo) + e_lo)
         dist = torch.where(repeat, c["prev_dist"], (one << k_dist) + mant)
         src = pos - dist
+    elif p_mode:
+        src = lzp_src
     else:
         src = _rolz_src_of_rows(rolz_rows, sym_idx).to(_i64)
     out_flat = out.view(-1)
@@ -1229,22 +1458,24 @@ def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t):
     elif sse_st is not None:
         ppm.sse_update(tables, sse_st, coding, is_match, is_hit)
     _post_step(c, t, p, pos, active, byte, is_match, src, sym_len, rolz,
-               dist=dist if x_mode else None)
+               dist=dist if x_mode else None, lzp=lzp, n=n)
     out[:, t] = torch.where(active, byte, 0).to(torch.uint8)
     return x, base + step_off
 
 
 def decode_scan_plain(p: BlockParams, states, stream, n: int, tables,
-                      rolz=None):
-    """Plain K1 / K12d: ``(states, words_used, out [S, T] uint8)``;
-    ``tables`` and (mode R) ``rolz`` evolve IN PLACE; mode X takes no
-    ``rolz`` (block.py::_decode_scan/_decode_body, R and X branches)."""
+                      rolz=None, lzp=None):
+    """Plain K1 / K12d / K13d: ``(states, words_used, out [S, T] uint8)``;
+    ``tables`` and the mode's match tables (mode R: ``rolz``; mode P with
+    the match layer: ``lzp``; mode X: none) evolve IN PLACE
+    (block.py::_decode_scan/_decode_body)."""
     c = _init_carry(p, states.device)
     out = torch.zeros((p.lanes, p.steps), dtype=torch.uint8,
                       device=states.device)
     x, base = states.to(_i64), 0
     for t in range(p.steps):
-        x, base = _decode_step(p, stream, n, c, tables, rolz, x, base, out, t)
+        x, base = _decode_step(p, stream, n, c, tables, rolz, x, base, out, t,
+                               lzp)
     return x, base, out
 
 
@@ -1257,7 +1488,8 @@ def decode_scan_plain(p: BlockParams, states, stream, n: int, tables,
 # and records a pair of CUDA events around the launch (device time).
 LAUNCHES = {"KS": 0, "K4": 0, "K5": 0, "K6": 0, "K2": 0, "K3": 0, "K1": 0,
             "K7": 0, "K8": 0, "K9": 0, "K10": 0,
-            "K4x": 0, "K11": 0, "K12e": 0, "K12d": 0}
+            "K4x": 0, "K11": 0, "K12e": 0, "K12d": 0,
+            "KSx": 0, "K13e": 0, "K13d": 0}
 _EVENTS: dict = {k: [] for k in LAUNCHES}
 
 
@@ -1296,6 +1528,13 @@ _CFG_NAMES = (
 _CFG_FIELDS = len(_CFG_NAMES)
 
 
+def _use_sse(p: BlockParams) -> bool:
+    """Whether the A event goes through the mode's APM stage."""
+    if p.mode == "X":
+        return bool(ppm.SSE_X)
+    return p.match and bool(ppm.SSE_P if p.mode == "P" else ppm.SSE)
+
+
 def _cfg_array(p: BlockParams, n: int, stream_len: int = 0, **finder) -> np.ndarray:
     """The kernels' configuration struct.  ``finder`` overrides the encoder
     knobs (mode F has its own candidates, extension, prices and
@@ -1305,7 +1544,7 @@ def _cfg_array(p: BlockParams, n: int, stream_len: int = 0, **finder) -> np.ndar
         o3_bits=p.o3_bits, rolz_bits=p.rolz_bits, rolz_depth=p.rolz_depth,
         rolz_ctx_bytes=p.rolz_ctx_bytes, rolz_dec=p.rolz_dec, top_k=p.top_k,
         probe=p.probe, match=int(p.match),
-        use_sse=int(ppm.SSE_X if p.mode == "X" else (p.match and ppm.SSE)),
+        use_sse=int(_use_sse(p)),
         inc2=ppm.INC2, cap2=ppm.CAP2, inc1=ppm.INC1, cap1=ppm.CAP1,
         len_inc=ppm.LEN_INC, len_cap=ppm.LEN_CAP, idx_inc=ppm.IDX_INC,
         idx_cap=ppm.IDX_CAP, stream_len=stream_len, n_cands=_R_CANDS,
@@ -1352,6 +1591,9 @@ def _expect_tables(p: BlockParams, tables):
     _expect(tables["o3"], "o3", _i32, (1 << p.o3_bits,))
     _expect(tables["len"], "len", _i32, (ppm.N_SHARED_CTX, ppm.LEN_W))
     _expect(tables["idx"], "idx", _i32, (ppm.N_SHARED_CTX, ppm.IDX_W))
+    if p.mode == "P":
+        _expect(tables["sse_p"], "sse_p", _i32, (ppm.SSE_PCTX * 33,))
+        return
     _expect(tables["sse"], "sse", _i32, (ppm.SSE_NCTX * 33,))
     _expect(tables["sse_h"], "sse_h", _i32, (ppm.SSE_HCTX * 33,))
     if p.mode == "X":
@@ -1372,23 +1614,46 @@ def _pos_scratch(p: BlockParams, device):
     return torch.empty((2, p.lanes, p.rolz_depth + 1), dtype=_i32, device=device)
 
 
-def _table_ptrs(tables, x_mode: bool = False):
-    keys = ("o2", "o1", "o3", "len", "idx", "sse", "sse_h")
-    if x_mode:
+def _table_ptrs(tables, mode: str = "R"):
+    keys = ("o2", "o1", "o3", "len", "idx")
+    keys += ("sse_p",) if mode == "P" else ("sse", "sse_h")
+    if mode == "X":
         keys += ("dst", "mant", "sse_x")
     return [tables[k].data_ptr() for k in keys]
 
 
+def _lzp_ptrs(p: BlockParams, lzp):
+    """Mode P's three table pointers for a kernel (null with the match
+    layer off, which has no tables), after the shape checks."""
+    if p.match != (lzp is not None):
+        raise ValueError("mode P takes its LZP tables with the match layer, "
+                         "and none without")
+    if lzp is None:
+        return [None, None, None]
+    for k, size in zip(LZP_KEYS, (1 << 16, 1 << LZP4_BITS, 1 << LZP8_BITS)):
+        _expect(lzp[k], k, _i32, (size,))
+    return [lzp[k].data_ptr() for k in LZP_KEYS]
+
+
 def search_scan(p: BlockParams, inp, n: int, rolz):
-    """KS — the ROLZ search scan of the greedy parse.
+    """KS — the ROLZ search scan of the greedy parse; KSx — the search scan
+    of mode X (``CPX_X_FINDER=scan``).
 
     Replaces comprox_tpu/codec/block.py::_search_body (1333-1388) with
     _rolz_best_match (939-1056) under _search_and_parse's scan
-    (1630-1635).  Kernel: csrc/search.cu (one CTA, one thread per lane,
-    latency bound; see the source note).  ``inp`` [S, T] uint8, ``rolz``
-    [2^bits, D, 2] int32 (updated in place) -> [4, T, S] int32.
+    (1630-1635); KSx its X branch (1351-1383) with the X inserts of
+    _post_step (623-639).  Kernels: csrc/search.cu (one CTA, one thread per
+    lane, latency bound; see the source note).  ``inp`` [S, T] uint8,
+    ``rolz`` [2^bits, D, 2] int32 (updated in place) -> [4, T, S] int32.
+    Mode X: ``rolz`` is the three tables of :func:`_init_xsearch` (two
+    bucket tables, ``xshort`` [2^16]; updated in place) -> [6, T, S] int32
+    (length, src, len2, cand, len3, src3).
     """
-    if _dispatch(inp, rolz) == "cpu":
+    x_mode = p.mode == "X"
+    tabs = tuple(rolz) if x_mode else (rolz,)
+    if len(tabs) != (3 if x_mode else 1):
+        raise ValueError("mode X searches two bucket tables and xshort")
+    if _dispatch(inp, *tabs) == "cpu":
         return search_scan_plain(p, inp, n, rolz)
     _check_kernel_geometry(p)
     if p.top_k > 8:
@@ -1396,13 +1661,19 @@ def search_scan(p: BlockParams, inp, n: int, rolz):
             f"the search kernel keeps at most 8 candidates (top_k={p.top_k})"
         )
     _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
-    _expect(rolz, "rolz", _i32, (1 << p.rolz_bits, p.rolz_depth, 2))
-    if inp.data_ptr() % 8 or rolz.data_ptr() % 8:
+    for tab in tabs[:2]:
+        _expect(tab, "rolz", _i32, (1 << p.rolz_bits, p.rolz_depth, 2))
+    if x_mode:
+        _expect(tabs[2], "xshort", _i32, (1 << 16,))
+    if inp.data_ptr() % 8 or any(tab.data_ptr() % 8 for tab in tabs[:2]):
         raise ValueError("inp and rolz must be 8-byte aligned (64-bit loads)")
-    out = torch.empty((4, p.steps, p.lanes), dtype=_i32, device=inp.device)
+    out = torch.empty((6 if x_mode else 4, p.steps, p.lanes), dtype=_i32,
+                      device=inp.device)
     cfg = _cfg_array(p, n)
-    _launch("KS", build.lib().cpx_ks_launch, cfg.ctypes.data,
-            inp.data_ptr(), rolz.data_ptr(), out.data_ptr(),
+    lib = build.lib()
+    _launch(*(("KSx", lib.cpx_ksx_launch) if x_mode
+              else ("KS", lib.cpx_ks_launch)), cfg.ctypes.data,
+            inp.data_ptr(), *(tab.data_ptr() for tab in tabs), out.data_ptr(),
             _pos_scratch(p, inp.device).data_ptr(), _stream_ptr())
     return out
 
@@ -1554,8 +1825,9 @@ def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None, rep=None):
     _fast_find_matches (265-276, mode F: the non-R branch 1435-1450 with
     the fast profile's prices).  Kernel: csrc/parse.cu (one warp per lane,
     all SMs; one source, an entry per mode).  Mode R: ``cands``
-    [3 * (n_c + 1) + 1, T, S] int32 from K5 -> dec [4, T, S] int32 (take,
-    src, recency index, fill).  Mode F (``prices`` and ``n_c`` given):
+    [3 * (n_c + 1) + 1, T, S] int32 from K5 (or KS's [4, T, S]: its one
+    candidate and the fill, ``CPX_R_FINDER=scan``) -> dec [4, T, S] int32
+    (take, src, recency index, fill).  Mode F (``prices`` and ``n_c`` given):
     ``cands`` [2 * n_c, T, S] int32 from K7 -> dec [3, T, S] (take, src, 0).
     Mode X (the non-R branch with X's four prices; its second run with the
     repeat pair, 1436-1455): ``cands`` from K4x and ``rep`` [2, T, S] int32
@@ -1566,9 +1838,13 @@ def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None, rep=None):
     if _dispatch(cands, *([] if rep is None else [rep])) == "cpu":
         return parse_scan_plain(p, n, cands, prices, n_c, rep)
     if prices is None:
-        _expect(cands, "cands", _i32, (3 * (_R_CANDS + 1) + 1, p.steps, p.lanes))
+        n_r = (cands.shape[0] - 1) // 3  # candidates, the bucket's included
+        if not 1 <= n_r <= MAX_CANDS + 1:
+            raise ValueError("cands: expected 3 grids a candidate and the fill")
+        _expect(cands, "cands", _i32, (3 * n_r + 1, p.steps, p.lanes))
         dec = torch.empty((4, p.steps, p.lanes), dtype=_i32, device=cands.device)
-        cfg, entry = _cfg_array(p, n), build.lib().cpx_k6_launch
+        cfg = _cfg_array(p, n, n_cands=n_r - 1)
+        entry = build.lib().cpx_k6_launch
     else:
         _expect(cands, "cands", _i32, (2 * n_c, p.steps, p.lanes))
         dec = torch.empty((3, p.steps, p.lanes), dtype=_i32, device=cands.device)
@@ -1587,30 +1863,46 @@ def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None, rep=None):
     return dec
 
 
-def model_scan(p: BlockParams, inp, n: int, dec, tables):
-    """K2 — the forward modeling scan of encode; K12e — its mode-X entry.
+def model_scan(p: BlockParams, inp, n: int, dec, tables, lzp=None):
+    """K2 — the forward modeling scan of encode; K12e — its mode-X entry;
+    K13e — its mode-P entry.
 
-    Replaces comprox_tpu/codec/block.py::_encode_model_body (1677-1895, the
-    R and X branches) under _encode_passes (1898-1941).  Kernel:
-    csrc/model.cu (an entry per mode).  Mode R: ``dec`` [4, T, S] int32
-    (take, src, rec_idx, fill) -> ev [T, 9, S] int32.  Mode X: ``dec``
-    [2, T, S] int32 (take, src) -> ev [T, 15, S].  ``tables`` evolve in
-    place.
+    Replaces comprox_tpu/codec/block.py::_encode_model_body (1677-1895)
+    under _encode_passes (1898-1941); K13e its P arm (1714-1723) with
+    _lzp_candidate (362-403), _match_window_len (1059-1068) and the LZP
+    inserts of _post_step (662-676).  Kernel: csrc/model.cu (an entry per
+    mode).  Mode R: ``dec`` [4, T, S] int32 (take, src, rec_idx, fill) ->
+    ev [T, 9, S] int32.  Mode X: ``dec`` [2, T, S] int32 (take, src) -> ev
+    [T, 15, S].  Mode P: no ``dec`` (None); ``lzp`` the three tables of
+    :func:`_init_lzp`, or None with the match layer off -> ev [T, 9, S].
+    ``tables`` and ``lzp`` evolve in place.
     """
-    if _dispatch(inp, dec, tables["o2"]) == "cpu":
-        return model_scan_plain(p, inp, n, dec, tables)
+    p_mode = p.mode == "P"
+    if p_mode != (dec is None):
+        raise ValueError("mode P has no parse decisions; modes R and X do")
+    group = [inp, tables["o2"]] + ([] if p_mode else [dec]) + (
+        [] if lzp is None else [lzp[k] for k in LZP_KEYS])
+    if _dispatch(*group) == "cpu":
+        return model_scan_plain(p, inp, n, dec, tables, lzp)
     _check_kernel_geometry(p)
-    x_mode = p.mode == "X"
     _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
-    _expect(dec, "dec", _i32, (2 if x_mode else 4, p.steps, p.lanes))
     _expect_tables(p, tables)
     ev = torch.empty((p.steps, 3 * p.n_slots, p.lanes), dtype=_i32,
                      device=inp.device)
     cfg = _cfg_array(p, n)
     lib = build.lib()
+    if p_mode:
+        if inp.data_ptr() % 8:
+            raise ValueError("inp must be 8-byte aligned (64-bit loads)")
+        _launch("K13e", lib.cpx_k13e_launch, cfg.ctypes.data, inp.data_ptr(),
+                *_table_ptrs(tables, "P"), *_lzp_ptrs(p, lzp), ev.data_ptr(),
+                _stream_ptr())
+        return ev
+    x_mode = p.mode == "X"
+    _expect(dec, "dec", _i32, (2 if x_mode else 4, p.steps, p.lanes))
     _launch(*(("K12e", lib.cpx_k12e_launch) if x_mode
               else ("K2", lib.cpx_k2_launch)), cfg.ctypes.data,
-            inp.data_ptr(), dec.data_ptr(), *_table_ptrs(tables, x_mode),
+            inp.data_ptr(), dec.data_ptr(), *_table_ptrs(tables, p.mode),
             ev.data_ptr(), _stream_ptr())
     return ev
 
@@ -1639,21 +1931,30 @@ def rans_scan(p: BlockParams, ev):
     return states, emit.bool(), words
 
 
-def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None):
-    """K1 — the fused decode scan of mode R; K12d — its mode-X entry.
+def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None,
+                lzp=None):
+    """K1 — the fused decode scan of mode R; K12d — its mode-X entry; K13d —
+    its mode-P entry.
 
-    Replaces comprox_tpu/codec/block.py::_decode_scan (2218-2248) and the
-    R and X branches of _decode_body (1980-2215).  Kernel: csrc/decode.cu
-    (an entry per mode).  ``states`` [S] int64, ``stream`` [pad] int32 (u16
-    words); ``tables`` and (mode R) ``rolz`` evolve in place; mode X takes
-    no ``rolz`` -> (states, words_used, out [S, T] uint8).
+    Replaces comprox_tpu/codec/block.py::_decode_scan (2218-2248) and
+    _decode_body (1980-2215; K13d its P arms 2016-2021 and 2164-2167 with
+    _lzp_candidate and the LZP inserts).  Kernel: csrc/decode.cu (an entry
+    per mode).  ``states`` [S] int64, ``stream`` [pad] int32 (u16 words);
+    ``tables`` and the mode's match tables evolve in place: mode R takes
+    its bucket table ``rolz``, mode P (with the match layer) the three
+    tables ``lzp`` of :func:`_init_lzp`, mode X none -> (states,
+    words_used, out [S, T] uint8).
     """
-    x_mode = p.mode == "X"
-    if x_mode != (rolz is None):
-        raise ValueError("mode R decodes with a bucket table, mode X without")
+    x_mode, p_mode = p.mode == "X", p.mode == "P"
+    if (p.mode == "R") != (rolz is not None):
+        raise ValueError("mode R decodes with a bucket table, modes X and P "
+                         "without")
+    if lzp is not None and not p_mode:
+        raise ValueError("only mode P decodes with LZP tables")
     if _dispatch(states, stream, tables["o2"],
-                 *([] if x_mode else [rolz])) == "cpu":
-        return decode_scan_plain(p, states, stream, n, tables, rolz)
+                 *([] if rolz is None else [rolz]),
+                 *([] if lzp is None else [lzp[k] for k in LZP_KEYS])) == "cpu":
+        return decode_scan_plain(p, states, stream, n, tables, rolz, lzp)
     _check_kernel_geometry(p)
     _expect(states, "states", _i64, (p.lanes,))
     if stream.dtype != _i32 or stream.dim() != 1 or stream.shape[0] < p.lanes:
@@ -1667,8 +1968,14 @@ def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None):
     cfg = _cfg_array(p, n, stream.shape[0])
     if x_mode:
         _launch("K12d", build.lib().cpx_k12d_launch, cfg.ctypes.data,
-                stream.data_ptr(), x.data_ptr(), *_table_ptrs(tables, True),
+                stream.data_ptr(), x.data_ptr(), *_table_ptrs(tables, "X"),
                 out.data_ptr(), used.data_ptr(), _stream_ptr())
+        return x, int(used.item()), out
+    if p_mode:
+        _launch("K13d", build.lib().cpx_k13d_launch, cfg.ctypes.data,
+                stream.data_ptr(), x.data_ptr(), *_table_ptrs(tables, "P"),
+                *_lzp_ptrs(p, lzp), out.data_ptr(), used.data_ptr(),
+                _stream_ptr())
         return x, int(used.item()), out
     _expect(rolz, "rolz", _i32, (1 << p.rolz_bits, p.rolz_depth, 2))
     _launch("K1", build.lib().cpx_k1_launch, cfg.ctypes.data,
@@ -1721,14 +2028,23 @@ def _check_drain(x, base, n_words):
 
 def encode_passes(p: BlockParams, inp, n: int):
     """The parse (mode R, flexible: K4, K5, K6; greedy: KS and two
-    elementwise ops.  Mode X, flexible: K4x, K6, K11, K6; greedy: K4x and
-    the elementwise choice), then the modeling scan and K3, on one [S, T]
-    block tensor.  Returns ``(states, emit, words, ev, tables)``."""
+    elementwise ops; ``CPX_R_FINDER=scan``, flexible: KS and K6 on its one
+    candidate.  Mode X, flexible: K4x, K6, K11, K6; greedy: K4x and the
+    elementwise choice; ``CPX_X_FINDER=scan``: KSx in K4x's place.  Mode P:
+    none), then the modeling scan and K3, on one [S, T] block tensor.
+    Returns ``(states, emit, words, ev, tables)``."""
     dev = inp.device
-    if p.mode == "X":
+    lzp = None
+    if p.mode == "P":
+        dec = None
+        lzp = _init_lzp(p, dev) if p.match else None
+    elif p.mode == "X":
         dec = torch.zeros((2, p.steps, p.lanes), dtype=_i32, device=dev)
         if p.match:
-            cands = sort_candidates(p, inp, n, content=True)
+            if _ENV["CPX_X_FINDER"] == "scan":
+                cands = search_scan(p, inp, n, _init_xsearch(p, dev))
+            else:
+                cands = sort_candidates(p, inp, n, content=True)
             if p.flexible:
                 n_c = cands.shape[0] // 2
                 first = parse_scan(p, n, cands, x_prices(), n_c)
@@ -1736,18 +2052,21 @@ def encode_passes(p: BlockParams, inp, n: int):
                 dec = parse_scan(p, n, cands, x_prices(), n_c, rep)[:2]
             else:
                 dec = torch.stack(_greedy_decisions_dist(p, cands))
-    elif p.match and p.flexible:
+    elif p.match and p.flexible and _ENV["CPX_R_FINDER"] == "sort":
         props = sort_candidates(p, inp, n)
         cands = rank_scan(p, inp, n, props, _init_rolz(p, dev))
         dec = parse_scan(p, n, cands)
     elif p.match:
         grids = search_scan(p, inp, n, _init_rolz(p, dev))
-        take, src = _greedy_decisions(p, grids[0], grids[1])
+        if p.flexible:  # the one candidate through the price DP
+            take, src = parse_scan(p, n, grids)[0], grids[1]
+        else:
+            take, src = _greedy_decisions(p, grids[0], grids[1])
         dec = torch.stack([take, src, grids[2], grids[3]]).contiguous()
     else:
         dec = torch.zeros((4, p.steps, p.lanes), dtype=_i32, device=dev)
     tables = ppm.init_tables(p.match, p.o3_bits, dev)
-    ev = model_scan(p, inp, n, dec, tables)
+    ev = model_scan(p, inp, n, dec, tables, lzp)
     states, emit, words = rans_scan(p, ev)
     return states, emit, words, ev, tables
 
@@ -1775,7 +2094,8 @@ def decode_block(payload: bytes, n: int, p: BlockParams, device) -> np.ndarray:
         torch.from_numpy(stream_padded.astype(np.int32)).to(device),
         n,
         ppm.init_tables(p.match, p.o3_bits, device),
-        None if p.mode == "X" else _init_rolz(p, device),
+        _init_rolz(p, device) if p.mode == "R" else None,
+        _init_lzp(p, device) if p.mode == "P" and p.match else None,
     )
     _check_drain(x.cpu().numpy(), used, n_words)
     return out.cpu().numpy().reshape(-1)[:n]

@@ -1,5 +1,5 @@
-"""Container format and stream coder, unchained, codecs R (crz), F (crf) and
-X (crx).
+"""Container format and stream coder, unchained, codecs R (crz), F (crf),
+X (crx) and P (crp).
 
 Counterpart of :mod:`comprox_tpu.codec.container`: the same bytes for the
 same input (magic ``CPXTPU02``, header with CRC and the model-knob
@@ -9,8 +9,7 @@ and filter stages are the port's own copies of the JAX package's host
 modules (codec/dictionary.py, ops/filters.py).
 
 Not yet ported, and refused with an error instead of another format:
-chain mode (``F_CHAIN``, ``F_CHAIN_MATCH``; ROADMAP.md item 11) and the
-codec P (item 14).
+chain mode (``F_CHAIN``, ``F_CHAIN_MATCH``; ROADMAP.md item 11).
 """
 
 from __future__ import annotations
@@ -49,15 +48,15 @@ class ContainerParams:
     block: BlockParams = field(default_factory=lambda: BlockParams(mode="R"))
 
 
-_CODEC_MODE = {b"R": "R", b"F": "F", b"X": "X"}
+_CODEC_MODE = {b"R": "R", b"F": "F", b"X": "X", b"P": "P"}
 
 
 def _codec_mode(codec: bytes) -> str:
-    """The block mode a codec byte stands for; raises for an unported one."""
+    """The block mode a codec byte stands for; raises for an unknown one."""
     if codec not in _CODEC_MODE:
-        raise NotImplementedError(
-            f"codec {codec!r} is not yet ported to comprox_tpu_torch "
-            "(ROADMAP.md item 14): only R (crz), F (crf) and X (crx) are"
+        raise ValueError(
+            f"unknown codec byte {codec!r}: R (crz), F (crf), X (crx) and "
+            "P (crp) are the codecs"
         )
     return _CODEC_MODE[codec]
 

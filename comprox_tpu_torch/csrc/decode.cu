@@ -1,8 +1,8 @@
-// K1: the fused decode scan, with a kernel for mode R (K1) and one for mode
-// X (K12d).
+// K1: the fused decode scan, with a kernel for mode R (K1) and one for the
+// modes without a bucket table, X (K12d) and P (K13d).
 //
-// Replaces comprox_tpu/codec/block.py::_decode_scan (2218-2248) and the R
-// and X branches of _decode_body (1980-2215).  Mode R, per step and lane: contexts, o3 and
+// Replaces comprox_tpu/codec/block.py::_decode_scan (2218-2248) and
+// _decode_body (1980-2215).  Mode R, per step and lane: contexts, o3 and
 // bucket-row reads; the A event (o2 + SSE, slot -> symbol, rANS advance
 // with a lane-ordered word read); B (o1 literal with exclusion, or the
 // ROLZ index); C (match length); byte resolve (literal, o3 prediction, o1
@@ -32,6 +32,15 @@
 // (integer atomics in shared memory) and a row over its cap is halved.  A
 // lane that codes no match runs none of the B (distance), C, D, E symbol
 // searches: whatever JAX computes there is masked before any table sees it.
+//
+// Mode P (the same kernel, MODE_P): before the A event each coding lane
+// reads its LZP candidate (block.py:2016-2021; ppm_r.cuh::lzp_candidate)
+// from the three shared tables and verifies it against the output bytes of
+// earlier steps, because the hit APM is keyed by whether there is one; a
+// match (A, then C under context 0: three word reads a step) copies from
+// that source.  The step's column is written after a barrier that follows
+// every read of the output, and the scatter-max inserts (atomicMax) come
+// after it, two barriers before the next step's candidate reads.
 #include "ppm_r.cuh"
 
 namespace {
@@ -254,17 +263,18 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
     base += (uint32_t)total_;                                    \
   }
 
-template <int MAXT>
+template <int MAXT, int MODE>
 __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict__ stream,
-                            long long* __restrict__ states, Tables tb,
+                            long long* __restrict__ states, Tables tb, Lzp lzp,
                             uint8_t* __restrict__ out,
                             long long* __restrict__ used) {
+  constexpr bool XMODE = MODE == MODE_X;
   __shared__ SmemModel sm;
   const int i = threadIdx.x;
   const bool alive = i < c.S;
   const long long cap_n = (long long)c.S * c.T;
   const StreamRead sr{stream, c.stream_len, c.S};
-  model_load<true>(sm, tb);
+  model_load<MODE>(sm, tb);
   __syncthreads();
   uint32_t x = alive ? (uint32_t)states[i] : RANS_L;
   uint32_t base = 0;
@@ -281,9 +291,14 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
     uint32_t xt = 0;
     bool need = false;
     const bool coding = alive && cx.coding;
-    const AEvent a = warp_a_event<true, true>(c, tb.o2, coding, cx.ctx2, cx.pred,
-                                              cx.conf, cx.p1, sm.sse, sm.sse_x, x,
-                                              0, false);
+    int lzp_src = 0;
+    bool lzp_ok = false;
+    if (!XMODE && coding && c.match)
+      lzp_ok = lzp_candidate(c, lzp, out, t, ctx4, ctx4b, lzp_src);
+    const AEvent a = warp_a_event<true, MODE>(
+        c, tb.o2, coding, cx.ctx2, cx.pred, cx.conf,
+        XMODE ? sse_x_ctx(cx.conf, cx.p1) : sse_p_ctx(cx.conf, lzp_ok, cx.p1),
+        sm.sse, sm.sse_x, x, 0, false);
     if (coding) {
       u.sse = a.sse;
       u.halvings = a.h;
@@ -305,14 +320,20 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
       u.is_match = cx.coding && u.sym_a == SYM_MATCH;
       u.ctx2 = cx.ctx2; u.p1 = cx.p1; u.h3 = cx.h3; u.pred = cx.pred;
       u.conf = cx.conf; u.raw = cx.raw;
-      if (u.is_match) sm.hot_dst = 1;
+      if (u.is_match) {
+        if (XMODE) sm.hot_dst = 1;
+        else sm.hot_len[0] = 1;  // mode P: C's one context
+      }
     }
     upd_keys(sm, i, alive, u);
-    __syncthreads();
-    dst_rescale(c, sm);
-    __syncthreads();
+    if (XMODE) {
+      __syncthreads();
+      dst_rescale(c, sm);
+      __syncthreads();
+    }
 
-    // ---- B event: o1 literal (escape lanes) or distance bucket (match lanes)
+    // ---- B event: o1 literal (escape lanes); mode X: or the distance
+    // bucket (match lanes)
     int sym1 = 0;
     need = false;
     const O1Event b = warp_o1_event<true>(tb.o1, tb.o2, u.is_esc, cx.p1, cx.ctx2,
@@ -323,7 +344,7 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
       if (u.is_esc) {
         sym1 = b.sym;
         norm_cf(b.c, max(b.f, 1), max(b.tot, 1), cb, fb);
-      } else if (u.is_match) {
+      } else if (XMODE && u.is_match) {
         int cd_raw, fd_raw;
         u.sym_dst = find_symbol(PlainRow{sm.dst}, DST_W,
                                 (int)dec_target(x, max(sm.dst_sum, 1)), cd_raw, fd_raw);
@@ -359,50 +380,55 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
     CPX_RENORM(2)
 
     // ---- D event: the mantissa's top bits (adaptive or uniform)
-    const bool repeat = u.is_match && u.sym_dst == SYM_DST_REPEAT;
+    const bool repeat = XMODE && u.is_match && u.sym_dst == SYM_DST_REPEAT;
     const int k_dist = clampi(repeat ? 0 : u.sym_dst, 0, 24);
-    const bool has_extra = u.is_match && !repeat;
+    const bool has_extra = XMODE && u.is_match && !repeat;
     const MantSplit ms = mant_split(k_dist, has_extra);
     int sym_m = 0, e_hi = 0, e_lo = 0;
-    need = false;
-    if (alive) {
-      uint32_t cd = 0, fd = RANS_M;
-      if (ms.adaptive) {
-        const int* row = sm.mant + (k_dist - 5) * MANT_N;
-        const int tot_m = sum_prefix(PlainRow{row}, MANT_N);
-        int cm_raw, fm_raw;
-        sym_m = find_symbol(PlainRow{row}, MANT_N,
-                            (int)dec_target(x, max(tot_m, 1)), cm_raw, fm_raw);
-        norm_cf(cm_raw, max(fm_raw, 1), max(tot_m, 1), cd, fd);
-      } else if (has_extra && ms.b_hi > 0) {
-        fd = 1u << (15 - ms.b_hi);
-        e_hi = (int)((x & (RANS_M - 1)) / fd);
-        cd = (uint32_t)e_hi * fd;
+    if (XMODE) {
+      need = false;
+      if (alive) {
+        uint32_t cd = 0, fd = RANS_M;
+        if (ms.adaptive) {
+          const int* row = sm.mant + (k_dist - 5) * MANT_N;
+          const int tot_m = sum_prefix(PlainRow{row}, MANT_N);
+          int cm_raw, fm_raw;
+          sym_m = find_symbol(PlainRow{row}, MANT_N,
+                              (int)dec_target(x, max(tot_m, 1)), cm_raw, fm_raw);
+          norm_cf(cm_raw, max(fm_raw, 1), max(tot_m, 1), cd, fd);
+        } else if (has_extra && ms.b_hi > 0) {
+          fd = 1u << (15 - ms.b_hi);
+          e_hi = (int)((x & (RANS_M - 1)) / fd);
+          cd = (uint32_t)e_hi * fd;
+        }
+        xt = dec_advance(x, cd, fd);
+        need = xt < RANS_L;
       }
-      xt = dec_advance(x, cd, fd);
-      need = xt < RANS_L;
-    }
-    CPX_RENORM(3)
+      CPX_RENORM(3)
 
-    // ---- E event: the mantissa's low bits (uniform)
-    need = false;
-    if (alive) {
-      uint32_t ce = 0, fe = RANS_M;
-      if (has_extra && ms.b_e > 0) {
-        fe = 1u << (15 - ms.b_e);
-        e_lo = (int)((x & (RANS_M - 1)) / fe);
-        ce = (uint32_t)e_lo * fe;
+      // ---- E event: the mantissa's low bits (uniform)
+      need = false;
+      if (alive) {
+        uint32_t ce = 0, fe = RANS_M;
+        if (has_extra && ms.b_e > 0) {
+          fe = 1u << (15 - ms.b_e);
+          e_lo = (int)((x & (RANS_M - 1)) / fe);
+          ce = (uint32_t)e_lo * fe;
+        }
+        xt = dec_advance(x, ce, fe);
+        need = xt < RANS_L;
       }
-      xt = dec_advance(x, ce, fe);
-      need = xt < RANS_L;
+      CPX_RENORM(4)
     }
-    CPX_RENORM(4)
 
-    // ---- the distance; resolve the byte; prepare the updates
+    // ---- the distance (mode P: the candidate); resolve the byte; prepare
+    // the updates
     int byte = 0, src = 0, dist = 1;
     uint32_t ctx4n = ctx4, ctx4bn = ctx4b;
     if (alive) {
-      if (u.is_match) {
+      if (!XMODE) {
+        if (u.is_match) src = lzp_src;
+      } else if (u.is_match) {
         const int mant = ms.adaptive ? (sym_m << max(k_dist - 4, 0)) + e_lo
                                      : (e_hi << ms.b_lo) + e_lo;
         dist = repeat ? prev_dist : (1 << k_dist) + mant;
@@ -436,23 +462,39 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
     }
     __syncthreads();
     if (alive) {
-      upd_add<true>(c, tb, sm, u);
+      upd_add<MODE>(c, tb, sm, u);
       copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
       copy_src = u.is_match ? src + 1 : copy_src + 1;
       if (u.is_match) prev_dist = dist;
       ctx4 = ctx4n;
       ctx4b = ctx4bn;
+      if (!XMODE && c.match) lzp_insert(c, lzp, cx.active, t, cx.pos, ctx4, ctx4b);
     }
     __syncthreads();
-    upd_finish<true>(sm, c.mant_cap);
+    upd_finish<MODE>(sm, c.mant_cap);
   }
   __syncthreads();
-  model_store<true>(sm, tb);
+  model_store<MODE>(sm, tb);
   if (alive) states[i] = (long long)x;
   if (i == 0) *used = (long long)base;
 }
 
 }  // namespace
+
+template <int MODE>
+static int tableless_launch(const int* cfg, const void* stream, void* states,
+                            const Tables& tb, const Lzp& lzp, void* out,
+                            void* used, void* cuda_stream) {
+  Cfg c;
+  memcpy(&c, cfg, sizeof(Cfg));
+  int threads = (c.S + 31) / 32 * 32;
+  auto kernel = threads <= 512 ? k12d_kernel<512, MODE>
+                               : k12d_kernel<CPX_MAX_LANES, MODE>;
+  kernel<<<1, threads, 0, (cudaStream_t)cuda_stream>>>(
+      c, (const int*)stream, (long long*)states, tb, lzp, (uint8_t*)out,
+      (long long*)used);
+  return (int)cudaGetLastError();
+}
 
 // Mode X: no bucket table; three more model tables.
 extern "C" int cpx_k12d_launch(const int* cfg, const void* stream, void* states,
@@ -460,16 +502,24 @@ extern "C" int cpx_k12d_launch(const int* cfg, const void* stream, void* states,
                                void* sse, void* sse_h, void* dst, void* mant,
                                void* sse_x, void* out, void* used,
                                void* cuda_stream) {
-  Cfg c;
-  memcpy(&c, cfg, sizeof(Cfg));
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
             (int*)sse_h, (int*)dst, (int*)mant, (int*)sse_x};
-  int threads = (c.S + 31) / 32 * 32;
-  auto kernel = threads <= 512 ? k12d_kernel<512> : k12d_kernel<CPX_MAX_LANES>;
-  kernel<<<1, threads, 0, (cudaStream_t)cuda_stream>>>(
-      c, (const int*)stream, (long long*)states, tb, (uint8_t*)out,
-      (long long*)used);
-  return (int)cudaGetLastError();
+  return tableless_launch<MODE_X>(cfg, stream, states, tb,
+                                  Lzp{nullptr, nullptr, nullptr}, out, used,
+                                  cuda_stream);
+}
+
+// Mode P: the three LZP tables (null with the match layer off); sse_p is
+// the hit APM.
+extern "C" int cpx_k13d_launch(const int* cfg, const void* stream, void* states,
+                               void* o2, void* o1, void* o3, void* len, void* idx,
+                               void* sse_p, void* lzp2, void* lzp4, void* lzp8,
+                               void* out, void* used, void* cuda_stream) {
+  Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, nullptr,
+            nullptr, nullptr, nullptr, (int*)sse_p};
+  return tableless_launch<MODE_P>(cfg, stream, states, tb,
+                                  Lzp{(int*)lzp2, (int*)lzp4, (int*)lzp8}, out,
+                                  used, cuda_stream);
 }
 
 extern "C" int cpx_k1_launch(const int* cfg, const void* stream, void* states,

@@ -1,8 +1,8 @@
-// K2: the forward modeling scan of encode, with an entry for mode R (K2)
-// and one for mode X (K12e).
+// K2: the forward modeling scan of encode, with an entry for mode R (K2),
+// one for mode X (K12e) and one for mode P (K13e).
 //
-// Replaces comprox_tpu/codec/block.py::_encode_model_body (1677-1895, the R
-// and X branches) under the lax.scan of _encode_passes (1898-1941).  With
+// Replaces comprox_tpu/codec/block.py::_encode_model_body (1677-1895) under
+// the lax.scan of _encode_passes (1898-1941).  With
 // the symbols known from the parse, each step reads the A (o2 + SSE), B (o1
 // with exclusion, or the ROLZ index) and C (match length) distributions,
 // emits the normalised (c, f, active) triple of each slot, then applies the
@@ -18,6 +18,16 @@
 // one-hot products), and a row over its cap is halved after the adds.
 // Output: ev [T, 15, S].
 //
+// Mode P (LZP) has no parse: each coding lane reads its one candidate from
+// the three shared tables (block.py::_lzp_candidate, 362-403: three int32
+// loads, up to 8 history bytes to verify), measures it against its next
+// `window` bytes (_match_window_len, 1059-1068) and codes a match where it
+// is at least min_len long.  A match has no source to code: B is the escape
+// only, C the length under context 0.  The A event's hit APM is keyed by
+// whether the lane has a candidate at all.  The step ends with the three
+// scatter-max inserts of _post_step (662-676) as atomicMax: candidate reads
+// and inserts are four barriers apart.  Output: ev [T, 9, S].
+//
 // The R branch reads its ROLZ index and bucket fill from the search pass
 // (block.py:1704-1713), never the bucket table, so this kernel keeps no
 // bucket table and does no bucket insert: the bytes are the same.
@@ -31,7 +41,7 @@
 // sums) in shared memory, turns every table update into a winner-only
 // store or an integer atomicAdd, and does an event's work only on the
 // lanes that code it (JAX computes every lane and masks).
-#include "ppm_r.cuh"
+#include "rolz_search.cuh"
 
 namespace {
 
@@ -64,14 +74,15 @@ static __device__ void mant_events(const SmemModel& sm, int dist, int k_dist,
   }
 }
 
-template <int MAXT, bool XMODE>
+template <int MAXT, int MODE>
 __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restrict__ inp,
-                          const int* __restrict__ dec, Tables tb,
+                          const int* __restrict__ dec, Tables tb, Lzp lzp,
                           int* __restrict__ ev) {
+  constexpr bool XMODE = MODE == MODE_X, PMODE = MODE == MODE_P;
   __shared__ SmemModel sm;
   const int i = threadIdx.x;
   const bool alive = i < c.S;
-  model_load<XMODE>(sm, tb);
+  model_load<MODE>(sm, tb);
   __syncthreads();
   const size_t plane = (size_t)c.T * c.S;
   const int n_ev = XMODE ? 15 : 9;
@@ -88,9 +99,17 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
     int c1_raw = 0, f1_raw = 0, tot1 = 0;
     uint32_t ca = 0, fa = RANS_M;
     const bool coding = alive && x.coding;
+    bool lzp_ok = false;
     if (alive) {
       size_t o = (size_t)t * c.S + i;
-      if (c.match) {
+      if (PMODE) {
+        if (coding && c.match) {
+          lzp_ok = lzp_candidate(c, lzp, inp, t, ctx4, ctx4b, src);
+          if (lzp_ok)
+            length = min(prefix_len(inp, c, i, t, src, c.window), len_cap_at(c, i, t));
+          if (length < c.min_len) length = 0;  // too short: a literal
+        }
+      } else if (c.match) {
         length = dec[o];
         src = dec[plane + o];
         if (!XMODE) {
@@ -106,15 +125,16 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
         if (coding && length > 0) dist = max(x.pos - src, 1);
         k_dist = dist_bucket(dist);
         u.len_ctx = min(k_dist / 6, 3);
-      } else {
+      } else if (!PMODE) {
         u.idx_ctx = fill_bucket(fill);
         u.len_ctx = rec_bucket(u.sym_idx);
       }
       u.sym_len = clampi(length - c.min_len, 0, LEN_W - 1);
     }
-    const AEvent a = warp_a_event<false, XMODE>(
-        c, tb.o2, coding, x.ctx2, x.pred, x.conf, XMODE ? x.p1 : fill, sm.sse,
-        XMODE ? sm.sse_x : sm.sse_h, 0u, byte, length > 0);
+    const AEvent a = warp_a_event<false, MODE>(
+        c, tb.o2, coding, x.ctx2, x.pred, x.conf,
+        XMODE ? sse_x_ctx(x.conf, x.p1) : PMODE ? sse_p_ctx(x.conf, lzp_ok, x.p1) : fill,
+        sm.sse, MODE == MODE_R ? sm.sse_h : sm.sse_x, 0u, byte, length > 0);
     if (coding) {
       u.sse = a.sse;
       u.halvings = a.h;
@@ -129,7 +149,7 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
       u.is_match = sym_a == SYM_MATCH;
       if (u.is_match) {
         if (XMODE) sm.hot_dst = 1;
-        else sm.hot_idx[clampi(u.idx_ctx, 0, 3)] = 1;
+        else if (!PMODE) sm.hot_idx[clampi(u.idx_ctx, 0, 3)] = 1;
         sm.hot_len[clampi(u.len_ctx, 0, 3)] = 1;
       }
     }
@@ -146,7 +166,7 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
     __syncthreads();
 
     if (XMODE) dst_rescale(c, sm);
-    else idx_rescale(c, sm);
+    else if (!PMODE) idx_rescale(c, sm);  // mode P never reads an idx row
     len_rescale(c, sm);
     __syncthreads();
 
@@ -164,7 +184,7 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
           cum_frq_of(PlainRow{sm.dst}, DST_W, u.sym_dst, ci_raw, fi_raw);
           norm_cf(ci_raw, max(fi_raw, 1), max(sm.dst_sum, 1), cb, fb);
           mant_events(sm, dist, k_dist, !repeat, u, cd, fd, act_d, ce, fe, act_e);
-        } else {
+        } else if (!PMODE) {
           int ic = clampi(u.idx_ctx, 0, 3);
           cum_frq_of(PlainRow{sm.idx + ic * IDX_W}, IDX_W, u.sym_idx, ci_raw, fi_raw);
           norm_cf(ci_raw, max(fi_raw, 1), max(sm.idx_sum[ic], 1), cb, fb);
@@ -174,7 +194,8 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
       }
       int* e = ev + (size_t)t * n_ev * c.S + i;
       e[0 * c.S] = (int)ca; e[1 * c.S] = (int)fa; e[2 * c.S] = x.coding;
-      e[3 * c.S] = (int)cb; e[4 * c.S] = (int)fb; e[5 * c.S] = u.is_esc || u.is_match;
+      e[3 * c.S] = (int)cb; e[4 * c.S] = (int)fb;
+      e[5 * c.S] = u.is_esc || (!PMODE && u.is_match);
       e[6 * c.S] = (int)cc; e[7 * c.S] = (int)fc; e[8 * c.S] = u.is_match;
       if (XMODE) {
         e[9 * c.S] = (int)cd; e[10 * c.S] = (int)fd; e[11 * c.S] = act_d;
@@ -185,7 +206,7 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
     __syncthreads();
 
     if (alive) {
-      upd_add<XMODE>(c, tb, sm, u);
+      upd_add<MODE>(c, tb, sm, u);
       // block.py::_post_step without a bucket insert
       copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
       copy_src = u.is_match ? src + 1 : copy_src + 1;
@@ -194,28 +215,30 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
         ctx4b = (ctx4b << 8) | (ctx4 >> 24);
         ctx4 = (ctx4 << 8) | (uint32_t)byte;
       }
+      if (PMODE && c.match) lzp_insert(c, lzp, x.active, t, x.pos, ctx4, ctx4b);
     }
     __syncthreads();
-    upd_finish<XMODE>(sm, c.mant_cap);
+    upd_finish<MODE>(sm, c.mant_cap);
   }
   __syncthreads();
-  model_store<XMODE>(sm, tb);
+  model_store<MODE>(sm, tb);
 }
 
 }  // namespace
 
-template <bool XMODE>
+template <int MODE>
 static int model_launch(const int* cfg, const void* inp, const void* dec,
-                        const Tables& tb, void* ev, void* stream) {
+                        const Tables& tb, void* ev, void* stream,
+                        const Lzp& lzp = Lzp{nullptr, nullptr, nullptr}) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
   int threads = (c.S + 31) / 32 * 32;
   if (threads <= 512)
-    k2_kernel<512, XMODE><<<1, threads, 0, (cudaStream_t)stream>>>(
-        c, (const uint8_t*)inp, (const int*)dec, tb, (int*)ev);
+    k2_kernel<512, MODE><<<1, threads, 0, (cudaStream_t)stream>>>(
+        c, (const uint8_t*)inp, (const int*)dec, tb, lzp, (int*)ev);
   else
-    k2_kernel<CPX_MAX_LANES, XMODE><<<1, threads, 0, (cudaStream_t)stream>>>(
-        c, (const uint8_t*)inp, (const int*)dec, tb, (int*)ev);
+    k2_kernel<CPX_MAX_LANES, MODE><<<1, threads, 0, (cudaStream_t)stream>>>(
+        c, (const uint8_t*)inp, (const int*)dec, tb, lzp, (int*)ev);
   return (int)cudaGetLastError();
 }
 
@@ -225,7 +248,7 @@ extern "C" int cpx_k2_launch(const int* cfg, const void* inp, const void* dec,
                              void* sse, void* sse_h, void* ev, void* stream) {
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
             (int*)sse_h, nullptr, nullptr, nullptr};
-  return model_launch<false>(cfg, inp, dec, tb, ev, stream);
+  return model_launch<MODE_R>(cfg, inp, dec, tb, ev, stream);
 }
 
 // Mode X: dec [2, T, S] (take, src) -> ev [T, 15, S]; three more tables.
@@ -235,5 +258,17 @@ extern "C" int cpx_k12e_launch(const int* cfg, const void* inp, const void* dec,
                                void* sse_x, void* ev, void* stream) {
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
             (int*)sse_h, (int*)dst, (int*)mant, (int*)sse_x};
-  return model_launch<true>(cfg, inp, dec, tb, ev, stream);
+  return model_launch<MODE_X>(cfg, inp, dec, tb, ev, stream);
+}
+
+// Mode P: no decisions; the three LZP tables (null with the match layer
+// off) -> ev [T, 9, S]; sse_p is the hit APM.
+extern "C" int cpx_k13e_launch(const int* cfg, const void* inp, void* o2, void* o1,
+                               void* o3, void* len, void* idx, void* sse_p,
+                               void* lzp2, void* lzp4, void* lzp8, void* ev,
+                               void* stream) {
+  Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, nullptr,
+            nullptr, nullptr, nullptr, (int*)sse_p};
+  return model_launch<MODE_P>(cfg, inp, nullptr, tb, ev, stream,
+                              Lzp{(int*)lzp2, (int*)lzp4, (int*)lzp8});
 }

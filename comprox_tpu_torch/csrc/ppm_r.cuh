@@ -1,12 +1,14 @@
-// Model code of modes R and X shared by the search (KS), rank (K5), modeling
-// (K2, K12e) and decode (K1, K12d) kernels: one set of __device__ functions
-// for encode and decode, so the table evolution is the same on both sides
-// (the JAX package's rule that encode and decode share their model
-// read/update functions).  Mode X's parts (the distance-bucket row, the
-// mantissa table, the hit-only APM) are chosen by a template parameter.
+// Model code of modes R, X and P shared by the search (KS, KSx), rank (K5),
+// modeling (K2, K12e, K13e) and decode (K1, K12d, K13d) kernels: one set of
+// __device__ functions for encode and decode, so the table evolution is the
+// same on both sides (the JAX package's rule that encode and decode share
+// their model read/update functions).  Mode X's parts (the distance-bucket
+// row, the mantissa table, the hit-only APM) and mode P's (the hit-only APM
+// keyed by the LZP candidate, the three LZP tables) are chosen by a
+// template parameter.
 //
-// Counterpart of comprox_tpu/models/{tables,ppm}.py (the subset of modes R
-// and X, default knobs) and of the ROLZ helpers of
+// Counterpart of comprox_tpu/models/{tables,ppm}.py (the subset of modes R,
+// X and P, default knobs) and of the ROLZ and LZP helpers of
 // comprox_tpu/codec/block.py.  Integer
 // semantics follow the JAX code exactly: int32 tables and model arithmetic
 // (floor division and arithmetic shifts), uint32 rANS states and context
@@ -41,6 +43,14 @@
 #define SSE_HK (SSE_HCTX * 33)
 #define SSE_XCTX 48
 #define SSE_XK (SSE_XCTX * 33)
+#define SSE_PCTX 24
+#define SSE_PK (SSE_PCTX * 33)
+#define LZP4_BITS 20  // mode P: slots of the table keyed by the last 4 bytes
+#define LZP8_BITS 23  // and by the last 8
+// The block mode a kernel is built for (template parameter MODE).
+#define MODE_R 0
+#define MODE_X 1
+#define MODE_P 2
 #define DST_W 32
 #define SYM_DST_REPEAT 24  // slot-B symbol "the previous distance again"
 #define MANT_N 16          // mantissa table: MANT_N rows of MANT_N counts
@@ -251,6 +261,14 @@ static __device__ __forceinline__ int sse_x_ctx(int conf, int p1) {
   return (clampi(conf, 1, 3) - 1) * 16 + clampi(p1, 0, 255) / 16;
 }
 
+// Mode P's: conf class x "the lane has an LZP candidate" x order-1 byte class.
+static __device__ __forceinline__ int sse_p_ctx(int conf, bool avail, int p1) {
+  return ((clampi(conf, 1, 3) - 1) * 2 + (avail ? 1 : 0)) * 4 + clampi(p1, 0, 255) / 64;
+}
+
+// Entries of the hit-only APM of a mode that has one.
+#define HIT_APM_K(MODE) ((MODE) == MODE_X ? SSE_XK : SSE_PK)
+
 // The SSE stage on the A distribution (hit APM, then match APM): rewrites
 // the HIT and MATCH frequencies of a rowmod whose sum is tot; returns the
 // new sum.
@@ -348,10 +366,10 @@ struct AEvent {
 // and cumulative counts by warp reductions and scans.  Decode (DECODE)
 // finds count(cums <= target) - 1, clipped, for the lane's rANS state x;
 // encode takes the symbol from the lane's byte and match flag (the JAX
-// rule of block.py::_encode_model_body).  Mode X (XMODE) has the hit APM
-// only: its table is passed as sse_h and the order-1 byte, which keys it
-// with conf, as fill.  Call with the warp converged.
-template <bool DECODE, bool XMODE = false>
+// rule of block.py::_encode_model_body).  Modes X and P have the hit APM
+// only: its table is passed as sse_h and its context (sse_x_ctx, sse_p_ctx)
+// as fill.  Call with the warp converged.
+template <bool DECODE, int MODE = MODE_R>
 static __device__ AEvent warp_a_event(const Cfg& cfg, const int* o2, bool want,
                                       int ctx2, int pred, int conf, int fill,
                                       const int* sse, const int* sse_h, uint32_t x,
@@ -400,11 +418,10 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, const int* o2, bool want,
     int match = halve_n(__shfl_sync(full, v[8], SYM_MATCH - 256), h, true);
     sum += esc - esc0 - halve_n(__shfl_sync(full, pick(v, pr >> 5), pr & 31), h, false);
     SseState st{};
-    if (XMODE) {
+    if (MODE != MODE_R) {
       if (cfg.use_sse)
-        sum = hit_reshape(hit, sum, sse_h, SSE_XK,
-                          sse_x_ctx(__shfl_sync(full, conf, l), __shfl_sync(full, fill, l)),
-                          __shfl_sync(full, conf, l), st);
+        sum = hit_reshape(hit, sum, sse_h, HIT_APM_K(MODE),
+                          __shfl_sync(full, fill, l), __shfl_sync(full, conf, l), st);
     } else if (cfg.use_sse)
       sum = sse_reshape(hit, match,
                         halve_n(__shfl_sync(full, v[8], SYM_HIT2 - 256), h, true), sum,
@@ -609,12 +626,12 @@ static __device__ __forceinline__ int cta_excl_prefix_b(int in_warp, const int* 
   return before + in_warp;
 }
 
-// ROLZ bucket insert, last phase: the entry for position q = pos-3.
+// ROLZ bucket insert, last phase: the entry for position q = pos-late.
 static __device__ __forceinline__ void bucket_store(int* rolz, const Cfg& cfg,
                                              uint32_t rctx, int slot, int pos,
-                                             uint32_t nx4) {
+                                             uint32_t nx4, int late = 3) {
   int* e = rolz + ((size_t)rctx * cfg.rolz_depth + slot) * 2;
-  e[0] = pos - 3 + 1;
+  e[0] = pos - late + 1;
   e[1] = (int)nx4;
 }
 
@@ -624,6 +641,68 @@ static __device__ __forceinline__ bool insert_here(const Cfg& cfg, bool active, 
   bool ins = active && (t >= (cfg.rolz_ctx_bytes == 4 ? 7 : 6));
   if (cfg.rolz_dec > 1) ins = ins && (pos % cfg.rolz_dec == 0);
   return ins;
+}
+
+// ------------------------------------------------------------ LZP (mode P) --
+// Three tables shared by the lanes (block.py::_init_carry): position + 1 of
+// the byte that last followed the lane's last 2 bytes (exact index), last 4
+// and last 8 bytes (hashed); 0 = empty.
+struct Lzp {
+  int* t2;  // [2^16]
+  int* t4;  // [2^LZP4_BITS]
+  int* t8;  // [2^LZP8_BITS]
+};
+
+static __device__ __forceinline__ uint32_t lzp_hash4(uint32_t ctx4) {
+  return ((ctx4 * 2654435761u) >> 12) & ((1u << LZP4_BITS) - 1u);
+}
+
+static __device__ __forceinline__ uint32_t lzp_hash8(uint32_t ctx4, uint32_t ctx4b) {
+  return (((ctx4 * 2654435761u) ^ (ctx4b * 0xC2B2AE3Du)) >> 10) & ((1u << LZP8_BITS) - 1u);
+}
+
+// Block bytes at .. at + 3 packed like a context register (the last byte in
+// the low bits).
+static __device__ __forceinline__ uint32_t hist_word(const uint8_t* hist, int at) {
+  return ((uint32_t)hist[at] << 24) | ((uint32_t)hist[at + 1] << 16) |
+         ((uint32_t)hist[at + 2] << 8) | (uint32_t)hist[at + 3];
+}
+
+// The lane's match source at step t (block.py::_lzp_candidate): the t8
+// entry if it lies at an earlier step of its lane and the 8 bytes before it
+// are the lane's last 8 (ctx4b, ctx4), else the t4 entry under the same
+// rule with 4 bytes, else the t2 entry.  A source within k bytes of its
+// lane's head cannot be verified from bytes the decoder has and is taken as
+// it is.  hist is the block: the input on encode, the decoded bytes on
+// decode (steps < t only are read).  Every use of a source is behind
+// src >= 0: C's % truncates where JAX's floors.  Returns ok; src is set
+// either way (the t2 entry, maybe -1, where nothing is ok).
+static __device__ bool lzp_candidate(const Cfg& c, const Lzp& z, const uint8_t* hist,
+                                     int t, uint32_t ctx4, uint32_t ctx4b, int& src) {
+  const int s8 = z.t8[lzp_hash8(ctx4, ctx4b)] - 1;
+  const int s4 = z.t4[lzp_hash4(ctx4)] - 1;
+  const int s2 = z.t2[ctx4 & 0xFFFFu] - 1;
+  bool ok8 = s8 >= 0 && t >= 8 && s8 % c.T < t;
+  if (ok8 && s8 % c.T >= 8)
+    ok8 = hist_word(hist, s8 - 4) == ctx4 && hist_word(hist, s8 - 8) == ctx4b;
+  bool ok4 = s4 >= 0 && t >= 4 && s4 % c.T < t;
+  if (ok4 && s4 % c.T >= 4) ok4 = hist_word(hist, s4 - 4) == ctx4;
+  const bool ok2 = s2 >= 0 && t >= 2 && s2 % c.T < t;
+  src = ok8 ? s8 : ok4 ? s4 : s2;
+  return ok8 || ok4 || ok2;
+}
+
+// End of a step (block.py::_post_step, mode P): the contexts of position
+// pos + 1 (the registers after this step's byte) map to it.  A scatter-max:
+// of the lanes that hit one slot the highest position stays, whatever the
+// order.  Call after every read of the step, before a barrier.
+static __device__ __forceinline__ void lzp_insert(const Cfg& c, const Lzp& z, bool active,
+                                           int t, int pos, uint32_t ctx4n,
+                                           uint32_t ctx4bn) {
+  if (!(active && t >= 1 && t != c.T - 1 && pos + 1 < c.n)) return;
+  atomicMax(&z.t2[ctx4n & 0xFFFFu], pos + 2);
+  if (t >= 3) atomicMax(&z.t4[lzp_hash4(ctx4n)], pos + 2);
+  if (t >= 7) atomicMax(&z.t8[lzp_hash8(ctx4n, ctx4bn)], pos + 2);
 }
 
 // The bucket-reading kernels (KS, K1) keep each lane's copy of a bucket
@@ -738,7 +817,8 @@ static __device__ int bucket_slot(const int* rolz, const Cfg& c, const int* keys
 // ------------------------------------------- modeling-scan shared state ----
 // Shared memory of the modeling (K2, K12e) and decode (K1, K12d) scans:
 // election keys, the small dense models (len, idx, the two APMs; mode X's
-// distance-bucket row, mantissa table and hit APM) and the o1 row sums.
+// distance-bucket row, mantissa table and hit APM; mode P's hit APM, which
+// takes the place of mode X's) and the o1 row sums.
 struct SmemModel {
   __align__(16) int key_o2[CPX_MAX_LANES];   // ctx2 of lanes that rescaled their o2 row
   __align__(16) int key_o3[CPX_MAX_LANES];   // h3 of lanes that update the o3 predictor
@@ -753,7 +833,7 @@ struct SmemModel {
   int dst[DST_W];
   int dst_sum, hot_dst;
   int mant[MANT_N * MANT_N];
-  int sse_x[SSE_XK];
+  int sse_x[SSE_XK];  // the hit-only APM: mode X's, or mode P's SSE_PK entries
   int wtot[5][32];  // one lane-order prefix scratch per rANS slot
 };
 
@@ -765,23 +845,26 @@ struct Tables {
   int* idx;
   int* sse;
   int* sse_h;
-  int* dst;    // mode X only, as mant and sse_x
+  int* dst;    // mode X only, as mant
   int* mant;
-  int* sse_x;
+  int* sse_x;  // the hit-only APM: sse_x in mode X, sse_p in mode P
 };
 
-template <bool XMODE = false>
+template <int MODE = MODE_R>
 static __device__ void model_load(SmemModel& sm, const Tables& tb) {
-  if (XMODE) {
+  if (MODE == MODE_X) {
     for (int k = threadIdx.x; k < DST_W; k += blockDim.x) sm.dst[k] = tb.dst[k];
     for (int k = threadIdx.x; k < MANT_N * MANT_N; k += blockDim.x) sm.mant[k] = tb.mant[k];
-    for (int k = threadIdx.x; k < SSE_XK; k += blockDim.x) sm.sse_x[k] = tb.sse_x[k];
     if (threadIdx.x == 0) sm.hot_dst = 0;
   }
+  if (MODE != MODE_R)
+    for (int k = threadIdx.x; k < HIT_APM_K(MODE); k += blockDim.x) sm.sse_x[k] = tb.sse_x[k];
   for (int k = threadIdx.x; k < N_SHARED_CTX * LEN_W; k += blockDim.x) sm.len[k] = tb.len[k];
   for (int k = threadIdx.x; k < N_SHARED_CTX * IDX_W; k += blockDim.x) sm.idx[k] = tb.idx[k];
-  for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) sm.sse[k] = tb.sse[k];
-  for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) sm.sse_h[k] = tb.sse_h[k];
+  if (MODE != MODE_P) {  // mode P passes neither
+    for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) sm.sse[k] = tb.sse[k];
+    for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) sm.sse_h[k] = tb.sse_h[k];
+  }
   for (int k = threadIdx.x; k < N_SHARED_CTX; k += blockDim.x) {
     sm.hot_len[k] = 0;
     sm.hot_idx[k] = 0;
@@ -795,17 +878,20 @@ static __device__ void model_load(SmemModel& sm, const Tables& tb) {
   }
 }
 
-template <bool XMODE = false>
+template <int MODE = MODE_R>
 static __device__ void model_store(const SmemModel& sm, const Tables& tb) {
-  if (XMODE) {
+  if (MODE == MODE_X) {
     for (int k = threadIdx.x; k < DST_W; k += blockDim.x) tb.dst[k] = sm.dst[k];
     for (int k = threadIdx.x; k < MANT_N * MANT_N; k += blockDim.x) tb.mant[k] = sm.mant[k];
-    for (int k = threadIdx.x; k < SSE_XK; k += blockDim.x) tb.sse_x[k] = sm.sse_x[k];
   }
+  if (MODE != MODE_R)
+    for (int k = threadIdx.x; k < HIT_APM_K(MODE); k += blockDim.x) tb.sse_x[k] = sm.sse_x[k];
   for (int k = threadIdx.x; k < N_SHARED_CTX * LEN_W; k += blockDim.x) tb.len[k] = sm.len[k];
   for (int k = threadIdx.x; k < N_SHARED_CTX * IDX_W; k += blockDim.x) tb.idx[k] = sm.idx[k];
-  for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) tb.sse[k] = sm.sse[k];
-  for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) tb.sse_h[k] = sm.sse_h[k];
+  if (MODE != MODE_P) {
+    for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) tb.sse[k] = sm.sse[k];
+    for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) tb.sse_h[k] = sm.sse_h[k];
+  }
 }
 
 // Rescale the idx rows that a match lane reads this step (thread r < 4).
@@ -880,8 +966,9 @@ static __device__ void upd_store(const Tables& tb, const SmemModel& sm, int i,
   }
 }
 
-// Add phase (after the store barrier): every additive update.
-template <bool XMODE = false>
+// Add phase (after the store barrier): every additive update.  In modes X
+// and P a match bumps idx[0][0] too (JAX passes a zero index symbol).
+template <int MODE = MODE_R>
 static __device__ void upd_add(const Cfg& c, const Tables& tb, SmemModel& sm,
                         const Upd& u) {
   if (!u.coding) return;
@@ -898,12 +985,12 @@ static __device__ void upd_add(const Cfg& c, const Tables& tb, SmemModel& sm,
     int ic = clampi(u.idx_ctx, 0, N_SHARED_CTX - 1);
     if (u.sym_len >= 0 && u.sym_len < LEN_W) atomicAdd(&sm.len[lc * LEN_W + u.sym_len], c.len_inc);
     if (u.sym_idx >= 0 && u.sym_idx < IDX_W) atomicAdd(&sm.idx[ic * IDX_W + u.sym_idx], c.idx_inc);
-    if (XMODE && u.sym_dst >= 0 && u.sym_dst < DST_W) atomicAdd(&sm.dst[u.sym_dst], c.dst_inc);
+    if (MODE == MODE_X && u.sym_dst >= 0 && u.sym_dst < DST_W) atomicAdd(&sm.dst[u.sym_dst], c.dst_inc);
   }
-  if (XMODE) {
-    if (u.adaptive && u.mant_sym >= 0 && u.mant_sym < MANT_N)
-      atomicAdd(&sm.mant[u.mant_row * MANT_N + u.mant_sym], c.mant_inc);
-    if (c.use_sse && u.sse.act_h) apm_add(sm.sse_x, SSE_XK, u.sse.h, u.is_hit);
+  if (MODE == MODE_X && u.adaptive && u.mant_sym >= 0 && u.mant_sym < MANT_N)
+    atomicAdd(&sm.mant[u.mant_row * MANT_N + u.mant_sym], c.mant_inc);
+  if (MODE != MODE_R) {
+    if (c.use_sse && u.sse.act_h) apm_add(sm.sse_x, HIT_APM_K(MODE), u.sse.h, u.is_hit);
   } else if (c.use_sse) {
     apm_add(sm.sse, SSE_K, u.sse.m, u.is_match);
     if (u.sse.act_h) apm_add(sm.sse_h, SSE_HK, u.sse.h, u.is_hit);
@@ -913,11 +1000,13 @@ static __device__ void upd_add(const Cfg& c, const Tables& tb, SmemModel& sm,
 // Last phase of a step: clip the APMs, clear the hot-row flags; mode X:
 // halve each mantissa row whose sum is over the cap (every step, whoever
 // added).
-template <bool XMODE = false>
+template <int MODE = MODE_R>
 static __device__ void upd_finish(SmemModel& sm, int mant_cap = 0) {
-  if (XMODE) {
-    for (int k = threadIdx.x; k < SSE_XK; k += blockDim.x) sm.sse_x[k] = clampi(sm.sse_x[k], SSE_LO, SSE_HI);
+  if (MODE != MODE_R) {
+    for (int k = threadIdx.x; k < HIT_APM_K(MODE); k += blockDim.x) sm.sse_x[k] = clampi(sm.sse_x[k], SSE_LO, SSE_HI);
     if (threadIdx.x < N_SHARED_CTX) sm.hot_len[threadIdx.x] = 0;
+  }
+  if (MODE == MODE_X) {
     if (threadIdx.x == N_SHARED_CTX) sm.hot_dst = 0;
     for (int r = threadIdx.x; r < MANT_N; r += blockDim.x) {
       int* row = sm.mant + r * MANT_N;
@@ -926,7 +1015,8 @@ static __device__ void upd_finish(SmemModel& sm, int mant_cap = 0) {
       if (s > mant_cap)
         for (int k = 0; k < MANT_N; ++k) row[k] = (row[k] + 1) >> 1;
     }
-  } else {
+  }
+  if (MODE == MODE_R) {
     for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) sm.sse[k] = clampi(sm.sse[k], SSE_LO, SSE_HI);
     for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) sm.sse_h[k] = clampi(sm.sse_h[k], SSE_LO, SSE_HI);
     if (threadIdx.x < N_SHARED_CTX) {

@@ -1,7 +1,10 @@
-// Byte-window and scored-row reads shared by the two encoder scans that
-// search the ROLZ bucket table: the search scan (KS, search.cu) and the
-// rank scan (K5, rank.cu).
+// Byte-window and scored-row reads shared by the encoder scans that search
+// a bucket table: the search scans (KS and KSx, search.cu) and the rank scan
+// (K5, rank.cu); the window compare also serves mode P's modeling scan
+// (K13e, model.cu).
 #pragma once
+
+#include <climits>
 
 #include "ppm_r.cuh"
 
@@ -44,15 +47,23 @@ static __device__ int prefix_len(const uint8_t* inp, const Cfg& c, int lane, int
   return width;
 }
 
+// The longest match that may start at lane i's step t: to the end of the
+// lane, of the block and of what the format codes (below 0 past the block).
+static __device__ __forceinline__ int len_cap_at(const Cfg& c, int i, int t) {
+  return min(min(c.T - t, c.n - (i * c.T + t)), min(c.window, c.min_len + LEN_W - 1));
+}
+
 // Every alive lane's bucket row, read by its warp (coalesced, eight rows
 // in flight): positions into the lane's row of pos, and each entry's
 // prefix score against the lane's next four bytes (own) into its row of
 // score: the number of leading bytes of the 4-byte prefix cache that
-// match, -1 for an empty slot.  Returns the lane's fill.  Call with the
-// warp converged.
+// match, -1 for an empty slot and for an entry at or after the lane's
+// fwd_limit (KSx: the lane's position; a distance cannot name it).  Returns
+// the lane's fill.  Call with the warp converged.
 static __device__ int warp_load_scored_rows(const int* rolz, int d, bool want,
                                      uint32_t rctx, uint32_t own, int* pos,
-                                     int8_t* score, int pitch) {
+                                     int8_t* score, int pitch,
+                                     int fwd_limit = INT_MAX) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31, wbase = threadIdx.x & ~31;
   const unsigned wanted = __ballot_sync(full, want);
@@ -75,6 +86,7 @@ static __device__ int warp_load_scored_rows(const int* rolz, int d, bool want,
     for (int u = 0; u < 8; ++u) {
       if (!((wanted >> (g + u)) & 1u)) continue;
       const uint32_t own_l = __shfl_sync(full, own, g + u);
+      const int limit_l = __shfl_sync(full, fwd_limit, g + u);
       const size_t off = (size_t)(wbase + g + u) * pitch;
       int cnt = 0;
 #pragma unroll
@@ -86,7 +98,7 @@ static __device__ int warp_load_scored_rows(const int* rolz, int d, bool want,
           int sc = ((diff & 0xFFu) == 0) + ((diff & 0xFFFFu) == 0) +
                    ((diff & 0xFFFFFFu) == 0) + (diff == 0);
           pos[off + j] = p;
-          score[off + j] = (int8_t)(p > 0 ? sc : -1);
+          score[off + j] = (int8_t)(p > 0 && p - 1 < limit_l ? sc : -1);
           cnt += p > 0;
         }
       }
@@ -95,4 +107,73 @@ static __device__ int warp_load_scored_rows(const int* rolz, int d, bool want,
     }
   }
   return fill;
+}
+
+// top_k <= 8 (the CLI's -m maps to 1..8; block.py::search_scan checks it)
+#define KS_TOPK_MAX 8
+
+// The best entry of the lane's scored bucket row (block.py::_rolz_best_match
+// after the row read): the top k_top entries by (score, position, slot),
+// each whose 4-byte prefix matched probed to c.probe bytes, the first
+// longest extended to the full window, capped.
+struct BestMatch {
+  int length, src, slot;
+};
+
+static __device__ BestMatch rolz_best(const uint8_t* inp, const Cfg& c, int i, int t,
+                                      const int* pos_row, const int8_t* score_row,
+                                      uint64_t own8) {
+  const int d = c.rolz_depth, k_top = min(c.top_k, d);
+  const long long cur = (long long)i * c.T + t, row_end = (long long)(i + 1) * c.T;
+  // the top k_top entries by (score, position, slot), descending: the
+  // JAX rank key score*D + (D-1-recency), unique per slot.  A sorted
+  // list of packed keys (score+2) << 40 | position << 8 | slot, which
+  // order like those triples (positions < 2^31, slots < 2^8); an entry
+  // that does not beat the last kept key is skipped.
+  unsigned long long top[KS_TOPK_MAX];
+#pragma unroll
+  for (int u = 0; u < KS_TOPK_MAX; ++u) top[u] = 0;  // below every key
+  for (int s = 0; s < d; ++s) {
+    const unsigned long long key =
+        ((unsigned long long)(score_row[s] + 2) << 40) |
+        ((unsigned long long)(unsigned)pos_row[s] << 8) | (unsigned)s;
+    if (key <= top[KS_TOPK_MAX - 1]) continue;
+#pragma unroll
+    for (int u = KS_TOPK_MAX - 1; u > 0; --u)
+      top[u] = key > top[u - 1] ? top[u - 1] : (key > top[u] ? key : top[u]);
+    top[0] = key > top[0] ? key : top[0];
+  }
+  // probe the candidates whose 4-byte prefix matched (score 4); with
+  // probe <= 32, one 32-byte window each, all loads in flight together
+  const long long cap_n = (long long)c.S * c.T;
+  uint64_t cw[4];
+  cw[0] = own8;
+#pragma unroll
+  for (int u = 1; u < 4; ++u)
+    cw[u] = c.probe <= 32 ? load8(inp, cap_n, cur + 8 * u, row_end) : 0;
+  BestMatch best{-1, 0, 0};
+#pragma unroll
+  for (int k = 0; k < KS_TOPK_MAX; ++k) {
+    if (k >= k_top) break;
+    const int sc = (int)(top[k] >> 40) - 2, slot = (int)(top[k] & 0xFFu);
+    const int src_k = (int)((top[k] >> 8) & 0x7FFFFFFFu) - 1;
+    int len_k = 0;
+    if (sc == 4 && c.probe <= 32) {
+      len_k = c.probe;
+      const long long sb = max(src_k, 0);
+#pragma unroll
+      for (int u = 3; u >= 0; --u) {
+        uint64_t diff = load8(inp, cap_n, sb + 8 * u, cap_n) ^ cw[u];
+        if (diff) len_k = 8 * u + ((__ffsll((long long)diff) - 1) >> 3);
+      }
+      len_k = min(len_k, c.probe);
+    } else if (sc == 4) {
+      len_k = prefix_len(inp, c, i, t, src_k, c.probe);
+    }
+    if (len_k > best.length) best = BestMatch{len_k, src_k, slot};  // first maximum (argmax)
+  }
+  if (best.length >= c.probe)
+    best.length = prefix_len(inp, c, i, t, best.src, c.window);
+  best.length = min(best.length, len_cap_at(c, i, t));
+  return best;
 }

@@ -1,28 +1,40 @@
-// KS: the ROLZ search scan of the greedy (-f0) encode.
+// KS: the ROLZ search scan of the greedy (-f0) encode; KSx: the search scan
+// of mode X under CPX_X_FINDER=scan.
 //
-// Replaces comprox_tpu/codec/block.py::_search_body (1333-1388) with
-// _rolz_best_match (939-1056), run under lax.scan by _search_and_parse
+// KS replaces comprox_tpu/codec/block.py::_search_body (1333-1388, R branch)
+// with _rolz_best_match (939-1056), run under lax.scan by _search_and_parse
 // (1630-1635).  Per step and lane: read the context's bucket row, score
 // every entry by its 4-byte prefix cache, take the top-k by (score,
 // recency), probe each to `probe` bytes, extend the winner to the full
 // window, cap; then the shared position-driven bucket insert.
 //
+// KSx replaces the X branch (1351-1383) and the X inserts of _post_step
+// (623-639): three candidates a lane a step — the best entry of the bucket
+// of the position's own next 8 bytes (x_hash8), the best entry of the
+// bucket of its preceding context (mode R's key, a second table), each
+// without the entries at or after the position (masked before the top-k),
+// and the entry of a 2^16-slot cache keyed by the next 6 bytes (xshort,
+// read before its own scatter-max insert, a barrier apart).  Then two
+// lane-ranked bucket inserts: position pos-7 under its own 8 bytes, and
+// position pos-3 under its context.  Output: six grids (length, src, len2,
+// cand, len3, src3), the price DP's three (len, src) candidates.
+//
 // Bound on the H100: one CTA walks T dependent steps, so the kernel is
 // latency bound (global-memory round trips of the bucket rows and the
 // byte windows, and the barriers), not bandwidth bound: a step touches
-// ~S*(D*8 + 4*probe + window) bytes.  The design keeps every lane's work
+// ~S*(D*8 + 4*probe + window) bytes (KSx: twice the rows, three windows).
+// The design keeps every lane's work
 // in one thread and the tables in global memory (L2 holds the hot rows);
 // top-k is one pass over the row keeping a sorted list of k (score,
 // position, slot) in registers, instead of the JAX O(D^2) rank matrix;
 // byte windows are compared 8 bytes per pair of aligned loads instead of
 // one dependent byte load at a time; insert rows are read by whole warps
-// into a shared-memory copy per lane.
+// into a shared-memory copy per lane.  KSx runs its two bucket searches
+// and its two inserts one after the other through the same per-lane row
+// copies.
 #include "rolz_search.cuh"
 
 namespace {
-
-// top_k <= 8 (the CLI's -m maps to 1..8; block.py::search_scan checks it)
-#define KS_TOPK_MAX 8
 
 template <int MAXT>
 __global__ void __launch_bounds__(MAXT) ks_kernel(Cfg c, const uint8_t* __restrict__ inp,
@@ -33,8 +45,6 @@ __global__ void __launch_bounds__(MAXT) ks_kernel(Cfg c, const uint8_t* __restri
   const int i = threadIdx.x;
   const bool alive = i < c.S;
   const int d = c.rolz_depth;
-  const int k_top = min(c.top_k, d);
-  const int len_cap = min(c.window, c.min_len + LEN_W - 1);
   uint32_t ctx4 = 0, ctx4b = 0;
   // the lanes' copies of bucket rows (the search row, then the insert row)
   // and the search row's prefix scores
@@ -51,73 +61,18 @@ __global__ void __launch_bounds__(MAXT) ks_kernel(Cfg c, const uint8_t* __restri
     uint32_t ctx4n = ctx4, ctx4bn = ctx4b;
     // this lane's next bytes: block[cur..row_end), zero past its row
     const long long cur = (long long)i * c.T + t, row_end = (long long)(i + 1) * c.T;
-    uint32_t own = 0;
-    if (alive) own = (uint32_t)load8(inp, (long long)c.S * c.T, cur, row_end);
+    uint64_t own = 0;
+    if (alive) own = load8(inp, (long long)c.S * c.T, cur, row_end);
     const int fill = warp_load_scored_rows(
         rolz, d, alive, rolz_hash3(rolz_key(ctx4, c.rolz_ctx_bytes), c.rolz_bits),
-        own, posbuf, scorebuf, pitch);
+        (uint32_t)own, posbuf, scorebuf, pitch);
     if (alive) {
       byte = (int)(own & 0xFFu);
-      // the top k_top entries by (score, position, slot), descending: the
-      // JAX rank key score*D + (D-1-recency), unique per slot.  A sorted
-      // list of packed keys (score+2) << 40 | position << 8 | slot, which
-      // order like those triples (positions < 2^31, slots < 2^8); an entry
-      // that does not beat the last kept key is skipped.
-      unsigned long long top[KS_TOPK_MAX];
-#pragma unroll
-      for (int u = 0; u < KS_TOPK_MAX; ++u) top[u] = 0;  // below every key
-      for (int s = 0; s < d; ++s) {
-        const unsigned long long key =
-            ((unsigned long long)(score_row[s] + 2) << 40) |
-            ((unsigned long long)(unsigned)pos_row[s] << 8) | (unsigned)s;
-        if (key <= top[KS_TOPK_MAX - 1]) continue;
-#pragma unroll
-        for (int u = KS_TOPK_MAX - 1; u > 0; --u)
-          top[u] = key > top[u - 1] ? top[u - 1] : (key > top[u] ? key : top[u]);
-        top[0] = key > top[0] ? key : top[0];
-      }
-      // probe the candidates whose 4-byte prefix matched (score 4); with
-      // probe <= 32, one 32-byte window each, all loads in flight together
-      const long long cap_n = (long long)c.S * c.T;
-      uint64_t cw[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        cw[u] = c.probe <= 32 ? load8(inp, cap_n, cur + 8 * u, row_end) : 0;
-      int best_len = -1, best_src = 0, best_rec = 0;
-#pragma unroll
-      for (int k = 0; k < KS_TOPK_MAX; ++k) {
-        if (k >= k_top) break;
-        const int sc = (int)(top[k] >> 40) - 2, slot = (int)(top[k] & 0xFFu);
-        const int src_k = (int)((top[k] >> 8) & 0x7FFFFFFFu) - 1;
-        int len_k = 0;
-        if (sc == 4 && c.probe <= 32) {
-          len_k = c.probe;
-          const long long sb = max(src_k, 0);
-#pragma unroll
-          for (int u = 3; u >= 0; --u) {
-            uint64_t diff = load8(inp, cap_n, sb + 8 * u, cap_n) ^ cw[u];
-            if (diff) len_k = 8 * u + ((__ffsll((long long)diff) - 1) >> 3);
-          }
-          len_k = min(len_k, c.probe);
-        } else if (sc == 4) {
-          len_k = prefix_len(inp, c, i, t, src_k, c.probe);
-        }
-        if (len_k > best_len) {  // first maximum wins (argmax)
-          best_len = len_k;
-          best_src = src_k;
-          best_rec = recency_rank(pos_row, d, slot);
-        }
-      }
-      int length = best_len;
-      if (length >= c.probe)
-        length = prefix_len(inp, c, i, t, best_src, c.window);
-      int cap = min(min(c.T - t, c.n - pos), len_cap);
-      length = min(length, cap);
-      if (!(active && t >= 7)) length = 0;
+      const BestMatch m = rolz_best(inp, c, i, t, pos_row, score_row, own);
       size_t o = (size_t)t * c.S + i, plane = (size_t)c.T * c.S;
-      out[o] = length;
-      out[plane + o] = best_src;
-      out[2 * plane + o] = best_rec;
+      out[o] = (active && t >= 7) ? m.length : 0;
+      out[plane + o] = m.src;
+      out[2 * plane + o] = recency_rank(pos_row, d, m.slot);
       out[3 * plane + o] = fill;
 
       if (active) {
@@ -138,6 +93,109 @@ __global__ void __launch_bounds__(MAXT) ks_kernel(Cfg c, const uint8_t* __restri
   }
 }
 
+// The bucket of a position's own next 8 bytes (block.py::x_hash8).
+static __device__ __forceinline__ uint32_t x_hash8(uint32_t nx4, uint32_t fol4, int bits) {
+  uint32_t v = (nx4 * 0x9E3779B1u) ^ (fol4 * 0x85EBCA77u);
+  return (v >> (32 - bits)) & ((1u << bits) - 1u);
+}
+
+// The near-match cache's slot of a position's next 6 bytes (block.py::x_hash6).
+static __device__ __forceinline__ uint32_t x_hash6(uint64_t own) {
+  uint32_t h = 0;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) h = (h * 123456791u) ^ (uint32_t)((own >> (8 * j)) & 0xFFu);
+  return (h ^ (h >> 15)) & 0xFFFFu;
+}
+
+#define X_INSERT_LATE 7  // the content-keyed entry of position q: at step q + 7
+
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) ksx_kernel(Cfg c, const uint8_t* __restrict__ inp,
+                           int* __restrict__ ent_x, int* __restrict__ ent_c,
+                           int* __restrict__ xshort, int* __restrict__ out,
+                           int* __restrict__ gpos, bool pos_in_smem) {
+  __shared__ __align__(16) int keys_x[CPX_MAX_LANES];
+  __shared__ __align__(16) int keys_c[CPX_MAX_LANES];
+  extern __shared__ int spos[];
+  const int i = threadIdx.x;
+  const bool alive = i < c.S;
+  const int d = c.rolz_depth;
+  uint32_t ctx4 = 0, ctx4b = 0;
+  int* const posbuf = pos_in_smem ? spos : gpos;
+  const int pitch = pos_pitch(d);
+  const int* const pos_row = posbuf + (size_t)i * pitch;
+  int8_t* const scorebuf = reinterpret_cast<int8_t*>(posbuf + (size_t)c.S * pitch);
+  const int8_t* const score_row = scorebuf + (size_t)i * pitch;
+  const size_t plane = (size_t)c.T * c.S;
+
+  for (int t = 0; t < c.T; ++t) {
+    const int pos = i * c.T + t;
+    const bool active = alive && pos < c.n;
+    const bool ok_here = active && t >= 7;
+    int key_x = -1, key_c = -1;
+    uint32_t ctx4n = ctx4, ctx4bn = ctx4b, h6 = 0;
+    const long long cur = (long long)i * c.T + t, row_end = (long long)(i + 1) * c.T;
+    uint64_t own = 0;
+    if (alive) own = load8(inp, (long long)c.S * c.T, cur, row_end);
+    const size_t o = (size_t)t * c.S + i;
+
+    // the content-keyed bucket, then the context-keyed one: entries at or
+    // after pos are masked before the top-k
+    warp_load_scored_rows(ent_x, d, alive,
+                          x_hash8((uint32_t)own, (uint32_t)(own >> 32), c.rolz_bits),
+                          (uint32_t)own, posbuf, scorebuf, pitch, pos);
+    __syncwarp();
+    if (alive) {
+      const BestMatch m = rolz_best(inp, c, i, t, pos_row, score_row, own);
+      out[o] = (m.src >= 0 && m.src < pos && ok_here) ? m.length : 0;
+      out[plane + o] = m.src;
+    }
+    __syncwarp();
+    warp_load_scored_rows(ent_c, d, alive,
+                          rolz_hash3(rolz_key(ctx4, c.rolz_ctx_bytes), c.rolz_bits),
+                          (uint32_t)own, posbuf, scorebuf, pitch, pos);
+    __syncwarp();
+    if (alive) {
+      const BestMatch m = rolz_best(inp, c, i, t, pos_row, score_row, own);
+      out[4 * plane + o] = (m.src >= 0 && m.src < pos && ok_here) ? m.length : 0;
+      out[5 * plane + o] = m.src;
+
+      // the near-match cache, read as the step found it
+      h6 = x_hash6(own);
+      const int cand = xshort[h6] - 1;
+      int len2 = 0;
+      if (cand >= 0 && cand < pos && ok_here) len2 = prefix_len(inp, c, i, t, cand, c.window);
+      out[2 * plane + o] = min(len2, len_cap_at(c, i, t));  // below 0 past the block
+      out[3 * plane + o] = cand;
+
+      if (active) {
+        ctx4n = (ctx4 << 8) | (uint32_t)(own & 0xFFu);
+        ctx4bn = (ctx4b << 8) | (ctx4 >> 24);
+        // position q = pos-7 under its own 8 bytes: q..q+3 = byteswap(ctx4bn)
+        if (t >= 10)
+          key_x = (int)x_hash8(byteswap32(ctx4bn), byteswap32(ctx4n), c.rolz_bits);
+        // position q = pos-3 under its context, by mode R's rule undecimated
+        if (t >= (c.rolz_ctx_bytes == 4 ? 7 : 6))
+          key_c = (int)rolz_hash3(rolz_key(ctx4bn, c.rolz_ctx_bytes), c.rolz_bits);
+      }
+    }
+    keys_x[i] = key_x;
+    keys_c[i] = key_c;
+    __syncthreads();  // every lane has read the cache and both search rows
+    if (active) atomicMax(&xshort[h6], pos + 1);
+    const int slot_x = bucket_slot(ent_x, c, keys_x, key_x, posbuf, pitch);
+    __syncwarp();
+    const int slot_c = bucket_slot(ent_c, c, keys_c, key_c, posbuf, pitch);
+    __syncthreads();
+    if (slot_x >= 0)
+      bucket_store(ent_x, c, (uint32_t)key_x, slot_x, pos, byteswap32(ctx4bn), X_INSERT_LATE);
+    if (slot_c >= 0) bucket_store(ent_c, c, (uint32_t)key_c, slot_c, pos, byteswap32(ctx4n));
+    ctx4 = ctx4n;
+    ctx4b = ctx4bn;
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" int cpx_ks_launch(const int* cfg, const void* inp, void* rolz,
@@ -151,5 +209,24 @@ extern "C" int cpx_ks_launch(const int* cfg, const void* inp, void* rolz,
                        (int)smem);
   kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
       c, (const uint8_t*)inp, (int*)rolz, (int*)out, (int*)gpos, smem > 0);
+  return (int)cudaGetLastError();
+}
+
+// Mode X: the content-keyed and the context-keyed bucket table
+// [2^bits, D, 2], the cache xshort [2^16] (all updated in place) ->
+// out [6, T, S].
+extern "C" int cpx_ksx_launch(const int* cfg, const void* inp, void* ent_x,
+                              void* ent_c, void* xshort, void* out, void* gpos,
+                              void* stream) {
+  Cfg c;
+  memcpy(&c, cfg, sizeof(Cfg));
+  int threads = (c.S + 31) / 32 * 32;
+  size_t smem = pos_smem_bytes(c, 1);
+  auto kernel = threads <= 512 ? ksx_kernel<512> : ksx_kernel<CPX_MAX_LANES>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
+      c, (const uint8_t*)inp, (int*)ent_x, (int*)ent_c, (int*)xshort,
+      (int*)out, (int*)gpos, smem > 0);
   return (int)cudaGetLastError();
 }

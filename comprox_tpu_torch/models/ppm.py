@@ -1,9 +1,10 @@
 """Batched PPM compound model (o1 + o2 + o3 predictor) on torch tensors.
 
-Counterpart of :mod:`comprox_tpu.models.ppm`, the subset of modes R and X
-at the default knobs: the o2/o1/o3 tables, the shared len/idx models and
-mode X's distance-bucket model, mode R's match and hit APMs (SSE), mode
-X's hit-only APM and the default branch of ``apply_updates``.  The
+Counterpart of :mod:`comprox_tpu.models.ppm`, the subset of modes R, X and
+P at the default knobs: the o2/o1/o3 tables, the shared len/idx models and
+mode X's distance-bucket model, mode R's match and hit APMs (SSE), the
+hit-only APMs of modes X and P and the default branch of
+``apply_updates``.  The
 symbol space, constants and arithmetic are the JAX package's; the stream
 format therefore is too, and ``format_fingerprint`` gives the same value.
 
@@ -210,8 +211,8 @@ def _floordiv(a, b):
 def read_o2(t, ctx2, pred, coding, conf=None, sse_fill=None, sse_hitx=None):
     """The A event's distribution: gather, rescale, exclude the predicted
     byte, then mode R's SSE reshape where ``sse_fill`` is given, or the
-    hit-only reshape where ``sse_hitx`` = (table key, contexts) is (mode X;
-    the state then feeds :func:`sse_update_hit`).
+    hit-only reshape where ``sse_hitx`` = (table key, contexts) is (modes X
+    and P; the state then feeds :func:`sse_update_hit`).
 
     Returns ``(rows, rowmod, cums, tot, halve_delta, sse_state)``;
     ``halve_delta`` holds the rescale as row deltas on the winner lanes,
@@ -315,6 +316,13 @@ def sse_x_ctx_of(conf, p1):
     return ((conf.clamp(1, 3) - 1) * 16 + _floordiv(p1.clamp(0, 255), 16)).to(_i32)
 
 
+def sse_p_ctx_of(conf, avail, p1):
+    """Mode P's hit APM context: conf class x LZP candidate availability x
+    order-1 byte class."""
+    return (((conf.clamp(1, 3) - 1) * 2 + avail.to(_i32)) * 4
+            + _floordiv(p1.clamp(0, 255), 64)).to(_i32)
+
+
 def _apm_read(sse_flat, ctx, p16):
     """Stretch-quantise p16 to (bin i, weight w) and interpolate the two
     table points: ``(p_sse16, flat, w, t_i, t_ip1)``."""
@@ -395,7 +403,8 @@ def sse_update(t, state, coding, is_match, is_hit):
 
 
 def sse_update_hit(t, key, state, coding, is_hit):
-    """Hit-only APM update toward the observed hit flag (mode X), IN PLACE."""
+    """Hit-only APM update toward the observed hit flag (modes X and P),
+    IN PLACE."""
     flat_h, w_h, ti_h, tip1_h, act_h = state
     _apm_add(t[key], flat_h, w_h, ti_h, tip1_h, is_hit, coding & act_h)
 

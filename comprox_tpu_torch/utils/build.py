@@ -55,6 +55,9 @@ _SIGNATURES = {
     "cpx_k11_launch": [_P] * 5,
     "cpx_k12e_launch": [_P] * 15,
     "cpx_k12d_launch": [_P] * 16,
+    "cpx_ksx_launch": [_P] * 8,
+    "cpx_k13e_launch": [_P] * 13,
+    "cpx_k13d_launch": [_P] * 15,
 }
 
 

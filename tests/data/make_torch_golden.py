@@ -1,4 +1,4 @@
-"""Write the golden crz, crf and crx archives that the PyTorch port must reproduce.
+"""Write the golden crz, crf, crx and crp archives that the PyTorch port must reproduce.
 
 Runs the JAX package (on the CPU) and writes, next to this script, for each
 corpus size (``--mb``, default 1):
@@ -16,7 +16,12 @@ fast profile under ``make_params("crf", {"lanes": 512, "block_mb": mb})``
 (``crf e -b<mb> -l512``, the flexible parse at the default encoder knobs),
 on the same corpus.  With ``--codec crx`` it writes ``crx_f0_...`` and
 ``crx_flex_...`` (the LZ77 codec, mode X, under ``make_params("crx", ...)``;
-``--parse`` picks one of the two), again on the crz archive's corpus.
+``--parse`` picks one of the two), again on the crz archive's corpus; with
+``--finder scan`` the candidates come from the per-step search scan
+(``CPX_X_FINDER=scan``, set here before the JAX package is imported) and
+the archives are named ``crx_scan_f0_...`` and ``crx_scan_flex_...``.  With
+``--codec crp`` it writes ``crp_<mb>MiB_S512.cpx`` (the LZP codec, mode P,
+which has no parse: one archive per size).
 
 At 8 MiB an archive is one block of S=512 lanes and T=16384 steps.
 
@@ -35,6 +40,8 @@ Usage::
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crf --mb 1 --mb 8
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --mb 1
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --mb 8 --parse flex
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --finder scan --mb 1 --parse flex
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crp --mb 1 --mb 8
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import argparse
 import hashlib
 import io
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -55,8 +63,12 @@ sys.path.insert(0, str(HERE.parents[1]))
 PARSES = {"f0": False, "flex": True}  # archive tag -> BlockParams.flexible
 
 
-def archive_name(mb: int, parse: str = "f0", codec: str = "crz") -> str:
-    return f"{codec}_{parse}_{mb}MiB_S512.cpx"
+def archive_name(mb: int, parse: str = "f0", codec: str = "crz",
+                 finder: str = "sort") -> str:
+    if codec == "crp":  # no parse pass: one archive per size
+        return f"crp_{mb}MiB_S512.cpx"
+    tag = codec if finder == "sort" else f"{codec}_{finder}"
+    return f"{tag}_{parse}_{mb}MiB_S512.cpx"
 
 
 def main() -> int:
@@ -65,12 +77,19 @@ def main() -> int:
                     help="corpus and block size in MiB (repeatable)")
     ap.add_argument("--parse", choices=sorted(PARSES), action="append",
                     help="which archives to write (default: both)")
-    ap.add_argument("--codec", choices=("crz", "crf", "crx"), default="crz",
-                    help="crf writes only the flexible-parse archive")
+    ap.add_argument("--codec", choices=("crz", "crf", "crx", "crp"),
+                    default="crz",
+                    help="crf and crp write one archive per size")
+    ap.add_argument("--finder", choices=("sort", "scan"), default="sort",
+                    help="crx only: the candidate source (CPX_X_FINDER)")
     ap.add_argument("--rebuild-corpus", action="store_true",
                     help="take bench.build_corpus, not the committed bytes")
     args = ap.parse_args()
     sizes = args.mb or [1]
+    if args.finder != "sort":
+        if args.codec != "crx":
+            raise SystemExit("--finder applies to --codec crx")
+        os.environ["CPX_X_FINDER"] = args.finder  # read at import
 
     from comprox_tpu.cli.main import make_params
     from comprox_tpu.codec.container import decode_stream, encode_stream
@@ -85,7 +104,7 @@ def main() -> int:
                 raise SystemExit(f"{args.codec} codes the corpus of the "
                                  f"committed crz archive {seed_arc.name}: "
                                  "write that first")
-            if args.codec == "crf":
+            if args.codec in ("crf", "crp"):
                 parses = ["flex"]
         if args.rebuild_corpus or not seed_arc.exists():
             from bench import build_corpus
@@ -112,11 +131,12 @@ def main() -> int:
             t_dec = time.time() - t0
             if out.getvalue() != data.tobytes():
                 raise SystemExit(f"{mb} MiB {parse}: JAX round trip failed")
-            name = archive_name(mb, parse, args.codec)
+            name = archive_name(mb, parse, args.codec, args.finder)
             (HERE / name).write_bytes(arc)
             flag = "" if PARSES[parse] else "-f0 "
+            env = "" if args.finder == "sort" else f"CPX_X_FINDER={args.finder} "
             meta[name] = {
-                "argv": f"{args.codec} e {flag}-b{mb} -l512",
+                "argv": f"{env}{args.codec} e {flag}-b{mb} -l512",
                 "input_bytes": int(data.size),
                 "input_sha256": hashlib.sha256(data.tobytes()).hexdigest(),
                 "archive_bytes": len(arc),

@@ -276,8 +276,14 @@ def test_unsupported_configurations_raise(monkeypatch):
     assert payload == jblk.encode_block(data, jblk.BlockParams(**kx))
     np.testing.assert_array_equal(
         blk.decode_block(payload, data.size, blk.BlockParams(**kx), "cpu"), data)
-    with pytest.raises(NotImplementedError, match="mode 'P'"):
-        blk.encode_block(data, blk.BlockParams(**dict(SMALL, mode="P")), "cpu")
+    # mode P is ported too (test_torch_pmode.py holds every pass)
+    kp = dict(SMALL, mode="P", min_len=4)
+    payload = blk.encode_block(data, blk.BlockParams(**kp), "cpu")
+    assert payload == jblk.encode_block(data, jblk.BlockParams(**kp))
+    np.testing.assert_array_equal(
+        blk.decode_block(payload, data.size, blk.BlockParams(**kp), "cpu"), data)
+    with pytest.raises(NotImplementedError, match="mode 'Q'"):
+        blk.encode_block(data, blk.BlockParams(**dict(SMALL, mode="Q")), "cpu")
     with pytest.raises(NotImplementedError, match="short_depth"):
         blk.decode_block(b"", 1, blk.BlockParams(**dict(SMALL, short_depth=8)), "cpu")
     with pytest.raises(NotImplementedError, match="chain_match"):
@@ -294,7 +300,8 @@ def test_unsupported_configurations_raise(monkeypatch):
              "CPX_X_FINDER"]
 )
 def test_unported_encoder_knobs_raise(monkeypatch, knob):
-    monkeypatch.setitem(blk._ENV, knob, "1" if knob == "CPX_DEBUG_EVT" else "scan")
+    # the finders take 'sort' or 'scan' (test_torch_xscan.py); nothing else
+    monkeypatch.setitem(blk._ENV, knob, "1" if knob == "CPX_DEBUG_EVT" else "chain")
     with pytest.raises(NotImplementedError, match=knob):
         blk.encode_block(corpus("text", 100), blk.BlockParams(**SMALL), "cpu")
 
@@ -370,3 +377,29 @@ def test_flexible_knobs_out_of_range_raise(monkeypatch, knob, value):
     monkeypatch.setattr(blk, knob, value)
     with pytest.raises(NotImplementedError, match="CPX_"):
         blk.encode_block(corpus("text", 100), blk.BlockParams(**FLEX), "cpu")
+
+
+@pytest.mark.parametrize("t", [0, 5, 40, 63])
+def test_match_window_len_equals_jax(t):
+    """Mode P's one-candidate length: the prefix against the window at src
+    (sources before the block, in other lanes, at the block's end), capped by
+    the lane's end, the block's end and the longest coded length."""
+    kw = dict(SMALL, mode="P", min_len=4)
+    pj, pt = jblk.BlockParams(**kw), blk.BlockParams(**kw)
+    rng = np.random.default_rng(t)
+    n = pj.capacity - 9
+    buf = np.zeros((pj.lanes, pj.steps), np.uint8)
+    buf.reshape(-1)[:n] = corpus("lowentropy", n, seed=t)
+    pos = np.arange(pj.lanes) * pj.steps + t
+    src = rng.integers(-2, pj.capacity, pj.lanes).astype(np.int32)
+    src[:2] = [pos[0] - 1, pj.capacity - 3]
+    inp_j = jnp.asarray(buf)
+    cur_j = jnp.pad(inp_j, ((0, 0), (0, pj.window + 1)))[:, t:t + pj.window + 1].astype(jnp.int32)
+    ref = jblk._match_window_len(jblk._pack_words(inp_j.reshape(-1)), jnp.asarray(pos),
+                                 jnp.asarray(src), jnp.int32(t), jnp.int32(n), pj, cur_j)
+    inp_t = torch.from_numpy(buf)
+    got = blk._match_window_len(
+        blk._pack_words(inp_t.reshape(-1)), torch.from_numpy(pos),
+        torch.from_numpy(src.astype(np.int64)), t, n, pt,
+        blk._cur_windows(inp_t, t, pt.window + 1))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))

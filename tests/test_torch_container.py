@@ -155,7 +155,7 @@ def test_chained_archives_and_other_codecs_raise():
         (b"R", jcon.F_CHAIN, NotImplementedError),
         (b"R", jcon.F_CHAIN | jcon.F_CHAIN_MATCH, NotImplementedError),
         (b"X", jcon.F_CHAIN, NotImplementedError),
-        (b"P", 0, NotImplementedError),
+        (b"P", jcon.F_CHAIN, NotImplementedError),
         (b"F", jcon.F_CHAIN, NotImplementedError),
     ):
         f = io.BytesIO()
@@ -166,12 +166,14 @@ def test_chained_archives_and_other_codecs_raise():
         f.write(b"\0" * 13)
         with pytest.raises(exc, match="not yet ported"):
             con.decode_stream(io.BytesIO(f.getvalue()), io.BytesIO(), "cpu")
-    # codec X is ported: an unchained X header with no block decodes to nothing
-    f = io.BytesIO()
-    jcon.write_header(f, jcon.ContainerParams(
-        codec=b"X", block=jblk.BlockParams(**dict(SMALL, mode="X"))))
-    f.write(b"\0" * 13)
-    assert con.decode_stream(io.BytesIO(f.getvalue()), io.BytesIO(), "cpu") == 0
+    # codecs X and P are ported: an unchained header with no block decodes
+    # to nothing
+    for codec in (b"X", b"P"):
+        f = io.BytesIO()
+        jcon.write_header(f, jcon.ContainerParams(
+            codec=codec, block=jblk.BlockParams(**dict(SMALL, mode=codec.decode()))))
+        f.write(b"\0" * 13)
+        assert con.decode_stream(io.BytesIO(f.getvalue()), io.BytesIO(), "cpu") == 0
 
 
 @pytest.mark.parametrize(
@@ -183,7 +185,7 @@ def test_chained_archives_and_other_codecs_raise():
         ["crz", "e", "a", "b", "-f0", "-g2"],
         ["crz", "e", "a", "b", "-c"],
         ["crx", "e", "a", "b", "-c"],
-        ["crp", "e", "a", "b", "-f0"],
+        ["crp", "e", "a", "b", "-f0", "-c"],
         ["crf", "e", "a", "b", "-c"],
         ["crf", "e", "a", "b", "-C"],
         ["crf", "e", "a", "b", "-g2"],
@@ -191,7 +193,7 @@ def test_chained_archives_and_other_codecs_raise():
         ["crx", "e", "a", "b", "-C"],
         ["crx", "e", "a", "b", "-j"],
         ["crx", "e", "a", "b", "-g2"],
-        ["crp", "d", "a", "b"],
+        ["crp", "e", "a", "b", "-g2"],
     ],
 )
 def test_cli_unported_switches_raise(argv, tmp_path):
@@ -214,11 +216,15 @@ def test_golden_fixture_metadata():
     assert set(meta) == {f"crz_{parse}_{mb}MiB_S512.cpx"
                          for parse in ("f0", "flex") for mb in (1, 8)} | {
         f"crf_flex_{mb}MiB_S512.cpx" for mb in (1, 8)} | {
-        "crx_flex_1MiB_S512.cpx", "crx_f0_1MiB_S512.cpx", "crx_flex_8MiB_S512.cpx"}
+        "crx_flex_1MiB_S512.cpx", "crx_f0_1MiB_S512.cpx", "crx_flex_8MiB_S512.cpx"} | {
+        f"crp_{mb}MiB_S512.cpx" for mb in (1, 8)} | {
+        n for n in meta if n.startswith("crx_scan_")}
+    assert {"crx_scan_flex_1MiB_S512.cpx", "crx_scan_f0_1MiB_S512.cpx"} <= set(meta)
+    assert meta["crx_scan_flex_1MiB_S512.cpx"]["argv"].startswith("CPX_X_FINDER=scan ")
     assert (meta["crx_f0_1MiB_S512.cpx"]["input_sha256"]
             == meta["crz_f0_1MiB_S512.cpx"]["input_sha256"])
     for mb in (1, 8):  # every archive of one size codes the same bytes
-        for other in ("crz_flex", "crf_flex", "crx_flex"):
+        for other in ("crz_flex", "crf_flex", "crx_flex", "crp"):
             assert (meta[f"{other}_{mb}MiB_S512.cpx"]["input_sha256"]
                     == meta[f"crz_f0_{mb}MiB_S512.cpx"]["input_sha256"])
     import hashlib
@@ -229,7 +235,7 @@ def test_golden_fixture_metadata():
         assert len(arc) == m["archive_bytes"]
         cp, flags = con.read_header(io.BytesIO(arc))
         assert cp.block.lanes == 512 and not flags & (con.F_CHAIN | con.F_CHAIN_MATCH)
-        assert cp.block.mode == {"crz": "R", "crf": "F", "crx": "X"}[name[:3]]
+        assert cp.block.mode == {"crz": "R", "crf": "F", "crx": "X", "crp": "P"}[name[:3]]
 
 
 FLEX = dict(SMALL, flexible=True)
@@ -428,8 +434,12 @@ def test_codec_and_mode_must_agree():
     with pytest.raises(ValueError, match="codes mode"):
         con.encode_stream(sample("text"), io.BytesIO(), con.ContainerParams(
             codec=b"R", block=blk.BlockParams(**FAST)), "cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.make_params("crp", {"lanes": 8, "block_mb": 1})
+    assert cli.make_params("crp", {"lanes": 8, "block_mb": 1}).codec == b"P"
+    with pytest.raises(ValueError, match="unknown codec"):
+        cli.make_params("crq", {"lanes": 8, "block_mb": 1})
+    with pytest.raises(ValueError, match="codes mode"):
+        con.encode_stream(sample("text"), io.BytesIO(), con.ContainerParams(
+            codec=b"P", block=blk.BlockParams(**SMALL)), "cpu")
     with pytest.raises(ValueError, match="codes mode"):
         con.encode_stream(sample("text"), io.BytesIO(), con.ContainerParams(
             codec=b"X", block=blk.BlockParams(**SMALL)), "cpu")
@@ -553,4 +563,94 @@ def test_crx_corrupt_archive_raises(where):
                                     zlib.crc32(bytes(arc[body:body + blen])) & 0xFFFFFFFF)
         match = "corrupt block"
     with pytest.raises(ValueError, match=match):
+        con.decode_stream(io.BytesIO(bytes(arc)), io.BytesIO(), "cpu")
+
+
+# ---- crp: the LZP codec behind the same container
+
+PMODE = dict(lanes=8, steps=64, mode="P", min_len=4, window=32, o3_bits=14)
+
+
+def p_cps(**kw):
+    kw = dict(PMODE, **kw)
+    return (jcon.ContainerParams(codec=b"P", block=jblk.BlockParams(**kw)),
+            con.ContainerParams(codec=b"P", block=blk.BlockParams(**kw)))
+
+
+@pytest.mark.parametrize(
+    "kind,kw,block",
+    [
+        ("text", {}, {}),
+        ("text", {"dictionary": False}, {}),
+        ("elf", {"filters": True}, {}),
+        ("text", {"precomp_only": True}, {}),
+        ("text", {}, {"match": False}),
+        ("stored", {}, {}),
+    ],
+)
+def test_crp_archive_equals_jax(kind, kw, block):
+    """The whole crp archive, several blocks: with and without dictionary,
+    -F, -p, the match layer off (it rides the header) and the stored-block
+    fallback; each package decodes it."""
+    data = sample(kind)
+    cpj, cpt = p_cps(**block)
+    ref, got = io.BytesIO(), io.BytesIO()
+    jcon.encode_stream(data, ref, cpj, **kw)
+    con.encode_stream(data, got, cpt, "cpu", **kw)
+    arc = got.getvalue()
+    assert arc == ref.getvalue()
+    cross_decode(arc, data)
+    cp, _ = con.read_header(io.BytesIO(arc))
+    assert cp.codec == b"P" and cp.block.mode == "P"
+    assert cp.block.match == block.get("match", True)
+
+
+def test_crp_make_params_matches_jax():
+    for opts in (
+        {"lanes": 512, "block_mb": 8},
+        {"lanes": 512, "block_mb": 1, "flexible": False},
+        {"lanes": 256, "block_mb": 64, "depth": 70},  # no 16 MiB cap in mode P
+        {"lanes": 8, "block_mb": 0.001, "window": 200},
+    ):
+        mine = cli.make_params("crp", opts)
+        ref = jcli.make_params("crp", dict(opts))
+        assert mine.codec == ref.codec == b"P"
+        assert asdict(mine.block) == asdict(ref.block)
+    bp = cli.make_params("crp", {"lanes": 512, "block_mb": 8}).block
+    assert (bp.mode, bp.steps, bp.min_len, bp.window) == ("P", 16384, 4, 250)
+    assert (bp.rolz_ctx_bytes, bp.rolz_dec, bp.n_slots) == (3, 1, 3)
+    assert cli.make_params("crp", {"lanes": 256, "block_mb": 64}).block.capacity == 1 << 26
+
+
+def test_crp_cli_archive_equals_jax(tmp_path):
+    """crp e / crp d through both command lines: the same file both ways;
+    -f0 and -m are accepted and change nothing but the header-free params."""
+    src = tmp_path / "in.bin"
+    sample("text").tofile(src)
+    arcs = []
+    for flags in ([], ["-f0"], ["-m10"], ["-F"]):
+        args = ["-b0.0005", "-l8", "-q", *flags]
+        cli.run("crp", ["e", str(src), str(tmp_path / "port.crp"), *args], device="cpu")
+        jcli.run("crp", ["e", str(src), str(tmp_path / "jax.crp"), *args])
+        arc = (tmp_path / "port.crp").read_bytes()
+        assert arc == (tmp_path / "jax.crp").read_bytes()
+        arcs.append(arc)
+        cli.run("crp", ["d", str(tmp_path / "jax.crp"), str(tmp_path / "out.bin"), "-q"],
+                device="cpu")
+        assert (tmp_path / "out.bin").read_bytes() == src.read_bytes()
+        cross_decode(arc, sample("text"))
+    assert arcs[0] == arcs[1] == arcs[2], "mode P has no parse to switch"
+
+
+@pytest.mark.parametrize("where", ["header", "payload", "stream"])
+def test_crp_corrupt_archive_raises(where):
+    data = sample("text")
+    _, cpt = p_cps()
+    f = io.BytesIO()
+    con.encode_stream(data, f, cpt, "cpu", dictionary=False)
+    arc = bytearray(f.getvalue())
+    at = {"header": 10, "payload": con.HEADER_LEN + con.BLKHDR_LEN + 40,
+          "stream": len(arc) - 30}[where]
+    arc[at] ^= 0x40
+    with pytest.raises(ValueError):
         con.decode_stream(io.BytesIO(bytes(arc)), io.BytesIO(), "cpu")

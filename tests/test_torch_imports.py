@@ -104,3 +104,27 @@ def test_crf_encode_and_decode_load_no_jax(tmp_path):
     r = run_fresh(code)
     assert r.returncode == 0, r.stderr
     assert (tmp_path / "out.bin").read_bytes() == src.read_bytes()
+
+
+@pytest.mark.parametrize("codec,env", [("crp", {}), ("crx", {"CPX_X_FINDER": "scan"}),
+                                       ("crz", {"CPX_R_FINDER": "scan"})])
+def test_new_paths_encode_and_decode_load_no_jax(tmp_path, codec, env):
+    """crp e / crp d, and the scan finders of crx and crz (read from the
+    environment at import), in a fresh interpreter."""
+    src = tmp_path / "in.bin"
+    src.write_bytes(b"the quick brown fox jumps over the lazy dog. " * 120)
+    code = (
+        "import comprox_tpu_torch.cli.main as m; "
+        "from comprox_tpu_torch.codec import block; "
+        f"assert block._ENV['CPX_X_FINDER'] == {env.get('CPX_X_FINDER', 'sort')!r}; "
+        f"m.run({codec!r}, ['e', {str(src)!r}, {str(tmp_path / 'a.cpx')!r}, "
+        "'-b0.0005', '-l8', '-q'], device='cpu'); "
+        f"m.run({codec!r}, ['d', {str(tmp_path / 'a.cpx')!r}, "
+        f"{str(tmp_path / 'out.bin')!r}, '-q'], device='cpu'); " + CHECK
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1", **env))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "alone"
+    assert (tmp_path / "out.bin").read_bytes() == src.read_bytes()

@@ -101,7 +101,8 @@ def test_kernel_sources_and_launch_table():
     """Every kernel of the launch table has its source, the shared headers
     are part of the build's key, and the scan tile is one number."""
     assert set(blk.LAUNCHES) == {"KS", "K1", "K2", "K3", "K4", "K5", "K6", "K7",
-                                 "K8", "K9", "K10", "K4x", "K11", "K12e", "K12d"}
+                                 "K8", "K9", "K10", "K4x", "K11", "K12e", "K12d",
+                                 "KSx", "K13e", "K13d"}
     assert set(blk._EVENTS) == set(blk.LAUNCHES)
     names = {p.name for p in build._sources()}
     assert {"search.cu", "decode.cu", "model.cu", "rans.cu", "sortfind.cu",
@@ -492,3 +493,144 @@ def test_x_finder_knobs_on_card(cuda_device, monkeypatch, n_cands, probe):
     rep = blk.rep_scan_plain(p, inp, n, first)
     assert torch.equal(blk.parse_scan(p, n, want, rep=rep, **kw),
                        blk.parse_scan_plain(p, n, want, rep=rep, **kw))
+
+
+# ---- mode P: K13e, K3 at three slots, K13d; mode X's scan finder: KSx
+
+
+def test_p_cfg_and_constants_follow_the_python_side(monkeypatch):
+    """Mode P's kernels read their APM switch from the same struct, and the
+    header's LZP constants are the module's."""
+    p = blk.BlockParams(lanes=512, steps=32, mode="P", min_len=4, window=250)
+    by_name = dict(zip(blk._CFG_NAMES, blk._cfg_array(p, 777).tolist()))
+    assert by_name["use_sse"] == ppm.SSE_P == 1 and by_name["match"] == 1
+    off = blk.BlockParams(lanes=512, steps=32, mode="P", match=False)
+    assert dict(zip(blk._CFG_NAMES, blk._cfg_array(off, 1).tolist()))["use_sse"] == 0
+    monkeypatch.setattr(ppm, "SSE_P", 0)
+    assert dict(zip(blk._CFG_NAMES, blk._cfg_array(p, 1).tolist()))["use_sse"] == 0
+    src = (build.CSRC / "ppm_r.cuh").read_text()
+    for name, value in (("LZP4_BITS", blk.LZP4_BITS), ("LZP8_BITS", blk.LZP8_BITS),
+                        ("SSE_PCTX", ppm.SSE_PCTX)):
+        assert int(re.search(rf"#define {name} (\d+)", src).group(1)) == value
+    assert p.n_slots == 3
+    assert [t.numel() for t in blk._init_lzp(p, "cpu").values()] == [1 << 16, 1 << 20, 1 << 23]
+    with pytest.raises(ValueError, match="LZP tables"):
+        blk._lzp_ptrs(p, None)
+    with pytest.raises(ValueError, match="LZP tables"):
+        blk._lzp_ptrs(off, blk._init_lzp(p, "cpu"))
+
+
+P_WIDE = dict(lanes=512, steps=64, mode="P", min_len=4, window=250, o3_bits=14)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("match", [True, False])
+@pytest.mark.parametrize("name", ["text", "zeros", "period7", "random"])
+@pytest.mark.parametrize("kernel", ["K13e", "K3", "K13d"])
+def test_p_kernel_matches_plain(cuda_device, kernel, name, match):
+    """Each mode-P kernel against its plain version: every event grid, every
+    PPM table and the three LZP tables equal; with the match layer off too."""
+    p = blk.BlockParams(**dict(P_WIDE, match=match))
+    n = p.capacity - 100
+    inp = torch.from_numpy(
+        _fast_inputs(name, p, n).reshape(p.lanes, p.steps)).to(cuda_device)
+
+    def fresh():
+        return (ppm.init_tables(match, p.o3_bits, cuda_device),
+                blk._init_lzp(p, cuda_device) if match else None)
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    (tk, zk), (tp, zp) = fresh(), fresh()
+    ev = blk.model_scan_plain(p, inp, n, None, tp, zp)
+    if kernel == "K13e":
+        assert torch.equal(blk.model_scan(p, inp, n, None, tk, zk), ev)
+        assert same(tk, tp) and (not match or same(zk, zp))
+        return
+    want = blk.rans_scan_plain(p, ev)
+    if kernel == "K3":
+        assert all(torch.equal(a, b) for a, b in zip(blk.rans_scan(p, ev), want))
+        return
+    n_words, states, stream = blk._unpack_payload(blk._pack_payload(*want), p)
+    st = torch.from_numpy(states.astype(np.int64)).to(cuda_device)
+    sw = torch.from_numpy(stream.astype(np.int32)).to(cuda_device)
+    (tk, zk), (tp, zp) = fresh(), fresh()
+    xk, uk, ok = blk.decode_scan(p, st, sw, n, tk, None, zk)
+    xp, up, op = blk.decode_scan_plain(p, st, sw, n, tp, None, zp)
+    assert uk == up == n_words
+    assert torch.equal(xk, xp) and torch.equal(ok, op)
+    assert same(tk, tp) and (not match or same(zk, zp))
+    assert np.array_equal(ok.cpu().numpy().reshape(-1)[:n],
+                          inp.cpu().numpy().reshape(-1)[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_p_decode_kernel_on_garbage_matches_plain(cuda_device, seed):
+    """A random stream: matches where there is no candidate (source -1)."""
+    p = blk.BlockParams(**dict(P_WIDE, lanes=64))
+    rng = np.random.default_rng(seed)
+    st = torch.from_numpy(rng.integers(1 << 16, 1 << 32, p.lanes, dtype=np.int64)).to(cuda_device)
+    sw = torch.from_numpy(rng.integers(0, 1 << 16, p.stream_pad).astype(np.int32)).to(cuda_device)
+    tk, tp = (ppm.init_tables(True, p.o3_bits, cuda_device) for _ in range(2))
+    zk, zp = (blk._init_lzp(p, cuda_device) for _ in range(2))
+    xk, uk, ok = blk.decode_scan(p, st, sw, p.capacity, tk, None, zk)
+    xp, up, op = blk.decode_scan_plain(p, st, sw, p.capacity, tp, None, zp)
+    assert uk == up and torch.equal(xk, xp) and torch.equal(ok, op)
+    assert all(torch.equal(tk[k], tp[k]) for k in tk)
+    assert all(torch.equal(zk[k], zp[k]) for k in zk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [8, 72, 1024])
+def test_p_block_roundtrip_on_card(cuda_device, lanes):
+    p = blk.BlockParams(**dict(P_WIDE, lanes=lanes, steps=32))
+    data = text(p.capacity - 7, seed=8)
+    before = dict(blk.LAUNCHES)
+    payload = blk.encode_block(data, p, cuda_device)
+    assert all(blk.LAUNCHES[k] == before[k] + 1 for k in ("K13e", "K3"))
+    assert payload == blk.encode_block(data, p, "cpu")
+    np.testing.assert_array_equal(
+        blk.decode_block(payload, data.size, p, cuda_device), data)
+    assert blk.LAUNCHES["K13d"] == before["K13d"] + 1
+    assert blk.LAUNCHES["K12d"] == before["K12d"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"top_k": 1}, {"top_k": 8, "probe": 8},
+                                {"lanes": 1024, "steps": 16, "rolz_depth": 64,
+                                 "rolz_bits": 12}])
+@pytest.mark.parametrize("name", ["text", "zeros", "period7", "random"])
+def test_x_search_kernel_matches_plain(cuda_device, name, kw):
+    """KSx against its plain version: the six grids, both bucket tables and
+    the near-match cache; also with the row copies in global scratch."""
+    p = blk.BlockParams(**{**X_WIDE, "rolz_bits": 10, "rolz_depth": 16, **kw})
+    n = p.capacity - 100
+    inp = torch.from_numpy(
+        _fast_inputs(name, p, n).reshape(p.lanes, p.steps)).to(cuda_device)
+    tk, tp = blk._init_xsearch(p, cuda_device), blk._init_xsearch(p, cuda_device)
+    want = blk.search_scan_plain(p, inp, n, tp)
+    assert torch.equal(blk.search_scan(p, inp, n, tk), want)
+    assert all(torch.equal(a, b) for a, b in zip(tk, tp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flexible", [True, False])
+@pytest.mark.parametrize("mode", ["X", "R"])
+def test_scan_finder_block_roundtrip_on_card(cuda_device, monkeypatch, mode, flexible):
+    """CPX_X_FINDER=scan (KSx in K4x's place) and CPX_R_FINDER=scan (KS, then
+    K6 on its one candidate): the plain versions' payload, and it decodes."""
+    monkeypatch.setitem(blk._ENV, f"CPX_{mode}_FINDER", "scan")
+    base = X_WIDE if mode == "X" else WIDE
+    p = blk.BlockParams(**dict(base, lanes=72, steps=32, flexible=flexible,
+                               rolz_bits=10, rolz_depth=16))
+    data = text(p.capacity - 7, seed=8)
+    before = dict(blk.LAUNCHES)
+    payload = blk.encode_block(data, p, cuda_device)
+    assert blk.LAUNCHES["KSx" if mode == "X" else "KS"] == before["KSx" if mode == "X" else "KS"] + 1
+    assert blk.LAUNCHES["K4x"] == before["K4x"] and blk.LAUNCHES["K4"] == before["K4"]
+    assert blk.LAUNCHES["K6"] == before["K6"] + (2 if mode == "X" else 1) * int(flexible)
+    assert payload == blk.encode_block(data, p, "cpu")
+    np.testing.assert_array_equal(
+        blk.decode_block(payload, data.size, p, cuda_device), data)

@@ -438,3 +438,63 @@ def test_mantissa_read_update_and_events(seed):
                                       _np(b).astype(np.int64))
     np.testing.assert_array_equal(pt["mant"].numpy(), _np(jout[6]["mant"]))
     assert_tables_equal(jout[6], pt)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_read_o2_with_mode_p_hit_sse_and_update(seed):
+    """Mode P's hit-only APM: ``sse_p_ctx_of`` (conf class x candidate
+    availability x p1 class, 24 contexts), read_o2 on ``sse_p``, then
+    apply_updates with the zero index symbol a match carries (JAX bumps
+    idx[0][0]) and sse_update_hit: every table equals the JAX package's."""
+    rng = np.random.default_rng(seed)
+    ln = lanes(rng)
+    t_np = randomise_rows(rng, random_tables(rng), ln["ctx2"], ln["p1"])
+    t_np["sse_p"] = rng.integers(16, 65521, t_np["sse_p"].shape).astype(np.int32)
+    jt, pt = both(t_np)
+    ji = lambda a: jnp.asarray(a, jnp.int32)  # noqa: E731
+    avail = rng.random(S) < 0.5
+    jctx = jppm.sse_p_ctx_of(ji(ln["conf"]), jnp.asarray(avail), ji(ln["p1"]))
+    pctx = ppm.sse_p_ctx_of(_t(ln["conf"], np.int32), _t(avail, bool),
+                            _t(ln["p1"], np.int32))
+    np.testing.assert_array_equal(pctx.numpy(), _np(jctx))
+    assert 0 <= int(pctx.min()) and int(pctx.max()) < ppm.SSE_PCTX == jppm.SSE_PCTX
+    j = jppm.read_o2(
+        jt, ji(ln["ctx2"]), ji(ln["pred"]), jnp.asarray(ln["coding"]),
+        ji(ln["conf"]), ji(ln["pred2"]), jnp.asarray(ln["valid2"]),
+        sse_hitx=("sse_p", jppm.SSE_PCTX, jctx))
+    p = ppm.read_o2(
+        pt, _t(ln["ctx2"]), _t(ln["pred"], np.int32), _t(ln["coding"], bool),
+        _t(ln["conf"], np.int32), sse_hitx=("sse_p", pctx))
+    for a, b in zip(p[:5], j[1:6]):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+    for a, b in zip(p[5], j[6]):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+
+    jh3 = ji(ln["h3"])
+    pred, conf, pred2, conf2, raw = ppm.o3_read(pt, _t(ln["h3"]))
+    jpred, jconf, jpred2, jconf2, jraw = jppm.o3_read(jt, jh3)
+    kind = rng.integers(0, 4, S)
+    byte = rng.integers(0, 256, S)
+    sym_a = np.where(kind == 0, ppm.SYM_HIT, np.where(
+        kind == 1, ppm.SYM_ESC, np.where(kind == 2, ppm.SYM_MATCH, byte)))
+    old_f = np.where(rng.random(S) < 0.5, ppm.INC2, rng.integers(0, 40, S))
+    sym_len = rng.integers(0, 256, S)
+    zero = np.zeros(S, np.int64)
+    coding = ln["coding"]
+    is_hit = coding & (sym_a == ppm.SYM_HIT)
+    jt2 = jppm.apply_updates(
+        jt, jnp.asarray(coding), ji(ln["ctx2"]), ji(sym_a), ji(byte),
+        ji(old_f), ji(ln["p1"]), jh3, jpred, jconf, ji(sym_len), ji(zero),
+        None, o2_halve_delta=j[5], len_ctx=ji(zero), idx_ctx=ji(zero),
+        o3_raw=jraw, pred2=jpred2, conf2=jconf2)
+    jt2 = jppm.sse_update_hit(jt2, "sse_p", jppm.SSE_PCTX, j[6],
+                              jnp.asarray(coding), jnp.asarray(is_hit))
+    ppm.apply_updates(
+        pt, _t(coding, bool), _t(ln["ctx2"]), _t(sym_a), _t(byte), _t(old_f),
+        _t(ln["p1"]), _t(ln["h3"]), pred, conf, _t(sym_len), _t(zero),
+        p[4], _t(zero), _t(zero), raw)
+    ppm.sse_update_hit(pt, "sse_p", p[5], _t(coding, bool), _t(is_hit, bool))
+    assert_tables_equal(jt2, pt)
+    if (coding & (sym_a == ppm.SYM_MATCH)).any():
+        assert _np(jt2["idx"])[0, 0] > t_np["idx"][0, 0], "a match bumps idx[0][0]"
+    assert not np.array_equal(_np(jt2["sse_p"]), t_np["sse_p"])

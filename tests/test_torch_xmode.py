@@ -445,9 +445,16 @@ def test_unported_x_env_raises(monkeypatch, env, value, match):
 
 
 def test_x_finder_scan_raises_naming_its_item(monkeypatch):
+    """The scan finder is ported (test_torch_xscan.py holds it to JAX): it
+    encodes, and only a finder that does not exist raises, naming the knob."""
+    data = corpus("text", 100)
     monkeypatch.setitem(blk._ENV, "CPX_X_FINDER", "scan")
-    with pytest.raises(NotImplementedError, match="CPX_X_FINDER.*item 16"):
-        blk.encode_block(corpus("text", 100), blk.BlockParams(**SMALL), "cpu")
+    payload = blk.encode_block(data, blk.BlockParams(**SMALL), "cpu")
+    np.testing.assert_array_equal(
+        blk.decode_block(payload, data.size, blk.BlockParams(**SMALL), "cpu"), data)
+    monkeypatch.setitem(blk._ENV, "CPX_X_FINDER", "chain")
+    with pytest.raises(NotImplementedError, match="CPX_X_FINDER.*'sort' or 'scan'"):
+        blk.encode_block(data, blk.BlockParams(**SMALL), "cpu")
 
 
 def test_sse_x_off_raises_in_mode_x_only(monkeypatch):
