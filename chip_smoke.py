@@ -10,17 +10,22 @@ no result line:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit.
-2. build: compiles the kernels (``comprox_tpu_torch/csrc``: twelve
-   sources, eighteen kernels counting the entries of modes X and P) with
-   nvcc, one process per source.
+2. build: compiles the kernels (``comprox_tpu_torch/csrc``: thirteen
+   sources, eighteen codec kernels counting the entries of modes X and P,
+   and the six probe kernels) with nvcc, one process per source.
 3. golden: decodes the committed JAX-package archives
    (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
    under ``crz e -l512`` with the flexible parse and with ``-f0``, under
    ``crf e -l512``, under ``crx e -l512`` (the 1 MiB one also with ``-f0``;
-   both sizes also under ``CPX_X_FINDER=scan``) and under ``crp e -l512``)
-   on the card and checks the decoded bytes' SHA-256; re-encodes the 1 MiB
-   corpus with the port under each of the nine and checks that each
-   archive's SHA-256 equals the JAX package's.
+   both sizes also under ``CPX_X_FINDER=scan``) and under ``crp e -l512``;
+   the x86-64 ELF corpus at 256 KiB and 8 MiB under ``crx e -F`` and ``crz
+   e -F``; a 32 KiB corpus of words under each codec at ``-l2048`` with
+   T=8, two blocks) on the card and checks the decoded bytes' SHA-256;
+   re-encodes each corpus that no full-width phase below codes, under its
+   archive's command line, and checks that each archive's SHA-256 equals
+   the JAX package's; each decode and encode must launch kernels.  The
+   S=2048 archives run the step scans as clusters of two CTAs and crf's
+   K9/K10 at two lanes a thread.
    The decoded corpora are the inputs of the next phases, so every machine
    runs the same bytes.
 4. kernels, mode R: each of KS, K4, K5, K6, K2, K3, K1 against its plain
@@ -44,24 +49,33 @@ no result line:
 7. kernels, mode P: K13e, K3 and K13d chained at S=512, T=256, full-size
    LZP tables, each against its plain version; tolerance 0 on every grid,
    every PPM table, ``sse_p`` and ``lzp2/4/8``.
-8. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
+8. probes: the nine Pallas probes of the JAX package's ``benchmarks/`` as
+   the port runs them (``comprox_tpu_torch/benchmarks/probes.py``, kernels
+   in ``csrc/probes.cu``): each at each of its own geometries (S=512)
+   against its plain version, tolerance 0 (P8 against ``bf16(table)[idx]``;
+   its error against the f32 gather is printed), timed beside the plain
+   version, one PyTorch call for the same function and the bound; one line
+   a geometry, as ``python -m comprox_tpu_torch.benchmarks.probes`` prints
+   them.  The kernels line carries each probe's last geometry (P1: its warp
+   arm; P4: its persistent arm) and the launches of the whole phase.
+9. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
    CLI; archive SHA-256 == the JAX golden; fails if K13e, K3 or K13d was
    not launched.
-9. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
+10. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
    ``CPX_X_FINDER=scan``; archive SHA-256 == the JAX golden written under
    that knob; fails if KSx, K6, K11, K12e, K3 or K12d was not launched, or
    if K4x was.
-10. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
+11. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
    CLI on the 8 MiB corpus; archive SHA-256 == the JAX golden, round trip
    bit-exact; fails if K4x, K11, K6, K12e, K3 or K12d was not launched.
-11. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
+12. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
    through ``comprox_tpu_torch.cli.main`` on the 8 MiB corpus, one block of
    S=512 and T=16384.  The archive's SHA-256 must equal the JAX package's
    and the round trip must be bit-exact; prints MB/s, bpb and the kernel
    times, and fails if K4, K5, K6, K2, K3 or K1 was not launched.
-12. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
+13. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
    K3 or K1 was not launched.
-13. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
+14. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
    way; fails if K7, K6, K8, K9 or K10 was not launched.  Then the host's
    share of that path, stage by stage (dictionary, block encode and decode,
    the LZ copy walk, the CRC).
@@ -90,6 +104,8 @@ FAST_ARCHIVE = "crf_flex_8MiB_S512.cpx"  # crf e -b8 -l512
 X_ARCHIVE = "crx_flex_8MiB_S512.cpx"  # crx e -b8 -l512
 XSCAN_ARCHIVE = "crx_scan_flex_8MiB_S512.cpx"  # CPX_X_FINDER=scan crx e -b8 -l512
 P_ARCHIVE = "crp_8MiB_S512.cpx"  # crp e -b8 -l512
+FULL_WIDTH_ARCHIVES = (MAIN_ARCHIVE, GREEDY_ARCHIVE, FAST_ARCHIVE, X_ARCHIVE,
+                       XSCAN_ARCHIVE, P_ARCHIVE)  # re-encoded by phases 9-14
 KERNEL_STEPS = 256
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, and the float32 rate outside the tensor cores, taken for the
@@ -97,6 +113,7 @@ KERNEL_STEPS = 256
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
+PROBES_CU = "comprox_tpu_torch/csrc/probes.cu"
 KERNELS = [
     # name, source, the JAX scan it replaces (file:line)
     ("KS", "comprox_tpu_torch/csrc/search.cu",
@@ -141,6 +158,16 @@ KERNELS = [
      "comprox_tpu/codec/block.py:1677"),
     ("K13d", "comprox_tpu_torch/csrc/decode.cu",
      "comprox_tpu/codec/block.py:1980"),
+    # the Pallas probes of benchmarks/ (their pl.pallas_call lines)
+    ("P1", PROBES_CU, "benchmarks/pallas_probe.py:56"),
+    ("P1b", PROBES_CU, "benchmarks/pallas_probe.py:97"),
+    ("P3", PROBES_CU, "benchmarks/pallas_probe.py:164"),
+    ("P4", PROBES_CU, "benchmarks/pallas_probe.py:204"),
+    ("P5", PROBES_CU, "benchmarks/pallas_probe.py:272"),
+    ("P6", PROBES_CU, "benchmarks/pallas_probe2.py:51"),
+    ("P7", PROBES_CU, "benchmarks/pallas_probe2.py:100"),
+    ("P8", PROBES_CU, "benchmarks/pallas_probe2.py:142"),
+    ("P9", PROBES_CU, "benchmarks/pallas_probe2.py:203"),
 ]
 
 
@@ -206,12 +233,29 @@ def phase_build():
     build.lib()
 
 
+def _check_launched(name, step, bp):
+    """Fails if ``step`` launched no kernel.  For a block of more lanes than
+    a CTA has threads (the step scans run as a cluster), prints each
+    kernel's device microseconds per step of a block."""
+    from comprox_tpu_torch.codec import block as blk
+
+    if not any(blk.LAUNCHES.values()):
+        raise AssertionError(f"{name}: {step} launched no kernel")
+    if bp.lanes > 1024:
+        ms = blk.kernel_ms()
+        per = {k: round(ms[k] * 1e3 / (n * bp.steps), 1)
+               for k, n in blk.LAUNCHES.items() if n}
+        print(f"{name}: {step}, S={bp.lanes}, device us per step: {json.dumps(per)}")
+
+
 def phase_golden():
-    """Decode the JAX archives on the card; re-encode the 1 MiB one.
-    Returns {archive name: decoded corpus bytes}."""
+    """Decode the JAX archives on the card; re-encode each corpus that no
+    full-width phase codes, under its archive's command line.  Returns
+    {archive name: decoded corpus bytes}."""
     import numpy as np
 
-    from comprox_tpu_torch.cli.main import make_params
+    from comprox_tpu_torch.cli.main import make_params, parse_args
+    from comprox_tpu_torch.codec import block as blk
     from comprox_tpu_torch.codec.container import decode_stream, encode_stream
 
     meta = json.loads((GOLDEN / "torch_golden.json").read_text())
@@ -220,6 +264,12 @@ def phase_golden():
         arc = (GOLDEN / name).read_bytes()
         if sha256(arc) != m["archive_sha256"]:
             raise AssertionError(f"{name}: fixture does not match its digest")
+        argv = m["argv"].split()  # [KNOB=value] codec e [switches]
+        env = dict(a.split("=") for a in argv if "=" in a)
+        codec, _, _, _, opts = parse_args(
+            [a for a in argv if "=" not in a] + ["in", "out"])
+        cp = make_params(codec, opts)
+        blk.reset_launch_counts()
         out = io.BytesIO()
         t0 = time.perf_counter()
         decode_stream(io.BytesIO(arc), out, "cuda")
@@ -227,28 +277,23 @@ def phase_golden():
         raw = out.getvalue()
         if len(raw) != m["input_bytes"] or sha256(raw) != m["input_sha256"]:
             raise AssertionError(f"{name}: decoded bytes differ from the input")
+        _check_launched(name, "decode", cp.block)
         print(f"{name}: JAX archive decoded on the card ({t_dec:.2f} s)")
         corpora[name] = np.frombuffer(raw, np.uint8)
-    for name, flexible in (("crz_f0_1MiB_S512.cpx", False),
-                           ("crz_flex_1MiB_S512.cpx", True),
-                           ("crf_flex_1MiB_S512.cpx", True),
-                           ("crx_f0_1MiB_S512.cpx", False),
-                           ("crx_flex_1MiB_S512.cpx", True),
-                           ("crx_scan_f0_1MiB_S512.cpx", False),
-                           ("crx_scan_flex_1MiB_S512.cpx", True),
-                           ("crp_1MiB_S512.cpx", True)):
-        cp = make_params(name[:3], {"lanes": 512, "block_mb": 1,
-                                    "flexible": flexible})
+        if name in FULL_WIDTH_ARCHIVES:
+            continue
         buf = io.BytesIO()
+        blk.reset_launch_counts()
         t0 = time.perf_counter()
-        with finder_knob("CPX_X_FINDER", "scan" if "_scan_" in name else "sort"):
-            encode_stream(corpora[name], buf, cp, "cuda")
+        with finder_knob("CPX_X_FINDER", env.get("CPX_X_FINDER", "sort")):
+            encode_stream(corpora[name], buf, cp, "cuda", filters=opts["filters"])
         t_enc = time.perf_counter() - t0
+        _check_launched(name, "encode", cp.block)
         got = buf.getvalue()
-        if sha256(got) != meta[name]["archive_sha256"]:
+        if sha256(got) != m["archive_sha256"]:
             raise AssertionError(f"{name}: port archive differs from JAX's")
-        print(f"{name}: port archive {len(got)} B, sha256 == JAX golden "
-              f"({t_enc:.2f} s)")
+        print(f"{name}: port archive {len(got)} B ({m['argv']}), sha256 == JAX "
+              f"golden ({t_enc:.2f} s)")
     return corpora
 
 
@@ -901,6 +946,34 @@ def phase_kernels_p(corpus):
     return res
 
 
+def phase_probes():
+    """The nine probes at their own geometries, each kernel against its
+    plain version (tolerance 0).  Returns ({name: record of its last
+    geometry}, {name: launches in this phase})."""
+    from comprox_tpu_torch.benchmarks import probes
+
+    probes.reset_launch_counts()
+    recs = probes.run()
+    launches = dict(probes.LAUNCHES)
+    res = {}
+    for r in recs:
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{r['label']}: kernel != plain "
+                                 f"(max err {r['max_abs_err']})")
+        if r["probe"] in launches and not (
+                "a thread a row" in r["label"] or "one launch a step" in r["label"]):
+            res[r["probe"]] = dict(
+                max_abs_err=r["max_abs_err"], ms=r["us"] / 1e3,
+                plain_ms=r["plain_us"] / 1e3, bound_ms=r["bound_us"] / 1e3,
+                bound_by=r["bound_by"],
+                library_ms=None if r["library_us"] is None else r["library_us"] / 1e3)
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"{name} was not launched by the probes")
+    print("probe launches: " + json.dumps(launches))
+    return res, launches
+
+
 def phase_full_width(corpus, codec, archive, flags, needed, finder="sort"):
     """One path through the CLI: <codec> e [flags] -b8 -l512 and <codec> d
     (mode X's candidates from ``finder``).  The launch counts are set to 0
@@ -1014,6 +1087,8 @@ def main() -> int:
     res["K6"]["max_abs_err"] = max(res["K6"]["max_abs_err"], k6f["max_abs_err"])
     res.update(ph.run("kernels, mode X", phase_kernels_x, corpora[X_ARCHIVE]))
     res.update(ph.run("kernels, mode P", phase_kernels_p, corpora[P_ARCHIVE]))
+    res_probes, probe_launches = ph.run("probes", phase_probes)
+    res.update(res_probes)
     crp = ph.run(
         "full width, crp", phase_full_width, corpora[P_ARCHIVE], "crp",
         P_ARCHIVE, [], ("K13e", "K3", "K13d"))
@@ -1043,6 +1118,7 @@ def main() -> int:
     launches["KSx"] = xscan["KSx"]
     launches["K13e"], launches["K13d"] = crp["K13e"], crp["K13d"]
     launches["K6 (X)"], launches["K3 (5 slots)"] = crx["K6"], crx["K3"]
+    launches.update(probe_launches)
     ph.run("crf host split", phase_fast_host_split, corpora[FAST_ARCHIVE])
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "comprox_tpu")]

@@ -22,7 +22,10 @@ to another format.
     python -m comprox_tpu_torch.cli.main crp e in out -b8 -l512
 
 The command line runs on the first CUDA device and fails without one; the
-library call :func:`run` takes the device explicitly.
+library call :func:`run` takes the device explicitly.  With no codec name
+first, the command line is ``crp``'s, as the JAX package's is.  On the card
+a block takes up to 8192 lanes (``-l``): above 1024 the step scans run as
+one cluster of CTAs, and crf's rANS loops at several lanes a thread.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ _NOT_PORTED = {
 
 
 def parse_args(argv):
-    prog = argv[0] if argv else "crz"
+    prog = argv[0] if argv else "crp"
     args = [a for a in argv[1:] if a == "-" or not a.startswith("-")]
     switches = [a for a in argv[1:] if a != "-" and a.startswith("-")]
     opts = {"block_mb": 16, "lanes": 256, "filters": False, "quiet": False,
@@ -176,11 +179,13 @@ def run(codec_name: str, argv, device) -> int:
     return 0
 
 
-def main() -> int:
-    argv = sys.argv[1:]
+def main(argv=None, device="cuda") -> int:
+    """The command line (``sys.argv`` by default) on ``device``; with no
+    codec name first it is ``crp``'s."""
+    argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] in CODEC_BYTE:
-        return run(argv[0], argv[1:], "cuda")
-    return run("crz", argv, "cuda")
+        return run(argv[0], argv[1:], device)
+    return run("crp", argv, device)
 
 
 if __name__ == "__main__":

@@ -151,8 +151,9 @@ class BlockParams:
         return self.n_slots * self.capacity + 16 + self.n_slots * self.lanes
 
 
-# Encoder and read-strategy knobs of the JAX package that the port does not
-# implement: any value but the default raises (read at import, like JAX).
+# Encoder and read-strategy knobs of the JAX package, read at import like
+# JAX's: the finders take either value of _FINDERS; the port implements the
+# others at their default only, and any other value raises.
 _ENV_DEFAULTS = {
     "CPX_R_FINDER": "sort",
     "CPX_X_FINDER": "sort",
@@ -1577,11 +1578,18 @@ def _expect(x, name, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+# The step scans run one thread per lane: one CTA up to 1024 lanes, above
+# that a thread-block cluster of up to eight CTAs; K9 and K10 up to eight
+# lanes a thread in one CTA (csrc/ppm_r.cuh: CPX_MAX_CLUSTER, CPX_MAX_LPT).
+KERNEL_MAX_LANES = 8192
+
+
 def _check_kernel_geometry(p: BlockParams):
-    if p.lanes > 1024:
+    if p.lanes > KERNEL_MAX_LANES:
         raise NotImplementedError(
-            f"the CUDA kernels run one CTA of one thread per lane: "
-            f"lanes <= 1024 (got {p.lanes})"
+            f"the CUDA kernels take up to eight CTAs' threads of lanes, a "
+            f"thread a lane (K9, K10: eight lanes a thread in one CTA): "
+            f"lanes <= {KERNEL_MAX_LANES} (got {p.lanes})"
         )
 
 
@@ -1642,8 +1650,9 @@ def search_scan(p: BlockParams, inp, n: int, rolz):
     Replaces comprox_tpu/codec/block.py::_search_body (1333-1388) with
     _rolz_best_match (939-1056) under _search_and_parse's scan
     (1630-1635); KSx its X branch (1351-1383) with the X inserts of
-    _post_step (623-639).  Kernels: csrc/search.cu (one CTA, one thread per
-    lane, latency bound; see the source note).  ``inp`` [S, T] uint8,
+    _post_step (623-639).  Kernels: csrc/search.cu (one thread per lane: one
+    CTA, or a cluster of CTAs above 1024 lanes; latency bound; see the
+    source note).  ``inp`` [S, T] uint8,
     ``rolz`` [2^bits, D, 2] int32 (updated in place) -> [4, T, S] int32.
     Mode X: ``rolz`` is the three tables of :func:`_init_xsearch` (two
     bucket tables, ``xshort`` [2^16]; updated in place) -> [6, T, S] int32
@@ -1794,8 +1803,8 @@ def rank_scan(p: BlockParams, inp, n: int, props, rolz):
     """K5 — the rank scan of the flexible parse.
 
     Replaces comprox_tpu/codec/block.py::_rolz_rank_body (1188-1252) under
-    _rolz_rank_scan (1265-1283).  Kernel: csrc/rank.cu (one CTA, one
-    thread per lane, as KS).  ``props`` [2 * n_c, T, S] int32 from K4;
+    _rolz_rank_scan (1265-1283).  Kernel: csrc/rank.cu (one thread per
+    lane, as KS).  ``props`` [2 * n_c, T, S] int32 from K4;
     ``rolz`` [2^bits, D, 2] int32 (updated in place) ->
     [3 * (n_c + 1) + 1, T, S] int32.
     """

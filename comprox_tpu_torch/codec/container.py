@@ -208,8 +208,8 @@ def decode_stream(
     device,
     progress: Optional[Callable[[int, int], None]] = None,
 ) -> int:
-    """Decode an unchained codec-R, codec-F or codec-X archive on ``device``;
-    returns the raw byte count."""
+    """Decode an unchained codec-R, codec-F, codec-X or codec-P archive on
+    ``device``; returns the raw byte count."""
     cp, flags = read_header(src)
     decode = _block_decoder(cp.block, device)
     wd = None

@@ -430,7 +430,8 @@ def encode_scan(p: BlockParams, sym, xtr, tbits, n_tok: int):
     Replaces the second half of comprox_tpu/codec/fast.py::_encode_fast
     (460-516) with normalize_freqs (370), _uniform_cf (396) and
     _rev_window_write (405).  Kernels: csrc/f2enc.cu (histogram,
-    normalisation, the encode loop in one CTA of one thread per lane).
+    normalisation, the encode loop in one CTA: a thread a lane, or up to
+    eight lanes a thread above 1024 lanes).
     ``sym, xtr, tbits`` [>= n_tok] int32 from K8 -> (freq [581] int32,
     states [S] int64, words [n_words] int32 in emission order).
     """
@@ -542,8 +543,8 @@ def decode_scan(p: BlockParams, freq, states, stream, n_tok: int):
 
     Replaces comprox_tpu/codec/fast.py::_build_dec_table (524),
     _fast_decode_scan (538-603) and _token_plane (606-639).  Kernels:
-    csrc/f2dec.cu (slot table, the decode loop in one CTA of one thread per
-    lane, the token plane with its forward scan in three launches).
+    csrc/f2dec.cu (slot table, the decode loop in one CTA as K9's, the
+    token plane with its forward scan in three launches).
     ``freq`` [581] int32, ``states`` [S] int64, ``stream`` [>= S] int32 (u16
     words) -> (states [S] int64, words_used, plane [n_tok] int32): the
     tokens only, where the plain version keeps JAX's N slots.

@@ -9,7 +9,8 @@
 // literal or a copy from the output); the shared model updates; the
 // bucket insert of position pos-3.
 //
-// Bound on the H100: one CTA runs T dependent steps of ~12 barrier-
+// Bound on the H100: one CTA (above 1024 lanes one cluster of CTAs,
+// ppm_r.cuh) runs T dependent steps of ~12 barrier-
 // separated phases, and a coding lane reads ~1-2 KB of table rows per
 // step, so latency (global round trips and barriers) bounds it, not
 // bandwidth.  The lane-ordered word reads need one CTA-wide exclusive
@@ -57,34 +58,35 @@ struct StreamRead {
   }
 };
 
-template <int MAXT>
+template <int MAXT, bool CL>
 __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__ stream,
                           long long* __restrict__ states, Tables tb,
                           int* __restrict__ rolz, uint8_t* __restrict__ out,
                           long long* __restrict__ used, int* __restrict__ gpos,
                           bool pos_in_smem) {
-  __shared__ SmemModel sm;
+  __shared__ SmemModel own;  // this CTA's keys and wtot; with CL, CTA 0's models serve all
+  SmemModel& sm = *at_rank<CL>(&own, 0);
   extern __shared__ int spos[];
-  const int i = threadIdx.x;
+  const int i = gtid();
   const bool alive = i < c.S;
   const int d = c.rolz_depth;
   const long long cap_n = (long long)c.S * c.T;
   const StreamRead sr{stream, c.stream_len, c.S};
   model_load(sm, tb);
-  __syncthreads();
+  group_sync<CL>();
   uint32_t x = alive ? (uint32_t)states[i] : RANS_L;
   uint32_t base = 0;
   uint32_t ctx4 = 0, ctx4b = 0;
   int copy_rem = 0, copy_src = 0;
   // the lanes' copies of bucket rows: the A event's row until the byte is
   // resolved, then the insert row
-  int* const posbuf = pos_in_smem ? spos : gpos;
   const int pitch = pos_pitch(d);
-  int* const col = posbuf + (size_t)i * pitch;
+  int* const posbuf = pos_bufs<CL>(c, spos, gpos, pos_in_smem, pitch).pos;
+  int* const col = posbuf + (size_t)threadIdx.x * pitch;
 
   for (int t = 0; t < c.T; ++t) {
     o1_rescale(tb.o1, sm.o1sum, c.cap1);
-    __syncthreads();
+    group_sync<CL>();
 
     // ---- A event
     Ctx cx = common_reads(c, tb, i, t, ctx4, copy_rem, alive);
@@ -110,11 +112,11 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
       xt = dec_advance(x, 0, RANS_M);  // the identity event
       need = xt < RANS_L;
     }
-    int inw = cta_excl_prefix_a(need, sm.wtot[0]);
-    __syncthreads();
+    int inw = cta_excl_prefix_a(need, own.wtot[0]);
+    group_sync<CL>();
     {
       int total;
-      int ex = cta_excl_prefix_b(inw, sm.wtot[0], total);
+      int ex = cta_excl_prefix_b<CL>(inw, own.wtot[0], total);
       if (need) x = (xt << 16) | sr.word(base, ex);
       else if (alive) x = xt;
       base += (uint32_t)total;
@@ -130,10 +132,10 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
       u.idx_ctx = fill_bucket(fill);
       if (u.is_match) sm.hot_idx[clampi(u.idx_ctx, 0, 3)] = 1;
     }
-    upd_keys(sm, i, alive, u);
-    __syncthreads();
+    upd_keys(own, alive, u);
+    group_sync<CL>();
     idx_rescale(c, sm);
-    __syncthreads();
+    group_sync<CL>();
 
     // ---- B event: o1 literal (escape lanes) or ROLZ index (match lanes)
     int sym1 = 0;
@@ -159,17 +161,17 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
       xt = dec_advance(x, cb, fb);
       need = xt < RANS_L;
     }
-    inw = cta_excl_prefix_a(need, sm.wtot[1]);
-    __syncthreads();
+    inw = cta_excl_prefix_a(need, own.wtot[1]);
+    group_sync<CL>();
     {
       int total;
-      int ex = cta_excl_prefix_b(inw, sm.wtot[1], total);
+      int ex = cta_excl_prefix_b<CL>(inw, own.wtot[1], total);
       if (need) x = (xt << 16) | sr.word(base, ex);
       else if (alive) x = xt;
       base += (uint32_t)total;
     }
     len_rescale(c, sm);
-    __syncthreads();
+    group_sync<CL>();
 
     // ---- C event: match length
     int sym_l = 0;
@@ -187,11 +189,11 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
       xt = dec_advance(x, cc, fc);
       need = xt < RANS_L;
     }
-    inw = cta_excl_prefix_a(need, sm.wtot[2]);
-    __syncthreads();
+    inw = cta_excl_prefix_a(need, own.wtot[2]);
+    group_sync<CL>();
     {
       int total;
-      int ex = cta_excl_prefix_b(inw, sm.wtot[2], total);
+      int ex = cta_excl_prefix_b<CL>(inw, own.wtot[2], total);
       if (need) x = (xt << 16) | sr.word(base, ex);
       else if (alive) x = xt;
       base += (uint32_t)total;
@@ -221,18 +223,18 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
       if (insert_here(c, cx.active, t, cx.pos))
         ins_key = (int)rolz_hash3(rolz_key(ctx4bn, c.rolz_ctx_bytes), c.rolz_bits);
     }
-    sm.key_ins[i] = ins_key;
-    __syncthreads();
-    int slot = bucket_slot(rolz, c, sm.key_ins, ins_key, posbuf, pitch);
-    __syncthreads();
+    own.key_ins[threadIdx.x] = ins_key;
+    group_sync<CL>();
+    int slot = bucket_slot<CL>(rolz, c, own.key_ins, ins_key, posbuf, pitch);
+    group_sync<CL>();
 
     // ---- stores, then additive updates
     if (alive) {
-      upd_store(tb, sm, i, u);
+      upd_store<CL>(tb, own, u);
       if (slot >= 0) bucket_store(rolz, c, (uint32_t)ins_key, slot, cx.pos, byteswap32(ctx4n));
       out[(size_t)i * c.T + t] = (uint8_t)(cx.active ? byte : 0);
     }
-    __syncthreads();
+    group_sync<CL>();
     if (alive) {
       upd_add(c, tb, sm, u);
       copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
@@ -240,13 +242,14 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
       ctx4 = ctx4n;
       ctx4b = ctx4bn;
     }
-    __syncthreads();
+    group_sync<CL>();
     upd_finish(sm);
   }
-  __syncthreads();
+  group_sync<CL>();
   model_store(sm, tb);
   if (alive) states[i] = (long long)x;
   if (i == 0) *used = (long long)base;
+  if (CL) group_sync<CL>();  // CTA 0 stays until every CTA has read its models
 }
 
 // Feed one word to every lane whose advanced state xt fell below the rANS
@@ -254,28 +257,29 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
 // exclusive prefix; contains a barrier: call by every thread).
 #define CPX_RENORM(slot)                                         \
   {                                                              \
-    const int inw_ = cta_excl_prefix_a(need, sm.wtot[slot]);     \
-    __syncthreads();                                             \
+    const int inw_ = cta_excl_prefix_a(need, own.wtot[slot]);    \
+    group_sync<CL>();                                            \
     int total_;                                                  \
-    const int ex_ = cta_excl_prefix_b(inw_, sm.wtot[slot], total_); \
+    const int ex_ = cta_excl_prefix_b<CL>(inw_, own.wtot[slot], total_); \
     if (need) x = (xt << 16) | sr.word(base, ex_);               \
     else if (alive) x = xt;                                      \
     base += (uint32_t)total_;                                    \
   }
 
-template <int MAXT, int MODE>
+template <int MAXT, int MODE, bool CL>
 __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict__ stream,
                             long long* __restrict__ states, Tables tb, Lzp lzp,
                             uint8_t* __restrict__ out,
                             long long* __restrict__ used) {
   constexpr bool XMODE = MODE == MODE_X;
-  __shared__ SmemModel sm;
-  const int i = threadIdx.x;
+  __shared__ SmemModel own;  // this CTA's keys and wtot; with CL, CTA 0's models serve all
+  SmemModel& sm = *at_rank<CL>(&own, 0);
+  const int i = gtid();
   const bool alive = i < c.S;
   const long long cap_n = (long long)c.S * c.T;
   const StreamRead sr{stream, c.stream_len, c.S};
   model_load<MODE>(sm, tb);
-  __syncthreads();
+  group_sync<CL>();
   uint32_t x = alive ? (uint32_t)states[i] : RANS_L;
   uint32_t base = 0;
   uint32_t ctx4 = 0, ctx4b = 0;
@@ -283,7 +287,7 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
 
   for (int t = 0; t < c.T; ++t) {
     o1_rescale(tb.o1, sm.o1sum, c.cap1);
-    __syncthreads();
+    group_sync<CL>();
 
     // ---- A event
     Ctx cx = common_reads(c, tb, i, t, ctx4, copy_rem, alive);
@@ -325,11 +329,11 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
         else sm.hot_len[0] = 1;  // mode P: C's one context
       }
     }
-    upd_keys(sm, i, alive, u);
+    upd_keys(own, alive, u);
     if (XMODE) {
-      __syncthreads();
+      group_sync<CL>();
       dst_rescale(c, sm);
-      __syncthreads();
+      group_sync<CL>();
     }
 
     // ---- B event: o1 literal (escape lanes); mode X: or the distance
@@ -359,7 +363,7 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
     }
     CPX_RENORM(1)
     len_rescale(c, sm);
-    __syncthreads();
+    group_sync<CL>();
 
     // ---- C event: match length
     int sym_l = 0;
@@ -453,14 +457,14 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
         ctx4bn = (ctx4b << 8) | (ctx4 >> 24);
       }
     }
-    __syncthreads();  // every copy has read the output before this step's write
+    group_sync<CL>();  // every copy has read the output before this step's write
 
     // ---- stores, then additive updates
     if (alive) {
-      upd_store(tb, sm, i, u);
+      upd_store<CL>(tb, own, u);
       out[(size_t)i * c.T + t] = (uint8_t)(cx.active ? byte : 0);
     }
-    __syncthreads();
+    group_sync<CL>();
     if (alive) {
       upd_add<MODE>(c, tb, sm, u);
       copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
@@ -470,13 +474,14 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
       ctx4b = ctx4bn;
       if (!XMODE && c.match) lzp_insert(c, lzp, cx.active, t, cx.pos, ctx4, ctx4b);
     }
-    __syncthreads();
+    group_sync<CL>();
     upd_finish<MODE>(sm, c.mant_cap);
   }
-  __syncthreads();
+  group_sync<CL>();
   model_store<MODE>(sm, tb);
   if (alive) states[i] = (long long)x;
   if (i == 0) *used = (long long)base;
+  if (CL) group_sync<CL>();  // CTA 0 stays until every CTA has read its models
 }
 
 }  // namespace
@@ -487,13 +492,12 @@ static int tableless_launch(const int* cfg, const void* stream, void* states,
                             void* used, void* cuda_stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  int threads = (c.S + 31) / 32 * 32;
-  auto kernel = threads <= 512 ? k12d_kernel<512, MODE>
-                               : k12d_kernel<CPX_MAX_LANES, MODE>;
-  kernel<<<1, threads, 0, (cudaStream_t)cuda_stream>>>(
-      c, (const int*)stream, (long long*)states, tb, lzp, (uint8_t*)out,
-      (long long*)used);
-  return (int)cudaGetLastError();
+  const ScanGrid g = scan_grid(c.S);
+  auto kernel = g.ctas > 1 ? k12d_kernel<CPX_MAX_LANES, MODE, true>
+              : g.threads <= 512 ? k12d_kernel<512, MODE, false>
+                                 : k12d_kernel<CPX_MAX_LANES, MODE, false>;
+  return launch_scan(kernel, g, 0, cuda_stream, c, (const int*)stream,
+                     (long long*)states, tb, lzp, (uint8_t*)out, (long long*)used);
 }
 
 // Mode X: no bucket table; three more model tables.
@@ -530,13 +534,11 @@ extern "C" int cpx_k1_launch(const int* cfg, const void* stream, void* states,
   memcpy(&c, cfg, sizeof(Cfg));
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
             (int*)sse_h, nullptr, nullptr, nullptr};
-  int threads = (c.S + 31) / 32 * 32;
+  const ScanGrid g = scan_grid(c.S);
   size_t smem = pos_smem_bytes(c);
-  auto kernel = threads <= 512 ? k1_kernel<512> : k1_kernel<CPX_MAX_LANES>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  kernel<<<1, threads, smem, (cudaStream_t)cuda_stream>>>(
-      c, (const int*)stream, (long long*)states, tb, (int*)rolz,
-      (uint8_t*)out, (long long*)used, (int*)gpos, smem > 0);
-  return (int)cudaGetLastError();
+  auto kernel = g.ctas > 1 ? k1_kernel<CPX_MAX_LANES, true>
+              : g.threads <= 512 ? k1_kernel<512, false> : k1_kernel<CPX_MAX_LANES, false>;
+  return launch_scan(kernel, g, smem, cuda_stream, c, (const int*)stream,
+                     (long long*)states, tb, (int*)rolz, (uint8_t*)out,
+                     (long long*)used, (int*)gpos, smem > 0);
 }

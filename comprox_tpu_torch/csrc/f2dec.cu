@@ -14,8 +14,9 @@
 // Bound on the H100: the loop is ceil(n_tok / S) dependent steps, each a
 // table row read and three advances with a CTA-wide prefix count; the bytes
 // (2 per word read, 4 per token written, the 256 KB table and 8 per token
-// of scratch) are far below that.  One CTA of one thread per lane, the word reads as in the adaptive
-// decoder (a ballot and a 32-entry prefix instead of JAX's one-hot [S, S]
+// of scratch) are far below that.  One CTA, one thread per lane up to 1024
+// lanes and 2, 4 or 8 lanes a thread above that (as K9); the word reads as
+// in the adaptive decoder (a ballot and a 32-entry prefix instead of JAX's one-hot [S, S]
 // product, the window start clamped like lax.dynamic_slice).  The plane is
 // elementwise but for the distance fill, a prefix scan (f2scan.cuh) over
 // the n_tok tokens; JAX's N-slot grids, zero past n_tok, have no counterpart.
@@ -69,64 +70,91 @@ __device__ __forceinline__ TokenBits token_bits(bool act, int sym) {
   return b;
 }
 
+// LPT lanes a thread, as K9: lane threadIdx.x + r * blockDim.x in slot r.
+// Every event of a step reads its words from one window, whose start is
+// the event's first word clamped like lax.dynamic_slice; the slots read it
+// in ascending lane order.
+template <int LPT>
 __global__ void __launch_bounds__(CPX_MAX_LANES) k10_decode(
     int S, int n_tok, int stream_len, const int* __restrict__ stream,
     const int* __restrict__ dtab, long long* __restrict__ states,
     int* __restrict__ sym_g, int* __restrict__ xtr_g, int* __restrict__ used) {
-  __shared__ int wtot[3][32];
-  const int i = threadIdx.x;
-  const bool alive = i < S;
-  uint32_t x = alive ? (uint32_t)states[i] : RANS_L;
-  int base = 0;
+  __shared__ int wtot[2][32];
+  const int nt = blockDim.x;
+  uint32_t x[LPT];
+#pragma unroll
+  for (int r = 0; r < LPT; ++r) {
+    const int i = threadIdx.x + r * nt;
+    x[r] = i < S ? (uint32_t)states[i] : RANS_L;
+  }
+  int base = 0, ph = 0;
   const int last_start = stream_len - S;  // the window's start is clamped
 
   for (int t = 0; t < (n_tok + S - 1) / S; ++t) {
-    const bool act = alive && t * S + i < n_tok;
-    const uint32_t slot = x & (RANS_M - 1u);
-    const int e0 = dtab[2 * slot], e1 = dtab[2 * slot + 1];
-    const int sym = e0 & 1023;
-    const TokenBits tb = token_bits(act, sym);
-    const int tbits = tb.is_m ? tb.len_bits + tb.dist_bits : 0;
-    const int b1 = min(tbits, M_BITS), b2 = tbits - b1;
-    uint32_t v[3] = {0u, 0u, 0u};
+    int sym[LPT], e0[LPT], e1[LPT], b1[LPT], b2[LPT];
+    bool act[LPT];
+    uint32_t v[LPT][3];
+#pragma unroll
+    for (int r = 0; r < LPT; ++r) {
+      const int i = threadIdx.x + r * nt;
+      act[r] = i < S && t * S + i < n_tok;
+      const uint32_t slot = x[r] & (RANS_M - 1u);
+      e0[r] = dtab[2 * slot];
+      e1[r] = dtab[2 * slot + 1];
+      sym[r] = e0[r] & 1023;
+      const TokenBits tb = token_bits(act[r], sym[r]);
+      const int tbits = tb.is_m ? tb.len_bits + tb.dist_bits : 0;
+      b1[r] = min(tbits, M_BITS);
+      b2[r] = tbits - b1[r];
+      v[r][0] = v[r][1] = v[r][2] = 0u;
+    }
 #pragma unroll
     for (int s = 0; s < 3; ++s) {
-      // slot 0: the symbol; slots 1, 2: uniform events of b1, b2 bits
-      uint32_t c = 0u, f = RANS_M;
-      if (s == 0) {
-        if (act) {
-          c = (uint32_t)(e0 >> 10);
-          f = (uint32_t)e1;
+      const int st = max(0, min(base, last_start));
+      int off = 0;  // words the slots below this one read in this event
+#pragma unroll
+      for (int r = 0; r < LPT; ++r) {
+        const bool alive = threadIdx.x + r * nt < S;
+        // slot 0: the symbol; slots 1, 2: uniform events of b1, b2 bits
+        uint32_t c = 0u, f = RANS_M;
+        if (s == 0) {
+          if (act[r]) {
+            c = (uint32_t)(e0[r] >> 10);
+            f = (uint32_t)e1[r];
+          }
+        } else {
+          const int b = s == 1 ? b1[r] : b2[r];
+          if (b > 0) {
+            f = 1u << (M_BITS - b);
+            v[r][s] = (x[r] & (RANS_M - 1u)) / f;
+            c = v[r][s] * f;
+          }
         }
-      } else {
-        const int b = s == 1 ? b1 : b2;
-        if (b > 0) {
-          f = 1u << (M_BITS - b);
-          v[s] = (x & (RANS_M - 1u)) / f;
-          c = v[s] * f;
-        }
+        const uint32_t xt = dec_advance(x[r], c, f);
+        const bool need = alive && xt < RANS_L;
+        const int inw = cta_excl_prefix_a(need, wtot[ph]);
+        __syncthreads();
+        int total;
+        const int ex = cta_excl_prefix_b(inw, wtot[ph], total);
+        ph ^= 1;  // the next prefix writes the other scratch, a barrier later
+        x[r] = need ? (xt << 16) | ((uint32_t)stream[st + off + ex] & 0xFFFFu) : xt;
+        off += total;
       }
-      const uint32_t xt = dec_advance(x, c, f);
-      const bool need = alive && xt < RANS_L;
-      const int inw = cta_excl_prefix_a(need, wtot[s]);
-      __syncthreads();
-      int total;
-      const int ex = cta_excl_prefix_b(inw, wtot[s], total);
-      if (need) {
-        const int st = max(0, min(base, last_start));
-        x = (xt << 16) | ((uint32_t)stream[st + ex] & 0xFFFFu);
-      } else {
-        x = xt;
-      }
-      base += total;
+      base += off;
     }
-    if (act) {
-      sym_g[t * S + i] = sym;
-      xtr_g[t * S + i] = (int)(v[1] | (v[2] << M_BITS));
+#pragma unroll
+    for (int r = 0; r < LPT; ++r) {
+      const int k = t * S + threadIdx.x + r * nt;
+      if (act[r]) {
+        sym_g[k] = sym[r];
+        xtr_g[k] = (int)(v[r][1] | (v[r][2] << M_BITS));
+      }
     }
   }
-  if (alive) states[i] = (long long)x;
-  if (i == 0) *used = base;
+#pragma unroll
+  for (int r = 0; r < LPT; ++r)
+    if (threadIdx.x + r * nt < S) states[threadIdx.x + r * nt] = (long long)x[r];
+  if (threadIdx.x == 0) *used = base;
 }
 
 // The explicit distance of token k, 0 for a literal, a repeat or past n_tok.
@@ -190,20 +218,23 @@ __global__ void __launch_bounds__(SCAN_THREADS) k10_plane(
 }  // namespace
 
 // freq [581]; states [S] int64, updated in place; stream [stream_len] int32
-// (u16 words, stream_len >= S); dtab [M, 2] scratch; grids [2, n_tok]
+// (u16 words, stream_len >= S), S <= 8192 lanes; dtab [M, 2] scratch; grids [2, n_tok]
 // scratch (sym, xtr); parts [tiles(n_tok) + 1, 2] scratch; plane [n_tok];
 // used [1].
 extern "C" int cpx_k10_launch(int S, int n_tok, int stream_len, const void* freq,
                               void* states, const void* stream, void* dtab,
                               void* grids, void* parts, void* plane, void* used,
                               void* cuda_stream) {
-  if (S < 1 || S > CPX_MAX_LANES || n_tok < 0 || stream_len < S)
+  if (S < 1 || S > CPX_MAX_LPT * CPX_MAX_LANES || n_tok < 0 || stream_len < S)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)cuda_stream;
   int* const g = (int*)grids;
   const int tiles = (n_tok + SCAN_TILE - 1) / SCAN_TILE;
   k10_table<<<(int)RANS_M / 256, 256, 0, st>>>((const int*)freq, (int*)dtab);
-  k10_decode<<<1, (S + 31) / 32 * 32, 0, st>>>(
+  const int lpt = lanes_per_thread(S);
+  auto decode = lpt == 1 ? k10_decode<1> : lpt == 2 ? k10_decode<2>
+              : lpt == 4 ? k10_decode<4> : k10_decode<8>;
+  decode<<<1, lpt == 1 ? (S + 31) / 32 * 32 : CPX_MAX_LANES, 0, st>>>(
       S, n_tok, stream_len, (const int*)stream, (const int*)dtab,
       (long long*)states, g, g + n_tok, (int*)used);
   if (tiles > 0) {

@@ -32,7 +32,8 @@
 // (block.py:1704-1713), never the bucket table, so this kernel keeps no
 // bucket table and does no bucket insert: the bytes are the same.
 //
-// Bound on the H100: T dependent steps in one CTA; per step a coding lane
+// Bound on the H100: T dependent steps in one CTA (above 1024 lanes one
+// cluster of CTAs, ppm_r.cuh); per step a coding lane
 // reads its 260-entry o2 row (and an escaping lane its 256-entry o1 row)
 // and the step ends in four barriers.  Row loads by one thread per lane
 // would touch 32 rows per warp load, so the o2 row of each coding lane is
@@ -74,16 +75,17 @@ static __device__ void mant_events(const SmemModel& sm, int dist, int k_dist,
   }
 }
 
-template <int MAXT, int MODE>
+template <int MAXT, int MODE, bool CL>
 __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restrict__ inp,
                           const int* __restrict__ dec, Tables tb, Lzp lzp,
                           int* __restrict__ ev) {
   constexpr bool XMODE = MODE == MODE_X, PMODE = MODE == MODE_P;
-  __shared__ SmemModel sm;
-  const int i = threadIdx.x;
+  __shared__ SmemModel own;  // this CTA's keys; with CL, CTA 0's models serve all
+  SmemModel& sm = *at_rank<CL>(&own, 0);
+  const int i = gtid();
   const bool alive = i < c.S;
   model_load<MODE>(sm, tb);
-  __syncthreads();
+  group_sync<CL>();
   const size_t plane = (size_t)c.T * c.S;
   const int n_ev = XMODE ? 15 : 9;
   uint32_t ctx4 = 0, ctx4b = 0;
@@ -91,7 +93,7 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
 
   for (int t = 0; t < c.T; ++t) {
     o1_rescale(tb.o1, sm.o1sum, c.cap1);
-    __syncthreads();
+    group_sync<CL>();
 
     Ctx x = common_reads(c, tb, i, t, ctx4, copy_rem, alive);
     Upd u = {};
@@ -162,13 +164,13 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
       c1_raw = b.c;
       f1_raw = b.f;
     }
-    upd_keys(sm, i, alive, u);
-    __syncthreads();
+    upd_keys(own, alive, u);
+    group_sync<CL>();
 
     if (XMODE) dst_rescale(c, sm);
     else if (!PMODE) idx_rescale(c, sm);  // mode P never reads an idx row
     len_rescale(c, sm);
-    __syncthreads();
+    group_sync<CL>();
 
     if (alive) {
       uint32_t cb = 0, fb = RANS_M, cc = 0, fc = RANS_M;
@@ -201,9 +203,9 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
         e[9 * c.S] = (int)cd; e[10 * c.S] = (int)fd; e[11 * c.S] = act_d;
         e[12 * c.S] = (int)ce; e[13 * c.S] = (int)fe; e[14 * c.S] = act_e;
       }
-      upd_store(tb, sm, i, u);
+      upd_store<CL>(tb, own, u);
     }
-    __syncthreads();
+    group_sync<CL>();
 
     if (alive) {
       upd_add<MODE>(c, tb, sm, u);
@@ -217,11 +219,12 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
       }
       if (PMODE && c.match) lzp_insert(c, lzp, x.active, t, x.pos, ctx4, ctx4b);
     }
-    __syncthreads();
+    group_sync<CL>();
     upd_finish<MODE>(sm, c.mant_cap);
   }
-  __syncthreads();
+  group_sync<CL>();
   model_store<MODE>(sm, tb);
+  if (CL) group_sync<CL>();  // CTA 0 stays until every CTA has read its models
 }
 
 }  // namespace
@@ -232,14 +235,12 @@ static int model_launch(const int* cfg, const void* inp, const void* dec,
                         const Lzp& lzp = Lzp{nullptr, nullptr, nullptr}) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  int threads = (c.S + 31) / 32 * 32;
-  if (threads <= 512)
-    k2_kernel<512, MODE><<<1, threads, 0, (cudaStream_t)stream>>>(
-        c, (const uint8_t*)inp, (const int*)dec, tb, lzp, (int*)ev);
-  else
-    k2_kernel<CPX_MAX_LANES, MODE><<<1, threads, 0, (cudaStream_t)stream>>>(
-        c, (const uint8_t*)inp, (const int*)dec, tb, lzp, (int*)ev);
-  return (int)cudaGetLastError();
+  const ScanGrid g = scan_grid(c.S);
+  auto kernel = g.ctas > 1 ? k2_kernel<CPX_MAX_LANES, MODE, true>
+              : g.threads <= 512 ? k2_kernel<512, MODE, false>
+                                 : k2_kernel<CPX_MAX_LANES, MODE, false>;
+  return launch_scan(kernel, g, 0, stream, c, (const uint8_t*)inp, (const int*)dec, tb,
+                     lzp, (int*)ev);
 }
 
 // Mode R: dec [4, T, S] (take, src, recency index, fill) -> ev [T, 9, S].

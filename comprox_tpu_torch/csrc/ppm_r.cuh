@@ -25,8 +25,77 @@
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 
 #define CPX_MAX_LANES 1024
+// The fast profile's rANS loops (K9, K10) run up to CPX_MAX_LPT lanes a
+// thread: lanes_per_thread(S), a power of two, so S <= 8192.
+#define CPX_MAX_LPT 8
+static inline int lanes_per_thread(int S) {
+  int lpt = 1;
+  while (lpt < CPX_MAX_LPT && lpt * CPX_MAX_LANES < S) lpt <<= 1;
+  return lpt;
+}
+
+// ---- one CTA, or one cluster of CTAs --------------------------------------
+// The step scans (KS, KSx, K5, K2 and its X and P entries, K1, K12d/K13d)
+// run one thread per lane: one CTA up to CPX_MAX_LANES lanes, and above
+// that one thread-block cluster of up to CPX_MAX_CLUSTER CTAs, which is
+// the launch's whole grid; lane blockIdx.x * blockDim.x + threadIdx.x.
+// The shared models live in CTA 0's shared memory, which the other CTAs
+// reach through distributed shared memory; each CTA keeps its own lanes'
+// election keys, prefix scratch and bucket-row copies, and the lane-order
+// scans read every CTA's in rank order.  Barriers span the cluster.  CL
+// selects the cluster form at compile time, so the one-CTA kernels are the
+// ones they were.
+#define CPX_MAX_CLUSTER 8
+
+struct ScanGrid {
+  int ctas, threads;
+};
+
+static inline ScanGrid scan_grid(int S) {
+  const int ctas = (S + CPX_MAX_LANES - 1) / CPX_MAX_LANES;
+  return {ctas, ((S + ctas - 1) / ctas + 31) / 32 * 32};
+}
+
+// Launch a step scan on grid g: a cluster of all its CTAs where there are
+// several.
+template <typename... P, typename... A>
+static int launch_scan(void (*kernel)(P...), ScanGrid g, size_t smem,
+                       void* stream, A... args) {
+  if (g.ctas < 1 || g.ctas > CPX_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.ctas);
+  cfg.blockDim = dim3(g.threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = g.ctas > 1 ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// This thread's index and the thread count over the launch (the cluster).
+static __device__ __forceinline__ int gtid() { return blockIdx.x * blockDim.x + threadIdx.x; }
+static __device__ __forceinline__ int gthreads() { return gridDim.x * blockDim.x; }
+
+template <bool CL>
+static __device__ __forceinline__ void group_sync() {
+  if (CL) cooperative_groups::this_cluster().sync();
+  else __syncthreads();
+}
+
+// The same shared-memory variable in CTA r of the cluster.
+template <bool CL, typename T>
+static __device__ __forceinline__ T* at_rank(T* p, int r) {
+  return CL ? cooperative_groups::this_cluster().map_shared_rank(p, (unsigned)r) : p;
+}
 #define CPX_MAX_DEPTH 80  // rolz_depth <= IDX_W
 #define O2_W 260
 #define SYM_HIT 256
@@ -550,29 +619,43 @@ static __device__ void o2_write_halved(int* o2row, int h) {
   for (int k = 0; k < O2_W; ++k) o2row[k] = halve_n(o2row[k], h, o2_sticky(k));
 }
 
-// Number of lower lanes with the same key as lane i (the insert rank).
-// keys is a 16-byte aligned shared array: four keys per broadcast load.
-static __device__ __forceinline__ int lower_same(const int* keys, int i) {
+// Number of the first n keys equal to k.  keys is a 16-byte aligned
+// shared array: four keys per broadcast load.
+static __device__ __forceinline__ int count_same(const int* keys, int n, int k) {
   const int4* k4 = reinterpret_cast<const int4*>(keys);
-  int k = keys[i], r = 0, j = 0;
-  for (; j + 4 <= i; j += 4) {
+  int r = 0, j = 0;
+  for (; j + 4 <= n; j += 4) {
     int4 v = k4[j >> 2];
     r += (v.x == k) + (v.y == k) + (v.z == k) + (v.w == k);
   }
-  for (; j < i; ++j) r += keys[j] == k;
+  for (; j < n; ++j) r += keys[j] == k;
   return r;
 }
 
-// Is lane i the minimum lane with its key among the keyed lanes (key >= 0)?
-static __device__ __forceinline__ bool is_winner(const int* keys, int i) {
-  return keys[i] >= 0 && lower_same(keys, i) == 0;
+// Number of lower lanes with the same key as this thread's lane (the
+// insert rank).  keys is the CTA's array of its lanes' keys (by
+// threadIdx.x); with CL the lower CTAs' arrays count first.
+template <bool CL = false>
+static __device__ __forceinline__ int lower_same(const int* keys) {
+  const int k = keys[threadIdx.x];
+  int r = 0;
+  if (CL)
+    for (int b = 0; b < (int)blockIdx.x; ++b)
+      r += count_same(at_rank<CL>(keys, b), blockDim.x, k);
+  return r + count_same(keys, threadIdx.x, k);
+}
+
+// Is this lane the minimum lane with its key among the keyed lanes (key >= 0)?
+template <bool CL = false>
+static __device__ __forceinline__ bool is_winner(const int* keys) {
+  return keys[threadIdx.x] >= 0 && lower_same<CL>(keys) == 0;
 }
 
 // Halve (in place) every o1 row whose maintained sum is over the cap and
 // refresh that sum.  o1sum[] lives in shared memory.  Warp-cooperative.
 static __device__ void o1_rescale(int* o1, int* o1sum, int cap1) {
-  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int nwarps = blockDim.x >> 5;
+  int warp = gtid() >> 5, lane = threadIdx.x & 31;
+  int nwarps = gthreads() >> 5;
   for (int row = warp; row < O1_N; row += nwarps) {
     if (o1sum[row] <= cap1) continue;
     int s = 0;
@@ -604,9 +687,10 @@ static __device__ void shared_rescale_row(int* row, int w, bool hot, int cap,
   sum_out = s;
 }
 
-// Exclusive lane-order prefix of a per-lane flag across the CTA.  Call by
-// every thread; wtot is a shared [32] scratch this call owns until the
-// next barrier after it.  Returns the exclusive prefix, sets total.
+// Exclusive lane-order prefix of a per-lane flag across the CTA (with CL,
+// the cluster).  Call by every thread; wtot is the CTA's shared [32]
+// scratch, which this call owns until the next barrier after it.  Returns
+// the exclusive prefix, sets total.
 static __device__ __forceinline__ int cta_excl_prefix_a(bool flag, int* wtot) {
   unsigned b = __ballot_sync(0xffffffffu, flag);
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -614,13 +698,18 @@ static __device__ __forceinline__ int cta_excl_prefix_a(bool flag, int* wtot) {
   return __popc(b & ((1u << lane) - 1u));
 }
 
+template <bool CL = false>
 static __device__ __forceinline__ int cta_excl_prefix_b(int in_warp, const int* wtot,
                                                  int& total) {
-  int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5, me = blockIdx.x;
   int before = 0, tot = 0;
-  for (int w = 0; w < nwarps; ++w) {
-    before += (w < warp) ? wtot[w] : 0;
-    tot += wtot[w];
+  for (int b = 0; b < (CL ? (int)gridDim.x : 1); ++b) {
+    const int* w = at_rank<CL>(wtot, b);
+    for (int k = 0; k < nwarps; ++k) {
+      const int v = w[k];
+      before += (b < me || (b == me && k < warp)) ? v : 0;
+      tot += v;
+    }
   }
   total = tot;
   return before + in_warp;
@@ -709,7 +798,8 @@ static __device__ __forceinline__ void lzp_insert(const Cfg& c, const Lzp& z, bo
 // row's positions in an [S, D+1] array: lane i's at pos + i * (D+1).  The
 // odd pitch keeps both a warp's stores of one row and the lanes' scans of
 // their own rows free of shared-memory bank conflicts.  The array is in
-// dynamic shared memory up to this size, else in a global scratch array.
+// dynamic shared memory up to this size, else in a global scratch array;
+// in a cluster each CTA keeps its own lanes' rows (lanes = its threads).
 #define CPX_POS_SMEM_MAX (200 * 1024)
 
 static __host__ __device__ __forceinline__ int pos_pitch(int d) { return d + 1; }
@@ -718,8 +808,27 @@ static __host__ __device__ __forceinline__ int pos_pitch(int d) { return d + 1; 
 // positions (KS keeps a one-byte prefix score; the global scratch has room
 // for up to four).
 static inline size_t pos_smem_bytes(const Cfg& c, int score_bytes = 0) {
-  size_t need = (size_t)pos_pitch(c.rolz_depth) * c.S * (sizeof(int) + score_bytes);
+  const ScanGrid g = scan_grid(c.S);
+  const int lanes = g.ctas > 1 ? g.threads : c.S;
+  size_t need = (size_t)pos_pitch(c.rolz_depth) * lanes * (sizeof(int) + score_bytes);
   return need <= CPX_POS_SMEM_MAX ? need : 0;
+}
+
+// A scan kernel's base of its CTA's position rows, and of their byte
+// scores (KS, KSx, K5): in shared memory the CTA's own arrays, in the
+// global scratch the rows of its lanes.
+struct PosBufs {
+  int* pos;
+  int8_t* score;
+};
+
+template <bool CL>
+static __device__ __forceinline__ PosBufs pos_bufs(const Cfg& c, int* spos, int* gpos,
+                                                   bool in_smem, int pitch) {
+  const size_t first = (size_t)blockIdx.x * blockDim.x * pitch;
+  if (in_smem)
+    return {spos, reinterpret_cast<int8_t*>(spos + (size_t)(CL ? blockDim.x : c.S) * pitch)};
+  return {gpos + first, reinterpret_cast<int8_t*>(gpos + (size_t)c.S * pitch) + first};
 }
 
 // Copy bucket rows into the lanes' position arrays, a warp at a time: for
@@ -802,12 +911,13 @@ static __device__ int warp_slot_of_rank(const int* pos, int pitch, int d,
 // The insert slot of every inserting lane (ins_key >= 0), -1 elsewhere:
 // the lane's rank among same-bucket inserters (lower lanes first) picks
 // the rank-th oldest slot of the old bucket row, read before any write of
-// this step.  Call with the warp converged, after keys[] holds every
-// lane's ins_key.
+// this step.  Call with the warp converged, after every CTA's keys[] holds
+// its lanes' ins_key.
+template <bool CL = false>
 static __device__ int bucket_slot(const int* rolz, const Cfg& c, const int* keys,
                                   int ins_key, int* pos, int pitch) {
   const int d = c.rolz_depth;
-  int rank = ins_key >= 0 ? lower_same(keys, threadIdx.x) : d;
+  int rank = ins_key >= 0 ? lower_same<CL>(keys) : d;
   bool ins = rank < d;
   warp_load_rows(rolz, d, ins, (uint32_t)ins_key, pos, pitch);
   // the rank-th oldest is the (d-1-rank)-th newest
@@ -818,7 +928,9 @@ static __device__ int bucket_slot(const int* rolz, const Cfg& c, const int* keys
 // Shared memory of the modeling (K2, K12e) and decode (K1, K12d) scans:
 // election keys, the small dense models (len, idx, the two APMs; mode X's
 // distance-bucket row, mantissa table and hit APM; mode P's hit APM, which
-// takes the place of mode X's) and the o1 row sums.
+// takes the place of mode X's) and the o1 row sums.  In a cluster every CTA
+// has one: its keys and wtot serve its own lanes, and the models of CTA 0
+// serve all.
 struct SmemModel {
   __align__(16) int key_o2[CPX_MAX_LANES];   // ctx2 of lanes that rescaled their o2 row
   __align__(16) int key_o3[CPX_MAX_LANES];   // h3 of lanes that update the o3 predictor
@@ -853,23 +965,23 @@ struct Tables {
 template <int MODE = MODE_R>
 static __device__ void model_load(SmemModel& sm, const Tables& tb) {
   if (MODE == MODE_X) {
-    for (int k = threadIdx.x; k < DST_W; k += blockDim.x) sm.dst[k] = tb.dst[k];
-    for (int k = threadIdx.x; k < MANT_N * MANT_N; k += blockDim.x) sm.mant[k] = tb.mant[k];
-    if (threadIdx.x == 0) sm.hot_dst = 0;
+    for (int k = gtid(); k < DST_W; k += gthreads()) sm.dst[k] = tb.dst[k];
+    for (int k = gtid(); k < MANT_N * MANT_N; k += gthreads()) sm.mant[k] = tb.mant[k];
+    if (gtid() == 0) sm.hot_dst = 0;
   }
   if (MODE != MODE_R)
-    for (int k = threadIdx.x; k < HIT_APM_K(MODE); k += blockDim.x) sm.sse_x[k] = tb.sse_x[k];
-  for (int k = threadIdx.x; k < N_SHARED_CTX * LEN_W; k += blockDim.x) sm.len[k] = tb.len[k];
-  for (int k = threadIdx.x; k < N_SHARED_CTX * IDX_W; k += blockDim.x) sm.idx[k] = tb.idx[k];
+    for (int k = gtid(); k < HIT_APM_K(MODE); k += gthreads()) sm.sse_x[k] = tb.sse_x[k];
+  for (int k = gtid(); k < N_SHARED_CTX * LEN_W; k += gthreads()) sm.len[k] = tb.len[k];
+  for (int k = gtid(); k < N_SHARED_CTX * IDX_W; k += gthreads()) sm.idx[k] = tb.idx[k];
   if (MODE != MODE_P) {  // mode P passes neither
-    for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) sm.sse[k] = tb.sse[k];
-    for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) sm.sse_h[k] = tb.sse_h[k];
+    for (int k = gtid(); k < SSE_K; k += gthreads()) sm.sse[k] = tb.sse[k];
+    for (int k = gtid(); k < SSE_HK; k += gthreads()) sm.sse_h[k] = tb.sse_h[k];
   }
-  for (int k = threadIdx.x; k < N_SHARED_CTX; k += blockDim.x) {
+  for (int k = gtid(); k < N_SHARED_CTX; k += gthreads()) {
     sm.hot_len[k] = 0;
     sm.hot_idx[k] = 0;
   }
-  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  int warp = gtid() >> 5, lane = threadIdx.x & 31, nwarps = gthreads() >> 5;
   for (int row = warp; row < O1_N; row += nwarps) {
     int s = 0;
     for (int k = lane; k < O1_N; k += 32) s += tb.o1[row * O1_N + k];
@@ -881,22 +993,22 @@ static __device__ void model_load(SmemModel& sm, const Tables& tb) {
 template <int MODE = MODE_R>
 static __device__ void model_store(const SmemModel& sm, const Tables& tb) {
   if (MODE == MODE_X) {
-    for (int k = threadIdx.x; k < DST_W; k += blockDim.x) tb.dst[k] = sm.dst[k];
-    for (int k = threadIdx.x; k < MANT_N * MANT_N; k += blockDim.x) tb.mant[k] = sm.mant[k];
+    for (int k = gtid(); k < DST_W; k += gthreads()) tb.dst[k] = sm.dst[k];
+    for (int k = gtid(); k < MANT_N * MANT_N; k += gthreads()) tb.mant[k] = sm.mant[k];
   }
   if (MODE != MODE_R)
-    for (int k = threadIdx.x; k < HIT_APM_K(MODE); k += blockDim.x) tb.sse_x[k] = sm.sse_x[k];
-  for (int k = threadIdx.x; k < N_SHARED_CTX * LEN_W; k += blockDim.x) tb.len[k] = sm.len[k];
-  for (int k = threadIdx.x; k < N_SHARED_CTX * IDX_W; k += blockDim.x) tb.idx[k] = sm.idx[k];
+    for (int k = gtid(); k < HIT_APM_K(MODE); k += gthreads()) tb.sse_x[k] = sm.sse_x[k];
+  for (int k = gtid(); k < N_SHARED_CTX * LEN_W; k += gthreads()) tb.len[k] = sm.len[k];
+  for (int k = gtid(); k < N_SHARED_CTX * IDX_W; k += gthreads()) tb.idx[k] = sm.idx[k];
   if (MODE != MODE_P) {
-    for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) tb.sse[k] = sm.sse[k];
-    for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) tb.sse_h[k] = sm.sse_h[k];
+    for (int k = gtid(); k < SSE_K; k += gthreads()) tb.sse[k] = sm.sse[k];
+    for (int k = gtid(); k < SSE_HK; k += gthreads()) tb.sse_h[k] = sm.sse_h[k];
   }
 }
 
 // Rescale the idx rows that a match lane reads this step (thread r < 4).
 static __device__ void idx_rescale(const Cfg& c, SmemModel& sm) {
-  int r = threadIdx.x;
+  int r = gtid();
   if (r < N_SHARED_CTX)
     shared_rescale_row(sm.idx + r * IDX_W, IDX_W, sm.hot_idx[r] != 0,
                        c.idx_cap, sm.idx_sum[r]);
@@ -904,7 +1016,7 @@ static __device__ void idx_rescale(const Cfg& c, SmemModel& sm) {
 
 // Rescale the len rows that a match lane reads this step (thread 4+r).
 static __device__ void len_rescale(const Cfg& c, SmemModel& sm) {
-  int r = threadIdx.x - N_SHARED_CTX;
+  int r = gtid() - N_SHARED_CTX;
   if (r >= 0 && r < N_SHARED_CTX)
     shared_rescale_row(sm.len + r * LEN_W, LEN_W, sm.hot_len[r] != 0,
                        c.len_cap, sm.len_sum[r]);
@@ -913,7 +1025,7 @@ static __device__ void len_rescale(const Cfg& c, SmemModel& sm) {
 // Rescale mode X's distance-bucket row if a match lane reads it this step
 // (thread 2 * N_SHARED_CTX, beside the len rows' threads).
 static __device__ void dst_rescale(const Cfg& c, SmemModel& sm) {
-  if (threadIdx.x == 2 * N_SHARED_CTX)
+  if (gtid() == 2 * N_SHARED_CTX)
     shared_rescale_row(sm.dst, DST_W, sm.hot_dst != 0, c.dst_cap, sm.dst_sum);
 }
 
@@ -945,20 +1057,20 @@ struct Upd {
   SseState sse;
 };
 
-static __device__ __forceinline__ void upd_keys(SmemModel& sm, int i, bool alive,
-                                         const Upd& u) {
-  sm.key_o2[i] = (alive && u.coding && u.halvings > 0) ? u.ctx2 : -1;
+// The lane's election keys, into its CTA's arrays (own).
+static __device__ __forceinline__ void upd_keys(SmemModel& own, bool alive, const Upd& u) {
+  own.key_o2[threadIdx.x] = (alive && u.coding && u.halvings > 0) ? u.ctx2 : -1;
   bool o3_upd = alive && (u.is_hit || u.is_lit || u.is_esc);
-  sm.key_o3[i] = o3_upd ? u.h3 : -1;
+  own.key_o3[threadIdx.x] = o3_upd ? u.h3 : -1;
 }
 
 // Store phase (after the keys barrier): the winners' o2 rescale write and
 // o3 predictor write.  Nothing else touches these words before the next
 // barrier.
-static __device__ void upd_store(const Tables& tb, const SmemModel& sm, int i,
-                          const Upd& u) {
-  if (is_winner(sm.key_o2, i)) o2_write_halved(tb.o2 + (size_t)u.ctx2 * O2_W, u.halvings);
-  if (is_winner(sm.key_o3, i)) {
+template <bool CL = false>
+static __device__ void upd_store(const Tables& tb, const SmemModel& own, const Upd& u) {
+  if (is_winner<CL>(own.key_o2)) o2_write_halved(tb.o2 + (size_t)u.ctx2 * O2_W, u.halvings);
+  if (is_winner<CL>(own.key_o3)) {
     int nc = o3_nc(u.conf);
     int new_pred = (u.is_hit || nc > 0) ? u.pred : u.byte;
     int new_conf = u.is_hit ? min(u.conf + 1, 15) : max(nc, 1);
@@ -1003,12 +1115,12 @@ static __device__ void upd_add(const Cfg& c, const Tables& tb, SmemModel& sm,
 template <int MODE = MODE_R>
 static __device__ void upd_finish(SmemModel& sm, int mant_cap = 0) {
   if (MODE != MODE_R) {
-    for (int k = threadIdx.x; k < HIT_APM_K(MODE); k += blockDim.x) sm.sse_x[k] = clampi(sm.sse_x[k], SSE_LO, SSE_HI);
-    if (threadIdx.x < N_SHARED_CTX) sm.hot_len[threadIdx.x] = 0;
+    for (int k = gtid(); k < HIT_APM_K(MODE); k += gthreads()) sm.sse_x[k] = clampi(sm.sse_x[k], SSE_LO, SSE_HI);
+    if (gtid() < N_SHARED_CTX) sm.hot_len[gtid()] = 0;
   }
   if (MODE == MODE_X) {
-    if (threadIdx.x == N_SHARED_CTX) sm.hot_dst = 0;
-    for (int r = threadIdx.x; r < MANT_N; r += blockDim.x) {
+    if (gtid() == N_SHARED_CTX) sm.hot_dst = 0;
+    for (int r = gtid(); r < MANT_N; r += gthreads()) {
       int* row = sm.mant + r * MANT_N;
       int s = 0;
       for (int k = 0; k < MANT_N; ++k) s += row[k];
@@ -1017,11 +1129,11 @@ static __device__ void upd_finish(SmemModel& sm, int mant_cap = 0) {
     }
   }
   if (MODE == MODE_R) {
-    for (int k = threadIdx.x; k < SSE_K; k += blockDim.x) sm.sse[k] = clampi(sm.sse[k], SSE_LO, SSE_HI);
-    for (int k = threadIdx.x; k < SSE_HK; k += blockDim.x) sm.sse_h[k] = clampi(sm.sse_h[k], SSE_LO, SSE_HI);
-    if (threadIdx.x < N_SHARED_CTX) {
-      sm.hot_len[threadIdx.x] = 0;
-      sm.hot_idx[threadIdx.x] = 0;
+    for (int k = gtid(); k < SSE_K; k += gthreads()) sm.sse[k] = clampi(sm.sse[k], SSE_LO, SSE_HI);
+    for (int k = gtid(); k < SSE_HK; k += gthreads()) sm.sse_h[k] = clampi(sm.sse_h[k], SSE_LO, SSE_HI);
+    if (gtid() < N_SHARED_CTX) {
+      sm.hot_len[gtid()] = 0;
+      sm.hot_idx[gtid()] = 0;
     }
   }
 }

@@ -8,7 +8,7 @@
 // against the lane's upcoming bytes over the whole window; then the shared
 // position-driven bucket insert.
 //
-// Bound on the H100: as KS, one CTA walks T dependent steps (the bucket
+// Bound on the H100: as KS, one CTA (or cluster) walks T dependent steps (the bucket
 // insert is ordered by lane across the whole block), so the kernel is
 // latency bound — a step's global-memory round trips (bucket row, window
 // bytes, insert row) and its barriers — not bandwidth bound: a step moves
@@ -28,25 +28,26 @@ namespace {
 
 #define K5_MAX_CANDS 7  // block.py::MAX_CANDS
 
-template <int MAXT>
+template <int MAXT, bool CL>
 __global__ void __launch_bounds__(MAXT) k5_kernel(Cfg c, const uint8_t* __restrict__ inp,
                           const int* __restrict__ props, int* __restrict__ rolz,
                           int* __restrict__ out, int* __restrict__ gpos,
                           bool pos_in_smem) {
-  __shared__ __align__(16) int keys[CPX_MAX_LANES];
+  __shared__ __align__(16) int keys[CPX_MAX_LANES];  // this CTA's lanes'
   extern __shared__ int spos[];
-  const int i = threadIdx.x;
+  const int i = gtid();
   const bool alive = i < c.S;
   const int d = c.rolz_depth;
   const int n_c = c.n_cands;
   const int len_cap = min(c.window, c.min_len + LEN_W - 1);
   const size_t plane = (size_t)c.T * c.S;
   uint32_t ctx4 = 0, ctx4b = 0;
-  int* const posbuf = pos_in_smem ? spos : gpos;
   const int pitch = pos_pitch(d);
-  const int* const pos_row = posbuf + (size_t)i * pitch;
-  int8_t* const scorebuf = reinterpret_cast<int8_t*>(posbuf + (size_t)c.S * pitch);
-  const int8_t* const score_row = scorebuf + (size_t)i * pitch;
+  const PosBufs pb = pos_bufs<CL>(c, spos, gpos, pos_in_smem, pitch);
+  int* const posbuf = pb.pos;
+  const int* const pos_row = posbuf + (size_t)threadIdx.x * pitch;
+  int8_t* const scorebuf = pb.score;
+  const int8_t* const score_row = scorebuf + (size_t)threadIdx.x * pitch;
 
   for (int t = 0; t < c.T; ++t) {
     const int pos = i * c.T + t;
@@ -120,14 +121,14 @@ __global__ void __launch_bounds__(MAXT) k5_kernel(Cfg c, const uint8_t* __restri
       if (insert_here(c, active, t, pos))
         ins_key = (int)rolz_hash3(rolz_key(ctx4bn, c.rolz_ctx_bytes), c.rolz_bits);
     }
-    keys[i] = ins_key;
-    __syncthreads();
-    int slot = bucket_slot(rolz, c, keys, ins_key, posbuf, pitch);
-    __syncthreads();
+    keys[threadIdx.x] = ins_key;
+    group_sync<CL>();
+    int slot = bucket_slot<CL>(rolz, c, keys, ins_key, posbuf, pitch);
+    group_sync<CL>();
     if (slot >= 0) bucket_store(rolz, c, (uint32_t)ins_key, slot, pos, byteswap32(ctx4n));
     ctx4 = ctx4n;
     ctx4b = ctx4bn;
-    __syncthreads();
+    group_sync<CL>();
   }
 }
 
@@ -138,13 +139,10 @@ extern "C" int cpx_k5_launch(const int* cfg, const void* inp, const void* props,
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
   if (c.n_cands < 1 || c.n_cands > K5_MAX_CANDS) return (int)cudaErrorInvalidValue;
-  int threads = (c.S + 31) / 32 * 32;
+  const ScanGrid g = scan_grid(c.S);
   size_t smem = pos_smem_bytes(c, 1);
-  auto kernel = threads <= 512 ? k5_kernel<512> : k5_kernel<CPX_MAX_LANES>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
-      c, (const uint8_t*)inp, (const int*)props, (int*)rolz, (int*)out,
-      (int*)gpos, smem > 0);
-  return (int)cudaGetLastError();
+  auto kernel = g.ctas > 1 ? k5_kernel<CPX_MAX_LANES, true>
+              : g.threads <= 512 ? k5_kernel<512, false> : k5_kernel<CPX_MAX_LANES, false>;
+  return launch_scan(kernel, g, smem, stream, c, (const uint8_t*)inp, (const int*)props,
+                     (int*)rolz, (int*)out, (int*)gpos, smem > 0);
 }

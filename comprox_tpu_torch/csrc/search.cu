@@ -19,7 +19,8 @@
 // position pos-3 under its context.  Output: six grids (length, src, len2,
 // cand, len3, src3), the price DP's three (len, src) candidates.
 //
-// Bound on the H100: one CTA walks T dependent steps, so the kernel is
+// Bound on the H100: one CTA (above 1024 lanes one cluster of CTAs, as
+// ppm_r.cuh sets out) walks T dependent steps, so the kernel is
 // latency bound (global-memory round trips of the bucket rows and the
 // byte windows, and the barriers), not bandwidth bound: a step touches
 // ~S*(D*8 + 4*probe + window) bytes (KSx: twice the rows, three windows).
@@ -36,23 +37,24 @@
 
 namespace {
 
-template <int MAXT>
+template <int MAXT, bool CL>
 __global__ void __launch_bounds__(MAXT) ks_kernel(Cfg c, const uint8_t* __restrict__ inp,
                           int* __restrict__ rolz, int* __restrict__ out,
                           int* __restrict__ gpos, bool pos_in_smem) {
-  __shared__ __align__(16) int keys[CPX_MAX_LANES];
+  __shared__ __align__(16) int keys[CPX_MAX_LANES];  // this CTA's lanes'
   extern __shared__ int spos[];
-  const int i = threadIdx.x;
+  const int i = gtid();
   const bool alive = i < c.S;
   const int d = c.rolz_depth;
   uint32_t ctx4 = 0, ctx4b = 0;
   // the lanes' copies of bucket rows (the search row, then the insert row)
   // and the search row's prefix scores
-  int* const posbuf = pos_in_smem ? spos : gpos;
   const int pitch = pos_pitch(d);
-  int* const pos_row = posbuf + (size_t)i * pitch;
-  int8_t* const scorebuf = reinterpret_cast<int8_t*>(posbuf + (size_t)c.S * pitch);
-  const int8_t* const score_row = scorebuf + (size_t)i * pitch;
+  const PosBufs pb = pos_bufs<CL>(c, spos, gpos, pos_in_smem, pitch);
+  int* const posbuf = pb.pos;
+  int* const pos_row = posbuf + (size_t)threadIdx.x * pitch;
+  int8_t* const scorebuf = pb.score;
+  const int8_t* const score_row = scorebuf + (size_t)threadIdx.x * pitch;
 
   for (int t = 0; t < c.T; ++t) {
     const int pos = i * c.T + t;
@@ -82,14 +84,14 @@ __global__ void __launch_bounds__(MAXT) ks_kernel(Cfg c, const uint8_t* __restri
       if (insert_here(c, active, t, pos))
         ins_key = (int)rolz_hash3(rolz_key(ctx4bn, c.rolz_ctx_bytes), c.rolz_bits);
     }
-    keys[i] = ins_key;
-    __syncthreads();
-    int slot = bucket_slot(rolz, c, keys, ins_key, posbuf, pitch);
-    __syncthreads();
+    keys[threadIdx.x] = ins_key;
+    group_sync<CL>();
+    int slot = bucket_slot<CL>(rolz, c, keys, ins_key, posbuf, pitch);
+    group_sync<CL>();
     if (slot >= 0) bucket_store(rolz, c, (uint32_t)ins_key, slot, pos, byteswap32(ctx4n));
     ctx4 = ctx4n;
     ctx4b = ctx4bn;
-    __syncthreads();
+    group_sync<CL>();
   }
 }
 
@@ -109,7 +111,7 @@ static __device__ __forceinline__ uint32_t x_hash6(uint64_t own) {
 
 #define X_INSERT_LATE 7  // the content-keyed entry of position q: at step q + 7
 
-template <int MAXT>
+template <int MAXT, bool CL>
 __global__ void __launch_bounds__(MAXT) ksx_kernel(Cfg c, const uint8_t* __restrict__ inp,
                            int* __restrict__ ent_x, int* __restrict__ ent_c,
                            int* __restrict__ xshort, int* __restrict__ out,
@@ -117,15 +119,16 @@ __global__ void __launch_bounds__(MAXT) ksx_kernel(Cfg c, const uint8_t* __restr
   __shared__ __align__(16) int keys_x[CPX_MAX_LANES];
   __shared__ __align__(16) int keys_c[CPX_MAX_LANES];
   extern __shared__ int spos[];
-  const int i = threadIdx.x;
+  const int i = gtid();
   const bool alive = i < c.S;
   const int d = c.rolz_depth;
   uint32_t ctx4 = 0, ctx4b = 0;
-  int* const posbuf = pos_in_smem ? spos : gpos;
   const int pitch = pos_pitch(d);
-  const int* const pos_row = posbuf + (size_t)i * pitch;
-  int8_t* const scorebuf = reinterpret_cast<int8_t*>(posbuf + (size_t)c.S * pitch);
-  const int8_t* const score_row = scorebuf + (size_t)i * pitch;
+  const PosBufs pb = pos_bufs<CL>(c, spos, gpos, pos_in_smem, pitch);
+  int* const posbuf = pb.pos;
+  const int* const pos_row = posbuf + (size_t)threadIdx.x * pitch;
+  int8_t* const scorebuf = pb.score;
+  const int8_t* const score_row = scorebuf + (size_t)threadIdx.x * pitch;
   const size_t plane = (size_t)c.T * c.S;
 
   for (int t = 0; t < c.T; ++t) {
@@ -179,20 +182,20 @@ __global__ void __launch_bounds__(MAXT) ksx_kernel(Cfg c, const uint8_t* __restr
           key_c = (int)rolz_hash3(rolz_key(ctx4bn, c.rolz_ctx_bytes), c.rolz_bits);
       }
     }
-    keys_x[i] = key_x;
-    keys_c[i] = key_c;
-    __syncthreads();  // every lane has read the cache and both search rows
+    keys_x[threadIdx.x] = key_x;
+    keys_c[threadIdx.x] = key_c;
+    group_sync<CL>();  // every lane has read the cache and both search rows
     if (active) atomicMax(&xshort[h6], pos + 1);
-    const int slot_x = bucket_slot(ent_x, c, keys_x, key_x, posbuf, pitch);
+    const int slot_x = bucket_slot<CL>(ent_x, c, keys_x, key_x, posbuf, pitch);
     __syncwarp();
-    const int slot_c = bucket_slot(ent_c, c, keys_c, key_c, posbuf, pitch);
-    __syncthreads();
+    const int slot_c = bucket_slot<CL>(ent_c, c, keys_c, key_c, posbuf, pitch);
+    group_sync<CL>();
     if (slot_x >= 0)
       bucket_store(ent_x, c, (uint32_t)key_x, slot_x, pos, byteswap32(ctx4bn), X_INSERT_LATE);
     if (slot_c >= 0) bucket_store(ent_c, c, (uint32_t)key_c, slot_c, pos, byteswap32(ctx4n));
     ctx4 = ctx4n;
     ctx4b = ctx4bn;
-    __syncthreads();
+    group_sync<CL>();
   }
 }
 
@@ -202,14 +205,12 @@ extern "C" int cpx_ks_launch(const int* cfg, const void* inp, void* rolz,
                              void* out, void* gpos, void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  int threads = (c.S + 31) / 32 * 32;
+  const ScanGrid g = scan_grid(c.S);
   size_t smem = pos_smem_bytes(c, 1);
-  auto kernel = threads <= 512 ? ks_kernel<512> : ks_kernel<CPX_MAX_LANES>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
-      c, (const uint8_t*)inp, (int*)rolz, (int*)out, (int*)gpos, smem > 0);
-  return (int)cudaGetLastError();
+  auto kernel = g.ctas > 1 ? ks_kernel<CPX_MAX_LANES, true>
+              : g.threads <= 512 ? ks_kernel<512, false> : ks_kernel<CPX_MAX_LANES, false>;
+  return launch_scan(kernel, g, smem, stream, c, (const uint8_t*)inp, (int*)rolz,
+                     (int*)out, (int*)gpos, smem > 0);
 }
 
 // Mode X: the content-keyed and the context-keyed bucket table
@@ -220,13 +221,10 @@ extern "C" int cpx_ksx_launch(const int* cfg, const void* inp, void* ent_x,
                               void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  int threads = (c.S + 31) / 32 * 32;
+  const ScanGrid g = scan_grid(c.S);
   size_t smem = pos_smem_bytes(c, 1);
-  auto kernel = threads <= 512 ? ksx_kernel<512> : ksx_kernel<CPX_MAX_LANES>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
-      c, (const uint8_t*)inp, (int*)ent_x, (int*)ent_c, (int*)xshort,
-      (int*)out, (int*)gpos, smem > 0);
-  return (int)cudaGetLastError();
+  auto kernel = g.ctas > 1 ? ksx_kernel<CPX_MAX_LANES, true>
+              : g.threads <= 512 ? ksx_kernel<512, false> : ksx_kernel<CPX_MAX_LANES, false>;
+  return launch_scan(kernel, g, smem, stream, c, (const uint8_t*)inp, (int*)ent_x,
+                     (int*)ent_c, (int*)xshort, (int*)out, (int*)gpos, smem > 0);
 }

@@ -58,6 +58,14 @@ _SIGNATURES = {
     "cpx_ksx_launch": [_P] * 8,
     "cpx_k13e_launch": [_P] * 13,
     "cpx_k13d_launch": [_P] * 15,
+    # the probes (benchmarks/probes.py)
+    "cpx_pr_row_gather_launch": [_P] * 3 + [_I] * 4 + [_P],
+    "cpx_pr_elem_gather_launch": [_P] * 3 + [_I] * 2 + [_P],
+    "cpx_pr_row_loop_launch": [_P] * 3 + [_I] * 3 + [_P],
+    "cpx_pr_steps_launch": [_P] * 2 + [_I] * 4 + [_P],
+    "cpx_pr_step_launch": [_P] * 2 + [_I] * 3 + [_P],
+    "cpx_pr_row_ring_launch": [_P] * 3 + [_I] * 4 + [_P],
+    "cpx_pr_onehot_mma_launch": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

@@ -33,6 +33,21 @@ files and differs between machines.  ``--rebuild-corpus`` takes
 
 The archives carry their input: decoding one recovers the exact corpus.
 
+Sizes below 1 MiB (``--kib``) take the first bytes of the 1 MiB corpus.
+``--lanes`` sets S (default 512) and ``--steps`` T, which makes the block
+S * T bytes and the corpus several blocks.  ``--corpus words`` codes
+:func:`words_corpus` (words of a 16-word vocabulary drawn from a seed): at
+``--lanes 2048 --steps 8 --kib 32`` it gives two blocks of a geometry no
+CUDA kernel takes, named ``<codec>_words_<parse>_32KiB_S2048.cpx``, each
+coded (the corpus' text would not code below its size there: each block's
+payload carries S 4-byte states).  ``--corpus elf`` codes the x86-64 ELF corpus
+instead (:func:`elf_corpus`: the ELF files of ``/usr/bin``, then of
+``/usr/lib/x86_64-linux-gnu``, each directory in name order, concatenated
+and cut to 8 MiB; the recipe of BASELINE.md's binary table), and
+``--filters`` turns the content filters on (``-F``); the archives are then
+named ``<codec>_elfF_<parse>_<size>_S512.cpx`` and their entry records the
+8 MiB corpus' md5.
+
 Usage::
 
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --mb 1 --mb 8
@@ -42,6 +57,8 @@ Usage::
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --mb 8 --parse flex
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --finder scan --mb 1 --parse flex
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crp --mb 1 --mb 8
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crf --corpus words --kib 32 --lanes 2048 --steps 8
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --corpus elf --filters --kib 256 --parse flex
 """
 
 from __future__ import annotations
@@ -61,20 +78,68 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[1]))
 
 PARSES = {"f0": False, "flex": True}  # archive tag -> BlockParams.flexible
+ELF_DIRS = ("/usr/bin", "/usr/lib/x86_64-linux-gnu")
+ELF_BYTES = 8 << 20
+
+
+def size_tag(size: int) -> str:
+    return f"{size >> 20}MiB" if size % (1 << 20) == 0 else f"{size >> 10}KiB"
 
 
 def archive_name(mb: int, parse: str = "f0", codec: str = "crz",
-                 finder: str = "sort") -> str:
-    if codec == "crp":  # no parse pass: one archive per size
-        return f"crp_{mb}MiB_S512.cpx"
+                 finder: str = "sort", size: int = 0, lanes: int = 512,
+                 corpus: str = "text") -> str:
+    """The golden's file name; ``size`` (bytes) overrides ``mb``."""
+    tail = f"{size_tag(size or mb << 20)}_S{lanes}.cpx"
     tag = codec if finder == "sort" else f"{codec}_{finder}"
-    return f"{tag}_{parse}_{mb}MiB_S512.cpx"
+    tag += {"text": "", "elf": "_elfF", "words": "_words"}[corpus]
+    if codec == "crp":  # no parse pass: one archive per size
+        return f"{tag}_{tail}"
+    return f"{tag}_{parse}_{tail}"
+
+
+WORDS = (b"the ", b"quick ", b"brown ", b"fox ", b"jumps ", b"over ", b"lazy ",
+         b"dog ", b"and ", b"runs ", b"far ", b"away ", b"from ", b"its ",
+         b"old ", b"home ")
+
+
+def words_corpus(size: int, seed: int = 2048) -> np.ndarray:
+    """``size`` bytes of words drawn uniformly from ``WORDS``."""
+    rng = np.random.default_rng(seed)
+    buf = b"".join(WORDS[i] for i in rng.integers(0, len(WORDS), size))
+    return np.frombuffer(buf[:size], np.uint8)
+
+
+def elf_corpus() -> np.ndarray:
+    """The 8 MiB x86-64 ELF corpus: every regular file (not a symbolic
+    link) of ``ELF_DIRS`` that starts with the ELF magic, directory by
+    directory in name order, concatenated and cut to ``ELF_BYTES``."""
+    buf = bytearray()
+    for d in ELF_DIRS:
+        for name in sorted(os.listdir(d)):
+            path = os.path.join(d, name)
+            if os.path.islink(path) or not os.path.isfile(path):
+                continue
+            with open(path, "rb") as f:
+                if f.read(4) != b"\x7fELF":
+                    continue
+                f.seek(0)
+                buf += f.read()
+            if len(buf) >= ELF_BYTES:
+                return np.frombuffer(bytes(buf[:ELF_BYTES]), np.uint8)
+    raise SystemExit(f"the ELF files of {ELF_DIRS} hold {len(buf)} B, "
+                     f"fewer than {ELF_BYTES}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mb", type=int, action="append",
                     help="corpus and block size in MiB (repeatable)")
+    ap.add_argument("--kib", type=int, action="append",
+                    help="corpus size in KiB below 1 MiB (repeatable)")
+    ap.add_argument("--lanes", type=int, default=512, help="S")
+    ap.add_argument("--steps", type=int,
+                    help="T: a block of S * T bytes (default: the corpus)")
     ap.add_argument("--parse", choices=sorted(PARSES), action="append",
                     help="which archives to write (default: both)")
     ap.add_argument("--codec", choices=("crz", "crf", "crx", "crp"),
@@ -82,47 +147,64 @@ def main() -> int:
                     help="crf and crp write one archive per size")
     ap.add_argument("--finder", choices=("sort", "scan"), default="sort",
                     help="crx only: the candidate source (CPX_X_FINDER)")
+    ap.add_argument("--corpus", choices=("text", "elf", "words"),
+                    default="text",
+                    help="the committed text corpus, the x86-64 ELF build, "
+                         "or words from a seed")
+    ap.add_argument("--filters", action="store_true",
+                    help="content filters on (-F); --corpus elf only")
     ap.add_argument("--rebuild-corpus", action="store_true",
                     help="take bench.build_corpus, not the committed bytes")
     args = ap.parse_args()
-    sizes = args.mb or [1]
+    sizes = [mb << 20 for mb in args.mb or []] + [k << 10 for k in args.kib or []]
+    sizes = sizes or [1 << 20]
     if args.finder != "sort":
         if args.codec != "crx":
             raise SystemExit("--finder applies to --codec crx")
         os.environ["CPX_X_FINDER"] = args.finder  # read at import
+    if args.filters != (args.corpus == "elf"):
+        raise SystemExit("--filters goes with --corpus elf")
 
     from comprox_tpu.cli.main import make_params
     from comprox_tpu.codec.container import decode_stream, encode_stream
 
     meta_path = HERE / "torch_golden.json"
     meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
-    for mb in sizes:
+    elf = elf_corpus() if args.corpus == "elf" else None
+    for size in sizes:
+        mb = max(size >> 20, 1)
         seed_arc = HERE / archive_name(mb)
         parses = args.parse or sorted(PARSES)
-        if args.codec != "crz":
-            if args.rebuild_corpus or not seed_arc.exists():
+        if args.codec in ("crf", "crp"):
+            parses = ["flex"]
+        if elf is not None:
+            data = elf[:size]
+        elif args.corpus == "words":
+            data = words_corpus(size)
+        elif args.rebuild_corpus or not seed_arc.exists():
+            if args.codec != "crz" or size % (1 << 20):
                 raise SystemExit(f"{args.codec} codes the corpus of the "
                                  f"committed crz archive {seed_arc.name}: "
                                  "write that first")
-            if args.codec in ("crf", "crp"):
-                parses = ["flex"]
-        if args.rebuild_corpus or not seed_arc.exists():
             from bench import build_corpus
 
-            data = build_corpus(mb << 20)
+            data = build_corpus(size)
             parses = sorted(PARSES)
         else:
             out = io.BytesIO()
             decode_stream(io.BytesIO(seed_arc.read_bytes()), out)
-            data = np.frombuffer(out.getvalue(), np.uint8)
+            data = np.frombuffer(out.getvalue(), np.uint8)[:size]
+        block_mb = (args.lanes * args.steps / 1048576 if args.steps
+                    else size / 1048576)
         for parse in parses:
             cp = make_params(
                 args.codec,
-                {"lanes": 512, "block_mb": mb, "flexible": PARSES[parse]},
+                {"lanes": args.lanes, "block_mb": block_mb,
+                 "flexible": PARSES[parse]},
             )
             t0 = time.time()
             buf = io.BytesIO()
-            encode_stream(data, buf, cp)
+            encode_stream(data, buf, cp, filters=args.filters)
             t_enc = time.time() - t0
             arc = buf.getvalue()
             t0 = time.time()
@@ -130,18 +212,22 @@ def main() -> int:
             decode_stream(io.BytesIO(arc), out)
             t_dec = time.time() - t0
             if out.getvalue() != data.tobytes():
-                raise SystemExit(f"{mb} MiB {parse}: JAX round trip failed")
-            name = archive_name(mb, parse, args.codec, args.finder)
+                raise SystemExit(f"{size} B {parse}: JAX round trip failed")
+            name = archive_name(mb, parse, args.codec, args.finder, size,
+                                args.lanes, args.corpus)
             (HERE / name).write_bytes(arc)
             flag = "" if PARSES[parse] else "-f0 "
+            flag += "-F " if args.filters else ""
             env = "" if args.finder == "sort" else f"CPX_X_FINDER={args.finder} "
             meta[name] = {
-                "argv": f"{env}{args.codec} e {flag}-b{mb} -l512",
+                "argv": f"{env}{args.codec} e {flag}-b{block_mb:g} -l{args.lanes}",
                 "input_bytes": int(data.size),
                 "input_sha256": hashlib.sha256(data.tobytes()).hexdigest(),
                 "archive_bytes": len(arc),
                 "archive_sha256": hashlib.sha256(arc).hexdigest(),
             }
+            if elf is not None:
+                meta[name]["corpus_md5"] = hashlib.md5(elf.tobytes()).hexdigest()
             print(f"{name}: {len(arc)} B, {len(arc) * 8 / data.size:.4f} "
                   f"bpb, JAX CPU encode {t_enc:.1f} s, decode {t_dec:.1f} s",
                   flush=True)

@@ -218,7 +218,11 @@ def test_golden_fixture_metadata():
         f"crf_flex_{mb}MiB_S512.cpx" for mb in (1, 8)} | {
         "crx_flex_1MiB_S512.cpx", "crx_f0_1MiB_S512.cpx", "crx_flex_8MiB_S512.cpx"} | {
         f"crp_{mb}MiB_S512.cpx" for mb in (1, 8)} | {
-        n for n in meta if n.startswith("crx_scan_")}
+        n for n in meta if n.startswith("crx_scan_")} | {
+        f"{c}_elfF_flex_{size}.cpx" for c in ("crx", "crz")
+        for size in ("256KiB_S512", "8MiB_S256")} | {
+        f"{c}_words_flex_32KiB_S2048.cpx" for c in ("crz", "crx", "crf")} | {
+        "crp_words_32KiB_S2048.cpx"}
     assert {"crx_scan_flex_1MiB_S512.cpx", "crx_scan_f0_1MiB_S512.cpx"} <= set(meta)
     assert meta["crx_scan_flex_1MiB_S512.cpx"]["argv"].startswith("CPX_X_FINDER=scan ")
     assert (meta["crx_f0_1MiB_S512.cpx"]["input_sha256"]
@@ -234,7 +238,8 @@ def test_golden_fixture_metadata():
         assert hashlib.sha256(arc).hexdigest() == m["archive_sha256"]
         assert len(arc) == m["archive_bytes"]
         cp, flags = con.read_header(io.BytesIO(arc))
-        assert cp.block.lanes == 512 and not flags & (con.F_CHAIN | con.F_CHAIN_MATCH)
+        assert cp.block.lanes == int(name.rsplit("_S", 1)[1][:-4])
+        assert not flags & (con.F_CHAIN | con.F_CHAIN_MATCH)
         assert cp.block.mode == {"crz": "R", "crf": "F", "crx": "X", "crp": "P"}[name[:3]]
 
 
@@ -640,6 +645,21 @@ def test_crp_cli_archive_equals_jax(tmp_path):
         assert (tmp_path / "out.bin").read_bytes() == src.read_bytes()
         cross_decode(arc, sample("text"))
     assert arcs[0] == arcs[1] == arcs[2], "mode P has no parse to switch"
+
+
+def test_cli_without_a_codec_name_writes_crp(tmp_path, monkeypatch):
+    """With no codec name first, both command lines are crp's: the same
+    archive, codec byte P."""
+    src = tmp_path / "in.bin"
+    sample("text").tofile(src)
+    args = ["-b0.0005", "-l8", "-q"]
+    assert cli.main(["e", str(src), str(tmp_path / "port.cpx"), *args], "cpu") == 0
+    monkeypatch.setattr(sys, "argv", ["comprox", "e", str(src),
+                                      str(tmp_path / "jax.cpx"), *args])
+    assert jcli.main() == 0
+    arc = (tmp_path / "port.cpx").read_bytes()
+    assert arc == (tmp_path / "jax.cpx").read_bytes()
+    assert con.read_header(io.BytesIO(arc))[0].codec == b"P"
 
 
 @pytest.mark.parametrize("where", ["header", "payload", "stream"])

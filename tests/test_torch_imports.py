@@ -19,6 +19,7 @@ CHECK = (
 
 PORT_MODULES = [
     "comprox_tpu_torch",
+    "comprox_tpu_torch.benchmarks.probes",
     "comprox_tpu_torch.cli.main",
     "comprox_tpu_torch.codec.block",
     "comprox_tpu_torch.codec.container",
@@ -53,6 +54,18 @@ def test_port_modules_are_all_listed():
         if p.name != "__init__.py"
     }
     assert found <= set(PORT_MODULES), found - set(PORT_MODULES)
+
+
+def test_codec_loads_no_probe_module():
+    """The codec and its command line import nothing of ``benchmarks/``,
+    the port's or the JAX package's."""
+    r = run_fresh(
+        "import comprox_tpu_torch.cli.main, comprox_tpu_torch.codec.container; "
+        "import sys; bad = sorted(m for m in sys.modules if m == 'benchmarks' "
+        "or m.startswith(('benchmarks.', 'comprox_tpu_torch.benchmarks'))); "
+        "assert not bad, bad; print('alone')")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "alone"
 
 
 def test_chip_smoke_imports_alone():

@@ -266,6 +266,43 @@ def test_wide_block_keeps_positions_in_global_scratch(cuda_device, flexible):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1032, 2048, 8192])
+@pytest.mark.parametrize("codec,flexible,finder", [
+    ("crz", True, "sort"), ("crz", False, "sort"), ("crx", True, "sort"),
+    ("crx", False, "scan"), ("crp", True, "sort")])
+def test_step_scans_take_a_cluster(cuda_device, monkeypatch, codec, flexible,
+                                   finder, lanes):
+    """Above 1024 lanes the step scans (KS, K5, K2, K1; KSx, K12e, K12d;
+    K13e, K13d) run as one cluster of CTAs: the block's payload equals the
+    plain versions' and decodes on the card."""
+    from comprox_tpu_torch.cli.main import make_params
+
+    monkeypatch.setitem(blk._ENV, "CPX_X_FINDER", finder)
+    p = make_params(codec, {"lanes": lanes, "block_mb": lanes * 32 / 2 ** 20,
+                            "flexible": flexible}).block
+    data = text(p.capacity - 13, seed=lanes)
+    payload = blk.encode_block(data, p, cuda_device)
+    assert payload == blk.encode_block(data, p, "cpu")
+    np.testing.assert_array_equal(
+        blk.decode_block(payload, data.size, p, cuda_device), data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flexible", [False, True])
+def test_cluster_keeps_positions_in_global_scratch(cuda_device, flexible):
+    """S=2048, D=64: each CTA's [1024, D+1] position rows (333 KB with KS's
+    scores) are over the shared memory budget, so the cluster's KS (or K5)
+    and K1 use the global scratch array, each CTA its own lanes' rows."""
+    p = blk.BlockParams(**dict(WIDE, lanes=2048, steps=16, rolz_depth=64,
+                               flexible=flexible))
+    data = text(p.capacity - 5, seed=10)
+    payload = blk.encode_block(data, p, cuda_device)
+    assert payload == blk.encode_block(data, p, "cpu")
+    np.testing.assert_array_equal(
+        blk.decode_block(payload, data.size, p, cuda_device), data)
+
+
+@pytest.mark.cuda
 def test_block_roundtrip_on_card(cuda_device):
     p = blk.BlockParams(**dict(WIDE, lanes=64, steps=64))
     data = text(p.capacity - 7, seed=8)
@@ -326,6 +363,30 @@ def test_fast_kernel_matches_plain(cuda_device, kernel, name):
         got = tfast.encode_scan(p, sym, xtr, tbits, n_tok)
         assert all(torch.equal(a, b) for a, b in zip(got, (freq, states, words)))
         return
+    stream = torch.zeros(tfast._max_words(p), dtype=torch.int32, device=cuda_device)
+    stream[: words.numel()] = words.flip(0)
+    xk, uk, plk = tfast.decode_scan(p, freq, states, stream, n_tok)
+    xp, up, plp = tfast.decode_scan_plain(p, freq, states, stream, n_tok)
+    assert uk == up == words.numel()
+    assert torch.equal(xk, xp) and torch.equal(plk, plp[:n_tok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1032, 2048, 4096, 8192])
+@pytest.mark.parametrize("name", ["text", "random"])
+def test_fast_rans_kernels_take_wide_blocks(cuda_device, name, lanes):
+    """K9 and K10 above 1024 lanes (2, 4 or 8 lanes a thread) against their
+    plain versions."""
+    p = blk.BlockParams(**dict(FAST_WIDE, lanes=lanes, steps=16))
+    n = p.capacity - 100
+    inp = torch.from_numpy(
+        _fast_inputs(name, p, n).reshape(p.lanes, p.steps)).to(cuda_device)
+    dec = blk.parse_scan_plain(p, n, tfast.f2_find_plain(p, inp, n),
+                               prices=tfast._F_PRICES, n_c=tfast._F_CANDS)
+    _, n_tok, sym, xtr, tbits = tfast.tokenize_plain(p, inp, n, dec)
+    freq, states, words = tfast.encode_scan_plain(p, sym, xtr, tbits, n_tok)
+    got = tfast.encode_scan(p, sym, xtr, tbits, n_tok)
+    assert all(torch.equal(a, b) for a, b in zip(got, (freq, states, words)))
     stream = torch.zeros(tfast._max_words(p), dtype=torch.int32, device=cuda_device)
     stream[: words.numel()] = words.flip(0)
     xk, uk, plk = tfast.decode_scan(p, freq, states, stream, n_tok)
@@ -634,3 +695,58 @@ def test_scan_finder_block_roundtrip_on_card(cuda_device, monkeypatch, mode, fle
     assert payload == blk.encode_block(data, p, "cpu")
     np.testing.assert_array_equal(
         blk.decode_block(payload, data.size, p, cuda_device), data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["p1", "p1b", "p3", "p4", "p5", "p6", "p7", "p8", "p9"])
+def test_probe_kernels_match_plain(cuda_device, key):
+    """Each probe kernel against its plain version at its own geometries
+    (S=512), tolerance 0 (P8: against bf16(table)[idx]); each launch is
+    counted under the probe's name."""
+    from comprox_tpu_torch.benchmarks import probes
+
+    for case in probes.PROBES[key](cuda_device, probes.S, seed=3):
+        before = probes.LAUNCHES[case.probe]
+        got = case.kernel()
+        assert probes.LAUNCHES[case.probe] > before, case.label
+        want = case.plain()
+        assert got.dtype == want.dtype and torch.equal(got, want), case.label
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    from comprox_tpu_torch.benchmarks import probes
+
+    idx = torch.zeros(512, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        probes.probe_kernel_onehot(torch.zeros((100, 384), device=cuda_device), idx)
+    with pytest.raises(ValueError, match="48 KB"):
+        probes.probe_dma_depth(torch.zeros((64, 1024), dtype=torch.int32,
+                                           device=cuda_device), idx, 32)
+    with pytest.raises(ValueError, match="int32"):
+        probes.probe_vmem_gather(torch.zeros((64, 8), device=cuda_device), idx)
+
+
+def test_wide_block_runs_on_the_cpu_and_is_refused_on_a_card(monkeypatch):
+    """A block of more lanes than a CTA has threads codes on the CPU (the
+    plain versions, no launch); on a CUDA tensor a block of more lanes than
+    a cluster of eight CTAs has threads is refused before any launch, by
+    the step scans and by K9."""
+    p = blk.BlockParams(**dict(WIDE, lanes=2048, steps=4))
+    blk.reset_launch_counts()
+    data = text(p.capacity - 9, seed=4)
+    payload = blk.encode_block(data, p, "cpu")
+    np.testing.assert_array_equal(blk.decode_block(payload, data.size, p, "cpu"), data)
+    assert not any(blk.LAUNCHES.values())
+    monkeypatch.setattr(blk, "_dispatch", lambda *t: "cuda")
+    monkeypatch.setattr(tfast, "_dispatch", lambda *t: "cuda")
+    p = blk.BlockParams(**dict(WIDE, lanes=16384, steps=4))
+    with pytest.raises(NotImplementedError, match="lanes <= 8192"):
+        blk.model_scan(p, torch.zeros((p.lanes, p.steps), dtype=torch.uint8), 8,
+                       torch.zeros((4, p.steps, p.lanes), dtype=torch.int32),
+                       ppm.init_tables(True, 10, "cpu"))
+    pf = blk.BlockParams(**dict(FAST_WIDE, lanes=16384, steps=4))
+    z = torch.zeros(pf.capacity, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="lanes <= 8192"):
+        tfast.encode_scan(pf, z, z, z, 0)
+    assert not any(blk.LAUNCHES.values())
