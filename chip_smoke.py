@@ -12,7 +12,10 @@ no result line:
    power limit.
 2. build: compiles the kernels (``comprox_tpu_torch/csrc``: thirteen
    sources, eighteen codec kernels counting the entries of modes X and P,
-   and the six probe kernels) with nvcc, one process per source.
+   the shared radix sort and the six probe kernels) with nvcc, one process
+   per source, and beside them two instrumented builds of ``decode.cu``
+   (K1's phase stamps, ``benchmarks/k1_phases.py``: row-ring depth 0 and
+   the build's depth), all started together.
 3. golden: decodes the committed JAX-package archives
    (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
    under ``crz e -l512`` with the flexible parse and with ``-f0``, under
@@ -34,22 +37,28 @@ no result line:
    where its sort stage is timed beside ``torch.sort`` on the same keys);
    every output and table must be equal (tolerance 0: the codec is integer
    arithmetic).  Computes each kernel's bound from these inputs.
-5. kernels, mode F: K7 and K8 against their plain versions at the full
+5. sort: the radix sort shared by K4, K4x and K7 (``csrc/sortlib.cuh``)
+   against ``torch.sort(stable=True)`` on the adversarial key sets of
+   ``benchmarks/sort_keys.py`` (keys and positions, tolerance 0; the
+   passes it ran against the digits that vary), then on K4's keys of the
+   8 MiB corpus (the main path's N = 8 Mi), timed beside ``torch.sort`` on
+   int64 and int32 keys.
+6. kernels, mode F: K7 and K8 against their plain versions at the full
    N = 8 Mi (S=512, T=16384) on the 8 MiB corpus, K9 and K10 on the first
    S * 256 tokens of that block, K6's mode-F entry at T=256; tolerance 0.
    Beside K7's sort stage, K8's scans and K9's histogram it times the one
    PyTorch call for the same function (``torch.sort``, ``torch.cumsum``,
    ``torch.bincount``), which the port never uses.
-6. kernels, mode X: K4x at N = 8 Mi (its sort stage beside ``torch.sort``)
+7. kernels, mode X: K4x at N = 8 Mi (its sort stage beside ``torch.sort``)
    and at T=256; K6's X entry (both launches: without and with the repeat
    pair), K11, K12e, K3 at five slots and K12d chained at S=512, full
    tables, T=256, each against its plain version; tolerance 0 on every
    output grid and every table.  KSx (the scan finder's search) the same
    way: six grids, both bucket tables and the near-match cache.
-7. kernels, mode P: K13e, K3 and K13d chained at S=512, T=256, full-size
+8. kernels, mode P: K13e, K3 and K13d chained at S=512, T=256, full-size
    LZP tables, each against its plain version; tolerance 0 on every grid,
    every PPM table, ``sse_p`` and ``lzp2/4/8``.
-8. probes: the nine Pallas probes of the JAX package's ``benchmarks/`` as
+9. probes: the nine Pallas probes of the JAX package's ``benchmarks/`` as
    the port runs them (``comprox_tpu_torch/benchmarks/probes.py``, kernels
    in ``csrc/probes.cu``): each at each of its own geometries (S=512)
    against its plain version, tolerance 0 (P8 against ``bf16(table)[idx]``;
@@ -58,25 +67,32 @@ no result line:
    a geometry, as ``python -m comprox_tpu_torch.benchmarks.probes`` prints
    them.  The kernels line carries each probe's last geometry (P1: its warp
    arm; P4: its persistent arm) and the launches of the whole phase.
-9. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
+10. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
    CLI; archive SHA-256 == the JAX golden; fails if K13e, K3 or K13d was
    not launched.
-10. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
+11. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
    ``CPX_X_FINDER=scan``; archive SHA-256 == the JAX golden written under
    that knob; fails if KSx, K6, K11, K12e, K3 or K12d was not launched, or
    if K4x was.
-11. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
+12. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
    CLI on the 8 MiB corpus; archive SHA-256 == the JAX golden, round trip
-   bit-exact; fails if K4x, K11, K6, K12e, K3 or K12d was not launched.
-12. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
+   bit-exact; fails if K4x, K11, K6, K12e, K3, K12d or the sort was not
+   launched.
+13. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
    through ``comprox_tpu_torch.cli.main`` on the 8 MiB corpus, one block of
    S=512 and T=16384.  The archive's SHA-256 must equal the JAX package's
    and the round trip must be bit-exact; prints MB/s, bpb and the kernel
-   times, and fails if K4, K5, K6, K2, K3 or K1 was not launched.
-13. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
+   times, and fails if K4, K5, K6, K2, K3, K1 or the sort was not
+   launched.
+14. K1 by phase: the same archive decoded through the two instrumented
+   builds of phase 2; each phase's share of K1's cycles and its
+   microseconds a step, at ring depth 0 (the o2 or o1 rows of a pair of
+   lanes issued when they are read, nothing in flight ahead) and at the
+   build's depth, side by side.
+15. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
    K3 or K1 was not launched.
-14. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
-   way; fails if K7, K6, K8, K9 or K10 was not launched.  Then the host's
+16. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
+   way; fails if K7, K6, K8, K9, K10 or the sort was not launched.  Then the host's
    share of that path, stage by stage (dictionary, block encode and decode,
    the LZ copy walk, the CRC).
 
@@ -158,6 +174,9 @@ KERNELS = [
      "comprox_tpu/codec/block.py:1677"),
     ("K13d", "comprox_tpu_torch/csrc/decode.cu",
      "comprox_tpu/codec/block.py:1980"),
+    # the stable radix sort of K4, K4x and K7 (their lax.sort)
+    ("SORT", "comprox_tpu_torch/csrc/sortlib.cuh",
+     "comprox_tpu/codec/block.py:854"),
     # the Pallas probes of benchmarks/ (their pl.pallas_call lines)
     ("P1", PROBES_CU, "benchmarks/pallas_probe.py:56"),
     ("P1b", PROBES_CU, "benchmarks/pallas_probe.py:97"),
@@ -227,9 +246,15 @@ def phase_device():
 
 
 def phase_build():
+    from comprox_tpu_torch.benchmarks import k1_phases
     from comprox_tpu_torch.utils import build
 
-    print(f"kernels: {build.build(verbose=True)}")
+    depths = (0, k1_phases.default_depth())
+    libs = build.build_many(
+        [((), None)] + [(k1_phases.defines(d), ("decode.cu",)) for d in depths],
+        verbose=True)
+    print(f"kernels: {libs[0]}; K1's instrumented builds (ring depth "
+          f"{depths[0]}, {depths[1]}): {', '.join(p.name for p in libs[1:])}")
     build.lib()
 
 
@@ -515,7 +540,7 @@ def phase_kernels(corpus):
     ms = _kernel_ms("K4", lambda: (pf, inpf, nf), blk.sort_candidates)
     bytes_pad = blk.pad_block(pf, inpf)
     keys = blk.sort_keys_plain(pf, bytes_pad, nf)
-    hs, ps = blk.sort_positions(pf, bytes_pad, nf)
+    hs, ps, passes = blk.sort_positions(pf, bytes_pad, nf, with_passes=True)
     hp, pp = torch.sort(keys, stable=True)
     err = max(err, max_err([(hs, hp), (ps, pp)]))
     sort_ms = _event_ms(lambda: blk.sort_positions(pf, bytes_pad, nf))
@@ -526,7 +551,7 @@ def phase_kernels(corpus):
     r = res["K4"]
     print(f"K4 at N={nf} (S=512 T={pf.steps}): max_abs_err {err}  kernel "
           f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}); its sort stage (keys + 4 radix passes) "
+          f"({r['bound_by']}); its sort stage (keys + {passes} radix passes) "
           f"{sort_ms:.3f} ms, torch.sort(stable) of the same keys as int64 "
           f"{lib_ms:.3f} ms, as int32 bit patterns {lib32_ms:.3f} ms; at "
           f"T={KERNEL_STEPS}: kernel {k4_small['ms']:.3f} ms, plain "
@@ -536,6 +561,76 @@ def phase_kernels(corpus):
             raise AssertionError(
                 f"{name}: kernel != plain (max err {r['max_abs_err']})")
     return res
+
+
+def phase_sort(corpus):
+    """The shared radix sort against torch.sort(stable=True) on the
+    adversarial key sets and on K4's keys of the 8 MiB corpus; returns its
+    record for the kernels line (timed on those keys, the main path's)."""
+    import torch
+
+    from comprox_tpu_torch.benchmarks import sort_keys
+    from comprox_tpu_torch.codec import block as blk
+
+    dev = "cuda"
+    err = 0
+    for name in sort_keys.SETS:
+        keys = sort_keys.keys(name).to(dev)
+        hs, ps, passes = blk.radix_sort(keys)
+        hp, pp = torch.sort(keys, stable=True)
+        e = max_err([(hs, hp), (ps, pp)])
+        want = blk.radix_passes_plain(keys)
+        if passes != want:
+            raise AssertionError(f"sort {name}: {passes} passes, digits that vary {want}")
+        print(f"sort {name}: N={keys.numel()} max_abs_err {e} (tolerance 0) "
+              f"passes {passes}")
+        err = max(err, e)
+    pf = blk.BlockParams(lanes=512, steps=corpus.size // 512, mode="R",
+                         min_len=5, window=250, rolz_ctx_bytes=4, rolz_dec=2)
+    n = pf.capacity
+    inp = torch.from_numpy(corpus[:n].reshape(pf.lanes, pf.steps).copy()).to(dev)
+    keys = blk.sort_keys_plain(pf, blk.pad_block(pf, inp), n)
+    k32 = torch.where(keys >= 1 << 31, keys - (1 << 32), keys).to(torch.int32)
+    key = torch.empty((2, n), dtype=torch.int32, device=dev)
+    pos = torch.empty_like(key)
+    reps = 5
+    key[0].copy_(k32)
+    blk._radix_sort(key, pos, n)  # warm-up
+    blk.reset_launch_counts()
+    for _ in range(reps):
+        key[0].copy_(k32)  # the input again: each launch sorts K4's keys
+        passes = blk._radix_sort(key, pos, n)
+    ms = blk.kernel_ms()["SORT"] / reps
+    (hp, pp), plain_ms = _timed_plain(lambda: torch.sort(keys, stable=True))
+    err = max(err, max_err([(key[0].long() & 0xFFFFFFFF, hp), (pos[0], pp)]))
+    lib_ms = _event_ms(lambda: torch.sort(keys, stable=True))
+    lib32_ms = _event_ms(lambda: torch.sort(k32, stable=True))
+    passes = int(passes.item())
+    # Bytes: the keys read once, the keys and positions (int32) written
+    # once.  Operations: a digit, a rank and a place a key and pass.  The
+    # design's own floor, each pass reading and writing 8 bytes a key and
+    # the histograms reading the keys once, is printed beside it.
+    res = {}
+    _record(res, "SORT", err, ms, plain_ms, 12 * n, 3 * passes * n, library_ms=lib_ms)
+    r = res["SORT"]
+    floor_ms = (16 * passes + 4) * n / PEAK_BYTES_PER_S * 1e3
+    print(f"sort of K4's keys, N={n}: max_abs_err {err}  kernel {ms:.3f} ms "
+          f"({passes} passes)  plain (torch.sort, host clock) {plain_ms:.3f} ms  "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {passes} passes of "
+          f"this design {floor_ms:.4f} ms); torch.sort(stable) of the same keys "
+          f"as int64 {lib_ms:.3f} ms, as int32 bit patterns {lib32_ms:.3f} ms; "
+          f"kernel / torch.sort {ms / lib_ms:.2f}")
+    if err != 0:
+        raise AssertionError(f"SORT: kernel != torch.sort (max err {err})")
+    return res
+
+
+def phase_k1_phases():
+    """K1 by phase: the 8 MiB flexible crz archive decoded through the two
+    instrumented builds (ring depth 0 and the build's depth)."""
+    from comprox_tpu_torch.benchmarks import k1_phases
+
+    k1_phases.run(GOLDEN / MAIN_ARCHIVE, (0, k1_phases.default_depth()))
 
 
 def phase_kernels_fast(corpus):
@@ -569,7 +664,7 @@ def phase_kernels_fast(corpus):
     ms = _kernel_ms("K7", lambda: (p, inp, n), fast.f2_find)
     bytes_pad = fast.pad_block(p, inp)
     keys = fast.sort_keys_plain(p, bytes_pad, n)
-    hs, ps = fast.sort_positions(p, bytes_pad, n)
+    hs, ps, passes = fast.sort_positions(p, bytes_pad, n, with_passes=True)
     hp, pp = torch.sort(keys, stable=True)
     err = max(err, max_err([(hs, hp), (ps, pp)]))
     del hs, ps, hp, pp
@@ -581,8 +676,9 @@ def phase_kernels_fast(corpus):
             big * (4 * 3 + 4 * n_c) + 2 * ext_ops, library_ms=lib_ms)
     print(f"K7 at N={big}: max_abs_err {err}  kernel {ms:.3f} ms  plain "
           f"{plain_ms:.3f} ms  bound {res['K7']['bound_ms']:.4f} ms "
-          f"({res['K7']['bound_by']}); its sort stage {sort_ms:.3f} ms, "
-          f"torch.sort(stable) of the same keys (int64) {lib_ms:.3f} ms")
+          f"({res['K7']['bound_by']}); its sort stage (keys + {passes} radix "
+          f"passes) {sort_ms:.3f} ms, torch.sort(stable) of the same keys "
+          f"(int64) {lib_ms:.3f} ms")
 
     # K6, F entry, at T=256 on the finder's candidates of the first S * 256
     # bytes.  Operations: as the R entry (literal 4, each admissible length 4).
@@ -830,11 +926,11 @@ def phase_kernels_x(corpus):
     keys = blk.sort_keys_plain(pf, bytes_pad, nf, True)
     cfg = blk.finder_cfg(pf, nf, True)
 
-    def sort_stage():
-        return blk.sort_positions(pf, bytes_pad, nf, entry="cpx_k4x_sort_launch",
-                                  cfg=cfg)
+    def sort_stage(with_passes=False):
+        return blk.sort_positions(pf, bytes_pad, nf, tag="k4x", cfg=cfg,
+                                  with_passes=with_passes)
 
-    hs, ps = sort_stage()
+    hs, ps, passes = sort_stage(True)
     hp, pp = torch.sort(keys, stable=True)
     err = max(err, max_err([(hs, hp), (ps, pp)]))
     del hs, ps, hp, pp
@@ -845,8 +941,9 @@ def phase_kernels_x(corpus):
     r = res["K4x"]
     print(f"K4x at N={nf} (S=512 T={pf.steps}): max_abs_err {err}  kernel "
           f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}); its sort stage {sort_ms:.3f} ms, "
-          f"torch.sort(stable) of the same keys (int64) {lib_ms:.3f} ms; at "
+          f"({r['bound_by']}); its sort stage (keys + {passes} radix passes) "
+          f"{sort_ms:.3f} ms, torch.sort(stable) of the same keys (int64) "
+          f"{lib_ms:.3f} ms; at "
           f"T={KERNEL_STEPS}: kernel {k4x_small['ms']:.3f} ms, plain "
           f"{k4x_small['plain_ms']:.3f} ms")
     for name, r in res.items():
@@ -1081,6 +1178,7 @@ def main() -> int:
     ph.run("build", phase_build)
     corpora = ph.run("golden", phase_golden)
     res = ph.run("kernels, mode R", phase_kernels, corpora[MAIN_ARCHIVE])
+    res.update(ph.run("sort", phase_sort, corpora[MAIN_ARCHIVE]))
     res_f = ph.run("kernels, mode F", phase_kernels_fast, corpora[FAST_ARCHIVE])
     k6f = res_f.pop("K6F")
     res.update(res_f)
@@ -1100,17 +1198,18 @@ def main() -> int:
         raise AssertionError("the scan finder's path launched K4x")
     crx = ph.run(
         "full width, crx", phase_full_width, corpora[X_ARCHIVE], "crx",
-        X_ARCHIVE, [], ("K4x", "K11", "K6", "K12e", "K3", "K12d"))
+        X_ARCHIVE, [], ("K4x", "K11", "K6", "K12e", "K3", "K12d", "SORT"))
     launches = ph.run(
         "full width, crz flexible parse", phase_full_width, corpora[MAIN_ARCHIVE],
-        "crz", MAIN_ARCHIVE, [], ("K4", "K5", "K6", "K2", "K3", "K1"))
+        "crz", MAIN_ARCHIVE, [], ("K4", "K5", "K6", "K2", "K3", "K1", "SORT"))
+    ph.run("K1 by phase", phase_k1_phases)
     greedy = ph.run(
         "full width, crz greedy parse", phase_full_width, corpora[GREEDY_ARCHIVE],
         "crz", GREEDY_ARCHIVE, ["-f0"], ("KS", "K2", "K3", "K1"))
     launches["KS"] = greedy["KS"]
     fast = ph.run(
         "full width, crf", phase_full_width, corpora[FAST_ARCHIVE], "crf",
-        FAST_ARCHIVE, [], ("K7", "K6", "K8", "K9", "K10"))
+        FAST_ARCHIVE, [], ("K7", "K6", "K8", "K9", "K10", "SORT"))
     for name in ("K7", "K8", "K9", "K10"):
         launches[name] = fast[name]
     for name in ("K4x", "K11", "K12e", "K12d"):
@@ -1118,6 +1217,7 @@ def main() -> int:
     launches["KSx"] = xscan["KSx"]
     launches["K13e"], launches["K13d"] = crp["K13e"], crp["K13d"]
     launches["K6 (X)"], launches["K3 (5 slots)"] = crx["K6"], crx["K3"]
+    launches["SORT"] += crx["SORT"] + fast["SORT"]  # one in each of K4, K4x, K7
     launches.update(probe_launches)
     ph.run("crf host split", phase_fast_host_split, corpora[FAST_ARCHIVE])
     bad = [m for m in sys.modules

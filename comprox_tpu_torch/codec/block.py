@@ -1490,7 +1490,7 @@ def decode_scan_plain(p: BlockParams, states, stream, n: int, tables,
 LAUNCHES = {"KS": 0, "K4": 0, "K5": 0, "K6": 0, "K2": 0, "K3": 0, "K1": 0,
             "K7": 0, "K8": 0, "K9": 0, "K10": 0,
             "K4x": 0, "K11": 0, "K12e": 0, "K12d": 0,
-            "KSx": 0, "K13e": 0, "K13d": 0}
+            "KSx": 0, "K13e": 0, "K13d": 0, "SORT": 0}
 _EVENTS: dict = {k: [] for k in LAUNCHES}
 
 
@@ -1687,21 +1687,64 @@ def search_scan(p: BlockParams, inp, n: int, rolz):
     return out
 
 
-K4_TILE = 2048  # keys per warp and radix pass (csrc/sortfind.cu)
+# csrc/sortlib.cuh: keys a CTA and radix pass (RS_TILE), the scratch's
+# header (RS_HDR) and passes (RS_PASSES), and where it counts the passes run
+K4_TILE = 4096
+RS_HDR, RS_PASSES, RS_RUNS = 1040, 4, 1032
 
 
-def _sort_stage(entry: str, cfg, big: int, bytes_pad):
-    """The key and radix-sort kernels of a sort finder (K4's or K7's entry
-    of csrc/sortlib.cuh): ``(err, hs, ps)`` int32 [N] (hs holds the uint32
-    keys' bits)."""
+def radix_passes_plain(keys) -> int:
+    """Passes the shared radix sort runs on these keys: one per 8-bit digit
+    that is not the same for every key."""
+    return sum(int(((keys >> (8 * q)) & 0xFF).unique().numel() > 1)
+               for q in range(RS_PASSES))
+
+
+def _radix_sort(key, pos, n: int):
+    """The shared stable radix sort (csrc/sortlib.cuh) of the keys in
+    ``key[0]`` ([2, n] int32 tensors): on return ``key[0]``, ``pos[0]``
+    hold the sorted keys and their positions.  Counted under SORT.
+    Returns the passes run, a device int32 scalar."""
+    scratch = torch.empty(RS_HDR + RS_PASSES * 256 * -(-n // K4_TILE),
+                          dtype=_i32, device=key.device)
+    _launch("SORT", build.lib().cpx_radix_sort_launch, n, key.data_ptr(),
+            pos.data_ptr(), scratch.data_ptr(), _stream_ptr())
+    return scratch[RS_RUNS]
+
+
+def radix_sort(keys):
+    """SORT — the stable radix sort shared by K4, K4x and K7, on its own:
+    ``keys`` int64 [N] in [0, 2^32) -> ``(hs, ps, passes)``: the keys in
+    ascending order, the positions in (key, position) order (int64) and
+    the 8-bit passes it ran (constant digits are skipped).
+
+    Replaces the ``jax.lax.sort((h, idx), num_keys=1, is_stable=True)`` of
+    comprox_tpu/codec/block.py:854 and fast.py:198.  Kernel:
+    csrc/sortlib.cuh; its plain version is ``torch.sort(stable=True)``.
+    """
+    if keys.dim() != 1 or keys.dtype != _i64 or not 0 < keys.numel() < 1 << 30:
+        raise ValueError("keys: expected int64 [N], 0 < N < 2^30")
+    if _dispatch(keys) == "cpu":
+        return (*torch.sort(keys, stable=True), radix_passes_plain(keys))
+    n = keys.numel()
+    key = torch.empty((2, n), dtype=_i32, device=keys.device)
+    key[0] = torch.where(keys >= 1 << 31, keys - (1 << 32), keys).to(_i32)
+    pos = torch.empty_like(key)
+    passes = _radix_sort(key, pos, n)
+    return key[0].to(_i64) & MASK32, pos[0].to(_i64), int(passes.item())
+
+
+def _sort_stage(tag: str, cfg, big: int, bytes_pad):
+    """The key kernel of a sort finder (``tag``: k4, k4x or k7) and the
+    shared radix sort: ``(err, hs, ps, passes)`` — int32 [N] (hs holds the
+    uint32 keys' bits) and the passes run (device int32)."""
     dev = bytes_pad.device
     keys = torch.empty((2, big), dtype=_i32, device=dev)
     poss = torch.empty((2, big), dtype=_i32, device=dev)
-    hist = torch.empty(256 * -(-big // K4_TILE) + 1, dtype=_i32, device=dev)
-    err = getattr(build.lib(), entry)(
-        cfg.ctypes.data, bytes_pad.data_ptr(), keys.data_ptr(),
-        poss.data_ptr(), hist.data_ptr(), _stream_ptr())
-    return err, keys[0], poss[0]
+    err = getattr(build.lib(), f"cpx_{tag}_keys_launch")(
+        cfg.ctypes.data, bytes_pad.data_ptr(), keys.data_ptr(), _stream_ptr())
+    passes = _radix_sort(keys, poss, big) if not err else None
+    return err, keys[0], poss[0], passes
 
 
 def _check_finder(p: BlockParams, bytes_pad, ext=None):
@@ -1713,20 +1756,24 @@ def _check_finder(p: BlockParams, bytes_pad, ext=None):
 
 
 def sort_positions(p: BlockParams, bytes_pad, n: int, keys=sort_keys_plain,
-                   entry="cpx_k4_sort_launch", cfg=None, ext=None):
-    """First stage of a sort finder on its own, for a comparison with a
-    library sort: ``(hs, ps)`` — the keys in ascending order (int64 in
-    [0, 2^32)) and the positions in (key, position) order.  K4's by
-    default; K7 passes its keys, its entry, its configuration and its
-    padding.  The main path goes through :func:`sort_candidates` (or
-    codec/fast.py::f2_find), which counts the launch."""
+                   tag="k4", cfg=None, ext=None, with_passes=False):
+    """First stage of a sort finder on its own (its keys, then the shared
+    radix sort), for a comparison with a library sort: ``(hs, ps)`` — the
+    keys in ascending order (int64 in [0, 2^32)) and the positions in
+    (key, position) order; with ``with_passes`` also the radix passes run.
+    K4's by default; K4x and K7 pass their keys, their tag, their
+    configuration and (K7) their padding.  The main path goes through
+    :func:`sort_candidates` (or codec/fast.py::f2_find), which counts
+    its own launch beside the sort's."""
     if _dispatch(bytes_pad) == "cpu":
-        return torch.sort(keys(p, bytes_pad, n), stable=True)
+        hs, ps = torch.sort(keys(p, bytes_pad, n), stable=True)
+        return (hs, ps, radix_passes_plain(hs)) if with_passes else (hs, ps)
     _check_finder(p, bytes_pad, ext)
     cfg = _cfg_array(p, n) if cfg is None else cfg  # alive across the call
-    err, hs, ps = _sort_stage(entry, cfg, p.capacity, bytes_pad)
-    build.check(err, entry)
-    return hs.to(_i64) & MASK32, ps.to(_i64)
+    err, hs, ps, passes = _sort_stage(tag, cfg, p.capacity, bytes_pad)
+    build.check(err, f"cpx_{tag}_keys_launch")
+    out = hs.to(_i64) & MASK32, ps.to(_i64)
+    return (*out, int(passes.item())) if with_passes else out
 
 
 def finder_cfg(p: BlockParams, n: int, content: bool = False) -> np.ndarray:
@@ -1767,7 +1814,7 @@ def sort_candidates(p: BlockParams, inp, n: int, content: bool = False):
     tag = name.lower()
 
     def stages():
-        err, hs, ps = _sort_stage(f"cpx_{tag}_sort_launch", cfg, big, bytes_pad)
+        err, hs, ps, _ = _sort_stage(tag, cfg, big, bytes_pad)
         return err or getattr(build.lib(), f"cpx_{tag}_find_launch")(
             cfg.ctypes.data, bytes_pad.data_ptr(), hs.data_ptr(),
             ps.data_ptr(), cand.data_ptr(), lw.data_ptr(), out.data_ptr(),

@@ -208,14 +208,15 @@ def f2_find_plain(p: BlockParams, inp, n: int):
     return grids.transpose(1, 2).contiguous()
 
 
-def sort_positions(p: BlockParams, bytes_pad, n: int):
-    """First stage of K7 on its own, for a comparison with a library sort:
-    ``(hs, ps)`` int64, the keys ascending and the positions in (key,
-    position) order.  The main path goes through :func:`f2_find`, which
-    counts the launch."""
+def sort_positions(p: BlockParams, bytes_pad, n: int, with_passes=False):
+    """First stage of K7 on its own (keys, then the shared radix sort), for
+    a comparison with a library sort: ``(hs, ps)`` int64, the keys
+    ascending and the positions in (key, position) order (with
+    ``with_passes`` also the radix passes run).  The main path goes
+    through :func:`f2_find`, which counts its launch beside the sort's."""
     return blk.sort_positions(p, bytes_pad, n, keys=sort_keys_plain,
-                              entry="cpx_k7_sort_launch", cfg=_cfg(p, n),
-                              ext=4 * _EXTW)
+                              tag="k7", cfg=_cfg(p, n), ext=4 * _EXTW,
+                              with_passes=with_passes)
 
 
 def f2_find(p: BlockParams, inp, n: int):
@@ -239,7 +240,7 @@ def f2_find(p: BlockParams, inp, n: int):
     cfg = _cfg(p, n)
 
     def stages():
-        err, hs, ps = blk._sort_stage("cpx_k7_sort_launch", cfg, big, bytes_pad)
+        err, hs, ps, _ = blk._sort_stage("k7", cfg, big, bytes_pad)
         return err or build.lib().cpx_k7_find_launch(
             cfg.ctypes.data, bytes_pad.data_ptr(), hs.data_ptr(),
             ps.data_ptr(), cand.data_ptr(), lw.data_ptr(), out.data_ptr(),

@@ -18,9 +18,15 @@
 // instead of the JAX one-hot [S, S] product; the updates are winner-only
 // stores or integer atomics (no float path, no per-lane serialisation);
 // an event's symbol search runs only on the lanes that code it (JAX
-// computes every lane and masks the result); o2 rows (the A event) and
-// bucket rows are read by whole warps (coalesced), the bucket rows into a
-// shared-memory copy per lane, where the slot selections run.
+// computes every lane and masks the result); bucket rows are read by
+// whole warps (coalesced) into a shared-memory copy per lane, where the
+// slot selections run.  The A and B events' o2 and o1 rows go through a
+// per-warp cp.async ring (ppm_r.cuh: ring_start right after the contexts,
+// so the bucket rows are read while they fly) and are coded two lanes at a
+// time, a half-warp a lane; with the ring beside the bucket-row copies and
+// SmemModel, K1 uses 230,000 of the H100's 232,448 B of shared memory a
+// CTA at S=512, rolz_depth 64 (cpx_k1_launch moves the copies to device
+// memory where they do not fit).
 //
 // Mode X (k12d_kernel) keeps no match table: a match lane decodes its
 // distance — B: the bucket, or symbol 24 for the lane's previous distance;
@@ -58,6 +64,23 @@ struct StreamRead {
   }
 };
 
+// An instrumented build (-DCPX_K1_PROF, which the main path's build does
+// not use; benchmarks/k1_phases.py) stamps clock64() at the end of each of
+// K1's phases on thread 0 (CTA 0), sums each phase over the steps and adds
+// the sums to k1_prof at the end of the launch.
+#define K1_PHASES 12
+#ifdef CPX_K1_PROF
+__device__ unsigned long long k1_prof[K1_PHASES];
+#define K1_STAMP(k)                                   \
+  if (gtid() == 0) {                                  \
+    const long long now_ = clock64();                 \
+    prof_[k] += (unsigned long long)(now_ - stamp_);  \
+    stamp_ = now_;                                    \
+  }
+#else
+#define K1_STAMP(k)
+#endif
+
 template <int MAXT, bool CL>
 __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__ stream,
                           long long* __restrict__ states, Tables tb,
@@ -66,7 +89,14 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
                           bool pos_in_smem) {
   __shared__ SmemModel own;  // this CTA's keys and wtot; with CL, CTA 0's models serve all
   SmemModel& sm = *at_rank<CL>(&own, 0);
-  extern __shared__ int spos[];
+  // the warps' row rings, then (pos_in_smem) the lanes' bucket-row copies
+  extern __shared__ __align__(16) int dyn[];
+  int* const spos = dyn + ring_bytes(blockDim.x) / sizeof(int);
+#ifdef CPX_K1_PROF
+  __shared__ unsigned long long prof_[K1_PHASES];
+  if (threadIdx.x < K1_PHASES) prof_[threadIdx.x] = 0;
+  long long stamp_ = 0;
+#endif
   const int i = gtid();
   const bool alive = i < c.S;
   const int d = c.rolz_depth;
@@ -78,6 +108,9 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
   uint32_t base = 0;
   uint32_t ctx4 = 0, ctx4b = 0;
   int copy_rem = 0, copy_src = 0;
+#ifdef CPX_K1_PROF
+  stamp_ = clock64();
+#endif
   // the lanes' copies of bucket rows: the A event's row until the byte is
   // resolved, then the insert row
   const int pitch = pos_pitch(d);
@@ -87,19 +120,26 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
   for (int t = 0; t < c.T; ++t) {
     o1_rescale(tb.o1, sm.o1sum, c.cap1);
     group_sync<CL>();
+    K1_STAMP(0)
 
-    // ---- A event
+    // ---- A event: the coding lanes' o2 rows go in flight first, then
+    // their bucket rows are read beside them
     Ctx cx = common_reads(c, tb, i, t, ctx4, copy_rem, alive);
     Upd u = {};
     uint32_t xt = 0;
     bool need = false;
     const bool coding = alive && cx.coding;
+    RowRing ring = ring_start(dyn, tb.o2, O2_W, coding, cx.ctx2);
+    K1_STAMP(1)
     int fill = warp_load_rows(
         rolz, d, coding,
         rolz_hash3(rolz_key(ctx4, c.rolz_ctx_bytes), c.rolz_bits), posbuf, pitch);
-    const AEvent a = warp_a_event<true>(c, tb.o2, coding, cx.ctx2, cx.pred,
+    K1_STAMP(2)
+    const AEvent a = warp_a_event<true>(c, ring, coding, cx.ctx2, cx.pred,
                                         cx.conf, fill, sm.sse, sm.sse_h, x, 0,
                                         false);
+    // the escaping lanes' o1 rows go in flight across the barriers to B
+    ring = ring_start(dyn, tb.o1, O1_N, coding && a.sym == SYM_ESC, cx.p1);
     if (coding) {
       u.sse = a.sse;
       u.halvings = a.h;
@@ -114,6 +154,7 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
     }
     int inw = cta_excl_prefix_a(need, own.wtot[0]);
     group_sync<CL>();
+    K1_STAMP(3)
     {
       int total;
       int ex = cta_excl_prefix_b<CL>(inw, own.wtot[0], total);
@@ -136,13 +177,13 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
     group_sync<CL>();
     idx_rescale(c, sm);
     group_sync<CL>();
+    K1_STAMP(4)
 
     // ---- B event: o1 literal (escape lanes) or ROLZ index (match lanes)
     int sym1 = 0;
     need = false;
-    const O1Event b = warp_o1_event<true>(tb.o1, tb.o2, u.is_esc, cx.p1, cx.ctx2,
-                                          a.h, cx.pred, cx.pred2, cx.conf2 > 0,
-                                          x, 0);
+    const O1Event b = warp_o1_event<true>(ring, u.is_esc, cx.p1, a.ex, cx.pred,
+                                          cx.pred2, cx.conf2 > 0, x, 0);
     if (alive) {
       uint32_t cb = 0, fb = RANS_M;
       if (u.is_esc) {
@@ -163,6 +204,7 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
     }
     inw = cta_excl_prefix_a(need, own.wtot[1]);
     group_sync<CL>();
+    K1_STAMP(5)
     {
       int total;
       int ex = cta_excl_prefix_b<CL>(inw, own.wtot[1], total);
@@ -172,6 +214,7 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
     }
     len_rescale(c, sm);
     group_sync<CL>();
+    K1_STAMP(6)
 
     // ---- C event: match length
     int sym_l = 0;
@@ -198,6 +241,7 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
       else if (alive) x = xt;
       base += (uint32_t)total;
     }
+    K1_STAMP(7)
 
     // ---- resolve the byte, prepare the updates and the bucket insert
     int byte = 0, src = 0, ins_key = -1;
@@ -225,8 +269,10 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
     }
     own.key_ins[threadIdx.x] = ins_key;
     group_sync<CL>();
+    K1_STAMP(8)
     int slot = bucket_slot<CL>(rolz, c, own.key_ins, ins_key, posbuf, pitch);
     group_sync<CL>();
+    K1_STAMP(9)
 
     // ---- stores, then additive updates
     if (alive) {
@@ -235,6 +281,7 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
       out[(size_t)i * c.T + t] = (uint8_t)(cx.active ? byte : 0);
     }
     group_sync<CL>();
+    K1_STAMP(10)
     if (alive) {
       upd_add(c, tb, sm, u);
       copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
@@ -244,8 +291,12 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
     }
     group_sync<CL>();
     upd_finish(sm);
+    K1_STAMP(11)
   }
   group_sync<CL>();
+#ifdef CPX_K1_PROF
+  if (gtid() < K1_PHASES) atomicAdd(&k1_prof[gtid()], prof_[gtid()]);
+#endif
   model_store(sm, tb);
   if (alive) states[i] = (long long)x;
   if (i == 0) *used = (long long)base;
@@ -274,6 +325,7 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
   constexpr bool XMODE = MODE == MODE_X;
   __shared__ SmemModel own;  // this CTA's keys and wtot; with CL, CTA 0's models serve all
   SmemModel& sm = *at_rank<CL>(&own, 0);
+  extern __shared__ __align__(16) int dyn[];  // the warps' row rings
   const int i = gtid();
   const bool alive = i < c.S;
   const long long cap_n = (long long)c.S * c.T;
@@ -295,14 +347,16 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
     uint32_t xt = 0;
     bool need = false;
     const bool coding = alive && cx.coding;
+    RowRing ring = ring_start(dyn, tb.o2, O2_W, coding, cx.ctx2);
     int lzp_src = 0;
     bool lzp_ok = false;
     if (!XMODE && coding && c.match)
       lzp_ok = lzp_candidate(c, lzp, out, t, ctx4, ctx4b, lzp_src);
     const AEvent a = warp_a_event<true, MODE>(
-        c, tb.o2, coding, cx.ctx2, cx.pred, cx.conf,
+        c, ring, coding, cx.ctx2, cx.pred, cx.conf,
         XMODE ? sse_x_ctx(cx.conf, cx.p1) : sse_p_ctx(cx.conf, lzp_ok, cx.p1),
         sm.sse, sm.sse_x, x, 0, false);
+    ring = ring_start(dyn, tb.o1, O1_N, coding && a.sym == SYM_ESC, cx.p1);
     if (coding) {
       u.sse = a.sse;
       u.halvings = a.h;
@@ -340,9 +394,8 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
     // bucket (match lanes)
     int sym1 = 0;
     need = false;
-    const O1Event b = warp_o1_event<true>(tb.o1, tb.o2, u.is_esc, cx.p1, cx.ctx2,
-                                          a.h, cx.pred, cx.pred2, cx.conf2 > 0,
-                                          x, 0);
+    const O1Event b = warp_o1_event<true>(ring, u.is_esc, cx.p1, a.ex, cx.pred,
+                                          cx.pred2, cx.conf2 > 0, x, 0);
     if (alive) {
       uint32_t cb = 0, fb = RANS_M;
       if (u.is_esc) {
@@ -496,8 +549,9 @@ static int tableless_launch(const int* cfg, const void* stream, void* states,
   auto kernel = g.ctas > 1 ? k12d_kernel<CPX_MAX_LANES, MODE, true>
               : g.threads <= 512 ? k12d_kernel<512, MODE, false>
                                  : k12d_kernel<CPX_MAX_LANES, MODE, false>;
-  return launch_scan(kernel, g, 0, cuda_stream, c, (const int*)stream,
-                     (long long*)states, tb, lzp, (uint8_t*)out, (long long*)used);
+  return launch_scan(kernel, g, ring_bytes(g.threads), cuda_stream, c,
+                     (const int*)stream, (long long*)states, tb, lzp, (uint8_t*)out,
+                     (long long*)used);
 }
 
 // Mode X: no bucket table; three more model tables.
@@ -535,10 +589,26 @@ extern "C" int cpx_k1_launch(const int* cfg, const void* stream, void* states,
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
             (int*)sse_h, nullptr, nullptr, nullptr};
   const ScanGrid g = scan_grid(c.S);
-  size_t smem = pos_smem_bytes(c);
+  // the rings, then the lanes' bucket-row copies where they fit beside the
+  // rings and the static SmemModel (else in gpos)
+  const size_t ring = ring_bytes(g.threads);
+  size_t pos = pos_smem_bytes(c);
+  if (ring + pos + sizeof(SmemModel) + 256 > CPX_SMEM_MAX) pos = 0;
   auto kernel = g.ctas > 1 ? k1_kernel<CPX_MAX_LANES, true>
               : g.threads <= 512 ? k1_kernel<512, false> : k1_kernel<CPX_MAX_LANES, false>;
-  return launch_scan(kernel, g, smem, cuda_stream, c, (const int*)stream,
+  return launch_scan(kernel, g, ring + pos, cuda_stream, c, (const int*)stream,
                      (long long*)states, tb, (int*)rolz, (uint8_t*)out,
-                     (long long*)used, (int*)gpos, smem > 0);
+                     (long long*)used, (int*)gpos, pos > 0);
 }
+
+#ifdef CPX_K1_PROF
+// The instrumented build's phase sums (K1_PHASES counters of SM cycles,
+// summed over every launch since the last call): copied into out, then
+// set to 0.
+extern "C" int cpx_k1_prof_read(void* out) {
+  unsigned long long zero[K1_PHASES] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(out, k1_prof, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(k1_prof, zero, sizeof(zero));
+  return (int)e;
+}
+#endif

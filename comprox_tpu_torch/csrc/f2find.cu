@@ -19,9 +19,9 @@
 // 64-byte read and have no counterpart: the kernel reads the padded block
 // at any byte offset.  JAX's second sort (back to position order) is a
 // scatter here.  Kernels, in launch order:
-//   k7_keys      one thread per position: the key and the identity order;
-//   rs_hist, rs_scan, rs_scatter   the stable LSD radix sort of sortlib.cuh,
-//                shared with the mode-R finder;
+//   k7_keys      one thread per position: the key;
+//   the stable LSD radix sort of sortlib.cuh (sortfind.cu's entry
+//                cpx_radix_sort_launch), shared with the mode-R finder;
 //   k7_find      one thread per sort rank r: the entries r-1 .. r-n_cands
 //                with an equal key, each extended 8 bytes a compare and
 //                scattered to position ps[r];
@@ -32,7 +32,7 @@
 namespace {
 
 __global__ void k7_keys(Cfg c, const uint64_t* __restrict__ bytes,
-                        uint32_t* __restrict__ key, int* __restrict__ pos) {
+                        uint32_t* __restrict__ key) {
   const long long big = (long long)c.S * c.T;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= big) return;
@@ -43,7 +43,6 @@ __global__ void k7_keys(Cfg c, const uint64_t* __restrict__ bytes,
         (((uint32_t)(w >> 32) & 0xFFFFu) * 0x85EBCA77u);
   }
   key[i] = k;
-  pos[i] = (int)i;
 }
 
 __global__ void k7_find(Cfg c, const uint64_t* __restrict__ bytes,
@@ -70,18 +69,14 @@ __global__ void k7_find(Cfg c, const uint64_t* __restrict__ bytes,
 
 }  // namespace
 
-// Keys and the radix sort: on return key[0 .. N) and pos[0 .. N) (the
-// first halves of the [2, N] arrays) hold the sorted order.  hist has
-// 256 * ceil(N / RS_TILE) ints.
-extern "C" int cpx_k7_sort_launch(const int* cfg, const void* bytes, void* key,
-                                  void* pos, void* hist, void* stream) {
+// The keys, into key[0 .. N).
+extern "C" int cpx_k7_keys_launch(const int* cfg, const void* bytes, void* key,
+                                  void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  cudaStream_t st = (cudaStream_t)stream;
   const int big = c.S * c.T;
-  k7_keys<<<(big + 255) / 256, 256, 0, st>>>(c, (const uint64_t*)bytes,
-                                             (uint32_t*)key, (int*)pos);
-  radix_sort_pairs((uint32_t*)key, (int*)pos, (int*)hist, big, st);
+  k7_keys<<<(big + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      c, (const uint64_t*)bytes, (uint32_t*)key);
   return (int)cudaGetLastError();
 }
 

@@ -82,6 +82,7 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
   constexpr bool XMODE = MODE == MODE_X, PMODE = MODE == MODE_P;
   __shared__ SmemModel own;  // this CTA's keys; with CL, CTA 0's models serve all
   SmemModel& sm = *at_rank<CL>(&own, 0);
+  extern __shared__ __align__(16) int dyn[];  // the warps' row rings
   const int i = gtid();
   const bool alive = i < c.S;
   model_load<MODE>(sm, tb);
@@ -101,6 +102,7 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
     int c1_raw = 0, f1_raw = 0, tot1 = 0;
     uint32_t ca = 0, fa = RANS_M;
     const bool coding = alive && x.coding;
+    RowRing ring = ring_start(dyn, tb.o2, O2_W, coding, x.ctx2);
     bool lzp_ok = false;
     if (alive) {
       size_t o = (size_t)t * c.S + i;
@@ -134,7 +136,7 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
       u.sym_len = clampi(length - c.min_len, 0, LEN_W - 1);
     }
     const AEvent a = warp_a_event<false, MODE>(
-        c, tb.o2, coding, x.ctx2, x.pred, x.conf,
+        c, ring, coding, x.ctx2, x.pred, x.conf,
         XMODE ? sse_x_ctx(x.conf, x.p1) : PMODE ? sse_p_ctx(x.conf, lzp_ok, x.p1) : fill,
         sm.sse, MODE == MODE_R ? sm.sse_h : sm.sse_x, 0u, byte, length > 0);
     if (coding) {
@@ -156,9 +158,9 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
       }
     }
     // B, o1 part (the o1 table is final for this step after its rescale)
-    const O1Event b = warp_o1_event<false>(tb.o1, tb.o2, u.is_esc, x.p1, x.ctx2,
-                                           a.h, x.pred, x.pred2, x.conf2 > 0,
-                                           0u, byte);
+    ring = ring_start(dyn, tb.o1, O1_N, u.is_esc, x.p1);
+    const O1Event b = warp_o1_event<false>(ring, u.is_esc, x.p1, a.ex, x.pred,
+                                           x.pred2, x.conf2 > 0, 0u, byte);
     if (u.is_esc) {
       tot1 = b.tot;
       c1_raw = b.c;
@@ -239,8 +241,8 @@ static int model_launch(const int* cfg, const void* inp, const void* dec,
   auto kernel = g.ctas > 1 ? k2_kernel<CPX_MAX_LANES, MODE, true>
               : g.threads <= 512 ? k2_kernel<512, MODE, false>
                                  : k2_kernel<CPX_MAX_LANES, MODE, false>;
-  return launch_scan(kernel, g, 0, stream, c, (const uint8_t*)inp, (const int*)dec, tb,
-                     lzp, (int*)ev);
+  return launch_scan(kernel, g, ring_bytes(g.threads), stream, c, (const uint8_t*)inp,
+                     (const int*)dec, tb, lzp, (int*)ev);
 }
 
 // Mode R: dec [4, T, S] (take, src, recency index, fill) -> ev [T, 9, S].

@@ -146,7 +146,7 @@ struct Cfg {
       p_rep, dst_inc, dst_cap, mant_inc, mant_cap;
 };
 
-static __device__ const int kSseThr[33] = {
+static __constant__ int kSseThr[33] = {
     22,    36,    60,    98,    162,   267,   439,   720,   1179,
     1921,  3108,  4971,  7812,  11955, 17625, 24743, 32768, 40793,
     47911, 53581, 57724, 60565, 62428, 63615, 64357, 64816, 65097,
@@ -285,8 +285,12 @@ struct ApmPt {
 };
 
 static __device__ int apm_read(const int* tab, int k, int ctx, int p16, ApmPt& st) {
+  // i = how many of kSseThr[1..31] are <= p16 (they increase): a binary
+  // search, the index warp-uniform in the A event (constant-cache reads)
   int i = 0;
-  for (int j = 1; j < 32; ++j) i += (p16 >= kSseThr[j]);
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1)
+    if (i + step <= 31 && p16 >= kSseThr[i + step]) i += step;
   int thr_i = kSseThr[i];
   int span_i = max(kSseThr[i + 1] - thr_i, 1);
   st.w = clampi(floordiv((p16 - thr_i) * 64, span_i), 0, 64);
@@ -361,19 +365,7 @@ static __device__ int sse_reshape(int& f_hit, int& f_match, int f_hit2, int tot,
   return tot0 - f_m + f_new;
 }
 
-// One slot of the A event's distribution (ppm.read_o2's rowmod) from its
-// raw step-start count: h halving rounds, the predicted byte's slot
-// zeroed, the escape, HIT and MATCH slots as the read set them.
-static __device__ __forceinline__ int rowmod_slot(int k, int raw, int h, int pred,
-                                                  int esc, int hit, int match) {
-  if (k == pred) return 0;
-  if (k == SYM_ESC) return esc;
-  if (k == SYM_HIT) return hit;
-  if (k == SYM_MATCH) return match;
-  return halve_n(raw, h, o2_sticky(k));
-}
-
-// v[m] for a warp-uniform m < N, without indexing a register array.
+// v[m] for an m < N, without indexing a register array.
 template <int N>
 static __device__ __forceinline__ int pick(const int (&v)[N], int m) {
   int r = 0;
@@ -382,141 +374,357 @@ static __device__ __forceinline__ int pick(const int (&v)[N], int m) {
   return r;
 }
 
-// Over a row the warp holds as w[m] = slot 32*m + lane (0 past width n):
-// count(cums <= tgt) of the exclusive cumulative counts, by a warp scan
-// per 32-slot chunk (the JAX find_symbol's count; zero or negative slots
-// make it differ from a search for the first prefix above tgt).
-template <int N>
-static __device__ int warp_count_le(const int (&w)[N], int n, int tgt) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  int base = 0, cnt = 0;
+// The A and B events code two lanes at a time, one a half-warp: a
+// half-warp holds a row's byte slots 0..255 as w[j] = slot 16 * hl + j
+// (hl: the thread in its half), sixteen consecutive slots a thread (four
+// 16-byte shared-memory loads), so that a row's prefix sums take one
+// 16-wide scan of the threads' totals.  Every shuffle and reduction below
+// is executed by the whole warp (the halves' values differ, their code
+// path does not).
+#define HALF 16
+#define SLOTS_T 16
+
+// This thread's sixteen slots of its half's row in shared memory.
+static __device__ __forceinline__ void load16(const int* row, int (&v)[SLOTS_T]) {
+  const int4* r4 = reinterpret_cast<const int4*>(row) + 4 * (threadIdx.x & (HALF - 1));
 #pragma unroll
-  for (int m = 0; m < N; ++m) {
-    int incl = w[m];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      int y = __shfl_up_sync(full, incl, off);
-      if (lane >= off) incl += y;
-    }
-    cnt += (32 * m + lane < n) && base + incl - w[m] <= tgt;
-    base += __shfl_sync(full, incl, 31);
+  for (int q = 0; q < 4; ++q) {
+    const int4 a = r4[q];
+    v[4 * q] = a.x;
+    v[4 * q + 1] = a.y;
+    v[4 * q + 2] = a.z;
+    v[4 * q + 3] = a.w;
   }
-  return __reduce_add_sync(full, cnt);
 }
 
-// (cum, freq) of slot sym (warp-uniform, in the row) of such a row.
-template <int N>
-static __device__ void warp_cum_frq(const int (&w)[N], int sym, int& c, int& f) {
+// The sum of v over this thread's half-warp.
+static __device__ __forceinline__ int half_sum(int v) {
   const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  int part = 0;
-#pragma unroll
-  for (int m = 0; m < N; ++m) part += 32 * m + lane < sym ? w[m] : 0;
-  c = __reduce_add_sync(full, part);
-  f = __shfl_sync(full, pick(w, sym >> 5), sym & 31);
+  const bool hi = threadIdx.x & HALF;
+  const int lo_s = __reduce_add_sync(full, hi ? 0 : v);
+  const int hi_s = __reduce_add_sync(full, hi ? v : 0);
+  return hi ? hi_s : lo_s;
 }
 
-#define O2_CHUNKS 9  // ceil(O2_W / 32): slot k = 32 * m + lane of the warp
-#define O1_CHUNKS (O1_N / 32)
+// Exclusive prefix of the slots before this thread's sixteen (base) and
+// the total of the half's 256.
+static __device__ __forceinline__ int scan16(const int (&w)[SLOTS_T], int& total) {
+  const unsigned full = 0xffffffffu;
+  const int hl = threadIdx.x & (HALF - 1);
+  int mine = 0;
+#pragma unroll
+  for (int j = 0; j < SLOTS_T; ++j) mine += w[j];
+  int incl = mine;
+#pragma unroll
+  for (int off = 1; off < HALF; off <<= 1) {
+    const int y = __shfl_up_sync(full, incl, off, HALF);
+    if (hl >= off) incl += y;
+  }
+  total = __shfl_sync(full, incl, HALF - 1, HALF);
+  return incl - mine;
+}
+
+// How many of the half's 256 byte slots' exclusive cumulative counts are
+// <= tgt (the JAX find_symbol's count: zero or negative slots make it
+// differ from a search for the first prefix above tgt).  base from scan16.
+static __device__ __forceinline__ int count_le16(const int (&w)[SLOTS_T], int base, int tgt) {
+  int c = base, cnt = 0;
+#pragma unroll
+  for (int j = 0; j < SLOTS_T; ++j) {
+    cnt += c <= tgt;
+    c += w[j];
+  }
+  return half_sum(cnt);
+}
+
+// (cum, freq) of the half's byte slot sym (0..255).  base from scan16.
+static __device__ __forceinline__ void cum_frq16(const int (&w)[SLOTS_T], int base, int sym,
+                                                 int& c, int& f) {
+  const unsigned full = 0xffffffffu;
+  const int j0 = sym & (SLOTS_T - 1);
+  const int owner = (threadIdx.x & HALF) + sym / SLOTS_T;
+  int part = base;
+#pragma unroll
+  for (int j = 0; j < SLOTS_T; ++j) part += j < j0 ? w[j] : 0;
+  c = __shfl_sync(full, part, owner);
+  f = __shfl_sync(full, pick(w, j0), owner);
+}
+
+// ---- rows in flight: a per-warp ring of shared-memory slots -------------
+// The A event reads an o2 row (1040 B) and the B event an o1 row (1024 B)
+// for each lane that codes one; a warp walks its lanes two at a time, a
+// half-warp a row.  Issued one after another those reads cost a round
+// trip each (~0.44-0.7 us on the H100; the tables are larger than its 50
+// MB L2).  So the rows go through a ring of CPX_RING_D slots a warp in
+// dynamic shared memory, filled by cp.async (16 bytes a thread and copy,
+// the whole warp a row, coalesced): ring_start puts the rows of the first
+// CPX_RING_D lanes in flight as soon as the caller knows the lanes and
+// their rows; ring_take waits for the rows of lanes k and k+1 while the
+// rows of the next CPX_RING_D - 2 lanes stay in flight; ring_release
+// re-arms the two slots with the rows CPX_RING_D lanes ahead once every
+// thread of the warp has read them.  One commit group a row (an empty one
+// where no lane is left), so wait_group CPX_RING_D - 2 always means "rows
+// k and k+1 landed".  At depth 0 the rows are issued when they are taken
+// (one round trip a pair of rows).
+#ifndef CPX_RING_D
+#define CPX_RING_D 4
+#endif
+#if CPX_RING_D % 2
+#error "CPX_RING_D must be even: the events take two rows at a time"
+#endif
+#define RING_SLOTS (CPX_RING_D > 0 ? CPX_RING_D : 2)
+#define RING_SLOT_INTS O2_W  // the wider of the two rows, 16-byte aligned
+
+// Dynamic shared memory of the rings of a CTA of `threads` threads.
+static __host__ __device__ __forceinline__ size_t ring_bytes(int threads) {
+  return (size_t)(threads / 32) * RING_SLOTS * RING_SLOT_INTS * sizeof(int);
+}
+
+struct RowRing {
+  int* slots;      // this warp's RING_SLOTS slots
+  const int* tab;  // rows of `width` ints (a multiple of 4, 16-byte aligned)
+  int width;
+  unsigned issue;  // the lanes whose row is not yet issued (warp-uniform)
+  int issued, taken;
+};
+
+// Issue the row (its index row_of on each lane) of the next lane not yet
+// issued into slot `issued` mod RING_SLOTS; commit a group either way.
+static __device__ __forceinline__ void ring_next(RowRing& r, int row_of) {
+  const unsigned full = 0xffffffffu;
+  if (r.issue) {
+    const int l = __ffs(r.issue) - 1;
+    r.issue &= r.issue - 1;
+    const int* row = r.tab + (size_t)__shfl_sync(full, row_of, l) * r.width;
+    int* slot = r.slots + (r.issued % RING_SLOTS) * RING_SLOT_INTS;
+    for (int c = threadIdx.x & 31; c < r.width / 4; c += 32) {
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(slot + 4 * c);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                   "l"(row + 4 * c)
+                   : "memory");
+    }
+  }
+  ++r.issued;
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The warp's ring over table tab for its lanes with want set (row row_of
+// of tab each), the first CPX_RING_D rows in flight.  dyn: the CTA's
+// rings (ring_bytes).  Call with the warp converged, after the warp's
+// previous ring has been taken whole.
+static __device__ RowRing ring_start(int* dyn, const int* tab, int width, bool want,
+                                     int row_of) {
+  RowRing r{dyn + (threadIdx.x >> 5) * RING_SLOTS * RING_SLOT_INTS, tab, width,
+            __ballot_sync(0xffffffffu, want), 0, 0};
+#pragma unroll
+  for (int k = 0; k < CPX_RING_D; ++k) ring_next(r, row_of);
+  return r;
+}
+
+// The next two lanes' rows (lanes in ascending order; the second is an
+// empty group where there is none), landed and visible to the whole warp:
+// the first's slot, the second's right after it.
+static __device__ __forceinline__ const int* ring_take(RowRing& r, int row_of) {
+  if (CPX_RING_D == 0) {
+    ring_next(r, row_of);
+    ring_next(r, row_of);
+  }
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(CPX_RING_D > 0 ? CPX_RING_D - 2 : 0)
+               : "memory");
+  __syncwarp();
+  return r.slots + (r.taken % RING_SLOTS) * RING_SLOT_INTS;
+}
+
+// After every thread has read the rows ring_take gave: re-arm their slots.
+static __device__ __forceinline__ void ring_release(RowRing& r, int row_of) {
+  __syncwarp();
+  r.taken += 2;
+  if (CPX_RING_D > 0) {
+    ring_next(r, row_of);
+    ring_next(r, row_of);
+  }
+}
 
 // The A event of one lane: its distribution's total, the halving rounds
 // of its o2 row (for the winner's table write), the coded symbol with its
-// raw (cum, freq), the byte's frequency (encode) and the SSE state.
+// raw (cum, freq), the byte's frequency (encode) and the SSE state; for an
+// escape, the o1 exclusion the B event reads off the same row: bit j of
+// ex[m] set where slot 32*m + j is still present after the h halvings.
 struct AEvent {
   int tot, h, sym, c, f, fbyte;
   SseState sse;
+  unsigned ex[O1_N / 32];
 };
 
 // The A event of every lane of the warp with want set (ppm.read_o2 with
 // the SSE stage, then decode's slot search or encode's lookup of the known
-// symbol), the whole warp reading one lane's o2 row at a time: slot
-// 32*m + lane in register m, so that every load is coalesced, the row sums
-// and cumulative counts by warp reductions and scans.  Decode (DECODE)
-// finds count(cums <= target) - 1, clipped, for the lane's rANS state x;
-// encode takes the symbol from the lane's byte and match flag (the JAX
-// rule of block.py::_encode_model_body).  Modes X and P have the hit APM
-// only: its table is passed as sse_h and its context (sse_x_ctx, sse_p_ctx)
-// as fill.  Call with the warp converged.
+// symbol), two lanes at a time, each coded by a half-warp from its o2 row
+// in the ring (ring_start over o2 with the same want and ctx2): the row
+// sums and cumulative counts by half-warp reductions and scans.  Decode
+// (DECODE) finds count(cums <= target) - 1, clipped, for the lane's rANS
+// state x; encode takes the symbol from the lane's byte and match flag
+// (the JAX rule of block.py::_encode_model_body).  Modes X and P have the
+// hit APM only: its table is passed as sse_h and its context (sse_x_ctx,
+// sse_p_ctx) as fill.  Call with the warp converged.
 template <bool DECODE, int MODE = MODE_R>
-static __device__ AEvent warp_a_event(const Cfg& cfg, const int* o2, bool want,
+static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
                                       int ctx2, int pred, int conf, int fill,
                                       const int* sse, const int* sse_h, uint32_t x,
                                       int byte, bool is_match) {
   const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, hl = lane & (HALF - 1), half = lane & HALF;
   AEvent mine{};
   unsigned todo = __ballot_sync(full, want);
   while (todo) {
-    const int l = __ffs(todo) - 1;
+    // lanes l0 and l1 (if any) in ascending order, one a half-warp; the
+    // upper half repeats the lower's lane where there is no second
+    const int l0 = __ffs(todo) - 1;
     todo &= todo - 1;
-    const int pr = __shfl_sync(full, pred, l);
-    const int* row = o2 + (size_t)__shfl_sync(full, ctx2, l) * O2_W;
-    int v[O2_CHUNKS];
-#pragma unroll
-    for (int m = 0; m < O2_CHUNKS; ++m) {
-      int k = 32 * m + lane;
-      v[m] = k < O2_W ? row[k] : 0;
-    }
-    // the row sum after 0, 1, 2 and 3 halving rounds
+    const int l1 = todo ? __ffs(todo) - 1 : -1;
+    todo &= todo - 1;
+    const bool two = l1 >= 0, upper = half && two;
+    const int src = upper ? l1 : l0;
+    const int pr = __shfl_sync(full, pred, src);
+    const int* row = ring_take(ring, ctx2) + (upper ? RING_SLOT_INTS : 0);
+    int v[SLOTS_T];
+    load16(row, v);
+    // slots 256..259 (HIT, ESC, MATCH, HIT2) and the predicted byte's, by
+    // broadcast loads
+    const int4 sp = reinterpret_cast<const int4*>(row)[O1_N / 4];
+    const int praw = row[pr];
+    ring_release(ring, ctx2);
+    // the row sum after 0, 1, 2 and 3 halving rounds: the byte slots over
+    // the half, the sticky slots on every thread
     int s0 = 0, s1 = 0, s2 = 0, s3 = 0;
 #pragma unroll
-    for (int m = 0; m < O2_CHUNKS; ++m) {
-      bool st = o2_sticky(32 * m + lane);
-      int y = v[m];  // 0 past the row
+    for (int j = 0; j < SLOTS_T; ++j) {
+      int y = v[j];
       s0 += y;
-      y = halve1(y, st);
+      y = halve1(y, false);
       s1 += y;
-      y = halve1(y, st);
+      y = halve1(y, false);
       s2 += y;
-      s3 += halve1(y, st);
+      s3 += halve1(y, false);
     }
-    s0 = __reduce_add_sync(full, s0);
-    s1 = __reduce_add_sync(full, s1);
-    s2 = __reduce_add_sync(full, s2);
-    s3 = __reduce_add_sync(full, s3);
+    s0 = half_sum(s0);
+    s1 = half_sum(s1);
+    s2 = half_sum(s2);
+    s3 = half_sum(s3);
+    {
+      const int spv[4] = {sp.x, sp.y, sp.z, sp.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        int y = spv[q];
+        s0 += y;
+        y = halve1(y, true);
+        s1 += y;
+        y = halve1(y, true);
+        s2 += y;
+        s3 += halve1(y, true);
+      }
+    }
     // a round halves while the sum is over the cap, at most three rounds
     int h = 0, sum = s0;
     if (sum > cfg.cap2) { h = 1; sum = s1; }
     if (h == 1 && sum > cfg.cap2) { h = 2; sum = s2; }
     if (h == 2 && sum > cfg.cap2) { h = 3; sum = s3; }
-    // slots 256..259 are register 8 of lanes 0..3
-    const int esc0 = halve_n(__shfl_sync(full, v[8], SYM_ESC - 256), h, true);
+    const int esc0 = halve_n(sp.y, h, true);  // SYM_ESC
     const int esc = max(esc0, 1);
-    int hit = halve_n(__shfl_sync(full, v[8], SYM_HIT - 256), h, true);
-    int match = halve_n(__shfl_sync(full, v[8], SYM_MATCH - 256), h, true);
-    sum += esc - esc0 - halve_n(__shfl_sync(full, pick(v, pr >> 5), pr & 31), h, false);
+    int hit = halve_n(sp.x, h, true);         // SYM_HIT
+    int match = halve_n(sp.z, h, true);       // SYM_MATCH
+    const int hit2 = halve_n(sp.w, h, true);  // SYM_HIT2
+    const bool pred_in = halve_n(praw, h, false) > 0;
+    sum += esc - esc0 - halve_n(praw, h, false);
     SseState st{};
     if (MODE != MODE_R) {
       if (cfg.use_sse)
         sum = hit_reshape(hit, sum, sse_h, HIT_APM_K(MODE),
-                          __shfl_sync(full, fill, l), __shfl_sync(full, conf, l), st);
+                          __shfl_sync(full, fill, src), __shfl_sync(full, conf, src), st);
     } else if (cfg.use_sse)
-      sum = sse_reshape(hit, match,
-                        halve_n(__shfl_sync(full, v[8], SYM_HIT2 - 256), h, true), sum,
-                        sse, sse_h, __shfl_sync(full, fill, l),
-                        __shfl_sync(full, conf, l), st);
-    int w[O2_CHUNKS];
+      sum = sse_reshape(hit, match, hit2, sum, sse, sse_h, __shfl_sync(full, fill, src),
+                        __shfl_sync(full, conf, src), st);
+    // the distribution (ppm.read_o2's rowmod): the byte slots, h halving
+    // rounds and the predicted byte's slot zeroed, then HIT, ESC, MATCH,
+    // HIT2 as the read set them
+    int w[SLOTS_T];
 #pragma unroll
-    for (int m = 0; m < O2_CHUNKS; ++m) {
-      int k = 32 * m + lane;
-      w[m] = k < O2_W ? rowmod_slot(k, v[m], h, pr, esc, hit, match) : 0;
-    }
+    for (int j = 0; j < SLOTS_T; ++j) w[j] = SLOTS_T * hl + j == pr ? 0 : halve_n(v[j], h, false);
+    int bytes_tot;
+    const int base = scan16(w, bytes_tot);
+    const int spw[4] = {hit, esc, match, hit2};
     int sym, fbyte = 0;
     if (DECODE) {
-      const int tgt = (int)dec_target(__shfl_sync(full, x, l), max(sum, 1));
-      sym = clampi(warp_count_le(w, O2_W, tgt) - 1, 0, O2_W - 1);
+      const int tgt = (int)dec_target(__shfl_sync(full, x, src), max(sum, 1));
+      int cnt = count_le16(w, base, tgt), c = bytes_tot;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        cnt += c <= tgt;
+        c += spw[q];
+      }
+      sym = clampi(cnt - 1, 0, O2_W - 1);
     } else {
-      const int bt = __shfl_sync(full, byte, l);
-      fbyte = __shfl_sync(full, pick(w, bt >> 5), bt & 31);
-      sym = __shfl_sync(full, (int)is_match, l) ? SYM_MATCH
-            : bt == pr                           ? SYM_HIT
-            : fbyte > 0                          ? bt
-                                                 : SYM_ESC;
+      const int bt = __shfl_sync(full, byte, src);
+      fbyte = __shfl_sync(full, pick(w, bt & (SLOTS_T - 1)), half + bt / SLOTS_T);
+      sym = __shfl_sync(full, (int)is_match, src) ? SYM_MATCH
+            : bt == pr                             ? SYM_HIT
+            : fbyte > 0                            ? bt
+                                                   : SYM_ESC;
     }
     int cum, frq;
-    warp_cum_frq(w, sym, cum, frq);
-    if (lane == l) mine = AEvent{sum, h, sym, cum, frq, fbyte, st};
+    cum_frq16(w, base, min(sym, O1_N - 1), cum, frq);
+    if (sym >= O1_N) {
+      cum = bytes_tot;
+      frq = spw[0];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        cum += q < sym - SYM_HIT ? spw[q] : 0;
+        frq = q == sym - SYM_HIT ? spw[q] : frq;
+      }
+    }
+    // each coded lane takes its half's results
+    const int from = two && lane == l1 ? HALF : 0;
+    const bool coded = lane == l0 || (two && lane == l1);
+    AEvent r;
+    r.tot = __shfl_sync(full, sum, from);
+    r.h = __shfl_sync(full, h, from);
+    r.sym = __shfl_sync(full, sym, from);
+    r.c = __shfl_sync(full, cum, from);
+    r.f = __shfl_sync(full, frq, from);
+    r.fbyte = __shfl_sync(full, fbyte, from);
+    r.sse.m.flat = __shfl_sync(full, st.m.flat, from);
+    r.sse.m.w = __shfl_sync(full, st.m.w, from);
+    r.sse.m.ti = __shfl_sync(full, st.m.ti, from);
+    r.sse.m.tip1 = __shfl_sync(full, st.m.tip1, from);
+    r.sse.h.flat = __shfl_sync(full, st.h.flat, from);
+    r.sse.h.w = __shfl_sync(full, st.h.w, from);
+    r.sse.h.ti = __shfl_sync(full, st.h.ti, from);
+    r.sse.h.tip1 = __shfl_sync(full, st.h.tip1, from);
+    r.sse.act_h = __shfl_sync(full, (int)st.act_h, from);
+    if (coded) {
+      mine.tot = r.tot;
+      mine.h = r.h;
+      mine.sym = r.sym;
+      mine.c = r.c;
+      mine.f = r.f;
+      mine.fbyte = r.fbyte;
+      mine.sse = r.sse;
+    }
+    if (__any_sync(full, sym == SYM_ESC)) {
+      // the byte slots still present after h halvings, as 8 words of 32
+      // (bit b of word m: slot 32 * m + b): each thread's 16 bits,
+      // gathered two threads to a word
+      unsigned bits = 0;
+#pragma unroll
+      for (int j = 0; j < SLOTS_T; ++j)
+        bits |= (unsigned)(SLOTS_T * hl + j == pr ? pred_in : w[j] > 0) << j;
+      unsigned word = bits << (SLOTS_T * (hl & 1));
+      word |= __shfl_xor_sync(full, word, 1);
+#pragma unroll
+      for (int m = 0; m < O1_N / 32; ++m) {
+        const unsigned e = __shfl_sync(full, word, from + 2 * m);
+        if (coded) mine.ex[m] = e;
+      }
+    }
   }
   return mine;
 }
@@ -548,55 +756,70 @@ static __device__ void cum_frq_of(RowFn row, int w, int sym, int& c, int& f) {
 // The o1 part of the B event (ppm.read_o1_excl) for every escaping lane
 // of the warp (want): the o1 row under the lane's p1, weighted 8f-7,
 // excluding the predicted bytes and every byte present in its o2 row
-// after the A event's h halving rounds; then decode's slot search for the
-// lane's state x, or encode's lookup of the lane's byte.  The whole warp
-// reads one lane's rows at a time, slot 32*m + lane in register m.  Call
+// after the A event's h halving rounds — the A event's mask ex, read off
+// the same o2 row (no write of the step lies between the two events);
+// then decode's slot search for the lane's state x, or encode's lookup of
+// the lane's byte.  Two lanes at a time, a half-warp each, from their o1
+// rows in the ring (ring_start over o1 with the same want and p1).  Call
 // with the warp converged.  Returns (tot, sym, cum, freq) on each lane.
 struct O1Event {
   int tot, sym, c, f;
 };
 
 template <bool DECODE>
-static __device__ O1Event warp_o1_event(const int* o1, const int* o2, bool want,
-                                        int p1, int ctx2, int h, int pred,
+static __device__ O1Event warp_o1_event(RowRing& ring, bool want, int p1,
+                                        const unsigned (&ex)[O1_N / 32], int pred,
                                         int pred2, bool valid2, uint32_t x,
                                         int byte) {
   const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, hl = lane & (HALF - 1), half = lane & HALF;
   O1Event mine{};
   unsigned todo = __ballot_sync(full, want);
   while (todo) {
-    const int l = __ffs(todo) - 1;
+    const int l0 = __ffs(todo) - 1;
     todo &= todo - 1;
-    const int* o1row = o1 + __shfl_sync(full, p1, l) * O1_N;
-    const int* o2row = o2 + (size_t)__shfl_sync(full, ctx2, l) * O2_W;
-    const int hl = __shfl_sync(full, h, l), pr = __shfl_sync(full, pred, l);
-    const int pr2 = __shfl_sync(full, valid2 ? pred2 : -1, l);
-    int a[O1_CHUNKS], b[O1_CHUNKS];
+    const int l1 = todo ? __ffs(todo) - 1 : -1;
+    todo &= todo - 1;
+    const bool two = l1 >= 0, upper = half && two;
+    const int src = upper ? l1 : l0;
+    const int pr = __shfl_sync(full, pred, src);
+    const int pr2 = __shfl_sync(full, valid2 ? pred2 : -1, src);
+    const int* row = ring_take(ring, p1) + (upper ? RING_SLOT_INTS : 0);
+    int a[SLOTS_T];
+    load16(row, a);
+    ring_release(ring, p1);
+    // this thread's 16 bits of the lane's o2 exclusion (word hl / 2)
+    unsigned word = 0;
 #pragma unroll
-    for (int m = 0; m < O1_CHUNKS; ++m) {
-      a[m] = o1row[32 * m + lane];
-      b[m] = o2row[32 * m + lane];
+    for (int m = 0; m < O1_N / 32; ++m) {
+      const unsigned e = __shfl_sync(full, ex[m], src);
+      word = m == hl / 2 ? e : word;
     }
-    int w[O1_CHUNKS], tot = 0;
+    const unsigned bits = word >> (SLOTS_T * (hl & 1));
+    int w[SLOTS_T], tot = 0;
 #pragma unroll
-    for (int m = 0; m < O1_CHUNKS; ++m) {
-      int k = 32 * m + lane;
-      bool ex = k == pr || k == pr2 || halve_n(b[m], hl, false) > 0;
-      w[m] = ex ? 0 : a[m] * 8 - 7;
-      tot += w[m];
+    for (int j = 0; j < SLOTS_T; ++j) {
+      const int k = SLOTS_T * hl + j;
+      const bool excl = k == pr || k == pr2 || ((bits >> j) & 1u);
+      w[j] = excl ? 0 : a[j] * 8 - 7;
+      tot += w[j];
     }
-    tot = __reduce_add_sync(full, tot);
+    tot = half_sum(tot);
+    int total;
+    const int base = scan16(w, total);
     int sym;
     if (DECODE) {
-      const int tgt = (int)dec_target(__shfl_sync(full, x, l), max(tot, 1));
-      sym = clampi(warp_count_le(w, O1_N, tgt) - 1, 0, O1_N - 1);
+      const int tgt = (int)dec_target(__shfl_sync(full, x, src), max(tot, 1));
+      sym = clampi(count_le16(w, base, tgt) - 1, 0, O1_N - 1);
     } else {
-      sym = __shfl_sync(full, byte, l);
+      sym = __shfl_sync(full, byte, src);
     }
     int cum, frq;
-    warp_cum_frq(w, sym, cum, frq);
-    if (lane == l) mine = O1Event{tot, sym, cum, frq};
+    cum_frq16(w, base, sym, cum, frq);
+    const int from = two && lane == l1 ? HALF : 0;
+    const O1Event r{__shfl_sync(full, tot, from), __shfl_sync(full, sym, from),
+                    __shfl_sync(full, cum, from), __shfl_sync(full, frq, from)};
+    if (lane == l0 || (two && lane == l1)) mine = r;
   }
   return mine;
 }
@@ -801,6 +1024,7 @@ static __device__ __forceinline__ void lzp_insert(const Cfg& c, const Lzp& z, bo
 // dynamic shared memory up to this size, else in a global scratch array;
 // in a cluster each CTA keeps its own lanes' rows (lanes = its threads).
 #define CPX_POS_SMEM_MAX (200 * 1024)
+#define CPX_SMEM_MAX 232448  // shared memory a CTA can use on the H100 (227 KB)
 
 static __host__ __device__ __forceinline__ int pos_pitch(int d) { return d + 1; }
 

@@ -24,9 +24,11 @@
 // (two 8-byte gathers per usable chain entry).  The block itself (8 MiB at
 // the main path's geometry) stays in the 50 MB L2, so the gathers do not
 // go to device memory.  Kernels, in launch order:
-//   k4_keys     one thread per position: the key and the identity order;
-//   rs_hist, rs_scan, rs_scatter   the stable LSD radix sort of (key,
-//               position) of sortlib.cuh, shared with the mode-F finder;
+//   k4_keys     one thread per position: the key;
+//   the stable LSD radix sort of (key, position) of sortlib.cuh
+//               (rs_hist, rs_plan, rs_pass, rs_finish), shared with the
+//               mode-F finder; its entry point cpx_radix_sort_launch is
+//               here;
 //   k4_find     one thread per sort rank: the chain is the ranks r-k and
 //               r+k with an equal key, read from the sorted arrays (the
 //               JAX [N, 2 * probe] candidate array is never stored); the
@@ -43,7 +45,7 @@ namespace {
 
 template <bool CONTENT>
 __global__ void k4_keys(Cfg c, const uint64_t* __restrict__ bytes,
-                        uint32_t* __restrict__ key, int* __restrict__ pos) {
+                        uint32_t* __restrict__ key) {
   const long long big = (long long)c.S * c.T;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= big) return;
@@ -61,7 +63,6 @@ __global__ void k4_keys(Cfg c, const uint64_t* __restrict__ bytes,
     k = w * 2654435761u;
   }
   key[i] = k;
-  pos[i] = (int)i;
 }
 
 // Whether the decoder could use source cand at step t_of of its lane: an
@@ -122,31 +123,36 @@ __global__ void k4_find(Cfg c, const uint64_t* __restrict__ bytes,
 
 }  // namespace
 
-// Keys and the radix sort: on return key[0 .. N) and pos[0 .. N) (the
-// first halves of the [2, N] arrays) hold the sorted order.  hist has
-// 256 * ceil(N / RS_TILE) ints.
+// The keys, into key[0 .. N).
 template <bool CONTENT>
-static int sort_launch(const int* cfg, const void* bytes, void* key, void* pos,
-                       void* hist, void* stream) {
+static int keys_launch(const int* cfg, const void* bytes, void* key, void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  cudaStream_t st = (cudaStream_t)stream;
   const int big = c.S * c.T;
-  k4_keys<CONTENT><<<(big + 255) / 256, 256, 0, st>>>(
-      c, (const uint64_t*)bytes, (uint32_t*)key, (int*)pos);
-  radix_sort_pairs((uint32_t*)key, (int*)pos, (int*)hist, big, st);
+  k4_keys<CONTENT><<<(big + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      c, (const uint64_t*)bytes, (uint32_t*)key);
   return (int)cudaGetLastError();
 }
 
-extern "C" int cpx_k4_sort_launch(const int* cfg, const void* bytes, void* key,
-                                  void* pos, void* hist, void* stream) {
-  return sort_launch<false>(cfg, bytes, key, pos, hist, stream);
+extern "C" int cpx_k4_keys_launch(const int* cfg, const void* bytes, void* key,
+                                  void* stream) {
+  return keys_launch<false>(cfg, bytes, key, stream);
 }
 
 // Mode X: keys of the position's own six bytes.
-extern "C" int cpx_k4x_sort_launch(const int* cfg, const void* bytes, void* key,
-                                   void* pos, void* hist, void* stream) {
-  return sort_launch<true>(cfg, bytes, key, pos, hist, stream);
+extern "C" int cpx_k4x_keys_launch(const int* cfg, const void* bytes, void* key,
+                                   void* stream) {
+  return keys_launch<true>(cfg, bytes, key, stream);
+}
+
+// The shared sort (sortlib.cuh), for K4, K4x and K7: key and pos are [2, n]
+// int32 arrays, key's first half the keys; on return the first halves hold
+// the sorted keys and positions.  scratch: block.py::_sort_stage's size.
+extern "C" int cpx_radix_sort_launch(int n, void* key, void* pos, void* scratch,
+                                     void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  return radix_sort_pairs((uint32_t*)key, (int*)pos, (int*)scratch, n,
+                          (cudaStream_t)stream);
 }
 
 extern "C" int cpx_k4_find_launch(const int* cfg, const void* bytes,

@@ -8,19 +8,25 @@ reuses its build).  The library is loaded with
 ``ctypes``.  Each C entry point returns ``cudaGetLastError()`` after its
 launch; :func:`check` raises on anything but 0.
 
+An instrumented variant (extra ``-D`` flags, a subset of the sources, e.g.
+K1's per-phase clock stamps of ``benchmarks/k1_phases.py``) builds beside
+the main library under its own hash; :func:`variant` makes :func:`lib`
+return it for the calls inside its ``with`` block.  The main path never
+builds one.
+
 Nothing here runs at import: the CPU tests import every module, and the
 machines without a card have no ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -30,18 +36,21 @@ NVCC_FLAGS = [
 ]
 NVCC_TIMEOUT_S = 600  # a whole build takes well under a minute
 
-_lib: Optional[ctypes.CDLL] = None
+# (extra nvcc flags, sources or None for all) -> loaded library
+_libs: dict = {}
+_VARIANT: tuple = ((), None)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argument types (pointers, the stream and ints)
 _SIGNATURES = {
     "cpx_ks_launch": [_P] * 6,
-    "cpx_k4_sort_launch": [_P] * 6,
+    "cpx_k4_keys_launch": [_P] * 4,
+    "cpx_radix_sort_launch": [_I] + [_P] * 4,
     "cpx_k4_find_launch": [_P] * 8,
     "cpx_k5_launch": [_P] * 7,
     "cpx_k6_launch": [_P] * 4,
     "cpx_k6f_launch": [_P] * 4,
-    "cpx_k7_sort_launch": [_P] * 6,
+    "cpx_k7_keys_launch": [_P] * 4,
     "cpx_k7_find_launch": [_P] * 8,
     "cpx_k8_launch": [_P] * 7,
     "cpx_k9_launch": [_I] * 2 + [_P] * 9,
@@ -49,7 +58,7 @@ _SIGNATURES = {
     "cpx_k2_launch": [_P] * 12,
     "cpx_k3_launch": [_I, _I, _I, _P, _P, _P, _P, _P],
     "cpx_k1_launch": [_P] * 15,
-    "cpx_k4x_sort_launch": [_P] * 6,
+    "cpx_k4x_keys_launch": [_P] * 4,
     "cpx_k4x_find_launch": [_P] * 8,
     "cpx_k6x_launch": [_P] * 5,
     "cpx_k11_launch": [_P] * 5,
@@ -66,7 +75,10 @@ _SIGNATURES = {
     "cpx_pr_step_launch": [_P] * 2 + [_I] * 3 + [_P],
     "cpx_pr_row_ring_launch": [_P] * 3 + [_I] * 4 + [_P],
     "cpx_pr_onehot_mma_launch": [_P] * 3 + [_I] * 3 + [_P],
+    # only in the instrumented build of decode.cu (-DCPX_K1_PROF)
+    "cpx_k1_prof_read": [_P],
 }
+_INSTRUMENTED = {"cpx_k1_prof_read"}
 
 
 def _sources() -> list[Path]:
@@ -84,70 +96,108 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
+def library_path(defines=(), only=None) -> Path:
+    """The library of this source tree (with ``defines`` and built from the
+    ``.cu`` files named in ``only``: an instrumented variant)."""
     h = hashlib.sha256()
     for p in _sources():
         h.update(p.name.encode() + b"\0" + p.read_bytes())
+    if defines or only:
+        h.update(repr((tuple(defines), only and tuple(only))).encode())
     return BUILD_DIR / f"libcpx_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, defines=(), only=None) -> Path:
     """Compile the kernels if this source tree has no build yet."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    tag = f"{so.stem}.{os.getpid()}"
-    objs, procs = [], []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        objs.append(obj)
-        procs.append((src, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
+    return build_many([(defines, only)], verbose)[0]
+
+
+def build_many(specs, verbose: bool = False) -> list:
+    """Build the libraries of ``specs`` [(defines, only), ...] that do not
+    exist yet, every ``nvcc`` of all of them started together."""
+    jobs = []  # (library, tmp, objects, [(source, process)])
+    procs = []
     try:
-        for src, proc in procs:
-            _, err = proc.communicate(timeout=NVCC_TIMEOUT_S)
-            if proc.returncode != 0:
-                failed.append(f"{src.name} ({proc.returncode}):\n{err}")
-            elif verbose:
-                print(err)
+        for defines, only in specs:
+            so = library_path(defines, only)
+            if so.exists():
+                jobs.append((so, None, [], []))
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            nvcc = _nvcc()
+            tag = f"{so.stem}.{os.getpid()}"
+            objs, mine = [], []
+            for src in sorted(CSRC.glob("*.cu")):
+                if only is not None and src.name not in only:
+                    continue
+                obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+                cmd = [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(src)]
+                if verbose:
+                    cmd += ["-Xptxas", "-v"]
+                objs.append(obj)
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+                mine.append((src, proc))
+                procs.append(proc)
+            jobs.append((so, so.with_suffix(f".{os.getpid()}.tmp"), objs, mine))
+        for so, tmp, objs, mine in jobs:
+            if tmp is None:
+                continue
+            failed = []
+            try:
+                for src, proc in mine:
+                    _, err = proc.communicate(timeout=NVCC_TIMEOUT_S)
+                    if proc.returncode != 0:
+                        failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+                    elif verbose:
+                        print(f"{so.name} {src.name}:\n{err}")
+                if failed:
+                    raise RuntimeError("nvcc failed: " + "\n".join(failed))
+                r = subprocess.run(
+                    [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                    capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+                if r.returncode != 0:
+                    raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
+            finally:
+                for obj in objs:
+                    obj.unlink(missing_ok=True)
+            os.replace(tmp, so)
     finally:
-        for _, proc in procs:
+        for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    return [so for so, _, _, _ in jobs]
+
+
+@contextlib.contextmanager
+def variant(*defines, only=None):
+    """Inside the block, :func:`lib` returns the library built with the
+    extra nvcc flags ``defines`` from the ``.cu`` files in ``only``."""
+    global _VARIANT
+    old, _VARIANT = _VARIANT, (tuple(defines), only and tuple(only))
     try:
-        if failed:
-            raise RuntimeError("nvcc failed: " + "\n".join(failed))
-        r = subprocess.run(
-            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-            capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
+        yield
     finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    os.replace(tmp, so)
-    return so
+        _VARIANT = old
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(str(build()))
+    """The loaded kernel library (built on first call), or inside
+    :func:`variant` the variant's."""
+    if _VARIANT not in _libs:
+        defines, only = _VARIANT
+        handle = ctypes.CDLL(str(build(defines=defines, only=only)))
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
+            fn = getattr(handle, name, None)
+            if fn is None:
+                if name in _INSTRUMENTED or only is not None:
+                    continue
+                raise RuntimeError(f"{name} missing from the kernel library")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = handle
-    return _lib
+        _libs[_VARIANT] = handle
+    return _libs[_VARIANT]
 
 
 def check(err: int, name: str) -> None:

@@ -19,7 +19,10 @@ CHECK = (
 
 PORT_MODULES = [
     "comprox_tpu_torch",
+    "comprox_tpu_torch.benchmarks.k1_phases",
     "comprox_tpu_torch.benchmarks.probes",
+    "comprox_tpu_torch.benchmarks.ring_depth",
+    "comprox_tpu_torch.benchmarks.sort_keys",
     "comprox_tpu_torch.cli.main",
     "comprox_tpu_torch.codec.block",
     "comprox_tpu_torch.codec.container",

@@ -11,13 +11,19 @@ machine, what the kernels' callers rely on: the C configuration layout,
 the build cache key, and that a missing ``nvcc`` is an error.
 """
 
+import hashlib
+import io
+import json
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from comprox_tpu_torch.benchmarks import sort_keys
 from comprox_tpu_torch.codec import block as blk
+from comprox_tpu_torch.codec import container as con
 from comprox_tpu_torch.codec import fast as tfast
 from comprox_tpu_torch.models import ppm
 from comprox_tpu_torch.utils import build
@@ -31,6 +37,10 @@ WIDE = dict(lanes=512, steps=32, mode="R", min_len=5, window=32, o3_bits=14,
             rolz_bits=10, rolz_depth=16, flexible=False, rolz_ctx_bytes=4,
             rolz_dec=2)
 
+
+GOLDEN = Path(__file__).resolve().parent / "data"
+GOLDEN_META = json.loads((GOLDEN / "torch_golden.json").read_text())
+CRZ_GOLDENS = sorted(n for n in GOLDEN_META if n.startswith("crz_"))
 
 def text(n, seed):
     rng = np.random.default_rng(seed)
@@ -99,10 +109,11 @@ def test_fast_cfg_carries_the_mode_f_knobs():
 
 def test_kernel_sources_and_launch_table():
     """Every kernel of the launch table has its source, the shared headers
-    are part of the build's key, and the scan tile is one number."""
+    are part of the build's key, and the scan and sort tiles are one
+    number on both sides."""
     assert set(blk.LAUNCHES) == {"KS", "K1", "K2", "K3", "K4", "K5", "K6", "K7",
                                  "K8", "K9", "K10", "K4x", "K11", "K12e", "K12d",
-                                 "KSx", "K13e", "K13d"}
+                                 "KSx", "K13e", "K13d", "SORT"}
     assert set(blk._EVENTS) == set(blk.LAUNCHES)
     names = {p.name for p in build._sources()}
     assert {"search.cu", "decode.cu", "model.cu", "rans.cu", "sortfind.cu",
@@ -113,13 +124,120 @@ def test_kernel_sources_and_launch_table():
     per = int(re.search(r"#define SCAN_PER (\d+)", scan).group(1))
     assert threads * per == tfast.SCAN_TILE
     sort = (build.CSRC / "sortlib.cuh").read_text()
-    assert int(re.search(r"#define RS_TILE (\d+)", sort).group(1)) == blk.K4_TILE
-    # one radix sort for both finders: neither source has a copy
+
+    def define(name):
+        return int(re.search(rf"#define {name} (\d+)", sort).group(1))
+
+    assert define("RS_THREADS") * define("RS_ITEMS") == blk.K4_TILE
+    assert "#define RS_TILE (RS_THREADS * RS_ITEMS)" in sort
+    assert (define("RS_HDR"), define("RS_PASSES")) == (blk.RS_HDR, blk.RS_PASSES)
+    assert define("RS_CTR") + 2 * define("RS_PASSES") == blk.RS_RUNS < blk.RS_HDR
+    # one radix sort for both finders: its kernels live in sortlib.cuh
+    # alone, neither finder has a copy, and one entry point launches it
+    srcs = {p.name: p.read_text() for p in build._sources()}
+    for name, src in srcs.items():
+        if name != "sortlib.cuh":
+            assert not re.search(r"void[^(]*\brs_(hist|plan|pass|finish)\(", src), name
     for name in ("sortfind.cu", "f2find.cu"):
-        src = (build.CSRC / name).read_text()
-        assert "radix_sort_pairs(" in src and "__match_any_sync" not in src
+        assert "__match_any_sync" not in srcs[name]
+    assert [n for n, src in srcs.items() if "radix_sort_pairs(" in src] == [
+        "sortfind.cu", "sortlib.cuh"]
+    assert "radix_sort_pairs(" in srcs["sortfind.cu"].split(
+        'extern "C" int cpx_radix_sort_launch')[1]
     blk.reset_launch_counts()
     assert not any(blk.LAUNCHES.values())
+
+
+def _smem_model_bytes(src):
+    """sizeof(SmemModel) from csrc/ppm_r.cuh: its int arrays and scalars."""
+    consts = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)\b", src)}
+    consts.update(SSE_K=consts["SSE_NCTX"] * 33, SSE_HK=consts["SSE_HCTX"] * 33,
+                  SSE_XK=consts["SSE_XCTX"] * 33)
+    body = re.search(r"struct SmemModel \{(.*?)\n\};", src, re.S).group(1)
+    n = 0
+    for decl in re.findall(r"^\s*(?:__align__\(16\) )?int ([^;]+);", body, re.M):
+        for item in decl.split(","):
+            dims = re.findall(r"\[([^\]]+)\]", item)
+            size = 1
+            for dim in dims:
+                size *= eval(dim, {}, consts)  # products of the header's constants
+            n += size
+    return 4 * n
+
+
+def test_row_ring_fits_beside_the_bucket_rows():
+    """At the main path's geometry (S=512, rolz_depth 64) K1 keeps its
+    lanes' bucket-row copies in shared memory beside the warps' row rings
+    and the static SmemModel, within the H100's 227 KB a CTA; the rings
+    alone fit at 1024 threads (csrc/decode.cu::cpx_k1_launch)."""
+    src = (build.CSRC / "ppm_r.cuh").read_text()
+    depth = int(re.search(r"#define CPX_RING_D (\d+)", src).group(1))
+    smem_max = int(re.search(r"#define CPX_SMEM_MAX (\d+)", src).group(1))
+    assert smem_max == 227 * 1024 and depth >= 2
+    model = _smem_model_bytes(src)
+    assert 25_000 < model < 40_000
+
+    def ring(threads):
+        return threads // 32 * depth * ppm.O2_W * 4
+
+    p = blk.BlockParams(lanes=512, steps=16384, mode="R", min_len=5, window=250,
+                        rolz_ctx_bytes=4, rolz_dec=2)
+    assert p.rolz_depth == 64
+    pos = (p.rolz_depth + 1) * p.lanes * 4
+    assert ring(512) + pos + model + 256 <= smem_max
+    assert ring(1024) + model + 256 <= smem_max
+
+
+def test_row_events_have_one_read_path():
+    """The A and B events are defined once (csrc/ppm_r.cuh) and every step
+    scan that codes events (K1, K12d/K13d, K2/K12e/K13e) reads their rows
+    through the same ring; no caller reads an o1 or o2 row on its own."""
+    srcs = {p.name: p.read_text() for p in build._sources()}
+    for fn in ("warp_a_event", "warp_o1_event"):
+        defs = [n for n, src in srcs.items()
+                if re.search(rf"static __device__ \w+ {fn}\(", src)]
+        assert defs == ["ppm_r.cuh"], fn
+    calls = {n: len(re.findall(r"warp_a_event<[^>]*>\(\s*c, ring,", src))
+             for n, src in srcs.items()}
+    assert {n: k for n, k in calls.items() if k} == {"decode.cu": 2, "model.cu": 1}
+    for name in ("decode.cu", "model.cu"):
+        assert len(re.findall(r"warp_o1_event<\w+>\(ring,", srcs[name])) == calls[name]
+        assert srcs[name].count("ring_start(dyn, tb.o2, O2_W,") == calls[name]
+        assert srcs[name].count("ring_start(dyn, tb.o1, O1_N,") == calls[name]
+    assert "* O2_W;" not in srcs["ppm_r.cuh"].split("struct RowRing")[1].split(
+        "struct PlainRow")[0]
+
+
+@pytest.mark.parametrize("name", [n for n in sort_keys.SETS if n != "random_8Mi"])
+def test_radix_sort_plain_route_and_passes(name):
+    """On a CPU tensor the shared sort is torch.sort(stable=True); the
+    passes it reports are the digits that are not the same for every key
+    (those the kernel runs)."""
+    keys = sort_keys.keys(name)
+    blk.reset_launch_counts()
+    hs, ps, passes = blk.radix_sort(keys)
+    hp, pp = torch.sort(keys, stable=True)
+    assert torch.equal(hs, hp) and torch.equal(ps, pp)
+    want = {"all_equal": 0, "one_key": 0, "two_values": 4, "low_8_bits": 1,
+            "low_16_bits": 2, "high_byte_only": 1}.get(name, 4)
+    assert passes == want == blk.radix_passes_plain(keys)
+    assert not any(blk.LAUNCHES.values())
+    with pytest.raises(ValueError, match="int64"):
+        blk.radix_sort(keys.to(torch.int32))
+
+
+def test_build_variant_has_its_own_library():
+    """An instrumented variant (extra defines, a subset of the sources) is
+    keyed apart from the main library, and lib() returns it only inside
+    build.variant."""
+    main = build.library_path()
+    var = build.library_path(("-DCPX_K1_PROF",), ("decode.cu",))
+    assert var != main and var.parent == main.parent
+    assert build._VARIANT == ((), None)
+    with build.variant("-DCPX_K1_PROF", only=("decode.cu",)):
+        assert build._VARIANT == (("-DCPX_K1_PROF",), ("decode.cu",))
+    assert build._VARIANT == ((), None)
+    assert "cpx_k1_prof_read" in build._INSTRUMENTED
 
 
 def test_build_cache_key_and_entry_points():
@@ -153,6 +271,51 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ (sm_90a)")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sort_keys.SETS)
+def test_radix_sort_matches_torch_sort(cuda_device, name):
+    """The shared radix sort (csrc/sortlib.cuh) against torch.sort(stable=
+    True) at tolerance 0, keys and positions, on adversarial key sets:
+    constant digits are skipped (passes), ties keep their order across
+    tiles, and a ragged last tile is handled."""
+    keys = sort_keys.keys(name)
+    blk.reset_launch_counts()
+    hs, ps, passes = blk.radix_sort(keys.to(cuda_device))
+    assert blk.LAUNCHES["SORT"] == 1
+    hp, pp = torch.sort(keys, stable=True)
+    assert torch.equal(hs.cpu(), hp) and torch.equal(ps.cpu(), pp)
+    assert passes == blk.radix_passes_plain(keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CRZ_GOLDENS)
+def test_k1_decodes_the_crz_goldens(cuda_device, name):
+    """K1 decodes every committed crz archive of the JAX package on the
+    card (1 MiB and 8 MiB, flexible and -f0, the -F ELF corpus, and S=2048
+    as a cluster of two CTAs) to its corpus' SHA-256."""
+    m = GOLDEN_META[name]
+    blk.reset_launch_counts()
+    out = io.BytesIO()
+    con.decode_stream(io.BytesIO((GOLDEN / name).read_bytes()), out, "cuda")
+    assert blk.LAUNCHES["K1"] >= 1
+    assert hashlib.sha256(out.getvalue()).hexdigest() == m["input_sha256"]
+
+
+@pytest.mark.cuda
+def test_k1_phase_build_decodes_like_the_main_build(cuda_device):
+    """The instrumented K1 (benchmarks/k1_phases.py) at ring depth 0 and at
+    the build's depth decodes the 1 MiB crz golden to its corpus, and its
+    phases account for the launch's cycles."""
+    from comprox_tpu_torch.benchmarks import k1_phases
+
+    name = "crz_flex_1MiB_S512.cpx"
+    res = k1_phases.run(GOLDEN / name, (0, k1_phases.default_depth()))
+    for r in res:
+        assert r["sha256"] == GOLDEN_META[name]["input_sha256"]
+        assert all(c > 0 for c in r["cycles"]) and abs(sum(r["share"]) - 1) < 1e-9
+    assert build._VARIANT == ((), None)
 
 
 @pytest.mark.cuda
@@ -453,8 +616,7 @@ def test_x_kernel_matches_plain(cuda_device, kernel, name):
     if kernel == "K4x":
         bytes_pad = blk.pad_block(p, inp)
         cfg = blk.finder_cfg(p, n, True)
-        hs, ps = blk.sort_positions(p, bytes_pad, n, entry="cpx_k4x_sort_launch",
-                                    cfg=cfg)
+        hs, ps = blk.sort_positions(p, bytes_pad, n, tag="k4x", cfg=cfg)
         hp, pp = torch.sort(blk.sort_keys_plain(p, bytes_pad, n, True), stable=True)
         assert torch.equal(hs, hp) and torch.equal(ps, pp)
         assert torch.equal(blk.sort_candidates(p, inp, n, content=True), cands)
