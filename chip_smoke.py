@@ -13,9 +13,10 @@ no result line:
 2. build: compiles the kernels (``comprox_tpu_torch/csrc``: thirteen
    sources, eighteen codec kernels counting the entries of modes X and P,
    the shared radix sort and the six probe kernels) with nvcc, one process
-   per source, and beside them two instrumented builds of ``decode.cu``
-   (K1's phase stamps, ``benchmarks/k1_phases.py``: row-ring depth 0 and
-   the build's depth), all started together.
+   per source, and beside them the instrumented builds of
+   ``benchmarks/phases.py`` (two of ``decode.cu``, K1's phase stamps at
+   row-ring depth 0 and at the build's depth; one of ``rank.cu`` and
+   ``model.cu``, K5's and K2's), all started together.
 3. golden: decodes the committed JAX-package archives
    (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
    under ``crz e -l512`` with the flexible parse and with ``-f0``, under
@@ -84,11 +85,13 @@ no result line:
    and the round trip must be bit-exact; prints MB/s, bpb and the kernel
    times, and fails if K4, K5, K6, K2, K3, K1 or the sort was not
    launched.
-14. K1 by phase: the same archive decoded through the two instrumented
-   builds of phase 2; each phase's share of K1's cycles and its
-   microseconds a step, at ring depth 0 (the o2 or o1 rows of a pair of
-   lanes issued when they are read, nothing in flight ahead) and at the
-   build's depth, side by side.
+14. the step scans by phase: the same archive decoded through K1's two
+   instrumented builds of phase 2, at ring depth 0 (the o2 or o1 rows of a
+   pair of lanes issued when they are read, nothing in flight ahead) and
+   at the build's depth, and its corpus encoded again through K5's and
+   K2's (the archive's SHA-256 == the JAX golden); each phase's share of
+   the kernel's cycles and its microseconds a step (K5, K2: on thread 0
+   and on the CTA's last thread).
 15. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
    K3 or K1 was not launched.
 16. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
@@ -246,15 +249,14 @@ def phase_device():
 
 
 def phase_build():
-    from comprox_tpu_torch.benchmarks import k1_phases
+    from comprox_tpu_torch.benchmarks import phases
     from comprox_tpu_torch.utils import build
 
-    depths = (0, k1_phases.default_depth())
-    libs = build.build_many(
-        [((), None)] + [(k1_phases.defines(d), ("decode.cu",)) for d in depths],
-        verbose=True)
+    depths = (0, phases.default_depth())
+    libs = build.build_many([((), None)] + phases.variant_specs(depths), verbose=True)
     print(f"kernels: {libs[0]}; K1's instrumented builds (ring depth "
-          f"{depths[0]}, {depths[1]}): {', '.join(p.name for p in libs[1:])}")
+          f"{depths[0]}, {depths[1]}): {', '.join(p.name for p in libs[1:3])}; "
+          f"K5's and K2's: {libs[3].name}")
     build.lib()
 
 
@@ -625,12 +627,13 @@ def phase_sort(corpus):
     return res
 
 
-def phase_k1_phases():
-    """K1 by phase: the 8 MiB flexible crz archive decoded through the two
-    instrumented builds (ring depth 0 and the build's depth)."""
-    from comprox_tpu_torch.benchmarks import k1_phases
+def phase_scan_phases():
+    """The step scans by phase: the 8 MiB flexible crz archive decoded
+    through K1's two instrumented builds of phase 2 (ring depth 0 and the
+    build's depth), its corpus encoded through K5's and K2's."""
+    from comprox_tpu_torch.benchmarks import phases
 
-    k1_phases.run(GOLDEN / MAIN_ARCHIVE, (0, k1_phases.default_depth()))
+    phases.run(GOLDEN / MAIN_ARCHIVE, ("K1", "K5", "K2"), (0, phases.default_depth()))
 
 
 def phase_kernels_fast(corpus):
@@ -1202,7 +1205,7 @@ def main() -> int:
     launches = ph.run(
         "full width, crz flexible parse", phase_full_width, corpora[MAIN_ARCHIVE],
         "crz", MAIN_ARCHIVE, [], ("K4", "K5", "K6", "K2", "K3", "K1", "SORT"))
-    ph.run("K1 by phase", phase_k1_phases)
+    ph.run("step scans by phase", phase_scan_phases)
     greedy = ph.run(
         "full width, crz greedy parse", phase_full_width, corpora[GREEDY_ARCHIVE],
         "crz", GREEDY_ARCHIVE, ["-f0"], ("KS", "K2", "K3", "K1"))

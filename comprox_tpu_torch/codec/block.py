@@ -1868,7 +1868,7 @@ def rank_scan(p: BlockParams, inp, n: int, props, rolz):
     cfg = _cfg_array(p, n)
     _launch("K5", build.lib().cpx_k5_launch, cfg.ctypes.data,
             inp.data_ptr(), props.data_ptr(), rolz.data_ptr(), out.data_ptr(),
-            _pos_scratch(p, inp.device).data_ptr(), _stream_ptr())
+            _stream_ptr())
     return out
 
 

@@ -65,7 +65,7 @@ struct StreamRead {
 };
 
 // An instrumented build (-DCPX_K1_PROF, which the main path's build does
-// not use; benchmarks/k1_phases.py) stamps clock64() at the end of each of
+// not use; benchmarks/phases.py) stamps the SM clock at the end of each of
 // K1's phases on thread 0 (CTA 0), sums each phase over the steps and adds
 // the sums to k1_prof at the end of the launch.
 #define K1_PHASES 12
@@ -73,7 +73,7 @@ struct StreamRead {
 __device__ unsigned long long k1_prof[K1_PHASES];
 #define K1_STAMP(k)                                   \
   if (gtid() == 0) {                                  \
-    const long long now_ = clock64();                 \
+    const long long now_ = prof_clock();              \
     prof_[k] += (unsigned long long)(now_ - stamp_);  \
     stamp_ = now_;                                    \
   }
@@ -103,13 +103,14 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
   const long long cap_n = (long long)c.S * c.T;
   const StreamRead sr{stream, c.stream_len, c.S};
   model_load(sm, tb);
+  keyf_init(own.keyf);
   group_sync<CL>();
   uint32_t x = alive ? (uint32_t)states[i] : RANS_L;
   uint32_t base = 0;
   uint32_t ctx4 = 0, ctx4b = 0;
   int copy_rem = 0, copy_src = 0;
 #ifdef CPX_K1_PROF
-  stamp_ = clock64();
+  stamp_ = prof_clock();
 #endif
   // the lanes' copies of bucket rows: the A event's row until the byte is
   // resolved, then the insert row
@@ -171,12 +172,17 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
       u.ctx2 = cx.ctx2; u.p1 = cx.p1; u.h3 = cx.h3; u.pred = cx.pred;
       u.conf = cx.conf; u.raw = cx.raw;
       u.idx_ctx = fill_bucket(fill);
-      if (u.is_match) sm.hot_idx[clampi(u.idx_ctx, 0, 3)] = 1;
+      if (u.is_match) {
+        const int ic = clampi(u.idx_ctx, 0, 3);
+        mark_hot(&sm.hot_idx[ic], &sm.idx_sum[ic], c.idx_cap, &sm.due_idx);
+      }
     }
     upd_keys(own, alive, u);
     group_sync<CL>();
-    idx_rescale(c, sm);
-    group_sync<CL>();
+    if (sm.due_idx) {  // the same on every thread: no barrier otherwise
+      idx_rescale(c, sm);
+      group_sync<CL>();
+    }
     K1_STAMP(4)
 
     // ---- B event: o1 literal (escape lanes) or ROLZ index (match lanes)
@@ -197,7 +203,8 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
                                 (int)dec_target(x, max(tot_i, 1)), ci_raw, fi_raw);
         u.len_ctx = rec_bucket(u.sym_idx);
         norm_cf(ci_raw, max(fi_raw, 1), max(tot_i, 1), cb, fb);
-        sm.hot_len[clampi(u.len_ctx, 0, 3)] = 1;
+        const int lc = clampi(u.len_ctx, 0, 3);
+        mark_hot(&sm.hot_len[lc], &sm.len_sum[lc], c.len_cap, &sm.due_len);
       }
       xt = dec_advance(x, cb, fb);
       need = xt < RANS_L;
@@ -212,8 +219,10 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
       else if (alive) x = xt;
       base += (uint32_t)total;
     }
-    len_rescale(c, sm);
-    group_sync<CL>();
+    if (sm.due_len) {
+      len_rescale(c, sm);
+      group_sync<CL>();
+    }
     K1_STAMP(6)
 
     // ---- C event: match length
@@ -267,23 +276,24 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
       if (insert_here(c, cx.active, t, cx.pos))
         ins_key = (int)rolz_hash3(rolz_key(ctx4bn, c.rolz_ctx_bytes), c.rolz_bits);
     }
-    own.key_ins[threadIdx.x] = ins_key;
+    key_post(own.key_ins, own.keyf, ins_key, SALT_INS);
     group_sync<CL>();
     K1_STAMP(8)
-    int slot = bucket_slot<CL>(rolz, c, own.key_ins, ins_key, posbuf, pitch);
+    int slot = bucket_slot<CL>(rolz, c, own.key_ins, own.keyf, SALT_INS, ins_key, posbuf, pitch);
     group_sync<CL>();
     K1_STAMP(9)
 
     // ---- stores, then additive updates
+    upd_store<CL>(tb, own, u);
     if (alive) {
-      upd_store<CL>(tb, own, u);
       if (slot >= 0) bucket_store(rolz, c, (uint32_t)ins_key, slot, cx.pos, byteswap32(ctx4n));
       out[(size_t)i * c.T + t] = (uint8_t)(cx.active ? byte : 0);
     }
     group_sync<CL>();
     K1_STAMP(10)
+    key_clear(own.keyf, ins_key, SALT_INS);
     if (alive) {
-      upd_add(c, tb, sm, u);
+      upd_add(c, tb, sm, own, u);
       copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
       copy_src = u.is_match ? src + 1 : copy_src + 1;
       ctx4 = ctx4n;
@@ -331,6 +341,7 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
   const long long cap_n = (long long)c.S * c.T;
   const StreamRead sr{stream, c.stream_len, c.S};
   model_load<MODE>(sm, tb);
+  keyf_init(own.keyf);
   group_sync<CL>();
   uint32_t x = alive ? (uint32_t)states[i] : RANS_L;
   uint32_t base = 0;
@@ -379,15 +390,17 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
       u.ctx2 = cx.ctx2; u.p1 = cx.p1; u.h3 = cx.h3; u.pred = cx.pred;
       u.conf = cx.conf; u.raw = cx.raw;
       if (u.is_match) {
-        if (XMODE) sm.hot_dst = 1;
-        else sm.hot_len[0] = 1;  // mode P: C's one context
+        if (XMODE) mark_hot(&sm.hot_dst, &sm.dst_sum, c.dst_cap, &sm.due_idx);
+        else mark_hot(&sm.hot_len[0], &sm.len_sum[0], c.len_cap, &sm.due_len);  // mode P: C's one context
       }
     }
     upd_keys(own, alive, u);
     if (XMODE) {
       group_sync<CL>();
-      dst_rescale(c, sm);
-      group_sync<CL>();
+      if (sm.due_idx) {
+        dst_rescale(c, sm);
+        group_sync<CL>();
+      }
     }
 
     // ---- B event: o1 literal (escape lanes); mode X: or the distance
@@ -409,14 +422,16 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
         const int k_pre = clampi(
             u.sym_dst == SYM_DST_REPEAT ? dist_bucket(prev_dist) : u.sym_dst, 0, 24);
         u.len_ctx = min(k_pre / 6, 3);
-        sm.hot_len[u.len_ctx] = 1;
+        mark_hot(&sm.hot_len[u.len_ctx], &sm.len_sum[u.len_ctx], c.len_cap, &sm.due_len);
       }
       xt = dec_advance(x, cb, fb);
       need = xt < RANS_L;
     }
     CPX_RENORM(1)
-    len_rescale(c, sm);
-    group_sync<CL>();
+    if (sm.due_len) {
+      len_rescale(c, sm);
+      group_sync<CL>();
+    }
 
     // ---- C event: match length
     int sym_l = 0;
@@ -513,13 +528,13 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
     group_sync<CL>();  // every copy has read the output before this step's write
 
     // ---- stores, then additive updates
+    upd_store<CL>(tb, own, u);
     if (alive) {
-      upd_store<CL>(tb, own, u);
       out[(size_t)i * c.T + t] = (uint8_t)(cx.active ? byte : 0);
     }
     group_sync<CL>();
     if (alive) {
-      upd_add<MODE>(c, tb, sm, u);
+      upd_add<MODE>(c, tb, sm, own, u);
       copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
       copy_src = u.is_match ? src + 1 : copy_src + 1;
       if (u.is_match) prev_dist = dist;

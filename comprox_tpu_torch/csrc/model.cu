@@ -46,6 +46,17 @@
 
 namespace {
 
+// An instrumented build (-DCPX_K2_PROF, which the main path's build does
+// not use; benchmarks/phases.py) stamps the SM clock at the end of each of the
+// modeling scan's phases (ppm_r.cuh::PhaseClock), in every mode's entry.
+#define K2_PHASES 10
+#ifdef CPX_K2_PROF
+__device__ unsigned long long k2_prof[2 * K2_PHASES];
+#define K2_STAMP(k) clk_.mark(k);
+#else
+#define K2_STAMP(k)
+#endif
+
 // Slots D and E of a mode-X match lane (block.py::_mant_events_enc): the
 // normalised events, and in u what the mantissa update needs.
 static __device__ void mant_events(const SmemModel& sm, int dist, int k_dist,
@@ -85,18 +96,46 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
   extern __shared__ __align__(16) int dyn[];  // the warps' row rings
   const int i = gtid();
   const bool alive = i < c.S;
+  __shared__ int sse_thr[33];  // the APM thresholds, for the A event's per-lane SSE
   model_load<MODE>(sm, tb);
+  keyf_init(own.keyf);
+  for (int k = threadIdx.x; k < 33; k += blockDim.x) sse_thr[k] = kSseThr[k];
   group_sync<CL>();
   const size_t plane = (size_t)c.T * c.S;
   const int n_ev = XMODE ? 15 : 9;
   uint32_t ctx4 = 0, ctx4b = 0;
   int copy_rem = 0, copy_src = 0, prev_dist = 1;
+  // a step's o3 entry, decisions and byte, loaded in the step before's add
+  // phase (after the o3 winners' stores; nothing writes them later), so
+  // that the step does not open on a round trip
+  int raw_n = 0, len_n = 0, src_n = 0, idx_n = 0, fill_n = 0, byte_n = 0;
+  auto prefetch = [&](int tn) {
+    if (!alive || tn >= c.T) return;
+    const size_t o = (size_t)tn * c.S + i;
+    raw_n = tb.o3[o3_slot(c, ctx4)];
+    if (!PMODE && c.match) {
+      len_n = dec[o];
+      src_n = dec[plane + o];
+      if (!XMODE) {
+        idx_n = dec[2 * plane + o];
+        fill_n = dec[3 * plane + o];
+      }
+    }
+    byte_n = inp[(size_t)i * c.T + tn];
+  };
+  prefetch(0);
+#ifdef CPX_K2_PROF
+  __shared__ unsigned long long prof_[2 * K2_PHASES];
+  PhaseClock<K2_PHASES> clk_;
+  clk_.start(prof_);
+#endif
 
   for (int t = 0; t < c.T; ++t) {
     o1_rescale(tb.o1, sm.o1sum, c.cap1);
     group_sync<CL>();
+    K2_STAMP(0)
 
-    Ctx x = common_reads(c, tb, i, t, ctx4, copy_rem, alive);
+    Ctx x = contexts(c, i, t, ctx4, copy_rem, alive, raw_n);
     Upd u = {};
     int length = 0, src = 0, fill = 0, byte = 0, dist = 1, k_dist = 0;
     int c1_raw = 0, f1_raw = 0, tot1 = 0;
@@ -105,7 +144,6 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
     RowRing ring = ring_start(dyn, tb.o2, O2_W, coding, x.ctx2);
     bool lzp_ok = false;
     if (alive) {
-      size_t o = (size_t)t * c.S + i;
       if (PMODE) {
         if (coding && c.match) {
           lzp_ok = lzp_candidate(c, lzp, inp, t, ctx4, ctx4b, src);
@@ -114,14 +152,14 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
           if (length < c.min_len) length = 0;  // too short: a literal
         }
       } else if (c.match) {
-        length = dec[o];
-        src = dec[plane + o];
+        length = len_n;
+        src = src_n;
         if (!XMODE) {
-          u.sym_idx = dec[2 * plane + o];
-          fill = dec[3 * plane + o];
+          u.sym_idx = idx_n;
+          fill = fill_n;
         }
       }
-      byte = inp[(size_t)i * c.T + t];
+      byte = byte_n;
       u.byte = byte;
       u.ctx2 = x.ctx2; u.p1 = x.p1; u.h3 = x.h3; u.pred = x.pred;
       u.conf = x.conf; u.raw = x.raw;
@@ -135,10 +173,11 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
       }
       u.sym_len = clampi(length - c.min_len, 0, LEN_W - 1);
     }
+    K2_STAMP(1)
     const AEvent a = warp_a_event<false, MODE>(
         c, ring, coding, x.ctx2, x.pred, x.conf,
         XMODE ? sse_x_ctx(x.conf, x.p1) : PMODE ? sse_p_ctx(x.conf, lzp_ok, x.p1) : fill,
-        sm.sse, MODE == MODE_R ? sm.sse_h : sm.sse_x, 0u, byte, length > 0);
+        sm.sse, MODE == MODE_R ? sm.sse_h : sm.sse_x, 0u, byte, length > 0, sse_thr);
     if (coding) {
       u.sse = a.sse;
       u.halvings = a.h;
@@ -152,11 +191,17 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
       u.is_esc = sym_a == SYM_ESC;
       u.is_match = sym_a == SYM_MATCH;
       if (u.is_match) {
-        if (XMODE) sm.hot_dst = 1;
-        else if (!PMODE) sm.hot_idx[clampi(u.idx_ctx, 0, 3)] = 1;
-        sm.hot_len[clampi(u.len_ctx, 0, 3)] = 1;
+        if (XMODE) {
+          mark_hot(&sm.hot_dst, &sm.dst_sum, c.dst_cap, &sm.due_idx);
+        } else if (!PMODE) {
+          const int ic = clampi(u.idx_ctx, 0, 3);
+          mark_hot(&sm.hot_idx[ic], &sm.idx_sum[ic], c.idx_cap, &sm.due_idx);
+        }
+        const int lc = clampi(u.len_ctx, 0, 3);
+        mark_hot(&sm.hot_len[lc], &sm.len_sum[lc], c.len_cap, &sm.due_len);
       }
     }
+    K2_STAMP(2)
     // B, o1 part (the o1 table is final for this step after its rescale)
     ring = ring_start(dyn, tb.o1, O1_N, u.is_esc, x.p1);
     const O1Event b = warp_o1_event<false>(ring, u.is_esc, x.p1, a.ex, x.pred,
@@ -166,34 +211,42 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
       c1_raw = b.c;
       f1_raw = b.f;
     }
+    K2_STAMP(3)
     upd_keys(own, alive, u);
     group_sync<CL>();
+    K2_STAMP(4)
 
-    if (XMODE) dst_rescale(c, sm);
-    else if (!PMODE) idx_rescale(c, sm);  // mode P never reads an idx row
-    len_rescale(c, sm);
-    group_sync<CL>();
+    if (sm.due_idx | sm.due_len) {  // the same on every thread: no barrier otherwise
+      if (XMODE) dst_rescale(c, sm);
+      else if (!PMODE) idx_rescale(c, sm);  // mode P never reads an idx row
+      len_rescale(c, sm);
+      group_sync<CL>();
+    }
+    K2_STAMP(5)
 
+    // C (and B of a match): each match lane's (cum, freq) of its len
+    // symbol, and of its idx symbol (mode R) or distance bucket (mode X),
+    // by its whole warp
+    const int lc = clampi(u.len_ctx, 0, 3), ic = clampi(u.idx_ctx, 0, 3);
+    const bool repeat = XMODE && dist == prev_dist;
+    if (XMODE && u.is_match) u.sym_dst = repeat ? SYM_DST_REPEAT : k_dist;
+    int ci_raw = 0, fi_raw = 0, cl_raw = 0, fl_raw = 0;
+    warp_cum_frq(u.is_match, sm.len, LEN_W, lc * LEN_W, u.sym_len, cl_raw, fl_raw);
+    if (!PMODE)
+      warp_cum_frq(u.is_match, XMODE ? sm.dst : sm.idx, XMODE ? DST_W : IDX_W,
+                   XMODE ? 0 : ic * IDX_W, XMODE ? u.sym_dst : u.sym_idx, ci_raw, fi_raw);
     if (alive) {
       uint32_t cb = 0, fb = RANS_M, cc = 0, fc = RANS_M;
       uint32_t cd = 0, fd = RANS_M, ce = 0, fe = RANS_M;
       bool act_d = false, act_e = false;
       if (u.is_esc) norm_cf(c1_raw, max(f1_raw, 1), max(tot1, 1), cb, fb);
       if (u.is_match) {
-        int lc = clampi(u.len_ctx, 0, 3);
-        int ci_raw, fi_raw, cl_raw, fl_raw;
         if (XMODE) {
-          const bool repeat = dist == prev_dist;
-          u.sym_dst = repeat ? SYM_DST_REPEAT : k_dist;
-          cum_frq_of(PlainRow{sm.dst}, DST_W, u.sym_dst, ci_raw, fi_raw);
           norm_cf(ci_raw, max(fi_raw, 1), max(sm.dst_sum, 1), cb, fb);
           mant_events(sm, dist, k_dist, !repeat, u, cd, fd, act_d, ce, fe, act_e);
         } else if (!PMODE) {
-          int ic = clampi(u.idx_ctx, 0, 3);
-          cum_frq_of(PlainRow{sm.idx + ic * IDX_W}, IDX_W, u.sym_idx, ci_raw, fi_raw);
           norm_cf(ci_raw, max(fi_raw, 1), max(sm.idx_sum[ic], 1), cb, fb);
         }
-        cum_frq_of(PlainRow{sm.len + lc * LEN_W}, LEN_W, u.sym_len, cl_raw, fl_raw);
         norm_cf(cl_raw, max(fl_raw, 1), max(sm.len_sum[lc], 1), cc, fc);
       }
       int* e = ev + (size_t)t * n_ev * c.S + i;
@@ -205,12 +258,14 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
         e[9 * c.S] = (int)cd; e[10 * c.S] = (int)fd; e[11 * c.S] = act_d;
         e[12 * c.S] = (int)ce; e[13 * c.S] = (int)fe; e[14 * c.S] = act_e;
       }
-      upd_store<CL>(tb, own, u);
     }
+    K2_STAMP(6)
+    upd_store<CL>(tb, own, u);
     group_sync<CL>();
+    K2_STAMP(7)
 
     if (alive) {
-      upd_add<MODE>(c, tb, sm, u);
+      upd_add<MODE>(c, tb, sm, own, u);
       // block.py::_post_step without a bucket insert
       copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
       copy_src = u.is_match ? src + 1 : copy_src + 1;
@@ -221,9 +276,15 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
       }
       if (PMODE && c.match) lzp_insert(c, lzp, x.active, t, x.pos, ctx4, ctx4b);
     }
+    prefetch(t + 1);
     group_sync<CL>();
+    K2_STAMP(8)
     upd_finish<MODE>(sm, c.mant_cap);
+    K2_STAMP(9)
   }
+#ifdef CPX_K2_PROF
+  clk_.flush(k2_prof);
+#endif
   group_sync<CL>();
   model_store<MODE>(sm, tb);
   if (CL) group_sync<CL>();  // CTA 0 stays until every CTA has read its models
@@ -275,3 +336,12 @@ extern "C" int cpx_k13e_launch(const int* cfg, const void* inp, void* o2, void* 
   return model_launch<MODE_P>(cfg, inp, nullptr, tb, ev, stream,
                               Lzp{(int*)lzp2, (int*)lzp4, (int*)lzp8});
 }
+
+#ifdef CPX_K2_PROF
+// The instrumented build's phase sums (2 * K2_PHASES counters of SM
+// cycles: thread 0's, then the last thread's, summed over every launch of
+// K2, K12e or K13e since the last call): copied into out, then set to 0.
+extern "C" int cpx_k2_prof_read(void* out) {
+  return prof_read(out, k2_prof, sizeof(k2_prof));
+}
+#endif

@@ -91,6 +91,117 @@ static __device__ __forceinline__ void group_sync() {
   else __syncthreads();
 }
 
+// ---- phase stamps of an instrumented build --------------------------------
+// The SM clock, read where the code puts it: a volatile read with a memory
+// clobber, which the compiler keeps on its side of every barrier (a plain
+// clock64() may be hoisted above the barrier it follows, and the wait is
+// then charged to the next phase).
+static __device__ __forceinline__ long long prof_clock() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+
+// A step scan built with its -DCPX_<K>_PROF (K5, K2; K1 has its own
+// K1_STAMP) stamps prof_clock() at the end of each of its N phases on two
+// observers, thread 0 of CTA 0 and the launch's last thread (in a cluster,
+// the CTA that reads the most other CTAs' keys), and sums each phase's
+// cycles over the steps in its CTA's shared memory: sums[obs * N + k].
+// flush adds them to a __device__ array of 2 * N counters that the
+// kernel's prof_read entry copies out (benchmarks/phases.py).  The main
+// path's build has no stamps.
+template <int N>
+struct PhaseClock {
+  unsigned long long* sums;  // shared [2 * N]
+  long long stamp;
+  int obs;  // 0, 1, or -1 on every other thread
+
+  __device__ void start(unsigned long long* shared_sums) {
+    sums = shared_sums;
+    obs = blockIdx.x == 0 && threadIdx.x == 0                               ? 0
+          : blockIdx.x == gridDim.x - 1 && threadIdx.x == blockDim.x - 1 ? 1
+                                                                           : -1;
+    if (obs >= 0)
+      for (int k = 0; k < N; ++k) sums[obs * N + k] = 0;
+    stamp = prof_clock();
+  }
+  __device__ __forceinline__ void mark(int k) {
+    if (obs < 0) return;
+    const long long now = prof_clock();
+    sums[obs * N + k] += (unsigned long long)(now - stamp);
+    stamp = now;
+  }
+  __device__ void flush(unsigned long long* dst) {
+    if (obs >= 0)
+      for (int k = 0; k < N; ++k) atomicAdd(&dst[obs * N + k], sums[obs * N + k]);
+  }
+};
+
+// Beside a PhaseClock, the slowest thread of CTA 0 in each phase between
+// two barriers: every thread times its own phases (mark), publishes them
+// before the closing barrier (a shared maximum per phase, this step's),
+// and after it thread 0 adds the maxima to the sums and clears them.
+template <int N>
+struct SlowestClock {
+  unsigned long long* sums;  // shared [N]: the sums over the steps
+  unsigned* step_max;        // shared [N]: this step's maxima
+  long long stamp;
+  unsigned dur[N];
+
+  __device__ void start(unsigned long long* shared_sums, unsigned* shared_max) {
+    sums = shared_sums;
+    step_max = shared_max;
+    if (threadIdx.x == 0)
+      for (int k = 0; k < N; ++k) sums[k] = step_max[k] = 0;
+    for (int k = 0; k < N; ++k) dur[k] = 0;
+    stamp = prof_clock();
+  }
+  __device__ __forceinline__ void mark(int k) {
+    const long long now = prof_clock();
+    dur[k] = (unsigned)(now - stamp);
+    stamp = now;
+  }
+  __device__ void publish(int lo, int hi) {  // before the barrier
+    if (blockIdx.x == 0)
+      for (int k = lo; k <= hi; ++k) atomicMax(&step_max[k], dur[k]);
+  }
+  __device__ void collect(int lo, int hi) {  // after it
+    if (blockIdx.x == 0 && threadIdx.x == 0)
+      for (int k = lo; k <= hi; ++k) {
+        sums[k] += step_max[k];
+        step_max[k] = 0;
+      }
+  }
+  __device__ void flush(unsigned long long* dst) {
+    if (blockIdx.x == 0 && threadIdx.x == 0)
+      for (int k = 0; k < N; ++k) atomicAdd(&dst[k], sums[k]);
+  }
+};
+
+// Copy an instrumented kernel's phase sums (the __device__ array sym of
+// `bytes`, at most 64 counters) out, then set them to 0.
+static inline int prof_read(void* out, const void* sym, size_t bytes) {
+  static const unsigned long long zero[64] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(out, sym, bytes);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(sym, zero, bytes);
+  return (int)e;
+}
+
+// A barrier in two halves: arrive, then, after work that needs no other
+// thread's, wait.  In a cluster, barrier.cluster's arrive, relaxed (no
+// write before it has to be seen after it, only the reads before it must
+// be done), and wait; in one CTA the wait is the whole barrier.
+template <bool CL>
+static __device__ __forceinline__ void group_arrive() {
+  if (CL) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+template <bool CL>
+static __device__ __forceinline__ void group_wait() {
+  if (CL) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  else __syncthreads();
+}
+
 // The same shared-memory variable in CTA r of the cluster.
 template <bool CL, typename T>
 static __device__ __forceinline__ T* at_rank(T* p, int r) {
@@ -284,15 +395,28 @@ struct ApmPt {
   int flat, w, ti, tip1;
 };
 
-static __device__ int apm_read(const int* tab, int k, int ctx, int p16, ApmPt& st) {
+// The APM thresholds, read from constant memory (where the index is the
+// same on the warp's threads: one broadcast) or from a copy in shared
+// memory (where each thread reads its own).
+struct ThrConst {
+  __device__ __forceinline__ int operator()(int i) const { return kSseThr[i]; }
+};
+struct ThrShared {
+  const int* p;
+  __device__ __forceinline__ int operator()(int i) const { return p[i]; }
+};
+
+template <typename Thr = ThrConst>
+static __device__ int apm_read(const int* tab, int k, int ctx, int p16, ApmPt& st,
+                               Thr thr = Thr{}) {
   // i = how many of kSseThr[1..31] are <= p16 (they increase): a binary
-  // search, the index warp-uniform in the A event (constant-cache reads)
+  // search
   int i = 0;
 #pragma unroll
   for (int step = 16; step > 0; step >>= 1)
-    if (i + step <= 31 && p16 >= kSseThr[i + step]) i += step;
-  int thr_i = kSseThr[i];
-  int span_i = max(kSseThr[i + 1] - thr_i, 1);
+    if (i + step <= 31 && p16 >= thr(i + step)) i += step;
+  int thr_i = thr(i);
+  int span_i = max(thr(i + 1) - thr_i, 1);
   st.w = clampi(floordiv((p16 - thr_i) * 64, span_i), 0, 64);
   st.flat = ctx * 33 + i;
   st.ti = (st.flat >= 0 && st.flat < k) ? tab[st.flat] : 0;
@@ -315,12 +439,13 @@ struct SseState {
 
 // The hit APM alone (ppm._hit_reshape; table tab of k entries, context
 // hctx): rewrites the HIT frequency, returns the new sum.
+template <typename Thr = ThrConst>
 static __device__ int hit_reshape(int& f_hit, int tot, const int* tab, int k,
-                                  int hctx, int conf, SseState& st) {
+                                  int hctx, int conf, SseState& st, Thr thr = Thr{}) {
   int f_h0 = f_hit;
   int tot_h = max(tot, 1);
   int p16h = clampi(floordiv(f_h0 * 4096, tot_h), 1, 4095) << 4;
-  int ph = apm_read(tab, k, hctx, p16h, st.h);
+  int ph = apm_read(tab, k, hctx, p16h, st.h, thr);
   int ph12 = clampi(ph >> 4, 1, 4095);
   int f_h_new = floordiv(ph12 * (tot_h - f_h0), 4096 - ph12);
   f_h_new = min(max(f_h_new, 1), f_h0 + max(32768 - tot_h, 0));
@@ -345,11 +470,12 @@ static __device__ __forceinline__ int sse_p_ctx(int conf, bool avail, int p1) {
 // The SSE stage on the A distribution (hit APM, then match APM): rewrites
 // the HIT and MATCH frequencies of a rowmod whose sum is tot; returns the
 // new sum.
+template <typename Thr = ThrConst>
 static __device__ int sse_reshape(int& f_hit, int& f_match, int f_hit2, int tot,
                                   const int* sse, const int* sse_h, int fill,
-                                  int conf, SseState& st) {
+                                  int conf, SseState& st, Thr thr = Thr{}) {
   int hctx = (clampi(conf, 1, 3) - 1) * 2 + (fill > 0 ? 1 : 0);
-  int tot0 = hit_reshape(f_hit, tot, sse_h, SSE_HK, hctx, conf, st);
+  int tot0 = hit_reshape(f_hit, tot, sse_h, SSE_HK, hctx, conf, st, thr);
   int fh = f_hit;
 
   int f_m = f_match;
@@ -357,7 +483,7 @@ static __device__ int sse_reshape(int& f_hit, int& f_match, int f_hit2, int tot,
   int p16 = clampi(floordiv(f_m * 4096, rest), 1, 4095) << 4;
   int fillc = fill > 0 ? 1 + clampi(floordiv(fill - 1, 16), 0, 3) : 0;
   int mctx = fillc * 4 + clampi(conf, 0, 3);
-  int ps = apm_read(sse, SSE_K, mctx, p16, st.m);
+  int ps = apm_read(sse, SSE_K, mctx, p16, st.m, thr);
   int ps12 = clampi(ps >> 4, 1, 4095);
   int f_new = floordiv(ps12 * (rest - f_m), 4096 - ps12);
   f_new = min(max(f_new, 1), f_m + max(32768 - tot0, 0));
@@ -554,6 +680,7 @@ struct AEvent {
   int tot, h, sym, c, f, fbyte;
   SseState sse;
   unsigned ex[O1_N / 32];
+  int sp[4], bytes_tot;  // encode: HIT, ESC, MATCH, HIT2 and the byte slots' sum before SSE
 };
 
 // The A event of every lane of the warp with want set (ppm.read_o2 with
@@ -565,12 +692,18 @@ struct AEvent {
 // state x; encode takes the symbol from the lane's byte and match flag
 // (the JAX rule of block.py::_encode_model_body).  Modes X and P have the
 // hit APM only: its table is passed as sse_h and its context (sse_x_ctx,
-// sse_p_ctx) as fill.  Call with the warp converged.
+// sse_p_ctx) as fill.  Encode knows its symbol before the SSE stage, which
+// only reshapes HIT and MATCH and the total: the pairs' rounds skip it, and
+// each coded lane runs it once for itself after the rounds (every lane of
+// the warp at once, the thresholds from the shared copy sse_thr), where
+// decode, which needs the reshaped total to find its symbol, runs it in
+// each round.  Call with the warp converged.
 template <bool DECODE, int MODE = MODE_R>
 static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
                                       int ctx2, int pred, int conf, int fill,
                                       const int* sse, const int* sse_h, uint32_t x,
-                                      int byte, bool is_match) {
+                                      int byte, bool is_match,
+                                      const int* sse_thr = nullptr) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31, hl = lane & (HALF - 1), half = lane & HALF;
   AEvent mine{};
@@ -593,41 +726,42 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
     const int4 sp = reinterpret_cast<const int4*>(row)[O1_N / 4];
     const int praw = row[pr];
     ring_release(ring, ctx2);
-    // the row sum after 0, 1, 2 and 3 halving rounds: the byte slots over
-    // the half, the sticky slots on every thread
-    int s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+    // the row sum (the byte slots over the half, the sticky slots on every
+    // thread); a round halves while the sum is over the cap, at most three
+    // rounds.  Halving is rare: the sums after 1-3 rounds are formed only
+    // where one of the warp's two rows is over the cap.
+    int s0 = 0;
 #pragma unroll
-    for (int j = 0; j < SLOTS_T; ++j) {
-      int y = v[j];
-      s0 += y;
-      y = halve1(y, false);
-      s1 += y;
-      y = halve1(y, false);
-      s2 += y;
-      s3 += halve1(y, false);
-    }
-    s0 = half_sum(s0);
-    s1 = half_sum(s1);
-    s2 = half_sum(s2);
-    s3 = half_sum(s3);
-    {
+    for (int j = 0; j < SLOTS_T; ++j) s0 += v[j];
+    s0 = half_sum(s0) + sp.x + sp.y + sp.z + sp.w;
+    int h = 0, sum = s0;
+    const bool halving = __any_sync(full, s0 > cfg.cap2);
+    if (halving) {
+      int s1 = 0, s2 = 0, s3 = 0;
+#pragma unroll
+      for (int j = 0; j < SLOTS_T; ++j) {
+        int y = halve1(v[j], false);
+        s1 += y;
+        y = halve1(y, false);
+        s2 += y;
+        s3 += halve1(y, false);
+      }
+      s1 = half_sum(s1);
+      s2 = half_sum(s2);
+      s3 = half_sum(s3);
       const int spv[4] = {sp.x, sp.y, sp.z, sp.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        int y = spv[q];
-        s0 += y;
-        y = halve1(y, true);
+        int y = halve1(spv[q], true);
         s1 += y;
         y = halve1(y, true);
         s2 += y;
         s3 += halve1(y, true);
       }
+      if (sum > cfg.cap2) { h = 1; sum = s1; }
+      if (h == 1 && sum > cfg.cap2) { h = 2; sum = s2; }
+      if (h == 2 && sum > cfg.cap2) { h = 3; sum = s3; }
     }
-    // a round halves while the sum is over the cap, at most three rounds
-    int h = 0, sum = s0;
-    if (sum > cfg.cap2) { h = 1; sum = s1; }
-    if (h == 1 && sum > cfg.cap2) { h = 2; sum = s2; }
-    if (h == 2 && sum > cfg.cap2) { h = 3; sum = s3; }
     const int esc0 = halve_n(sp.y, h, true);  // SYM_ESC
     const int esc = max(esc0, 1);
     int hit = halve_n(sp.x, h, true);         // SYM_HIT
@@ -636,7 +770,9 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
     const bool pred_in = halve_n(praw, h, false) > 0;
     sum += esc - esc0 - halve_n(praw, h, false);
     SseState st{};
-    if (MODE != MODE_R) {
+    if (!DECODE) {
+      // encode: the SSE stage after the rounds
+    } else if (MODE != MODE_R) {
       if (cfg.use_sse)
         sum = hit_reshape(hit, sum, sse_h, HIT_APM_K(MODE),
                           __shfl_sync(full, fill, src), __shfl_sync(full, conf, src), st);
@@ -648,7 +784,8 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
     // HIT2 as the read set them
     int w[SLOTS_T];
 #pragma unroll
-    for (int j = 0; j < SLOTS_T; ++j) w[j] = SLOTS_T * hl + j == pr ? 0 : halve_n(v[j], h, false);
+    for (int j = 0; j < SLOTS_T; ++j)
+      w[j] = SLOTS_T * hl + j == pr ? 0 : halving ? halve_n(v[j], h, false) : v[j];
     int bytes_tot;
     const int base = scan16(w, bytes_tot);
     const int spw[4] = {hit, esc, match, hit2};
@@ -672,7 +809,7 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
     }
     int cum, frq;
     cum_frq16(w, base, min(sym, O1_N - 1), cum, frq);
-    if (sym >= O1_N) {
+    if (DECODE && sym >= O1_N) {
       cum = bytes_tot;
       frq = spw[0];
 #pragma unroll
@@ -691,15 +828,23 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
     r.c = __shfl_sync(full, cum, from);
     r.f = __shfl_sync(full, frq, from);
     r.fbyte = __shfl_sync(full, fbyte, from);
-    r.sse.m.flat = __shfl_sync(full, st.m.flat, from);
-    r.sse.m.w = __shfl_sync(full, st.m.w, from);
-    r.sse.m.ti = __shfl_sync(full, st.m.ti, from);
-    r.sse.m.tip1 = __shfl_sync(full, st.m.tip1, from);
-    r.sse.h.flat = __shfl_sync(full, st.h.flat, from);
-    r.sse.h.w = __shfl_sync(full, st.h.w, from);
-    r.sse.h.ti = __shfl_sync(full, st.h.ti, from);
-    r.sse.h.tip1 = __shfl_sync(full, st.h.tip1, from);
-    r.sse.act_h = __shfl_sync(full, (int)st.act_h, from);
+    if (DECODE) {
+      r.sse.m.flat = __shfl_sync(full, st.m.flat, from);
+      r.sse.m.w = __shfl_sync(full, st.m.w, from);
+      r.sse.m.ti = __shfl_sync(full, st.m.ti, from);
+      r.sse.m.tip1 = __shfl_sync(full, st.m.tip1, from);
+      r.sse.h.flat = __shfl_sync(full, st.h.flat, from);
+      r.sse.h.w = __shfl_sync(full, st.h.w, from);
+      r.sse.h.ti = __shfl_sync(full, st.h.ti, from);
+      r.sse.h.tip1 = __shfl_sync(full, st.h.tip1, from);
+      r.sse.act_h = __shfl_sync(full, (int)st.act_h, from);
+    } else {
+      r.sp[0] = __shfl_sync(full, hit, from);
+      r.sp[1] = __shfl_sync(full, esc, from);
+      r.sp[2] = __shfl_sync(full, match, from);
+      r.sp[3] = __shfl_sync(full, hit2, from);
+      r.bytes_tot = __shfl_sync(full, bytes_tot, from);
+    }
     if (coded) {
       mine.tot = r.tot;
       mine.h = r.h;
@@ -707,7 +852,13 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
       mine.c = r.c;
       mine.f = r.f;
       mine.fbyte = r.fbyte;
-      mine.sse = r.sse;
+      if (DECODE) {
+        mine.sse = r.sse;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) mine.sp[q] = r.sp[q];
+        mine.bytes_tot = r.bytes_tot;
+      }
     }
     if (__any_sync(full, sym == SYM_ESC)) {
       // the byte slots still present after h halvings, as 8 words of 32
@@ -724,6 +875,30 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
         const unsigned e = __shfl_sync(full, word, from + 2 * m);
         if (coded) mine.ex[m] = e;
       }
+    }
+  }
+  if (!DECODE && want) {
+    // encode's SSE stage, each coded lane its own: HIT and MATCH reshaped,
+    // the total, and a special symbol's (cum, freq) from them
+    const ThrShared thr{sse_thr};
+    int hit = mine.sp[0], match = mine.sp[2];
+    if (MODE != MODE_R) {
+      if (cfg.use_sse)
+        mine.tot = hit_reshape(hit, mine.tot, sse_h, HIT_APM_K(MODE), fill, conf, mine.sse, thr);
+    } else if (cfg.use_sse) {
+      mine.tot = sse_reshape(hit, match, mine.sp[3], mine.tot, sse, sse_h, fill, conf,
+                             mine.sse, thr);
+    }
+    if (mine.sym >= O1_N) {
+      const int spw[4] = {hit, mine.sp[1], match, mine.sp[3]};
+      int cum = mine.bytes_tot, frq = spw[0];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        cum += q < mine.sym - SYM_HIT ? spw[q] : 0;
+        frq = q == mine.sym - SYM_HIT ? spw[q] : frq;
+      }
+      mine.c = cum;
+      mine.f = frq;
     }
   }
   return mine;
@@ -824,6 +999,40 @@ static __device__ O1Event warp_o1_event(RowRing& ring, bool want, int p1,
   return mine;
 }
 
+// (cum, freq) of symbol sym in the shared row base + off (w <= 256
+// entries) for every lane of the warp with want set (0, 0 for a symbol
+// outside the row), the whole warp one lane at a time: thread j sums the
+// row's entries j, j + 32, ... below sym and one reduction gives the cum,
+// where a lane alone would walk up to 255 entries.  Call with the warp
+// converged.
+static __device__ void warp_cum_frq(bool want, const int* base, int w, int off, int sym,
+                                    int& c, int& f) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  unsigned todo = __ballot_sync(full, want);
+  while (todo) {
+    const int l = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int s = __shfl_sync(full, sym, l);
+    const int* row = base + __shfl_sync(full, off, l);
+    if (s < 0 || s >= w) {
+      if (lane == l) c = f = 0;
+      continue;
+    }
+    int part = 0;
+#pragma unroll
+    for (int q = 0; q < LEN_W / 32; ++q) {
+      const int k = lane + 32 * q;
+      if (k < s) part += row[k];
+    }
+    const int cum = __reduce_add_sync(full, part);
+    if (lane == l) {
+      c = cum;
+      f = row[s];
+    }
+  }
+}
+
 struct PlainRow {
   const int* p;
   __device__ int operator()(int k) const { return p[k]; }
@@ -855,23 +1064,107 @@ static __device__ __forceinline__ int count_same(const int* keys, int n, int k) 
   return r;
 }
 
-// Number of lower lanes with the same key as this thread's lane (the
-// insert rank).  keys is the CTA's array of its lanes' keys (by
-// threadIdx.x); with CL the lower CTAs' arrays count first.
-template <bool CL = false>
-static __device__ __forceinline__ int lower_same(const int* keys) {
-  const int k = keys[threadIdx.x];
-  int r = 0;
-  if (CL)
-    for (int b = 0; b < (int)blockIdx.x; ++b)
-      r += count_same(at_rank<CL>(keys, b), blockDim.x, k);
-  return r + count_same(keys, threadIdx.x, k);
+// ---- lane-order ranks: how many lower lanes have this lane's key ---------
+// The elections (the o2 and o3 winners: the lowest lane of each key) and
+// the bucket insert (a lane's rank among the lanes inserting into its
+// bucket) count, for each lane, the lower lanes (lower CTAs, then lower
+// warps, then lower lanes of its warp) with the same key.  Each CTA keeps
+// its lanes' keys (by threadIdx.x) and a filter of KEYF_N words: word h
+// has bit w set where warp w of the CTA posted a key that hashes to h.  A
+// lane counts its own warp by __match_any_sync and scans only the lower
+// warps whose bit is set in its key's word (a false hit costs one scan of
+// a warp's keys, never a wrong count): O(S/32 + 1), not a scan of every
+// lower lane.  Several elections may share one filter with different
+// salts.  The phases: key_post by every lane, a barrier, lane_rank, a
+// barrier, key_clear (the filter is all zero again).
+#define KEYF_BITS 9
+#define KEYF_N (1 << KEYF_BITS)
+#define SALT_O2 0u
+#define SALT_O3 1u
+#define SALT_INS 2u
+#define SALT_INS2 3u
+
+static __device__ __forceinline__ int keyf_slot(int key, unsigned salt) {
+  uint32_t h = (uint32_t)key * 2654435761u + salt * 0x61C88647u;
+  h ^= h >> 15;
+  h *= 0x2C1B3C6Du;
+  return (int)(h >> (32 - KEYF_BITS));
 }
 
-// Is this lane the minimum lane with its key among the keyed lanes (key >= 0)?
+// This lane's key (-1: none) into keys[] and its warp's bit.  With TPL
+// threads a lane (K5), the first of them posts: keys[threadIdx.x / TPL].
+template <int TPL = 1>
+static __device__ __forceinline__ void key_post(int* keys, unsigned* filt, int key,
+                                                unsigned salt) {
+  if (threadIdx.x % TPL == 0) keys[threadIdx.x / TPL] = key;
+  if (key >= 0) atomicOr(&filt[keyf_slot(key, salt)], 1u << (threadIdx.x >> 5));
+}
+
+// Number of the N keys at keys (16-byte aligned) equal to k: N / 4
+// loads, all in flight together (a scan of another CTA's keys is one
+// round trip).
+template <int N>
+static __device__ __forceinline__ int count_same_n(const int* keys, int k) {
+  const int4* k4 = reinterpret_cast<const int4*>(keys);
+  int4 v[N / 4];
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) v[j] = k4[j];
+  int r = 0;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) r += (v[j].x == k) + (v[j].y == k) + (v[j].z == k) + (v[j].w == k);
+  return r;
+}
+
+// After the barrier that follows every lane's last lane_rank on filt.
+static __device__ __forceinline__ void key_clear(unsigned* filt, int key, unsigned salt) {
+  if (key >= 0) filt[keyf_slot(key, salt)] = 0;
+}
+
+// The number of lower lanes whose key is this lane's (key >= 0), counted
+// at least up to `limit` (the count stops growing once it reaches it).
+// Every thread of the warp calls it (it takes __match_any_sync), after a
+// barrier that follows every key_post<TPL> of the launch; with CL the lower
+// CTAs' keys and filters count first.  With TPL threads a lane only the
+// first posts a key (the others pass -1).
+template <bool CL = false, int TPL = 1>
+static __device__ int lane_rank(const int* keys, const unsigned* filt, int key,
+                                unsigned salt, int limit) {
+  constexpr int KPW = 32 / TPL;  // keys a warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned same = __match_any_sync(0xffffffffu, key);
+  int r = __popc(same & ((1u << lane) - 1u));
+  if (key < 0) return 0;
+  const int h = keyf_slot(key, salt);
+  const int me = CL ? (int)blockIdx.x : 0;
+  // every CTA's word at once (with CL, reads of the others' shared memory)
+  unsigned words[CL ? CPX_MAX_CLUSTER : 1];
+#pragma unroll
+  for (int b = 0; b < (CL ? CPX_MAX_CLUSTER : 1); ++b)
+    words[b] = b <= me ? at_rank<CL>(filt, b)[h] : 0u;
+#pragma unroll
+  for (int b = 0; b < (CL ? CPX_MAX_CLUSTER : 1); ++b) {
+    if (b > me || r >= limit) break;
+    unsigned m = words[b];
+    if (b == me) m &= (1u << warp) - 1u;
+    const int* kb = at_rank<CL>(keys, b);
+    while (m && r < limit) {
+      const int w = __ffs(m) - 1;
+      m &= m - 1;
+      // another CTA's keys (one round trip), or this CTA's (one at a time)
+      r += CL && b != me ? count_same_n<KPW>(kb + KPW * w, key)
+                         : count_same(kb + KPW * w, KPW, key);
+    }
+  }
+  return r;
+}
+
+// Is this lane the lowest with its key among the keyed lanes (key >= 0)?
+// Every thread of the warp calls it.
 template <bool CL = false>
-static __device__ __forceinline__ bool is_winner(const int* keys) {
-  return keys[threadIdx.x] >= 0 && lower_same<CL>(keys) == 0;
+static __device__ __forceinline__ bool is_winner(const int* keys, const unsigned* filt,
+                                                 int key, unsigned salt) {
+  const int r = lane_rank<CL>(keys, filt, key, salt, 1);
+  return key >= 0 && r == 0;
 }
 
 // Halve (in place) every o1 row whose maintained sum is over the cap and
@@ -893,21 +1186,43 @@ static __device__ void o1_rescale(int* o1, int* o1sum, int cap1) {
   }
 }
 
-// Rescale the hot rows of a dense shared model (len or idx) and refresh
-// its row sums; run by one thread per context row.
-static __device__ void shared_rescale_row(int* row, int w, bool hot, int cap,
-                                   int& sum_out) {
-  int s = 0;
-  for (int k = 0; k < w; ++k) s += row[k];
-  for (int round = 0; round < 3; ++round) {
-    if (!(hot && s > cap)) break;
-    s = 0;
-    for (int k = 0; k < w; ++k) {
-      row[k] = (row[k] + 1) >> 1;
-      s += row[k];
+// The rescale of the dense shared models (len, idx; mode X's distance
+// row): each of n_rows rows of w entries whose flag is hot and whose sum
+// is over the cap is halved, up to three rounds, and its sum refreshed;
+// a warp a row (row r on the launch's warp first_warp + r, modulo the
+// warps).  upd_add keeps every row's sum current, so a row that is not
+// halved is not read at all.
+static __device__ void rescale_rows(int* rows, int w, int n_rows, const int* hot, int cap,
+                                    int* sums, int first_warp) {
+  const int lane = threadIdx.x & 31, nwarps = gthreads() >> 5;
+  for (int r = ((gtid() >> 5) - first_warp % nwarps + nwarps) % nwarps; r < n_rows;
+       r += nwarps) {
+    if (!hot[r] || sums[r] <= cap) continue;
+    int* row = rows + r * w;
+    int s = sums[r];
+    for (int round = 0; round < 3 && s > cap; ++round) {
+      int part = 0;
+      for (int k = lane; k < w; k += 32) {
+        const int v = (row[k] + 1) >> 1;
+        row[k] = v;
+        part += v;
+      }
+      s = __reduce_add_sync(0xffffffffu, part);
     }
+    if (lane == 0) sums[r] = s;
   }
-  sum_out = s;
+}
+
+// The sums of n_rows rows of w entries of a table in device memory, a
+// warp a row (the launch's warps in turn): the maintained sums' start.
+static __device__ void row_sums(const int* rows, int w, int n_rows, int* sums) {
+  const int lane = threadIdx.x & 31, nwarps = gthreads() >> 5;
+  for (int r = gtid() >> 5; r < n_rows; r += nwarps) {
+    int part = 0;
+    for (int k = lane; k < w; k += 32) part += rows[r * w + k];
+    part = __reduce_add_sync(0xffffffffu, part);
+    if (lane == 0) sums[r] = part;
+  }
 }
 
 // Exclusive lane-order prefix of a per-lane flag across the CTA (with CL,
@@ -1135,13 +1450,15 @@ static __device__ int warp_slot_of_rank(const int* pos, int pitch, int d,
 // The insert slot of every inserting lane (ins_key >= 0), -1 elsewhere:
 // the lane's rank among same-bucket inserters (lower lanes first) picks
 // the rank-th oldest slot of the old bucket row, read before any write of
-// this step.  Call with the warp converged, after every CTA's keys[] holds
-// its lanes' ins_key.
+// this step.  Call with the warp converged, after every CTA's lanes have
+// posted their ins_key (key_post on keys and filt with salt) and a barrier.
 template <bool CL = false>
 static __device__ int bucket_slot(const int* rolz, const Cfg& c, const int* keys,
-                                  int ins_key, int* pos, int pitch) {
+                                  const unsigned* filt, unsigned salt, int ins_key,
+                                  int* pos, int pitch) {
   const int d = c.rolz_depth;
-  int rank = ins_key >= 0 ? lower_same<CL>(keys) : d;
+  const int r = lane_rank<CL>(keys, filt, ins_key, salt, d);
+  const int rank = ins_key >= 0 ? r : d;
   bool ins = rank < d;
   warp_load_rows(rolz, d, ins, (uint32_t)ins_key, pos, pitch);
   // the rank-th oldest is the (d-1-rank)-th newest
@@ -1159,6 +1476,7 @@ struct SmemModel {
   __align__(16) int key_o2[CPX_MAX_LANES];   // ctx2 of lanes that rescaled their o2 row
   __align__(16) int key_o3[CPX_MAX_LANES];   // h3 of lanes that update the o3 predictor
   __align__(16) int key_ins[CPX_MAX_LANES];  // bucket of lanes that insert (decode only)
+  unsigned keyf[KEYF_N];  // the elections' filter (lane_rank), the three keys salted apart
   int o1sum[O1_N];
   int len[N_SHARED_CTX * LEN_W];
   int idx[N_SHARED_CTX * IDX_W];
@@ -1168,6 +1486,9 @@ struct SmemModel {
   int sse_h[SSE_HK];
   int dst[DST_W];
   int dst_sum, hot_dst;
+  // a hot row over its cap: the step's rescale of the idx (or distance)
+  // rows, of the len rows, is due
+  int due_idx, due_len;
   int mant[MANT_N * MANT_N];
   int sse_x[SSE_XK];  // the hit-only APM: mode X's, or mode P's SSE_PK entries
   int wtot[5][32];  // one lane-order prefix scratch per rANS slot
@@ -1185,6 +1506,12 @@ struct Tables {
   int* mant;
   int* sse_x;  // the hit-only APM: sse_x in mode X, sse_p in mode P
 };
+
+// The election filter of this CTA (own), all zero; before the first
+// barrier of the launch.
+static __device__ void keyf_init(unsigned* filt) {
+  for (int k = threadIdx.x; k < KEYF_N; k += blockDim.x) filt[k] = 0;
+}
 
 template <int MODE = MODE_R>
 static __device__ void model_load(SmemModel& sm, const Tables& tb) {
@@ -1205,6 +1532,10 @@ static __device__ void model_load(SmemModel& sm, const Tables& tb) {
     sm.hot_len[k] = 0;
     sm.hot_idx[k] = 0;
   }
+  if (gtid() == 0) sm.due_idx = sm.due_len = 0;
+  row_sums(tb.len, LEN_W, N_SHARED_CTX, sm.len_sum);
+  row_sums(tb.idx, IDX_W, N_SHARED_CTX, sm.idx_sum);
+  if (MODE == MODE_X) row_sums(tb.dst, DST_W, 1, &sm.dst_sum);
   int warp = gtid() >> 5, lane = threadIdx.x & 31, nwarps = gthreads() >> 5;
   for (int row = warp; row < O1_N; row += nwarps) {
     int s = 0;
@@ -1230,27 +1561,30 @@ static __device__ void model_store(const SmemModel& sm, const Tables& tb) {
   }
 }
 
-// Rescale the idx rows that a match lane reads this step (thread r < 4).
-static __device__ void idx_rescale(const Cfg& c, SmemModel& sm) {
-  int r = gtid();
-  if (r < N_SHARED_CTX)
-    shared_rescale_row(sm.idx + r * IDX_W, IDX_W, sm.hot_idx[r] != 0,
-                       c.idx_cap, sm.idx_sum[r]);
+// A match lane marks the dense row it reads this step hot; where that row
+// is over its cap already, the step's rescale of those rows is due (*due,
+// which every thread reads after the next barrier, before any rescale can
+// change a sum, to decide whether the rescale and its barrier run at all).
+static __device__ __forceinline__ void mark_hot(int* hot, const int* sum, int cap, int* due) {
+  *hot = 1;
+  if (*sum > cap) *due = 1;
 }
 
-// Rescale the len rows that a match lane reads this step (thread 4+r).
+// Rescale the idx rows that a match lane reads this step (warps 0-3).
+static __device__ void idx_rescale(const Cfg& c, SmemModel& sm) {
+  rescale_rows(sm.idx, IDX_W, N_SHARED_CTX, sm.hot_idx, c.idx_cap, sm.idx_sum, 0);
+}
+
+// Rescale the len rows that a match lane reads this step (warps 4-7).
 static __device__ void len_rescale(const Cfg& c, SmemModel& sm) {
-  int r = gtid() - N_SHARED_CTX;
-  if (r >= 0 && r < N_SHARED_CTX)
-    shared_rescale_row(sm.len + r * LEN_W, LEN_W, sm.hot_len[r] != 0,
-                       c.len_cap, sm.len_sum[r]);
+  rescale_rows(sm.len, LEN_W, N_SHARED_CTX, sm.hot_len, c.len_cap, sm.len_sum,
+               N_SHARED_CTX);
 }
 
 // Rescale mode X's distance-bucket row if a match lane reads it this step
-// (thread 2 * N_SHARED_CTX, beside the len rows' threads).
+// (warp 8, beside the len rows' warps).
 static __device__ void dst_rescale(const Cfg& c, SmemModel& sm) {
-  if (gtid() == 2 * N_SHARED_CTX)
-    shared_rescale_row(sm.dst, DST_W, sm.hot_dst != 0, c.dst_cap, sm.dst_sum);
+  rescale_rows(sm.dst, DST_W, 1, &sm.hot_dst, c.dst_cap, &sm.dst_sum, 2 * N_SHARED_CTX);
 }
 
 // How a distance bucket k splits its k mantissa bits over the slots D and E
@@ -1281,20 +1615,23 @@ struct Upd {
   SseState sse;
 };
 
-// The lane's election keys, into its CTA's arrays (own).
+// The lane's election keys, posted to its CTA's arrays and filter (own).
 static __device__ __forceinline__ void upd_keys(SmemModel& own, bool alive, const Upd& u) {
-  own.key_o2[threadIdx.x] = (alive && u.coding && u.halvings > 0) ? u.ctx2 : -1;
-  bool o3_upd = alive && (u.is_hit || u.is_lit || u.is_esc);
-  own.key_o3[threadIdx.x] = o3_upd ? u.h3 : -1;
+  key_post(own.key_o2, own.keyf, (alive && u.coding && u.halvings > 0) ? u.ctx2 : -1, SALT_O2);
+  const bool o3_upd = alive && (u.is_hit || u.is_lit || u.is_esc);
+  key_post(own.key_o3, own.keyf, o3_upd ? u.h3 : -1, SALT_O3);
 }
 
-// Store phase (after the keys barrier): the winners' o2 rescale write and
-// o3 predictor write.  Nothing else touches these words before the next
-// barrier.
+// Store phase (a barrier after upd_keys): the winners' o2 rescale write
+// and o3 predictor write.  Nothing else touches these words before the
+// next barrier.  Every thread calls it (the elections take warp votes);
+// a dead lane has no key and wins nothing.
 template <bool CL = false>
 static __device__ void upd_store(const Tables& tb, const SmemModel& own, const Upd& u) {
-  if (is_winner<CL>(own.key_o2)) o2_write_halved(tb.o2 + (size_t)u.ctx2 * O2_W, u.halvings);
-  if (is_winner<CL>(own.key_o3)) {
+  const bool win_o2 = is_winner<CL>(own.key_o2, own.keyf, own.key_o2[threadIdx.x], SALT_O2);
+  const bool win_o3 = is_winner<CL>(own.key_o3, own.keyf, own.key_o3[threadIdx.x], SALT_O3);
+  if (win_o2) o2_write_halved(tb.o2 + (size_t)u.ctx2 * O2_W, u.halvings);
+  if (win_o3) {
     int nc = o3_nc(u.conf);
     int new_pred = (u.is_hit || nc > 0) ? u.pred : u.byte;
     int new_conf = u.is_hit ? min(u.conf + 1, 15) : max(nc, 1);
@@ -1302,11 +1639,14 @@ static __device__ void upd_store(const Tables& tb, const SmemModel& own, const U
   }
 }
 
-// Add phase (after the store barrier): every additive update.  In modes X
-// and P a match bumps idx[0][0] too (JAX passes a zero index symbol).
+// Add phase (after the store barrier): every additive update; first this
+// lane's election keys leave the filter of its CTA (own).  In modes X and
+// P a match bumps idx[0][0] too (JAX passes a zero index symbol).
 template <int MODE = MODE_R>
 static __device__ void upd_add(const Cfg& c, const Tables& tb, SmemModel& sm,
-                        const Upd& u) {
+                               SmemModel& own, const Upd& u) {
+  key_clear(own.keyf, own.key_o2[threadIdx.x], SALT_O2);
+  key_clear(own.keyf, own.key_o3[threadIdx.x], SALT_O3);
   if (!u.coding) return;
   int* row = tb.o2 + (size_t)u.ctx2 * O2_W;
   if (u.sym_a >= 0 && u.sym_a < O2_W) atomicAdd(&row[u.sym_a], c.inc2);
@@ -1319,9 +1659,19 @@ static __device__ void upd_add(const Cfg& c, const Tables& tb, SmemModel& sm,
   if (u.is_match) {
     int lc = clampi(u.len_ctx, 0, N_SHARED_CTX - 1);
     int ic = clampi(u.idx_ctx, 0, N_SHARED_CTX - 1);
-    if (u.sym_len >= 0 && u.sym_len < LEN_W) atomicAdd(&sm.len[lc * LEN_W + u.sym_len], c.len_inc);
-    if (u.sym_idx >= 0 && u.sym_idx < IDX_W) atomicAdd(&sm.idx[ic * IDX_W + u.sym_idx], c.idx_inc);
-    if (MODE == MODE_X && u.sym_dst >= 0 && u.sym_dst < DST_W) atomicAdd(&sm.dst[u.sym_dst], c.dst_inc);
+    // each add to a dense shared row adds to its sum too
+    if (u.sym_len >= 0 && u.sym_len < LEN_W) {
+      atomicAdd(&sm.len[lc * LEN_W + u.sym_len], c.len_inc);
+      atomicAdd(&sm.len_sum[lc], c.len_inc);
+    }
+    if (u.sym_idx >= 0 && u.sym_idx < IDX_W) {
+      atomicAdd(&sm.idx[ic * IDX_W + u.sym_idx], c.idx_inc);
+      atomicAdd(&sm.idx_sum[ic], c.idx_inc);
+    }
+    if (MODE == MODE_X && u.sym_dst >= 0 && u.sym_dst < DST_W) {
+      atomicAdd(&sm.dst[u.sym_dst], c.dst_inc);
+      atomicAdd(&sm.dst_sum, c.dst_inc);
+    }
   }
   if (MODE == MODE_X && u.adaptive && u.mant_sym >= 0 && u.mant_sym < MANT_N)
     atomicAdd(&sm.mant[u.mant_row * MANT_N + u.mant_sym], c.mant_inc);
@@ -1338,6 +1688,7 @@ static __device__ void upd_add(const Cfg& c, const Tables& tb, SmemModel& sm,
 // added).
 template <int MODE = MODE_R>
 static __device__ void upd_finish(SmemModel& sm, int mant_cap = 0) {
+  if (gtid() == 0) sm.due_idx = sm.due_len = 0;
   if (MODE != MODE_R) {
     for (int k = gtid(); k < HIT_APM_K(MODE); k += gthreads()) sm.sse_x[k] = clampi(sm.sse_x[k], SSE_LO, SSE_HI);
     if (gtid() < N_SHARED_CTX) sm.hot_len[gtid()] = 0;
@@ -1368,9 +1719,16 @@ struct Ctx {
   bool active, coding, copying;
 };
 
-static __device__ __forceinline__ Ctx common_reads(const Cfg& c, const Tables& tb,
-                                            int i, int t, uint32_t ctx4,
-                                            int copy_rem, bool alive) {
+// The slot of the o3 predictor table under context register ctx4.
+static __device__ __forceinline__ int o3_slot(const Cfg& c, uint32_t ctx4) {
+  const int ctx3 = (int)(ctx4 & 0xFFFFFFu);
+  return (ctx3 ^ (ctx3 >> 2)) & ((1 << c.o3_bits) - 1);
+}
+
+// The contexts with the lane's o3 entry raw already read (0 for a dead
+// lane).
+static __device__ __forceinline__ Ctx contexts(const Cfg& c, int i, int t, uint32_t ctx4,
+                                               int copy_rem, bool alive, int raw) {
   Ctx x;
   x.pos = i * c.T + t;
   x.active = alive && x.pos < c.n;
@@ -1379,12 +1737,17 @@ static __device__ __forceinline__ Ctx common_reads(const Cfg& c, const Tables& t
   x.p1 = (int)(ctx4 & 0xFFu);
   int p2 = (int)((ctx4 >> 8) & 0xFFu);
   x.ctx2 = (p2 << 8) | x.p1;
-  int ctx3 = (int)(ctx4 & 0xFFFFFFu);
-  x.h3 = (ctx3 ^ (ctx3 >> 2)) & ((1 << c.o3_bits) - 1);
-  x.raw = alive ? tb.o3[x.h3] : 0;
+  x.h3 = o3_slot(c, ctx4);
+  x.raw = raw;
   x.pred = x.raw & 0xFF;
   x.conf = clampi((x.raw >> 8) & 0xF, 0, 15);
   x.pred2 = (x.raw >> 12) & 0xFF;
   x.conf2 = clampi((x.raw >> 20) & 0xF, 0, 15);
   return x;
+}
+
+static __device__ __forceinline__ Ctx common_reads(const Cfg& c, const Tables& tb,
+                                            int i, int t, uint32_t ctx4,
+                                            int copy_rem, bool alive) {
+  return contexts(c, i, t, ctx4, copy_rem, alive, alive ? tb.o3[o3_slot(c, ctx4)] : 0);
 }

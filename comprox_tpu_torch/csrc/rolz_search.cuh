@@ -1,7 +1,7 @@
 // Byte-window and scored-row reads shared by the encoder scans that search
-// a bucket table: the search scans (KS and KSx, search.cu) and the rank scan
-// (K5, rank.cu); the window compare also serves mode P's modeling scan
-// (K13e, model.cu).
+// a bucket table: the search scans (KS and KSx, search.cu) and, for its
+// byte loads, the rank scan (K5, rank.cu); the window compare also serves
+// mode P's modeling scan (K13e, model.cu).
 #pragma once
 
 #include <climits>
@@ -24,25 +24,55 @@ static __device__ __forceinline__ uint64_t load8(const uint8_t* inp, long long c
   return valid < 8 ? v & ((1ull << (8 * valid)) - 1) : v;
 }
 
+// 8 bytes at byte shift sh (0..56) of the aligned words lo, hi, those at
+// or past `valid` zeroed (load8's rule).
+static __device__ __forceinline__ uint64_t bytes8(uint64_t lo, uint64_t hi, int sh,
+                                                  long long valid) {
+  const uint64_t v = sh ? (lo >> sh) | (hi << (64 - sh)) : lo;
+  if (valid >= 8) return v;
+  return valid <= 0 ? 0 : v & ((1ull << (8 * valid)) - 1);
+}
+
 // Common prefix (up to width) of the lane's upcoming bytes, zero past its
-// row, and the block bytes at src, zero past the block: 8 bytes per
-// compare, eight compares' loads in flight together, the first difference
-// by its lowest set bit.
+// row, and the block bytes at src, zero past the block: 64 bytes a thread
+// and round, the nine aligned words of each side loaded together (indices
+// clamped into the buffer, the bytes past a limit masked, so no load waits
+// on a branch), then eight 8-byte compares, the first difference by its
+// lowest set bit.  With TPL threads a lane (K5), thread q of the lane's
+// takes bytes 64 q.. of a round and the first difference is their least
+// (shuffles over `mask`, the lane's threads, which all call it).
+template <int TPL = 1>
 static __device__ int prefix_len(const uint8_t* inp, const Cfg& c, int lane, int t,
-                          int src, int width) {
-  long long cap = (long long)c.S * c.T;
-  long long cur = (long long)lane * c.T + t, row_end = (long long)(lane + 1) * c.T;
-  long long base = max(src, 0);
-  for (int l = 0; l < width; l += 64) {
-    uint64_t diff[8];
+                          int src, int width, int q = 0, unsigned mask = 0) {
+  const long long cap = (long long)c.S * c.T, nw = cap >> 3;
+  const long long cur = (long long)lane * c.T + t, row_end = (long long)(lane + 1) * c.T;
+  const long long base = max(src, 0);
+  const uint64_t* w = reinterpret_cast<const uint64_t*>(inp);
+  const int sa = (int)(cur & 7) * 8, sb = (int)(base & 7) * 8;
+  for (int l0 = 0; l0 < width; l0 += 64 * TPL) {
+    const int l = l0 + 64 * q;
+    int first = width;
+    if (l < width) {
+      const long long ka = (cur + l) >> 3, kb = (base + l) >> 3;
+      uint64_t a[9], b[9];
 #pragma unroll
-    for (int u = 0; u < 8; ++u)
-      diff[u] = load8(inp, cap, cur + l + 8 * u, row_end) ^
-                load8(inp, cap, base + l + 8 * u, cap);
+      for (int u = 0; u < 9; ++u) {
+        a[u] = __ldg(w + min(ka + u, nw - 1));
+        b[u] = __ldg(w + min(kb + u, nw - 1));
+      }
 #pragma unroll
-    for (int u = 0; u < 8; ++u)
-      if (diff[u])
-        return min(l + 8 * u + ((__ffsll((long long)diff[u]) - 1) >> 3), width);
+      for (int u = 0; u < 8; ++u) {
+        const uint64_t diff = bytes8(a[u], a[u + 1], sa, row_end - (cur + l + 8 * u)) ^
+                              bytes8(b[u], b[u + 1], sb, cap - (base + l + 8 * u));
+        if (diff) {
+          first = l + 8 * u + ((__ffsll((long long)diff) - 1) >> 3);
+          break;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < TPL; o <<= 1) first = min(first, __shfl_xor_sync(mask, first, o));
+    if (first < width) return first;
   }
   return width;
 }

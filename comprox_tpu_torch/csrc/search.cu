@@ -42,11 +42,14 @@ __global__ void __launch_bounds__(MAXT) ks_kernel(Cfg c, const uint8_t* __restri
                           int* __restrict__ rolz, int* __restrict__ out,
                           int* __restrict__ gpos, bool pos_in_smem) {
   __shared__ __align__(16) int keys[CPX_MAX_LANES];  // this CTA's lanes'
+  __shared__ unsigned keyf[KEYF_N];                  // and their filter
   extern __shared__ int spos[];
   const int i = gtid();
   const bool alive = i < c.S;
   const int d = c.rolz_depth;
   uint32_t ctx4 = 0, ctx4b = 0;
+  keyf_init(keyf);
+  group_sync<CL>();
   // the lanes' copies of bucket rows (the search row, then the insert row)
   // and the search row's prefix scores
   const int pitch = pos_pitch(d);
@@ -84,11 +87,12 @@ __global__ void __launch_bounds__(MAXT) ks_kernel(Cfg c, const uint8_t* __restri
       if (insert_here(c, active, t, pos))
         ins_key = (int)rolz_hash3(rolz_key(ctx4bn, c.rolz_ctx_bytes), c.rolz_bits);
     }
-    keys[threadIdx.x] = ins_key;
+    key_post(keys, keyf, ins_key, SALT_INS);
     group_sync<CL>();
-    int slot = bucket_slot<CL>(rolz, c, keys, ins_key, posbuf, pitch);
+    int slot = bucket_slot<CL>(rolz, c, keys, keyf, SALT_INS, ins_key, posbuf, pitch);
     group_sync<CL>();
     if (slot >= 0) bucket_store(rolz, c, (uint32_t)ins_key, slot, pos, byteswap32(ctx4n));
+    key_clear(keyf, ins_key, SALT_INS);
     ctx4 = ctx4n;
     ctx4b = ctx4bn;
     group_sync<CL>();
@@ -118,11 +122,14 @@ __global__ void __launch_bounds__(MAXT) ksx_kernel(Cfg c, const uint8_t* __restr
                            int* __restrict__ gpos, bool pos_in_smem) {
   __shared__ __align__(16) int keys_x[CPX_MAX_LANES];
   __shared__ __align__(16) int keys_c[CPX_MAX_LANES];
+  __shared__ unsigned keyf[KEYF_N];  // both inserts' filter, salted apart
   extern __shared__ int spos[];
   const int i = gtid();
   const bool alive = i < c.S;
   const int d = c.rolz_depth;
   uint32_t ctx4 = 0, ctx4b = 0;
+  keyf_init(keyf);
+  group_sync<CL>();
   const int pitch = pos_pitch(d);
   const PosBufs pb = pos_bufs<CL>(c, spos, gpos, pos_in_smem, pitch);
   int* const posbuf = pb.pos;
@@ -182,17 +189,19 @@ __global__ void __launch_bounds__(MAXT) ksx_kernel(Cfg c, const uint8_t* __restr
           key_c = (int)rolz_hash3(rolz_key(ctx4bn, c.rolz_ctx_bytes), c.rolz_bits);
       }
     }
-    keys_x[threadIdx.x] = key_x;
-    keys_c[threadIdx.x] = key_c;
+    key_post(keys_x, keyf, key_x, SALT_INS);
+    key_post(keys_c, keyf, key_c, SALT_INS2);
     group_sync<CL>();  // every lane has read the cache and both search rows
     if (active) atomicMax(&xshort[h6], pos + 1);
-    const int slot_x = bucket_slot<CL>(ent_x, c, keys_x, key_x, posbuf, pitch);
+    const int slot_x = bucket_slot<CL>(ent_x, c, keys_x, keyf, SALT_INS, key_x, posbuf, pitch);
     __syncwarp();
-    const int slot_c = bucket_slot<CL>(ent_c, c, keys_c, key_c, posbuf, pitch);
+    const int slot_c = bucket_slot<CL>(ent_c, c, keys_c, keyf, SALT_INS2, key_c, posbuf, pitch);
     group_sync<CL>();
     if (slot_x >= 0)
       bucket_store(ent_x, c, (uint32_t)key_x, slot_x, pos, byteswap32(ctx4bn), X_INSERT_LATE);
     if (slot_c >= 0) bucket_store(ent_c, c, (uint32_t)key_c, slot_c, pos, byteswap32(ctx4n));
+    key_clear(keyf, key_x, SALT_INS);
+    key_clear(keyf, key_c, SALT_INS2);
     ctx4 = ctx4n;
     ctx4b = ctx4bn;
     group_sync<CL>();

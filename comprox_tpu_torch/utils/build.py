@@ -9,10 +9,11 @@ reuses its build).  The library is loaded with
 launch; :func:`check` raises on anything but 0.
 
 An instrumented variant (extra ``-D`` flags, a subset of the sources, e.g.
-K1's per-phase clock stamps of ``benchmarks/k1_phases.py``) builds beside
-the main library under its own hash; :func:`variant` makes :func:`lib`
-return it for the calls inside its ``with`` block.  The main path never
-builds one.
+the per-phase clock stamps of ``benchmarks/phases.py``) builds beside the
+main library under its own hash; :func:`variant` makes :func:`lib` return
+it for the calls inside its ``with`` block, with the main library's entry
+points standing in for those of the sources it leaves out.  The main path
+never builds one.
 
 Nothing here runs at import: the CPU tests import every module, and the
 machines without a card have no ``nvcc``.
@@ -47,7 +48,7 @@ _SIGNATURES = {
     "cpx_k4_keys_launch": [_P] * 4,
     "cpx_radix_sort_launch": [_I] + [_P] * 4,
     "cpx_k4_find_launch": [_P] * 8,
-    "cpx_k5_launch": [_P] * 7,
+    "cpx_k5_launch": [_P] * 6,
     "cpx_k6_launch": [_P] * 4,
     "cpx_k6f_launch": [_P] * 4,
     "cpx_k7_keys_launch": [_P] * 4,
@@ -75,10 +76,13 @@ _SIGNATURES = {
     "cpx_pr_step_launch": [_P] * 2 + [_I] * 3 + [_P],
     "cpx_pr_row_ring_launch": [_P] * 3 + [_I] * 4 + [_P],
     "cpx_pr_onehot_mma_launch": [_P] * 3 + [_I] * 3 + [_P],
-    # only in the instrumented build of decode.cu (-DCPX_K1_PROF)
+    # only in the instrumented builds (-DCPX_K1_PROF of decode.cu,
+    # -DCPX_K5_PROF of rank.cu, -DCPX_K2_PROF of model.cu)
     "cpx_k1_prof_read": [_P],
+    "cpx_k5_prof_read": [_P],
+    "cpx_k2_prof_read": [_P],
 }
-_INSTRUMENTED = {"cpx_k1_prof_read"}
+_INSTRUMENTED = {"cpx_k1_prof_read", "cpx_k5_prof_read", "cpx_k2_prof_read"}
 
 
 def _sources() -> list[Path]:
@@ -182,20 +186,42 @@ def variant(*defines, only=None):
         _VARIANT = old
 
 
-def lib() -> ctypes.CDLL:
+class _Overlay:
+    """A variant built from some of the sources; the entry points it lacks
+    are the main library's."""
+
+    def __init__(self, variant_lib, main_lib):
+        self._variant, self._main = variant_lib, main_lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._variant, name, None)
+        return fn if fn is not None else getattr(self._main, name)
+
+
+def _load(defines, only) -> ctypes.CDLL:
+    handle = ctypes.CDLL(str(build(defines=defines, only=only)))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name, None)
+        if fn is None:
+            if name in _INSTRUMENTED or only is not None:
+                continue
+            raise RuntimeError(f"{name} missing from the kernel library")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
+
+
+def lib():
     """The loaded kernel library (built on first call), or inside
     :func:`variant` the variant's."""
     if _VARIANT not in _libs:
         defines, only = _VARIANT
-        handle = ctypes.CDLL(str(build(defines=defines, only=only)))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name, None)
-            if fn is None:
-                if name in _INSTRUMENTED or only is not None:
-                    continue
-                raise RuntimeError(f"{name} missing from the kernel library")
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        handle = _load(defines, only)
+        if only is not None:
+            main = ((), None)
+            if main not in _libs:
+                _libs[main] = _load(*main)
+            handle = _Overlay(handle, _libs[main])
         _libs[_VARIANT] = handle
     return _libs[_VARIANT]
 

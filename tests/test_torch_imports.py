@@ -19,7 +19,7 @@ CHECK = (
 
 PORT_MODULES = [
     "comprox_tpu_torch",
-    "comprox_tpu_torch.benchmarks.k1_phases",
+    "comprox_tpu_torch.benchmarks.phases",
     "comprox_tpu_torch.benchmarks.probes",
     "comprox_tpu_torch.benchmarks.ring_depth",
     "comprox_tpu_torch.benchmarks.sort_keys",

@@ -305,16 +305,36 @@ def test_k1_decodes_the_crz_goldens(cuda_device, name):
 
 @pytest.mark.cuda
 def test_k1_phase_build_decodes_like_the_main_build(cuda_device):
-    """The instrumented K1 (benchmarks/k1_phases.py) at ring depth 0 and at
+    """The instrumented K1 (benchmarks/phases.py) at ring depth 0 and at
     the build's depth decodes the 1 MiB crz golden to its corpus, and its
     phases account for the launch's cycles."""
-    from comprox_tpu_torch.benchmarks import k1_phases
+    from comprox_tpu_torch.benchmarks import phases
 
     name = "crz_flex_1MiB_S512.cpx"
-    res = k1_phases.run(GOLDEN / name, (0, k1_phases.default_depth()))
+    res = phases.run(GOLDEN / name, ("K1",), (0, phases.default_depth()))["K1"]
     for r in res:
         assert r["sha256"] == GOLDEN_META[name]["input_sha256"]
-        assert all(c > 0 for c in r["cycles"]) and abs(sum(r["share"]) - 1) < 1e-9
+        assert all(c > 0 for c in r["cycles"][0]) and abs(sum(r["share"][0]) - 1) < 1e-9
+    assert build._VARIANT == ((), None)
+
+
+@pytest.mark.cuda
+def test_k5_k2_phase_build_encodes_like_the_main_build(cuda_device):
+    """The instrumented K5 and K2 (benchmarks/phases.py, one variant build
+    of rank.cu and model.cu beside the main library) re-encode the 1 MiB
+    crz golden's corpus to the golden archive's bytes, and each observer's
+    phases account for its cycles."""
+    from comprox_tpu_torch.benchmarks import phases
+
+    name = "crz_flex_1MiB_S512.cpx"
+    res = phases.run(GOLDEN / name, ("K5", "K2"))
+    for k in ("K5", "K2"):
+        (r,) = res[k]
+        assert r["sha256"] == GOLDEN_META[name]["archive_sha256"]
+        obs = phases.PHASES[k][2]
+        assert len(r["cycles"]) == obs and len(r["cycles"][0]) == len(phases.PHASES[k][1])
+        assert abs(sum(r["share"][0]) - 1) < 1e-9
+        assert all(sum(r["cycles"][o]) > 0 for o in range(obs))
     assert build._VARIANT == ((), None)
 
 
