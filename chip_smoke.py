@@ -14,9 +14,9 @@ no result line:
    sources, eighteen codec kernels counting the entries of modes X and P,
    the shared radix sort and the six probe kernels) with nvcc, one process
    per source, and beside them the instrumented builds of
-   ``benchmarks/phases.py`` (two of ``decode.cu``, K1's phase stamps at
-   row-ring depth 0 and at the build's depth; one of ``rank.cu`` and
-   ``model.cu``, K5's and K2's), all started together.
+   ``benchmarks/phases.py`` (two of ``decode.cu``, K1's, K12d's and K13d's
+   phase stamps at row-ring depth 0 and at the build's depth; one of
+   ``rank.cu`` and ``model.cu``, K5's and K2's), all started together.
 3. golden: decodes the committed JAX-package archives
    (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
    under ``crz e -l512`` with the flexible parse and with ``-f0``, under
@@ -89,9 +89,10 @@ no result line:
    instrumented builds of phase 2, at ring depth 0 (the o2 or o1 rows of a
    pair of lanes issued when they are read, nothing in flight ahead) and
    at the build's depth, and its corpus encoded again through K5's and
-   K2's (the archive's SHA-256 == the JAX golden); each phase's share of
-   the kernel's cycles and its microseconds a step (K5, K2: on thread 0
-   and on the CTA's last thread).
+   K2's (the archive's SHA-256 == the JAX golden), and the 8 MiB crx and
+   crp archives decoded through K12d's and K13d's at the same two depths;
+   each phase's share of the kernel's cycles and its microseconds a step
+   (K5, K2, K12d, K13d: on thread 0 and on the CTA's last thread).
 15. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
    K3 or K1 was not launched.
 16. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
@@ -126,11 +127,6 @@ P_ARCHIVE = "crp_8MiB_S512.cpx"  # crp e -b8 -l512
 FULL_WIDTH_ARCHIVES = (MAIN_ARCHIVE, GREEDY_ARCHIVE, FAST_ARCHIVE, X_ARCHIVE,
                        XSCAN_ARCHIVE, P_ARCHIVE)  # re-encoded by phases 9-14
 KERNEL_STEPS = 256
-# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate, and the float32 rate outside the tensor cores, taken for the
-# kernels' 32-bit integer operations (the data sheet has no integer row)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
 
 PROBES_CU = "comprox_tpu_torch/csrc/probes.cu"
 KERNELS = [
@@ -254,9 +250,9 @@ def phase_build():
 
     depths = (0, phases.default_depth())
     libs = build.build_many([((), None)] + phases.variant_specs(depths), verbose=True)
-    print(f"kernels: {libs[0]}; K1's instrumented builds (ring depth "
-          f"{depths[0]}, {depths[1]}): {', '.join(p.name for p in libs[1:3])}; "
-          f"K5's and K2's: {libs[3].name}")
+    print(f"kernels: {libs[0]}; the decode scans' instrumented builds (K1, "
+          f"K12d, K13d; ring depth {depths[0]}, {depths[1]}): "
+          f"{', '.join(p.name for p in libs[1:3])}; K5's and K2's: {libs[3].name}")
     build.lib()
 
 
@@ -328,23 +324,12 @@ def _tables_pairs(ta, tb_):
     return [(ta[k], tb_[k]) for k in ta]
 
 
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def _touched_bytes(final, init) -> int:
     """Bytes of a table updated in place that this run's data needed: the
     rows that differ from the initial table, read once and written once."""
     f = final.reshape(final.shape[0], -1)
     rows = int((f != init.reshape(f.shape)).any(dim=1).sum())
     return 2 * rows * f.shape[1] * final.element_size()
-
-
-def _bound(nbytes: int, ops: int):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate."""
-    t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def _timed_plain(fn, *args):
@@ -387,7 +372,12 @@ def _event_ms(fn, reps=3):
 
 
 def _record(res, name, err, ms, plain_ms, nbytes, ops, library_ms=None):
-    bound_ms, bound_by = _bound(nbytes, ops)
+    """A kernel's line; its bound from its bytes and operations (the
+    models of comprox_tpu_torch/benchmarks/work.py, which ``phases`` also
+    counts with)."""
+    from comprox_tpu_torch.benchmarks import work
+
+    bound_ms, bound_by = work.bound(nbytes, ops)
     res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                      bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=library_ms)
@@ -400,11 +390,12 @@ def phase_kernels(corpus):
     The bound counts each input read once and each output written once (of
     a table updated in place: the rows this run changed, both ways), and a
     model of the 32-bit operations the function needs on these inputs,
-    stated beside each kernel below; the scans' T dependent steps are what
-    keeps them far from it."""
+    stated in comprox_tpu_torch/benchmarks/work.py; the scans' T dependent
+    steps are what keeps them far from it."""
     import numpy as np
     import torch
 
+    from comprox_tpu_torch.benchmarks import work
     from comprox_tpu_torch.codec import block as blk
     from comprox_tpu_torch.models import ppm
 
@@ -412,7 +403,6 @@ def phase_kernels(corpus):
     p = blk.BlockParams(lanes=512, steps=KERNEL_STEPS, mode="R", min_len=5,
                         window=250, rolz_ctx_bytes=4, rolz_dec=2)
     n = p.capacity
-    big, d = p.capacity, p.rolz_depth
     data = corpus[:n]
     inp = torch.from_numpy(data.reshape(p.lanes, p.steps).copy()).to(dev)
     res = {}
@@ -425,8 +415,7 @@ def phase_kernels(corpus):
     def record(*args, **kw):
         _record(res, *args, **kw)
 
-    # KS.  Operations: per position, D entries scored and ranked (6 each),
-    # top_k probes of `probe` bytes and one window, 8 bytes a compare.
+    # KS.
     rk, rp = rolz0(), rolz0()
     blk.reset_launch_counts()
     gk = blk.search_scan(p, inp, n, rk)
@@ -436,51 +425,34 @@ def phase_kernels(corpus):
     err = max_err([(gk, gp), (rk, rp)])
     ms = _kernel_ms("KS", lambda: (p, inp, n, rolz0()), blk.search_scan)
     record("KS", err, ms, plain_ms,
-           _nbytes(inp, gk) + _touched_bytes(rk, rolz0()),
-           big * (6 * d + p.top_k * p.probe // 8 + p.window // 8))
+           work.nbytes(inp, gk) + _touched_bytes(rk, rolz0()), work.scan_ops("KS", p))
 
-    # K4 at this window.  Operations: four radix passes (digit, count,
-    # place), 2 * probe chain entries a position (key compare, usable,
-    # 8-byte probe: 4), and the extension of each proposal, 8 bytes a
-    # compare (from the lengths found).
+    # K4 at this window.
     propk = blk.sort_candidates(p, inp, n)
     propp, plain_ms = _timed_plain(blk.sort_candidates_plain, p, inp, n)
     err = max_err([(propk, propp)])
     ms = _kernel_ms("K4", lambda: (p, inp, n), blk.sort_candidates)
-
-    def k4_ops(props, size):
-        ext = int((props[0::2].long() // 8 + 1).sum())
-        return size * (4 * 3 + 2 * blk._R_PROBE * 4) + 2 * ext
-
-    record("K4", err, ms, plain_ms, _nbytes(inp, propk), k4_ops(propk, big))
+    record("K4", err, ms, plain_ms, *work.k4(p, inp, n, out=propk))
     k4_small = dict(res["K4"])
 
-    # K5, on the finder's proposals.  Operations: per position, D entries
-    # (score 4, membership of n_cands proposals 2 each, best entry 2), and
-    # the window compare where the cache matched (from the lengths found).
+    # K5, on the finder's proposals.
     rk, rp = rolz0(), rolz0()
     ck = blk.rank_scan(p, inp, n, propk, rk)
     cp, plain_ms = _timed_plain(blk.rank_scan_plain, p, inp, n, propk, rp)
     err = max_err([(ck, cp), (rk, rp)])
     ms = _kernel_ms("K5", lambda: (p, inp, n, propk, rolz0()), blk.rank_scan)
-    n_c = blk._R_CANDS
     record("K5", err, ms, plain_ms,
-           _nbytes(inp, propk, ck) + _touched_bytes(rk, rolz0()),
-           big * d * (6 + 2 * n_c) + 2 * int((ck[3 * n_c].long() // 8 + 1).sum()))
+           work.nbytes(inp, propk, ck) + _touched_bytes(rk, rolz0()),
+           work.scan_ops("K5", p, ck))
 
-    # K6, on the rank scan's candidates.  Operations: per position the
-    # literal (4), and per candidate each admissible length (add, clamp,
-    # key, min: 4).
+    # K6, on the rank scan's candidates.
     dk = blk.parse_scan(p, n, ck)
     dp, plain_ms = _timed_plain(blk.parse_scan_plain, p, n, ck)
     err = max_err([(dk, dp)])
     ms = _kernel_ms("K6", lambda: (p, n, ck), blk.parse_scan)
-    lens = ck[0 : 3 * (n_c + 1) : 3].long()
-    record("K6", err, ms, plain_ms, _nbytes(ck, dk),
-           4 * big + 4 * int((lens - p.min_len + 1).clamp_min(0).sum()))
+    record("K6", err, ms, plain_ms, *work.k6(p, n, ck, out=dk))
 
-    # K2, on the flexible parse's decisions.  Operations: per position the
-    # o2 row (260 slots: read, adjust, sum: 3) and the side models (64).
+    # K2, on the flexible parse's decisions.
     tk, tp = tables0(), tables0()
     evk = blk.model_scan(p, inp, n, dk, tk)
     evp, plain_ms = _timed_plain(blk.model_scan_plain, p, inp, n, dk, tp)
@@ -488,19 +460,18 @@ def phase_kernels(corpus):
     ms = _kernel_ms("K2", lambda: (p, inp, n, dk, tables0()), blk.model_scan)
     t0_ = tables0()
     tab_bytes = sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
-    record("K2", err, ms, plain_ms, _nbytes(inp, dk, evk) + tab_bytes,
-           big * (3 * 260 + 64))
+    record("K2", err, ms, plain_ms, work.nbytes(inp, dk, evk) + tab_bytes,
+           work.scan_ops("K2", p))
 
-    # K3.  Operations: three events a position, 8 each.
+    # K3.
     sk, ek, wk = blk.rans_scan(p, evk)
     (sp, ep, wp), plain_ms = _timed_plain(blk.rans_scan_plain, p, evk)
     err = max_err([(sk, sp), (ek, ep), (wk, wp)])
     ms = _kernel_ms("K3", lambda: (p, evk), blk.rans_scan)
-    record("K3", err, ms, plain_ms, _nbytes(evk, sk, wk) + ek.numel(),
-           big * 3 * 8)
+    record("K3", err, ms, plain_ms, *work.k3(p, evk, out=(sk, ek, wk)))
 
-    # K1, on the payload the kernels wrote.  Operations: as K2 plus the
-    # bucket row (D entries, 4 each).  Bytes: the words the stream holds.
+    # K1, on the payload the kernels wrote.  Bytes: the words the stream
+    # holds.
     payload = blk._pack_payload(sk, ek, wk)
     n_words, st, stream = blk._unpack_payload(payload, p)
     st_t = torch.from_numpy(st.astype(np.int64)).to(dev)
@@ -520,8 +491,8 @@ def phase_kernels(corpus):
         blk.decode_scan)
     tab_bytes = sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
     record("K1", err, ms, plain_ms,
-           4 * n_words + _nbytes(st_t, ok) + tab_bytes
-           + _touched_bytes(rk, rolz0()), big * (3 * 260 + 64 + 4 * d))
+           4 * n_words + work.nbytes(st_t, ok) + tab_bytes
+           + _touched_bytes(rk, rolz0()), work.scan_ops("K1", p))
 
     for name, r in res.items():
         print(f"{name}: max_abs_err {r['max_abs_err']} (tolerance 0)  kernel "
@@ -549,7 +520,7 @@ def phase_kernels(corpus):
     lib_ms = _event_ms(lambda: torch.sort(keys, stable=True))
     lib32_ms = _event_ms(lambda: torch.sort(keys.to(torch.int32), stable=True))
     record("K4", max(err, k4_small["max_abs_err"]), ms, plain_ms,
-           _nbytes(inpf, propk), k4_ops(propk, nf), library_ms=lib_ms)
+           *work.k4(pf, inpf, nf, out=propk), library_ms=lib_ms)
     r = res["K4"]
     print(f"K4 at N={nf} (S=512 T={pf.steps}): max_abs_err {err}  kernel "
           f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {r['bound_ms']:.4f} ms "
@@ -571,7 +542,7 @@ def phase_sort(corpus):
     record for the kernels line (timed on those keys, the main path's)."""
     import torch
 
-    from comprox_tpu_torch.benchmarks import sort_keys
+    from comprox_tpu_torch.benchmarks import sort_keys, work
     from comprox_tpu_torch.codec import block as blk
 
     dev = "cuda"
@@ -608,14 +579,13 @@ def phase_sort(corpus):
     lib_ms = _event_ms(lambda: torch.sort(keys, stable=True))
     lib32_ms = _event_ms(lambda: torch.sort(k32, stable=True))
     passes = int(passes.item())
-    # Bytes: the keys read once, the keys and positions (int32) written
-    # once.  Operations: a digit, a rank and a place a key and pass.  The
-    # design's own floor, each pass reading and writing 8 bytes a key and
-    # the histograms reading the keys once, is printed beside it.
+    # The design's own floor, each pass reading and writing 8 bytes a key
+    # and the histograms reading the keys once, is printed beside the bound.
     res = {}
-    _record(res, "SORT", err, ms, plain_ms, 12 * n, 3 * passes * n, library_ms=lib_ms)
+    _record(res, "SORT", err, ms, plain_ms, *work.sort(key, pos, n, out=passes),
+            library_ms=lib_ms)
     r = res["SORT"]
-    floor_ms = (16 * passes + 4) * n / PEAK_BYTES_PER_S * 1e3
+    floor_ms = (16 * passes + 4) * n / work.PEAK_BYTES_PER_S * 1e3
     print(f"sort of K4's keys, N={n}: max_abs_err {err}  kernel {ms:.3f} ms "
           f"({passes} passes)  plain (torch.sort, host clock) {plain_ms:.3f} ms  "
           f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {passes} passes of "
@@ -630,10 +600,14 @@ def phase_sort(corpus):
 def phase_scan_phases():
     """The step scans by phase: the 8 MiB flexible crz archive decoded
     through K1's two instrumented builds of phase 2 (ring depth 0 and the
-    build's depth), its corpus encoded through K5's and K2's."""
+    build's depth), its corpus encoded through K5's and K2's, and the 8 MiB
+    crx and crp archives decoded through K12d's and K13d's (the same two
+    builds)."""
     from comprox_tpu_torch.benchmarks import phases
 
-    phases.run(GOLDEN / MAIN_ARCHIVE, ("K1", "K5", "K2"), (0, phases.default_depth()))
+    phases.run(GOLDEN / MAIN_ARCHIVE, ("K1", "K5", "K2", "K12d", "K13d"),
+               (0, phases.default_depth()),
+               archives={"K12d": GOLDEN / X_ARCHIVE, "K13d": GOLDEN / P_ARCHIVE})
 
 
 def phase_kernels_fast(corpus):
@@ -644,6 +618,7 @@ def phase_kernels_fast(corpus):
     import numpy as np
     import torch
 
+    from comprox_tpu_torch.benchmarks import work
     from comprox_tpu_torch.cli.main import make_params
     from comprox_tpu_torch.codec import block as blk
     from comprox_tpu_torch.codec import fast
@@ -654,12 +629,10 @@ def phase_kernels_fast(corpus):
     if corpus.size != big:
         raise AssertionError(f"corpus of {corpus.size} B for a block of {big}")
     inp = torch.from_numpy(corpus.reshape(p.lanes, p.steps).copy()).to(dev)
-    n_c, ext = fast._F_CANDS, 4 * (fast._EXTW - 1)
+    n_c = fast._F_CANDS
     res = {}
 
-    # K7 at N = 8 Mi.  Operations: four radix passes (digit, count, place),
-    # per candidate the key compare and the scatter (4), and its extension,
-    # 8 bytes a compare (from the lengths found, at most ext).
+    # K7 at N = 8 Mi.
     ck = fast.f2_find(p, inp, n)
     cp, plain_ms = _timed_plain(fast.f2_find_plain, p, inp, n)
     err = max_err([(ck, cp)])
@@ -674,9 +647,7 @@ def phase_kernels_fast(corpus):
     sort_ms = _event_ms(lambda: fast.sort_positions(p, bytes_pad, n))
     lib_ms = _event_ms(lambda: torch.sort(keys, stable=True))
     del keys
-    ext_ops = int((ck[0::2].long().clamp_max(ext) // 8 + 1).sum())
-    _record(res, "K7", err, ms, plain_ms, _nbytes(inp, ck),
-            big * (4 * 3 + 4 * n_c) + 2 * ext_ops, library_ms=lib_ms)
+    _record(res, "K7", err, ms, plain_ms, *work.k7(p, inp, n, out=ck), library_ms=lib_ms)
     print(f"K7 at N={big}: max_abs_err {err}  kernel {ms:.3f} ms  plain "
           f"{plain_ms:.3f} ms  bound {res['K7']['bound_ms']:.4f} ms "
           f"({res['K7']['bound_by']}); its sort stage (keys + {passes} radix "
@@ -684,7 +655,7 @@ def phase_kernels_fast(corpus):
           f"(int64) {lib_ms:.3f} ms")
 
     # K6, F entry, at T=256 on the finder's candidates of the first S * 256
-    # bytes.  Operations: as the R entry (literal 4, each admissible length 4).
+    # bytes.
     ps_ = blk.BlockParams(lanes=p.lanes, steps=KERNEL_STEPS, mode="F",
                           min_len=p.min_len, window=p.window)
     ns = ps_.capacity
@@ -695,21 +666,17 @@ def phase_kernels_fast(corpus):
     dp, plain_ms = _timed_plain(lambda: blk.parse_scan_plain(ps_, ns, cs, **kw))
     err = max_err([(dk, dp)])
     ms = _kernel_ms("K6", lambda: (ps_, ns, cs), lambda *a: blk.parse_scan(*a, **kw))
-    # Bytes: the candidates read, (take, src) written (the F entry's third
-    # grid is all zero and nothing reads it).
-    _record(res, "K6F", err, ms, plain_ms, _nbytes(cs, dk[:2]),
-            4 * ns + 4 * int((cs[0::2].long() - ps_.min_len + 1).clamp_min(0).sum()))
+    # (The F entry's third grid is all zero and nothing reads it.)
+    _record(res, "K6F", err, ms, plain_ms, *work.k6(ps_, ns, cs, out=dk, **kw))
     r = res["K6F"]
     print(f"K6, F entry at T={KERNEL_STEPS}: max_abs_err {err}  kernel {ms:.3f} ms "
           f"({ms * 1e3 / KERNEL_STEPS:.1f} us/step)  plain {plain_ms:.3f} ms  bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     # K8 at N = 8 Mi on the kernel parse's decisions (the plain parse takes
-    # ~3 ms a step).  Operations: per position the replay (4), the event
-    # (10), one scan of two values (4) and the token's code (20 a token).
-    # Bytes: the block and (take, src) read, 12 a token written.  The plain
-    # version also lines the other positions up behind the tokens, as JAX
-    # does; the kernel's n_tok tokens are held against its first n_tok.
+    # ~3 ms a step).  The plain version also lines the other positions up
+    # behind the tokens, as JAX does; the kernel's n_tok tokens are held
+    # against its first n_tok.
     dec = blk.parse_scan(p, n, ck, **kw)
     n_tok, sym, xtr, tbits = fast.tokenize(p, inp, n, dec)
     tp, plain_ms = _timed_plain(fast.tokenize_plain, p, inp, n, dec)
@@ -720,16 +687,14 @@ def phase_kernels_fast(corpus):
     ms = _kernel_ms("K8", lambda: (p, inp, n, dec), fast.tokenize)
     starts = (dec[0].reshape(-1) > 0).to(torch.int32)  # an [N] int32 for the library scan
     lib_ms = _event_ms(lambda: torch.cumsum(starts, 0))
-    _record(res, "K8", err, ms, plain_ms, _nbytes(inp, dec[:2]) + 12 * n_tok,
-            big * 18 + n_tok * 20, library_ms=lib_ms)
+    _record(res, "K8", err, ms, plain_ms,
+            *work.k8(p, inp, n, dec, out=(n_tok, sym, xtr, tbits)), library_ms=lib_ms)
     print(f"K8 at N={big}: {n_tok} tokens; max_abs_err {err}  kernel {ms:.3f} ms  "
           f"plain {plain_ms:.3f} ms  bound {res['K8']['bound_ms']:.4f} ms "
           f"({res['K8']['bound_by']}); one torch.cumsum over N int32 {lib_ms:.3f} ms "
           f"(the kernel's scan carries a count and a last nonzero value)")
 
-    # K9 on the first S * 256 tokens.  Operations: three events a token, 8
-    # each, and the histogram (2).  Bytes: 12 a token read, the table and
-    # the states written, 2 a word written.
+    # K9 on the first S * 256 tokens.
     cut = min(n_tok, p.lanes * KERNEL_STEPS)
     ek = fast.encode_scan(p, sym, xtr, tbits, cut)
     ep, plain_ms = _timed_plain(fast.encode_scan_plain, p, sym, xtr, tbits, cut)
@@ -739,9 +704,8 @@ def phase_kernels_fast(corpus):
     sym64 = sym[:cut].long()
     lib_ms = _event_ms(lambda: torch.bincount(sym64, minlength=fast.W_SYM))
     freq, states, words = ek
-    _record(res, "K9", err, ms, plain_ms,
-            12 * cut + _nbytes(freq, states) + 2 * words.numel(),
-            cut * (3 * 8 + 2), library_ms=lib_ms)
+    _record(res, "K9", err, ms, plain_ms, *work.k9(p, sym, xtr, tbits, cut, out=ek),
+            library_ms=lib_ms)
     print(f"K9 on {cut} tokens ({-(-cut // p.lanes)} steps): max_abs_err {err}  "
           f"kernel {ms:.3f} ms ({ms * 1e3 / -(-cut // p.lanes):.2f} us/step)  plain "
           f"{plain_ms:.3f} ms  bound {res['K9']['bound_ms']:.4f} ms "
@@ -749,10 +713,8 @@ def phase_kernels_fast(corpus):
           f"{lib_ms:.3f} ms (the histogram alone); on all {n_tok} tokens: "
           f"kernel {full_ms:.3f} ms")
 
-    # K10 on the stream K9 wrote.  Operations: three events a token, 8
-    # each, the slot table (M * 10) and the plane (10 a token).  Bytes: 2 a
-    # word read, the table and the states, 4 a token written.  The plain
-    # version's plane has JAX's N slots; the kernel's n_tok are its first.
+    # K10 on the stream K9 wrote.  The plain version's plane has JAX's N
+    # slots; the kernel's n_tok are its first.
     stream = torch.zeros(fast._max_words(p), dtype=torch.int32, device=dev)
     stream[: words.numel()] = words.flip(0)
     xk, uk, plk = fast.decode_scan(p, freq, states, stream, cut)
@@ -765,8 +727,7 @@ def phase_kernels_fast(corpus):
     err = max_err([(xk, xp), (plk, plp[:cut])])
     ms = _kernel_ms("K10", lambda: (p, freq, states, stream, cut), fast.decode_scan)
     _record(res, "K10", err, ms, plain_ms,
-            2 * words.numel() + _nbytes(freq, states) + 4 * cut,
-            cut * 3 * 8 + fast.M * 10 + cut * 10)
+            *work.k10(p, freq, states, stream, cut, out=(xk, uk, plk)))
     print(f"K10 on {cut} tokens: max_abs_err {err}  kernel {ms:.3f} ms "
           f"({ms * 1e3 / -(-cut // p.lanes):.2f} us/step)  plain {plain_ms:.3f} ms  "
           f"bound {res['K10']['bound_ms']:.4f} ms ({res['K10']['bound_by']})")
@@ -784,6 +745,7 @@ def phase_kernels_x(corpus):
     import numpy as np
     import torch
 
+    from comprox_tpu_torch.benchmarks import work
     from comprox_tpu_torch.cli.main import make_params
     from comprox_tpu_torch.codec import block as blk
     from comprox_tpu_torch.models import ppm
@@ -793,34 +755,26 @@ def phase_kernels_x(corpus):
     p = blk.BlockParams(lanes=512, steps=KERNEL_STEPS, mode="X",
                         min_len=pf.min_len, window=pf.window,
                         rolz_ctx_bytes=pf.rolz_ctx_bytes)
-    big = n = p.capacity
+    n = p.capacity
     data = corpus[:n]
     inp = torch.from_numpy(data.reshape(p.lanes, p.steps).copy()).to(dev)
-    n_c, chain_b, _, _ = blk._finder_config(p, True)
+    n_c = blk._finder_config(p, True)[0]
     prices = blk.x_prices()
     res = {}
 
     def tables0():
         return ppm.init_tables(True, p.o3_bits, dev)
 
-    def k4x_ops(props, size):
-        ext = int((props[0::2].long() // 8 + 1).sum())
-        return size * (4 * 3 + chain_b * 4) + 2 * ext
-
-    # K4x at this window.  Operations: as K4 with its chain of chain_b
-    # entries (backward only).
+    # K4x at this window.
     ck = blk.sort_candidates(p, inp, n, content=True)
     cp, plain_ms = _timed_plain(blk.sort_candidates_plain, p, inp, n, True)
     err = max_err([(ck, cp)])
     ms = _kernel_ms("K4x", lambda: (p, inp, n, True), blk.sort_candidates)
-    _record(res, "K4x", err, ms, plain_ms, _nbytes(inp, ck), k4x_ops(ck, big))
+    _record(res, "K4x", err, ms, plain_ms, *work.k4(p, inp, n, True, out=ck))
     k4x_small = dict(res["K4x"])
 
-    # KSx, the scan finder's search.  Operations: per position two bucket
-    # rows (D entries scored and ranked, 6 each; top_k probes and one
-    # window, 8 bytes a compare) and the near-match cache (hash 12, one
-    # window).  Bytes: the block read, six grids written, the rows of the
-    # three tables that changed.
+    # KSx, the scan finder's search.  Bytes: the block read, six grids
+    # written, the rows of the three tables that changed.
     def xsearch0():
         return blk._init_xsearch(p, dev)
 
@@ -832,28 +786,24 @@ def phase_kernels_x(corpus):
     gp, plain_ms = _timed_plain(blk.search_scan_plain, p, inp, n, xp)
     err = max_err([(gk, gp)] + list(zip(xk, xp)))
     ms = _kernel_ms("KSx", lambda: (p, inp, n, xsearch0()), blk.search_scan)
-    d = p.rolz_depth
     _record(res, "KSx", err, ms, plain_ms,
-            _nbytes(inp, gk) + sum(_touched_bytes(a, b) for a, b in zip(xk, xsearch0())),
-            big * (2 * (6 * d + p.top_k * p.probe // 8 + p.window // 8)
-                   + 12 + p.window // 8))
+            work.nbytes(inp, gk) + sum(_touched_bytes(a, b) for a, b in zip(xk, xsearch0())),
+            work.scan_ops("KSx", p))
     del xk, xp
 
     # K6, X entry, first launch (three distance-priced candidates).
-    # Operations: the literal (4) and each admissible length (4), as K6.
     kw = dict(prices=prices, n_c=n_c)
     d1k = blk.parse_scan(p, n, ck, **kw)
     d1p, plain1 = _timed_plain(lambda: blk.parse_scan_plain(p, n, ck, **kw))
     err1 = max_err([(d1k, d1p)])
     ms1 = _kernel_ms("K6", lambda: (p, n, ck), lambda *a: blk.parse_scan(*a, **kw))
 
-    # K11 on the first parse.  Operations: twelve a position (two walks).
-    # Bytes: (take, src) and the block read, (len_rep, prev) written.
+    # K11 on the first parse.
     rk = blk.rep_scan(p, inp, n, d1k)
     rp, plain_ms = _timed_plain(blk.rep_scan_plain, p, inp, n, d1k)
     err = max_err([(rk, rp)])
     ms = _kernel_ms("K11", lambda: (p, inp, n, d1k), blk.rep_scan)
-    _record(res, "K11", err, ms, plain_ms, _nbytes(inp, d1k[:2], rk), 12 * big)
+    _record(res, "K11", err, ms, plain_ms, *work.k11(p, inp, n, d1k, out=rk))
 
     # K6, X entry, second launch (with the repeat pair, tried last).
     d2k = blk.parse_scan(p, n, ck, rep=rk, **kw)
@@ -861,16 +811,14 @@ def phase_kernels_x(corpus):
     err2 = max_err([(d2k, d2p)])
     ms2 = _kernel_ms("K6", lambda: (p, n, ck),
                      lambda *a: blk.parse_scan(*a, rep=rk, **kw))
-    adm = int((ck[0::2].long() - p.min_len + 1).clamp_min(0).sum())
-    adm_rep = int((rk[0].long() - p.min_len + 1).clamp_min(0).sum())
-    _record(res, "K6 (X)", max(err1, err2), ms1 + ms2, plain1 + plain2,
-            2 * _nbytes(ck, d1k[:2]) + _nbytes(rk),
-            2 * (4 * big + 4 * adm) + 4 * adm_rep)
+    b1, o1 = work.k6(p, n, ck, out=d1k, **kw)
+    b2, o2 = work.k6(p, n, ck, rep=rk, out=d2k, **kw)
+    _record(res, "K6 (X)", max(err1, err2), ms1 + ms2, plain1 + plain2, b1 + b2, o1 + o2)
     print(f"K6, X entry at T={KERNEL_STEPS}: without the repeat pair {ms1:.3f} ms "
           f"(plain {plain1:.3f}), with it {ms2:.3f} ms (plain {plain2:.3f}); "
           f"max_abs_err {err1}, {err2}")
 
-    # K12e on the second parse's decisions.  Operations: as K2.
+    # K12e on the second parse's decisions.
     dec = d2k[:2]
     tk, tp = tables0(), tables0()
     evk = blk.model_scan(p, inp, n, dec, tk)
@@ -879,18 +827,17 @@ def phase_kernels_x(corpus):
     ms = _kernel_ms("K12e", lambda: (p, inp, n, dec, tables0()), blk.model_scan)
     t0_ = tables0()
     tab_bytes = sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
-    _record(res, "K12e", err, ms, plain_ms, _nbytes(inp, dec, evk) + tab_bytes,
-            big * (3 * 260 + 64))
+    _record(res, "K12e", err, ms, plain_ms, work.nbytes(inp, dec, evk) + tab_bytes,
+            work.scan_ops("K12e", p))
 
-    # K3 at five slots.  Operations: five events a position, 8 each.
+    # K3 at five slots.
     sk, ek, wk = blk.rans_scan(p, evk)
     (sp, ep, wp), plain_ms = _timed_plain(blk.rans_scan_plain, p, evk)
     err = max_err([(sk, sp), (ek, ep), (wk, wp)])
     ms = _kernel_ms("K3", lambda: (p, evk), blk.rans_scan)
-    _record(res, "K3 (5 slots)", err, ms, plain_ms,
-            _nbytes(evk, sk, wk) + ek.numel(), big * 5 * 8)
+    _record(res, "K3 (5 slots)", err, ms, plain_ms, *work.k3(p, evk, out=(sk, ek, wk)))
 
-    # K12d on the payload the kernels wrote.  Operations: as K12e.
+    # K12d on the payload the kernels wrote.
     payload = blk._pack_payload(sk, ek, wk)
     n_words, st, stream = blk._unpack_payload(payload, p)
     st_t = torch.from_numpy(st.astype(np.int64)).to(dev)
@@ -909,7 +856,7 @@ def phase_kernels_x(corpus):
                     blk.decode_scan)
     tab_bytes = sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
     _record(res, "K12d", err, ms, plain_ms,
-            4 * n_words + _nbytes(st_t, ok) + tab_bytes, big * (3 * 260 + 64))
+            4 * n_words + work.nbytes(st_t, ok) + tab_bytes, work.scan_ops("K12d", p))
 
     for name, r in res.items():
         print(f"{name}: max_abs_err {r['max_abs_err']} (tolerance 0)  kernel "
@@ -940,7 +887,7 @@ def phase_kernels_x(corpus):
     sort_ms = _event_ms(sort_stage)
     lib_ms = _event_ms(lambda: torch.sort(keys, stable=True))
     _record(res, "K4x", max(err, k4x_small["max_abs_err"]), ms, plain_ms,
-            _nbytes(inpf, propk), k4x_ops(propk, nf), library_ms=lib_ms)
+            *work.k4(pf, inpf, nf, True, out=propk), library_ms=lib_ms)
     r = res["K4x"]
     print(f"K4x at N={nf} (S=512 T={pf.steps}): max_abs_err {err}  kernel "
           f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {r['bound_ms']:.4f} ms "
@@ -963,6 +910,7 @@ def phase_kernels_p(corpus):
     import numpy as np
     import torch
 
+    from comprox_tpu_torch.benchmarks import work
     from comprox_tpu_torch.cli.main import make_params
     from comprox_tpu_torch.codec import block as blk
     from comprox_tpu_torch.models import ppm
@@ -971,7 +919,7 @@ def phase_kernels_p(corpus):
     pf = make_params("crp", {"lanes": 512, "block_mb": 8}).block
     p = blk.BlockParams(lanes=512, steps=KERNEL_STEPS, mode="P",
                         min_len=pf.min_len, window=pf.window)
-    big = n = p.capacity
+    n = p.capacity
     data = corpus[:n]
     inp = torch.from_numpy(data.reshape(p.lanes, p.steps).copy()).to(dev)
     res = {}
@@ -987,12 +935,8 @@ def phase_kernels_p(corpus):
         return (sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
                 + sum(_touched_bytes(zk[k], z0_[k]) for k in zk))
 
-    # K13e.  Operations: per position the o2 row (260 slots: read, adjust,
-    # sum: 3), the side models (64) and the candidate (three hashes and
-    # table reads, the verify: 16; one window compare, 8 bytes at a time).
-    # Bytes: the block read, nine event grids written, the table rows and
-    # LZP slots this run changed.
-    ops = big * (3 * 260 + 64 + 16 + p.window // 8)
+    # K13e.  Bytes: the block read, nine event grids written, the table
+    # rows and LZP slots this run changed.
     tk, tp, zk, zp = tables0(), tables0(), lzp0(), lzp0()
     blk.reset_launch_counts()
     evk = blk.model_scan(p, inp, n, None, tk, zk)
@@ -1002,7 +946,8 @@ def phase_kernels_p(corpus):
     err = max_err([(evk, evp)] + _tables_pairs(tk, tp) + _tables_pairs(zk, zp))
     ms = _kernel_ms("K13e", lambda: (p, inp, n, None, tables0(), lzp0()),
                     blk.model_scan)
-    _record(res, "K13e", err, ms, plain_ms, _nbytes(inp, evk) + touched(tk, zk), ops)
+    _record(res, "K13e", err, ms, plain_ms, work.nbytes(inp, evk) + touched(tk, zk),
+            work.scan_ops("K13e", p))
     n_match = int(evk[:, 8].sum())
     if n_match == 0:
         raise AssertionError("K13e coded no match on corpus bytes")
@@ -1013,8 +958,8 @@ def phase_kernels_p(corpus):
     if max_err([(sk, sp), (ek, ep), (wk, wp)]) != 0:
         raise AssertionError("K3 != plain on mode P's events")
 
-    # K13d on the payload the kernels wrote.  Operations: as K13e without
-    # the window compare.  Bytes: the words the stream holds.
+    # K13d on the payload the kernels wrote.  Bytes: the words the stream
+    # holds.
     payload = blk._pack_payload(sk, ek, wk)
     n_words, st, stream = blk._unpack_payload(payload, p)
     st_t = torch.from_numpy(st.astype(np.int64)).to(dev)
@@ -1032,8 +977,8 @@ def phase_kernels_p(corpus):
     ms = _kernel_ms("K13d", lambda: (p, st_t, stream_t, n, tables0(), None, lzp0()),
                     blk.decode_scan)
     _record(res, "K13d", err, ms, plain_ms,
-            4 * n_words + _nbytes(st_t, ok) + touched(tk, zk),
-            big * (3 * 260 + 64 + 16))
+            4 * n_words + work.nbytes(st_t, ok) + touched(tk, zk),
+            work.scan_ops("K13d", p))
     for name, r in res.items():
         print(f"{name}: max_abs_err {r['max_abs_err']} (tolerance 0)  kernel "
               f"{r['ms']:.3f} ms ({r['ms'] * 1e3 / p.steps:.1f} us/step)  "

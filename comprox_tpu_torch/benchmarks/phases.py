@@ -1,43 +1,51 @@
 """The step scans' time by phase on the card, from instrumented builds.
 
-Three step scans of the crz path have an instrumented build: the decode
-scan K1 (``csrc/decode.cu``, ``-DCPX_K1_PROF``), the rank scan K5
-(``csrc/rank.cu``, ``-DCPX_K5_PROF``) and the modeling scan K2
-(``csrc/model.cu``, ``-DCPX_K2_PROF``).  Each walks T dependent steps of
-phases, most of them ended by a barrier; the instrumented build (a variant
-beside the main library, built from that source alone; the main path never
-builds one) reads the SM clock at the end of each phase and sums each
-phase's cycles over the steps.  K1 stamps on thread 0; K5 and K2 on
-thread 0 and on the launch's last thread (in K5's cluster, of the CTA that
-reads the most other CTAs' keys), one column each.  K5 also sums, for each
-phase from its keys barrier to the insert slot, the slowest thread of CTA
-0 in each step (a third column: how much of the wait at the row barrier
-CTA 0's stragglers explain).  A phase that ends at a barrier is the time
-until the slowest warp got there; the others are the observer's own.
-Every column is scaled to microseconds by thread 0's cycles a step
-against the kernel's CUDA-event time.
+Five step scans have an instrumented build: the decode scans K1 (crz,
+``csrc/decode.cu``, ``-DCPX_K1_PROF``) and K12d / K13d (the tableless scan
+of crx and crp, the same source, ``-DCPX_K12D_PROF``; both in one variant
+of ``decode.cu``), the rank scan K5 (``csrc/rank.cu``, ``-DCPX_K5_PROF``)
+and the modeling scan K2 (``csrc/model.cu``, ``-DCPX_K2_PROF``).  Each
+walks T dependent steps of phases, most of them ended by a barrier; the
+instrumented build (a variant beside the main library, built from that
+source alone; the main path never builds one) reads the SM clock at the
+end of each phase and sums each phase's cycles over the steps.  K1 stamps
+on thread 0; K5, K2, K12d and K13d on thread 0 and on the launch's last
+thread (in K5's cluster, of the CTA that reads the most other CTAs'
+keys), one column each.  K5 also sums, for each phase from its keys
+barrier to the insert slot, the slowest thread of CTA 0 in each step (a
+third column: how much of the wait at the row barrier CTA 0's stragglers
+explain).  A phase that ends at a barrier is the time until the slowest
+warp got there; the others are the observer's own.  Every column is
+scaled to microseconds by thread 0's cycles a step against the kernel's
+CUDA-event time.
 
-This module builds the variants (K1 at each row-ring depth asked for:
-``CPX_RING_D`` of ``csrc/ppm_r.cuh``, the rows of the A and B events in
-flight a warp, 0 issuing a pair of rows when they are read; K5 and K2
-together, at the build's depth), decodes a crz archive through K1's and
-encodes its corpus again through K5's and K2's, checks the decoded bytes
-and the archive against ``tests/data/torch_golden.json``, and reports each
+This module builds the variants (the decode scans at each row-ring depth
+asked for: ``CPX_RING_D`` of ``csrc/ppm_r.cuh``, the rows of the A and B
+events in flight a warp, 0 issuing a pair of rows when they are read; K5
+and K2 together, at the build's depth), decodes a crz archive through
+K1's and encodes its corpus again through K5's and K2's, decodes the crx
+and crp goldens through K12d's and K13d's, checks the decoded bytes and
+the archive against ``tests/data/torch_golden.json``, and reports each
 phase's share of the cycles and its microseconds a step (the share times
 the kernel's CUDA-event time over the steps).  On the card::
 
-    python -m comprox_tpu_torch.benchmarks.phases [archive] [K1|K5|K2 ...] [depth ...]
+    python -m comprox_tpu_torch.benchmarks.phases [archive] [K1|K5|K2|K12d|K13d ...] [depth ...]
     python -m comprox_tpu_torch.benchmarks.phases split [ctas ...]
     python -m comprox_tpu_torch.benchmarks.phases times
+    python -m comprox_tpu_torch.benchmarks.phases bounds
 
-(default: the 8 MiB flexible crz golden, all three kernels, K1 at depths 0
-and the build's default).  ``split`` times K5 on that golden's encode with
-its 512 lanes split over each number of CTAs given (a cluster above one;
-default 1 2 4 8 8 4 2 1), a variant build of ``csrc/rank.cu`` each.
+(default: the 8 MiB flexible crz golden for K1, K5 and K2, the 8 MiB crx
+and crp goldens for K12d and K13d; K1, K5 and K2; each decode scan at
+depths 0 and the build's default).  ``split`` times K5 on that golden's
+encode with its 512 lanes split over each number of CTAs given (a cluster
+above one; default 1 2 4 8 8 4 2 1), a variant build of ``csrc/rank.cu``
+each.
 ``times`` prints the full-width time of every step scan (K1, K5, K2, KS,
 K12d, K12e, KSx, K13d, K13e) in the main build, from the decode and the
 encode of the 8 MiB goldens, and its bound at that width; run it in two
-trees in turns to compare them.
+trees in turns to compare them.  ``bounds`` prints the full-width bound of
+every other kernel (the sort, K4, K4x, K7, K3, K6, K8-K11) from the
+launches of the 8 MiB crz, crx and crf goldens' decode and encode.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from comprox_tpu_torch.benchmarks import work
 from comprox_tpu_torch.cli.main import make_params, parse_args
 from comprox_tpu_torch.codec import block as blk
 from comprox_tpu_torch.codec.container import decode_stream, encode_stream, read_header
@@ -76,9 +85,23 @@ PHASES = {
         "elections, table stores", "adds", "finish",
     ), 2),
 }
+# the tableless decode scan's stamps (decode.cu, K12D_STAMP), one set for
+# its two modes: X (K12d) and P (K13d, whose D and E phase is empty)
+TABLELESS = (
+    "o1 rescale", "contexts, o2 rows issued, LZP candidate", "A event",
+    "A renorm, keys, dst rescale", "B event, B renorm", "len rescale",
+    "C event, C renorm", "D, E (X)", "byte resolve", "stores", "adds, finish",
+)
+PHASES.update({"K12d": ("decode.cu", TABLELESS, 2), "K13d": ("decode.cu", TABLELESS, 2)})
+# a kernel's stamp set in its source, where it is not named for the kernel
+STAMP_SET = {"K12d": "K12D", "K13d": "K12D"}
+DECODE_KERNELS = ("K1", "K12d", "K13d")  # the kernels of decode.cu's variant
 ENCODE_KERNELS = ("K5", "K2")  # one variant, one encode
 GOLDEN = Path(__file__).resolve().parents[2] / "tests" / "data"
 ARCHIVE = GOLDEN / "crz_flex_8MiB_S512.cpx"
+# the archive each tableless kernel decodes by default
+TABLELESS_ARCHIVES = {"K12d": GOLDEN / "crx_flex_8MiB_S512.cpx",
+                      "K13d": GOLDEN / "crp_8MiB_S512.cpx"}
 
 
 def default_depth() -> int:
@@ -87,8 +110,9 @@ def default_depth() -> int:
 
 
 def defines(depth: int) -> tuple:
-    """K1's instrumented build at row-ring depth ``depth``."""
-    return ("-DCPX_K1_PROF", f"-DCPX_RING_D={depth}")
+    """The instrumented build of ``decode.cu`` (K1's stamps and the
+    tableless scan's, K12d and K13d) at row-ring depth ``depth``."""
+    return ("-DCPX_K1_PROF", "-DCPX_K12D_PROF", f"-DCPX_RING_D={depth}")
 
 
 ENCODE_DEFINES = tuple(f"-DCPX_{k}_PROF" for k in ENCODE_KERNELS)
@@ -96,8 +120,8 @@ ENCODE_SOURCES = tuple(PHASES[k][0] for k in ENCODE_KERNELS)
 
 
 def variant_specs(depths=(), encode: bool = True) -> list:
-    """``build.build_many`` specs: K1's variant at each depth, then (with
-    ``encode``) K5's and K2's."""
+    """``build.build_many`` specs: the decode scans' variant (K1, K12d,
+    K13d) at each depth, then (with ``encode``) K5's and K2's."""
     return [(defines(d), ("decode.cu",)) for d in depths] + (
         [(ENCODE_DEFINES, ENCODE_SOURCES)] if encode else [])
 
@@ -119,21 +143,21 @@ def _result(kernel: str, cyc: np.ndarray, ms: float, steps: int, **kw) -> dict:
                 us_per_step=(share * ms * 1e3 / steps).tolist(), **kw)
 
 
-def decode_breakdown(archive: bytes, depth: int) -> dict:
-    """Decode ``archive`` (a crz archive) on the card through the
-    instrumented K1 at ``depth``: K1's result, with the decoded bytes'
-    ``sha256`` and the ``depth``."""
+def decode_breakdown(archive: bytes, depth: int, kernel: str = "K1") -> dict:
+    """Decode ``archive`` (crz for K1, crx for K12d, crp for K13d) on the
+    card through the instrumented ``kernel`` at ``depth``: its result,
+    with the decoded bytes' ``sha256`` and the ``depth``."""
     cp, _ = read_header(io.BytesIO(archive))
     with build.variant(*defines(depth), only=("decode.cu",)):
         lib = build.lib()
-        _read(lib, "K1")
+        _read(lib, kernel)
         blk.reset_launch_counts()
         out = io.BytesIO()
         decode_stream(io.BytesIO(archive), out, "cuda")
-        ms = blk.kernel_ms()["K1"]
-        steps = blk.LAUNCHES["K1"] * cp.block.steps
-        cyc = _read(lib, "K1")
-    return _result("K1", cyc, ms, steps, depth=depth,
+        ms = blk.kernel_ms()[kernel]
+        steps = blk.LAUNCHES[kernel] * cp.block.steps
+        cyc = _read(lib, kernel)
+    return _result(kernel, cyc, ms, steps, depth=depth,
                    sha256=hashlib.sha256(out.getvalue()).hexdigest())
 
 
@@ -196,25 +220,6 @@ TIMED = (
 )
 
 
-# the card's published peaks (NVIDIA H100 SXM data sheet, as chip_smoke.py):
-# device memory rate, and the float32 rate outside the tensor cores, taken
-# for the scans' 32-bit integer operations
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-# a stated model of each step scan's 32-bit operations a position (the
-# kernel cells' models of chip_smoke.py): the row entries scored and
-# compared, the o2 row read, adjusted and summed, the side models
-OPS_PER_POSITION = {
-    "KS": lambda p: 6 * p.rolz_depth + p.top_k * p.probe // 8 + p.window // 8,
-    "KSx": lambda p: 12 * p.rolz_depth + 3 * p.window // 8,
-    "K5": lambda p: p.rolz_depth * (6 + 2 * blk._R_CANDS),
-    "K2": lambda p: 3 * 260 + 64,
-    "K12e": lambda p: 3 * 260 + 64,
-    "K13e": lambda p: 3 * 260 + 64,
-    "K1": lambda p: 3 * 260 + 64 + 4 * p.rolz_depth,
-    "K12d": lambda p: 3 * 260 + 64,
-    "K13d": lambda p: 3 * 260 + 64,
-}
 SCAN_ENTRIES = ("search_scan", "rank_scan", "model_scan", "decode_scan")
 
 
@@ -235,7 +240,7 @@ def _bytes_of_scans(log: dict):
     the kernel it launched, the bytes its function must move: each tensor
     argument it leaves as it was read once, each one it updates in place
     (a table) by the rows it changed, read and written once, and each
-    result written once; and its block's parameters."""
+    result written once; and its modelled operations (``work.scan_ops``)."""
     saved = {n: getattr(blk, n) for n in SCAN_ENTRIES}
 
     def wrap(fn):
@@ -251,8 +256,8 @@ def _bytes_of_scans(log: dict):
                 nbytes += (2 * changed * rows.shape[1] * t.element_size() if changed
                            else t.numel() * t.element_size())
             for k, v in blk.LAUNCHES.items():
-                if v > before[k]:
-                    log[k] = (nbytes, p)
+                if v > before[k] and k in work.SCAN_KERNELS:
+                    log[k] = (nbytes, work.scan_ops(k, p, out))
             return out
         return entry
 
@@ -265,17 +270,10 @@ def _bytes_of_scans(log: dict):
             setattr(blk, n, fn)
 
 
-def full_bound(kernel: str, nbytes: int, p) -> tuple:
-    """(bound_ms, bound_by) of a full-width launch: the larger of its bytes
-    over the memory rate and its modelled operations over the peak rate."""
-    t_b = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_o = p.capacity * OPS_PER_POSITION[kernel](p) / PEAK_OPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
 def times(timed=TIMED) -> dict:
     """Every step scan's CUDA-event ms at full width, in the main build,
-    and its bound at that width (``full_bound``): each golden of ``timed``
+    and its bound at that width (``work.bound`` of the launch's bytes and
+    ``work.scan_ops``): each golden of ``timed``
     decoded on the card and its corpus encoded again under its command
     line (a knob in it set for the encode), the decoded bytes and the
     archive checked against the golden.  Prints a line; returns {kernel:
@@ -308,11 +306,91 @@ def times(timed=TIMED) -> dict:
             blk._ENV.update(old)
         if hashlib.sha256(buf.getvalue()).hexdigest() != want["archive_sha256"]:
             raise AssertionError(f"{name}: the archive differs from the golden")
-        out.update({k: (ms[k], *full_bound(k, *moved[k])) for k in kernels})
+        out.update({k: (ms[k], *work.bound(*moved[k])) for k in kernels})
     print("step scans, ms: " + ", ".join(f"{k} {v[0]:.3f}" for k, v in out.items()),
           flush=True)
     print("full-width bounds, ms: " + ", ".join(
         f"{k} {v[1]:.4f} ({v[2]})" for k, v in out.items()), flush=True)
+    return out
+
+
+# The other kernels' full-width bounds: each is launched by an entry of
+# the block API, whose arguments and result give its work (``work``).
+# kernel -> (module, entry, its work function)
+BOUND_ENTRIES = {
+    "SORT": ("block", "_radix_sort", work.sort),
+    "K4": ("block", "sort_candidates", work.k4),
+    "K6": ("block", "parse_scan", work.k6),
+    "K3": ("block", "rans_scan", work.k3),
+    "K11": ("block", "rep_scan", work.k11),
+    "K7": ("fast", "f2_find", work.k7),
+    "K8": ("fast", "tokenize", work.k8),
+    "K9": ("fast", "encode_scan", work.k9),
+    "K10": ("fast", "decode_scan", work.k10),
+}
+# the kernel's row name by block mode, where one entry serves several
+BOUND_ROWS = {("K4", "X"): "K4x", ("K6", "R"): "K6 (R)", ("K6", "X"): "K6 (X)",
+              ("K6", "F"): "K6 (F)", ("K3", "X"): "K3 (5 slots)"}
+
+
+@contextlib.contextmanager
+def _bounds_of_entries(log: dict):
+    """Inside the block, each entry of ``BOUND_ENTRIES`` adds its launch's
+    (bytes, operations) to log[row] (row: the kernel, by the block's mode
+    where one entry serves several; SORT by the mode of the last block)."""
+    from comprox_tpu_torch.codec import fast
+
+    mods = {"block": blk, "fast": fast}
+    saved = {(mod, name): getattr(mods[mod], name) for mod, name, _ in BOUND_ENTRIES.values()}
+    mode = [None]
+
+    def wrap(kernel, fn, rule):
+        def entry(*args, **kw):
+            if args and isinstance(args[0], blk.BlockParams):
+                mode[0] = args[0].mode
+            out = fn(*args, **kw)
+            row = (f"SORT ({mode[0]})" if kernel == "SORT"
+                   else BOUND_ROWS.get((kernel, mode[0]), kernel))
+            nbytes, ops = rule(*args, **kw, out=out)
+            old = log.get(row, (0, 0))
+            log[row] = (old[0] + int(nbytes), old[1] + int(ops))
+            return out
+        return entry
+
+    for kernel, (mod, name, rule) in BOUND_ENTRIES.items():
+        setattr(mods[mod], name, wrap(kernel, saved[(mod, name)], rule))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mods[mod], name, fn)
+
+
+def bounds(names=("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx",
+                  "crf_flex_8MiB_S512.cpx")) -> dict:
+    """The full-width bound of every kernel that is not a step scan (the
+    sort, K4, K4x, K7, K3, K6, K8-K11): each golden of ``names`` decoded on
+    the card and its corpus encoded again under its command line (the
+    archive checked against the golden), each launch's bytes and modelled
+    operations summed over the path.  Prints a line; returns {row:
+    (bound_ms, bound_by, bytes, operations)}."""
+    meta = json.loads((GOLDEN / "torch_golden.json").read_text())
+    log = {}
+    for name in names:
+        want = meta[name]
+        codec, _, _, _, opts = parse_args(want["argv"].split() + ["in", "out"])
+        raw, buf = io.BytesIO(), io.BytesIO()
+        with _bounds_of_entries(log):
+            decode_stream(io.BytesIO((GOLDEN / name).read_bytes()), raw, "cuda")
+            encode_stream(np.frombuffer(raw.getvalue(), np.uint8), buf,
+                          make_params(codec, opts), "cuda", filters=opts["filters"])
+        if hashlib.sha256(buf.getvalue()).hexdigest() != want["archive_sha256"]:
+            raise AssertionError(f"{name}: the archive differs from the golden")
+    out = {row: work.bound(nbytes, ops) + (nbytes, ops)
+           for row, (nbytes, ops) in log.items()}
+    print("full-width bounds of the other kernels, ms: " + ", ".join(
+        f"{k} {v[0]:.4f} ({v[1]}; {v[2]} B, {v[3]} ops)" for k, v in sorted(out.items())),
+        flush=True)
     return out
 
 
@@ -341,25 +419,32 @@ def table(results) -> str:
 
 
 def run(archive_path=ARCHIVE, kernels=("K1", "K5", "K2"), depths=None,
-        verbose=False) -> dict:
+        verbose=False, archives=None) -> dict:
     """Build the variants, run each kernel's breakdown, check the bytes,
-    print one table a kernel; returns {kernel: [results]}."""
+    print one table a kernel; returns {kernel: [results]}.  K1, K5 and K2
+    code ``archive_path`` (crz); K12d and K13d decode their archive of
+    ``archives`` (default ``TABLELESS_ARCHIVES``); each decode scan runs
+    at every depth."""
     depths = (0, default_depth()) if depths is None else tuple(depths)
     archive_path = Path(archive_path)
-    want = json.loads((GOLDEN / "torch_golden.json").read_text())[archive_path.name]
-    archive = archive_path.read_bytes()
+    meta = json.loads((GOLDEN / "torch_golden.json").read_text())
+    want = meta[archive_path.name]
+    paths = {k: archive_path for k in PHASES}
+    paths.update(TABLELESS_ARCHIVES)
+    paths.update({k: Path(v) for k, v in (archives or {}).items()})
     encode = [k for k in ENCODE_KERNELS if k in kernels]
+    decode = [k for k in DECODE_KERNELS if k in kernels]
     build.build_many([((), None)] + variant_specs(
-        depths if "K1" in kernels else (), bool(encode)), verbose)
+        depths if decode else (), bool(encode)), verbose)
     out = {}
-    if "K1" in kernels:
-        out["K1"] = [decode_breakdown(archive, d) for d in depths]
-        for r in out["K1"]:
-            if r["sha256"] != want["input_sha256"]:
-                raise AssertionError(f"K1 at depth {r['depth']}: decoded bytes differ")
+    for k in decode:
+        out[k] = [decode_breakdown(paths[k].read_bytes(), d, k) for d in depths]
+        for r in out[k]:
+            if r["sha256"] != meta[paths[k].name]["input_sha256"]:
+                raise AssertionError(f"{k} at depth {r['depth']}: decoded bytes differ")
     if encode:
         raw = io.BytesIO()
-        decode_stream(io.BytesIO(archive), raw, "cuda")
+        decode_stream(io.BytesIO(archive_path.read_bytes()), raw, "cuda")
         if hashlib.sha256(raw.getvalue()).hexdigest() != want["input_sha256"]:
             raise AssertionError("decoded bytes differ")
         res = encode_breakdown(np.frombuffer(raw.getvalue(), np.uint8), want["argv"])
@@ -367,7 +452,7 @@ def run(archive_path=ARCHIVE, kernels=("K1", "K5", "K2"), depths=None,
             raise AssertionError("the instrumented K5 and K2 wrote other bytes")
         out.update({r["kernel"]: [r] for r in res if r["kernel"] in encode})
     for k, results in out.items():
-        print(f"{k} by phase, {archive_path.name} ({results[0]['steps']} steps; "
+        print(f"{k} by phase, {paths[k].name} ({results[0]['steps']} steps; "
               f"clock64 in the instrumented build of {PHASES[k][0]}):")
         print(table(results))
     return out
@@ -380,6 +465,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if args[:1] == ["times"]:
         times()
+        sys.exit(0)
+    if args[:1] == ["bounds"]:
+        bounds()
         sys.exit(0)
     arc = args.pop(0) if args and not args[0].isdigit() and args[0] not in PHASES else ARCHIVE
     ks = tuple(a for a in args if a in PHASES) or ("K1", "K5", "K2")

@@ -72,7 +72,7 @@ static __device__ void mant_events(const SmemModel& sm, int dist, int k_dist,
     const int* row = sm.mant + (k_dist - 5) * MANT_N;
     int cm_raw, fm_raw;
     cum_frq_of(PlainRow{row}, MANT_N, top4, cm_raw, fm_raw);
-    norm_cf(cm_raw, max(fm_raw, 1), max(sum_prefix(PlainRow{row}, MANT_N), 1), cd, fd);
+    norm_cf(cm_raw, max(fm_raw, 1), max(sm.mant_sum[k_dist - 5], 1), cd, fd);
     u.adaptive = true;
     u.mant_row = k_dist - 5;
     u.mant_sym = top4;

@@ -273,6 +273,12 @@ static __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
+// a / b for a >= 0, b > 0 (where floordiv's sign fix-up cannot apply): the
+// unsigned division, fewer instructions than the signed one.
+static __device__ __forceinline__ int udiv(int a, int b) {
+  return (int)((unsigned)a / (unsigned)b);
+}
+
 // ---------------------------------------------------------------- rANS ----
 static __device__ __forceinline__ void norm_cf(int cum, int frq, int tot,
                                         uint32_t& c, uint32_t& f) {
@@ -399,25 +405,58 @@ struct ApmPt {
 // same on the warp's threads: one broadcast) or from a copy in shared
 // memory (where each thread reads its own).
 struct ThrConst {
+  static constexpr bool kLut = false;
   __device__ __forceinline__ int operator()(int i) const { return kSseThr[i]; }
 };
 struct ThrShared {
+  static constexpr bool kLut = false;
   const int* p;
   __device__ __forceinline__ int operator()(int i) const { return p[i]; }
 };
+// Or the APM's bucket and weight of every p16 the reads pass (a 12-bit
+// probability << 4) at once: a table of APM_LUT_N entries (i << 8 | w) in
+// shared memory, filled by apm_lut_fill from the thresholds.
+#define APM_LUT_N 4096
+struct ThrLut {
+  static constexpr bool kLut = true;
+  const int* p;
+};
 
-template <typename Thr = ThrConst>
-static __device__ int apm_read(const int* tab, int k, int ctx, int p16, ApmPt& st,
-                               Thr thr = Thr{}) {
-  // i = how many of kSseThr[1..31] are <= p16 (they increase): a binary
-  // search
-  int i = 0;
+// The bucket i (how many of kSseThr[1..31] are <= p16; they increase) and
+// the weight w of p16 within it.
+template <typename Thr>
+static __device__ __forceinline__ void apm_bucket(int p16, Thr thr, int& i, int& w) {
+  i = 0;
 #pragma unroll
   for (int step = 16; step > 0; step >>= 1)
     if (i + step <= 31 && p16 >= thr(i + step)) i += step;
   int thr_i = thr(i);
   int span_i = max(thr(i + 1) - thr_i, 1);
-  st.w = clampi(floordiv((p16 - thr_i) * 64, span_i), 0, 64);
+  // floordiv((p16 - thr_i) * 64, span_i) clipped to [0, 64]: a negative
+  // quotient clips to 0 either way
+  w = p16 < thr_i ? 0 : min(udiv((p16 - thr_i) * 64, span_i), 64);
+}
+
+// Fill a ThrLut's table (the CTA's threads; a barrier before its use).
+static __device__ void apm_lut_fill(int* lut) {
+  for (int p12 = threadIdx.x; p12 < APM_LUT_N; p12 += blockDim.x) {
+    int i, w;
+    apm_bucket(p12 << 4, ThrConst{}, i, w);
+    lut[p12] = (i << 8) | w;
+  }
+}
+
+template <typename Thr = ThrConst>
+static __device__ int apm_read(const int* tab, int k, int ctx, int p16, ApmPt& st,
+                               Thr thr = Thr{}) {
+  int i;
+  if constexpr (Thr::kLut) {
+    const int e = thr.p[p16 >> 4];  // every p16 passed is a multiple of 16
+    i = e >> 8;
+    st.w = e & 0xFF;
+  } else {
+    apm_bucket(p16, thr, i, st.w);
+  }
   st.flat = ctx * 33 + i;
   st.ti = (st.flat >= 0 && st.flat < k) ? tab[st.flat] : 0;
   st.tip1 = (st.flat + 1 >= 0 && st.flat + 1 < k) ? tab[st.flat + 1] : 0;
@@ -442,12 +481,14 @@ struct SseState {
 template <typename Thr = ThrConst>
 static __device__ int hit_reshape(int& f_hit, int tot, const int* tab, int k,
                                   int hctx, int conf, SseState& st, Thr thr = Thr{}) {
+  // the HIT slot and the rest of the total are never negative: plain
+  // quotients are the JAX floor divisions
   int f_h0 = f_hit;
   int tot_h = max(tot, 1);
-  int p16h = clampi(floordiv(f_h0 * 4096, tot_h), 1, 4095) << 4;
+  int p16h = clampi(udiv(f_h0 * 4096, tot_h), 1, 4095) << 4;
   int ph = apm_read(tab, k, hctx, p16h, st.h, thr);
   int ph12 = clampi(ph >> 4, 1, 4095);
-  int f_h_new = floordiv(ph12 * (tot_h - f_h0), 4096 - ph12);
+  int f_h_new = udiv(ph12 * (tot_h - f_h0), 4096 - ph12);
   f_h_new = min(max(f_h_new, 1), f_h0 + max(32768 - tot_h, 0));
   st.act_h = conf > 0;
   f_hit = st.act_h ? f_h_new : f_h0;
@@ -533,13 +574,10 @@ static __device__ __forceinline__ int half_sum(int v) {
 }
 
 // Exclusive prefix of the slots before this thread's sixteen (base) and
-// the total of the half's 256.
-static __device__ __forceinline__ int scan16(const int (&w)[SLOTS_T], int& total) {
+// the total of the half's 256, from the sum of this thread's (mine).
+static __device__ __forceinline__ int scan16_sum(int mine, int& total) {
   const unsigned full = 0xffffffffu;
   const int hl = threadIdx.x & (HALF - 1);
-  int mine = 0;
-#pragma unroll
-  for (int j = 0; j < SLOTS_T; ++j) mine += w[j];
   int incl = mine;
 #pragma unroll
   for (int off = 1; off < HALF; off <<= 1) {
@@ -552,7 +590,8 @@ static __device__ __forceinline__ int scan16(const int (&w)[SLOTS_T], int& total
 
 // How many of the half's 256 byte slots' exclusive cumulative counts are
 // <= tgt (the JAX find_symbol's count: zero or negative slots make it
-// differ from a search for the first prefix above tgt).  base from scan16.
+// differ from a search for the first prefix above tgt).  base from
+// scan16_sum.
 static __device__ __forceinline__ int count_le16(const int (&w)[SLOTS_T], int base, int tgt) {
   int c = base, cnt = 0;
 #pragma unroll
@@ -563,7 +602,7 @@ static __device__ __forceinline__ int count_le16(const int (&w)[SLOTS_T], int ba
   return half_sum(cnt);
 }
 
-// (cum, freq) of the half's byte slot sym (0..255).  base from scan16.
+// (cum, freq) of the half's byte slot sym (0..255).  base from scan16_sum.
 static __device__ __forceinline__ void cum_frq16(const int (&w)[SLOTS_T], int base, int sym,
                                                  int& c, int& f) {
   const unsigned full = 0xffffffffu;
@@ -650,7 +689,7 @@ static __device__ RowRing ring_start(int* dyn, const int* tab, int width, bool w
 // The next two lanes' rows (lanes in ascending order; the second is an
 // empty group where there is none), landed and visible to the whole warp:
 // the first's slot, the second's right after it.
-static __device__ __forceinline__ const int* ring_take(RowRing& r, int row_of) {
+static __device__ __forceinline__ int* ring_take(RowRing& r, int row_of) {
   if (CPX_RING_D == 0) {
     ring_next(r, row_of);
     ring_next(r, row_of);
@@ -697,13 +736,20 @@ struct AEvent {
 // each coded lane runs it once for itself after the rounds (every lane of
 // the warp at once, the thresholds from the shared copy sse_thr), where
 // decode, which needs the reshaped total to find its symbol, runs it in
-// each round.  Call with the warp converged.
+// each round (modes X and P: its bucket and weight from the table
+// apm_lut, which decode in those modes must pass).  The rounds are bound by the
+// instructions they issue (one CTA, four warps a scheduler), so each
+// slot passes through as few as it can: the predicted byte's slot is
+// zeroed in the ring's copy, the halving passes run only where a row
+// halves, and decode counts and finds its symbol's cum and freq in one
+// pass.  Call with the warp converged.
 template <bool DECODE, int MODE = MODE_R>
 static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
                                       int ctx2, int pred, int conf, int fill,
                                       const int* sse, const int* sse_h, uint32_t x,
                                       int byte, bool is_match,
-                                      const int* sse_thr = nullptr) {
+                                      const int* sse_thr = nullptr,
+                                      const int* apm_lut = nullptr) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31, hl = lane & (HALF - 1), half = lane & HALF;
   AEvent mine{};
@@ -718,22 +764,28 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
     const bool two = l1 >= 0, upper = half && two;
     const int src = upper ? l1 : l0;
     const int pr = __shfl_sync(full, pred, src);
-    const int* row = ring_take(ring, ctx2) + (upper ? RING_SLOT_INTS : 0);
-    int v[SLOTS_T];
-    load16(row, v);
+    int* row = ring_take(ring, ctx2) + (upper ? RING_SLOT_INTS : 0);
     // slots 256..259 (HIT, ESC, MATCH, HIT2) and the predicted byte's, by
-    // broadcast loads
+    // broadcast loads; then the predicted byte's slot is zeroed in the
+    // ring's copy of the row, so that the byte slots the thread loads are
+    // the distribution's (ppm.read_o2's rowmod) with no select a slot
     const int4 sp = reinterpret_cast<const int4*>(row)[O1_N / 4];
     const int praw = row[pr];
+    __syncwarp();
+    if (hl == 0) row[pr] = 0;
+    __syncwarp();
+    int v[SLOTS_T];
+    load16(row, v);
     ring_release(ring, ctx2);
-    // the row sum (the byte slots over the half, the sticky slots on every
-    // thread); a round halves while the sum is over the cap, at most three
-    // rounds.  Halving is rare: the sums after 1-3 rounds are formed only
-    // where one of the warp's two rows is over the cap.
-    int s0 = 0;
+    // the row sum (the byte slots over the half, the predicted byte's and
+    // the sticky slots on every thread); a round halves while the sum is
+    // over the cap, at most three rounds.  Halving is rare: the sums after
+    // 1-3 rounds are formed, and the slots halved, only where one of the
+    // warp's two rows is over the cap.
+    int tsum = 0;
 #pragma unroll
-    for (int j = 0; j < SLOTS_T; ++j) s0 += v[j];
-    s0 = half_sum(s0) + sp.x + sp.y + sp.z + sp.w;
+    for (int j = 0; j < SLOTS_T; ++j) tsum += v[j];
+    const int s0 = half_sum(tsum) + praw + sp.x + sp.y + sp.z + sp.w;
     int h = 0, sum = s0;
     const bool halving = __any_sync(full, s0 > cfg.cap2);
     if (halving) {
@@ -749,56 +801,81 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
       s1 = half_sum(s1);
       s2 = half_sum(s2);
       s3 = half_sum(s3);
-      const int spv[4] = {sp.x, sp.y, sp.z, sp.w};
+      const int spv[5] = {sp.x, sp.y, sp.z, sp.w, praw};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        int y = halve1(spv[q], true);
+      for (int q = 0; q < 5; ++q) {
+        int y = halve1(spv[q], q < 4);
         s1 += y;
-        y = halve1(y, true);
+        y = halve1(y, q < 4);
         s2 += y;
-        s3 += halve1(y, true);
+        s3 += halve1(y, q < 4);
       }
       if (sum > cfg.cap2) { h = 1; sum = s1; }
       if (h == 1 && sum > cfg.cap2) { h = 2; sum = s2; }
       if (h == 2 && sum > cfg.cap2) { h = 3; sum = s3; }
+      tsum = 0;
+#pragma unroll
+      for (int j = 0; j < SLOTS_T; ++j) {
+        v[j] = halve_n(v[j], h, false);
+        tsum += v[j];
+      }
     }
-    const int esc0 = halve_n(sp.y, h, true);  // SYM_ESC
+    // HIT, ESC, MATCH, HIT2 and the predicted byte's slot after h rounds
+    int hit = sp.x, esc0 = sp.y, match = sp.z, hit2 = sp.w, prh = praw;
+    if (halving) {
+      hit = halve_n(hit, h, true);
+      esc0 = halve_n(esc0, h, true);
+      match = halve_n(match, h, true);
+      hit2 = halve_n(hit2, h, true);
+      prh = halve_n(prh, h, false);
+    }
     const int esc = max(esc0, 1);
-    int hit = halve_n(sp.x, h, true);         // SYM_HIT
-    int match = halve_n(sp.z, h, true);       // SYM_MATCH
-    const int hit2 = halve_n(sp.w, h, true);  // SYM_HIT2
-    const bool pred_in = halve_n(praw, h, false) > 0;
-    sum += esc - esc0 - halve_n(praw, h, false);
+    const bool pred_in = prh > 0;
+    sum += esc - esc0 - prh;
     SseState st{};
     if (!DECODE) {
       // encode: the SSE stage after the rounds
     } else if (MODE != MODE_R) {
-      if (cfg.use_sse)
-        sum = hit_reshape(hit, sum, sse_h, HIT_APM_K(MODE),
-                          __shfl_sync(full, fill, src), __shfl_sync(full, conf, src), st);
+      if (cfg.use_sse) {
+        const int hctx = __shfl_sync(full, fill, src), cf = __shfl_sync(full, conf, src);
+        sum = hit_reshape(hit, sum, sse_h, HIT_APM_K(MODE), hctx, cf, st, ThrLut{apm_lut});
+      }
     } else if (cfg.use_sse)
       sum = sse_reshape(hit, match, hit2, sum, sse, sse_h, __shfl_sync(full, fill, src),
                         __shfl_sync(full, conf, src), st);
-    // the distribution (ppm.read_o2's rowmod): the byte slots, h halving
-    // rounds and the predicted byte's slot zeroed, then HIT, ESC, MATCH,
-    // HIT2 as the read set them
-    int w[SLOTS_T];
-#pragma unroll
-    for (int j = 0; j < SLOTS_T; ++j)
-      w[j] = SLOTS_T * hl + j == pr ? 0 : halving ? halve_n(v[j], h, false) : v[j];
+    // the distribution (ppm.read_o2's rowmod) is now v: the byte slots, h
+    // halving rounds and the predicted byte's slot zeroed, then HIT, ESC,
+    // MATCH, HIT2 as the read set them
+    const int (&w)[SLOTS_T] = v;
     int bytes_tot;
-    const int base = scan16(w, bytes_tot);
+    const int base = scan16_sum(tsum, bytes_tot);
     const int spw[4] = {hit, esc, match, hit2};
-    int sym, fbyte = 0;
+    int sym, fbyte = 0, cum, frq;
     if (DECODE) {
+      // count(cums <= tgt), and the (cum, freq) of the last slot counted:
+      // the byte slots are never negative, so the counted slots are a
+      // prefix of the row and the symbol is the last of them
       const int tgt = (int)dec_target(__shfl_sync(full, x, src), max(sum, 1));
-      int cnt = count_le16(w, base, tgt), c = bytes_tot;
+      int cnt = 0, c = base, clast = 0, flast = 0;
+#pragma unroll
+      for (int j = 0; j < SLOTS_T; ++j) {
+        const bool le = c <= tgt;
+        cnt += le;
+        clast = le ? c : clast;
+        flast = le ? w[j] : flast;
+        c += w[j];
+      }
+      cnt = half_sum(cnt);
+      c = bytes_tot;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         cnt += c <= tgt;
         c += spw[q];
       }
       sym = clampi(cnt - 1, 0, O2_W - 1);
+      const int owner = half + min(sym, O1_N - 1) / SLOTS_T;
+      cum = __shfl_sync(full, clast, owner);
+      frq = __shfl_sync(full, flast, owner);
     } else {
       const int bt = __shfl_sync(full, byte, src);
       fbyte = __shfl_sync(full, pick(w, bt & (SLOTS_T - 1)), half + bt / SLOTS_T);
@@ -806,9 +883,8 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
             : bt == pr                             ? SYM_HIT
             : fbyte > 0                            ? bt
                                                    : SYM_ESC;
+      cum_frq16(w, base, min(sym, O1_N - 1), cum, frq);
     }
-    int cum, frq;
-    cum_frq16(w, base, min(sym, O1_N - 1), cum, frq);
     if (DECODE && sym >= O1_N) {
       cum = bytes_tot;
       frq = spw[0];
@@ -829,10 +905,14 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
     r.f = __shfl_sync(full, frq, from);
     r.fbyte = __shfl_sync(full, fbyte, from);
     if (DECODE) {
-      r.sse.m.flat = __shfl_sync(full, st.m.flat, from);
-      r.sse.m.w = __shfl_sync(full, st.m.w, from);
-      r.sse.m.ti = __shfl_sync(full, st.m.ti, from);
-      r.sse.m.tip1 = __shfl_sync(full, st.m.tip1, from);
+      if (MODE == MODE_R) {  // the match APM: mode R's only
+        r.sse.m.flat = __shfl_sync(full, st.m.flat, from);
+        r.sse.m.w = __shfl_sync(full, st.m.w, from);
+        r.sse.m.ti = __shfl_sync(full, st.m.ti, from);
+        r.sse.m.tip1 = __shfl_sync(full, st.m.tip1, from);
+      } else {
+        r.sse.m = ApmPt{};
+      }
       r.sse.h.flat = __shfl_sync(full, st.h.flat, from);
       r.sse.h.w = __shfl_sync(full, st.h.w, from);
       r.sse.h.ti = __shfl_sync(full, st.h.ti, from);
@@ -866,8 +946,8 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
       // gathered two threads to a word
       unsigned bits = 0;
 #pragma unroll
-      for (int j = 0; j < SLOTS_T; ++j)
-        bits |= (unsigned)(SLOTS_T * hl + j == pr ? pred_in : w[j] > 0) << j;
+      for (int j = 0; j < SLOTS_T; ++j) bits |= (unsigned)(w[j] > 0) << j;
+      if (hl == pr / SLOTS_T) bits |= (unsigned)pred_in << (pr & (SLOTS_T - 1));
       unsigned word = bits << (SLOTS_T * (hl & 1));
       word |= __shfl_xor_sync(full, word, 1);
 #pragma unroll
@@ -904,22 +984,7 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
   return mine;
 }
 
-// ---- symbol search / lookup in a row (exclusive prefix sums, int32) ----
-// count(cums <= tgt) - 1, clipped: the JAX find_symbol (not a search for
-// the first prefix above tgt: zero or negative slots change the count).
-template <typename RowFn>
-static __device__ int find_symbol(RowFn row, int w, int tgt, int& c, int& f) {
-  int cum = 0, cnt = 0;
-  for (int k = 0; k < w; ++k) {
-    cnt += (cum <= tgt);
-    cum += row(k);
-  }
-  int sym = clampi(cnt - 1, 0, w - 1);
-  c = sum_prefix(row, sym);
-  f = row(sym);
-  return sym;
-}
-
+// ---- symbol lookup in a row (exclusive prefix sums, int32) ----
 // (cum, frq) of a known symbol; 0 outside the row.
 template <typename RowFn>
 static __device__ void cum_frq_of(RowFn row, int w, int sym, int& c, int& f) {
@@ -971,17 +1036,16 @@ static __device__ O1Event warp_o1_event(RowRing& ring, bool want, int p1,
       word = m == hl / 2 ? e : word;
     }
     const unsigned bits = word >> (SLOTS_T * (hl & 1));
-    int w[SLOTS_T], tot = 0;
+    int w[SLOTS_T], tsum = 0;
 #pragma unroll
     for (int j = 0; j < SLOTS_T; ++j) {
       const int k = SLOTS_T * hl + j;
       const bool excl = k == pr || k == pr2 || ((bits >> j) & 1u);
       w[j] = excl ? 0 : a[j] * 8 - 7;
-      tot += w[j];
+      tsum += w[j];
     }
-    tot = half_sum(tot);
-    int total;
-    const int base = scan16(w, total);
+    int tot;
+    const int base = scan16_sum(tsum, tot);
     int sym;
     if (DECODE) {
       const int tgt = (int)dec_target(__shfl_sync(full, x, src), max(tot, 1));
@@ -1031,6 +1095,86 @@ static __device__ void warp_cum_frq(bool want, const int* base, int w, int off, 
       f = row[s];
     }
   }
+}
+
+// Decode's symbol search in a shared row of W entries (the JAX
+// find_symbol's rule: count(cums <= tgt) - 1, clipped, not a search for
+// the first prefix above tgt: zero slots change the count; and the
+// symbol's raw cum and freq) for every lane of the warp with want set, the
+// lane's row at rows + off and its target tgt: two lanes at a time, a
+// half-warp each, where a lane alone would walk up to W + W - 1 entries.
+// Thread hl of a half holds the row's W / 16 consecutive entries from
+// hl * W / 16; one 16-wide scan of their sums gives the cums, a half
+// reduction the count, two shuffles the cum and freq.  rows + off must be
+// aligned to the entries a thread loads (16 bytes at W = 256).  Call with
+// the warp converged; a lane without want gets 0, 0, 0.
+template <int W>
+static __device__ int warp_find_symbol(bool want, const int* rows, int off, int tgt,
+                                       int& c, int& f) {
+  constexpr int K = W / HALF;
+  static_assert(W % HALF == 0, "a row of whole thread runs");
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, hl = lane & (HALF - 1), half = lane & HALF;
+  int sym = 0;
+  c = f = 0;
+  unsigned todo = __ballot_sync(full, want);
+  while (todo) {
+    const int l0 = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int l1 = todo ? __ffs(todo) - 1 : -1;
+    todo &= todo - 1;
+    const bool two = l1 >= 0, upper = half && two;
+    const int src = upper ? l1 : l0;
+    const int* row = rows + __shfl_sync(full, off, src) + hl * K;
+    const int tg = __shfl_sync(full, tgt, src);
+    int v[K];
+    if (K % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < K / 4; ++q) {
+        const int4 a = reinterpret_cast<const int4*>(row)[q];
+        v[4 * q] = a.x;
+        v[4 * q + 1] = a.y;
+        v[4 * q + 2] = a.z;
+        v[4 * q + 3] = a.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < K; ++j) v[j] = row[j];
+    }
+    int mine = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) mine += v[j];
+    int incl = mine;
+#pragma unroll
+    for (int o = 1; o < HALF; o <<= 1) {
+      const int y = __shfl_up_sync(full, incl, o, HALF);
+      if (hl >= o) incl += y;
+    }
+    const int base = incl - mine;
+    int cnt = 0, cu = base;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      cnt += cu <= tg;
+      cu += v[j];
+    }
+    const int s = clampi(half_sum(cnt) - 1, 0, W - 1);
+    const int j0 = s % K;
+    int part = base;
+#pragma unroll
+    for (int j = 0; j < K; ++j) part += j < j0 ? v[j] : 0;
+    const int cs = __shfl_sync(full, part, half + s / K);
+    const int fs = __shfl_sync(full, pick(v, j0), half + s / K);
+    const int from = two && lane == l1 ? HALF : 0;
+    const int rs = __shfl_sync(full, s, from);
+    const int rc = __shfl_sync(full, cs, from);
+    const int rf = __shfl_sync(full, fs, from);
+    if (lane == l0 || (two && lane == l1)) {
+      sym = rs;
+      c = rc;
+      f = rf;
+    }
+  }
+  return sym;
 }
 
 struct PlainRow {
@@ -1170,19 +1314,27 @@ static __device__ __forceinline__ bool is_winner(const int* keys, const unsigned
 // Halve (in place) every o1 row whose maintained sum is over the cap and
 // refresh that sum.  o1sum[] lives in shared memory.  Warp-cooperative.
 static __device__ void o1_rescale(int* o1, int* o1sum, int cap1) {
+  const unsigned full = 0xffffffffu;
   int warp = gtid() >> 5, lane = threadIdx.x & 31;
   int nwarps = gthreads() >> 5;
-  for (int row = warp; row < O1_N; row += nwarps) {
-    if (o1sum[row] <= cap1) continue;
-    int s = 0;
-    for (int k = lane; k < O1_N; k += 32) {
-      int v = (o1[row * O1_N + k] + 1) >> 1;
-      o1[row * O1_N + k] = v;
-      s += v;
+  // the warp's rows warp, warp + nwarps, ...: 32 of their sums checked at
+  // once (one read a thread), then the rows over the cap halved in turn
+  for (int first = warp; first < O1_N; first += 32 * nwarps) {
+    const int mine = first + nwarps * lane;
+    unsigned due = __ballot_sync(full, mine < O1_N && o1sum[mine] > cap1);
+    while (due) {
+      const int row = first + nwarps * (__ffs(due) - 1);
+      due &= due - 1;
+      int s = 0;
+      for (int k = lane; k < O1_N; k += 32) {
+        int v = (o1[row * O1_N + k] + 1) >> 1;
+        o1[row * O1_N + k] = v;
+        s += v;
+      }
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(full, s, off);
+      __syncwarp();
+      if (lane == 0) o1sum[row] = s;
     }
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    __syncwarp();
-    if (lane == 0) o1sum[row] = s;
   }
 }
 
@@ -1240,6 +1392,15 @@ template <bool CL = false>
 static __device__ __forceinline__ int cta_excl_prefix_b(int in_warp, const int* wtot,
                                                  int& total) {
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5, me = blockIdx.x;
+  if (!CL) {
+    // one CTA: each thread reads one warp's count, two reductions sum them
+    // (every thread of the warp calls this)
+    const unsigned full = 0xffffffffu;
+    const int lane = threadIdx.x & 31;
+    const int v = lane < nwarps ? wtot[lane] : 0;
+    total = __reduce_add_sync(full, v);
+    return __reduce_add_sync(full, lane < warp ? v : 0) + in_warp;
+  }
   int before = 0, tot = 0;
   for (int b = 0; b < (CL ? (int)gridDim.x : 1); ++b) {
     const int* w = at_rank<CL>(wtot, b);
@@ -1304,19 +1465,54 @@ static __device__ __forceinline__ uint32_t hist_word(const uint8_t* hist, int at
 // decode (steps < t only are read).  Every use of a source is behind
 // src >= 0: C's % truncates where JAX's floors.  Returns ok; src is set
 // either way (the t2 entry, maybe -1, where nothing is ok).
-static __device__ bool lzp_candidate(const Cfg& c, const Lzp& z, const uint8_t* hist,
-                                     int t, uint32_t ctx4, uint32_t ctx4b, int& src) {
-  const int s8 = z.t8[lzp_hash8(ctx4, ctx4b)] - 1;
-  const int s4 = z.t4[lzp_hash4(ctx4)] - 1;
-  const int s2 = z.t2[ctx4 & 0xFFFFu] - 1;
+// Its two halves: the three table reads (which a scan may issue before
+// the step, once the last inserts are behind a barrier), then the checks
+// against the bytes of earlier steps.
+struct LzpSlots {
+  int s8, s4, s2;
+};
+
+static __device__ __forceinline__ LzpSlots lzp_slots(const Lzp& z, uint32_t ctx4,
+                                                     uint32_t ctx4b) {
+  return {z.t8[lzp_hash8(ctx4, ctx4b)] - 1, z.t4[lzp_hash4(ctx4)] - 1,
+          z.t2[ctx4 & 0xFFFFu] - 1};
+}
+
+// The checks in two halves too: the bytes before the t8 and t4 sources
+// that the checks compare (lzp_fetch: loads that a scan may issue a phase
+// before it needs them), then the checks themselves (lzp_check).
+struct LzpPending {
+  LzpSlots sl;
+  uint32_t h8a, h8b, h4;  // the 4 and 8 bytes before s8, the 4 before s4
+};
+
+static __device__ __forceinline__ LzpPending lzp_fetch(const Cfg& c, const uint8_t* hist,
+                                                       int t, LzpSlots sl) {
+  LzpPending pd{sl, 0u, 0u, 0u};
+  if (sl.s8 >= 0 && t >= 8 && sl.s8 % c.T < t && sl.s8 % c.T >= 8) {
+    pd.h8a = hist_word(hist, sl.s8 - 4);
+    pd.h8b = hist_word(hist, sl.s8 - 8);
+  }
+  if (sl.s4 >= 0 && t >= 4 && sl.s4 % c.T < t && sl.s4 % c.T >= 4)
+    pd.h4 = hist_word(hist, sl.s4 - 4);
+  return pd;
+}
+
+static __device__ bool lzp_check(const Cfg& c, int t, uint32_t ctx4, uint32_t ctx4b,
+                                 const LzpPending& pd, int& src) {
+  const int s8 = pd.sl.s8, s4 = pd.sl.s4, s2 = pd.sl.s2;
   bool ok8 = s8 >= 0 && t >= 8 && s8 % c.T < t;
-  if (ok8 && s8 % c.T >= 8)
-    ok8 = hist_word(hist, s8 - 4) == ctx4 && hist_word(hist, s8 - 8) == ctx4b;
+  if (ok8 && s8 % c.T >= 8) ok8 = pd.h8a == ctx4 && pd.h8b == ctx4b;
   bool ok4 = s4 >= 0 && t >= 4 && s4 % c.T < t;
-  if (ok4 && s4 % c.T >= 4) ok4 = hist_word(hist, s4 - 4) == ctx4;
+  if (ok4 && s4 % c.T >= 4) ok4 = pd.h4 == ctx4;
   const bool ok2 = s2 >= 0 && t >= 2 && s2 % c.T < t;
   src = ok8 ? s8 : ok4 ? s4 : s2;
   return ok8 || ok4 || ok2;
+}
+
+static __device__ bool lzp_candidate(const Cfg& c, const Lzp& z, const uint8_t* hist,
+                                     int t, uint32_t ctx4, uint32_t ctx4b, int& src) {
+  return lzp_check(c, t, ctx4, ctx4b, lzp_fetch(c, hist, t, lzp_slots(z, ctx4, ctx4b)), src);
 }
 
 // End of a step (block.py::_post_step, mode P): the contexts of position
@@ -1478,18 +1674,19 @@ struct SmemModel {
   __align__(16) int key_ins[CPX_MAX_LANES];  // bucket of lanes that insert (decode only)
   unsigned keyf[KEYF_N];  // the elections' filter (lane_rank), the three keys salted apart
   int o1sum[O1_N];
-  int len[N_SHARED_CTX * LEN_W];
+  __align__(16) int len[N_SHARED_CTX * LEN_W];  // rows read 16 bytes at a time
   int idx[N_SHARED_CTX * IDX_W];
   int len_sum[N_SHARED_CTX], idx_sum[N_SHARED_CTX];
   int hot_len[N_SHARED_CTX], hot_idx[N_SHARED_CTX];
   int sse[SSE_K];
   int sse_h[SSE_HK];
-  int dst[DST_W];
+  __align__(16) int dst[DST_W];
   int dst_sum, hot_dst;
   // a hot row over its cap: the step's rescale of the idx (or distance)
   // rows, of the len rows, is due
   int due_idx, due_len;
   int mant[MANT_N * MANT_N];
+  int mant_sum[MANT_N];  // the mantissa rows' sums, kept by upd_add
   int sse_x[SSE_XK];  // the hit-only APM: mode X's, or mode P's SSE_PK entries
   int wtot[5][32];  // one lane-order prefix scratch per rANS slot
 };
@@ -1535,7 +1732,10 @@ static __device__ void model_load(SmemModel& sm, const Tables& tb) {
   if (gtid() == 0) sm.due_idx = sm.due_len = 0;
   row_sums(tb.len, LEN_W, N_SHARED_CTX, sm.len_sum);
   row_sums(tb.idx, IDX_W, N_SHARED_CTX, sm.idx_sum);
-  if (MODE == MODE_X) row_sums(tb.dst, DST_W, 1, &sm.dst_sum);
+  if (MODE == MODE_X) {
+    row_sums(tb.dst, DST_W, 1, &sm.dst_sum);
+    row_sums(tb.mant, MANT_N, MANT_N, sm.mant_sum);
+  }
   int warp = gtid() >> 5, lane = threadIdx.x & 31, nwarps = gthreads() >> 5;
   for (int row = warp; row < O1_N; row += nwarps) {
     int s = 0;
@@ -1673,8 +1873,10 @@ static __device__ void upd_add(const Cfg& c, const Tables& tb, SmemModel& sm,
       atomicAdd(&sm.dst_sum, c.dst_inc);
     }
   }
-  if (MODE == MODE_X && u.adaptive && u.mant_sym >= 0 && u.mant_sym < MANT_N)
+  if (MODE == MODE_X && u.adaptive && u.mant_sym >= 0 && u.mant_sym < MANT_N) {
     atomicAdd(&sm.mant[u.mant_row * MANT_N + u.mant_sym], c.mant_inc);
+    atomicAdd(&sm.mant_sum[u.mant_row], c.mant_inc);
+  }
   if (MODE != MODE_R) {
     if (c.use_sse && u.sse.act_h) apm_add(sm.sse_x, HIT_APM_K(MODE), u.sse.h, u.is_hit);
   } else if (c.use_sse) {
@@ -1684,8 +1886,8 @@ static __device__ void upd_add(const Cfg& c, const Tables& tb, SmemModel& sm,
 }
 
 // Last phase of a step: clip the APMs, clear the hot-row flags; mode X:
-// halve each mantissa row whose sum is over the cap (every step, whoever
-// added).
+// halve each mantissa row whose kept sum is over the cap (every step,
+// whoever added) and refresh that sum.
 template <int MODE = MODE_R>
 static __device__ void upd_finish(SmemModel& sm, int mant_cap = 0) {
   if (gtid() == 0) sm.due_idx = sm.due_len = 0;
@@ -1696,11 +1898,15 @@ static __device__ void upd_finish(SmemModel& sm, int mant_cap = 0) {
   if (MODE == MODE_X) {
     if (gtid() == N_SHARED_CTX) sm.hot_dst = 0;
     for (int r = gtid(); r < MANT_N; r += gthreads()) {
+      if (sm.mant_sum[r] <= mant_cap) continue;
       int* row = sm.mant + r * MANT_N;
       int s = 0;
-      for (int k = 0; k < MANT_N; ++k) s += row[k];
-      if (s > mant_cap)
-        for (int k = 0; k < MANT_N; ++k) row[k] = (row[k] + 1) >> 1;
+      for (int k = 0; k < MANT_N; ++k) {
+        const int v = (row[k] + 1) >> 1;
+        row[k] = v;
+        s += v;
+      }
+      sm.mant_sum[r] = s;
     }
   }
   if (MODE == MODE_R) {

@@ -76,13 +76,16 @@ _SIGNATURES = {
     "cpx_pr_step_launch": [_P] * 2 + [_I] * 3 + [_P],
     "cpx_pr_row_ring_launch": [_P] * 3 + [_I] * 4 + [_P],
     "cpx_pr_onehot_mma_launch": [_P] * 3 + [_I] * 3 + [_P],
-    # only in the instrumented builds (-DCPX_K1_PROF of decode.cu,
-    # -DCPX_K5_PROF of rank.cu, -DCPX_K2_PROF of model.cu)
+    # only in the instrumented builds (-DCPX_K1_PROF and -DCPX_K12D_PROF of
+    # decode.cu, -DCPX_K5_PROF of rank.cu, -DCPX_K2_PROF of model.cu)
     "cpx_k1_prof_read": [_P],
+    "cpx_k12d_prof_read": [_P],
+    "cpx_k13d_prof_read": [_P],
     "cpx_k5_prof_read": [_P],
     "cpx_k2_prof_read": [_P],
 }
-_INSTRUMENTED = {"cpx_k1_prof_read", "cpx_k5_prof_read", "cpx_k2_prof_read"}
+_INSTRUMENTED = {"cpx_k1_prof_read", "cpx_k12d_prof_read", "cpx_k13d_prof_read",
+                 "cpx_k5_prof_read", "cpx_k2_prof_read"}
 
 
 def _sources() -> list[Path]:

@@ -188,6 +188,36 @@ def test_row_ring_fits_beside_the_bucket_rows():
     assert ring(1024) + model + 256 <= smem_max
 
 
+def test_stream_windows_fit_beside_the_row_rings():
+    """The tableless decode scan (K12d, K13d) in one CTA keeps two windows
+    of a step's stream words (n_slots * S from a 16-byte aligned start)
+    beside the warps' row rings, its hit APM's bucket table and the static
+    SmemModel, within the H100's 227 KB a CTA, at 512 and at 1024 threads
+    in both modes (csrc/decode.cu::tableless_launch; a cluster reads the
+    stream)."""
+    src = (build.CSRC / "ppm_r.cuh").read_text()
+    dec = (build.CSRC / "decode.cu").read_text()
+    depth = int(re.search(r"#define CPX_RING_D (\d+)", src).group(1))
+    smem_max = int(re.search(r"#define CPX_SMEM_MAX (\d+)", src).group(1))
+    model = _smem_model_bytes(src)
+    assert "return (n_slots * c.S + 4 + 3) & ~3;" in dec
+    assert ("ring + 2 * sizeof(int) * win_n + lut + sizeof(SmemModel) + 256 > CPX_SMEM_MAX"
+            in dec)
+    lut = 4 * int(re.search(r"#define APM_LUT_N (\d+)", src).group(1))
+    assert lut == 4 * 4096
+
+    def window_ints(lanes, mode):
+        n_slots = blk.BlockParams(lanes=lanes, steps=16, mode=mode).n_slots
+        return (n_slots * lanes + 4 + 3) & ~3
+
+    for mode, slots in (("X", 5), ("P", 3)):
+        assert window_ints(512, mode) == slots * 512 + 4
+        assert window_ints(72, mode) % 4 == 0 and window_ints(72, mode) >= slots * 72 + 3
+        for lanes in (512, 1024):
+            ring = lanes // 32 * depth * ppm.O2_W * 4
+            assert ring + 2 * 4 * window_ints(lanes, mode) + lut + model + 256 <= smem_max
+
+
 def test_row_events_have_one_read_path():
     """The A and B events are defined once (csrc/ppm_r.cuh) and every step
     scan that codes events (K1, K12d/K13d, K2/K12e/K13e) reads their rows
@@ -315,6 +345,30 @@ def test_k1_phase_build_decodes_like_the_main_build(cuda_device):
     for r in res:
         assert r["sha256"] == GOLDEN_META[name]["input_sha256"]
         assert all(c > 0 for c in r["cycles"][0]) and abs(sum(r["share"][0]) - 1) < 1e-9
+    assert build._VARIANT == ((), None)
+
+
+@pytest.mark.cuda
+def test_k12d_k13d_phase_build_decodes_like_the_main_build(cuda_device):
+    """The instrumented tableless decode scan (benchmarks/phases.py, its
+    stamps in the decode variant) at ring depth 0 and at the build's depth
+    decodes the 1 MiB crx and crp goldens to their corpora, each mode's
+    counters filled by its own launches, and each observer's phases
+    account for its cycles."""
+    from comprox_tpu_torch.benchmarks import phases
+
+    names = {"K12d": "crx_flex_1MiB_S512.cpx", "K13d": "crp_1MiB_S512.cpx"}
+    res = phases.run(GOLDEN / "crz_flex_1MiB_S512.cpx", ("K12d", "K13d"),
+                     (0, phases.default_depth()),
+                     archives={k: GOLDEN / v for k, v in names.items()})
+    for k, name in names.items():
+        assert len(res[k]) == 2
+        for r in res[k]:
+            assert r["sha256"] == GOLDEN_META[name]["input_sha256"]
+            assert len(r["cycles"]) == 2 and len(r["cycles"][0]) == len(phases.TABLELESS)
+            assert abs(sum(r["share"][0]) - 1) < 1e-9
+            assert all(sum(r["cycles"][o]) > 0 for o in range(2))
+            assert r["cycles"][0][2] > 0, "the A event"
     assert build._VARIANT == ((), None)
 
 

@@ -1,7 +1,9 @@
 """The step scans redesigned for the H100 — the rank scan K5 and the
 modeling scan K2 with the lane-order ranks, row sums and C event they
-share with K1, KS, KSx, K12e, K13e, K12d, K13d — against their plain
-PyTorch versions at tolerance 0, and their phase instrument.
+share with K1, KS, KSx, K12e, K13e, K12d, K13d; the tableless decode scan
+K12d / K13d with its warp symbol searches and stream windows, and K1's
+searches — against their plain PyTorch versions at tolerance 0, and their
+phase instrument.
 
 This file imports no JAX, so that the ``cuda``-marked tests also run on a
 card's machine without it:
@@ -35,15 +37,22 @@ FLEX = dict(lanes=512, steps=32, mode="R", min_len=5, window=32, o3_bits=14,
 def test_phase_names_match_the_stamps(kernel):
     """Each instrumented kernel's phase names (benchmarks/phases.py) are
     one a stamp of its source, stamps 0 .. N-1, and its build has the
-    entry that reads them."""
+    entry that reads them.  The two modes of the tableless decode scan
+    (K12d, K13d) read their names from the one stamp set of the template
+    (K12D) and each has its own entry and counters."""
     src, names, observers = phases.PHASES[kernel]
     text = (build.CSRC / src).read_text()
-    n = int(re.search(rf"#define {kernel}_PHASES (\d+)", text).group(1))
-    stamps = sorted({int(k) for k in re.findall(rf"{kernel}_STAMP\((\d+)\)", text)})
+    tag = phases.STAMP_SET.get(kernel, kernel)
+    n = int(re.search(rf"#define {tag}_PHASES (\d+)", text).group(1))
+    stamps = sorted({int(k) for k in re.findall(rf"{tag}_STAMP\((\d+)\)", text)})
     assert len(names) == n and stamps == list(range(n))
     assert f"cpx_{kernel.lower()}_prof_read" in build._INSTRUMENTED
-    assert f"-DCPX_{kernel}_PROF" in text
+    assert f'extern "C" int cpx_{kernel.lower()}_prof_read' in text
+    assert f"-DCPX_{tag}_PROF" in text
     assert observers in (1, 2, 3)
+    if tag != kernel:
+        assert f"{kernel.lower()}_prof[" in text
+        assert all(f"-DCPX_{t}_PROF" in phases.defines(0) for t in (tag, "K1"))
 
 
 def test_variant_takes_missing_entry_points_from_the_main_library():
@@ -66,6 +75,87 @@ def test_phase_variants_are_built_from_their_sources():
     assert phases.variant_specs((), encode=False) == []
     keys = {build.library_path(*s) for s in specs}
     assert len(keys) == 3 and build.library_path() not in keys
+    # the tableless scan's stamps are built into the decode variant
+    assert set(phases.DECODE_KERNELS) == {"K1", "K12d", "K13d"}
+    assert all(phases.PHASES[k][0] == "decode.cu" for k in phases.DECODE_KERNELS)
+
+
+@pytest.mark.parametrize("mode", ["R", "X", "F"])
+def test_bounds_log_every_other_kernel_of_the_encode(mode):
+    """``phases bounds`` sees every launch of the kernels that are not step
+    scans through their block API entries: a small block's encode (the
+    plain versions on the CPU; the card runs the same entries) logs each
+    one's bytes and operations under its row, and the entries are the
+    module's own again afterwards."""
+    from comprox_tpu_torch.codec import fast
+
+    kw = dict(R=dict(mode="R", min_len=5, window=32, rolz_bits=10, rolz_depth=16,
+                     rolz_ctx_bytes=4, rolz_dec=2),
+              X=dict(mode="X", min_len=6, window=32, rolz_ctx_bytes=4),
+              F=dict(mode="F", min_len=5, window=32))[mode]
+    p = blk.BlockParams(lanes=8, steps=64, o3_bits=12, flexible=True, **kw)
+    data = np.frombuffer((b"the cat sat on the mat; " * 40)[: p.capacity - 5], np.uint8)
+    saved = {n: getattr(blk, n) for n in ("sort_candidates", "parse_scan", "_radix_sort")}
+    log = {}
+    with phases._bounds_of_entries(log):
+        if mode == "F":
+            fast.encode_block_fast(data, p, "cpu")
+        else:
+            blk.encode_block(data, p, "cpu")
+    # (the sort's entry is its launcher, which only the card's finders call)
+    want = dict(R={"K4", "K6 (R)", "K3"}, X={"K4x", "K6 (X)", "K11", "K3 (5 slots)"},
+                F={"K7", "K6 (F)", "K8", "K9"})[mode]
+    assert set(log) == want
+    assert all(b > 0 and o > 0 for b, o in log.values())
+    assert all(getattr(blk, n) is f for n, f in saved.items())
+
+
+def test_every_kernel_has_one_work_model():
+    """Each kernel the block API counts has its work in
+    ``benchmarks/work.py``, which ``chip_smoke.py``'s cells and ``phases``
+    (``times``, ``bounds``) both count with: a step scan by ``scan_ops``,
+    every other kernel by the work function of the entry that launches it
+    (K4x through K4's).  chip_smoke.py states no model of its own."""
+    from comprox_tpu_torch.benchmarks import work
+
+    assert set(work.SCAN_KERNELS).isdisjoint(phases.BOUND_ENTRIES)
+    assert set(blk.LAUNCHES) == set(work.SCAN_KERNELS) | set(phases.BOUND_ENTRIES) | {"K4x"}
+    assert all(rule.__module__ == work.__name__ for _, _, rule in phases.BOUND_ENTRIES.values())
+    smoke = (build.CSRC.parents[1] / "chip_smoke.py").read_text()
+    assert "PEAK_OPS_PER_S" not in smoke and "def _bound" not in smoke
+    p = blk.BlockParams(lanes=8, steps=64, mode="R", min_len=5, window=32,
+                        rolz_bits=10, rolz_depth=16)
+    cands = torch.zeros(3 * blk._R_CANDS + 2, 64, 8, dtype=torch.int32)
+    assert all(work.scan_ops(k, p, cands) >= p.capacity for k in work.SCAN_KERNELS)
+    assert work.bound(3_350_000, 0) == (pytest.approx(1e-3, rel=1e-12), "bytes")
+    assert work.bound(0, 67_000_000) == (pytest.approx(1e-3, rel=1e-12), "operations")
+
+
+def test_apm_table_is_the_reads_bucket_and_weight():
+    """The hit APM's bucket table of the tableless decode scan
+    (csrc/ppm_r.cuh::apm_lut_fill: the binary search of the thresholds and
+    the weight by an unsigned quotient, clipped) gives, for every p16 the
+    reads pass (a 12-bit probability << 4), the bin and weight of
+    models/ppm.py::_apm_read."""
+    src = (build.CSRC / "ppm_r.cuh").read_text()
+    n = int(re.search(r"#define APM_LUT_N (\d+)", src).group(1))
+    thr = [int(v) for v in re.search(r"kSseThr\[33\] = \{([^}]*)\}", src).group(1).split(",")]
+    assert tuple(thr) == ppm._SSE_THR
+
+    def bucket(p16):  # apm_bucket with ThrConst
+        i = 0
+        for step in (16, 8, 4, 2, 1):
+            if i + step <= 31 and p16 >= thr[i + step]:
+                i += step
+        span = max(thr[i + 1] - thr[i], 1)
+        w = 0 if p16 < thr[i] else min((p16 - thr[i]) * 64 // span, 64)
+        return i, w
+
+    p16 = torch.arange(1, n, dtype=torch.int32) << 4
+    _, flat, w, _, _ = ppm._apm_read(torch.zeros(33, dtype=torch.int32),
+                                     torch.zeros_like(p16), p16)
+    assert [bucket(int(v)) for v in p16] == list(zip(flat.tolist(), w.tolist()))
+    assert n == 4096 and int(p16[-1]) >> 4 == n - 1
 
 
 def _keyf_slot(key: int, salt: int, bits: int = 9) -> int:
@@ -219,3 +309,144 @@ def test_k2_with_many_match_lanes_and_long_lengths(cuda_device, window):
     assert int(matches.max()) >= 8, "several match lanes code in one step"
     if window == 250:
         assert int(dec[0].max()) >= 200, "long len symbols"
+
+
+# ---- the tableless decode scan (K12d, K13d) redesigned, and K1's searches
+
+X_LONG = dict(lanes=512, steps=256, mode="X", min_len=6, window=250, o3_bits=14,
+              rolz_ctx_bytes=4)
+P_LONG = dict(lanes=512, steps=256, mode="P", min_len=4, window=250, o3_bits=14)
+
+
+def _text_periods(p, seed):
+    """Each lane repeats a segment (60..250 bytes) of one text of six
+    words: LZP candidates that verify (mode P finds none in the random
+    bytes of ``_periodic``), many at once, copies up to the window."""
+    rng = np.random.default_rng(seed)
+    words = [b"the ", b"quick ", b"brown ", b"fox ", b"jumps ", b"over "]
+    base = np.frombuffer(b"".join(words[k] for k in rng.integers(0, 6, 1024)), np.uint8)
+    return np.stack([np.resize(base[rng.integers(0, 3000):][:rng.integers(60, 251)],
+                               p.steps) for _ in range(p.lanes)])
+
+
+def _longest_copy(ev) -> int:
+    """The longest run of steps in which a lane coded nothing (slot A idle):
+    its copy after a match, the length symbol's reach."""
+    idle = (ev[:, 2] == 0).cpu().numpy()
+    best = 0
+    for lane in idle.T:
+        run = 0
+        for v in lane:
+            run = run + 1 if v else 0
+            best = max(best, run)
+    return best
+
+
+def _decode_pair(p, states, stream, n, dev, rolz=False):
+    """The decode kernel and its plain version on the same payload from
+    fresh tables: (states, words used, out) and every table equal (mode P:
+    the LZP tables too, mode R: the bucket table).  Returns the kernel's
+    (states, words used, out)."""
+    def fresh():
+        return (ppm.init_tables(True, p.o3_bits, dev),
+                blk._init_lzp(p, dev) if p.mode == "P" else None,
+                blk._init_rolz(p, dev) if rolz else None)
+
+    (tk, zk, rk), (tp, zp, rp) = fresh(), fresh()
+    kernel = {"R": "K1", "X": "K12d", "P": "K13d"}[p.mode]
+    blk.reset_launch_counts()
+    xk, uk, ok = blk.decode_scan(p, states, stream, n, tk, rk, zk)
+    assert blk.LAUNCHES[kernel] == 1
+    xp, up, op = blk.decode_scan_plain(p, states, stream, n, tp, rp, zp)
+    assert uk == up
+    assert torch.equal(xk, xp) and torch.equal(ok, op)
+    assert all(torch.equal(tk[k], tp[k]) for k in tk)
+    if zk is not None:
+        assert all(torch.equal(zk[k], zp[k]) for k in zk)
+    if rk is not None:
+        assert torch.equal(rk, rp)
+    return xk, uk, ok
+
+
+def _decode_payload(p, ev, n, inp, dev, rolz=False):
+    """ev through the plain rANS scan into a payload, decoded by the kernel
+    and its plain version (``_decode_pair``) back to the block."""
+    want = blk.rans_scan_plain(p, ev)
+    n_words, states, stream = blk._unpack_payload(blk._pack_payload(*want), p)
+    st = torch.from_numpy(states.astype(np.int64)).to(dev)
+    sw = torch.from_numpy(stream.astype(np.int32)).to(dev)
+    _, used, out = _decode_pair(p, st, sw, n, dev, rolz)
+    assert used == n_words
+    assert np.array_equal(out.cpu().numpy().reshape(-1)[:n],
+                          inp.cpu().numpy().reshape(-1)[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["X", "P"])
+def test_tableless_decode_with_many_match_lanes_and_long_lengths(cuda_device, mode):
+    """K12d and K13d against their plain versions where many lanes code a
+    match in one step and copies reach the window (250): the warps'
+    searches of the len row (C) and, in mode X, of the distance row (B)
+    and the mantissa rows under their kept sums (D); the stream windows;
+    mode P's candidate read in the step before."""
+    p = blk.BlockParams(**(X_LONG if mode == "X" else P_LONG))
+    n = p.capacity - 11
+    buf = (_periodic if mode == "X" else _text_periods)(p, 250)
+    buf.reshape(-1)[n:] = 0  # a block's bytes past n are zero, as the codec pads them
+    inp = torch.from_numpy(buf).to(cuda_device)
+    tables = ppm.init_tables(True, p.o3_bits, cuda_device)
+    if mode == "X":
+        cands = blk.sort_candidates_plain(p, inp, n, True)
+        kw = dict(prices=blk.x_prices(), n_c=cands.shape[0] // 2)
+        first = blk.parse_scan_plain(p, n, cands, **kw)
+        rep = blk.rep_scan_plain(p, inp, n, first)
+        dec = blk.parse_scan_plain(p, n, cands, rep=rep, **kw)[:2].contiguous()
+        ev = blk.model_scan_plain(p, inp, n, dec, tables)
+        assert int(tables["mant"].sum(dim=1).max()) > 16, "the mantissa rows adapt"
+    else:
+        ev = blk.model_scan_plain(p, inp, n, None, tables, blk._init_lzp(p, cuda_device))
+    assert int(ev[:, 8].sum(dim=1).max()) >= 8, "several match lanes code in one step"
+    assert _longest_copy(ev) >= 200, "long copies"
+    _decode_payload(p, ev, n, inp, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["X", "P"])
+@pytest.mark.parametrize("lanes,shift", [(512, 0), (512, 1), (1032, 0)])
+def test_tableless_decode_of_a_random_stream_to_its_tail(cuda_device, mode, lanes, shift):
+    """A random stream of a few steps' words (not a whole number of 16-byte
+    pieces) under random states: every slot's renorm takes words, the
+    windows run into the stream's tail, where StreamRead's clamp holds
+    every read; at S=512 in one CTA (the shared-memory window; shifted by
+    a word the stream is not 16-byte aligned and the kernel reads it
+    without one) and at S=1032 as a cluster of two CTAs."""
+    p = blk.BlockParams(lanes=lanes, steps=48, mode=mode, window=250, o3_bits=14,
+                        min_len=6 if mode == "X" else 4,
+                        **({"rolz_ctx_bytes": 4} if mode == "X" else {}))
+    rng = np.random.default_rng(lanes + shift)
+    st = torch.from_numpy(rng.integers(1 << 16, 1 << 32, p.lanes, dtype=np.int64)).to(cuda_device)
+    words = 2 * lanes + 5
+    sw = torch.from_numpy(rng.integers(0, 1 << 16, words + shift).astype(np.int32)).to(cuda_device)
+    sw = sw[shift:]
+    assert (sw.data_ptr() % 16 == 0) == (shift == 0)
+    _, used, _ = _decode_pair(p, st, sw, p.capacity, cuda_device)
+    assert used > words - lanes, "the last steps' windows start at the clamped tail"
+
+
+@pytest.mark.cuda
+def test_k1_with_many_match_lanes_and_long_lengths(cuda_device):
+    """K1 against its plain version on the crz analogue of the tableless
+    test: many match lanes a step and lengths up to the window (250), for
+    the warp's searches of the index row (B) and the len row (C)."""
+    p = blk.BlockParams(**dict(FLEX, window=250, steps=256))
+    n = p.capacity - 11
+    buf = _periodic(p, 250)
+    buf.reshape(-1)[n:] = 0
+    inp = torch.from_numpy(buf).to(cuda_device)
+    props = blk.sort_candidates_plain(p, inp, n)
+    cands = blk.rank_scan_plain(p, inp, n, props, blk._init_rolz(p, cuda_device))
+    dec = blk.parse_scan_plain(p, n, cands)
+    ev = blk.model_scan_plain(p, inp, n, dec, ppm.init_tables(True, p.o3_bits, cuda_device))
+    assert int(ev[:, 8].sum(dim=1).max()) >= 8
+    assert int(dec[0].max()) >= 200
+    _decode_payload(p, ev, n, inp, cuda_device, rolz=True)
