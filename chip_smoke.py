@@ -10,13 +10,16 @@ no result line:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit.
-2. build: compiles the kernels (``comprox_tpu_torch/csrc``: thirteen
-   sources, eighteen codec kernels counting the entries of modes X and P,
+2. build: compiles the kernels (``comprox_tpu_torch/csrc``: fourteen
+   sources, nineteen codec kernels counting the entries of modes X and P,
    the shared radix sort and the six probe kernels) with nvcc, one process
    per source, and beside them the instrumented builds of
    ``benchmarks/phases.py`` (two of ``decode.cu``, K1's, K12d's and K13d's
    phase stamps at row-ring depth 0 and at the build's depth; one of
-   ``rank.cu`` and ``model.cu``, K5's and K2's), all started together.
+   ``rank.cu`` and ``model.cu``, K5's and the modeling scan's, K2, K12e and
+   K13e), all started together; prints each kernel arm's registers and
+   spills of the modeling scan (K2, K12e, K13e: four lanes a round of the
+   A event at up to 512 threads, two above) and of K13c.
 3. golden: decodes the committed JAX-package archives
    (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
    under ``crz e -l512`` with the flexible parse and with ``-f0``, under
@@ -56,9 +59,11 @@ no result line:
    tables, T=256, each against its plain version; tolerance 0 on every
    output grid and every table.  KSx (the scan finder's search) the same
    way: six grids, both bucket tables and the near-match cache.
-8. kernels, mode P: K13e, K3 and K13d chained at S=512, T=256, full-size
-   LZP tables, each against its plain version; tolerance 0 on every grid,
-   every PPM table, ``sse_p`` and ``lzp2/4/8``.
+8. kernels, mode P: K13c (the whole block's LZP candidates: the grid and
+   the ``lzp2/4/8`` it leaves), then K13e on K13c's grid, K3 and K13d
+   chained at S=512, T=256, full-size LZP tables, each against its plain
+   version; tolerance 0 on every grid, every PPM table, ``sse_p`` and
+   ``lzp2/4/8``.
 9. probes: the nine Pallas probes of the JAX package's ``benchmarks/`` as
    the port runs them (``comprox_tpu_torch/benchmarks/probes.py``, kernels
    in ``csrc/probes.cu``): each at each of its own geometries (S=512)
@@ -69,8 +74,8 @@ no result line:
    them.  The kernels line carries each probe's last geometry (P1: its warp
    arm; P4: its persistent arm) and the launches of the whole phase.
 10. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
-   CLI; archive SHA-256 == the JAX golden; fails if K13e, K3 or K13d was
-   not launched.
+   CLI; archive SHA-256 == the JAX golden; fails if K13c, K13e, K3 or K13d
+   was not launched.
 11. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
    ``CPX_X_FINDER=scan``; archive SHA-256 == the JAX golden written under
    that knob; fails if KSx, K6, K11, K12e, K3 or K12d was not launched, or
@@ -90,9 +95,11 @@ no result line:
    pair of lanes issued when they are read, nothing in flight ahead) and
    at the build's depth, and its corpus encoded again through K5's and
    K2's (the archive's SHA-256 == the JAX golden), and the 8 MiB crx and
-   crp archives decoded through K12d's and K13d's at the same two depths;
+   crp archives decoded through K12d's and K13d's at the same two depths
+   and their corpora encoded again through K12e's and K13e's;
    each phase's share of the kernel's cycles and its microseconds a step
-   (K5, K2, K12d, K13d: on thread 0 and on the CTA's last thread).
+   (K5, K2, K12e, K13e, K12d, K13d: on thread 0 and on the CTA's last
+   thread).
 15. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
    K3 or K1 was not launched.
 16. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
@@ -110,6 +117,7 @@ import contextlib
 import hashlib
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -169,6 +177,8 @@ KERNELS = [
     # mode X's scan finder, and mode P (crp)
     ("KSx", "comprox_tpu_torch/csrc/search.cu",
      "comprox_tpu/codec/block.py:1333"),
+    ("K13c", "comprox_tpu_torch/csrc/lzpcand.cu",
+     "comprox_tpu/codec/block.py:362"),
     ("K13e", "comprox_tpu_torch/csrc/model.cu",
      "comprox_tpu/codec/block.py:1677"),
     ("K13d", "comprox_tpu_torch/csrc/decode.cu",
@@ -244,15 +254,61 @@ def phase_device():
     return smi
 
 
+# ptxas's lines for an entry function, in a verbose build's output
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+# the modeling scan's arms: k2_kernel<MAXT, MODE, CL, LPR>
+_K2_ARM = re.compile(r"k2_kernelILi(\d+)ELi(\d)ELb(\d)ELi(\d)E")
+
+
+def _arms(log: str) -> list:
+    """(library, kernel, registers, spill stores, spill loads) of each
+    modeling-scan arm and each K13c kernel in a verbose build's output."""
+    out, lib, fn, spill = [], "", None, (0, 0)
+    for line in log.splitlines():
+        if line.startswith("libcpx_kernels_"):
+            lib = line.split()[0]
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m and fn:
+            spill = (int(m.group(2)), int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m and fn:
+            k2 = _K2_ARM.search(fn)
+            if k2:
+                mode = "R X P".split()[int(k2.group(2))]
+                name = (f"k2_kernel<{k2.group(1)}, {mode}, "
+                        f"{'cluster' if k2.group(3) == '1' else 'one CTA'}, {k2.group(4)} lanes a round>")
+                out.append((lib, name, int(m.group(1)), *spill))
+            elif "k13c_" in fn:
+                out.append((lib, re.search(r"k13c_[a-z_]+", fn).group(0), int(m.group(1)),
+                            *spill))
+            fn = None
+    return out
+
+
 def phase_build():
     from comprox_tpu_torch.benchmarks import phases
     from comprox_tpu_torch.utils import build
 
     depths = (0, phases.default_depth())
-    libs = build.build_many([((), None)] + phases.variant_specs(depths), verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        libs = build.build_many([((), None)] + phases.variant_specs(depths), verbose=True)
+    print(log.getvalue())
     print(f"kernels: {libs[0]}; the decode scans' instrumented builds (K1, "
           f"K12d, K13d; ring depth {depths[0]}, {depths[1]}): "
-          f"{', '.join(p.name for p in libs[1:3])}; K5's and K2's: {libs[3].name}")
+          f"{', '.join(p.name for p in libs[1:3])}; K5's and the modeling scan's: "
+          f"{libs[3].name}")
+    for lib, name, regs, stores, loads in _arms(log.getvalue()):
+        tag = "main" if lib == libs[0].name else "instrumented"
+        print(f"registers ({tag} build): {name}: {regs} registers, "
+              f"{stores} B spill stores, {loads} B spill loads")
     build.lib()
 
 
@@ -602,12 +658,13 @@ def phase_scan_phases():
     through K1's two instrumented builds of phase 2 (ring depth 0 and the
     build's depth), its corpus encoded through K5's and K2's, and the 8 MiB
     crx and crp archives decoded through K12d's and K13d's (the same two
-    builds)."""
+    builds) and their corpora encoded through K12e's and K13e's."""
     from comprox_tpu_torch.benchmarks import phases
 
-    phases.run(GOLDEN / MAIN_ARCHIVE, ("K1", "K5", "K2", "K12d", "K13d"),
+    phases.run(GOLDEN / MAIN_ARCHIVE, ("K1", "K5", "K2", "K12e", "K13e", "K12d", "K13d"),
                (0, phases.default_depth()),
-               archives={"K12d": GOLDEN / X_ARCHIVE, "K13d": GOLDEN / P_ARCHIVE})
+               archives={"K12d": GOLDEN / X_ARCHIVE, "K13d": GOLDEN / P_ARCHIVE,
+                         "K12e": GOLDEN / X_ARCHIVE, "K13e": GOLDEN / P_ARCHIVE})
 
 
 def phase_kernels_fast(corpus):
@@ -904,9 +961,10 @@ def phase_kernels_x(corpus):
 
 
 def phase_kernels_p(corpus):
-    """The mode-P kernels against their plain versions on the card: K13e,
-    K3 (three slots, counted under K3) and K13d chained at S=512, T=256 with
-    the full-size LZP tables.  Returns the per-kernel dicts of K13e, K13d."""
+    """The mode-P kernels against their plain versions on the card: K13c,
+    K13e, K3 (three slots, counted under K3) and K13d chained at S=512,
+    T=256 with the full-size LZP tables.  Returns the per-kernel dicts of
+    K13c, K13e, K13d."""
     import numpy as np
     import torch
 
@@ -935,18 +993,35 @@ def phase_kernels_p(corpus):
         return (sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
                 + sum(_touched_bytes(zk[k], z0_[k]) for k in zk))
 
-    # K13e.  Bytes: the block read, nine event grids written, the table
-    # rows and LZP slots this run changed.
+    # K13c, the whole block's candidates, before K13e reads them: the grid
+    # and the LZP tables it leaves against the step walk of its plain
+    # version.  Bounds: work.k13c.
+    zk, zp = lzp0(), lzp0()
+    blk.reset_launch_counts()
+    grid = blk.lzp_candidates(p, inp, n, zk)
+    if blk.LAUNCHES["K13c"] != 1:
+        raise AssertionError("K13c did not launch")
+    gridp, plain_ms = _timed_plain(blk.lzp_candidates_plain, p, inp, n, zp)
+    err = max_err([(grid, gridp)] + _tables_pairs(zk, zp))
+    ms = _kernel_ms("K13c", lambda: (p, inp, n, lzp0()), blk.lzp_candidates)
+    _record(res, "K13c", err, ms, plain_ms, *work.k13c(p, inp, n, zk, out=grid))
+    if not bool(((grid & 0xFFFF) > 0).any()):
+        raise AssertionError("K13c found no match on corpus bytes")
+
+    # K13e (K13c first, inside model_scan).  Bytes: the block and the grid
+    # read, nine event grids written, the table rows this run changed.
     tk, tp, zk, zp = tables0(), tables0(), lzp0(), lzp0()
     blk.reset_launch_counts()
     evk = blk.model_scan(p, inp, n, None, tk, zk)
-    if blk.LAUNCHES["K13e"] != 1:
-        raise AssertionError("K13e did not launch")
+    if blk.LAUNCHES["K13e"] != 1 or blk.LAUNCHES["K13c"] != 1:
+        raise AssertionError("K13c and K13e did not launch")
     evp, plain_ms = _timed_plain(blk.model_scan_plain, p, inp, n, None, tp, zp)
     err = max_err([(evk, evp)] + _tables_pairs(tk, tp) + _tables_pairs(zk, zp))
     ms = _kernel_ms("K13e", lambda: (p, inp, n, None, tables0(), lzp0()),
                     blk.model_scan)
-    _record(res, "K13e", err, ms, plain_ms, work.nbytes(inp, evk) + touched(tk, zk),
+    t0_ = tables0()
+    _record(res, "K13e", err, ms, plain_ms,
+            work.nbytes(inp, grid, evk) + sum(_touched_bytes(tk[k], t0_[k]) for k in tk),
             work.scan_ops("K13e", p))
     n_match = int(evk[:, 8].sum())
     if n_match == 0:
@@ -1137,7 +1212,7 @@ def main() -> int:
     res.update(res_probes)
     crp = ph.run(
         "full width, crp", phase_full_width, corpora[P_ARCHIVE], "crp",
-        P_ARCHIVE, [], ("K13e", "K3", "K13d"))
+        P_ARCHIVE, [], ("K13c", "K13e", "K3", "K13d"))
     xscan = ph.run(
         "full width, crx under the scan finder", phase_full_width,
         corpora[XSCAN_ARCHIVE], "crx", XSCAN_ARCHIVE, [],
@@ -1163,7 +1238,8 @@ def main() -> int:
     for name in ("K4x", "K11", "K12e", "K12d"):
         launches[name] = crx[name]
     launches["KSx"] = xscan["KSx"]
-    launches["K13e"], launches["K13d"] = crp["K13e"], crp["K13d"]
+    for name in ("K13c", "K13e", "K13d"):
+        launches[name] = crp[name]
     launches["K6 (X)"], launches["K3 (5 slots)"] = crx["K6"], crx["K3"]
     launches["SORT"] += crx["SORT"] + fast["SORT"]  # one in each of K4, K4x, K7
     launches.update(probe_launches)

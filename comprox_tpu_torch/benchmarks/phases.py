@@ -29,7 +29,7 @@ the archive against ``tests/data/torch_golden.json``, and reports each
 phase's share of the cycles and its microseconds a step (the share times
 the kernel's CUDA-event time over the steps).  On the card::
 
-    python -m comprox_tpu_torch.benchmarks.phases [archive] [K1|K5|K2|K12d|K13d ...] [depth ...]
+    python -m comprox_tpu_torch.benchmarks.phases [archive] [K1|K5|K2|K12e|K13e|K12d|K13d ...] [depth ...]
     python -m comprox_tpu_torch.benchmarks.phases split [ctas ...]
     python -m comprox_tpu_torch.benchmarks.phases times
     python -m comprox_tpu_torch.benchmarks.phases bounds
@@ -44,14 +44,15 @@ each.
 K12d, K12e, KSx, K13d, K13e) in the main build, from the decode and the
 encode of the 8 MiB goldens, and its bound at that width; run it in two
 trees in turns to compare them.  ``bounds`` prints the full-width bound of
-every other kernel (the sort, K4, K4x, K7, K3, K6, K8-K11) from the
-launches of the 8 MiB crz, crx and crf goldens' decode and encode.
+every other kernel (the sort, K4, K4x, K7, K3, K6, K8-K11, K13c) from the
+launches of the 8 MiB crz, crx, crf and crp goldens' decode and encode.
 """
 
 from __future__ import annotations
 
 import contextlib
 import hashlib
+import inspect
 import io
 import json
 import re
@@ -79,12 +80,16 @@ PHASES = {
         "rows issued, insert rank", "rows landed", "search scan", "insert slot",
         "window compare", "output stores", "row barrier", "store",
     ), 3),
-    "K2": ("model.cu", (
-        "o1 rescale", "contexts, dec loads", "A event", "B event",
-        "keys barrier", "idx/len rescale", "C event, ev stores",
-        "elections, table stores", "adds", "finish",
-    ), 2),
 }
+# the modeling scan's stamps (model.cu, K2_STAMP), one set for its three
+# modes: R (K2), X (K12e) and P (K13e: its dec loads are K13c's candidate
+# grid, and it has no idx rows to rescale)
+MODELING = (
+    "o1 rescale", "contexts, dec loads", "A event", "B event", "keys barrier",
+    "idx/len rescale", "C event, ev stores", "elections, table stores", "adds",
+    "finish",
+)
+PHASES.update({k: ("model.cu", MODELING, 2) for k in ("K2", "K12e", "K13e")})
 # the tableless decode scan's stamps (decode.cu, K12D_STAMP), one set for
 # its two modes: X (K12d) and P (K13d, whose D and E phase is empty)
 TABLELESS = (
@@ -94,14 +99,17 @@ TABLELESS = (
 )
 PHASES.update({"K12d": ("decode.cu", TABLELESS, 2), "K13d": ("decode.cu", TABLELESS, 2)})
 # a kernel's stamp set in its source, where it is not named for the kernel
-STAMP_SET = {"K12d": "K12D", "K13d": "K12D"}
+STAMP_SET = {"K12d": "K12D", "K13d": "K12D", "K12e": "K2", "K13e": "K2"}
 DECODE_KERNELS = ("K1", "K12d", "K13d")  # the kernels of decode.cu's variant
-ENCODE_KERNELS = ("K5", "K2")  # one variant, one encode
+ENCODE_KERNELS = ("K5", "K2", "K12e", "K13e")  # one variant of rank.cu + model.cu
 GOLDEN = Path(__file__).resolve().parents[2] / "tests" / "data"
 ARCHIVE = GOLDEN / "crz_flex_8MiB_S512.cpx"
-# the archive each tableless kernel decodes by default
-TABLELESS_ARCHIVES = {"K12d": GOLDEN / "crx_flex_8MiB_S512.cpx",
-                      "K13d": GOLDEN / "crp_8MiB_S512.cpx"}
+# the archive each crx and crp kernel codes by default (decoded, and for
+# K12e and K13e its corpus encoded again)
+OWN_ARCHIVES = {"K12d": GOLDEN / "crx_flex_8MiB_S512.cpx",
+                "K13d": GOLDEN / "crp_8MiB_S512.cpx",
+                "K12e": GOLDEN / "crx_flex_8MiB_S512.cpx",
+                "K13e": GOLDEN / "crp_8MiB_S512.cpx"}
 
 
 def default_depth() -> int:
@@ -115,8 +123,9 @@ def defines(depth: int) -> tuple:
     return ("-DCPX_K1_PROF", "-DCPX_K12D_PROF", f"-DCPX_RING_D={depth}")
 
 
-ENCODE_DEFINES = tuple(f"-DCPX_{k}_PROF" for k in ENCODE_KERNELS)
-ENCODE_SOURCES = tuple(PHASES[k][0] for k in ENCODE_KERNELS)
+ENCODE_DEFINES = tuple(dict.fromkeys(f"-DCPX_{STAMP_SET.get(k, k)}_PROF"
+                                     for k in ENCODE_KERNELS))
+ENCODE_SOURCES = tuple(dict.fromkeys(PHASES[k][0] for k in ENCODE_KERNELS))
 
 
 def variant_specs(depths=(), encode: bool = True) -> list:
@@ -161,24 +170,24 @@ def decode_breakdown(archive: bytes, depth: int, kernel: str = "K1") -> dict:
                    sha256=hashlib.sha256(out.getvalue()).hexdigest())
 
 
-def encode_breakdown(corpus: np.ndarray, argv: str) -> list:
-    """Encode ``corpus`` on the card under the crz command line ``argv``
-    through the instrumented K5 and K2: their results, each with the
-    archive's ``sha256``."""
+def encode_breakdown(corpus: np.ndarray, argv: str, kernels=("K5", "K2")) -> list:
+    """Encode ``corpus`` on the card under the command line ``argv`` (crz
+    for K5 and K2, crx for K12e, crp for K13e) through the instrumented
+    ``kernels``: their results, each with the archive's ``sha256``."""
     codec, _, _, _, opts = parse_args(argv.split() + ["in", "out"])
     cp = make_params(codec, opts)
     with build.variant(*ENCODE_DEFINES, only=ENCODE_SOURCES):
         lib = build.lib()
-        for k in ENCODE_KERNELS:
+        for k in kernels:
             _read(lib, k)
         blk.reset_launch_counts()
         buf = io.BytesIO()
         encode_stream(corpus, buf, cp, "cuda", filters=opts["filters"])
         ms = blk.kernel_ms()
-        cyc = {k: _read(lib, k) for k in ENCODE_KERNELS}
+        cyc = {k: _read(lib, k) for k in kernels}
     sha = hashlib.sha256(buf.getvalue()).hexdigest()
     return [_result(k, cyc[k], ms[k], blk.LAUNCHES[k] * cp.block.steps, sha256=sha)
-            for k in ENCODE_KERNELS]
+            for k in kernels]
 
 
 def split(ctas=(1, 2, 4, 8), archive_path=ARCHIVE) -> dict:
@@ -218,6 +227,8 @@ TIMED = (
     ("crx_scan_flex_8MiB_S512.cpx", ("KSx",)),
     ("crp_8MiB_S512.cpx", ("K13d", "K13e")),
 )
+# the other kernels ``times`` times beside the scans (their bounds: ``bounds``)
+TIMED_PASSES = {"crp_8MiB_S512.cpx": ("K13c",)}
 
 
 SCAN_ENTRIES = ("search_scan", "rank_scan", "model_scan", "decode_scan")
@@ -240,17 +251,32 @@ def _bytes_of_scans(log: dict):
     the kernel it launched, the bytes its function must move: each tensor
     argument it leaves as it was read once, each one it updates in place
     (a table) by the rows it changed, read and written once, and each
-    result written once; and its modelled operations (``work.scan_ops``)."""
-    saved = {n: getattr(blk, n) for n in SCAN_ENTRIES}
+    result written once; and its modelled operations (``work.scan_ops``).
+    Where the entry runs a whole-block pass before its scan (mode P's K13c,
+    ``lzp_candidates``, whose own bound ``bounds`` counts), the scan reads
+    the pass's result once and not the tables the pass took."""
+    saved = {n: getattr(blk, n) for n in (*SCAN_ENTRIES, "lzp_candidates")}
+    passes = []  # (the tables K13c took, its grid), within the current entry
+
+    def lzp_pass(*args, **kw):
+        grid = saved["lzp_candidates"](*args, **kw)
+        bound = inspect.signature(saved["lzp_candidates"]).bind(*args, **kw)
+        passes.append((bound.arguments["lzp"], grid))
+        return grid
 
     def wrap(fn):
         def entry(p, *args, **kw):
             before = dict(blk.LAUNCHES)
+            passes.clear()
             ins = [t for a in (*args, *kw.values()) for t in _tensors(a)]
             snaps = [t.clone() for t in ins]
             out = fn(p, *args, **kw)
-            nbytes = sum(t.numel() * t.element_size() for t in _tensors(out))
+            taken = {id(t) for lzp, _ in passes for t in _tensors(lzp)}
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in _tensors([out, [grid for _, grid in passes]]))
             for t, old in zip(ins, snaps):
+                if id(t) in taken:
+                    continue
                 rows = t.reshape(t.shape[0], -1)
                 changed = int((rows != old.reshape(rows.shape)).any(dim=1).sum())
                 nbytes += (2 * changed * rows.shape[1] * t.element_size() if changed
@@ -261,6 +287,7 @@ def _bytes_of_scans(log: dict):
             return out
         return entry
 
+    blk.lzp_candidates = lzp_pass
     for n in SCAN_ENTRIES:
         setattr(blk, n, wrap(saved[n]))
     try:
@@ -276,10 +303,10 @@ def times(timed=TIMED) -> dict:
     ``work.scan_ops``): each golden of ``timed``
     decoded on the card and its corpus encoded again under its command
     line (a knob in it set for the encode), the decoded bytes and the
-    archive checked against the golden.  Prints a line; returns {kernel:
-    (ms, bound_ms, bound_by)}."""
+    archive checked against the golden; K13c's ms beside crp's scans.
+    Prints a line (two); returns {kernel: (ms, bound_ms, bound_by)}."""
     meta = json.loads((GOLDEN / "torch_golden.json").read_text())
-    out = {}
+    out, passes = {}, {}
     for name, kernels in timed:
         moved = {}
         want = meta[name]
@@ -307,8 +334,12 @@ def times(timed=TIMED) -> dict:
         if hashlib.sha256(buf.getvalue()).hexdigest() != want["archive_sha256"]:
             raise AssertionError(f"{name}: the archive differs from the golden")
         out.update({k: (ms[k], *work.bound(*moved[k])) for k in kernels})
+        passes.update({k: ms[k] for k in TIMED_PASSES.get(name, ())})
     print("step scans, ms: " + ", ".join(f"{k} {v[0]:.3f}" for k, v in out.items()),
           flush=True)
+    if passes:
+        print("beside them, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()),
+              flush=True)
     print("full-width bounds, ms: " + ", ".join(
         f"{k} {v[1]:.4f} ({v[2]})" for k, v in out.items()), flush=True)
     return out
@@ -323,6 +354,7 @@ BOUND_ENTRIES = {
     "K6": ("block", "parse_scan", work.k6),
     "K3": ("block", "rans_scan", work.k3),
     "K11": ("block", "rep_scan", work.k11),
+    "K13c": ("block", "lzp_candidates", work.k13c),
     "K7": ("fast", "f2_find", work.k7),
     "K8": ("fast", "tokenize", work.k8),
     "K9": ("fast", "encode_scan", work.k9),
@@ -367,12 +399,12 @@ def _bounds_of_entries(log: dict):
 
 
 def bounds(names=("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx",
-                  "crf_flex_8MiB_S512.cpx")) -> dict:
+                  "crf_flex_8MiB_S512.cpx", "crp_8MiB_S512.cpx")) -> dict:
     """The full-width bound of every kernel that is not a step scan (the
-    sort, K4, K4x, K7, K3, K6, K8-K11): each golden of ``names`` decoded on
-    the card and its corpus encoded again under its command line (the
-    archive checked against the golden), each launch's bytes and modelled
-    operations summed over the path.  Prints a line; returns {row:
+    sort, K4, K4x, K7, K3, K6, K8-K11, K13c): each golden of ``names``
+    decoded on the card and its corpus encoded again under its command
+    line (the archive checked against the golden), each launch's bytes and
+    modelled operations summed over the path.  Prints a line; returns {row:
     (bound_ms, bound_by, bytes, operations)}."""
     meta = json.loads((GOLDEN / "torch_golden.json").read_text())
     log = {}
@@ -422,15 +454,15 @@ def run(archive_path=ARCHIVE, kernels=("K1", "K5", "K2"), depths=None,
         verbose=False, archives=None) -> dict:
     """Build the variants, run each kernel's breakdown, check the bytes,
     print one table a kernel; returns {kernel: [results]}.  K1, K5 and K2
-    code ``archive_path`` (crz); K12d and K13d decode their archive of
-    ``archives`` (default ``TABLELESS_ARCHIVES``); each decode scan runs
-    at every depth."""
+    code ``archive_path`` (crz); K12d, K13d, K12e and K13e their archive of
+    ``archives`` (default ``OWN_ARCHIVES``): K12d and K13d decode it, K12e
+    and K13e encode its corpus again; each decode scan runs at every
+    depth."""
     depths = (0, default_depth()) if depths is None else tuple(depths)
     archive_path = Path(archive_path)
     meta = json.loads((GOLDEN / "torch_golden.json").read_text())
-    want = meta[archive_path.name]
     paths = {k: archive_path for k in PHASES}
-    paths.update(TABLELESS_ARCHIVES)
+    paths.update(OWN_ARCHIVES)
     paths.update({k: Path(v) for k, v in (archives or {}).items()})
     encode = [k for k in ENCODE_KERNELS if k in kernels]
     decode = [k for k in DECODE_KERNELS if k in kernels]
@@ -442,15 +474,17 @@ def run(archive_path=ARCHIVE, kernels=("K1", "K5", "K2"), depths=None,
         for r in out[k]:
             if r["sha256"] != meta[paths[k].name]["input_sha256"]:
                 raise AssertionError(f"{k} at depth {r['depth']}: decoded bytes differ")
-    if encode:
+    for path in dict.fromkeys(paths[k] for k in encode):
+        want = meta[path.name]
         raw = io.BytesIO()
-        decode_stream(io.BytesIO(archive_path.read_bytes()), raw, "cuda")
+        decode_stream(io.BytesIO(path.read_bytes()), raw, "cuda")
         if hashlib.sha256(raw.getvalue()).hexdigest() != want["input_sha256"]:
-            raise AssertionError("decoded bytes differ")
-        res = encode_breakdown(np.frombuffer(raw.getvalue(), np.uint8), want["argv"])
+            raise AssertionError(f"{path.name}: decoded bytes differ")
+        mine = tuple(k for k in encode if paths[k] == path)
+        res = encode_breakdown(np.frombuffer(raw.getvalue(), np.uint8), want["argv"], mine)
         if res[0]["sha256"] != want["archive_sha256"]:
-            raise AssertionError("the instrumented K5 and K2 wrote other bytes")
-        out.update({r["kernel"]: [r] for r in res if r["kernel"] in encode})
+            raise AssertionError(f"the instrumented {', '.join(mine)} wrote other bytes")
+        out.update({r["kernel"]: [r] for r in res})
     for k, results in out.items():
         print(f"{k} by phase, {paths[k].name} ({results[0]['steps']} steps; "
               f"clock64 in the instrumented build of {PHASES[k][0]}):")

@@ -2,7 +2,9 @@
 
 The A and B events of the step scans (``csrc/ppm_r.cuh``: K1, K12d, K13d
 decode; K2, K12e, K13e encode) read their o2 and o1 rows through a
-per-warp ring of ``CPX_RING_D`` shared-memory slots.  This module builds
+per-warp ring of ``CPX_RING_D`` shared-memory slots (but for the A event
+of encode's 512-thread arm, which takes its rows from a ring of four,
+``RING4_D``, four lanes a round).  This module builds
 the whole kernel library at each depth asked for (a variant beside the
 main library; every nvcc started together), then, for each depth in the
 order given, decodes the 8 MiB crz, crx and crp goldens on the card and

@@ -91,6 +91,20 @@ def k11(p, inp, n, dec, *, out) -> tuple:
     return nbytes(inp, dec[:2], out), 12 * p.capacity
 
 
+def k13c(p, inp, n, lzp, *, out) -> tuple:
+    """K13c (``block.lzp_candidates``; ``out`` the grid): the block read,
+    the grid written, and of the three tables the slots the block inserts
+    into, read and written once (4 bytes each way); per key (three a
+    position) the key (8) and three radix passes (3 each), the segmented
+    max (4); per position the registers (16), the checks (16) and the
+    window compare of each candidate the grid holds, 8 bytes a compare."""
+    slots = sum(int((lzp[k] != 0).sum()) for k in blk.LZP_KEYS)
+    ok = (out & blk.LZP_GRID_OK) != 0
+    compares = int(((out & (blk.LZP_GRID_OK - 1)).long() // 8 + 1)[ok].sum())
+    return (nbytes(inp, out) + 8 * slots,
+            3 * p.capacity * (8 + 3 * 3 + 4) + p.capacity * 32 + compares)
+
+
 def k7(p, inp, n, *, out) -> tuple:
     """K7 (``fast.f2_find``): four radix passes (3 each), per candidate the
     key compare and the scatter (4), and its extension, 8 bytes a compare
@@ -145,7 +159,7 @@ def scan_ops(kernel: str, p, out=None) -> int:
         "K5": d * (6 + 2 * blk._R_CANDS),
         "K2": 3 * 260 + 64,
         "K12e": 3 * 260 + 64,
-        "K13e": 3 * 260 + 64 + 16 + win8,  # the LZP candidate, its window
+        "K13e": 3 * 260 + 64,  # the candidate from K13c's grid
         "K1": 3 * 260 + 64 + 4 * d,  # the bucket row
         "K12d": 3 * 260 + 64,
         "K13d": 3 * 260 + 64 + 16,

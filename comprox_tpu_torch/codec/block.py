@@ -1273,6 +1273,33 @@ def _model_step(p: BlockParams, inp, n, c, tables, t, dec_t, lzp=None,
     return torch.stack(out).to(_i32)
 
 
+LZP_GRID_OK = 1 << 16  # csrc/ppm_r.cuh: the candidate grid's "a table has one"
+
+
+def lzp_candidates_plain(p: BlockParams, inp, n: int, lzp):
+    """Plain K13c: the step walk of mode P's candidates through
+    :func:`_lzp_candidate`, :func:`_match_window_len` and the inserts of
+    :func:`_post_step`.  ``grid [T, S]`` int32: at a position inside the
+    block, ``LZP_GRID_OK`` where a table has a candidate, or'd with its
+    match length (0 where it is under ``min_len``); 0 past the block.
+    ``lzp`` ends as the step walk leaves it (every insert of the block)."""
+    c = _init_carry(p, inp.device)
+    grid = torch.zeros((p.steps, p.lanes), dtype=_i32, device=inp.device)
+    inp_w32 = _pack_words(inp.reshape(-1))
+    pos = torch.arange(p.lanes, device=inp.device, dtype=_i64) * p.steps
+    no_match = torch.zeros(p.lanes, dtype=torch.bool, device=inp.device)
+    for t in range(p.steps):
+        active = pos + t < n
+        src, ok = _lzp_candidate(c, lzp, t, p, inp.reshape(-1))
+        length = _match_window_len(inp_w32, pos + t, src, t, n, p,
+                                   _cur_windows(inp, t, p.window))
+        length = torch.where(ok & (length >= p.min_len), length, 0)
+        grid[t] = torch.where(active, torch.where(ok, LZP_GRID_OK, 0) | length, 0)
+        _post_step(c, t, p, pos + t, active, inp[:, t], no_match, src, length,
+                   lzp=lzp, n=n)
+    return grid
+
+
 def model_scan_plain(p: BlockParams, inp, n: int, dec, tables, lzp=None):
     """Plain K2 / K12e / K13e: ``ev [T, 3 * n_slots, S]`` int32 — (c, f,
     active) for slots A, B, C (mode X: and D, E); ``tables`` and mode P's
@@ -1490,7 +1517,7 @@ def decode_scan_plain(p: BlockParams, states, stream, n: int, tables,
 LAUNCHES = {"KS": 0, "K4": 0, "K5": 0, "K6": 0, "K2": 0, "K3": 0, "K1": 0,
             "K7": 0, "K8": 0, "K9": 0, "K10": 0,
             "K4x": 0, "K11": 0, "K12e": 0, "K12d": 0,
-            "KSx": 0, "K13e": 0, "K13d": 0, "SORT": 0}
+            "KSx": 0, "K13c": 0, "K13e": 0, "K13d": 0, "SORT": 0}
 _EVENTS: dict = {k: [] for k in LAUNCHES}
 
 
@@ -1919,19 +1946,58 @@ def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None, rep=None):
     return dec
 
 
+def lzp_candidates(p: BlockParams, inp, n: int, lzp):
+    """K13c — mode P's LZP candidates of a whole block, for its encode.
+
+    Replaces, for the encoder, the per-step candidate of
+    comprox_tpu/codec/block.py::_encode_model_body's P arm (1714-1723):
+    _lzp_candidate (362-403), _match_window_len (1059-1068) and the inserts
+    of _post_step (662-676), which in encode depend on the input alone.
+    Kernels: csrc/lzpcand.cu (keys, the shared radix sort of sortlib.cuh,
+    a segmented prefix max, the checks and window compares).  ``inp`` [S,
+    T] uint8 -> ``grid [T, S]`` int32 as :func:`lzp_candidates_plain`
+    writes it; ``lzp`` (the three tables of :func:`_init_lzp`) ends with
+    every insert of the block.  Card memory beside the grid (4N bytes, N =
+    S * T): the sort's keys and positions, [2, 3N] int32 each, the
+    candidates [3N] and the sort's digit counts (4 * 256 a 4096-key tile),
+    about 63N bytes (504 MiB at N = 8 Mi), freed when the pass returns, so
+    that the caching allocator serves the next block's pass from them.
+    """
+    if _dispatch(inp, *[lzp[k] for k in LZP_KEYS]) == "cpu":
+        return lzp_candidates_plain(p, inp, n, lzp)
+    _check_kernel_geometry(p)
+    _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
+    if inp.data_ptr() % 8:
+        raise ValueError("inp must be 8-byte aligned (64-bit loads)")
+    ptrs = _lzp_ptrs(p, lzp)
+    n3, dev = 3 * p.capacity, inp.device
+    tiles = -(-n3 // K4_TILE)
+    grid = torch.empty((p.steps, p.lanes), dtype=_i32, device=dev)
+    key = torch.empty((2, n3), dtype=_i32, device=dev)
+    pos = torch.empty_like(key)
+    rs = torch.empty(RS_HDR + RS_PASSES * 256 * tiles, dtype=_i32, device=dev)
+    cand = torch.empty(n3, dtype=_i32, device=dev)
+    agg = torch.empty(3 * tiles, dtype=_i32, device=dev)
+    cfg = _cfg_array(p, n)
+    _launch("K13c", build.lib().cpx_k13c_launch, cfg.ctypes.data, inp.data_ptr(),
+            *ptrs, grid.data_ptr(), key.data_ptr(), pos.data_ptr(), rs.data_ptr(),
+            cand.data_ptr(), agg.data_ptr(), _stream_ptr())
+    return grid
+
+
 def model_scan(p: BlockParams, inp, n: int, dec, tables, lzp=None):
     """K2 — the forward modeling scan of encode; K12e — its mode-X entry;
     K13e — its mode-P entry.
 
     Replaces comprox_tpu/codec/block.py::_encode_model_body (1677-1895)
-    under _encode_passes (1898-1941); K13e its P arm (1714-1723) with
-    _lzp_candidate (362-403), _match_window_len (1059-1068) and the LZP
-    inserts of _post_step (662-676).  Kernel: csrc/model.cu (an entry per
-    mode).  Mode R: ``dec`` [4, T, S] int32 (take, src, rec_idx, fill) ->
-    ev [T, 9, S] int32.  Mode X: ``dec`` [2, T, S] int32 (take, src) -> ev
-    [T, 15, S].  Mode P: no ``dec`` (None); ``lzp`` the three tables of
-    :func:`_init_lzp`, or None with the match layer off -> ev [T, 9, S].
-    ``tables`` and ``lzp`` evolve in place.
+    under _encode_passes (1898-1941); K13e its P arm (1714-1723), with the
+    candidates of the whole block (_lzp_candidate, _match_window_len and
+    the LZP inserts) found first by :func:`lzp_candidates` (K13c).  Kernel:
+    csrc/model.cu (an entry per mode).  Mode R: ``dec`` [4, T, S] int32
+    (take, src, rec_idx, fill) -> ev [T, 9, S] int32.  Mode X: ``dec`` [2,
+    T, S] int32 (take, src) -> ev [T, 15, S].  Mode P: no ``dec`` (None);
+    ``lzp`` the three tables of :func:`_init_lzp`, or None with the match
+    layer off -> ev [T, 9, S].  ``tables`` and ``lzp`` evolve in place.
     """
     p_mode = p.mode == "P"
     if p_mode != (dec is None):
@@ -1948,11 +2014,11 @@ def model_scan(p: BlockParams, inp, n: int, dec, tables, lzp=None):
     cfg = _cfg_array(p, n)
     lib = build.lib()
     if p_mode:
-        if inp.data_ptr() % 8:
-            raise ValueError("inp must be 8-byte aligned (64-bit loads)")
+        _lzp_ptrs(p, lzp)
+        grid = None if lzp is None else lzp_candidates(p, inp, n, lzp)
         _launch("K13e", lib.cpx_k13e_launch, cfg.ctypes.data, inp.data_ptr(),
-                *_table_ptrs(tables, "P"), *_lzp_ptrs(p, lzp), ev.data_ptr(),
-                _stream_ptr())
+                None if grid is None else grid.data_ptr(), *_table_ptrs(tables, "P"),
+                ev.data_ptr(), _stream_ptr())
         return ev
     x_mode = p.mode == "X"
     _expect(dec, "dec", _i32, (2 if x_mode else 4, p.steps, p.lanes))

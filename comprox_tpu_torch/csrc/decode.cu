@@ -48,9 +48,10 @@
 // searches: whatever JAX computes there is masked before any table sees it.
 //
 // Mode P (the same kernel, MODE_P): before the A event each coding lane
-// has its LZP candidate (block.py:2016-2021; ppm_r.cuh::lzp_candidate)
-// from the three shared tables, verified against the output bytes of
-// earlier steps, because the hit APM is keyed by whether there is one; a
+// has its LZP candidate (block.py:2016-2021; ppm_r.cuh::lzp_slots,
+// lzp_fetch, lzp_check) from the three shared tables, verified against the
+// output bytes of earlier steps, because the hit APM is keyed by whether
+// there is one; a
 // match (A, then C under context 0: three word reads a step) copies from
 // that source.  A step's scatter-max inserts (atomicMax) come with its
 // byte, before the barrier that follows every read of the output; the

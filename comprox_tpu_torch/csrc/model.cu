@@ -18,15 +18,17 @@
 // one-hot products), and a row over its cap is halved after the adds.
 // Output: ev [T, 15, S].
 //
-// Mode P (LZP) has no parse: each coding lane reads its one candidate from
-// the three shared tables (block.py::_lzp_candidate, 362-403: three int32
-// loads, up to 8 history bytes to verify), measures it against its next
-// `window` bytes (_match_window_len, 1059-1068) and codes a match where it
-// is at least min_len long.  A match has no source to code: B is the escape
-// only, C the length under context 0.  The A event's hit APM is keyed by
-// whether the lane has a candidate at all.  The step ends with the three
-// scatter-max inserts of _post_step (662-676) as atomicMax: candidate reads
-// and inserts are four barriers apart.  Output: ev [T, 9, S].
+// Mode P (LZP) has no parse: a coding lane codes a match where its one
+// candidate (block.py::_lzp_candidate, 362-403, measured against its next
+// `window` bytes by _match_window_len, 1059-1068) is at least min_len long.
+// In encode the candidates and the tables' inserts (_post_step, 662-676)
+// depend on the input alone, so the whole block's candidates are found
+// before this scan (K13c, lzpcand.cu) and a lane reads its step's entry of
+// that grid (whether a table has a candidate, and its usable length) as
+// modes R and X read their parse decisions: the step loop reads, compares
+// and inserts into no LZP table.  A match has no source to code: B is the
+// escape only, C the length under context 0.  The A event's hit APM is
+// keyed by whether the lane has a candidate at all.  Output: ev [T, 9, S].
 //
 // The R branch reads its ROLZ index and bucket fill from the search pass
 // (block.py:1704-1713), never the bucket table, so this kernel keeps no
@@ -38,20 +40,29 @@
 // and the step ends in four barriers.  Row loads by one thread per lane
 // would touch 32 rows per warp load, so the o2 row of each coding lane is
 // read by its whole warp (coalesced, warp reductions; the A event shared
-// with K1).  The design keeps the small models (len, idx, APMs, o1 row
-// sums) in shared memory, turns every table update into a winner-only
-// store or an integer atomicAdd, and does an event's work only on the
-// lanes that code it (JAX computes every lane and masks).
-#include "rolz_search.cuh"
+// with K1).  The A event's rounds are bound by the instructions they
+// issue, and in encode (which knows its symbols) a round's cost is mostly
+// fixed, so up to 512 threads it codes four lanes a round, a quarter-warp
+// each (ppm_r.cuh::warp_a_event4, results through shared rows); the
+// 1024-thread and cluster arms code two (warp_a_event).  The design keeps
+// the small models (len, idx, APMs, o1 row sums) in shared memory, turns
+// every table update into a winner-only store or an integer atomicAdd,
+// and does an event's work only on the lanes that code it (JAX computes
+// every lane and masks).
+#include "ppm_r.cuh"
 
 namespace {
 
 // An instrumented build (-DCPX_K2_PROF, which the main path's build does
 // not use; benchmarks/phases.py) stamps the SM clock at the end of each of the
-// modeling scan's phases (ppm_r.cuh::PhaseClock), in every mode's entry.
+// modeling scan's phases (ppm_r.cuh::PhaseClock), in every mode's entry, one
+// stamp set for the three, each mode its own counters: k2_prof (mode R),
+// k12e_prof (X), k13e_prof (P).
 #define K2_PHASES 10
 #ifdef CPX_K2_PROF
 __device__ unsigned long long k2_prof[2 * K2_PHASES];
+__device__ unsigned long long k12e_prof[2 * K2_PHASES];
+__device__ unsigned long long k13e_prof[2 * K2_PHASES];
 #define K2_STAMP(k) clk_.mark(k);
 #else
 #define K2_STAMP(k)
@@ -86,14 +97,17 @@ static __device__ void mant_events(const SmemModel& sm, int dist, int k_dist,
   }
 }
 
-template <int MAXT, int MODE, bool CL>
+// LPR: the lanes the A event codes a round (4: warp_a_event4, with its
+// rings and result rows in dyn, ring4_bytes; 2: warp_a_event).
+template <int MAXT, int MODE, bool CL, int LPR>
 __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restrict__ inp,
-                          const int* __restrict__ dec, Tables tb, Lzp lzp,
+                          const int* __restrict__ dec, Tables tb,
                           int* __restrict__ ev) {
   constexpr bool XMODE = MODE == MODE_X, PMODE = MODE == MODE_P;
+  constexpr int WARP_SLOTS = LPR == 4 ? RING4_W : RING_SLOTS;  // the B event's ring's stride
   __shared__ SmemModel own;  // this CTA's keys; with CL, CTA 0's models serve all
   SmemModel& sm = *at_rank<CL>(&own, 0);
-  extern __shared__ __align__(16) int dyn[];  // the warps' row rings
+  extern __shared__ __align__(16) int dyn[];  // the warps' row rings (LPR 4: and result rows)
   const int i = gtid();
   const bool alive = i < c.S;
   __shared__ int sse_thr[33];  // the APM thresholds, for the A event's per-lane SSE
@@ -103,20 +117,21 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
   group_sync<CL>();
   const size_t plane = (size_t)c.T * c.S;
   const int n_ev = XMODE ? 15 : 9;
-  uint32_t ctx4 = 0, ctx4b = 0;
-  int copy_rem = 0, copy_src = 0, prev_dist = 1;
-  // a step's o3 entry, decisions and byte, loaded in the step before's add
-  // phase (after the o3 winners' stores; nothing writes them later), so
-  // that the step does not open on a round trip
+  uint32_t ctx4 = 0;
+  int copy_rem = 0, prev_dist = 1;
+  // a step's o3 entry, decisions (mode P: its candidate grid entry) and
+  // byte, loaded in the step before's add phase (after the o3 winners'
+  // stores; nothing writes them later), so that the step does not open on
+  // a round trip
   int raw_n = 0, len_n = 0, src_n = 0, idx_n = 0, fill_n = 0, byte_n = 0;
   auto prefetch = [&](int tn) {
     if (!alive || tn >= c.T) return;
     const size_t o = (size_t)tn * c.S + i;
     raw_n = tb.o3[o3_slot(c, ctx4)];
-    if (!PMODE && c.match) {
+    if (c.match) {
       len_n = dec[o];
-      src_n = dec[plane + o];
-      if (!XMODE) {
+      if (!PMODE) src_n = dec[plane + o];
+      if (MODE == MODE_R) {
         idx_n = dec[2 * plane + o];
         fill_n = dec[3 * plane + o];
       }
@@ -141,15 +156,14 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
     int c1_raw = 0, f1_raw = 0, tot1 = 0;
     uint32_t ca = 0, fa = RANS_M;
     const bool coding = alive && x.coding;
-    RowRing ring = ring_start(dyn, tb.o2, O2_W, coding, x.ctx2);
+    RowRing ring = LPR == 4 ? ring4_start(dyn, tb.o2, O2_W, coding, x.ctx2)
+                            : ring_start(dyn, tb.o2, O2_W, coding, x.ctx2);
     bool lzp_ok = false;
     if (alive) {
       if (PMODE) {
-        if (coding && c.match) {
-          lzp_ok = lzp_candidate(c, lzp, inp, t, ctx4, ctx4b, src);
-          if (lzp_ok)
-            length = min(prefix_len(inp, c, i, t, src, c.window), len_cap_at(c, i, t));
-          if (length < c.min_len) length = 0;  // too short: a literal
+        if (coding && c.match) {  // the step's candidate, from K13c's grid
+          lzp_ok = len_n & LZP_GRID_OK;
+          length = len_n & (LZP_GRID_OK - 1);
         }
       } else if (c.match) {
         length = len_n;
@@ -174,10 +188,16 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
       u.sym_len = clampi(length - c.min_len, 0, LEN_W - 1);
     }
     K2_STAMP(1)
-    const AEvent a = warp_a_event<false, MODE>(
-        c, ring, coding, x.ctx2, x.pred, x.conf,
-        XMODE ? sse_x_ctx(x.conf, x.p1) : PMODE ? sse_p_ctx(x.conf, lzp_ok, x.p1) : fill,
-        sm.sse, MODE == MODE_R ? sm.sse_h : sm.sse_x, 0u, byte, length > 0, sse_thr);
+    const int hctx =
+        XMODE ? sse_x_ctx(x.conf, x.p1) : PMODE ? sse_p_ctx(x.conf, lzp_ok, x.p1) : fill;
+    const int* hit_apm = MODE == MODE_R ? sm.sse_h : sm.sse_x;
+    AEvent a;
+    if constexpr (LPR == 4)
+      a = warp_a_event4<MODE>(c, ring, ares_of(dyn), coding, x.ctx2, x.pred, x.conf, hctx,
+                              sm.sse, hit_apm, byte, length > 0, sse_thr);
+    else
+      a = warp_a_event<false, MODE>(c, ring, coding, x.ctx2, x.pred, x.conf, hctx, sm.sse,
+                                    hit_apm, 0u, byte, length > 0, sse_thr);
     if (coding) {
       u.sse = a.sse;
       u.halvings = a.h;
@@ -203,7 +223,7 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
     }
     K2_STAMP(2)
     // B, o1 part (the o1 table is final for this step after its rescale)
-    ring = ring_start(dyn, tb.o1, O1_N, u.is_esc, x.p1);
+    ring = ring_start(dyn, tb.o1, O1_N, u.is_esc, x.p1, WARP_SLOTS);
     const O1Event b = warp_o1_event<false>(ring, u.is_esc, x.p1, a.ex, x.pred,
                                            x.pred2, x.conf2 > 0, 0u, byte);
     if (u.is_esc) {
@@ -266,15 +286,10 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
 
     if (alive) {
       upd_add<MODE>(c, tb, sm, own, u);
-      // block.py::_post_step without a bucket insert
+      // block.py::_post_step without a bucket or LZP insert
       copy_rem = u.is_match ? u.sym_len + (c.min_len - 1) : max(copy_rem - 1, 0);
-      copy_src = u.is_match ? src + 1 : copy_src + 1;
       if (XMODE && u.is_match) prev_dist = dist;
-      if (x.active) {
-        ctx4b = (ctx4b << 8) | (ctx4 >> 24);
-        ctx4 = (ctx4 << 8) | (uint32_t)byte;
-      }
-      if (PMODE && c.match) lzp_insert(c, lzp, x.active, t, x.pos, ctx4, ctx4b);
+      if (x.active) ctx4 = (ctx4 << 8) | (uint32_t)byte;
     }
     prefetch(t + 1);
     group_sync<CL>();
@@ -283,7 +298,7 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
     K2_STAMP(9)
   }
 #ifdef CPX_K2_PROF
-  clk_.flush(k2_prof);
+  clk_.flush(MODE == MODE_R ? k2_prof : XMODE ? k12e_prof : k13e_prof);
 #endif
   group_sync<CL>();
   model_store<MODE>(sm, tb);
@@ -294,16 +309,18 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
 
 template <int MODE>
 static int model_launch(const int* cfg, const void* inp, const void* dec,
-                        const Tables& tb, void* ev, void* stream,
-                        const Lzp& lzp = Lzp{nullptr, nullptr, nullptr}) {
+                        const Tables& tb, void* ev, void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
   const ScanGrid g = scan_grid(c.S);
-  auto kernel = g.ctas > 1 ? k2_kernel<CPX_MAX_LANES, MODE, true>
-              : g.threads <= 512 ? k2_kernel<512, MODE, false>
-                                 : k2_kernel<CPX_MAX_LANES, MODE, false>;
-  return launch_scan(kernel, g, ring_bytes(g.threads), stream, c, (const uint8_t*)inp,
-                     (const int*)dec, tb, lzp, (int*)ev);
+  // up to 512 threads the A event codes four lanes a round, the 1024-thread
+  // and cluster arms two
+  const bool four = g.ctas == 1 && g.threads <= 512;
+  auto kernel = g.ctas > 1 ? k2_kernel<CPX_MAX_LANES, MODE, true, 2>
+              : !four      ? k2_kernel<CPX_MAX_LANES, MODE, false, 2>
+                           : k2_kernel<512, MODE, false, 4>;
+  return launch_scan(kernel, g, four ? ring4_bytes(g.threads) : ring_bytes(g.threads), stream,
+                     c, (const uint8_t*)inp, (const int*)dec, tb, (int*)ev);
 }
 
 // Mode R: dec [4, T, S] (take, src, recency index, fill) -> ev [T, 9, S].
@@ -325,23 +342,29 @@ extern "C" int cpx_k12e_launch(const int* cfg, const void* inp, const void* dec,
   return model_launch<MODE_X>(cfg, inp, dec, tb, ev, stream);
 }
 
-// Mode P: no decisions; the three LZP tables (null with the match layer
-// off) -> ev [T, 9, S]; sse_p is the hit APM.
-extern "C" int cpx_k13e_launch(const int* cfg, const void* inp, void* o2, void* o1,
-                               void* o3, void* len, void* idx, void* sse_p,
-                               void* lzp2, void* lzp4, void* lzp8, void* ev,
-                               void* stream) {
+// Mode P: no decisions; K13c's candidate grid [T, S] (null with the match
+// layer off) -> ev [T, 9, S]; sse_p is the hit APM.
+extern "C" int cpx_k13e_launch(const int* cfg, const void* inp, const void* grid,
+                               void* o2, void* o1, void* o3, void* len, void* idx,
+                               void* sse_p, void* ev, void* stream) {
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, nullptr,
             nullptr, nullptr, nullptr, (int*)sse_p};
-  return model_launch<MODE_P>(cfg, inp, nullptr, tb, ev, stream,
-                              Lzp{(int*)lzp2, (int*)lzp4, (int*)lzp8});
+  return model_launch<MODE_P>(cfg, inp, grid, tb, ev, stream);
 }
 
 #ifdef CPX_K2_PROF
 // The instrumented build's phase sums (2 * K2_PHASES counters of SM
 // cycles: thread 0's, then the last thread's, summed over every launch of
-// K2, K12e or K13e since the last call): copied into out, then set to 0.
+// the mode's entry since the last call): copied into out, then set to 0.
 extern "C" int cpx_k2_prof_read(void* out) {
   return prof_read(out, k2_prof, sizeof(k2_prof));
+}
+
+extern "C" int cpx_k12e_prof_read(void* out) {
+  return prof_read(out, k12e_prof, sizeof(k12e_prof));
+}
+
+extern "C" int cpx_k13e_prof_read(void* out) {
+  return prof_read(out, k13e_prof, sizeof(k13e_prof));
 }
 #endif

@@ -654,14 +654,16 @@ struct RowRing {
 };
 
 // Issue the row (its index row_of on each lane) of the next lane not yet
-// issued into slot `issued` mod RING_SLOTS; commit a group either way.
+// issued into slot `issued` mod SLOTS (the ring's rows); commit a group
+// either way.
+template <int SLOTS = RING_SLOTS>
 static __device__ __forceinline__ void ring_next(RowRing& r, int row_of) {
   const unsigned full = 0xffffffffu;
   if (r.issue) {
     const int l = __ffs(r.issue) - 1;
     r.issue &= r.issue - 1;
     const int* row = r.tab + (size_t)__shfl_sync(full, row_of, l) * r.width;
-    int* slot = r.slots + (r.issued % RING_SLOTS) * RING_SLOT_INTS;
+    int* slot = r.slots + (r.issued % SLOTS) * RING_SLOT_INTS;
     for (int c = threadIdx.x & 31; c < r.width / 4; c += 32) {
       const unsigned dst = (unsigned)__cvta_generic_to_shared(slot + 4 * c);
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
@@ -675,11 +677,12 @@ static __device__ __forceinline__ void ring_next(RowRing& r, int row_of) {
 
 // The warp's ring over table tab for its lanes with want set (row row_of
 // of tab each), the first CPX_RING_D rows in flight.  dyn: the CTA's
-// rings (ring_bytes).  Call with the warp converged, after the warp's
-// previous ring has been taken whole.
+// rings (ring_bytes; warp_slots a warp, more than RING_SLOTS where a
+// deeper ring shares the warp's region: ring4_start).  Call with the warp
+// converged, after the warp's previous ring has been taken whole.
 static __device__ RowRing ring_start(int* dyn, const int* tab, int width, bool want,
-                                     int row_of) {
-  RowRing r{dyn + (threadIdx.x >> 5) * RING_SLOTS * RING_SLOT_INTS, tab, width,
+                                     int row_of, int warp_slots = RING_SLOTS) {
+  RowRing r{dyn + (threadIdx.x >> 5) * warp_slots * RING_SLOT_INTS, tab, width,
             __ballot_sync(0xffffffffu, want), 0, 0};
 #pragma unroll
   for (int k = 0; k < CPX_RING_D; ++k) ring_next(r, row_of);
@@ -721,6 +724,35 @@ struct AEvent {
   unsigned ex[O1_N / 32];
   int sp[4], bytes_tot;  // encode: HIT, ESC, MATCH, HIT2 and the byte slots' sum before SSE
 };
+
+// Encode's SSE stage, each coded lane its own after the A event's rounds:
+// HIT and MATCH reshaped, the total, and a special symbol's (cum, freq)
+// from them (mine.bytes_tot and mine.sp from the rounds).
+template <int MODE>
+static __device__ __forceinline__ void enc_sse_stage(const Cfg& cfg, AEvent& mine, int fill,
+                                                     int conf, const int* sse,
+                                                     const int* sse_h, const int* sse_thr) {
+  const ThrShared thr{sse_thr};
+  int hit = mine.sp[0], match = mine.sp[2];
+  if (MODE != MODE_R) {
+    if (cfg.use_sse)
+      mine.tot = hit_reshape(hit, mine.tot, sse_h, HIT_APM_K(MODE), fill, conf, mine.sse, thr);
+  } else if (cfg.use_sse) {
+    mine.tot = sse_reshape(hit, match, mine.sp[3], mine.tot, sse, sse_h, fill, conf,
+                           mine.sse, thr);
+  }
+  if (mine.sym >= O1_N) {
+    const int spw[4] = {hit, mine.sp[1], match, mine.sp[3]};
+    int cum = mine.bytes_tot, frq = spw[0];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      cum += q < mine.sym - SYM_HIT ? spw[q] : 0;
+      frq = q == mine.sym - SYM_HIT ? spw[q] : frq;
+    }
+    mine.c = cum;
+    mine.f = frq;
+  }
+}
 
 // The A event of every lane of the warp with want set (ppm.read_o2 with
 // the SSE stage, then decode's slot search or encode's lookup of the known
@@ -957,29 +989,228 @@ static __device__ AEvent warp_a_event(const Cfg& cfg, RowRing& ring, bool want,
       }
     }
   }
-  if (!DECODE && want) {
-    // encode's SSE stage, each coded lane its own: HIT and MATCH reshaped,
-    // the total, and a special symbol's (cum, freq) from them
-    const ThrShared thr{sse_thr};
-    int hit = mine.sp[0], match = mine.sp[2];
-    if (MODE != MODE_R) {
-      if (cfg.use_sse)
-        mine.tot = hit_reshape(hit, mine.tot, sse_h, HIT_APM_K(MODE), fill, conf, mine.sse, thr);
-    } else if (cfg.use_sse) {
-      mine.tot = sse_reshape(hit, match, mine.sp[3], mine.tot, sse, sse_h, fill, conf,
-                             mine.sse, thr);
-    }
-    if (mine.sym >= O1_N) {
-      const int spw[4] = {hit, mine.sp[1], match, mine.sp[3]};
-      int cum = mine.bytes_tot, frq = spw[0];
+  if (!DECODE && want) enc_sse_stage<MODE>(cfg, mine, fill, conf, sse, sse_h, sse_thr);
+  return mine;
+}
+
+// ---- encode's A event, four lanes a round ---------------------------------
+// Encode knows its symbol, so a round of the A event counts nothing and its
+// cost is mostly fixed (the ring's take and release, the predicted slot's
+// zeroing, the reductions, handing the results over); the 512-thread arm of
+// the modeling scan (K2, K12e, K13e) codes four lanes a round, a quarter-warp
+// of 8 threads each with 32 slots a thread, from a ring of RING4_D rows a
+// warp.  Each thread keeps no slot in registers: it sums its 32 slots
+// (eight 16-byte loads, rotated by its index so that the quarter's loads
+// hit eight different bank groups), then the symbol's cum is the sum of
+// the whole threads below the symbol's 32-slot chunk and of that chunk's
+// slots below it (one 16-byte load a thread), and an escape's exclusion
+// mask is each thread's 32 slots again, one word a thread.  A quarter's
+// first thread writes its lane's results, and each of its threads its
+// mask word, into the lane's row of the warp's result rows (ares), which
+// every coded lane reads once after the rounds.  The L1 cache takes what
+// shared memory leaves of the SM's 256 KB, and the scan's global reads
+// lose more to a smaller L1 than the rounds gain from rows in flight, so
+// the ring holds a round's four rows, and the CTA fits a 132 KB carve-out
+// (PERF.md, PR 10: 5, 6 and 8 rows measured slower).  The B event's ring
+// (ring_start) shares the warp's region, which holds RING4_W rows: four,
+// or RING_SLOTS where a build's CPX_RING_D is deeper.  The 1024-thread and
+// cluster arms keep two lanes a round (warp_a_event).
+#define QUARTER 8
+#define RING4_D 4           // the A event's rows a warp: the round's four
+#define RING4_W (RING4_D > RING_SLOTS ? RING4_D : RING_SLOTS)
+#define ARES_N 8            // a lane's results, ints; then its 8 mask words
+#define ARES_S 17           // a lane's row (an odd stride: no bank conflict)
+
+// Dynamic shared memory of the four-lane arm: the warps' rings, then their
+// result rows.
+static __host__ __device__ __forceinline__ size_t ring4_bytes(int threads) {
+  return (size_t)(threads / 32) * (RING4_W * RING_SLOT_INTS + 32 * ARES_S) * sizeof(int);
+}
+
+// This warp's result rows, after the CTA's rings.
+static __device__ __forceinline__ int* ares_of(int* dyn) {
+  return dyn + (blockDim.x >> 5) * RING4_W * RING_SLOT_INTS + (threadIdx.x >> 5) * 32 * ARES_S;
+}
+
+// The warp's ring of RING4_D rows (ring_start's, four rows a take) at the
+// start of its region of RING4_W rows.
+static __device__ RowRing ring4_start(int* dyn, const int* tab, int width, bool want,
+                                      int row_of) {
+  RowRing r{dyn + (threadIdx.x >> 5) * RING4_W * RING_SLOT_INTS, tab, width,
+            __ballot_sync(0xffffffffu, want), 0, 0};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        cum += q < mine.sym - SYM_HIT ? spw[q] : 0;
-        frq = q == mine.sym - SYM_HIT ? spw[q] : frq;
-      }
-      mine.c = cum;
-      mine.f = frq;
+  for (int k = 0; k < RING4_D; ++k) ring_next<RING4_D>(r, row_of);
+  return r;
+}
+
+// The next four lanes' rows, landed (empty groups where no lane is left):
+// the slot of the k-th of them.
+static __device__ __forceinline__ int* ring4_take(RowRing& r, int k) {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(RING4_D - 4) : "memory");
+  __syncwarp();
+  return r.slots + ((r.taken + k) % RING4_D) * RING_SLOT_INTS;
+}
+
+static __device__ __forceinline__ void ring4_release(RowRing& r, int row_of) {
+  __syncwarp();
+  r.taken += 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) ring_next<RING4_D>(r, row_of);
+}
+
+// The sum of v over this thread's quarter-warp.
+static __device__ __forceinline__ int quarter_sum(int v) {
+  const unsigned full = 0xffffffffu;
+  v += __shfl_xor_sync(full, v, 1);
+  v += __shfl_xor_sync(full, v, 2);
+  v += __shfl_xor_sync(full, v, 4);
+  return v;
+}
+
+// warp_a_event<false, MODE> four lanes a round (ring: ring4_start over o2
+// with the same want and ctx2; ares: ares_of(dyn)).  The same results.
+// Call with the warp converged.
+template <int MODE>
+static __device__ AEvent warp_a_event4(const Cfg& cfg, RowRing& ring, int* ares, bool want,
+                                       int ctx2, int pred, int conf, int fill,
+                                       const int* sse, const int* sse_h, int byte,
+                                       bool is_match, const int* sse_thr) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, ql = lane & (QUARTER - 1), q = lane >> 3;
+  AEvent mine{};
+  unsigned todo = __ballot_sync(full, want);
+  while (todo) {
+    // up to four lanes in ascending order, one a quarter; a quarter
+    // without one repeats the first quarter's lane and row, and writes
+    // nothing
+    int l0 = -1, lq = -1;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int l = todo ? __ffs(todo) - 1 : -1;
+      todo &= todo - 1;
+      if (k == 0) l0 = l;
+      if (k == q) lq = l;
     }
+    const bool real = lq >= 0;
+    const int src = real ? lq : l0;
+    const int pr = __shfl_sync(full, pred, src);
+    int* row = ring4_take(ring, real ? q : 0);
+    // HIT, ESC, MATCH, HIT2 and the predicted byte's slot; then that slot
+    // is zeroed in the ring's copy (warp_a_event's rowmod)
+    const int4 sp = reinterpret_cast<const int4*>(row)[O1_N / 4];
+    const int praw = row[pr];
+    __syncwarp();
+    if (ql == 0) row[pr] = 0;
+    __syncwarp();
+    const int4* r4 = reinterpret_cast<const int4*>(row) + 8 * ql;  // slots 32 ql ..
+    int tsum = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int4 a = r4[(k + ql) & 7];
+      tsum += a.x + a.y + a.z + a.w;
+    }
+    const int s0 = quarter_sum(tsum) + praw + sp.x + sp.y + sp.z + sp.w;
+    int h = 0, sum = s0, th = tsum;  // th: this thread's slots after h rounds
+    const bool halving = __any_sync(full, s0 > cfg.cap2);
+    if (halving) {
+      int t1 = 0, t2 = 0, t3 = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int4 a = r4[(k + ql) & 7];
+        const int v4[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          int y = halve1(v4[j], false);
+          t1 += y;
+          y = halve1(y, false);
+          t2 += y;
+          t3 += halve1(y, false);
+        }
+      }
+      int s1 = quarter_sum(t1), s2 = quarter_sum(t2), s3 = quarter_sum(t3);
+      const int spv[5] = {sp.x, sp.y, sp.z, sp.w, praw};
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        int y = halve1(spv[k], k < 4);
+        s1 += y;
+        y = halve1(y, k < 4);
+        s2 += y;
+        s3 += halve1(y, k < 4);
+      }
+      if (sum > cfg.cap2) { h = 1; sum = s1; th = t1; }
+      if (h == 1 && sum > cfg.cap2) { h = 2; sum = s2; th = t2; }
+      if (h == 2 && sum > cfg.cap2) { h = 3; sum = s3; th = t3; }
+    }
+    int hit = sp.x, esc0 = sp.y, match = sp.z, hit2 = sp.w, prh = praw;
+    if (halving) {
+      hit = halve_n(hit, h, true);
+      esc0 = halve_n(esc0, h, true);
+      match = halve_n(match, h, true);
+      hit2 = halve_n(hit2, h, true);
+      prh = halve_n(prh, h, false);
+    }
+    const int esc = max(esc0, 1);
+    sum += esc - esc0 - prh;
+    // the symbol (the JAX rule of block.py::_encode_model_body) and its
+    // cum: the slots below min(sym, 256), the byte slots' total for a
+    // special symbol
+    const int bt = __shfl_sync(full, byte, src);
+    int fb = row[bt];
+    if (halving) fb = halve_n(fb, h, false);
+    const int sym = __shfl_sync(full, (int)is_match, src) ? SYM_MATCH
+                    : bt == pr                             ? SYM_HIT
+                    : fb > 0                               ? bt
+                                                           : SYM_ESC;
+    const int lim = min(sym, O1_N), cq = lim >> 5;
+    int part = ql < cq ? th : 0;
+    if (cq < O1_N / 32) {
+      const int4 a = reinterpret_cast<const int4*>(row)[8 * cq + ql];
+      const int v4[4] = {a.x, a.y, a.z, a.w}, base = 32 * cq + 4 * ql;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        part += base + j < lim ? (halving ? halve_n(v4[j], h, false) : v4[j]) : 0;
+    }
+    const int cum = quarter_sum(part);
+    int* const res = ares + max(lq, 0) * ARES_S;
+    if (real && ql == 0) {
+      res[0] = sum; res[1] = sym | h << 16; res[2] = cum; res[3] = fb;
+      res[4] = hit; res[5] = esc; res[6] = match; res[7] = hit2;
+    }
+    if (real && sym == SYM_ESC) {
+      // the byte slots still present after h halvings: this thread's 32
+      // are word ql of the mask (bit b: slot 32 ql + b)
+      unsigned bits = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int c = (k + ql) & 7;
+        const int4 a = r4[c];
+        const int v4[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bits |= (unsigned)((halving ? halve_n(v4[j], h, false) : v4[j]) > 0) << (4 * c + j);
+      }
+      if (ql == pr / 32) bits |= (unsigned)(prh > 0) << (pr & 31);
+      res[ARES_N + ql] = bits;
+    }
+    ring4_release(ring, ctx2);
+  }
+  __syncwarp();
+  if (want) {  // this lane's results, from the quarter that coded it
+    const int* o = ares + lane * ARES_S;
+    mine.tot = o[0];
+    mine.sym = o[1] & 0xFFFF;
+    mine.h = o[1] >> 16;
+    mine.c = o[2];
+    mine.bytes_tot = o[2];
+    mine.f = o[3];
+    mine.fbyte = o[3];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mine.sp[k] = o[4 + k];
+    if (mine.sym == SYM_ESC) {
+#pragma unroll
+      for (int m = 0; m < O1_N / 32; ++m) mine.ex[m] = o[ARES_N + m];
+    }
+    enc_sse_stage<MODE>(cfg, mine, fill, conf, sse, sse_h, sse_thr);
   }
   return mine;
 }
@@ -1463,11 +1694,12 @@ static __device__ __forceinline__ uint32_t hist_word(const uint8_t* hist, int at
 // lane's head cannot be verified from bytes the decoder has and is taken as
 // it is.  hist is the block: the input on encode, the decoded bytes on
 // decode (steps < t only are read).  Every use of a source is behind
-// src >= 0: C's % truncates where JAX's floors.  Returns ok; src is set
-// either way (the t2 entry, maybe -1, where nothing is ok).
-// Its two halves: the three table reads (which a scan may issue before
-// the step, once the last inserts are behind a barrier), then the checks
-// against the bytes of earlier steps.
+// src >= 0: C's % truncates where JAX's floors.  lzp_check returns ok;
+// src is set either way (the t2 entry, maybe -1, where nothing is ok).
+// In three parts: the three table reads (which a scan may issue before
+// the step, once the last inserts are behind a barrier; K13c takes the
+// values from its sorted inserts instead), the loads of the bytes the
+// checks compare, then the checks.
 struct LzpSlots {
   int s8, s4, s2;
 };
@@ -1510,10 +1742,10 @@ static __device__ bool lzp_check(const Cfg& c, int t, uint32_t ctx4, uint32_t ct
   return ok8 || ok4 || ok2;
 }
 
-static __device__ bool lzp_candidate(const Cfg& c, const Lzp& z, const uint8_t* hist,
-                                     int t, uint32_t ctx4, uint32_t ctx4b, int& src) {
-  return lzp_check(c, t, ctx4, ctx4b, lzp_fetch(c, hist, t, lzp_slots(z, ctx4, ctx4b)), src);
-}
+// Encode finds every step's candidate before its modeling scan (K13c,
+// lzpcand.cu): the grid holds, per step and lane, the candidate's match
+// length (0 where it is under min_len) and LZP_GRID_OK where there is one.
+#define LZP_GRID_OK (1 << 16)
 
 // End of a step (block.py::_post_step, mode P): the contexts of position
 // pos + 1 (the registers after this step's byte) map to it.  A scatter-max:

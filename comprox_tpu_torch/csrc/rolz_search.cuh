@@ -1,7 +1,8 @@
 // Byte-window and scored-row reads shared by the encoder scans that search
 // a bucket table: the search scans (KS and KSx, search.cu) and, for its
 // byte loads, the rank scan (K5, rank.cu); the window compare also serves
-// mode P's modeling scan (K13e, model.cu).
+// mode P's whole-block candidate pass (K13c, lzpcand.cu), which measures
+// every step's candidate before crp's modeling scan runs.
 #pragma once
 
 #include <climits>

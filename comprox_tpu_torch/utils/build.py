@@ -66,7 +66,8 @@ _SIGNATURES = {
     "cpx_k12e_launch": [_P] * 15,
     "cpx_k12d_launch": [_P] * 16,
     "cpx_ksx_launch": [_P] * 8,
-    "cpx_k13e_launch": [_P] * 13,
+    "cpx_k13c_launch": [_P] * 12,
+    "cpx_k13e_launch": [_P] * 11,
     "cpx_k13d_launch": [_P] * 15,
     # the probes (benchmarks/probes.py)
     "cpx_pr_row_gather_launch": [_P] * 3 + [_I] * 4 + [_P],
@@ -83,9 +84,12 @@ _SIGNATURES = {
     "cpx_k13d_prof_read": [_P],
     "cpx_k5_prof_read": [_P],
     "cpx_k2_prof_read": [_P],
+    "cpx_k12e_prof_read": [_P],
+    "cpx_k13e_prof_read": [_P],
 }
 _INSTRUMENTED = {"cpx_k1_prof_read", "cpx_k12d_prof_read", "cpx_k13d_prof_read",
-                 "cpx_k5_prof_read", "cpx_k2_prof_read"}
+                 "cpx_k5_prof_read", "cpx_k2_prof_read", "cpx_k12e_prof_read",
+                 "cpx_k13e_prof_read"}
 
 
 def _sources() -> list[Path]:

@@ -113,12 +113,13 @@ def test_kernel_sources_and_launch_table():
     number on both sides."""
     assert set(blk.LAUNCHES) == {"KS", "K1", "K2", "K3", "K4", "K5", "K6", "K7",
                                  "K8", "K9", "K10", "K4x", "K11", "K12e", "K12d",
-                                 "KSx", "K13e", "K13d", "SORT"}
+                                 "KSx", "K13c", "K13e", "K13d", "SORT"}
     assert set(blk._EVENTS) == set(blk.LAUNCHES)
     names = {p.name for p in build._sources()}
     assert {"search.cu", "decode.cu", "model.cu", "rans.cu", "sortfind.cu",
             "rank.cu", "parse.cu", "f2find.cu", "f2tok.cu", "f2enc.cu",
-            "f2dec.cu", "xrep.cu", "sortlib.cuh", "f2scan.cuh", "ppm_r.cuh"} <= names
+            "f2dec.cu", "xrep.cu", "lzpcand.cu", "sortlib.cuh", "f2scan.cuh",
+            "ppm_r.cuh"} <= names
     scan = (build.CSRC / "f2scan.cuh").read_text()
     threads = int(re.search(r"#define SCAN_THREADS (\d+)", scan).group(1))
     per = int(re.search(r"#define SCAN_PER (\d+)", scan).group(1))
@@ -132,18 +133,23 @@ def test_kernel_sources_and_launch_table():
     assert "#define RS_TILE (RS_THREADS * RS_ITEMS)" in sort
     assert (define("RS_HDR"), define("RS_PASSES")) == (blk.RS_HDR, blk.RS_PASSES)
     assert define("RS_CTR") + 2 * define("RS_PASSES") == blk.RS_RUNS < blk.RS_HDR
-    # one radix sort for both finders: its kernels live in sortlib.cuh
-    # alone, neither finder has a copy, and one entry point launches it
+    # one radix sort for the finders and K13c: its kernels live in
+    # sortlib.cuh alone, no user has a copy, and the finders' entry point
+    # and K13c's launch it
     srcs = {p.name: p.read_text() for p in build._sources()}
     for name, src in srcs.items():
         if name != "sortlib.cuh":
             assert not re.search(r"void[^(]*\brs_(hist|plan|pass|finish)\(", src), name
-    for name in ("sortfind.cu", "f2find.cu"):
+    for name in ("sortfind.cu", "f2find.cu", "lzpcand.cu"):
         assert "__match_any_sync" not in srcs[name]
     assert [n for n, src in srcs.items() if "radix_sort_pairs(" in src] == [
-        "sortfind.cu", "sortlib.cuh"]
+        "lzpcand.cu", "sortfind.cu", "sortlib.cuh"]
     assert "radix_sort_pairs(" in srcs["sortfind.cu"].split(
         'extern "C" int cpx_radix_sort_launch')[1]
+    assert "radix_sort_pairs(" in srcs["lzpcand.cu"].split(
+        'extern "C" int cpx_k13c_launch')[1]
+    # K13c's tiles of sorted keys are the sort's (block.lzp_candidates sizes both)
+    assert int(re.search(r"#define LZC_TILE (\d+)", srcs["lzpcand.cu"]).group(1)) == blk.K4_TILE
     blk.reset_launch_counts()
     assert not any(blk.LAUNCHES.values())
 
@@ -186,6 +192,33 @@ def test_row_ring_fits_beside_the_bucket_rows():
     pos = (p.rolz_depth + 1) * p.lanes * 4
     assert ring(512) + pos + model + 256 <= smem_max
     assert ring(1024) + model + 256 <= smem_max
+
+
+def test_four_lane_rings_fit_beside_the_model():
+    """The modeling scan's 512-thread arm (K2, K12e, K13e) codes four lanes
+    a round of its A event (csrc/ppm_r.cuh::warp_a_event4): a ring of
+    RING4_D rows a warp, in a region the B event's ring shares (RING4_W
+    rows: RING4_D, or CPX_RING_D's slots where deeper), and a result row a
+    lane (its results and mask words, an odd stride) in dynamic shared
+    memory, beside the static SmemModel and the APM thresholds, in the
+    instrumented build too.  At the default depth the CTA fits a 132 KB
+    carve-out of the SM's 256 KB (the L1 cache keeps 124 KB; 1 KB a CTA is
+    the system's); at every even depth up to 8 (benchmarks/ring_depth.py)
+    it fits the H100's 227 KB a CTA."""
+    src = (build.CSRC / "ppm_r.cuh").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)\b", src)}
+    d4, stride, depth = consts["RING4_D"], consts["ARES_S"], consts["CPX_RING_D"]
+    assert d4 == 4 and stride % 2 == 1 and stride >= consts["ARES_N"] + 256 // 32
+    model = _smem_model_bytes(src)
+
+    def four(threads, ring_d):
+        rows = max(d4, ring_d if ring_d > 0 else 2)
+        return threads // 32 * (rows * ppm.O2_W + 32 * stride) * 4
+
+    thr, prof, reserved = 33 * 4, 2 * 10 * 8, 1024
+    assert four(512, depth) + model + thr + prof + reserved <= 132 * 1024
+    for ring_d in range(0, 9, 2):
+        assert four(512, ring_d) + model + thr + prof <= consts["CPX_SMEM_MAX"]
 
 
 def test_stream_windows_fit_beside_the_row_rings():
@@ -236,6 +269,12 @@ def test_row_events_have_one_read_path():
         assert srcs[name].count("ring_start(dyn, tb.o1, O1_N,") == calls[name]
     assert "* O2_W;" not in srcs["ppm_r.cuh"].split("struct RowRing")[1].split(
         "struct PlainRow")[0]
+    # encode's four-lane arm: its own A event over its own ring, the same B
+    defs = [n for n, src in srcs.items()
+            if re.search(r"static __device__ \w+ warp_a_event4\(", src)]
+    assert defs == ["ppm_r.cuh"]
+    assert len(re.findall(r"warp_a_event4<\w+>\(c, ring,", srcs["model.cu"])) == 1
+    assert srcs["model.cu"].count("ring4_start(dyn, tb.o2, O2_W,") == 1
 
 
 @pytest.mark.parametrize("name", [n for n in sort_keys.SETS if n != "random_8Mi"])

@@ -39,7 +39,8 @@ def test_phase_names_match_the_stamps(kernel):
     one a stamp of its source, stamps 0 .. N-1, and its build has the
     entry that reads them.  The two modes of the tableless decode scan
     (K12d, K13d) read their names from the one stamp set of the template
-    (K12D) and each has its own entry and counters."""
+    (K12D), the three of the modeling scan (K2, K12e, K13e) from K2's, and
+    each has its own entry and counters, built into its variant."""
     src, names, observers = phases.PHASES[kernel]
     text = (build.CSRC / src).read_text()
     tag = phases.STAMP_SET.get(kernel, kernel)
@@ -52,7 +53,11 @@ def test_phase_names_match_the_stamps(kernel):
     assert observers in (1, 2, 3)
     if tag != kernel:
         assert f"{kernel.lower()}_prof[" in text
+    if kernel in phases.DECODE_KERNELS:
         assert all(f"-DCPX_{t}_PROF" in phases.defines(0) for t in (tag, "K1"))
+    else:
+        assert kernel in phases.ENCODE_KERNELS and src in phases.ENCODE_SOURCES
+        assert f"-DCPX_{tag}_PROF" in phases.ENCODE_DEFINES
 
 
 def test_variant_takes_missing_entry_points_from_the_main_library():
@@ -450,3 +455,137 @@ def test_k1_with_many_match_lanes_and_long_lengths(cuda_device):
     assert int(ev[:, 8].sum(dim=1).max()) >= 8
     assert int(dec[0].max()) >= 200
     _decode_payload(p, ev, n, inp, cuda_device, rolz=True)
+
+
+# ---- crp and crx encode's modeling scan redesigned: the candidate pass K13c,
+# ---- four lanes a round in the A event (K2, K12e, K13e at 512 threads)
+
+
+def _adversarial_block(name, lanes, steps, seed=5):
+    """Blocks made to break the candidate pass: one slot for every lane in
+    a step (zeros), two keys in lock step (period2), few byte pairs
+    (colliding lzp2 slots), a word text."""
+    rng = np.random.default_rng(seed)
+    if name == "zeros":
+        return np.zeros((lanes, steps), np.uint8)
+    if name == "period2":
+        return np.tile(np.array([7, 200], np.uint8), (lanes, steps // 2 + 1))[:, :steps].copy()
+    if name == "pairs":
+        return rng.choice(np.array([1, 2, 3], np.uint8), (lanes, steps))
+    words = [b"the ", b"quick ", b"brown ", b"fox ", b"jumps ", b"over "]
+    base = np.frombuffer(b"".join(words[k] for k in rng.integers(0, 6, lanes * steps)),
+                         np.uint8)
+    return base[: lanes * steps].reshape(lanes, steps).copy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,lanes,steps,short,filled", [
+    ("zeros", 64, 16, 0, False), ("period2", 16, 24, 3, False),
+    ("pairs", 32, 24, 37, False), ("text", 8, 12, 5, False),
+    ("text", 16, 24, 16 * 24 - 3 * 24 - 7, True), ("text", 512, 256, 11, False),
+    ("periods", 512, 256, 0, True)])
+def test_k13c_matches_its_plain_version(cuda_device, name, lanes, steps, short, filled):
+    """K13c's grid and final tables against the step walk of its plain
+    version (tolerance 0), on blocks that break a sort of the inserts if it
+    is wrong: every lane in one slot in a step, colliding slots, steps below
+    8, a block ending inside its last lane; ``filled`` starts from tables
+    holding random positions."""
+    p = blk.BlockParams(lanes=lanes, steps=steps, mode="P", min_len=4,
+                        window=250 if lanes == 512 else 32)
+    n = p.capacity - short
+    buf = (_text_periods(p, 7) if name == "periods"
+           else _adversarial_block(name, lanes, steps))
+    buf.reshape(-1)[n:] = 0
+    zk, zp = blk._init_lzp(p, cuda_device), blk._init_lzp(p, cuda_device)
+    if filled:
+        rng = np.random.default_rng(lanes)
+        for k in blk.LZP_KEYS:
+            hit = torch.from_numpy(rng.integers(0, zk[k].numel(), 64))
+            val = torch.from_numpy(rng.integers(1, n + 1, 64).astype(np.int32))
+            zk[k][hit.to(cuda_device)] = val.to(cuda_device)
+            zp[k][hit.to(cuda_device)] = val.to(cuda_device)
+    inp = torch.from_numpy(buf).to(cuda_device)
+    blk.reset_launch_counts()
+    got = blk.lzp_candidates(p, inp, n, zk)
+    assert blk.LAUNCHES["K13c"] == 1
+    want = blk.lzp_candidates_plain(p, inp, n, zp)
+    assert torch.equal(got, want)
+    assert all(torch.equal(zk[k], zp[k]) for k in blk.LZP_KEYS)
+    if name in ("text", "periods"):
+        assert bool(((want & 0xFFFF) > 0).any()), "the block has matches"
+
+
+def _model_pair(p, inp, n, dec, dev, kernel):
+    """The modeling scan on the card and its plain version from fresh
+    tables: events and every table (mode P: the LZP tables) equal."""
+    tk = ppm.init_tables(True, p.o3_bits, dev)
+    tp = ppm.init_tables(True, p.o3_bits, dev)
+    zk = blk._init_lzp(p, dev) if p.mode == "P" else None
+    zp = blk._init_lzp(p, dev) if p.mode == "P" else None
+    blk.reset_launch_counts()
+    ev = blk.model_scan(p, inp, n, dec, tk, zk)
+    assert blk.LAUNCHES[kernel] == 1
+    if p.mode == "P":
+        assert blk.LAUNCHES["K13c"] == 1
+    want = blk.model_scan_plain(p, inp, n, dec, tp, zp)
+    assert torch.equal(ev, want)
+    assert all(torch.equal(tk[k], tp[k]) for k in tk)
+    if zk is not None:
+        assert all(torch.equal(zk[k], zp[k]) for k in zk)
+    return want, tp
+
+
+def _x_decisions(p, inp, n):
+    cands = blk.sort_candidates_plain(p, inp, n, True)
+    kw = dict(prices=blk.x_prices(), n_c=cands.shape[0] // 2)
+    first = blk.parse_scan_plain(p, n, cands, **kw)
+    rep = blk.rep_scan_plain(p, inp, n, first)
+    return blk.parse_scan_plain(p, n, cands, rep=rep, **kw)[:2].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["P", "X"])
+@pytest.mark.parametrize("window", [32, 250])
+def test_k13e_k12e_with_many_match_lanes_and_long_lengths(cuda_device, mode, window):
+    """K13c + K13e and K12e against the plain modeling scan where many lanes
+    code a match in one step and lengths reach the window: the grid's
+    candidates read in place of the tables, the four-lane A event's symbols
+    and exclusion masks, the C event."""
+    p = blk.BlockParams(**dict(X_LONG if mode == "X" else P_LONG, window=window))
+    n = p.capacity - 11
+    buf = (_periodic if mode == "X" else _text_periods)(p, window)
+    buf.reshape(-1)[n:] = 0
+    inp = torch.from_numpy(buf).to(cuda_device)
+    dec = _x_decisions(p, inp, n) if mode == "X" else None
+    ev, _ = _model_pair(p, inp, n, dec, cuda_device, "K12e" if mode == "X" else "K13e")
+    assert int(ev[:, 8].sum(dim=1).max()) >= 8, "several match lanes code in one step"
+    if window == 250:
+        assert _longest_copy(ev) >= 200, "long copies"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["R", "X", "P"])
+@pytest.mark.parametrize("lanes", [512, 1024, 72])
+def test_modeling_scans_with_rows_over_their_cap(cuda_device, mode, lanes):
+    """Few contexts coded by every lane: o2 rows pass cap2 and halve, so the
+    halving pass of the A event runs, four lanes a round at S=512 and S=72
+    (a last warp short of lanes), two at S=1024 (the 1024-thread arm)."""
+    kw = dict(R=dict(FLEX, window=32), X=dict(X_LONG, window=32),
+              P=dict(P_LONG, window=32))[mode]
+    p = blk.BlockParams(**dict(kw, lanes=lanes, steps=128))
+    n = p.capacity - 5
+    rng = np.random.default_rng(lanes)
+    buf = rng.choice(np.arange(4, dtype=np.uint8), (p.lanes, p.steps), p=[0.85, 0.1, 0.04, 0.01])
+    buf.reshape(-1)[n:] = 0
+    inp = torch.from_numpy(buf).to(cuda_device)
+    if mode == "R":
+        props = blk.sort_candidates_plain(p, inp, n)
+        cands = blk.rank_scan_plain(p, inp, n, props, blk._init_rolz(p, cuda_device))
+        dec = blk.parse_scan_plain(p, n, cands)
+    else:
+        dec = _x_decisions(p, inp, n) if mode == "X" else None
+    _, tables = _model_pair(p, inp, n, dec, cuda_device,
+                            {"R": "K2", "X": "K12e", "P": "K13e"}[mode])
+    # a row that halved keeps at most cap2 after its write; the hottest rows
+    # sit near the cap
+    assert int(tables["o2"].sum(dim=1).max()) > ppm.CAP2 // 2, "rows reached the cap"
