@@ -10,9 +10,10 @@ no result line:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit.
-2. build: compiles the kernels (``comprox_tpu_torch/csrc``: fourteen
-   sources, nineteen codec kernels counting the entries of modes X and P,
-   the shared radix sort and the six probe kernels) with nvcc, one process
+2. build: compiles the kernels (``comprox_tpu_torch/csrc``: fifteen
+   sources, twenty-three codec kernels counting the entries of modes X and
+   P and the chain arms of K5 and K1, the shared radix sort and the six
+   probe kernels) with nvcc, one process
    per source, and beside them the instrumented builds of
    ``benchmarks/phases.py`` (two of ``decode.cu``, K1's, K12d's and K13d's
    phase stamps at row-ring depth 0 and at the build's depth; one of
@@ -27,7 +28,10 @@ no result line:
    both sizes also under ``CPX_X_FINDER=scan``) and under ``crp e -l512``;
    the x86-64 ELF corpus at 256 KiB and 8 MiB under ``crx e -F`` and ``crz
    e -F``; a 32 KiB corpus of words under each codec at ``-l2048`` with
-   T=8, two blocks) on the card and checks the decoded bytes' SHA-256;
+   T=8, two blocks; the 8 MiB corpus chained at ``-b2``, four blocks of
+   T=4096, under ``crz -c``, ``crz -C``, ``crx -c`` and ``crp -c``; the 16
+   MiB corpus of phase 15 under ``crz -C -b8``) on the card and checks the
+   decoded bytes' SHA-256;
    re-encodes each corpus that no full-width phase below codes, under its
    archive's command line, and checks that each archive's SHA-256 equals
    the JAX package's; each decode and encode must launch kernels.  The
@@ -41,30 +45,37 @@ no result line:
    where its sort stage is timed beside ``torch.sort`` on the same keys);
    every output and table must be equal (tolerance 0: the codec is integer
    arithmetic).  Computes each kernel's bound from these inputs.
-5. sort: the radix sort shared by K4, K4x and K7 (``csrc/sortlib.cuh``)
+5. kernels, chain mode v2: KCR (the bucket-table remap), K5's chain arm,
+   K3p (the emission mask's bit-pack) and K1's chain arm against their
+   plain versions at S=512, T=256, full tables, from the state one block
+   of the 8 MiB corpus' first S*T bytes leaves, on its next S*T bytes;
+   tolerance 0 on every grid and table; the unchained K5's and K1's ms on
+   that block beside, and KCR's ms also with the stream idle before each
+   launch, after 100 ms of an idle card and into a fresh allocation.
+6. sort: the radix sort shared by K4, K4x and K7 (``csrc/sortlib.cuh``)
    against ``torch.sort(stable=True)`` on the adversarial key sets of
    ``benchmarks/sort_keys.py`` (keys and positions, tolerance 0; the
    passes it ran against the digits that vary), then on K4's keys of the
    8 MiB corpus (the main path's N = 8 Mi), timed beside ``torch.sort`` on
    int64 and int32 keys.
-6. kernels, mode F: K7 and K8 against their plain versions at the full
+7. kernels, mode F: K7 and K8 against their plain versions at the full
    N = 8 Mi (S=512, T=16384) on the 8 MiB corpus, K9 and K10 on the first
    S * 256 tokens of that block, K6's mode-F entry at T=256; tolerance 0.
    Beside K7's sort stage, K8's scans and K9's histogram it times the one
    PyTorch call for the same function (``torch.sort``, ``torch.cumsum``,
    ``torch.bincount``), which the port never uses.
-7. kernels, mode X: K4x at N = 8 Mi (its sort stage beside ``torch.sort``)
+8. kernels, mode X: K4x at N = 8 Mi (its sort stage beside ``torch.sort``)
    and at T=256; K6's X entry (both launches: without and with the repeat
-   pair), K11, K12e, K3 at five slots and K12d chained at S=512, full
+   pair), K11, K12e, K3 and K3p at five slots and K12d chained at S=512, full
    tables, T=256, each against its plain version; tolerance 0 on every
    output grid and every table.  KSx (the scan finder's search) the same
    way: six grids, both bucket tables and the near-match cache.
-8. kernels, mode P: K13c (the whole block's LZP candidates: the grid and
+9. kernels, mode P: K13c (the whole block's LZP candidates: the grid and
    the ``lzp2/4/8`` it leaves), then K13e on K13c's grid, K3 and K13d
    chained at S=512, T=256, full-size LZP tables, each against its plain
    version; tolerance 0 on every grid, every PPM table, ``sse_p`` and
    ``lzp2/4/8``.
-9. probes: the nine Pallas probes of the JAX package's ``benchmarks/`` as
+10. probes: the nine Pallas probes of the JAX package's ``benchmarks/`` as
    the port runs them (``comprox_tpu_torch/benchmarks/probes.py``, kernels
    in ``csrc/probes.cu``): each at each of its own geometries (S=512)
    against its plain version, tolerance 0 (P8 against ``bf16(table)[idx]``;
@@ -73,24 +84,31 @@ no result line:
    a geometry, as ``python -m comprox_tpu_torch.benchmarks.probes`` prints
    them.  The kernels line carries each probe's last geometry (P1: its warp
    arm; P4: its persistent arm) and the launches of the whole phase.
-10. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
-   CLI; archive SHA-256 == the JAX golden; fails if K13c, K13e, K3 or K13d
-   was not launched.
-11. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
+11. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
+   CLI; archive SHA-256 == the JAX golden; fails if K13c, K13e, K3, K3p or
+   K13d was not launched.
+12. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
    ``CPX_X_FINDER=scan``; archive SHA-256 == the JAX golden written under
-   that knob; fails if KSx, K6, K11, K12e, K3 or K12d was not launched, or
-   if K4x was.
-12. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
+   that knob; fails if KSx, K6, K11, K12e, K3, K3p or K12d was not
+   launched, or if K4x was.
+13. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
    CLI on the 8 MiB corpus; archive SHA-256 == the JAX golden, round trip
-   bit-exact; fails if K4x, K11, K6, K12e, K3, K12d or the sort was not
-   launched.
-13. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
+   bit-exact; fails if K4x, K11, K6, K12e, K3, K3p, K12d or the sort was
+   not launched.
+14. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
    through ``comprox_tpu_torch.cli.main`` on the 8 MiB corpus, one block of
    S=512 and T=16384.  The archive's SHA-256 must equal the JAX package's
    and the round trip must be bit-exact; prints MB/s, bpb and the kernel
-   times, and fails if K4, K5, K6, K2, K3, K1 or the sort was not
+   times, and fails if K4, K5, K6, K2, K3, K3p, K1 or the sort was not
    launched.
-14. the step scans by phase: the same archive decoded through K1's two
+15. full width, chain mode v2: ``crz e -C -b8 -l512`` then ``crz d`` on
+   16 MiB, the 8 MiB text corpus followed by the 8 MiB ELF corpus (both
+   decoded from committed goldens), two chained blocks of S=512 and
+   T=16384; archive SHA-256 == the JAX golden, round trip bit-exact; MB/s,
+   each kernel's ms per launch, the bpb beside the unchained ``-b8``
+   archive of the same input; fails unless K4, KCR (twice a side), K5ch,
+   K6, K2, K3, K3p, K1ch and the sort were launched, or if K5 or K1 was.
+16. the step scans by phase: the same archive decoded through K1's two
    instrumented builds of phase 2, at ring depth 0 (the o2 or o1 rows of a
    pair of lanes issued when they are read, nothing in flight ahead) and
    at the build's depth, and its corpus encoded again through K5's and
@@ -100,9 +118,9 @@ no result line:
    each phase's share of the kernel's cycles and its microseconds a step
    (K5, K2, K12e, K13e, K12d, K13d: on thread 0 and on the CTA's last
    thread).
-15. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
-   K3 or K1 was not launched.
-16. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
+17. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
+   K3, K3p or K1 was not launched.
+18. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
    way; fails if K7, K6, K8, K9, K10 or the sort was not launched.  Then the host's
    share of that path, stage by stage (dictionary, block encode and decode,
    the LZ copy walk, the CRC).
@@ -132,8 +150,11 @@ FAST_ARCHIVE = "crf_flex_8MiB_S512.cpx"  # crf e -b8 -l512
 X_ARCHIVE = "crx_flex_8MiB_S512.cpx"  # crx e -b8 -l512
 XSCAN_ARCHIVE = "crx_scan_flex_8MiB_S512.cpx"  # CPX_X_FINDER=scan crx e -b8 -l512
 P_ARCHIVE = "crp_8MiB_S512.cpx"  # crp e -b8 -l512
+# crz e -C -b8 -l512 on the 8 MiB text corpus followed by the 8 MiB ELF
+# corpus: two chained blocks
+CHAIN_ARCHIVE = "crz_chainm_textelf_flex_16MiB_S512.cpx"
 FULL_WIDTH_ARCHIVES = (MAIN_ARCHIVE, GREEDY_ARCHIVE, FAST_ARCHIVE, X_ARCHIVE,
-                       XSCAN_ARCHIVE, P_ARCHIVE)  # re-encoded by phases 9-14
+                       XSCAN_ARCHIVE, P_ARCHIVE, CHAIN_ARCHIVE)  # re-encoded by the full-width phases
 KERNEL_STEPS = 256
 
 PROBES_CU = "comprox_tpu_torch/csrc/probes.cu"
@@ -186,6 +207,18 @@ KERNELS = [
     # the stable radix sort of K4, K4x and K7 (their lax.sort)
     ("SORT", "comprox_tpu_torch/csrc/sortlib.cuh",
      "comprox_tpu/codec/block.py:854"),
+    # the emission mask's bit-pack (every adaptive encode), and chain mode
+    # v2 (crz -C): the bucket-table remap and the chain arms of K5 and K1
+    ("K3p", "comprox_tpu_torch/csrc/rans.cu",
+     "comprox_tpu/codec/block.py:1965"),
+    ("K3p (5 slots)", "comprox_tpu_torch/csrc/rans.cu",
+     "comprox_tpu/codec/block.py:1965"),
+    ("KCR", "comprox_tpu_torch/csrc/chain.cu",
+     "comprox_tpu/codec/block.py:1255"),
+    ("K5ch", "comprox_tpu_torch/csrc/rank.cu",
+     "comprox_tpu/codec/block.py:1233"),
+    ("K1ch", "comprox_tpu_torch/csrc/decode.cu",
+     "comprox_tpu/codec/block.py:2207"),
     # the Pallas probes of benchmarks/ (their pl.pallas_call lines)
     ("P1", PROBES_CU, "benchmarks/pallas_probe.py:56"),
     ("P1b", PROBES_CU, "benchmarks/pallas_probe.py:97"),
@@ -365,7 +398,8 @@ def phase_golden():
         blk.reset_launch_counts()
         t0 = time.perf_counter()
         with finder_knob("CPX_X_FINDER", env.get("CPX_X_FINDER", "sort")):
-            encode_stream(corpora[name], buf, cp, "cuda", filters=opts["filters"])
+            encode_stream(corpora[name], buf, cp, "cuda", filters=opts["filters"],
+                          chain=opts["chain"])
         t_enc = time.perf_counter() - t0
         _check_launched(name, "encode", cp.block)
         got = buf.getvalue()
@@ -528,7 +562,7 @@ def phase_kernels(corpus):
 
     # K1, on the payload the kernels wrote.  Bytes: the words the stream
     # holds.
-    payload = blk._pack_payload(sk, ek, wk)
+    payload = blk._pack_payload(sk, blk.pack_emit(p, ek), wk)
     n_words, st, stream = blk._unpack_payload(payload, p)
     st_t = torch.from_numpy(st.astype(np.int64)).to(dev)
     stream_t = torch.from_numpy(stream.astype(np.int32)).to(dev)
@@ -589,6 +623,135 @@ def phase_kernels(corpus):
         if r["max_abs_err"] != 0:
             raise AssertionError(
                 f"{name}: kernel != plain (max err {r['max_abs_err']})")
+    return res
+
+
+def phase_kernels_chain(corpus):
+    """KCR, K3p and the chain arms of K5 and K1 against their plain versions
+    on the card, at S=512, T=256, full tables, from a real carried state:
+    the state after one block of the corpus' first S*T bytes, then the next
+    S*T bytes; tolerance 0 on every grid and table.  The unchained arms'
+    ms (K5, K1) on the same block beside.  Returns the per-kernel dicts of
+    phase_kernels."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from comprox_tpu_torch.benchmarks import work
+    from comprox_tpu_torch.codec import block as blk
+    from comprox_tpu_torch.models import ppm
+
+    dev = "cuda"
+    p = blk.BlockParams(lanes=512, steps=KERNEL_STEPS, mode="R", min_len=5,
+                        window=250, rolz_ctx_bytes=4, rolz_dec=2, chain_match=True)
+    pu = dataclasses.replace(p, chain_match=False)
+    n = p.capacity
+    _, st = blk.encode_block_chained(corpus[:n], p, blk.init_chain_tables(p, dev), dev)
+    data = corpus[n:2 * n]
+    inp = torch.from_numpy(data.reshape(p.lanes, p.steps).copy()).to(dev)
+    prev = st["prev"]
+    res, beside = {}, {}
+
+    def record(*args, **kw):
+        _record(res, *args, **kw)
+
+    def tables0():
+        return {k: v.clone() for k, v in st["tables"].items()}
+
+    # KCR on the carried table.
+    mk = blk.remap_chain_ment(p, st["ment"])
+    mp, plain_ms = _timed_plain(blk.remap_chain_ment_plain, p, st["ment"])
+    err = max_err([(mk, mp)])
+    ms = _kernel_ms("KCR", lambda: (p, st["ment"]), blk.remap_chain_ment)
+    record("KCR", err, ms, plain_ms, *work.kcr(p, st["ment"], out=mk))
+    # The same launches as decode makes them, after the host's unpacking of
+    # the payload: with the stream idle before each, after 100 ms of an
+    # idle card, and into an output the allocator must get anew.
+    def kcr_after(prep):
+        blk.reset_launch_counts()
+        for _ in range(3):
+            prep()
+            blk.remap_chain_ment(p, st["ment"])
+        return blk.kernel_ms()["KCR"] / 3
+
+    def rest():
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+
+    def fresh():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    print(f"KCR, ms a launch: {ms:.4f} behind queued launches, "
+          f"{kcr_after(torch.cuda.synchronize):.4f} with the stream idle before "
+          f"each, {kcr_after(rest):.4f} after 100 ms of an idle card, "
+          f"{kcr_after(fresh):.4f} into a fresh allocation")
+
+    # K5's chain arm, on the finder's proposals of the second block.
+    propk = blk.sort_candidates(p, inp, n)
+    rk, rp = mk.clone(), mk.clone()
+    ck = blk.rank_scan(p, inp, n, propk, rk, prev)
+    cp, plain_ms = _timed_plain(blk.rank_scan_plain, p, inp, n, propk, rp, prev)
+    err = max_err([(ck, cp), (rk, rp)])
+    ms = _kernel_ms("K5ch", lambda: (p, inp, n, propk, mk.clone(), prev), blk.rank_scan)
+    record("K5ch", err, ms, plain_ms,
+           work.nbytes(inp, prev, propk, ck) + _touched_bytes(rk, mk),
+           work.scan_ops("K5ch", p, ck))
+    beside["K5"] = _kernel_ms("K5", lambda: (pu, inp, n, propk, blk._init_rolz(pu, dev)),
+                              blk.rank_scan)
+
+    # K3p on K3's mask of the second block (the chained encode).
+    dk = blk.parse_scan(p, n, ck)
+    evk = blk.model_scan(p, inp, n, dk, tables0())
+    sk, ek, wk = blk.rans_scan(p, evk)
+    pk = blk.pack_emit(p, ek)
+    pp, plain_ms = _timed_plain(blk.pack_emit_plain, ek)
+    err = max_err([(pk, pp)])
+    ms = _kernel_ms("K3p", lambda: (p, ek), blk.pack_emit)
+    record("K3p", err, ms, plain_ms, *work.k3p(p, ek, out=pk))
+
+    # K1's chain arm, on that block's payload.  Bytes: the words the stream
+    # holds, the states, the window's first region, the output, the table
+    # rows it changed.
+    payload = blk._pack_payload(sk, pk, wk)
+    n_words, stt, stream = blk._unpack_payload(payload, p)
+    st_t = torch.from_numpy(stt.astype(np.int64)).to(dev)
+    stream_t = torch.from_numpy(stream.astype(np.int32)).to(dev)
+    tk, tp, rk, rp = tables0(), tables0(), mk.clone(), mk.clone()
+    xk, uk, ok = blk.decode_scan(p, st_t, stream_t, n, tk, rk, prev=prev)
+    (xp, up, op), plain_ms = _timed_plain(
+        blk.decode_scan_plain, p, st_t, stream_t, n, tp, rp, None, prev)
+    if uk != up:
+        raise AssertionError(f"K1ch words used {uk} vs plain {up}")
+    err = max_err([(xk, xp), (ok, op), (rk, rp)] + _tables_pairs(tk, tp))
+    blk._check_drain(xk.cpu().numpy(), uk, n_words)
+    if not np.array_equal(ok.cpu().numpy().reshape(-1), data):
+        raise AssertionError("K1ch did not decode the block")
+    ms = _kernel_ms("K1ch", lambda: (p, st_t, stream_t, n, tables0(), mk.clone(), None,
+                                     prev), blk.decode_scan)
+    t0_ = tables0()
+    tab_bytes = sum(_touched_bytes(tk[k], t0_[k]) for k in tk)
+    record("K1ch", err, ms, plain_ms,
+           4 * n_words + work.nbytes(st_t, prev, ok) + tab_bytes + _touched_bytes(rk, mk),
+           work.scan_ops("K1ch", p))
+    payload_u = blk.encode_block(data, pu, dev)
+    nu, stu, streamu = blk._unpack_payload(payload_u, pu)
+    stu_t = torch.from_numpy(stu.astype(np.int64)).to(dev)
+    streamu_t = torch.from_numpy(streamu.astype(np.int32)).to(dev)
+    beside["K1"] = _kernel_ms(
+        "K1", lambda: (pu, stu_t, streamu_t, n, ppm.init_tables(True, pu.o3_bits, dev),
+                       blk._init_rolz(pu, dev)), blk.decode_scan)
+
+    for name, r in res.items():
+        arm = {"K5ch": "K5", "K1ch": "K1"}.get(name)
+        print(f"{name}: max_abs_err {r['max_abs_err']} (tolerance 0)  kernel "
+              f"{r['ms']:.3f} ms ({r['ms'] * 1e3 / p.steps:.1f} us/step)  "
+              f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})" + (f"  unchained {arm} {beside[arm]:.3f} ms" if arm else "")
+              + f"  [S={p.lanes} T={p.steps} full tables, the state one block leaves]")
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{name}: kernel != plain (max err {r['max_abs_err']})")
     return res
 
 
@@ -798,7 +961,7 @@ def phase_kernels_fast(corpus):
 def phase_kernels_x(corpus):
     """The mode-X kernels against their plain versions on the card.  Returns
     the same per-kernel dicts as phase_kernels for K4x, K11, "K6 (X)" (both
-    launches together), K12e, "K3 (5 slots)" and K12d."""
+    launches together), K12e, "K3 (5 slots)", "K3p (5 slots)" and K12d."""
     import numpy as np
     import torch
 
@@ -894,8 +1057,15 @@ def phase_kernels_x(corpus):
     ms = _kernel_ms("K3", lambda: (p, evk), blk.rans_scan)
     _record(res, "K3 (5 slots)", err, ms, plain_ms, *work.k3(p, evk, out=(sk, ek, wk)))
 
+    # K3p on the five-slot mask.
+    pk = blk.pack_emit(p, ek)
+    pp, plain_ms = _timed_plain(blk.pack_emit_plain, ek)
+    err = max_err([(pk, pp)])
+    ms = _kernel_ms("K3p", lambda: (p, ek), blk.pack_emit)
+    _record(res, "K3p (5 slots)", err, ms, plain_ms, *work.k3p(p, ek, out=pk))
+
     # K12d on the payload the kernels wrote.
-    payload = blk._pack_payload(sk, ek, wk)
+    payload = blk._pack_payload(sk, pk, wk)
     n_words, st, stream = blk._unpack_payload(payload, p)
     st_t = torch.from_numpy(st.astype(np.int64)).to(dev)
     stream_t = torch.from_numpy(stream.astype(np.int32)).to(dev)
@@ -1035,7 +1205,7 @@ def phase_kernels_p(corpus):
 
     # K13d on the payload the kernels wrote.  Bytes: the words the stream
     # holds.
-    payload = blk._pack_payload(sk, ek, wk)
+    payload = blk._pack_payload(sk, blk.pack_emit(p, ek), wk)
     n_words, st, stream = blk._unpack_payload(payload, p)
     st_t = torch.from_numpy(st.astype(np.int64)).to(dev)
     stream_t = torch.from_numpy(stream.astype(np.int32)).to(dev)
@@ -1106,7 +1276,8 @@ def phase_full_width(corpus, codec, archive, flags, needed, finder="sort"):
     want = json.loads((GOLDEN / "torch_golden.json").read_text())[archive]
     WORK.mkdir(parents=True, exist_ok=True)
     n = corpus.size
-    src, arc, dst = WORK / "corpus8.bin", WORK / f"corpus8.{codec}", WORK / "out8.bin"
+    mib, blocks = n >> 20, -(-n // (512 * 16384))
+    src, arc, dst = WORK / "corpus.bin", WORK / f"corpus.{codec}", WORK / "out.bin"
     corpus.tofile(src)
     blk.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1123,22 +1294,62 @@ def phase_full_width(corpus, codec, archive, flags, needed, finder="sort"):
     got = arc.read_bytes()
     if sha256(got) != want["archive_sha256"]:
         raise AssertionError(
-            f"8 MiB archive ({want['argv']}) differs from the JAX package's")
+            f"{mib} MiB archive ({want['argv']}) differs from the JAX package's")
     if not np.array_equal(np.fromfile(dst, np.uint8), corpus):
-        raise AssertionError("8 MiB round trip is not bit-exact")
-    print(f"{want['argv']}: {n} B, S=512, T=16384, one block; archive "
-          f"{len(got)} B == JAX golden, {len(got) * 8 / n:.4f} bpb; round "
-          f"trip bit-exact")
+        raise AssertionError(f"{mib} MiB round trip is not bit-exact")
+    print(f"{want['argv']}: {n} B, S=512, T=16384, {blocks} block(s); archive "
+          f"{len(got)} B == JAX golden (sha256 {sha256(got)}), "
+          f"{len(got) * 8 / n:.4f} bpb; round trip bit-exact")
     print(f"encode {n / t_enc / 1e6:.3f} MB/s ({t_enc:.3f} s wall); "
           f"decode {n / t_dec / 1e6:.3f} MB/s ({t_dec:.3f} s wall)")
+    each = {k: ", ".join(f"{a.elapsed_time(b):.3f}" for a, b in blk._EVENTS[k])
+            for k in launches if launches[k] > 1}  # a launch's ms, in order
     print("kernel time (CUDA events): " + ", ".join(
-        f"{k} {ms_all[k]:.3f} ms" for k in ms_all if launches[k])
+        f"{k} {ms_all[k]:.3f} ms" + (f" ({launches[k]} launches: {each[k]})" if k in each else "")
+        for k in ms_all if launches[k])
         + f"; encode kernels {sum(ms_enc.values()):.3f} ms, decode "
         f"{sum(ms_all.values()) - sum(ms_enc.values()):.3f} ms")
     print("launches: " + json.dumps(launches))
     for name in needed:
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on this path")
+    for p in (src, arc, dst):
+        p.unlink()
+    return launches
+
+
+def phase_chain_cell(corpus):
+    """Chain mode v2 at full width: ``crz e -C -b8 -l512`` and ``crz d`` on
+    the 16 MiB corpus (two chained blocks of S=512, T=16384) through
+    phase_full_width (archive SHA-256 == the JAX golden); fails unless K4,
+    KCR, K5ch, K6, K2, K3, K3p, K1ch and the sort were launched, or if the
+    unchained K5 or K1 was.  Then the unchained ``-b8`` archive of the same
+    input and its decode, for the bpb and the unchained arms' ms beside."""
+    from comprox_tpu_torch.cli import main as cli
+    from comprox_tpu_torch.codec import block as blk
+
+    launches = phase_full_width(
+        corpus, "crz", CHAIN_ARCHIVE, ["-C"],
+        ("K4", "KCR", "K5ch", "K6", "K2", "K3", "K3p", "K1ch", "SORT"))
+    if launches["K5"] or launches["K1"]:
+        raise AssertionError("the chained path launched the unchained K5 or K1")
+    if launches["KCR"] != 4:
+        raise AssertionError(f"KCR: {launches['KCR']} launches, not two a side")
+    src, arc, dst = WORK / "corpus16.bin", WORK / "corpus16.crz", WORK / "out16.bin"
+    corpus.tofile(src)
+    ms = {}
+    for side, argv in (("encode", ["e", str(src), str(arc), "-b8", "-l512", "-q"]),
+                       ("decode", ["d", str(arc), str(dst), "-q"])):
+        blk.reset_launch_counts()
+        cli.run("crz", argv, device="cuda")
+        ms.update({k: (v, blk.LAUNCHES[k]) for k, v in blk.kernel_ms().items()
+                   if blk.LAUNCHES[k]})
+    size = arc.stat().st_size
+    if dst.read_bytes() != corpus.tobytes():
+        raise AssertionError("the unchained 16 MiB round trip is not bit-exact")
+    print(f"crz e -b8 -l512 (unchained) of the same {corpus.size} B: {size} B, "
+          f"{size * 8 / corpus.size:.4f} bpb; kernel ms per launch: " + ", ".join(
+              f"{k} {v / n:.3f} (x{n})" for k, (v, n) in ms.items()))
     for p in (src, arc, dst):
         p.unlink()
     return launches
@@ -1201,6 +1412,7 @@ def main() -> int:
     ph.run("build", phase_build)
     corpora = ph.run("golden", phase_golden)
     res = ph.run("kernels, mode R", phase_kernels, corpora[MAIN_ARCHIVE])
+    res.update(ph.run("kernels, chain mode v2", phase_kernels_chain, corpora[MAIN_ARCHIVE]))
     res.update(ph.run("sort", phase_sort, corpora[MAIN_ARCHIVE]))
     res_f = ph.run("kernels, mode F", phase_kernels_fast, corpora[FAST_ARCHIVE])
     k6f = res_f.pop("K6F")
@@ -1212,23 +1424,27 @@ def main() -> int:
     res.update(res_probes)
     crp = ph.run(
         "full width, crp", phase_full_width, corpora[P_ARCHIVE], "crp",
-        P_ARCHIVE, [], ("K13c", "K13e", "K3", "K13d"))
+        P_ARCHIVE, [], ("K13c", "K13e", "K3", "K3p", "K13d"))
     xscan = ph.run(
         "full width, crx under the scan finder", phase_full_width,
         corpora[XSCAN_ARCHIVE], "crx", XSCAN_ARCHIVE, [],
-        ("KSx", "K6", "K11", "K12e", "K3", "K12d"), "scan")
+        ("KSx", "K6", "K11", "K12e", "K3", "K3p", "K12d"), "scan")
     if xscan["K4x"]:
         raise AssertionError("the scan finder's path launched K4x")
     crx = ph.run(
         "full width, crx", phase_full_width, corpora[X_ARCHIVE], "crx",
-        X_ARCHIVE, [], ("K4x", "K11", "K6", "K12e", "K3", "K12d", "SORT"))
+        X_ARCHIVE, [], ("K4x", "K11", "K6", "K12e", "K3", "K3p", "K12d", "SORT"))
     launches = ph.run(
         "full width, crz flexible parse", phase_full_width, corpora[MAIN_ARCHIVE],
-        "crz", MAIN_ARCHIVE, [], ("K4", "K5", "K6", "K2", "K3", "K1", "SORT"))
+        "crz", MAIN_ARCHIVE, [], ("K4", "K5", "K6", "K2", "K3", "K3p", "K1", "SORT"))
+    chain = ph.run("full width, crz -C (chain mode v2)", phase_chain_cell,
+                   corpora[CHAIN_ARCHIVE])
+    for name in ("KCR", "K5ch", "K1ch"):
+        launches[name] = chain[name]
     ph.run("step scans by phase", phase_scan_phases)
     greedy = ph.run(
         "full width, crz greedy parse", phase_full_width, corpora[GREEDY_ARCHIVE],
-        "crz", GREEDY_ARCHIVE, ["-f0"], ("KS", "K2", "K3", "K1"))
+        "crz", GREEDY_ARCHIVE, ["-f0"], ("KS", "K2", "K3", "K3p", "K1"))
     launches["KS"] = greedy["KS"]
     fast = ph.run(
         "full width, crf", phase_full_width, corpora[FAST_ARCHIVE], "crf",
@@ -1241,6 +1457,7 @@ def main() -> int:
     for name in ("K13c", "K13e", "K13d"):
         launches[name] = crp[name]
     launches["K6 (X)"], launches["K3 (5 slots)"] = crx["K6"], crx["K3"]
+    launches["K3p (5 slots)"] = crx["K3p"]
     launches["SORT"] += crx["SORT"] + fast["SORT"]  # one in each of K4, K4x, K7
     launches.update(probe_launches)
     ph.run("crf host split", phase_fast_host_split, corpora[FAST_ARCHIVE])

@@ -226,9 +226,11 @@ TIMED = (
     ("crx_flex_8MiB_S512.cpx", ("K12d", "K12e")),
     ("crx_scan_flex_8MiB_S512.cpx", ("KSx",)),
     ("crp_8MiB_S512.cpx", ("K13d", "K13e")),
+    ("crz_chainm_textelf_flex_16MiB_S512.cpx", ("K1ch", "K5ch")),
 )
 # the other kernels ``times`` times beside the scans (their bounds: ``bounds``)
-TIMED_PASSES = {"crp_8MiB_S512.cpx": ("K13c",)}
+TIMED_PASSES = {"crp_8MiB_S512.cpx": ("K13c",),
+                "crz_chainm_textelf_flex_16MiB_S512.cpx": ("KCR", "K3p")}
 
 
 SCAN_ENTRIES = ("search_scan", "rank_scan", "model_scan", "decode_scan")
@@ -282,8 +284,9 @@ def _bytes_of_scans(log: dict):
                 nbytes += (2 * changed * rows.shape[1] * t.element_size() if changed
                            else t.numel() * t.element_size())
             for k, v in blk.LAUNCHES.items():
-                if v > before[k] and k in work.SCAN_KERNELS:
-                    log[k] = (nbytes, work.scan_ops(k, p, out))
+                if v > before[k] and k in work.SCAN_KERNELS:  # summed over blocks
+                    old = log.get(k, (0, 0))
+                    log[k] = (old[0] + nbytes, old[1] + work.scan_ops(k, p, out))
             return out
         return entry
 
@@ -327,7 +330,8 @@ def times(timed=TIMED) -> dict:
             buf = io.BytesIO()
             with _bytes_of_scans(moved):
                 encode_stream(np.frombuffer(raw.getvalue(), np.uint8), buf,
-                              make_params(codec, opts), "cuda", filters=opts["filters"])
+                              make_params(codec, opts), "cuda", filters=opts["filters"],
+                              chain=opts["chain"])
             ms.update({k: v for k, v in blk.kernel_ms().items() if v})
         finally:
             blk._ENV.update(old)
@@ -353,6 +357,8 @@ BOUND_ENTRIES = {
     "K4": ("block", "sort_candidates", work.k4),
     "K6": ("block", "parse_scan", work.k6),
     "K3": ("block", "rans_scan", work.k3),
+    "K3p": ("block", "pack_emit", work.k3p),
+    "KCR": ("block", "remap_chain_ment", work.kcr),
     "K11": ("block", "rep_scan", work.k11),
     "K13c": ("block", "lzp_candidates", work.k13c),
     "K7": ("fast", "f2_find", work.k7),
@@ -362,7 +368,8 @@ BOUND_ENTRIES = {
 }
 # the kernel's row name by block mode, where one entry serves several
 BOUND_ROWS = {("K4", "X"): "K4x", ("K6", "R"): "K6 (R)", ("K6", "X"): "K6 (X)",
-              ("K6", "F"): "K6 (F)", ("K3", "X"): "K3 (5 slots)"}
+              ("K6", "F"): "K6 (F)", ("K3", "X"): "K3 (5 slots)",
+              ("K3p", "X"): "K3p (5 slots)"}
 
 
 @contextlib.contextmanager
@@ -399,9 +406,10 @@ def _bounds_of_entries(log: dict):
 
 
 def bounds(names=("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx",
-                  "crf_flex_8MiB_S512.cpx", "crp_8MiB_S512.cpx")) -> dict:
+                  "crf_flex_8MiB_S512.cpx", "crp_8MiB_S512.cpx",
+                  "crz_chainm_textelf_flex_16MiB_S512.cpx")) -> dict:
     """The full-width bound of every kernel that is not a step scan (the
-    sort, K4, K4x, K7, K3, K6, K8-K11, K13c): each golden of ``names``
+    sort, K4, K4x, K7, K3, K3p, K6, K8-K11, K13c, KCR): each golden of ``names``
     decoded on the card and its corpus encoded again under its command
     line (the archive checked against the golden), each launch's bytes and
     modelled operations summed over the path.  Prints a line; returns {row:
@@ -415,7 +423,8 @@ def bounds(names=("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx",
         with _bounds_of_entries(log):
             decode_stream(io.BytesIO((GOLDEN / name).read_bytes()), raw, "cuda")
             encode_stream(np.frombuffer(raw.getvalue(), np.uint8), buf,
-                          make_params(codec, opts), "cuda", filters=opts["filters"])
+                          make_params(codec, opts), "cuda", filters=opts["filters"],
+                          chain=opts["chain"])
         if hashlib.sha256(buf.getvalue()).hexdigest() != want["archive_sha256"]:
             raise AssertionError(f"{name}: the archive differs from the golden")
     out = {row: work.bound(nbytes, ops) + (nbytes, ops)

@@ -85,6 +85,18 @@ def k3(p, ev, *, out) -> tuple:
     return nbytes(ev, states, words) + emit.numel(), p.capacity * p.n_slots * 8
 
 
+def k3p(p, emit, *, out) -> tuple:
+    """K3p (``block.pack_emit``): a byte a flag read, a byte written per
+    eight; a mask, a multiply and a shift a packed byte."""
+    return nbytes(emit, out), 3 * out.numel()
+
+
+def kcr(p, ment, *, out) -> tuple:
+    """KCR (``block.remap_chain_ment``): the table read and written once;
+    a subtract, a max, a compare and a select an entry."""
+    return nbytes(ment, out), 4 * (ment.numel() // 2)
+
+
 def k11(p, inp, n, dec, *, out) -> tuple:
     """K11 (``block.rep_scan``): the block and (take, src) read, (len_rep,
     prev) written; twelve a position (two walks)."""
@@ -143,14 +155,17 @@ def k10(p, freq, states, stream, n_tok, *, out) -> tuple:
             n_tok * (3 * 8 + 10) + M * 10)
 
 
-SCAN_KERNELS = ("KS", "KSx", "K5", "K2", "K12e", "K13e", "K1", "K12d", "K13d")
+SCAN_KERNELS = ("KS", "KSx", "K5", "K5ch", "K2", "K12e", "K13e", "K1", "K1ch",
+                "K12d", "K13d")
 
 
 def scan_ops(kernel: str, p, out=None) -> int:
     """A step scan's modelled operations at one launch on block ``p``: per
     position the row entries scored and compared, the o2 row (260 slots:
     read, adjust, sum: 3) and the side models (64); K5 also each match
-    found's window compare, 8 bytes at a time (from its result ``out``)."""
+    found's window compare, 8 bytes at a time (from its result ``out``).
+    The chain arms K5ch and K1ch count as K5 and K1."""
+    kernel = {"K5ch": "K5", "K1ch": "K1"}.get(kernel, kernel)
     d, win8 = p.rolz_depth, p.window // 8
     search = 6 * d + p.top_k * p.probe // 8 + win8
     per_position = {

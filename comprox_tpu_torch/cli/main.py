@@ -7,18 +7,21 @@ package writes for the same command line.  Supported: ``crz e|d`` (mode
 R: ROLZ + PPM + adaptive rANS), ``crf e|d`` (mode F: the fast profile,
 LZ77 tokens + static rANS), ``crx e|d`` (mode X: LZ77 distances + PPM +
 adaptive rANS) and ``crp e|d`` (mode P: LZP + PPM + adaptive rANS) with
-``-b -l -F -p -q -m``; encode uses the flexible parse unless ``-f0`` asks
-for the greedy one (``crp`` has no parse: ``-f0`` and ``-m`` are accepted
-and change nothing).
+``-b -l -F -p -q -m -c -C``; encode uses the flexible parse unless ``-f0``
+asks for the greedy one (``crp`` has no parse: ``-f0`` and ``-m`` are
+accepted and change nothing).  ``-c`` (crz, crx, crp) carries the adaptive
+models across blocks; ``-C`` (crz, flexible parse) also the bucket table
+and the previous block's bytes, so a match may reach into the block
+before.  Decode reads the chain flags from the archive.
 
 Not yet ported, refused with an error (the ROADMAP.md item in brackets):
-``-c`` and ``-C`` [11], ``-j`` and ``-g`` [15].  Nothing switches silently
-to another format.
+``-j`` and ``-g`` [15].  Nothing switches silently to another format.
 
     python -m comprox_tpu_torch.cli.main crz e in out -b8 -l512
     python -m comprox_tpu_torch.cli.main crz d out in.copy
+    python -m comprox_tpu_torch.cli.main crz e in out -b8 -l512 -C
     python -m comprox_tpu_torch.cli.main crf e in out -b8 -l512
-    python -m comprox_tpu_torch.cli.main crx e in out -b8 -l512
+    python -m comprox_tpu_torch.cli.main crx e in out -b8 -l512 -c
     python -m comprox_tpu_torch.cli.main crp e in out -b8 -l512
 
 The command line runs on the first CUDA device and fails without one; the
@@ -52,13 +55,14 @@ switches:
   -q     quiet mode
   -m<n>  match search depth (default 40 -> top-4 bucket candidates)
   -f0    greedy+lazy parsing instead of flexible parsing
+  -c     chain mode: carry the adaptive models across blocks
+  -C     chain mode v2 (crz): also carry the bucket table and the
+         previous block's bytes
 """
 
 CODEC_BYTE = {"crp": b"P", "crx": b"X", "crz": b"R", "crf": b"F"}
 
 _NOT_PORTED = {
-    "-c": "chain mode (-c) is not yet ported (ROADMAP.md item 11)",
-    "-C": "chain mode v2 (-C) is not yet ported (ROADMAP.md item 11)",
     "-j": "device parallelism (-j) is not yet ported (ROADMAP.md item 15)",
     "-g": "block batching (-g) is not yet ported (ROADMAP.md item 15)",
 }
@@ -69,11 +73,16 @@ def parse_args(argv):
     args = [a for a in argv[1:] if a == "-" or not a.startswith("-")]
     switches = [a for a in argv[1:] if a != "-" and a.startswith("-")]
     opts = {"block_mb": 16, "lanes": 256, "filters": False, "quiet": False,
-            "precomp": False, "window": 250, "depth": 40, "flexible": True}
+            "precomp": False, "window": 250, "depth": 40, "flexible": True,
+            "chain": False, "chain_match": False}
     for s in switches:
         if s[:2] in _NOT_PORTED:
             raise NotImplementedError(_NOT_PORTED[s[:2]])
-        if s.startswith("-b"):
+        if s == "-c":
+            opts["chain"] = True
+        elif s == "-C":
+            opts["chain"] = opts["chain_match"] = True
+        elif s.startswith("-b"):
             opts["block_mb"] = float(s[2:])
         elif s.startswith("-l"):
             opts["lanes"] = int(s[2:])
@@ -119,7 +128,7 @@ def make_params(codec_name: str, opts) -> ContainerParams:
         rolz_ctx_bytes=4 if (mode in ("R", "X") and cap >= 4 * 1048576) else 3,
         rolz_dec=2 if mode == "R" else 1,
         short_depth=0,
-        chain_match=False,
+        chain_match=opts.get("chain_match", False),
     )
     return ContainerParams(codec=CODEC_BYTE[codec_name], block=bp)
 
@@ -150,7 +159,7 @@ def run(codec_name: str, argv, device) -> int:
         try:
             csize = encode_stream(
                 data, f, cp, device, filters=opts["filters"],
-                precomp_only=opts["precomp"],
+                precomp_only=opts["precomp"], chain=opts["chain"],
             )
         finally:
             if outp != "-":

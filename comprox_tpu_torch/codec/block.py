@@ -4,7 +4,7 @@ is :mod:`comprox_tpu_torch.codec.fast`; it shares this module's parameters,
 launch accounting and price DP.)
 
 Counterpart of :mod:`comprox_tpu.codec.block` (modes R, X and P,
-``short_depth=0``, unchained): a block of n bytes is cut into S contiguous lanes of T steps,
+``short_depth=0``): a block of n bytes is cut into S contiguous lanes of T steps,
 ``position(lane, step) = lane * T + step``, and all lanes advance one byte
 per step through shared model and bucket tables.  The payload layout, the
 table evolution and every intermediate grid are the JAX package's.
@@ -43,6 +43,18 @@ before each byte, so a match is the A symbol plus its length.  Encode is
 one modeling scan (K13e: candidate, match length against the window, A/B/C
 events with the hit APM keyed by the candidate's availability) and K3 at
 three slots; decode is one scan (K13d).  There is no search or parse pass.
+
+Every adaptive encode ends with K3p, which bit-packs K3's emission mask
+eight lanes a byte before it goes to the host, as the JAX package does.
+
+Chain mode (``-c``) codes a block from the PPM tables the previous coded
+block left (:func:`encode_block_chained`, :func:`decode_block_chained`);
+the match tables still start empty.  Chain mode v2 (``-C``, mode R with
+the flexible parse and the sort finder) also carries the bucket table and
+the previous block's bytes: bucket positions are absolute in the [prev |
+cur] window of 2N bytes.  At each block boundary KCR shifts the carried
+table one block back; K5's and K1's chain arms read sources over the
+window and insert at pos + N, and K4's proposals count +N.
 
 Each pass has a plain PyTorch version and a
 CUDA kernel; the wrapper picks the plain version for a CPU tensor and the
@@ -245,10 +257,6 @@ def check_supported(p: BlockParams) -> None:
     if p.short_depth:
         raise NotImplementedError(
             "short_depth > 0 is not ported (ROADMAP.md item 17)"
-        )
-    if p.chain_match:
-        raise NotImplementedError(
-            "chain_match (crz -C) is not yet ported (ROADMAP.md item 11)"
         )
     if not 1 <= _R_CANDS <= MAX_CANDS:
         raise NotImplementedError(
@@ -499,10 +507,12 @@ def _bucket_insert(rolz, p: BlockParams, rctx, ins, pos, nx4,
 
 
 def _post_step(c, t, p: BlockParams, pos, active, byte, is_match, src,
-               sym_len, rolz=None, dist=None, xsearch=None, lzp=None, n=None):
+               sym_len, rolz=None, dist=None, xsearch=None, lzp=None, n=None,
+               woff: int = 0):
     """End-of-step state: copy state, context registers, mode X's previous
     distance (``dist`` given) and, where the caller keeps the bucket table,
-    the insert of position pos-3.  KSx (``xsearch``) inserts position pos-7
+    the insert of position pos-3 (at pos-3 + ``woff`` in a chain window;
+    the decimation stays on pos).  KSx (``xsearch``) inserts position pos-7
     under its own next 8 bytes and position pos-3 under its context; mode P
     (``lzp`` and the block length ``n``) maps the contexts of position
     pos+1 to it, the highest position winning a slot."""
@@ -521,7 +531,7 @@ def _post_step(c, t, p: BlockParams, pos, active, byte, is_match, src,
         if p.rolz_dec > 1:
             ins = ins & (pos % p.rolz_dec == 0)
         rctx = rolz_hash3(_rolz_key(ctx4bn, p), p.rolz_bits)
-        _bucket_insert(rolz, p, rctx, ins, pos, _byteswap32(ctx4n))
+        _bucket_insert(rolz, p, rctx, ins, pos + woff, _byteswap32(ctx4n))
     if xsearch is not None:
         nx4q = _byteswap32(ctx4bn)  # bytes q..q+3 of q = pos-7
         _bucket_insert(xsearch[0], p,
@@ -912,17 +922,24 @@ def sort_candidates_plain(p: BlockParams, inp, n: int, content: bool = False):
 # --------------------------------------------------------------------------
 
 
-def rank_scan_plain(p: BlockParams, inp, n: int, props, rolz):
+def rank_scan_plain(p: BlockParams, inp, n: int, props, rolz, prev=None):
     """Plain K5: ``[3 * (n_c + 1) + 1, T, S]`` int32 grids — (len, src,
     recency index) of every proposal, its length zeroed unless the evolving
     bucket of the position's context holds the source, then of one
     cache-scored bucket candidate, then the bucket fill.  ``props`` is K4's
     ``[2 * n_c, T, S]``; ``rolz`` evolves IN PLACE
-    (block.py::_rolz_rank_body)."""
+    (block.py::_rolz_rank_body).  The chain arm (``prev``, the previous
+    block's [S, T] bytes): positions are absolute in the [prev | inp]
+    window, the proposals' sources count +N, the bucket candidate's bytes
+    come from the window and a source in ``prev`` stops at its end
+    (block.py:1233-1240, 1591-1594)."""
     dev = inp.device
     n_c = props.shape[0] // 2
     c = _init_carry(p, dev)
-    inp_w32 = _pack_words(inp.reshape(-1))
+    woff = 0 if prev is None else p.capacity
+    win = inp.reshape(-1) if prev is None else torch.cat(
+        [prev.reshape(-1), inp.reshape(-1)])
+    inp_w32 = _pack_words(win)
     out = torch.empty((3 * (n_c + 1) + 1, p.steps, p.lanes), dtype=_i32,
                       device=dev)
     len_cap = _len_cap(p)
@@ -935,7 +952,7 @@ def rank_scan_plain(p: BlockParams, inp, n: int, props, rolz):
         ent_pos = ent[..., 0]
         rec = _recency_ranks(ent_pos)
         for k in range(n_c):
-            l_k, s_k = props[2 * k, t], props[2 * k + 1, t]
+            l_k, s_k = props[2 * k, t], props[2 * k + 1, t] + woff
             present = ent_pos == (s_k + 1)[:, None]
             valid = present.any(dim=1) & active & (t >= 7) & (l_k > 0)
             out[3 * k, t] = torch.where(valid, l_k, 0)
@@ -947,7 +964,10 @@ def rank_scan_plain(p: BlockParams, inp, n: int, props, rolz):
         sc_b = torch.gather(score, 1, slot)[:, 0]
         cand_w = _gather_windows(inp_w32, src_b.clamp_min(0), p.window)
         len_b = _prefix_len(cur_win[:, : p.window], cand_w)
-        cap = torch.clamp(n - pos, max=min(p.steps - t, len_cap)).clamp_min(0)
+        cap = torch.clamp(n - pos, max=min(p.steps - t, len_cap))
+        if woff:  # a source in the previous block stops at its end
+            cap = torch.where(src_b < woff, torch.minimum(cap, woff - src_b), cap)
+        cap = cap.clamp_min(0)
         valid_b = (sc_b == 4) & active & (t >= 7)
         out[3 * n_c, t] = torch.where(valid_b, torch.minimum(len_b, cap), 0)
         out[3 * n_c + 1, t] = src_b
@@ -955,7 +975,7 @@ def rank_scan_plain(p: BlockParams, inp, n: int, props, rolz):
         out[3 * n_c + 3, t] = (ent_pos > 0).sum(dim=1)
         zero = torch.zeros_like(pos)
         _post_step(c, t, p, pos, active, cur_win[:, 0], zero.bool(), zero,
-                   zero, rolz)
+                   zero, rolz, woff=woff)
     return out
 
 
@@ -1338,13 +1358,36 @@ def rans_scan_plain(p: BlockParams, ev):
     return x, emit, words
 
 
+def pack_emit_plain(emit):
+    """Plain K3p: ``emit`` [T, n_slots, S] bool -> [T, n_slots, S/8] uint8,
+    bit k of byte j the flag of lane 8j + k (block.py:1965-1969)."""
+    steps, n_slots, s = emit.shape
+    bits = emit.reshape(steps, n_slots, s // 8, 8).to(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=emit.device)
+    return (bits << shifts).sum(dim=-1, dtype=torch.uint8)
+
+
+# --------------------------------------------------------------------------
+# KCR: the chain window's bucket-table remap (crz -C)
+# --------------------------------------------------------------------------
+
+
+def remap_chain_ment_plain(p: BlockParams, ment):
+    """Plain KCR: the carried bucket table one block back in the window,
+    positions q -> max(q - N, 0), the prefix cache cleared where the entry
+    dies (block.py::_remap_chain_ment); a new table."""
+    pos = (ment[..., 0] - p.capacity).clamp_min(0)
+    pref = torch.where(pos > 0, ment[..., 1], 0)
+    return torch.stack([pos, pref], dim=-1).to(_i32)
+
+
 # --------------------------------------------------------------------------
 # K1: the decode scan
 # --------------------------------------------------------------------------
 
 
 def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t,
-                 lzp=None):
+                 lzp=None, woff: int = 0):
     (lanes, pos, active, coding, copying, p1, ctx2, h3, pred, conf,
      pred2, conf2, raw) = _common_reads(c, t, n, p, tables)
     valid2 = conf2 > 0
@@ -1486,25 +1529,31 @@ def _decode_step(p: BlockParams, stream, n, c, tables, rolz, x, base, out, t,
     elif sse_st is not None:
         ppm.sse_update(tables, sse_st, coding, is_match, is_hit)
     _post_step(c, t, p, pos, active, byte, is_match, src, sym_len, rolz,
-               dist=dist if x_mode else None, lzp=lzp, n=n)
-    out[:, t] = torch.where(active, byte, 0).to(torch.uint8)
+               dist=dist if x_mode else None, lzp=lzp, n=n, woff=woff)
+    region = out if out.dim() == 2 else out[1]  # a chain window: region 1
+    region[:, t] = torch.where(active, byte, 0).to(torch.uint8)
     return x, base + step_off
 
 
 def decode_scan_plain(p: BlockParams, states, stream, n: int, tables,
-                      rolz=None, lzp=None):
+                      rolz=None, lzp=None, prev=None):
     """Plain K1 / K12d / K13d: ``(states, words_used, out [S, T] uint8)``;
     ``tables`` and the mode's match tables (mode R: ``rolz``; mode P with
     the match layer: ``lzp``; mode X: none) evolve IN PLACE
-    (block.py::_decode_scan/_decode_body)."""
+    (block.py::_decode_scan/_decode_body).  K1's chain arm (``prev``, the
+    previous block's [S, T] bytes): the output is region 1 of a [2, S, T]
+    window whose region 0 is ``prev``, copy sources and bucket positions
+    are absolute in it, and the inserts land at pos + N."""
     c = _init_carry(p, states.device)
-    out = torch.zeros((p.lanes, p.steps), dtype=torch.uint8,
-                      device=states.device)
+    out = torch.zeros((p.lanes, p.steps), dtype=torch.uint8, device=states.device)
+    woff = 0
+    if prev is not None:
+        out, woff = torch.stack([prev, out]), p.capacity
     x, base = states.to(_i64), 0
     for t in range(p.steps):
         x, base = _decode_step(p, stream, n, c, tables, rolz, x, base, out, t,
-                               lzp)
-    return x, base, out
+                               lzp, woff)
+    return x, base, out[-1] if prev is not None else out
 
 
 # --------------------------------------------------------------------------
@@ -1517,7 +1566,8 @@ def decode_scan_plain(p: BlockParams, states, stream, n: int, tables,
 LAUNCHES = {"KS": 0, "K4": 0, "K5": 0, "K6": 0, "K2": 0, "K3": 0, "K1": 0,
             "K7": 0, "K8": 0, "K9": 0, "K10": 0,
             "K4x": 0, "K11": 0, "K12e": 0, "K12d": 0,
-            "KSx": 0, "K13c": 0, "K13e": 0, "K13d": 0, "SORT": 0}
+            "KSx": 0, "K13c": 0, "K13e": 0, "K13d": 0, "SORT": 0,
+            "K3p": 0, "KCR": 0, "K5ch": 0, "K1ch": 0}
 _EVENTS: dict = {k: [] for k in LAUNCHES}
 
 
@@ -1873,17 +1923,25 @@ def rep_scan(p: BlockParams, inp, n: int, dec):
     return out
 
 
-def rank_scan(p: BlockParams, inp, n: int, props, rolz):
-    """K5 — the rank scan of the flexible parse.
+def rank_scan(p: BlockParams, inp, n: int, props, rolz, prev=None):
+    """K5 — the rank scan of the flexible parse; K5ch (``prev`` given) — its
+    chain arm (crz -C).
 
     Replaces comprox_tpu/codec/block.py::_rolz_rank_body (1188-1252) under
-    _rolz_rank_scan (1265-1283).  Kernel: csrc/rank.cu (one thread per
-    lane, as KS).  ``props`` [2 * n_c, T, S] int32 from K4;
-    ``rolz`` [2^bits, D, 2] int32 (updated in place) ->
-    [3 * (n_c + 1) + 1, T, S] int32.
+    _rolz_rank_scan (1265-1283); the chain arm with ``ment0`` (its cap
+    1233-1240, window-absolute inserts 650-651, the proposals' +N of
+    1591-1594).  Kernel: csrc/rank.cu (one thread per lane, as KS; the
+    chain arm is the same kernel with a window offset).  ``props`` [2 *
+    n_c, T, S] int32 from K4; ``rolz`` [2^bits, D, 2] int32 (updated in
+    place; in the chain arm KCR's remapped table); ``prev`` [S, T] uint8,
+    the previous block's bytes -> [3 * (n_c + 1) + 1, T, S] int32.
     """
-    if _dispatch(inp, props, rolz) == "cpu":
-        return rank_scan_plain(p, inp, n, props, rolz)
+    if (prev is not None) != p.chain_match:
+        raise ValueError("a chain_match block ranks over the [prev | cur] "
+                         "window, any other block over its own bytes")
+    group = [inp, props, rolz] + ([] if prev is None else [prev])
+    if _dispatch(*group) == "cpu":
+        return rank_scan_plain(p, inp, n, props, rolz, prev)
     _check_kernel_geometry(p)
     _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
     _expect(props, "props", _i32, (2 * _R_CANDS, p.steps, p.lanes))
@@ -1893,8 +1951,16 @@ def rank_scan(p: BlockParams, inp, n: int, props, rolz):
     out = torch.empty((3 * (_R_CANDS + 1) + 1, p.steps, p.lanes), dtype=_i32,
                       device=inp.device)
     cfg = _cfg_array(p, n)
-    _launch("K5", build.lib().cpx_k5_launch, cfg.ctypes.data,
-            inp.data_ptr(), props.data_ptr(), rolz.data_ptr(), out.data_ptr(),
+    lib = build.lib()
+    if prev is None:
+        _launch("K5", lib.cpx_k5_launch, cfg.ctypes.data, inp.data_ptr(),
+                props.data_ptr(), rolz.data_ptr(), out.data_ptr(), _stream_ptr())
+        return out
+    _expect(prev, "prev", torch.uint8, (p.lanes, p.steps))
+    # the [prev | cur] window, 2N bytes: a new tensor, 8-byte aligned
+    win = torch.cat([prev.reshape(-1), inp.reshape(-1)])
+    _launch("K5ch", lib.cpx_k5c_launch, cfg.ctypes.data, inp.data_ptr(),
+            win.data_ptr(), props.data_ptr(), rolz.data_ptr(), out.data_ptr(),
             _stream_ptr())
     return out
 
@@ -2050,21 +2116,65 @@ def rans_scan(p: BlockParams, ev):
     _launch("K3", build.lib().cpx_k3_launch, p.lanes, p.steps, n_slots,
             ev.data_ptr(), states.data_ptr(), emit.data_ptr(),
             words.data_ptr(), _stream_ptr())
-    return states, emit.bool(), words
+    return states, emit.view(torch.bool), words
+
+
+def pack_emit(p: BlockParams, emit):
+    """K3p — the emission mask's bit-pack, after K3 on every adaptive
+    encode.
+
+    Replaces comprox_tpu/codec/block.py::_encode_passes 1965-1969.  Kernel:
+    csrc/rans.cu (a thread a packed byte).  ``emit`` [T, n_slots, S] bool
+    -> [T, n_slots, S/8] uint8, bit k of byte j the flag of lane 8j + k
+    (what :func:`_pack_payload` unpacks).
+    """
+    if _dispatch(emit) == "cpu":
+        return pack_emit_plain(emit)
+    _expect(emit, "emit", torch.bool, (p.steps, p.n_slots, p.lanes))
+    if emit.data_ptr() % 8:
+        raise ValueError("emit must be 8-byte aligned (64-bit loads)")
+    packed = torch.empty((p.steps, p.n_slots, p.lanes // 8), dtype=torch.uint8,
+                         device=emit.device)
+    _launch("K3p", build.lib().cpx_k3p_launch, packed.numel(), emit.data_ptr(),
+            packed.data_ptr(), _stream_ptr())
+    return packed
+
+
+def remap_chain_ment(p: BlockParams, ment):
+    """KCR — the chain window's bucket-table remap, before K5 on encode and
+    before K1 on decode of every crz -C block.
+
+    Replaces comprox_tpu/codec/block.py::_remap_chain_ment (1255-1262),
+    called at 1271, 1925 and 2225.  Kernel: csrc/chain.cu (elementwise, a
+    thread an entry).  ``ment`` [2^bits, D, 2] int32 -> a new table of the
+    same shape (``ment`` is not changed).
+    """
+    if _dispatch(ment) == "cpu":
+        return remap_chain_ment_plain(p, ment)
+    _expect(ment, "ment", _i32, (1 << p.rolz_bits, p.rolz_depth, 2))
+    if ment.data_ptr() % 8:
+        raise ValueError("ment must be 8-byte aligned (64-bit loads)")
+    out = torch.empty_like(ment)
+    _launch("KCR", build.lib().cpx_kcr_launch, ment.numel() // 2, p.capacity,
+            ment.data_ptr(), out.data_ptr(), _stream_ptr())
+    return out
 
 
 def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None,
-                lzp=None):
+                lzp=None, prev=None):
     """K1 — the fused decode scan of mode R; K12d — its mode-X entry; K13d —
-    its mode-P entry.
+    its mode-P entry; K1ch (``prev`` given) — K1's chain arm (crz -C).
 
     Replaces comprox_tpu/codec/block.py::_decode_scan (2218-2248) and
     _decode_body (1980-2215; K13d its P arms 2016-2021 and 2164-2167 with
-    _lzp_candidate and the LZP inserts).  Kernel: csrc/decode.cu (an entry
-    per mode).  ``states`` [S] int64, ``stream`` [pad] int32 (u16 words);
-    ``tables`` and the mode's match tables evolve in place: mode R takes
-    its bucket table ``rolz``, mode P (with the match layer) the three
-    tables ``lzp`` of :func:`_init_lzp`, mode X none -> (states,
+    _lzp_candidate and the LZP inserts; K1ch its two-region output
+    2200-2208 with ``ment0`` and ``prev``).  Kernel: csrc/decode.cu (an
+    entry per mode; the chain arm is K1 with a window offset).  ``states``
+    [S] int64, ``stream`` [pad] int32 (u16 words); ``tables`` and the
+    mode's match tables evolve in place: mode R takes its bucket table
+    ``rolz`` (in the chain arm KCR's remapped table, and ``prev`` [S, T]
+    uint8, the previous block's bytes), mode P (with the match layer) the
+    three tables ``lzp`` of :func:`_init_lzp`, mode X none -> (states,
     words_used, out [S, T] uint8).
     """
     x_mode, p_mode = p.mode == "X", p.mode == "P"
@@ -2073,10 +2183,14 @@ def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None,
                          "without")
     if lzp is not None and not p_mode:
         raise ValueError("only mode P decodes with LZP tables")
+    if (prev is not None) != p.chain_match:
+        raise ValueError("a chain_match block decodes with the previous "
+                         "block's bytes, any other block without")
     if _dispatch(states, stream, tables["o2"],
                  *([] if rolz is None else [rolz]),
-                 *([] if lzp is None else [lzp[k] for k in LZP_KEYS])) == "cpu":
-        return decode_scan_plain(p, states, stream, n, tables, rolz, lzp)
+                 *([] if lzp is None else [lzp[k] for k in LZP_KEYS]),
+                 *([] if prev is None else [prev])) == "cpu":
+        return decode_scan_plain(p, states, stream, n, tables, rolz, lzp, prev)
     _check_kernel_geometry(p)
     _expect(states, "states", _i64, (p.lanes,))
     if stream.dtype != _i32 or stream.dim() != 1 or stream.shape[0] < p.lanes:
@@ -2100,11 +2214,19 @@ def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None,
                 _stream_ptr())
         return x, int(used.item()), out
     _expect(rolz, "rolz", _i32, (1 << p.rolz_bits, p.rolz_depth, 2))
-    _launch("K1", build.lib().cpx_k1_launch, cfg.ctypes.data,
+    if prev is None:
+        _launch("K1", build.lib().cpx_k1_launch, cfg.ctypes.data,
+                stream.data_ptr(), x.data_ptr(), *_table_ptrs(tables),
+                rolz.data_ptr(), out.data_ptr(), used.data_ptr(),
+                _pos_scratch(p, dev).data_ptr(), _stream_ptr())
+        return x, int(used.item()), out
+    _expect(prev, "prev", torch.uint8, (p.lanes, p.steps))
+    win = torch.stack([prev, out])  # [2, S, T]: region 0 read, region 1 written
+    _launch("K1ch", build.lib().cpx_k1c_launch, cfg.ctypes.data,
             stream.data_ptr(), x.data_ptr(), *_table_ptrs(tables),
-            rolz.data_ptr(), out.data_ptr(), used.data_ptr(),
+            rolz.data_ptr(), win.data_ptr(), used.data_ptr(),
             _pos_scratch(p, dev).data_ptr(), _stream_ptr())
-    return x, int(used.item()), out
+    return x, int(used.item()), win[1]
 
 
 # --------------------------------------------------------------------------
@@ -2112,8 +2234,12 @@ def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None,
 # --------------------------------------------------------------------------
 
 
-def _pack_payload(states, emit, words) -> bytes:
-    emit_np = emit.cpu().numpy().astype(bool)  # [T, n_slots, S]: decode order
+def _pack_payload(states, emit_packed, words) -> bytes:
+    """The block payload: word count, states, then the emitted words in
+    (step, slot, lane) order, the decode read order; ``emit_packed`` is
+    K3p's bit-packed mask (block.py::_pack_payload)."""
+    emit_np = np.unpackbits(
+        emit_packed.cpu().numpy(), axis=-1, bitorder="little").astype(bool)
     stream = words.cpu().numpy()[emit_np]  # C-order compaction
     header = np.array([stream.size], np.uint32)
     return (
@@ -2148,15 +2274,37 @@ def _check_drain(x, base, n_words):
         )
 
 
-def encode_passes(p: BlockParams, inp, n: int):
+def _flexible_sort_finder(p: BlockParams) -> bool:
+    """Whether encode takes the sort finder's flexible parse (K4, K5, K6)."""
+    return (p.mode == "R" and p.match and p.flexible
+            and _ENV["CPX_R_FINDER"] == "sort")
+
+
+def encode_passes(p: BlockParams, inp, n: int, tables0=None, ment0=None,
+                  prev=None):
     """The parse (mode R, flexible: K4, K5, K6; greedy: KS and two
     elementwise ops; ``CPX_R_FINDER=scan``, flexible: KS and K6 on its one
     candidate.  Mode X, flexible: K4x, K6, K11, K6; greedy: K4x and the
     elementwise choice; ``CPX_X_FINDER=scan``: KSx in K4x's place.  Mode P:
-    none), then the modeling scan and K3, on one [S, T] block tensor.
-    Returns ``(states, emit, words, ev, tables)``."""
+    none), then the modeling scan, K3 and K3p, on one [S, T] block tensor.
+    Returns ``(states, emit_packed, words, ev, tables)`` and, under
+    ``chain_match``, the final bucket table.
+
+    ``tables0`` replaces the fresh PPM tables (chain mode) and evolves in
+    place.  Under ``chain_match``, ``ment0`` is the carried bucket table
+    (KCR remaps it into a new table, which K5 evolves and which is
+    returned: K5 is the only encode pass with bucket inserts, and its final
+    table is the one JAX's modeling scan ends with) and ``prev`` the
+    previous block's zero-padded [S, T] bytes; both default to zeros
+    (block.py::_encode_passes, 1898-1971)."""
     dev = inp.device
     lzp = None
+    ment = None
+    if p.chain_match and not _flexible_sort_finder(p):
+        raise ValueError(
+            "chain_match supports only the sort finder "
+            "(CPX_R_FINDER=sort) with flexible parse"
+        )
     if p.mode == "P":
         dec = None
         lzp = _init_lzp(p, dev) if p.match else None
@@ -2174,9 +2322,15 @@ def encode_passes(p: BlockParams, inp, n: int):
                 dec = parse_scan(p, n, cands, x_prices(), n_c, rep)[:2]
             else:
                 dec = torch.stack(_greedy_decisions_dist(p, cands))
-    elif p.match and p.flexible and _ENV["CPX_R_FINDER"] == "sort":
+    elif _flexible_sort_finder(p):
         props = sort_candidates(p, inp, n)
-        cands = rank_scan(p, inp, n, props, _init_rolz(p, dev))
+        if p.chain_match:
+            ment = remap_chain_ment(
+                p, _init_rolz(p, dev) if ment0 is None else ment0)
+            cands = rank_scan(p, inp, n, props, ment,
+                              torch.zeros_like(inp) if prev is None else prev)
+        else:
+            cands = rank_scan(p, inp, n, props, _init_rolz(p, dev))
         dec = parse_scan(p, n, cands)
     elif p.match:
         grids = search_scan(p, inp, n, _init_rolz(p, dev))
@@ -2187,37 +2341,128 @@ def encode_passes(p: BlockParams, inp, n: int):
         dec = torch.stack([take, src, grids[2], grids[3]]).contiguous()
     else:
         dec = torch.zeros((4, p.steps, p.lanes), dtype=_i32, device=dev)
-    tables = ppm.init_tables(p.match, p.o3_bits, dev)
+    tables = (ppm.init_tables(p.match, p.o3_bits, dev) if tables0 is None
+              else tables0)
     ev = model_scan(p, inp, n, dec, tables, lzp)
     states, emit, words = rans_scan(p, ev)
-    return states, emit, words, ev, tables
+    out = (states, pack_emit(p, emit), words, ev, tables)
+    return out + (ment,) if p.chain_match else out
 
 
-def encode_block(data: np.ndarray, p: BlockParams, device) -> bytes:
-    """Encode up to p.capacity bytes on ``device``; returns the payload."""
-    check_supported(p)
+def _block_tensor(data: np.ndarray, p: BlockParams, device):
+    """The block's bytes as the [S, T] uint8 tensor, zero past n."""
     n = int(data.size)
     if not 0 < n <= p.capacity:
         raise ValueError(f"block of {n} bytes for capacity {p.capacity}")
     buf = np.zeros((p.lanes, p.steps), np.uint8)
     buf.reshape(-1)[:n] = data
-    inp = torch.from_numpy(buf).to(device)
-    states, emit, words, _, _ = encode_passes(p, inp, n)
-    return _pack_payload(states, emit, words)
+    return torch.from_numpy(buf).to(device)
 
 
-def decode_block(payload: bytes, n: int, p: BlockParams, device) -> np.ndarray:
-    """Decode a block payload back to its n raw bytes on ``device``."""
+def encode_block(data: np.ndarray, p: BlockParams, device) -> bytes:
+    """Encode up to p.capacity bytes on ``device``; returns the payload."""
     check_supported(p)
+    if p.chain_match:
+        raise ValueError("chain_match blocks need the carried state: use "
+                         "encode_block_chained")
+    inp = _block_tensor(data, p, device)
+    states, emit_packed, words, _, _ = encode_passes(p, inp, int(data.size))
+    return _pack_payload(states, emit_packed, words)
+
+
+def init_chain_tables(p: BlockParams, device) -> dict:
+    """The chain state before a file's first block: ``tables``, fresh PPM
+    tables; under ``chain_match`` also ``ment``, an empty bucket table
+    [2^bits, D, 2] int32, and ``prev``, the previous block's bytes [S, T]
+    uint8, all zero (block.py::init_chain_tables)."""
+    st = {"tables": ppm.init_tables(p.match, p.o3_bits, device)}
+    if p.chain_match:
+        st["ment"] = _init_rolz(p, device)
+        st["prev"] = torch.zeros((p.lanes, p.steps), dtype=torch.uint8,
+                                 device=device)
+    return st
+
+
+def chain_state_from_numpy(st: dict, device) -> dict:
+    """A JAX chain state (``tables``, ``ment``, ``prev`` as numpy arrays) ->
+    the port's tensors on ``device`` (copies)."""
+    out = {"tables": ppm.tables_from_numpy(st["tables"], device)}
+    if "ment" in st:
+        out["ment"] = rolz_from_numpy(st["ment"], device)
+        out["prev"] = torch.from_numpy(np.array(st["prev"], dtype=np.uint8)).to(device)
+    return out
+
+
+def chain_state_to_numpy(st: dict) -> dict:
+    """The port's chain state -> the JAX layout, as numpy arrays."""
+    out = {"tables": ppm.tables_to_numpy(st["tables"])}
+    if "ment" in st:
+        out["ment"] = rolz_to_numpy(st["ment"])
+        out["prev"] = st["prev"].cpu().numpy()
+    return out
+
+
+def encode_block_chained(data: np.ndarray, p: BlockParams, state0: dict,
+                         device):
+    """encode_block with model carry-over: code the block from ``state0``
+    (:func:`init_chain_tables`) and return ``(payload, state1)``.  The
+    passes run on a copy of the PPM tables (KCR writes a new bucket
+    table), so ``state0`` stays as it was: a caller that stores the block
+    raw keeps it (block.py::encode_block_chained).  Without chain_match
+    the match tables start empty, as in the reference."""
+    check_supported(p)
+    inp = _block_tensor(data, p, device)
+    tables = {k: v.clone() for k, v in state0["tables"].items()}
+    outs = encode_passes(p, inp, int(data.size), tables, state0.get("ment"),
+                         state0.get("prev"))
+    state1 = {"tables": outs[4]}
+    if p.chain_match:
+        state1.update(ment=outs[5], prev=inp)
+    return _pack_payload(*outs[:3]), state1
+
+
+def _decode_passes(payload: bytes, n: int, p: BlockParams, device, tables,
+                   ment0=None, prev=None):
+    """Unpack and decode one payload, ``tables`` evolving in place:
+    ``(bytes [n] numpy, out [S, T] tensor, the final bucket table under
+    chain_match)``.  ``ment0`` and ``prev`` are a chain_match block's
+    carried bucket table and previous block's bytes."""
     n_words, states, stream_padded = _unpack_payload(payload, p)
+    ment = remap_chain_ment(p, ment0) if p.chain_match else None
     x, used, out = decode_scan(
         p,
         torch.from_numpy(states.astype(np.int64)).to(device),
         torch.from_numpy(stream_padded.astype(np.int32)).to(device),
         n,
-        ppm.init_tables(p.match, p.o3_bits, device),
-        _init_rolz(p, device) if p.mode == "R" else None,
+        tables,
+        ment if p.chain_match else (_init_rolz(p, device) if p.mode == "R" else None),
         _init_lzp(p, device) if p.mode == "P" and p.match else None,
+        prev,
     )
     _check_drain(x.cpu().numpy(), used, n_words)
-    return out.cpu().numpy().reshape(-1)[:n]
+    return out.cpu().numpy().reshape(-1)[:n], out, ment
+
+
+def decode_block(payload: bytes, n: int, p: BlockParams, device) -> np.ndarray:
+    """Decode a block payload back to its n raw bytes on ``device``."""
+    check_supported(p)
+    if p.chain_match:
+        raise ValueError("chain_match blocks need the carried state: use "
+                         "decode_block_chained")
+    return _decode_passes(payload, n, p, device,
+                          ppm.init_tables(p.match, p.o3_bits, device))[0]
+
+
+def decode_block_chained(payload: bytes, n: int, p: BlockParams, state0: dict,
+                         device):
+    """decode_block with model carry-over (the inverse of
+    :func:`encode_block_chained`): returns ``(bytes, state1)``; ``state0``
+    stays as it was (block.py::decode_block_chained)."""
+    check_supported(p)
+    tables = {k: v.clone() for k, v in state0["tables"].items()}
+    raw, out, ment = _decode_passes(payload, n, p, device, tables,
+                                    state0.get("ment"), state0.get("prev"))
+    state1 = {"tables": tables}
+    if p.chain_match:
+        state1.update(ment=ment, prev=out)
+    return raw, state1

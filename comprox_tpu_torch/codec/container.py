@@ -1,5 +1,5 @@
-"""Container format and stream coder, unchained, codecs R (crz), F (crf),
-X (crx) and P (crp).
+"""Container format and stream coder, codecs R (crz), F (crf), X (crx) and
+P (crp), unchained or chained.
 
 Counterpart of :mod:`comprox_tpu.codec.container`: the same bytes for the
 same input (magic ``CPXTPU02``, header with CRC and the model-knob
@@ -8,12 +8,17 @@ with CRC, the stored-block fallback, the zero sentinel).  The dictionary
 and filter stages are the port's own copies of the JAX package's host
 modules (codec/dictionary.py, ops/filters.py).
 
-Not yet ported, and refused with an error instead of another format:
-chain mode (``F_CHAIN``, ``F_CHAIN_MATCH``; ROADMAP.md item 11).
+Chain mode (``F_CHAIN``: the PPM models carry across blocks) and chain
+mode v2 (``F_CHAIN_MATCH``, crz: the bucket table and the previous block's
+bytes too) code one block at a time, in order; a block stored raw leaves
+the chain state as it was, on both sides.  ``CPX_CHAIN_SPEC`` chooses
+between two schedules of the same bytes in the JAX package; the port
+takes "0" and "1" and runs the sequential one for both.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 from dataclasses import dataclass, field
@@ -23,7 +28,14 @@ import numpy as np
 
 from comprox_tpu_torch.codec import dictionary as dic
 from comprox_tpu_torch.ops import filters as flt
-from comprox_tpu_torch.codec.block import BlockParams, decode_block, encode_block
+from comprox_tpu_torch.codec.block import (
+    BlockParams,
+    decode_block,
+    decode_block_chained,
+    encode_block,
+    encode_block_chained,
+    init_chain_tables,
+)
 from comprox_tpu_torch.codec.fast import decode_block_fast, encode_block_fast
 from comprox_tpu_torch.models.ppm import format_fingerprint
 
@@ -119,16 +131,12 @@ def read_header(f: BinaryIO) -> tuple[ContainerParams, int]:
         )
     if (flags & F_CHAIN_MATCH) and not (flags & F_CHAIN):
         raise ValueError("corrupt archive: F_CHAIN_MATCH without F_CHAIN")
-    if flags & (F_CHAIN | F_CHAIN_MATCH):
-        raise NotImplementedError(
-            "chained archives (crz -c / -C) are not yet ported to "
-            "comprox_tpu_torch (ROADMAP.md item 11)"
-        )
     bp = BlockParams(
         lanes=lanes, steps=steps, mode=_codec_mode(codec), match=bool(match),
         min_len=min_len, o3_bits=o3_bits, rolz_bits=rolz_bits,
         rolz_depth=rolz_depth, rolz_ctx_bytes=rolz_ctx_bytes,
         short_depth=short_depth, rolz_dec=rolz_dec,
+        chain_match=bool(flags & F_CHAIN_MATCH),
     )
     return ContainerParams(codec=codec, block=bp), flags
 
@@ -142,19 +150,43 @@ def encode_stream(
     dictionary: bool = True,
     precomp_only: bool = False,
     progress: Optional[Callable[[int, int], None]] = None,
+    chain: bool = False,
 ) -> int:
     """Encode ``src`` into ``dst`` on ``device``; returns the archive size.
 
     The same bytes as ``comprox_tpu.codec.container.encode_stream`` with
-    the same arguments (unchained, one block at a time).  ``precomp_only``
-    runs just the dictionary stage and stores the substituted bytes.
+    the same arguments, one block at a time.  ``precomp_only`` runs just
+    the dictionary stage and stores the substituted bytes.  ``chain``
+    carries the PPM models across blocks (under the block parameters'
+    ``chain_match`` also the bucket table and the previous block's bytes);
+    a block stored raw leaves the chain state as it was.
     """
     _check_codec(cp)
-    encode = _block_encoder(cp.block, device)
     if precomp_only:
-        filters = False
+        filters = False  # stored blocks carry no filter-span metadata
+        chain = False  # nothing is modelled
+    if chain:
+        if cp.block.mode == "F":
+            raise ValueError(
+                "chain mode requires an adaptive-model codec (R/X/P)"
+            )
+        spec = os.environ.get("CPX_CHAIN_SPEC", "1")
+        if spec not in ("0", "1"):
+            raise NotImplementedError(
+                f"CPX_CHAIN_SPEC={spec!r} is not ported to comprox_tpu_torch "
+                "(only '0' or '1', which code the same bytes)"
+            )
+    if cp.block.chain_match and not chain:
+        raise ValueError("chain_match requires chain mode (encode chain=True)")
+    encode = _block_encoder(cp.block, device)
+    state = init_chain_tables(cp.block, device) if chain else None
     wd = dic.build_dictionary(src) if dictionary else None
-    flags = (F_FILTER if filters else 0) | (F_DICT if wd else 0)
+    flags = (
+        (F_FILTER if filters else 0)
+        | (F_DICT if wd else 0)
+        | (F_CHAIN if chain else 0)
+        | (F_CHAIN_MATCH if (chain and cp.block.chain_match) else 0)
+    )
     write_header(dst, cp, flags=flags)
     written = HEADER_LEN
     if wd is not None:
@@ -188,9 +220,15 @@ def encode_stream(
         if precomp_only:
             payload, bflags = prefix + blk.tobytes(), bflags | BF_STORED
         else:
-            payload = prefix + encode(blk)
+            if chain:
+                coded, state1 = encode_block_chained(blk, cp.block, state, device)
+            else:
+                coded = encode(blk)
+            payload = prefix + coded
             if len(payload) >= raw_blk.size:  # stored fallback
                 payload, bflags = raw_blk.tobytes(), BF_STORED
+            elif chain:
+                state = state1  # the models advance past the block
         dst.write(struct.pack(BLKHDR, raw_blk.size, len(payload), bflags,
                               zlib.crc32(payload) & 0xFFFFFFFF))
         dst.write(payload)
@@ -208,10 +246,15 @@ def decode_stream(
     device,
     progress: Optional[Callable[[int, int], None]] = None,
 ) -> int:
-    """Decode an unchained codec-R, codec-F, codec-X or codec-P archive on
-    ``device``; returns the raw byte count."""
+    """Decode a codec-R, codec-F, codec-X or codec-P archive, unchained or
+    chained, on ``device``; returns the raw byte count.  A stored block
+    never touches the chain state."""
     cp, flags = read_header(src)
+    if flags & F_CHAIN and cp.block.mode == "F":
+        raise ValueError("corrupt archive: chain mode requires an "
+                         "adaptive-model codec (R/X/P), not F")
     decode = _block_decoder(cp.block, device)
+    state = init_chain_tables(cp.block, device) if flags & F_CHAIN else None
     wd = None
     if flags & F_DICT:
         hdr = src.read(12)
@@ -256,7 +299,11 @@ def decode_stream(
                     raise ValueError("corrupt block: missing dict-size prefix")
                 (n_dec,) = struct.unpack("<I", payload[:4])
                 payload = payload[4:]
-            out = decode(payload, n_dec)
+            if state is not None:
+                out, state = decode_block_chained(payload, n_dec, cp.block,
+                                                  state, device)
+            else:
+                out = decode(payload, n_dec)
             if bflags & BF_DICT:
                 out = dic.dict_decode(out, wd)
         if out.size != raw_n:

@@ -9,6 +9,14 @@
 // literal or a copy from the output); the shared model updates; the
 // bucket insert of position pos-3.
 //
+// K1's chain arm (crz -C, cpx_k1c_launch; block.py:2200-2208, 2218-2248)
+// is the same kernel with a window offset woff = N: `out` is the [2, S, T]
+// window, region 0 the previous block's bytes (read, never written) and
+// region 1 this block's, so a copy source indexes 2N bytes, the step's
+// column goes to region 1, and each bucket insert lands at pos + N (its
+// decimation stays on the block's own pos).  The unchained entry runs it
+// with woff = 0.
+//
 // Bound on the H100: one CTA (above 1024 lanes one cluster of CTAs,
 // ppm_r.cuh) runs T dependent steps of ~12 barrier-
 // separated phases, and a coding lane reads ~1-2 KB of table rows per
@@ -99,7 +107,7 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
                           long long* __restrict__ states, Tables tb,
                           int* __restrict__ rolz, uint8_t* __restrict__ out,
                           long long* __restrict__ used, int* __restrict__ gpos,
-                          bool pos_in_smem) {
+                          bool pos_in_smem, int woff) {
   __shared__ SmemModel own;  // this CTA's keys and wtot; with CL, CTA 0's models serve all
   SmemModel& sm = *at_rank<CL>(&own, 0);
   // the warps' row rings, then (pos_in_smem) the lanes' bucket-row copies
@@ -113,7 +121,7 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
   const int i = gtid();
   const bool alive = i < c.S;
   const int d = c.rolz_depth;
-  const long long cap_n = (long long)c.S * c.T;
+  const long long cap_n = (long long)woff + (long long)c.S * c.T;  // the window's bytes
   const StreamRead sr{stream, c.stream_len, c.S};
   model_load(sm, tb);
   keyf_init(own.keyf);
@@ -298,8 +306,9 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
     // ---- stores, then additive updates
     upd_store<CL>(tb, own, u);
     if (alive) {
-      if (slot >= 0) bucket_store(rolz, c, (uint32_t)ins_key, slot, cx.pos, byteswap32(ctx4n));
-      out[(size_t)i * c.T + t] = (uint8_t)(cx.active ? byte : 0);
+      if (slot >= 0)
+        bucket_store(rolz, c, (uint32_t)ins_key, slot, cx.pos + woff, byteswap32(ctx4n));
+      out[woff + (size_t)i * c.T + t] = (uint8_t)(cx.active ? byte : 0);
     }
     group_sync<CL>();
     K1_STAMP(10)
@@ -730,10 +739,10 @@ extern "C" int cpx_k13d_launch(const int* cfg, const void* stream, void* states,
                                   used, cuda_stream);
 }
 
-extern "C" int cpx_k1_launch(const int* cfg, const void* stream, void* states,
-                             void* o2, void* o1, void* o3, void* len, void* idx,
-                             void* sse, void* sse_h, void* rolz, void* out,
-                             void* used, void* gpos, void* cuda_stream) {
+static int k1_launch(const int* cfg, const void* stream, void* states, void* o2,
+                     void* o1, void* o3, void* len, void* idx, void* sse, void* sse_h,
+                     void* rolz, void* out, void* used, void* gpos, void* cuda_stream,
+                     int chained) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
@@ -746,9 +755,28 @@ extern "C" int cpx_k1_launch(const int* cfg, const void* stream, void* states,
   if (ring + pos + sizeof(SmemModel) + 256 > CPX_SMEM_MAX) pos = 0;
   auto kernel = g.ctas > 1 ? k1_kernel<CPX_MAX_LANES, true>
               : g.threads <= 512 ? k1_kernel<512, false> : k1_kernel<CPX_MAX_LANES, false>;
+  if (chained && 2LL * c.S * c.T >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   return launch_scan(kernel, g, ring + pos, cuda_stream, c, (const int*)stream,
                      (long long*)states, tb, (int*)rolz, (uint8_t*)out,
-                     (long long*)used, (int*)gpos, pos > 0);
+                     (long long*)used, (int*)gpos, pos > 0, chained ? c.S * c.T : 0);
+}
+
+extern "C" int cpx_k1_launch(const int* cfg, const void* stream, void* states,
+                             void* o2, void* o1, void* o3, void* len, void* idx,
+                             void* sse, void* sse_h, void* rolz, void* out,
+                             void* used, void* gpos, void* cuda_stream) {
+  return k1_launch(cfg, stream, states, o2, o1, o3, len, idx, sse, sse_h, rolz, out, used,
+                   gpos, cuda_stream, 0);
+}
+
+// The chain arm: out is the [2, S, T] window (region 0 the previous
+// block's bytes), bucket positions and copy sources are window-absolute.
+extern "C" int cpx_k1c_launch(const int* cfg, const void* stream, void* states,
+                              void* o2, void* o1, void* o3, void* len, void* idx,
+                              void* sse, void* sse_h, void* rolz, void* out,
+                              void* used, void* gpos, void* cuda_stream) {
+  return k1_launch(cfg, stream, states, o2, o1, o3, len, idx, sse, sse_h, rolz, out, used,
+                   gpos, cuda_stream, 1);
 }
 
 #ifdef CPX_K1_PROF

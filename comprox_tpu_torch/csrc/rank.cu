@@ -40,6 +40,17 @@
 // - The window compare runs only where the candidate's 4-byte cache
 //   matched; each of the quad's threads compares 64 bytes with all its
 //   loads in flight, so a window of up to 256 bytes is one round trip.
+//
+// The chain arm (crz -C, cpx_k5c_launch; block.py:1233-1240 and the
+// ment0 of _rolz_rank_scan, 1265-1271) is the same kernel (CHAIN) with a
+// window offset woff = N: bucket positions are absolute in the [prev | cur]
+// window of 2N bytes (`win`, the previous block's bytes then this one's),
+// so each proposal is shifted by +N where it is read (block.py:1591-1594),
+// the bucket candidate's bytes come from the window, a source in the
+// previous block (src < N) may not run past its end, and each insert
+// lands at pos + N; the insert decimation stays on the block's own pos.
+// CHAIN is a template flag, so that the unchained arm (woff = 0, the
+// block's own bytes) compiles to the code it had before the chain arm.
 #include "rolz_search.cuh"
 
 namespace {
@@ -114,7 +125,7 @@ static __device__ __forceinline__ bool after(int p, int j, int pb, int jb) {
 // The lane's search row: the fill, each proposal's equal and greater
 // counts, and the entry with the largest (prefix score, position, slot) —
 // the JAX rank key score*D + (D-1-recency), unique per slot: the positions
-// are below 2^28 (cpx_k5_launch) and an empty entry (position 0, score -1)
+// are below 2^28 (cpx_k5_launch, cpx_k5c_launch) and an empty entry (position 0, score -1)
 // holds its slot in the position's place, so key = (score + 2) << 28 |
 // position orders the entries like that triple but for the slot of equal
 // keys, the later slot winning; then that entry's recency rank.  The
@@ -226,10 +237,11 @@ static __device__ int insert_slot(const int4* col, int batch, int d, int rank,
   return J;
 }
 
-template <int MAXT, bool CL, int TPL>
+template <int MAXT, bool CL, int TPL, bool CHAIN>
 __global__ void __launch_bounds__(MAXT) k5_kernel(Cfg c, const uint8_t* __restrict__ inp,
                           const int* __restrict__ props, int* __restrict__ rolz,
-                          int* __restrict__ out, int batch) {
+                          int* __restrict__ out, int batch,
+                          const uint8_t* __restrict__ win) {
   __shared__ __align__(16) int keys[MAXT / TPL];  // this CTA's lanes' insert keys
   __shared__ unsigned keyf[2][KEYF_N];       // their filter, by step parity
   extern __shared__ __align__(16) int dyn[];  // the warps' row tiles
@@ -240,6 +252,7 @@ __global__ void __launch_bounds__(MAXT) k5_kernel(Cfg c, const uint8_t* __restri
   const int n_c = c.n_cands;
   const int len_cap = min(c.window, c.min_len + LEN_W - 1);
   const size_t plane = (size_t)c.T * c.S;
+  const int woff = CHAIN ? c.S * c.T : 0;  // the window's offset of this block
   // this warp's search tile, then its insert tile, [dq][batch] int4 each
   int4* const stile = reinterpret_cast<int4*>(dyn) + (size_t)(threadIdx.x >> 5) * 2 * dq * batch;
   int4* const itile = stile + (size_t)dq * batch;
@@ -271,7 +284,7 @@ __global__ void __launch_bounds__(MAXT) k5_kernel(Cfg c, const uint8_t* __restri
       for (int k = 0; k < K5_MAX_CANDS; ++k) {
         if (k >= n_c) break;
         prop_len[k] = props[(size_t)(2 * k) * plane + o];
-        want[k] = props[(size_t)(2 * k + 1) * plane + o] + 1;
+        want[k] = props[(size_t)(2 * k + 1) * plane + o] + 1 + woff;
       }
     }
     // both rows are known now: the insert key comes from the older
@@ -330,8 +343,12 @@ __global__ void __launch_bounds__(MAXT) k5_kernel(Cfg c, const uint8_t* __restri
       const int src_b = (sc_b < 0 ? 0 : (int)(mine.best & 0x0FFFFFFFu)) - 1;
       int len_b = 0;
       if (sc_b == 4 && live) {
-        const int cap = max(min(min(c.T - t, c.n - pos), len_cap), 0);
-        len_b = min(prefix_len<TPL>(inp, c, li, t, src_b, c.window, quad.q, quad.mask), cap);
+        int cap = min(min(c.T - t, c.n - pos), len_cap);
+        // a source in the previous block stops at its end (woff - src_b > 0)
+        if (CHAIN && src_b < woff) cap = min(cap, woff - src_b);
+        len_b = min(prefix_len<TPL>(inp, c, li, t, src_b, c.window, quad.q, quad.mask,
+                                    CHAIN ? win : nullptr, 2LL * woff),
+                    max(cap, 0));
       }
       K5_STAMP(6)
       // the lane's grids, its threads a plane in turn
@@ -367,7 +384,8 @@ __global__ void __launch_bounds__(MAXT) k5_kernel(Cfg c, const uint8_t* __restri
 #endif
     // the byte is used only now: its load flew through the step
     const uint32_t ctx4n = active ? (ctx4 << 8) | (own & 0xFFu) : ctx4;
-    if (lead && slot >= 0) bucket_store(rolz, c, (uint32_t)ins_key, slot, pos, byteswap32(ctx4n));
+    if (lead && slot >= 0)
+      bucket_store(rolz, c, (uint32_t)ins_key, slot, pos + woff, byteswap32(ctx4n));
     if (lead) key_clear(filt, ins_key, SALT_INS);
     ctx4 = ctx4n;
     ctx4b = ctx4bn;
@@ -404,16 +422,16 @@ static int k5_batch(int threads, int tpl, int d) {
 // (launch bounds).  A cluster's CTAs each take an SM of their own (a CTA
 // asks for more than half of one's shared memory): the split is there to
 // spread the lanes' scans over SMs.
-template <bool CL, int TPL>
+template <bool CL, int TPL, bool CHAIN>
 static int k5_launch_arm(const ScanGrid& g, void* stream, const Cfg& c, const uint8_t* inp,
-                         const int* props, int* rolz, int* out) {
+                         const int* props, int* rolz, int* out, const uint8_t* win) {
   const int batch = k5_batch(g.threads, TPL, c.rolz_depth);
   size_t smem = (size_t)(g.threads / 32) * batch * 2 * ((c.rolz_depth + 1) / 2) * sizeof(int4);
   if (CL) smem = max(smem, (size_t)CPX_SMEM_MAX / 2 + 4096);
 #define K5_ARM(T)                                                                      \
   if (g.threads <= T)                                                                  \
-    return launch_scan(k5_kernel<T, CL, TPL>, g, smem, stream, c, inp, props, rolz, out, \
-                       batch);
+    return launch_scan(k5_kernel<T, CL, TPL, CHAIN>, g, smem, stream, c, inp, props, rolz, \
+                       out, batch, win);
   if constexpr (CL && TPL > 1) {
     K5_ARM(128)
     K5_ARM(256)
@@ -425,21 +443,39 @@ static int k5_launch_arm(const ScanGrid& g, void* stream, const Cfg& c, const ui
   return (int)cudaErrorInvalidValue;
 }
 
+// Both entries (CHAIN: win holds the [prev | cur] window's 2N bytes,
+// 8-byte aligned).
+template <bool CHAIN>
+static int k5_launch(const int* cfg, const void* inp, const void* win, const void* props,
+                     void* rolz, void* out, void* stream) {
+  Cfg c;
+  memcpy(&c, cfg, sizeof(Cfg));
+  if (c.n_cands < 1 || c.n_cands > K5_MAX_CANDS) return (int)cudaErrorInvalidValue;
+  const long long n_win = (long long)(CHAIN ? 2 : 1) * c.S * c.T;
+  if (n_win >= (1LL << 28)) return (int)cudaErrorInvalidValue;  // SearchScan's positions
+  const ScanGrid g = k5_grid(c.S);
+  const uint8_t* in = (const uint8_t*)inp;
+  const uint8_t* w = (const uint8_t*)win;
+  const int* pr = (const int*)props;
+  int* const r = (int*)rolz;
+  int* const o = (int*)out;
+  if (k5_tpl(c.S) == 1) return k5_launch_arm<true, 1, CHAIN>(g, stream, c, in, pr, r, o, w);
+  return g.ctas > 1 ? k5_launch_arm<true, K5_TPL, CHAIN>(g, stream, c, in, pr, r, o, w)
+                    : k5_launch_arm<false, K5_TPL, CHAIN>(g, stream, c, in, pr, r, o, w);
+}
+
 }  // namespace
 
 extern "C" int cpx_k5_launch(const int* cfg, const void* inp, const void* props,
                              void* rolz, void* out, void* stream) {
-  Cfg c;
-  memcpy(&c, cfg, sizeof(Cfg));
-  if (c.n_cands < 1 || c.n_cands > K5_MAX_CANDS) return (int)cudaErrorInvalidValue;
-  if ((long long)c.S * c.T >= (1LL << 28)) return (int)cudaErrorInvalidValue;  // SearchScan
-  const ScanGrid g = k5_grid(c.S);
-  const uint8_t* in = (const uint8_t*)inp;
-  const int* pr = (const int*)props;
-  if (k5_tpl(c.S) == 1)
-    return k5_launch_arm<true, 1>(g, stream, c, in, pr, (int*)rolz, (int*)out);
-  return g.ctas > 1 ? k5_launch_arm<true, K5_TPL>(g, stream, c, in, pr, (int*)rolz, (int*)out)
-                    : k5_launch_arm<false, K5_TPL>(g, stream, c, in, pr, (int*)rolz, (int*)out);
+  return k5_launch<false>(cfg, inp, nullptr, props, rolz, out, stream);
+}
+
+// The chain arm: win is the [prev | cur] window, 2N bytes; proposals,
+// bucket positions and sources are window-absolute (+N).
+extern "C" int cpx_k5c_launch(const int* cfg, const void* inp, const void* win,
+                              const void* props, void* rolz, void* out, void* stream) {
+  return k5_launch<true>(cfg, inp, win, props, rolz, out, stream);
 }
 
 #ifdef CPX_K5_PROF

@@ -14,6 +14,16 @@
 // bytes per slot, step and lane), coalesced across the lanes of a warp.
 // The design gives each lane its own thread and spreads the lanes over
 // 128-thread CTAs; one block of S=512 lanes fills only 4 SMs.
+//
+// K3p, the emission mask's bit-pack (block.py:1965-1969), follows K3 on
+// every adaptive encode: emit [T, n_slots, S] bytes (0 or 1) -> [T,
+// n_slots, S/8] bytes, bit k of byte j the flag of lane 8j + k (the order
+// np.unpackbits(..., bitorder="little") reads back, 2256-2260), so the
+// host copies an eighth of the mask.  A thread packs one byte from one
+// 8-byte load: the eight flags are bits 0, 8, .., 56 of the word, and one
+// multiply by 2^56 + 2^49 + .. + 2^7 gathers bit 8k into bit 56 + k, every
+// partial product at a bit of its own (no carry).  Bound: bytes, 9/8 of
+// the mask.
 #include "ppm_r.cuh"
 
 namespace {
@@ -43,7 +53,24 @@ __global__ void k3_kernel(int S, int T, int n_slots, const int* __restrict__ ev,
   states[i] = (long long)x;
 }
 
+__global__ void k3p_kernel(int n_out, const uint64_t* __restrict__ emit,
+                           uint8_t* __restrict__ packed) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_out) return;
+  const uint64_t flags = emit[j] & 0x0101010101010101ull;
+  packed[j] = (uint8_t)((flags * 0x0102040810204080ull) >> 56);
+}
+
 }  // namespace
+
+// emit: n_out * 8 flag bytes (8-byte aligned) -> packed: n_out bytes.
+extern "C" int cpx_k3p_launch(int n_out, const void* emit, void* packed, void* stream) {
+  if (n_out < 1 || ((uintptr_t)emit & 7)) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  k3p_kernel<<<(n_out + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+      n_out, (const uint64_t*)emit, (uint8_t*)packed);
+  return (int)cudaGetLastError();
+}
 
 // ev [T, 3 * n_slots, S] -> states [S], emit and words [T, n_slots, S].
 extern "C" int cpx_k3_launch(int S, int T, int n_slots, const void* ev,

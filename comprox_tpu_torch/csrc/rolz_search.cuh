@@ -41,14 +41,20 @@ static __device__ __forceinline__ uint64_t bytes8(uint64_t lo, uint64_t hi, int 
 // on a branch), then eight 8-byte compares, the first difference by its
 // lowest set bit.  With TPL threads a lane (K5), thread q of the lane's
 // takes bytes 64 q.. of a round and the first difference is their least
-// (shuffles over `mask`, the lane's threads, which all call it).
+// (shuffles over `mask`, the lane's threads, which all call it).  A
+// candidate buffer `cand` of cand_cap bytes (8-byte aligned, cand_cap a
+// multiple of 8) takes the block's place for the bytes at src: K5's chain
+// arm reads its sources from the [prev | cur] window.
 template <int TPL = 1>
 static __device__ int prefix_len(const uint8_t* inp, const Cfg& c, int lane, int t,
-                          int src, int width, int q = 0, unsigned mask = 0) {
+                          int src, int width, int q = 0, unsigned mask = 0,
+                          const uint8_t* cand = nullptr, long long cand_cap = 0) {
   const long long cap = (long long)c.S * c.T, nw = cap >> 3;
   const long long cur = (long long)lane * c.T + t, row_end = (long long)(lane + 1) * c.T;
   const long long base = max(src, 0);
   const uint64_t* w = reinterpret_cast<const uint64_t*>(inp);
+  const uint64_t* wc = cand ? reinterpret_cast<const uint64_t*>(cand) : w;
+  const long long ccap = cand ? cand_cap : cap, nwc = ccap >> 3;
   const int sa = (int)(cur & 7) * 8, sb = (int)(base & 7) * 8;
   for (int l0 = 0; l0 < width; l0 += 64 * TPL) {
     const int l = l0 + 64 * q;
@@ -59,12 +65,12 @@ static __device__ int prefix_len(const uint8_t* inp, const Cfg& c, int lane, int
 #pragma unroll
       for (int u = 0; u < 9; ++u) {
         a[u] = __ldg(w + min(ka + u, nw - 1));
-        b[u] = __ldg(w + min(kb + u, nw - 1));
+        b[u] = __ldg(wc + min(kb + u, nwc - 1));
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const uint64_t diff = bytes8(a[u], a[u + 1], sa, row_end - (cur + l + 8 * u)) ^
-                              bytes8(b[u], b[u + 1], sb, cap - (base + l + 8 * u));
+                              bytes8(b[u], b[u + 1], sb, ccap - (base + l + 8 * u));
         if (diff) {
           first = l + 8 * u + ((__ffsll((long long)diff) - 1) >> 3);
           break;

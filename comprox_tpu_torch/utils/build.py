@@ -49,6 +49,7 @@ _SIGNATURES = {
     "cpx_radix_sort_launch": [_I] + [_P] * 4,
     "cpx_k4_find_launch": [_P] * 8,
     "cpx_k5_launch": [_P] * 6,
+    "cpx_k5c_launch": [_P] * 7,
     "cpx_k6_launch": [_P] * 4,
     "cpx_k6f_launch": [_P] * 4,
     "cpx_k7_keys_launch": [_P] * 4,
@@ -59,6 +60,9 @@ _SIGNATURES = {
     "cpx_k2_launch": [_P] * 12,
     "cpx_k3_launch": [_I, _I, _I, _P, _P, _P, _P, _P],
     "cpx_k1_launch": [_P] * 15,
+    "cpx_k1c_launch": [_P] * 15,
+    "cpx_kcr_launch": [_I, _I, _P, _P, _P],
+    "cpx_k3p_launch": [_I, _P, _P, _P],
     "cpx_k4x_keys_launch": [_P] * 4,
     "cpx_k4x_find_launch": [_P] * 8,
     "cpx_k6x_launch": [_P] * 5,

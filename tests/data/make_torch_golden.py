@@ -48,6 +48,14 @@ and cut to 8 MiB; the recipe of BASELINE.md's binary table), and
 named ``<codec>_elfF_<parse>_<size>_S512.cpx`` and their entry records the
 8 MiB corpus' md5.
 
+``--chain c`` codes in chain mode (``-c``: the PPM models carry across
+blocks) and ``--chain C`` in chain mode v2 (``-C``, crz only: the bucket
+table and the previous block's bytes carry too); the archives are named
+``<codec>_chain_...`` and ``<codec>_chainm_...``.  ``--corpus textelf`` is
+the 8 MiB text corpus followed by the 8 MiB ELF corpus, both decoded from
+committed archives (``crz_flex_8MiB_S512.cpx``, ``crz_elfF_flex_8MiB_S256.cpx``),
+so that it is the same 16 MiB on every machine (``--mb 16``).
+
 Usage::
 
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --mb 1 --mb 8
@@ -59,6 +67,8 @@ Usage::
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crp --mb 1 --mb 8
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crf --corpus words --kib 32 --lanes 2048 --steps 8
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --corpus elf --filters --kib 256 --parse flex
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --chain C --mb 8 --steps 4096 --parse flex
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --chain C --corpus textelf --mb 16 --steps 16384 --parse flex
 """
 
 from __future__ import annotations
@@ -86,13 +96,19 @@ def size_tag(size: int) -> str:
     return f"{size >> 20}MiB" if size % (1 << 20) == 0 else f"{size >> 10}KiB"
 
 
+CHAINS = {"": "", "c": "_chain", "C": "_chainm"}  # --chain -> name tag
+TEXTELF_SEEDS = ("crz_flex_8MiB_S512.cpx", "crz_elfF_flex_8MiB_S256.cpx")
+
+
 def archive_name(mb: int, parse: str = "f0", codec: str = "crz",
                  finder: str = "sort", size: int = 0, lanes: int = 512,
-                 corpus: str = "text") -> str:
+                 corpus: str = "text", chain: str = "") -> str:
     """The golden's file name; ``size`` (bytes) overrides ``mb``."""
     tail = f"{size_tag(size or mb << 20)}_S{lanes}.cpx"
     tag = codec if finder == "sort" else f"{codec}_{finder}"
-    tag += {"text": "", "elf": "_elfF", "words": "_words"}[corpus]
+    tag += CHAINS[chain]
+    tag += {"text": "", "elf": "_elfF", "words": "_words",
+            "textelf": "_textelf"}[corpus]
     if codec == "crp":  # no parse pass: one archive per size
         return f"{tag}_{tail}"
     return f"{tag}_{parse}_{tail}"
@@ -147,10 +163,13 @@ def main() -> int:
                     help="crf and crp write one archive per size")
     ap.add_argument("--finder", choices=("sort", "scan"), default="sort",
                     help="crx only: the candidate source (CPX_X_FINDER)")
-    ap.add_argument("--corpus", choices=("text", "elf", "words"),
+    ap.add_argument("--corpus", choices=("text", "elf", "words", "textelf"),
                     default="text",
                     help="the committed text corpus, the x86-64 ELF build, "
-                         "or words from a seed")
+                         "words from a seed, or the 8 MiB text and ELF "
+                         "corpora of two committed archives end to end")
+    ap.add_argument("--chain", choices=("c", "C"), default="",
+                    help="chain mode (-c), or chain mode v2 (-C, crz only)")
     ap.add_argument("--filters", action="store_true",
                     help="content filters on (-F); --corpus elf only")
     ap.add_argument("--rebuild-corpus", action="store_true",
@@ -164,13 +183,21 @@ def main() -> int:
         os.environ["CPX_X_FINDER"] = args.finder  # read at import
     if args.filters != (args.corpus == "elf"):
         raise SystemExit("--filters goes with --corpus elf")
+    if args.chain == "C" and args.codec != "crz":
+        raise SystemExit("--chain C is crz's")
+    if args.corpus == "textelf" and sizes != [16 << 20]:
+        raise SystemExit("--corpus textelf is 16 MiB: --mb 16")
 
     from comprox_tpu.cli.main import make_params
     from comprox_tpu.codec.container import decode_stream, encode_stream
 
     meta_path = HERE / "torch_golden.json"
-    meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
     elf = elf_corpus() if args.corpus == "elf" else None
+
+    def decoded(name):
+        out = io.BytesIO()
+        decode_stream(io.BytesIO((HERE / name).read_bytes()), out)
+        return np.frombuffer(out.getvalue(), np.uint8)
     for size in sizes:
         mb = max(size >> 20, 1)
         seed_arc = HERE / archive_name(mb)
@@ -181,6 +208,8 @@ def main() -> int:
             data = elf[:size]
         elif args.corpus == "words":
             data = words_corpus(size)
+        elif args.corpus == "textelf":
+            data = np.concatenate([decoded(a) for a in TEXTELF_SEEDS])
         elif args.rebuild_corpus or not seed_arc.exists():
             if args.codec != "crz" or size % (1 << 20):
                 raise SystemExit(f"{args.codec} codes the corpus of the "
@@ -191,20 +220,19 @@ def main() -> int:
             data = build_corpus(size)
             parses = sorted(PARSES)
         else:
-            out = io.BytesIO()
-            decode_stream(io.BytesIO(seed_arc.read_bytes()), out)
-            data = np.frombuffer(out.getvalue(), np.uint8)[:size]
+            data = decoded(seed_arc.name)[:size]
         block_mb = (args.lanes * args.steps / 1048576 if args.steps
                     else size / 1048576)
         for parse in parses:
             cp = make_params(
                 args.codec,
                 {"lanes": args.lanes, "block_mb": block_mb,
-                 "flexible": PARSES[parse]},
+                 "flexible": PARSES[parse], "chain_match": args.chain == "C"},
             )
             t0 = time.time()
             buf = io.BytesIO()
-            encode_stream(data, buf, cp, filters=args.filters)
+            encode_stream(data, buf, cp, filters=args.filters,
+                          chain=bool(args.chain))
             t_enc = time.time() - t0
             arc = buf.getvalue()
             t0 = time.time()
@@ -214,11 +242,15 @@ def main() -> int:
             if out.getvalue() != data.tobytes():
                 raise SystemExit(f"{size} B {parse}: JAX round trip failed")
             name = archive_name(mb, parse, args.codec, args.finder, size,
-                                args.lanes, args.corpus)
+                                args.lanes, args.corpus, args.chain)
             (HERE / name).write_bytes(arc)
             flag = "" if PARSES[parse] else "-f0 "
             flag += "-F " if args.filters else ""
+            flag += f"-{args.chain} " if args.chain else ""
             env = "" if args.finder == "sort" else f"CPX_X_FINDER={args.finder} "
+            # read again: another run may have added entries meanwhile
+            meta = (json.loads(meta_path.read_text())
+                    if meta_path.exists() else {})
             meta[name] = {
                 "argv": f"{env}{args.codec} e {flag}-b{block_mb:g} -l{args.lanes}",
                 "input_bytes": int(data.size),

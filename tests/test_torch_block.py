@@ -120,7 +120,7 @@ def check_block(data, kw, parse=False):
     np.testing.assert_array_equal(emit.numpy(), emit_ref.astype(bool))
     np.testing.assert_array_equal(words.numpy(), np.asarray(words_j).astype(np.int32))
     payload_j = jblk._pack_payload(x_j, emit_j, words_j)
-    assert blk._pack_payload(x, emit, words) == payload_j
+    assert blk._pack_payload(x, blk.pack_emit(pt, emit), words) == payload_j
     assert blk.encode_block(data, pt, "cpu") == payload_j
 
     # K1 on the JAX payload
@@ -286,10 +286,13 @@ def test_unsupported_configurations_raise(monkeypatch):
         blk.encode_block(data, blk.BlockParams(**dict(SMALL, mode="Q")), "cpu")
     with pytest.raises(NotImplementedError, match="short_depth"):
         blk.decode_block(b"", 1, blk.BlockParams(**dict(SMALL, short_depth=8)), "cpu")
-    with pytest.raises(NotImplementedError, match="chain_match"):
-        blk.decode_block(
-            b"", 1, blk.BlockParams(**dict(SMALL, flexible=True, chain_match=True)),
-            "cpu")
+    # chain_match is ported (test_torch_chain.py): a block of it needs the
+    # carried state, which the one-block coders do not have
+    pcm = blk.BlockParams(**dict(SMALL, flexible=True, chain_match=True))
+    with pytest.raises(ValueError, match="encode_block_chained"):
+        blk.encode_block(data, pcm, "cpu")
+    with pytest.raises(ValueError, match="decode_block_chained"):
+        blk.decode_block(b"", 1, pcm, "cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         blk.rans_scan(blk.BlockParams(**SMALL),
                       torch.empty((64, 9, 8), dtype=torch.int32, device="meta"))

@@ -151,20 +151,27 @@ def test_cli_subprocess_imports_no_jax(tmp_path):
 
 
 def test_chained_archives_and_other_codecs_raise():
+    """Chained headers of the adaptive codecs are read (one with no block
+    decodes to nothing); a chained crf header is refused: crf has no
+    adaptive models to carry, and no encoder writes one."""
     for codec, flags, exc in (
-        (b"R", jcon.F_CHAIN, NotImplementedError),
-        (b"R", jcon.F_CHAIN | jcon.F_CHAIN_MATCH, NotImplementedError),
-        (b"X", jcon.F_CHAIN, NotImplementedError),
-        (b"P", jcon.F_CHAIN, NotImplementedError),
-        (b"F", jcon.F_CHAIN, NotImplementedError),
+        (b"R", jcon.F_CHAIN, None),
+        (b"R", jcon.F_CHAIN | jcon.F_CHAIN_MATCH, None),
+        (b"X", jcon.F_CHAIN, None),
+        (b"P", jcon.F_CHAIN, None),
+        (b"F", jcon.F_CHAIN, ValueError),
     ):
         f = io.BytesIO()
         mode = {b"R": "R", b"X": "X", b"F": "F"}.get(codec, "P")
         jcon.write_header(
-            f, jcon.ContainerParams(codec=codec, block=jblk.BlockParams(
-                **dict(SMALL, mode=mode))), flags=flags)
+            f, jcon.ContainerParams(codec=codec, block=jblk.BlockParams(**dict(
+                SMALL, mode=mode, flexible=True,
+                chain_match=bool(flags & jcon.F_CHAIN_MATCH)))), flags=flags)
         f.write(b"\0" * 13)
-        with pytest.raises(exc, match="not yet ported"):
+        if exc is None:
+            assert con.decode_stream(io.BytesIO(f.getvalue()), io.BytesIO(), "cpu") == 0
+            continue
+        with pytest.raises(exc, match="adaptive-model codec"):
             con.decode_stream(io.BytesIO(f.getvalue()), io.BytesIO(), "cpu")
     # codecs X and P are ported: an unchained header with no block decodes
     # to nothing
@@ -176,31 +183,50 @@ def test_chained_archives_and_other_codecs_raise():
         assert con.decode_stream(io.BytesIO(f.getvalue()), io.BytesIO(), "cpu") == 0
 
 
+# The switches -j and -g are not ported and raise; -c and -C are (chain
+# modes): an accepted command line codes a short input at a small geometry
+# and JAX decodes the archive, a refused one raises the JAX package's error.
+_CHAIN_OK = "chained"
+
+
 @pytest.mark.parametrize(
-    "argv",
+    "argv,expect",
     [
-        ["crz", "e", "a", "b", "-f0", "-c"],
-        ["crz", "e", "a", "b", "-f0", "-C"],
-        ["crz", "e", "a", "b", "-f0", "-j"],
-        ["crz", "e", "a", "b", "-f0", "-g2"],
-        ["crz", "e", "a", "b", "-c"],
-        ["crx", "e", "a", "b", "-c"],
-        ["crp", "e", "a", "b", "-f0", "-c"],
-        ["crf", "e", "a", "b", "-c"],
-        ["crf", "e", "a", "b", "-C"],
-        ["crf", "e", "a", "b", "-g2"],
-        ["crf", "e", "a", "b", "-j"],
-        ["crx", "e", "a", "b", "-C"],
-        ["crx", "e", "a", "b", "-j"],
-        ["crx", "e", "a", "b", "-g2"],
-        ["crp", "e", "a", "b", "-g2"],
+        (["crz", "e", "a", "b", "-f0", "-c"], _CHAIN_OK),
+        (["crz", "e", "a", "b", "-f0", "-C"], ValueError),
+        (["crz", "e", "a", "b", "-f0", "-j"], NotImplementedError),
+        (["crz", "e", "a", "b", "-f0", "-g2"], NotImplementedError),
+        (["crz", "e", "a", "b", "-c"], _CHAIN_OK),
+        (["crx", "e", "a", "b", "-c"], _CHAIN_OK),
+        (["crp", "e", "a", "b", "-f0", "-c"], _CHAIN_OK),
+        (["crf", "e", "a", "b", "-c"], ValueError),
+        (["crf", "e", "a", "b", "-C"], ValueError),
+        (["crf", "e", "a", "b", "-g2"], NotImplementedError),
+        (["crf", "e", "a", "b", "-j"], NotImplementedError),
+        (["crx", "e", "a", "b", "-C"], ValueError),
+        (["crx", "e", "a", "b", "-j"], NotImplementedError),
+        (["crx", "e", "a", "b", "-g2"], NotImplementedError),
+        (["crp", "e", "a", "b", "-g2"], NotImplementedError),
     ],
 )
-def test_cli_unported_switches_raise(argv, tmp_path):
-    (tmp_path / "a").write_bytes(b"x" * 100)
+def test_cli_unported_switches_raise(argv, expect, tmp_path):
+    data = corpus("text", 300, seed=4)
+    (tmp_path / "a").write_bytes(data.tobytes())
     argv = [str(tmp_path / a) if a in ("a", "b") else a for a in argv]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.run(argv[0], argv[1:], device="cpu")
+    if expect is NotImplementedError:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.run(argv[0], argv[1:], device="cpu")
+        return
+    if expect is ValueError:
+        with pytest.raises(ValueError, match="chain"):
+            cli.run(argv[0], argv[1:], device="cpu")
+        return
+    cli.run(argv[0], argv[1:] + ["-b0.0001", "-l8", "-q"], device="cpu")
+    arc = (tmp_path / "b").read_bytes()
+    assert con.read_header(io.BytesIO(arc))[1] & con.F_CHAIN
+    out = io.BytesIO()
+    jcon.decode_stream(io.BytesIO(arc), out)
+    assert out.getvalue() == data.tobytes()
 
 
 def test_cli_needs_a_card_for_cuda(tmp_path):
@@ -208,6 +234,13 @@ def test_cli_needs_a_card_for_cuda(tmp_path):
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.run("crz", ["d", str(tmp_path / "a"), str(tmp_path / "b")], "cuda")
+
+
+# the chained goldens: crz -c, crz -C, crx -c, crp -c at -b2 on the 8 MiB
+# corpus, and crz -C -b8 on the 8 MiB text and ELF corpora end to end
+CHAINED = {"crz_chain_flex_8MiB_S512.cpx", "crz_chainm_flex_8MiB_S512.cpx",
+           "crx_chain_flex_8MiB_S512.cpx", "crp_chain_8MiB_S512.cpx",
+           "crz_chainm_textelf_flex_16MiB_S512.cpx"}
 
 
 def test_golden_fixture_metadata():
@@ -222,7 +255,7 @@ def test_golden_fixture_metadata():
         f"{c}_elfF_flex_{size}.cpx" for c in ("crx", "crz")
         for size in ("256KiB_S512", "8MiB_S256")} | {
         f"{c}_words_flex_32KiB_S2048.cpx" for c in ("crz", "crx", "crf")} | {
-        "crp_words_32KiB_S2048.cpx"}
+        "crp_words_32KiB_S2048.cpx"} | CHAINED
     assert {"crx_scan_flex_1MiB_S512.cpx", "crx_scan_f0_1MiB_S512.cpx"} <= set(meta)
     assert meta["crx_scan_flex_1MiB_S512.cpx"]["argv"].startswith("CPX_X_FINDER=scan ")
     assert (meta["crx_f0_1MiB_S512.cpx"]["input_sha256"]
@@ -231,6 +264,11 @@ def test_golden_fixture_metadata():
         for other in ("crz_flex", "crf_flex", "crx_flex", "crp"):
             assert (meta[f"{other}_{mb}MiB_S512.cpx"]["input_sha256"]
                     == meta[f"crz_f0_{mb}MiB_S512.cpx"]["input_sha256"])
+    for name in CHAINED:  # the 8 MiB corpus in four blocks, or 16 MiB in two
+        m = meta[name]
+        assert m["argv"].endswith("-b8 -l512" if "_16MiB_" in name else "-b2 -l512")
+        if "_8MiB_" in name:
+            assert m["input_sha256"] == meta["crz_f0_8MiB_S512.cpx"]["input_sha256"]
     import hashlib
 
     for name, m in meta.items():
@@ -239,7 +277,8 @@ def test_golden_fixture_metadata():
         assert len(arc) == m["archive_bytes"]
         cp, flags = con.read_header(io.BytesIO(arc))
         assert cp.block.lanes == int(name.rsplit("_S", 1)[1][:-4])
-        assert not flags & (con.F_CHAIN | con.F_CHAIN_MATCH)
+        assert bool(flags & con.F_CHAIN) == (name in CHAINED)
+        assert bool(flags & con.F_CHAIN_MATCH) == ("_chainm_" in name)
         assert cp.block.mode == {"crz": "R", "crf": "F", "crx": "X", "crp": "P"}[name[:3]]
 
 

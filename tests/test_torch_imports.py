@@ -23,6 +23,7 @@ PORT_MODULES = [
     "comprox_tpu_torch.benchmarks.probes",
     "comprox_tpu_torch.benchmarks.ring_depth",
     "comprox_tpu_torch.benchmarks.sort_keys",
+    "comprox_tpu_torch.benchmarks.walls",
     "comprox_tpu_torch.benchmarks.work",
     "comprox_tpu_torch.cli.main",
     "comprox_tpu_torch.codec.block",

@@ -113,13 +113,14 @@ def test_kernel_sources_and_launch_table():
     number on both sides."""
     assert set(blk.LAUNCHES) == {"KS", "K1", "K2", "K3", "K4", "K5", "K6", "K7",
                                  "K8", "K9", "K10", "K4x", "K11", "K12e", "K12d",
-                                 "KSx", "K13c", "K13e", "K13d", "SORT"}
+                                 "KSx", "K13c", "K13e", "K13d", "SORT", "K3p",
+                                 "KCR", "K5ch", "K1ch"}
     assert set(blk._EVENTS) == set(blk.LAUNCHES)
     names = {p.name for p in build._sources()}
     assert {"search.cu", "decode.cu", "model.cu", "rans.cu", "sortfind.cu",
             "rank.cu", "parse.cu", "f2find.cu", "f2tok.cu", "f2enc.cu",
-            "f2dec.cu", "xrep.cu", "lzpcand.cu", "sortlib.cuh", "f2scan.cuh",
-            "ppm_r.cuh"} <= names
+            "f2dec.cu", "xrep.cu", "lzpcand.cu", "chain.cu", "sortlib.cuh",
+            "f2scan.cuh", "ppm_r.cuh"} <= names
     scan = (build.CSRC / "f2scan.cuh").read_text()
     threads = int(re.search(r"#define SCAN_THREADS (\d+)", scan).group(1))
     per = int(re.search(r"#define SCAN_PER (\d+)", scan).group(1))
@@ -362,13 +363,14 @@ def test_radix_sort_matches_torch_sort(cuda_device, name):
 @pytest.mark.parametrize("name", CRZ_GOLDENS)
 def test_k1_decodes_the_crz_goldens(cuda_device, name):
     """K1 decodes every committed crz archive of the JAX package on the
-    card (1 MiB and 8 MiB, flexible and -f0, the -F ELF corpus, and S=2048
-    as a cluster of two CTAs) to its corpus' SHA-256."""
+    card (1 MiB and 8 MiB, flexible and -f0, the -F ELF corpus, S=2048 as
+    a cluster of two CTAs, chained; its chain arm K1ch under -C) to its
+    corpus' SHA-256."""
     m = GOLDEN_META[name]
     blk.reset_launch_counts()
     out = io.BytesIO()
     con.decode_stream(io.BytesIO((GOLDEN / name).read_bytes()), out, "cuda")
-    assert blk.LAUNCHES["K1"] >= 1
+    assert blk.LAUNCHES["K1ch" if "_chainm_" in name else "K1"] >= 1
     assert hashlib.sha256(out.getvalue()).hexdigest() == m["input_sha256"]
 
 
@@ -464,7 +466,8 @@ def test_kernel_matches_plain(cuda_device, kernel):
         want = blk.rans_scan_plain(p, ev)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         return
-    n_words, states, stream = blk._unpack_payload(blk._pack_payload(*got), p)
+    payload = blk._pack_payload(got[0], blk.pack_emit(p, got[1]), got[2])
+    n_words, states, stream = blk._unpack_payload(payload, p)
     st = torch.from_numpy(states.astype(np.int64)).to(cuda_device)
     sw = torch.from_numpy(stream.astype(np.int32)).to(cuda_device)
     (tk, rk), (tp, rp) = fresh(), fresh()
@@ -764,7 +767,8 @@ def test_x_kernel_matches_plain(cuda_device, kernel, name):
         assert got[1].shape == (p.steps, 5, p.lanes)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         return
-    n_words, states, stream = blk._unpack_payload(blk._pack_payload(*want), p)
+    payload = blk._pack_payload(want[0], blk.pack_emit(p, want[1]), want[2])
+    n_words, states, stream = blk._unpack_payload(payload, p)
     st = torch.from_numpy(states.astype(np.int64)).to(cuda_device)
     sw = torch.from_numpy(stream.astype(np.int32)).to(cuda_device)
     tk, tp = fresh(), fresh()
@@ -888,7 +892,8 @@ def test_p_kernel_matches_plain(cuda_device, kernel, name, match):
     if kernel == "K3":
         assert all(torch.equal(a, b) for a, b in zip(blk.rans_scan(p, ev), want))
         return
-    n_words, states, stream = blk._unpack_payload(blk._pack_payload(*want), p)
+    payload = blk._pack_payload(want[0], blk.pack_emit(p, want[1]), want[2])
+    n_words, states, stream = blk._unpack_payload(payload, p)
     st = torch.from_numpy(states.astype(np.int64)).to(cuda_device)
     sw = torch.from_numpy(stream.astype(np.int32)).to(cuda_device)
     (tk, zk), (tp, zp) = fresh(), fresh()
@@ -1025,3 +1030,103 @@ def test_wide_block_runs_on_the_cpu_and_is_refused_on_a_card(monkeypatch):
     with pytest.raises(NotImplementedError, match="lanes <= 8192"):
         tfast.encode_scan(pf, z, z, z, 0)
     assert not any(blk.LAUNCHES.values())
+
+
+# ---- chain mode v2 (crz -C): KCR, K3p and the chain arms of K5 and K1 ------
+
+CHAIN = dict(WIDE, flexible=True, chain_match=True)
+
+
+def _chain_block(p, dev, seed):
+    """The chain state after one block of text coded on the card, and the
+    next block: ``(state1, inp [S, T] on dev, n)``."""
+    n = p.capacity - 50
+    data = text(p.capacity + n, seed)
+    _, st = blk.encode_block_chained(data[: p.capacity], p,
+                                     blk.init_chain_tables(p, dev), dev)
+    buf = np.zeros(p.capacity, np.uint8)
+    buf[:n] = data[p.capacity:]
+    return st, torch.from_numpy(buf.reshape(p.lanes, p.steps)).to(dev), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["KCR", "K5ch", "K1ch"])
+def test_chain_kernel_matches_plain(cuda_device, kernel):
+    """Each chain kernel against its plain version, from the state one
+    block on the card leaves (tolerance 0 on every grid and table)."""
+    p = blk.BlockParams(**CHAIN)
+    st, inp, n = _chain_block(p, cuda_device, 13)
+    before = dict(blk.LAUNCHES)
+    if kernel == "KCR":
+        rng = np.random.default_rng(2)
+        rand = torch.from_numpy(rng.integers(
+            0, 2 * p.capacity + 1, st["ment"].shape, dtype=np.int32)).to(cuda_device)
+        for ment in (st["ment"], rand):
+            want = blk.remap_chain_ment_plain(p, ment)
+            assert torch.equal(blk.remap_chain_ment(p, ment), want)
+            assert (want[..., 0] > 0).any()
+        assert blk.LAUNCHES["KCR"] == before["KCR"] + 2
+        return
+    ment = blk.remap_chain_ment_plain(p, st["ment"])
+    if kernel == "K5ch":
+        props = blk.sort_candidates_plain(p, inp, n)
+        rk, rp = ment.clone(), ment.clone()
+        got = blk.rank_scan(p, inp, n, props, rk, st["prev"])
+        assert blk.LAUNCHES["K5ch"] == before["K5ch"] + 1
+        assert blk.LAUNCHES["K5"] == before["K5"]
+        want = blk.rank_scan_plain(p, inp, n, props, rp, st["prev"])
+        assert torch.equal(got, want) and torch.equal(rk, rp)
+        assert (want[1::3][:-1] >= p.capacity - 1).all()  # window-absolute
+        return
+    payload, _ = blk.encode_block_chained(
+        inp.cpu().numpy().reshape(-1)[:n], p, st, cuda_device)
+    n_words, states, stream = blk._unpack_payload(payload, p)
+    x0 = torch.from_numpy(states.astype(np.int64)).to(cuda_device)
+    sw = torch.from_numpy(stream.astype(np.int32)).to(cuda_device)
+    tk = {k: v.clone() for k, v in st["tables"].items()}
+    tp = {k: v.clone() for k, v in st["tables"].items()}
+    rk, rp = ment.clone(), ment.clone()
+    xk, uk, ok = blk.decode_scan(p, x0, sw, n, tk, rk, prev=st["prev"])
+    assert blk.LAUNCHES["K1ch"] == before["K1ch"] + 1
+    xp, up, op = blk.decode_scan_plain(p, x0, sw, n, tp, rp, prev=st["prev"])
+    assert uk == up == n_words
+    assert torch.equal(xk, xp) and torch.equal(ok, op) and torch.equal(rk, rp)
+    assert all(torch.equal(tk[k], tp[k]) for k in tk)
+    assert torch.equal(ok, inp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots", [3, 5])
+@pytest.mark.parametrize("lanes", [8, 512, 2056])
+def test_k3p_matches_plain(cuda_device, n_slots, lanes):
+    p = blk.BlockParams(lanes=lanes, steps=37, mode="X" if n_slots == 5 else "R")
+    rng = np.random.default_rng(lanes)
+    emit = torch.from_numpy(rng.integers(0, 2, (37, n_slots, lanes)).astype(bool))
+    got = blk.pack_emit(p, emit.to(cuda_device))
+    assert got.shape == (37, n_slots, lanes // 8)
+    assert torch.equal(got.cpu(), blk.pack_emit_plain(emit))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,flags", [("crz", ["-c"]), ("crz", ["-C"]),
+                                         ("crx", ["-c"]), ("crp", ["-c"])])
+def test_chained_archive_on_card_equals_cpu(cuda_device, tmp_path, codec, flags):
+    """The CLI's chained archives, four blocks of S=64 and T=64: the card
+    writes the plain versions' bytes and decodes them."""
+    from comprox_tpu_torch.cli import main as cli
+
+    data = text(4 * 4096 - 300, seed=21)
+    src = tmp_path / "in"
+    data.tofile(src)
+    argv = [*flags, "-b0.00390625", "-l64", "-q"]
+    before = dict(blk.LAUNCHES)
+    cli.run(codec, ["e", str(src), str(tmp_path / "card"), *argv], device=cuda_device)
+    cli.run(codec, ["e", str(src), str(tmp_path / "cpu"), *argv], device="cpu")
+    assert (tmp_path / "card").read_bytes() == (tmp_path / "cpu").read_bytes()
+    cli.run(codec, ["d", str(tmp_path / "card"), str(tmp_path / "out"), "-q"],
+            device=cuda_device)
+    assert (tmp_path / "out").read_bytes() == data.tobytes()
+    used = {k for k in blk.LAUNCHES if blk.LAUNCHES[k] > before[k]}
+    assert "K3p" in used
+    assert {"KCR", "K5ch", "K1ch"} <= used if "-C" in flags else not (
+        {"KCR", "K5ch", "K1ch"} & used)

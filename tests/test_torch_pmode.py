@@ -247,7 +247,7 @@ def check_block(name, geo, short, seed=1, **kw):
     np.testing.assert_array_equal(emit.numpy(), emit_ref.astype(bool))
     np.testing.assert_array_equal(words.numpy(), np.asarray(words_j).astype(np.int32))
     payload_j = jblk._pack_payload(x_j, emit_j, words_j)
-    assert blk._pack_payload(x, emit, words) == payload_j
+    assert blk._pack_payload(x, blk.pack_emit(pt, emit), words) == payload_j
     assert blk.encode_block(data, pt, "cpu") == payload_j
 
     # K13d on the JAX payload

@@ -108,7 +108,8 @@ def test_bounds_log_every_other_kernel_of_the_encode(mode):
         else:
             blk.encode_block(data, p, "cpu")
     # (the sort's entry is its launcher, which only the card's finders call)
-    want = dict(R={"K4", "K6 (R)", "K3"}, X={"K4x", "K6 (X)", "K11", "K3 (5 slots)"},
+    want = dict(R={"K4", "K6 (R)", "K3", "K3p"},
+                X={"K4x", "K6 (X)", "K11", "K3 (5 slots)", "K3p (5 slots)"},
                 F={"K7", "K6 (F)", "K8", "K9"})[mode]
     assert set(log) == want
     assert all(b > 0 and o > 0 for b, o in log.values())
@@ -377,7 +378,8 @@ def _decode_payload(p, ev, n, inp, dev, rolz=False):
     """ev through the plain rANS scan into a payload, decoded by the kernel
     and its plain version (``_decode_pair``) back to the block."""
     want = blk.rans_scan_plain(p, ev)
-    n_words, states, stream = blk._unpack_payload(blk._pack_payload(*want), p)
+    payload = blk._pack_payload(want[0], blk.pack_emit(p, want[1]), want[2])
+    n_words, states, stream = blk._unpack_payload(payload, p)
     st = torch.from_numpy(states.astype(np.int64)).to(dev)
     sw = torch.from_numpy(stream.astype(np.int32)).to(dev)
     _, used, out = _decode_pair(p, st, sw, n, dev, rolz)
