@@ -18,9 +18,10 @@ no result line:
    ``benchmarks/phases.py`` (two of ``decode.cu``, K1's, K12d's and K13d's
    phase stamps at row-ring depth 0 and at the build's depth; one of
    ``rank.cu`` and ``model.cu``, K5's and the modeling scan's, K2, K12e and
-   K13e), all started together; prints each kernel arm's registers and
-   spills of the modeling scan (K2, K12e, K13e: four lanes a round of the
-   A event at up to 512 threads, two above) and of K13c.
+   K13e), all started together; prints the registers and spills of every
+   arm of the step scans and per-lane passes (K1, K12d/K13d, the modeling
+   scan K2/K12e/K13e: four lanes a round of the A event at up to 512
+   threads, two above; K5, K6, K11, K3, K3p) and of K13c.
 3. golden: decodes the committed JAX-package archives
    (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
    under ``crz e -l512`` with the flexible parse and with ``-f0``, under
@@ -30,7 +31,8 @@ no result line:
    e -F``; a 32 KiB corpus of words under each codec at ``-l2048`` with
    T=8, two blocks; the 8 MiB corpus chained at ``-b2``, four blocks of
    T=4096, under ``crz -c``, ``crz -C``, ``crx -c`` and ``crp -c``; the 16
-   MiB corpus of phase 15 under ``crz -C -b8``) on the card and checks the
+   MiB corpus of phase 16 under ``crz -C -b8``; the ``-g4`` goldens are
+   phase 20's) on the card and checks the
    decoded bytes' SHA-256;
    re-encodes each corpus that no full-width phase below codes, under its
    archive's command line, and checks that each archive's SHA-256 equals
@@ -75,7 +77,16 @@ no result line:
    chained at S=512, T=256, full-size LZP tables, each against its plain
    version; tolerance 0 on every grid, every PPM table, ``sse_p`` and
    ``lzp2/4/8``.
-10. probes: the nine Pallas probes of the JAX package's ``benchmarks/`` as
+10. kernels, blocks: every batched arm of the block axis (one launch codes
+   G blocks: K5, K6, K2 in mode R, K11, K6 twice, K12e in mode X, K13e,
+   K3 and K3p at three and five slots, K1, K12d, K13d) against G one-block
+   launches of the same kernel and against the plain loop (the plain
+   version on each block in turn), G = 4 blocks of S=512, T=256, full
+   tables, four consecutive spans of the corpus, the last 1003 bytes
+   short; tolerance 0 on every grid, table, state and stream; the batched
+   launch's ms beside the G one-block launches'.  The ``(blocks)`` rows of
+   the kernels line.
+11. probes: the nine Pallas probes of the JAX package's ``benchmarks/`` as
    the port runs them (``comprox_tpu_torch/benchmarks/probes.py``, kernels
    in ``csrc/probes.cu``): each at each of its own geometries (S=512)
    against its plain version, tolerance 0 (P8 against ``bf16(table)[idx]``;
@@ -84,31 +95,31 @@ no result line:
    a geometry, as ``python -m comprox_tpu_torch.benchmarks.probes`` prints
    them.  The kernels line carries each probe's last geometry (P1: its warp
    arm; P4: its persistent arm) and the launches of the whole phase.
-11. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
+12. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
    CLI; archive SHA-256 == the JAX golden; fails if K13c, K13e, K3, K3p or
    K13d was not launched.
-12. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
+13. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
    ``CPX_X_FINDER=scan``; archive SHA-256 == the JAX golden written under
    that knob; fails if KSx, K6, K11, K12e, K3, K3p or K12d was not
    launched, or if K4x was.
-13. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
+14. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
    CLI on the 8 MiB corpus; archive SHA-256 == the JAX golden, round trip
    bit-exact; fails if K4x, K11, K6, K12e, K3, K3p, K12d or the sort was
    not launched.
-14. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
+15. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
    through ``comprox_tpu_torch.cli.main`` on the 8 MiB corpus, one block of
    S=512 and T=16384.  The archive's SHA-256 must equal the JAX package's
    and the round trip must be bit-exact; prints MB/s, bpb and the kernel
    times, and fails if K4, K5, K6, K2, K3, K3p, K1 or the sort was not
    launched.
-15. full width, chain mode v2: ``crz e -C -b8 -l512`` then ``crz d`` on
+16. full width, chain mode v2: ``crz e -C -b8 -l512`` then ``crz d`` on
    16 MiB, the 8 MiB text corpus followed by the 8 MiB ELF corpus (both
    decoded from committed goldens), two chained blocks of S=512 and
    T=16384; archive SHA-256 == the JAX golden, round trip bit-exact; MB/s,
    each kernel's ms per launch, the bpb beside the unchained ``-b8``
    archive of the same input; fails unless K4, KCR (twice a side), K5ch,
    K6, K2, K3, K3p, K1ch and the sort were launched, or if K5 or K1 was.
-16. the step scans by phase: the same archive decoded through K1's two
+17. the step scans by phase: the same archive decoded through K1's two
    instrumented builds of phase 2, at ring depth 0 (the o2 or o1 rows of a
    pair of lanes issued when they are read, nothing in flight ahead) and
    at the build's depth, and its corpus encoded again through K5's and
@@ -118,12 +129,23 @@ no result line:
    each phase's share of the kernel's cycles and its microseconds a step
    (K5, K2, K12e, K13e, K12d, K13d: on thread 0 and on the CTA's last
    thread).
-17. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
+18. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
    K3, K3p or K1 was not launched.
-18. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
+19. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
    way; fails if K7, K6, K8, K9, K10 or the sort was not launched.  Then the host's
    share of that path, stage by stage (dictionary, block encode and decode,
-   the LZ copy walk, the CRC).
+   the LZ copy walk, the CRC).  (It runs last, after phases 20 and 21.)
+20. golden, -b2: the JAX package's ``-g4 -b2`` goldens (four blocks of
+   T=4096 of the 8 MiB corpus; crz, crx, crp, crf), which phase 3 leaves
+   out, decoded with ``-g4`` and with ``-g1`` to the corpus, and the corpus
+   encoded again with ``-g4`` to JAX's SHA-256.
+21. full width, -g4: ``crz|crx|crp e -b8 -l512 -g4`` against ``-g1`` on 29
+   MiB + 777 bytes, four distinct full-width blocks (the 8 MiB text and
+   ELF corpora of phase 16, each rotated by 4 MiB, the last cut to 5 MiB +
+   777 bytes); the archives byte-equal and ``d -g4`` bit-exact; walls,
+   MB/s, kernel ms of each launch, device time and idle share, peak card
+   memory of each, and K5's clusters the card holds at once.  The
+   launches of the ``(blocks)`` rows are this phase's ``-g4`` runs'.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -158,6 +180,7 @@ FULL_WIDTH_ARCHIVES = (MAIN_ARCHIVE, GREEDY_ARCHIVE, FAST_ARCHIVE, X_ARCHIVE,
 KERNEL_STEPS = 256
 
 PROBES_CU = "comprox_tpu_torch/csrc/probes.cu"
+AXIS = ("comprox_tpu/parallel/mesh.py:62", "comprox_tpu/parallel/mesh.py:73")
 KERNELS = [
     # name, source, the JAX scan it replaces (file:line)
     ("KS", "comprox_tpu_torch/csrc/search.cu",
@@ -219,6 +242,28 @@ KERNELS = [
      "comprox_tpu/codec/block.py:1233"),
     ("K1ch", "comprox_tpu_torch/csrc/decode.cu",
      "comprox_tpu/codec/block.py:2207"),
+    # the block axis (-g): one launch over G blocks, the vmap of
+    # _encode_passes (mesh.py:62) or _decode_scan (mesh.py:73) beside the
+    # kernel's own JAX line
+    *((f"{k} (blocks)", src, f"{AXIS[0] if side == 'e' else AXIS[1]}; {repl}")
+      for k, src, repl, side in (
+          ("K5", "comprox_tpu_torch/csrc/rank.cu", "comprox_tpu/codec/block.py:1188", "e"),
+          ("K6", "comprox_tpu_torch/csrc/parse.cu", "comprox_tpu/codec/block.py:1414", "e"),
+          ("K2", "comprox_tpu_torch/csrc/model.cu", "comprox_tpu/codec/block.py:1677", "e"),
+          ("K3", "comprox_tpu_torch/csrc/rans.cu", "comprox_tpu/codec/block.py:1945", "e"),
+          ("K3p", "comprox_tpu_torch/csrc/rans.cu", "comprox_tpu/codec/block.py:1965", "e"),
+          ("K1", "comprox_tpu_torch/csrc/decode.cu", "comprox_tpu/codec/block.py:1980", "d"),
+          ("K11", "comprox_tpu_torch/csrc/xrep.cu", "comprox_tpu/codec/block.py:1507", "e"),
+          ("K6 (X)", "comprox_tpu_torch/csrc/parse.cu", "comprox_tpu/codec/block.py:1414", "e"),
+          ("K12e", "comprox_tpu_torch/csrc/model.cu", "comprox_tpu/codec/block.py:1677", "e"),
+          ("K3 (5 slots)", "comprox_tpu_torch/csrc/rans.cu", "comprox_tpu/codec/block.py:1945",
+           "e"),
+          ("K3p (5 slots)", "comprox_tpu_torch/csrc/rans.cu",
+           "comprox_tpu/codec/block.py:1965", "e"),
+          ("K12d", "comprox_tpu_torch/csrc/decode.cu", "comprox_tpu/codec/block.py:1980", "d"),
+          ("K13e", "comprox_tpu_torch/csrc/model.cu", "comprox_tpu/codec/block.py:1677", "e"),
+          ("K13d", "comprox_tpu_torch/csrc/decode.cu", "comprox_tpu/codec/block.py:1980", "d"),
+      )),
     # the Pallas probes of benchmarks/ (their pl.pallas_call lines)
     ("P1", PROBES_CU, "benchmarks/pallas_probe.py:56"),
     ("P1b", PROBES_CU, "benchmarks/pallas_probe.py:97"),
@@ -292,13 +337,44 @@ _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                           r"(\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
-# the modeling scan's arms: k2_kernel<MAXT, MODE, CL, LPR>
-_K2_ARM = re.compile(r"k2_kernelILi(\d+)ELi(\d)ELb(\d)ELi(\d)E")
+# the reported arms, by the identifier in a mangled entry name (its length,
+# then itself, then the template arguments: ints Li..E, bools Lb..E)
+_ARM_PARAMS = {"k1_kernel": ("MAXT", "CL"), "k12d_kernel": ("MAXT", "MODE", "CL", "BLK"),
+               "k2_kernel": ("MAXT", "MODE", "CL", "LPR"),
+               "k5_kernel": ("MAXT", "CL", "TPL", "CHAIN"), "k6_kernel": ("FAST",),
+               "k11_kernel": (), "k3_kernel": (), "k3p_kernel": ()}
+_MANGLED = re.compile(r"_ZN(\d+)")
+_ARM_ARG = re.compile(r"L[ib](\d+)E")
+
+
+def _arm_name(fn: str):
+    """``k2_kernel<MAXT=512, MODE=R, CL=0, LPR=4>`` for a mangled entry
+    function of an arm this build reports (and each K13c kernel), None for
+    any other.  The name is nested in the source's anonymous namespace:
+    ``_ZN`` <length> <namespace> <length> <identifier> [template args]."""
+    m = _MANGLED.match(fn)
+    if not m:
+        return None
+    at = m.end() + int(m.group(1))
+    m = re.match(r"(\d+)", fn[at:])
+    if not m:
+        return None
+    name = fn[at + m.end(): at + m.end() + int(m.group(1))]
+    if name.startswith("k13c_"):
+        return name
+    if name not in _ARM_PARAMS:
+        return None
+    rest = fn[at + m.end() + len(name):]
+    args = _ARM_ARG.findall(rest[: rest.find("EE") + 1]) if rest.startswith("I") else []
+    shown = ", ".join(f"{k}={'RXP'[int(v)] if k == 'MODE' else v}"
+                      for k, v in zip(_ARM_PARAMS[name], args))
+    return f"{name}<{shown}>" if shown else name
 
 
 def _arms(log: str) -> list:
-    """(library, kernel, registers, spill stores, spill loads) of each
-    modeling-scan arm and each K13c kernel in a verbose build's output."""
+    """(library, kernel arm, registers, spill stores, spill loads) of each
+    step scan's and per-lane pass's arm and each K13c kernel in a verbose
+    build's output."""
     out, lib, fn, spill = [], "", None, (0, 0)
     for line in log.splitlines():
         if line.startswith("libcpx_kernels_"):
@@ -312,15 +388,9 @@ def _arms(log: str) -> list:
             spill = (int(m.group(2)), int(m.group(3)))
         m = _PTXAS_REGS.search(line)
         if m and fn:
-            k2 = _K2_ARM.search(fn)
-            if k2:
-                mode = "R X P".split()[int(k2.group(2))]
-                name = (f"k2_kernel<{k2.group(1)}, {mode}, "
-                        f"{'cluster' if k2.group(3) == '1' else 'one CTA'}, {k2.group(4)} lanes a round>")
+            name = _arm_name(fn)
+            if name:
                 out.append((lib, name, int(m.group(1)), *spill))
-            elif "k13c_" in fn:
-                out.append((lib, re.search(r"k13c_[a-z_]+", fn).group(0), int(m.group(1)),
-                            *spill))
             fn = None
     return out
 
@@ -373,6 +443,8 @@ def phase_golden():
     meta = json.loads((GOLDEN / "torch_golden.json").read_text())
     corpora = {}
     for name, m in sorted(meta.items()):
+        if name in GROUP_GOLDENS:  # phase_golden_groups decodes them
+            continue
         arc = (GOLDEN / name).read_bytes()
         if sha256(arc) != m["archive_sha256"]:
             raise AssertionError(f"{name}: fixture does not match its digest")
@@ -1236,6 +1308,422 @@ def phase_kernels_p(corpus):
     return res
 
 
+BLOCKS_G = 4  # the block-axis cells' G
+BLOCKS_SHORT = 1003  # the last block of the kernel cell: n = S * T - 1003
+
+
+def _flat(x) -> list:
+    """The tensors of a result (a tensor, or a tuple or dict of them), in
+    order, for max_err."""
+    if isinstance(x, dict):
+        return [x[k] for k in sorted(x)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _flat(v)]
+    return [x]
+
+
+def _runs_ms(key, fn, launches, reps=3):
+    """Mean CUDA-event ms of ``key``'s launches in one run of ``fn`` (which
+    makes ``launches`` of them), over ``reps`` runs."""
+    from comprox_tpu_torch.codec import block as blk
+
+    blk.reset_launch_counts()
+    for _ in range(reps):
+        fn()
+    ms = blk.kernel_ms()[key] / reps
+    if blk.LAUNCHES[key] != reps * launches:
+        raise AssertionError(f"{key}: {blk.LAUNCHES[key]} launches, not {reps * launches}")
+    return ms
+
+
+def phase_kernels_blocks(corpus):
+    """Every batched arm (the block axis) against G one-block launches of
+    the same kernel and against the plain loop (the plain version on each
+    block in turn, on the card), at G = 4 blocks of S=512, T=256, full
+    tables: four consecutive S*T spans of the corpus, the last n = S*T -
+    1003 (its last lanes part-filled or empty).  Tolerance 0 on every grid,
+    table, state and stream.  Returns {"<kernel> (blocks)": the kernel
+    line's numbers}: ms of the batched launch, plain_ms of the plain loop,
+    the bound at G = 4 (the sum of the four blocks' bounds,
+    benchmarks/work.py); prints the G one-block launches' ms beside."""
+    import numpy as np
+    import torch
+
+    from comprox_tpu_torch.benchmarks import work
+    from comprox_tpu_torch.cli.main import make_params
+    from comprox_tpu_torch.codec import block as blk
+
+    dev, G = "cuda", BLOCKS_G
+    res, beside = {}, {}
+
+    def cell(name, key, run, parts, launches=1):
+        """run(kind) -> the arm's results: kind "blocks" one batched launch,
+        "one" a launch a block, "plain" the plain loop."""
+        got, one = run("blocks"), run("one")
+        plain, plain_ms = _timed_plain(run, "plain")
+        err = max(max_err(zip(_flat(got), _flat(one))), max_err(zip(_flat(got), _flat(plain))))
+        ms = _runs_ms(key, lambda: run("blocks"), launches)
+        beside[name] = _runs_ms(key, lambda: run("one"), G * launches)
+        nb, ops = (sum(x) for x in zip(*(parts(b, got) for b in range(G))))
+        _record(res, f"{name} (blocks)", err, ms, plain_ms, nb, ops)
+        return got
+
+    def blocks_of(p):
+        cap = p.capacity
+        buf = corpus[: G * cap].reshape(G, p.lanes, p.steps).copy()
+        ns = [cap] * (G - 1) + [cap - BLOCKS_SHORT]
+        buf[-1].reshape(-1)[ns[-1]:] = 0
+        return (torch.from_numpy(buf).to(dev), ns,
+                torch.tensor(ns, dtype=torch.int32, device=dev))
+
+    per_block = blk._per_block  # fn(b, n_b) on each block, stacked
+
+    def touched(final, init):
+        return sum(_touched_bytes(final[k], init[k]) for k in final)
+
+    def decode_inputs(p, states, packed, words):
+        """The G payloads' states [G, S] and streams [G, stream_pad]."""
+        st, sm, nws = [], [], []
+        for b in range(G):
+            n_words, s_, stream = blk._unpack_payload(
+                blk._pack_payload(states[b], packed[b], words[b]), p)
+            st.append(s_.astype(np.int64))
+            sm.append(stream[: p.stream_pad].astype(np.int32))
+            nws.append(n_words)
+        return (torch.from_numpy(np.stack(st)).to(dev),
+                torch.from_numpy(np.stack(sm)).to(dev), nws)
+
+    def tail(p, key, inp, ns, n, ev, tables0, match):
+        """K3, K3p, then the decode scan ``key`` on the payloads."""
+        sfx = "" if p.n_slots == 3 else " (5 slots)"
+
+        def k3(kind):
+            if kind == "blocks":
+                return blk.rans_scan(p, ev)
+            if kind == "one":
+                return per_block(lambda b, _: blk.rans_scan(p, ev[b]), ns)
+            return per_block(lambda b, _: blk.rans_scan_plain(p, ev[b]), ns)
+
+        states, emit, words = cell("K3" + sfx, "K3", k3, lambda b, o: work.k3(
+            p, ev[b], out=tuple(t[b] for t in o)))
+
+        def k3p(kind):
+            if kind == "blocks":
+                return blk.pack_emit(p, emit)
+            if kind == "one":
+                return per_block(lambda b, _: blk.pack_emit(p, emit[b]), ns)
+            return per_block(lambda b, _: blk.pack_emit_plain(emit[b]), ns)
+
+        packed = cell("K3p" + sfx, "K3p", k3p, lambda b, o: work.k3p(p, emit[b], out=o[b]))
+        st, streams, nws = decode_inputs(p, states, packed, words)
+
+        def dec(kind):
+            def one_block(fn):
+                def f(b, nb):
+                    t, m = tables0(), match()
+                    x, used, out = fn(p, st[b], streams[b], nb, t, *m)
+                    return x, torch.tensor(int(used)), out, t, *[z for z in m if z is not None]
+                return per_block(f, ns)
+            if kind == "blocks":
+                t, m = blk.init_tables_blocks(p, dev, G), match(G)
+                x, used, out = blk.decode_scan(p, st, streams, n, t, *m)
+                return (x, used.cpu(), out, t, *[z for z in m if z is not None])
+            return one_block(blk.decode_scan if kind == "one" else blk.decode_scan_plain)
+
+        def dec_parts(b, o):
+            t0_ = tables0()
+            nb = 4 * nws[b] + work.nbytes(st[b], o[2][b]) + touched(
+                {k: v[b] for k, v in o[3].items()}, t0_)
+            for z, z0 in zip(o[4:], [z for z in match() if z is not None]):
+                nb += (touched({k: v[b] for k, v in z.items()}, z0) if isinstance(z, dict)
+                       else _touched_bytes(z[b], z0))
+            return nb, work.scan_ops(key, p)
+
+        x, used, out = cell(key, key, dec, dec_parts)[:3]
+        for b in range(G):
+            blk._check_drain(x[b].cpu().numpy(), int(used[b]), nws[b])
+        if not all(torch.equal(out[b].reshape(-1)[:nb], inp[b].reshape(-1)[:nb])
+                   for b, nb in enumerate(ns)):
+            raise AssertionError(f"{key} (blocks) did not decode the blocks")
+
+    # mode R: K4 (a launch a block), K5, K6, K2, K3, K3p, K1
+    p = blk.BlockParams(lanes=512, steps=KERNEL_STEPS, mode="R", min_len=5,
+                        window=250, rolz_ctx_bytes=4, rolz_dec=2)
+    inp, ns, n = blocks_of(p)
+
+    def tables0(G_=None):
+        return blk.init_tables_blocks(p, dev, G_)
+
+    props = blk.sort_candidates(p, inp, n)
+
+    def k5(kind):
+        if kind == "blocks":
+            r = blk._init_rolz(p, dev, G)
+            return blk.rank_scan(p, inp, n, props, r), r
+        fn = blk.rank_scan if kind == "one" else blk.rank_scan_plain
+
+        def f(b, nb):
+            r = blk._init_rolz(p, dev)
+            return fn(p, inp[b], nb, props[b], r), r
+        return per_block(f, ns)
+
+    ck = cell("K5", "K5", k5, lambda b, o: (
+        work.nbytes(inp[b], props[b], o[0][b]) + _touched_bytes(o[1][b], blk._init_rolz(p, dev)),
+        work.scan_ops("K5", p, o[0][b])))[0]
+
+    def k6(kind):
+        if kind == "blocks":
+            return blk.parse_scan(p, n, ck)
+        fn = blk.parse_scan if kind == "one" else blk.parse_scan_plain
+        return per_block(lambda b, nb: fn(p, nb, ck[b]), ns)
+
+    dk = cell("K6", "K6", k6, lambda b, o: work.k6(p, ns[b], ck[b], out=o[b]))
+
+    def k2(kind):
+        if kind == "blocks":
+            t = tables0(G)
+            return blk.model_scan(p, inp, n, dk, t), t
+        fn = blk.model_scan if kind == "one" else blk.model_scan_plain
+
+        def f(b, nb):
+            t = tables0()
+            return fn(p, inp[b], nb, dk[b], t), t
+        return per_block(f, ns)
+
+    evk = cell("K2", "K2", k2, lambda b, o: (
+        work.nbytes(inp[b], dk[b], o[0][b]) + touched({k: v[b] for k, v in o[1].items()},
+                                                      tables0()),
+        work.scan_ops("K2", p)))[0]
+    tail(p, "K1", inp, ns, n, evk, tables0,
+         lambda G_=None: (blk._init_rolz(p, dev, G_),))
+
+    # mode X: K4x (a launch a block), K6 twice, K11, K12e, K3 and K3p at
+    # five slots, K12d
+    pf = make_params("crx", {"lanes": 512, "block_mb": 8}).block
+    p = blk.BlockParams(lanes=512, steps=KERNEL_STEPS, mode="X", min_len=pf.min_len,
+                        window=pf.window, rolz_ctx_bytes=pf.rolz_ctx_bytes)
+    inp, ns, n = blocks_of(p)
+    cx = blk.sort_candidates(p, inp, n, content=True)
+    kw = dict(prices=blk.x_prices(), n_c=blk._finder_config(p, True)[0])
+
+    def k6x(kind, rep=None):
+        if kind == "blocks":
+            return blk.parse_scan(p, n, cx, rep=rep, **kw)
+        fn = blk.parse_scan if kind == "one" else blk.parse_scan_plain
+        return per_block(lambda b, nb: fn(p, nb, cx[b], rep=None if rep is None else rep[b],
+                                          **kw), ns)
+
+    d1 = k6x("blocks")
+
+    def k11(kind):
+        if kind == "blocks":
+            return blk.rep_scan(p, inp, n, d1)
+        fn = blk.rep_scan if kind == "one" else blk.rep_scan_plain
+        return per_block(lambda b, nb: fn(p, inp[b], nb, d1[b]), ns)
+
+    rk = cell("K11", "K11", k11, lambda b, o: work.k11(p, inp[b], ns[b], d1[b], out=o[b]))
+
+    def k6x_both(kind):
+        return k6x(kind), k6x(kind, rk)
+
+    d1, d2 = cell("K6 (X)", "K6", k6x_both, lambda b, o: tuple(
+        x + y for x, y in zip(work.k6(p, ns[b], cx[b], out=o[0][b], **kw),
+                              work.k6(p, ns[b], cx[b], rep=rk[b], out=o[1][b], **kw))),
+        launches=2)
+    dec = d2[:, :2].contiguous()
+
+    def tables0(G_=None):
+        return blk.init_tables_blocks(p, dev, G_)
+
+    def k12e(kind):
+        if kind == "blocks":
+            t = tables0(G)
+            return blk.model_scan(p, inp, n, dec, t), t
+        fn = blk.model_scan if kind == "one" else blk.model_scan_plain
+
+        def f(b, nb):
+            t = tables0()
+            return fn(p, inp[b], nb, dec[b], t), t
+        return per_block(f, ns)
+
+    evx = cell("K12e", "K12e", k12e, lambda b, o: (
+        work.nbytes(inp[b], dec[b], o[0][b]) + touched({k: v[b] for k, v in o[1].items()},
+                                                       tables0()),
+        work.scan_ops("K12e", p)))[0]
+    tail(p, "K12d", inp, ns, n, evx, tables0, lambda G_=None: ())
+
+    # mode P: K13c (a launch a block, inside model_scan), K13e, K3, K3p, K13d
+    pf = make_params("crp", {"lanes": 512, "block_mb": 8}).block
+    p = blk.BlockParams(lanes=512, steps=KERNEL_STEPS, mode="P", min_len=pf.min_len,
+                        window=pf.window)
+    inp, ns, n = blocks_of(p)
+
+    def tables0(G_=None):
+        return blk.init_tables_blocks(p, dev, G_)
+
+    def k13e(kind):
+        if kind == "blocks":
+            t, z = tables0(G), blk._init_lzp(p, dev, G)
+            return blk.model_scan(p, inp, n, None, t, z), t, z
+        fn = blk.model_scan if kind == "one" else blk.model_scan_plain
+
+        def f(b, nb):
+            t, z = tables0(), blk._init_lzp(p, dev)
+            return fn(p, inp[b], nb, None, t, z), t, z
+        return per_block(f, ns)
+
+    grids = blk.lzp_candidates(p, inp, n, blk._init_lzp(p, dev, G))
+    evp = cell("K13e", "K13e", k13e, lambda b, o: (
+        work.nbytes(inp[b], grids[b], o[0][b]) + touched({k: v[b] for k, v in o[1].items()},
+                                                         tables0()),
+        work.scan_ops("K13e", p)))[0]
+    tail(p, "K13d", inp, ns, n, evp, tables0,
+         lambda G_=None: (None, blk._init_lzp(p, dev, G_)))
+
+    for name, r in res.items():
+        arm = name[: -len(" (blocks)")]
+        print(f"{name}: max_abs_err {r['max_abs_err']} (tolerance 0)  one batched "
+              f"launch {r['ms']:.3f} ms, {G} one-block launches {beside[arm]:.3f} ms  "
+              f"plain loop {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  [G={G} S=512 T={KERNEL_STEPS} full tables, "
+              f"last n = S*T - {BLOCKS_SHORT}]")
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{name}: != one-block launches or plain (max err "
+                                 f"{r['max_abs_err']})")
+    return res
+
+
+GROUP_GOLDENS = ("crz_g4_flex_8MiB_S512.cpx", "crx_g4_flex_8MiB_S512.cpx",
+                 "crp_g4_8MiB_S512.cpx", "crf_g4_flex_8MiB_S512.cpx")
+
+
+def phase_golden_groups():
+    """The JAX package's ``-g4 -b2`` goldens (four blocks of T=4096 of the 8
+    MiB corpus, one a codec) decoded on the card with ``-g4`` and with
+    ``-g1``, both to the committed corpus, and the corpus encoded again
+    with ``-g4`` to JAX's SHA-256."""
+    from comprox_tpu_torch.cli.main import make_params, parse_args
+    from comprox_tpu_torch.codec import block as blk
+    from comprox_tpu_torch.codec.container import decode_stream, encode_stream
+
+    meta = json.loads((GOLDEN / "torch_golden.json").read_text())
+    for name in GROUP_GOLDENS:
+        m, arc = meta[name], (GOLDEN / name).read_bytes()
+        if sha256(arc) != m["archive_sha256"]:
+            raise AssertionError(f"{name}: fixture does not match its digest")
+        codec, _, _, _, opts = parse_args(m["argv"].split() + ["in", "out"])
+        cp = make_params(codec, opts)
+        times = {}
+        for g in (opts["group"], 1):
+            blk.reset_launch_counts()
+            out = io.BytesIO()
+            t0 = time.perf_counter()
+            decode_stream(io.BytesIO(arc), out, "cuda", group=g)
+            times[f"decode -g{g}"] = time.perf_counter() - t0
+            _check_launched(name, f"decode -g{g}", cp.block)
+            if sha256(out.getvalue()) != m["input_sha256"]:
+                raise AssertionError(f"{name}: -g{g} decode differs from the corpus")
+        corpus = out.getvalue()
+        buf = io.BytesIO()
+        blk.reset_launch_counts()
+        t0 = time.perf_counter()
+        import numpy as np
+
+        encode_stream(np.frombuffer(corpus, np.uint8), buf, cp, "cuda", group=opts["group"])
+        times[f"encode -g{opts['group']}"] = time.perf_counter() - t0
+        _check_launched(name, "encode", cp.block)
+        if sha256(buf.getvalue()) != m["archive_sha256"]:
+            raise AssertionError(f"{name}: the port's -g{opts['group']} archive differs "
+                                 "from JAX's")
+        print(f"{name} ({m['argv']}): decoded with -g{opts['group']} and -g1 to the corpus, "
+              f"encoded again with -g{opts['group']}: sha256 == JAX golden; " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in times.items()))
+
+
+def _rotated(x, by):
+    import numpy as np
+
+    return np.concatenate([x[by:], x[:by]])
+
+
+def phase_full_width_groups(text_elf):
+    """``<codec> e -b8 -l512 -g4`` against ``-g1`` on 32 MiB less a ragged
+    tail, four distinct full-width blocks: the 8 MiB text corpus, the 8 MiB
+    ELF corpus, each rotated by 4 MiB, the last cut to 5 MiB + 777 bytes;
+    crz, crx, crp.  The archives must be byte-equal and ``d -g4`` must
+    give the input.  The launch counts are set to 0 just before the ``-g4``
+    encode and read just after its decode.  Returns {kernel: launches} of
+    the ``-g4`` runs, by codec."""
+    import numpy as np
+    import torch
+
+    from comprox_tpu_torch.cli import main as cli
+    from comprox_tpu_torch.codec import block as blk
+
+    half = text_elf.size // 2
+    text, elf = text_elf[:half], text_elf[half:]
+    corpus = np.concatenate([text, elf, _rotated(text, 4 << 20),
+                             _rotated(elf, 4 << 20)[: (5 << 20) + 777]])
+    WORK.mkdir(parents=True, exist_ok=True)
+    src = WORK / "corpus_g.bin"
+    corpus.tofile(src)
+    n = corpus.size
+    p = cli.make_params("crz", {"lanes": 512, "block_mb": 8}).block
+    clusters = blk.k5_max_clusters(p)
+    print(f"input: {n} B (8 MiB text, 8 MiB ELF, each rotated by 4 MiB, the last "
+          f"cut to 5 MiB + 777 B): 4 blocks of S=512, T=16384; K5's clusters "
+          f"(8 CTAs a block) the card holds at once: {clusters}")
+    out = {}
+    for codec, needed in (("crz", ("K4", "K5", "K6", "K2", "K3", "K3p", "K1", "SORT")),
+                          ("crx", ("K4x", "K6", "K11", "K12e", "K3", "K3p", "K12d", "SORT")),
+                          ("crp", ("K13c", "K13e", "K3", "K3p", "K13d"))):
+        arcs, walls, dev_ms, peak, ms, each = {}, {}, {}, {}, {}, {}
+        for g in (4, 1):
+            arc, dst = WORK / f"g{g}.{codec}", WORK / f"g{g}.out"
+            blk.reset_launch_counts()
+            for side, argv in (("encode", ["e", str(src), str(arc), "-b8", "-l512"]),
+                               ("decode", ["d", str(arc), str(dst)])):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = sum(blk.kernel_ms().values())
+                t0 = time.perf_counter()
+                cli.run(codec, argv + ["-q", f"-g{g}"], device="cuda")
+                walls[g, side] = time.perf_counter() - t0
+                dev_ms[g, side] = sum(blk.kernel_ms().values()) - before
+                peak[g, side] = torch.cuda.max_memory_allocated()
+            if g == 4:
+                launches = dict(blk.LAUNCHES)
+            ms[g] = {k: v for k, v in blk.kernel_ms().items() if blk.LAUNCHES[k]}
+            each[g] = {k: ", ".join(f"{a.elapsed_time(b):.3f}" for a, b in blk._EVENTS[k])
+                       for k in ms[g]}
+            arcs[g] = arc.read_bytes()
+            if not np.array_equal(np.fromfile(dst, np.uint8), corpus):
+                raise AssertionError(f"{codec} -g{g}: the round trip is not bit-exact")
+        if arcs[4] != arcs[1]:
+            raise AssertionError(f"{codec}: the -g4 archive differs from the -g1 archive")
+        print(f"{codec} e -b8 -l512 -g4 == -g1: {len(arcs[4])} B "
+              f"({len(arcs[4]) * 8 / n:.4f} bpb), sha256 {sha256(arcs[4])}; d -g4 and -g1 "
+              "bit-exact")
+        for (g, side), w in walls.items():
+            print(f"{codec} -g{g} {side}: {n / w / 1e6:.3f} MB/s ({w:.3f} s wall), "
+                  f"kernels {dev_ms[g, side]:.3f} ms, idle share "
+                  f"{1 - dev_ms[g, side] / 1e3 / w:.3f}, max_memory_allocated "
+                  f"{peak[g, side] / 2**30:.3f} GiB")
+        for g in (4, 1):
+            print(f"{codec} -g{g} kernel ms a launch: " + "; ".join(
+                f"{k} {each[g][k]}" + (f" (sum {v:.3f})" if "," in each[g][k] else "")
+                for k, v in ms[g].items()))
+        print(f"{codec} -g4 launches: " + json.dumps({k: v for k, v in launches.items() if v}))
+        for name in needed:
+            if launches[name] < 1:
+                raise AssertionError(f"{codec} -g4: {name} was not launched")
+        out[codec] = launches
+    for f in WORK.glob("g[14].*"):
+        f.unlink()
+    src.unlink()
+    return out
+
+
 def phase_probes():
     """The nine probes at their own geometries, each kernel against its
     plain version (tolerance 0).  Returns ({name: record of its last
@@ -1420,6 +1908,7 @@ def main() -> int:
     res["K6"]["max_abs_err"] = max(res["K6"]["max_abs_err"], k6f["max_abs_err"])
     res.update(ph.run("kernels, mode X", phase_kernels_x, corpora[X_ARCHIVE]))
     res.update(ph.run("kernels, mode P", phase_kernels_p, corpora[P_ARCHIVE]))
+    res.update(ph.run("kernels, blocks", phase_kernels_blocks, corpora[MAIN_ARCHIVE]))
     res_probes, probe_launches = ph.run("probes", phase_probes)
     res.update(res_probes)
     crp = ph.run(
@@ -1460,6 +1949,17 @@ def main() -> int:
     launches["K3p (5 slots)"] = crx["K3p"]
     launches["SORT"] += crx["SORT"] + fast["SORT"]  # one in each of K4, K4x, K7
     launches.update(probe_launches)
+    ph.run("golden, -b2", phase_golden_groups)
+    grouped = ph.run("full width, -g4", phase_full_width_groups, corpora[CHAIN_ARCHIVE])
+    for name, codec, key in (
+            ("K5", "crz", "K5"), ("K6", "crz", "K6"), ("K2", "crz", "K2"),
+            ("K1", "crz", "K1"), ("K11", "crx", "K11"), ("K6 (X)", "crx", "K6"),
+            ("K12e", "crx", "K12e"), ("K3 (5 slots)", "crx", "K3"),
+            ("K3p (5 slots)", "crx", "K3p"), ("K12d", "crx", "K12d"),
+            ("K13e", "crp", "K13e"), ("K13d", "crp", "K13d")):
+        launches[f"{name} (blocks)"] = grouped[codec][key]
+    for name in ("K3", "K3p"):  # three slots: crz and crp
+        launches[f"{name} (blocks)"] = grouped["crz"][name] + grouped["crp"][name]
     ph.run("crf host split", phase_fast_host_split, corpora[FAST_ARCHIVE])
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "comprox_tpu")]

@@ -7,15 +7,17 @@ package writes for the same command line.  Supported: ``crz e|d`` (mode
 R: ROLZ + PPM + adaptive rANS), ``crf e|d`` (mode F: the fast profile,
 LZ77 tokens + static rANS), ``crx e|d`` (mode X: LZ77 distances + PPM +
 adaptive rANS) and ``crp e|d`` (mode P: LZP + PPM + adaptive rANS) with
-``-b -l -F -p -q -m -c -C``; encode uses the flexible parse unless ``-f0``
+``-b -l -F -p -q -m -c -C -g``; encode uses the flexible parse unless ``-f0``
 asks for the greedy one (``crp`` has no parse: ``-f0`` and ``-m`` are
 accepted and change nothing).  ``-c`` (crz, crx, crp) carries the adaptive
 models across blocks; ``-C`` (crz, flexible parse) also the bucket table
 and the previous block's bytes, so a match may reach into the block
-before.  Decode reads the chain flags from the archive.
+before.  Decode reads the chain flags from the archive.  ``-g<n>`` codes
+n unchained blocks at a time on the card (one launch a pass for the
+group; the same bytes as ``-g1``).
 
 Not yet ported, refused with an error (the ROADMAP.md item in brackets):
-``-j`` and ``-g`` [15].  Nothing switches silently to another format.
+``-j`` [15b].  Nothing switches silently to another format.
 
     python -m comprox_tpu_torch.cli.main crz e in out -b8 -l512
     python -m comprox_tpu_torch.cli.main crz d out in.copy
@@ -23,6 +25,7 @@ Not yet ported, refused with an error (the ROADMAP.md item in brackets):
     python -m comprox_tpu_torch.cli.main crf e in out -b8 -l512
     python -m comprox_tpu_torch.cli.main crx e in out -b8 -l512 -c
     python -m comprox_tpu_torch.cli.main crp e in out -b8 -l512
+    python -m comprox_tpu_torch.cli.main crz e in out -b8 -l512 -g4
 
 The command line runs on the first CUDA device and fails without one; the
 library call :func:`run` takes the device explicitly.  With no codec name
@@ -33,6 +36,7 @@ one cluster of CTAs, and crf's rANS loops at several lanes a thread.
 
 from __future__ import annotations
 
+import io
 import sys
 import time
 
@@ -53,6 +57,8 @@ switches:
   -F     enable content filters
   -p     dictionary precompress only
   -q     quiet mode
+  -g<n>  batch n blocks per launch (block batching on one card: one
+         launch a pass codes n blocks, a CTA or cluster a block)
   -m<n>  match search depth (default 40 -> top-4 bucket candidates)
   -f0    greedy+lazy parsing instead of flexible parsing
   -c     chain mode: carry the adaptive models across blocks
@@ -63,8 +69,7 @@ switches:
 CODEC_BYTE = {"crp": b"P", "crx": b"X", "crz": b"R", "crf": b"F"}
 
 _NOT_PORTED = {
-    "-j": "device parallelism (-j) is not yet ported (ROADMAP.md item 15)",
-    "-g": "block batching (-g) is not yet ported (ROADMAP.md item 15)",
+    "-j": "device parallelism (-j) is not yet ported (ROADMAP.md item 15b)",
 }
 
 
@@ -74,7 +79,7 @@ def parse_args(argv):
     switches = [a for a in argv[1:] if a != "-" and a.startswith("-")]
     opts = {"block_mb": 16, "lanes": 256, "filters": False, "quiet": False,
             "precomp": False, "window": 250, "depth": 40, "flexible": True,
-            "chain": False, "chain_match": False}
+            "chain": False, "chain_match": False, "group": 1}
     for s in switches:
         if s[:2] in _NOT_PORTED:
             raise NotImplementedError(_NOT_PORTED[s[:2]])
@@ -92,6 +97,8 @@ def parse_args(argv):
             opts["precomp"] = True
         elif s == "-q":
             opts["quiet"] = True
+        elif s.startswith("-g"):
+            opts["group"] = max(1, int(s[2:] or "1"))
         elif s.startswith("-f"):
             opts["flexible"] = s[2:] != "0"
         elif s.startswith("-m"):
@@ -160,6 +167,7 @@ def run(codec_name: str, argv, device) -> int:
             csize = encode_stream(
                 data, f, cp, device, filters=opts["filters"],
                 precomp_only=opts["precomp"], chain=opts["chain"],
+                group=opts["group"],
             )
         finally:
             if outp != "-":
@@ -173,10 +181,11 @@ def run(codec_name: str, argv, device) -> int:
     else:
         if codec_name not in _MODE:
             make_params(codec_name, opts)  # raises: no such codec
-        f = open(inp, "rb") if inp != "-" else sys.stdin.buffer
+        # seekable input: -g prescans the block headers, then seeks back
+        f = open(inp, "rb") if inp != "-" else io.BytesIO(sys.stdin.buffer.read())
         g = sys.stdout.buffer if outp == "-" else open(outp, "wb")
         try:
-            total = decode_stream(f, g, device)
+            total = decode_stream(f, g, device, group=opts["group"])
         finally:
             if inp != "-":
                 f.close()

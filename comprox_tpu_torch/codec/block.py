@@ -64,6 +64,7 @@ fallback between the two.
 
 from __future__ import annotations
 
+import ctypes
 import os as _os
 from dataclasses import dataclass
 
@@ -393,26 +394,28 @@ def rolz_to_numpy(t) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _init_rolz(p: BlockParams, device):
+def _init_rolz(p: BlockParams, device, G=None):
+    """An empty bucket table [2^bits, D, 2] int32 (G of them: [G, ...])."""
     return torch.zeros(
-        (1 << p.rolz_bits, p.rolz_depth, 2), dtype=_i32, device=device
+        _lead(G) + (1 << p.rolz_bits, p.rolz_depth, 2), dtype=_i32, device=device
     )
 
 
-def _init_xsearch(p: BlockParams, device):
+def _init_xsearch(p: BlockParams, device, G=None):
     """KSx's three encoder-private tables: the content-keyed and the
     context-keyed bucket table, and the near-match cache ``xshort``."""
-    return (_init_rolz(p, device), _init_rolz(p, device),
-            torch.zeros(1 << 16, dtype=_i32, device=device))
+    return (_init_rolz(p, device, G), _init_rolz(p, device, G),
+            torch.zeros(_lead(G) + (1 << 16,), dtype=_i32, device=device))
 
 
 LZP_KEYS = ("lzp2", "lzp4", "lzp8")
 
 
-def _init_lzp(p: BlockParams, device):
-    """Mode P's three shared tables (position + 1 per slot, 0 = empty)."""
+def _init_lzp(p: BlockParams, device, G=None):
+    """Mode P's three shared tables (position + 1 per slot, 0 = empty); G
+    blocks' each [G, ...]."""
     sizes = (1 << 16, 1 << LZP4_BITS, 1 << LZP8_BITS)
-    return {k: torch.zeros(n, dtype=_i32, device=device)
+    return {k: torch.zeros(_lead(G) + (n,), dtype=_i32, device=device)
             for k, n in zip(LZP_KEYS, sizes)}
 
 
@@ -1655,6 +1658,97 @@ def _expect(x, name, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+# The block axis (the JAX package's vmap over blocks, comprox_tpu/parallel/
+# mesh.py::_encode_blocks_vmap, _decode_blocks_vmap): a wrapper given G
+# blocks (every per-block tensor with a leading G axis, ``n`` a [G] int32
+# tensor on the same device) runs them in one launch on the card, one CTA
+# (K5: one cluster) a block on the grid's y axis (csrc/ppm_r.cuh, "the
+# block axis"), and on the CPU the one-block plain version on each block in
+# turn.  The passes with no block axis yet (the sorts and search scans K4,
+# K4x, KS, KSx, K13c) launch once a block, in a loop on the same stream.
+def _blocks(x, dims: int):
+    """G where ``x`` carries a leading block axis over one block's ``dims``
+    axes, None for one block."""
+    return x.shape[0] if x.dim() == dims + 1 else None
+
+
+def _lead(G) -> tuple:
+    """The leading shape of a wrapper's tensors: ``(G,)`` on the block axis."""
+    return () if G is None else (G,)
+
+
+def _check_n(n, G: int, dev):
+    """The blocks' n: a [G] int32 tensor on ``dev``."""
+    _expect(n, "n", _i32, (G,))
+    if n.device != dev:
+        raise ValueError(f"n on {n.device}, the blocks on {dev}")
+    return n
+
+
+def _block_ns(n, G: int, dev) -> list:
+    """The blocks' n as ints."""
+    return _check_n(n, G, dev).tolist()
+
+
+def _launch_n(p: BlockParams, n, G, dev) -> tuple:
+    """A launch's ``(G, bn, the cfg's n)``: one block ``(1, None, n)``; G
+    blocks G, the pointer of their [G] int32 n (each CTA reads its block's)
+    and the capacity in the cfg."""
+    if G is None:
+        return 1, None, n
+    return G, _check_n(n, G, dev).data_ptr(), p.capacity
+
+
+def _at(x, b: int):
+    """Block b of a batched argument: a tensor's row b, every entry's of a
+    tuple or dict; None stays None."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: v[b] for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(v[b] for v in x)
+    return x[b]
+
+
+def _rows(x, G: int):
+    """An empty block axis for per-block results shaped as ``x``: a tensor
+    [G, ...], a dict of tables entry by entry, ints as an int64 tensor."""
+    if isinstance(x, dict):
+        return {k: _rows(v, G) for k, v in x.items()}
+    if isinstance(x, torch.Tensor):
+        return x.new_empty((G,) + tuple(x.shape))
+    return torch.empty(G, dtype=_i64)
+
+
+def _put(rows, b: int, x):
+    """Block b's result into its row of :func:`_rows`."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            _put(rows[k], b, v)
+    else:
+        rows[b] = x
+
+
+def _per_block(fn, ns: list):
+    """``fn(b, n_b)`` for each block in turn, its outputs on a block axis:
+    the plain loop of a batched wrapper on the CPU, and the card's loop of
+    a pass that has no block axis.  Each block's result goes into its row
+    as it comes and is freed, so the loop holds the [G, ...] outputs and
+    one block's result, not both sides of a stack."""
+    rows = tup = None
+    for b, nb in enumerate(ns):
+        r = fn(b, nb)
+        tup = isinstance(r, tuple)
+        parts = r if tup else (r,)
+        if rows is None:
+            rows = tuple(_rows(x, len(ns)) for x in parts)
+        for row, x in zip(rows, parts):
+            _put(row, b, x)
+        del r, parts
+    return rows if tup else rows[0]
+
+
 # The step scans run one thread per lane: one CTA up to 1024 lanes, above
 # that a thread-block cluster of up to eight CTAs; K9 and K10 up to eight
 # lanes a thread in one CTA (csrc/ppm_r.cuh: CPX_MAX_CLUSTER, CPX_MAX_LPT).
@@ -1670,33 +1764,35 @@ def _check_kernel_geometry(p: BlockParams):
         )
 
 
-def _expect_tables(p: BlockParams, tables):
-    _expect(tables["o2"], "o2", _i32, (ppm.O2_NCTX, ppm.O2_W))
-    _expect(tables["o1"], "o1", _i32, (ppm.O1_NCTX, ppm.O1_NCTX))
-    _expect(tables["o3"], "o3", _i32, (1 << p.o3_bits,))
-    _expect(tables["len"], "len", _i32, (ppm.N_SHARED_CTX, ppm.LEN_W))
-    _expect(tables["idx"], "idx", _i32, (ppm.N_SHARED_CTX, ppm.IDX_W))
+def _expect_tables(p: BlockParams, tables, G=None):
+    g = _lead(G)
+    _expect(tables["o2"], "o2", _i32, g + (ppm.O2_NCTX, ppm.O2_W))
+    _expect(tables["o1"], "o1", _i32, g + (ppm.O1_NCTX, ppm.O1_NCTX))
+    _expect(tables["o3"], "o3", _i32, g + (1 << p.o3_bits,))
+    _expect(tables["len"], "len", _i32, g + (ppm.N_SHARED_CTX, ppm.LEN_W))
+    _expect(tables["idx"], "idx", _i32, g + (ppm.N_SHARED_CTX, ppm.IDX_W))
     if p.mode == "P":
-        _expect(tables["sse_p"], "sse_p", _i32, (ppm.SSE_PCTX * 33,))
+        _expect(tables["sse_p"], "sse_p", _i32, g + (ppm.SSE_PCTX * 33,))
         return
-    _expect(tables["sse"], "sse", _i32, (ppm.SSE_NCTX * 33,))
-    _expect(tables["sse_h"], "sse_h", _i32, (ppm.SSE_HCTX * 33,))
+    _expect(tables["sse"], "sse", _i32, g + (ppm.SSE_NCTX * 33,))
+    _expect(tables["sse_h"], "sse_h", _i32, g + (ppm.SSE_HCTX * 33,))
     if p.mode == "X":
-        _expect(tables["dst"], "dst", _i32, (ppm.DST_W,))
-        _expect(tables["mant"], "mant", _i32, (16, 16))
-        _expect(tables["sse_x"], "sse_x", _i32, (ppm.SSE_XCTX * 33,))
+        _expect(tables["dst"], "dst", _i32, g + (ppm.DST_W,))
+        _expect(tables["mant"], "mant", _i32, g + (16, 16))
+        _expect(tables["sse_x"], "sse_x", _i32, g + (ppm.SSE_XCTX * 33,))
 
 
 def _stream_ptr():
     return torch.cuda.current_stream().cuda_stream
 
 
-def _pos_scratch(p: BlockParams, device):
+def _pos_scratch(p: BlockParams, device, G=None):
     """Scratch of the bucket-reading kernels (KS, K1) for each lane's copy
     of a bucket row ([S, D+1] positions, then KS's [S, D+1] byte scores),
     used where it does not fit in shared memory
-    (csrc/ppm_r.cuh::pos_smem_bytes)."""
-    return torch.empty((2, p.lanes, p.rolz_depth + 1), dtype=_i32, device=device)
+    (csrc/ppm_r.cuh::pos_smem_bytes); one a block on the block axis."""
+    return torch.empty(_lead(G) + (2, p.lanes, p.rolz_depth + 1), dtype=_i32,
+                       device=device)
 
 
 def _table_ptrs(tables, mode: str = "R"):
@@ -1707,7 +1803,7 @@ def _table_ptrs(tables, mode: str = "R"):
     return [tables[k].data_ptr() for k in keys]
 
 
-def _lzp_ptrs(p: BlockParams, lzp):
+def _lzp_ptrs(p: BlockParams, lzp, G=None):
     """Mode P's three table pointers for a kernel (null with the match
     layer off, which has no tables), after the shape checks."""
     if p.match != (lzp is not None):
@@ -1716,7 +1812,7 @@ def _lzp_ptrs(p: BlockParams, lzp):
     if lzp is None:
         return [None, None, None]
     for k, size in zip(LZP_KEYS, (1 << 16, 1 << LZP4_BITS, 1 << LZP8_BITS)):
-        _expect(lzp[k], k, _i32, (size,))
+        _expect(lzp[k], k, _i32, _lead(G) + (size,))
     return [lzp[k].data_ptr() for k in LZP_KEYS]
 
 
@@ -1733,8 +1829,13 @@ def search_scan(p: BlockParams, inp, n: int, rolz):
     ``rolz`` [2^bits, D, 2] int32 (updated in place) -> [4, T, S] int32.
     Mode X: ``rolz`` is the three tables of :func:`_init_xsearch` (two
     bucket tables, ``xshort`` [2^16]; updated in place) -> [6, T, S] int32
-    (length, src, len2, cand, len3, src3).
+    (length, src, len2, cand, len3, src3).  On the block axis (``inp`` [G,
+    S, T], each table [G, ...], ``n`` [G] int32) a launch a block.
     """
+    G = _blocks(inp, 2)
+    if G is not None:
+        return _per_block(lambda b, nb: search_scan(p, inp[b], nb, _at(rolz, b)),
+                          _block_ns(n, G, inp.device))
     x_mode = p.mode == "X"
     tabs = tuple(rolz) if x_mode else (rolz,)
     if len(tabs) != (3 if x_mode else 1):
@@ -1874,8 +1975,13 @@ def sort_candidates(p: BlockParams, inp, n: int, content: bool = False):
     ``probe_from=16``).  Kernels: csrc/sortfind.cu (key build, a radix sort
     of (key, position), neighbour probe + select + extend, diagonal runs +
     cap; an entry per mode).  ``inp`` [S, T] uint8 -> [2 * n_cands, T, S]
-    int32 (len, src per proposal).
+    int32 (len, src per proposal).  On the block axis (``inp`` [G, S, T],
+    ``n`` [G] int32) a launch a block.
     """
+    G = _blocks(inp, 2)
+    if G is not None:
+        return _per_block(lambda b, nb: sort_candidates(p, inp[b], nb, content),
+                          _block_ns(n, G, inp.device))
     if _dispatch(inp) == "cpu":
         return sort_candidates_plain(p, inp, n, content)
     _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
@@ -1908,17 +2014,25 @@ def rep_scan(p: BlockParams, inp, n: int, dec):
     _rep_lengths (1529-1559).  Kernel: csrc/xrep.cu (one thread per lane:
     a forward walk, then a backward walk).  ``inp`` [S, T] uint8, ``dec``
     [>= 2, T, S] int32 (take, src of the first parse) -> [2, T, S] int32
-    (len_rep, prev).
+    (len_rep, prev); on the block axis each with a leading G and ``n`` [G]
+    int32.
     """
+    G = _blocks(inp, 2)
     if _dispatch(inp, dec) == "cpu":
+        if G is not None:
+            return _per_block(lambda b, nb: rep_scan_plain(p, inp[b], nb, dec[b]),
+                              _block_ns(n, G, inp.device))
         return rep_scan_plain(p, inp, n, dec)
-    _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
-    _expect(dec, "dec", _i32, (dec.shape[0], p.steps, p.lanes))
-    if dec.shape[0] < 2:
+    g = _lead(G)
+    _expect(inp, "inp", torch.uint8, g + (p.lanes, p.steps))
+    n_dec = dec.shape[len(g)]
+    _expect(dec, "dec", _i32, g + (n_dec, p.steps, p.lanes))
+    if n_dec < 2:
         raise ValueError("dec: expected the (take, src) grids")
-    out = torch.empty((2, p.steps, p.lanes), dtype=_i32, device=inp.device)
-    cfg = _cfg_array(p, n)
-    _launch("K11", build.lib().cpx_k11_launch, cfg.ctypes.data,
+    out = torch.empty(g + (2, p.steps, p.lanes), dtype=_i32, device=inp.device)
+    G1, bn, n_cfg = _launch_n(p, n, G, inp.device)
+    cfg = _cfg_array(p, n_cfg)
+    _launch("K11", build.lib().cpx_k11_launch, cfg.ctypes.data, G1, bn, n_dec,
             inp.data_ptr(), dec.data_ptr(), out.data_ptr(), _stream_ptr())
     return out
 
@@ -1934,26 +2048,37 @@ def rank_scan(p: BlockParams, inp, n: int, props, rolz, prev=None):
     chain arm is the same kernel with a window offset).  ``props`` [2 *
     n_c, T, S] int32 from K4; ``rolz`` [2^bits, D, 2] int32 (updated in
     place; in the chain arm KCR's remapped table); ``prev`` [S, T] uint8,
-    the previous block's bytes -> [3 * (n_c + 1) + 1, T, S] int32.
+    the previous block's bytes -> [3 * (n_c + 1) + 1, T, S] int32.  On the
+    block axis (not in the chain arm) each tensor has a leading G, ``n`` is
+    [G] int32, and one launch runs a cluster a block.
     """
     if (prev is not None) != p.chain_match:
         raise ValueError("a chain_match block ranks over the [prev | cur] "
                          "window, any other block over its own bytes")
+    G = _blocks(inp, 2)
+    if G is not None and prev is not None:
+        raise ValueError("the chain arm ranks one block")
     group = [inp, props, rolz] + ([] if prev is None else [prev])
     if _dispatch(*group) == "cpu":
+        if G is not None:
+            return _per_block(
+                lambda b, nb: rank_scan_plain(p, inp[b], nb, props[b], rolz[b]),
+                _block_ns(n, G, inp.device))
         return rank_scan_plain(p, inp, n, props, rolz, prev)
     _check_kernel_geometry(p)
-    _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
-    _expect(props, "props", _i32, (2 * _R_CANDS, p.steps, p.lanes))
-    _expect(rolz, "rolz", _i32, (1 << p.rolz_bits, p.rolz_depth, 2))
+    g = _lead(G)
+    _expect(inp, "inp", torch.uint8, g + (p.lanes, p.steps))
+    _expect(props, "props", _i32, g + (2 * _R_CANDS, p.steps, p.lanes))
+    _expect(rolz, "rolz", _i32, g + (1 << p.rolz_bits, p.rolz_depth, 2))
     if inp.data_ptr() % 8 or rolz.data_ptr() % 8:
         raise ValueError("inp and rolz must be 8-byte aligned (64-bit loads)")
-    out = torch.empty((3 * (_R_CANDS + 1) + 1, p.steps, p.lanes), dtype=_i32,
-                      device=inp.device)
-    cfg = _cfg_array(p, n)
+    out = torch.empty(g + (3 * (_R_CANDS + 1) + 1, p.steps, p.lanes),
+                      dtype=_i32, device=inp.device)
+    G1, bn, n_cfg = _launch_n(p, n, G, inp.device)
+    cfg = _cfg_array(p, n_cfg)
     lib = build.lib()
     if prev is None:
-        _launch("K5", lib.cpx_k5_launch, cfg.ctypes.data, inp.data_ptr(),
+        _launch("K5", lib.cpx_k5_launch, cfg.ctypes.data, G1, bn, inp.data_ptr(),
                 props.data_ptr(), rolz.data_ptr(), out.data_ptr(), _stream_ptr())
         return out
     _expect(prev, "prev", torch.uint8, (p.lanes, p.steps))
@@ -1963,6 +2088,17 @@ def rank_scan(p: BlockParams, inp, n: int, props, rolz, prev=None):
             win.data_ptr(), props.data_ptr(), rolz.data_ptr(), out.data_ptr(),
             _stream_ptr())
     return out
+
+
+def k5_max_clusters(p: BlockParams) -> int:
+    """K5's clusters (one a block) that the card holds at once for blocks
+    of ``p`` (``cudaOccupancyMaxActiveClusters``): a launch of more blocks
+    runs the rest in later waves."""
+    out = ctypes.c_int(0)
+    cfg = _cfg_array(p, p.capacity)
+    build.check(build.lib().cpx_k5_max_clusters(cfg.ctypes.data, ctypes.addressof(out)),
+                "cpx_k5_max_clusters")
+    return out.value
 
 
 def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None, rep=None):
@@ -1980,35 +2116,43 @@ def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None, rep=None):
     ``cands`` [2 * n_c, T, S] int32 from K7 -> dec [3, T, S] (take, src, 0).
     Mode X (the non-R branch with X's four prices; its second run with the
     repeat pair, 1436-1455): ``cands`` from K4x and ``rep`` [2, T, S] int32
-    (len_rep, prev) from K11, or None -> dec [3, T, S].
+    (len_rep, prev) from K11, or None -> dec [3, T, S].  On the block axis
+    each grid has a leading G and ``n`` is [G] int32.
     """
     if rep is not None and len(prices) < 4:
         raise ValueError("the repeat pair needs the repeat price")
+    G = _blocks(cands, 3)
     if _dispatch(cands, *([] if rep is None else [rep])) == "cpu":
+        if G is not None:
+            return _per_block(lambda b, nb: parse_scan_plain(
+                p, nb, cands[b], prices, n_c, _at(rep, b)),
+                _block_ns(n, G, cands.device))
         return parse_scan_plain(p, n, cands, prices, n_c, rep)
+    g = _lead(G)
+    G1, bn, n_cfg = _launch_n(p, n, G, cands.device)
     if prices is None:
-        n_r = (cands.shape[0] - 1) // 3  # candidates, the bucket's included
+        n_r = (cands.shape[len(g)] - 1) // 3  # candidates, the bucket's included
         if not 1 <= n_r <= MAX_CANDS + 1:
             raise ValueError("cands: expected 3 grids a candidate and the fill")
-        _expect(cands, "cands", _i32, (3 * n_r + 1, p.steps, p.lanes))
-        dec = torch.empty((4, p.steps, p.lanes), dtype=_i32, device=cands.device)
-        cfg = _cfg_array(p, n, n_cands=n_r - 1)
+        _expect(cands, "cands", _i32, g + (3 * n_r + 1, p.steps, p.lanes))
+        dec = torch.empty(g + (4, p.steps, p.lanes), dtype=_i32, device=cands.device)
+        cfg = _cfg_array(p, n_cfg, n_cands=n_r - 1)
         entry = build.lib().cpx_k6_launch
     else:
-        _expect(cands, "cands", _i32, (2 * n_c, p.steps, p.lanes))
-        dec = torch.empty((3, p.steps, p.lanes), dtype=_i32, device=cands.device)
-        cfg = _cfg_array(p, n, n_cands=n_c, p_lit=prices[0], p_rm=prices[1],
+        _expect(cands, "cands", _i32, g + (2 * n_c, p.steps, p.lanes))
+        dec = torch.empty(g + (3, p.steps, p.lanes), dtype=_i32, device=cands.device)
+        cfg = _cfg_array(p, n_cfg, n_cands=n_c, p_lit=prices[0], p_rm=prices[1],
                          p_ri=prices[2],
                          p_rep=prices[3] if len(prices) > 3 else 0)
         entry = build.lib().cpx_k6f_launch
     if rep is not None:
-        _expect(rep, "rep", _i32, (2, p.steps, p.lanes))
-        _launch("K6", build.lib().cpx_k6x_launch, cfg.ctypes.data,
+        _expect(rep, "rep", _i32, g + (2, p.steps, p.lanes))
+        _launch("K6", build.lib().cpx_k6x_launch, cfg.ctypes.data, G1, bn,
                 cands.data_ptr(), rep.data_ptr(), dec.data_ptr(),
                 _stream_ptr())
         return dec
-    _launch("K6", entry, cfg.ctypes.data, cands.data_ptr(), dec.data_ptr(),
-            _stream_ptr())
+    _launch("K6", entry, cfg.ctypes.data, G1, bn, cands.data_ptr(),
+            dec.data_ptr(), _stream_ptr())
     return dec
 
 
@@ -2027,8 +2171,14 @@ def lzp_candidates(p: BlockParams, inp, n: int, lzp):
     S * T): the sort's keys and positions, [2, 3N] int32 each, the
     candidates [3N] and the sort's digit counts (4 * 256 a 4096-key tile),
     about 63N bytes (504 MiB at N = 8 Mi), freed when the pass returns, so
-    that the caching allocator serves the next block's pass from them.
+    that the caching allocator serves the next block's pass from them.  On
+    the block axis (``inp`` [G, S, T], each table [G, ...], ``n`` [G]
+    int32) a launch a block, each reusing the one before's scratch.
     """
+    G = _blocks(inp, 2)
+    if G is not None:
+        return _per_block(lambda b, nb: lzp_candidates(p, inp[b], nb, _at(lzp, b)),
+                          _block_ns(n, G, inp.device))
     if _dispatch(inp, *[lzp[k] for k in LZP_KEYS]) == "cpu":
         return lzp_candidates_plain(p, inp, n, lzp)
     _check_kernel_geometry(p)
@@ -2064,32 +2214,41 @@ def model_scan(p: BlockParams, inp, n: int, dec, tables, lzp=None):
     T, S] int32 (take, src) -> ev [T, 15, S].  Mode P: no ``dec`` (None);
     ``lzp`` the three tables of :func:`_init_lzp`, or None with the match
     layer off -> ev [T, 9, S].  ``tables`` and ``lzp`` evolve in place.
+    On the block axis every tensor (each table too) has a leading G and
+    ``n`` is [G] int32: one launch, a CTA a block.
     """
     p_mode = p.mode == "P"
     if p_mode != (dec is None):
         raise ValueError("mode P has no parse decisions; modes R and X do")
+    G = _blocks(inp, 2)
     group = [inp, tables["o2"]] + ([] if p_mode else [dec]) + (
         [] if lzp is None else [lzp[k] for k in LZP_KEYS])
     if _dispatch(*group) == "cpu":
+        if G is not None:
+            return _per_block(lambda b, nb: model_scan_plain(
+                p, inp[b], nb, _at(dec, b), _at(tables, b), _at(lzp, b)),
+                _block_ns(n, G, inp.device))
         return model_scan_plain(p, inp, n, dec, tables, lzp)
     _check_kernel_geometry(p)
-    _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
-    _expect_tables(p, tables)
-    ev = torch.empty((p.steps, 3 * p.n_slots, p.lanes), dtype=_i32,
+    g = _lead(G)
+    _expect(inp, "inp", torch.uint8, g + (p.lanes, p.steps))
+    _expect_tables(p, tables, G)
+    ev = torch.empty(g + (p.steps, 3 * p.n_slots, p.lanes), dtype=_i32,
                      device=inp.device)
-    cfg = _cfg_array(p, n)
+    G1, bn, n_cfg = _launch_n(p, n, G, inp.device)
+    cfg = _cfg_array(p, n_cfg)
     lib = build.lib()
     if p_mode:
-        _lzp_ptrs(p, lzp)
+        _lzp_ptrs(p, lzp, G)
         grid = None if lzp is None else lzp_candidates(p, inp, n, lzp)
-        _launch("K13e", lib.cpx_k13e_launch, cfg.ctypes.data, inp.data_ptr(),
-                None if grid is None else grid.data_ptr(), *_table_ptrs(tables, "P"),
-                ev.data_ptr(), _stream_ptr())
+        _launch("K13e", lib.cpx_k13e_launch, cfg.ctypes.data, G1, bn,
+                inp.data_ptr(), None if grid is None else grid.data_ptr(),
+                *_table_ptrs(tables, "P"), ev.data_ptr(), _stream_ptr())
         return ev
     x_mode = p.mode == "X"
-    _expect(dec, "dec", _i32, (2 if x_mode else 4, p.steps, p.lanes))
+    _expect(dec, "dec", _i32, g + (2 if x_mode else 4, p.steps, p.lanes))
     _launch(*(("K12e", lib.cpx_k12e_launch) if x_mode
-              else ("K2", lib.cpx_k2_launch)), cfg.ctypes.data,
+              else ("K2", lib.cpx_k2_launch)), cfg.ctypes.data, G1, bn,
             inp.data_ptr(), dec.data_ptr(), *_table_ptrs(tables, p.mode),
             ev.data_ptr(), _stream_ptr())
     return ev
@@ -2102,18 +2261,22 @@ def rans_scan(p: BlockParams, ev):
     _encode_passes (1945-1969).  Kernel: csrc/rans.cu (one thread per
     lane).  ev [T, 3 * n_slots, S] int32 (n_slots = 3, or 5 in mode X) ->
     (states [S] int64, emit [T, n_slots, S] bool, words [T, n_slots, S]
-    int32).
+    int32).  On the block axis (``ev`` [G, T, 3 * n_slots, S]) each output
+    has a leading G: one launch, a thread a lane of every block.
     """
+    G = _blocks(ev, 3)
     if _dispatch(ev) == "cpu":
+        if G is not None:
+            return _per_block(lambda b, _: rans_scan_plain(p, ev[b]), [0] * G)
         return rans_scan_plain(p, ev)
-    n_slots = p.n_slots
-    _expect(ev, "ev", _i32, (p.steps, 3 * n_slots, p.lanes))
+    n_slots, g = p.n_slots, _lead(G)
+    _expect(ev, "ev", _i32, g + (p.steps, 3 * n_slots, p.lanes))
     dev = ev.device
-    states = torch.empty(p.lanes, dtype=_i64, device=dev)
-    emit = torch.empty((p.steps, n_slots, p.lanes), dtype=torch.uint8,
+    states = torch.empty(g + (p.lanes,), dtype=_i64, device=dev)
+    emit = torch.empty(g + (p.steps, n_slots, p.lanes), dtype=torch.uint8,
                        device=dev)
-    words = torch.empty((p.steps, n_slots, p.lanes), dtype=_i32, device=dev)
-    _launch("K3", build.lib().cpx_k3_launch, p.lanes, p.steps, n_slots,
+    words = torch.empty(g + (p.steps, n_slots, p.lanes), dtype=_i32, device=dev)
+    _launch("K3", build.lib().cpx_k3_launch, G or 1, p.lanes, p.steps, n_slots,
             ev.data_ptr(), states.data_ptr(), emit.data_ptr(),
             words.data_ptr(), _stream_ptr())
     return states, emit.view(torch.bool), words
@@ -2126,14 +2289,20 @@ def pack_emit(p: BlockParams, emit):
     Replaces comprox_tpu/codec/block.py::_encode_passes 1965-1969.  Kernel:
     csrc/rans.cu (a thread a packed byte).  ``emit`` [T, n_slots, S] bool
     -> [T, n_slots, S/8] uint8, bit k of byte j the flag of lane 8j + k
-    (what :func:`_pack_payload` unpacks).
+    (what :func:`_pack_payload` unpacks).  On the block axis (``emit`` [G,
+    T, n_slots, S]) one launch over the G masks: S is a multiple of 8, so
+    the flat pack is each block's.
     """
+    G = _blocks(emit, 3)
     if _dispatch(emit) == "cpu":
+        if G is not None:
+            return _per_block(lambda b, _: pack_emit_plain(emit[b]), [0] * G)
         return pack_emit_plain(emit)
-    _expect(emit, "emit", torch.bool, (p.steps, p.n_slots, p.lanes))
+    g = _lead(G)
+    _expect(emit, "emit", torch.bool, g + (p.steps, p.n_slots, p.lanes))
     if emit.data_ptr() % 8:
         raise ValueError("emit must be 8-byte aligned (64-bit loads)")
-    packed = torch.empty((p.steps, p.n_slots, p.lanes // 8), dtype=torch.uint8,
+    packed = torch.empty(g + (p.steps, p.n_slots, p.lanes // 8), dtype=torch.uint8,
                          device=emit.device)
     _launch("K3p", build.lib().cpx_k3p_launch, packed.numel(), emit.data_ptr(),
             packed.data_ptr(), _stream_ptr())
@@ -2176,6 +2345,11 @@ def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None,
     uint8, the previous block's bytes), mode P (with the match layer) the
     three tables ``lzp`` of :func:`_init_lzp`, mode X none -> (states,
     words_used, out [S, T] uint8).
+
+    On the block axis (not in the chain arm) ``states`` is [G, S], ``stream``
+    [G, W] (each block's row clamped within itself, as JAX slices a block's
+    own row), every table [G, ...] and ``n`` [G] int32 -> (states [G, S],
+    words_used [G] int64 tensor, out [G, S, T]): one launch, a CTA a block.
     """
     x_mode, p_mode = p.mode == "X", p.mode == "P"
     if (p.mode == "R") != (rolz is not None):
@@ -2186,40 +2360,54 @@ def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None,
     if (prev is not None) != p.chain_match:
         raise ValueError("a chain_match block decodes with the previous "
                          "block's bytes, any other block without")
+    G = _blocks(states, 1)
+    if G is not None and prev is not None:
+        raise ValueError("the chain arm decodes one block")
     if _dispatch(states, stream, tables["o2"],
                  *([] if rolz is None else [rolz]),
                  *([] if lzp is None else [lzp[k] for k in LZP_KEYS]),
                  *([] if prev is None else [prev])) == "cpu":
+        if G is not None:
+            return _per_block(lambda b, nb: decode_scan_plain(
+                p, states[b], stream[b], nb, _at(tables, b), _at(rolz, b),
+                _at(lzp, b)), _block_ns(n, G, states.device))
         return decode_scan_plain(p, states, stream, n, tables, rolz, lzp, prev)
     _check_kernel_geometry(p)
-    _expect(states, "states", _i64, (p.lanes,))
-    if stream.dtype != _i32 or stream.dim() != 1 or stream.shape[0] < p.lanes:
-        raise ValueError("stream: expected a 1-D int32 tensor of >= S words")
-    _expect(stream, "stream", _i32, stream.shape)
-    _expect_tables(p, tables)
+    g = _lead(G)
+    _expect(states, "states", _i64, g + (p.lanes,))
+    if (stream.dtype != _i32 or stream.dim() != len(g) + 1
+            or stream.shape[-1] < p.lanes):
+        raise ValueError("stream: expected an int32 tensor of >= S words a block")
+    _expect(stream, "stream", _i32, g + stream.shape[-1:])
+    _expect_tables(p, tables, G)
     dev = states.device
     x = states.clone()
-    out = torch.zeros((p.lanes, p.steps), dtype=torch.uint8, device=dev)
-    used = torch.zeros(1, dtype=_i64, device=dev)
-    cfg = _cfg_array(p, n, stream.shape[0])
+    out = torch.zeros(g + (p.lanes, p.steps), dtype=torch.uint8, device=dev)
+    used = torch.zeros(G or 1, dtype=_i64, device=dev)
+    G1, bn, n_cfg = _launch_n(p, n, G, dev)
+    cfg = _cfg_array(p, n_cfg, stream.shape[-1])
+
+    def done():
+        return x, (used if G is not None else int(used.item())), out
+
     if x_mode:
-        _launch("K12d", build.lib().cpx_k12d_launch, cfg.ctypes.data,
+        _launch("K12d", build.lib().cpx_k12d_launch, cfg.ctypes.data, G1, bn,
                 stream.data_ptr(), x.data_ptr(), *_table_ptrs(tables, "X"),
                 out.data_ptr(), used.data_ptr(), _stream_ptr())
-        return x, int(used.item()), out
+        return done()
     if p_mode:
-        _launch("K13d", build.lib().cpx_k13d_launch, cfg.ctypes.data,
+        _launch("K13d", build.lib().cpx_k13d_launch, cfg.ctypes.data, G1, bn,
                 stream.data_ptr(), x.data_ptr(), *_table_ptrs(tables, "P"),
-                *_lzp_ptrs(p, lzp), out.data_ptr(), used.data_ptr(),
+                *_lzp_ptrs(p, lzp, G), out.data_ptr(), used.data_ptr(),
                 _stream_ptr())
-        return x, int(used.item()), out
-    _expect(rolz, "rolz", _i32, (1 << p.rolz_bits, p.rolz_depth, 2))
+        return done()
+    _expect(rolz, "rolz", _i32, g + (1 << p.rolz_bits, p.rolz_depth, 2))
     if prev is None:
-        _launch("K1", build.lib().cpx_k1_launch, cfg.ctypes.data,
+        _launch("K1", build.lib().cpx_k1_launch, cfg.ctypes.data, G1, bn,
                 stream.data_ptr(), x.data_ptr(), *_table_ptrs(tables),
                 rolz.data_ptr(), out.data_ptr(), used.data_ptr(),
-                _pos_scratch(p, dev).data_ptr(), _stream_ptr())
-        return x, int(used.item()), out
+                _pos_scratch(p, dev, G).data_ptr(), _stream_ptr())
+        return done()
     _expect(prev, "prev", torch.uint8, (p.lanes, p.steps))
     win = torch.stack([prev, out])  # [2, S, T]: region 0 read, region 1 written
     _launch("K1ch", build.lib().cpx_k1c_launch, cfg.ctypes.data,
@@ -2296,8 +2484,14 @@ def encode_passes(p: BlockParams, inp, n: int, tables0=None, ment0=None,
     returned: K5 is the only encode pass with bucket inserts, and its final
     table is the one JAX's modeling scan ends with) and ``prev`` the
     previous block's zero-padded [S, T] bytes; both default to zeros
-    (block.py::_encode_passes, 1898-1971)."""
+    (block.py::_encode_passes, 1898-1971).
+
+    On the block axis (``inp`` [G, S, T], ``n`` [G] int32; unchained, fresh
+    tables) every pass takes the G blocks at once and every output has a
+    leading G (:func:`encode_passes_blocks`)."""
     dev = inp.device
+    G = _blocks(inp, 2)
+    g, ax = _lead(G), 0 if G is None else 1  # ax: the grids' axis
     lzp = None
     ment = None
     if p.chain_match and not _flexible_sort_finder(p):
@@ -2305,23 +2499,32 @@ def encode_passes(p: BlockParams, inp, n: int, tables0=None, ment0=None,
             "chain_match supports only the sort finder "
             "(CPX_R_FINDER=sort) with flexible parse"
         )
+    if G is not None and (p.chain_match or tables0 is not None):
+        raise ValueError("the block axis codes unchained blocks")
+
+    def each(fn):  # an elementwise step of the parse, block by block
+        return _per_block(lambda b, _: fn(b), [0] * G)
+
     if p.mode == "P":
         dec = None
-        lzp = _init_lzp(p, dev) if p.match else None
+        lzp = _init_lzp(p, dev, G) if p.match else None
     elif p.mode == "X":
-        dec = torch.zeros((2, p.steps, p.lanes), dtype=_i32, device=dev)
+        dec = torch.zeros(g + (2, p.steps, p.lanes), dtype=_i32, device=dev)
         if p.match:
             if _ENV["CPX_X_FINDER"] == "scan":
-                cands = search_scan(p, inp, n, _init_xsearch(p, dev))
+                cands = search_scan(p, inp, n, _init_xsearch(p, dev, G))
             else:
                 cands = sort_candidates(p, inp, n, content=True)
             if p.flexible:
-                n_c = cands.shape[0] // 2
+                n_c = cands.shape[ax] // 2
                 first = parse_scan(p, n, cands, x_prices(), n_c)
                 rep = rep_scan(p, inp, n, first)
-                dec = parse_scan(p, n, cands, x_prices(), n_c, rep)[:2]
-            else:
+                dec = parse_scan(p, n, cands, x_prices(), n_c, rep).narrow(
+                    ax, 0, 2).contiguous()
+            elif G is None:
                 dec = torch.stack(_greedy_decisions_dist(p, cands))
+            else:
+                dec = each(lambda b: torch.stack(_greedy_decisions_dist(p, cands[b])))
     elif _flexible_sort_finder(p):
         props = sort_candidates(p, inp, n)
         if p.chain_match:
@@ -2330,23 +2533,46 @@ def encode_passes(p: BlockParams, inp, n: int, tables0=None, ment0=None,
             cands = rank_scan(p, inp, n, props, ment,
                               torch.zeros_like(inp) if prev is None else prev)
         else:
-            cands = rank_scan(p, inp, n, props, _init_rolz(p, dev))
+            cands = rank_scan(p, inp, n, props, _init_rolz(p, dev, G))
         dec = parse_scan(p, n, cands)
     elif p.match:
-        grids = search_scan(p, inp, n, _init_rolz(p, dev))
+        grids = search_scan(p, inp, n, _init_rolz(p, dev, G))
+        grid = grids.unbind(ax)
         if p.flexible:  # the one candidate through the price DP
-            take, src = parse_scan(p, n, grids)[0], grids[1]
+            take, src = parse_scan(p, n, grids).select(ax, 0), grid[1]
+        elif G is None:
+            take, src = _greedy_decisions(p, grid[0], grid[1])
         else:
-            take, src = _greedy_decisions(p, grids[0], grids[1])
-        dec = torch.stack([take, src, grids[2], grids[3]]).contiguous()
+            take, src = each(lambda b: _greedy_decisions(p, grids[b, 0], grids[b, 1]))
+        dec = torch.stack([take, src, grid[2], grid[3]], dim=ax).contiguous()
     else:
-        dec = torch.zeros((4, p.steps, p.lanes), dtype=_i32, device=dev)
-    tables = (ppm.init_tables(p.match, p.o3_bits, dev) if tables0 is None
-              else tables0)
+        dec = torch.zeros(g + (4, p.steps, p.lanes), dtype=_i32, device=dev)
+    tables = (init_tables_blocks(p, dev, G) if tables0 is None else tables0)
     ev = model_scan(p, inp, n, dec, tables, lzp)
     states, emit, words = rans_scan(p, ev)
     out = (states, pack_emit(p, emit), words, ev, tables)
     return out + (ment,) if p.chain_match else out
+
+
+def init_tables_blocks(p: BlockParams, device, G=None) -> dict:
+    """Fresh PPM tables for one block, or for G (each table [G, ...])."""
+    t = ppm.init_tables(p.match, p.o3_bits, device)
+    return t if G is None else {k: v.expand((G,) + v.shape).clone() for k, v in t.items()}
+
+
+def encode_passes_blocks(p: BlockParams, inp, n):
+    """G blocks through the encode passes at once (JAX's
+    comprox_tpu/parallel/mesh.py::_encode_blocks_vmap, the vmap of
+    _encode_passes): ``inp`` [G, S, T] uint8, ``n`` [G] int32 (each block's
+    bytes, zero past its n) -> ``(states [G, S], emit_packed [G, T, n_slots,
+    S/8], words [G, T, n_slots, S])``, each block's what
+    :func:`encode_passes` gives it alone.  On the card one batched launch a
+    pass (the sorts and search scans a launch a block); on the CPU each
+    pass runs its one-block plain version on each block in turn, the plain
+    version of every batched launch."""
+    if inp.dim() != 3:
+        raise ValueError("inp: expected [G, S, T] blocks")
+    return encode_passes(p, inp, n)[:3]
 
 
 def _block_tensor(data: np.ndarray, p: BlockParams, device):
@@ -2441,6 +2667,22 @@ def _decode_passes(payload: bytes, n: int, p: BlockParams, device, tables,
     )
     _check_drain(x.cpu().numpy(), used, n_words)
     return out.cpu().numpy().reshape(-1)[:n], out, ment
+
+
+def decode_scan_blocks(p: BlockParams, states, streams, n):
+    """G blocks through the decode scan at once (JAX's
+    comprox_tpu/parallel/mesh.py::_decode_blocks_vmap, the vmap of
+    _decode_scan), each from fresh tables: ``states`` [G, S] int64,
+    ``streams`` [G, W] int32 (a block's words, zero past its count; each
+    block's window clamps within its own row), ``n`` [G] int32 -> ``(x [G,
+    S] int64, used [G] int64, out [G, S, T] uint8)``.  On the card one
+    launch; on the CPU the one-block plain scan on each block in turn."""
+    if states.dim() != 2 or streams.dim() != 2:
+        raise ValueError("states, streams: expected [G, S] and [G, W]")
+    G, dev = states.shape[0], states.device
+    return decode_scan(p, states, streams, n, init_tables_blocks(p, dev, G),
+                       _init_rolz(p, dev, G) if p.mode == "R" else None,
+                       _init_lzp(p, dev, G) if p.mode == "P" and p.match else None)
 
 
 def decode_block(payload: bytes, n: int, p: BlockParams, device) -> np.ndarray:

@@ -14,13 +14,24 @@ bytes too) code one block at a time, in order; a block stored raw leaves
 the chain state as it was, on both sides.  ``CPX_CHAIN_SPEC`` chooses
 between two schedules of the same bytes in the JAX package; the port
 takes "0" and "1" and runs the sequential one for both.
+
+Block batching (``group`` > 1, the CLI's ``-g``): unchained blocks go
+through the codec ``group`` at a time (:mod:`comprox_tpu_torch.parallel.
+mesh`; mode F loops its one-block path, as the JAX package does), with
+the same bytes as one at a time.  Encode stages the next group's filters
+and dictionary substitution on a worker thread while the card codes the
+current one; decode prescans the block headers and decodes group g + 1
+on a worker thread while the caller writes group g.  Chained archives
+decode one block at a time whatever ``group`` says.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import BinaryIO, Callable, Optional
 
@@ -36,8 +47,12 @@ from comprox_tpu_torch.codec.block import (
     encode_block_chained,
     init_chain_tables,
 )
-from comprox_tpu_torch.codec.fast import decode_block_fast, encode_block_fast
+from comprox_tpu_torch.codec.fast import (
+    decode_block_fast,
+    encode_block_fast,
+)
 from comprox_tpu_torch.models.ppm import format_fingerprint
+from comprox_tpu_torch.parallel.mesh import decode_blocks, encode_blocks_list
 
 MAGIC = b"CPXTPU02"
 _OLD_MAGICS = (b"CPXTPU01",)
@@ -151,21 +166,29 @@ def encode_stream(
     precomp_only: bool = False,
     progress: Optional[Callable[[int, int], None]] = None,
     chain: bool = False,
+    group: int = 1,
 ) -> int:
     """Encode ``src`` into ``dst`` on ``device``; returns the archive size.
 
     The same bytes as ``comprox_tpu.codec.container.encode_stream`` with
-    the same arguments, one block at a time.  ``precomp_only`` runs just
-    the dictionary stage and stores the substituted bytes.  ``chain``
-    carries the PPM models across blocks (under the block parameters'
-    ``chain_match`` also the bucket table and the previous block's bytes);
-    a block stored raw leaves the chain state as it was.
+    the same arguments, ``group`` blocks at a time (one: the sequential
+    path).  ``precomp_only`` runs just the dictionary stage and stores the
+    substituted bytes.  ``chain`` carries the PPM models across blocks
+    (under the block parameters' ``chain_match`` also the bucket table and
+    the previous block's bytes); a block stored raw leaves the chain state
+    as it was.  The next group's filters and dictionary substitution run
+    on a worker thread while the current group is coded.
     """
     _check_codec(cp)
     if precomp_only:
         filters = False  # stored blocks carry no filter-span metadata
         chain = False  # nothing is modelled
     if chain:
+        if group > 1:
+            raise ValueError(
+                "chain mode carries model state across blocks — "
+                "incompatible with mesh/group block parallelism"
+            )
         if cp.block.mode == "F":
             raise ValueError(
                 "chain mode requires an adaptive-model codec (R/X/P)"
@@ -200,10 +223,9 @@ def encode_stream(
             dst.write(struct.pack("<III", len(blob), 0, crc) + blob)
             written += 12 + len(blob)
 
-    total, done = src.size, 0
     cap = cp.block.capacity
-    for off in range(0, src.size, cap):
-        raw_blk = src[off : off + cap]
+
+    def stage(raw_blk):
         blk, prefix, bflags = raw_blk, b"", 0
         if filters:
             spans = flt.detect_spans(blk)
@@ -217,25 +239,52 @@ def encode_stream(
                 blk = sub
                 prefix += struct.pack("<I", sub.size)
                 bflags |= BF_DICT
-        if precomp_only:
-            payload, bflags = prefix + blk.tobytes(), bflags | BF_STORED
-        else:
-            if chain:
-                coded, state1 = encode_block_chained(blk, cp.block, state, device)
-            else:
-                coded = encode(blk)
-            payload = prefix + coded
-            if len(payload) >= raw_blk.size:  # stored fallback
-                payload, bflags = raw_blk.tobytes(), BF_STORED
-            elif chain:
-                state = state1  # the models advance past the block
-        dst.write(struct.pack(BLKHDR, raw_blk.size, len(payload), bflags,
-                              zlib.crc32(payload) & 0xFFFFFFFF))
-        dst.write(payload)
-        written += BLKHDR_LEN + len(payload)
-        done += raw_blk.size
-        if progress:
-            progress(done, total)
+        return raw_blk, blk, prefix, bflags
+
+    def stage_group(raws):
+        return [stage(raw) for raw in raws]
+
+    def code_group(blks):  # unchained blocks; mode F has no block axis
+        if group_n == 1 or cp.block.mode == "F":
+            return [encode(blk) for blk in blks]
+        return encode_blocks_list(blks, cp.block, group=group_n, device=device)
+
+    total, done = src.size, 0
+    group_n = max(int(group), 1)
+    blocks_it = (src[off : off + cap] for off in range(0, src.size, cap))
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        nxt = list(itertools.islice(blocks_it, group_n))
+        fut = pool.submit(stage_group, nxt) if nxt else None
+        while fut is not None:
+            staged = fut.result()
+            nxt = list(itertools.islice(blocks_it, group_n))
+            fut = pool.submit(stage_group, nxt) if nxt else None
+            payloads = (None if precomp_only or chain
+                        else code_group([blk for _, blk, _, _ in staged]))
+            for k, (raw_blk, blk, prefix, bflags) in enumerate(staged):
+                if precomp_only:
+                    payload, bflags = prefix + blk.tobytes(), bflags | BF_STORED
+                else:
+                    if chain:
+                        coded, state1 = encode_block_chained(blk, cp.block, state,
+                                                             device)
+                    else:
+                        coded = payloads[k]
+                    payload = prefix + coded
+                    if len(payload) >= raw_blk.size:  # stored fallback
+                        payload, bflags = raw_blk.tobytes(), BF_STORED
+                    elif chain:
+                        state = state1  # the models advance past the block
+                dst.write(struct.pack(BLKHDR, raw_blk.size, len(payload), bflags,
+                                      zlib.crc32(payload) & 0xFFFFFFFF))
+                dst.write(payload)
+                written += BLKHDR_LEN + len(payload)
+                done += raw_blk.size
+                if progress:
+                    progress(done, total)
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
     dst.write(struct.pack(BLKHDR, 0, 0, 0, 0))
     return written + BLKHDR_LEN
 
@@ -245,10 +294,14 @@ def decode_stream(
     dst: BinaryIO,
     device,
     progress: Optional[Callable[[int, int], None]] = None,
+    group: int = 1,
 ) -> int:
     """Decode a codec-R, codec-F, codec-X or codec-P archive, unchained or
     chained, on ``device``; returns the raw byte count.  A stored block
-    never touches the chain state."""
+    never touches the chain state.  With ``group`` > 1 an unchained
+    archive's coded blocks decode ``group`` at a time (a prescan of the
+    block headers, then :func:`_make_mesh_decode_fn`); a chained one
+    decodes one block at a time."""
     cp, flags = read_header(src)
     if flags & F_CHAIN and cp.block.mode == "F":
         raise ValueError("corrupt archive: chain mode requires an "
@@ -265,55 +318,136 @@ def decode_stream(
         if len(blob) != blob_len or zlib.crc32(blob) & 0xFFFFFFFF != crc:
             raise ValueError("corrupt archive: dictionary blob CRC mismatch")
         wd = dic.unpack_dict(blob)
+    close = None
+    if group > 1 and not flags & F_CHAIN:
+        # the prescan starts at the first block header (after the blob)
+        mesh = _make_mesh_decode_fn(src, cp, group, device)
+        if mesh is not None:
+            decode, close = mesh
     total = 0
+    try:
+        while True:
+            hdr = src.read(BLKHDR_LEN)
+            if len(hdr) < BLKHDR_LEN:
+                raise ValueError("truncated archive: missing block header")
+            raw_n, blen, bflags, crc = struct.unpack(BLKHDR, hdr)
+            if raw_n == 0:
+                break
+            payload = src.read(blen)
+            if len(payload) < blen:
+                raise ValueError("truncated archive: short block payload")
+            if zlib.crc32(payload) & 0xFFFFFFFF != crc:
+                raise ValueError("corrupt archive: block payload CRC mismatch")
+            if bflags & BF_DICT and wd is None:
+                raise ValueError(
+                    "corrupt archive: block flagged dictionary-coded but the "
+                    "header carries no dictionary"
+                )
+            spans = []
+            if bflags & BF_FILTERED and not bflags & BF_STORED:
+                spans, off = flt.unpack_spans(payload)
+                payload = payload[off:]
+            if bflags & BF_STORED:
+                if bflags & BF_DICT:  # precomp-only block: expand the dictionary
+                    out = dic.dict_decode(np.frombuffer(payload[4:], np.uint8), wd)
+                else:
+                    out = np.frombuffer(payload, np.uint8)
+            else:
+                n_dec = raw_n
+                if bflags & BF_DICT:
+                    if len(payload) < 4:
+                        raise ValueError("corrupt block: missing dict-size prefix")
+                    (n_dec,) = struct.unpack("<I", payload[:4])
+                    payload = payload[4:]
+                if state is not None:
+                    out, state = decode_block_chained(payload, n_dec, cp.block,
+                                                      state, device)
+                else:
+                    out = decode(payload, n_dec)
+                if bflags & BF_DICT:
+                    out = dic.dict_decode(out, wd)
+            if out.size != raw_n:
+                raise ValueError(
+                    f"corrupt block: decoded {out.size} bytes, header says {raw_n}"
+                )
+            if spans:
+                out = flt.apply_spans(out, spans, encode=False)
+            dst.write(out.tobytes())
+            total += raw_n
+            if progress:
+                progress(total, total)
+    finally:
+        if close is not None:
+            close()
+    return total
+
+
+def _make_mesh_decode_fn(src: BinaryIO, cp: ContainerParams, group: int, device):
+    """Prescan the rest of the archive (``src`` seeks back to where it
+    was) and decode its coded blocks ``group`` at a time as the caller
+    asks for them, group g + 1 on a worker thread while the caller
+    post-processes group g; returns ``(decode_fn, close)``: decode_fn serves
+    the blocks in order, close ends the worker, whether or not every block
+    was served (None when no block is coded).  Exceptions of the worker reach
+    the caller through ``fut.result()``
+    (comprox_tpu/codec/container.py::_make_mesh_decode_fn)."""
+    start = src.tell()
+    jobs = []  # (payload after its prefixes, n to decode)
     while True:
         hdr = src.read(BLKHDR_LEN)
         if len(hdr) < BLKHDR_LEN:
-            raise ValueError("truncated archive: missing block header")
-        raw_n, blen, bflags, crc = struct.unpack(BLKHDR, hdr)
+            break
+        raw_n, blen, bflags, _crc = struct.unpack(BLKHDR, hdr)
         if raw_n == 0:
             break
         payload = src.read(blen)
-        if len(payload) < blen:
-            raise ValueError("truncated archive: short block payload")
-        if zlib.crc32(payload) & 0xFFFFFFFF != crc:
-            raise ValueError("corrupt archive: block payload CRC mismatch")
-        if bflags & BF_DICT and wd is None:
-            raise ValueError(
-                "corrupt archive: block flagged dictionary-coded but the "
-                "header carries no dictionary"
-            )
-        spans = []
-        if bflags & BF_FILTERED and not bflags & BF_STORED:
-            spans, off = flt.unpack_spans(payload)
-            payload = payload[off:]
         if bflags & BF_STORED:
-            if bflags & BF_DICT:  # precomp-only block: expand the dictionary
-                out = dic.dict_decode(np.frombuffer(payload[4:], np.uint8), wd)
-            else:
-                out = np.frombuffer(payload, np.uint8)
-        else:
-            n_dec = raw_n
-            if bflags & BF_DICT:
-                if len(payload) < 4:
-                    raise ValueError("corrupt block: missing dict-size prefix")
-                (n_dec,) = struct.unpack("<I", payload[:4])
-                payload = payload[4:]
-            if state is not None:
-                out, state = decode_block_chained(payload, n_dec, cp.block,
-                                                  state, device)
-            else:
-                out = decode(payload, n_dec)
-            if bflags & BF_DICT:
-                out = dic.dict_decode(out, wd)
-        if out.size != raw_n:
-            raise ValueError(
-                f"corrupt block: decoded {out.size} bytes, header says {raw_n}"
-            )
-        if spans:
-            out = flt.apply_spans(out, spans, encode=False)
-        dst.write(out.tobytes())
-        total += raw_n
-        if progress:
-            progress(total, total)
-    return total
+            continue
+        if bflags & BF_FILTERED:
+            _spans, off = flt.unpack_spans(payload)
+            payload = payload[off:]
+        n_dec = raw_n
+        if bflags & BF_DICT:
+            if len(payload) < 4:
+                raise ValueError("corrupt block: missing dict-size prefix")
+            (n_dec,) = struct.unpack("<I", payload[:4])
+            payload = payload[4:]
+        jobs.append((payload, n_dec))
+    src.seek(start)
+    if not jobs:
+        return None
+
+    single = _block_decoder(cp.block, device)
+
+    def dec(grp):
+        if cp.block.mode == "F":  # no block axis: its blocks in turn
+            return np.concatenate([single(p, n) for p, n in grp])
+        payloads, ns = [p for p, _ in grp], [n for _, n in grp]
+        return decode_blocks(payloads, ns, cp.block, group=group, device=device)
+
+    pool = ThreadPoolExecutor(max_workers=1)
+
+    def results():
+        fut = pool.submit(dec, jobs[0:group])
+        for g in range(0, len(jobs), group):
+            outs = fut.result()
+            if g + group < len(jobs):
+                fut = pool.submit(dec, jobs[g + group : g + 2 * group])
+            off = 0
+            for _, n in jobs[g : g + group]:
+                yield outs[off : off + n]
+                off += n
+
+    it = results()
+
+    def decode_fn(payload, n):
+        out = next(it)
+        if out.size != n:
+            raise ValueError(f"corrupt block: decoded {out.size} bytes, expected {n}")
+        return out
+
+    def close():  # ends the prefetch: no group is decoded after it returns
+        it.close()
+        pool.shutdown(wait=True, cancel_futures=True)
+
+    return decode_fn, close

@@ -87,13 +87,13 @@ struct StreamRead {
 
 // An instrumented build (-DCPX_K1_PROF, which the main path's build does
 // not use; benchmarks/phases.py) stamps the SM clock at the end of each of
-// K1's phases on thread 0 (CTA 0), sums each phase over the steps and adds
+// K1's phases on thread 0 (CTA 0 of block 0), sums each phase over the steps and adds
 // the sums to k1_prof at the end of the launch.
 #define K1_PHASES 12
 #ifdef CPX_K1_PROF
 __device__ unsigned long long k1_prof[K1_PHASES];
 #define K1_STAMP(k)                                   \
-  if (gtid() == 0) {                                  \
+  if (gtid() == 0 && blockIdx.y == 0) {               \
     const long long now_ = prof_clock();              \
     prof_[k] += (unsigned long long)(now_ - stamp_);  \
     stamp_ = now_;                                    \
@@ -107,7 +107,18 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
                           long long* __restrict__ states, Tables tb,
                           int* __restrict__ rolz, uint8_t* __restrict__ out,
                           long long* __restrict__ used, int* __restrict__ gpos,
-                          bool pos_in_smem, int woff) {
+                          bool pos_in_smem, int woff, const int* __restrict__ bn) {
+  // block blockIdx.y of the launch: its n, stream row, states, tables,
+  // bucket table, output (chained: the [2, S, T] window), word count and
+  // bucket-row scratch
+  blk_n(c, bn);
+  stream = at_blk(stream, c.stream_len);
+  states = at_blk(states, c.S);
+  tb = tables_at(tb, c);
+  rolz = at_blk(rolz, 2LL * c.rolz_depth << c.rolz_bits);
+  out = at_blk(out, woff + (long long)c.S * c.T);
+  used = at_blk(used, 1);
+  gpos = at_blk(gpos, 2LL * c.S * pos_pitch(c.rolz_depth));
   __shared__ SmemModel own;  // this CTA's keys and wtot; with CL, CTA 0's models serve all
   SmemModel& sm = *at_rank<CL>(&own, 0);
   // the warps' row rings, then (pos_in_smem) the lanes' bucket-row copies
@@ -326,7 +337,7 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
   }
   group_sync<CL>();
 #ifdef CPX_K1_PROF
-  if (gtid() < K1_PHASES) atomicAdd(&k1_prof[gtid()], prof_[gtid()]);
+  if (gtid() < K1_PHASES && blockIdx.y == 0) atomicAdd(&k1_prof[gtid()], prof_[gtid()]);
 #endif
   model_store(sm, tb);
   if (alive) states[i] = (long long)x;
@@ -408,12 +419,28 @@ __device__ unsigned long long k13d_prof[2 * K12D_PHASES];
 #define K12D_STAMP(k)
 #endif
 
-template <int MAXT, int MODE, bool CL>
+// BLK: the batched arm (the block axis); the one-block arm rebases nothing
+// (with the rebasing in it, K12d at S=512 held 128 registers with 8 B
+// spilled and read 270.3 ms at full width against 264.2 without, on an
+// H100 80GB HBM3 at 700 W: benchmarks/phases.py `times`, the two in turns).
+template <int MAXT, int MODE, bool CL, bool BLK>
 __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict__ stream,
                             long long* __restrict__ states, Tables tb, Lzp lzp,
                             uint8_t* __restrict__ out,
-                            long long* __restrict__ used, int win_n) {
+                            long long* __restrict__ used, int win_n,
+                            const int* __restrict__ bn) {
   constexpr bool XMODE = MODE == MODE_X;
+  if (BLK) {
+    // block blockIdx.y of the launch: its n, stream row, states, tables,
+    // LZP tables, output and word count
+    blk_n(c, bn);
+    stream = at_blk(stream, c.stream_len);
+    states = at_blk(states, c.S);
+    tb = tables_at<MODE>(tb, c);
+    lzp = lzp_at(lzp);
+    out = at_blk(out, (long long)c.S * c.T);
+    used = at_blk(used, 1);
+  }
   __shared__ SmemModel own;  // this CTA's keys and wtot; with CL, CTA 0's models serve all
   SmemModel& sm = *at_rank<CL>(&own, 0);
   // the warps' row rings, the two stream windows (win_n ints each, maybe
@@ -692,62 +719,77 @@ __global__ void __launch_bounds__(MAXT) k12d_kernel(Cfg c, const int* __restrict
 
 }  // namespace
 
+// G blocks (the block axis): stream [G, stream_len], states [G, S], each
+// table [G, ...], out [G, S, T], used [G], bn [G] (null: one block).
 template <int MODE>
-static int tableless_launch(const int* cfg, const void* stream, void* states,
-                            const Tables& tb, const Lzp& lzp, void* out,
+static int tableless_launch(const int* cfg, int G, const int* bn, const void* stream,
+                            void* states, const Tables& tb, const Lzp& lzp, void* out,
                             void* used, void* cuda_stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  const ScanGrid g = scan_grid(c.S);
-  auto kernel = g.ctas > 1 ? k12d_kernel<CPX_MAX_LANES, MODE, true>
-              : g.threads <= 512 ? k12d_kernel<512, MODE, false>
-                                 : k12d_kernel<CPX_MAX_LANES, MODE, false>;
+  ScanGrid g = scan_grid(c.S);
+  g.blocks = G;
+  if (bn == nullptr && G != 1) return (int)cudaErrorInvalidValue;
+  const bool one = bn == nullptr;  // the one-block arm
+  auto kernel = g.ctas > 1 ? (one ? k12d_kernel<CPX_MAX_LANES, MODE, true, false>
+                                  : k12d_kernel<CPX_MAX_LANES, MODE, true, true>)
+              : g.threads <= 512 ? (one ? k12d_kernel<512, MODE, false, false>
+                                        : k12d_kernel<512, MODE, false, true>)
+                                 : (one ? k12d_kernel<CPX_MAX_LANES, MODE, false, false>
+                                        : k12d_kernel<CPX_MAX_LANES, MODE, false, true>);
   // the rings, the two stream windows where one CTA runs the block, the
   // stream is 16-byte aligned and they fit beside the rings, the APM table
   // and the static SmemModel; then the APM table
   const size_t ring = ring_bytes(g.threads), lut = APM_LUT_N * sizeof(int);
-  int win_n = g.ctas > 1 || ((uintptr_t)stream & 15) ? 0 : stream_window_ints(c, MODE);
+  // (each block's stream row 16-byte aligned too)
+  const bool aligned = !((uintptr_t)stream & 15) && (G == 1 || !(c.stream_len & 3));
+  int win_n = g.ctas > 1 || !aligned ? 0 : stream_window_ints(c, MODE);
   if (ring + 2 * sizeof(int) * win_n + lut + sizeof(SmemModel) + 256 > CPX_SMEM_MAX) win_n = 0;
   return launch_scan(kernel, g, ring + 2 * sizeof(int) * win_n + lut, cuda_stream, c,
                      (const int*)stream, (long long*)states, tb, lzp, (uint8_t*)out,
-                     (long long*)used, win_n);
+                     (long long*)used, win_n, bn);
 }
 
 // Mode X: no bucket table; three more model tables.
-extern "C" int cpx_k12d_launch(const int* cfg, const void* stream, void* states,
+extern "C" int cpx_k12d_launch(const int* cfg, int G, const void* bn,
+                               const void* stream, void* states,
                                void* o2, void* o1, void* o3, void* len, void* idx,
                                void* sse, void* sse_h, void* dst, void* mant,
                                void* sse_x, void* out, void* used,
                                void* cuda_stream) {
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
             (int*)sse_h, (int*)dst, (int*)mant, (int*)sse_x};
-  return tableless_launch<MODE_X>(cfg, stream, states, tb,
+  return tableless_launch<MODE_X>(cfg, G, (const int*)bn, stream, states, tb,
                                   Lzp{nullptr, nullptr, nullptr}, out, used,
                                   cuda_stream);
 }
 
 // Mode P: the three LZP tables (null with the match layer off); sse_p is
 // the hit APM.
-extern "C" int cpx_k13d_launch(const int* cfg, const void* stream, void* states,
+extern "C" int cpx_k13d_launch(const int* cfg, int G, const void* bn,
+                               const void* stream, void* states,
                                void* o2, void* o1, void* o3, void* len, void* idx,
                                void* sse_p, void* lzp2, void* lzp4, void* lzp8,
                                void* out, void* used, void* cuda_stream) {
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, nullptr,
             nullptr, nullptr, nullptr, (int*)sse_p};
-  return tableless_launch<MODE_P>(cfg, stream, states, tb,
+  return tableless_launch<MODE_P>(cfg, G, (const int*)bn, stream, states, tb,
                                   Lzp{(int*)lzp2, (int*)lzp4, (int*)lzp8}, out,
                                   used, cuda_stream);
 }
 
-static int k1_launch(const int* cfg, const void* stream, void* states, void* o2,
-                     void* o1, void* o3, void* len, void* idx, void* sse, void* sse_h,
-                     void* rolz, void* out, void* used, void* gpos, void* cuda_stream,
-                     int chained) {
+// G blocks (the block axis; the chain arm takes one): as the tableless
+// scan, and rolz [G, 2^bits, D, 2], gpos [G, 2, S, D + 1].
+static int k1_launch(const int* cfg, int G, const int* bn, const void* stream, void* states,
+                     void* o2, void* o1, void* o3, void* len, void* idx, void* sse,
+                     void* sse_h, void* rolz, void* out, void* used, void* gpos,
+                     void* cuda_stream, int chained) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
             (int*)sse_h, nullptr, nullptr, nullptr};
-  const ScanGrid g = scan_grid(c.S);
+  ScanGrid g = scan_grid(c.S);
+  g.blocks = G;
   // the rings, then the lanes' bucket-row copies where they fit beside the
   // rings and the static SmemModel (else in gpos)
   const size_t ring = ring_bytes(g.threads);
@@ -755,18 +797,18 @@ static int k1_launch(const int* cfg, const void* stream, void* states, void* o2,
   if (ring + pos + sizeof(SmemModel) + 256 > CPX_SMEM_MAX) pos = 0;
   auto kernel = g.ctas > 1 ? k1_kernel<CPX_MAX_LANES, true>
               : g.threads <= 512 ? k1_kernel<512, false> : k1_kernel<CPX_MAX_LANES, false>;
-  if (chained && 2LL * c.S * c.T >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (chained && (G != 1 || 2LL * c.S * c.T >= (1LL << 31))) return (int)cudaErrorInvalidValue;
   return launch_scan(kernel, g, ring + pos, cuda_stream, c, (const int*)stream,
                      (long long*)states, tb, (int*)rolz, (uint8_t*)out,
-                     (long long*)used, (int*)gpos, pos > 0, chained ? c.S * c.T : 0);
+                     (long long*)used, (int*)gpos, pos > 0, chained ? c.S * c.T : 0, bn);
 }
 
-extern "C" int cpx_k1_launch(const int* cfg, const void* stream, void* states,
-                             void* o2, void* o1, void* o3, void* len, void* idx,
-                             void* sse, void* sse_h, void* rolz, void* out,
+extern "C" int cpx_k1_launch(const int* cfg, int G, const void* bn, const void* stream,
+                             void* states, void* o2, void* o1, void* o3, void* len,
+                             void* idx, void* sse, void* sse_h, void* rolz, void* out,
                              void* used, void* gpos, void* cuda_stream) {
-  return k1_launch(cfg, stream, states, o2, o1, o3, len, idx, sse, sse_h, rolz, out, used,
-                   gpos, cuda_stream, 0);
+  return k1_launch(cfg, G, (const int*)bn, stream, states, o2, o1, o3, len, idx, sse, sse_h,
+                   rolz, out, used, gpos, cuda_stream, 0);
 }
 
 // The chain arm: out is the [2, S, T] window (region 0 the previous
@@ -775,8 +817,8 @@ extern "C" int cpx_k1c_launch(const int* cfg, const void* stream, void* states,
                               void* o2, void* o1, void* o3, void* len, void* idx,
                               void* sse, void* sse_h, void* rolz, void* out,
                               void* used, void* gpos, void* cuda_stream) {
-  return k1_launch(cfg, stream, states, o2, o1, o3, len, idx, sse, sse_h, rolz, out, used,
-                   gpos, cuda_stream, 1);
+  return k1_launch(cfg, 1, nullptr, stream, states, o2, o1, o3, len, idx, sse, sse_h, rolz,
+                   out, used, gpos, cuda_stream, 1);
 }
 
 #ifdef CPX_K1_PROF

@@ -102,8 +102,15 @@ static __device__ void mant_events(const SmemModel& sm, int dist, int k_dist,
 template <int MAXT, int MODE, bool CL, int LPR>
 __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restrict__ inp,
                           const int* __restrict__ dec, Tables tb,
-                          int* __restrict__ ev) {
+                          int* __restrict__ ev, const int* __restrict__ bn) {
   constexpr bool XMODE = MODE == MODE_X, PMODE = MODE == MODE_P;
+  // block blockIdx.y of the launch: its n, bytes, decisions (mode P: its
+  // candidate grid), tables and event grid
+  blk_n(c, bn);
+  inp = at_blk(inp, (long long)c.S * c.T);
+  dec = at_blk(dec, (long long)(MODE == MODE_R ? 4 : XMODE ? 2 : 1) * c.S * c.T);
+  tb = tables_at<MODE>(tb, c);
+  ev = at_blk(ev, (long long)(XMODE ? 15 : 9) * c.S * c.T);
   constexpr int WARP_SLOTS = LPR == 4 ? RING4_W : RING_SLOTS;  // the B event's ring's stride
   __shared__ SmemModel own;  // this CTA's keys; with CL, CTA 0's models serve all
   SmemModel& sm = *at_rank<CL>(&own, 0);
@@ -307,12 +314,15 @@ __global__ void __launch_bounds__(MAXT) k2_kernel(Cfg c, const uint8_t* __restri
 
 }  // namespace
 
+// G blocks (the block axis): inp [G, S, T], dec [G, ...], each table [G,
+// ...], ev [G, T, 3 * n_slots, S], bn [G] (null: one block).
 template <int MODE>
-static int model_launch(const int* cfg, const void* inp, const void* dec,
-                        const Tables& tb, void* ev, void* stream) {
+static int model_launch(const int* cfg, int G, const void* bn, const void* inp,
+                        const void* dec, const Tables& tb, void* ev, void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  const ScanGrid g = scan_grid(c.S);
+  ScanGrid g = scan_grid(c.S);
+  g.blocks = G;
   // up to 512 threads the A event codes four lanes a round, the 1024-thread
   // and cluster arms two
   const bool four = g.ctas == 1 && g.threads <= 512;
@@ -320,36 +330,39 @@ static int model_launch(const int* cfg, const void* inp, const void* dec,
               : !four      ? k2_kernel<CPX_MAX_LANES, MODE, false, 2>
                            : k2_kernel<512, MODE, false, 4>;
   return launch_scan(kernel, g, four ? ring4_bytes(g.threads) : ring_bytes(g.threads), stream,
-                     c, (const uint8_t*)inp, (const int*)dec, tb, (int*)ev);
+                     c, (const uint8_t*)inp, (const int*)dec, tb, (int*)ev, (const int*)bn);
 }
 
 // Mode R: dec [4, T, S] (take, src, recency index, fill) -> ev [T, 9, S].
-extern "C" int cpx_k2_launch(const int* cfg, const void* inp, const void* dec,
+extern "C" int cpx_k2_launch(const int* cfg, int G, const void* bn,
+                             const void* inp, const void* dec,
                              void* o2, void* o1, void* o3, void* len, void* idx,
                              void* sse, void* sse_h, void* ev, void* stream) {
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
             (int*)sse_h, nullptr, nullptr, nullptr};
-  return model_launch<MODE_R>(cfg, inp, dec, tb, ev, stream);
+  return model_launch<MODE_R>(cfg, G, bn, inp, dec, tb, ev, stream);
 }
 
 // Mode X: dec [2, T, S] (take, src) -> ev [T, 15, S]; three more tables.
-extern "C" int cpx_k12e_launch(const int* cfg, const void* inp, const void* dec,
+extern "C" int cpx_k12e_launch(const int* cfg, int G, const void* bn,
+                               const void* inp, const void* dec,
                                void* o2, void* o1, void* o3, void* len, void* idx,
                                void* sse, void* sse_h, void* dst, void* mant,
                                void* sse_x, void* ev, void* stream) {
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, (int*)sse,
             (int*)sse_h, (int*)dst, (int*)mant, (int*)sse_x};
-  return model_launch<MODE_X>(cfg, inp, dec, tb, ev, stream);
+  return model_launch<MODE_X>(cfg, G, bn, inp, dec, tb, ev, stream);
 }
 
 // Mode P: no decisions; K13c's candidate grid [T, S] (null with the match
 // layer off) -> ev [T, 9, S]; sse_p is the hit APM.
-extern "C" int cpx_k13e_launch(const int* cfg, const void* inp, const void* grid,
+extern "C" int cpx_k13e_launch(const int* cfg, int G, const void* bn,
+                               const void* inp, const void* grid,
                                void* o2, void* o1, void* o3, void* len, void* idx,
                                void* sse_p, void* ev, void* stream) {
   Tables tb{(int*)o2, (int*)o1, (int*)o3, (int*)len, (int*)idx, nullptr,
             nullptr, nullptr, nullptr, (int*)sse_p};
-  return model_launch<MODE_P>(cfg, inp, grid, tb, ev, stream);
+  return model_launch<MODE_P>(cfg, G, bn, inp, grid, tb, ev, stream);
 }
 
 #ifdef CPX_K2_PROF

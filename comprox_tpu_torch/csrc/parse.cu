@@ -41,7 +41,14 @@ namespace {
 template <bool FAST>
 __global__ void __launch_bounds__(K6_WARPS * 32) k6_kernel(
     Cfg c, const int* __restrict__ cands, const int* __restrict__ rep,
-    int* __restrict__ dec) {
+    int* __restrict__ dec, const int* __restrict__ bn) {
+  // block blockIdx.y of the launch: its n, candidates, repeat pair and
+  // decisions
+  const int n_grids = FAST ? 2 * c.n_cands : 3 * (c.n_cands + 1) + 1;
+  blk_n(c, bn);
+  cands = at_blk(cands, (long long)n_grids * c.S * c.T);
+  rep = at_blk(rep, 2LL * c.S * c.T);
+  dec = at_blk(dec, (FAST ? 3LL : 4LL) * c.S * c.T);
   __shared__ int ring_all[K6_WARPS][256];
   const unsigned full = 0xffffffffu;
   const int warp = threadIdx.x >> 5, j = threadIdx.x & 31;
@@ -126,42 +133,48 @@ __global__ void __launch_bounds__(K6_WARPS * 32) k6_kernel(
 
 }  // namespace
 
-// Mode R: cands [3 * (n_cands + 1) + 1, T, S] -> dec [4, T, S].
-extern "C" int cpx_k6_launch(const int* cfg, const void* cands, void* dec,
+// G blocks (the block axis): every grid [G, ...] and bn [G] (null: one
+// block).  Mode R: cands [3 * (n_cands + 1) + 1, T, S] -> dec [4, T, S].
+extern "C" int cpx_k6_launch(const int* cfg, int G, const void* bn,
+                             const void* cands, void* dec,
                              void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  if (c.n_cands + 1 > K6_MAX_CANDS || c.window > 256) return (int)cudaErrorInvalidValue;
-  int blocks = (c.S + K6_WARPS - 1) / K6_WARPS;
+  if (c.n_cands + 1 > K6_MAX_CANDS || c.window > 256 || G < 1 || G > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 blocks((c.S + K6_WARPS - 1) / K6_WARPS, G);
   k6_kernel<false><<<blocks, K6_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      c, (const int*)cands, nullptr, (int*)dec);
+      c, (const int*)cands, nullptr, (int*)dec, (const int*)bn);
   return (int)cudaGetLastError();
 }
 
 // Modes F and X: cands [2 * n_cands, T, S] -> dec [3, T, S]; the prices in
 // p_lit (literal), p_rm (match) and p_ri (per distance bucket).
-extern "C" int cpx_k6f_launch(const int* cfg, const void* cands, void* dec,
+extern "C" int cpx_k6f_launch(const int* cfg, int G, const void* bn,
+                              const void* cands, void* dec,
                               void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  if (c.n_cands < 1 || c.n_cands > K6_MAX_CANDS || c.window > 256)
+  if (c.n_cands < 1 || c.n_cands > K6_MAX_CANDS || c.window > 256 || G < 1 || G > 65535)
     return (int)cudaErrorInvalidValue;
-  int blocks = (c.S + K6_WARPS - 1) / K6_WARPS;
+  const dim3 blocks((c.S + K6_WARPS - 1) / K6_WARPS, G);
   k6_kernel<true><<<blocks, K6_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      c, (const int*)cands, nullptr, (int*)dec);
+      c, (const int*)cands, nullptr, (int*)dec, (const int*)bn);
   return (int)cudaGetLastError();
 }
 
 // Mode X with the repeat pair: as cpx_k6f_launch, and rep [2, T, S]
 // (len_rep, prev) with the repeat price in p_rep.
-extern "C" int cpx_k6x_launch(const int* cfg, const void* cands, const void* rep,
+extern "C" int cpx_k6x_launch(const int* cfg, int G, const void* bn,
+                              const void* cands, const void* rep,
                               void* dec, void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  if (c.n_cands < 1 || c.n_cands + 1 > K6_MAX_CANDS || c.window > 256 || !rep)
+  if (c.n_cands < 1 || c.n_cands + 1 > K6_MAX_CANDS || c.window > 256 || !rep || G < 1 ||
+      G > 65535)
     return (int)cudaErrorInvalidValue;
-  int blocks = (c.S + K6_WARPS - 1) / K6_WARPS;
+  const dim3 blocks((c.S + K6_WARPS - 1) / K6_WARPS, G);
   k6_kernel<true><<<blocks, K6_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      c, (const int*)cands, (const int*)rep, (int*)dec);
+      c, (const int*)cands, (const int*)rep, (int*)dec, (const int*)bn);
   return (int)cudaGetLastError();
 }

@@ -52,6 +52,7 @@ static inline int lanes_per_thread(int S) {
 
 struct ScanGrid {
   int ctas, threads;
+  int blocks = 1;  // the block axis: independent blocks of one launch
 };
 
 static inline ScanGrid scan_grid(int S) {
@@ -59,31 +60,70 @@ static inline ScanGrid scan_grid(int S) {
   return {ctas, ((S + ctas - 1) / ctas + 31) / 32 * 32};
 }
 
-// Launch a step scan on grid g: a cluster of all its CTAs where there are
-// several.
-template <typename... P, typename... A>
-static int launch_scan(void (*kernel)(P...), ScanGrid g, size_t smem,
-                       void* stream, A... args) {
-  if (g.ctas < 1 || g.ctas > CPX_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// A step scan's launch configuration on grid g: a cluster of all its CTAs
+// where there are several; g.blocks such groups side by side on the grid's
+// y axis, one a block (see "the block axis" below).
+static inline cudaLaunchConfig_t scan_config(ScanGrid g, size_t smem, void* stream,
+                                             cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(g.ctas);
+  cfg.gridDim = dim3(g.ctas, g.blocks);
   cfg.blockDim = dim3(g.threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = g.ctas;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = g.ctas > 1 ? 1 : 0;
+  return cfg;
+}
+
+// Launch a step scan on grid g.
+template <typename... P, typename... A>
+static int launch_scan(void (*kernel)(P...), ScanGrid g, size_t smem,
+                       void* stream, A... args) {
+  if (g.ctas < 1 || g.ctas > CPX_MAX_CLUSTER || g.blocks < 1 || g.blocks > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = scan_config(g, smem, stream, attr);
   return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// This thread's index and the thread count over the launch (the cluster).
+// The clusters (groups of g.ctas CTAs; one CTA where g.ctas is 1) of this
+// kernel on grid g that the card holds at once: blocks past that number
+// wait for a free slot.
+template <typename... P>
+static int scan_max_clusters(void (*kernel)(P...), ScanGrid g, size_t smem, int* clusters) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = scan_config(g, smem, nullptr, attr);
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (void*)kernel, &cfg);
+}
+
+// This thread's index and the thread count over its block's CTAs (the
+// cluster).
 static __device__ __forceinline__ int gtid() { return blockIdx.x * blockDim.x + threadIdx.x; }
 static __device__ __forceinline__ int gthreads() { return gridDim.x * blockDim.x; }
+
+// ---- the block axis --------------------------------------------------------
+// A launch may code G independent blocks (the JAX package's vmap over
+// blocks, comprox_tpu/parallel/mesh.py::_encode_blocks_vmap and
+// _decode_blocks_vmap): block b is blockIdx.y.  A step scan's grid is
+// (ctas, G) with clusters of (ctas, 1, 1), so blockIdx.x is still the CTA's
+// rank in its block's cluster, and nothing is shared between blocks.  Each
+// kernel rebases its per-block pointers once, at entry, by b times the
+// block's stride, in 64 bits (a crx block's ev grid alone is 126 Mi ints),
+// and takes the block's own n from bn[b]; bn is null for one block, whose
+// n is the cfg's.
+static __device__ __forceinline__ long long blk() { return (long long)blockIdx.y; }
+
+template <typename T>
+static __device__ __forceinline__ T* at_blk(T* p, long long stride) {
+  return p == nullptr ? p : p + blk() * stride;
+}
 
 template <bool CL>
 static __device__ __forceinline__ void group_sync() {
@@ -118,7 +158,8 @@ struct PhaseClock {
 
   __device__ void start(unsigned long long* shared_sums) {
     sums = shared_sums;
-    obs = blockIdx.x == 0 && threadIdx.x == 0                               ? 0
+    obs = blockIdx.y != 0                                                   ? -1
+          : blockIdx.x == 0 && threadIdx.x == 0                             ? 0
           : blockIdx.x == gridDim.x - 1 && threadIdx.x == blockDim.x - 1 ? 1
                                                                            : -1;
     if (obs >= 0)
@@ -162,18 +203,18 @@ struct SlowestClock {
     stamp = now;
   }
   __device__ void publish(int lo, int hi) {  // before the barrier
-    if (blockIdx.x == 0)
+    if (blockIdx.x == 0 && blockIdx.y == 0)
       for (int k = lo; k <= hi; ++k) atomicMax(&step_max[k], dur[k]);
   }
   __device__ void collect(int lo, int hi) {  // after it
-    if (blockIdx.x == 0 && threadIdx.x == 0)
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
       for (int k = lo; k <= hi; ++k) {
         sums[k] += step_max[k];
         step_max[k] = 0;
       }
   }
   __device__ void flush(unsigned long long* dst) {
-    if (blockIdx.x == 0 && threadIdx.x == 0)
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
       for (int k = 0; k < N; ++k) atomicAdd(&dst[k], sums[k]);
   }
 };
@@ -256,6 +297,11 @@ struct Cfg {
       n_cands, r_probe, sort_ext, p_lit, p_rm, p_ri, diag_tail, fwd_chain,
       p_rep, dst_inc, dst_cap, mant_inc, mant_cap;
 };
+
+// Block b's n (the block axis; bn null: the cfg's).
+static __device__ __forceinline__ void blk_n(Cfg& c, const int* bn) {
+  if (bn != nullptr) c.n = bn[blockIdx.y];
+}
 
 static __constant__ int kSseThr[33] = {
     22,    36,    60,    98,    162,   267,   439,   720,   1179,
@@ -1672,6 +1718,12 @@ struct Lzp {
   int* t8;  // [2^LZP8_BITS]
 };
 
+// Block b's LZP tables (the block axis).
+static __device__ __forceinline__ Lzp lzp_at(Lzp z) {
+  return Lzp{at_blk(z.t2, 1LL << 16), at_blk(z.t4, 1LL << LZP4_BITS),
+             at_blk(z.t8, 1LL << LZP8_BITS)};
+}
+
 static __device__ __forceinline__ uint32_t lzp_hash4(uint32_t ctx4) {
   return ((ctx4 * 2654435761u) >> 12) & ((1u << LZP4_BITS) - 1u);
 }
@@ -1940,6 +1992,22 @@ struct Tables {
 // barrier of the launch.
 static __device__ void keyf_init(unsigned* filt) {
   for (int k = threadIdx.x; k < KEYF_N; k += blockDim.x) filt[k] = 0;
+}
+
+// Block b's tables (the block axis): each table's block stride is its size.
+template <int MODE = MODE_R>
+static __device__ __forceinline__ Tables tables_at(Tables tb, const Cfg& c) {
+  tb.o2 = at_blk(tb.o2, (long long)(1 << 16) * O2_W);
+  tb.o1 = at_blk(tb.o1, (long long)O1_N * O1_N);
+  tb.o3 = at_blk(tb.o3, 1LL << c.o3_bits);
+  tb.len = at_blk(tb.len, (long long)N_SHARED_CTX * LEN_W);
+  tb.idx = at_blk(tb.idx, (long long)N_SHARED_CTX * IDX_W);
+  tb.sse = at_blk(tb.sse, (long long)SSE_K);
+  tb.sse_h = at_blk(tb.sse_h, (long long)SSE_HK);
+  tb.dst = at_blk(tb.dst, (long long)DST_W);
+  tb.mant = at_blk(tb.mant, (long long)MANT_N * MANT_N);
+  tb.sse_x = at_blk(tb.sse_x, (long long)HIT_APM_K(MODE));
+  return tb;
 }
 
 template <int MODE = MODE_R>

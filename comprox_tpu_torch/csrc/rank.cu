@@ -241,7 +241,14 @@ template <int MAXT, bool CL, int TPL, bool CHAIN>
 __global__ void __launch_bounds__(MAXT) k5_kernel(Cfg c, const uint8_t* __restrict__ inp,
                           const int* __restrict__ props, int* __restrict__ rolz,
                           int* __restrict__ out, int batch,
-                          const uint8_t* __restrict__ win) {
+                          const uint8_t* __restrict__ win, const int* __restrict__ bn) {
+  // block blockIdx.y of the launch (the chain arm takes one): its n,
+  // bytes, proposals, bucket table and grids
+  blk_n(c, bn);
+  inp = at_blk(inp, (long long)c.S * c.T);
+  props = at_blk(props, 2LL * c.n_cands * c.S * c.T);
+  rolz = at_blk(rolz, 2LL * c.rolz_depth << c.rolz_bits);
+  out = at_blk(out, (3LL * (c.n_cands + 1) + 1) * c.S * c.T);
   __shared__ __align__(16) int keys[MAXT / TPL];  // this CTA's lanes' insert keys
   __shared__ unsigned keyf[2][KEYF_N];       // their filter, by step parity
   extern __shared__ __align__(16) int dyn[];  // the warps' row tiles
@@ -421,17 +428,20 @@ static int k5_batch(int threads, int tpl, int d) {
 // The kernel arm whose CTA holds g.threads: its registers fit the CTA
 // (launch bounds).  A cluster's CTAs each take an SM of their own (a CTA
 // asks for more than half of one's shared memory): the split is there to
-// spread the lanes' scans over SMs.
+// spread the lanes' scans over SMs.  With `clusters` set, the arm is not
+// launched: *clusters is how many of its clusters the card holds at once.
 template <bool CL, int TPL, bool CHAIN>
 static int k5_launch_arm(const ScanGrid& g, void* stream, const Cfg& c, const uint8_t* inp,
-                         const int* props, int* rolz, int* out, const uint8_t* win) {
+                         const int* props, int* rolz, int* out, const uint8_t* win,
+                         const int* bn, int* clusters) {
   const int batch = k5_batch(g.threads, TPL, c.rolz_depth);
   size_t smem = (size_t)(g.threads / 32) * batch * 2 * ((c.rolz_depth + 1) / 2) * sizeof(int4);
   if (CL) smem = max(smem, (size_t)CPX_SMEM_MAX / 2 + 4096);
-#define K5_ARM(T)                                                                      \
-  if (g.threads <= T)                                                                  \
-    return launch_scan(k5_kernel<T, CL, TPL, CHAIN>, g, smem, stream, c, inp, props, rolz, \
-                       out, batch, win);
+#define K5_ARM(T)                                                                           \
+  if (g.threads <= T)                                                                       \
+    return clusters ? scan_max_clusters(k5_kernel<T, CL, TPL, CHAIN>, g, smem, clusters)    \
+                    : launch_scan(k5_kernel<T, CL, TPL, CHAIN>, g, smem, stream, c, inp,    \
+                                  props, rolz, out, batch, win, bn);
   if constexpr (CL && TPL > 1) {
     K5_ARM(128)
     K5_ARM(256)
@@ -443,39 +453,53 @@ static int k5_launch_arm(const ScanGrid& g, void* stream, const Cfg& c, const ui
   return (int)cudaErrorInvalidValue;
 }
 
-// Both entries (CHAIN: win holds the [prev | cur] window's 2N bytes,
-// 8-byte aligned).
+// Every entry (CHAIN: win holds the [prev | cur] window's 2N bytes,
+// 8-byte aligned; one block).  G blocks (the block axis): inp [G, S, T],
+// props [G, 2 * n_cands, T, S], rolz [G, 2^bits, D, 2], out [G, 3 *
+// (n_cands + 1) + 1, T, S], bn [G] (null: one block).
 template <bool CHAIN>
-static int k5_launch(const int* cfg, const void* inp, const void* win, const void* props,
-                     void* rolz, void* out, void* stream) {
+static int k5_launch(const int* cfg, int G, const int* bn, const void* inp, const void* win,
+                     const void* props, void* rolz, void* out, void* stream,
+                     int* clusters = nullptr) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
   if (c.n_cands < 1 || c.n_cands > K5_MAX_CANDS) return (int)cudaErrorInvalidValue;
   const long long n_win = (long long)(CHAIN ? 2 : 1) * c.S * c.T;
   if (n_win >= (1LL << 28)) return (int)cudaErrorInvalidValue;  // SearchScan's positions
-  const ScanGrid g = k5_grid(c.S);
+  if (CHAIN && G != 1) return (int)cudaErrorInvalidValue;
+  ScanGrid g = k5_grid(c.S);
+  g.blocks = G;
   const uint8_t* in = (const uint8_t*)inp;
   const uint8_t* w = (const uint8_t*)win;
   const int* pr = (const int*)props;
   int* const r = (int*)rolz;
   int* const o = (int*)out;
-  if (k5_tpl(c.S) == 1) return k5_launch_arm<true, 1, CHAIN>(g, stream, c, in, pr, r, o, w);
-  return g.ctas > 1 ? k5_launch_arm<true, K5_TPL, CHAIN>(g, stream, c, in, pr, r, o, w)
-                    : k5_launch_arm<false, K5_TPL, CHAIN>(g, stream, c, in, pr, r, o, w);
+  if (k5_tpl(c.S) == 1)
+    return k5_launch_arm<true, 1, CHAIN>(g, stream, c, in, pr, r, o, w, bn, clusters);
+  return g.ctas > 1
+             ? k5_launch_arm<true, K5_TPL, CHAIN>(g, stream, c, in, pr, r, o, w, bn, clusters)
+             : k5_launch_arm<false, K5_TPL, CHAIN>(g, stream, c, in, pr, r, o, w, bn, clusters);
 }
 
 }  // namespace
 
-extern "C" int cpx_k5_launch(const int* cfg, const void* inp, const void* props,
-                             void* rolz, void* out, void* stream) {
-  return k5_launch<false>(cfg, inp, nullptr, props, rolz, out, stream);
+extern "C" int cpx_k5_launch(const int* cfg, int G, const void* bn, const void* inp,
+                             const void* props, void* rolz, void* out, void* stream) {
+  return k5_launch<false>(cfg, G, (const int*)bn, inp, nullptr, props, rolz, out, stream);
 }
 
 // The chain arm: win is the [prev | cur] window, 2N bytes; proposals,
 // bucket positions and sources are window-absolute (+N).
 extern "C" int cpx_k5c_launch(const int* cfg, const void* inp, const void* win,
                               const void* props, void* rolz, void* out, void* stream) {
-  return k5_launch<true>(cfg, inp, win, props, rolz, out, stream);
+  return k5_launch<true>(cfg, 1, nullptr, inp, win, props, rolz, out, stream);
+}
+
+// K5's clusters on the card at once for blocks of this cfg (each block a
+// cluster of k5_grid's CTAs): blocks past it run in later waves.
+extern "C" int cpx_k5_max_clusters(const int* cfg, int* clusters) {
+  return k5_launch<false>(cfg, 1, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, clusters);
 }
 
 #ifdef CPX_K5_PROF

@@ -33,6 +33,12 @@ __global__ void k3_kernel(int S, int T, int n_slots, const int* __restrict__ ev,
                           uint8_t* __restrict__ emit, int* __restrict__ words) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= S) return;
+  // block blockIdx.y of the launch: its events, states and outputs
+  const long long cells = (long long)T * n_slots * S;
+  ev = at_blk(ev, 3 * cells);
+  states = at_blk(states, S);
+  emit = at_blk(emit, cells);
+  words = at_blk(words, cells);
   uint32_t x = RANS_L;
   for (int t = T - 1; t >= 0; --t) {
     for (int si = n_slots - 1; si >= 0; --si) {
@@ -63,7 +69,9 @@ __global__ void k3p_kernel(int n_out, const uint64_t* __restrict__ emit,
 
 }  // namespace
 
-// emit: n_out * 8 flag bytes (8-byte aligned) -> packed: n_out bytes.
+// emit: n_out * 8 flag bytes (8-byte aligned) -> packed: n_out bytes (G
+// blocks' masks at once: S is a multiple of 8, so the flat pack is each
+// block's).
 extern "C" int cpx_k3p_launch(int n_out, const void* emit, void* packed, void* stream) {
   if (n_out < 1 || ((uintptr_t)emit & 7)) return (int)cudaErrorInvalidValue;
   const int threads = 256;
@@ -72,13 +80,14 @@ extern "C" int cpx_k3p_launch(int n_out, const void* emit, void* packed, void* s
   return (int)cudaGetLastError();
 }
 
-// ev [T, 3 * n_slots, S] -> states [S], emit and words [T, n_slots, S].
-extern "C" int cpx_k3_launch(int S, int T, int n_slots, const void* ev,
+// ev [T, 3 * n_slots, S] -> states [S], emit and words [T, n_slots, S];
+// G blocks (the block axis): each [G, ...], a thread a lane of each block.
+extern "C" int cpx_k3_launch(int G, int S, int T, int n_slots, const void* ev,
                              void* states, void* emit, void* words,
                              void* stream) {
-  if (n_slots < 1) return (int)cudaErrorInvalidValue;
+  if (n_slots < 1 || G < 1 || G > 65535) return (int)cudaErrorInvalidValue;
   int threads = 128;
-  int blocks = (S + threads - 1) / threads;
+  const dim3 blocks((S + threads - 1) / threads, G);
   k3_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       S, T, n_slots, (const int*)ev, (long long*)states, (uint8_t*)emit,
       (int*)words);

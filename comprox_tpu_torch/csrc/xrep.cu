@@ -28,7 +28,13 @@
 namespace {
 
 __global__ void k11_kernel(Cfg c, const uint8_t* __restrict__ inp,
-                           const int* __restrict__ dec, int* __restrict__ out) {
+                           const int* __restrict__ dec, int* __restrict__ out,
+                           const int* __restrict__ bn, int dec_grids) {
+  // block blockIdx.y of the launch: its n, bytes, decisions and grids
+  blk_n(c, bn);
+  inp = at_blk(inp, (long long)c.S * c.T);
+  dec = at_blk(dec, (long long)dec_grids * c.S * c.T);
+  out = at_blk(out, 2LL * c.S * c.T);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= c.S) return;
   const size_t plane = (size_t)c.T * c.S;
@@ -63,13 +69,16 @@ __global__ void k11_kernel(Cfg c, const uint8_t* __restrict__ inp,
 
 }  // namespace
 
-// inp [S, T] u8; dec [>= 2, T, S] (take, src); out [2, T, S] (len_rep, prev).
-extern "C" int cpx_k11_launch(const int* cfg, const void* inp, const void* dec,
-                              void* out, void* stream) {
+// inp [S, T] u8; dec [dec_grids >= 2, T, S] (take, src); out [2, T, S]
+// (len_rep, prev).  G blocks (the block axis): each [G, ...] and bn [G]
+// (null: one block).
+extern "C" int cpx_k11_launch(const int* cfg, int G, const void* bn, int dec_grids,
+                              const void* inp, const void* dec, void* out, void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
+  if (dec_grids < 2 || G < 1 || G > 65535) return (int)cudaErrorInvalidValue;
   const int threads = 32;
-  k11_kernel<<<(c.S + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      c, (const uint8_t*)inp, (const int*)dec, (int*)out);
+  k11_kernel<<<dim3((c.S + threads - 1) / threads, G), threads, 0, (cudaStream_t)stream>>>(
+      c, (const uint8_t*)inp, (const int*)dec, (int*)out, (const int*)bn, dec_grids);
   return (int)cudaGetLastError();
 }

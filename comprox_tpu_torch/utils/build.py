@@ -48,31 +48,32 @@ _SIGNATURES = {
     "cpx_k4_keys_launch": [_P] * 4,
     "cpx_radix_sort_launch": [_I] + [_P] * 4,
     "cpx_k4_find_launch": [_P] * 8,
-    "cpx_k5_launch": [_P] * 6,
+    "cpx_k5_launch": [_P, _I] + [_P] * 6,
     "cpx_k5c_launch": [_P] * 7,
-    "cpx_k6_launch": [_P] * 4,
-    "cpx_k6f_launch": [_P] * 4,
+    "cpx_k5_max_clusters": [_P] * 2,
+    "cpx_k6_launch": [_P, _I] + [_P] * 4,
+    "cpx_k6f_launch": [_P, _I] + [_P] * 4,
     "cpx_k7_keys_launch": [_P] * 4,
     "cpx_k7_find_launch": [_P] * 8,
     "cpx_k8_launch": [_P] * 7,
     "cpx_k9_launch": [_I] * 2 + [_P] * 9,
     "cpx_k10_launch": [_I] * 3 + [_P] * 9,
-    "cpx_k2_launch": [_P] * 12,
-    "cpx_k3_launch": [_I, _I, _I, _P, _P, _P, _P, _P],
-    "cpx_k1_launch": [_P] * 15,
+    "cpx_k2_launch": [_P, _I] + [_P] * 12,
+    "cpx_k3_launch": [_I] * 4 + [_P] * 5,
+    "cpx_k1_launch": [_P, _I] + [_P] * 15,
     "cpx_k1c_launch": [_P] * 15,
     "cpx_kcr_launch": [_I, _I, _P, _P, _P],
     "cpx_k3p_launch": [_I, _P, _P, _P],
     "cpx_k4x_keys_launch": [_P] * 4,
     "cpx_k4x_find_launch": [_P] * 8,
-    "cpx_k6x_launch": [_P] * 5,
-    "cpx_k11_launch": [_P] * 5,
-    "cpx_k12e_launch": [_P] * 15,
-    "cpx_k12d_launch": [_P] * 16,
+    "cpx_k6x_launch": [_P, _I] + [_P] * 5,
+    "cpx_k11_launch": [_P, _I, _P, _I] + [_P] * 4,
+    "cpx_k12e_launch": [_P, _I] + [_P] * 15,
+    "cpx_k12d_launch": [_P, _I] + [_P] * 16,
     "cpx_ksx_launch": [_P] * 8,
     "cpx_k13c_launch": [_P] * 12,
-    "cpx_k13e_launch": [_P] * 11,
-    "cpx_k13d_launch": [_P] * 15,
+    "cpx_k13e_launch": [_P, _I] + [_P] * 11,
+    "cpx_k13d_launch": [_P, _I] + [_P] * 15,
     # the probes (benchmarks/probes.py)
     "cpx_pr_row_gather_launch": [_P] * 3 + [_I] * 4 + [_P],
     "cpx_pr_elem_gather_launch": [_P] * 3 + [_I] * 2 + [_P],

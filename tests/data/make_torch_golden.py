@@ -51,7 +51,9 @@ named ``<codec>_elfF_<parse>_<size>_S512.cpx`` and their entry records the
 ``--chain c`` codes in chain mode (``-c``: the PPM models carry across
 blocks) and ``--chain C`` in chain mode v2 (``-C``, crz only: the bucket
 table and the previous block's bytes carry too); the archives are named
-``<codec>_chain_...`` and ``<codec>_chainm_...``.  ``--corpus textelf`` is
+``<codec>_chain_...`` and ``<codec>_chainm_...``.  ``--group G`` codes G
+blocks at a time (``-g<G>``: the JAX package's block batching, whose bytes
+equal the one-block path's); the archives are named ``<codec>_g<G>_...``.  ``--corpus textelf`` is
 the 8 MiB text corpus followed by the 8 MiB ELF corpus, both decoded from
 committed archives (``crz_flex_8MiB_S512.cpx``, ``crz_elfF_flex_8MiB_S256.cpx``),
 so that it is the same 16 MiB on every machine (``--mb 16``).
@@ -69,6 +71,7 @@ Usage::
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --corpus elf --filters --kib 256 --parse flex
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --chain C --mb 8 --steps 4096 --parse flex
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --chain C --corpus textelf --mb 16 --steps 16384 --parse flex
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --group 4 --mb 8 --steps 4096 --parse flex
 """
 
 from __future__ import annotations
@@ -102,11 +105,13 @@ TEXTELF_SEEDS = ("crz_flex_8MiB_S512.cpx", "crz_elfF_flex_8MiB_S256.cpx")
 
 def archive_name(mb: int, parse: str = "f0", codec: str = "crz",
                  finder: str = "sort", size: int = 0, lanes: int = 512,
-                 corpus: str = "text", chain: str = "") -> str:
+                 corpus: str = "text", chain: str = "",
+                 group: int = 1) -> str:
     """The golden's file name; ``size`` (bytes) overrides ``mb``."""
     tail = f"{size_tag(size or mb << 20)}_S{lanes}.cpx"
     tag = codec if finder == "sort" else f"{codec}_{finder}"
     tag += CHAINS[chain]
+    tag += f"_g{group}" if group > 1 else ""
     tag += {"text": "", "elf": "_elfF", "words": "_words",
             "textelf": "_textelf"}[corpus]
     if codec == "crp":  # no parse pass: one archive per size
@@ -170,6 +175,8 @@ def main() -> int:
                          "corpora of two committed archives end to end")
     ap.add_argument("--chain", choices=("c", "C"), default="",
                     help="chain mode (-c), or chain mode v2 (-C, crz only)")
+    ap.add_argument("--group", type=int, default=1,
+                    help="blocks coded at a time (-g<G>)")
     ap.add_argument("--filters", action="store_true",
                     help="content filters on (-F); --corpus elf only")
     ap.add_argument("--rebuild-corpus", action="store_true",
@@ -185,6 +192,8 @@ def main() -> int:
         raise SystemExit("--filters goes with --corpus elf")
     if args.chain == "C" and args.codec != "crz":
         raise SystemExit("--chain C is crz's")
+    if args.chain and args.group > 1:
+        raise SystemExit("--chain and --group exclude each other")
     if args.corpus == "textelf" and sizes != [16 << 20]:
         raise SystemExit("--corpus textelf is 16 MiB: --mb 16")
 
@@ -232,21 +241,23 @@ def main() -> int:
             t0 = time.time()
             buf = io.BytesIO()
             encode_stream(data, buf, cp, filters=args.filters,
-                          chain=bool(args.chain))
+                          chain=bool(args.chain), group=args.group)
             t_enc = time.time() - t0
             arc = buf.getvalue()
             t0 = time.time()
             out = io.BytesIO()
-            decode_stream(io.BytesIO(arc), out)
+            decode_stream(io.BytesIO(arc), out, group=args.group)
             t_dec = time.time() - t0
             if out.getvalue() != data.tobytes():
                 raise SystemExit(f"{size} B {parse}: JAX round trip failed")
             name = archive_name(mb, parse, args.codec, args.finder, size,
-                                args.lanes, args.corpus, args.chain)
+                                args.lanes, args.corpus, args.chain,
+                                args.group)
             (HERE / name).write_bytes(arc)
             flag = "" if PARSES[parse] else "-f0 "
             flag += "-F " if args.filters else ""
             flag += f"-{args.chain} " if args.chain else ""
+            flag += f"-g{args.group} " if args.group > 1 else ""
             env = "" if args.finder == "sort" else f"CPX_X_FINDER={args.finder} "
             # read again: another run may have added entries meanwhile
             meta = (json.loads(meta_path.read_text())

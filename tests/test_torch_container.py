@@ -183,10 +183,13 @@ def test_chained_archives_and_other_codecs_raise():
         assert con.decode_stream(io.BytesIO(f.getvalue()), io.BytesIO(), "cpu") == 0
 
 
-# The switches -j and -g are not ported and raise; -c and -C are (chain
-# modes): an accepted command line codes a short input at a small geometry
-# and JAX decodes the archive, a refused one raises the JAX package's error.
+# The switch -j is not ported and raises; -c and -C are (chain modes), and
+# so is -g (block batching): an accepted command line codes a short input at
+# a small geometry and JAX decodes the archive (under -g it equals JAX's
+# archive of the same command line), a refused one raises the JAX package's
+# error.
 _CHAIN_OK = "chained"
+_GROUP_OK = "grouped"
 
 
 @pytest.mark.parametrize(
@@ -195,18 +198,19 @@ _CHAIN_OK = "chained"
         (["crz", "e", "a", "b", "-f0", "-c"], _CHAIN_OK),
         (["crz", "e", "a", "b", "-f0", "-C"], ValueError),
         (["crz", "e", "a", "b", "-f0", "-j"], NotImplementedError),
-        (["crz", "e", "a", "b", "-f0", "-g2"], NotImplementedError),
+        (["crz", "e", "a", "b", "-f0", "-g2"], _GROUP_OK),
         (["crz", "e", "a", "b", "-c"], _CHAIN_OK),
         (["crx", "e", "a", "b", "-c"], _CHAIN_OK),
         (["crp", "e", "a", "b", "-f0", "-c"], _CHAIN_OK),
         (["crf", "e", "a", "b", "-c"], ValueError),
         (["crf", "e", "a", "b", "-C"], ValueError),
-        (["crf", "e", "a", "b", "-g2"], NotImplementedError),
+        (["crf", "e", "a", "b", "-g2"], _GROUP_OK),
         (["crf", "e", "a", "b", "-j"], NotImplementedError),
         (["crx", "e", "a", "b", "-C"], ValueError),
         (["crx", "e", "a", "b", "-j"], NotImplementedError),
-        (["crx", "e", "a", "b", "-g2"], NotImplementedError),
-        (["crp", "e", "a", "b", "-g2"], NotImplementedError),
+        (["crx", "e", "a", "b", "-g2"], _GROUP_OK),
+        (["crp", "e", "a", "b", "-g2"], _GROUP_OK),
+        (["crz", "e", "a", "b", "-g2", "-c"], ValueError),
     ],
 )
 def test_cli_unported_switches_raise(argv, expect, tmp_path):
@@ -223,7 +227,14 @@ def test_cli_unported_switches_raise(argv, expect, tmp_path):
         return
     cli.run(argv[0], argv[1:] + ["-b0.0001", "-l8", "-q"], device="cpu")
     arc = (tmp_path / "b").read_bytes()
-    assert con.read_header(io.BytesIO(arc))[1] & con.F_CHAIN
+    if expect == _GROUP_OK:
+        _, _, _, _, opts = jcli.parse_args(argv + ["-b0.0001", "-l8", "-q"])
+        want = io.BytesIO()
+        jcon.encode_stream(data, want, jcli.make_params(argv[0], opts),
+                           group=opts["group"])
+        assert arc == want.getvalue()
+    else:
+        assert con.read_header(io.BytesIO(arc))[1] & con.F_CHAIN
     out = io.BytesIO()
     jcon.decode_stream(io.BytesIO(arc), out)
     assert out.getvalue() == data.tobytes()
@@ -241,6 +252,9 @@ def test_cli_needs_a_card_for_cuda(tmp_path):
 CHAINED = {"crz_chain_flex_8MiB_S512.cpx", "crz_chainm_flex_8MiB_S512.cpx",
            "crx_chain_flex_8MiB_S512.cpx", "crp_chain_8MiB_S512.cpx",
            "crz_chainm_textelf_flex_16MiB_S512.cpx"}
+# the unchained -g4 -b2 goldens (four blocks of the 8 MiB corpus), one a codec
+GROUPED = {"crz_g4_flex_8MiB_S512.cpx", "crx_g4_flex_8MiB_S512.cpx",
+           "crp_g4_8MiB_S512.cpx", "crf_g4_flex_8MiB_S512.cpx"}
 
 
 def test_golden_fixture_metadata():
@@ -255,7 +269,7 @@ def test_golden_fixture_metadata():
         f"{c}_elfF_flex_{size}.cpx" for c in ("crx", "crz")
         for size in ("256KiB_S512", "8MiB_S256")} | {
         f"{c}_words_flex_32KiB_S2048.cpx" for c in ("crz", "crx", "crf")} | {
-        "crp_words_32KiB_S2048.cpx"} | CHAINED
+        "crp_words_32KiB_S2048.cpx"} | CHAINED | GROUPED
     assert {"crx_scan_flex_1MiB_S512.cpx", "crx_scan_f0_1MiB_S512.cpx"} <= set(meta)
     assert meta["crx_scan_flex_1MiB_S512.cpx"]["argv"].startswith("CPX_X_FINDER=scan ")
     assert (meta["crx_f0_1MiB_S512.cpx"]["input_sha256"]

@@ -1130,3 +1130,57 @@ def test_chained_archive_on_card_equals_cpu(cuda_device, tmp_path, codec, flags)
     assert "K3p" in used
     assert {"KCR", "K5ch", "K1ch"} <= used if "-C" in flags else not (
         {"KCR", "K5ch", "K1ch"} & used)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["R", "R-f0", "X", "P", "R-S2048", "X-S2048", "P-S2048"])
+def test_block_axis_matches_one_block_launches(cuda_device, mode):
+    """One batched launch a pass over G = 3 blocks gives each block what its
+    one-block launches give it: the encode passes' states, packed mask and
+    words, then the decode scan's states, word counts and bytes.  The
+    blocks' word counts differ by thousands (the first is short), so a
+    stream window that clamped against the whole [G, W] buffer and not the
+    block's own row would read another block's words.  At S=2048 each
+    block's scans run as a cluster of CTAs, G clusters a launch."""
+    kw = {"R": {}, "R-f0": {"flexible": False}, "X": {"mode": "X", "min_len": 6},
+          "P": {"mode": "P", "min_len": 4, "rolz_ctx_bytes": 3, "rolz_dec": 1}}[mode.replace("-S2048", "")]
+    if mode.endswith("-S2048"):
+        kw = dict(kw, lanes=2048, steps=16)
+    p = blk.BlockParams(**dict(dict(WIDE, steps=64, window=250, flexible=True), **kw))
+    G, cap = 3, p.capacity
+    ns = [300, cap, cap - 1003]
+    data = text(3 * cap, seed=12)
+    buf = np.zeros((G, p.lanes, p.steps), np.uint8)
+    for b, n in enumerate(ns):
+        buf[b].reshape(-1)[:n] = data[b * cap : b * cap + n]
+    inp = torch.from_numpy(buf).to(cuda_device)
+    n = torch.tensor(ns, dtype=torch.int32, device=cuda_device)
+    blk.reset_launch_counts()
+    states, packed, words = blk.encode_passes_blocks(p, inp, n)
+    scan = {"R": "K5" if p.flexible else "KS", "X": "K12e", "P": "K13e"}[p.mode]
+    assert blk.LAUNCHES["K3"] == blk.LAUNCHES["K3p"] == 1
+    assert blk.LAUNCHES[scan] == (1 if scan != "KS" else G)
+    payloads = []
+    for b in range(G):
+        one = blk.encode_passes(p, inp[b], ns[b])
+        for got, want in zip((states[b], packed[b], words[b]), one[:3]):
+            assert torch.equal(got, want)
+        payloads.append(blk._pack_payload(states[b], packed[b], words[b]))
+    words_n = [blk._unpack_payload(pl, p)[0] for pl in payloads]
+    assert max(words_n) - min(words_n) > 1000
+    st = torch.stack([torch.from_numpy(blk._unpack_payload(pl, p)[1].astype(np.int64))
+                      for pl in payloads]).to(cuda_device)
+    streams = torch.zeros((G, p.stream_pad), dtype=torch.int32)
+    for b, pl in enumerate(payloads):
+        nw, _, stream = blk._unpack_payload(pl, p)
+        streams[b, :nw] = torch.from_numpy(stream[:nw].astype(np.int32))
+    streams = streams.to(cuda_device)
+    blk.reset_launch_counts()
+    x, used, out = blk.decode_scan_blocks(p, st, streams, n)
+    assert blk.LAUNCHES[{"R": "K1", "X": "K12d", "P": "K13d"}[p.mode]] == 1
+    assert used.tolist() == words_n
+    assert (x == blk.RANS_L).all()
+    for b in range(G):
+        assert torch.equal(out[b].reshape(-1)[: ns[b]], inp[b].reshape(-1)[: ns[b]])
+        assert blk.decode_block(payloads[b], ns[b], p, "cuda").tobytes() == \
+            out[b].reshape(-1)[: ns[b]].cpu().numpy().tobytes()
