@@ -11,7 +11,7 @@ no result line:
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit.
 2. build: compiles the kernels (``comprox_tpu_torch/csrc``: fifteen
-   sources, twenty-three codec kernels counting the entries of modes X and
+   sources, twenty-four codec kernels counting the entries of modes X and
    P and the chain arms of K5 and K1, the shared radix sort and the six
    probe kernels) with nvcc, one process
    per source, and beside them the instrumented builds of
@@ -21,7 +21,7 @@ no result line:
    K13e), all started together; prints the registers and spills of every
    arm of the step scans and per-lane passes (K1, K12d/K13d, the modeling
    scan K2/K12e/K13e: four lanes a round of the A event at up to 512
-   threads, two above; K5, K6, K11, K3, K3p) and of K13c.
+   threads, two above; K5, K6, K11, K3, K3p) and of K13c and K3b.
 3. golden: decodes the committed JAX-package archives
    (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
    under ``crz e -l512`` with the flexible parse and with ``-f0``, under
@@ -41,10 +41,12 @@ no result line:
    K9/K10 at two lanes a thread.
    The decoded corpora are the inputs of the next phases, so every machine
    runs the same bytes.
-4. kernels, mode R: each of KS, K4, K5, K6, K2, K3, K1 against its plain
+4. kernels, mode R: each of KS, K4, K5, K6, K2, K3, K3b (the stream
+   compaction, on K3p's mask of K3's emissions) and K1 against its plain
    PyTorch version on the card, at S=512 lanes, full-size tables, T=256
    steps, on corpus bytes (K4 also at the main path's N = 8 Mi positions,
-   where its sort stage is timed beside ``torch.sort`` on the same keys);
+   where its sort stage is timed beside ``torch.sort`` on the same keys;
+   K3b beside ``words[emit]``, one ``masked_select``);
    every output and table must be equal (tolerance 0: the codec is integer
    arithmetic).  Computes each kernel's bound from these inputs.
 5. kernels, chain mode v2: KCR (the bucket-table remap), K5's chain arm,
@@ -68,8 +70,9 @@ no result line:
    ``torch.bincount``), which the port never uses.
 8. kernels, mode X: K4x at N = 8 Mi (its sort stage beside ``torch.sort``)
    and at T=256; K6's X entry (both launches: without and with the repeat
-   pair), K11, K12e, K3 and K3p at five slots and K12d chained at S=512, full
-   tables, T=256, each against its plain version; tolerance 0 on every
+   pair), K11, K12e, K3, K3p and K3b at five slots and K12d chained at
+   S=512, full tables, T=256, each against its plain version (K3b beside
+   ``words[emit]``); tolerance 0 on every
    output grid and every table.  KSx (the scan finder's search) the same
    way: six grids, both bucket tables and the near-match cache.
 9. kernels, mode P: K13c (the whole block's LZP candidates: the grid and
@@ -79,7 +82,7 @@ no result line:
    ``lzp2/4/8``.
 10. kernels, blocks: every batched arm of the block axis (one launch codes
    G blocks: K5, K6, K2 in mode R, K11, K6 twice, K12e in mode X, K13e,
-   K3 and K3p at three and five slots, K1, K12d, K13d) against G one-block
+   K3, K3p and K3b at three and five slots, K1, K12d, K13d) against G one-block
    launches of the same kernel and against the plain loop (the plain
    version on each block in turn), G = 4 blocks of S=512, T=256, full
    tables, four consecutive spans of the corpus, the last 1003 bytes
@@ -96,21 +99,21 @@ no result line:
    them.  The kernels line carries each probe's last geometry (P1: its warp
    arm; P4: its persistent arm) and the launches of the whole phase.
 12. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
-   CLI; archive SHA-256 == the JAX golden; fails if K13c, K13e, K3, K3p or
-   K13d was not launched.
+   CLI; archive SHA-256 == the JAX golden; fails if K13c, K13e, K3, K3p,
+   K3b or K13d was not launched.
 13. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
    ``CPX_X_FINDER=scan``; archive SHA-256 == the JAX golden written under
-   that knob; fails if KSx, K6, K11, K12e, K3, K3p or K12d was not
+   that knob; fails if KSx, K6, K11, K12e, K3, K3p, K3b or K12d was not
    launched, or if K4x was.
 14. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
    CLI on the 8 MiB corpus; archive SHA-256 == the JAX golden, round trip
-   bit-exact; fails if K4x, K11, K6, K12e, K3, K3p, K12d or the sort was
+   bit-exact; fails if K4x, K11, K6, K12e, K3, K3p, K3b, K12d or the sort was
    not launched.
 15. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
    through ``comprox_tpu_torch.cli.main`` on the 8 MiB corpus, one block of
    S=512 and T=16384.  The archive's SHA-256 must equal the JAX package's
    and the round trip must be bit-exact; prints MB/s, bpb and the kernel
-   times, and fails if K4, K5, K6, K2, K3, K3p, K1 or the sort was not
+   times, and fails if K4, K5, K6, K2, K3, K3p, K3b, K1 or the sort was not
    launched.
 16. full width, chain mode v2: ``crz e -C -b8 -l512`` then ``crz d`` on
    16 MiB, the 8 MiB text corpus followed by the 8 MiB ELF corpus (both
@@ -118,7 +121,8 @@ no result line:
    T=16384; archive SHA-256 == the JAX golden, round trip bit-exact; MB/s,
    each kernel's ms per launch, the bpb beside the unchained ``-b8``
    archive of the same input; fails unless K4, KCR (twice a side), K5ch,
-   K6, K2, K3, K3p, K1ch and the sort were launched, or if K5 or K1 was.
+   K6, K2, K3, K3p, K3b, K1ch and the sort were launched, or if K5 or K1
+   was.
 17. the step scans by phase: the same archive decoded through K1's two
    instrumented builds of phase 2, at ring depth 0 (the o2 or o1 rows of a
    pair of lanes issued when they are read, nothing in flight ahead) and
@@ -130,11 +134,12 @@ no result line:
    (K5, K2, K12e, K13e, K12d, K13d: on thread 0 and on the CTA's last
    thread).
 18. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
-   K3, K3p or K1 was not launched.
+   K3, K3p, K3b or K1 was not launched.
 19. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
    way; fails if K7, K6, K8, K9, K10 or the sort was not launched.  Then the host's
    share of that path, stage by stage (dictionary, block encode and decode,
-   the LZ copy walk, the CRC).  (It runs last, after phases 20 and 21.)
+   the LZ copy walk, the CRC).  (It runs after phases 20 and 21, before
+   phase 22.)
 20. golden, -b2: the JAX package's ``-g4 -b2`` goldens (four blocks of
    T=4096 of the 8 MiB corpus; crz, crx, crp, crf), which phase 3 leaves
    out, decoded with ``-g4`` and with ``-g1`` to the corpus, and the corpus
@@ -144,8 +149,16 @@ no result line:
    ELF corpora of phase 16, each rotated by 4 MiB, the last cut to 5 MiB +
    777 bytes); the archives byte-equal and ``d -g4`` bit-exact; walls,
    MB/s, kernel ms of each launch, device time and idle share, peak card
-   memory of each, and K5's clusters the card holds at once.  The
-   launches of the ``(blocks)`` rows are this phase's ``-g4`` runs'.
+   memory of each, and K5's clusters the card holds at once; fails unless
+   every kernel of the path (K3b included) was launched.  The launches of
+   the ``(blocks)`` rows are this phase's ``-g4`` runs'.
+22. payload pack: one 8 MiB block of the crz and of the crx corpus
+   encoded (S=512, T=16384; three and five slots), then its payload packed
+   from the same K3 outputs two ways, host ms each: the host compaction
+   the port ran before K3b (K3p's mask and K3's words copied to the host,
+   ``np.unpackbits`` and a boolean index), the yardstick, and
+   ``_pack_payload`` (K3b, then the copy of the word count, the states and
+   the stream); the two payloads must be equal.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -236,6 +249,11 @@ KERNELS = [
      "comprox_tpu/codec/block.py:1965"),
     ("K3p (5 slots)", "comprox_tpu_torch/csrc/rans.cu",
      "comprox_tpu/codec/block.py:1965"),
+    # the payload's stream compaction (every adaptive encode), on the card
+    ("K3b", "comprox_tpu_torch/csrc/rans.cu",
+     "comprox_tpu/codec/block.py:2256"),
+    ("K3b (5 slots)", "comprox_tpu_torch/csrc/rans.cu",
+     "comprox_tpu/codec/block.py:2256"),
     ("KCR", "comprox_tpu_torch/csrc/chain.cu",
      "comprox_tpu/codec/block.py:1255"),
     ("K5ch", "comprox_tpu_torch/csrc/rank.cu",
@@ -260,6 +278,9 @@ KERNELS = [
            "e"),
           ("K3p (5 slots)", "comprox_tpu_torch/csrc/rans.cu",
            "comprox_tpu/codec/block.py:1965", "e"),
+          ("K3b", "comprox_tpu_torch/csrc/rans.cu", "comprox_tpu/codec/block.py:2256", "e"),
+          ("K3b (5 slots)", "comprox_tpu_torch/csrc/rans.cu",
+           "comprox_tpu/codec/block.py:2256", "e"),
           ("K12d", "comprox_tpu_torch/csrc/decode.cu", "comprox_tpu/codec/block.py:1980", "d"),
           ("K13e", "comprox_tpu_torch/csrc/model.cu", "comprox_tpu/codec/block.py:1677", "e"),
           ("K13d", "comprox_tpu_torch/csrc/decode.cu", "comprox_tpu/codec/block.py:1980", "d"),
@@ -342,7 +363,8 @@ _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 _ARM_PARAMS = {"k1_kernel": ("MAXT", "CL"), "k12d_kernel": ("MAXT", "MODE", "CL", "BLK"),
                "k2_kernel": ("MAXT", "MODE", "CL", "LPR"),
                "k5_kernel": ("MAXT", "CL", "TPL", "CHAIN"), "k6_kernel": ("FAST",),
-               "k11_kernel": (), "k3_kernel": (), "k3p_kernel": ()}
+               "k11_kernel": (), "k3_kernel": ("NS",), "k3p_kernel": (),
+               "k3b_count": (), "k3b_scan": (), "k3b_scatter": ()}
 _MANGLED = re.compile(r"_ZN(\d+)")
 _ARM_ARG = re.compile(r"L[ib](\d+)E")
 
@@ -545,6 +567,31 @@ def _record(res, name, err, ms, plain_ms, nbytes, ops, library_ms=None):
                      library_ms=library_ms)
 
 
+def _stream_of(n_words, stream):
+    """K3b's result with the stream past each block's n_words zeroed (the
+    card leaves it as it found it): what a comparison holds."""
+    import torch
+
+    keep = torch.arange(stream.shape[-1], device=stream.device) < n_words.unsqueeze(-1)
+    return n_words, torch.where(keep, stream, 0)
+
+
+def _k3b_cell(res, name, packed, emit, words):
+    """K3b on K3p's ``packed`` mask and K3's ``words`` against its plain
+    version, tolerance 0 on the count and the stream; ``words[emit]`` (one
+    ``masked_select``, never on the path) timed beside."""
+    from comprox_tpu_torch.benchmarks import work
+    from comprox_tpu_torch.codec import block as blk
+
+    got = _stream_of(*blk.compact_stream(packed, words))
+    want, plain_ms = _timed_plain(blk.compact_stream_plain, packed, words)
+    err = max_err(zip(got, want))
+    ms = _kernel_ms("K3b", lambda: (packed, words), blk.compact_stream)
+    lib_ms = _event_ms(lambda: words[emit])
+    _record(res, name, err, ms, plain_ms, *work.k3b(packed, words, out=got),
+            library_ms=lib_ms)
+
+
 def phase_kernels(corpus):
     """Each kernel against its plain version on the card.  Returns
     {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms)}.
@@ -631,6 +678,7 @@ def phase_kernels(corpus):
     err = max_err([(sk, sp), (ek, ep), (wk, wp)])
     ms = _kernel_ms("K3", lambda: (p, evk), blk.rans_scan)
     record("K3", err, ms, plain_ms, *work.k3(p, evk, out=(sk, ek, wk)))
+    _k3b_cell(res, "K3b", blk.pack_emit(p, ek), ek, wk)
 
     # K1, on the payload the kernels wrote.  Bytes: the words the stream
     # holds.
@@ -1135,6 +1183,7 @@ def phase_kernels_x(corpus):
     err = max_err([(pk, pp)])
     ms = _kernel_ms("K3p", lambda: (p, ek), blk.pack_emit)
     _record(res, "K3p (5 slots)", err, ms, plain_ms, *work.k3p(p, ek, out=pk))
+    _k3b_cell(res, "K3b (5 slots)", pk, ek, wk)
 
     # K12d on the payload the kernels wrote.
     payload = blk._pack_payload(sk, pk, wk)
@@ -1345,7 +1394,8 @@ def phase_kernels_blocks(corpus):
     table, state and stream.  Returns {"<kernel> (blocks)": the kernel
     line's numbers}: ms of the batched launch, plain_ms of the plain loop,
     the bound at G = 4 (the sum of the four blocks' bounds,
-    benchmarks/work.py); prints the G one-block launches' ms beside."""
+    benchmarks/work.py); K3b's library_ms ``words[emit]`` over the G
+    blocks; prints the G one-block launches' ms beside."""
     import numpy as np
     import torch
 
@@ -1394,7 +1444,7 @@ def phase_kernels_blocks(corpus):
                 torch.from_numpy(np.stack(sm)).to(dev), nws)
 
     def tail(p, key, inp, ns, n, ev, tables0, match):
-        """K3, K3p, then the decode scan ``key`` on the payloads."""
+        """K3, K3p, K3b, then the decode scan ``key`` on the payloads."""
         sfx = "" if p.n_slots == 3 else " (5 slots)"
 
         def k3(kind):
@@ -1415,6 +1465,16 @@ def phase_kernels_blocks(corpus):
             return per_block(lambda b, _: blk.pack_emit_plain(emit[b]), ns)
 
         packed = cell("K3p" + sfx, "K3p", k3p, lambda b, o: work.k3p(p, emit[b], out=o[b]))
+
+        def k3b(kind):
+            if kind == "blocks":
+                return _stream_of(*blk.compact_stream(packed, words))
+            fn = blk.compact_stream if kind == "one" else blk.compact_stream_plain
+            return _stream_of(*per_block(lambda b, _: fn(packed[b], words[b]), ns))
+
+        cell("K3b" + sfx, "K3b", k3b, lambda b, o: work.k3b(
+            packed[b], words[b], out=(o[0][b], o[1][b])))
+        res[f"K3b{sfx} (blocks)"]["library_ms"] = _event_ms(lambda: words[emit])
         st, streams, nws = decode_inputs(p, states, packed, words)
 
         def dec(kind):
@@ -1674,9 +1734,11 @@ def phase_full_width_groups(text_elf):
           f"cut to 5 MiB + 777 B): 4 blocks of S=512, T=16384; K5's clusters "
           f"(8 CTAs a block) the card holds at once: {clusters}")
     out = {}
-    for codec, needed in (("crz", ("K4", "K5", "K6", "K2", "K3", "K3p", "K1", "SORT")),
-                          ("crx", ("K4x", "K6", "K11", "K12e", "K3", "K3p", "K12d", "SORT")),
-                          ("crp", ("K13c", "K13e", "K3", "K3p", "K13d"))):
+    for codec, needed in (("crz", ("K4", "K5", "K6", "K2", "K3", "K3p", "K3b", "K1",
+                                   "SORT")),
+                          ("crx", ("K4x", "K6", "K11", "K12e", "K3", "K3p", "K3b", "K12d",
+                                   "SORT")),
+                          ("crp", ("K13c", "K13e", "K3", "K3p", "K3b", "K13d"))):
         arcs, walls, dev_ms, peak, ms, each = {}, {}, {}, {}, {}, {}
         for g in (4, 1):
             arc, dst = WORK / f"g{g}.{codec}", WORK / f"g{g}.out"
@@ -1810,7 +1872,7 @@ def phase_chain_cell(corpus):
     """Chain mode v2 at full width: ``crz e -C -b8 -l512`` and ``crz d`` on
     the 16 MiB corpus (two chained blocks of S=512, T=16384) through
     phase_full_width (archive SHA-256 == the JAX golden); fails unless K4,
-    KCR, K5ch, K6, K2, K3, K3p, K1ch and the sort were launched, or if the
+    KCR, K5ch, K6, K2, K3, K3p, K3b, K1ch and the sort were launched, or if the
     unchained K5 or K1 was.  Then the unchained ``-b8`` archive of the same
     input and its decode, for the bpb and the unchained arms' ms beside."""
     from comprox_tpu_torch.cli import main as cli
@@ -1818,7 +1880,7 @@ def phase_chain_cell(corpus):
 
     launches = phase_full_width(
         corpus, "crz", CHAIN_ARCHIVE, ["-C"],
-        ("K4", "KCR", "K5ch", "K6", "K2", "K3", "K3p", "K1ch", "SORT"))
+        ("K4", "KCR", "K5ch", "K6", "K2", "K3", "K3p", "K3b", "K1ch", "SORT"))
     if launches["K5"] or launches["K1"]:
         raise AssertionError("the chained path launched the unchained K5 or K1")
     if launches["KCR"] != 4:
@@ -1893,6 +1955,63 @@ def phase_fast_host_split(corpus):
           f"{t_exec:.1f}, CRC as above), dictionary decode {t_undict:.1f}")
 
 
+def phase_payload_pack(corpus_r, corpus_x):
+    """The payload pack of an 8 MiB block, two ways on the same K3 outputs
+    (crz: three slots; crx: five): host ms by the host clock between device
+    synchronisations, the best of three.  The yardstick is the host
+    compaction the port ran before K3b (the JAX package's _pack_payload):
+    the words and the packed mask copied, then unpacked and indexed by
+    numpy; the path is ``blk._pack_payload``: K3b, then the word count, the
+    states and the stream copied.  The payloads must be equal."""
+    import numpy as np
+    import torch
+
+    from comprox_tpu_torch.cli.main import make_params
+    from comprox_tpu_torch.codec import block as blk
+
+    def timed(fn, *args):
+        out, ms = None, []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, min(ms)
+
+    for codec, corpus in (("crz", corpus_r), ("crx", corpus_x)):
+        p = make_params(codec, {"lanes": 512, "block_mb": 8}).block
+        n = min(corpus.size, p.capacity)
+        buf = np.zeros(p.capacity, np.uint8)
+        buf[:n] = corpus[:n]
+        inp = torch.from_numpy(buf.reshape(p.lanes, p.steps)).to("cuda")
+        states, packed, words, _, _ = blk.encode_passes(p, inp, n)
+        (packed_h, words_h), t_copy = timed(lambda: (packed.cpu(), words.cpu()))
+
+        def host_compaction():
+            emit = np.unpackbits(packed_h.numpy(), axis=-1, bitorder="little").astype(bool)
+            stream = words_h.numpy()[emit]
+            return (np.array([stream.size], np.uint32).tobytes()
+                    + states.cpu().numpy().astype("<u4").tobytes()
+                    + stream.astype("<u2").tobytes())
+
+        host, t_host = timed(host_compaction)
+        blk.reset_launch_counts()
+        card, t_card = timed(blk._pack_payload, states, packed, words)
+        k3b_ms = blk.kernel_ms()["K3b"] / blk.LAUNCHES["K3b"]
+        if card != host:
+            raise AssertionError(f"{codec}: K3b's payload differs from the host compaction's")
+        shifts = torch.arange(8, dtype=torch.uint8, device="cuda")
+        flags = ((packed.unsqueeze(-1) >> shifts) & 1).reshape(words.shape).bool()
+        lib_ms = _event_ms(lambda: words[flags])
+        print(f"payload pack, {codec} block of {n} B (S=512, T={p.steps}, {p.n_slots} slots; "
+              f"words {words.numel() * 4} B, mask {packed.numel()} B, payload {len(card)} B): "
+              f"host compaction {t_copy + t_host:.3f} ms (the copies {t_copy:.3f}, "
+              f"unpack and index {t_host:.3f}); K3b and the copies {t_card:.3f} ms "
+              f"(K3b {k3b_ms:.3f} ms on the card; words[emit], one masked_select on "
+              f"the card, {lib_ms:.3f} ms)")
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     ph = Phases()
@@ -1913,19 +2032,20 @@ def main() -> int:
     res.update(res_probes)
     crp = ph.run(
         "full width, crp", phase_full_width, corpora[P_ARCHIVE], "crp",
-        P_ARCHIVE, [], ("K13c", "K13e", "K3", "K3p", "K13d"))
+        P_ARCHIVE, [], ("K13c", "K13e", "K3", "K3p", "K3b", "K13d"))
     xscan = ph.run(
         "full width, crx under the scan finder", phase_full_width,
         corpora[XSCAN_ARCHIVE], "crx", XSCAN_ARCHIVE, [],
-        ("KSx", "K6", "K11", "K12e", "K3", "K3p", "K12d"), "scan")
+        ("KSx", "K6", "K11", "K12e", "K3", "K3p", "K3b", "K12d"), "scan")
     if xscan["K4x"]:
         raise AssertionError("the scan finder's path launched K4x")
     crx = ph.run(
         "full width, crx", phase_full_width, corpora[X_ARCHIVE], "crx",
-        X_ARCHIVE, [], ("K4x", "K11", "K6", "K12e", "K3", "K3p", "K12d", "SORT"))
+        X_ARCHIVE, [], ("K4x", "K11", "K6", "K12e", "K3", "K3p", "K3b", "K12d", "SORT"))
     launches = ph.run(
         "full width, crz flexible parse", phase_full_width, corpora[MAIN_ARCHIVE],
-        "crz", MAIN_ARCHIVE, [], ("K4", "K5", "K6", "K2", "K3", "K3p", "K1", "SORT"))
+        "crz", MAIN_ARCHIVE, [], ("K4", "K5", "K6", "K2", "K3", "K3p", "K3b", "K1",
+                                  "SORT"))
     chain = ph.run("full width, crz -C (chain mode v2)", phase_chain_cell,
                    corpora[CHAIN_ARCHIVE])
     for name in ("KCR", "K5ch", "K1ch"):
@@ -1933,7 +2053,7 @@ def main() -> int:
     ph.run("step scans by phase", phase_scan_phases)
     greedy = ph.run(
         "full width, crz greedy parse", phase_full_width, corpora[GREEDY_ARCHIVE],
-        "crz", GREEDY_ARCHIVE, ["-f0"], ("KS", "K2", "K3", "K3p", "K1"))
+        "crz", GREEDY_ARCHIVE, ["-f0"], ("KS", "K2", "K3", "K3p", "K3b", "K1"))
     launches["KS"] = greedy["KS"]
     fast = ph.run(
         "full width, crf", phase_full_width, corpora[FAST_ARCHIVE], "crf",
@@ -1946,7 +2066,7 @@ def main() -> int:
     for name in ("K13c", "K13e", "K13d"):
         launches[name] = crp[name]
     launches["K6 (X)"], launches["K3 (5 slots)"] = crx["K6"], crx["K3"]
-    launches["K3p (5 slots)"] = crx["K3p"]
+    launches["K3p (5 slots)"], launches["K3b (5 slots)"] = crx["K3p"], crx["K3b"]
     launches["SORT"] += crx["SORT"] + fast["SORT"]  # one in each of K4, K4x, K7
     launches.update(probe_launches)
     ph.run("golden, -b2", phase_golden_groups)
@@ -1955,12 +2075,14 @@ def main() -> int:
             ("K5", "crz", "K5"), ("K6", "crz", "K6"), ("K2", "crz", "K2"),
             ("K1", "crz", "K1"), ("K11", "crx", "K11"), ("K6 (X)", "crx", "K6"),
             ("K12e", "crx", "K12e"), ("K3 (5 slots)", "crx", "K3"),
-            ("K3p (5 slots)", "crx", "K3p"), ("K12d", "crx", "K12d"),
+            ("K3p (5 slots)", "crx", "K3p"), ("K3b (5 slots)", "crx", "K3b"),
+            ("K12d", "crx", "K12d"),
             ("K13e", "crp", "K13e"), ("K13d", "crp", "K13d")):
         launches[f"{name} (blocks)"] = grouped[codec][key]
-    for name in ("K3", "K3p"):  # three slots: crz and crp
+    for name in ("K3", "K3p", "K3b"):  # three slots: crz and crp
         launches[f"{name} (blocks)"] = grouped["crz"][name] + grouped["crp"][name]
     ph.run("crf host split", phase_fast_host_split, corpora[FAST_ARCHIVE])
+    ph.run("payload pack", phase_payload_pack, corpora[MAIN_ARCHIVE], corpora[X_ARCHIVE])
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "comprox_tpu")]
     if bad:

@@ -33,6 +33,7 @@ the kernel's CUDA-event time over the steps).  On the card::
     python -m comprox_tpu_torch.benchmarks.phases split [ctas ...]
     python -m comprox_tpu_torch.benchmarks.phases times
     python -m comprox_tpu_torch.benchmarks.phases bounds
+    python -m comprox_tpu_torch.benchmarks.phases k3 [LANESxDEPTH ...]
 
 (default: the 8 MiB flexible crz golden for K1, K5 and K2, the 8 MiB crx
 and crp goldens for K12d and K13d; K1, K5 and K2; each decode scan at
@@ -44,8 +45,12 @@ each.
 K12d, K12e, KSx, K13d, K13e) in the main build, from the decode and the
 encode of the 8 MiB goldens, and its bound at that width; run it in two
 trees in turns to compare them.  ``bounds`` prints the full-width bound of
-every other kernel (the sort, K4, K4x, K7, K3, K6, K8-K11, K13c) from the
-launches of the 8 MiB crz, crx, crf and crp goldens' decode and encode.
+every other kernel (the sort, K4, K4x, K7, K3, K3p, K3b, K6, K8-K11, K13c,
+KCR) from the launches of the 8 MiB crz, crx, crf and crp goldens' decode
+and encode.  ``k3`` times K3 on the 8 MiB crz, crx and crp goldens'
+encodes at each ``LANESxDEPTH`` given (lanes a CTA, steps of events in
+flight a lane; default 32x16 64x16 128x16 32x8 32x32 32x16), a variant
+build of ``csrc/rans.cu`` each.
 """
 
 from __future__ import annotations
@@ -219,6 +224,45 @@ def split(ctas=(1, 2, 4, 8), archive_path=ARCHIVE) -> dict:
     return out
 
 
+K3_ARCHIVES = ("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx", "crp_8MiB_S512.cpx")
+
+
+def k3(configs=((32, 16), (64, 16), (128, 16), (32, 8), (32, 32), (32, 16))) -> dict:
+    """K3's CUDA-event ms on the encodes of the ``K3_ARCHIVES`` goldens'
+    corpora with each (lanes a CTA, steps in flight a lane) of
+    ``configs`` (``K3_LANES``, ``K3_RING_D`` of ``csrc/rans.cu``, a variant
+    build each), in the order given; each archive checked against the
+    golden.  Returns {(lanes, depth): {archive: [ms, ...]}}."""
+    meta = json.loads((GOLDEN / "torch_golden.json").read_text())
+
+    def spec(lanes, depth):
+        return (f"-DK3_LANES={lanes}", f"-DK3_RING_D={depth}"), ("rans.cu",)
+
+    build.build_many([((), None)] + [spec(*c) for c in dict.fromkeys(configs)])
+    corpora = {}
+    for name in K3_ARCHIVES:
+        raw = io.BytesIO()
+        decode_stream(io.BytesIO((GOLDEN / name).read_bytes()), raw, "cuda")
+        corpora[name] = np.frombuffer(raw.getvalue(), np.uint8)
+    out = {}
+    for c in configs:
+        defines, only = spec(*c)
+        for name in K3_ARCHIVES:
+            codec, _, _, _, opts = parse_args(meta[name]["argv"].split() + ["in", "out"])
+            buf = io.BytesIO()
+            with build.variant(*defines, only=only):
+                blk.reset_launch_counts()
+                encode_stream(corpora[name], buf, make_params(codec, opts), "cuda",
+                              filters=opts["filters"])
+                ms = blk.kernel_ms()["K3"]
+            if hashlib.sha256(buf.getvalue()).hexdigest() != meta[name]["archive_sha256"]:
+                raise AssertionError(f"K3 at {c}: {name} differs from the golden")
+            out.setdefault(c, {}).setdefault(name, []).append(ms)
+        print(f"K3, {c[0]} lanes a CTA, {c[1]} steps in flight: " + ", ".join(
+            f"{n.split('_')[0]} {v[-1]:.3f} ms" for n, v in out[c].items()), flush=True)
+    return out
+
+
 # the full-width goldens and the step scans each one's decode and encode time
 TIMED = (
     ("crz_flex_8MiB_S512.cpx", ("K1", "K5", "K2")),
@@ -358,6 +402,7 @@ BOUND_ENTRIES = {
     "K6": ("block", "parse_scan", work.k6),
     "K3": ("block", "rans_scan", work.k3),
     "K3p": ("block", "pack_emit", work.k3p),
+    "K3b": ("block", "compact_stream", work.k3b),
     "KCR": ("block", "remap_chain_ment", work.kcr),
     "K11": ("block", "rep_scan", work.k11),
     "K13c": ("block", "lzp_candidates", work.k13c),
@@ -369,14 +414,15 @@ BOUND_ENTRIES = {
 # the kernel's row name by block mode, where one entry serves several
 BOUND_ROWS = {("K4", "X"): "K4x", ("K6", "R"): "K6 (R)", ("K6", "X"): "K6 (X)",
               ("K6", "F"): "K6 (F)", ("K3", "X"): "K3 (5 slots)",
-              ("K3p", "X"): "K3p (5 slots)"}
+              ("K3p", "X"): "K3p (5 slots)", ("K3b", "X"): "K3b (5 slots)"}
 
 
 @contextlib.contextmanager
 def _bounds_of_entries(log: dict):
     """Inside the block, each entry of ``BOUND_ENTRIES`` adds its launch's
     (bytes, operations) to log[row] (row: the kernel, by the block's mode
-    where one entry serves several; SORT by the mode of the last block)."""
+    where one entry serves several; SORT by the mode of the last block, K3b,
+    which takes no block parameters, by that of K3 before it)."""
     from comprox_tpu_torch.codec import fast
 
     mods = {"block": blk, "fast": fast}
@@ -409,7 +455,7 @@ def bounds(names=("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx",
                   "crf_flex_8MiB_S512.cpx", "crp_8MiB_S512.cpx",
                   "crz_chainm_textelf_flex_16MiB_S512.cpx")) -> dict:
     """The full-width bound of every kernel that is not a step scan (the
-    sort, K4, K4x, K7, K3, K3p, K6, K8-K11, K13c, KCR): each golden of ``names``
+    sort, K4, K4x, K7, K3, K3p, K3b, K6, K8-K11, K13c, KCR): each golden of ``names``
     decoded on the card and its corpus encoded again under its command
     line (the archive checked against the golden), each launch's bytes and
     modelled operations summed over the path.  Prints a line; returns {row:
@@ -511,6 +557,10 @@ if __name__ == "__main__":
         sys.exit(0)
     if args[:1] == ["bounds"]:
         bounds()
+        sys.exit(0)
+    if args[:1] == ["k3"]:
+        configs = [tuple(int(v) for v in a.split("x")) for a in args[1:]]
+        k3(*([configs] if configs else []))
         sys.exit(0)
     arc = args.pop(0) if args and not args[0].isdigit() and args[0] not in PHASES else ARCHIVE
     ks = tuple(a for a in args if a in PHASES) or ("K1", "K5", "K2")

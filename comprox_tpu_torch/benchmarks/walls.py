@@ -8,8 +8,13 @@ host clock between two device synchronisations, and its kernels' device
 time is the sum of the CUDA events the wrappers record around their
 launches.  A line a codec: the walls, the MB/s of the best, the kernels'
 ms, the host share (1 - kernel ms / wall: the time the card waits on the
-host) and K3p's ms where the tree has K3p; the archive is checked against
-the golden's SHA-256 (``tests/data/torch_golden.json``).
+host) and the ms of K3, K3p and K3b where the tree has them; the archive
+is checked against the golden's SHA-256 (``tests/data/torch_golden.json``).
+Then the same codecs' ``-g4`` encodes of the 29 MiB + 777 B input of
+``chip_smoke.py``'s ``-g4`` cell (the 16 MiB chain golden's text and ELF
+corpora, each rotated by 4 MiB, the last cut to 5 MiB + 777 B: four
+distinct blocks), a line each with the peak ``max_memory_allocated`` and
+the archive's SHA-256 (which both trees must write alike).
 
     python comprox_tpu_torch/benchmarks/walls.py TREE [TREE ...]
 
@@ -30,6 +35,19 @@ import time
 from pathlib import Path
 
 ARCHIVES = ("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx", "crp_8MiB_S512.cpx")
+GROUP_SOURCE = "crz_chainm_textelf_flex_16MiB_S512.cpx"  # 8 MiB text, 8 MiB ELF
+PASSES = ("K3", "K3p", "K3b")
+
+
+def group_corpus(text_elf):
+    """chip_smoke's ``-g4`` input: text, ELF, each rotated by 4 MiB, the
+    last cut to 5 MiB + 777 bytes."""
+    import numpy as np
+
+    half = text_elf.size // 2
+    text, elf = text_elf[:half], text_elf[half:]
+    rot = [np.concatenate([x[4 << 20:], x[:4 << 20]]) for x in (text, elf)]
+    return np.concatenate([text, elf, rot[0], rot[1][: (5 << 20) + 777]])
 
 
 def one(tree: Path, reps: int = 3) -> list:
@@ -45,39 +63,61 @@ def one(tree: Path, reps: int = 3) -> list:
 
     golden = tree / "tests" / "data"
     meta = json.loads((golden / "torch_golden.json").read_text())
-    rows = []
-    for name in ARCHIVES:
-        want = meta[name]
-        codec, _, _, _, opts = parse_args(want["argv"].split() + ["in", "out"])
-        cp = make_params(codec, opts)
+
+    def decoded(name):
         raw = io.BytesIO()
         decode_stream(io.BytesIO((golden / name).read_bytes()), raw, "cuda")
-        corpus = np.frombuffer(raw.getvalue(), np.uint8)
-        if hashlib.sha256(corpus.tobytes()).hexdigest() != want["input_sha256"]:
+        if hashlib.sha256(raw.getvalue()).hexdigest() != meta[name]["input_sha256"]:
             raise AssertionError(f"{name}: decoded bytes differ")
-        walls, kern, k3p = [], [], []
+        return np.frombuffer(raw.getvalue(), np.uint8)
+
+    def encodes(corpus, cp, opts, group=1):
+        """reps timed encodes after a warm-up: (walls, kernel ms, each
+        pass's ms, peak bytes, the archive)."""
+        walls, kern, passes, peak = [], [], {k: [] for k in PASSES}, 0
         for rep in range(reps + 1):
             buf = io.BytesIO()
             blk.reset_launch_counts()
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            encode_stream(corpus, buf, cp, "cuda", filters=opts["filters"])
+            encode_stream(corpus, buf, cp, "cuda", filters=opts["filters"], group=group)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-            if hashlib.sha256(buf.getvalue()).hexdigest() != want["archive_sha256"]:
-                raise AssertionError(f"{name}: the archive differs from the golden")
             ms = blk.kernel_ms()
             if rep:  # the first is the warm-up
                 walls.append(wall)
                 kern.append(sum(ms.values()))
-                k3p.append(ms.get("K3p"))
+                for k in PASSES:
+                    passes[k].append(ms.get(k))
+                peak = max(peak, torch.cuda.max_memory_allocated())
+        return walls, kern, passes, peak, buf.getvalue()
+
+    def row(codec, name, corpus, walls, kern, passes, **more):
         best = min(range(reps), key=walls.__getitem__)
-        row = dict(tree=str(tree), codec=codec, archive=name, walls_ms=walls,
-                   mb_s=corpus.size / 1e6 / (walls[best] / 1e3),
-                   kernel_ms=kern, host_share=[1 - k / w for k, w in zip(kern, walls)],
-                   k3p_ms=k3p)
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+        r = dict(tree=str(tree), codec=codec, archive=name, walls_ms=walls,
+                 mb_s=corpus.size / 1e6 / (walls[best] / 1e3), kernel_ms=kern,
+                 host_share=[1 - k / w for k, w in zip(kern, walls)],
+                 **{f"{k.lower()}_ms": v for k, v in passes.items()}, **more)
+        print(json.dumps(r), flush=True)
+        return r
+
+    rows, params = [], {}
+    for name in ARCHIVES:
+        want = meta[name]
+        codec, _, _, _, opts = parse_args(want["argv"].split() + ["in", "out"])
+        cp = make_params(codec, opts)
+        params[codec] = cp, opts
+        corpus = decoded(name)
+        walls, kern, passes, _, arc = encodes(corpus, cp, opts)
+        if hashlib.sha256(arc).hexdigest() != want["archive_sha256"]:
+            raise AssertionError(f"{name}: the archive differs from the golden")
+        rows.append(row(codec, name, corpus, walls, kern, passes))
+    corpus = group_corpus(decoded(GROUP_SOURCE))
+    for codec, (cp, opts) in params.items():
+        walls, kern, passes, peak, arc = encodes(corpus, cp, opts, group=4)
+        rows.append(row(codec, f"-g4, {corpus.size} B", corpus, walls, kern, passes,
+                        peak_gib=peak / 2**30, sha256=hashlib.sha256(arc).hexdigest()))
     return rows
 
 

@@ -91,6 +91,18 @@ def k3p(p, emit, *, out) -> tuple:
     return nbytes(emit, out), 3 * out.numel()
 
 
+def k3b(emit_packed, words, *, out) -> tuple:
+    """K3b (``block.compact_stream``; ``out`` (n_words, stream)): the mask
+    read once, and of the words only the flagged ones, which the function
+    needs (the rest need not be read), read once and written as 2 bytes
+    each, and the counts; a flag test a lane, a rank, an address and a
+    store a flagged word."""
+    n_words = out[0]
+    total = int(n_words.sum())
+    return (nbytes(emit_packed, n_words) + (4 + 2) * total,
+            words.numel() + 3 * total)
+
+
 def kcr(p, ment, *, out) -> tuple:
     """KCR (``block.remap_chain_ment``): the table read and written once;
     a subtract, a max, a compare and a select an entry."""

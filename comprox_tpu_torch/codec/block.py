@@ -45,7 +45,9 @@ events with the hit APM keyed by the candidate's availability) and K3 at
 three slots; decode is one scan (K13d).  There is no search or parse pass.
 
 Every adaptive encode ends with K3p, which bit-packs K3's emission mask
-eight lanes a byte before it goes to the host, as the JAX package does.
+eight lanes a byte, as the JAX package does, and K3b, which compacts the
+flagged words into the payload's stream where the JAX package's host
+does: the host copies the word count, the states and the stream.
 
 Chain mode (``-c``) codes a block from the PPM tables the previous coded
 block left (:func:`encode_block_chained`, :func:`decode_block_chained`);
@@ -1370,6 +1372,25 @@ def pack_emit_plain(emit):
     return (bits << shifts).sum(dim=-1, dtype=torch.uint8)
 
 
+def _low16(v):
+    """The low 16 bits of int32 ``v`` as int16 (the bits of a ``<u2``)."""
+    return (((v & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.int16)
+
+
+def compact_stream_plain(emit_packed, words):
+    """Plain K3b: K3p's mask [T, n_slots, S/8] uint8 and K3's words [T,
+    n_slots, S] int32 -> ``(n_words`` int32 0-d, ``stream`` [T * n_slots *
+    S] int16): the flagged words' low 16 bits in (step, slot, lane) order,
+    zeros after the first n_words (the compaction of block.py::
+    _pack_payload, 2256-2261)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=emit_packed.device)
+    flags = ((emit_packed.unsqueeze(-1) >> shifts) & 1).reshape(words.shape).bool()
+    picked = words[flags]
+    stream = torch.zeros(words.numel(), dtype=torch.int16, device=words.device)
+    stream[: picked.numel()] = _low16(picked)
+    return torch.tensor(picked.numel(), dtype=_i32, device=words.device), stream
+
+
 # --------------------------------------------------------------------------
 # KCR: the chain window's bucket-table remap (crz -C)
 # --------------------------------------------------------------------------
@@ -1570,7 +1591,7 @@ LAUNCHES = {"KS": 0, "K4": 0, "K5": 0, "K6": 0, "K2": 0, "K3": 0, "K1": 0,
             "K7": 0, "K8": 0, "K9": 0, "K10": 0,
             "K4x": 0, "K11": 0, "K12e": 0, "K12d": 0,
             "KSx": 0, "K13c": 0, "K13e": 0, "K13d": 0, "SORT": 0,
-            "K3p": 0, "KCR": 0, "K5ch": 0, "K1ch": 0}
+            "K3p": 0, "KCR": 0, "K5ch": 0, "K1ch": 0, "K3b": 0}
 _EVENTS: dict = {k: [] for k in LAUNCHES}
 
 
@@ -2258,10 +2279,11 @@ def rans_scan(p: BlockParams, ev):
     """K3 — the backward rANS scan of encode.
 
     Replaces the rans_body scan of comprox_tpu/codec/block.py::
-    _encode_passes (1945-1969).  Kernel: csrc/rans.cu (one thread per
-    lane).  ev [T, 3 * n_slots, S] int32 (n_slots = 3, or 5 in mode X) ->
-    (states [S] int64, emit [T, n_slots, S] bool, words [T, n_slots, S]
-    int32).  On the block axis (``ev`` [G, T, 3 * n_slots, S]) each output
+    _encode_passes (1945-1962).  Kernel: csrc/rans.cu (a thread a lane,
+    a warp a CTA, each lane's events of the next steps in flight through
+    a shared-memory ring).  ev [T, 3 * n_slots, S] int32 (n_slots = 3, or
+    5 in mode X) -> (states [S] int64, emit [T, n_slots, S] bool, words
+    [T, n_slots, S] int32).  On the block axis (``ev`` [G, T, 3 * n_slots, S]) each output
     has a leading G: one launch, a thread a lane of every block.
     """
     G = _blocks(ev, 3)
@@ -2307,6 +2329,42 @@ def pack_emit(p: BlockParams, emit):
     _launch("K3p", build.lib().cpx_k3p_launch, packed.numel(), emit.data_ptr(),
             packed.data_ptr(), _stream_ptr())
     return packed
+
+
+def compact_stream(emit_packed, words):
+    """K3b — the stream compaction, after K3p on every adaptive encode.
+
+    Replaces the compaction of comprox_tpu/codec/block.py::_pack_payload
+    (2256-2261), which the JAX package runs on the host.  Kernel:
+    csrc/rans.cu (three launches: tile counts, their scan, the scatter).
+    ``emit_packed`` [T, n_slots, S/8] uint8 (K3p's) and ``words`` [T,
+    n_slots, S] int32 (K3's) -> ``(n_words`` int32 0-d, ``stream`` [T *
+    n_slots * S] int16): the first n_words of ``stream`` are the flagged
+    words' low 16 bits in (step, slot, lane) order; the card leaves the
+    rest as it found it, the plain version zeros.  The stream buffer is
+    the worst case (every word flagged), so the launch needs no count from
+    the host.  On the block axis (``words`` [G, T, n_slots, S]) n_words is
+    [G] and ``stream`` [G, T * n_slots * S], a segment a block: one launch
+    of each kernel.
+    """
+    G = _blocks(words, 3)
+    if _dispatch(emit_packed, words) == "cpu":
+        if G is not None:
+            return _per_block(
+                lambda b, _: compact_stream_plain(emit_packed[b], words[b]), [0] * G)
+        return compact_stream_plain(emit_packed, words)
+    g = _lead(G)
+    steps, n_slots, s = words.shape[-3:]
+    _expect(words, "words", _i32, g + (steps, n_slots, s))
+    _expect(emit_packed, "emit_packed", torch.uint8, g + (steps, n_slots, s // 8))
+    dev, rows, lib = words.device, steps * n_slots, build.lib()
+    parts = torch.empty(g + (lib.cpx_k3b_tiles(rows) + 1, 2), dtype=_i32, device=dev)
+    n_words = torch.empty(g, dtype=_i32, device=dev)
+    stream = torch.empty(g + (rows * s,), dtype=torch.int16, device=dev)
+    _launch("K3b", lib.cpx_k3b_launch, G or 1, s, rows, emit_packed.data_ptr(),
+            words.data_ptr(), parts.data_ptr(), n_words.data_ptr(), stream.data_ptr(),
+            _stream_ptr())
+    return n_words, stream
 
 
 def remap_chain_ment(p: BlockParams, ment):
@@ -2423,17 +2481,23 @@ def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None,
 
 
 def _pack_payload(states, emit_packed, words) -> bytes:
-    """The block payload: word count, states, then the emitted words in
-    (step, slot, lane) order, the decode read order; ``emit_packed`` is
-    K3p's bit-packed mask (block.py::_pack_payload)."""
-    emit_np = np.unpackbits(
-        emit_packed.cpu().numpy(), axis=-1, bitorder="little").astype(bool)
-    stream = words.cpu().numpy()[emit_np]  # C-order compaction
-    header = np.array([stream.size], np.uint32)
+    """The block payload from K3's states and words and K3p's bit-packed
+    mask, the JAX package's arguments (block.py::_pack_payload): K3b
+    compacts the words where they lie (:func:`compact_stream`: on the card
+    a kernel, so neither the words nor the mask reach the host), then
+    :func:`_payload_bytes`."""
+    return _payload_bytes(states, *compact_stream(emit_packed, words))
+
+
+def _payload_bytes(states, n_words, stream) -> bytes:
+    """The block payload: the word count (u32), the S states (u32), then
+    the first ``n_words`` of K3b's ``stream`` (``<u2``), in (step, slot,
+    lane) order, the decode read order.  Copies only those to the host."""
+    nw = int(n_words)
     return (
-        header.tobytes()
+        np.array([nw], np.uint32).tobytes()
         + states.cpu().numpy().astype("<u4").tobytes()
-        + stream.astype("<u2").tobytes()
+        + stream[:nw].cpu().numpy().view(np.uint16).astype("<u2").tobytes()
     )
 
 

@@ -1,5 +1,6 @@
 // Prefix scans over the whole block, shared by the mode-F tokenizer (K8,
-// f2tok.cu) and decoder (K10, f2dec.cu).
+// f2tok.cu) and decoder (K10, f2dec.cu), and by the stream compaction of
+// every adaptive encode (K3b, rans.cu; its counts only).
 //
 // One scan carries two values per position: a count (how many token starts
 // lie before it) and "the last nonzero value before it" (the previous match
@@ -54,10 +55,9 @@ static __device__ CountLast cta_excl_scan(CountLast v, CountLast* wsum,
   return combine(before, ex);
 }
 
-// In place: parts[0 .. n) -> their exclusive prefixes, parts[n] = the total.
-// One CTA of 1024 threads.
-static __global__ void __launch_bounds__(1024) scan_parts(CountLast* __restrict__ parts,
-                                                          int n) {
+// In place: parts[0 .. n) -> their exclusive prefixes, parts[n] = the total,
+// which it returns.  Called by every thread of one CTA of 1024 threads.
+static __device__ CountLast scan_parts_cta(CountLast* __restrict__ parts, int n) {
   __shared__ CountLast wsum[32];
   const int tid = threadIdx.x;
   const int chunk = (n + 1023) / 1024;
@@ -72,4 +72,11 @@ static __global__ void __launch_bounds__(1024) scan_parts(CountLast* __restrict_
     run = combine(run, v);
   }
   if (tid == 0) parts[n] = total;
+  return total;
+}
+
+// scan_parts_cta as a launch of one CTA of 1024 threads.
+static __global__ void __launch_bounds__(1024) scan_parts(CountLast* __restrict__ parts,
+                                                          int n) {
+  scan_parts_cta(parts, n);
 }

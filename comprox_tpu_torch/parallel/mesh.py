@@ -23,8 +23,9 @@ import torch
 
 from comprox_tpu_torch.codec.block import (
     BlockParams,
-    _pack_payload,
+    _payload_bytes,
     check_supported,
+    compact_stream,
     decode_scan_blocks,
     encode_passes_blocks,
 )
@@ -70,7 +71,8 @@ def encode_blocks_list(
     68 MB, o3 17 MB, the bucket table 134 MB, K4's proposals [8, T, S] and
     K5's candidate grids [16, T, S] int32, 268 and 537 MB, the decisions
     [4, T, S] 134 MB: about 1.6 GB a block live at once at most, the
-    grids freed pass by pass.  crx has five slots (``ev`` 503 MB); crp's
+    grids freed pass by pass; K3b's stream, the worst case [T * 3 * S]
+    int16, 50 MB (crx 84 MB), beside the words.  crx has five slots (``ev`` 503 MB); crp's
     K13c takes 0.54 GB of scratch a block, looped, each block's pass
     reusing the one before's.
     """
@@ -87,11 +89,15 @@ def encode_blocks_list(
                 raise ValueError(f"block of {blk.size} bytes for capacity {p.capacity}")
             buf[i].reshape(-1)[: blk.size] = blk
             ns[i] = blk.size
-        states, emit_packed, words = (
-            x.cpu() for x in _encode_blocks_vmap(
-                p, torch.from_numpy(buf).to(device), torch.from_numpy(ns).to(device)))
-        for i in range(len(grp)):
-            out.append(_pack_payload(states[i], emit_packed[i], words[i]))
+        states, emit_packed, words = _encode_blocks_vmap(
+            p, torch.from_numpy(buf).to(device), torch.from_numpy(ns).to(device))
+        # K3b over the group: the host copies G word counts, G x S states
+        # and each block's stream, not the words or the mask
+        n_words, streams = compact_stream(emit_packed, words)
+        del emit_packed, words
+        states = states.cpu()
+        for i, nw in enumerate(n_words.tolist()):
+            out.append(_payload_bytes(states[i], nw, streams[i]))
     return out
 
 

@@ -64,6 +64,8 @@ _SIGNATURES = {
     "cpx_k1c_launch": [_P] * 15,
     "cpx_kcr_launch": [_I, _I, _P, _P, _P],
     "cpx_k3p_launch": [_I, _P, _P, _P],
+    "cpx_k3b_launch": [_I] * 3 + [_P] * 6,
+    "cpx_k3b_tiles": [_I],
     "cpx_k4x_keys_launch": [_P] * 4,
     "cpx_k4x_find_launch": [_P] * 8,
     "cpx_k6x_launch": [_P, _I] + [_P] * 5,

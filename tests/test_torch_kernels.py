@@ -114,7 +114,7 @@ def test_kernel_sources_and_launch_table():
     assert set(blk.LAUNCHES) == {"KS", "K1", "K2", "K3", "K4", "K5", "K6", "K7",
                                  "K8", "K9", "K10", "K4x", "K11", "K12e", "K12d",
                                  "KSx", "K13c", "K13e", "K13d", "SORT", "K3p",
-                                 "KCR", "K5ch", "K1ch"}
+                                 "KCR", "K5ch", "K1ch", "K3b"}
     assert set(blk._EVENTS) == set(blk.LAUNCHES)
     names = {p.name for p in build._sources()}
     assert {"search.cu", "decode.cu", "model.cu", "rans.cu", "sortfind.cu",
@@ -1105,6 +1105,70 @@ def test_k3p_matches_plain(cuda_device, n_slots, lanes):
     got = blk.pack_emit(p, emit.to(cuda_device))
     assert got.shape == (37, n_slots, lanes // 8)
     assert torch.equal(got.cpu(), blk.pack_emit_plain(emit))
+
+
+def _events(rng, steps, n_slots, lanes):
+    """Random K3 events [T, 3 * n_slots, S]: c and f over all 16 bits, the
+    flag on about three lanes in four."""
+    ev = rng.integers(0, 1 << 16, (steps, 3 * n_slots, lanes)).astype(np.int32)
+    ev[:, 2::3] = rng.random((steps, n_slots, lanes)) < 0.75
+    return torch.from_numpy(ev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots", [3, 5])
+@pytest.mark.parametrize("lanes,steps", [(8, 5), (512, 37), (2056, 37)])
+def test_k3_matches_plain(cuda_device, n_slots, lanes, steps):
+    """The redesigned K3 (the events' ring, the reciprocal quotient, a warp
+    a CTA) on random events: fewer steps than the ring holds, lanes not a
+    multiple of a CTA's."""
+    p = blk.BlockParams(lanes=lanes, steps=steps, mode="X" if n_slots == 5 else "R")
+    ev = _events(np.random.default_rng(lanes + steps), steps, n_slots, lanes)
+    want = blk.rans_scan_plain(p, ev)
+    got = blk.rans_scan(p, ev.to(cuda_device))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def _mask_words(rng, steps, n_slots, lanes):
+    """A random K3p mask (one row all silent, one all emitting) and words."""
+    emit = rng.random((steps, n_slots, lanes)) < 0.3
+    emit[0, 0] = False
+    emit[-1, -1] = True
+    words = rng.integers(0, 1 << 16, (steps, n_slots, lanes)).astype(np.int32)
+    return blk.pack_emit_plain(torch.from_numpy(emit)), torch.from_numpy(words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots", [3, 5])
+@pytest.mark.parametrize("lanes", [8, 512, 2056])
+def test_k3b_matches_plain(cuda_device, n_slots, lanes):
+    packed, words = _mask_words(np.random.default_rng(lanes), 37, n_slots, lanes)
+    nw_p, stream_p = blk.compact_stream_plain(packed, words)
+    before = blk.LAUNCHES["K3b"]
+    nw, stream = blk.compact_stream(packed.to(cuda_device), words.to(cuda_device))
+    assert blk.LAUNCHES["K3b"] == before + 1
+    assert nw.shape == () and stream.shape == (37 * n_slots * lanes,)
+    assert int(nw) == int(nw_p) > 0
+    assert torch.equal(stream[: int(nw)].cpu(), stream_p[: int(nw)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots", [3, 5])
+def test_k3b_block_axis_matches_one_block_launches(cuda_device, n_slots):
+    """G = 4 blocks of different word counts in one launch: each block's
+    count and stream segment are its one-block launch's."""
+    rng = np.random.default_rng(n_slots)
+    blocks = [_mask_words(rng, 64, n_slots, 512) for _ in range(4)]
+    blocks[1][0].zero_()  # a block that emits nothing
+    packed = torch.stack([b[0] for b in blocks]).to(cuda_device)
+    words = torch.stack([b[1] for b in blocks]).to(cuda_device)
+    nw, streams = blk.compact_stream(packed, words)
+    assert nw.shape == (4,)
+    assert nw[1] == 0 and len(set(nw.tolist())) == 4
+    for b in range(4):
+        one_nw, one = blk.compact_stream(packed[b], words[b])
+        assert int(one_nw) == int(nw[b])
+        assert torch.equal(streams[b, : int(nw[b])], one[: int(one_nw)])
 
 
 @pytest.mark.cuda

@@ -346,8 +346,8 @@ def test_chip_smoke_names_every_batched_arm():
 
     rows = {name: repl for name, _, repl in chip_smoke.KERNELS if name.endswith(" (blocks)")}
     assert set(rows) == {f"{k} (blocks)" for k in (
-        "K5", "K6", "K2", "K3", "K3p", "K1", "K11", "K6 (X)", "K12e", "K3 (5 slots)",
-        "K3p (5 slots)", "K12d", "K13e", "K13d")}
+        "K5", "K6", "K2", "K3", "K3p", "K3b", "K1", "K11", "K6 (X)", "K12e",
+        "K3 (5 slots)", "K3p (5 slots)", "K3b (5 slots)", "K12d", "K13e", "K13d")}
     for name, repl in rows.items():
         side = "73" if name.split()[0] in ("K1", "K12d", "K13d") else "62"
         assert repl.startswith(f"comprox_tpu/parallel/mesh.py:{side}; comprox_tpu/"), name
@@ -358,3 +358,6 @@ def test_chip_smoke_names_every_batched_arm():
     assert chip_smoke._arm_name(ns + "10k11_kernelE3CfgPKh") == "k11_kernel"
     assert chip_smoke._arm_name(ns + "9k13c_keysE3Cfg") == "k13c_keys"
     assert chip_smoke._arm_name(ns + "7k4_keysE3Cfg") is None
+    rans = "_ZN39_GLOBAL__N__1f2b3c4d_7_rans_cu_5e6f7a8b"
+    assert chip_smoke._arm_name(rans + "9k3_kernelILi5EEEviiPKiPxPhPi") == "k3_kernel<NS=5>"
+    assert chip_smoke._arm_name(rans + "11k3b_scatterEiiiPKhPKiPK9CountLastPs") == "k3b_scatter"

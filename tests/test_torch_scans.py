@@ -108,8 +108,9 @@ def test_bounds_log_every_other_kernel_of_the_encode(mode):
         else:
             blk.encode_block(data, p, "cpu")
     # (the sort's entry is its launcher, which only the card's finders call)
-    want = dict(R={"K4", "K6 (R)", "K3", "K3p"},
-                X={"K4x", "K6 (X)", "K11", "K3 (5 slots)", "K3p (5 slots)"},
+    want = dict(R={"K4", "K6 (R)", "K3", "K3p", "K3b"},
+                X={"K4x", "K6 (X)", "K11", "K3 (5 slots)", "K3p (5 slots)",
+                   "K3b (5 slots)"},
                 F={"K7", "K6 (F)", "K8", "K9"})[mode]
     assert set(log) == want
     assert all(b > 0 and o > 0 for b, o in log.values())
