@@ -31,8 +31,8 @@ no result line:
    e -F``; a 32 KiB corpus of words under each codec at ``-l2048`` with
    T=8, two blocks; the 8 MiB corpus chained at ``-b2``, four blocks of
    T=4096, under ``crz -c``, ``crz -C``, ``crx -c`` and ``crp -c``; the 16
-   MiB corpus of phase 16 under ``crz -C -b8``; the ``-g4`` goldens are
-   phase 20's) on the card and checks the
+   MiB corpus of phase 17 under ``crz -C -b8``; the ``-g4`` goldens are
+   phase 21's) on the card and checks the
    decoded bytes' SHA-256;
    re-encodes each corpus that no full-width phase below codes, under its
    archive's command line, and checks that each archive's SHA-256 equals
@@ -75,12 +75,18 @@ no result line:
    ``words[emit]``); tolerance 0 on every
    output grid and every table.  KSx (the scan finder's search) the same
    way: six grids, both bucket tables and the near-match cache.
-9. kernels, mode P: K13c (the whole block's LZP candidates: the grid and
+9. kernels, K6 and K11 cases: K6 in each arm (R, F, X without and with the
+   repeat pair) and K11 against their plain versions on the adversarial
+   inputs of ``tests/test_torch_parse_order.py``: dense random candidates,
+   every candidate tied, a literal price that saturates the cost-to-go,
+   ``min_len`` 1, and K11 on random decisions over bytes of long equal
+   runs; at S=512, T=256 and at a ragged S=104, T=77; tolerance 0.
+10. kernels, mode P: K13c (the whole block's LZP candidates: the grid and
    the ``lzp2/4/8`` it leaves), then K13e on K13c's grid, K3 and K13d
    chained at S=512, T=256, full-size LZP tables, each against its plain
    version; tolerance 0 on every grid, every PPM table, ``sse_p`` and
    ``lzp2/4/8``.
-10. kernels, blocks: every batched arm of the block axis (one launch codes
+11. kernels, blocks: every batched arm of the block axis (one launch codes
    G blocks: K5, K6, K2 in mode R, K11, K6 twice, K12e in mode X, K13e,
    K3, K3p and K3b at three and five slots, K1, K12d, K13d) against G one-block
    launches of the same kernel and against the plain loop (the plain
@@ -89,7 +95,7 @@ no result line:
    short; tolerance 0 on every grid, table, state and stream; the batched
    launch's ms beside the G one-block launches'.  The ``(blocks)`` rows of
    the kernels line.
-11. probes: the nine Pallas probes of the JAX package's ``benchmarks/`` as
+12. probes: the nine Pallas probes of the JAX package's ``benchmarks/`` as
    the port runs them (``comprox_tpu_torch/benchmarks/probes.py``, kernels
    in ``csrc/probes.cu``): each at each of its own geometries (S=512)
    against its plain version, tolerance 0 (P8 against ``bf16(table)[idx]``;
@@ -98,24 +104,24 @@ no result line:
    a geometry, as ``python -m comprox_tpu_torch.benchmarks.probes`` prints
    them.  The kernels line carries each probe's last geometry (P1: its warp
    arm; P4: its persistent arm) and the launches of the whole phase.
-12. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
+13. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
    CLI; archive SHA-256 == the JAX golden; fails if K13c, K13e, K3, K3p,
    K3b or K13d was not launched.
-13. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
+14. full width, the crx path under the scan finder: ``crx e -b8 -l512`` with
    ``CPX_X_FINDER=scan``; archive SHA-256 == the JAX golden written under
    that knob; fails if KSx, K6, K11, K12e, K3, K3p, K3b or K12d was not
    launched, or if K4x was.
-14. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
+15. full width, the crx path: ``crx e -b8 -l512`` then ``crx d`` through the
    CLI on the 8 MiB corpus; archive SHA-256 == the JAX golden, round trip
    bit-exact; fails if K4x, K11, K6, K12e, K3, K3p, K3b, K12d or the sort was
    not launched.
-15. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
+16. full width, the flexible crz path: ``crz e -b8 -l512`` then ``crz d``
    through ``comprox_tpu_torch.cli.main`` on the 8 MiB corpus, one block of
    S=512 and T=16384.  The archive's SHA-256 must equal the JAX package's
    and the round trip must be bit-exact; prints MB/s, bpb and the kernel
    times, and fails if K4, K5, K6, K2, K3, K3p, K3b, K1 or the sort was not
    launched.
-16. full width, chain mode v2: ``crz e -C -b8 -l512`` then ``crz d`` on
+17. full width, chain mode v2: ``crz e -C -b8 -l512`` then ``crz d`` on
    16 MiB, the 8 MiB text corpus followed by the 8 MiB ELF corpus (both
    decoded from committed goldens), two chained blocks of S=512 and
    T=16384; archive SHA-256 == the JAX golden, round trip bit-exact; MB/s,
@@ -123,7 +129,7 @@ no result line:
    archive of the same input; fails unless K4, KCR (twice a side), K5ch,
    K6, K2, K3, K3p, K3b, K1ch and the sort were launched, or if K5 or K1
    was.
-17. the step scans by phase: the same archive decoded through K1's two
+18. the step scans by phase: the same archive decoded through K1's two
    instrumented builds of phase 2, at ring depth 0 (the o2 or o1 rows of a
    pair of lanes issued when they are read, nothing in flight ahead) and
    at the build's depth, and its corpus encoded again through K5's and
@@ -133,26 +139,26 @@ no result line:
    each phase's share of the kernel's cycles and its microseconds a step
    (K5, K2, K12e, K13e, K12d, K13d: on thread 0 and on the CTA's last
    thread).
-18. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
+19. full width, the greedy crz path: the same with ``-f0``; fails if KS, K2,
    K3, K3p, K3b or K1 was not launched.
-19. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
+20. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
    way; fails if K7, K6, K8, K9, K10 or the sort was not launched.  Then the host's
    share of that path, stage by stage (dictionary, block encode and decode,
-   the LZ copy walk, the CRC).  (It runs after phases 20 and 21, before
-   phase 22.)
-20. golden, -b2: the JAX package's ``-g4 -b2`` goldens (four blocks of
+   the LZ copy walk, the CRC).  (It runs after phases 21 and 22, before
+   phase 23.)
+21. golden, -b2: the JAX package's ``-g4 -b2`` goldens (four blocks of
    T=4096 of the 8 MiB corpus; crz, crx, crp, crf), which phase 3 leaves
    out, decoded with ``-g4`` and with ``-g1`` to the corpus, and the corpus
    encoded again with ``-g4`` to JAX's SHA-256.
-21. full width, -g4: ``crz|crx|crp e -b8 -l512 -g4`` against ``-g1`` on 29
+22. full width, -g4: ``crz|crx|crp e -b8 -l512 -g4`` against ``-g1`` on 29
    MiB + 777 bytes, four distinct full-width blocks (the 8 MiB text and
-   ELF corpora of phase 16, each rotated by 4 MiB, the last cut to 5 MiB +
+   ELF corpora of phase 17, each rotated by 4 MiB, the last cut to 5 MiB +
    777 bytes); the archives byte-equal and ``d -g4`` bit-exact; walls,
    MB/s, kernel ms of each launch, device time and idle share, peak card
    memory of each, and K5's clusters the card holds at once; fails unless
    every kernel of the path (K3b included) was launched.  The launches of
    the ``(blocks)`` rows are this phase's ``-g4`` runs'.
-22. payload pack: one 8 MiB block of the crz and of the crx corpus
+23. payload pack: one 8 MiB block of the crz and of the crx corpus
    encoded (S=512, T=16384; three and five slots), then its payload packed
    from the same K3 outputs two ways, host ms each: the host compaction
    the port ran before K3b (K3p's mask and K3's words copied to the host,
@@ -362,7 +368,7 @@ _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 # then itself, then the template arguments: ints Li..E, bools Lb..E)
 _ARM_PARAMS = {"k1_kernel": ("MAXT", "CL"), "k12d_kernel": ("MAXT", "MODE", "CL", "BLK"),
                "k2_kernel": ("MAXT", "MODE", "CL", "LPR"),
-               "k5_kernel": ("MAXT", "CL", "TPL", "CHAIN"), "k6_kernel": ("FAST",),
+               "k5_kernel": ("MAXT", "CL", "TPL", "CHAIN"), "k6_kernel": ("FAST", "KG"),
                "k11_kernel": (), "k3_kernel": ("NS",), "k3p_kernel": (),
                "k3b_count": (), "k3b_scan": (), "k3b_scatter": ()}
 _MANGLED = re.compile(r"_ZN(\d+)")
@@ -1076,6 +1082,131 @@ def phase_kernels_fast(corpus):
             raise AssertionError(
                 f"{name}: kernel != plain (max err {r['max_abs_err']})")
     return res
+
+
+def _parse_case(rng, p, arm, max_len, ties=False):
+    """Adversarial K6 inputs of one arm, numpy from ``rng`` (as
+    tests/test_torch_parse_order.py makes them): the candidate grids, their
+    count, the prices (None: mode R's) and the repeat pair (arm Xrep).
+    Lengths up to ``max_len``, 40% of them 0; sources before and after the
+    position and -1; with ``ties`` every candidate alike, each length 0 or
+    the window's."""
+    import numpy as np
+
+    from comprox_tpu_torch.codec import block as blk
+
+    shape = (p.steps, p.lanes)
+    pos = np.arange(p.lanes)[None, :] * p.steps + np.arange(p.steps)[:, None]
+    n_c, per = {"R": (5, 3), "F": (2, 2)}.get(arm, (3, 2))
+    g = np.zeros((per * n_c + (arm == "R"), *shape), np.int32)
+    for k in range(n_c):
+        g[per * k] = rng.integers(0, max_len + 1, shape)
+        g[per * k][rng.random(shape) < 0.4] = 0
+        g[per * k + 1] = (rng.integers(-1, p.capacity, shape) if arm == "R"
+                          else pos - rng.integers(-1, 700, shape))
+        if arm == "R":
+            g[3 * k + 2] = rng.integers(0, 40, shape)
+    if arm == "R":
+        g[15] = rng.integers(0, 17, shape)
+    rep = None
+    if arm == "Xrep":
+        rep = np.stack([rng.integers(0, max_len + 1, shape),
+                        rng.integers(1, 700, shape)]).astype(np.int32)
+        rep[0][rng.random(shape) < 0.4] = 0
+        if ties:
+            rep[0] = np.where(rep[0] > 0, p.window, 0)
+        same = rng.random(shape) < 0.3  # a normal candidate at the repeat distance
+        g[1] = np.where(same, pos - rep[1], g[1])
+    if ties:
+        for k in range(1, n_c):
+            g[per * k: per * k + per] = g[:per]
+        g[0:per * n_c:per] = np.where(g[0:per * n_c:per] > 0, p.window, 0)
+    prices = {"R": None, "F": (36, 40, 9)}.get(arm, blk.x_prices())
+    return g, n_c, prices, rep
+
+
+def phase_parse_cases():
+    """K6, each arm (R, F, X without and with the repeat pair), and K11
+    against their plain versions on the card on adversarial inputs (those
+    of tests/test_torch_parse_order.py): dense random candidates with
+    lengths past the window; every candidate tied at the window's length; a
+    literal price of 300000 that drives the cost-to-go to its ceiling 2^22
+    - 1 (the prices of test_parse_f_prices_and_saturation); min_len 1 (the
+    candidates priced one step ahead); K11 on random decisions (copies
+    started at changing distances inside runs) over bytes of long equal
+    runs.  Two geometries: the kernel phases' S=512, T=256, window 250, and
+    a ragged S=104, T=77, window 256 (K11's last CTA and both kernels'
+    last tile of steps cut short), both 37 bytes short of the block.  Tolerance 0.  Returns the
+    max abs err of "K6" (R, F), "K6 (X)" and "K11"."""
+    import numpy as np
+    import torch
+
+    from comprox_tpu_torch.codec import block as blk
+
+    dev = "cuda"
+    errs = {"K6": 0, "K6 (X)": 0, "K11": 0}
+    cases = 0
+    for lanes, steps, window in ((512, KERNEL_STEPS, 250), (104, 77, 256)):
+        for arm in ("R", "F", "X", "Xrep"):
+            for case in ("random", "ties", "saturating", "min_len 1"):
+                min_len = 1 if case == "min_len 1" else (5 if arm == "R" else 6)
+                p = blk.BlockParams(lanes=lanes, steps=steps, window=window, min_len=min_len,
+                                    mode="R" if arm == "R" else "X")
+                rng = np.random.default_rng(cases)
+                max_len = 12 if case == "saturating" else window + 3
+                g, n_c, prices, rep = _parse_case(rng, p, arm, max_len, case == "ties")
+                per = 3 if arm == "R" else 2
+                old = blk._P_LIT_R
+                if case == "saturating":
+                    g[0:per * n_c:per][:, rng.random(g[0].shape) < 0.7] = 0
+                    if rep is not None:
+                        rep[0][rng.random(g[0].shape) < 0.9] = 0
+                    if prices is None:
+                        blk._P_LIT_R = 300000
+                    else:
+                        prices = (300000, 45, 9, 30)[:len(prices)]
+                n = p.capacity - 37
+                ct = torch.from_numpy(g).to(dev)
+                rt = None if rep is None else torch.from_numpy(rep).to(dev)
+                kw = {} if prices is None else dict(prices=prices, n_c=n_c)
+                try:
+                    got = blk.parse_scan(p, n, ct, rep=rt, **kw)
+                    want = blk.parse_scan_plain(p, n, ct, rep=rt, **kw)
+                finally:
+                    blk._P_LIT_R = old
+                err = max_err([(got, want)])
+                row = "K6 (X)" if arm.startswith("X") else "K6"
+                errs[row] = max(errs[row], err)
+                if err:
+                    raise AssertionError(f"K6 ({arm}, {case}, S={lanes}, T={steps}) differs "
+                                         f"from its plain version: max abs err {err}")
+                cases += 1
+        p = blk.BlockParams(lanes=lanes, steps=steps, window=window, min_len=6, mode="X")
+        for seed, name in enumerate(("zeros", "period7", "random")):
+            rng = np.random.default_rng(100 + seed)
+            n = p.capacity - 37
+            data = np.zeros(p.capacity, np.uint8)
+            data[:n] = {"zeros": np.zeros(n, np.uint8),
+                        "period7": np.tile(rng.integers(0, 256, 7, dtype=np.uint8),
+                                           n // 7 + 1)[:n],
+                        "random": rng.integers(0, 2, n, dtype=np.uint8)}[name]
+            shape = (p.steps, p.lanes)
+            pos = np.arange(p.lanes)[None, :] * p.steps + np.arange(p.steps)[:, None]
+            take = rng.integers(1, 9, shape).astype(np.int32)
+            take[rng.random(shape) < 0.6] = 0
+            dist = rng.choice(np.array([1, 2, 7, 14, p.steps + 1, 2 * p.steps]), shape)
+            src = (pos - dist + (rng.random(shape) < 0.05) * 5 * p.steps).astype(np.int32)
+            inp = torch.from_numpy(data.reshape(p.lanes, p.steps)).to(dev)
+            dec = torch.from_numpy(np.stack([take, src])).to(dev)
+            err = max_err([(blk.rep_scan(p, inp, n, dec), blk.rep_scan_plain(p, inp, n, dec))])
+            errs["K11"] = max(errs["K11"], err)
+            if err:
+                raise AssertionError(f"K11 ({name}, S={lanes}, T={steps}) differs from its "
+                                     f"plain version: max abs err {err}")
+            cases += 1
+    print(f"K6 and K11 cases: {cases} cases, each equal to its plain version; "
+          f"max abs err {errs}")
+    return errs
 
 
 def phase_kernels_x(corpus):
@@ -2026,6 +2157,8 @@ def main() -> int:
     res.update(res_f)
     res["K6"]["max_abs_err"] = max(res["K6"]["max_abs_err"], k6f["max_abs_err"])
     res.update(ph.run("kernels, mode X", phase_kernels_x, corpora[X_ARCHIVE]))
+    for name, err in ph.run("kernels, K6 and K11 cases", phase_parse_cases).items():
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
     res.update(ph.run("kernels, mode P", phase_kernels_p, corpora[P_ARCHIVE]))
     res.update(ph.run("kernels, blocks", phase_kernels_blocks, corpora[MAIN_ARCHIVE]))
     res_probes, probe_launches = ph.run("probes", phase_probes)

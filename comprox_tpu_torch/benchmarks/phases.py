@@ -34,6 +34,8 @@ the kernel's CUDA-event time over the steps).  On the card::
     python -m comprox_tpu_torch.benchmarks.phases times
     python -m comprox_tpu_torch.benchmarks.phases bounds
     python -m comprox_tpu_torch.benchmarks.phases k3 [LANESxDEPTH ...]
+    python -m comprox_tpu_torch.benchmarks.phases k6fit
+    python -m comprox_tpu_torch.benchmarks.phases k6stamps
 
 (default: the 8 MiB flexible crz golden for K1, K5 and K2, the 8 MiB crx
 and crp goldens for K12d and K13d; K1, K5 and K2; each decode scan at
@@ -43,14 +45,25 @@ above one; default 1 2 4 8 8 4 2 1), a variant build of ``csrc/rank.cu``
 each.
 ``times`` prints the full-width time of every step scan (K1, K5, K2, KS,
 K12d, K12e, KSx, K13d, K13e) in the main build, from the decode and the
-encode of the 8 MiB goldens, and its bound at that width; run it in two
-trees in turns to compare them.  ``bounds`` prints the full-width bound of
+encode of the 8 MiB goldens, and its bound at that width, and the same of
+each launch of the flexible parse's passes: K6 (R) on crz, K6 (X) 1, K11
+and K6 (X) 2 on crx, K6 (F) on crf; run it in two trees in turns to
+compare them (``PYTHONPATH=<tree> python <this file> times`` times another
+tree's package with this file).  ``bounds`` prints the full-width bound of
 every other kernel (the sort, K4, K4x, K7, K3, K3p, K3b, K6, K8-K11, K13c,
 KCR) from the launches of the 8 MiB crz, crx, crf and crp goldens' decode
 and encode.  ``k3`` times K3 on the 8 MiB crz, crx and crp goldens'
 encodes at each ``LANESxDEPTH`` given (lanes a CTA, steps of events in
 flight a lane; default 32x16 64x16 128x16 32x8 32x32 32x16), a variant
-build of ``csrc/rans.cu`` each.
+build of ``csrc/rans.cu`` each.  ``k6fit`` times K6 at full width on the
+8 MiB goldens' own candidates at several candidate counts (mode R: 2, 3,
+5 and 8 candidates, the ``CPX_R_CANDS`` of 1, 2, 4 and 7 with the
+bucket's; mode X: 1, 3 and 5, without and with the repeat pair) and fits
+microseconds a step to the count (a + b k), and times K11; it uses only
+entry points that every tree has, so that it times another tree's kernels
+too.  ``k6stamps`` builds ``parse.cu`` and ``xrep.cu`` with
+``-DCPX_K6_PROF -DCPX_K11_PROF`` beside the main library and prints K6's
+SM cycles a step by phase and K11's by walk on the same inputs.
 """
 
 from __future__ import annotations
@@ -263,6 +276,180 @@ def k3(configs=((32, 16), (64, 16), (128, 16), (32, 8), (32, 32), (32, 16))) -> 
     return out
 
 
+def _launch_ms(fn, name: str) -> float:
+    """The mean device ms of ``K6_REPS`` launches of ``name`` by ``fn``
+    after a warm-up."""
+    fn()
+    blk.reset_launch_counts()
+    for _ in range(K6_REPS):
+        fn()
+    ms = _event_ms(name)
+    if len(ms) != K6_REPS:
+        raise AssertionError(f"{name}: {len(ms)} launches, {K6_REPS} expected")
+    return sum(ms) / K6_REPS
+
+
+def _golden_block(name: str):
+    """The block parameters of a one-block 8 MiB golden and its decoded
+    corpus as the [S, T] block on the card."""
+    want = json.loads((GOLDEN / "torch_golden.json").read_text())[name]
+    codec, _, _, _, opts = parse_args(want["argv"].split() + ["in", "out"])
+    p = make_params(codec, opts).block
+    raw = io.BytesIO()
+    decode_stream(io.BytesIO((GOLDEN / name).read_bytes()), raw, "cuda")
+    data = np.frombuffer(raw.getvalue(), np.uint8)
+    if data.size != p.capacity:
+        raise AssertionError(f"{name}: {data.size} bytes, not one full block")
+    return p, torch.from_numpy(data.reshape(p.lanes, p.steps).copy()).cuda()
+
+
+def _fit(points) -> tuple:
+    """(a, b) of the least-squares line us = a + b k through (k, us)."""
+    k = np.array([x for x, _ in points], float)
+    us = np.array([y for _, y in points], float)
+    b, a = np.polyfit(k, us, 1)
+    return float(a), float(b)
+
+
+# K6's candidate counts of ``k6fit``: mode R's CPX_R_CANDS of 1, 2, 4, 7
+# with the bucket's; mode X's CPX_X_CANDS of 1, 3, 5 (the repeat candidate
+# one more); and the launches a time is the mean of
+K6_FIT_R = (2, 3, 5, 8)
+K6_FIT_X = (1, 3, 5)
+K6_REPS = 3
+
+
+def _k6_inputs() -> dict:
+    """K6's full-width inputs from the 8 MiB goldens' own passes: mode R's
+    (block, n, K5's grids: four proposals and the bucket's, and the fill)
+    and mode X's (block, n, K4x's grids at ``CPX_X_CANDS`` = 5, its
+    prices, the block, the first parse of three and K11's repeat pair on
+    it)."""
+    import os
+
+    out = {}
+    p, inp = _golden_block("crz_flex_8MiB_S512.cpx")
+    n = p.capacity
+    out["R"] = (p, n, blk.rank_scan(p, inp, n, blk.sort_candidates(p, inp, n),
+                                    blk._init_rolz(p, "cuda")))
+    p, inp = _golden_block("crx_flex_8MiB_S512.cpx")
+    n = p.capacity
+    old = os.environ.get("CPX_X_CANDS")
+    os.environ["CPX_X_CANDS"] = str(max(K6_FIT_X))
+    try:
+        cx = blk.sort_candidates(p, inp, n, content=True)
+    finally:
+        if old is None:
+            del os.environ["CPX_X_CANDS"]
+        else:
+            os.environ["CPX_X_CANDS"] = old
+    prices = blk.x_prices()
+    first = blk.parse_scan(p, n, cx[:6].contiguous(), prices, 3)
+    out["X"] = (p, n, cx, prices, inp, first, blk.rep_scan(p, inp, n, first))
+    return out
+
+
+def _k6_launches(inputs) -> dict:
+    """{(mode, candidates): a function that launches K6 once on them}: mode
+    R on K5's five candidates taken in order, repeated past five; mode X
+    on the first n_c of K4x's, without and with the repeat pair."""
+    out = {}
+    p, n, ck = inputs["R"]
+    trip = ck[:-1].reshape(-1, 3, p.steps, p.lanes)
+    for nr in K6_FIT_R:
+        idx = [k % trip.shape[0] for k in range(nr)]
+        cands = torch.cat([trip[idx].reshape(3 * nr, p.steps, p.lanes), ck[-1:]]).contiguous()
+        out[("R", nr)] = (lambda p=p, n=n, c=cands: blk.parse_scan(p, n, c))
+    p, n, cx, prices, _, _, rep = inputs["X"]
+    for nc in K6_FIT_X:
+        cands = cx[:2 * nc].contiguous()
+        out[("X", nc)] = (lambda p=p, n=n, c=cands, k=nc: blk.parse_scan(p, n, c, prices, k))
+        out[("X rep", nc + 1)] = (
+            lambda p=p, n=n, c=cands, k=nc: blk.parse_scan(p, n, c, prices, k, rep))
+    return out
+
+
+def k6fit() -> dict:
+    """K6's full-width CUDA-event ms (mean of ``K6_REPS`` launches)
+    against its candidate count (``_k6_launches``) on the 8 MiB crz and crx
+    goldens' own candidates, and K11's on the first parse of three.  Prints
+    each time and microseconds a step and the line a + b k of each mode;
+    returns {(mode, count): ms}, K11's ms and the fits."""
+    inputs = _k6_inputs()
+    T = inputs["R"][0].steps
+    out = {key: _launch_ms(fn, "K6") for key, fn in _k6_launches(inputs).items()}
+    p, n, _, _, inp, first, _ = inputs["X"]
+    k11 = _launch_ms(lambda: blk.rep_scan(p, inp, n, first), "K11")
+    us = {k: v * 1e3 / T for k, v in out.items()}
+    for (mode, k), ms in out.items():
+        print(f"K6 ({mode}), {k} candidates: {ms:.3f} ms, {us[(mode, k)]:.4f} us a step",
+              flush=True)
+    print(f"K11 on the first parse: {k11:.3f} ms", flush=True)
+    fits = {m: _fit([(k, v) for (mode, k), v in us.items() if mode.startswith(m)])
+            for m in ("R", "X")}
+    for m, (a, b) in fits.items():
+        print(f"K6 ({m}) fit: {a:.4f} + {b:.4f} k us a step", flush=True)
+    return {"ms": out, "k11_ms": k11, "fits": fits}
+
+
+# K6's and K11's instrumented build (-DCPX_K6_PROF of parse.cu,
+# -DCPX_K11_PROF of xrep.cu): K6's phases of a group of steps and K11's two
+# walks, stamped on thread 0 of the launch's first CTA
+K6_PHASES = ("literal compares, ring sync", "minima advanced and stored, warp sync",
+             "candidates priced", "warp minima", "loop", "tile: wait, barrier, flush, fetch")
+K11_PHASES = ("forward walk", "backward count")
+K6_DEFINES = ("-DCPX_K6_PROF", "-DCPX_K11_PROF")
+K6_SOURCES = ("parse.cu", "xrep.cu")
+
+
+K6_STAMPED = (("R", 5), ("X", 3), ("X rep", 4))  # the launches k6stamps takes apart
+
+
+def k6stamps() -> dict:
+    """K6's cycles a step by phase on the full-width inputs ``K6_STAMPED`` of
+    ``_k6_launches``, and K11's cycles by walk on the first parse of three,
+    from the instrumented build (a variant of parse.cu and xrep.cu beside
+    the main library; the main path never builds it), each beside the main
+    build's CUDA-event ms (K6: and the instrumented build's).  Prints a
+    line a key; returns {key: (cycles a step by phase, main ms, its ms)}
+    and "K11": (cycles of each walk, ms, None)."""
+    build.build_many([((), None), (K6_DEFINES, K6_SOURCES)])
+    inputs = _k6_inputs()
+    T = inputs["R"][0].steps  # both goldens' blocks
+    launches = _k6_launches(inputs)
+    out = {}
+    for key in K6_STAMPED:
+        fn = launches[key]
+        ms = _launch_ms(fn, "K6")
+        with build.variant(*K6_DEFINES, only=K6_SOURCES):
+            lib = build.lib()
+            cyc = np.zeros(len(K6_PHASES), np.uint64)
+            build.check(lib.cpx_k6_prof_read(cyc.ctypes.data), "cpx_k6_prof_read")
+            fn()
+            torch.cuda.synchronize()
+            build.check(lib.cpx_k6_prof_read(cyc.ctypes.data), "cpx_k6_prof_read")
+            ms_i = _launch_ms(fn, "K6")
+        per = (cyc.astype(np.float64) / T).tolist()
+        out[key] = (per, ms, ms_i)
+        print(f"K6 ({key[0]}, {key[1]} candidates): main {ms:.3f} ms, instrumented "
+              f"{ms_i:.3f} ms; thread 0's cycles a step by phase: " + ", ".join(
+                  f"{name} {c:.1f}" for name, c in zip(K6_PHASES, per))
+              + f"; in all {sum(per):.1f}", flush=True)
+    p, n, _, _, inp, first, _ = inputs["X"]
+    ms = _launch_ms(lambda: blk.rep_scan(p, inp, n, first), "K11")
+    with build.variant(*K6_DEFINES, only=K6_SOURCES):
+        lib = build.lib()
+        cyc = np.zeros(len(K11_PHASES), np.uint64)
+        build.check(lib.cpx_k11_prof_read(cyc.ctypes.data), "cpx_k11_prof_read")
+        blk.rep_scan(p, inp, n, first)
+        torch.cuda.synchronize()
+        build.check(lib.cpx_k11_prof_read(cyc.ctypes.data), "cpx_k11_prof_read")
+    out["K11"] = (cyc.tolist(), ms, None)
+    print(f"K11: main {ms:.3f} ms; thread 0's cycles: " + ", ".join(
+        f"{name} {int(c)}" for name, c in zip(K11_PHASES, cyc)), flush=True)
+    return out
+
+
 # the full-width goldens and the step scans each one's decode and encode time
 TIMED = (
     ("crz_flex_8MiB_S512.cpx", ("K1", "K5", "K2")),
@@ -271,10 +458,15 @@ TIMED = (
     ("crx_scan_flex_8MiB_S512.cpx", ("KSx",)),
     ("crp_8MiB_S512.cpx", ("K13d", "K13e")),
     ("crz_chainm_textelf_flex_16MiB_S512.cpx", ("K1ch", "K5ch")),
+    ("crf_flex_8MiB_S512.cpx", ()),  # its K6 (F): PARSE_TIMED
 )
 # the other kernels ``times`` times beside the scans (their bounds: ``bounds``)
 TIMED_PASSES = {"crp_8MiB_S512.cpx": ("K13c",),
                 "crz_chainm_textelf_flex_16MiB_S512.cpx": ("KCR", "K3p")}
+# the goldens whose encode ``times`` also times the flexible parse's passes
+# on, a line a launch (its row: ``_parse_row``)
+PARSE_TIMED = ("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx",
+               "crf_flex_8MiB_S512.cpx")
 
 
 SCAN_ENTRIES = ("search_scan", "rank_scan", "model_scan", "decode_scan")
@@ -344,6 +536,45 @@ def _bytes_of_scans(log: dict):
             setattr(blk, n, fn)
 
 
+def _parse_row(p, rep) -> str:
+    """K6's row by the block's mode (mode X's second launch takes the
+    repeat pair)."""
+    if p.mode == "X":
+        return "K6 (X) 2" if rep is not None else "K6 (X) 1"
+    return f"K6 ({p.mode})"
+
+
+@contextlib.contextmanager
+def _parse_launches(log: list):
+    """Inside the block, each launch of K6 (``parse_scan``) and K11
+    (``rep_scan``) appends (row, bytes, operations) to ``log``, in launch
+    order (``work.k6``, ``work.k11``)."""
+    saved = {n: getattr(blk, n) for n in ("parse_scan", "rep_scan")}
+
+    def k6(p, n, cands, prices=None, n_c=None, rep=None):
+        out = saved["parse_scan"](p, n, cands, prices, n_c, rep)
+        log.append((_parse_row(p, rep), *work.k6(p, n, cands, prices, n_c, rep, out=out)))
+        return out
+
+    def k11(p, inp, n, dec):
+        out = saved["rep_scan"](p, inp, n, dec)
+        log.append(("K11", *work.k11(p, inp, n, dec, out=out)))
+        return out
+
+    blk.parse_scan, blk.rep_scan = k6, k11
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(blk, n, fn)
+
+
+def _event_ms(name: str) -> list:
+    """The device ms of each launch of ``name`` since the last reset."""
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in blk._EVENTS[name]]
+
+
 def times(timed=TIMED) -> dict:
     """Every step scan's CUDA-event ms at full width, in the main build,
     and its bound at that width (``work.bound`` of the launch's bytes and
@@ -353,7 +584,7 @@ def times(timed=TIMED) -> dict:
     archive checked against the golden; K13c's ms beside crp's scans.
     Prints a line (two); returns {kernel: (ms, bound_ms, bound_by)}."""
     meta = json.loads((GOLDEN / "torch_golden.json").read_text())
-    out, passes = {}, {}
+    out, passes, parse = {}, {}, {}
     for name, kernels in timed:
         moved = {}
         want = meta[name]
@@ -369,22 +600,32 @@ def times(timed=TIMED) -> dict:
             raise AssertionError(f"{name}: decoded bytes differ")
         old = {k: blk._ENV[k] for k in env}
         blk._ENV.update(env)
+        launched = []
         try:
             blk.reset_launch_counts()
             buf = io.BytesIO()
-            with _bytes_of_scans(moved):
+            with _bytes_of_scans(moved), _parse_launches(launched):
                 encode_stream(np.frombuffer(raw.getvalue(), np.uint8), buf,
                               make_params(codec, opts), "cuda", filters=opts["filters"],
                               chain=opts["chain"])
             ms.update({k: v for k, v in blk.kernel_ms().items() if v})
+            each = {k: iter(_event_ms(k)) for k in ("K6", "K11")}
         finally:
             blk._ENV.update(old)
         if hashlib.sha256(buf.getvalue()).hexdigest() != want["archive_sha256"]:
             raise AssertionError(f"{name}: the archive differs from the golden")
         out.update({k: (ms[k], *work.bound(*moved[k])) for k in kernels})
         passes.update({k: ms[k] for k in TIMED_PASSES.get(name, ())})
+        if name in PARSE_TIMED:
+            for row, nbytes, ops in launched:
+                parse[row] = (next(each["K11" if row == "K11" else "K6"]),
+                              *work.bound(nbytes, ops))
     print("step scans, ms: " + ", ".join(f"{k} {v[0]:.3f}" for k, v in out.items()),
           flush=True)
+    if parse:
+        print("the flexible parse's launches, ms (bound ms): " + ", ".join(
+            f"{k} {v[0]:.3f} ({v[1]:.4f} {v[2]})" for k, v in parse.items()), flush=True)
+        out.update(parse)
     if passes:
         print("beside them, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()),
               flush=True)
@@ -557,6 +798,12 @@ if __name__ == "__main__":
         sys.exit(0)
     if args[:1] == ["bounds"]:
         bounds()
+        sys.exit(0)
+    if args[:1] == ["k6fit"]:
+        k6fit()
+        sys.exit(0)
+    if args[:1] == ["k6stamps"]:
+        k6stamps()
         sys.exit(0)
     if args[:1] == ["k3"]:
         configs = [tuple(int(v) for v in a.split("x")) for a in args[1:]]

@@ -1,16 +1,18 @@
 """Full-width encode walls on the card, one tree against another.
 
-Each of the 8 MiB crz, crx and crp goldens (``tests/data``, flexible
+Each of the 8 MiB crz, crx, crp and crf goldens (``tests/data``, flexible
 parse, S=512, T=16384) is decoded on the card and its corpus encoded again
 through ``container.encode_stream`` under the golden's command line,
 ``reps`` times after one warm-up encode; each encode's wall is read by the
-host clock between two device synchronisations, and its kernels' device
+host clock between two device synchronisations (the garbage collector
+run before it and off during it), and its kernels' device
 time is the sum of the CUDA events the wrappers record around their
 launches.  A line a codec: the walls, the MB/s of the best, the kernels'
 ms, the host share (1 - kernel ms / wall: the time the card waits on the
-host) and the ms of K3, K3p and K3b where the tree has them; the archive
+host) and the ms of K3, K3p, K3b, K6 (both launches of crx summed) and
+K11 where the tree has them; the archive
 is checked against the golden's SHA-256 (``tests/data/torch_golden.json``).
-Then the same codecs' ``-g4`` encodes of the 29 MiB + 777 B input of
+Then the crz, crx and crp ``-g4`` encodes of the 29 MiB + 777 B input of
 ``chip_smoke.py``'s ``-g4`` cell (the 16 MiB chain golden's text and ELF
 corpora, each rotated by 4 MiB, the last cut to 5 MiB + 777 B: four
 distinct blocks), a line each with the peak ``max_memory_allocated`` and
@@ -26,6 +28,7 @@ kernels are built first, all at once.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import io
 import json
@@ -34,9 +37,11 @@ import sys
 import time
 from pathlib import Path
 
-ARCHIVES = ("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx", "crp_8MiB_S512.cpx")
+ARCHIVES = ("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx", "crp_8MiB_S512.cpx",
+            "crf_flex_8MiB_S512.cpx")
 GROUP_SOURCE = "crz_chainm_textelf_flex_16MiB_S512.cpx"  # 8 MiB text, 8 MiB ELF
-PASSES = ("K3", "K3p", "K3b")
+PASSES = ("K3", "K3p", "K3b", "K6", "K11")
+GROUPED = ("crz", "crx", "crp")  # -g4 codes a launch a group (crf loops its blocks)
 
 
 def group_corpus(text_elf):
@@ -51,7 +56,7 @@ def group_corpus(text_elf):
 
 
 def one(tree: Path, reps: int = 3) -> list:
-    """Time the three encodes with ``tree``'s package; prints a JSON line
+    """Time the encodes with ``tree``'s package; prints a JSON line
     a codec and returns them."""
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -80,10 +85,13 @@ def one(tree: Path, reps: int = 3) -> list:
             blk.reset_launch_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            gc.collect()
+            gc.disable()  # no collection pause inside a timed encode
             t0 = time.perf_counter()
             encode_stream(corpus, buf, cp, "cuda", filters=opts["filters"], group=group)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
+            gc.enable()
             ms = blk.kernel_ms()
             if rep:  # the first is the warm-up
                 walls.append(wall)
@@ -115,6 +123,8 @@ def one(tree: Path, reps: int = 3) -> list:
         rows.append(row(codec, name, corpus, walls, kern, passes))
     corpus = group_corpus(decoded(GROUP_SOURCE))
     for codec, (cp, opts) in params.items():
+        if codec not in GROUPED:
+            continue
         walls, kern, passes, peak, arc = encodes(corpus, cp, opts, group=4)
         rows.append(row(codec, f"-g4, {corpus.size} B", corpus, walls, kern, passes,
                         peak_gib=peak / 2**30, sha256=hashlib.sha256(arc).hexdigest()))

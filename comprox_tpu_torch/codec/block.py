@@ -2032,8 +2032,9 @@ def rep_scan(p: BlockParams, inp, n: int, dec):
     """K11 — the repeat-distance pass of mode X's flexible parse.
 
     Replaces comprox_tpu/codec/block.py::_sim_prev_dist (1507-1526) and
-    _rep_lengths (1529-1559).  Kernel: csrc/xrep.cu (one thread per lane:
-    a forward walk, then a backward walk).  ``inp`` [S, T] uint8, ``dec``
+    _rep_lengths (1529-1559).  Kernel: csrc/xrep.cu (a CTA of 32 lanes:
+    a thread a lane walks forward; then a warp a lane and a thread a step
+    count the runs backward in tiles of 32 steps).  ``inp`` [S, T] uint8, ``dec``
     [>= 2, T, S] int32 (take, src of the first parse) -> [2, T, S] int32
     (len_rep, prev); on the block axis each with a leading G and ``n`` [G]
     int32.
@@ -2050,6 +2051,8 @@ def rep_scan(p: BlockParams, inp, n: int, dec):
     _expect(dec, "dec", _i32, g + (n_dec, p.steps, p.lanes))
     if n_dec < 2:
         raise ValueError("dec: expected the (take, src) grids")
+    if dec.data_ptr() % 16:
+        raise ValueError("dec must be 16-byte aligned (K11 copies 16 bytes at a time)")
     out = torch.empty(g + (2, p.steps, p.lanes), dtype=_i32, device=inp.device)
     G1, bn, n_cfg = _launch_n(p, n, G, inp.device)
     cfg = _cfg_array(p, n_cfg)
@@ -2130,7 +2133,9 @@ def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None, rep=None):
     _search_and_parse (1596-1600, mode R) or of codec/fast.py::
     _fast_find_matches (265-276, mode F: the non-R branch 1435-1450 with
     the fast profile's prices).  Kernel: csrc/parse.cu (one warp per lane,
-    all SMs; one source, an entry per mode).  Mode R: ``cands``
+    all SMs: the prefix minima of the cost window shared by the
+    candidates, which are priced steps ahead of the literal compare; one
+    source, an entry per mode; prices in [0, 2^20)).  Mode R: ``cands``
     [3 * (n_c + 1) + 1, T, S] int32 from K5 (or KS's [4, T, S]: its one
     candidate and the fill, ``CPX_R_FINDER=scan``) -> dec [4, T, S] int32
     (take, src, recency index, fill).  Mode F (``prices`` and ``n_c`` given):

@@ -93,10 +93,13 @@ _SIGNATURES = {
     "cpx_k2_prof_read": [_P],
     "cpx_k12e_prof_read": [_P],
     "cpx_k13e_prof_read": [_P],
+    "cpx_k6_prof_read": [_P],  # -DCPX_K6_PROF of parse.cu
+    "cpx_k11_prof_read": [_P],  # -DCPX_K11_PROF of xrep.cu
 }
 _INSTRUMENTED = {"cpx_k1_prof_read", "cpx_k12d_prof_read", "cpx_k13d_prof_read",
                  "cpx_k5_prof_read", "cpx_k2_prof_read", "cpx_k12e_prof_read",
-                 "cpx_k13e_prof_read"}
+                 "cpx_k13e_prof_read", "cpx_k6_prof_read",
+                 "cpx_k11_prof_read"}
 
 
 def _sources() -> list[Path]:
