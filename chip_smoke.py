@@ -21,7 +21,9 @@ no result line:
    K13e), all started together; prints the registers and spills of every
    arm of the step scans and per-lane passes (K1, K12d/K13d, the modeling
    scan K2/K12e/K13e: four lanes a round of the A event at up to 512
-   threads, two above; K5, K6, K11, K3, K3p) and of K13c and K3b.
+   threads, two above; K5, K6, K11, K3, K3p), of K13c and K3b, and of
+   K4's find and final stage (each candidate count; the final stage with
+   and without the diagonal-run scan).
 3. golden: decodes the committed JAX-package archives
    (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
    under ``crz e -l512`` with the flexible parse and with ``-f0``, under
@@ -45,8 +47,11 @@ no result line:
    compaction, on K3p's mask of K3's emissions) and K1 against its plain
    PyTorch version on the card, at S=512 lanes, full-size tables, T=256
    steps, on corpus bytes (K4 also at the main path's N = 8 Mi positions,
-   where its sort stage is timed beside ``torch.sort`` on the same keys;
-   K3b beside ``words[emit]``, one ``masked_select``);
+   where its sort stage is timed beside ``torch.sort`` on the same keys
+   and each of its stages is timed, keys, sort, find and final stage; K4
+   at both sizes also with ``CPX_SORT_EXT`` set to 8 for the call, the
+   final stage's diagonal-run scan, its error folded into K4's; K3b
+   beside ``words[emit]``, one ``masked_select``);
    every output and table must be equal (tolerance 0: the codec is integer
    arithmetic).  Computes each kernel's bound from these inputs.
 5. kernels, chain mode v2: KCR (the bucket-table remap), K5's chain arm,
@@ -68,8 +73,9 @@ no result line:
    Beside K7's sort stage, K8's scans and K9's histogram it times the one
    PyTorch call for the same function (``torch.sort``, ``torch.cumsum``,
    ``torch.bincount``), which the port never uses.
-8. kernels, mode X: K4x at N = 8 Mi (its sort stage beside ``torch.sort``)
-   and at T=256; K6's X entry (both launches: without and with the repeat
+8. kernels, mode X: K4x at N = 8 Mi (its sort stage beside ``torch.sort``,
+   its stages timed) and at T=256, at both also with ``CPX_SORT_EXT=8``
+   as K4; K6's X entry (both launches: without and with the repeat
    pair), K11, K12e, K3, K3p and K3b at five slots and K12d chained at
    S=512, full tables, T=256, each against its plain version (K3b beside
    ``words[emit]``); tolerance 0 on every
@@ -331,6 +337,22 @@ def finder_knob(knob, value):
         blk._ENV[knob] = old
 
 
+def _short_ext_err(p, inp, n, content=False) -> int:
+    """K4 (K4x: ``content``) against its plain version with the word
+    extension cut to 8 bytes (the port's CPX_SORT_EXT, read at import, set
+    for the call and restored): the final stage's diagonal-run scan."""
+    from comprox_tpu_torch.codec import block as blk
+
+    old, blk._SORT_EXT = blk._SORT_EXT, 8
+    try:
+        if blk.sort_ext(p) >= blk._len_cap(p):
+            raise AssertionError("CPX_SORT_EXT=8 must fall short of the cap")
+        return max_err([(blk.sort_candidates(p, inp, n, content),
+                         blk.sort_candidates_plain(p, inp, n, content))])
+    finally:
+        blk._SORT_EXT = old
+
+
 class Phases:
     def __init__(self):
         self.n = 0
@@ -370,6 +392,7 @@ _ARM_PARAMS = {"k1_kernel": ("MAXT", "CL"), "k12d_kernel": ("MAXT", "MODE", "CL"
                "k2_kernel": ("MAXT", "MODE", "CL", "LPR"),
                "k5_kernel": ("MAXT", "CL", "TPL", "CHAIN"), "k6_kernel": ("FAST", "KG"),
                "k11_kernel": (), "k3_kernel": ("NS",), "k3p_kernel": (),
+               "k4_find": ("NC",), "k4_heads": ("NC",), "k4_final": ("NC", "WALK"),
                "k3b_count": (), "k3b_scan": (), "k3b_scatter": ()}
 _MANGLED = re.compile(r"_ZN(\d+)")
 _ARM_ARG = re.compile(r"L[ib](\d+)E")
@@ -610,7 +633,7 @@ def phase_kernels(corpus):
     import numpy as np
     import torch
 
-    from comprox_tpu_torch.benchmarks import work
+    from comprox_tpu_torch.benchmarks import phases, work
     from comprox_tpu_torch.codec import block as blk
     from comprox_tpu_torch.models import ppm
 
@@ -642,10 +665,10 @@ def phase_kernels(corpus):
     record("KS", err, ms, plain_ms,
            work.nbytes(inp, gk) + _touched_bytes(rk, rolz0()), work.scan_ops("KS", p))
 
-    # K4 at this window.
+    # K4 at this window, and with the extension cut short.
     propk = blk.sort_candidates(p, inp, n)
     propp, plain_ms = _timed_plain(blk.sort_candidates_plain, p, inp, n)
-    err = max_err([(propk, propp)])
+    err = max(max_err([(propk, propp)]), _short_ext_err(p, inp, n))
     ms = _kernel_ms("K4", lambda: (p, inp, n), blk.sort_candidates)
     record("K4", err, ms, plain_ms, *work.k4(p, inp, n, out=propk))
     k4_small = dict(res["K4"])
@@ -726,7 +749,9 @@ def phase_kernels(corpus):
     propp, plain_ms = _timed_plain(blk.sort_candidates_plain, pf, inpf, nf)
     err = max_err([(propk, propp)])
     del propp
+    short_err = _short_ext_err(pf, inpf, nf)
     ms = _kernel_ms("K4", lambda: (pf, inpf, nf), blk.sort_candidates)
+    stages = phases.k4_stages(pf, inpf, nf)
     bytes_pad = blk.pad_block(pf, inpf)
     keys = blk.sort_keys_plain(pf, bytes_pad, nf)
     hs, ps, passes = blk.sort_positions(pf, bytes_pad, nf, with_passes=True)
@@ -735,7 +760,7 @@ def phase_kernels(corpus):
     sort_ms = _event_ms(lambda: blk.sort_positions(pf, bytes_pad, nf))
     lib_ms = _event_ms(lambda: torch.sort(keys, stable=True))
     lib32_ms = _event_ms(lambda: torch.sort(keys.to(torch.int32), stable=True))
-    record("K4", max(err, k4_small["max_abs_err"]), ms, plain_ms,
+    record("K4", max(err, short_err, k4_small["max_abs_err"]), ms, plain_ms,
            *work.k4(pf, inpf, nf, out=propk), library_ms=lib_ms)
     r = res["K4"]
     print(f"K4 at N={nf} (S=512 T={pf.steps}): max_abs_err {err}  kernel "
@@ -744,7 +769,10 @@ def phase_kernels(corpus):
           f"{sort_ms:.3f} ms, torch.sort(stable) of the same keys as int64 "
           f"{lib_ms:.3f} ms, as int32 bit patterns {lib32_ms:.3f} ms; at "
           f"T={KERNEL_STEPS}: kernel {k4_small['ms']:.3f} ms, plain "
-          f"{k4_small['plain_ms']:.3f} ms")
+          f"{k4_small['plain_ms']:.3f} ms; CPX_SORT_EXT=8 (the final stage's "
+          f"scan arm): max_abs_err {short_err} at N={nf}, "
+          f"{k4_small['max_abs_err']} at T={KERNEL_STEPS} with the default's")
+    print(phases.k4_stage_line(f"K4 at N={nf}", stages))
     for name, r in res.items():
         if r["max_abs_err"] != 0:
             raise AssertionError(
@@ -1216,7 +1244,7 @@ def phase_kernels_x(corpus):
     import numpy as np
     import torch
 
-    from comprox_tpu_torch.benchmarks import work
+    from comprox_tpu_torch.benchmarks import phases, work
     from comprox_tpu_torch.cli.main import make_params
     from comprox_tpu_torch.codec import block as blk
     from comprox_tpu_torch.models import ppm
@@ -1236,10 +1264,10 @@ def phase_kernels_x(corpus):
     def tables0():
         return ppm.init_tables(True, p.o3_bits, dev)
 
-    # K4x at this window.
+    # K4x at this window, and with the extension cut short.
     ck = blk.sort_candidates(p, inp, n, content=True)
     cp, plain_ms = _timed_plain(blk.sort_candidates_plain, p, inp, n, True)
-    err = max_err([(ck, cp)])
+    err = max(max_err([(ck, cp)]), _short_ext_err(p, inp, n, True))
     ms = _kernel_ms("K4x", lambda: (p, inp, n, True), blk.sort_candidates)
     _record(res, "K4x", err, ms, plain_ms, *work.k4(p, inp, n, True, out=ck))
     k4x_small = dict(res["K4x"])
@@ -1350,7 +1378,9 @@ def phase_kernels_x(corpus):
     propp, plain_ms = _timed_plain(blk.sort_candidates_plain, pf, inpf, nf, True)
     err = max_err([(propk, propp)])
     del propp
+    short_err = _short_ext_err(pf, inpf, nf, True)
     ms = _kernel_ms("K4x", lambda: (pf, inpf, nf, True), blk.sort_candidates)
+    stages = phases.k4_stages(pf, inpf, nf, True)
     bytes_pad = blk.pad_block(pf, inpf)
     keys = blk.sort_keys_plain(pf, bytes_pad, nf, True)
     cfg = blk.finder_cfg(pf, nf, True)
@@ -1365,7 +1395,7 @@ def phase_kernels_x(corpus):
     del hs, ps, hp, pp
     sort_ms = _event_ms(sort_stage)
     lib_ms = _event_ms(lambda: torch.sort(keys, stable=True))
-    _record(res, "K4x", max(err, k4x_small["max_abs_err"]), ms, plain_ms,
+    _record(res, "K4x", max(err, short_err, k4x_small["max_abs_err"]), ms, plain_ms,
             *work.k4(pf, inpf, nf, True, out=propk), library_ms=lib_ms)
     r = res["K4x"]
     print(f"K4x at N={nf} (S=512 T={pf.steps}): max_abs_err {err}  kernel "
@@ -1374,7 +1404,10 @@ def phase_kernels_x(corpus):
           f"{sort_ms:.3f} ms, torch.sort(stable) of the same keys (int64) "
           f"{lib_ms:.3f} ms; at "
           f"T={KERNEL_STEPS}: kernel {k4x_small['ms']:.3f} ms, plain "
-          f"{k4x_small['plain_ms']:.3f} ms")
+          f"{k4x_small['plain_ms']:.3f} ms; CPX_SORT_EXT=8 (the final stage's "
+          f"scan arm): max_abs_err {short_err} at N={nf}, "
+          f"{k4x_small['max_abs_err']} at T={KERNEL_STEPS} with the default's")
+    print(phases.k4_stage_line(f"K4x at N={nf}", stages))
     for name, r in res.items():
         if r["max_abs_err"] != 0:
             raise AssertionError(

@@ -33,6 +33,7 @@ the kernel's CUDA-event time over the steps).  On the card::
     python -m comprox_tpu_torch.benchmarks.phases split [ctas ...]
     python -m comprox_tpu_torch.benchmarks.phases times
     python -m comprox_tpu_torch.benchmarks.phases bounds
+    python -m comprox_tpu_torch.benchmarks.phases k4stages
     python -m comprox_tpu_torch.benchmarks.phases k3 [LANESxDEPTH ...]
     python -m comprox_tpu_torch.benchmarks.phases k6fit
     python -m comprox_tpu_torch.benchmarks.phases k6stamps
@@ -49,8 +50,12 @@ encode of the 8 MiB goldens, and its bound at that width, and the same of
 each launch of the flexible parse's passes: K6 (R) on crz, K6 (X) 1, K11
 and K6 (X) 2 on crx, K6 (F) on crf; run it in two trees in turns to
 compare them (``PYTHONPATH=<tree> python <this file> times`` times another
-tree's package with this file).  ``bounds`` prints the full-width bound of
-every other kernel (the sort, K4, K4x, K7, K3, K3p, K3b, K6, K8-K11, K13c,
+tree's package with this file); it ends with ``k4stages``' lines.
+``k4stages`` prints the device ms of each stage of K4 and K4x (keys, the
+sort, the find, the heads' extension, the final stage; from a
+``torch.profiler`` trace) and of
+the whole launch on the 8 MiB crz and crx goldens' blocks.  ``bounds``
+prints the full-width bound of every other kernel (the sort, K4, K4x, K7, K3, K3p, K3b, K6, K8-K11, K13c,
 KCR) from the launches of the 8 MiB crz, crx, crf and crp goldens' decode
 and encode.  ``k3`` times K3 on the 8 MiB crz, crx and crp goldens'
 encodes at each ``LANESxDEPTH`` given (lanes a CTA, steps of events in
@@ -469,6 +474,68 @@ PARSE_TIMED = ("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx",
                "crf_flex_8MiB_S512.cpx")
 
 
+# K4's and K4x's stages by the kernels each launches, a name fragment each
+# (the heads' extension, k4_heads and k4_ext, is new with K4's own final
+# stage k4_final, which was sortlib.cuh's finder_final before; the sort's
+# memset of its scratch is the sort's), and the golden each one's stages
+# are timed on
+K4_STAGES = (("keys", ("k4_keys",)), ("sort", ("rs_", "Memset")),
+             ("find", ("k4_find",)), ("heads", ("k4_heads", "k4_ext")),
+             ("final", ("k4_final", "finder_final")))
+K4_GOLDENS = (("K4", "crz_flex_8MiB_S512.cpx", False),
+              ("K4x", "crx_flex_8MiB_S512.cpx", True))
+
+
+def k4_stages(p, inp, n, content: bool = False, reps: int = 3) -> dict:
+    """The device ms of each stage of K4 (K4x: ``content``) on this block,
+    a mean of ``reps`` launches after a warm-up: {"keys", "sort", "find",
+    "heads", "final": ms from the kernels' names in a ``torch.profiler``
+    trace (None where the trace holds no device time), "full": the
+    wrapper's CUDA events}.  Uses only ``block.sort_candidates``, which
+    every tree has."""
+    name = "K4x" if content else "K4"
+    blk.sort_candidates(p, inp, n, content)
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(reps):
+            blk.sort_candidates(p, inp, n, content)
+        torch.cuda.synchronize()
+    us = dict.fromkeys((s for s, _ in K4_STAGES), 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for stage, frags in K4_STAGES:
+            if any(f in e.name for f in frags):
+                us[stage] += e.time_range.elapsed_us()
+                break
+    seen = any(us.values())
+    out = {s: v / reps / 1e3 if seen else None for s, v in us.items()}
+    blk.reset_launch_counts()
+    for _ in range(reps):
+        blk.sort_candidates(p, inp, n, content)
+    out["full"] = blk.kernel_ms()[name] / reps
+    return out
+
+
+def k4_stage_line(name: str, st: dict) -> str:
+    return f"{name} stages, ms: " + ", ".join(
+        f"{k} {'not measured' if v is None else f'{v:.3f}'}" for k, v in st.items())
+
+
+def k4_stages_goldens() -> dict:
+    """K4's and K4x's stages (``k4_stages``) at full width on the 8 MiB crz
+    and crx goldens' blocks; prints a line each; returns {"K4 keys": ms,
+    ...}."""
+    out = {}
+    for name, golden, content in K4_GOLDENS:
+        p, inp = _golden_block(golden)
+        st = k4_stages(p, inp, p.capacity, content)
+        print(k4_stage_line(name, st), flush=True)
+        out.update({f"{name} {k}": v for k, v in st.items()})
+    return out
+
+
 SCAN_ENTRIES = ("search_scan", "rank_scan", "model_scan", "decode_scan")
 
 
@@ -631,6 +698,7 @@ def times(timed=TIMED) -> dict:
               flush=True)
     print("full-width bounds, ms: " + ", ".join(
         f"{k} {v[1]:.4f} ({v[2]})" for k, v in out.items()), flush=True)
+    out.update({k: (v, None, None) for k, v in k4_stages_goldens().items()})
     return out
 
 
@@ -798,6 +866,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if args[:1] == ["bounds"]:
         bounds()
+        sys.exit(0)
+    if args[:1] == ["k4stages"]:
+        k4_stages_goldens()
         sys.exit(0)
     if args[:1] == ["k6fit"]:
         k6fit()

@@ -1986,6 +1986,36 @@ def finder_cfg(p: BlockParams, n: int, content: bool = False) -> np.ndarray:
                       rolz_dec=dec)
 
 
+# csrc/sortfind.cu: the sort ranks a find CTA takes, the shared memory a
+# staged rank takes (its 8 bytes, key, position and first usable step) and
+# the most a CTA's staged window may take
+K4_FIND_TILE = 256
+K4_STAGE_BYTES = 20
+K4_SMEM_MAX = 48 * 1024
+
+
+def k4_record_ints(n_c: int) -> int:
+    """int32 of a position's record in K4's find: n_c (cand, len | flags)
+    pairs, padded to 32 bytes (64 above four pairs)."""
+    return 8 if n_c <= 4 else 16
+
+
+def k4_find_smem(p: BlockParams, content: bool = False) -> int:
+    """Bytes of shared memory K4's (K4x's) find stages a CTA: its tile of
+    sort ranks and the halo of the chain on either side."""
+    _, chain_b, fwd, _ = _finder_config(p, content)
+    return (K4_FIND_TILE + chain_b + fwd) * K4_STAGE_BYTES
+
+
+def _check_find_window(p: BlockParams, content: bool) -> None:
+    need = k4_find_smem(p, content)
+    if need > K4_SMEM_MAX:
+        knob = "CPX_X_PROBE" if content else "CPX_R_PROBE"
+        raise NotImplementedError(
+            f"{knob}: the sort finder's staged window of {need} bytes does not "
+            f"fit a CTA's {K4_SMEM_MAX} bytes of shared memory")
+
+
 def sort_candidates(p: BlockParams, inp, n: int, content: bool = False):
     """K4 — the whole-block sort finder of the flexible parse; K4x
     (``content``) — its content-keyed entry for mode X.
@@ -1994,8 +2024,10 @@ def sort_candidates(p: BlockParams, inp, n: int, content: bool = False):
     configuration _search_and_parse calls it with for mode R (1586-1590)
     or for mode X (1616-1618: ``ctx_bytes=0``, ``n_cands=3``,
     ``probe_from=16``).  Kernels: csrc/sortfind.cu (key build, a radix sort
-    of (key, position), neighbour probe + select + extend, diagonal runs +
-    cap; an entry per mode).  ``inp`` [S, T] uint8 -> [2 * n_cands, T, S]
+    of (key, position), the probes of a tile of sort ranks from a staged
+    window, select, extend, a record a position; the cap and, where the
+    extension falls short of it, the diagonal runs, written as the grids;
+    an entry per mode).  ``inp`` [S, T] uint8 -> [2 * n_cands, T, S]
     int32 (len, src per proposal).  On the block axis (``inp`` [G, S, T],
     ``n`` [G] int32) a launch a block.
     """
@@ -2008,10 +2040,10 @@ def sort_candidates(p: BlockParams, inp, n: int, content: bool = False):
     _expect(inp, "inp", torch.uint8, (p.lanes, p.steps))
     bytes_pad = pad_block(p, inp)
     _check_finder(p, bytes_pad)
+    _check_find_window(p, content)
     big, dev = p.capacity, inp.device
     n_c = _finder_config(p, content)[0]
-    cand = torch.empty((n_c, big), dtype=_i32, device=dev)
-    lw = torch.empty((n_c, big), dtype=_i32, device=dev)
+    rec = torch.empty((big, k4_record_ints(n_c)), dtype=_i32, device=dev)
     out = torch.empty((2 * n_c, p.steps, p.lanes), dtype=_i32, device=dev)
     cfg = finder_cfg(p, n, content)
     name = "K4x" if content else "K4"
@@ -2021,8 +2053,7 @@ def sort_candidates(p: BlockParams, inp, n: int, content: bool = False):
         err, hs, ps, _ = _sort_stage(tag, cfg, big, bytes_pad)
         return err or getattr(build.lib(), f"cpx_{tag}_find_launch")(
             cfg.ctypes.data, bytes_pad.data_ptr(), hs.data_ptr(),
-            ps.data_ptr(), cand.data_ptr(), lw.data_ptr(), out.data_ptr(),
-            _stream_ptr())
+            ps.data_ptr(), rec.data_ptr(), out.data_ptr(), _stream_ptr())
 
     _launch(name, stages)
     return out

@@ -20,28 +20,78 @@
 //
 // Bound on the H100: bytes.  The function reads N bytes and writes
 // 2 * n_cands int32 per position; the work between is the sort (four
-// passes, each reading and writing 8 bytes per position) and the probes
-// (two 8-byte gathers per usable chain entry).  The block itself (8 MiB at
-// the main path's geometry) stays in the 50 MB L2, so the gathers do not
-// go to device memory.  Kernels, in launch order:
+// passes, each reading and writing 8 bytes per position), the probes and
+// the winners' extensions.  The block itself (8 MiB at the main path's
+// geometry) stays in the 50 MB L2.  Kernels, in launch order:
 //   k4_keys     one thread per position: the key;
 //   the stable LSD radix sort of (key, position) of sortlib.cuh
 //               (rs_hist, rs_plan, rs_pass, rs_finish), shared with the
 //               mode-F finder; its entry point cpx_radix_sort_launch is
 //               here;
-//   k4_find     one thread per sort rank: the chain is the ranks r-k and
-//               r+k with an equal key, read from the sorted arrays (the
-//               JAX [N, 2 * probe] candidate array is never stored); the
-//               top n_cands as a sorted list in registers; extension
-//               8 bytes per compare, stopped at the first difference;
-//   finder_final (sortlib.cuh)  one thread per output element: diagonal-run
-//               recovery, the cap, and the [T, S] layout the rank scan
-//               reads.
+//   k4_find     a CTA per K4_TILE consecutive sort ranks, a thread a rank.
+//               Neighbouring ranks share all but one of their chain
+//               entries, so the CTA stages, once, the ranks of its tile
+//               and its halo (chain_b before, fwd_chain after) in shared
+//               memory: each one's key, position, the 8 bytes at that
+//               position (the one gather a staged rank) and the step from
+//               which it is usable (its step in the lane where the bucket
+//               insert takes it, else T).  A thread probes its chain from
+//               shared memory alone and keeps an n_cands-deep list of
+//               scores (n_cands a template argument).  It writes its
+//               position's n_cands (cand, len | flags) pairs as one record
+//               of 32 bytes (64 above four pairs), so the scattered write
+//               is whole sectors; a winner whose 8-byte probe matched
+//               whole is marked K4_EXT, its length still 8;
+//   k4_heads    a thread a position, the records in order: a marked
+//               winner at i with cand is, d steps up (d the insert
+//               decimation, so that the pair is usable there too), the
+//               match at i + d with cand + d, d bytes shorter; where that
+//               pair is a usable winner at i + d in the final stage's
+//               chunk of i, the final stage takes the length from it.  The
+//               others, the heads (about a quarter of K4's marked
+//               winners and an eighth of K4x's on the 8 MiB goldens), are
+//               listed in shared memory and
+//               extended from byte 8 by the CTA's first threads, one
+//               position a thread, its winners together (the own bytes
+//               read once a step);
+//   k4_final    a thread a lane and a chunk of steps, from the chunk's top
+//               step down: reads the lane's records one after another and
+//               writes the [2 * n_cands, T, S] grids (len, src per
+//               candidate), a row of 32 lanes a warp store.  A marked
+//               winner left takes min(d + its link's length, ext8), the
+//               link d steps up being done.  Where the word extension
+//               reaches the length cap (sort_ext >= min(window, min_len +
+//               255), decided on the host: the default) the diagonal-run
+//               recovery cannot lengthen a match (a run along a diagonal
+//               is at most the match the extension measured, and the
+//               extension measured up to the cap), so the length is the
+//               extension's, capped.  Below that the run is a backward
+//               recurrence along the row, run(t) = 1 + run(t + 1) while
+//               the first byte matches and the candidate continues the
+//               diagonal; a run never needs to reach more than the cap
+//               ahead, so a chunk's recurrence starts len_cap steps above
+//               it, and chunks run in parallel.
 #include "sortlib.cuh"
 
 namespace {
 
 #define K4_INSERT_LATE 3  // block.py::_INSERT_LATE
+#define K4_TILE 256       // sort ranks a find CTA (block.py::K4_FIND_TILE)
+// shared memory a staged rank takes: the prefix, the key, the position
+// and the step it is usable from (block.py::K4_STAGE_BYTES)
+#define K4_STAGE_BYTES 20
+#define K4_SMEM_MAX (48 * 1024)  // a CTA's dynamic shared memory (block.py)
+#define K4_EXT (1 << 18)         // lw flag: the probe matched 8 bytes; extend
+#define K4_FINAL_THREADS 128     // lanes a final CTA: a thread each
+#define K4_CHUNK 64              // steps a final thread with no walk
+#define K4_WALK_CHUNK 512        // steps a final thread of the scan arm
+
+// (cand, len | flags) pairs of a position's record: block.py::k4_record_ints
+template <int NC>
+struct Rec {
+  static constexpr int PAIRS = NC <= 4 ? 4 : 8;
+  static constexpr int VECS = PAIRS / 2;  // int4 a record
+};
 
 template <bool CONTENT>
 __global__ void k4_keys(Cfg c, const uint64_t* __restrict__ bytes,
@@ -65,60 +115,308 @@ __global__ void k4_keys(Cfg c, const uint64_t* __restrict__ bytes,
   key[i] = k;
 }
 
-// Whether the decoder could use source cand at step t_of of its lane: an
-// earlier step, and a position the (decimated) bucket insert takes.
-__device__ __forceinline__ bool usable(const Cfg& c, int cand, int t_of) {
-  if (cand < 0 || cand % c.T >= t_of) return false;
-  return c.rolz_dec <= 1 || (cand + K4_INSERT_LATE) % c.rolz_dec == 0;
+// The block's bytes from byte offset p on, 8 at a time: one aligned word
+// a step, the word before kept.
+struct Bytes8 {
+  const uint64_t* w;
+  int sh;
+  uint64_t lo;
+  __device__ __forceinline__ void start(const uint64_t* b, long long p) {
+    w = b + (p >> 3);
+    sh = (int)(p & 7) * 8;
+    lo = *w;
+  }
+  __device__ __forceinline__ uint64_t next() {
+    const uint64_t hi = *++w;
+    const uint64_t v = sh ? (lo >> sh) | (hi << (64 - sh)) : lo;
+    lo = hi;
+    return v;
+  }
+};
+
+// The winners in `todo` (their first 8 bytes match) extended from byte 8
+// to at most ext8, 8 bytes a step, all of them together: the own bytes of
+// a step read once for all.
+template <int NC>
+__device__ __forceinline__ void extend(const uint64_t* bytes, int i, const int (&cand)[NC],
+                                       int (&lw)[NC], unsigned todo, int ext8) {
+  Bytes8 mine, src[NC];
+  mine.start(bytes, (long long)i + 8);
+#pragma unroll
+  for (int u = 0; u < NC; ++u)
+    if (todo >> u & 1) src[u].start(bytes, (long long)cand[u] + 8);
+  for (int len = 8; todo && len < ext8; len += 8) {
+    const uint64_t o = mine.next();
+#pragma unroll
+    for (int u = 0; u < NC; ++u) {
+      if (!(todo >> u & 1)) continue;
+      const uint64_t x = src[u].next() ^ o;
+      if (x) {
+        lw[u] = (lw[u] & ~(0xFFFF | K4_EXT)) | min(len + eq_bytes(x), ext8);
+        todo &= ~(1u << u);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < NC; ++u)
+    if (todo >> u & 1) lw[u] = (lw[u] & ~(0xFFFF | K4_EXT)) | ext8;
 }
 
-__global__ void k4_find(Cfg c, const uint64_t* __restrict__ bytes,
-                        const uint32_t* __restrict__ hs, const int* __restrict__ ps,
-                        int* __restrict__ cand_out, int* __restrict__ lw_out) {
+template <int NC>
+__device__ __forceinline__ void rec_load(const int4* at, int (&v)[2 * Rec<NC>::PAIRS]) {
+#pragma unroll
+  for (int j = 0; j < Rec<NC>::VECS; ++j) {
+    const int4 w = at[j];
+    v[4 * j] = w.x;
+    v[4 * j + 1] = w.y;
+    v[4 * j + 2] = w.z;
+    v[4 * j + 3] = w.w;
+  }
+}
+
+// Whether a marked winner at step t takes its length from the pair d
+// steps up in the final stage: that step is in t's chunk (done before t).
+__device__ __forceinline__ bool from_above(int t, int T, int d, int chunk) {
+  return d > 0 && t + d < min((t / chunk + 1) * chunk, T);
+}
+
+// The pair (i + d, cand + d) in record r, where it is a usable winner: its
+// lw, else 0.
+template <int NC>
+__device__ __forceinline__ int pair_up(const int (&r)[2 * Rec<NC>::PAIRS], int cand_d) {
+  int lw = 0;
+#pragma unroll
+  for (int w = 0; w < NC; ++w)
+    if (r[2 * w] == cand_d && (r[2 * w + 1] & FIND_OK)) lw = r[2 * w + 1];
+  return lw;
+}
+
+// The chain entry e of the thread whose own rank is staged at s0.
+__device__ __forceinline__ int chain_slot(int s0, int e, int chain_b) {
+  return e < chain_b ? s0 - 1 - e : s0 + 1 + e - chain_b;
+}
+
+template <int NC>
+__global__ void __launch_bounds__(K4_TILE) k4_find(
+    Cfg c, const uint64_t* __restrict__ bytes, const uint32_t* __restrict__ hs,
+    const int* __restrict__ ps, int4* __restrict__ rec) {
+  extern __shared__ __align__(16) unsigned char k4_smem[];
   const int big = c.S * c.T;
-  const long long rr = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (rr >= big) return;
-  const int r = (int)rr;
-  const int i = ps[r];
-  const uint32_t key = hs[r];
-  const int t_of = i % c.T;
-  const int n_c = c.n_cands;
-  const int chain_b = max(c.r_probe, n_c), chain = chain_b + c.fwd_chain;
-  const bool select = chain > n_c;  // else the chain is taken whole, in order
-  const uint64_t own = load_u64(bytes, i);
-  // the n_c largest of score = plen * chain + (chain - 1 - e), e the chain
-  // index: distinct, so a sorted list of (score + chain) << 32 | cand + 1
-  unsigned long long top[FIND_MAX_CANDS];
-#pragma unroll
-  for (int u = 0; u < FIND_MAX_CANDS; ++u) top[u] = 0;
-  for (int e = 0; e < chain; ++e) {
-    const int q = e < chain_b ? r - (e + 1) : r + (e - chain_b + 1);
-    const int cand = (q >= 0 && q < big && hs[q] == key) ? ps[q] : -1;
-    int plen = select ? -1 : 0;
-    if (select && usable(c, cand, t_of)) plen = eq_bytes(load_u64(bytes, cand) ^ own);
-    const int score = plen * chain + (chain - 1 - e);
-    const unsigned long long k =
-        ((unsigned long long)(score + chain + 1) << 32) | (unsigned)(cand + 1);
-#pragma unroll
-    for (int u = FIND_MAX_CANDS - 1; u > 0; --u)
-      top[u] = k > top[u - 1] ? top[u - 1] : (k > top[u] ? k : top[u]);
-    top[0] = k > top[0] ? k : top[0];
-  }
-  const int ext8 = (c.sort_ext + 3) / 4 * 4;  // bytes the word extension compares
-  const uint8_t* const b8 = reinterpret_cast<const uint8_t*>(bytes);
-#pragma unroll
-  for (int u = 0; u < FIND_MAX_CANDS; ++u) {
-    if (u >= n_c) break;
-    const int cand = (int)(unsigned)(top[u] & 0xFFFFFFFFu) - 1;
-    const bool ok = usable(c, cand, t_of);
-    int len = 0, flags = 0;
-    if (ok) {
-      len = match_len(bytes, cand, i, ext8);
-      flags = FIND_OK | (b8[cand] == b8[i] ? FIND_EQ1 : 0);
+  const int chain_b = max(c.r_probe, NC), chain = chain_b + c.fwd_chain;
+  const int W = K4_TILE + chain;
+  uint64_t* const s_pre = reinterpret_cast<uint64_t*>(k4_smem);
+  uint32_t* const s_key = reinterpret_cast<uint32_t*>(s_pre + W);
+  int* const s_pos = reinterpret_cast<int*>(s_key + W);
+  int* const s_from = s_pos + W;  // usable at steps above this
+  const int r0 = blockIdx.x * K4_TILE;
+  for (int s = threadIdx.x; s < W; s += K4_TILE) {
+    const int q = r0 - chain_b + s;
+    int pos = -1, from = c.T;
+    uint32_t key = 0;
+    uint64_t pre = 0;
+    if (q >= 0 && q < big) {
+      pos = ps[q];
+      key = hs[q];
+      pre = load_u64(bytes, pos);
+      if (c.rolz_dec <= 1 || (pos + K4_INSERT_LATE) % c.rolz_dec == 0) from = pos % c.T;
     }
-    cand_out[(size_t)u * big + i] = cand;
-    lw_out[(size_t)u * big + i] = len | flags;
+    s_pre[s] = pre;
+    s_key[s] = key;
+    s_pos[s] = pos;
+    s_from[s] = from;
   }
+  __syncthreads();
+  const bool alive = r0 + (int)threadIdx.x < big;
+  const int s0 = threadIdx.x + chain_b;
+  const uint32_t key = s_key[s0];
+  const int i = s_pos[s0];
+  const uint64_t own = s_pre[s0];
+  const int t_of = i % c.T;
+  // score = plen * chain + (chain - 1 - e), plen -1 where the entry is not
+  // usable: distinct through e, so the list holds scores alone, descending
+  const bool select = chain > NC;  // else the chain is taken whole, in order
+  int top[NC];
+  if (select) {
+#pragma unroll
+    for (int u = 0; u < NC; ++u) top[u] = INT_MIN;
+    for (int e = 0; e < chain; ++e) {
+      const int q = chain_slot(s0, e, chain_b);
+      const bool ok = s_pos[q] >= 0 && s_key[q] == key && s_from[q] < t_of;
+      int v = (ok ? eq_bytes(s_pre[q] ^ own) : -1) * chain + (chain - 1 - e);
+#pragma unroll
+      for (int u = 0; u < NC; ++u) {
+        const int hi = max(top[u], v);
+        v = min(top[u], v);
+        top[u] = hi;
+      }
+    }
+  }
+  if (!alive) return;
+  const int ext8 = (c.sort_ext + 3) / 4 * 4;  // bytes the word extension compares
+  int cand[NC], lw[NC];
+#pragma unroll
+  for (int u = 0; u < NC; ++u) {
+    const int e = select ? chain - 1 - (top[u] + chain) % chain : u;
+    const int q = chain_slot(s0, e, chain_b);
+    const bool match = s_pos[q] >= 0 && s_key[q] == key;
+    cand[u] = match ? s_pos[q] : -1;
+    lw[u] = 0;
+    if (match && s_from[q] < t_of) {
+      const uint64_t x = s_pre[q] ^ own;
+      const int len = eq_bytes(x);
+      lw[u] = min(len, ext8) | FIND_OK | ((x & 0xFF) == 0 ? FIND_EQ1 : 0) |
+              (len == 8 && ext8 > 8 ? K4_EXT : 0);
+    }
+  }
+  int v[2 * Rec<NC>::PAIRS];
+#pragma unroll
+  for (int u = 0; u < Rec<NC>::PAIRS; ++u) {
+    v[2 * u] = u < NC ? cand[u] : 0;
+    v[2 * u + 1] = u < NC ? lw[u] : 0;
+  }
+  int4* const dst = rec + (size_t)i * Rec<NC>::VECS;
+#pragma unroll
+  for (int j = 0; j < Rec<NC>::VECS; ++j)
+    dst[j] = make_int4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+}
+
+// The marked winners that the final stage cannot take from the pair d
+// steps up (no such usable winner there, or that step in another chunk),
+// extended from byte 8.  A CTA a tile of positions: a thread a position
+// finds its heads, the CTA lists its positions with heads in shared
+// memory, and its first threads extend them, one position each.
+template <int NC>
+__global__ void __launch_bounds__(K4_TILE) k4_heads(int S, int T, int ext8, int d, int chunk,
+                                                    const uint64_t* __restrict__ bytes,
+                                                    int4* __restrict__ rec) {
+  __shared__ int warp_n[K4_TILE / 32];
+  __shared__ int2 list[K4_TILE];  // (position, slots)
+  const long long i = (long long)blockIdx.x * K4_TILE + threadIdx.x;
+  unsigned heads = 0;
+  if (i < (long long)S * T) {
+    int v[2 * Rec<NC>::PAIRS], up[2 * Rec<NC>::PAIRS];
+    rec_load<NC>(rec + i * Rec<NC>::VECS, v);
+#pragma unroll
+    for (int u = 0; u < NC; ++u)
+      if (v[2 * u + 1] & K4_EXT) heads |= 1u << u;
+    if (heads && from_above((int)(i % T), T, d, chunk)) {
+      rec_load<NC>(rec + (i + d) * Rec<NC>::VECS, up);
+#pragma unroll
+      for (int u = 0; u < NC; ++u)
+        if (pair_up<NC>(up, v[2 * u] + d)) heads &= ~(1u << u);
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned b = __ballot_sync(0xffffffffu, heads != 0);
+  if (lane == 0) warp_n[warp] = __popc(b);
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < K4_TILE / 32; ++w) {
+    before += w < warp ? warp_n[w] : 0;
+    total += warp_n[w];
+  }
+  if (heads) list[before + __popc(b & ((1u << lane) - 1))] = make_int2((int)i, (int)heads);
+  __syncthreads();
+  if ((int)threadIdx.x >= total) return;
+  const int2 q = list[threadIdx.x];
+  int4* const at = rec + (size_t)q.x * Rec<NC>::VECS;
+  int v[2 * Rec<NC>::PAIRS];
+  rec_load<NC>(at, v);
+  int cand[NC], lw[NC];
+#pragma unroll
+  for (int u = 0; u < NC; ++u) {
+    cand[u] = v[2 * u];
+    lw[u] = v[2 * u + 1];
+  }
+  extend(bytes, q.x, cand, lw, (unsigned)q.y, ext8);
+#pragma unroll
+  for (int u = 0; u < NC; ++u)
+    if ((unsigned)q.y >> u & 1) reinterpret_cast<int*>(at)[2 * u + 1] = lw[u];
+}
+
+// The records in position order -> out [2 * NC, T, S].  A thread a lane
+// and a chunk of steps, from the chunk's top step down (a warp: 32 lanes,
+// each out store a row of 32 lanes).  A winner still marked takes
+// min(d + the length of the pair (i + d, cand + d), ext8): its first d
+// bytes match, and that pair, a usable winner d steps up in the chunk
+// (k4_heads left the mark only there), is done.  WALK: the diagonal run
+// of each slot, run(t) = eq1(t) and cand(t + 1) == cand(t) + 1 ? 1 +
+// run(t + 1) : eq1(t), from `top`, len_cap steps above the chunk (the
+// steps there are read, not written).
+template <int NC, bool WALK>
+__global__ void __launch_bounds__(K4_FINAL_THREADS) k4_final(
+    int S, int T, int n, int len_cap, int ext8, int d, int chunk,
+    const int4* __restrict__ rec, int* __restrict__ out) {
+  const int lane = blockIdx.x * K4_FINAL_THREADS + threadIdx.x;
+  if (lane >= S) return;
+  const int c0 = blockIdx.y * chunk, c1 = min(c0 + chunk, T);
+  const int top = WALK ? min(c1 + len_cap, T) : c1;
+  const int4* const row = rec + (size_t)lane * T * Rec<NC>::VECS;
+  // the records one and two steps up (d <= 2), lengths done; WALK: runs
+  int up1[2 * Rec<NC>::PAIRS], up2[2 * Rec<NC>::PAIRS], run[NC];
+#pragma unroll
+  for (int k = 0; k < 2 * Rec<NC>::PAIRS; ++k) up1[k] = up2[k] = k & 1 ? 0 : INT_MIN;
+#pragma unroll
+  for (int u = 0; u < NC; ++u) run[u] = 0;
+  int v[2 * Rec<NC>::PAIRS];
+  rec_load<NC>(row + (size_t)(top - 1) * Rec<NC>::VECS, v);
+  for (int t = top - 1; t >= c0; --t) {
+    int nxt[2 * Rec<NC>::PAIRS];
+    if (t > c0) rec_load<NC>(row + (size_t)(t - 1) * Rec<NC>::VECS, nxt);
+    const int i = lane * T + t;
+    const int cap = max(min(min(T - t, n - i), len_cap), 0);
+#pragma unroll
+    for (int u = 0; u < NC; ++u) {
+      const int cand = v[2 * u];
+      int lw = v[2 * u + 1];
+      if (t < c1 && (lw & K4_EXT)) {  // k4_heads left the mark: the link is there
+        const int above = d == 1 ? pair_up<NC>(up1, cand + d) : pair_up<NC>(up2, cand + d);
+        lw = (lw & ~(0xFFFF | K4_EXT)) | min(d + (above & 0xFFFF), ext8);
+        v[2 * u + 1] = lw;
+      }
+      int len = lw & 0xFFFF;
+      if (WALK) {
+        const bool eq1 = lw & FIND_EQ1;
+        run[u] = eq1 ? (up1[2 * u] == cand + 1 ? run[u] + 1 : 1) : 0;
+        len = max(len, run[u]);
+      }
+      if (t < c1) {
+        out[((size_t)(2 * u) * T + t) * S + lane] = (lw & FIND_OK) ? min(len, cap) : 0;
+        out[((size_t)(2 * u + 1) * T + t) * S + lane] = cand;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2 * Rec<NC>::PAIRS; ++k) {
+      up2[k] = up1[k];
+      up1[k] = v[k];
+      v[k] = nxt[k];
+    }
+  }
+}
+
+template <int NC>
+int find_launch(const Cfg& c, const uint64_t* bytes, const uint32_t* hs,
+                const int* ps, int4* rec, int* out, cudaStream_t st) {
+  const int big = c.S * c.T;
+  const int chain = max(c.r_probe, NC) + c.fwd_chain;
+  const size_t smem = (size_t)(K4_TILE + chain) * K4_STAGE_BYTES;
+  if (smem > K4_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  k4_find<NC><<<(big + K4_TILE - 1) / K4_TILE, K4_TILE, smem, st>>>(c, bytes, hs, ps, rec);
+  const int len_cap = min(c.window, c.min_len + LEN_W - 1);
+  const bool walk = c.sort_ext < len_cap;
+  const int chunk = walk ? K4_WALK_CHUNK : K4_CHUNK;
+  const int ext8 = (c.sort_ext + 3) / 4 * 4;
+  // the pair d steps up on a diagonal is usable there too where the bucket
+  // insert takes every d-th position
+  const int d = c.rolz_dec <= 2 ? max(c.rolz_dec, 1) : 0;
+  if (ext8 > 8)  // else no winner is marked
+    k4_heads<NC><<<(big + K4_TILE - 1) / K4_TILE, K4_TILE, 0, st>>>(c.S, c.T, ext8, d, chunk,
+                                                                     bytes, rec);
+  const dim3 grid((c.S + K4_FINAL_THREADS - 1) / K4_FINAL_THREADS, (c.T + chunk - 1) / chunk);
+  auto kern = walk ? &k4_final<NC, true> : &k4_final<NC, false>;
+  kern<<<grid, K4_FINAL_THREADS, 0, st>>>(c.S, c.T, c.n, len_cap, ext8, d, chunk, rec, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -155,30 +453,40 @@ extern "C" int cpx_radix_sort_launch(int n, void* key, void* pos, void* scratch,
                           (cudaStream_t)stream);
 }
 
+// The find, the heads' extension and the final stage: hs, ps the sorted
+// keys and positions; rec [N, 8] int32 (n_cands above 4: [N, 16]), the
+// records; out [2 * n_cands, T, S].  Refuses a staged window above
+// K4_SMEM_MAX (block.py raises first, naming the knob).
 extern "C" int cpx_k4_find_launch(const int* cfg, const void* bytes,
-                                  const void* hs, const void* ps, void* cand,
-                                  void* lw, void* out, void* stream) {
+                                  const void* hs, const void* ps, void* rec,
+                                  void* out, void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  if (c.n_cands < 1 || c.n_cands > FIND_MAX_CANDS) return (int)cudaErrorInvalidValue;
+  const uint64_t* b = (const uint64_t*)bytes;
+  const uint32_t* h = (const uint32_t*)hs;
+  const int* p = (const int*)ps;
+  int4* r = (int4*)rec;
+  int* o = (int*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  const int big = c.S * c.T;
-  k4_find<<<(big + 255) / 256, 256, 0, st>>>(
-      c, (const uint64_t*)bytes, (const uint32_t*)hs, (const int*)ps,
-      (int*)cand, (int*)lw);
-  finder_final<<<(big + 255) / 256, 256, 0, st>>>(
-      c.S, c.T, c.n, c.n_cands, min(c.window, c.min_len + LEN_W - 1), 1,
-      (const int*)cand, (const int*)lw, (int*)out);
-  return (int)cudaGetLastError();
+  switch (c.n_cands) {
+    case 1: return find_launch<1>(c, b, h, p, r, o, st);
+    case 2: return find_launch<2>(c, b, h, p, r, o, st);
+    case 3: return find_launch<3>(c, b, h, p, r, o, st);
+    case 4: return find_launch<4>(c, b, h, p, r, o, st);
+    case 5: return find_launch<5>(c, b, h, p, r, o, st);
+    case 6: return find_launch<6>(c, b, h, p, r, o, st);
+    case 7: return find_launch<7>(c, b, h, p, r, o, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Mode X: the same stages under its configuration (r_probe = the backward
 // chain, fwd_chain = 0, rolz_dec = 1).
 extern "C" int cpx_k4x_find_launch(const int* cfg, const void* bytes,
-                                   const void* hs, const void* ps, void* cand,
-                                   void* lw, void* out, void* stream) {
+                                   const void* hs, const void* ps, void* rec,
+                                   void* out, void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
   if (c.fwd_chain != 0 || c.rolz_dec != 1) return (int)cudaErrorInvalidValue;
-  return cpx_k4_find_launch(cfg, bytes, hs, ps, cand, lw, out, stream);
+  return cpx_k4_find_launch(cfg, bytes, hs, ps, rec, out, stream);
 }

@@ -1,8 +1,8 @@
 // Shared by the two whole-block sort finders, K4 (sortfind.cu, mode R and
 // its mode-X entry K4x) and K7 (f2find.cu, mode F): 8-byte unaligned loads
 // from the zero-padded block, the stable LSD radix sort of (u32 key,
-// position), the byte-exact match extension, and the last stage of both
-// finders (diagonal-run recovery, the cap, the [T, S] layout).
+// position), the byte-exact match extension; and K7's last stage
+// (diagonal-run recovery, the cap, the [T, S] layout; K4 has its own).
 //
 // The sort (replaces jax.lax.sort((h, idx), num_keys=1, is_stable=True) at
 // comprox_tpu/codec/block.py:854 and comprox_tpu/codec/fast.py:198): 8
@@ -299,7 +299,7 @@ static inline int radix_sort_pairs(uint32_t* key, int* pos, int* scratch, int n,
   return (int)cudaGetLastError();
 }
 
-// Last stage of a finder, one thread per output element.  cand_in and lw_in
+// Last stage of the mode-F finder (K7), one thread per output element.  cand_in and lw_in
 // are [n_cands, N] in position order: the candidate, and its extension
 // length | FIND_OK | FIND_EQ1.  Diagonal-run recovery: the run of positions
 // from i whose candidates stay on one diagonal (cand[j + 1] == cand[j] + 1

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "cpx_ks_launch": [_P] * 6,
     "cpx_k4_keys_launch": [_P] * 4,
     "cpx_radix_sort_launch": [_I] + [_P] * 4,
-    "cpx_k4_find_launch": [_P] * 8,
+    "cpx_k4_find_launch": [_P] * 7,
     "cpx_k5_launch": [_P, _I] + [_P] * 6,
     "cpx_k5c_launch": [_P] * 7,
     "cpx_k5_max_clusters": [_P] * 2,
@@ -67,7 +67,7 @@ _SIGNATURES = {
     "cpx_k3b_launch": [_I] * 3 + [_P] * 6,
     "cpx_k3b_tiles": [_I],
     "cpx_k4x_keys_launch": [_P] * 4,
-    "cpx_k4x_find_launch": [_P] * 8,
+    "cpx_k4x_find_launch": [_P] * 7,
     "cpx_k6x_launch": [_P, _I] + [_P] * 5,
     "cpx_k11_launch": [_P, _I, _P, _I] + [_P] * 4,
     "cpx_k12e_launch": [_P, _I] + [_P] * 15,

@@ -835,6 +835,33 @@ def test_x_finder_knobs_on_card(cuda_device, monkeypatch, n_cands, probe):
                        blk.parse_scan_plain(p, n, want, rep=rep, **kw))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", ["ext8 R", "ext8 X", "rprobe4", "rcands7", "xcands5"])
+def test_k4_final_arms_and_knobs_on_card(cuda_device, monkeypatch, knob):
+    """K4 and K4x against their plain versions where the final stage scans
+    the diagonal runs (CPX_SORT_EXT=8: chunks of 512 steps, each scanned
+    from the length cap above it), with a short chain (a small halo), and
+    with 64-byte records (above four candidates)."""
+    content = knob in ("ext8 X", "xcands5")
+    if knob.startswith("ext8"):
+        monkeypatch.setattr(blk, "_SORT_EXT", 8)
+    elif knob == "rprobe4":
+        monkeypatch.setattr(blk, "_R_PROBE", 4)
+    elif knob == "rcands7":
+        monkeypatch.setattr(blk, "_R_CANDS", 7)
+    else:
+        monkeypatch.setenv("CPX_X_CANDS", "5")
+    # undecimated inserts and periodic bytes: long diagonal runs
+    geo = X_WIDE if content else dict(WIDE, flexible=True, rolz_dec=1)
+    p = blk.BlockParams(**dict(geo, lanes=64, steps=2048))
+    n = p.capacity - 77
+    make = _fast_inputs if content else _flex_inputs
+    name = {"ext8 R": "period3", "ext8 X": "period7"}.get(knob, "text")
+    inp = torch.from_numpy(make(name, p, n).reshape(p.lanes, p.steps)).to(cuda_device)
+    want = blk.sort_candidates_plain(p, inp, n, content)
+    assert torch.equal(blk.sort_candidates(p, inp, n, content), want)
+
+
 # ---- mode P: K13e, K3 at three slots, K13d; mode X's scan finder: KSx
 
 
