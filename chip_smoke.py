@@ -222,7 +222,7 @@ KERNELS = [
      "comprox_tpu/codec/block.py:1945"),
     ("K1", "comprox_tpu_torch/csrc/decode.cu",
      "comprox_tpu/codec/block.py:1980"),
-    ("K7", "comprox_tpu_torch/csrc/f2find.cu",
+    ("K7", "comprox_tpu_torch/csrc/sortfind.cu",
      "comprox_tpu/codec/fast.py:178"),
     ("K8", "comprox_tpu_torch/csrc/f2tok.cu",
      "comprox_tpu/codec/fast.py:287"),
@@ -1006,12 +1006,29 @@ def phase_kernels_fast(corpus):
     n_c = fast._F_CANDS
     res = {}
 
-    # K7 at N = 8 Mi.
+    # K7 at N = 8 Mi: on the corpus, on an all-zero block (one key over
+    # every sort tile, runs to the cap) and with the word extension cut to
+    # 8 bytes (CPX_F_EXTW=3: the final stage's runs supply every longer
+    # length); its stages beside.
+    from comprox_tpu_torch.benchmarks import phases
+
     ck = fast.f2_find(p, inp, n)
     cp, plain_ms = _timed_plain(fast.f2_find_plain, p, inp, n)
     err = max_err([(ck, cp)])
     del cp
+    zeros = torch.zeros_like(inp)
+    err_zero = max_err([(fast.f2_find(p, zeros, n), fast.f2_find_plain(p, zeros, n))])
+    del zeros
+    old, fast._EXTW = fast._EXTW, 3
+    try:
+        err_ext = max_err([(fast.f2_find(p, inp, n), fast.f2_find_plain(p, inp, n))])
+    finally:
+        fast._EXTW = old
+    print(f"K7 at N={big}: max_abs_err on an all-zero block {err_zero}, at "
+          f"CPX_F_EXTW=3 {err_ext} (tolerance 0)")
+    err = max(err, err_zero, err_ext)
     ms = _kernel_ms("K7", lambda: (p, inp, n), fast.f2_find)
+    print(phases.k4_stage_line("K7", phases.kernel_stages("K7", p, inp, n)))
     bytes_pad = fast.pad_block(p, inp)
     keys = fast.sort_keys_plain(p, bytes_pad, n)
     hs, ps, passes = fast.sort_positions(p, bytes_pad, n, with_passes=True)
@@ -1462,6 +1479,28 @@ def phase_kernels_p(corpus):
     _record(res, "K13c", err, ms, plain_ms, *work.k13c(p, inp, n, zk, out=grid))
     if not bool(((grid & 0xFFFF) > 0).any()):
         raise AssertionError("K13c found no match on corpus bytes")
+    # ... and on an all-zero block (one key a table over every sort tile)
+    # and a period-3 block, from empty tables and from the tables the
+    # corpus left (the initial values take part in the max, as under -c)
+    blocks = {"zeros": np.zeros(n, np.uint8),
+              "period 3": np.tile(np.array([7, 61, 200], np.uint8), n // 3 + 1)[:n]}
+    for name, block in blocks.items():
+        b = torch.from_numpy(block.reshape(p.lanes, p.steps)).to(dev)
+        for start in ("empty", "filled"):
+            zk_ = lzp0() if start == "empty" else {k: v.clone() for k, v in zk.items()}
+            zp_ = {k: v.clone() for k, v in zk_.items()}
+            e_ = max_err([(blk.lzp_candidates(p, b, n, zk_),
+                           blk.lzp_candidates_plain(p, b, n, zp_))] + _tables_pairs(zk_, zp_))
+            print(f"K13c on a {name} block from {start} tables: max_abs_err {e_} "
+                  f"(tolerance 0)")
+            res["K13c"]["max_abs_err"] = max(res["K13c"]["max_abs_err"], e_)
+    if corpus.size >= pf.capacity:  # the stages at the main path's width
+        from comprox_tpu_torch.benchmarks import phases
+
+        inpf = torch.from_numpy(corpus[:pf.capacity].reshape(pf.lanes, pf.steps).copy()).to(dev)
+        print(phases.k4_stage_line("K13c", phases.kernel_stages("K13c", pf, inpf,
+                                                                pf.capacity)))
+        del inpf
 
     # K13e (K13c first, inside model_scan).  Bytes: the block and the grid
     # read, nine event grids written, the table rows this run changed.

@@ -33,7 +33,7 @@ the kernel's CUDA-event time over the steps).  On the card::
     python -m comprox_tpu_torch.benchmarks.phases split [ctas ...]
     python -m comprox_tpu_torch.benchmarks.phases times
     python -m comprox_tpu_torch.benchmarks.phases bounds
-    python -m comprox_tpu_torch.benchmarks.phases k4stages
+    python -m comprox_tpu_torch.benchmarks.phases k4stages [K4|K4x|K7|K13c ...]
     python -m comprox_tpu_torch.benchmarks.phases k3 [LANESxDEPTH ...]
     python -m comprox_tpu_torch.benchmarks.phases k6fit
     python -m comprox_tpu_torch.benchmarks.phases k6stamps
@@ -51,10 +51,11 @@ each launch of the flexible parse's passes: K6 (R) on crz, K6 (X) 1, K11
 and K6 (X) 2 on crx, K6 (F) on crf; run it in two trees in turns to
 compare them (``PYTHONPATH=<tree> python <this file> times`` times another
 tree's package with this file); it ends with ``k4stages``' lines.
-``k4stages`` prints the device ms of each stage of K4 and K4x (keys, the
-sort, the find, the heads' extension, the final stage; from a
-``torch.profiler`` trace) and of
-the whole launch on the 8 MiB crz and crx goldens' blocks.  ``bounds``
+``k4stages`` prints the device ms of each stage of K4, K4x and K7 (keys,
+the sort, the find, the heads' extension, the final stage) and of K13c
+(keys, the sort, the segmented max, the tables' store, the checks), from a
+``torch.profiler`` trace, and of the whole launch, on the 8 MiB crz, crx,
+crf and crp goldens' blocks (default: all four).  ``bounds``
 prints the full-width bound of every other kernel (the sort, K4, K4x, K7, K3, K3p, K3b, K6, K8-K11, K13c,
 KCR) from the launches of the 8 MiB crz, crx, crf and crp goldens' decode
 and encode.  ``k3`` times K3 on the 8 MiB crz, crx and crp goldens'
@@ -474,48 +475,90 @@ PARSE_TIMED = ("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx",
                "crf_flex_8MiB_S512.cpx")
 
 
-# K4's and K4x's stages by the kernels each launches, a name fragment each
-# (the heads' extension, k4_heads and k4_ext, is new with K4's own final
-# stage k4_final, which was sortlib.cuh's finder_final before; the sort's
-# memset of its scratch is the sort's), and the golden each one's stages
-# are timed on
-K4_STAGES = (("keys", ("k4_keys",)), ("sort", ("rs_", "Memset")),
+# The sort finders' and K13c's stages by the kernels each launches, a name
+# fragment each (a kernel counts under the first stage that names it; the
+# sort's memset of its scratch is the sort's).  Each list names the
+# kernels of the trees before and after a redesign, so that one file times
+# both: K4's heads' extension (k4_heads, k4_ext) is new with its own final
+# stage k4_final, which was sortlib.cuh's finder_final before; K7 took
+# K4x's keys, find, heads and final kernels in place of k7_keys, k7_find
+# and finder_final; K13c's one-pass segmented max (k13c_segmax) took the
+# place of k13c_tile_agg, k13c_tile_scan, k13c_resolve and k13c_store.
+SORT_STAGE = ("sort", ("rs_", "Memset"))
+K4_STAGES = (("keys", ("k4_keys",)), SORT_STAGE,
              ("find", ("k4_find",)), ("heads", ("k4_heads", "k4_ext")),
              ("final", ("k4_final", "finder_final")))
-K4_GOLDENS = (("K4", "crz_flex_8MiB_S512.cpx", False),
-              ("K4x", "crx_flex_8MiB_S512.cpx", True))
+K7_STAGES = (("keys", ("k7_keys", "k4_keys")), SORT_STAGE,
+             ("find", ("k7_find", "k4_find")), ("heads", ("k4_heads",)),
+             ("final", ("finder_final", "k4_final")))
+K13C_STAGES = (("keys", ("k13c_keys",)), SORT_STAGE,
+               ("segmax", ("k13c_tile_agg", "k13c_tile_scan", "k13c_resolve",
+                           "k13c_segmax")),
+               ("store", ("k13c_store",)), ("check", ("k13c_check",)))
 
 
-def k4_stages(p, inp, n, content: bool = False, reps: int = 3) -> dict:
-    """The device ms of each stage of K4 (K4x: ``content``) on this block,
-    a mean of ``reps`` launches after a warm-up: {"keys", "sort", "find",
-    "heads", "final": ms from the kernels' names in a ``torch.profiler``
-    trace (None where the trace holds no device time), "full": the
-    wrapper's CUDA events}.  Uses only ``block.sort_candidates``, which
-    every tree has."""
-    name = "K4x" if content else "K4"
-    blk.sort_candidates(p, inp, n, content)
+def _fresh_lzp(p, reps: int):
+    """``reps`` sets of empty mode-P tables, one a launch."""
+    return [blk._init_lzp(p, "cuda") for _ in range(reps)]
+
+
+def _k7(p, inp, n):
+    from comprox_tpu_torch.codec import fast
+    fast.f2_find(p, inp, n)
+
+
+# kernel -> (the golden whose block it is timed on, its stages, a launch
+# of it on (p, inp, n, launch index, the per-launch state), the state's
+# maker or None); each launch goes through an entry of the block API that
+# every tree has
+STAGED = {
+    "K4": ("crz_flex_8MiB_S512.cpx", K4_STAGES,
+           lambda p, inp, n, j, st: blk.sort_candidates(p, inp, n, False), None),
+    "K4x": ("crx_flex_8MiB_S512.cpx", K4_STAGES,
+            lambda p, inp, n, j, st: blk.sort_candidates(p, inp, n, True), None),
+    "K7": ("crf_flex_8MiB_S512.cpx", K7_STAGES,
+           lambda p, inp, n, j, st: _k7(p, inp, n), None),
+    "K13c": ("crp_8MiB_S512.cpx", K13C_STAGES,
+             lambda p, inp, n, j, st: blk.lzp_candidates(p, inp, n, st[j]), _fresh_lzp),
+}
+K4_GOLDENS = tuple(STAGED)
+
+
+def kernel_stages(name: str, p, inp, n, reps: int = 3) -> dict:
+    """The device ms of each stage of ``name`` (a key of ``STAGED``) on
+    this block, a mean of ``reps`` launches after a warm-up: {stage: ms
+    from the kernels' names in a ``torch.profiler`` trace (None where the
+    trace holds no device time), "full": the wrapper's CUDA events}.
+    K13c starts every launch from empty tables."""
+    _, stages, launch, state = STAGED[name]
+    st = state(p, 1 + 2 * reps) if state else None
+    launch(p, inp, n, 0, st)
     torch.cuda.synchronize()
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
     with prof:
-        for _ in range(reps):
-            blk.sort_candidates(p, inp, n, content)
+        for j in range(reps):
+            launch(p, inp, n, 1 + j, st)
         torch.cuda.synchronize()
-    us = dict.fromkeys((s for s, _ in K4_STAGES), 0.0)
+    us = dict.fromkeys((s for s, _ in stages), 0.0)
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for stage, frags in K4_STAGES:
+        for stage, frags in stages:
             if any(f in e.name for f in frags):
                 us[stage] += e.time_range.elapsed_us()
                 break
     seen = any(us.values())
     out = {s: v / reps / 1e3 if seen else None for s, v in us.items()}
     blk.reset_launch_counts()
-    for _ in range(reps):
-        blk.sort_candidates(p, inp, n, content)
+    for j in range(reps):
+        launch(p, inp, n, 1 + reps + j, st)
     out["full"] = blk.kernel_ms()[name] / reps
     return out
+
+
+def k4_stages(p, inp, n, content: bool = False, reps: int = 3) -> dict:
+    """K4's (K4x's: ``content``) stages: ``kernel_stages``."""
+    return kernel_stages("K4x" if content else "K4", p, inp, n, reps)
 
 
 def k4_stage_line(name: str, st: dict) -> str:
@@ -523,14 +566,14 @@ def k4_stage_line(name: str, st: dict) -> str:
         f"{k} {'not measured' if v is None else f'{v:.3f}'}" for k, v in st.items())
 
 
-def k4_stages_goldens() -> dict:
-    """K4's and K4x's stages (``k4_stages``) at full width on the 8 MiB crz
-    and crx goldens' blocks; prints a line each; returns {"K4 keys": ms,
-    ...}."""
+def k4_stages_goldens(names=K4_GOLDENS) -> dict:
+    """The stages (``kernel_stages``) of K4, K4x, K7 and K13c at full
+    width on the 8 MiB crz, crx, crf and crp goldens' blocks; prints a
+    line each; returns {"K4 keys": ms, ...}."""
     out = {}
-    for name, golden, content in K4_GOLDENS:
-        p, inp = _golden_block(golden)
-        st = k4_stages(p, inp, p.capacity, content)
+    for name in names:
+        p, inp = _golden_block(STAGED[name][0])
+        st = kernel_stages(name, p, inp, p.capacity)
         print(k4_stage_line(name, st), flush=True)
         out.update({f"{name} {k}": v for k, v in st.items()})
     return out
@@ -868,7 +911,7 @@ if __name__ == "__main__":
         bounds()
         sys.exit(0)
     if args[:1] == ["k4stages"]:
-        k4_stages_goldens()
+        k4_stages_goldens(tuple(args[1:]) or K4_GOLDENS)
         sys.exit(0)
     if args[:1] == ["k6fit"]:
         k6fit()

@@ -1996,7 +1996,8 @@ K4_SMEM_MAX = 48 * 1024
 
 def k4_record_ints(n_c: int) -> int:
     """int32 of a position's record in K4's find: n_c (cand, len | flags)
-    pairs, padded to 32 bytes (64 above four pairs)."""
+    pairs, padded to 32 bytes (64 above four pairs): a record is whole
+    sectors of the scattered write."""
     return 8 if n_c <= 4 else 16
 
 
@@ -2213,6 +2214,13 @@ def parse_scan(p: BlockParams, n: int, cands, prices=None, n_c=None, rep=None):
     return dec
 
 
+def k13c_key_stride(big: int) -> int:
+    """int32 between two tables' keys in K13c's scratch (lzpcand.cu's
+    key_stride): their [2, N] sort halves, N rounded up to a multiple of 4
+    (the sort reads keys 16 bytes at a time)."""
+    return 2 * (-(-big // 4) * 4)
+
+
 def lzp_candidates(p: BlockParams, inp, n: int, lzp):
     """K13c — mode P's LZP candidates of a whole block, for its encode.
 
@@ -2220,15 +2228,18 @@ def lzp_candidates(p: BlockParams, inp, n: int, lzp):
     comprox_tpu/codec/block.py::_encode_model_body's P arm (1714-1723):
     _lzp_candidate (362-403), _match_window_len (1059-1068) and the inserts
     of _post_step (662-676), which in encode depend on the input alone.
-    Kernels: csrc/lzpcand.cu (keys, the shared radix sort of sortlib.cuh,
-    a segmented prefix max, the checks and window compares).  ``inp`` [S,
-    T] uint8 -> ``grid [T, S]`` int32 as :func:`lzp_candidates_plain`
-    writes it; ``lzp`` (the three tables of :func:`_init_lzp`) ends with
-    every insert of the block.  Card memory beside the grid (4N bytes, N =
-    S * T): the sort's keys and positions, [2, 3N] int32 each, the
-    candidates [3N] and the sort's digit counts (4 * 256 a 4096-key tile),
-    about 63N bytes (504 MiB at N = 8 Mi), freed when the pass returns, so
-    that the caching allocator serves the next block's pass from them.  On
+    Kernels: csrc/lzpcand.cu (the three tables' keys; then a table at a
+    time the shared radix sort of sortlib.cuh and a one-pass segmented
+    prefix max that scatters each element's value and writes the table's
+    final slots; the checks and window compares).  ``inp`` [S, T] uint8 ->
+    ``grid [T, S]`` int32 as :func:`lzp_candidates_plain` writes it;
+    ``lzp`` (the three tables of :func:`_init_lzp`) ends with every insert
+    of the block.  Card memory beside the grid (4N bytes, N = S * T): the
+    three tables' keys, [2, N] int32 each (the sort's halves), the sort's
+    positions [2, N], the values [3, N] and the sort's digit counts (4 *
+    256 a 4096-key tile), about 45N bytes (360 MiB at N = 8 Mi), freed when
+    the pass returns, so that the caching allocator serves the next block's
+    pass from them.  On
     the block axis (``inp`` [G, S, T], each table [G, ...], ``n`` [G]
     int32) a launch a block, each reusing the one before's scratch.
     """
@@ -2243,18 +2254,18 @@ def lzp_candidates(p: BlockParams, inp, n: int, lzp):
     if inp.data_ptr() % 8:
         raise ValueError("inp must be 8-byte aligned (64-bit loads)")
     ptrs = _lzp_ptrs(p, lzp)
-    n3, dev = 3 * p.capacity, inp.device
-    tiles = -(-n3 // K4_TILE)
+    big, dev = p.capacity, inp.device
+    tiles = -(-big // K4_TILE)
     grid = torch.empty((p.steps, p.lanes), dtype=_i32, device=dev)
-    key = torch.empty((2, n3), dtype=_i32, device=dev)
-    pos = torch.empty_like(key)
+    key = torch.empty(3 * k13c_key_stride(big), dtype=_i32, device=dev)
+    pos = torch.empty((2, big), dtype=_i32, device=dev)
     rs = torch.empty(RS_HDR + RS_PASSES * 256 * tiles, dtype=_i32, device=dev)
-    cand = torch.empty(n3, dtype=_i32, device=dev)
-    agg = torch.empty(3 * tiles, dtype=_i32, device=dev)
+    cand = torch.empty((3, big), dtype=_i32, device=dev)
+    look = torch.empty(3 * (tiles + 2), dtype=_i32, device=dev)  # a word a tile, counter, flag
     cfg = _cfg_array(p, n)
     _launch("K13c", build.lib().cpx_k13c_launch, cfg.ctypes.data, inp.data_ptr(),
             *ptrs, grid.data_ptr(), key.data_ptr(), pos.data_ptr(), rs.data_ptr(),
-            cand.data_ptr(), agg.data_ptr(), _stream_ptr())
+            cand.data_ptr(), look.data_ptr(), _stream_ptr())
     return grid
 
 

@@ -223,10 +223,14 @@ def f2_find(p: BlockParams, inp, n: int):
     """K7 — the sort finder of the fast profile.
 
     Replaces comprox_tpu/codec/fast.py::_f2_find (178-246) with
-    block.py::_bytes_eq_count (798) and _diag_run_len (777).  Kernels:
-    csrc/f2find.cu (keys, the radix sort of csrc/sortlib.cuh, neighbours +
-    extension, diagonal runs + cap).  ``inp`` [S, T] uint8 ->
-    [2 * n_cands, T, S] int32 (len, src per candidate).
+    block.py::_bytes_eq_count (798), _diag_run_len (777) and _rev_runmin
+    (764).  Kernels: mode F's entries of csrc/sortfind.cu, K4x's stages
+    under mode F's configuration (keys, the radix sort of csrc/sortlib.cuh,
+    the find from a staged window of sort ranks with every earlier position
+    usable, the heads' extension, the final stage with links one step up
+    and the diagonal runs where the extension falls short of the window).
+    ``inp`` [S, T] uint8 -> [2 * n_cands, T, S] int32 (len, src per
+    candidate).
     """
     if _dispatch(inp) == "cpu":
         return f2_find_plain(p, inp, n)
@@ -234,8 +238,7 @@ def f2_find(p: BlockParams, inp, n: int):
     bytes_pad = pad_block(p, inp)
     blk._check_finder(p, bytes_pad, 4 * _EXTW)
     big, dev, n_c = p.capacity, inp.device, _F_CANDS
-    cand = torch.empty((n_c, big), dtype=_i32, device=dev)
-    lw = torch.empty((n_c, big), dtype=_i32, device=dev)
+    rec = torch.empty((big, blk.k4_record_ints(n_c)), dtype=_i32, device=dev)
     out = torch.empty((2 * n_c, p.steps, p.lanes), dtype=_i32, device=dev)
     cfg = _cfg(p, n)
 
@@ -243,8 +246,7 @@ def f2_find(p: BlockParams, inp, n: int):
         err, hs, ps, _ = blk._sort_stage("k7", cfg, big, bytes_pad)
         return err or build.lib().cpx_k7_find_launch(
             cfg.ctypes.data, bytes_pad.data_ptr(), hs.data_ptr(),
-            ps.data_ptr(), cand.data_ptr(), lw.data_ptr(), out.data_ptr(),
-            _stream_ptr())
+            ps.data_ptr(), rec.data_ptr(), out.data_ptr(), _stream_ptr())
 
     _launch("K7", stages)
     return out

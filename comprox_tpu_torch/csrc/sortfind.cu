@@ -1,5 +1,5 @@
 // K4: the whole-block sort finder of the flexible-parse encode, with an
-// entry for mode R (K4) and one for mode X (K4x).
+// entry for mode R (K4), one for mode X (K4x) and one for mode F (K7).
 //
 // Replaces comprox_tpu/codec/block.py::sort_candidates (809-936) in the
 // configurations _search_and_parse uses for mode R (1586-1590) and for mode
@@ -11,12 +11,17 @@
 // decoder could use (an earlier step of its lane, an inserted position) is
 // probed to 8 bytes; the n_cands best by (prefix, nearness in the chain)
 // are extended to the window; the result is capped to the lane's row.
-// Mode X's entry keys a position by a hash of its own next six bytes (the
-// key of the fast profile's finder, f2find.cu), walks the chain backward
-// only (fwd_chain = 0) and counts every position as inserted (rolz_dec =
-// 1); a chain no longer than n_cands is taken whole, in chain order.  Its
-// sources are written at every position, usable or not: the price DP
-// passes them through.
+// Mode X's entry keys a position by a hash of its own next six bytes,
+// walks the chain backward only (fwd_chain = 0) and counts every position
+// as inserted (rolz_dec = 1); a chain no longer than n_cands is taken
+// whole, in chain order.  Its sources are written at every position,
+// usable or not: the price DP passes them through.
+// Mode F's entry (K7) replaces comprox_tpu/codec/fast.py::_f2_find
+// (178-246): mode X's keys and stages with the n_cands nearest earlier
+// ranks of the key as the chain, every earlier position usable (ANY: the
+// host-run LZ copies need no more causality than that), the cap the
+// window, and the diagonal runs with or without the byte where a run ends
+// (CPX_F_DIAG_TAIL; TAIL).
 //
 // Bound on the H100: bytes.  The function reads N bytes and writes
 // 2 * n_cands int32 per position; the work between is the sort (four
@@ -196,7 +201,7 @@ __device__ __forceinline__ int chain_slot(int s0, int e, int chain_b) {
   return e < chain_b ? s0 - 1 - e : s0 + 1 + e - chain_b;
 }
 
-template <int NC>
+template <int NC, bool ANY>
 __global__ void __launch_bounds__(K4_TILE) k4_find(
     Cfg c, const uint64_t* __restrict__ bytes, const uint32_t* __restrict__ hs,
     const int* __restrict__ ps, int4* __restrict__ rec) {
@@ -218,7 +223,8 @@ __global__ void __launch_bounds__(K4_TILE) k4_find(
       pos = ps[q];
       key = hs[q];
       pre = load_u64(bytes, pos);
-      if (c.rolz_dec <= 1 || (pos + K4_INSERT_LATE) % c.rolz_dec == 0) from = pos % c.T;
+      if (ANY) from = -1;
+      else if (c.rolz_dec <= 1 || (pos + K4_INSERT_LATE) % c.rolz_dec == 0) from = pos % c.T;
     }
     s_pre[s] = pre;
     s_key[s] = key;
@@ -231,7 +237,8 @@ __global__ void __launch_bounds__(K4_TILE) k4_find(
   const uint32_t key = s_key[s0];
   const int i = s_pos[s0];
   const uint64_t own = s_pre[s0];
-  const int t_of = i % c.T;
+  // ANY (mode F): every earlier position counts, at every position of the block
+  const int t_of = ANY ? (i < c.n ? 0 : -1) : i % c.T;
   // score = plen * chain + (chain - 1 - e), plen -1 where the entry is not
   // usable: distinct through e, so the list holds scores alone, descending
   const bool select = chain > NC;  // else the chain is taken whole, in order
@@ -343,8 +350,10 @@ __global__ void __launch_bounds__(K4_TILE) k4_heads(int S, int T, int ext8, int 
 // (k4_heads left the mark only there), is done.  WALK: the diagonal run
 // of each slot, run(t) = eq1(t) and cand(t + 1) == cand(t) + 1 ? 1 +
 // run(t + 1) : eq1(t), from `top`, len_cap steps above the chunk (the
-// steps there are read, not written).
-template <int NC, bool WALK>
+// steps there are read, not written); without TAIL (mode F's
+// CPX_F_DIAG_TAIL=0) the byte where the diagonal ends is not counted:
+// run(t) = eq1(t) and cand(t + 1) == cand(t) + 1 ? 1 + run(t + 1) : 0.
+template <int NC, bool WALK, bool TAIL = true>
 __global__ void __launch_bounds__(K4_FINAL_THREADS) k4_final(
     int S, int T, int n, int len_cap, int ext8, int d, int chunk,
     const int4* __restrict__ rec, int* __restrict__ out) {
@@ -359,6 +368,14 @@ __global__ void __launch_bounds__(K4_FINAL_THREADS) k4_final(
   for (int k = 0; k < 2 * Rec<NC>::PAIRS; ++k) up1[k] = up2[k] = k & 1 ? 0 : INT_MIN;
 #pragma unroll
   for (int u = 0; u < NC; ++u) run[u] = 0;
+  if (WALK && !TAIL && top == T && lane + 1 < S) {
+    // without the tail the lane's last step needs its diagonal into the
+    // next lane's first step (JAX's runs are over the flat block); a run
+    // that goes on there is longer than any cap in this lane
+    rec_load<NC>(row + (size_t)T * Rec<NC>::VECS, up1);
+#pragma unroll
+    for (int k = 1; k < 2 * Rec<NC>::PAIRS; k += 2) up1[k] = 0;
+  }
   int v[2 * Rec<NC>::PAIRS];
   rec_load<NC>(row + (size_t)(top - 1) * Rec<NC>::VECS, v);
   for (int t = top - 1; t >= c0; --t) {
@@ -378,7 +395,8 @@ __global__ void __launch_bounds__(K4_FINAL_THREADS) k4_final(
       int len = lw & 0xFFFF;
       if (WALK) {
         const bool eq1 = lw & FIND_EQ1;
-        run[u] = eq1 ? (up1[2 * u] == cand + 1 ? run[u] + 1 : 1) : 0;
+        const bool diag = up1[2 * u] == cand + 1;
+        run[u] = eq1 ? (diag ? run[u] + 1 : TAIL) : 0;
         len = max(len, run[u]);
       }
       if (t < c1) {
@@ -395,28 +413,53 @@ __global__ void __launch_bounds__(K4_FINAL_THREADS) k4_final(
   }
 }
 
-template <int NC>
-int find_launch(const Cfg& c, const uint64_t* bytes, const uint32_t* hs,
+// What the entries set apart: the length cap, the diagonal step d of the
+// links (0: none), whether a diagonal run counts the byte where it ends.
+struct Arm {
+  int len_cap, d;
+  bool tail;
+};
+
+template <int NC, bool ANY>
+int find_launch(const Cfg& c, const Arm& a, const uint64_t* bytes, const uint32_t* hs,
                 const int* ps, int4* rec, int* out, cudaStream_t st) {
   const int big = c.S * c.T;
   const int chain = max(c.r_probe, NC) + c.fwd_chain;
   const size_t smem = (size_t)(K4_TILE + chain) * K4_STAGE_BYTES;
   if (smem > K4_SMEM_MAX) return (int)cudaErrorInvalidValue;
-  k4_find<NC><<<(big + K4_TILE - 1) / K4_TILE, K4_TILE, smem, st>>>(c, bytes, hs, ps, rec);
-  const int len_cap = min(c.window, c.min_len + LEN_W - 1);
-  const bool walk = c.sort_ext < len_cap;
+  k4_find<NC, ANY><<<(big + K4_TILE - 1) / K4_TILE, K4_TILE, smem, st>>>(c, bytes, hs, ps, rec);
+  const bool walk = c.sort_ext < a.len_cap;
   const int chunk = walk ? K4_WALK_CHUNK : K4_CHUNK;
   const int ext8 = (c.sort_ext + 3) / 4 * 4;
-  // the pair d steps up on a diagonal is usable there too where the bucket
-  // insert takes every d-th position
-  const int d = c.rolz_dec <= 2 ? max(c.rolz_dec, 1) : 0;
   if (ext8 > 8)  // else no winner is marked
-    k4_heads<NC><<<(big + K4_TILE - 1) / K4_TILE, K4_TILE, 0, st>>>(c.S, c.T, ext8, d, chunk,
+    k4_heads<NC><<<(big + K4_TILE - 1) / K4_TILE, K4_TILE, 0, st>>>(c.S, c.T, ext8, a.d, chunk,
                                                                      bytes, rec);
   const dim3 grid((c.S + K4_FINAL_THREADS - 1) / K4_FINAL_THREADS, (c.T + chunk - 1) / chunk);
-  auto kern = walk ? &k4_final<NC, true> : &k4_final<NC, false>;
-  kern<<<grid, K4_FINAL_THREADS, 0, st>>>(c.S, c.T, c.n, len_cap, ext8, d, chunk, rec, out);
+  auto kern = !walk ? &k4_final<NC, false> : a.tail ? &k4_final<NC, true, true>
+                                                    : &k4_final<NC, true, false>;
+  kern<<<grid, K4_FINAL_THREADS, 0, st>>>(c.S, c.T, c.n, a.len_cap, ext8, a.d, chunk, rec, out);
   return (int)cudaGetLastError();
+}
+
+template <bool ANY>
+int find_arms(const Cfg& c, const Arm& a, const void* bytes, const void* hs, const void* ps,
+              void* rec, void* out, void* stream) {
+  const uint64_t* b = (const uint64_t*)bytes;
+  const uint32_t* h = (const uint32_t*)hs;
+  const int* p = (const int*)ps;
+  int4* r = (int4*)rec;
+  int* o = (int*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (c.n_cands) {
+    case 1: return find_launch<1, ANY>(c, a, b, h, p, r, o, st);
+    case 2: return find_launch<2, ANY>(c, a, b, h, p, r, o, st);
+    case 3: return find_launch<3, ANY>(c, a, b, h, p, r, o, st);
+    case 4: return find_launch<4, ANY>(c, a, b, h, p, r, o, st);
+    case 5: return find_launch<5, ANY>(c, a, b, h, p, r, o, st);
+    case 6: return find_launch<6, ANY>(c, a, b, h, p, r, o, st);
+    case 7: return find_launch<7, ANY>(c, a, b, h, p, r, o, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -443,6 +486,12 @@ extern "C" int cpx_k4x_keys_launch(const int* cfg, const void* bytes, void* key,
   return keys_launch<true>(cfg, bytes, key, stream);
 }
 
+// Mode F (K7): the same key as mode X's.
+extern "C" int cpx_k7_keys_launch(const int* cfg, const void* bytes, void* key,
+                                  void* stream) {
+  return keys_launch<true>(cfg, bytes, key, stream);
+}
+
 // The shared sort (sortlib.cuh), for K4, K4x and K7: key and pos are [2, n]
 // int32 arrays, key's first half the keys; on return the first halves hold
 // the sorted keys and positions.  scratch: block.py::_sort_stage's size.
@@ -462,22 +511,11 @@ extern "C" int cpx_k4_find_launch(const int* cfg, const void* bytes,
                                   void* out, void* stream) {
   Cfg c;
   memcpy(&c, cfg, sizeof(Cfg));
-  const uint64_t* b = (const uint64_t*)bytes;
-  const uint32_t* h = (const uint32_t*)hs;
-  const int* p = (const int*)ps;
-  int4* r = (int4*)rec;
-  int* o = (int*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (c.n_cands) {
-    case 1: return find_launch<1>(c, b, h, p, r, o, st);
-    case 2: return find_launch<2>(c, b, h, p, r, o, st);
-    case 3: return find_launch<3>(c, b, h, p, r, o, st);
-    case 4: return find_launch<4>(c, b, h, p, r, o, st);
-    case 5: return find_launch<5>(c, b, h, p, r, o, st);
-    case 6: return find_launch<6>(c, b, h, p, r, o, st);
-    case 7: return find_launch<7>(c, b, h, p, r, o, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // the pair d steps up on a diagonal is usable there too where the bucket
+  // insert takes every d-th position
+  const Arm a{min(c.window, c.min_len + LEN_W - 1), c.rolz_dec <= 2 ? max(c.rolz_dec, 1) : 0,
+              true};
+  return find_arms<false>(c, a, bytes, hs, ps, rec, out, stream);
 }
 
 // Mode X: the same stages under its configuration (r_probe = the backward
@@ -489,4 +527,21 @@ extern "C" int cpx_k4x_find_launch(const int* cfg, const void* bytes,
   memcpy(&c, cfg, sizeof(Cfg));
   if (c.fwd_chain != 0 || c.rolz_dec != 1) return (int)cudaErrorInvalidValue;
   return cpx_k4_find_launch(cfg, bytes, hs, ps, rec, out, stream);
+}
+
+// K7, mode F's finder (cfg: fast.py::_cfg): K4x's keys (cpx_k7_keys_launch)
+// and stages with the n_cands nearest earlier ranks of the key as the
+// chain, taken whole, every one usable (ANY); the cap min(T - t, n - i,
+// window); links one step up (every position is inserted); a diagonal run
+// counts its last byte where diag_tail is set; sort_ext = 4 * (EXTW - 1).
+extern "C" int cpx_k7_find_launch(const int* cfg, const void* bytes,
+                                  const void* hs, const void* ps, void* rec,
+                                  void* out, void* stream) {
+  Cfg c;
+  memcpy(&c, cfg, sizeof(Cfg));
+  if (c.sort_ext >= FIND_EQ1) return (int)cudaErrorInvalidValue;
+  c.r_probe = 0;
+  c.fwd_chain = 0;
+  const Arm a{c.window, 1, c.diag_tail != 0};
+  return find_arms<true>(c, a, bytes, hs, ps, rec, out, stream);
 }

@@ -1,8 +1,7 @@
-// Shared by the two whole-block sort finders, K4 (sortfind.cu, mode R and
-// its mode-X entry K4x) and K7 (f2find.cu, mode F): 8-byte unaligned loads
-// from the zero-padded block, the stable LSD radix sort of (u32 key,
-// position), the byte-exact match extension; and K7's last stage
-// (diagonal-run recovery, the cap, the [T, S] layout; K4 has its own).
+// Shared by the whole-block sort finder K4 (sortfind.cu: mode R, its
+// mode-X entry K4x and its mode-F entry K7) and by K13c (lzpcand.cu):
+// 8-byte unaligned loads from the zero-padded block and the stable LSD
+// radix sort of (u32 key, position).
 //
 // The sort (replaces jax.lax.sort((h, idx), num_keys=1, is_stable=True) at
 // comprox_tpu/codec/block.py:854 and comprox_tpu/codec/fast.py:198): 8
@@ -27,7 +26,8 @@
 //                digit's run;
 //   rs_finish    where an odd number of passes ran, copies the result back
 //                into the first halves; where none ran, writes the
-//                identity positions.
+//                identity positions (a caller that reads the half the
+//                passes left, K13c, skips it: rs_sorted_half).
 // Ties keep their input order inside a tile (earlier item, then lower
 // lane), and tiles take their offsets in tile order: the sort is stable.
 // The first pass that runs reads no positions: they are the identity.
@@ -40,7 +40,6 @@
 
 #include "ppm_r.cuh"
 
-#define FIND_MAX_CANDS 7
 #define FIND_OK (1 << 17)   // lw flag: the candidate is usable
 #define FIND_EQ1 (1 << 16)  // lw flag: its first byte equals the position's
 
@@ -56,22 +55,6 @@ static __device__ __forceinline__ uint64_t load_u64(const uint64_t* w, long long
 // Leading equal bytes of two 8-byte little-endian windows: 0..8.
 static __device__ __forceinline__ int eq_bytes(uint64_t x) {
   return x ? (__ffsll((long long)x) - 1) >> 3 : 8;
-}
-
-// Leading equal bytes of the block at cand and at i, at most ext (8 bytes a
-// compare, stopped at the first difference).
-static __device__ __forceinline__ int match_len(const uint64_t* bytes, int cand,
-                                                int i, int ext) {
-  int len = 0;
-  for (; len < ext; len += 8) {
-    const uint64_t x = load_u64(bytes, (long long)cand + len) ^
-                       load_u64(bytes, (long long)i + len);
-    if (x) {
-      len += eq_bytes(x);
-      break;
-    }
-  }
-  return min(len, ext);
 }
 
 #define RS_THREADS 256  // threads of an rs_pass CTA: one a digit
@@ -282,60 +265,28 @@ static __global__ void rs_finish(uint32_t* __restrict__ key, int* __restrict__ p
   }
 }
 
+// The half of key and pos that holds the sorted pairs when rs_finish did
+// not run, or -1 where no pass ran (the keys in order, the positions the
+// identity, never written).
+static __device__ __forceinline__ int rs_sorted_half(const int* scratch) {
+  const int runs = scratch[RS_RUNS];
+  return runs ? runs & 1 : -1;
+}
+
 // Sorts (key, position) pairs by key, stably.  key and pos are [2, n]
 // arrays; key's first half holds the keys (16-byte aligned), and on return
 // the first halves hold the sorted keys and their positions (the input
-// order is the identity).  scratch: RS_HDR + RS_PASSES * 256 *
-// rs_tiles(n) ints.
+// order is the identity); without `finish`, the half rs_sorted_half names.
+// scratch: RS_HDR + RS_PASSES * 256 * rs_tiles(n) ints.
 static inline int radix_sort_pairs(uint32_t* key, int* pos, int* scratch, int n,
-                                   cudaStream_t st) {
+                                   cudaStream_t st, bool finish = true) {
   const int tiles = rs_tiles(n);
   cudaMemsetAsync(scratch, 0, (RS_HDR + (size_t)RS_PASSES * 256 * tiles) * sizeof(int), st);
   rs_hist<<<min(tiles, 264), 512, 0, st>>>(key, n, scratch);
   rs_plan<<<1, RS_THREADS, 0, st>>>(scratch, n);
   for (int q = 0; q < RS_PASSES; ++q)
     rs_pass<<<tiles, RS_THREADS, 0, st>>>(key, pos, n, q, scratch);
-  rs_finish<<<min((n + 255) / 256, 1056), 256, 0, st>>>(key, pos, n, scratch);
+  if (finish)
+    rs_finish<<<min((n + 255) / 256, 1056), 256, 0, st>>>(key, pos, n, scratch);
   return (int)cudaGetLastError();
-}
-
-// Last stage of the mode-F finder (K7), one thread per output element.  cand_in and lw_in
-// are [n_cands, N] in position order: the candidate, and its extension
-// length | FIND_OK | FIND_EQ1.  Diagonal-run recovery: the run of positions
-// from i whose candidates stay on one diagonal (cand[j + 1] == cand[j] + 1
-// over the flat block) and whose first bytes match, plus (tail) a matching
-// byte where it ends — a forward walk of at most cap positions, taken only
-// where the extension fell short of the cap; after the cap it equals the
-// JAX reverse running minimum.  Then the cap min(T - t, n - i, len_cap) and
-// the [2 * n_cands, T, S] layout (len, src per candidate).
-static __global__ void finder_final(int S, int T, int n, int n_cands, int len_cap,
-                                    int tail, const int* __restrict__ cand_in,
-                                    const int* __restrict__ lw_in,
-                                    int* __restrict__ out) {
-  const int big = S * T;
-  const long long oo = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (oo >= big) return;
-  const int t = (int)(oo / S), lane = (int)(oo % S);
-  const int i = lane * T + t;
-  const int cap = max(min(min(T - t, n - i), len_cap), 0);
-  for (int u = 0; u < n_cands; ++u) {
-    const int* const cand = cand_in + (size_t)u * big;
-    const int* const lw = lw_in + (size_t)u * big;
-    const int v = lw[i];
-    int len = v & 0xFFFF;
-    if ((v & FIND_OK) && len < cap) {
-      int jj = i, run = cap;
-      while (jj - i < cap) {
-        const bool eq1 = lw[jj] & FIND_EQ1;
-        if (!(eq1 && jj + 1 < big && cand[jj + 1] == cand[jj] + 1)) {
-          run = jj - i + ((eq1 && tail) ? 1 : 0);
-          break;
-        }
-        ++jj;
-      }
-      len = max(len, run);
-    }
-    out[(size_t)(2 * u) * big + oo] = (v & FIND_OK) ? min(len, cap) : 0;
-    out[(size_t)(2 * u + 1) * big + oo] = cand[i];
-  }
 }

@@ -118,7 +118,7 @@ def test_kernel_sources_and_launch_table():
     assert set(blk._EVENTS) == set(blk.LAUNCHES)
     names = {p.name for p in build._sources()}
     assert {"search.cu", "decode.cu", "model.cu", "rans.cu", "sortfind.cu",
-            "rank.cu", "parse.cu", "f2find.cu", "f2tok.cu", "f2enc.cu",
+            "rank.cu", "parse.cu", "f2tok.cu", "f2enc.cu",
             "f2dec.cu", "xrep.cu", "lzpcand.cu", "chain.cu", "sortlib.cuh",
             "f2scan.cuh", "ppm_r.cuh"} <= names
     scan = (build.CSRC / "f2scan.cuh").read_text()
@@ -141,7 +141,7 @@ def test_kernel_sources_and_launch_table():
     for name, src in srcs.items():
         if name != "sortlib.cuh":
             assert not re.search(r"void[^(]*\brs_(hist|plan|pass|finish)\(", src), name
-    for name in ("sortfind.cu", "f2find.cu", "lzpcand.cu"):
+    for name in ("sortfind.cu", "lzpcand.cu"):
         assert "__match_any_sync" not in srcs[name]
     assert [n for n, src in srcs.items() if "radix_sort_pairs(" in src] == [
         "lzpcand.cu", "sortfind.cu", "sortlib.cuh"]
