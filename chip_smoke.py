@@ -68,8 +68,13 @@ no result line:
    8 MiB corpus (the main path's N = 8 Mi), timed beside ``torch.sort`` on
    int64 and int32 keys.
 7. kernels, mode F: K7 and K8 against their plain versions at the full
-   N = 8 Mi (S=512, T=16384) on the 8 MiB corpus, K9 and K10 on the first
-   S * 256 tokens of that block, K6's mode-F entry at T=256; tolerance 0.
+   N = 8 Mi (S=512, T=16384) on the 8 MiB corpus (K8 also on an all-zero
+   block, the corpus 1003 bytes short and three kinds of synthetic
+   decisions: take 2, takes of 250, random takes capped at each lane's
+   end), K9 on the first S * 256 tokens of that block, K10 on the stream
+   of all its tokens (padded, and cut to its words so that the window
+   clamps), K6's mode-F entry at T=256; tolerance 0.  K7's, K8's and
+   K10's stages (``benchmarks/phases.py``) beside.
    Beside K7's sort stage, K8's scans and K9's histogram it times the one
    PyTorch call for the same function (``torch.sort``, ``torch.cumsum``,
    ``torch.bincount``), which the port never uses.
@@ -1064,18 +1069,53 @@ def phase_kernels_fast(corpus):
           f"({ms * 1e3 / KERNEL_STEPS:.1f} us/step)  plain {plain_ms:.3f} ms  bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
-    # K8 at N = 8 Mi on the kernel parse's decisions (the plain parse takes
-    # ~3 ms a step).  The plain version also lines the other positions up
-    # behind the tokens, as JAX does; the kernel's n_tok tokens are held
-    # against its first n_tok.
+    # K8 at N = 8 Mi, each input against the plain version (the plain
+    # version also lines the other positions up behind the tokens, as JAX
+    # does; the kernel's n_tok tokens are held against its first n_tok):
+    # the kernel parse's decisions on the corpus (the plain parse takes ~3
+    # ms a step), on an all-zero block (every take at the cap) and on the
+    # corpus 1003 bytes short; then synthetic decisions on the corpus' bytes:
+    # take 2 everywhere, takes of 250 across every chunk boundary, random
+    # takes in [0, 250] capped at each lane's end.
+    def k8_err(inp_, n_, dec_):
+        got = fast.tokenize(p, inp_, n_, dec_)
+        want, pms = _timed_plain(fast.tokenize_plain, p, inp_, n_, dec_)
+        if got[0] != want[1]:
+            raise AssertionError(f"K8 n_tok {got[0]} vs plain {want[1]}")
+        return max_err([(a, b[: got[0]]) for a, b in zip(got[1:], want[2:])]), pms
+
     dec = blk.parse_scan(p, n, ck, **kw)
     n_tok, sym, xtr, tbits = fast.tokenize(p, inp, n, dec)
-    tp, plain_ms = _timed_plain(fast.tokenize_plain, p, inp, n, dec)
-    if n_tok != tp[1]:
-        raise AssertionError(f"K8 n_tok {n_tok} vs plain {tp[1]}")
-    err = max_err([(a, b[:n_tok]) for a, b in zip((sym, xtr, tbits), tp[2:])])
-    del tp
+    err, plain_ms = k8_err(inp, n, dec)
+    errs = {}
+    zeros = torch.zeros_like(inp)
+    errs["all-zero block"] = k8_err(zeros, n, blk.parse_scan(
+        p, n, fast.f2_find(p, zeros, n), **kw))[0]
+    del zeros
+    n_short = n - 1003
+    short = inp.clone()
+    short.view(-1)[n_short:] = 0
+    errs["1003 bytes short"] = k8_err(short, n_short, blk.parse_scan(
+        p, n_short, fast.f2_find(p, short, n_short), **kw))[0]
+    del short
+    rng = np.random.default_rng(17)
+    i32 = torch.int32
+    left = torch.arange(p.steps, 0, -1, device=dev, dtype=i32)[:, None]
+    pos = (torch.arange(p.lanes, device=dev, dtype=i32)[None, :] * p.steps
+           + torch.arange(p.steps, device=dev, dtype=i32)[:, None])
+    back = torch.from_numpy(rng.choice(np.array([1, 3, 7, 100, 5000], np.int32),
+                                       (p.steps, p.lanes))).to(dev)
+    for label, take in (
+            ("take 2", torch.full((p.steps, p.lanes), 2, dtype=i32, device=dev)),
+            ("take 250", torch.full((p.steps, p.lanes), 250, dtype=i32, device=dev)),
+            ("random takes", torch.minimum(torch.from_numpy(rng.integers(
+                0, 251, (p.steps, p.lanes), dtype=np.int32)).to(dev), left))):
+        errs[label] = k8_err(inp, n, torch.stack([take, pos - back]))[0]
+    print(f"K8 at N={big}: max_abs_err " + ", ".join(
+        f"{k} {v}" for k, v in errs.items()) + " (tolerance 0)")
+    err = max(err, *errs.values())
     ms = _kernel_ms("K8", lambda: (p, inp, n, dec), fast.tokenize)
+    print(phases.k4_stage_line("K8", phases.kernel_stages("K8", p, inp, n)))
     starts = (dec[0].reshape(-1) > 0).to(torch.int32)  # an [N] int32 for the library scan
     lib_ms = _event_ms(lambda: torch.cumsum(starts, 0))
     _record(res, "K8", err, ms, plain_ms,
@@ -1094,7 +1134,6 @@ def phase_kernels_fast(corpus):
     full_ms = _kernel_ms("K9", lambda: (p, sym, xtr, tbits, n_tok), fast.encode_scan)
     sym64 = sym[:cut].long()
     lib_ms = _event_ms(lambda: torch.bincount(sym64, minlength=fast.W_SYM))
-    freq, states, words = ek
     _record(res, "K9", err, ms, plain_ms, *work.k9(p, sym, xtr, tbits, cut, out=ek),
             library_ms=lib_ms)
     print(f"K9 on {cut} tokens ({-(-cut // p.lanes)} steps): max_abs_err {err}  "
@@ -1104,24 +1143,41 @@ def phase_kernels_fast(corpus):
           f"{lib_ms:.3f} ms (the histogram alone); on all {n_tok} tokens: "
           f"kernel {full_ms:.3f} ms")
 
-    # K10 on the stream K9 wrote.  The plain version's plane has JAX's N
-    # slots; the kernel's n_tok are its first.
+    # K10 on the stream K9 writes for all n_tok tokens, zero-padded to
+    # _max_words as decode_tokens pads it, and on the same stream cut to
+    # its n_words words, where the last windows clamp (states, words used
+    # and plane equal to the plain version's, whatever they are).  The
+    # plain version's plane has JAX's N slots; the kernel's n_tok are its
+    # first.
+    freq, states, words = fast.encode_scan(p, sym, xtr, tbits, n_tok)
     stream = torch.zeros(fast._max_words(p), dtype=torch.int32, device=dev)
     stream[: words.numel()] = words.flip(0)
-    xk, uk, plk = fast.decode_scan(p, freq, states, stream, cut)
+    xk, uk, plk = fast.decode_scan(p, freq, states, stream, n_tok)
     (xp, up, plp), plain_ms = _timed_plain(
-        fast.decode_scan_plain, p, freq, states, stream, cut)
+        fast.decode_scan_plain, p, freq, states, stream, n_tok)
     if not uk == up == words.numel():
         raise AssertionError(f"K10 words used {uk} vs plain {up} of {words.numel()}")
     if not bool((xk == fast.RANS_L).all()):
         raise AssertionError("K10 did not drain the states")
-    err = max_err([(xk, xp), (plk, plp[:cut])])
-    ms = _kernel_ms("K10", lambda: (p, freq, states, stream, cut), fast.decode_scan)
+    err = max_err([(xk, xp), (plk, plp[:n_tok])])
+    out = (xk, uk, plk)
+    clamped = words.flip(0).contiguous()
+    xc, uc, plc = fast.decode_scan(p, freq, states, clamped, n_tok)
+    xp, up, plp = fast.decode_scan_plain(p, freq, states, clamped, n_tok)
+    err_clamp = max(max_err([(xc, xp), (plc, plp[:n_tok])]), abs(uc - up))
+    print(f"K10 on the stream cut to its {words.numel()} words: words used {uc}, "
+          f"max_abs_err {err_clamp} (tolerance 0)")
+    err = max(err, err_clamp)
+    del xp, plp, clamped
+    ms = _kernel_ms("K10", lambda: (p, freq, states, stream, n_tok), fast.decode_scan)
+    print(phases.k4_stage_line("K10", phases.kernel_stages("K10", p, inp, n)))
+    steps = -(-n_tok // p.lanes)
     _record(res, "K10", err, ms, plain_ms,
-            *work.k10(p, freq, states, stream, cut, out=(xk, uk, plk)))
-    print(f"K10 on {cut} tokens: max_abs_err {err}  kernel {ms:.3f} ms "
-          f"({ms * 1e3 / -(-cut // p.lanes):.2f} us/step)  plain {plain_ms:.3f} ms  "
-          f"bound {res['K10']['bound_ms']:.4f} ms ({res['K10']['bound_by']})")
+            *work.k10(p, freq, states, stream, n_tok, out=out))
+    print(f"K10 on all {n_tok} tokens: max_abs_err {err}  kernel {ms:.3f} ms "
+          f"({ms * 1e3 / steps:.2f} us/step, {ms * 1e6 / (3 * steps):.0f} ns an event)  "
+          f"plain {plain_ms:.3f} ms  bound {res['K10']['bound_ms']:.4f} ms "
+          f"({res['K10']['bound_by']})")
     for name, r in res.items():
         if r["max_abs_err"] != 0:
             raise AssertionError(

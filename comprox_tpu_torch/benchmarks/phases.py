@@ -33,7 +33,7 @@ the kernel's CUDA-event time over the steps).  On the card::
     python -m comprox_tpu_torch.benchmarks.phases split [ctas ...]
     python -m comprox_tpu_torch.benchmarks.phases times
     python -m comprox_tpu_torch.benchmarks.phases bounds
-    python -m comprox_tpu_torch.benchmarks.phases k4stages [K4|K4x|K7|K13c ...]
+    python -m comprox_tpu_torch.benchmarks.phases k4stages [K4|K4x|K7|K13c|K8|K10 ...]
     python -m comprox_tpu_torch.benchmarks.phases k3 [LANESxDEPTH ...]
     python -m comprox_tpu_torch.benchmarks.phases k6fit
     python -m comprox_tpu_torch.benchmarks.phases k6stamps
@@ -52,10 +52,13 @@ and K6 (X) 2 on crx, K6 (F) on crf; run it in two trees in turns to
 compare them (``PYTHONPATH=<tree> python <this file> times`` times another
 tree's package with this file); it ends with ``k4stages``' lines.
 ``k4stages`` prints the device ms of each stage of K4, K4x and K7 (keys,
-the sort, the find, the heads' extension, the final stage) and of K13c
-(keys, the sort, the segmented max, the tables' store, the checks), from a
+the sort, the find, the heads' extension, the final stage), of K13c
+(keys, the sort, the segmented max, the tables' store, the checks), of K8
+(the replay, the chunks' reduce, the parts' scan, the emit; on the block's
+K7 and K6 decisions) and of K10 (the slot table, the decode loop, the
+plane's reduce, parts and plane; on the block's own K9 stream), from a
 ``torch.profiler`` trace, and of the whole launch, on the 8 MiB crz, crx,
-crf and crp goldens' blocks (default: all four).  ``bounds``
+crf and crp goldens' blocks (default: all six).  ``bounds``
 prints the full-width bound of every other kernel (the sort, K4, K4x, K7, K3, K3p, K3b, K6, K8-K11, K13c,
 KCR) from the launches of the 8 MiB crz, crx, crf and crp goldens' decode
 and encode.  ``k3`` times K3 on the 8 MiB crz, crx and crp goldens'
@@ -495,9 +498,18 @@ K13C_STAGES = (("keys", ("k13c_keys",)), SORT_STAGE,
                ("segmax", ("k13c_tile_agg", "k13c_tile_scan", "k13c_resolve",
                            "k13c_segmax")),
                ("store", ("k13c_store",)), ("check", ("k13c_check",)))
+# K8's replay was one kernel, k8_replay, a thread a lane; its chunked
+# replay (k8_replay_clear, which zeroes the look-back words, then
+# k8_replay_chunks) also writes the chunks' pairs that k8_reduce computed
+# before.  K10's slot table (k10_table) moved into k10_decode's prologue.
+K8_STAGES = (("replay", ("k8_replay",)), ("reduce", ("k8_reduce",)),
+             ("parts", ("scan_parts",)), ("emit", ("k8_emit",)))
+K10_STAGES = (("table", ("k10_table",)), ("decode", ("k10_decode",)),
+              ("reduce", ("k10_reduce",)), ("parts", ("scan_parts",)),
+              ("plane", ("k10_plane",)))
 
 
-def _fresh_lzp(p, reps: int):
+def _fresh_lzp(p, inp, n, reps: int):
     """``reps`` sets of empty mode-P tables, one a launch."""
     return [blk._init_lzp(p, "cuda") for _ in range(reps)]
 
@@ -507,10 +519,39 @@ def _k7(p, inp, n):
     fast.f2_find(p, inp, n)
 
 
+def _k8_decisions(p, inp, n, reps: int):
+    """K8's input on this block: K7's candidates and K6's decisions (the
+    kernels), read by every launch."""
+    from comprox_tpu_torch.codec import fast
+    return fast._fast_find_matches(p, inp, n)
+
+
+def _k10_stream(p, inp, n, reps: int):
+    """K10's input on this block: K9's table, states and stream (the
+    kernels), the stream reversed and zero-padded to ``_max_words`` as
+    ``decode_tokens`` pads it; and the token count."""
+    from comprox_tpu_torch.codec import fast
+    freq, states, words, n_tok = fast.encode_passes(p, inp, n)
+    stream = torch.zeros(fast._max_words(p), dtype=torch.int32, device=inp.device)
+    stream[: words.numel()] = words.flip(0)
+    return freq, states, stream, n_tok
+
+
+def _k8(p, inp, n, dec):
+    from comprox_tpu_torch.codec import fast
+    fast.tokenize(p, inp, n, dec)
+
+
+def _k10(p, st):
+    from comprox_tpu_torch.codec import fast
+    freq, states, stream, n_tok = st
+    fast.decode_scan(p, freq, states, stream, n_tok)
+
+
 # kernel -> (the golden whose block it is timed on, its stages, a launch
-# of it on (p, inp, n, launch index, the per-launch state), the state's
-# maker or None); each launch goes through an entry of the block API that
-# every tree has
+# of it on (p, inp, n, launch index, the state), the state's maker on
+# (p, inp, n, launches) or None); each launch goes through an entry of the
+# block API that every tree has
 STAGED = {
     "K4": ("crz_flex_8MiB_S512.cpx", K4_STAGES,
            lambda p, inp, n, j, st: blk.sort_candidates(p, inp, n, False), None),
@@ -520,6 +561,10 @@ STAGED = {
            lambda p, inp, n, j, st: _k7(p, inp, n), None),
     "K13c": ("crp_8MiB_S512.cpx", K13C_STAGES,
              lambda p, inp, n, j, st: blk.lzp_candidates(p, inp, n, st[j]), _fresh_lzp),
+    "K8": ("crf_flex_8MiB_S512.cpx", K8_STAGES,
+           lambda p, inp, n, j, st: _k8(p, inp, n, st), _k8_decisions),
+    "K10": ("crf_flex_8MiB_S512.cpx", K10_STAGES,
+            lambda p, inp, n, j, st: _k10(p, st), _k10_stream),
 }
 K4_GOLDENS = tuple(STAGED)
 
@@ -531,7 +576,7 @@ def kernel_stages(name: str, p, inp, n, reps: int = 3) -> dict:
     trace holds no device time), "full": the wrapper's CUDA events}.
     K13c starts every launch from empty tables."""
     _, stages, launch, state = STAGED[name]
-    st = state(p, 1 + 2 * reps) if state else None
+    st = state(p, inp, n, 1 + 2 * reps) if state else None
     launch(p, inp, n, 0, st)
     torch.cuda.synchronize()
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
@@ -567,8 +612,8 @@ def k4_stage_line(name: str, st: dict) -> str:
 
 
 def k4_stages_goldens(names=K4_GOLDENS) -> dict:
-    """The stages (``kernel_stages``) of K4, K4x, K7 and K13c at full
-    width on the 8 MiB crz, crx, crf and crp goldens' blocks; prints a
+    """The stages (``kernel_stages``) of K4, K4x, K7, K13c, K8 and K10 at
+    full width on the 8 MiB crz, crx, crf and crp goldens' blocks; prints a
     line each; returns {"K4 keys": ms, ...}."""
     out = {}
     for name in names:

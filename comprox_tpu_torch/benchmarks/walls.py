@@ -9,7 +9,7 @@ run before it and off during it), and its kernels' device
 time is the sum of the CUDA events the wrappers record around their
 launches.  A line a codec: the walls, the MB/s of the best, the kernels'
 ms, the host share (1 - kernel ms / wall: the time the card waits on the
-host) and the ms of K4, K4x, K7, K13c, K3, K3p, K3b, K6 (both launches
+host) and the ms of K4, K4x, K7, K8, K13c, K3, K3p, K3b, K6 (both launches
 of crx summed) and K11 where the tree has them; the archive
 is checked against the golden's SHA-256 (``tests/data/torch_golden.json``).
 Then the crz, crx and crp ``-g4`` encodes of the 29 MiB + 777 B input of
@@ -40,7 +40,7 @@ from pathlib import Path
 ARCHIVES = ("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx", "crp_8MiB_S512.cpx",
             "crf_flex_8MiB_S512.cpx")
 GROUP_SOURCE = "crz_chainm_textelf_flex_16MiB_S512.cpx"  # 8 MiB text, 8 MiB ELF
-PASSES = ("K4", "K4x", "K7", "K13c", "K3", "K3p", "K3b", "K6", "K11")
+PASSES = ("K4", "K4x", "K7", "K8", "K13c", "K3", "K3p", "K3b", "K6", "K11")
 GROUPED = ("crz", "crx", "crp")  # -g4 codes a launch a group (crf loops its blocks)
 
 

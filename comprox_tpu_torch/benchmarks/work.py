@@ -141,12 +141,15 @@ def k7(p, inp, n, *, out) -> tuple:
 
 
 def k8(p, inp, n, dec, *, out) -> tuple:
-    """K8 (``fast.tokenize``; ``out`` starts with the token count): the
-    block and (take, src) read, 12 bytes a token written; per position the
-    replay (4), the event (10) and one scan of two values (4), and the
-    token's code (20 a token)."""
-    n_tok = out[0]
-    return nbytes(inp, dec[:2]) + 12 * n_tok, p.capacity * 18 + n_tok * 20
+    """K8 (``fast.tokenize``; ``out`` = (n_tok, sym, xtr, tbits)): the take
+    of each of the n positions read (4 bytes), a match's src (one 32-byte
+    sector: the matches lie a lane apart in the [T, S] grid) and a token's
+    byte, 12 bytes a token written; per position the replay (4), the event
+    (10) and one scan of two values (4), and the token's code (20 a
+    token)."""
+    n_tok, sym = out[0], out[1]
+    n_match = int((sym[:n_tok] >= 256).sum())
+    return 4 * n + 32 * n_match + 13 * n_tok, p.capacity * 18 + n_tok * 20
 
 
 def k9(p, sym, xtr, tbits, n_tok, *, out) -> tuple:

@@ -83,6 +83,9 @@ N_SLOTS = 3  # SYM, XTR1, XTR2
 _TAB_BYTES = 2 * W_SYM
 MAX_CANDS = 7  # candidates the kernels keep per position
 SCAN_TILE = 2048  # positions per CTA of the prefix scans (csrc/f2scan.cuh)
+K8_CHUNK = 512  # steps of a lane a chunk of K8's replay (csrc/f2tok.cu: K8_C)
+K8_TAKE_MAX = 256  # the longest take K8 takes: the window's cap
+K10_RING = 32768  # words of K10's stream ring (csrc/f2dec.cu: K10_RING)
 
 
 def check_supported(p: BlockParams) -> None:
@@ -340,13 +343,16 @@ def tokenize(p: BlockParams, inp, n: int, dec):
 
     Replaces comprox_tpu/codec/fast.py::_replay_body (287-305) under its
     scan, _tokenize (308-340) with _last_nonzero_fill (140) and
-    _token_events (343-367).  Kernels: csrc/f2tok.cu (the per-lane replay,
-    then one prefix scan over the block in three launches, the last of
-    which writes each token to its slot).  ``inp`` [S, T] uint8, ``dec``
-    [>= 2, T, S] int32 (take, src) -> (n_tok, sym, xtr, tbits [n_tok]
-    int32): the tokens only.  JAX's flat token arrays, with the other
-    positions moved behind the tokens, stand in for a compaction there and
-    are kept by the plain version alone.
+    _token_events (343-367).  Kernels: csrc/f2tok.cu (the replay in chunks
+    of ``K8_CHUNK`` steps: each chunk's exit map, the chunks' true entries
+    through a look-back in chunk order, a walk a chunk writing its starts'
+    takes in order, its token list, and the chunk's scan pair; the pairs'
+    prefix scan; the emit, a warp a chunk, writing each token to its
+    slot).  ``inp`` [S, T] uint8, ``dec`` [>= 2, T, S] int32 (take <=
+    ``K8_TAKE_MAX``, src; 16-byte aligned on the card) -> (n_tok, sym,
+    xtr, tbits [n_tok] int32): the tokens only.  JAX's flat
+    token arrays, with the other positions moved behind the tokens, stand
+    in for a compaction there and are kept by the plain version alone.
     """
     if _dispatch(inp, dec) == "cpu":
         _, n_tok, sym, xtr, tbits = tokenize_plain(p, inp, n, dec)
@@ -355,15 +361,21 @@ def tokenize(p: BlockParams, inp, n: int, dec):
     if dec.dim() != 3 or dec.shape[0] < 2:
         raise ValueError("dec: expected [>= 2, T, S]")
     _expect(dec, "dec", _i32, (dec.shape[0], p.steps, p.lanes))
+    if dec.data_ptr() % 16:
+        raise ValueError("dec must be 16-byte aligned (K8 reads the takes 16 bytes at a time)")
     big, dev = p.capacity, inp.device
-    start = torch.empty(big, dtype=torch.uint8, device=dev)
-    parts = torch.empty((_scan_tiles(big) + 1, 2), dtype=_i32, device=dev)
+    chunks = p.lanes * -(-p.steps // K8_CHUNK)
+    lists = torch.empty(chunks * K8_CHUNK, dtype=torch.int16, device=dev)
+    parts = torch.empty((chunks + 1, 2), dtype=_i32, device=dev)
+    look = torch.empty(chunks + 2, dtype=_i32, device=dev)
     ev = torch.empty((3, big), dtype=_i32, device=dev)  # n_tok <= N slots
     cfg = _cfg(p, n)  # kept alive across the call that reads it
     _launch("K8", build.lib().cpx_k8_launch, cfg.ctypes.data,
-            inp.data_ptr(), dec.data_ptr(), start.data_ptr(),
-            parts.data_ptr(), ev.data_ptr(), _stream_ptr())
-    n_tok = int(parts[-1, 0].item())
+            inp.data_ptr(), dec.data_ptr(), lists.data_ptr(), parts.data_ptr(),
+            look.data_ptr(), ev.data_ptr(), _stream_ptr())
+    n_tok, too_long = torch.stack((parts[-1, 0], look[-1])).tolist()
+    if too_long:
+        raise ValueError(f"dec: a take above {K8_TAKE_MAX}, the window's cap")
     return n_tok, ev[0, :n_tok], ev[1, :n_tok], ev[2, :n_tok]
 
 
@@ -546,11 +558,13 @@ def decode_scan(p: BlockParams, freq, states, stream, n_tok: int):
 
     Replaces comprox_tpu/codec/fast.py::_build_dec_table (524),
     _fast_decode_scan (538-603) and _token_plane (606-639).  Kernels:
-    csrc/f2dec.cu (slot table, the decode loop in one CTA as K9's, the
-    token plane with its forward scan in three launches).
-    ``freq`` [581] int32, ``states`` [S] int64, ``stream`` [>= S] int32 (u16
-    words) -> (states [S] int64, words_used, plane [n_tok] int32): the
-    tokens only, where the plain version keeps JAX's N slots.
+    csrc/f2dec.cu (the decode loop in one CTA as K9's, its slot table
+    built in shared memory and the stream read through a ring of
+    ``K10_RING`` words there; the token plane with its forward scan in three
+    launches).  ``freq`` [581] int32 (summing to M), ``states`` [S] int64,
+    ``stream`` [>= S] int32 (u16 words; 16-byte aligned on the card) ->
+    (states [S] int64, words_used, plane [n_tok] int32): the tokens only,
+    where the plain version keeps JAX's N slots.
     """
     if _dispatch(freq, states, stream) == "cpu":
         x, used, plane = decode_scan_plain(p, freq, states, stream, n_tok)
@@ -563,16 +577,17 @@ def decode_scan(p: BlockParams, freq, states, stream, n_tok: int):
     _expect(stream, "stream", _i32, stream.shape)
     if not 0 <= n_tok <= p.capacity:
         raise ValueError(f"n_tok {n_tok} for capacity {p.capacity}")
+    if stream.data_ptr() % 16:
+        raise ValueError("stream must be 16-byte aligned (K10 copies 16 bytes at a time)")
     dev = states.device
     x = states.clone()
-    dtab = torch.empty((M, 2), dtype=_i32, device=dev)
     grids = torch.empty((2, n_tok), dtype=_i32, device=dev)
     parts = torch.empty((_scan_tiles(n_tok) + 1, 2), dtype=_i32, device=dev)
     plane = torch.empty(n_tok, dtype=_i32, device=dev)
     used = torch.zeros(1, dtype=_i32, device=dev)
     _launch("K10", build.lib().cpx_k10_launch, p.lanes, n_tok,
             stream.shape[0], freq.data_ptr(), x.data_ptr(), stream.data_ptr(),
-            dtab.data_ptr(), grids.data_ptr(), parts.data_ptr(),
+            grids.data_ptr(), parts.data_ptr(),
             plane.data_ptr(), used.data_ptr(), _stream_ptr())
     return x, int(used.item()), plane
 

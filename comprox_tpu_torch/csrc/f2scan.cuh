@@ -29,8 +29,9 @@ static __device__ __forceinline__ CountLast combine(CountLast a, CountLast b) {
 }
 
 // Exclusive prefix, in thread order, of every thread's v across the CTA.
-// Call by every thread; wsum is a shared [32] scratch this call owns until
-// the next barrier after it.  total = all threads' v combined.
+// Call by every thread (whole warps, up to 1024 threads); wsum is a shared
+// [32] scratch this call owns until the next barrier after it.  total =
+// all threads' v combined.
 static __device__ CountLast cta_excl_scan(CountLast v, CountLast* wsum,
                                           CountLast& total) {
   const unsigned full = 0xffffffffu;
@@ -46,33 +47,67 @@ static __device__ CountLast cta_excl_scan(CountLast v, CountLast* wsum,
   CountLast ex{__shfl_up_sync(full, inc.cnt, 1), __shfl_up_sync(full, inc.last, 1)};
   if (lane == 0) ex = CountLast{0, 0};
   __syncthreads();
-  CountLast before{0, 0}, tot{0, 0};
-  for (int w = 0; w < nwarps; ++w) {
-    if (w < warp) before = combine(before, wsum[w]);
-    tot = combine(tot, wsum[w]);
+  // every warp scans the warp sums, lane k holding warp k's
+  CountLast ws = lane < nwarps ? wsum[lane] : CountLast{0, 0};
+  for (int off = 1; off < 32; off <<= 1) {
+    const CountLast o{__shfl_up_sync(full, ws.cnt, off),
+                      __shfl_up_sync(full, ws.last, off)};
+    if (lane >= off) ws = combine(o, ws);
   }
-  total = tot;
+  total = CountLast{__shfl_sync(full, ws.cnt, nwarps - 1),
+                    __shfl_sync(full, ws.last, nwarps - 1)};
+  const int from = warp > 0 ? warp - 1 : 0;
+  CountLast before{__shfl_sync(full, ws.cnt, from), __shfl_sync(full, ws.last, from)};
+  if (warp == 0) before = CountLast{0, 0};
   return combine(before, ex);
 }
 
 // In place: parts[0 .. n) -> their exclusive prefixes, parts[n] = the total,
 // which it returns.  Called by every thread of one CTA of 1024 threads.
+// The parts pass through shared memory SCAN_PARTS_TILE at a time, read and
+// written coalesced (a thread's loads of a tile all issued before the
+// first is stored), each thread scanning SCAN_PARTS_TILE / 1024
+// consecutive ones.
+#define SCAN_PARTS_TILE 4096
 static __device__ CountLast scan_parts_cta(CountLast* __restrict__ parts, int n) {
+  __shared__ CountLast tile[SCAN_PARTS_TILE];
   __shared__ CountLast wsum[32];
+  constexpr int per = SCAN_PARTS_TILE / 1024;
   const int tid = threadIdx.x;
-  const int chunk = (n + 1023) / 1024;
-  const int b = min(tid * chunk, n), e = min(b + chunk, n);
-  CountLast s{0, 0};
-  for (int k = b; k < e; ++k) s = combine(s, parts[k]);
-  CountLast total;
-  CountLast run = cta_excl_scan(s, wsum, total);
-  for (int k = b; k < e; ++k) {
-    const CountLast v = parts[k];
-    parts[k] = run;
-    run = combine(run, v);
+  CountLast carry{0, 0};
+  for (int b = 0; b < n; b += SCAN_PARTS_TILE) {
+    const int m = min(SCAN_PARTS_TILE, n - b);
+    CountLast in[per];
+#pragma unroll
+    for (int j = 0; j < per; ++j)
+      if (tid + j * 1024 < m) in[j] = parts[b + tid + j * 1024];
+#pragma unroll
+    for (int j = 0; j < per; ++j)
+      if (tid + j * 1024 < m) tile[tid + j * 1024] = in[j];
+    __syncthreads();
+    CountLast s{0, 0};
+#pragma unroll
+    for (int j = 0; j < per; ++j)
+      if (per * tid + j < m) s = combine(s, tile[per * tid + j]);
+    CountLast total;
+    CountLast run = combine(carry, cta_excl_scan(s, wsum, total));
+#pragma unroll
+    for (int j = 0; j < per; ++j) {
+      if (per * tid + j < m) {
+        const CountLast v = tile[per * tid + j];
+        tile[per * tid + j] = run;
+        run = combine(run, v);
+      }
+    }
+    carry = combine(carry, total);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < per; ++j)
+      if (tid + j * 1024 < m) parts[b + tid + j * 1024] = tile[tid + j * 1024];
+    __syncthreads();  // the tile and wsum are the next round's
   }
-  if (tid == 0) parts[n] = total;
-  return total;
+  if (tid == 0) parts[n] = carry;
+  return carry;
 }
 
 // scan_parts_cta as a launch of one CTA of 1024 threads.

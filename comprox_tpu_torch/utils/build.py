@@ -55,9 +55,9 @@ _SIGNATURES = {
     "cpx_k6f_launch": [_P, _I] + [_P] * 4,
     "cpx_k7_keys_launch": [_P] * 4,
     "cpx_k7_find_launch": [_P] * 7,
-    "cpx_k8_launch": [_P] * 7,
+    "cpx_k8_launch": [_P] * 8,
     "cpx_k9_launch": [_I] * 2 + [_P] * 9,
-    "cpx_k10_launch": [_I] * 3 + [_P] * 9,
+    "cpx_k10_launch": [_I] * 3 + [_P] * 8,
     "cpx_k2_launch": [_P, _I] + [_P] * 12,
     "cpx_k3_launch": [_I] * 4 + [_P] * 5,
     "cpx_k1_launch": [_P, _I] + [_P] * 15,

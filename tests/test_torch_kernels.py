@@ -674,6 +674,83 @@ def test_fast_rans_kernels_take_wide_blocks(cuda_device, name, lanes):
     assert torch.equal(xk, xp) and torch.equal(plk, plp[:n_tok])
 
 
+def _k8_synthetic(kind, p, rng):
+    """Decisions [2, T, S] int32 (take, src) of one kind (as
+    tests/test_torch_f2tok_order.py's)."""
+    T, S = p.steps, p.lanes
+    t = np.arange(T)[:, None]
+    left = T - t
+    if kind == "two":
+        take = np.full((T, S), 2)
+    elif kind == "cap":
+        take = np.full((T, S), tfast.K8_TAKE_MAX)
+    elif kind == "long":
+        take = np.full((T, S), 250)
+    elif kind == "literals":
+        take = np.where(rng.random((T, S)) < 0.05, rng.integers(2, 40, (T, S)), 0)
+    elif kind == "to_end":
+        take = np.where(rng.random((T, S)) < 0.3, left, rng.integers(0, 4, (T, S)))
+    else:
+        take = np.minimum(rng.integers(0, 251, (T, S)), left)
+    pos = np.arange(S)[None, :] * T + t
+    src = pos - rng.choice(np.array([1, 3, 7, 100, 5000]), (T, S))
+    return np.stack([np.minimum(take, tfast.K8_TAKE_MAX), src]).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo", [(512, 2048, 1003), (72, 1100, 1200), (2048, 8, 5)])
+@pytest.mark.parametrize("kind", ["two", "cap", "long", "literals", "to_end", "random"])
+def test_k8_chunks_match_plain_on_synthetic_decisions(cuda_device, kind, geo):
+    """K8's chunked replay against its plain version on synthetic decisions:
+    four chunks a lane at S=512, a ragged last chunk and lanes that are no
+    multiple of 32 at S=72, T=1100, one short chunk at S=2048, T=8; each
+    block ends inside a lane."""
+    lanes, steps, short = geo
+    p = blk.BlockParams(**dict(FAST_WIDE, lanes=lanes, steps=steps))
+    rng = np.random.default_rng(len(kind) + lanes)
+    dec = torch.from_numpy(_k8_synthetic(kind, p, rng)).to(cuda_device)
+    inp = torch.from_numpy(
+        rng.integers(0, 256, (p.lanes, p.steps), dtype=np.uint8)).to(cuda_device)
+    n = p.capacity - short
+    _, n_tok, sym, xtr, tbits = tfast.tokenize_plain(p, inp, n, dec)
+    got = tfast.tokenize(p, inp, n, dec)
+    assert got[0] == n_tok
+    assert all(torch.equal(a, b[:n_tok]) for a, b in zip(got[1:], (sym, xtr, tbits)))
+
+
+@pytest.mark.cuda
+def test_k8_refuses_a_take_above_the_window_cap(cuda_device):
+    p = blk.BlockParams(**FAST_WIDE)
+    dec = torch.zeros((2, p.steps, p.lanes), dtype=torch.int32, device=cuda_device)
+    dec[0, 5, 3] = tfast.K8_TAKE_MAX + 1
+    inp = torch.zeros((p.lanes, p.steps), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="above 256"):
+        tfast.tokenize(p, inp, p.capacity, dec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [512, 8192])
+@pytest.mark.parametrize("name", ["text", "random"])
+def test_k10_ring_serves_a_clamped_window(cuda_device, name, lanes):
+    """K10 on a stream cut to its n_words words (at least S), so that the
+    last steps' windows clamp to the stream's last S words: the states,
+    words used and plane of the plain version, whatever they are."""
+    p = blk.BlockParams(**dict(FAST_WIDE, lanes=lanes, steps=64 if lanes == 512 else 16))
+    n = p.capacity - 100
+    inp = torch.from_numpy(
+        _fast_inputs(name, p, n).reshape(p.lanes, p.steps)).to(cuda_device)
+    dec = blk.parse_scan(p, n, tfast.f2_find(p, inp, n),
+                         prices=tfast._F_PRICES, n_c=tfast._F_CANDS)
+    n_tok, sym, xtr, tbits = tfast.tokenize(p, inp, n, dec)
+    freq, states, words = tfast.encode_scan(p, sym, xtr, tbits, n_tok)
+    for size in (max(words.numel(), p.lanes), tfast._max_words(p)):
+        stream = torch.zeros(size, dtype=torch.int32, device=cuda_device)
+        stream[: words.numel()] = words.flip(0)
+        xk, uk, plk = tfast.decode_scan(p, freq, states, stream, n_tok)
+        xp, up, plp = tfast.decode_scan_plain(p, freq, states, stream, n_tok)
+        assert uk == up and torch.equal(xk, xp) and torch.equal(plk, plp[:n_tok])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("flexible", [True, False])
 def test_fast_block_roundtrip_on_card(cuda_device, flexible):
