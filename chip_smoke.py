@@ -978,12 +978,14 @@ def phase_sort(corpus):
 def phase_scan_phases():
     """The step scans by phase: the 8 MiB flexible crz archive decoded
     through K1's two instrumented builds of phase 2 (ring depth 0 and the
-    build's depth), its corpus encoded through K5's and K2's, and the 8 MiB
+    build's depth), its corpus encoded through K5's and K2's, the 8 MiB
     crx and crp archives decoded through K12d's and K13d's (the same two
-    builds) and their corpora encoded through K12e's and K13e's."""
+    builds) and their corpora encoded through K12e's and K13e's, and the 8
+    MiB crz ``-f0`` and crx scan-finder corpora through KS's and KSx's."""
     from comprox_tpu_torch.benchmarks import phases
 
-    phases.run(GOLDEN / MAIN_ARCHIVE, ("K1", "K5", "K2", "K12e", "K13e", "K12d", "K13d"),
+    phases.run(GOLDEN / MAIN_ARCHIVE, ("K1", "K5", "K2", "K12e", "K13e", "K12d", "K13d",
+                                       "KS", "KSx"),
                (0, phases.default_depth()),
                archives={"K12d": GOLDEN / X_ARCHIVE, "K13d": GOLDEN / P_ARCHIVE,
                          "K12e": GOLDEN / X_ARCHIVE, "K13e": GOLDEN / P_ARCHIVE})
@@ -2073,10 +2075,13 @@ def phase_probes():
     return res, launches
 
 
-def phase_full_width(corpus, codec, archive, flags, needed, finder="sort"):
+def phase_full_width(corpus, codec, archive, flags, needed, finder="sort", scans=()):
     """One path through the CLI: <codec> e [flags] -b8 -l512 and <codec> d
     (mode X's candidates from ``finder``).  The launch counts are set to 0
-    just before and read just after."""
+    just before and read just after.  For each step scan of ``scans`` (KS,
+    KSx), its us a step beside its full-width bound, whose bytes an
+    untimed encode after the timed one counts (``phases._bytes_of_scans``:
+    the rows it changed, the block, the grids)."""
     import numpy as np
 
     from comprox_tpu_torch.cli import main as cli
@@ -2122,6 +2127,21 @@ def phase_full_width(corpus, codec, archive, flags, needed, finder="sort"):
     for name in needed:
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on this path")
+    if scans:
+        from comprox_tpu_torch.benchmarks import phases, work
+
+        moved, again = {}, WORK / f"again.{codec}"
+        with finder_knob("CPX_X_FINDER", finder), phases._bytes_of_scans(moved):
+            cli.run(codec, ["e", str(src), str(again), *flags, "-b8", "-l512", "-q"],
+                    device="cuda")
+        if again.read_bytes() != got:
+            raise AssertionError("the encode for the bounds wrote other bytes")
+        again.unlink()
+        for k in scans:
+            bound, by = work.bound(*moved[k])
+            print(f"{k} at full width: {ms_enc[k]:.3f} ms over {launches[k]} launch(es), "
+                  f"{ms_enc[k] * 1e3 / (16384 * launches[k]):.2f} us/step; bound "
+                  f"{bound:.4f} ms ({by})")
     for p in (src, arc, dst):
         p.unlink()
     return launches
@@ -2297,7 +2317,7 @@ def main() -> int:
     xscan = ph.run(
         "full width, crx under the scan finder", phase_full_width,
         corpora[XSCAN_ARCHIVE], "crx", XSCAN_ARCHIVE, [],
-        ("KSx", "K6", "K11", "K12e", "K3", "K3p", "K3b", "K12d"), "scan")
+        ("KSx", "K6", "K11", "K12e", "K3", "K3p", "K3b", "K12d"), "scan", ("KSx",))
     if xscan["K4x"]:
         raise AssertionError("the scan finder's path launched K4x")
     crx = ph.run(
@@ -2314,7 +2334,8 @@ def main() -> int:
     ph.run("step scans by phase", phase_scan_phases)
     greedy = ph.run(
         "full width, crz greedy parse", phase_full_width, corpora[GREEDY_ARCHIVE],
-        "crz", GREEDY_ARCHIVE, ["-f0"], ("KS", "K2", "K3", "K3p", "K3b", "K1"))
+        "crz", GREEDY_ARCHIVE, ["-f0"], ("KS", "K2", "K3", "K3p", "K3b", "K1"), "sort",
+        ("KS",))
     launches["KS"] = greedy["KS"]
     fast = ph.run(
         "full width, crf", phase_full_width, corpora[FAST_ARCHIVE], "crf",

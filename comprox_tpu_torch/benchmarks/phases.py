@@ -1,17 +1,20 @@
 """The step scans' time by phase on the card, from instrumented builds.
 
-Five step scans have an instrumented build: the decode scans K1 (crz,
+These step scans have an instrumented build: the decode scans K1 (crz,
 ``csrc/decode.cu``, ``-DCPX_K1_PROF``) and K12d / K13d (the tableless scan
 of crx and crp, the same source, ``-DCPX_K12D_PROF``; both in one variant
-of ``decode.cu``), the rank scan K5 (``csrc/rank.cu``, ``-DCPX_K5_PROF``)
-and the modeling scan K2 (``csrc/model.cu``, ``-DCPX_K2_PROF``).  Each
+of ``decode.cu``), the rank scan K5 (``csrc/rank.cu``, ``-DCPX_K5_PROF``),
+the modeling scan K2 and its X and P entries (``csrc/model.cu``,
+``-DCPX_K2_PROF``) and the search scans KS and KSx (``csrc/search.cu``,
+``-DCPX_KS_PROF``; the encode variant builds all three sources).  Each
 walks T dependent steps of phases, most of them ended by a barrier; the
 instrumented build (a variant beside the main library, built from that
 source alone; the main path never builds one) reads the SM clock at the
 end of each phase and sums each phase's cycles over the steps.  K1 stamps
-on thread 0; K5, K2, K12d and K13d on thread 0 and on the launch's last
-thread (in K5's cluster, of the CTA that reads the most other CTAs'
-keys), one column each.  K5 also sums, for each phase from its keys
+on thread 0; K5, K2, K12d, K13d, KS and KSx on thread 0 and on the
+launch's last thread (in K5's and the search scans' clusters, of the CTA
+that reads the most other CTAs' keys), one column each.  K5 also sums,
+for each phase from its keys
 barrier to the insert slot, the slowest thread of CTA 0 in each step (a
 third column: how much of the wait at the row barrier CTA 0's stragglers
 explain).  A phase that ends at a barrier is the time until the slowest
@@ -29,7 +32,7 @@ the archive against ``tests/data/torch_golden.json``, and reports each
 phase's share of the cycles and its microseconds a step (the share times
 the kernel's CUDA-event time over the steps).  On the card::
 
-    python -m comprox_tpu_torch.benchmarks.phases [archive] [K1|K5|K2|K12e|K13e|K12d|K13d ...] [depth ...]
+    python -m comprox_tpu_torch.benchmarks.phases [archive] [K1|K5|K2|K12e|K13e|K12d|K13d|KS|KSx ...] [depth ...]
     python -m comprox_tpu_torch.benchmarks.phases split [ctas ...]
     python -m comprox_tpu_torch.benchmarks.phases times
     python -m comprox_tpu_torch.benchmarks.phases bounds
@@ -39,7 +42,8 @@ the kernel's CUDA-event time over the steps).  On the card::
     python -m comprox_tpu_torch.benchmarks.phases k6stamps
 
 (default: the 8 MiB flexible crz golden for K1, K5 and K2, the 8 MiB crx
-and crp goldens for K12d and K13d; K1, K5 and K2; each decode scan at
+and crp goldens for K12d and K13d, the 8 MiB crz ``-f0`` and crx
+scan-finder goldens' corpora for KS and KSx; K1, K5 and K2; each decode scan at
 depths 0 and the build's default).  ``split`` times K5 on that golden's
 encode with its 512 lanes split over each number of CTAs given (a cluster
 above one; default 1 2 4 8 8 4 2 1), a variant build of ``csrc/rank.cu``
@@ -125,10 +129,20 @@ TABLELESS = (
     "C event, C renorm", "D, E (X)", "byte resolve", "stores", "adds, finish",
 )
 PHASES.update({"K12d": ("decode.cu", TABLELESS, 2), "K13d": ("decode.cu", TABLELESS, 2)})
+# the search scans' stamps (search.cu, KS_STAMP), one set for KS and KSx
+# (KSx: both tables' rows, searches and inserts in each phase, and its
+# near-match window with the extensions)
+SEARCH = (
+    "contexts, keys posted", "keys barrier", "rows issued, insert ranks", "rows landed",
+    "top-k, fill, recency", "insert slots", "probes", "extensions, near-match window",
+    "grids", "row barrier", "stores",
+)
+PHASES.update({k: ("search.cu", SEARCH, 2) for k in ("KS", "KSx")})
 # a kernel's stamp set in its source, where it is not named for the kernel
-STAMP_SET = {"K12d": "K12D", "K13d": "K12D", "K12e": "K2", "K13e": "K2"}
+STAMP_SET = {"K12d": "K12D", "K13d": "K12D", "K12e": "K2", "K13e": "K2", "KSx": "KS"}
 DECODE_KERNELS = ("K1", "K12d", "K13d")  # the kernels of decode.cu's variant
-ENCODE_KERNELS = ("K5", "K2", "K12e", "K13e")  # one variant of rank.cu + model.cu
+# one variant of rank.cu + model.cu + search.cu
+ENCODE_KERNELS = ("K5", "K2", "K12e", "K13e", "KS", "KSx")
 GOLDEN = Path(__file__).resolve().parents[2] / "tests" / "data"
 ARCHIVE = GOLDEN / "crz_flex_8MiB_S512.cpx"
 # the archive each crx and crp kernel codes by default (decoded, and for
@@ -136,7 +150,9 @@ ARCHIVE = GOLDEN / "crz_flex_8MiB_S512.cpx"
 OWN_ARCHIVES = {"K12d": GOLDEN / "crx_flex_8MiB_S512.cpx",
                 "K13d": GOLDEN / "crp_8MiB_S512.cpx",
                 "K12e": GOLDEN / "crx_flex_8MiB_S512.cpx",
-                "K13e": GOLDEN / "crp_8MiB_S512.cpx"}
+                "K13e": GOLDEN / "crp_8MiB_S512.cpx",
+                "KS": GOLDEN / "crz_f0_8MiB_S512.cpx",
+                "KSx": GOLDEN / "crx_scan_flex_8MiB_S512.cpx"}
 
 
 def default_depth() -> int:
@@ -201,15 +217,22 @@ def encode_breakdown(corpus: np.ndarray, argv: str, kernels=("K5", "K2")) -> lis
     """Encode ``corpus`` on the card under the command line ``argv`` (crz
     for K5 and K2, crx for K12e, crp for K13e) through the instrumented
     ``kernels``: their results, each with the archive's ``sha256``."""
-    codec, _, _, _, opts = parse_args(argv.split() + ["in", "out"])
+    env = dict(a.split("=") for a in argv.split() if "=" in a)
+    codec, _, _, _, opts = parse_args([a for a in argv.split() if "=" not in a]
+                                      + ["in", "out"])
     cp = make_params(codec, opts)
+    old = {k: blk._ENV[k] for k in env}
     with build.variant(*ENCODE_DEFINES, only=ENCODE_SOURCES):
         lib = build.lib()
         for k in kernels:
             _read(lib, k)
         blk.reset_launch_counts()
         buf = io.BytesIO()
-        encode_stream(corpus, buf, cp, "cuda", filters=opts["filters"])
+        blk._ENV.update(env)
+        try:
+            encode_stream(corpus, buf, cp, "cuda", filters=opts["filters"])
+        finally:
+            blk._ENV.update(old)
         ms = blk.kernel_ms()
         cyc = {k: _read(lib, k) for k in kernels}
     sha = hashlib.sha256(buf.getvalue()).hexdigest()

@@ -1,8 +1,10 @@
 """Full-width encode walls on the card, one tree against another.
 
 Each of the 8 MiB crz, crx, crp and crf goldens (``tests/data``, flexible
-parse, S=512, T=16384) is decoded on the card and its corpus encoded again
-through ``container.encode_stream`` under the golden's command line,
+parse, S=512, T=16384), then crz's ``-f0`` golden (KS) and crx's under
+``CPX_X_FINDER=scan`` (KSx), is decoded on the card and its corpus encoded
+again through ``container.encode_stream`` under the golden's command line
+(a finder knob in it set for the encode),
 ``reps`` times after one warm-up encode; each encode's wall is read by the
 host clock between two device synchronisations (the garbage collector
 run before it and off during it), and its kernels' device
@@ -10,7 +12,7 @@ time is the sum of the CUDA events the wrappers record around their
 launches.  A line a codec: the walls, the MB/s of the best, the kernels'
 ms, the host share (1 - kernel ms / wall: the time the card waits on the
 host) and the ms of K4, K4x, K7, K8, K13c, K3, K3p, K3b, K6 (both launches
-of crx summed) and K11 where the tree has them; the archive
+of crx summed), K11, KS and KSx where the tree has them; the archive
 is checked against the golden's SHA-256 (``tests/data/torch_golden.json``).
 Then the crz, crx and crp ``-g4`` encodes of the 29 MiB + 777 B input of
 ``chip_smoke.py``'s ``-g4`` cell (the 16 MiB chain golden's text and ELF
@@ -38,9 +40,9 @@ import time
 from pathlib import Path
 
 ARCHIVES = ("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx", "crp_8MiB_S512.cpx",
-            "crf_flex_8MiB_S512.cpx")
+            "crf_flex_8MiB_S512.cpx", "crz_f0_8MiB_S512.cpx", "crx_scan_flex_8MiB_S512.cpx")
 GROUP_SOURCE = "crz_chainm_textelf_flex_16MiB_S512.cpx"  # 8 MiB text, 8 MiB ELF
-PASSES = ("K4", "K4x", "K7", "K8", "K13c", "K3", "K3p", "K3b", "K6", "K11")
+PASSES = ("K4", "K4x", "K7", "K8", "K13c", "K3", "K3p", "K3b", "K6", "K11", "KS", "KSx")
 GROUPED = ("crz", "crx", "crp")  # -g4 codes a launch a group (crf loops its blocks)
 
 
@@ -76,10 +78,12 @@ def one(tree: Path, reps: int = 3) -> list:
             raise AssertionError(f"{name}: decoded bytes differ")
         return np.frombuffer(raw.getvalue(), np.uint8)
 
-    def encodes(corpus, cp, opts, group=1):
-        """reps timed encodes after a warm-up: (walls, kernel ms, each
-        pass's ms, peak bytes, the archive)."""
+    def encodes(corpus, cp, opts, group=1, env=None):
+        """reps timed encodes after a warm-up, with the finder knobs ``env``
+        set: (walls, kernel ms, each pass's ms, peak bytes, the archive)."""
         walls, kern, passes, peak = [], [], {k: [] for k in PASSES}, 0
+        old = {k: blk._ENV[k] for k in env or {}}
+        blk._ENV.update(env or {})
         for rep in range(reps + 1):
             buf = io.BytesIO()
             blk.reset_launch_counts()
@@ -99,6 +103,7 @@ def one(tree: Path, reps: int = 3) -> list:
                 for k in PASSES:
                     passes[k].append(ms.get(k))
                 peak = max(peak, torch.cuda.max_memory_allocated())
+        blk._ENV.update(old)
         return walls, kern, passes, peak, buf.getvalue()
 
     def row(codec, name, corpus, walls, kern, passes, **more):
@@ -113,11 +118,13 @@ def one(tree: Path, reps: int = 3) -> list:
     rows, params = [], {}
     for name in ARCHIVES:
         want = meta[name]
-        codec, _, _, _, opts = parse_args(want["argv"].split() + ["in", "out"])
+        argv = want["argv"].split()
+        env = dict(a.split("=") for a in argv if "=" in a)
+        codec, _, _, _, opts = parse_args([a for a in argv if "=" not in a] + ["in", "out"])
         cp = make_params(codec, opts)
-        params[codec] = cp, opts
+        params.setdefault(codec, (cp, opts))
         corpus = decoded(name)
-        walls, kern, passes, _, arc = encodes(corpus, cp, opts)
+        walls, kern, passes, _, arc = encodes(corpus, cp, opts, env=env)
         if hashlib.sha256(arc).hexdigest() != want["archive_sha256"]:
             raise AssertionError(f"{name}: the archive differs from the golden")
         rows.append(row(codec, name, corpus, walls, kern, passes))

@@ -1808,11 +1808,10 @@ def _stream_ptr():
 
 
 def _pos_scratch(p: BlockParams, device, G=None):
-    """Scratch of the bucket-reading kernels (KS, K1) for each lane's copy
-    of a bucket row ([S, D+1] positions, then KS's [S, D+1] byte scores),
-    used where it does not fit in shared memory
+    """Scratch of the decode scan K1 for each lane's copy of a bucket row
+    ([S, D+1] positions), used where it does not fit in shared memory
     (csrc/ppm_r.cuh::pos_smem_bytes); one a block on the block axis."""
-    return torch.empty(_lead(G) + (2, p.lanes, p.rolz_depth + 1), dtype=_i32,
+    return torch.empty(_lead(G) + (p.lanes, p.rolz_depth + 1), dtype=_i32,
                        device=device)
 
 
@@ -1844,9 +1843,11 @@ def search_scan(p: BlockParams, inp, n: int, rolz):
     Replaces comprox_tpu/codec/block.py::_search_body (1333-1388) with
     _rolz_best_match (939-1056) under _search_and_parse's scan
     (1630-1635); KSx its X branch (1351-1383) with the X inserts of
-    _post_step (623-639).  Kernels: csrc/search.cu (one thread per lane: one
-    CTA, or a cluster of CTAs above 1024 lanes; latency bound; see the
-    source note).  ``inp`` [S, T] uint8,
+    _post_step (623-639).  Kernel: csrc/search.cu (K5's structure: a
+    cluster of 8 CTAs, four threads a lane up to 2048 lanes; every row of a
+    step copied into shared tiles in one round trip after one barrier, a
+    top-k a thread merged over the quad, the probes a thread a candidate;
+    latency bound; see the source note).  ``inp`` [S, T] uint8,
     ``rolz`` [2^bits, D, 2] int32 (updated in place) -> [4, T, S] int32.
     Mode X: ``rolz`` is the three tables of :func:`_init_xsearch` (two
     bucket tables, ``xshort`` [2^16]; updated in place) -> [6, T, S] int32
@@ -1882,7 +1883,7 @@ def search_scan(p: BlockParams, inp, n: int, rolz):
     _launch(*(("KSx", lib.cpx_ksx_launch) if x_mode
               else ("KS", lib.cpx_ks_launch)), cfg.ctypes.data,
             inp.data_ptr(), *(tab.data_ptr() for tab in tabs), out.data_ptr(),
-            _pos_scratch(p, inp.device).data_ptr(), _stream_ptr())
+            _stream_ptr())
     return out
 
 

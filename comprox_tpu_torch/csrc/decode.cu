@@ -118,7 +118,7 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
   rolz = at_blk(rolz, 2LL * c.rolz_depth << c.rolz_bits);
   out = at_blk(out, woff + (long long)c.S * c.T);
   used = at_blk(used, 1);
-  gpos = at_blk(gpos, 2LL * c.S * pos_pitch(c.rolz_depth));
+  gpos = at_blk(gpos, (long long)c.S * pos_pitch(c.rolz_depth));
   __shared__ SmemModel own;  // this CTA's keys and wtot; with CL, CTA 0's models serve all
   SmemModel& sm = *at_rank<CL>(&own, 0);
   // the warps' row rings, then (pos_in_smem) the lanes' bucket-row copies
@@ -147,7 +147,7 @@ __global__ void __launch_bounds__(MAXT) k1_kernel(Cfg c, const int* __restrict__
   // the lanes' copies of bucket rows: the A event's row until the byte is
   // resolved, then the insert row
   const int pitch = pos_pitch(d);
-  int* const posbuf = pos_bufs<CL>(c, spos, gpos, pos_in_smem, pitch).pos;
+  int* const posbuf = pos_bufs(spos, gpos, pos_in_smem, pitch);
   int* const col = posbuf + (size_t)threadIdx.x * pitch;
 
   for (int t = 0; t < c.T; ++t) {
@@ -779,7 +779,7 @@ extern "C" int cpx_k13d_launch(const int* cfg, int G, const void* bn,
 }
 
 // G blocks (the block axis; the chain arm takes one): as the tableless
-// scan, and rolz [G, 2^bits, D, 2], gpos [G, 2, S, D + 1].
+// scan, and rolz [G, 2^bits, D, 2], gpos [G, S, D + 1].
 static int k1_launch(const int* cfg, int G, const int* bn, const void* stream, void* states,
                      void* o2, void* o1, void* o3, void* len, void* idx, void* sse,
                      void* sse_h, void* rolz, void* out, void* used, void* gpos,

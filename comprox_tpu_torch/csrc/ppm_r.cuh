@@ -38,8 +38,9 @@ static inline int lanes_per_thread(int S) {
 }
 
 // ---- one CTA, or one cluster of CTAs --------------------------------------
-// The step scans (KS, KSx, K5, K2 and its X and P entries, K1, K12d/K13d)
-// run one thread per lane: one CTA up to CPX_MAX_LANES lanes, and above
+// The step scans (K2 and its X and P entries, K1, K12d/K13d; K5, KS and
+// KSx take four threads a lane, rolz_search.cuh::quad_grid) run one thread
+// per lane: one CTA up to CPX_MAX_LANES lanes, and above
 // that one thread-block cluster of up to CPX_MAX_CLUSTER CTAs, which is
 // the launch's whole grid; lane blockIdx.x * blockDim.x + threadIdx.x.
 // The shared models live in CTA 0's shared memory, which the other CTAs
@@ -1812,8 +1813,8 @@ static __device__ __forceinline__ void lzp_insert(const Cfg& c, const Lzp& z, bo
   if (t >= 7) atomicMax(&z.t8[lzp_hash8(ctx4n, ctx4bn)], pos + 2);
 }
 
-// The bucket-reading kernels (KS, K1) keep each lane's copy of a bucket
-// row's positions in an [S, D+1] array: lane i's at pos + i * (D+1).  The
+// The decode scan K1 keeps each lane's copy of a bucket row's positions in
+// an [S, D+1] array: lane i's at pos + i * (D+1).  The
 // odd pitch keeps both a warp's stores of one row and the lanes' scans of
 // their own rows free of shared-memory bank conflicts.  The array is in
 // dynamic shared memory up to this size, else in a global scratch array;
@@ -1823,31 +1824,17 @@ static __device__ __forceinline__ void lzp_insert(const Cfg& c, const Lzp& z, bo
 
 static __host__ __device__ __forceinline__ int pos_pitch(int d) { return d + 1; }
 
-// score_bytes: the bytes per entry of an array a kernel keeps beside the
-// positions (KS keeps a one-byte prefix score; the global scratch has room
-// for up to four).
-static inline size_t pos_smem_bytes(const Cfg& c, int score_bytes = 0) {
+static inline size_t pos_smem_bytes(const Cfg& c) {
   const ScanGrid g = scan_grid(c.S);
   const int lanes = g.ctas > 1 ? g.threads : c.S;
-  size_t need = (size_t)pos_pitch(c.rolz_depth) * lanes * (sizeof(int) + score_bytes);
+  size_t need = (size_t)pos_pitch(c.rolz_depth) * lanes * sizeof(int);
   return need <= CPX_POS_SMEM_MAX ? need : 0;
 }
 
-// A scan kernel's base of its CTA's position rows, and of their byte
-// scores (KS, KSx, K5): in shared memory the CTA's own arrays, in the
-// global scratch the rows of its lanes.
-struct PosBufs {
-  int* pos;
-  int8_t* score;
-};
-
-template <bool CL>
-static __device__ __forceinline__ PosBufs pos_bufs(const Cfg& c, int* spos, int* gpos,
-                                                   bool in_smem, int pitch) {
-  const size_t first = (size_t)blockIdx.x * blockDim.x * pitch;
-  if (in_smem)
-    return {spos, reinterpret_cast<int8_t*>(spos + (size_t)(CL ? blockDim.x : c.S) * pitch)};
-  return {gpos + first, reinterpret_cast<int8_t*>(gpos + (size_t)c.S * pitch) + first};
+// The base of a CTA's position rows: in shared memory the CTA's own array,
+// in the global scratch the rows of its lanes.
+static __device__ __forceinline__ int* pos_bufs(int* spos, int* gpos, bool in_smem, int pitch) {
+  return in_smem ? spos : gpos + (size_t)blockIdx.x * blockDim.x * pitch;
 }
 
 // Copy bucket rows into the lanes' position arrays, a warp at a time: for

@@ -78,50 +78,6 @@ __device__ unsigned long long k5_prof[3 * K5_PHASES];
 #define K5_STAMP(k)
 #endif
 
-// A lane's threads (TPL consecutive ones of a warp): this thread's quarter
-// q, and the mask for their shuffles.
-template <int TPL>
-struct Quad {
-  int q;
-  unsigned mask;
-  __device__ Quad() : q(threadIdx.x % TPL),
-                      mask(((1u << TPL) - 1u) << ((threadIdx.x & 31) & ~(TPL - 1))) {}
-  template <typename T>
-  __device__ __forceinline__ T sum(T v) const {
-#pragma unroll
-    for (int o = 1; o < TPL; o <<= 1) v += __shfl_xor_sync(mask, v, o);
-    return v;
-  }
-};
-
-// This thread's pairs (2p, 2p+1), p = q, q + TPL, ..., of a lane's bucket
-// row into the lane's column col of a tile of `batch` columns, the pair at
-// int4 [p][col]: 16-byte copies where the row is 16-byte aligned (D even),
-// else 8-byte ones.
-template <int TPL>
-static __device__ __forceinline__ void row_to_tile(int4* tile, int batch, int col,
-                                                   const int2* row, int d, int q) {
-  for (int p = q; 2 * p < d; p += TPL) {
-    int4* dst = tile + p * batch + col;
-    if ((d & 1) == 0) {
-      const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(row + 2 * p)
-                   : "memory");
-    } else {
-      for (int h = 0; h < 2 && 2 * p + h < d; ++h) {
-        const unsigned a = (unsigned)__cvta_generic_to_shared(reinterpret_cast<int2*>(dst) + h);
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(a), "l"(row + 2 * p + h)
-                     : "memory");
-      }
-    }
-  }
-}
-
-// (p, j) after (pb, jb) in (position, slot) order.
-static __device__ __forceinline__ bool after(int p, int j, int pb, int jb) {
-  return p > pb || (p == pb && j > jb);
-}
-
 // The lane's search row: the fill, each proposal's equal and greater
 // counts, and the entry with the largest (prefix score, position, slot) —
 // the JAX rank key score*D + (D-1-recency), unique per slot: the positions
@@ -203,38 +159,6 @@ static __device__ SearchScan scan_search(const int4* col, int batch, int d, int 
   }
   r.rec = quad.sum(rec);
   return r;
-}
-
-// The slot of the rank-th oldest entry (rank < d) of the lane's insert row
-// in (position, slot) order: rank + 1 passes, each the least entry after
-// the last one picked (each thread its pairs, then the lane's least).
-template <int TPL>
-static __device__ int insert_slot(const int4* col, int batch, int d, int rank,
-                                  const Quad<TPL>& quad) {
-  int P = INT_MIN, J = -1;
-  for (int round = 0; round <= rank; ++round) {
-    int bp = INT_MAX, bj = d;
-    for (int p = quad.q; 2 * p < d; p += TPL) {
-      const int4 v = col[p * batch];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int e = h ? v.z : v.x, j = 2 * p + h;
-        const bool better = j < d && after(e, j, P, J) && (e < bp || (e == bp && j < bj));
-        bp = better ? e : bp;
-        bj = better ? j : bj;
-      }
-    }
-#pragma unroll
-    for (int o = 1; o < TPL; o <<= 1) {
-      const int op = __shfl_xor_sync(quad.mask, bp, o), oj = __shfl_xor_sync(quad.mask, bj, o);
-      const bool better = op < bp || (op == bp && oj < bj);
-      bp = better ? op : bp;
-      bj = better ? oj : bj;
-    }
-    P = bp;
-    J = bj;
-  }
-  return J;
 }
 
 template <int MAXT, bool CL, int TPL, bool CHAIN>
@@ -408,22 +332,8 @@ __global__ void __launch_bounds__(MAXT) k5_kernel(Cfg c, const uint8_t* __restri
 // The launch's threads a lane: K5_TPL up to 2048 lanes, else one.
 static int k5_tpl(int S) { return S <= 2048 ? K5_TPL : 1; }
 
-// The launch's grid: the lanes' threads over K5_CTAS CTAs (a cluster; at
-// least 32 threads a CTA, at most 1024: more CTAs where they need them).
-static ScanGrid k5_grid(int S) {
-  const int n = S * k5_tpl(S);
-  const int ctas = max(min(K5_CTAS, n / 32), max(scan_grid(n).ctas, 1));
-  return ScanGrid{ctas, ((n + ctas - 1) / ctas + 31) / 32 * 32};
-}
-
-// Lanes of a warp whose rows are in flight together: the most whose two
-// tiles fit the CTA's shared memory beside its static arrays.
-static int k5_batch(int threads, int tpl, int d) {
-  const size_t per_lane = (size_t)2 * ((d + 1) / 2) * sizeof(int4);
-  int b = 32 / tpl;
-  while (b > 1 && (size_t)(threads / 32) * b * per_lane > CPX_POS_SMEM_MAX) b /= 2;
-  return b;
-}
+// The launch's grid: the lanes' threads over K5_CTAS CTAs (a cluster).
+static ScanGrid k5_grid(int S) { return quad_grid(S, k5_tpl(S), K5_CTAS); }
 
 // The kernel arm whose CTA holds g.threads: its registers fit the CTA
 // (launch bounds).  A cluster's CTAs each take an SM of their own (a CTA
@@ -434,7 +344,7 @@ template <bool CL, int TPL, bool CHAIN>
 static int k5_launch_arm(const ScanGrid& g, void* stream, const Cfg& c, const uint8_t* inp,
                          const int* props, int* rolz, int* out, const uint8_t* win,
                          const int* bn, int* clusters) {
-  const int batch = k5_batch(g.threads, TPL, c.rolz_depth);
+  const int batch = tile_batch(g.threads, TPL, c.rolz_depth, 2);
   size_t smem = (size_t)(g.threads / 32) * batch * 2 * ((c.rolz_depth + 1) / 2) * sizeof(int4);
   if (CL) smem = max(smem, (size_t)CPX_SMEM_MAX / 2 + 4096);
 #define K5_ARM(T)                                                                           \

@@ -1,8 +1,9 @@
-// Byte-window and scored-row reads shared by the encoder scans that search
-// a bucket table: the search scans (KS and KSx, search.cu) and, for its
-// byte loads, the rank scan (K5, rank.cu); the window compare also serves
-// mode P's whole-block candidate pass (K13c, lzpcand.cu), which measures
-// every step's candidate before crp's modeling scan runs.
+// Byte windows and a lane's quad of threads, shared by the encoder scans
+// that read a bucket table: the rank scan (K5, rank.cu) and the search
+// scans (KS and KSx, search.cu), which copy a step's bucket rows into
+// shared tiles and scan them four threads a lane; the window compare also
+// serves mode P's whole-block candidate pass (K13c, lzpcand.cu), which
+// measures every step's candidate before crp's modeling scan runs.
 #pragma once
 
 #include <climits>
@@ -90,127 +91,98 @@ static __device__ __forceinline__ int len_cap_at(const Cfg& c, int i, int t) {
   return min(min(c.T - t, c.n - (i * c.T + t)), min(c.window, c.min_len + LEN_W - 1));
 }
 
-// Every alive lane's bucket row, read by its warp (coalesced, eight rows
-// in flight): positions into the lane's row of pos, and each entry's
-// prefix score against the lane's next four bytes (own) into its row of
-// score: the number of leading bytes of the 4-byte prefix cache that
-// match, -1 for an empty slot and for an entry at or after the lane's
-// fwd_limit (KSx: the lane's position; a distance cannot name it).  Returns
-// the lane's fill.  Call with the warp converged.
-static __device__ int warp_load_scored_rows(const int* rolz, int d, bool want,
-                                     uint32_t rctx, uint32_t own, int* pos,
-                                     int8_t* score, int pitch,
-                                     int fwd_limit = INT_MAX) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31, wbase = threadIdx.x & ~31;
-  const unsigned wanted = __ballot_sync(full, want);
-  int fill = 0;
-  for (int g = 0; g < 32; g += 8) {
-    if (!((wanted >> g) & 0xFFu)) continue;
-    int2 v[8][3];
+// ---- a lane's quad: K5's and the search scans' rows, four threads a lane ----
+
+// A lane's threads (TPL consecutive ones of a warp): this thread's quarter
+// q, and the mask for their shuffles.
+template <int TPL>
+struct Quad {
+  int q;
+  unsigned mask;
+  __device__ Quad() : q(threadIdx.x % TPL),
+                      mask(((1u << TPL) - 1u) << ((threadIdx.x & 31) & ~(TPL - 1))) {}
+  template <typename T>
+  __device__ __forceinline__ T sum(T v) const {
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      uint32_t r = __shfl_sync(full, rctx, g + u);
-      bool w = (wanted >> (g + u)) & 1u;
-      const int2* row = reinterpret_cast<const int2*>(rolz) + (size_t)r * d;
-#pragma unroll
-      for (int m = 0; m < 3; ++m) {
-        int j = lane + 32 * m;
-        v[u][m] = (w && j < d) ? row[j] : make_int2(0, 0);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      if (!((wanted >> (g + u)) & 1u)) continue;
-      const uint32_t own_l = __shfl_sync(full, own, g + u);
-      const int limit_l = __shfl_sync(full, fwd_limit, g + u);
-      const size_t off = (size_t)(wbase + g + u) * pitch;
-      int cnt = 0;
-#pragma unroll
-      for (int m = 0; m < 3; ++m) {
-        int j = lane + 32 * m;
-        if (j < d) {
-          int p = v[u][m].x;
-          uint32_t diff = (uint32_t)v[u][m].y ^ own_l;
-          int sc = ((diff & 0xFFu) == 0) + ((diff & 0xFFFFu) == 0) +
-                   ((diff & 0xFFFFFFu) == 0) + (diff == 0);
-          pos[off + j] = p;
-          score[off + j] = (int8_t)(p > 0 && p - 1 < limit_l ? sc : -1);
-          cnt += p > 0;
-        }
-      }
-      cnt = __reduce_add_sync(full, cnt);
-      if (lane == g + u) fill = cnt;
-    }
+    for (int o = 1; o < TPL; o <<= 1) v += __shfl_xor_sync(mask, v, o);
+    return v;
   }
-  return fill;
-}
-
-// top_k <= 8 (the CLI's -m maps to 1..8; block.py::search_scan checks it)
-#define KS_TOPK_MAX 8
-
-// The best entry of the lane's scored bucket row (block.py::_rolz_best_match
-// after the row read): the top k_top entries by (score, position, slot),
-// each whose 4-byte prefix matched probed to c.probe bytes, the first
-// longest extended to the full window, capped.
-struct BestMatch {
-  int length, src, slot;
 };
 
-static __device__ BestMatch rolz_best(const uint8_t* inp, const Cfg& c, int i, int t,
-                                      const int* pos_row, const int8_t* score_row,
-                                      uint64_t own8) {
-  const int d = c.rolz_depth, k_top = min(c.top_k, d);
-  const long long cur = (long long)i * c.T + t, row_end = (long long)(i + 1) * c.T;
-  // the top k_top entries by (score, position, slot), descending: the
-  // JAX rank key score*D + (D-1-recency), unique per slot.  A sorted
-  // list of packed keys (score+2) << 40 | position << 8 | slot, which
-  // order like those triples (positions < 2^31, slots < 2^8); an entry
-  // that does not beat the last kept key is skipped.
-  unsigned long long top[KS_TOPK_MAX];
-#pragma unroll
-  for (int u = 0; u < KS_TOPK_MAX; ++u) top[u] = 0;  // below every key
-  for (int s = 0; s < d; ++s) {
-    const unsigned long long key =
-        ((unsigned long long)(score_row[s] + 2) << 40) |
-        ((unsigned long long)(unsigned)pos_row[s] << 8) | (unsigned)s;
-    if (key <= top[KS_TOPK_MAX - 1]) continue;
-#pragma unroll
-    for (int u = KS_TOPK_MAX - 1; u > 0; --u)
-      top[u] = key > top[u - 1] ? top[u - 1] : (key > top[u] ? key : top[u]);
-    top[0] = key > top[0] ? key : top[0];
-  }
-  // probe the candidates whose 4-byte prefix matched (score 4); with
-  // probe <= 32, one 32-byte window each, all loads in flight together
-  const long long cap_n = (long long)c.S * c.T;
-  uint64_t cw[4];
-  cw[0] = own8;
-#pragma unroll
-  for (int u = 1; u < 4; ++u)
-    cw[u] = c.probe <= 32 ? load8(inp, cap_n, cur + 8 * u, row_end) : 0;
-  BestMatch best{-1, 0, 0};
-#pragma unroll
-  for (int k = 0; k < KS_TOPK_MAX; ++k) {
-    if (k >= k_top) break;
-    const int sc = (int)(top[k] >> 40) - 2, slot = (int)(top[k] & 0xFFu);
-    const int src_k = (int)((top[k] >> 8) & 0x7FFFFFFFu) - 1;
-    int len_k = 0;
-    if (sc == 4 && c.probe <= 32) {
-      len_k = c.probe;
-      const long long sb = max(src_k, 0);
-#pragma unroll
-      for (int u = 3; u >= 0; --u) {
-        uint64_t diff = load8(inp, cap_n, sb + 8 * u, cap_n) ^ cw[u];
-        if (diff) len_k = 8 * u + ((__ffsll((long long)diff) - 1) >> 3);
+// This thread's pairs (2p, 2p+1), p = q, q + TPL, ..., of a lane's bucket
+// row into the lane's column col of a tile of `batch` columns, the pair at
+// int4 [p][col]: 16-byte copies where the row is 16-byte aligned (D even),
+// else 8-byte ones.
+template <int TPL>
+static __device__ __forceinline__ void row_to_tile(int4* tile, int batch, int col,
+                                                   const int2* row, int d, int q) {
+  for (int p = q; 2 * p < d; p += TPL) {
+    int4* dst = tile + p * batch + col;
+    if ((d & 1) == 0) {
+      const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(row + 2 * p)
+                   : "memory");
+    } else {
+      for (int h = 0; h < 2 && 2 * p + h < d; ++h) {
+        const unsigned a = (unsigned)__cvta_generic_to_shared(reinterpret_cast<int2*>(dst) + h);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(a), "l"(row + 2 * p + h)
+                     : "memory");
       }
-      len_k = min(len_k, c.probe);
-    } else if (sc == 4) {
-      len_k = prefix_len(inp, c, i, t, src_k, c.probe);
     }
-    if (len_k > best.length) best = BestMatch{len_k, src_k, slot};  // first maximum (argmax)
   }
-  if (best.length >= c.probe)
-    best.length = prefix_len(inp, c, i, t, best.src, c.window);
-  best.length = min(best.length, len_cap_at(c, i, t));
-  return best;
+}
+
+// (p, j) after (pb, jb) in (position, slot) order.
+static __device__ __forceinline__ bool after(int p, int j, int pb, int jb) {
+  return p > pb || (p == pb && j > jb);
+}
+
+// The slot of the rank-th oldest entry (rank < d) of the lane's insert row
+// in (position, slot) order: rank + 1 passes, each the least entry after
+// the last one picked (each thread its pairs, then the lane's least).
+template <int TPL>
+static __device__ int insert_slot(const int4* col, int batch, int d, int rank,
+                                  const Quad<TPL>& quad) {
+  int P = INT_MIN, J = -1;
+  for (int round = 0; round <= rank; ++round) {
+    int bp = INT_MAX, bj = d;
+    for (int p = quad.q; 2 * p < d; p += TPL) {
+      const int4 v = col[p * batch];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = h ? v.z : v.x, j = 2 * p + h;
+        const bool better = j < d && after(e, j, P, J) && (e < bp || (e == bp && j < bj));
+        bp = better ? e : bp;
+        bj = better ? j : bj;
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < TPL; o <<= 1) {
+      const int op = __shfl_xor_sync(quad.mask, bp, o), oj = __shfl_xor_sync(quad.mask, bj, o);
+      const bool better = op < bp || (op == bp && oj < bj);
+      bp = better ? op : bp;
+      bj = better ? oj : bj;
+    }
+    P = bp;
+    J = bj;
+  }
+  return J;
+}
+
+// The grid of a launch of S lanes, tpl threads a lane, over at most
+// max_ctas CTAs (a cluster above one; at least 32 threads a CTA, at most
+// 1024: more CTAs where they need them).
+static inline ScanGrid quad_grid(int S, int tpl, int max_ctas) {
+  const int n = S * tpl;
+  const int ctas = max(min(max_ctas, n / 32), max(scan_grid(n).ctas, 1));
+  return ScanGrid{ctas, ((n + ctas - 1) / ctas + 31) / 32 * 32};
+}
+
+// Lanes of a warp whose `rows` tiles are in flight together: the most
+// whose tiles fit the CTA's shared memory beside its static arrays.
+static inline int tile_batch(int threads, int tpl, int d, int rows) {
+  const size_t per_lane = (size_t)rows * ((d + 1) / 2) * sizeof(int4);
+  int b = 32 / tpl;
+  while (b > 1 && (size_t)(threads / 32) * b * per_lane > CPX_POS_SMEM_MAX) b /= 2;
+  return b;
 }

@@ -44,7 +44,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argument types (pointers, the stream and ints)
 _SIGNATURES = {
-    "cpx_ks_launch": [_P] * 6,
+    "cpx_ks_launch": [_P] * 5,
     "cpx_k4_keys_launch": [_P] * 4,
     "cpx_radix_sort_launch": [_I] + [_P] * 4,
     "cpx_k4_find_launch": [_P] * 7,
@@ -72,7 +72,7 @@ _SIGNATURES = {
     "cpx_k11_launch": [_P, _I, _P, _I] + [_P] * 4,
     "cpx_k12e_launch": [_P, _I] + [_P] * 15,
     "cpx_k12d_launch": [_P, _I] + [_P] * 16,
-    "cpx_ksx_launch": [_P] * 8,
+    "cpx_ksx_launch": [_P] * 7,
     "cpx_k13c_launch": [_P] * 12,
     "cpx_k13e_launch": [_P, _I] + [_P] * 11,
     "cpx_k13d_launch": [_P, _I] + [_P] * 15,
@@ -95,11 +95,13 @@ _SIGNATURES = {
     "cpx_k13e_prof_read": [_P],
     "cpx_k6_prof_read": [_P],  # -DCPX_K6_PROF of parse.cu
     "cpx_k11_prof_read": [_P],  # -DCPX_K11_PROF of xrep.cu
+    "cpx_ks_prof_read": [_P],  # -DCPX_KS_PROF of search.cu
+    "cpx_ksx_prof_read": [_P],  # -DCPX_KSX_PROF of search.cu
 }
 _INSTRUMENTED = {"cpx_k1_prof_read", "cpx_k12d_prof_read", "cpx_k13d_prof_read",
                  "cpx_k5_prof_read", "cpx_k2_prof_read", "cpx_k12e_prof_read",
                  "cpx_k13e_prof_read", "cpx_k6_prof_read",
-                 "cpx_k11_prof_read"}
+                 "cpx_k11_prof_read", "cpx_ks_prof_read", "cpx_ksx_prof_read"}
 
 
 def _sources() -> list[Path]:

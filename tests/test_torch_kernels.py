@@ -534,7 +534,8 @@ def test_flexible_block_roundtrip_on_card(cuda_device):
 @pytest.mark.parametrize("flexible", [False, True])
 def test_wide_block_keeps_positions_in_global_scratch(cuda_device, flexible):
     """S=1024, D=64: the [S, D+1] position array (260 KB) is over the shared
-    memory budget, so KS (or K5) and K1 use the global scratch array."""
+    memory budget, so K1 uses the global scratch array (KS and K5 copy their
+    rows into shared tiles, a batch of a warp's lanes at a time)."""
     p = blk.BlockParams(**dict(WIDE, lanes=1024, steps=16, rolz_depth=64,
                                flexible=flexible))
     data = text(p.capacity - 5, seed=9)
@@ -569,9 +570,10 @@ def test_step_scans_take_a_cluster(cuda_device, monkeypatch, codec, flexible,
 @pytest.mark.cuda
 @pytest.mark.parametrize("flexible", [False, True])
 def test_cluster_keeps_positions_in_global_scratch(cuda_device, flexible):
-    """S=2048, D=64: each CTA's [1024, D+1] position rows (333 KB with KS's
-    scores) are over the shared memory budget, so the cluster's KS (or K5)
-    and K1 use the global scratch array, each CTA its own lanes' rows."""
+    """S=2048, D=64: each CTA's [1024, D+1] position rows (266 KB) are over
+    the shared memory budget, so the cluster's K1 uses the global scratch
+    array, each CTA its own lanes' rows (KS and K5: smaller batches of
+    their row tiles)."""
     p = blk.BlockParams(**dict(WIDE, lanes=2048, steps=16, rolz_depth=64,
                                flexible=flexible))
     data = text(p.capacity - 5, seed=10)
@@ -1049,7 +1051,8 @@ def test_p_block_roundtrip_on_card(cuda_device, lanes):
 @pytest.mark.parametrize("name", ["text", "zeros", "period7", "random"])
 def test_x_search_kernel_matches_plain(cuda_device, name, kw):
     """KSx against its plain version: the six grids, both bucket tables and
-    the near-match cache; also with the row copies in global scratch."""
+    the near-match cache; also at S=1024, D=64 (four row tiles a lane:
+    smaller batches of a warp's lanes)."""
     p = blk.BlockParams(**{**X_WIDE, "rolz_bits": 10, "rolz_depth": 16, **kw})
     n = p.capacity - 100
     inp = torch.from_numpy(
@@ -1058,6 +1061,49 @@ def test_x_search_kernel_matches_plain(cuda_device, name, kw):
     want = blk.search_scan_plain(p, inp, n, tp)
     assert torch.equal(blk.search_scan(p, inp, n, tk), want)
     assert all(torch.equal(a, b) for a, b in zip(tk, tp))
+
+
+# The search scans at the main path's depth (D = 64, window 250): S=512 at
+# T=2048 (every bucket row filled), a ragged S=72, the cluster's widest
+# four-thread arm (S=2048) and one thread a lane (S=4096), top_k 1 and 8,
+# a 48-byte probe (prefix_len's path) and an all-zero block (one hot
+# bucket); the block 100 bytes short.
+SEARCH_CASES = {
+    "S512_T2048": dict(lanes=512, steps=2048),
+    "ragged_S72": dict(lanes=72, steps=96),
+    "S2048": dict(lanes=2048, steps=32),
+    "S4096": dict(lanes=4096, steps=16),
+    "top_k1": dict(lanes=512, steps=64, top_k=1),
+    "top_k8": dict(lanes=512, steps=64, top_k=8),
+    "probe48": dict(lanes=512, steps=64, probe=48),
+    "zeros": dict(lanes=512, steps=256),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SEARCH_CASES))
+@pytest.mark.parametrize("mode", ["R", "X"])
+def test_search_kernels_match_plain_at_depth_64(cuda_device, mode, case):
+    """KS and KSx against their plain versions at tolerance 0: every grid
+    and every table after the launch (KS's bucket table; KSx's two bucket
+    tables and the near-match cache)."""
+    base = (dict(WIDE, min_len=5, window=250) if mode == "R"
+            else dict(X_WIDE, rolz_dec=1))
+    kw = dict(SEARCH_CASES[case])
+    p = blk.BlockParams(**dict(base, rolz_bits=12, rolz_depth=64, flexible=False, **kw))
+    n = p.capacity - 100
+    buf = np.zeros(p.capacity, np.uint8)
+    if case != "zeros":
+        buf[:n] = text(n, seed=p.lanes + p.steps)
+    inp = torch.from_numpy(buf.reshape(p.lanes, p.steps)).to(cuda_device)
+    init = blk._init_rolz if mode == "R" else blk._init_xsearch
+    tk, tp = init(p, cuda_device), init(p, cuda_device)
+    before = blk.LAUNCHES["KS" if mode == "R" else "KSx"]
+    got = blk.search_scan(p, inp, n, tk)
+    assert blk.LAUNCHES["KS" if mode == "R" else "KSx"] == before + 1
+    assert torch.equal(got, blk.search_scan_plain(p, inp, n, tp))
+    pairs = [(tk, tp)] if mode == "R" else list(zip(tk, tp))
+    assert all(torch.equal(a, b) for a, b in pairs)
 
 
 @pytest.mark.cuda

@@ -76,7 +76,8 @@ def test_phase_variants_are_built_from_their_sources():
     specs = phases.variant_specs((0, 4))
     assert specs[:2] == [(phases.defines(0), ("decode.cu",)),
                          (phases.defines(4), ("decode.cu",))]
-    assert specs[2] == (("-DCPX_K5_PROF", "-DCPX_K2_PROF"), ("rank.cu", "model.cu"))
+    assert specs[2] == (("-DCPX_K5_PROF", "-DCPX_K2_PROF", "-DCPX_KS_PROF"),
+                        ("rank.cu", "model.cu", "search.cu"))
     assert phases.variant_specs((), encode=False) == []
     keys = {build.library_path(*s) for s in specs}
     assert len(keys) == 3 and build.library_path() not in keys
