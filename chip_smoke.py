@@ -113,8 +113,9 @@ no result line:
    its error against the f32 gather is printed), timed beside the plain
    version, one PyTorch call for the same function and the bound; one line
    a geometry, as ``python -m comprox_tpu_torch.benchmarks.probes`` prints
-   them.  The kernels line carries each probe's last geometry (P1: its warp
-   arm; P4: its persistent arm) and the launches of the whole phase.
+   them.  The kernels line carries each probe's last headline case (P1: its
+   warp arm; P3: its bulk-copy arm; P4: its persistent arm) and the
+   launches of the whole phase.
 13. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
    CLI; archive SHA-256 == the JAX golden; fails if K13c, K13e, K3, K3p,
    K3b or K13d was not launched.
@@ -398,7 +399,8 @@ _ARM_PARAMS = {"k1_kernel": ("MAXT", "CL"), "k12d_kernel": ("MAXT", "MODE", "CL"
                "k5_kernel": ("MAXT", "CL", "TPL", "CHAIN"), "k6_kernel": ("FAST", "KG"),
                "k11_kernel": (), "k3_kernel": ("NS",), "k3p_kernel": (),
                "k4_find": ("NC",), "k4_heads": ("NC",), "k4_final": ("NC", "WALK"),
-               "k3b_count": (), "k3b_scan": (), "k3b_scatter": ()}
+               "k3b_count": (), "k3b_scan": (), "k3b_scatter": (),
+               "pr_row_bulk": (), "pr_onehot_wgmma": ()}
 _MANGLED = re.compile(r"_ZN(\d+)")
 _ARM_ARG = re.compile(r"L[ib](\d+)E")
 
@@ -429,8 +431,8 @@ def _arm_name(fn: str):
 
 def _arms(log: str) -> list:
     """(library, kernel arm, registers, spill stores, spill loads) of each
-    step scan's and per-lane pass's arm and each K13c kernel in a verbose
-    build's output."""
+    step scan's and per-lane pass's arm, each K13c kernel and the probes'
+    bulk-copy and wgmma kernels in a verbose build's output."""
     out, lib, fn, spill = [], "", None, (0, 0)
     for line in log.splitlines():
         if line.startswith("libcpx_kernels_"):
@@ -2050,7 +2052,7 @@ def phase_full_width_groups(text_elf):
 def phase_probes():
     """The nine probes at their own geometries, each kernel against its
     plain version (tolerance 0).  Returns ({name: record of its last
-    geometry}, {name: launches in this phase})."""
+    headline case}, {name: launches in this phase})."""
     from comprox_tpu_torch.benchmarks import probes
 
     probes.reset_launch_counts()
@@ -2061,8 +2063,7 @@ def phase_probes():
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{r['label']}: kernel != plain "
                                  f"(max err {r['max_abs_err']})")
-        if r["probe"] in launches and not (
-                "a thread a row" in r["label"] or "one launch a step" in r["label"]):
+        if r["probe"] in launches and r["headline"]:
             res[r["probe"]] = dict(
                 max_abs_err=r["max_abs_err"], ms=r["us"] / 1e3,
                 plain_ms=r["plain_us"] / 1e3, bound_ms=r["bound_us"] / 1e3,

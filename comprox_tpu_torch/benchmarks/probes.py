@@ -34,6 +34,7 @@ lanes, the JAX probes' shapes and input recipes, numpy from a seed).  On the
 card::
 
     python -m comprox_tpu_torch.benchmarks.probes [p1 p1b ...]
+    python -m comprox_tpu_torch.benchmarks.probes sweep 1 2 4 8 16 16 8 4 2 1
 
 prints one line per case in the JAX probes' words: microseconds per call
 (CUDA events, the mean of 20 calls after 3 warm-ups, as JAX's ``timeit``;
@@ -45,7 +46,9 @@ its plain version), the plain version's time, the time of one PyTorch call
 for the same function (``library=``, never used here) and the least time
 the card could take (``bound=``).  ``LAUNCHES`` counts each probe's kernel
 launches.  P5 and P9 flush the L2 cache before each timed call: their
-table stands for one in device memory.
+table stands for one in device memory.  ``sweep`` times P3's bulk-copy arm
+with each number of rows a CTA named (``BULK_R``; a build of ``probes.cu``
+for each value, in turns as listed).
 """
 
 from __future__ import annotations
@@ -72,6 +75,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
 L2_FLUSH_BYTES = 96 << 20  # twice the 50 MB L2
+BULK_R = 2  # P3's rows a CTA (probes.cu's PR_BULK_R)
+ONEHOT_MAX_S = 512  # P8's output rows a CTA holds (probes.cu's OH_S)
 
 LAUNCHES = {k: 0 for k in ("P1", "P1b", "P3", "P4", "P5", "P6", "P7", "P8", "P9")}
 _i32, _f32 = torch.int32, torch.float32
@@ -173,14 +178,33 @@ def probe_elem(table, idx):
     return _elem_gather("P7", table, idx)
 
 
-def probe_dynslice_loop(table, idx):
-    """P3: ``table[idx]`` by S row reads one after another (one warp)."""
+def probe_dynslice_loop(table, idx, arm="bulk"):
+    """P3: ``table[idx]`` by S row reads ([rows, width] int32, [S] int32 ->
+    [S, width]).  Arm "bulk": BULK_R rows a CTA, each a bulk copy of the
+    copy engine, stored with one more (a width that is a multiple of 4, a
+    16-byte aligned table, BULK_R rows within 48 KB); "warp": one warp
+    reading the rows one after another."""
+    if arm not in ("bulk", "warp"):
+        raise ValueError(f"arm {arm!r}: 'bulk' or 'warp'")
     if _dispatch(table, idx) == "cpu":
         return row_gather_plain(table, idx)
     _expect_rows(table, idx)
-    out = torch.empty((idx.shape[0], table.shape[1]), dtype=_i32, device=idx.device)
-    _launch("P3", "cpx_pr_row_loop_launch", table.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), *table.shape, idx.shape[0])
+    rows, width = table.shape
+    S = idx.shape[0]
+    out = torch.empty((S, width), dtype=_i32, device=idx.device)
+    if arm == "warp":
+        _launch("P3", "cpx_pr_row_loop_launch", table.data_ptr(), idx.data_ptr(),
+                out.data_ptr(), rows, width, S)
+        return out
+    smem = 4 * width * min(BULK_R, S)
+    if width % 4 or table.data_ptr() % 16 or smem > 48 * 1024:
+        raise ValueError(
+            f"the bulk-copy arm takes rows of a multiple of 16 bytes, a "
+            f"16-byte aligned table and {BULK_R} rows within 48 KB (width "
+            f"{width}, table at {table.data_ptr() % 16} past 16 bytes: "
+            f"{smem} B)")
+    _launch("P3", "cpx_pr_row_bulk_launch", table.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), rows, width, S)
     return out
 
 
@@ -267,17 +291,25 @@ def probe_dma(table, idx):
 def probe_kernel_onehot(table, idx):
     """P8: ``onehot(idx) @ bf16(table)`` with f32 accumulation on the tensor
     cores ([rows, width] f32, [S] int32 -> [S, width] f32), which equals
-    ``bf16(table)[idx]``; S, rows and width multiples of 64 on the card."""
+    ``bf16(table)[idx]`` for a finite table: a table with an Inf or NaN is
+    not P8's input (its products with the one-hot's zeros are NaN).  On the
+    card rows and width are multiples of 64, S at most 512 (the rows a CTA
+    holds) and the table 16-byte aligned."""
     if _dispatch(table, idx) == "cpu":
         return onehot_bf16_plain(table, idx)
     _expect_rows(table, idx, _f32)
     rows, width = table.shape
-    if rows % 64 or width % 64 or idx.shape[0] % 64:
-        raise ValueError(f"S {idx.shape[0]}, rows {rows} and width {width} "
-                         "must be multiples of 64")
-    out = torch.empty((idx.shape[0], width), dtype=_f32, device=idx.device)
-    _launch("P8", "cpx_pr_onehot_mma_launch", table.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), rows, width, idx.shape[0])
+    S = idx.shape[0]
+    if rows % 64 or width % 64 or not rows or not width:
+        raise ValueError(f"rows {rows} and width {width} must be multiples of 64")
+    if not 1 <= S <= ONEHOT_MAX_S:
+        raise ValueError(f"S {S}: the kernel holds 1 to {ONEHOT_MAX_S} output "
+                         "rows a CTA")
+    if table.data_ptr() % 16:
+        raise ValueError("the table must be 16-byte aligned")
+    out = torch.empty((S, width), dtype=_f32, device=idx.device)
+    _launch("P8", "cpx_pr_onehot_wgmma_launch", table.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), rows, width, S)
     return out
 
 
@@ -404,11 +436,15 @@ def cases_p2(device, lanes=S, seed=0):
 
 
 def cases_p3(device, lanes=S, seed=0):
+    """The bulk-copy arm (the headline) and one warp reading rows in order."""
     rows, width = 8192, 256
     table = _on(device, np.arange(rows * width, dtype=np.int32).reshape(rows, width))
     idx = _on(device, _rng(seed, "p3").integers(0, rows, lanes, dtype=np.int32))
-    return [_gather("P3", f"P3 dynslice loop {lanes}x[{width}] (one warp, rows in order)",
-                    probe_dynslice_loop, table, idx, rows=lanes)]
+    return [_gather("P3", f"P3 dynslice loop {lanes}x[{width}] ({words})",
+                    functools.partial(probe_dynslice_loop, arm=arm), table, idx,
+                    rows=lanes, headline=arm == "bulk")
+            for arm, words in (("bulk", f"bulk copies, {BULK_R} rows a CTA"),
+                               ("warp", "one warp, rows in order"))]
 
 
 def cases_p4(device, lanes=S, seed=0, steps=STEPS):
@@ -618,14 +654,41 @@ def run(names=None) -> list:
     return [measure(case) for name in names or PROBES for case in PROBES[name]("cuda")]
 
 
+def sweep(rs) -> list:
+    """P3's bulk-copy arm with each number of rows a CTA in ``rs`` (in that
+    order; a value may repeat, for turns): a build of ``probes.cu`` with
+    ``-DPR_BULK_R=r`` each, all started together.  Returns [(r, us)]."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the probes run on a CUDA card; none found")
+    specs = {r: ((f"-DPR_BULK_R={r}",), ("probes.cu",)) for r in rs}
+    build.build_many(list(specs.values()))
+    case = cases_p3("cuda")[0]
+    out = []
+    for r in rs:
+        with build.variant(*specs[r][0], only=specs[r][1]):
+            got = case.kernel()
+            err = max_abs_err(got, case.plain())
+            t = timeit(case.kernel)
+        print(f"P3 bulk copies, {r} rows a CTA: {t * 1e6:.2f} us exact={err == 0}",
+              flush=True)
+        if err:
+            raise AssertionError(f"P3 at {r} rows a CTA: kernel != plain")
+        out.append((r, t * 1e6))
+    return out
+
+
 def main(argv) -> int:
-    names = argv or list(PROBES)
+    rs = ([int(r) for r in argv[1:]] or [1, 2, 4, 8, 16]) if argv[:1] == ["sweep"] else None
+    names = [] if rs else argv or list(PROBES)
     unknown = [n for n in names if n not in PROBES]
     if unknown:
-        raise SystemExit(f"unknown probe(s) {unknown}: {' '.join(PROBES)}")
+        raise SystemExit(f"unknown probe(s) {unknown}: {' '.join(PROBES)} or sweep")
     if torch.cuda.is_available():
         print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
-    run(names)
+    if rs:
+        sweep(rs)
+    else:
+        run(names)
     return 0
 
 

@@ -79,11 +79,12 @@ _SIGNATURES = {
     # the probes (benchmarks/probes.py)
     "cpx_pr_row_gather_launch": [_P] * 3 + [_I] * 4 + [_P],
     "cpx_pr_elem_gather_launch": [_P] * 3 + [_I] * 2 + [_P],
+    "cpx_pr_row_bulk_launch": [_P] * 3 + [_I] * 3 + [_P],
     "cpx_pr_row_loop_launch": [_P] * 3 + [_I] * 3 + [_P],
     "cpx_pr_steps_launch": [_P] * 2 + [_I] * 4 + [_P],
     "cpx_pr_step_launch": [_P] * 2 + [_I] * 3 + [_P],
     "cpx_pr_row_ring_launch": [_P] * 3 + [_I] * 4 + [_P],
-    "cpx_pr_onehot_mma_launch": [_P] * 3 + [_I] * 3 + [_P],
+    "cpx_pr_onehot_wgmma_launch": [_P] * 3 + [_I] * 3 + [_P],
     # only in the instrumented builds (-DCPX_K1_PROF and -DCPX_K12D_PROF of
     # decode.cu, -DCPX_K5_PROF of rank.cu, -DCPX_K2_PROF of model.cu)
     "cpx_k1_prof_read": [_P],

@@ -1155,6 +1155,80 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                                            device=cuda_device), idx, 32)
     with pytest.raises(ValueError, match="int32"):
         probes.probe_vmem_gather(torch.zeros((64, 8), device=cuda_device), idx)
+    # P8: more rows than a CTA's accumulators hold, a table off 16 bytes
+    f32 = torch.zeros(64 * 65, device=cuda_device)
+    with pytest.raises(ValueError, match="1 to 512 output rows"):
+        probes.probe_kernel_onehot(torch.zeros((64, 64), device=cuda_device),
+                                   torch.zeros(513, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probes.probe_kernel_onehot(f32[1:1 + 64 * 64].view(64, 64), idx)
+    # P3's bulk copies: rows not a multiple of 16 bytes, a table off 16
+    # bytes, more rows a CTA than 48 KB; an unknown arm
+    i32 = torch.zeros(64 * 65, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        probes.probe_dynslice_loop(i32[:64 * 6].view(64, 6), idx)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probes.probe_dynslice_loop(i32[1:1 + 64 * 64].view(64, 64), idx)
+    with pytest.raises(ValueError, match="48 KB"):  # just over, BULK_R rows
+        probes.probe_dynslice_loop(torch.zeros((8, 12 * 1024 // probes.BULK_R + 4),
+                                               dtype=torch.int32, device=cuda_device), idx)
+    with pytest.raises(ValueError, match="'bulk' or 'warp'"):
+        probes.probe_dynslice_loop(i32.view(65, 64), idx, "ring")
+    # what the one warp takes, the bulk copies refuse
+    got = probes.probe_dynslice_loop(i32[:64 * 6].view(64, 6), idx, "warp")
+    assert torch.equal(got, i32[:64 * 6].view(64, 6)[idx.long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [512, 500, 5, 1])
+def test_p3_bulk_copies_take_a_ragged_last_cta(cuda_device, S):
+    """S a multiple of the rows a CTA, not one, and below it."""
+    from comprox_tpu_torch.benchmarks import probes
+
+    rng = np.random.default_rng(S)
+    table = torch.from_numpy(rng.integers(0, 1 << 30, (1000, 256), dtype=np.int32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, 1000, S, dtype=np.int32)).to(cuda_device)
+    before = probes.LAUNCHES["P3"]
+    got = probes.probe_dynslice_loop(table, idx)
+    assert probes.LAUNCHES["P3"] == before + 1
+    assert torch.equal(got, table[idx.long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width,S,kind", [
+    (8192, 384, 512, "one range"), (8192, 384, 512, "range edges"),
+    (4096, 384, 512, "range edges"), (4096, 384, 512, "repeated"),
+    (64 * 23, 384, 512, "random"), (64 * 23, 128, 512, "random"),
+    (4096, 64, 512, "random"), (4096, 384, 100, "random"), (64, 64, 1, "random")])
+def test_onehot_wgmma_edges_match_plain(cuda_device, rows, width, S, kind):
+    """P8's kernel at the CPU mirror's edges (tests/test_torch_probes_order.py):
+    all indices in one K range, every range's first and last row with 0 and
+    rows - 1, repeated indices, a ragged last range, other widths, S below
+    512; equal to bf16(table)[idx], tolerance 0."""
+    from comprox_tpu_torch.benchmarks import probes
+
+    rng = np.random.default_rng([rows, width, S])
+    table = torch.from_numpy(rng.integers(0, 24576, (rows, width)).astype(np.float32))
+    chunks = rows // 64
+    want = max(1, torch.cuda.get_device_properties(0).multi_processor_count // (width // 64))
+    per = -(-chunks // want)
+    span = per * 64
+    if kind == "one range":
+        idx = rng.integers(min(3 * span, rows - span), min(4 * span, rows), S)
+    elif kind == "range edges":
+        firsts = np.arange(0, rows, span)
+        idx = np.resize(np.concatenate([[0, rows - 1], firsts,
+                                        np.minimum(firsts + span, rows) - 1]), S)
+    elif kind == "repeated":
+        idx = np.resize(rng.integers(0, rows, 5), S)
+    else:
+        idx = rng.integers(0, rows, S)
+        idx[0], idx[-1] = 0, rows - 1
+    table, idx = table.to(cuda_device), torch.from_numpy(idx.astype(np.int32)).to(cuda_device)
+    before = probes.LAUNCHES["P8"]
+    got = probes.probe_kernel_onehot(table, idx)
+    assert probes.LAUNCHES["P8"] == before + 1
+    assert torch.equal(got, probes.onehot_bf16_plain(table, idx))
 
 
 def test_wide_block_runs_on_the_cpu_and_is_refused_on_a_card(monkeypatch):

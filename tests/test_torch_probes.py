@@ -170,10 +170,12 @@ def test_probe_cases_on_the_cpu(key):
     kernel counts under its own name.  P8's bound is its bf16 operations
     (the bytes of bf16(table)[idx] take less time); the headline cases (the
     probe's row of chip_smoke's kernels line is its last) are P1's warp
-    arm and P4's persistent arm."""
+    arm, P3's bulk-copy arm and P4's persistent arm."""
     cases = probes.PROBES[key]("cpu", LANES, seed=1)
     heads = [c for c in cases if c.headline]
-    assert len(heads) == {"p1": len(cases) // 2, "p4": 1}.get(key, len(cases))
+    assert len(heads) == {"p1": len(cases) // 2, "p3": 1, "p4": 1}.get(key, len(cases))
+    if key == "p3":
+        assert len(cases) == 2 and "bulk copies" in heads[0].label
     for case in cases:
         got = case.kernel()
         assert probes.max_abs_err(got, case.plain()) == 0, case.label
