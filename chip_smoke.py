@@ -115,7 +115,8 @@ no result line:
    a geometry, as ``python -m comprox_tpu_torch.benchmarks.probes`` prints
    them.  The kernels line carries each probe's last headline case (P1: its
    warp arm; P3: its bulk-copy arm; P4: its persistent arm) and the
-   launches of the whole phase.
+   launches of the whole phase under the probe's name (P3's one-warp arm
+   counts apart, under ``P3w``, which must launch too).
 13. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
    CLI; archive SHA-256 == the JAX golden; fails if K13c, K13e, K3, K3p,
    K3b or K13d was not launched.

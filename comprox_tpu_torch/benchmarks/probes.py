@@ -34,21 +34,20 @@ lanes, the JAX probes' shapes and input recipes, numpy from a seed).  On the
 card::
 
     python -m comprox_tpu_torch.benchmarks.probes [p1 p1b ...]
-    python -m comprox_tpu_torch.benchmarks.probes sweep 1 2 4 8 16 16 8 4 2 1
 
 prints one line per case in the JAX probes' words: microseconds per call
 (CUDA events, the mean of 20 calls after 3 warm-ups, as JAX's ``timeit``;
 the calls wait behind a sleep kernel, so the events time the card's work
 and the launch gaps between calls, not Python's issue of them, except in
-P4's arm of one launch a step from the host),
+P4's arm of one launch a step from the host; a probe named twice is run
+twice, in the order named, for turns),
 nanoseconds per row where JAX printed them, ``exact=`` (the kernel equals
 its plain version), the plain version's time, the time of one PyTorch call
 for the same function (``library=``, never used here) and the least time
 the card could take (``bound=``).  ``LAUNCHES`` counts each probe's kernel
-launches.  P5 and P9 flush the L2 cache before each timed call: their
-table stands for one in device memory.  ``sweep`` times P3's bulk-copy arm
-with each number of rows a CTA named (``BULK_R``; a build of ``probes.cu``
-for each value, in turns as listed).
+launches (P3's one-warp arm under ``P3w``, apart from its headline arm).
+P5 and P9 flush the L2 cache before each timed call: their table stands
+for one in device memory.
 """
 
 from __future__ import annotations
@@ -75,10 +74,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
 L2_FLUSH_BYTES = 96 << 20  # twice the 50 MB L2
-BULK_R = 2  # P3's rows a CTA (probes.cu's PR_BULK_R)
 ONEHOT_MAX_S = 512  # P8's output rows a CTA holds (probes.cu's OH_S)
 
-LAUNCHES = {k: 0 for k in ("P1", "P1b", "P3", "P4", "P5", "P6", "P7", "P8", "P9")}
+LAUNCHES = {k: 0 for k in ("P1", "P1b", "P3", "P3w", "P4", "P5", "P6", "P7", "P8",
+                           "P9")}
 _i32, _f32 = torch.int32, torch.float32
 
 
@@ -180,10 +179,11 @@ def probe_elem(table, idx):
 
 def probe_dynslice_loop(table, idx, arm="bulk"):
     """P3: ``table[idx]`` by S row reads ([rows, width] int32, [S] int32 ->
-    [S, width]).  Arm "bulk": BULK_R rows a CTA, each a bulk copy of the
-    copy engine, stored with one more (a width that is a multiple of 4, a
-    16-byte aligned table, BULK_R rows within 48 KB); "warp": one warp
-    reading the rows one after another."""
+    [S, width]).  Arm "bulk": a few rows a CTA (probes.cu's ``BULK_R``),
+    each a bulk copy of the copy engine, stored with one more (a width that
+    is a multiple of 4, a 16-byte aligned table, a CTA's rows within 48 KB);
+    "warp": one warp reading the rows one after another, counted under
+    ``P3w``."""
     if arm not in ("bulk", "warp"):
         raise ValueError(f"arm {arm!r}: 'bulk' or 'warp'")
     if _dispatch(table, idx) == "cpu":
@@ -193,14 +193,14 @@ def probe_dynslice_loop(table, idx, arm="bulk"):
     S = idx.shape[0]
     out = torch.empty((S, width), dtype=_i32, device=idx.device)
     if arm == "warp":
-        _launch("P3", "cpx_pr_row_loop_launch", table.data_ptr(), idx.data_ptr(),
+        _launch("P3w", "cpx_pr_row_loop_launch", table.data_ptr(), idx.data_ptr(),
                 out.data_ptr(), rows, width, S)
         return out
-    smem = 4 * width * min(BULK_R, S)
+    smem = build.lib().cpx_pr_row_bulk_smem(width, S)
     if width % 4 or table.data_ptr() % 16 or smem > 48 * 1024:
         raise ValueError(
             f"the bulk-copy arm takes rows of a multiple of 16 bytes, a "
-            f"16-byte aligned table and {BULK_R} rows within 48 KB (width "
+            f"16-byte aligned table and a CTA's rows within 48 KB (width "
             f"{width}, table at {table.data_ptr() % 16} past 16 bytes: "
             f"{smem} B)")
     _launch("P3", "cpx_pr_row_bulk_launch", table.data_ptr(), idx.data_ptr(),
@@ -345,7 +345,7 @@ class Case:
     """One geometry of one probe: ``kernel`` and ``plain`` take no
     arguments (the inputs are bound) and return the result."""
 
-    probe: str  # the LAUNCHES key, or "P2" (no kernel)
+    probe: str  # the probe: its LAUNCHES key, or "P2" (no kernel)
     label: str  # the JAX probe's words
     kernel: Callable
     plain: Callable
@@ -359,6 +359,10 @@ class Case:
     reference: Optional[Callable] = None  # P8: the f32 gather
     # may stand for the probe: chip_smoke's kernels line takes its last such
     headline: bool = True
+    counter: str = ""  # the LAUNCHES key its kernel counts under, if not probe
+
+    def __post_init__(self):
+        self.counter = self.counter or self.probe
 
     def bound(self):
         """(seconds, "bytes" or "operations"): the larger of the bytes over
@@ -442,9 +446,9 @@ def cases_p3(device, lanes=S, seed=0):
     idx = _on(device, _rng(seed, "p3").integers(0, rows, lanes, dtype=np.int32))
     return [_gather("P3", f"P3 dynslice loop {lanes}x[{width}] ({words})",
                     functools.partial(probe_dynslice_loop, arm=arm), table, idx,
-                    rows=lanes, headline=arm == "bulk")
-            for arm, words in (("bulk", f"bulk copies, {BULK_R} rows a CTA"),
-                               ("warp", "one warp, rows in order"))]
+                    rows=lanes, headline=arm == "bulk", counter=counter)
+            for arm, words, counter in (("bulk", "bulk copies", "P3"),
+                                        ("warp", "one warp, rows in order", "P3w"))]
 
 
 def cases_p4(device, lanes=S, seed=0, steps=STEPS):
@@ -654,41 +658,14 @@ def run(names=None) -> list:
     return [measure(case) for name in names or PROBES for case in PROBES[name]("cuda")]
 
 
-def sweep(rs) -> list:
-    """P3's bulk-copy arm with each number of rows a CTA in ``rs`` (in that
-    order; a value may repeat, for turns): a build of ``probes.cu`` with
-    ``-DPR_BULK_R=r`` each, all started together.  Returns [(r, us)]."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("the probes run on a CUDA card; none found")
-    specs = {r: ((f"-DPR_BULK_R={r}",), ("probes.cu",)) for r in rs}
-    build.build_many(list(specs.values()))
-    case = cases_p3("cuda")[0]
-    out = []
-    for r in rs:
-        with build.variant(*specs[r][0], only=specs[r][1]):
-            got = case.kernel()
-            err = max_abs_err(got, case.plain())
-            t = timeit(case.kernel)
-        print(f"P3 bulk copies, {r} rows a CTA: {t * 1e6:.2f} us exact={err == 0}",
-              flush=True)
-        if err:
-            raise AssertionError(f"P3 at {r} rows a CTA: kernel != plain")
-        out.append((r, t * 1e6))
-    return out
-
-
 def main(argv) -> int:
-    rs = ([int(r) for r in argv[1:]] or [1, 2, 4, 8, 16]) if argv[:1] == ["sweep"] else None
-    names = [] if rs else argv or list(PROBES)
+    names = argv or list(PROBES)
     unknown = [n for n in names if n not in PROBES]
     if unknown:
-        raise SystemExit(f"unknown probe(s) {unknown}: {' '.join(PROBES)} or sweep")
+        raise SystemExit(f"unknown probe(s) {unknown}: {' '.join(PROBES)}")
     if torch.cuda.is_available():
         print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
-    if rs:
-        sweep(rs)
-    else:
-        run(names)
+    run(names)
     return 0
 
 

@@ -23,6 +23,7 @@
 // one-hot A built in registers and B in shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -87,13 +88,9 @@ __global__ void pr_elem_gather(const int* __restrict__ flat,
 // the S % BULK_R rows left.  What bounds it is the launch and three
 // dependent round trips a CTA (index, rows, store), as index_select's two.  Rows of a multiple of 16 bytes, 16-byte
 // aligned table and out (the wrapper refuses anything else).  BULK_R = 2
-// is the fastest of 1 to 16 in the sweep in PERF.md: more rows a CTA wait
-// longer on one barrier, one row a CTA gains nothing (PR_BULK_R builds
-// another value, for that sweep only).
-#ifndef PR_BULK_R
-#define PR_BULK_R 2
-#endif
-constexpr int BULK_R = PR_BULK_R;
+// was the fastest of 1 to 16 in a sweep on the card (PERF.md): more rows a
+// CTA wait longer on one barrier, one row a CTA gains nothing.
+constexpr int BULK_R = 2;
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -505,17 +502,24 @@ extern "C" int cpx_pr_elem_gather_launch(const void* flat, const void* idx,
   return (int)cudaGetLastError();
 }
 
+// The shared memory of a CTA of P3's bulk copies, min(BULK_R, S) rows of
+// `width` int32 (saturated at INT_MAX): what the wrapper checks.
+extern "C" int cpx_pr_row_bulk_smem(int width, int S) {
+  const long long smem = (long long)(S < BULK_R ? S : BULK_R) * width * 4;
+  return smem < INT_MAX ? (int)smem : INT_MAX;
+}
+
 // table [rows, width] i32, idx [S] i32, out [S, width] i32; BULK_R rows a
 // CTA by bulk copies: width a multiple of 4, table and out 16-byte aligned,
 // min(BULK_R, S) rows within 48 KB.
 extern "C" int cpx_pr_row_bulk_launch(const void* table, const void* idx,
                                       void* out, int rows, int width, int S,
                                       void* stream) {
-  const long long smem = (long long)(S < BULK_R ? S : BULK_R) * width * 4;
+  const int smem = cpx_pr_row_bulk_smem(width, S);
   if (rows < 1 || S < 1 || width < 4 || width % 4 || smem > 48 * 1024 ||
       !aligned16(table) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
-  pr_row_bulk<<<(S + BULK_R - 1) / BULK_R, 1, (int)smem, (cudaStream_t)stream>>>(
+  pr_row_bulk<<<(S + BULK_R - 1) / BULK_R, 1, smem, (cudaStream_t)stream>>>(
       (const int*)table, (const int*)idx, (int*)out, width, S);
   return (int)cudaGetLastError();
 }
@@ -590,14 +594,22 @@ extern "C" int cpx_pr_onehot_wgmma_launch(const void* table, const void* idx,
   if (rows < OH_KC || width < OH_N || rows % OH_KC || width % OH_N || S < 1 ||
       S > OH_S || !aligned16(table) || ((uintptr_t)out & 7))
     return (int)cudaErrorInvalidValue;
-  int dev, sms;
+  // a device's SM count, read once with the shared-memory attribute set
+  static int sms_of[64];
+  int dev;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(pr_onehot_wgmma,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, OH_SMEM);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!sms_of[dev]) {
+    int sms;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(pr_onehot_wgmma,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, OH_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sms_of[dev] = sms;
+  }
+  const int sms = sms_of[dev];
   const int chunks = rows / OH_KC, fit = sms / (width / OH_N);
   const int want = fit > 1 ? fit : 1;
   const int per = (chunks + want - 1) / want, ranges = (chunks + per - 1) / per;

@@ -79,6 +79,7 @@ _SIGNATURES = {
     # the probes (benchmarks/probes.py)
     "cpx_pr_row_gather_launch": [_P] * 3 + [_I] * 4 + [_P],
     "cpx_pr_elem_gather_launch": [_P] * 3 + [_I] * 2 + [_P],
+    "cpx_pr_row_bulk_smem": [_I] * 2,
     "cpx_pr_row_bulk_launch": [_P] * 3 + [_I] * 3 + [_P],
     "cpx_pr_row_loop_launch": [_P] * 3 + [_I] * 3 + [_P],
     "cpx_pr_steps_launch": [_P] * 2 + [_I] * 4 + [_P],

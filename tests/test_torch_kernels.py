@@ -1132,13 +1132,15 @@ def test_scan_finder_block_roundtrip_on_card(cuda_device, monkeypatch, mode, fle
 def test_probe_kernels_match_plain(cuda_device, key):
     """Each probe kernel against its plain version at its own geometries
     (S=512), tolerance 0 (P8: against bf16(table)[idx]); each launch is
-    counted under the probe's name."""
+    counted under the probe's name (P3's one-warp arm under P3w)."""
     from comprox_tpu_torch.benchmarks import probes
 
     for case in probes.PROBES[key](cuda_device, probes.S, seed=3):
-        before = probes.LAUNCHES[case.probe]
+        before = dict(probes.LAUNCHES)
         got = case.kernel()
-        assert probes.LAUNCHES[case.probe] > before, case.label
+        assert probes.LAUNCHES[case.counter] > before[case.counter], case.label
+        assert all(probes.LAUNCHES[k] == n for k, n in before.items()
+                   if k != case.counter), case.label
         want = case.plain()
         assert got.dtype == want.dtype and torch.equal(got, want), case.label
 
@@ -1169,8 +1171,9 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         probes.probe_dynslice_loop(i32[:64 * 6].view(64, 6), idx)
     with pytest.raises(ValueError, match="16-byte aligned"):
         probes.probe_dynslice_loop(i32[1:1 + 64 * 64].view(64, 64), idx)
-    with pytest.raises(ValueError, match="48 KB"):  # just over, BULK_R rows
-        probes.probe_dynslice_loop(torch.zeros((8, 12 * 1024 // probes.BULK_R + 4),
+    cta_rows = build.lib().cpx_pr_row_bulk_smem(1, 512) // 4
+    with pytest.raises(ValueError, match="48 KB"):  # just over, a CTA's rows
+        probes.probe_dynslice_loop(torch.zeros((8, 12 * 1024 // cta_rows + 4),
                                                dtype=torch.int32, device=cuda_device), idx)
     with pytest.raises(ValueError, match="'bulk' or 'warp'"):
         probes.probe_dynslice_loop(i32.view(65, 64), idx, "ring")

@@ -215,8 +215,8 @@ def test_probe_kernels_are_built_and_counted():
     src = (build.CSRC / "probes.cu").read_text()
     entries = set(re.findall(r'extern "C" int (cpx_pr_\w+)\(', src))
     assert entries and entries <= set(build._SIGNATURES)
-    assert set(probes.LAUNCHES) == {"P1", "P1b", "P3", "P4", "P5", "P6", "P7",
-                                    "P8", "P9"}
+    assert set(probes.LAUNCHES) == {"P1", "P1b", "P3", "P3w", "P4", "P5", "P6",
+                                    "P7", "P8", "P9"}
     for name in ("pallas_probe.py::probe_vmem_gather", "probe_vmem_gather_1d",
                  "probe_dynslice_loop", "probe_persistent_steps", "probe_dma_depth",
                  "pallas_probe2.py::probe_taa", "probe_elem", "probe_kernel_onehot",

@@ -47,7 +47,7 @@ def const(name: str) -> int:
     return int(m.group(1))
 
 
-BULK_R = int(re.search(r"#define PR_BULK_R (\d+)", SRC).group(1))
+BULK_R = int(re.search(r"constexpr int BULK_R = (\d+);", SRC).group(1))
 OH_N, OH_KC, OH_WG, OH_MT = (const(k) for k in ("OH_N", "OH_KC", "OH_WG", "OH_MT"))
 OH_LBO, OH_SBO = const("OH_LBO"), const("OH_SBO")
 OH_S = 64 * OH_MT * OH_WG
@@ -376,7 +376,8 @@ def test_ranges_cover_the_table_once(rows, ctas):
 
 
 def test_mirror_constants_match_the_kernel_source():
-    assert BULK_R == probes.BULK_R and OH_S == probes.ONEHOT_MAX_S == 512
+    assert OH_S == probes.ONEHOT_MAX_S == 512
+    assert "(long long)(S < BULK_R ? S : BULK_R) * width * 4;" in SRC
     assert "constexpr int OH_S = 64 * OH_MT * OH_WG;" in SRC
     assert "constexpr int OH_KSTEP = 16 * OH_N * 2;" in SRC
     assert "const int k0 = blockIdx.x * BULK_R, n = min(BULK_R, S - k0);" in SRC
@@ -404,11 +405,12 @@ def test_p3_arms_on_the_cpu():
         probes.probe_dynslice_loop(table, idx, "ring")
 
 
-def test_sweep_needs_a_card():
-    """The sweep of P3's rows a CTA times on a card only."""
-    if torch.cuda.is_available():
-        pytest.skip("a card is present")
-    with pytest.raises(RuntimeError, match="CUDA card"):
-        probes.sweep([1, 2])
-    with pytest.raises(RuntimeError, match="CUDA card"):
-        probes.main(["sweep", "2"])
+def test_p3_arms_count_under_their_own_keys():
+    """The bulk-copy arm is P3's headline and counts under P3; the one-warp
+    arm counts apart, under P3w, so P3's launches are the headline's."""
+    cases = probes.cases_p3("cpu", 16, seed=0)
+    assert [(c.probe, c.counter, c.headline) for c in cases] == [
+        ("P3", "P3", True), ("P3", "P3w", False)]
+    assert all(c.counter in probes.LAUNCHES for c in cases)
+    assert all(c.counter == c.probe for name, make in probes.PROBES.items()
+               if name != "p3" for c in make("cpu", 16, seed=0))
