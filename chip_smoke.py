@@ -114,9 +114,12 @@ no result line:
    version, one PyTorch call for the same function and the bound; one line
    a geometry, as ``python -m comprox_tpu_torch.benchmarks.probes`` prints
    them.  The kernels line carries each probe's last headline case (P1: its
-   warp arm; P3: its bulk-copy arm; P4: its persistent arm) and the
-   launches of the whole phase under the probe's name (P3's one-warp arm
-   counts apart, under ``P3w``, which must launch too).
+   warp arm; P3: its bulk-copy arm; P4: its persistent arm; P5: its ring at
+   depth 32) and the launches of the whole phase under the probe's name,
+   which count the headline arms only: the other arms count apart (P1's
+   thread a row under ``P1t``, P3's one warp under ``P3w``, P4's launch a
+   step under ``P4s``, P5's warp a row under ``P5w``).  Every key must
+   launch.
 13. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
    CLI; archive SHA-256 == the JAX golden; fails if K13c, K13e, K3, K3p,
    K3b or K13d was not launched.
@@ -401,7 +404,7 @@ _ARM_PARAMS = {"k1_kernel": ("MAXT", "CL"), "k12d_kernel": ("MAXT", "MODE", "CL"
                "k11_kernel": (), "k3_kernel": ("NS",), "k3p_kernel": (),
                "k4_find": ("NC",), "k4_heads": ("NC",), "k4_final": ("NC", "WALK"),
                "k3b_count": (), "k3b_scan": (), "k3b_scatter": (),
-               "pr_row_bulk": (), "pr_onehot_wgmma": ()}
+               "pr_row_bulk": (), "pr_row_ring": ("DEPTH",), "pr_onehot_wgmma": ()}
 _MANGLED = re.compile(r"_ZN(\d+)")
 _ARM_ARG = re.compile(r"L[ib](\d+)E")
 
@@ -433,7 +436,7 @@ def _arm_name(fn: str):
 def _arms(log: str) -> list:
     """(library, kernel arm, registers, spill stores, spill loads) of each
     step scan's and per-lane pass's arm, each K13c kernel and the probes'
-    bulk-copy and wgmma kernels in a verbose build's output."""
+    bulk-copy, ring and wgmma kernels in a verbose build's output."""
     out, lib, fn, spill = [], "", None, (0, 0)
     for line in log.splitlines():
         if line.startswith("libcpx_kernels_"):

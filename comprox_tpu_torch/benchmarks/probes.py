@@ -45,9 +45,12 @@ nanoseconds per row where JAX printed them, ``exact=`` (the kernel equals
 its plain version), the plain version's time, the time of one PyTorch call
 for the same function (``library=``, never used here) and the least time
 the card could take (``bound=``).  ``LAUNCHES`` counts each probe's kernel
-launches (P3's one-warp arm under ``P3w``, apart from its headline arm).
-P5 and P9 flush the L2 cache before each timed call: their table stands
-for one in device memory.
+launches, each probe's headline arm under its name and the other arms
+apart: P1's thread a row under ``P1t``, P3's one warp under ``P3w``, P4's
+launch a step (from the host or a CUDA graph) under ``P4s`` and P5's warp
+a row (P1's kernel on P5's rows) under ``P5w``.  P5 and P9 flush the L2
+cache before each timed call: their table stands for one in device
+memory.
 """
 
 from __future__ import annotations
@@ -76,8 +79,8 @@ PEAK_BF16_PER_S = 989e12
 L2_FLUSH_BYTES = 96 << 20  # twice the 50 MB L2
 ONEHOT_MAX_S = 512  # P8's output rows a CTA holds (probes.cu's OH_S)
 
-LAUNCHES = {k: 0 for k in ("P1", "P1b", "P3", "P3w", "P4", "P5", "P6", "P7", "P8",
-                           "P9")}
+LAUNCHES = {k: 0 for k in ("P1", "P1t", "P1b", "P3", "P3w", "P4", "P4s", "P5",
+                           "P5w", "P6", "P7", "P8", "P9")}
 _i32, _f32 = torch.int32, torch.float32
 
 
@@ -147,8 +150,9 @@ def _row_gather(name, table, idx, arm="warp"):
 
 def probe_vmem_gather(table, idx, arm="warp"):
     """P1: ``table[idx]`` ([rows, width] int32, [S] int32 -> [S, width]);
-    ``arm`` "warp" (a warp a row) or "thread" (a thread a row)."""
-    return _row_gather("P1", table, idx, arm)
+    ``arm`` "warp" (a warp a row) or "thread" (a thread a row, counted
+    under ``P1t``)."""
+    return _row_gather("P1t" if arm == "thread" else "P1", table, idx, arm)
 
 
 def probe_taa(table, idx):
@@ -225,7 +229,7 @@ class _StepGraph:
                     lanes, _stream_ptr()), "cpx_pr_step_launch")
 
     def __call__(self):
-        LAUNCHES["P4"] += self.steps
+        LAUNCHES["P4s"] += self.steps
         self.graph.replay()
         return self.state.clone()
 
@@ -236,7 +240,7 @@ def probe_persistent_steps(table, lanes: int = S, steps: int = STEPS,
     table[int(s) & (rows - 1), 0]`` from zero ([rows, width] f32).  Arm
     "persistent" (one launch, JAX's ``run_pallas``) -> [lanes, 1]; "launch"
     (one launch a step) and "graph" (the same launches replayed from a CUDA
-    graph), JAX's ``run_scan`` -> [lanes]."""
+    graph), JAX's ``run_scan`` -> [lanes], counted under ``P4s``."""
     if arm not in ("persistent", "launch", "graph"):
         raise ValueError(f"arm {arm!r}: 'persistent', 'launch' or 'graph'")
     if _dispatch(table) == "cpu":
@@ -253,7 +257,7 @@ def probe_persistent_steps(table, lanes: int = S, steps: int = STEPS,
                 *table.shape, lanes, steps)
         return s.unsqueeze(1)
     for _ in range(steps):
-        _launch("P4", "cpx_pr_step_launch", table.data_ptr(), s.data_ptr(),
+        _launch("P4s", "cpx_pr_step_launch", table.data_ptr(), s.data_ptr(),
                 *table.shape, lanes)
     return s
 
@@ -263,28 +267,35 @@ def _row_ring(name, table, idx, depth):
         return row_gather_plain(table, idx)
     _expect_rows(table, idx)
     rows, width = table.shape
-    smem = 4 * (depth * width + idx.shape[0])
-    if (depth not in (16, 32) or width % 4 or not 4 <= width <= 4096
-            or smem > 48 * 1024 or table.data_ptr() % 16):
+    S = idx.shape[0]
+    if depth not in (16, 32):
+        raise ValueError(f"depth {depth}: the ring kernel takes depth 16 or 32")
+    smem = build.lib().cpx_pr_row_ring_smem(width, S, depth)
+    if width % 4 or not 4 <= width <= 4096 or smem > 48 * 1024 or table.data_ptr() % 16:
         raise ValueError(
-            f"the ring kernel takes depth 16 or 32, a 16-byte aligned table "
-            f"of a width that is a multiple of 4 up to 4096, and a ring with "
-            f"the indices within 48 KB (depth {depth}, width {width}, "
-            f"{idx.shape[0]} rows: {smem} B)")
-    out = torch.empty((idx.shape[0], width), dtype=_i32, device=idx.device)
+            f"the ring kernel takes a 16-byte aligned table of a width that is "
+            f"a multiple of 4 up to 4096, and a CTA's ring and indices within "
+            f"48 KB (width {width}, table at {table.data_ptr() % 16} past 16 "
+            f"bytes, depth {depth}: {smem} B)")
+    out = torch.empty((S, width), dtype=_i32, device=idx.device)
     _launch(name, "cpx_pr_row_ring_launch", table.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), rows, width, idx.shape[0], depth)
+            out.data_ptr(), rows, width, S, depth)
     return out
 
 
 def probe_dma_depth(table, idx, depth=16):
     """P5: ``table[idx]`` through a ring of ``depth`` (16 or 32) row copies
-    in flight ([rows, width] int32, [S] int32 -> [S, width])."""
+    in flight ([rows, width] int32, [S] int32 -> [S, width]).  On the card
+    the rows are spread over CTAs, a few a CTA (probes.cu's ``RING_R``),
+    each CTA's rows through its own ring of bulk copies, a slot and its
+    barrier each (a width that is a multiple of 4 up to 4096, a 16-byte
+    aligned table, a CTA's ring within 48 KB).  A CTA with no more rows than
+    ``depth`` never reuses a slot: then depth 16 and 32 do the same work."""
     return _row_ring("P5", table, idx, depth)
 
 
 def probe_dma(table, idx):
-    """P9: P5 at depth 16."""
+    """P9: P5 at depth 16 (the same kernel)."""
     return _row_ring("P9", table, idx, 16)
 
 
@@ -405,7 +416,7 @@ def cases_p1(device, lanes=S, seed=0):
             out.append(_gather(
                 "P1", f"P1 take[{rows}x{width}] -> [{lanes},{width}], a {arm} a row",
                 functools.partial(probe_vmem_gather, arm=arm), table, idx,
-                headline=arm == "warp"))
+                headline=arm == "warp", counter="P1" if arm == "warp" else "P1t"))
     return out
 
 
@@ -482,7 +493,8 @@ def cases_p4(device, lanes=S, seed=0, steps=STEPS):
             (lambda a=arm: probe_persistent_steps(table, lanes, steps, a)),
             (lambda: plain().unsqueeze(1)) if arm == "persistent" else plain,
             None, nbytes, 3 * lanes * steps, rows=steps,
-            with_host=arm == "launch", headline=arm == "persistent"))
+            with_host=arm == "launch", headline=arm == "persistent",
+            counter="P4" if arm == "persistent" else "P4s"))
     return out
 
 
@@ -492,11 +504,16 @@ def _dma_table(device):
 
 
 def cases_p5(device, lanes=S, seed=0):
+    """The ring at depth 16 and 32 (the headlines), and a warp a row (P1's
+    kernel) on the same cold rows, counted under ``P5w``."""
     table = _dma_table(device)
     idx = _on(device, _rng(seed, "p5").integers(0, table.shape[0], lanes, dtype=np.int32))
     return [_gather("P5", f"P5 HBM row-DMA depth={depth}",
                     functools.partial(probe_dma_depth, depth=depth), table, idx,
-                    rows=lanes, cold=True) for depth in (16, 32)]
+                    rows=lanes, cold=True) for depth in (16, 32)] + [
+        _gather("P5", "P5 HBM rows, a warp a row",
+                functools.partial(_row_gather, "P5w"), table, idx, rows=lanes,
+                cold=True, headline=False, counter="P5w")]
 
 
 def cases_p6(device, lanes=S, seed=0):

@@ -16,11 +16,13 @@
 // in [0, rows) (elements: [0, n)), as the plain versions require; no kernel
 // checks it.
 //
-// Two bodies use what Hopper added.  P3's row loop is the copy engine's:
+// Three bodies use what Hopper added.  P3's row loop is the copy engine's:
 // one thread a CTA issues its rows as bulk copies (cp.async.bulk) that
-// complete on one mbarrier, and stores them with one bulk copy.  P8's
-// one-hot product is a warpgroup product (wgmma.mma_async, sm_90a) with the
-// one-hot A built in registers and B in shared memory.
+// complete on one mbarrier, and stores them with one bulk copy.  P5's and
+// P9's ring is too, spread over CTAs: one thread a CTA keeps DEPTH bulk
+// copies in flight, a slot and its mbarrier each.  P8's one-hot product is
+// a warpgroup product (wgmma.mma_async, sm_90a) with the one-hot A built in
+// registers and B in shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -189,45 +191,143 @@ __global__ void pr_step(const float* __restrict__ table, float* __restrict__ sta
 
 // ---------------------------------------------------------------- P5, P9
 // Replaces pallas_probe.py::probe_dma_depth (kernel :247, pallas_call :272)
-// and pallas_probe2.py::probe_dma (kernel :174, pallas_call :203): rows of
-// a 64 MiB table in device memory through a ring of DEPTH copies in flight.
-// One CTA; thread j owns the 16-byte chunk j of every row, so each thread
-// runs its own ring of cp.async copies, one commit group a row (empty past
-// the last row, so that wait_group DEPTH - 1 always means "row k landed").
-// A thread reads slot k % DEPTH into a register and stores it to out
-// before it starts row k + DEPTH into that slot, so no copy overwrites a
-// slot that is still to be read (the JAX kernels start that copy first).
-// Bound by DEPTH rows in flight against the device-memory latency; the
-// indices are staged in shared memory first (the TPU's scalar prefetch).
+// and pallas_probe2.py::probe_dma (kernel :174, pallas_call :203): out[k, :] =
+// table[idx[k], :], rows of a 64 MiB table in device memory through a ring
+// of DEPTH copies in flight, each slot completing on its own mbarrier (the
+// TPU kernels' scratch.at[k % depth] and sems.at[k % depth]).  Bound by the
+// device memory's latency: the bytes take 0.314 us (512 rows of 1 KB), one
+// round trip about as long, a launch longer.
+//
+// pr_row_ring spreads the rows over CTAs and hands each to the copy engine:
+// CTA b takes the output rows [b RING_R, b RING_R + n), n = min(RING_R,
+// S - b RING_R) (the last CTA what is left), so ceil(S / RING_R) CTAs keep
+// their rings in flight at once.  The CTA stages its n indices in shared
+// memory (the TPU's scalar prefetch: the index loads issued together, before
+// any row), thread 0 initialises min(DEPTH, RING_R, S) barriers, and thread
+// 0 alone then runs the ring:
+// - row k goes to slot k % DEPTH as one bulk copy (cp.async.bulk, global ->
+//   shared) that completes its bytes on the slot's barrier, armed first
+//   with arrive.expect_tx of the row's bytes; rows 0 .. DEPTH - 1 are
+//   issued back to back;
+// - row k waits on its slot's barrier at parity (k / DEPTH) & 1: each reuse
+//   of a slot completes one more phase;
+// - row k leaves the slot by a bulk store (shared -> global, one bulk group
+//   a row) after fence.proxy.async;
+// - the slot of row j = k - RING_LAG takes row j + DEPTH once the store of
+//   row j has read it (wait_group.read RING_LAG: every store but the last
+//   RING_LAG has read its slot), so the refill lags the store instead of
+//   waiting on the store just issued, and DEPTH - RING_LAG - 1 rows stay in
+//   flight ahead of the one waited on.  The JAX kernels start row k + depth
+//   into the slot before reading it; here no copy overwrites a slot that a
+//   store has still to read.
+// Thread 0 waits for its stores to have read their slots before it exits.
+// Rows of a multiple of 16 bytes, 16-byte aligned table and out (the wrapper
+// refuses anything else).
+#ifndef PR_RING_R
+#define PR_RING_R 8
+#endif
+#ifndef PR_RING_BULK
+#define PR_RING_BULK 1
+#endif
+constexpr int RING_R = PR_RING_R;
+constexpr int RING_LAG = 4;
+constexpr bool RING_BULK_STORE = PR_RING_BULK;
+static_assert(RING_LAG < 16, "a refill must come before the wait on its row");
+
+// the ring's slots in a CTA: no CTA has more rows than RING_R, or than S
+__host__ __device__ __forceinline__ int ring_slots(int depth, int S) {
+  const int n = RING_R < S ? RING_R : S;
+  return depth < n ? depth : n;
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
 template <int DEPTH>
 __global__ void pr_row_ring(const int* __restrict__ table,
                             const int* __restrict__ idx, int* __restrict__ out,
                             int rows, int width, int S) {
-  extern __shared__ __align__(16) int smem[];
-  int4* ring = reinterpret_cast<int4*>(smem);  // [DEPTH][width / 4]
-  int* rid = smem + DEPTH * width;              // [S]
-  const int j = threadIdx.x, chunks = width / 4;
-  for (int k = j; k < S; k += blockDim.x) rid[k] = idx[k];
-  __syncthreads();
-  auto start = [&](int k) {
-    if (k < S) {
-      const unsigned slot = (unsigned)__cvta_generic_to_shared(
-          ring + (k % DEPTH) * chunks + j);
-      const int4* src =
-          reinterpret_cast<const int4*>(table + (size_t)rid[k] * width) + j;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(slot),
-                   "l"(src)
+  // [slots][width] rows, [slots] barriers, [min(RING_R, S)] indices
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  const int k0 = blockIdx.x * RING_R, n = min(RING_R, S - k0);
+  const int slots = ring_slots(DEPTH, S);
+  const unsigned row_bytes = (unsigned)width * 4u;
+  int* rid = reinterpret_cast<int*>(ring_smem + (size_t)slots * (row_bytes + 8));
+  for (int j = threadIdx.x; j < n; j += blockDim.x) rid[j] = idx[k0 + j];
+#ifdef PR_RING_PF
+  if (threadIdx.x == 1)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+        table + (size_t)rows * width / gridDim.x * blockIdx.x));
+#endif
+  const unsigned ring = smem_u32(ring_smem), bars = ring + slots * row_bytes;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bars + 8 * s)
                    : "memory");
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int k) {  // row k into slot k % DEPTH
+    const unsigned slot = k % DEPTH, b = bars + 8 * slot;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+                 "r"(row_bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(ring + slot * row_bytes),
+        "l"(table + (size_t)rid[k] * width), "r"(row_bytes), "r"(b)
+        : "memory");
   };
-  for (int k = 0; k < DEPTH; ++k) start(k);
-  int4* dst = reinterpret_cast<int4*>(out) + j;
+  if (RING_BULK_STORE) {
+    if (threadIdx.x != 0) return;
+    for (int k = 0; k < min(DEPTH, n); ++k) issue(k);
 #pragma unroll 1
-  for (int k = 0; k < S; ++k) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(DEPTH - 1) : "memory");
-    dst[(size_t)k * chunks] = ring[(k % DEPTH) * chunks + j];
-    start(k + DEPTH);
+    for (int k = 0; k < n; ++k) {
+      const unsigned slot = k % DEPTH;
+      mbar_wait(bars + 8 * slot, (k / DEPTH) & 1);
+      // the row was written by the async proxy and is read by it: the fence
+      // orders the store after the barrier's wait
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                       out + (size_t)(k0 + k) * width),
+                   "r"(ring + slot * row_bytes), "r"(row_bytes)
+                   : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      const int j = k - RING_LAG;  // the row whose slot takes row j + DEPTH
+      if (j >= 0 && j + DEPTH < n) {
+        asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(RING_LAG) : "memory");
+        issue(j + DEPTH);
+      }
+    }
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  } else {
+    if (threadIdx.x == 0)
+      for (int k = 0; k < min(DEPTH, n); ++k) issue(k);
+    const int chunks = width / 4;
+#pragma unroll 1
+    for (int k = 0; k < n; ++k) {
+      const unsigned slot = k % DEPTH;
+      mbar_wait(bars + 8 * slot, (k / DEPTH) & 1);
+      const int4* src = reinterpret_cast<const int4*>(ring_smem + slot * row_bytes);
+      int4* dst = reinterpret_cast<int4*>(out + (size_t)(k0 + k) * width);
+      for (int c = threadIdx.x; c < chunks; c += blockDim.x) dst[c] = src[c];
+      if (k + DEPTH < n) {
+        __syncthreads();  // every thread has read the slot
+        if (threadIdx.x == 0) {
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          issue(k + DEPTH);
+        }
+      }
+    }
   }
 }
 
@@ -562,24 +662,31 @@ extern "C" int cpx_pr_step_launch(const void* table, void* state, int rows,
   return (int)cudaGetLastError();
 }
 
-// Shared memory of pr_row_ring: the ring and the staged indices.
-static int ring_smem(int width, int S, int depth) {
-  return (depth * width + S) * (int)sizeof(int);
+// The shared memory of a CTA of P5's and P9's ring, at depth 16 or 32:
+// min(depth, RING_R, S) rows of `width` int32 and their barriers, and the
+// CTA's min(RING_R, S) indices (saturated at INT_MAX): what the wrapper
+// checks.
+extern "C" int cpx_pr_row_ring_smem(int width, int S, int depth) {
+  const int slots = ring_slots(depth, S), n = RING_R < S ? RING_R : S;
+  const long long smem = (long long)slots * ((long long)width * 4 + 8) + 4LL * n;
+  return smem < INT_MAX ? (int)smem : INT_MAX;
 }
 
 // table [rows, width] i32, idx [S] i32, out [S, width] i32; depth 16 or 32;
-// width a multiple of 4 up to 4096, 16-byte aligned, the ring and the
-// indices within 48 KB.
+// width a multiple of 4 up to 4096, table and out 16-byte aligned, a CTA's
+// ring and indices within 48 KB.
 extern "C" int cpx_pr_row_ring_launch(const void* table, const void* idx,
                                       void* out, int rows, int width, int S,
                                       int depth, void* stream) {
-  const int smem = ring_smem(width, S, depth);
   if (rows < 1 || S < 1 || width < 4 || width % 4 || width > 4096 ||
-      smem > 48 * 1024 || !aligned16(table) || !aligned16(out))
+      (depth != 16 && depth != 32) || !aligned16(table) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
-  auto kernel = depth == 16 ? pr_row_ring<16> : depth == 32 ? pr_row_ring<32> : nullptr;
-  if (!kernel) return (int)cudaErrorInvalidValue;
-  kernel<<<1, width / 4, smem, (cudaStream_t)stream>>>(
+  const int smem = cpx_pr_row_ring_smem(width, S, depth);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int threads =
+      RING_BULK_STORE ? 32 : width / 4 < 32 ? 32 : (width / 4 + 31) / 32 * 32;
+  auto kernel = depth == 16 ? pr_row_ring<16> : pr_row_ring<32>;
+  kernel<<<(S + RING_R - 1) / RING_R, threads, smem, (cudaStream_t)stream>>>(
       (const int*)table, (const int*)idx, (int*)out, rows, width, S);
   return (int)cudaGetLastError();
 }

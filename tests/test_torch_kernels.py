@@ -1132,7 +1132,9 @@ def test_scan_finder_block_roundtrip_on_card(cuda_device, monkeypatch, mode, fle
 def test_probe_kernels_match_plain(cuda_device, key):
     """Each probe kernel against its plain version at its own geometries
     (S=512), tolerance 0 (P8: against bf16(table)[idx]); each launch is
-    counted under the probe's name (P3's one-warp arm under P3w)."""
+    counted under its case's key: the probe's name for its headline arm,
+    P1t, P3w, P4s and P5w for P1's thread a row, P3's one warp, P4's launch
+    a step and P5's warp a row."""
     from comprox_tpu_torch.benchmarks import probes
 
     for case in probes.PROBES[key](cuda_device, probes.S, seed=3):
@@ -1195,6 +1197,46 @@ def test_p3_bulk_copies_take_a_ragged_last_cta(cuda_device, S):
     got = probes.probe_dynslice_loop(table, idx)
     assert probes.LAUNCHES["P3"] == before + 1
     assert torch.equal(got, table[idx.long()])
+
+
+def _widest_ring_width(S: int, depth: int) -> int:
+    """The widest row (a multiple of 4, at most 4096) whose CTA ring the
+    ring launcher takes at S rows and this depth."""
+    lib = build.lib()
+    return max(w for w in range(4, 4097, 4)
+               if lib.cpx_pr_row_ring_smem(w, S, depth) <= 48 * 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [16, 32])
+@pytest.mark.parametrize("S,width", [(512, 256), (509, 256), (5, 256), (1, 256),
+                                     (512, 4), (512, "widest"), (7, "widest")])
+def test_p5_p9_ring_takes_ragged_ctas_and_every_width(cuda_device, S, width, depth):
+    """P5's and P9's ring against table[idx], tolerance 0: the probe's S, a
+    ragged last CTA (509 rows), fewer rows than the depth, one row; the
+    smallest row (width 4) and the widest the launcher takes; repeated
+    indices and rows 0 and rows - 1.  P9 is the depth-16 ring."""
+    from comprox_tpu_torch.benchmarks import probes
+
+    if width == "widest":
+        width = _widest_ring_width(S, depth)
+    rows = 1000
+    rng = np.random.default_rng([S, width, depth])
+    table = torch.from_numpy(rng.integers(0, 1 << 30, (rows, width), dtype=np.int32))
+    idx = rng.integers(0, rows, S)
+    idx[0], idx[-1] = rows - 1, 0
+    idx[3:9] = idx[2] if S > 2 else idx[3:9]
+    table = table.to(cuda_device)
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda_device)
+    arms = [("P5", lambda: probes.probe_dma_depth(table, idx, depth))]
+    if depth == 16:
+        arms.append(("P9", lambda: probes.probe_dma(table, idx)))
+    for name, call in arms:
+        before = dict(probes.LAUNCHES)
+        got = call()
+        assert probes.LAUNCHES[name] == before[name] + 1
+        assert all(probes.LAUNCHES[k] == n for k, n in before.items() if k != name)
+        assert torch.equal(got, table[idx.long()]), name
 
 
 @pytest.mark.cuda

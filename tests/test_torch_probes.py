@@ -170,12 +170,20 @@ def test_probe_cases_on_the_cpu(key):
     kernel counts under its own name.  P8's bound is its bf16 operations
     (the bytes of bf16(table)[idx] take less time); the headline cases (the
     probe's row of chip_smoke's kernels line is its last) are P1's warp
-    arm, P3's bulk-copy arm and P4's persistent arm."""
+    arm, P3's bulk-copy arm, P4's persistent arm and P5's ring at depth 16
+    and 32 (not its warp a row), and only they count under the probe's
+    name."""
     cases = probes.PROBES[key]("cpu", LANES, seed=1)
     heads = [c for c in cases if c.headline]
-    assert len(heads) == {"p1": len(cases) // 2, "p3": 1, "p4": 1}.get(key, len(cases))
+    assert len(heads) == {"p1": len(cases) // 2, "p3": 1, "p4": 1, "p5": 2}.get(
+        key, len(cases))
     if key == "p3":
         assert len(cases) == 2 and "bulk copies" in heads[0].label
+    if key == "p5":
+        assert len(cases) == 3 and all("row-DMA depth=" in c.label for c in heads)
+    for case in cases:
+        assert (case.counter == case.probe) == case.headline, case.label
+        assert case.counter in probes.LAUNCHES or key == "p2"
     for case in cases:
         got = case.kernel()
         assert probes.max_abs_err(got, case.plain()) == 0, case.label
@@ -215,8 +223,8 @@ def test_probe_kernels_are_built_and_counted():
     src = (build.CSRC / "probes.cu").read_text()
     entries = set(re.findall(r'extern "C" int (cpx_pr_\w+)\(', src))
     assert entries and entries <= set(build._SIGNATURES)
-    assert set(probes.LAUNCHES) == {"P1", "P1b", "P3", "P3w", "P4", "P5", "P6",
-                                    "P7", "P8", "P9"}
+    assert set(probes.LAUNCHES) == {"P1", "P1t", "P1b", "P3", "P3w", "P4", "P4s",
+                                    "P5", "P5w", "P6", "P7", "P8", "P9"}
     for name in ("pallas_probe.py::probe_vmem_gather", "probe_vmem_gather_1d",
                  "probe_dynslice_loop", "probe_persistent_steps", "probe_dma_depth",
                  "pallas_probe2.py::probe_taa", "probe_elem", "probe_kernel_onehot",

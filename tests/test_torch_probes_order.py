@@ -412,5 +412,12 @@ def test_p3_arms_count_under_their_own_keys():
     assert [(c.probe, c.counter, c.headline) for c in cases] == [
         ("P3", "P3", True), ("P3", "P3w", False)]
     assert all(c.counter in probes.LAUNCHES for c in cases)
-    assert all(c.counter == c.probe for name, make in probes.PROBES.items()
-               if name != "p3" for c in make("cpu", 16, seed=0))
+    # every other probe: the headline arms under the probe's name, the
+    # others apart (P1's thread a row, P4's launch a step, P5's warp a row)
+    apart = {"p1": ["P1", "P1t"] * 4, "p4": ["P4", "P4s", "P4s"],
+             "p5": ["P5", "P5", "P5w"]}
+    for name, make in probes.PROBES.items():
+        if name != "p3":
+            cases = make("cpu", 16, seed=0)
+            counters = [c.counter for c in cases]
+            assert counters == apart.get(name, [c.probe for c in cases]), name
