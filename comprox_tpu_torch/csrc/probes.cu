@@ -98,6 +98,19 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
+// waits until the phase of `parity` of the mbarrier at `bar` has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
 __global__ void __launch_bounds__(1) pr_row_bulk(const int* __restrict__ table,
                                                  const int* __restrict__ idx,
                                                  int* __restrict__ out, int width,
@@ -122,15 +135,7 @@ __global__ void __launch_bounds__(1) pr_row_bulk(const int* __restrict__ table,
           "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(rows_s) + j * row_bytes),
           "l"(table + (size_t)r[j] * width), "r"(row_bytes), "r"(b)
           : "memory");
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(b), "r"(0u)
-        : "memory");
+  mbar_wait(b, 0);
   // the rows were written by the async proxy and are read by it: the fence
   // orders the store after the barrier's wait
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -221,17 +226,14 @@ __global__ void pr_step(const float* __restrict__ table, float* __restrict__ sta
 //   into the slot before reading it; here no copy overwrites a slot that a
 //   store has still to read.
 // Thread 0 waits for its stores to have read their slots before it exits.
-// Rows of a multiple of 16 bytes, 16-byte aligned table and out (the wrapper
-// refuses anything else).
-#ifndef PR_RING_R
-#define PR_RING_R 8
-#endif
-#ifndef PR_RING_BULK
-#define PR_RING_BULK 1
-#endif
-constexpr int RING_R = PR_RING_R;
+// RING_R = 2 by a sweep on the card (PERF.md): 1 and 2 rows a CTA tie, each
+// more row a CTA costs (4: +0.2 us, 8: +0.5, 128: +18), and a bulk store
+// beats the CTA's threads storing the row wherever the ring wraps.  At
+// RING_R <= DEPTH no slot is reused, so depth 16 and 32 do the same work;
+// the refills serve any RING_R above 16.  Rows of a multiple of 16 bytes,
+// 16-byte aligned table and out (the wrapper refuses anything else).
+constexpr int RING_R = 2;
 constexpr int RING_LAG = 4;
-constexpr bool RING_BULK_STORE = PR_RING_BULK;
 static_assert(RING_LAG < 16, "a refill must come before the wait on its row");
 
 // the ring's slots in a CTA: no CTA has more rows than RING_R, or than S
@@ -240,22 +242,11 @@ __host__ __device__ __forceinline__ int ring_slots(int depth, int S) {
   return depth < n ? depth : n;
 }
 
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
 template <int DEPTH>
-__global__ void pr_row_ring(const int* __restrict__ table,
-                            const int* __restrict__ idx, int* __restrict__ out,
-                            int rows, int width, int S) {
+__global__ void __launch_bounds__(32) pr_row_ring(const int* __restrict__ table,
+                                                  const int* __restrict__ idx,
+                                                  int* __restrict__ out, int width,
+                                                  int S) {
   // [slots][width] rows, [slots] barriers, [min(RING_R, S)] indices
   extern __shared__ __align__(128) unsigned char ring_smem[];
   const int k0 = blockIdx.x * RING_R, n = min(RING_R, S - k0);
@@ -263,11 +254,6 @@ __global__ void pr_row_ring(const int* __restrict__ table,
   const unsigned row_bytes = (unsigned)width * 4u;
   int* rid = reinterpret_cast<int*>(ring_smem + (size_t)slots * (row_bytes + 8));
   for (int j = threadIdx.x; j < n; j += blockDim.x) rid[j] = idx[k0 + j];
-#ifdef PR_RING_PF
-  if (threadIdx.x == 1)
-    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
-        table + (size_t)rows * width / gridDim.x * blockIdx.x));
-#endif
   const unsigned ring = smem_u32(ring_smem), bars = ring + slots * row_bytes;
   if (threadIdx.x == 0) {
     for (int s = 0; s < slots; ++s)
@@ -276,6 +262,7 @@ __global__ void pr_row_ring(const int* __restrict__ table,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if (threadIdx.x != 0) return;
   auto issue = [&](int k) {  // row k into slot k % DEPTH
     const unsigned slot = k % DEPTH, b = bars + 8 * slot;
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
@@ -287,48 +274,26 @@ __global__ void pr_row_ring(const int* __restrict__ table,
         "l"(table + (size_t)rid[k] * width), "r"(row_bytes), "r"(b)
         : "memory");
   };
-  if (RING_BULK_STORE) {
-    if (threadIdx.x != 0) return;
-    for (int k = 0; k < min(DEPTH, n); ++k) issue(k);
+  for (int k = 0; k < min(DEPTH, n); ++k) issue(k);
 #pragma unroll 1
-    for (int k = 0; k < n; ++k) {
-      const unsigned slot = k % DEPTH;
-      mbar_wait(bars + 8 * slot, (k / DEPTH) & 1);
-      // the row was written by the async proxy and is read by it: the fence
-      // orders the store after the barrier's wait
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-                       out + (size_t)(k0 + k) * width),
-                   "r"(ring + slot * row_bytes), "r"(row_bytes)
-                   : "memory");
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      const int j = k - RING_LAG;  // the row whose slot takes row j + DEPTH
-      if (j >= 0 && j + DEPTH < n) {
-        asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(RING_LAG) : "memory");
-        issue(j + DEPTH);
-      }
-    }
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  } else {
-    if (threadIdx.x == 0)
-      for (int k = 0; k < min(DEPTH, n); ++k) issue(k);
-    const int chunks = width / 4;
-#pragma unroll 1
-    for (int k = 0; k < n; ++k) {
-      const unsigned slot = k % DEPTH;
-      mbar_wait(bars + 8 * slot, (k / DEPTH) & 1);
-      const int4* src = reinterpret_cast<const int4*>(ring_smem + slot * row_bytes);
-      int4* dst = reinterpret_cast<int4*>(out + (size_t)(k0 + k) * width);
-      for (int c = threadIdx.x; c < chunks; c += blockDim.x) dst[c] = src[c];
-      if (k + DEPTH < n) {
-        __syncthreads();  // every thread has read the slot
-        if (threadIdx.x == 0) {
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-          issue(k + DEPTH);
-        }
-      }
+  for (int k = 0; k < n; ++k) {
+    const unsigned slot = k % DEPTH;
+    mbar_wait(bars + 8 * slot, (k / DEPTH) & 1);
+    // the row was written by the async proxy and is read by it: the fence
+    // orders the store after the barrier's wait
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                     out + (size_t)(k0 + k) * width),
+                 "r"(ring + slot * row_bytes), "r"(row_bytes)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    const int j = k - RING_LAG;  // the row whose slot takes row j + DEPTH
+    if (j >= 0 && j + DEPTH < n) {
+      asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(RING_LAG) : "memory");
+      issue(j + DEPTH);
     }
   }
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- P8
@@ -683,11 +648,9 @@ extern "C" int cpx_pr_row_ring_launch(const void* table, const void* idx,
     return (int)cudaErrorInvalidValue;
   const int smem = cpx_pr_row_ring_smem(width, S, depth);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int threads =
-      RING_BULK_STORE ? 32 : width / 4 < 32 ? 32 : (width / 4 + 31) / 32 * 32;
   auto kernel = depth == 16 ? pr_row_ring<16> : pr_row_ring<32>;
-  kernel<<<(S + RING_R - 1) / RING_R, threads, smem, (cudaStream_t)stream>>>(
-      (const int*)table, (const int*)idx, (int*)out, rows, width, S);
+  kernel<<<(S + RING_R - 1) / RING_R, 32, smem, (cudaStream_t)stream>>>(
+      (const int*)table, (const int*)idx, (int*)out, width, S);
   return (int)cudaGetLastError();
 }
 

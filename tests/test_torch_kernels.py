@@ -1154,9 +1154,23 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     idx = torch.zeros(512, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="multiples of 64"):
         probes.probe_kernel_onehot(torch.zeros((100, 384), device=cuda_device), idx)
-    with pytest.raises(ValueError, match="48 KB"):
-        probes.probe_dma_depth(torch.zeros((64, 1024), dtype=torch.int32,
-                                           device=cuda_device), idx, 32)
+    # P5's and P9's ring: a CTA holds a few rows (probes.cu's RING_R), so
+    # even the widest row (4096) fits its 48 KB, and the width, the depth
+    # and the table's alignment are what it refuses; the rows at depth 32
+    # of width 1024, which PR 6's one-CTA ring could not hold, it takes
+    assert build.lib().cpx_pr_row_ring_smem(4096, 512, 32) <= 48 * 1024
+    wide = torch.arange(64 * 1024, dtype=torch.int32, device=cuda_device).view(64, 1024)
+    ring_idx = torch.randint(0, 64, (512,), dtype=torch.int32, device=cuda_device)
+    assert torch.equal(probes.probe_dma_depth(wide, ring_idx, 32), wide[ring_idx.long()])
+    i32_ring = torch.zeros(8 * 4104, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="up to 4096, and a CTA's ring and indices within 48 KB"):
+        probes.probe_dma_depth(i32_ring[:8 * 4100].view(8, 4100), idx, 32)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        probes.probe_dma(i32_ring[:8 * 6].view(8, 6), idx)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probes.probe_dma(i32_ring[1:1 + 8 * 64].view(8, 64), idx)
+    with pytest.raises(ValueError, match="depth 16 or 32"):
+        probes.probe_dma_depth(i32_ring[:8 * 64].view(8, 64), idx, 8)
     with pytest.raises(ValueError, match="int32"):
         probes.probe_vmem_gather(torch.zeros((64, 8), device=cuda_device), idx)
     # P8: more rows than a CTA's accumulators hold, a table off 16 bytes
