@@ -1156,8 +1156,8 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         probes.probe_kernel_onehot(torch.zeros((100, 384), device=cuda_device), idx)
     # P5's and P9's ring: a CTA holds a few rows (probes.cu's RING_R), so
     # even the widest row (4096) fits its 48 KB, and the width, the depth
-    # and the table's alignment are what it refuses; the rows at depth 32
-    # of width 1024, which PR 6's one-CTA ring could not hold, it takes
+    # and the table's alignment are what it refuses; rows of width 1024 at
+    # depth 32, more than 32 slots of them would hold in 48 KB, it takes
     assert build.lib().cpx_pr_row_ring_smem(4096, 512, 32) <= 48 * 1024
     wide = torch.arange(64 * 1024, dtype=torch.int32, device=cuda_device).view(64, 1024)
     ring_idx = torch.randint(0, 64, (512,), dtype=torch.int32, device=cuda_device)
