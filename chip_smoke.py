@@ -21,7 +21,8 @@ no result line:
    K13e), all started together; prints the registers and spills of every
    arm of the step scans and per-lane passes (K1, K12d/K13d, the modeling
    scan K2/K12e/K13e: four lanes a round of the A event at up to 512
-   threads, two above; K5, K6, K11, K3, K3p), of K13c and K3b, and of
+   threads, two above; K5, K6, K11, K3, K3p), of K13c, K3b's pass and
+   K9's token pass, and of
    K4's find and final stage (each candidate count; the final stage with
    and without the diagonal-run scan).
 3. golden: decodes the committed JAX-package archives
@@ -40,7 +41,7 @@ no result line:
    archive's command line, and checks that each archive's SHA-256 equals
    the JAX package's; each decode and encode must launch kernels.  The
    S=2048 archives run the step scans as clusters of two CTAs and crf's
-   K9/K10 at two lanes a thread.
+   K10 at two lanes a thread.
    The decoded corpora are the inputs of the next phases, so every machine
    runs the same bytes.
 4. kernels, mode R: each of KS, K4, K5, K6, K2, K3, K3b (the stream
@@ -73,8 +74,8 @@ no result line:
    decisions: take 2, takes of 250, random takes capped at each lane's
    end), K9 on the first S * 256 tokens of that block, K10 on the stream
    of all its tokens (padded, and cut to its words so that the window
-   clamps), K6's mode-F entry at T=256; tolerance 0.  K7's, K8's and
-   K10's stages (``benchmarks/phases.py``) beside.
+   clamps), K6's mode-F entry at T=256; tolerance 0.  K7's, K8's, K9's
+   (all its tokens) and K10's stages (``benchmarks/phases.py``) beside.
    Beside K7's sort stage, K8's scans and K9's histogram it times the one
    PyTorch call for the same function (``torch.sort``, ``torch.cumsum``,
    ``torch.bincount``), which the port never uses.
@@ -403,7 +404,7 @@ _ARM_PARAMS = {"k1_kernel": ("MAXT", "CL"), "k12d_kernel": ("MAXT", "MODE", "CL"
                "k5_kernel": ("MAXT", "CL", "TPL", "CHAIN"), "k6_kernel": ("FAST", "KG"),
                "k11_kernel": (), "k3_kernel": ("NS",), "k3p_kernel": (),
                "k4_find": ("NC",), "k4_heads": ("NC",), "k4_final": ("NC", "WALK"),
-               "k3b_count": (), "k3b_scan": (), "k3b_scatter": (),
+               "k3b_pass": (), "k9_events": (),
                "pr_row_bulk": (), "pr_row_ring": ("DEPTH",), "pr_onehot_wgmma": ()}
 _MANGLED = re.compile(r"_ZN(\d+)")
 _ARM_ARG = re.compile(r"L[ib](\d+)E")
@@ -1150,6 +1151,7 @@ def phase_kernels_fast(corpus):
           f"({res['K9']['bound_by']}); torch.bincount of the same symbols "
           f"{lib_ms:.3f} ms (the histogram alone); on all {n_tok} tokens: "
           f"kernel {full_ms:.3f} ms")
+    print(phases.k4_stage_line("K9", phases.kernel_stages("K9", p, inp, n)))
 
     # K10 on the stream K9 writes for all n_tok tokens, zero-padded to
     # _max_words as decode_tokens pads it, and on the same stream cut to
@@ -1159,7 +1161,7 @@ def phase_kernels_fast(corpus):
     # first.
     freq, states, words = fast.encode_scan(p, sym, xtr, tbits, n_tok)
     stream = torch.zeros(fast._max_words(p), dtype=torch.int32, device=dev)
-    stream[: words.numel()] = words.flip(0)
+    stream[: words.numel()] = words
     xk, uk, plk = fast.decode_scan(p, freq, states, stream, n_tok)
     (xp, up, plp), plain_ms = _timed_plain(
         fast.decode_scan_plain, p, freq, states, stream, n_tok)
@@ -1169,7 +1171,7 @@ def phase_kernels_fast(corpus):
         raise AssertionError("K10 did not drain the states")
     err = max_err([(xk, xp), (plk, plp[:n_tok])])
     out = (xk, uk, plk)
-    clamped = words.flip(0).contiguous()
+    clamped = words.contiguous()
     xc, uc, plc = fast.decode_scan(p, freq, states, clamped, n_tok)
     xp, up, plp = fast.decode_scan_plain(p, freq, states, clamped, n_tok)
     err_clamp = max(max_err([(xc, xp), (plc, plp[:n_tok])]), abs(uc - up))

@@ -36,8 +36,9 @@ the kernel's CUDA-event time over the steps).  On the card::
     python -m comprox_tpu_torch.benchmarks.phases split [ctas ...]
     python -m comprox_tpu_torch.benchmarks.phases times
     python -m comprox_tpu_torch.benchmarks.phases bounds
-    python -m comprox_tpu_torch.benchmarks.phases k4stages [K4|K4x|K7|K13c|K8|K10 ...]
+    python -m comprox_tpu_torch.benchmarks.phases k4stages [K4|K4x|K7|K13c|K8|K10|K9|K3b ...]
     python -m comprox_tpu_torch.benchmarks.phases k3 [LANESxDEPTH ...]
+    python -m comprox_tpu_torch.benchmarks.phases k3b
     python -m comprox_tpu_torch.benchmarks.phases k6fit
     python -m comprox_tpu_torch.benchmarks.phases k6stamps
 
@@ -59,16 +60,26 @@ tree's package with this file); it ends with ``k4stages``' lines.
 the sort, the find, the heads' extension, the final stage), of K13c
 (keys, the sort, the segmented max, the tables' store, the checks), of K8
 (the replay, the chunks' reduce, the parts' scan, the emit; on the block's
-K7 and K6 decisions) and of K10 (the slot table, the decode loop, the
-plane's reduce, parts and plane; on the block's own K9 stream), from a
-``torch.profiler`` trace, and of the whole launch, on the 8 MiB crz, crx,
-crf and crp goldens' blocks (default: all six).  ``bounds``
+K7 and K6 decisions), of K10 (the slot table, the decode loop, the
+plane's reduce, parts and plane; on the block's own K9 stream), of K9
+(the histogram, the normalisation, the one-CTA loop of the older design,
+the token pass, K3's scan, K3p's pack and K3b's compaction; on the
+block's K8 tokens) and of K3b (the older design's count, scan and
+scatter, the look-back words' clear and the one pass; on K3's words and
+K3p's mask of the crz golden's encode), from a ``torch.profiler`` trace,
+and of the whole launch, on the 8 MiB crz, crx, crf and crp goldens'
+blocks (default: all eight); each stage list names both designs'
+kernels, so that one file times either tree.  ``bounds``
 prints the full-width bound of every other kernel (the sort, K4, K4x, K7, K3, K3p, K3b, K6, K8-K11, K13c,
 KCR) from the launches of the 8 MiB crz, crx, crf and crp goldens' decode
 and encode.  ``k3`` times K3 on the 8 MiB crz, crx and crp goldens'
 encodes at each ``LANESxDEPTH`` given (lanes a CTA, steps of events in
 flight a lane; default 32x16 64x16 128x16 32x8 32x32 32x16), a variant
-build of ``csrc/rans.cu`` each.  ``k6fit`` times K6 at full width on the
+build of ``csrc/rans.cu`` each.  ``k3b`` times K3b's stages on random
+masks of S = 512 lanes at several sizes and flag densities (``K3B_SWEEP``:
+crz's full width and its density, all silent, all emitting, K9's mask on
+the crf golden), through ``compact_stream`` alone, so that it times
+either tree.  ``k6fit`` times K6 at full width on the
 8 MiB goldens' own candidates at several candidate counts (mode R: 2, 3,
 5 and 8 candidates, the ``CPX_R_CANDS`` of 1, 2, 4 and 7 with the
 bucket's; mode X: 1, 3 and 5, without and with the repeat pair) and fits
@@ -530,6 +541,17 @@ K8_STAGES = (("replay", ("k8_replay",)), ("reduce", ("k8_reduce",)),
 K10_STAGES = (("table", ("k10_table",)), ("decode", ("k10_decode",)),
               ("reduce", ("k10_reduce",)), ("parts", ("scan_parts",)),
               ("plane", ("k10_plane",)))
+# K9 was k9_hist, k9_norm and one loop in one CTA, k9_encode; it is now the
+# histogram, the normalisation, the token pass writing K3's event grid,
+# then K3's scan, K3p and K3b.  K3b was three kernels (k3b_count, k3b_scan,
+# k3b_scatter); it is now k3b_clear, which zeroes the look-back words,
+# and one pass, k3b_pass.
+K9_STAGES = (("hist", ("k9_hist",)), ("norm", ("k9_norm",)), ("encode", ("k9_encode",)),
+             ("events", ("k9_events",)), ("scan", ("k3_kernel",)), ("pack", ("k3p_kernel",)),
+             ("compact", ("k3b_",)))
+K3B_STAGES = (("count", ("k3b_count",)), ("scan", ("k3b_scan",)),
+              ("scatter", ("k3b_scatter",)), ("clear", ("k3b_clear",)),
+              ("pass", ("k3b_pass",)))
 
 
 def _fresh_lzp(p, inp, n, reps: int):
@@ -550,14 +572,34 @@ def _k8_decisions(p, inp, n, reps: int):
 
 
 def _k10_stream(p, inp, n, reps: int):
-    """K10's input on this block: K9's table, states and stream (the
-    kernels), the stream reversed and zero-padded to ``_max_words`` as
-    ``decode_tokens`` pads it; and the token count."""
+    """K10's input on this block: the block's payload (the kernels), its
+    table, states and stream zero-padded to ``_max_words``, as
+    ``decode_tokens`` reads them; and the token count."""
     from comprox_tpu_torch.codec import fast
-    freq, states, words, n_tok = fast.encode_passes(p, inp, n)
-    stream = torch.zeros(fast._max_words(p), dtype=torch.int32, device=inp.device)
-    stream[: words.numel()] = words.flip(0)
-    return freq, states, stream, n_tok
+    payload = fast.encode_block_fast(inp.reshape(-1)[:n].cpu().numpy(), p, inp.device)
+    _, n_tok, _, freq, states, stream = fast._unpack_payload(payload, n, p)
+    dev = inp.device
+    return (torch.from_numpy(freq).to(dev), torch.from_numpy(states.astype(np.int64)).to(dev),
+            torch.from_numpy(stream).to(dev), n_tok)
+
+
+def _k9_tokens(p, inp, n, reps: int):
+    """K9's input on this block: K8's tokens of its K7 and K6 decisions
+    (the kernels), read by every launch."""
+    from comprox_tpu_torch.codec import fast
+    return fast.tokenize(p, inp, n, fast._fast_find_matches(p, inp, n))
+
+
+def _k9(p, st):
+    from comprox_tpu_torch.codec import fast
+    n_tok, sym, xtr, tbits = st
+    fast.encode_scan(p, sym, xtr, tbits, n_tok)
+
+
+def _k3b_grids(p, inp, n, reps: int):
+    """K3b's input on this block: K3p's mask and K3's words of its encode
+    (the kernels), read by every launch."""
+    return blk.encode_passes(p, inp, n)[1:3]
 
 
 def _k8(p, inp, n, dec):
@@ -588,6 +630,10 @@ STAGED = {
            lambda p, inp, n, j, st: _k8(p, inp, n, st), _k8_decisions),
     "K10": ("crf_flex_8MiB_S512.cpx", K10_STAGES,
             lambda p, inp, n, j, st: _k10(p, st), _k10_stream),
+    "K9": ("crf_flex_8MiB_S512.cpx", K9_STAGES,
+           lambda p, inp, n, j, st: _k9(p, st), _k9_tokens),
+    "K3b": ("crz_flex_8MiB_S512.cpx", K3B_STAGES,
+            lambda p, inp, n, j, st: blk.compact_stream(*st), _k3b_grids),
 }
 K4_GOLDENS = tuple(STAGED)
 
@@ -601,11 +647,23 @@ def kernel_stages(name: str, p, inp, n, reps: int = 3) -> dict:
     _, stages, launch, state = STAGED[name]
     st = state(p, inp, n, 1 + 2 * reps) if state else None
     launch(p, inp, n, 0, st)
+    out = _stage_ms(stages, lambda j: launch(p, inp, n, 1 + j, st), reps)
+    blk.reset_launch_counts()
+    for j in range(reps):
+        launch(p, inp, n, 1 + reps + j, st)
+    out["full"] = blk.kernel_ms()[name] / reps
+    return out
+
+
+def _stage_ms(stages, launch, reps: int) -> dict:
+    """{stage: the device ms of its kernels (by name, in a ``torch.profiler``
+    trace of ``launch(j)`` for j < reps) a launch, None where the trace
+    holds no device time}."""
     torch.cuda.synchronize()
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
     with prof:
         for j in range(reps):
-            launch(p, inp, n, 1 + j, st)
+            launch(j)
         torch.cuda.synchronize()
     us = dict.fromkeys((s for s, _ in stages), 0.0)
     for e in prof.events():
@@ -616,11 +674,33 @@ def kernel_stages(name: str, p, inp, n, reps: int = 3) -> dict:
                 us[stage] += e.time_range.elapsed_us()
                 break
     seen = any(us.values())
-    out = {s: v / reps / 1e3 if seen else None for s, v in us.items()}
-    blk.reset_launch_counts()
-    for j in range(reps):
-        launch(p, inp, n, 1 + reps + j, st)
-    out["full"] = blk.kernel_ms()[name] / reps
+    return {s: v / reps / 1e3 if seen else None for s, v in us.items()}
+
+
+# K3b's sweep: (rows of 512 lanes, flag density); crz's full width is
+# 49,152 rows at ~0.85% (~213 K words), crf's K9 on the 8 MiB golden 2,667
+# rows at ~27%
+K3B_SWEEP = ((49152, 0.0), (49152, 0.0085), (49152, 0.27), (49152, 1.0),
+             (12288, 0.0085), (98304, 0.0085), (2667, 0.27), (2667, 0.0))
+
+
+def k3b_sweep(cases=K3B_SWEEP, reps: int = 5) -> list:
+    """K3b's stages (``K3B_STAGES``, device ms from a ``torch.profiler``
+    trace) on random masks and words of S = 512 lanes, one slot a row, at
+    each (rows, density) of ``cases``: how its time goes with the mask's
+    size and the share of flagged words.  Uses only ``compact_stream``, so
+    it times any tree's K3b (``PYTHONPATH=<tree> python <this file> k3b``)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for rows, density in cases:
+        emit = torch.rand((rows, 1, 512), generator=gen, device="cuda") < density
+        packed = blk.pack_emit_plain(emit)
+        words = torch.randint(0, 1 << 16, (rows, 1, 512), generator=gen, dtype=torch.int32,
+                              device="cuda")
+        nw = int(blk.compact_stream(packed, words)[0])
+        st = _stage_ms(K3B_STAGES, lambda j: blk.compact_stream(packed, words), reps)
+        print(k4_stage_line(f"K3b, {rows} rows, {nw} words", st), flush=True)
+        out.append((rows, density, nw, st))
     return out
 
 
@@ -635,8 +715,8 @@ def k4_stage_line(name: str, st: dict) -> str:
 
 
 def k4_stages_goldens(names=K4_GOLDENS) -> dict:
-    """The stages (``kernel_stages``) of K4, K4x, K7, K13c, K8 and K10 at
-    full width on the 8 MiB crz, crx, crf and crp goldens' blocks; prints a
+    """The stages (``kernel_stages``) of K4, K4x, K7, K13c, K8, K10, K9 and
+    K3b at full width on the 8 MiB crz, crx, crf and crp goldens' blocks; prints a
     line each; returns {"K4 keys": ms, ...}."""
     out = {}
     for name in names:
@@ -980,6 +1060,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if args[:1] == ["k4stages"]:
         k4_stages_goldens(tuple(args[1:]) or K4_GOLDENS)
+        sys.exit(0)
+    if args[:1] == ["k3b"]:
+        k3b_sweep()
         sys.exit(0)
     if args[:1] == ["k6fit"]:
         k6fit()

@@ -11,14 +11,14 @@ run before it and off during it), and its kernels' device
 time is the sum of the CUDA events the wrappers record around their
 launches.  A line a codec: the walls, the MB/s of the best, the kernels'
 ms, the host share (1 - kernel ms / wall: the time the card waits on the
-host) and the ms of K4, K4x, K7, K8, K13c, K3, K3p, K3b, K6 (both launches
-of crx summed), K11, KS and KSx where the tree has them; the archive
-is checked against the golden's SHA-256 (``tests/data/torch_golden.json``).
-Then the crz, crx and crp ``-g4`` encodes of the 29 MiB + 777 B input of
-``chip_smoke.py``'s ``-g4`` cell (the 16 MiB chain golden's text and ELF
-corpora, each rotated by 4 MiB, the last cut to 5 MiB + 777 B: four
-distinct blocks), a line each with the peak ``max_memory_allocated`` and
-the archive's SHA-256 (which both trees must write alike).
+host) and the ms of K4, K4x, K7, K8, K9, K13c, K3, K3p, K3b, K6 (both
+launches of crx summed), K11, KS and KSx where the tree has them, and the
+peak ``max_memory_allocated``; the archive is checked against the golden's
+SHA-256 (``tests/data/torch_golden.json``).  Then the crz, crx and crp
+``-g4`` encodes of the 29 MiB + 777 B input of ``chip_smoke.py``'s ``-g4``
+cell (the 16 MiB chain golden's text and ELF corpora, each rotated by 4
+MiB, the last cut to 5 MiB + 777 B: four distinct blocks), a line each
+with the archive's SHA-256 (which both trees must write alike).
 
     python comprox_tpu_torch/benchmarks/walls.py TREE [TREE ...]
 
@@ -42,7 +42,8 @@ from pathlib import Path
 ARCHIVES = ("crz_flex_8MiB_S512.cpx", "crx_flex_8MiB_S512.cpx", "crp_8MiB_S512.cpx",
             "crf_flex_8MiB_S512.cpx", "crz_f0_8MiB_S512.cpx", "crx_scan_flex_8MiB_S512.cpx")
 GROUP_SOURCE = "crz_chainm_textelf_flex_16MiB_S512.cpx"  # 8 MiB text, 8 MiB ELF
-PASSES = ("K4", "K4x", "K7", "K8", "K13c", "K3", "K3p", "K3b", "K6", "K11", "KS", "KSx")
+PASSES = ("K4", "K4x", "K7", "K8", "K9", "K13c", "K3", "K3p", "K3b", "K6", "K11", "KS",
+          "KSx")
 GROUPED = ("crz", "crx", "crp")  # -g4 codes a launch a group (crf loops its blocks)
 
 
@@ -124,10 +125,10 @@ def one(tree: Path, reps: int = 3) -> list:
         cp = make_params(codec, opts)
         params.setdefault(codec, (cp, opts))
         corpus = decoded(name)
-        walls, kern, passes, _, arc = encodes(corpus, cp, opts, env=env)
+        walls, kern, passes, peak, arc = encodes(corpus, cp, opts, env=env)
         if hashlib.sha256(arc).hexdigest() != want["archive_sha256"]:
             raise AssertionError(f"{name}: the archive differs from the golden")
-        rows.append(row(codec, name, corpus, walls, kern, passes))
+        rows.append(row(codec, name, corpus, walls, kern, passes, peak_gib=peak / 2**30))
     corpus = group_corpus(decoded(GROUP_SOURCE))
     for codec, (cp, opts) in params.items():
         if codec not in GROUPED:

@@ -1780,7 +1780,8 @@ def _check_kernel_geometry(p: BlockParams):
     if p.lanes > KERNEL_MAX_LANES:
         raise NotImplementedError(
             f"the CUDA kernels take up to eight CTAs' threads of lanes, a "
-            f"thread a lane (K9, K10: eight lanes a thread in one CTA): "
+            f"thread a lane (K10: eight lanes a thread in one CTA; K9 writes "
+            f"only what K10 reads): "
             f"lanes <= {KERNEL_MAX_LANES} (got {p.lanes})"
         )
 
@@ -2384,7 +2385,9 @@ def compact_stream(emit_packed, words):
 
     Replaces the compaction of comprox_tpu/codec/block.py::_pack_payload
     (2256-2261), which the JAX package runs on the host.  Kernel:
-    csrc/rans.cu (three launches: tile counts, their scan, the scatter).
+    csrc/rans.cu (one pass over the mask as a flat bit string, a tile a
+    CTA, its offset from a decoupled look-back; after a launch that
+    zeroes the look-back words).
     ``emit_packed`` [T, n_slots, S/8] uint8 (K3p's) and ``words`` [T,
     n_slots, S] int32 (K3's) -> ``(n_words`` int32 0-d, ``stream`` [T *
     n_slots * S] int16): the first n_words of ``stream`` are the flagged
@@ -2393,7 +2396,7 @@ def compact_stream(emit_packed, words):
     the worst case (every word flagged), so the launch needs no count from
     the host.  On the block axis (``words`` [G, T, n_slots, S]) n_words is
     [G] and ``stream`` [G, T * n_slots * S], a segment a block: one launch
-    of each kernel.
+    of each kernel, a ticket counter and a look-back chain a block.
     """
     G = _blocks(words, 3)
     if _dispatch(emit_packed, words) == "cpu":
@@ -2406,7 +2409,7 @@ def compact_stream(emit_packed, words):
     _expect(words, "words", _i32, g + (steps, n_slots, s))
     _expect(emit_packed, "emit_packed", torch.uint8, g + (steps, n_slots, s // 8))
     dev, rows, lib = words.device, steps * n_slots, build.lib()
-    parts = torch.empty(g + (lib.cpx_k3b_tiles(rows) + 1, 2), dtype=_i32, device=dev)
+    parts = torch.empty(g + (lib.cpx_k3b_tiles(s, rows) + 1, 2), dtype=_i32, device=dev)
     n_words = torch.empty(g, dtype=_i32, device=dev)
     stream = torch.empty(g + (rows * s,), dtype=torch.int16, device=dev)
     _launch("K3b", lib.cpx_k3b_launch, G or 1, s, rows, emit_packed.data_ptr(),

@@ -7,11 +7,12 @@ match length), the backward price DP shared with mode R (K6, with this
 profile's prices), the tokenizer (K8: a per-lane replay of the decisions
 to token starts, repeat-distance detection and compaction in position
 order, one (sym, xtr, bits) triple per token) and the static rANS encoder
-(K9: histogram, normalisation to sum exactly M, and a reverse loop over
-``ceil(n_tok / S)`` steps of three events per lane that builds the compact
-stream).  Decode is the static rANS decoder (K10: slot table, the forward
-loop, one u32 per token with the repeat distances resolved); the LZ copies
-run on the host (``utils/native.f2_execute``), then the content CRC.
+(K9: histogram, normalisation to sum exactly M, and a backward pass over
+``ceil(n_tok / S)`` steps of three events per lane, K3's scan on a grid of
+the tokens' events, whose flagged words K3b compacts into the stream).
+Decode is the static rANS decoder (K10: slot table, the forward loop, one
+u32 per token with the repeat distances resolved); the LZ copies run on
+the host (``utils/native.f2_execute``), then the content CRC.
 
 Alphabet: sym = literal byte (0..255) | 256 + dist_bucket * 13 + len_bucket
 (distance buckets 0..23 = floor(log2 d), 24 = the previous distance; length
@@ -407,12 +408,14 @@ def _uniform_cf(tbits, val):
 
 
 def encode_scan_plain(p: BlockParams, sym, xtr, tbits, n_tok: int):
-    """Plain K9: ``(freq [581] int32, states [S] int64, words [n_words]
+    """Plain K9: ``(freq [581] int32, states [S] int64, stream [n_words]
     int32)`` — the static table of the first n_tok symbols, and the u16
-    words in the order they were emitted (the reverse of the stream):
-    tokens go S at a time from the last step to the first, each as the
-    events XTR2, XTR1, SYM, and a slot's emitting lanes write in descending
-    lane order (fast.py::_encode_fast, 460-516)."""
+    words in the decoder's read order: tokens go S at a time from the last
+    step to the first, each as the events XTR2, XTR1, SYM, every lane
+    emitting at most one word an event; the stream is the words in the
+    reverse of that order, steps ascending, then SYM, XTR1, XTR2, then lanes
+    ascending (fast.py::_encode_fast, 460-516, whose buffer holds them
+    emitted first)."""
     dev, s = sym.device, p.lanes
     hist = torch.bincount(sym[:n_tok].to(_i64), minlength=W_SYM)
     freq = normalize_freqs(hist)
@@ -436,7 +439,7 @@ def encode_scan_plain(p: BlockParams, sym, xtr, tbits, n_tok: int):
             x, emit, word = rans.enc_put(x, c, f)
             out.append(word.flip(0)[emit.flip(0)])
     words = torch.cat(out) if out else torch.zeros(0, dtype=_i64, device=dev)
-    return freq, x, words.to(_i32)
+    return freq, x, words.flip(0).to(_i32)
 
 
 def encode_scan(p: BlockParams, sym, xtr, tbits, n_tok: int):
@@ -444,11 +447,14 @@ def encode_scan(p: BlockParams, sym, xtr, tbits, n_tok: int):
 
     Replaces the second half of comprox_tpu/codec/fast.py::_encode_fast
     (460-516) with normalize_freqs (370), _uniform_cf (396) and
-    _rev_window_write (405).  Kernels: csrc/f2enc.cu (histogram,
-    normalisation, the encode loop in one CTA: a thread a lane, or up to
-    eight lanes a thread above 1024 lanes).
-    ``sym, xtr, tbits`` [>= n_tok] int32 from K8 -> (freq [581] int32,
-    states [S] int64, words [n_words] int32 in emission order).
+    _rev_window_write (405).  Kernels, one entry: csrc/f2enc.cu (the
+    histogram, the normalisation, the token pass writing K3's event grid,
+    slots SYM, XTR1, XTR2), then K3, K3p and K3b (csrc/rans.cu): the
+    backward scan a thread a lane, the flags packed, the flagged words
+    compacted in (step, slot, lane) order.
+    ``sym, xtr, tbits`` [>= n_tok] int32 from K8 (xtr below 2^tbits) ->
+    (freq [581] int32, states [S] int64, stream [n_words] int32 in the
+    decoder's order).
     """
     if _dispatch(sym, xtr, tbits) == "cpu":
         return encode_scan_plain(p, sym, xtr, tbits, n_tok)
@@ -458,17 +464,25 @@ def encode_scan(p: BlockParams, sym, xtr, tbits, n_tok: int):
                          f"capacity {p.capacity}")
     for name, v in (("sym", sym), ("xtr", xtr), ("tbits", tbits)):
         _expect(v, name, _i32, sym.shape[:1])
-    dev = sym.device
-    hist = torch.zeros(W_SYM, dtype=_i32, device=dev)
+    dev, s, lib = sym.device, p.lanes, build.lib()
+    steps = -(-n_tok // s)
+    rows = N_SLOTS * steps
+    hist = torch.zeros((2, W_SYM), dtype=_i32, device=dev)  # counts, then cum
     freq = torch.empty(W_SYM, dtype=_i32, device=dev)
-    states = torch.empty(p.lanes, dtype=_i64, device=dev)
-    buf = torch.empty(_max_words(p), dtype=_i32, device=dev)
+    states = torch.empty(s, dtype=_i64, device=dev)
+    ev = torch.empty((steps, 3 * N_SLOTS, s), dtype=_i32, device=dev)
+    emit = torch.empty((steps, N_SLOTS, s), dtype=torch.uint8, device=dev)
+    words = torch.empty((steps, N_SLOTS, s), dtype=_i32, device=dev)
+    packed = torch.empty((steps, N_SLOTS, s // 8), dtype=torch.uint8, device=dev)
+    parts = torch.empty((lib.cpx_k3b_tiles(s, rows) + 1, 2), dtype=_i32, device=dev)
     n_words = torch.zeros(1, dtype=_i32, device=dev)
-    _launch("K9", build.lib().cpx_k9_launch, p.lanes, n_tok,
+    stream = torch.empty(rows * s, dtype=torch.int16, device=dev)
+    _launch("K9", lib.cpx_k9_launch, s, n_tok,
             sym.data_ptr(), xtr.data_ptr(), tbits.data_ptr(), hist.data_ptr(),
-            freq.data_ptr(), states.data_ptr(), buf.data_ptr(),
-            n_words.data_ptr(), _stream_ptr())
-    return freq, states, buf[: int(n_words.item())]
+            freq.data_ptr(), states.data_ptr(), ev.data_ptr(), emit.data_ptr(),
+            words.data_ptr(), packed.data_ptr(), parts.data_ptr(), n_words.data_ptr(),
+            stream.data_ptr(), _stream_ptr())
+    return freq, states, stream[: int(n_words.item())].to(_i32) & 0xFFFF
 
 
 # --------------------------------------------------------------------------
@@ -558,7 +572,7 @@ def decode_scan(p: BlockParams, freq, states, stream, n_tok: int):
 
     Replaces comprox_tpu/codec/fast.py::_build_dec_table (524),
     _fast_decode_scan (538-603) and _token_plane (606-639).  Kernels:
-    csrc/f2dec.cu (the decode loop in one CTA as K9's, its slot table
+    csrc/f2dec.cu (the decode loop in one CTA, its slot table
     built in shared memory and the stream read through a ring of
     ``K10_RING`` words there; the token plane with its forward scan in three
     launches).  ``freq`` [581] int32 (summing to M), ``states`` [S] int64,
@@ -605,7 +619,7 @@ def _max_words(p: BlockParams) -> int:
 
 def encode_passes(p: BlockParams, inp, n: int):
     """K7, K6 (or the greedy decisions), K8, K9 on one [S, T] block tensor:
-    ``(freq, states, words, n_tok)``."""
+    ``(freq, states, stream, n_tok)``, the stream in the decoder's order."""
     dec = _fast_find_matches(p, inp, n)
     n_tok, sym, xtr, tbits = tokenize(p, inp, n, dec)
     freq, states, words = encode_scan(p, sym, xtr, tbits, n_tok)
@@ -623,9 +637,9 @@ def encode_block_fast(data: np.ndarray, p: BlockParams, device) -> bytes:
     # the content CRC is this profile's corruption detector: a flipped
     # mantissa bit decodes to a valid stream with wrong bytes
     crc = zlib.crc32(data.tobytes()) & 0xFFFFFFFF
-    freq, states, words, n_tok = encode_passes(
+    freq, states, stream, n_tok = encode_passes(
         p, torch.from_numpy(buf).to(device), n)
-    stream = words.cpu().numpy()[::-1]  # emission order reversed = decode order
+    stream = stream.cpu().numpy()
     return (
         np.array([stream.size, n_tok, crc], np.uint32).tobytes()
         + freq.cpu().numpy().astype("<u2").tobytes()

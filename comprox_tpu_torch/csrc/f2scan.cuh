@@ -1,6 +1,7 @@
 // Prefix scans over the whole block, shared by the mode-F tokenizer (K8,
-// f2tok.cu) and decoder (K10, f2dec.cu), and by the stream compaction of
-// every adaptive encode (K3b, rans.cu; its counts only).
+// f2tok.cu) and decoder (K10, f2dec.cu); the CTA scan also by the stream
+// compaction of every adaptive encode (K3b, rans.cu; its counts only) and
+// by K9's normalisation (f2enc.cu).
 //
 // One scan carries two values per position: a count (how many token starts
 // lie before it) and "the last nonzero value before it" (the previous match
@@ -62,14 +63,15 @@ static __device__ CountLast cta_excl_scan(CountLast v, CountLast* wsum,
   return combine(before, ex);
 }
 
-// In place: parts[0 .. n) -> their exclusive prefixes, parts[n] = the total,
-// which it returns.  Called by every thread of one CTA of 1024 threads.
+// In place: parts[0 .. n) -> their exclusive prefixes, parts[n] = the
+// total; one CTA of 1024 threads.
 // The parts pass through shared memory SCAN_PARTS_TILE at a time, read and
 // written coalesced (a thread's loads of a tile all issued before the
 // first is stored), each thread scanning SCAN_PARTS_TILE / 1024
 // consecutive ones.
 #define SCAN_PARTS_TILE 4096
-static __device__ CountLast scan_parts_cta(CountLast* __restrict__ parts, int n) {
+static __global__ void __launch_bounds__(1024) scan_parts(CountLast* __restrict__ parts,
+                                                          int n) {
   __shared__ CountLast tile[SCAN_PARTS_TILE];
   __shared__ CountLast wsum[32];
   constexpr int per = SCAN_PARTS_TILE / 1024;
@@ -107,11 +109,4 @@ static __device__ CountLast scan_parts_cta(CountLast* __restrict__ parts, int n)
     __syncthreads();  // the tile and wsum are the next round's
   }
   if (tid == 0) parts[n] = carry;
-  return carry;
-}
-
-// scan_parts_cta as a launch of one CTA of 1024 threads.
-static __global__ void __launch_bounds__(1024) scan_parts(CountLast* __restrict__ parts,
-                                                          int n) {
-  scan_parts_cta(parts, n);
 }

@@ -28,8 +28,9 @@
 #include <cooperative_groups.h>
 
 #define CPX_MAX_LANES 1024
-// The fast profile's rANS loops (K9, K10) run up to CPX_MAX_LPT lanes a
-// thread: lanes_per_thread(S), a power of two, so S <= 8192.
+// The fast profile's rANS decoder (K10) runs up to CPX_MAX_LPT lanes a
+// thread: lanes_per_thread(S), a power of two, so S <= 8192; its encoder
+// (K9) takes the same lanes, so that the card decodes what it writes.
 #define CPX_MAX_LPT 8
 static inline int lanes_per_thread(int S) {
   int lpt = 1;

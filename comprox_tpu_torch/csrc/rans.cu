@@ -54,15 +54,24 @@
 // words and mask.  The words whose flag is set, in (step, slot, lane)
 // order (the decoder's read order), their low 16 bits: K3p's mask [rows,
 // S/8] (rows = T * n_slots) and K3's words [rows, S] -> n_words and the
-// stream [rows * S] int16 (the first n_words written).  Three launches, the
-// tile scan of f2scan.cuh (K8's and K10's): k3b_count counts each tile of
-// K3B_TILE rows (a warp a row at a time, a ballot of 32 lanes' flags and a
-// popc); scan_parts_cta turns each block's tile counts into exclusive
-// offsets and its total into n_words; k3b_scatter counts again, scans the
-// warps' rows in the tile, and writes each flagged word at its row's
-// offset + its rank in the row (the popc of the lower lanes' flags),
-// reading only the words it writes.  Bound: bytes, the mask read once and
-// the flagged words read and written once.
+// stream [rows * S] int16 (the first n_words written).  S is a multiple of
+// 8, so a block's mask is one flat bit string in stream order (bit r S + l
+// is row r, lane l, the flag of words_flat[r S + l]) and the compaction
+// is a flat one: tiles need not follow rows.  One pass over the mask:
+// k3b_clear zeroes the look-back words and the tickets, then k3b_pass, a
+// CTA a tile of K3B_THREADS x 128 flags (each thread one 16-byte load of
+// the mask; block b's segment starts at b rows S / 8 bytes, which need
+// not be 16-byte aligned, so a piece it covers only in part, its head or
+// tail, is read a byte at a time, zeros outside it), takes a ticket (its
+// tile, in the order CTAs start, so that none waits on a tile whose CTA
+// has not started), counts its flags by popc and a CTA scan, takes the
+// tile's offset from a decoupled look-back over the earlier tiles' words
+// (a word carries its flag and its value together, as K8's; one warp
+// reads 32 K3B_LOOK of them a round), and writes its flagged words,
+// reading only those: each thread its own where a warp's threads hold
+// few, else a warp a mask word at a time, coalesced; K3B_BATCH loads in
+// flight.  The block's last tile writes n_words.  Bound: bytes, the mask
+// read once and the flagged words read and written once.
 #include "ppm_r.cuh"
 #include "f2scan.cuh"
 
@@ -76,9 +85,11 @@
 #error "K3_RING_D must be a power of two"
 #endif
 
-#define K3B_WARPS 8
-#define K3B_ROWS 8                          // rows a warp, one after another
-#define K3B_TILE (K3B_WARPS * K3B_ROWS)     // rows a CTA
+#define K3B_THREADS 256  // a tile: a thread a 16-byte piece of the mask (128 flags)
+#define K3B_AGG 1ull      // a look-back word's flags: the tile's count,
+#define K3B_INCL 2ull     // or its inclusive prefix
+#define K3B_BATCH 8       // flagged words (or mask words) a thread has in flight at once
+#define K3B_LOOK 4        // look-back words a thread reads a round
 
 namespace {
 
@@ -192,89 +203,160 @@ __global__ void k3p_kernel(int n_out, const uint64_t* __restrict__ emit,
   packed[j] = (uint8_t)((flags * 0x0102040810204080ull) >> 56);
 }
 
-// The flag of lane l of a row's packed mask.
-static __device__ __forceinline__ bool k3b_flag(const uint8_t* __restrict__ row, int l) {
-  return (row[l >> 3] >> (l & 7)) & 1;
+// look: a block's [tiles] look-back words, (flag << 32) | value, then its
+// ticket counter; zeroed by k3b_clear.
+__global__ void k3b_clear(unsigned long long* __restrict__ look, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) look[i] = 0ull;
 }
 
-// A warp's flagged words of its rows [r0, r1): their count (every lane).
-static __device__ int k3b_warp_count(const uint8_t* __restrict__ mask, int S, int r0, int r1) {
+static __device__ __forceinline__ unsigned long long k3b_load(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+static __device__ __forceinline__ void k3b_store(unsigned long long* p, unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// The flagged words before tile `tile` (> 0) of this block, by one warp:
+// lane i reads the words of the tiles j - (K3B_LOOK i + r), r < K3B_LOOK,
+// all in flight, then waits for each to be published; the nearest
+// inclusive prefix ends the walk (the tiles up to it summed), else all
+// 32 K3B_LOOK counts are summed and the walk goes on as many tiles down.
+// One warp polls (a CTA of pollers slowed the walk on the card: more
+// traffic on the same few lines), a few words a lane so that a walk
+// takes few rounds while a wave's tiles publish their counts at once.
+static __device__ int k3b_look_back(const unsigned long long* __restrict__ look, int tile) {
   const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  int n = 0;
-  for (int r = r0; r < r1; ++r) {
-    const uint8_t* row = mask + (size_t)r * (S >> 3);
-    for (int l0 = 0; l0 < S; l0 += 32) {
-      const int l = l0 + lane;
-      n += __popc(__ballot_sync(full, l < S && k3b_flag(row, l)));
-    }
-  }
-  return n;
-}
-
-// The rows of tile blockIdx.x of block blockIdx.y: [r0, r1) of this warp.
-static __device__ __forceinline__ void k3b_rows(int rows, int& r0, int& r1) {
-  const int warp = threadIdx.x >> 5;
-  r0 = min(blockIdx.x * K3B_TILE + warp * K3B_ROWS, rows);
-  r1 = min(r0 + K3B_ROWS, rows);
-}
-
-__global__ void __launch_bounds__(K3B_WARPS * 32) k3b_count(int S, int rows, int tiles,
-                                                            const uint8_t* __restrict__ mask,
-                                                            CountLast* __restrict__ parts) {
-  __shared__ int wsum[K3B_WARPS];
-  mask = at_blk(mask, (long long)rows * (S >> 3));
-  parts = at_blk(parts, tiles + 1);
-  int r0, r1;
-  k3b_rows(rows, r0, r1);
-  const int n = k3b_warp_count(mask, S, r0, r1);
-  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = n;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < K3B_WARPS; ++w) s += wsum[w];
-    parts[blockIdx.x] = CountLast{s, 0};
+  constexpr int window = K3B_LOOK * 32;
+  const int d0 = K3B_LOOK * (threadIdx.x & 31);  // this lane's first distance
+  int excl = 0;
+  for (int j = tile - 1;; j -= window) {
+    unsigned long long v[K3B_LOOK];
+#pragma unroll
+    for (int r = 0; r < K3B_LOOK; ++r)  // before tile 0: a prefix of 0
+      v[r] = j - d0 - r >= 0 ? k3b_load(look + j - d0 - r) : K3B_INCL << 32;
+#pragma unroll
+    for (int r = 0; r < K3B_LOOK; ++r)
+      while ((v[r] >> 32) == 0ull) v[r] = k3b_load(look + j - d0 - r);
+    int near = window;  // the least distance of an inclusive prefix
+#pragma unroll
+    for (int r = K3B_LOOK - 1; r >= 0; --r)
+      if ((v[r] >> 32) == K3B_INCL) near = d0 + r;
+    const int last = (int)__reduce_min_sync(full, (unsigned)near);
+    int val = 0;
+#pragma unroll
+    for (int r = 0; r < K3B_LOOK; ++r)
+      if (d0 + r <= last) val += (int)(uint32_t)v[r];
+    excl += (int)__reduce_add_sync(full, (unsigned)val);
+    if (last < window) return excl;
   }
 }
 
-// One CTA of 1024 threads a block: its tiles' exclusive offsets, and its
-// word count.
-__global__ void __launch_bounds__(1024) k3b_scan(int tiles, CountLast* __restrict__ parts,
-                                                 int* __restrict__ n_words) {
-  const CountLast total = scan_parts_cta(parts + (size_t)blockIdx.x * (tiles + 1), tiles);
-  if (threadIdx.x == 0) n_words[blockIdx.x] = total.cnt;
-}
-
-__global__ void __launch_bounds__(K3B_WARPS * 32) k3b_scatter(
+__global__ void __launch_bounds__(K3B_THREADS) k3b_pass(
     int S, int rows, int tiles, const uint8_t* __restrict__ mask,
-    const int* __restrict__ words, const CountLast* __restrict__ parts,
-    int16_t* __restrict__ stream) {
-  __shared__ int wsum[K3B_WARPS];
-  const unsigned full = 0xffffffffu;
-  const long long cells = (long long)rows * S;
-  mask = at_blk(mask, cells >> 3);
+    const int* __restrict__ words, unsigned long long* __restrict__ look,
+    int* __restrict__ n_words, int16_t* __restrict__ stream) {
+  __shared__ CountLast wsum[32];
+  __shared__ int s_ticket, s_excl;
+  const long long cells = (long long)rows * S, nb = cells >> 3;
+  mask = at_blk(mask, nb);
   words = at_blk(words, cells);
   stream = at_blk(stream, cells);
-  parts = at_blk(parts, tiles + 1);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int r0, r1;
-  k3b_rows(rows, r0, r1);
-  const int n = k3b_warp_count(mask, S, r0, r1);
-  if (lane == 0) wsum[warp] = n;
+  look = at_blk(look, (long long)tiles + 1);
+  if (threadIdx.x == 0)
+    s_ticket = (int)atomicAdd(reinterpret_cast<unsigned*>(look + tiles), 1u);
   __syncthreads();
-  int base = parts[blockIdx.x].cnt;
-  for (int w = 0; w < warp; ++w) base += wsum[w];
-  const unsigned below = (1u << lane) - 1u;
-  for (int r = r0; r < r1; ++r) {
-    const uint8_t* row = mask + (size_t)r * (S >> 3);
-    for (int l0 = 0; l0 < S; l0 += 32) {
-      const int l = l0 + lane;
-      const bool on = l < S && k3b_flag(row, l);
-      const unsigned b = __ballot_sync(full, on);
-      if (on) stream[base + __popc(b & below)] = (int16_t)words[(size_t)r * S + l];
-      base += __popc(b);
+  const int tile = s_ticket;
+  // this thread's 16-byte piece: piece c of those that cover the block's
+  // segment [s0, s1), counted from the 16-byte boundary at or below s0
+  const long long s0 = (long long)(uintptr_t)mask, s1 = s0 + nb;
+  const long long at = (s0 & ~15ll) + 16ll * ((long long)tile * K3B_THREADS + threadIdx.x);
+  uint32_t f[4] = {0u, 0u, 0u, 0u};
+  if (at >= s0 && at + 16 <= s1) {
+    const uint4 v = *reinterpret_cast<const uint4*>((uintptr_t)at);
+    f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+  } else if (at < s1 && at + 16 > s0) {  // the segment's unaligned head or tail
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      if (at + b >= s0 && at + b < s1)
+        f[b >> 2] |= (uint32_t)*reinterpret_cast<const uint8_t*>((uintptr_t)(at + b))
+                     << (8 * (b & 3));
+  }
+  CountLast total;
+  const int ex = cta_excl_scan(
+      CountLast{__popc(f[0]) + __popc(f[1]) + __popc(f[2]) + __popc(f[3]), 0}, wsum,
+      total).cnt;
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0)
+      k3b_store(look + tile, ((tile == 0 ? K3B_INCL : K3B_AGG) << 32) | (uint32_t)total.cnt);
+    const int excl = tile == 0 ? 0 : k3b_look_back(look, tile);
+    if (threadIdx.x == 0) {
+      if (tile > 0) k3b_store(look + tile, (K3B_INCL << 32) | (uint32_t)(excl + total.cnt));
+      if (tile == tiles - 1) n_words[blockIdx.y] = excl + total.cnt;
+      s_excl = excl;
     }
   }
+  __syncthreads();
+  const int excl = s_excl;
+  // The flagged words.  A warp whose threads hold at most K3B_BATCH each
+  // has each thread write its own, its loads all in flight before the
+  // first store: flag i of the piece (bit i of lo, i - 64 of hi) is the
+  // flag of words_flat[bit0 + i].  A denser warp takes its nonzero mask
+  // words K3B_BATCH at a time, a word's 32 flags across the lanes (word w
+  // of lane src covers words_flat[bit0 + 128 (src - lane) + 32 w + i]), so
+  // that each load and store is coalesced.
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int o = excl + ex;
+  const long long bit0 = (at - s0) * 8;
+  const int cnt = __popc(f[0]) + __popc(f[1]) + __popc(f[2]) + __popc(f[3]);
+  if (__reduce_max_sync(full, (unsigned)cnt) <= K3B_BATCH) {
+    unsigned long long lo = f[0] | (unsigned long long)f[1] << 32,
+                       hi = f[2] | (unsigned long long)f[3] << 32;
+    int pos[K3B_BATCH], v[K3B_BATCH];
+#pragma unroll
+    for (int u = 0; u < K3B_BATCH; ++u) {
+      pos[u] = lo ? __ffsll(lo) - 1 : hi ? 63 + __ffsll(hi) : -1;
+      if (lo) lo &= lo - 1;
+      else hi &= hi - 1;
+    }
+#pragma unroll
+    for (int u = 0; u < K3B_BATCH; ++u)
+      if (pos[u] >= 0) v[u] = words[bit0 + pos[u]];
+#pragma unroll
+    for (int u = 0; u < K3B_BATCH; ++u)
+      if (pos[u] >= 0) stream[o + u] = (int16_t)v[u];
+    return;
+  }
+  const unsigned below = (1u << lane) - 1u;
+  int ob = o;  // the first place of word w's words
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    for (unsigned nz = __ballot_sync(full, f[w] != 0u); nz;) {
+      uint32_t wd[K3B_BATCH];
+      int at_[K3B_BATCH], v[K3B_BATCH];
+#pragma unroll
+      for (int u = 0; u < K3B_BATCH; ++u) {
+        const int src = nz ? __ffs(nz) - 1 : lane;
+        wd[u] = __shfl_sync(full, nz ? f[w] : 0u, src);
+        at_[u] = __shfl_sync(full, ob, src);
+        if (wd[u] >> lane & 1u) v[u] = words[bit0 + 128ll * (src - lane) + 32 * w + lane];
+        nz &= nz - 1u;
+      }
+#pragma unroll
+      for (int u = 0; u < K3B_BATCH; ++u)
+        if (wd[u] >> lane & 1u) stream[at_[u] + __popc(wd[u] & below)] = (int16_t)v[u];
+    }
+    ob += __popc(f[w]);
+  }
+}
+
+// The tiles of a block of `rows` rows of S lanes: its mask's 16-byte
+// pieces, wherever the segment starts, K3B_THREADS a tile.
+static long long k3b_tile_count(int S, int rows) {
+  const long long pieces = (long long)rows * S / 8 / 16 + 2;
+  return (pieces + K3B_THREADS - 1) / K3B_THREADS;
 }
 
 template <int NS>
@@ -319,7 +401,8 @@ extern "C" int cpx_k3_launch(int G, int S, int T, int n_slots, const void* ev,
 
 // mask [G, rows, S/8] u8 and words [G, rows, S] int32 -> n_words [G] int32
 // and stream [G, rows * S] int16, each block's first n_words its stream;
-// parts [G, tiles + 1] scratch (tiles = ceil(rows / K3B_TILE)).
+// parts [G, tiles + 1] 8-byte scratch (tiles = cpx_k3b_tiles(S, rows)),
+// zeroed here.
 extern "C" int cpx_k3b_launch(int G, int S, int rows, const void* mask, const void* words,
                               void* parts, void* n_words, void* stream_out,
                               void* stream) {
@@ -327,20 +410,17 @@ extern "C" int cpx_k3b_launch(int G, int S, int rows, const void* mask, const vo
       (long long)rows * S > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int tiles = (rows + K3B_TILE - 1) / K3B_TILE;
-  const dim3 grid(tiles, G);
-  k3b_count<<<grid, K3B_WARPS * 32, 0, st>>>(S, rows, tiles, (const uint8_t*)mask,
-                                             (CountLast*)parts);
+  const int tiles = (int)k3b_tile_count(S, rows);
+  const long long look = (long long)G * (tiles + 1);
+  k3b_clear<<<(unsigned)((look + 255) / 256), 256, 0, st>>>((unsigned long long*)parts, look);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  k3b_scan<<<G, 1024, 0, st>>>(tiles, (CountLast*)parts, (int*)n_words);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  k3b_scatter<<<grid, K3B_WARPS * 32, 0, st>>>(S, rows, tiles, (const uint8_t*)mask,
-                                               (const int*)words, (const CountLast*)parts,
-                                               (int16_t*)stream_out);
+  k3b_pass<<<dim3(tiles, G), K3B_THREADS, 0, st>>>(
+      S, rows, tiles, (const uint8_t*)mask, (const int*)words, (unsigned long long*)parts,
+      (int*)n_words, (int16_t*)stream_out);
   return (int)cudaGetLastError();
 }
 
-// The K3b scratch's tiles for `rows` rows (the wrapper sizes parts by it).
-extern "C" int cpx_k3b_tiles(int rows) { return (rows + K3B_TILE - 1) / K3B_TILE; }
+// The K3b scratch's tiles for `rows` rows of S lanes (the wrapper sizes
+// parts by it).
+extern "C" int cpx_k3b_tiles(int S, int rows) { return (int)k3b_tile_count(S, rows); }

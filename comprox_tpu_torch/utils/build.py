@@ -56,7 +56,7 @@ _SIGNATURES = {
     "cpx_k7_keys_launch": [_P] * 4,
     "cpx_k7_find_launch": [_P] * 7,
     "cpx_k8_launch": [_P] * 8,
-    "cpx_k9_launch": [_I] * 2 + [_P] * 9,
+    "cpx_k9_launch": [_I] * 2 + [_P] * 14,
     "cpx_k10_launch": [_I] * 3 + [_P] * 8,
     "cpx_k2_launch": [_P, _I] + [_P] * 12,
     "cpx_k3_launch": [_I] * 4 + [_P] * 5,
@@ -65,7 +65,7 @@ _SIGNATURES = {
     "cpx_kcr_launch": [_I, _I, _P, _P, _P],
     "cpx_k3p_launch": [_I, _P, _P, _P],
     "cpx_k3b_launch": [_I] * 3 + [_P] * 6,
-    "cpx_k3b_tiles": [_I],
+    "cpx_k3b_tiles": [_I, _I],
     "cpx_k4x_keys_launch": [_P] * 4,
     "cpx_k4x_find_launch": [_P] * 7,
     "cpx_k6x_launch": [_P, _I] + [_P] * 5,

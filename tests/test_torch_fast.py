@@ -288,7 +288,8 @@ def test_normalize_freqs_equals_jax(which):
 @pytest.mark.parametrize("name,geo,short", CASES)
 def test_encode_scan_equals_jax(name, geo, short):
     """K9 on the JAX tokens: the static table, the final states, the words
-    in emission order (``_encode_fast``'s buffer prefix) and their count."""
+    in the decoder's order (``_encode_fast``'s buffer prefix, which holds
+    them in emission order, reversed) and their count."""
     pj, pt = params(geo)
     st = jax_stages(name, geo, short)
     freq, states, words = tfast.encode_scan(
@@ -297,7 +298,7 @@ def test_encode_scan_equals_jax(name, geo, short):
     np.testing.assert_array_equal(freq.numpy(), st["freq"])
     np.testing.assert_array_equal(states.numpy(), st["states"])
     assert words.numel() == st["n_words"]
-    np.testing.assert_array_equal(words.numpy(), st["words"])
+    np.testing.assert_array_equal(words.numpy(), st["words"][::-1])
 
 
 @pytest.mark.parametrize("name,geo,short", CASES)

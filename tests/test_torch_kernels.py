@@ -645,7 +645,7 @@ def test_fast_kernel_matches_plain(cuda_device, kernel, name):
         assert all(torch.equal(a, b) for a, b in zip(got, (freq, states, words)))
         return
     stream = torch.zeros(tfast._max_words(p), dtype=torch.int32, device=cuda_device)
-    stream[: words.numel()] = words.flip(0)
+    stream[: words.numel()] = words
     xk, uk, plk = tfast.decode_scan(p, freq, states, stream, n_tok)
     xp, up, plp = tfast.decode_scan_plain(p, freq, states, stream, n_tok)
     assert uk == up == words.numel()
@@ -669,10 +669,59 @@ def test_fast_rans_kernels_take_wide_blocks(cuda_device, name, lanes):
     got = tfast.encode_scan(p, sym, xtr, tbits, n_tok)
     assert all(torch.equal(a, b) for a, b in zip(got, (freq, states, words)))
     stream = torch.zeros(tfast._max_words(p), dtype=torch.int32, device=cuda_device)
-    stream[: words.numel()] = words.flip(0)
+    stream[: words.numel()] = words
     xk, uk, plk = tfast.decode_scan(p, freq, states, stream, n_tok)
     xp, up, plp = tfast.decode_scan_plain(p, freq, states, stream, n_tok)
     assert uk == up == words.numel()
+    assert torch.equal(xk, xp) and torch.equal(plk, plp[:n_tok])
+
+
+def _k9_tokens(rng, n_tok, literal=False):
+    """K8-shaped tokens: literals, or matches whose extra bits are what
+    their symbol says (len_bits + dist_bits, up to 30: both XTR events),
+    the value below 2^bits; ``(sym, xtr, tbits)`` int32 [max(n_tok, 1)]."""
+    m = max(n_tok, 1)
+    is_m = np.zeros(m, bool) if literal else rng.random(m) < 0.6
+    db, lb = rng.integers(0, 25, m), rng.integers(0, tfast.L_BUCKETS, m)
+    sym = np.where(is_m, 256 + db * tfast.L_BUCKETS + lb, rng.integers(0, 256, m))
+    bits = np.where(lb >= tfast.L_DIRECT, lb - 5, 0) + np.where(db == tfast.DB_REPEAT, 0, db)
+    tbits = np.where(is_m, bits, 0)
+    xtr = rng.integers(0, 1 << 62, m, dtype=np.uint64) & ((np.uint64(1) << tbits.astype(np.uint64))
+                                                         - np.uint64(1))
+    return [torch.from_numpy(a) for a in (sym.astype(np.int32), xtr.astype(np.uint32).view(
+        np.int32), tbits.astype(np.int32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "one", "under_s", "ragged", "full", "literals"])
+@pytest.mark.parametrize("lanes", [8, 72, 512])
+def test_k9_matches_plain_at_any_token_count(cuda_device, lanes, kind):
+    """K9 (the token pass, K3's scan, K3p and K3b under one launch) against
+    its plain version on K8-shaped tokens: no token, one, fewer than S, a
+    ragged last step, every cell, all literals; a warp not full at S = 8
+    and 72.  One ``K9`` launch a call; K10 decodes the stream as it comes
+    and drains every state."""
+    p = blk.BlockParams(**dict(FAST_WIDE, lanes=lanes, steps=32))
+    n_tok = dict(none=0, one=1, under_s=lanes - 3, ragged=5 * lanes + 3, full=p.capacity,
+                 literals=7 * lanes + 1)[kind]
+    rng = np.random.default_rng([lanes, len(kind)])
+    sym, xtr, tbits = (t.to(cuda_device) for t in _k9_tokens(rng, n_tok, kind == "literals"))
+    want = tfast.encode_scan_plain(p, sym, xtr, tbits, n_tok)
+    before = blk.LAUNCHES["K9"]
+    got = tfast.encode_scan(p, sym, xtr, tbits, n_tok)
+    assert blk.LAUNCHES["K9"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    freq, states, words = got
+    if n_tok == 0:
+        assert words.numel() == 0 and int(freq[0]) == tfast.M
+        assert bool((states == tfast.RANS_L).all())
+        return
+    stream = torch.zeros(max(tfast._max_words(p), words.numel() + 3 * lanes + 16),
+                         dtype=torch.int32, device=cuda_device)
+    stream[: words.numel()] = words
+    xk, uk, plk = tfast.decode_scan(p, freq, states, stream, n_tok)
+    xp, up, plp = tfast.decode_scan_plain(p, freq, states, stream, n_tok)
+    assert uk == up == words.numel() and bool((xk == tfast.RANS_L).all())
     assert torch.equal(xk, xp) and torch.equal(plk, plp[:n_tok])
 
 
@@ -747,7 +796,7 @@ def test_k10_ring_serves_a_clamped_window(cuda_device, name, lanes):
     freq, states, words = tfast.encode_scan(p, sym, xtr, tbits, n_tok)
     for size in (max(words.numel(), p.lanes), tfast._max_words(p)):
         stream = torch.zeros(size, dtype=torch.int32, device=cuda_device)
-        stream[: words.numel()] = words.flip(0)
+        stream[: words.numel()] = words
         xk, uk, plk = tfast.decode_scan(p, freq, states, stream, n_tok)
         xp, up, plp = tfast.decode_scan_plain(p, freq, states, stream, n_tok)
         assert uk == up and torch.equal(xk, xp) and torch.equal(plk, plp[:n_tok])
@@ -1452,6 +1501,87 @@ def test_k3b_block_axis_matches_one_block_launches(cuda_device, n_slots):
         one_nw, one = blk.compact_stream(packed[b], words[b])
         assert int(one_nw) == int(nw[b])
         assert torch.equal(streams[b, : int(nw[b])], one[: int(one_nw)])
+
+
+def _flat_mask_words(rng, G, steps, n_slots, lanes, kinds):
+    """G blocks' K3p masks and words, block b all silent, all emitting or
+    random (``kinds[b]``: "silent", "all" or a flag density)."""
+    emit = np.stack([np.zeros((steps, n_slots, lanes), bool) if k == "silent"
+                     else np.ones((steps, n_slots, lanes), bool) if k == "all"
+                     else rng.random((steps, n_slots, lanes)) < k for k in kinds])
+    words = rng.integers(0, 1 << 16, (G, steps, n_slots, lanes)).astype(np.int32)
+    packed = torch.stack([blk.pack_emit_plain(torch.from_numpy(e)) for e in emit])
+    return packed, torch.from_numpy(words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots", [3, 5])
+@pytest.mark.parametrize("lanes,steps", [(8, 37), (72, 11), (72, 1)])
+def test_k3b_takes_unaligned_segments(cuda_device, n_slots, lanes, steps):
+    """K3b at S = 8 and 72 with odd T: a block's mask segment is T n_slots
+    S / 8 bytes, no multiple of 16, so on the block axis each block after
+    the first starts unaligned, and so does a one-block launch on such a
+    block's view.  Blocks all silent, all emitting and random; each against
+    the plain version, one ``K3b`` launch a call."""
+    kinds = ["all", "silent", 0.3, "all", 0.05]
+    packed, words = _flat_mask_words(np.random.default_rng([lanes, steps, n_slots]),
+                                     len(kinds), steps, n_slots, lanes, kinds)
+    assert (packed[0].numel() % 16) != 0
+    packed, words = packed.to(cuda_device), words.to(cuda_device)
+    before = blk.LAUNCHES["K3b"]
+    nw, streams = blk.compact_stream(packed, words)
+    assert blk.LAUNCHES["K3b"] == before + 1
+    for b, kind in enumerate(kinds):
+        want_nw, want = blk.compact_stream_plain(packed[b], words[b])
+        assert int(nw[b]) == int(want_nw)
+        assert (int(nw[b]) == 0) == (kind == "silent")
+        assert (int(nw[b]) == words[b].numel()) == (kind == "all")
+        assert torch.equal(streams[b, : int(nw[b])], want[: int(want_nw)])
+        one_nw, one = blk.compact_stream(packed[b], words[b])
+        assert int(one_nw) == int(want_nw) and torch.equal(one[: int(one_nw)],
+                                                           want[: int(want_nw)])
+    assert blk.LAUNCHES["K3b"] == before + 1 + len(kinds)
+
+
+def test_k3b_variants_apply_to_the_source():
+    """benchmarks/k3b_variants.py's substitutions each change the source as
+    stated, so that the variants it times are what it names."""
+    from comprox_tpu_torch.benchmarks import k3b_variants as kv
+
+    src = (build.CSRC / "rans.cu").read_text()
+    v = kv.variants(src)
+    assert v["source"] == src
+    assert v["ticket twice"].count("atomicAdd(") == src.count("atomicAdd(") + 1
+    assert "#define K3B_LOOK 1" in v["a word a lane"] and kv.LOOK not in v["a word a lane"]
+    cta = v["the CTA looks back"]
+    assert "k3b_look_back_cta(look, tile, red)" in cta and kv.WARP_CALL not in cta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 3])
+def test_k3b_at_crz_width_and_beyond_one_wave(cuda_device, G):
+    """K3b on crz's full-width grid (T = 16384, three slots, S = 512: 49,152
+    rows, 769 tiles a block) at crz's density and, on the block axis, three
+    such blocks (2,307 tiles: more than the card holds at once, so tiles
+    wait on tiles of an earlier wave), each against the plain version."""
+    steps, n_slots, lanes = 16384, 3, 512
+    kinds = [0.0085, "all", 0.3][:G]
+    emit = torch.stack([torch.ones((steps, n_slots, lanes), dtype=torch.bool,
+                                   device=cuda_device) if k == "all" else
+                        torch.rand((steps, n_slots, lanes), generator=torch.Generator(
+                            device=cuda_device).manual_seed(G), device=cuda_device) < k
+                        for k in kinds])
+    words = torch.randint(0, 1 << 16, (G, steps, n_slots, lanes), dtype=torch.int32,
+                          device=cuda_device)
+    packed = torch.stack([blk.pack_emit_plain(e) for e in emit])
+    del emit
+    nw, streams = blk.compact_stream(packed if G > 1 else packed[0],
+                                     words if G > 1 else words[0])
+    nw, streams = nw.reshape(G), streams.reshape(G, -1)
+    for b in range(G):
+        want_nw, want = blk.compact_stream_plain(packed[b], words[b])
+        assert int(nw[b]) == int(want_nw) > 0
+        assert torch.equal(streams[b, : int(nw[b])], want[: int(want_nw)])
 
 
 @pytest.mark.cuda

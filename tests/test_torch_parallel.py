@@ -360,4 +360,4 @@ def test_chip_smoke_names_every_batched_arm():
     assert chip_smoke._arm_name(ns + "7k4_keysE3Cfg") is None
     rans = "_ZN39_GLOBAL__N__1f2b3c4d_7_rans_cu_5e6f7a8b"
     assert chip_smoke._arm_name(rans + "9k3_kernelILi5EEEviiPKiPxPhPi") == "k3_kernel<NS=5>"
-    assert chip_smoke._arm_name(rans + "11k3b_scatterEiiiPKhPKiPK9CountLastPs") == "k3b_scatter"
+    assert chip_smoke._arm_name(rans + "8k3b_passEiiiPKhPKiPyPiPs") == "k3b_pass"
