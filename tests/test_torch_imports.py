@@ -19,7 +19,6 @@ CHECK = (
 
 PORT_MODULES = [
     "comprox_tpu_torch",
-    "comprox_tpu_torch.benchmarks.k3b_variants",
     "comprox_tpu_torch.benchmarks.phases",
     "comprox_tpu_torch.benchmarks.probes",
     "comprox_tpu_torch.benchmarks.ring_depth",

@@ -1543,20 +1543,6 @@ def test_k3b_takes_unaligned_segments(cuda_device, n_slots, lanes, steps):
     assert blk.LAUNCHES["K3b"] == before + 1 + len(kinds)
 
 
-def test_k3b_variants_apply_to_the_source():
-    """benchmarks/k3b_variants.py's substitutions each change the source as
-    stated, so that the variants it times are what it names."""
-    from comprox_tpu_torch.benchmarks import k3b_variants as kv
-
-    src = (build.CSRC / "rans.cu").read_text()
-    v = kv.variants(src)
-    assert v["source"] == src
-    assert v["ticket twice"].count("atomicAdd(") == src.count("atomicAdd(") + 1
-    assert "#define K3B_LOOK 1" in v["a word a lane"] and kv.LOOK not in v["a word a lane"]
-    cta = v["the CTA looks back"]
-    assert "k3b_look_back_cta(look, tile, red)" in cta and kv.WARP_CALL not in cta
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", [1, 3])
 def test_k3b_at_crz_width_and_beyond_one_wave(cuda_device, G):
