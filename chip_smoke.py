@@ -161,12 +161,14 @@ no result line:
 20. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
    way; fails if K7, K6, K8, K9, K10 or the sort was not launched.  Then the host's
    share of that path, stage by stage (dictionary, block encode and decode,
-   the LZ copy walk, the CRC).  (It runs after phases 21 and 22, before
-   phase 23.)
+   the LZ copy walk, the CRC).  (It runs after phases 21 to 23, before
+   phase 24.)
 21. golden, -b2: the JAX package's ``-g4 -b2`` goldens (four blocks of
    T=4096 of the 8 MiB corpus; crz, crx, crp, crf), which phase 3 leaves
    out, decoded with ``-g4`` and with ``-g1`` to the corpus, and the corpus
-   encoded again with ``-g4`` to JAX's SHA-256.
+   encoded again with ``-g4`` and with ``-g1`` to JAX's SHA-256; ``-g1``
+   runs the pipelined schedule, and the calls to the block codec's
+   ``start`` are counted (one a block).
 22. full width, -g4: ``crz|crx|crp e -b8 -l512 -g4`` against ``-g1`` on 29
    MiB + 777 bytes, four distinct full-width blocks (the 8 MiB text and
    ELF corpora of phase 17, each rotated by 4 MiB, the last cut to 5 MiB +
@@ -175,7 +177,21 @@ no result line:
    memory of each, and K5's clusters the card holds at once; fails unless
    every kernel of the path (K3b included) was launched.  The launches of
    the ``(blocks)`` rows are this phase's ``-g4`` runs'.
-23. payload pack: one 8 MiB block of the crz and of the crx corpus
+23. pipelined container: ``crz|crx|crp|crf e -b8 -l512`` at ``-g1`` on the
+   input of phase 22, through the pipelined schedule (one block in
+   flight; each ``start`` under ``torch.cuda.set_sync_debug_mode("error")``,
+   mode F's one read of K8's token count allowed) and through the
+   sequential one (``encode_fn`` and ``decode_fn`` the one-block codec);
+   the archives byte-equal and equal to the ``-g4`` archive, both decodes
+   bit-exact; wall, kernel ms, idle share, peak card memory and the device
+   gap at each block boundary (``block._launch``'s events: block i's last
+   kernel's end to block i+1's first kernel's start) of each; fails unless
+   every crz gap of the pipelined schedule is below the sequential gap at
+   the same boundary.  Then crz ``-c -b2`` and ``-C -b2`` on the 8 MiB
+   corpus under ``CPX_CHAIN_SPEC=1`` (the speculative schedule) and ``0``,
+   both to the JAX goldens' SHA-256, and ``encode_block_stats`` on one
+   full-width crz block (``stream_words`` == its payload's word count).
+24. payload pack: one 8 MiB block of the crz and of the crx corpus
    encoded (S=512, T=16384; three and five slots), then its payload packed
    from the same K3 outputs two ways, host ms each: the host compaction
    the port ran before K3b (K3p's mask and K3's words copied to the host,
@@ -1930,9 +1946,14 @@ def phase_golden_groups():
     """The JAX package's ``-g4 -b2`` goldens (four blocks of T=4096 of the 8
     MiB corpus, one a codec) decoded on the card with ``-g4`` and with
     ``-g1``, both to the committed corpus, and the corpus encoded again
-    with ``-g4`` to JAX's SHA-256."""
+    with ``-g4`` and with ``-g1`` to JAX's SHA-256.  ``-g1`` runs the
+    pipelined schedule: the calls to the block codec's ``start`` are
+    counted, one a coded block."""
+    import numpy as np
+
     from comprox_tpu_torch.cli.main import make_params, parse_args
     from comprox_tpu_torch.codec import block as blk
+    from comprox_tpu_torch.codec import container as con
     from comprox_tpu_torch.codec.container import decode_stream, encode_stream
 
     meta = json.loads((GOLDEN / "torch_golden.json").read_text())
@@ -1942,31 +1963,64 @@ def phase_golden_groups():
             raise AssertionError(f"{name}: fixture does not match its digest")
         codec, _, _, _, opts = parse_args(m["argv"].split() + ["in", "out"])
         cp = make_params(codec, opts)
-        times = {}
+        f = "_fast" if cp.block.mode == "F" else ""
+        blocks = -(-m["input_bytes"] // cp.block.capacity)
+        times, starts = {}, {}
         for g in (opts["group"], 1):
             blk.reset_launch_counts()
             out = io.BytesIO()
-            t0 = time.perf_counter()
-            decode_stream(io.BytesIO(arc), out, "cuda", group=g)
-            times[f"decode -g{g}"] = time.perf_counter() - t0
+            with _counted(con, f"decode_block{f}_start") as calls:
+                t0 = time.perf_counter()
+                decode_stream(io.BytesIO(arc), out, "cuda", group=g)
+                times[f"decode -g{g}"] = time.perf_counter() - t0
+            starts[f"decode -g{g}"] = calls[0]
             _check_launched(name, f"decode -g{g}", cp.block)
             if sha256(out.getvalue()) != m["input_sha256"]:
                 raise AssertionError(f"{name}: -g{g} decode differs from the corpus")
-        corpus = out.getvalue()
-        buf = io.BytesIO()
-        blk.reset_launch_counts()
-        t0 = time.perf_counter()
-        import numpy as np
-
-        encode_stream(np.frombuffer(corpus, np.uint8), buf, cp, "cuda", group=opts["group"])
-        times[f"encode -g{opts['group']}"] = time.perf_counter() - t0
-        _check_launched(name, "encode", cp.block)
-        if sha256(buf.getvalue()) != m["archive_sha256"]:
-            raise AssertionError(f"{name}: the port's -g{opts['group']} archive differs "
-                                 "from JAX's")
+        corpus = np.frombuffer(out.getvalue(), np.uint8)
+        for g in (opts["group"], 1):
+            buf = io.BytesIO()
+            blk.reset_launch_counts()
+            with _counted(con, f"encode_block{f}_start") as calls:
+                t0 = time.perf_counter()
+                encode_stream(corpus, buf, cp, "cuda", group=g)
+                times[f"encode -g{g}"] = time.perf_counter() - t0
+            starts[f"encode -g{g}"] = calls[0]
+            _check_launched(name, f"encode -g{g}", cp.block)
+            if sha256(buf.getvalue()) != m["archive_sha256"]:
+                raise AssertionError(f"{name}: the port's -g{g} archive differs from JAX's")
+        if starts["decode -g1"] != blocks or starts["encode -g1"] != blocks:
+            raise AssertionError(f"{name}: -g1 did not start each of its {blocks} blocks "
+                                 f"once through the pipelined path: {starts}")
         print(f"{name} ({m['argv']}): decoded with -g{opts['group']} and -g1 to the corpus, "
-              f"encoded again with -g{opts['group']}: sha256 == JAX golden; " + ", ".join(
+              f"encoded again with -g{opts['group']} and -g1: sha256 == JAX golden; "
+              f"starts of the pipelined block codec {json.dumps(starts)}; " + ", ".join(
                   f"{k} {v:.3f} s" for k, v in times.items()))
+
+
+@contextlib.contextmanager
+def _patched(module, **fns):
+    old = {k: getattr(module, k) for k in fns}
+    for k, v in fns.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+@contextlib.contextmanager
+def _counted(module, name):
+    """``module.name`` counting its calls into the yielded one-element list."""
+    calls, fn = [0], getattr(module, name)
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return fn(*a, **k)
+
+    with _patched(module, **{name: counted}):
+        yield calls
 
 
 def _rotated(x, by):
@@ -1975,24 +2029,33 @@ def _rotated(x, by):
     return np.concatenate([x[by:], x[:by]])
 
 
+def _group_corpus(text_elf):
+    """32 MiB less a ragged tail, four distinct full-width blocks: the 8 MiB
+    text corpus, the 8 MiB ELF corpus, each rotated by 4 MiB, the last cut
+    to 5 MiB + 777 bytes."""
+    import numpy as np
+
+    half = text_elf.size // 2
+    text, elf = text_elf[:half], text_elf[half:]
+    return np.concatenate([text, elf, _rotated(text, 4 << 20),
+                           _rotated(elf, 4 << 20)[: (5 << 20) + 777]])
+
+
 def phase_full_width_groups(text_elf):
     """``<codec> e -b8 -l512 -g4`` against ``-g1`` on 32 MiB less a ragged
     tail, four distinct full-width blocks: the 8 MiB text corpus, the 8 MiB
     ELF corpus, each rotated by 4 MiB, the last cut to 5 MiB + 777 bytes;
     crz, crx, crp.  The archives must be byte-equal and ``d -g4`` must
     give the input.  The launch counts are set to 0 just before the ``-g4``
-    encode and read just after its decode.  Returns {kernel: launches} of
-    the ``-g4`` runs, by codec."""
+    encode and read just after its decode.  Returns ({kernel: launches} of
+    the ``-g4`` runs, by codec; {codec: the archive's SHA-256})."""
     import numpy as np
     import torch
 
     from comprox_tpu_torch.cli import main as cli
     from comprox_tpu_torch.codec import block as blk
 
-    half = text_elf.size // 2
-    text, elf = text_elf[:half], text_elf[half:]
-    corpus = np.concatenate([text, elf, _rotated(text, 4 << 20),
-                             _rotated(elf, 4 << 20)[: (5 << 20) + 777]])
+    corpus = _group_corpus(text_elf)
     WORK.mkdir(parents=True, exist_ok=True)
     src = WORK / "corpus_g.bin"
     corpus.tofile(src)
@@ -2002,7 +2065,7 @@ def phase_full_width_groups(text_elf):
     print(f"input: {n} B (8 MiB text, 8 MiB ELF, each rotated by 4 MiB, the last "
           f"cut to 5 MiB + 777 B): 4 blocks of S=512, T=16384; K5's clusters "
           f"(8 CTAs a block) the card holds at once: {clusters}")
-    out = {}
+    out, shas = {}, {}
     for codec, needed in (("crz", ("K4", "K5", "K6", "K2", "K3", "K3p", "K3b", "K1",
                                    "SORT")),
                           ("crx", ("K4x", "K6", "K11", "K12e", "K3", "K3p", "K3b", "K12d",
@@ -2048,11 +2111,213 @@ def phase_full_width_groups(text_elf):
         for name in needed:
             if launches[name] < 1:
                 raise AssertionError(f"{codec} -g4: {name} was not launched")
-        out[codec] = launches
+        out[codec], shas[codec] = launches, sha256(arcs[4])
     for f in WORK.glob("g[14].*"):
         f.unlink()
     src.unlink()
-    return out
+    return out, shas
+
+
+PIPE_NEEDED = {  # codec: (encode's kernels, decode's)
+    "crz": (("K4", "K5", "K6", "K2", "K3", "K3p", "K3b", "SORT"), ("K1",)),
+    "crx": (("K4x", "K6", "K11", "K12e", "K3", "K3p", "K3b", "SORT"), ("K12d",)),
+    "crp": (("K13c", "K13e", "K3", "K3p", "K3b"), ("K13d",)),
+    "crf": (("K7", "K6", "K8", "K9", "SORT"), ("K10",)),
+}
+CHAIN_B2 = ("crz_chain_flex_8MiB_S512.cpx", "crz_chainm_flex_8MiB_S512.cpx")  # -c, -C
+
+
+@contextlib.contextmanager
+def _sync_mode(mode):
+    import torch
+
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+
+
+def _spans(log, fn, no_sync=False):
+    """``fn`` logging, a call a block, the (start, end) CUDA events of the
+    launches made inside the call (``block._launch``'s); with ``no_sync``
+    the call runs under ``torch.cuda.set_sync_debug_mode("error")``: an
+    operation that waits for the device raises."""
+    from comprox_tpu_torch.codec import block as blk
+
+    def wrapped(*a, **k):
+        before = {name: len(evs) for name, evs in blk._EVENTS.items()}
+        if no_sync:
+            with _sync_mode("error"):
+                out = fn(*a, **k)
+        else:
+            out = fn(*a, **k)
+        log.append([ev for name, evs in blk._EVENTS.items() for ev in evs[before[name]:]])
+        return out
+
+    return wrapped
+
+
+def _gaps(ref, spans):
+    """Device ms from block i's last kernel's end event to block i+1's first
+    kernel's start event, at each boundary (``ref`` recorded before all)."""
+    at = [(min(ref.elapsed_time(a) for a, _ in sp), max(ref.elapsed_time(b) for _, b in sp))
+          for sp in spans]
+    return [nxt[0] - cur[1] for cur, nxt in zip(at, at[1:])]
+
+
+def phase_pipelined(text_elf, g4_sha, corpora):
+    """The container's schedules at full width: ``<codec> e -b8 -l512`` at
+    ``-g1`` (crz, crx, crp, crf) on the -g4 phase's 29 MiB + 777 bytes, four
+    distinct blocks, first through the pipelined path (one block in flight;
+    every ``start`` run under ``set_sync_debug_mode("error")``, so that a
+    read-back in it raises; mode F's one read, K8's token count, allowed),
+    then through the sequential one (``encode_fn`` and ``decode_fn`` the
+    one-block codec).  The two archives must be byte-equal and equal to the
+    codec's ``-g4`` archive (crf: its own ``-g4`` encode here), and each
+    decode must give the input.  For each codec and schedule: wall, kernel
+    ms, idle share, peak card memory and the device gap at each block
+    boundary (from the end event of block i's last kernel to the start event
+    of block i+1's first); the launch counts are set to 0 just before each
+    pipelined run and read just after.  For crz, every pipelined gap must be
+    below the sequential gap at the same boundary.  Then crz ``-c -b2`` and
+    ``-C -b2`` (the JAX goldens' corpus) encoded under ``CPX_CHAIN_SPEC=1``
+    (the speculative schedule) and ``0``, both to the goldens' SHA-256, and
+    ``encode_block_stats`` on one full-width crz block, whose
+    ``stream_words`` must equal the word count of that block's payload."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from comprox_tpu_torch.cli import main as cli
+    from comprox_tpu_torch.codec import block as blk
+    from comprox_tpu_torch.codec import container as con
+    from comprox_tpu_torch.codec import fast
+
+    corpus = _group_corpus(text_elf)
+    n = corpus.size
+    print(f"input: {n} B, 4 blocks of S=512, T=16384 (the -g4 phase's)")
+    reads = [0]
+    real_tokenize = fast.tokenize
+
+    def tokenize(*a, **k):  # mode F's start reads K8's token count
+        reads[0] += 1
+        with _sync_mode(0):
+            return real_tokenize(*a, **k)
+
+    for codec in ("crz", "crx", "crp", "crf"):
+        cp = cli.make_params(codec, {"lanes": 512, "block_mb": 8})
+        f = "_fast" if codec == "crf" else ""
+        res, arcs, outs = {}, {}, {}
+        for sched in ("pipelined", "sequential"):
+            for side in ("encode", "decode"):
+                spans = []
+                if sched == "pipelined":
+                    name = f"{side}_block{f}_start"
+                    ctx = _patched(con, **{name: _spans(spans, getattr(con, name), True)})
+                    kw = {}
+                else:
+                    ctx = contextlib.nullcontext()
+                    one = (con._block_encoder if side == "encode" else con._block_decoder)(
+                        cp.block, "cuda")
+                    kw = {f"{side}_fn": _spans(spans, one)}
+                buf = io.BytesIO()
+                reads[0] = 0
+                blk.reset_launch_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ref = torch.cuda.Event(enable_timing=True)
+                ref.record()
+                with ctx, _patched(fast, tokenize=tokenize):
+                    t0 = time.perf_counter()
+                    if side == "encode":
+                        con.encode_stream(corpus, buf, cp, "cuda", **kw)
+                    else:
+                        con.decode_stream(io.BytesIO(arcs[sched]), buf, "cuda", **kw)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                ms = sum(blk.kernel_ms().values())
+                if sched == "pipelined":
+                    for k in PIPE_NEEDED[codec][side == "decode"]:
+                        if blk.LAUNCHES[k] < 1:
+                            raise AssertionError(f"{codec} -g1 {side}: {k} was not launched")
+                    want_reads = len(spans) if (codec, side) == ("crf", "encode") else 0
+                    if reads[0] != want_reads:
+                        raise AssertionError(f"{codec} {side}: {reads[0]} token-count reads, "
+                                             f"{want_reads} expected")
+                res[sched, side] = (wall, ms, torch.cuda.max_memory_allocated(),
+                                    _gaps(ref, spans), len(spans))
+                if side == "encode":
+                    arcs[sched] = buf.getvalue()
+                else:
+                    outs[sched] = buf.getvalue()
+        if arcs["pipelined"] != arcs["sequential"]:
+            raise AssertionError(f"{codec}: the pipelined archive differs from the sequential")
+        if codec not in g4_sha:
+            buf = io.BytesIO()
+            con.encode_stream(corpus, buf, cp, "cuda", group=4)
+            g4_sha[codec] = sha256(buf.getvalue())
+        if sha256(arcs["pipelined"]) != g4_sha[codec]:
+            raise AssertionError(f"{codec}: the -g1 archive differs from the -g4 archive")
+        for sched, out in outs.items():
+            if out != corpus.tobytes():
+                raise AssertionError(f"{codec} {sched} decode differs from the input")
+        print(f"{codec} e -b8 -l512 -g1: pipelined == sequential == -g4 archive, "
+              f"{len(arcs['pipelined'])} B, sha256 {g4_sha[codec]}; both decodes bit-exact")
+        for (sched, side), (wall, ms, peak, gaps, blocks) in res.items():
+            print(f"{codec} -g1 {side}, {sched}: {blocks} blocks, {n / wall / 1e6:.3f} MB/s "
+                  f"({wall:.3f} s wall), kernels {ms:.3f} ms, idle share "
+                  f"{1 - ms / 1e3 / wall:.3f}, max_memory_allocated {peak / 2**30:.3f} GiB, "
+                  f"gaps at the block boundaries (ms) "
+                  + ", ".join(f"{g:.3f}" for g in gaps))
+        if codec == "crz":
+            for side in ("encode", "decode"):
+                pipe, seq = res["pipelined", side][3], res["sequential", side][3]
+                if len(pipe) != len(seq) or not all(a < b for a, b in zip(pipe, seq)):
+                    raise AssertionError(f"crz {side}: a pipelined gap is not below the "
+                                         f"sequential one: {pipe} against {seq}")
+            print("crz: every pipelined gap is below the sequential gap at its boundary")
+    meta = json.loads((GOLDEN / "torch_golden.json").read_text())
+    for name in CHAIN_B2:
+        m = meta[name]
+        codec, _, _, _, opts = cli.parse_args(m["argv"].split() + ["in", "out"])
+        cp = cli.make_params(codec, opts)
+        data = np.frombuffer(corpora[name].tobytes(), np.uint8)
+        line = []
+        for spec in ("1", "0"):
+            old = os.environ.get("CPX_CHAIN_SPEC")
+            os.environ["CPX_CHAIN_SPEC"] = spec
+            try:
+                buf = io.BytesIO()
+                with _counted(con, "encode_block_chained_start") as calls:
+                    t0 = time.perf_counter()
+                    con.encode_stream(data, buf, cp, "cuda", chain=True)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                if old is None:
+                    del os.environ["CPX_CHAIN_SPEC"]
+                else:
+                    os.environ["CPX_CHAIN_SPEC"] = old
+            if sha256(buf.getvalue()) != m["archive_sha256"]:
+                raise AssertionError(f"{name}: CPX_CHAIN_SPEC={spec} archive differs from JAX's")
+            line.append(f"CPX_CHAIN_SPEC={spec} {wall:.3f} s, {calls[0]} starts")
+        print(f"{name} ({m['argv']}): sha256 == JAX golden under both schedules; "
+              + "; ".join(line))
+    p = cli.make_params("crz", {"lanes": 512, "block_mb": 8}).block
+    one = np.frombuffer(corpora[MAIN_ARCHIVE].tobytes(), np.uint8)[: p.capacity]
+    t0 = time.perf_counter()
+    stats = blk.encode_block_stats(one, p, "cuda")
+    t_stats = time.perf_counter() - t0
+    payload = blk.encode_block(one, p, "cuda")
+    words = int(np.frombuffer(payload[:4], "<u4")[0])
+    if stats["stream_words"] != words:
+        raise AssertionError(f"encode_block_stats: stream_words {stats['stream_words']}, "
+                             f"the payload's word count {words}")
+    print(f"encode_block_stats, crz -b8 -l512, one {one.size} B block ({t_stats:.3f} s): "
+          f"stream_words == the payload's {words}; " + json.dumps(stats))
 
 
 def phase_probes():
@@ -2359,7 +2624,9 @@ def main() -> int:
     launches["SORT"] += crx["SORT"] + fast["SORT"]  # one in each of K4, K4x, K7
     launches.update(probe_launches)
     ph.run("golden, -b2", phase_golden_groups)
-    grouped = ph.run("full width, -g4", phase_full_width_groups, corpora[CHAIN_ARCHIVE])
+    grouped, g4_sha = ph.run("full width, -g4", phase_full_width_groups,
+                             corpora[CHAIN_ARCHIVE])
+    ph.run("pipelined container", phase_pipelined, corpora[CHAIN_ARCHIVE], g4_sha, corpora)
     for name, codec, key in (
             ("K5", "crz", "K5"), ("K6", "crz", "K6"), ("K2", "crz", "K2"),
             ("K1", "crz", "K1"), ("K11", "crx", "K11"), ("K6 (X)", "crx", "K6"),

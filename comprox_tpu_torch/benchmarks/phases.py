@@ -727,7 +727,10 @@ def k4_stages_goldens(names=K4_GOLDENS) -> dict:
     return out
 
 
-SCAN_ENTRIES = ("search_scan", "rank_scan", "model_scan", "decode_scan")
+# the decode scan's entry: the block API's (a tree without the pipelined
+# block API calls the public one)
+SCAN_ENTRIES = ("search_scan", "rank_scan", "model_scan",
+                "_decode_scan" if hasattr(blk, "_decode_scan") else "decode_scan")
 
 
 def _tensors(x):
@@ -908,8 +911,10 @@ BOUND_ENTRIES = {
     "K13c": ("block", "lzp_candidates", work.k13c),
     "K7": ("fast", "f2_find", work.k7),
     "K8": ("fast", "tokenize", work.k8),
-    "K9": ("fast", "encode_scan", work.k9),
-    "K10": ("fast", "decode_scan", work.k10),
+    # the cores the block API's start calls (a tree without them: the
+    # public entries, which call nothing else)
+    "K9": ("fast", "_encode_scan", work.k9),
+    "K10": ("fast", "_decode_scan", work.k10),
 }
 # the kernel's row name by block mode, where one entry serves several
 BOUND_ROWS = {("K4", "X"): "K4x", ("K6", "R"): "K6 (R)", ("K6", "X"): "K6 (X)",
@@ -926,7 +931,9 @@ def _bounds_of_entries(log: dict):
     from comprox_tpu_torch.codec import fast
 
     mods = {"block": blk, "fast": fast}
-    saved = {(mod, name): getattr(mods[mod], name) for mod, name, _ in BOUND_ENTRIES.values()}
+    entries = {k: (mod, name if hasattr(mods[mod], name) else name.lstrip("_"), rule)
+               for k, (mod, name, rule) in BOUND_ENTRIES.items()}
+    saved = {(mod, name): getattr(mods[mod], name) for mod, name, _ in entries.values()}
     mode = [None]
 
     def wrap(kernel, fn, rule):
@@ -942,7 +949,7 @@ def _bounds_of_entries(log: dict):
             return out
         return entry
 
-    for kernel, (mod, name, rule) in BOUND_ENTRIES.items():
+    for kernel, (mod, name, rule) in entries.items():
         setattr(mods[mod], name, wrap(kernel, saved[(mod, name)], rule))
     try:
         yield

@@ -18,7 +18,12 @@ SHA-256 (``tests/data/torch_golden.json``).  Then the crz, crx and crp
 ``-g4`` encodes of the 29 MiB + 777 B input of ``chip_smoke.py``'s ``-g4``
 cell (the 16 MiB chain golden's text and ELF corpora, each rotated by 4
 MiB, the last cut to 5 MiB + 777 B: four distinct blocks), a line each
-with the archive's SHA-256 (which both trees must write alike).
+with the archive's SHA-256 (which both trees must write alike).  Last, the
+same input through ``-g1`` (one block at a time: the pipelined schedule
+where the tree has one, else the sequential) for crz, crx, crp and crf, a
+line for its encode (the archive's SHA-256 beside: the ``-g4`` archive's)
+and one for its decode (checked against the input), each with its walls,
+kernel ms, host share and peak.
 
     python comprox_tpu_torch/benchmarks/walls.py TREE [TREE ...]
 
@@ -45,6 +50,7 @@ GROUP_SOURCE = "crz_chainm_textelf_flex_16MiB_S512.cpx"  # 8 MiB text, 8 MiB ELF
 PASSES = ("K4", "K4x", "K7", "K8", "K9", "K13c", "K3", "K3p", "K3b", "K6", "K11", "KS",
           "KSx")
 GROUPED = ("crz", "crx", "crp")  # -g4 codes a launch a group (crf loops its blocks)
+ONE_AT_A_TIME = ("crz", "crx", "crp", "crf")  # -g1 on the four-block input
 
 
 def group_corpus(text_elf):
@@ -107,6 +113,28 @@ def one(tree: Path, reps: int = 3) -> list:
         blk._ENV.update(old)
         return walls, kern, passes, peak, buf.getvalue()
 
+    def decodes(arc):
+        """reps timed decodes after a warm-up: (walls, kernel ms, peak bytes,
+        the bytes)."""
+        walls, kern, peak = [], [], 0
+        for rep in range(reps + 1):
+            out = io.BytesIO()
+            blk.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gc.collect()
+            gc.disable()
+            t0 = time.perf_counter()
+            decode_stream(io.BytesIO(arc), out, "cuda")
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            gc.enable()
+            if rep:
+                walls.append(wall)
+                kern.append(sum(blk.kernel_ms().values()))
+                peak = max(peak, torch.cuda.max_memory_allocated())
+        return walls, kern, peak, out.getvalue()
+
     def row(codec, name, corpus, walls, kern, passes, **more):
         best = min(range(reps), key=walls.__getitem__)
         r = dict(tree=str(tree), codec=codec, archive=name, walls_ms=walls,
@@ -136,6 +164,16 @@ def one(tree: Path, reps: int = 3) -> list:
         walls, kern, passes, peak, arc = encodes(corpus, cp, opts, group=4)
         rows.append(row(codec, f"-g4, {corpus.size} B", corpus, walls, kern, passes,
                         peak_gib=peak / 2**30, sha256=hashlib.sha256(arc).hexdigest()))
+    for codec in ONE_AT_A_TIME:
+        cp, opts = params[codec]
+        walls, kern, passes, peak, arc = encodes(corpus, cp, opts, group=1)
+        rows.append(row(codec, f"-g1 encode, {corpus.size} B", corpus, walls, kern, passes,
+                        peak_gib=peak / 2**30, sha256=hashlib.sha256(arc).hexdigest()))
+        walls, kern, peak, raw = decodes(arc)
+        if raw != corpus.tobytes():
+            raise AssertionError(f"{codec} -g1: the decode differs from the input")
+        rows.append(row(codec, f"-g1 decode, {corpus.size} B", corpus, walls, kern, {},
+                        peak_gib=peak / 2**30))
     return rows
 
 

@@ -153,15 +153,17 @@ def k8(p, inp, n, dec, *, out) -> tuple:
 
 
 def k9(p, sym, xtr, tbits, n_tok, *, out) -> tuple:
-    """K9 (``fast.encode_scan``): 12 bytes a token read, the table and the
-    states written, 2 a word; three events a token (8 each) and the
-    histogram (2)."""
-    freq, states, words = out
-    return 12 * n_tok + nbytes(freq, states) + 2 * words.numel(), n_tok * (3 * 8 + 2)
+    """K9 (``fast._encode_scan``: ``out[2]`` the word count; or
+    ``fast.encode_scan``: ``out[2]`` the words): 12 bytes a token read, the
+    table and the states written, 2 a word; three events a token (8 each)
+    and the histogram (2)."""
+    freq, states, words = out[:3]
+    n_words = int(words) if len(out) == 4 else words.numel()
+    return 12 * n_tok + nbytes(freq, states) + 2 * n_words, n_tok * (3 * 8 + 2)
 
 
 def k10(p, freq, states, stream, n_tok, *, out) -> tuple:
-    """K10 (``fast.decode_scan``; ``out[1]`` the words used): 2 bytes a
+    """K10 (``fast._decode_scan``; ``out[1]`` the words used): 2 bytes a
     word read, the table and the states, 4 a token written; three events a
     token (8 each), the slot table (M * 10) and the plane (10 a token)."""
     from comprox_tpu_torch.ops.rans_scalar import M

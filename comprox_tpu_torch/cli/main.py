@@ -48,6 +48,7 @@ from comprox_tpu_torch.codec.container import (
     decode_stream,
     encode_stream,
 )
+from comprox_tpu_torch.utils.profiling import Progress
 
 USAGE = """\
 usage: {prog} e|d <input> <output> [switches]   ('-' = stdin/stdout)
@@ -155,6 +156,7 @@ def run(codec_name: str, argv, device) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("comprox_tpu_torch runs on a CUDA device; none found")
     quiet = opts["quiet"]
+    meter = Progress(enabled=not quiet)
     t0 = time.time()
     if mode == "e":
         cp = make_params(codec_name, opts)
@@ -167,7 +169,7 @@ def run(codec_name: str, argv, device) -> int:
             csize = encode_stream(
                 data, f, cp, device, filters=opts["filters"],
                 precomp_only=opts["precomp"], chain=opts["chain"],
-                group=opts["group"],
+                group=opts["group"], progress=meter.update,
             )
         finally:
             if outp != "-":

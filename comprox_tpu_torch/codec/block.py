@@ -2460,6 +2460,17 @@ def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None,
     own row), every table [G, ...] and ``n`` [G] int32 -> (states [G, S],
     words_used [G] int64 tensor, out [G, S, T]): one launch, a CTA a block.
     """
+    x, used, out = _decode_scan(p, states, stream, n, tables, rolz, lzp, prev)
+    if states.device.type == "cuda" and _blocks(states, 1) is None:
+        used = int(used.item())
+    return x, used, out
+
+
+def _decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None,
+                 lzp=None, prev=None):
+    """:func:`decode_scan` without the read of one block's words used: on
+    the card that count stays a [1] int64 tensor, so nothing waits for the
+    launch (the pipelined block API copies it with the states)."""
     x_mode, p_mode = p.mode == "X", p.mode == "P"
     if (p.mode == "R") != (rolz is not None):
         raise ValueError("mode R decodes with a bucket table, modes X and P "
@@ -2497,7 +2508,7 @@ def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None,
     cfg = _cfg_array(p, n_cfg, stream.shape[-1])
 
     def done():
-        return x, (used if G is not None else int(used.item())), out
+        return x, used, out
 
     if x_mode:
         _launch("K12d", build.lib().cpx_k12d_launch, cfg.ctypes.data, G1, bn,
@@ -2523,7 +2534,7 @@ def decode_scan(p: BlockParams, states, stream, n: int, tables, rolz=None,
             stream.data_ptr(), x.data_ptr(), *_table_ptrs(tables),
             rolz.data_ptr(), win.data_ptr(), used.data_ptr(),
             _pos_scratch(p, dev).data_ptr(), _stream_ptr())
-    return x, int(used.item()), win[1]
+    return x, used, win[1]
 
 
 # --------------------------------------------------------------------------
@@ -2690,25 +2701,134 @@ def encode_passes_blocks(p: BlockParams, inp, n):
     return encode_passes(p, inp, n)[:3]
 
 
+# --------------------------------------------------------------------------
+# The pipelined block API (block.py::encode_block_start and its kin): a
+# ``start`` stages the block's bytes through pinned host memory, enqueues
+# its kernels and non-blocking copies of its small results into pinned host
+# tensors, records an event and returns without reading anything back; the
+# matching ``finish`` waits on that event alone, then fetches the one large
+# result (the payload's stream, or the decoded bytes) on a copy stream that
+# waits on the same event, so the fetch does not queue behind the kernels of
+# a block started after it.  The container keeps one block in flight: block
+# i+1's kernels run while the host fetches, packs and writes block i.  On
+# the CPU ``start`` computes everything and ``finish`` packs.
+# --------------------------------------------------------------------------
+
+_COPY_STREAMS: dict = {}
+
+
+def _on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def _staged(buf: np.ndarray, device):
+    """``buf`` on ``device`` -> ``(tensor, the pinned buffer)``: on a CUDA
+    device by way of a pinned host copy, the upload queued without waiting
+    (keep the buffer until the block's event); on the CPU a tensor over
+    ``buf`` and None."""
+    if not _on_card(device):
+        return torch.from_numpy(buf).to(device), None
+    pin = torch.from_numpy(buf).pin_memory()
+    return pin.to(device, non_blocking=True), pin
+
+
+def _host_copy(x):
+    """A pinned host tensor filled by a copy of ``x`` queued on the current
+    stream (nothing waits for it); ``x`` itself on the CPU."""
+    if x.device.type != "cuda":
+        return x
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    h.copy_(x, non_blocking=True)
+    return h
+
+
+def _mark(device):
+    """An event after everything queued so far on ``device``'s current
+    stream; None on the CPU."""
+    if not _on_card(device):
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _wait(event) -> None:
+    if event is not None:
+        event.synchronize()
+
+
+def _fetch(x, event):
+    """``x``, written by work queued before ``event``, to the host: a copy
+    on the device's copy stream, which waits on ``event`` only, so it runs
+    beside whatever the current stream queued after ``event``.  ``x`` itself
+    on the CPU."""
+    if x.device.type != "cuda":
+        return x
+    cs = _COPY_STREAMS.get(x.device)
+    if cs is None:
+        cs = _COPY_STREAMS[x.device] = torch.cuda.Stream(x.device)
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    cs.wait_event(event)
+    with torch.cuda.stream(cs):
+        h.copy_(x, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(cs)
+    x.record_stream(cs)  # its memory is not reused before the copy has run
+    done.synchronize()
+    return h
+
+
 def _block_tensor(data: np.ndarray, p: BlockParams, device):
-    """The block's bytes as the [S, T] uint8 tensor, zero past n."""
+    """The block's bytes as the [S, T] uint8 tensor, zero past n, and the
+    pinned buffer it was staged in (None on the CPU)."""
     n = int(data.size)
     if not 0 < n <= p.capacity:
         raise ValueError(f"block of {n} bytes for capacity {p.capacity}")
-    buf = np.zeros((p.lanes, p.steps), np.uint8)
-    buf.reshape(-1)[:n] = data
-    return torch.from_numpy(buf).to(device)
+    if not _on_card(device):
+        buf = np.zeros((p.lanes, p.steps), np.uint8)
+        buf.reshape(-1)[:n] = data
+        return torch.from_numpy(buf).to(device), None
+    pin = torch.empty((p.lanes, p.steps), dtype=torch.uint8, pin_memory=True)
+    flat = pin.numpy().reshape(-1)
+    flat[:n] = data
+    flat[n:] = 0
+    return pin.to(device, non_blocking=True), pin
 
 
-def encode_block(data: np.ndarray, p: BlockParams, device) -> bytes:
-    """Encode up to p.capacity bytes on ``device``; returns the payload."""
+def _encode_started(states, emit_packed, words, device, keep):
+    """K3b after the passes, then the copies of the states and the word
+    count: the handle :func:`encode_block_finish` takes."""
+    n_words, stream = compact_stream(emit_packed, words)
+    return (_host_copy(states), _host_copy(n_words), stream, _mark(device), keep)
+
+
+def encode_block_start(data: np.ndarray, p: BlockParams, device):
+    """Enqueue a block's encode on ``device`` and return its handle for
+    :func:`encode_block_finish`, reading nothing back.  The passes' event
+    grid and final tables are dropped here (block.py::_encode_passes_lean),
+    so a block in flight holds only its states, word count and K3b's
+    stream (block.py::encode_block_start)."""
     check_supported(p)
     if p.chain_match:
         raise ValueError("chain_match blocks need the carried state: use "
                          "encode_block_chained")
-    inp = _block_tensor(data, p, device)
-    states, emit_packed, words, _, _ = encode_passes(p, inp, int(data.size))
-    return _pack_payload(states, emit_packed, words)
+    inp, pin = _block_tensor(data, p, device)
+    states, emit_packed, words = encode_passes(p, inp, int(data.size))[:3]
+    return _encode_started(states, emit_packed, words, device, pin)
+
+
+def encode_block_finish(started) -> bytes:
+    """Wait for the block's event, fetch its stream's first n_words and
+    pack the payload (block.py::encode_block_finish)."""
+    states, n_words, stream, event, _ = started
+    _wait(event)
+    nw = int(n_words)
+    return _payload_bytes(states, nw, _fetch(stream[:nw], event))
+
+
+def encode_block(data: np.ndarray, p: BlockParams, device) -> bytes:
+    """Encode up to p.capacity bytes on ``device``; returns the payload."""
+    return encode_block_finish(encode_block_start(data, p, device))
 
 
 def init_chain_tables(p: BlockParams, device) -> dict:
@@ -2743,45 +2863,116 @@ def chain_state_to_numpy(st: dict) -> dict:
     return out
 
 
-def encode_block_chained(data: np.ndarray, p: BlockParams, state0: dict,
-                         device):
-    """encode_block with model carry-over: code the block from ``state0``
-    (:func:`init_chain_tables`) and return ``(payload, state1)``.  The
-    passes run on a copy of the PPM tables (KCR writes a new bucket
-    table), so ``state0`` stays as it was: a caller that stores the block
-    raw keeps it (block.py::encode_block_chained).  Without chain_match
-    the match tables start empty, as in the reference."""
+def encode_block_chained_start(data: np.ndarray, p: BlockParams, state0: dict,
+                               device):
+    """Enqueue a chained block's encode from ``state0``
+    (:func:`init_chain_tables`): ``(handle, state1)``.  state1's tensors are
+    outputs of kernels still queued, which the next block's start may take
+    at once: the stream orders them (the container's speculative schedule
+    starts block i+1 from block i's state1 before block i's payload is
+    known).  The passes run on a copy of the PPM tables (KCR writes a new
+    bucket table), so ``state0`` stays as it was: a caller that stores the
+    block raw starts the next block from it again
+    (block.py::encode_block_chained_start).  Without chain_match the match
+    tables start empty, as in the reference."""
     check_supported(p)
-    inp = _block_tensor(data, p, device)
+    inp, pin = _block_tensor(data, p, device)
     tables = {k: v.clone() for k, v in state0["tables"].items()}
     outs = encode_passes(p, inp, int(data.size), tables, state0.get("ment"),
                          state0.get("prev"))
     state1 = {"tables": outs[4]}
     if p.chain_match:
         state1.update(ment=outs[5], prev=inp)
-    return _pack_payload(*outs[:3]), state1
+    states, emit_packed, words = outs[:3]
+    del outs
+    return _encode_started(states, emit_packed, words, device, pin), state1
 
 
-def _decode_passes(payload: bytes, n: int, p: BlockParams, device, tables,
-                   ment0=None, prev=None):
-    """Unpack and decode one payload, ``tables`` evolving in place:
-    ``(bytes [n] numpy, out [S, T] tensor, the final bucket table under
+def encode_block_chained_finish(started) -> bytes:
+    """The chained block's payload (block.py::encode_block_chained_finish)."""
+    return encode_block_finish(started)
+
+
+def encode_block_chained(data: np.ndarray, p: BlockParams, state0: dict,
+                         device):
+    """encode_block with model carry-over: ``(payload, state1)``;
+    ``state0`` stays as it was (block.py::encode_block_chained)."""
+    started, state1 = encode_block_chained_start(data, p, state0, device)
+    return encode_block_chained_finish(started), state1
+
+
+def _decode_start(payload: bytes, n: int, p: BlockParams, device, tables,
+                  ment0=None, prev=None):
+    """Unpack a payload and enqueue its decode scan, ``tables`` evolving in
+    place: ``(handle, out [S, T] tensor, the remapped bucket table under
     chain_match)``.  ``ment0`` and ``prev`` are a chain_match block's
     carried bucket table and previous block's bytes."""
     n_words, states, stream_padded = _unpack_payload(payload, p)
+    st, pin_st = _staged(states.astype(np.int64), device)
+    sm, pin_sm = _staged(stream_padded.astype(np.int32), device)
     ment = remap_chain_ment(p, ment0) if p.chain_match else None
-    x, used, out = decode_scan(
-        p,
-        torch.from_numpy(states.astype(np.int64)).to(device),
-        torch.from_numpy(stream_padded.astype(np.int32)).to(device),
-        n,
-        tables,
+    x, used, out = _decode_scan(
+        p, st, sm, n, tables,
         ment if p.chain_match else (_init_rolz(p, device) if p.mode == "R" else None),
         _init_lzp(p, device) if p.mode == "P" and p.match else None,
         prev,
     )
-    _check_drain(x.cpu().numpy(), used, n_words)
-    return out.cpu().numpy().reshape(-1)[:n], out, ment
+    if isinstance(used, torch.Tensor):
+        used = _host_copy(used)
+    started = (n, n_words, _host_copy(x), used, out, _mark(device), (pin_st, pin_sm))
+    return started, out, ment
+
+
+def decode_block_start(payload: bytes, n: int, p: BlockParams, device):
+    """Enqueue a block's decode on ``device`` and return its handle for
+    :func:`decode_block_finish`, reading nothing back
+    (block.py::decode_block_start)."""
+    check_supported(p)
+    if p.chain_match:
+        raise ValueError("chain_match blocks need the carried state: use "
+                         "decode_block_chained")
+    return _decode_start(payload, n, p, device,
+                         ppm.init_tables(p.match, p.o3_bits, device))[0]
+
+
+def decode_block_finish(started) -> np.ndarray:
+    """Wait for the block's event, check that the states drained and every
+    word was read, then fetch its n bytes (block.py::decode_block_finish)."""
+    n, n_words, x, used, out, event, _ = started
+    _wait(event)
+    _check_drain(np.asarray(x), used, n_words)
+    return _fetch(out.reshape(-1)[:n], event).numpy()
+
+
+def decode_block(payload: bytes, n: int, p: BlockParams, device) -> np.ndarray:
+    """Decode a block payload back to its n raw bytes on ``device``."""
+    return decode_block_finish(decode_block_start(payload, n, p, device))
+
+
+def decode_block_chained_start(payload: bytes, n: int, p: BlockParams,
+                               state0: dict, device):
+    """Enqueue a chained block's decode from ``state0``: ``(handle,
+    state1)``, state1's tensors outputs of the queued kernels (a stored
+    block is known from its header before its start, so decode has nothing
+    to speculate); ``state0`` stays as it was
+    (block.py::decode_block_chained_start)."""
+    check_supported(p)
+    tables = {k: v.clone() for k, v in state0["tables"].items()}
+    started, out, ment = _decode_start(payload, n, p, device, tables,
+                                       state0.get("ment"), state0.get("prev"))
+    state1 = {"tables": tables}
+    if p.chain_match:
+        state1.update(ment=ment, prev=out)
+    return started, state1
+
+
+def decode_block_chained(payload: bytes, n: int, p: BlockParams, state0: dict,
+                         device):
+    """decode_block with model carry-over (the inverse of
+    :func:`encode_block_chained`): returns ``(bytes, state1)``; ``state0``
+    stays as it was (block.py::decode_block_chained)."""
+    started, state1 = decode_block_chained_start(payload, n, p, state0, device)
+    return decode_block_finish(started), state1
 
 
 def decode_scan_blocks(p: BlockParams, states, streams, n):
@@ -2800,26 +2991,106 @@ def decode_scan_blocks(p: BlockParams, states, streams, n):
                        _init_lzp(p, dev, G) if p.mode == "P" and p.match else None)
 
 
-def decode_block(payload: bytes, n: int, p: BlockParams, device) -> np.ndarray:
-    """Decode a block payload back to its n raw bytes on ``device``."""
-    check_supported(p)
-    if p.chain_match:
-        raise ValueError("chain_match blocks need the carried state: use "
-                         "decode_block_chained")
-    return _decode_passes(payload, n, p, device,
-                          ppm.init_tables(p.match, p.o3_bits, device))[0]
+# --------------------------------------------------------------------------
+# The ratio diagnostic
+# --------------------------------------------------------------------------
 
 
-def decode_block_chained(payload: bytes, n: int, p: BlockParams, state0: dict,
-                         device):
-    """decode_block with model carry-over (the inverse of
-    :func:`encode_block_chained`): returns ``(bytes, state1)``; ``state0``
-    stays as it was (block.py::decode_block_chained)."""
+def _o3_hits(p: BlockParams, inp, n: int, coding, is_match):
+    """[T, S] bool: the coded steps whose A symbol is the o3 hit.  The event
+    grid does not carry the A symbol, and a literal and a hit differ only
+    in it; they differ by the o3 prediction, which depends on the o3 table
+    alone.  So the o3 table is replayed over the block: each step reads
+    every lane's entry under its context and writes the entries of the
+    lanes that coded a byte that is not a match, as the modeling scan's
+    model update does (ppm.apply_updates, its o3 write; the contexts as
+    in _common_reads and _post_step)."""
+    dev = inp.device
+    o3 = torch.zeros(1 << p.o3_bits, dtype=_i32, device=dev)
+    ctx4 = torch.zeros(p.lanes, dtype=_i64, device=dev)
+    active = torch.arange(p.lanes, device=dev)[None, :] * p.steps + torch.arange(
+        p.steps, device=dev)[:, None] < n
+    hits = torch.zeros((p.steps, p.lanes), dtype=torch.bool, device=dev)
+    for t in range(p.steps):
+        byte = inp[:, t].to(_i64)
+        h3 = ppm.o3_hash(ctx4 & 0xFFFFFF, o3.numel())
+        pred, conf, _, _, raw = ppm.o3_read({"o3": o3}, h3)
+        upd = coding[t] & ~is_match[t]
+        hit = upd & (byte == pred)
+        hits[t] = hit
+        nc = ppm._nc(conf)
+        new_pred = torch.where(hit | (nc > 0), pred, byte)
+        new_conf = torch.where(hit, (conf + 1).clamp_max(15), nc.clamp_min(1))
+        packed = ((new_conf << 8) | new_pred).to(_i32)
+        win = tb.elect_winners(h3, upd)
+        o3.index_add_(0, h3[win].long(), (packed - raw)[win])
+        ctx4 = torch.where(active[t], ((ctx4 << 8) | byte) & MASK32, ctx4)
+    return hits
+
+
+def encode_block_stats(data: np.ndarray, p: BlockParams, device) -> dict:
+    """Encode + bit accounting by event class (ratio diagnostics): the keys
+    and values of block.py::encode_block_stats, modes R, X and P.  The
+    events' (c, f, active) come from the event grid of
+    :func:`encode_passes` (its slots are the JAX package's debug grids) and
+    the emitted words from K3p's packed mask.  Two debug grids of the JAX
+    package are not in the event grid: the A symbol, whose classes come
+    from the grid's slots (a match: slot C active; an escape: slot B active
+    and no match; a hit: :func:`_o3_hits`; else a literal), and the match
+    length, whose sum is the bytes the coded steps do not code one a
+    step."""
     check_supported(p)
-    tables = {k: v.clone() for k, v in state0["tables"].items()}
-    raw, out, ment = _decode_passes(payload, n, p, device, tables,
-                                    state0.get("ment"), state0.get("prev"))
-    state1 = {"tables": tables}
-    if p.chain_match:
-        state1.update(ment=ment, prev=out)
-    return raw, state1
+    n = int(data.size)
+    inp, _ = _block_tensor(data, p, device)
+    _, emit_packed, _, ev, _ = encode_passes(p, inp, n)
+    emit = np.unpackbits(emit_packed.cpu().numpy(), axis=-1, bitorder="little")
+    ns = p.n_slots
+    # the JAX package's grid types: (c, f) uint16, the flag bool (its sums
+    # of 15 - log2(f) are float32 arrays, so the same types give the same
+    # floats)
+    grids = [g.cpu().numpy().astype(bool if k % 3 == 2 else np.uint16)
+             for k, g in enumerate(ev.unbind(1))]
+    ca, fa, act_a = grids[0:3]
+    cb, fb, act_b = grids[3:6]
+    cc, fc, act_c = grids[6:9]
+    act_a = act_a.astype(bool)
+    act_b = act_b.astype(bool)
+    act_c = act_c.astype(bool)
+    hit = _o3_hits(p, inp, n, ev[:, 2] != 0, ev[:, 8] != 0).cpu().numpy()
+    bits_a = np.where(act_a, 15.0 - np.log2(np.maximum(fa, 1)), 0.0)
+    bits_b = np.where(act_b, 15.0 - np.log2(np.maximum(fb, 1)), 0.0)
+    bits_c = np.where(act_c, 15.0 - np.log2(np.maximum(fc, 1)), 0.0)
+    bits_extra = 0.0
+    for si in range(3, ns):
+        fx, ax = grids[3 * si + 1], grids[3 * si + 2].astype(bool)
+        bits_extra += float(
+            np.where(ax, 15.0 - np.log2(np.maximum(fx, 1)), 0.0).sum()
+        )
+    is_mat = act_a & act_c
+    is_esc = act_a & act_b & ~act_c
+    is_hit = act_a & hit
+    is_lit = act_a & ~is_mat & ~is_esc & ~hit
+    mbytes = n - int((act_a & ~act_c).sum())
+    stats = {
+        "n": n,
+        "coded_steps": int(act_a.sum()),
+        "literals": int(is_lit.sum()),
+        "o3_hits": int(is_hit.sum()),
+        "escapes": int(is_esc.sum()),
+        "matches": int(is_mat.sum()),
+        "match_bytes": mbytes,
+        "avg_match_len": mbytes / max(int(is_mat.sum()), 1),
+        "bits_lit": float(bits_a[is_lit].sum()),
+        "bits_hit": float(bits_a[is_hit].sum()),
+        "bits_esc_flag": float(bits_a[is_esc].sum()),
+        "bits_esc_lit": float(bits_b[act_b & is_esc].sum()),
+        "bits_match_flag": float(bits_a[is_mat].sum()),
+        "bits_match_idx": float(bits_b[act_b & is_mat].sum()),
+        "bits_match_len": float(bits_c[is_mat & act_c].sum()),
+        "bits_match_extra": bits_extra,
+        "stream_words": int(emit.sum()),
+    }
+    total_bits = sum(v for k, v in stats.items() if k.startswith("bits_"))
+    stats["model_bpb"] = total_bits / max(n, 1)
+    stats["real_bpb"] = (stats["stream_words"] * 16 + p.lanes * 32) / max(n, 1)
+    return stats

@@ -8,21 +8,35 @@ with CRC, the stored-block fallback, the zero sentinel).  The dictionary
 and filter stages are the port's own copies of the JAX package's host
 modules (codec/dictionary.py, ops/filters.py).
 
+The schedule is the JAX package's.  A file of several blocks is coded
+with one block in flight: block i+1's ``start`` (codec/block.py,
+codec/fast.py: the kernels enqueued, nothing read back) comes before
+block i's ``finish`` (its event waited on, its result fetched, packed and
+written), so the card codes block i+1 while the host finishes block i;
+decode the same way.  The next block's filters and dictionary
+substitution run on a worker thread meanwhile.
+
 Chain mode (``F_CHAIN``: the PPM models carry across blocks) and chain
 mode v2 (``F_CHAIN_MATCH``, crz: the bucket table and the previous block's
-bytes too) code one block at a time, in order; a block stored raw leaves
-the chain state as it was, on both sides.  ``CPX_CHAIN_SPEC`` chooses
-between two schedules of the same bytes in the JAX package; the port
-takes "0" and "1" and runs the sequential one for both.
+bytes too): a block stored raw leaves the chain state as it was, on both
+sides.  Encode speculates (``CPX_CHAIN_SPEC=1``, the default): block i+1
+starts from block i's state1 before block i's payload is known, and starts
+again from the committed state when block i is stored raw; under ``0``
+each block is finished before the next starts (the sequential control).
+Decode needs no speculation (a stored block is known from its header).
 
 Block batching (``group`` > 1, the CLI's ``-g``): unchained blocks go
 through the codec ``group`` at a time (:mod:`comprox_tpu_torch.parallel.
-mesh`; mode F loops its one-block path, as the JAX package does), with
-the same bytes as one at a time.  Encode stages the next group's filters
-and dictionary substitution on a worker thread while the card codes the
-current one; decode prescans the block headers and decodes group g + 1
-on a worker thread while the caller writes group g.  Chained archives
-decode one block at a time whatever ``group`` says.
+mesh`; mode F, which has no block axis, through its one-in-flight loop),
+with the same bytes as one at a time.  Decode prescans the block headers
+and decodes group g + 1 on a worker thread while the caller writes group
+g.  Chained archives decode one block at a time whatever ``group`` says.
+
+``encode_fn`` and ``decode_fn`` (a block's bytes -> its payload; a
+payload and its n -> the bytes) replace the pipelined codec, as in the
+JAX package: the one-block codec given there runs the sequential
+schedule.  Chain mode refuses ``encode_fn``; chained decode ignores
+``decode_fn``.
 """
 
 from __future__ import annotations
@@ -42,14 +56,25 @@ from comprox_tpu_torch.ops import filters as flt
 from comprox_tpu_torch.codec.block import (
     BlockParams,
     decode_block,
-    decode_block_chained,
+    decode_block_chained_start,
+    decode_block_finish,
+    decode_block_start,
     encode_block,
-    encode_block_chained,
+    encode_block_chained_finish,
+    encode_block_chained_start,
+    encode_block_finish,
+    encode_block_start,
     init_chain_tables,
 )
 from comprox_tpu_torch.codec.fast import (
     decode_block_fast,
+    decode_block_fast_finish,
+    decode_block_fast_start,
+    decode_blocks_fast,
     encode_block_fast,
+    encode_block_fast_finish,
+    encode_block_fast_start,
+    encode_blocks_fast,
 )
 from comprox_tpu_torch.models.ppm import format_fingerprint
 from comprox_tpu_torch.parallel.mesh import decode_blocks, encode_blocks_list
@@ -107,6 +132,26 @@ def _block_encoder(bp: BlockParams, device):
 def _block_decoder(bp: BlockParams, device):
     fn = decode_block_fast if bp.mode == "F" else decode_block
     return lambda payload, n: fn(payload, n, bp, device)
+
+
+def _block_encoder_async(bp: BlockParams, device):
+    """``(start, finish)`` of the pipelined path: ``start`` enqueues a
+    block's kernels and returns at once, ``finish`` waits for that block,
+    fetches and packs its payload (container.py::_block_encoder_async)."""
+    if bp.mode == "F":
+        return (lambda blk: encode_block_fast_start(blk, bp, device),
+                encode_block_fast_finish)
+    return lambda blk: encode_block_start(blk, bp, device), encode_block_finish
+
+
+def _block_decoder_async(bp: BlockParams, device):
+    """``(start, finish)`` of the pipelined decode
+    (container.py::_block_decoder_async)."""
+    if bp.mode == "F":
+        return (lambda payload, n: decode_block_fast_start(payload, n, bp, device),
+                decode_block_fast_finish)
+    return (lambda payload, n: decode_block_start(payload, n, bp, device),
+            decode_block_finish)
 
 
 def write_header(f: BinaryIO, cp: ContainerParams, flags: int = 0) -> None:
@@ -167,17 +212,20 @@ def encode_stream(
     progress: Optional[Callable[[int, int], None]] = None,
     chain: bool = False,
     group: int = 1,
+    encode_fn: Optional[Callable] = None,
 ) -> int:
     """Encode ``src`` into ``dst`` on ``device``; returns the archive size.
 
     The same bytes as ``comprox_tpu.codec.container.encode_stream`` with
-    the same arguments, ``group`` blocks at a time (one: the sequential
-    path).  ``precomp_only`` runs just the dictionary stage and stores the
-    substituted bytes.  ``chain`` carries the PPM models across blocks
-    (under the block parameters' ``chain_match`` also the bucket table and
-    the previous block's bytes); a block stored raw leaves the chain state
-    as it was.  The next group's filters and dictionary substitution run
-    on a worker thread while the current group is coded.
+    the same arguments.  One block at a time (``group`` 1, no
+    ``encode_fn``) runs the pipelined schedule, one block in flight;
+    ``group`` > 1 codes that many blocks a launch; ``encode_fn`` codes each
+    block by itself.  ``precomp_only`` runs just the dictionary stage and
+    stores the substituted bytes.  ``chain`` carries the PPM models across
+    blocks (under the block parameters' ``chain_match`` also the bucket
+    table and the previous block's bytes); a block stored raw leaves the
+    chain state as it was.  The next group's filters and dictionary
+    substitution run on a worker thread while the current group is coded.
     """
     _check_codec(cp)
     if precomp_only:
@@ -189,7 +237,7 @@ def encode_stream(
                 "chain mode carries model state across blocks — "
                 "incompatible with mesh/group block parallelism"
             )
-        if cp.block.mode == "F":
+        if cp.block.mode == "F" or encode_fn is not None:
             raise ValueError(
                 "chain mode requires an adaptive-model codec (R/X/P)"
             )
@@ -201,8 +249,6 @@ def encode_stream(
             )
     if cp.block.chain_match and not chain:
         raise ValueError("chain_match requires chain mode (encode chain=True)")
-    encode = _block_encoder(cp.block, device)
-    state = init_chain_tables(cp.block, device) if chain else None
     wd = dic.build_dictionary(src) if dictionary else None
     flags = (
         (F_FILTER if filters else 0)
@@ -244,13 +290,42 @@ def encode_stream(
     def stage_group(raws):
         return [stage(raw) for raw in raws]
 
-    def code_group(blks):  # unchained blocks; mode F has no block axis
-        if group_n == 1 or cp.block.mode == "F":
-            return [encode(blk) for blk in blks]
-        return encode_blocks_list(blks, cp.block, group=group_n, device=device)
-
     total, done = src.size, 0
+    state = init_chain_tables(cp.block, device) if chain else None
+
+    def write_group(staged, payloads):
+        """Write the blocks; True iff the last one written advanced the
+        chain state (was not stored raw): the speculative schedule checks
+        its guess on this flag."""
+        nonlocal written, done, state
+        advanced = False
+        for (raw_blk, blk, prefix, bflags), coded in zip(staged, payloads):
+            advanced = False
+            if chain:
+                coded, state1 = coded
+            payload = prefix + coded
+            if len(payload) >= raw_blk.size:  # stored fallback
+                payload, bflags = raw_blk.tobytes(), BF_STORED
+            elif chain:
+                state = state1  # the models advance past the block
+                advanced = True
+            dst.write(struct.pack(BLKHDR, raw_blk.size, len(payload), bflags,
+                                  zlib.crc32(payload) & 0xFFFFFFFF))
+            dst.write(payload)
+            written += BLKHDR_LEN + len(payload)
+            done += raw_blk.size
+            if progress:
+                progress(done, total)
+        return advanced
+
     group_n = max(int(group), 1)
+    # one block in flight: block i+1's start comes before block i's finish
+    pipelined = not precomp_only and not chain and encode_fn is None and group_n == 1
+    if pipelined:
+        enc_start, enc_finish = _block_encoder_async(cp.block, device)
+    pending = None  # (staged, [handles]) awaiting finish
+    pending_c = None  # chained: (staged, handle, state1)
+    spec_state = state  # the speculative chain head
     blocks_it = (src[off : off + cap] for off in range(0, src.size, cap))
     pool = ThreadPoolExecutor(max_workers=1)
     try:
@@ -260,29 +335,58 @@ def encode_stream(
             staged = fut.result()
             nxt = list(itertools.islice(blocks_it, group_n))
             fut = pool.submit(stage_group, nxt) if nxt else None
-            payloads = (None if precomp_only or chain
-                        else code_group([blk for _, blk, _, _ in staged]))
-            for k, (raw_blk, blk, prefix, bflags) in enumerate(staged):
-                if precomp_only:
-                    payload, bflags = prefix + blk.tobytes(), bflags | BF_STORED
-                else:
-                    if chain:
-                        coded, state1 = encode_block_chained(blk, cp.block, state,
-                                                             device)
-                    else:
-                        coded = payloads[k]
-                    payload = prefix + coded
-                    if len(payload) >= raw_blk.size:  # stored fallback
-                        payload, bflags = raw_blk.tobytes(), BF_STORED
-                    elif chain:
-                        state = state1  # the models advance past the block
-                dst.write(struct.pack(BLKHDR, raw_blk.size, len(payload), bflags,
-                                      zlib.crc32(payload) & 0xFFFFFFFF))
-                dst.write(payload)
-                written += BLKHDR_LEN + len(payload)
-                done += raw_blk.size
-                if progress:
-                    progress(done, total)
+            blks = [blk for _, blk, _, _ in staged]
+            if precomp_only:
+                for raw_blk, blk, prefix, bflags in staged:
+                    body = prefix + blk.tobytes()
+                    dst.write(struct.pack(BLKHDR, raw_blk.size, len(body),
+                                          bflags | BF_STORED,
+                                          zlib.crc32(body) & 0xFFFFFFFF))
+                    dst.write(body)
+                    written += BLKHDR_LEN + len(body)
+                continue
+            if pipelined:
+                handles = [enc_start(blk) for blk in blks]
+                if pending is not None:
+                    write_group(pending[0], [enc_finish(h) for h in pending[1]])
+                pending = (staged, handles)
+                continue
+            if chain:
+                # Speculation: start this block from the previous block's
+                # state1 (kernels still queued; the stream orders them)
+                # before the previous payload is known.  Only a stored
+                # fallback falsifies the guess; the block then starts again
+                # from the committed state, which write_group kept.
+                # CPX_CHAIN_SPEC=0 finishes each block before the next.
+                if os.environ.get("CPX_CHAIN_SPEC", "1") == "0":
+                    if pending_c is not None:
+                        st_p, h_p, s1_p = pending_c
+                        write_group(st_p, [(encode_block_chained_finish(h_p), s1_p)])
+                        pending_c = None
+                    spec_state = state
+                handle, state1 = encode_block_chained_start(
+                    blks[0], cp.block, spec_state, device)
+                if pending_c is not None:
+                    st_p, h_p, s1_p = pending_c
+                    if not write_group(st_p, [(encode_block_chained_finish(h_p), s1_p)]):
+                        handle, state1 = encode_block_chained_start(
+                            blks[0], cp.block, state, device)
+                spec_state = state1
+                pending_c = (staged, handle, state1)
+                continue
+            if encode_fn is not None:
+                payloads = [encode_fn(blk) for blk in blks]
+            elif cp.block.mode == "F":  # no block axis: one block in flight
+                payloads = encode_blocks_fast(blks, cp.block, group_n, device)
+            else:
+                payloads = encode_blocks_list(blks, cp.block, group=group_n,
+                                              device=device)
+            write_group(staged, payloads)
+        if pending is not None:  # drain the pipelined tail block
+            write_group(pending[0], [enc_finish(h) for h in pending[1]])
+        if pending_c is not None:  # drain the chained tail block
+            st_p, h_p, s1_p = pending_c
+            write_group(st_p, [(encode_block_chained_finish(h_p), s1_p)])
     finally:
         pool.shutdown(wait=False, cancel_futures=True)
     dst.write(struct.pack(BLKHDR, 0, 0, 0, 0))
@@ -295,19 +399,22 @@ def decode_stream(
     device,
     progress: Optional[Callable[[int, int], None]] = None,
     group: int = 1,
+    decode_fn: Optional[Callable] = None,
 ) -> int:
     """Decode a codec-R, codec-F, codec-X or codec-P archive, unchained or
     chained, on ``device``; returns the raw byte count.  A stored block
-    never touches the chain state.  With ``group`` > 1 an unchained
+    never touches the chain state.  The blocks decode with one in flight
+    (chained ones too: the next block starts from the state1 of the one
+    before).  With ``group`` > 1 and no ``decode_fn`` an unchained
     archive's coded blocks decode ``group`` at a time (a prescan of the
-    block headers, then :func:`_make_mesh_decode_fn`); a chained one
-    decodes one block at a time."""
+    block headers, then :func:`_make_mesh_decode_fn`); ``decode_fn``
+    decodes each block by itself; a chained archive ignores both."""
     cp, flags = read_header(src)
-    if flags & F_CHAIN and cp.block.mode == "F":
+    chained = bool(flags & F_CHAIN)
+    if chained and cp.block.mode == "F":
         raise ValueError("corrupt archive: chain mode requires an "
                          "adaptive-model codec (R/X/P), not F")
-    decode = _block_decoder(cp.block, device)
-    state = init_chain_tables(cp.block, device) if flags & F_CHAIN else None
+    state = init_chain_tables(cp.block, device) if chained else None
     wd = None
     if flags & F_DICT:
         hdr = src.read(12)
@@ -319,12 +426,45 @@ def decode_stream(
             raise ValueError("corrupt archive: dictionary blob CRC mismatch")
         wd = dic.unpack_dict(blob)
     close = None
-    if group > 1 and not flags & F_CHAIN:
+    if group > 1 and decode_fn is None and not chained:
         # the prescan starts at the first block header (after the blob)
         mesh = _make_mesh_decode_fn(src, cp, group, device)
         if mesh is not None:
-            decode, close = mesh
+            decode_fn, close = mesh
+    if chained:
+        decode_fn = None  # the carried state forces one block at a time
+    dec_start = dec_finish = None
+    if decode_fn is None and not chained:
+        dec_start, dec_finish = _block_decoder_async(cp.block, device)
+    elif chained:
+        dec_finish = decode_block_finish
     total = 0
+    # (started handle or None, bytes or None, dictionary-coded, spans, raw_n).
+    # With one block in flight, block i+1's payload CRC (checked when it is
+    # read, before its start) runs before block i's drain and size checks in
+    # finish_item: corruption in block i can surface as block i+1's error
+    # first.  Both raise ValueError and stop the decode; no wrong bytes are
+    # written (container.py::decode_stream).
+    pending = None
+
+    def finish_item(item):
+        nonlocal total
+        started, out, dicted, spans, raw_n = item
+        if started is not None:
+            out = dec_finish(started)
+        if dicted:
+            out = dic.dict_decode(out, wd)
+        if out.size != raw_n:
+            raise ValueError(
+                f"corrupt block: decoded {out.size} bytes, header says {raw_n}"
+            )
+        if spans:
+            out = flt.apply_spans(out, spans, encode=False)
+        dst.write(out.tobytes())
+        total += raw_n
+        if progress:
+            progress(total, total)
+
     try:
         while True:
             hdr = src.read(BLKHDR_LEN)
@@ -352,6 +492,7 @@ def decode_stream(
                     out = dic.dict_decode(np.frombuffer(payload[4:], np.uint8), wd)
                 else:
                     out = np.frombuffer(payload, np.uint8)
+                item = (None, out, False, spans, raw_n)
             else:
                 n_dec = raw_n
                 if bflags & BF_DICT:
@@ -359,23 +500,24 @@ def decode_stream(
                         raise ValueError("corrupt block: missing dict-size prefix")
                     (n_dec,) = struct.unpack("<I", payload[:4])
                     payload = payload[4:]
-                if state is not None:
-                    out, state = decode_block_chained(payload, n_dec, cp.block,
-                                                      state, device)
+                dicted = bool(bflags & BF_DICT)
+                if chained:
+                    started, state = decode_block_chained_start(
+                        payload, n_dec, cp.block, state, device)
+                    item = (started, None, dicted, spans, raw_n)
+                elif dec_start is not None:
+                    item = (dec_start(payload, n_dec), None, dicted, spans, raw_n)
                 else:
-                    out = decode(payload, n_dec)
-                if bflags & BF_DICT:
-                    out = dic.dict_decode(out, wd)
-            if out.size != raw_n:
-                raise ValueError(
-                    f"corrupt block: decoded {out.size} bytes, header says {raw_n}"
-                )
-            if spans:
-                out = flt.apply_spans(out, spans, encode=False)
-            dst.write(out.tobytes())
-            total += raw_n
-            if progress:
-                progress(total, total)
+                    item = (None, decode_fn(payload, n_dec), dicted, spans, raw_n)
+            if pending is not None:
+                finish_item(pending)
+                pending = None
+            if item[0] is not None:
+                pending = item  # keep the started block in flight
+            else:
+                finish_item(item)
+        if pending is not None:
+            finish_item(pending)
     finally:
         if close is not None:
             close()
@@ -417,12 +559,10 @@ def _make_mesh_decode_fn(src: BinaryIO, cp: ContainerParams, group: int, device)
     if not jobs:
         return None
 
-    single = _block_decoder(cp.block, device)
-
     def dec(grp):
-        if cp.block.mode == "F":  # no block axis: its blocks in turn
-            return np.concatenate([single(p, n) for p, n in grp])
         payloads, ns = [p for p, _ in grp], [n for _, n in grp]
+        if cp.block.mode == "F":  # no block axis: one block in flight
+            return decode_blocks_fast(payloads, ns, cp.block, group, device)
         return decode_blocks(payloads, ns, cp.block, group=group, device=device)
 
     pool = ThreadPoolExecutor(max_workers=1)

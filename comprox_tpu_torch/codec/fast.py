@@ -456,8 +456,21 @@ def encode_scan(p: BlockParams, sym, xtr, tbits, n_tok: int):
     (freq [581] int32, states [S] int64, stream [n_words] int32 in the
     decoder's order).
     """
+    freq, states, n_words, stream = _encode_scan(p, sym, xtr, tbits, n_tok)
+    if stream.device.type == "cpu":
+        return freq, states, stream
+    return freq, states, stream[: int(n_words.item())].to(_i32) & 0xFFFF
+
+
+def _encode_scan(p: BlockParams, sym, xtr, tbits, n_tok: int):
+    """:func:`encode_scan` without the read of the word count: ``(freq,
+    states, n_words, stream)``; on the card n_words is a [1] int32 tensor
+    and stream K3b's whole int16 buffer, its first n_words the words (the
+    pipelined block API copies the count with the states); on the CPU the
+    plain version's count and words."""
     if _dispatch(sym, xtr, tbits) == "cpu":
-        return encode_scan_plain(p, sym, xtr, tbits, n_tok)
+        freq, states, words = encode_scan_plain(p, sym, xtr, tbits, n_tok)
+        return freq, states, words.numel(), words
     blk._check_kernel_geometry(p)
     if not 0 <= n_tok <= min(sym.shape[0], p.capacity):
         raise ValueError(f"n_tok {n_tok} for {sym.shape[0]} slots, "
@@ -482,7 +495,7 @@ def encode_scan(p: BlockParams, sym, xtr, tbits, n_tok: int):
             freq.data_ptr(), states.data_ptr(), ev.data_ptr(), emit.data_ptr(),
             words.data_ptr(), packed.data_ptr(), parts.data_ptr(), n_words.data_ptr(),
             stream.data_ptr(), _stream_ptr())
-    return freq, states, stream[: int(n_words.item())].to(_i32) & 0xFFFF
+    return freq, states, n_words, stream
 
 
 # --------------------------------------------------------------------------
@@ -580,6 +593,16 @@ def decode_scan(p: BlockParams, freq, states, stream, n_tok: int):
     (states [S] int64, words_used, plane [n_tok] int32): the tokens only,
     where the plain version keeps JAX's N slots.
     """
+    x, used, plane = _decode_scan(p, freq, states, stream, n_tok)
+    if states.device.type == "cuda":
+        used = int(used.item())
+    return x, used, plane
+
+
+def _decode_scan(p: BlockParams, freq, states, stream, n_tok: int):
+    """:func:`decode_scan` without the read of the words used: on the card
+    that count stays a [1] int32 tensor (the pipelined block API copies it
+    with the states)."""
     if _dispatch(freq, states, stream) == "cpu":
         x, used, plane = decode_scan_plain(p, freq, states, stream, n_tok)
         return x, used, plane[:n_tok]
@@ -603,7 +626,7 @@ def decode_scan(p: BlockParams, freq, states, stream, n_tok: int):
             stream.shape[0], freq.data_ptr(), x.data_ptr(), stream.data_ptr(),
             grids.data_ptr(), parts.data_ptr(),
             plane.data_ptr(), used.data_ptr(), _stream_ptr())
-    return x, int(used.item()), plane
+    return x, used, plane
 
 
 # --------------------------------------------------------------------------
@@ -626,26 +649,46 @@ def encode_passes(p: BlockParams, inp, n: int):
     return freq, states, words, n_tok
 
 
-def encode_block_fast(data: np.ndarray, p: BlockParams, device) -> bytes:
-    """Encode up to p.capacity bytes on ``device``; returns the payload."""
+def encode_block_fast_start(data: np.ndarray, p: BlockParams, device):
+    """Enqueue a block's encode on ``device`` (K7, K6, K8, K9) and return its
+    handle for :func:`encode_block_fast_finish` (fast.py::
+    encode_block_fast_start).  The content CRC is computed here.  One read
+    waits for the device: K8's token count, which sizes K9's grid (JAX
+    sizes it at capacity), so this start waits for its own K7 and K8; K9's
+    word count and the states are copied without waiting."""
     check_supported(p)
     n = int(data.size)
-    if not 0 < n <= p.capacity:
-        raise ValueError(f"block of {n} bytes for capacity {p.capacity}")
-    buf = np.zeros((p.lanes, p.steps), np.uint8)
-    buf.reshape(-1)[:n] = data
+    inp, pin = blk._block_tensor(data, p, device)
     # the content CRC is this profile's corruption detector: a flipped
     # mantissa bit decodes to a valid stream with wrong bytes
     crc = zlib.crc32(data.tobytes()) & 0xFFFFFFFF
-    freq, states, stream, n_tok = encode_passes(
-        p, torch.from_numpy(buf).to(device), n)
-    stream = stream.cpu().numpy()
+    dec = _fast_find_matches(p, inp, n)
+    n_tok, sym, xtr, tbits = tokenize(p, inp, n, dec)
+    freq, states, n_words, stream = _encode_scan(p, sym, xtr, tbits, n_tok)
+    if isinstance(n_words, torch.Tensor):
+        n_words = blk._host_copy(n_words)
+    return (crc, n_tok, blk._host_copy(freq), blk._host_copy(states), n_words,
+            stream, blk._mark(device), pin)
+
+
+def encode_block_fast_finish(started) -> bytes:
+    """Wait for the block's event, fetch its stream's first n_words and
+    pack the payload (fast.py::encode_block_fast_finish)."""
+    crc, n_tok, freq, states, n_words, stream, event, _ = started
+    blk._wait(event)
+    nw = int(n_words)
+    words = blk._fetch(stream[:nw], event).numpy()
     return (
-        np.array([stream.size, n_tok, crc], np.uint32).tobytes()
-        + freq.cpu().numpy().astype("<u2").tobytes()
-        + states.cpu().numpy().astype("<u4").tobytes()
-        + stream.astype("<u2").tobytes()
+        np.array([nw, n_tok, crc], np.uint32).tobytes()
+        + freq.numpy().astype("<u2").tobytes()
+        + states.numpy().astype("<u4").tobytes()
+        + words.astype("<u2").tobytes()
     )
+
+
+def encode_block_fast(data: np.ndarray, p: BlockParams, device) -> bytes:
+    """Encode up to p.capacity bytes on ``device``; returns the payload."""
+    return encode_block_fast_finish(encode_block_fast_start(data, p, device))
 
 
 def _unpack_payload(payload: bytes, n: int, p: BlockParams):
@@ -675,34 +718,90 @@ def _unpack_payload(payload: bytes, n: int, p: BlockParams):
     return n_words, n_tok, crc_want, freq, states, stream
 
 
-def decode_tokens(payload: bytes, n: int, p: BlockParams, device) -> np.ndarray:
-    """Payload -> the token plane's first n_tok entries (uint32) on the host:
-    the checks, K10, then the drain check."""
-    n_words, n_tok, _, freq, states, stream = _unpack_payload(payload, n, p)
-    x, used, plane = decode_scan(
-        p,
-        torch.from_numpy(freq).to(device),
-        torch.from_numpy(states.astype(np.int64)).to(device),
-        torch.from_numpy(stream).to(device),
-        n_tok,
-    )
-    drained = bool((x.cpu().numpy() == RANS_L).all())
+def decode_block_fast_start(payload: bytes, n: int, p: BlockParams, device):
+    """Unpack a payload and enqueue K10 on ``device``; returns the handle for
+    :func:`decode_block_fast_finish`, reading nothing back.  Every check of
+    the payload's shape raises here, before anything is enqueued
+    (fast.py::decode_block_fast_start)."""
+    check_supported(p)
+    n_words, n_tok, crc_want, freq, states, stream = _unpack_payload(payload, n, p)
+    freq_t, pin_f = blk._staged(freq, device)
+    states_t, pin_s = blk._staged(states.astype(np.int64), device)
+    stream_t, pin_w = blk._staged(stream, device)
+    x, used, plane = _decode_scan(p, freq_t, states_t, stream_t, n_tok)
+    if isinstance(used, torch.Tensor):
+        used = blk._host_copy(used)
+    return (n, p.min_len, n_words, n_tok, crc_want, blk._host_copy(x), used, plane,
+            blk._mark(device), (pin_f, pin_s, pin_w))
+
+
+def _tokens_finish(started) -> np.ndarray:
+    """Wait for the block's event, check that the states drained and every
+    word was read, then fetch the token plane's first n_tok entries."""
+    _, _, n_words, n_tok, _, x, used, plane, event, _ = started
+    blk._wait(event)
+    drained = bool((np.asarray(x) == RANS_L).all())
+    used = int(used)
     if used != n_words or not drained:
         raise ValueError(
             f"corrupt block: states drained={drained} words {used}/{n_words}"
         )
-    return np.ascontiguousarray(plane.cpu().numpy().view(np.uint32))
+    return np.ascontiguousarray(blk._fetch(plane[:n_tok], event).numpy().view(np.uint32))
+
+
+def decode_block_fast_finish(started) -> np.ndarray:
+    """The block's n bytes: the drain check, the token plane, the LZ copies
+    on the host and the content CRC (fast.py::decode_block_fast_finish)."""
+    n, min_len, _, _, crc_want = started[:5]
+    res = native.f2_execute(_tokens_finish(started), min_len, n)
+    if res is None:
+        raise ValueError("corrupt block: token stream over/underruns")
+    if (zlib.crc32(res.tobytes()) & 0xFFFFFFFF) != crc_want:
+        raise ValueError("corrupt block: content CRC mismatch")
+    return res
+
+
+def decode_tokens(payload: bytes, n: int, p: BlockParams, device) -> np.ndarray:
+    """Payload -> the token plane's first n_tok entries (uint32) on the host:
+    the checks, K10, then the drain check."""
+    return _tokens_finish(decode_block_fast_start(payload, n, p, device))
 
 
 def decode_block_fast(payload: bytes, n: int, p: BlockParams, device) -> np.ndarray:
     """Decode a mode-F payload back to its n raw bytes on ``device``.  Every
     check of the payload's shape raises before anything runs on the device."""
-    check_supported(p)
-    tok = decode_tokens(payload, n, p, device)
-    res = native.f2_execute(tok, p.min_len, n)
-    if res is None:
-        raise ValueError("corrupt block: token stream over/underruns")
-    crc_want = int(np.frombuffer(payload[8:12], "<u4")[0])
-    if (zlib.crc32(res.tobytes()) & 0xFFFFFFFF) != crc_want:
-        raise ValueError("corrupt block: content CRC mismatch")
-    return res
+    return decode_block_fast_finish(decode_block_fast_start(payload, n, p, device))
+
+
+# ---- the grouped APIs (the container's -g for mode F, which has no block
+# axis): a group's blocks in turn with one block in flight
+# (fast.py::encode_blocks_fast, decode_blocks_fast)
+
+
+def encode_blocks_fast(blocks: list, p: BlockParams, group: int, device) -> list:
+    """The payloads of ``blocks``, block i+1 started before block i is
+    finished."""
+    out, pending = [], None
+    for data in blocks:
+        started = encode_block_fast_start(data, p, device)
+        if pending is not None:
+            out.append(encode_block_fast_finish(pending))
+        pending = started
+    if pending is not None:
+        out.append(encode_block_fast_finish(pending))
+    return out
+
+
+def decode_blocks_fast(payloads: list, ns: list, p: BlockParams, group: int,
+                       device) -> np.ndarray:
+    """The blocks' bytes, concatenated, block i+1 started before block i is
+    finished."""
+    pieces, pending = [], None
+    for payload, n in zip(payloads, ns):
+        started = decode_block_fast_start(payload, n, p, device)
+        if pending is not None:
+            pieces.append(decode_block_fast_finish(pending))
+        pending = started
+    if pending is not None:
+        pieces.append(decode_block_fast_finish(pending))
+    return np.concatenate(pieces) if pieces else np.zeros(0, np.uint8)

@@ -127,8 +127,12 @@ def _sticky2(device):
 
 
 def _apm_init(n_ctx: int, device):
-    row = torch.tensor(_SSE_THR, dtype=_i32, device=device)
-    return row.clamp(SSE_LO, SSE_HI).repeat(n_ctx)
+    row = torch.tensor(_SSE_THR, dtype=_i32).clamp(SSE_LO, SSE_HI)
+    if torch.device(device).type == "cuda":
+        # from pinned memory: a pageable upload would wait for every kernel
+        # queued before it (a block in flight)
+        row = row.pin_memory().to(device, non_blocking=True)
+    return row.to(device).repeat(n_ctx)
 
 
 def init_sse(device):
@@ -142,11 +146,14 @@ def init_sse_hit(device):
 def init_tables(match_enabled: bool, o3_bits: int, device) -> dict:
     """Fresh model state for one block."""
     check_knobs()
-    o2_row = torch.zeros(O2_W, dtype=_i32, device=device)
-    o2_row[SYM_HIT] = INC2
-    o2_row[SYM_ESC] = INC2
+    # built by comparisons: writing a Python number into a CUDA tensor
+    # (o2_row[k] = INC2) copies it from pageable memory and waits for every
+    # kernel queued before it (a block in flight)
+    slot = torch.arange(O2_W, device=device)
+    seeded = (slot == SYM_HIT) | (slot == SYM_ESC)
     if match_enabled:
-        o2_row[SYM_MATCH] = INC2
+        seeded |= slot == SYM_MATCH
+    o2_row = torch.where(seeded, INC2, 0).to(_i32)
 
     def ones(*shape):
         return torch.ones(shape, dtype=_i32, device=device)

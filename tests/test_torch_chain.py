@@ -373,9 +373,9 @@ def test_chain_match_refuses_the_scan_finder(monkeypatch):
 
 @pytest.mark.parametrize("spec", ["0", "1", "2"])
 def test_chain_spec_knob(spec, monkeypatch):
-    """CPX_CHAIN_SPEC picks a schedule of the same bytes in the JAX package;
-    the port runs its sequential one for "0" and "1" and refuses any other
-    value."""
+    """CPX_CHAIN_SPEC picks a schedule of the same bytes: "1" the
+    speculative one, "0" the sequential one, in both packages; the port
+    refuses any other value."""
     monkeypatch.setenv("CPX_CHAIN_SPEC", spec)
     jcp, tcp = cps(b"R")
     data = word_salad(2 * tcp.block.capacity + 5)

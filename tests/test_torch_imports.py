@@ -38,6 +38,7 @@ PORT_MODULES = [
     "comprox_tpu_torch.parallel.mesh",
     "comprox_tpu_torch.utils.build",
     "comprox_tpu_torch.utils.native",
+    "comprox_tpu_torch.utils.profiling",
 ]
 
 
