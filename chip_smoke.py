@@ -29,7 +29,9 @@ no result line:
    (``tests/data/torch_golden.json``: one 1 MiB and one 8 MiB corpus, each
    under ``crz e -l512`` with the flexible parse and with ``-f0``, under
    ``crf e -l512``, under ``crx e -l512`` (the 1 MiB one also with ``-f0``;
-   both sizes also under ``CPX_X_FINDER=scan``) and under ``crp e -l512``;
+   both sizes also under ``CPX_X_FINDER=scan``), under ``crp e -l512`` and
+   under ``CPX_F_FINDER=scan crf e -l512`` (the 1 MiB one also under
+   ``CPX_X_FINDER=scan``; phase 26 codes those two);
    the x86-64 ELF corpus at 256 KiB and 8 MiB under ``crx e -F`` and ``crz
    e -F``; a 32 KiB corpus of words under each codec at ``-l2048`` with
    T=8, two blocks; the 8 MiB corpus chained at ``-b2``, four blocks of
@@ -161,8 +163,8 @@ no result line:
 20. full width, the crf path: ``crf e -b8 -l512`` then ``crf d`` the same
    way; fails if K7, K6, K8, K9, K10 or the sort was not launched.  Then the host's
    share of that path, stage by stage (dictionary, block encode and decode,
-   the LZ copy walk, the CRC).  (It runs after phases 21 to 23, before
-   phase 24.)
+   the LZ copy walk, the CRC).  (It runs after phases 21 to 23 and is
+   printed as phase 24.)
 21. golden, -b2: the JAX package's ``-g4 -b2`` goldens (four blocks of
    T=4096 of the 8 MiB corpus; crz, crx, crp, crf), which phase 3 leaves
    out, decoded with ``-g4`` and with ``-g1`` to the corpus, and the corpus
@@ -191,13 +193,35 @@ no result line:
    corpus under ``CPX_CHAIN_SPEC=1`` (the speculative schedule) and ``0``,
    both to the JAX goldens' SHA-256, and ``encode_block_stats`` on one
    full-width crz block (``stream_words`` == its payload's word count).
-24. payload pack: one 8 MiB block of the crz and of the crx corpus
+25. payload pack: one 8 MiB block of the crz and of the crx corpus
    encoded (S=512, T=16384; three and five slots), then its payload packed
    from the same K3 outputs two ways, host ms each: the host compaction
    the port ran before K3b (K3p's mask and K3's words copied to the host,
    ``np.unpackbits`` and a boolean index), the yardstick, and
    ``_pack_payload`` (K3b, then the copy of the word count, the states and
    the stream); the two payloads must be equal.
+26. full width, crf under mode X's finder: ``CPX_F_FINDER=scan crf e -b8
+   -l512`` and ``crf d`` on the 8 MiB corpus, archive SHA-256 == the JAX
+   golden written under that knob; fails unless K4x, the sort, K6 (twice:
+   mode X's prices, then the repeat pair), K11, K8, K9 and K10 were
+   launched, or if K7 was.  The same at 1 MiB (``-b1``) under
+   ``CPX_X_FINDER=scan`` as well (KSx, not K4x).  Then one 16 MiB block
+   (T=32768) of phase 17's corpus under ``-b16``, round trip bit-exact.
+   The walls and kernel ms beside the sort route's of phase 20.
+27. -j: ``crz|crx|crp|crf e -b8 -l512 -j`` and ``d -j`` on the input of
+   phase 22 over the mesh of every CUDA device (one card here: a mesh of
+   one; mode F around the mesh); each archive equal to ``-g1``'s, each
+   decode bit-exact; walls, kernel ms, idle share and peak of the card.
+28. distributed, two ranks on one card: two processes of ``python -m
+   comprox_tpu_torch.parallel.dryrun`` (world 2, gloo, both on
+   ``cuda:0``), mode R at S=512 and 8 MiB blocks on phase 22's input (two
+   blocks a rank); both return the payloads of one process's
+   ``encode_blocks_list`` (SHA-256) and decode the whole input bit-exact;
+   each rank's walls and peak; either rank's failure or timeout fails it.
+29. dryrun: ``dryrun_multichip(torch.cuda.device_count())`` at the JAX
+   package's geometry (S=512, 1 MiB blocks, 2^18 x 64 buckets, 2^22 o3
+   entries, the tail 1313 bytes short): round trip bit-exact, payloads
+   equal to one device's a block at a time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -224,11 +248,16 @@ FAST_ARCHIVE = "crf_flex_8MiB_S512.cpx"  # crf e -b8 -l512
 X_ARCHIVE = "crx_flex_8MiB_S512.cpx"  # crx e -b8 -l512
 XSCAN_ARCHIVE = "crx_scan_flex_8MiB_S512.cpx"  # CPX_X_FINDER=scan crx e -b8 -l512
 P_ARCHIVE = "crp_8MiB_S512.cpx"  # crp e -b8 -l512
+# crf under mode X's finder and parse: CPX_F_FINDER=scan crf e -b8 -l512, and
+# at 1 MiB also under CPX_X_FINDER=scan
+FSCAN_ARCHIVE = "crf_scan_flex_8MiB_S512.cpx"
+FXSCAN_ARCHIVE = "crf_xscan_flex_1MiB_S512.cpx"
 # crz e -C -b8 -l512 on the 8 MiB text corpus followed by the 8 MiB ELF
 # corpus: two chained blocks
 CHAIN_ARCHIVE = "crz_chainm_textelf_flex_16MiB_S512.cpx"
 FULL_WIDTH_ARCHIVES = (MAIN_ARCHIVE, GREEDY_ARCHIVE, FAST_ARCHIVE, X_ARCHIVE,
-                       XSCAN_ARCHIVE, P_ARCHIVE, CHAIN_ARCHIVE)  # re-encoded by the full-width phases
+                       XSCAN_ARCHIVE, P_ARCHIVE, CHAIN_ARCHIVE, FSCAN_ARCHIVE,
+                       FXSCAN_ARCHIVE)  # re-encoded by the full-width phases
 KERNEL_STEPS = 256
 
 PROBES_CU = "comprox_tpu_torch/csrc/probes.cu"
@@ -362,6 +391,19 @@ def finder_knob(knob, value):
         yield
     finally:
         blk._ENV[knob] = old
+
+
+@contextlib.contextmanager
+def f_finder_knob(value):
+    """The port's mode-F finder (CPX_F_FINDER, read at import) set to
+    ``value`` for the block."""
+    from comprox_tpu_torch.codec import fast
+
+    old, fast._F_FINDER = fast._F_FINDER, value
+    try:
+        yield
+    finally:
+        fast._F_FINDER = old
 
 
 def _short_ext_err(p, inp, n, content=False) -> int:
@@ -548,7 +590,8 @@ def phase_golden():
         buf = io.BytesIO()
         blk.reset_launch_counts()
         t0 = time.perf_counter()
-        with finder_knob("CPX_X_FINDER", env.get("CPX_X_FINDER", "sort")):
+        with finder_knob("CPX_X_FINDER", env.get("CPX_X_FINDER", "sort")), \
+                f_finder_knob(env.get("CPX_F_FINDER", "sort")):
             encode_stream(corpora[name], buf, cp, "cuda", filters=opts["filters"],
                           chain=opts["chain"])
         t_enc = time.perf_counter() - t0
@@ -2347,13 +2390,18 @@ def phase_probes():
     return res, launches
 
 
-def phase_full_width(corpus, codec, archive, flags, needed, finder="sort", scans=()):
-    """One path through the CLI: <codec> e [flags] -b8 -l512 and <codec> d
-    (mode X's candidates from ``finder``).  The launch counts are set to 0
-    just before and read just after.  For each step scan of ``scans`` (KS,
-    KSx), its us a step beside its full-width bound, whose bytes an
-    untimed encode after the timed one counts (``phases._bytes_of_scans``:
-    the rows it changed, the block, the grids)."""
+FULL_WIDTH_STATS: dict = {}  # archive: (encode s, decode s, encode kernel ms, decode's)
+
+
+def phase_full_width(corpus, codec, archive, flags, needed, finder="sort", scans=(),
+                     block_mb=8, f_finder="sort"):
+    """One path through the CLI: <codec> e [flags] -b<block_mb> -l512 and
+    <codec> d (mode X's candidates from ``finder``, mode F's decisions from
+    ``f_finder``).  The launch counts are set to 0 just before and read just
+    after.  For each step scan of ``scans`` (KS, KSx), its us a step beside
+    its full-width bound, whose bytes an untimed encode after the timed one
+    counts (``phases._bytes_of_scans``: the rows it changed, the block, the
+    grids).  The walls and kernel ms go to ``FULL_WIDTH_STATS``."""
     import numpy as np
 
     from comprox_tpu_torch.cli import main as cli
@@ -2362,13 +2410,14 @@ def phase_full_width(corpus, codec, archive, flags, needed, finder="sort", scans
     want = json.loads((GOLDEN / "torch_golden.json").read_text())[archive]
     WORK.mkdir(parents=True, exist_ok=True)
     n = corpus.size
-    mib, blocks = n >> 20, -(-n // (512 * 16384))
+    steps = (block_mb << 20) // 512
+    mib, blocks = n >> 20, -(-n // (512 * steps))
     src, arc, dst = WORK / "corpus.bin", WORK / f"corpus.{codec}", WORK / "out.bin"
     corpus.tofile(src)
     blk.reset_launch_counts()
     t0 = time.perf_counter()
-    with finder_knob("CPX_X_FINDER", finder):
-        cli.run(codec, ["e", str(src), str(arc), *flags, "-b8", "-l512", "-q"],
+    with finder_knob("CPX_X_FINDER", finder), f_finder_knob(f_finder):
+        cli.run(codec, ["e", str(src), str(arc), *flags, f"-b{block_mb}", "-l512", "-q"],
                 device="cuda")
     t_enc = time.perf_counter() - t0
     ms_enc = blk.kernel_ms()
@@ -2383,7 +2432,9 @@ def phase_full_width(corpus, codec, archive, flags, needed, finder="sort", scans
             f"{mib} MiB archive ({want['argv']}) differs from the JAX package's")
     if not np.array_equal(np.fromfile(dst, np.uint8), corpus):
         raise AssertionError(f"{mib} MiB round trip is not bit-exact")
-    print(f"{want['argv']}: {n} B, S=512, T=16384, {blocks} block(s); archive "
+    FULL_WIDTH_STATS[archive] = (t_enc, t_dec, sum(ms_enc.values()),
+                                 sum(ms_all.values()) - sum(ms_enc.values()))
+    print(f"{want['argv']}: {n} B, S=512, T={steps}, {blocks} block(s); archive "
           f"{len(got)} B == JAX golden (sha256 {sha256(got)}), "
           f"{len(got) * 8 / n:.4f} bpb; round trip bit-exact")
     print(f"encode {n / t_enc / 1e6:.3f} MB/s ({t_enc:.3f} s wall); "
@@ -2403,16 +2454,17 @@ def phase_full_width(corpus, codec, archive, flags, needed, finder="sort", scans
         from comprox_tpu_torch.benchmarks import phases, work
 
         moved, again = {}, WORK / f"again.{codec}"
-        with finder_knob("CPX_X_FINDER", finder), phases._bytes_of_scans(moved):
-            cli.run(codec, ["e", str(src), str(again), *flags, "-b8", "-l512", "-q"],
-                    device="cuda")
+        with finder_knob("CPX_X_FINDER", finder), f_finder_knob(f_finder), \
+                phases._bytes_of_scans(moved):
+            cli.run(codec, ["e", str(src), str(again), *flags, f"-b{block_mb}", "-l512",
+                            "-q"], device="cuda")
         if again.read_bytes() != got:
             raise AssertionError("the encode for the bounds wrote other bytes")
         again.unlink()
         for k in scans:
             bound, by = work.bound(*moved[k])
             print(f"{k} at full width: {ms_enc[k]:.3f} ms over {launches[k]} launch(es), "
-                  f"{ms_enc[k] * 1e3 / (16384 * launches[k]):.2f} us/step; bound "
+                  f"{ms_enc[k] * 1e3 / (steps * launches[k]):.2f} us/step; bound "
                   f"{bound:.4f} ms ({by})")
     for p in (src, arc, dst):
         p.unlink()
@@ -2563,6 +2615,262 @@ def phase_payload_pack(corpus_r, corpus_x):
               f"the card, {lib_ms:.3f} ms)")
 
 
+FSCAN_NEEDED = ("K4x", "SORT", "K6", "K11", "K8", "K9", "K10")
+FXSCAN_NEEDED = ("KSx", "K6", "K11", "K8", "K9", "K10")
+
+
+def phase_fscan(corpora, text_elf):
+    """crf under ``CPX_F_FINDER=scan`` (mode X's finder and parse) at full
+    width: ``crf e -b8 -l512`` and ``crf d`` on the 8 MiB corpus through
+    phase_full_width, the archive's SHA-256 == the JAX golden; fails unless
+    K4x, the sort, K6 (twice: mode X's prices, then the repeat pair), K11,
+    K8, K9 and K10 were launched, or if K7 was.  The same at 1 MiB
+    (``-b1``) under ``CPX_X_FINDER=scan`` as well: KSx launched, K4x and K7
+    not.  Then a 16 MiB block (T=32768, mode F's largest) of the text and
+    ELF corpus, ``-b16``, encoded and decoded bit-exact.  Prints the walls
+    and kernel ms beside the sort route's (phase 20).  Returns the launches
+    of the 8 MiB and the 1 MiB run."""
+    import numpy as np
+
+    from comprox_tpu_torch.cli import main as cli
+    from comprox_tpu_torch.codec import block as blk
+
+    xsort = phase_full_width(corpora[FSCAN_ARCHIVE], "crf", FSCAN_ARCHIVE, [],
+                             FSCAN_NEEDED, f_finder="scan")
+    if xsort["K7"] or xsort["K6"] != 2:
+        raise AssertionError(f"crf under the scan route: K7 {xsort['K7']} launches, "
+                             f"K6 {xsort['K6']} (K4x's route launches K6 twice, K7 never)")
+    scan = phase_full_width(corpora[FXSCAN_ARCHIVE], "crf", FXSCAN_ARCHIVE, [],
+                            FXSCAN_NEEDED, finder="scan", block_mb=1, f_finder="scan")
+    if scan["K4x"] or scan["K7"] or scan["K6"] != 2:
+        raise AssertionError(f"crf under the X scan finder: K4x {scan['K4x']}, K7 "
+                             f"{scan['K7']}, K6 {scan['K6']} launches")
+    for name in (FAST_ARCHIVE, FSCAN_ARCHIVE, FXSCAN_ARCHIVE):
+        t_enc, t_dec, k_enc, k_dec = FULL_WIDTH_STATS[name]
+        print(f"crf route {name}: encode {t_enc:.3f} s wall, kernels {k_enc:.3f} ms; "
+              f"decode {t_dec:.3f} s wall, kernels {k_dec:.3f} ms")
+    src, arc, dst = WORK / "corpus16f.bin", WORK / "corpus16f.crf", WORK / "out16f.bin"
+    text_elf.tofile(src)
+    blk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with f_finder_knob("scan"):
+        cli.run("crf", ["e", str(src), str(arc), "-b16", "-l512", "-q"], device="cuda")
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli.run("crf", ["d", str(arc), str(dst), "-q"], device="cuda")
+    t_dec = time.perf_counter() - t0
+    if not np.array_equal(np.fromfile(dst, np.uint8), text_elf):
+        raise AssertionError("CPX_F_FINDER=scan crf -b16: the round trip is not bit-exact")
+    for k in FSCAN_NEEDED:
+        if blk.LAUNCHES[k] < 1:
+            raise AssertionError(f"CPX_F_FINDER=scan crf -b16: {k} was not launched")
+    size = arc.stat().st_size
+    print(f"CPX_F_FINDER=scan crf e -b16 -l512: {text_elf.size} B, one block of S=512, "
+          f"T=32768, {size} B ({size * 8 / text_elf.size:.4f} bpb), round trip bit-exact; "
+          f"encode {t_enc:.3f} s, decode {t_dec:.3f} s wall, kernels "
+          f"{sum(blk.kernel_ms().values()):.3f} ms")
+    for p in (src, arc, dst):
+        p.unlink()
+    return xsort, scan
+
+
+JOBS_ROWS = {  # the -j runs' launches -> the kernels line's rows
+    "crz": {"K4": "K4", "SORT": "SORT", "K5": "K5 (blocks)", "K6": "K6 (blocks)",
+            "K2": "K2 (blocks)", "K3": "K3 (blocks)", "K3p": "K3p (blocks)",
+            "K3b": "K3b (blocks)", "K1": "K1 (blocks)"},
+    "crx": {"K4x": "K4x", "SORT": "SORT", "K6": "K6 (X) (blocks)", "K11": "K11 (blocks)",
+            "K12e": "K12e (blocks)", "K3": "K3 (5 slots) (blocks)",
+            "K3p": "K3p (5 slots) (blocks)", "K3b": "K3b (5 slots) (blocks)",
+            "K12d": "K12d (blocks)"},
+    "crp": {"K13c": "K13c", "K13e": "K13e (blocks)", "K3": "K3 (blocks)",
+            "K3p": "K3p (blocks)", "K3b": "K3b (blocks)", "K13d": "K13d (blocks)"},
+    "crf": {"K7": "K7", "SORT": "SORT", "K8": "K8", "K9": "K9", "K10": "K10"},
+}
+
+
+def phase_jobs(text_elf, g4_sha):
+    """``<codec> e -b8 -l512 -j`` and ``d -j`` (crz, crx, crp, crf) on the
+    -g4 phase's input (four distinct full-width blocks), over two meshes:
+    the mesh of every CUDA device (one card here: a mesh of one, a pool
+    thread coding each block), and a mesh of two entries of ``cuda:0``
+    (``jobs_mesh`` patched for the run: two pool threads launching at once
+    on the one card, as a two-card run's threads would, each under
+    ``torch.cuda.device``).  Mode F goes around the mesh.  Each archive
+    must equal ``-g1``'s (the -g4 phase's SHA-256) and each decode be
+    bit-exact; walls, kernel ms, idle share and peak of the one card.  The
+    launch counts are set to 0 just before each encode and read after its
+    decode; fails unless every kernel of the path was launched, unless each
+    kernel recorded an event pair a launch, and (crz, crx, crp: a block a
+    shard on either mesh) unless the two threads' counts equal the mesh of
+    one's, so no count was lost between threads.  Returns {row of the
+    kernels line: launches}."""
+    import numpy as np
+    import torch
+
+    from comprox_tpu_torch.cli import main as cli
+    from comprox_tpu_torch.codec import block as blk
+    from comprox_tpu_torch.parallel import mesh as pmesh
+
+    corpus = _group_corpus(text_elf)
+    WORK.mkdir(parents=True, exist_ok=True)
+    src = WORK / "corpus_j.bin"
+    corpus.tofile(src)
+    n = corpus.size
+    meshes = {"-j": cli.jobs_mesh(-1, "cuda"),
+              "two threads": pmesh.make_mesh(devices=["cuda:0"] * 2)}
+    print(f"input: {n} B, 4 blocks of S=512, T=16384 (the -g4 phase's); -j: "
+          f"{meshes['-j']}, {meshes['-j'].size} device(s); two threads: "
+          f"{meshes['two threads']}: one card, so no multi-card figure")
+    rows: dict = {}
+    for codec in ("crz", "crx", "crp", "crf"):
+        counts = {}
+        for label, mesh in meshes.items():
+            arc, dst = WORK / f"j.{codec}", WORK / "j.out"
+            blk.reset_launch_counts()
+            res = {}
+            with _patched(cli, jobs_mesh=lambda jobs, device, mesh=mesh: mesh):
+                for side, argv in (("encode", ["e", str(src), str(arc), "-b8", "-l512"]),
+                                   ("decode", ["d", str(arc), str(dst)])):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    before = sum(blk.kernel_ms().values())
+                    t0 = time.perf_counter()
+                    cli.run(codec, argv + ["-q", "-j"], device="cuda")
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    res[side] = (wall, sum(blk.kernel_ms().values()) - before,
+                                 torch.cuda.max_memory_allocated())
+            launches = counts[label] = dict(blk.LAUNCHES)
+            got = arc.read_bytes()
+            if sha256(got) != g4_sha[codec]:
+                raise AssertionError(f"{codec} -j ({label}): the archive differs from -g1's")
+            if not np.array_equal(np.fromfile(dst, np.uint8), corpus):
+                raise AssertionError(f"{codec} -j ({label}): the round trip is not bit-exact")
+            enc_k, dec_k = PIPE_NEEDED[codec]
+            for k in enc_k + dec_k:
+                if launches[k] < 1:
+                    raise AssertionError(f"{codec} -j ({label}): {k} was not launched")
+            for k, v in launches.items():
+                if len(blk._EVENTS[k]) != v:
+                    raise AssertionError(f"{codec} -j ({label}): {k} launched {v} times, "
+                                         f"{len(blk._EVENTS[k])} event pairs")
+            print(f"{codec} e -b8 -l512 -j ({label}, mesh of {mesh.size}) == -g1: "
+                  f"{len(got)} B, sha256 {sha256(got)}; d -j bit-exact")
+            for side, (wall, ms, peak) in res.items():
+                print(f"{codec} -j ({label}) {side} (one card): {n / wall / 1e6:.3f} MB/s "
+                      f"({wall:.3f} s wall), kernels {ms:.3f} ms, idle share "
+                      f"{1 - ms / 1e3 / wall:.3f}, max_memory_allocated "
+                      f"{peak / 2**30:.3f} GiB")
+            print(f"{codec} -j ({label}) launches: "
+                  + json.dumps({k: v for k, v in launches.items() if v}))
+            for k, row in JOBS_ROWS[codec].items():
+                rows[row] = rows.get(row, 0) + launches[k]
+            arc.unlink()
+            dst.unlink()
+        if codec != "crf" and counts["two threads"] != counts["-j"]:
+            raise AssertionError(f"{codec}: the two threads' launch counts "
+                                 f"{counts['two threads']} differ from one thread's "
+                                 f"{counts['-j']}")
+    src.unlink()
+    return rows
+
+
+DIST_TIMEOUT_S = 400  # a rank's limit (its start, the build's load, four blocks)
+
+
+def phase_distributed(text_elf):
+    """Two ranks of ``python -m comprox_tpu_torch.parallel.dryrun`` (world 2,
+    gloo over 127.0.0.1, both on ``cuda:0``: the one card), each with its
+    own timeout: mode R at S=512 and 8 MiB blocks on the -g4 phase's input
+    (four blocks, two a rank).  Both ranks must return the file-ordered
+    payloads, whose SHA-256 equals that of one process's
+    ``encode_blocks_list`` (a block at a time), and decode the whole input
+    bit-exact.  Prints each rank's walls and peak card memory; no speed-up
+    figure (the two ranks share one card).  Either rank's failure or
+    timeout fails the phase; both processes are ended."""
+    import dataclasses
+    import socket
+
+    import torch
+
+    from comprox_tpu_torch.cli import main as cli
+    from comprox_tpu_torch.parallel import mesh as pmesh
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    corpus = _group_corpus(text_elf)
+    p = cli.make_params("crz", {"lanes": 512, "block_mb": 8}).block
+    WORK.mkdir(parents=True, exist_ok=True)
+    src, out = WORK / "corpus_d.bin", WORK / "dist"
+    corpus.tofile(src)
+    out.mkdir(exist_ok=True)
+    for old in out.glob("rank*.json"):
+        old.unlink()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logs = [open(out / f"rank{r}.log", "w") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "comprox_tpu_torch.parallel.dryrun", "--rank", str(r),
+         "--world", "2", "--port", str(port), "--device", "cuda:0", "--input", str(src),
+         "--out", str(out), "--params", json.dumps(dataclasses.asdict(p))],
+        cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        for r, proc in enumerate(procs):
+            try:
+                proc.wait(timeout=max(1.0, DIST_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"rank {r} did not end within {DIST_TIMEOUT_S} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    cap = p.capacity
+    blocks = [corpus[b * cap : (b + 1) * cap] for b in range(-(-corpus.size // cap))]
+    t1 = time.perf_counter()
+    want = sha256(b"".join(pmesh.encode_blocks_list(blocks, p, group=1, device="cuda")))
+    t_one = time.perf_counter() - t1
+    for r, proc in enumerate(procs):
+        path = out / f"rank{r}.json"
+        if not path.exists():
+            raise AssertionError(f"rank {r} (rc {proc.returncode}) wrote no record:\n"
+                                 + (out / f"rank{r}.log").read_text()[-3000:])
+        rec = json.loads(path.read_text())
+        if proc.returncode != 0 or rec["error"] is not None or not rec.get("decoded_ok"):
+            raise AssertionError(f"rank {r} failed (rc {proc.returncode}): {rec}")
+        if rec["payloads_sha256"] != want:
+            raise AssertionError(f"rank {r}: the payloads differ from one process's")
+        print(f"rank {r} of 2 on {rec['device']}: {rec['blocks']} blocks, payloads sha256 "
+              f"== one process's encode_blocks_list ({want}); decoded the whole input "
+              f"bit-exact; encode {rec['encode_s']:.3f} s, decode {rec['decode_s']:.3f} s, "
+              f"max_memory_allocated {rec['peak_bytes'] / 2**30:.3f} GiB")
+    print(f"two ranks on one card, {corpus.size} B: {wall:.3f} s from start to end "
+          f"(processes' start-up included); one process's encode_blocks_list "
+          f"{t_one:.3f} s (no speed-up figure: the ranks share the card)")
+    src.unlink()
+
+
+def phase_dryrun():
+    """``dryrun_multichip(torch.cuda.device_count())`` at the JAX package's
+    geometry (S=512, 1 MiB blocks, 2^18 x 64 buckets, 2^22 o3 entries): a
+    block a device, the tail uneven, round trip bit-exact, payloads equal
+    to one device's a block at a time."""
+    import torch
+
+    from comprox_tpu_torch.codec import block as blk
+    from comprox_tpu_torch.parallel import dryrun
+
+    blk.reset_launch_counts()
+    t0 = time.perf_counter()
+    payloads = dryrun.dryrun_multichip(torch.cuda.device_count())
+    print(f"dryrun: {len(payloads)} payload(s), {time.perf_counter() - t0:.3f} s; "
+          f"launches " + json.dumps({k: v for k, v in blk.LAUNCHES.items() if v}))
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     ph = Phases()
@@ -2639,6 +2947,16 @@ def main() -> int:
         launches[f"{name} (blocks)"] = grouped["crz"][name] + grouped["crp"][name]
     ph.run("crf host split", phase_fast_host_split, corpora[FAST_ARCHIVE])
     ph.run("payload pack", phase_payload_pack, corpora[MAIN_ARCHIVE], corpora[X_ARCHIVE])
+    fscan, fxscan = ph.run("full width, crf under mode X's finder", phase_fscan, corpora,
+                           corpora[CHAIN_ARCHIVE])
+    for name in ("K4x", "SORT", "K11", "K8", "K9", "K10"):
+        launches[name] += fscan[name] + fxscan[name]
+    launches["K6 (X)"] += fscan["K6"] + fxscan["K6"]
+    launches["KSx"] += fxscan["KSx"]
+    for row, n in ph.run("-j", phase_jobs, corpora[CHAIN_ARCHIVE], g4_sha).items():
+        launches[row] += n
+    ph.run("distributed, two ranks on one card", phase_distributed, corpora[CHAIN_ARCHIVE])
+    ph.run("dryrun", phase_dryrun)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "comprox_tpu")]
     if bad:

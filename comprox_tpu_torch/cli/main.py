@@ -7,17 +7,18 @@ package writes for the same command line.  Supported: ``crz e|d`` (mode
 R: ROLZ + PPM + adaptive rANS), ``crf e|d`` (mode F: the fast profile,
 LZ77 tokens + static rANS), ``crx e|d`` (mode X: LZ77 distances + PPM +
 adaptive rANS) and ``crp e|d`` (mode P: LZP + PPM + adaptive rANS) with
-``-b -l -F -p -q -m -c -C -g``; encode uses the flexible parse unless ``-f0``
+``-b -l -F -p -q -m -c -C -g -j``; encode uses the flexible parse unless ``-f0``
 asks for the greedy one (``crp`` has no parse: ``-f0`` and ``-m`` are
 accepted and change nothing).  ``-c`` (crz, crx, crp) carries the adaptive
 models across blocks; ``-C`` (crz, flexible parse) also the bucket table
 and the previous block's bytes, so a match may reach into the block
 before.  Decode reads the chain flags from the archive.  ``-g<n>`` codes
 n unchained blocks at a time on the card (one launch a pass for the
-group; the same bytes as ``-g1``).
-
-Not yet ported, refused with an error (the ROADMAP.md item in brackets):
-``-j`` [15b].  Nothing switches silently to another format.
+group; the same bytes as ``-g1``).  ``-j`` codes unchained blocks
+data-parallel over every CUDA device, ``-j<n>`` over the first
+min(n, device count), a block a device (:mod:`comprox_tpu_torch.parallel.
+mesh`; the same bytes as ``-g1``); chain mode refuses it.  Nothing switches
+silently to another format.
 
     python -m comprox_tpu_torch.cli.main crz e in out -b8 -l512
     python -m comprox_tpu_torch.cli.main crz d out in.copy
@@ -26,6 +27,7 @@ Not yet ported, refused with an error (the ROADMAP.md item in brackets):
     python -m comprox_tpu_torch.cli.main crx e in out -b8 -l512 -c
     python -m comprox_tpu_torch.cli.main crp e in out -b8 -l512
     python -m comprox_tpu_torch.cli.main crz e in out -b8 -l512 -g4
+    python -m comprox_tpu_torch.cli.main crz e in out -b8 -l512 -j
 
 The command line runs on the first CUDA device and fails without one; the
 library call :func:`run` takes the device explicitly.  With no codec name
@@ -58,6 +60,7 @@ switches:
   -F     enable content filters
   -p     dictionary precompress only
   -q     quiet mode
+  -j[n]  code blocks data-parallel over n (default: all) devices
   -g<n>  batch n blocks per launch (block batching on one card: one
          launch a pass codes n blocks, a CTA or cluster a block)
   -m<n>  match search depth (default 40 -> top-4 bucket candidates)
@@ -69,10 +72,6 @@ switches:
 
 CODEC_BYTE = {"crp": b"P", "crx": b"X", "crz": b"R", "crf": b"F"}
 
-_NOT_PORTED = {
-    "-j": "device parallelism (-j) is not yet ported (ROADMAP.md item 15b)",
-}
-
 
 def parse_args(argv):
     prog = argv[0] if argv else "crp"
@@ -80,10 +79,8 @@ def parse_args(argv):
     switches = [a for a in argv[1:] if a != "-" and a.startswith("-")]
     opts = {"block_mb": 16, "lanes": 256, "filters": False, "quiet": False,
             "precomp": False, "window": 250, "depth": 40, "flexible": True,
-            "chain": False, "chain_match": False, "group": 1}
+            "chain": False, "chain_match": False, "group": 1, "jobs": 0}
     for s in switches:
-        if s[:2] in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[s[:2]])
         if s == "-c":
             opts["chain"] = True
         elif s == "-C":
@@ -100,6 +97,8 @@ def parse_args(argv):
             opts["quiet"] = True
         elif s.startswith("-g"):
             opts["group"] = max(1, int(s[2:] or "1"))
+        elif s.startswith("-j"):  # -j: every device (-1), -j<n>: n of them
+            opts["jobs"] = int(s[2:] or "0") or -1
         elif s.startswith("-f"):
             opts["flexible"] = s[2:] != "0"
         elif s.startswith("-m"):
@@ -146,6 +145,22 @@ def log(quiet, msg):
         print(msg, file=sys.stderr)
 
 
+def jobs_mesh(jobs: int, device):
+    """The mesh of ``-j[n]`` (``jobs``: -1 for every device, else n) for a
+    run on ``device``, or None without ``-j``: on a card the first
+    min(n, device count) CUDA devices; on the CPU the one device."""
+    if not jobs:
+        return None
+    import torch
+
+    from comprox_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.device(device).type != "cuda":
+        return make_mesh(devices=[device])
+    nd = torch.cuda.device_count()
+    return make_mesh(None if jobs < 0 else min(jobs, nd))
+
+
 def run(codec_name: str, argv, device) -> int:
     """Run one ``crz``, ``crf``, ``crx`` or ``crp`` ``e|d`` command line on
     ``device``."""
@@ -157,6 +172,7 @@ def run(codec_name: str, argv, device) -> int:
         raise RuntimeError("comprox_tpu_torch runs on a CUDA device; none found")
     quiet = opts["quiet"]
     meter = Progress(enabled=not quiet)
+    mesh = jobs_mesh(opts["jobs"], device)
     t0 = time.time()
     if mode == "e":
         cp = make_params(codec_name, opts)
@@ -169,7 +185,7 @@ def run(codec_name: str, argv, device) -> int:
             csize = encode_stream(
                 data, f, cp, device, filters=opts["filters"],
                 precomp_only=opts["precomp"], chain=opts["chain"],
-                group=opts["group"], progress=meter.update,
+                group=opts["group"], mesh=mesh, progress=meter.update,
             )
         finally:
             if outp != "-":
@@ -187,7 +203,7 @@ def run(codec_name: str, argv, device) -> int:
         f = open(inp, "rb") if inp != "-" else io.BytesIO(sys.stdin.buffer.read())
         g = sys.stdout.buffer if outp == "-" else open(outp, "wb")
         try:
-            total = decode_stream(f, g, device, group=opts["group"])
+            total = decode_stream(f, g, device, group=opts["group"], mesh=mesh)
         finally:
             if inp != "-":
                 f.close()

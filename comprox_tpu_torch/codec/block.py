@@ -68,6 +68,7 @@ from __future__ import annotations
 
 import ctypes
 import os as _os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -216,6 +217,31 @@ def x_prices() -> tuple:
     return (_P_LIT_X, _P_XM, _P_XK, _P_XREP)
 
 
+def check_x_finder() -> None:
+    """Raise for a knob of mode X's finder and parse the port does not
+    have (mode X's, and mode F's under ``CPX_F_FINDER=scan``)."""
+    if _os.environ.get("CPX_X_CTXCAND", "0") == "1":
+        raise NotImplementedError(
+            "CPX_X_CTXCAND=1 (context-keyed candidates in mode X) is not "
+            "ported (ROADMAP.md item 17)"
+        )
+    n_c, probe = x_finder_knobs()
+    if not 1 <= n_c <= MAX_CANDS:
+        raise NotImplementedError(
+            f"CPX_X_CANDS={n_c}: the port keeps 1..{MAX_CANDS} candidates"
+        )
+    if not 0 <= probe <= 64:
+        raise NotImplementedError(
+            f"CPX_X_PROBE={probe}: the port probes 0..64 chain entries"
+        )
+    if min(_P_LIT_X, _P_XM, _P_XK, _P_XREP) < 0 or max(
+            _P_LIT_X, _P_XM + 24 * _P_XK, _P_XREP) >= 1 << 20:
+        raise NotImplementedError(
+            "CPX_PARSE_LIT_X/XM/XK/XREP must be non-negative prices "
+            "below 2^20"
+        )
+
+
 def check_supported(p: BlockParams) -> None:
     """Raise for a block configuration or knob the port does not have."""
     ppm.check_knobs()
@@ -237,26 +263,7 @@ def check_supported(p: BlockParams) -> None:
                 f"CPX_SSE_X={ppm.SSE_X} is not ported to comprox_tpu_torch "
                 "(mode X codes with its hit APM on); see ROADMAP.md item 17"
             )
-        if _os.environ.get("CPX_X_CTXCAND", "0") == "1":
-            raise NotImplementedError(
-                "CPX_X_CTXCAND=1 (context-keyed candidates in mode X) is not "
-                "ported (ROADMAP.md item 17)"
-            )
-        n_c, probe = x_finder_knobs()
-        if not 1 <= n_c <= MAX_CANDS:
-            raise NotImplementedError(
-                f"CPX_X_CANDS={n_c}: the port keeps 1..{MAX_CANDS} candidates"
-            )
-        if not 0 <= probe <= 64:
-            raise NotImplementedError(
-                f"CPX_X_PROBE={probe}: the port probes 0..64 chain entries"
-            )
-        if min(_P_LIT_X, _P_XM, _P_XK, _P_XREP) < 0 or max(
-                _P_LIT_X, _P_XM + 24 * _P_XK, _P_XREP) >= 1 << 20:
-            raise NotImplementedError(
-                "CPX_PARSE_LIT_X/XM/XK/XREP must be non-negative prices "
-                "below 2^20"
-            )
+        check_x_finder()
     if p.short_depth:
         raise NotImplementedError(
             "short_depth > 0 is not ported (ROADMAP.md item 17)"
@@ -1593,28 +1600,46 @@ LAUNCHES = {"KS": 0, "K4": 0, "K5": 0, "K6": 0, "K2": 0, "K3": 0, "K1": 0,
             "KSx": 0, "K13c": 0, "K13e": 0, "K13d": 0, "SORT": 0,
             "K3p": 0, "KCR": 0, "K5ch": 0, "K1ch": 0, "K3b": 0}
 _EVENTS: dict = {k: [] for k in LAUNCHES}
+# the counts and event lists are shared by the host threads of a mesh
+# (parallel/mesh.py), each launching on its own device; reentrant, since a
+# finder's launch (K4, K4x, K7) holds it around its sort's (SORT)
+_LAUNCH_LOCK = threading.RLock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-        _EVENTS[k].clear()
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+            _EVENTS[k].clear()
 
 
 def kernel_ms() -> dict:
-    """Device milliseconds per kernel since the last reset (synchronises)."""
+    """Device milliseconds per kernel since the last reset (synchronises the
+    current device, and waits for each launch's end event on whichever
+    device of a mesh it was recorded)."""
     torch.cuda.synchronize()
-    return {k: sum(a.elapsed_time(b) for a, b in ev) for k, ev in _EVENTS.items()}
+    with _LAUNCH_LOCK:
+        events = {k: list(ev) for k, ev in _EVENTS.items()}
+    for ev in events.values():
+        for _, end in ev:
+            end.synchronize()
+    return {k: sum(a.elapsed_time(b) for a, b in ev) for k, ev in events.items()}
 
 
 def _launch(name: str, fn, *args) -> None:
+    """Launch ``fn(*args)`` on the current device's current stream between
+    two timing events, and count it.  The lock spans the events and the
+    launch, so threads that share a stream (a mesh's entries on one card)
+    put no launch of theirs between another's events; the entries only
+    enqueue, so it is held for host microseconds."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    LAUNCHES[name] += 1
-    err = fn(*args)
-    end.record()
-    _EVENTS[name].append((start, end))
+    with _LAUNCH_LOCK:
+        start.record()
+        LAUNCHES[name] += 1
+        err = fn(*args)
+        end.record()
+        _EVENTS[name].append((start, end))
     build.check(err, name)
 
 
@@ -2635,22 +2660,7 @@ def encode_passes(p: BlockParams, inp, n: int, tables0=None, ment0=None,
         dec = None
         lzp = _init_lzp(p, dev, G) if p.match else None
     elif p.mode == "X":
-        dec = torch.zeros(g + (2, p.steps, p.lanes), dtype=_i32, device=dev)
-        if p.match:
-            if _ENV["CPX_X_FINDER"] == "scan":
-                cands = search_scan(p, inp, n, _init_xsearch(p, dev, G))
-            else:
-                cands = sort_candidates(p, inp, n, content=True)
-            if p.flexible:
-                n_c = cands.shape[ax] // 2
-                first = parse_scan(p, n, cands, x_prices(), n_c)
-                rep = rep_scan(p, inp, n, first)
-                dec = parse_scan(p, n, cands, x_prices(), n_c, rep).narrow(
-                    ax, 0, 2).contiguous()
-            elif G is None:
-                dec = torch.stack(_greedy_decisions_dist(p, cands))
-            else:
-                dec = each(lambda b: torch.stack(_greedy_decisions_dist(p, cands[b])))
+        dec = x_decisions(p, inp, n)
     elif _flexible_sort_finder(p):
         props = sort_candidates(p, inp, n)
         if p.chain_match:
@@ -2678,6 +2688,35 @@ def encode_passes(p: BlockParams, inp, n: int, tables0=None, ment0=None,
     states, emit, words = rans_scan(p, ev)
     out = (states, pack_emit(p, emit), words, ev, tables)
     return out + (ment,) if p.chain_match else out
+
+
+def x_decisions(p: BlockParams, inp, n):
+    """Mode X's parse decisions ``dec [2, T, S]`` int32 (take, src) of one
+    [S, T] block, or ``[G, 2, T, S]`` on the block axis
+    (block.py::_search_and_parse, its mode-X arms 1602-1655): the
+    candidates of K4x (``CPX_X_FINDER=sort``, at CPX_X_CANDS and
+    CPX_X_PROBE) or of KSx (``scan``); flexible: K6 at mode X's prices, K11
+    on that parse, K6 again with the repeat pair; greedy: the longest
+    candidate.  Mode F under ``CPX_F_FINDER=scan`` calls it with its
+    parameters in mode X (codec/fast.py)."""
+    dev = inp.device
+    G = _blocks(inp, 2)
+    g, ax = _lead(G), 0 if G is None else 1  # ax: the grids' axis
+    if not p.match:
+        return torch.zeros(g + (2, p.steps, p.lanes), dtype=_i32, device=dev)
+    if _ENV["CPX_X_FINDER"] == "scan":
+        cands = search_scan(p, inp, n, _init_xsearch(p, dev, G))
+    else:
+        cands = sort_candidates(p, inp, n, content=True)
+    if p.flexible:
+        n_c = cands.shape[ax] // 2
+        first = parse_scan(p, n, cands, x_prices(), n_c)
+        rep = rep_scan(p, inp, n, first)
+        return parse_scan(p, n, cands, x_prices(), n_c, rep).narrow(ax, 0, 2).contiguous()
+    if G is None:
+        return torch.stack(_greedy_decisions_dist(p, cands))
+    return _per_block(lambda b, _: torch.stack(_greedy_decisions_dist(p, cands[b])),
+                      [0] * G)
 
 
 def init_tables_blocks(p: BlockParams, device, G=None) -> dict:

@@ -31,6 +31,10 @@ mesh`; mode F, which has no block axis, through its one-in-flight loop),
 with the same bytes as one at a time.  Decode prescans the block headers
 and decodes group g + 1 on a worker thread while the caller writes group
 g.  Chained archives decode one block at a time whatever ``group`` says.
+A ``mesh`` (the CLI's ``-j``) sets the group to ``mesh.size`` blocks, one
+a device, and overrides ``group``; mode F goes around it (encode
+``group=mesh.size`` on ``device``, decode one block at a time), and chain
+mode refuses it.
 
 ``encode_fn`` and ``decode_fn`` (a block's bytes -> its payload; a
 payload and its n -> the bytes) replace the pipelined codec, as in the
@@ -213,14 +217,16 @@ def encode_stream(
     chain: bool = False,
     group: int = 1,
     encode_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> int:
     """Encode ``src`` into ``dst`` on ``device``; returns the archive size.
 
     The same bytes as ``comprox_tpu.codec.container.encode_stream`` with
-    the same arguments.  One block at a time (``group`` 1, no
+    the same arguments.  One block at a time (``group`` 1, no ``mesh``, no
     ``encode_fn``) runs the pipelined schedule, one block in flight;
-    ``group`` > 1 codes that many blocks a launch; ``encode_fn`` codes each
-    block by itself.  ``precomp_only`` runs just the dictionary stage and
+    ``group`` > 1 codes that many blocks a launch; ``mesh`` codes groups of
+    ``mesh.size`` blocks, one a device (mode F: ``mesh.size`` at a time on
+    ``device``); ``encode_fn`` codes each block by itself.  ``precomp_only`` runs just the dictionary stage and
     stores the substituted bytes.  ``chain`` carries the PPM models across
     blocks (under the block parameters' ``chain_match`` also the bucket
     table and the previous block's bytes); a block stored raw leaves the
@@ -232,7 +238,7 @@ def encode_stream(
         filters = False  # stored blocks carry no filter-span metadata
         chain = False  # nothing is modelled
     if chain:
-        if group > 1:
+        if mesh is not None or group > 1:
             raise ValueError(
                 "chain mode carries model state across blocks — "
                 "incompatible with mesh/group block parallelism"
@@ -318,9 +324,10 @@ def encode_stream(
                 progress(done, total)
         return advanced
 
-    group_n = max(int(group), 1)
+    group_n = mesh.size if mesh is not None else max(int(group), 1)
     # one block in flight: block i+1's start comes before block i's finish
-    pipelined = not precomp_only and not chain and encode_fn is None and group_n == 1
+    pipelined = (not precomp_only and not chain and encode_fn is None
+                 and mesh is None and group_n == 1)
     if pipelined:
         enc_start, enc_finish = _block_encoder_async(cp.block, device)
     pending = None  # (staged, [handles]) awaiting finish
@@ -379,8 +386,8 @@ def encode_stream(
             elif cp.block.mode == "F":  # no block axis: one block in flight
                 payloads = encode_blocks_fast(blks, cp.block, group_n, device)
             else:
-                payloads = encode_blocks_list(blks, cp.block, group=group_n,
-                                              device=device)
+                payloads = encode_blocks_list(blks, cp.block, mesh=mesh,
+                                              group=group_n, device=device)
             write_group(staged, payloads)
         if pending is not None:  # drain the pipelined tail block
             write_group(pending[0], [enc_finish(h) for h in pending[1]])
@@ -400,15 +407,18 @@ def decode_stream(
     progress: Optional[Callable[[int, int], None]] = None,
     group: int = 1,
     decode_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> int:
     """Decode a codec-R, codec-F, codec-X or codec-P archive, unchained or
     chained, on ``device``; returns the raw byte count.  A stored block
     never touches the chain state.  The blocks decode with one in flight
     (chained ones too: the next block starts from the state1 of the one
-    before).  With ``group`` > 1 and no ``decode_fn`` an unchained
-    archive's coded blocks decode ``group`` at a time (a prescan of the
-    block headers, then :func:`_make_mesh_decode_fn`); ``decode_fn``
-    decodes each block by itself; a chained archive ignores both."""
+    before).  With ``group`` > 1 or a ``mesh`` and no ``decode_fn`` an
+    unchained archive's coded blocks decode ``group`` (``mesh.size``, one a
+    device) at a time (a prescan of the block headers, then
+    :func:`_make_mesh_decode_fn`); a mode-F archive under a mesh decodes
+    one block at a time, as in the JAX package; ``decode_fn`` decodes each
+    block by itself; a chained archive ignores all three."""
     cp, flags = read_header(src)
     chained = bool(flags & F_CHAIN)
     if chained and cp.block.mode == "F":
@@ -426,11 +436,12 @@ def decode_stream(
             raise ValueError("corrupt archive: dictionary blob CRC mismatch")
         wd = dic.unpack_dict(blob)
     close = None
-    if group > 1 and decode_fn is None and not chained:
+    if ((mesh is not None or group > 1) and decode_fn is None and not chained
+            and (cp.block.mode != "F" or mesh is None)):
         # the prescan starts at the first block header (after the blob)
-        mesh = _make_mesh_decode_fn(src, cp, group, device)
-        if mesh is not None:
-            decode_fn, close = mesh
+        batched = _make_mesh_decode_fn(src, cp, mesh, group, device)
+        if batched is not None:
+            decode_fn, close = batched
     if chained:
         decode_fn = None  # the carried state forces one block at a time
     dec_start = dec_finish = None
@@ -524,9 +535,11 @@ def decode_stream(
     return total
 
 
-def _make_mesh_decode_fn(src: BinaryIO, cp: ContainerParams, group: int, device):
+def _make_mesh_decode_fn(src: BinaryIO, cp: ContainerParams, mesh, group: int,
+                         device):
     """Prescan the rest of the archive (``src`` seeks back to where it
-    was) and decode its coded blocks ``group`` at a time as the caller
+    was) and decode its coded blocks ``group`` at a time (over ``mesh``:
+    ``mesh.size``, one a device) as the caller
     asks for them, group g + 1 on a worker thread while the caller
     post-processes group g; returns ``(decode_fn, close)``: decode_fn serves
     the blocks in order, close ends the worker, whether or not every block
@@ -558,12 +571,14 @@ def _make_mesh_decode_fn(src: BinaryIO, cp: ContainerParams, group: int, device)
     src.seek(start)
     if not jobs:
         return None
+    group = mesh.size if mesh is not None else max(group, 1)
 
     def dec(grp):
         payloads, ns = [p for p, _ in grp], [n for _, n in grp]
         if cp.block.mode == "F":  # no block axis: one block in flight
             return decode_blocks_fast(payloads, ns, cp.block, group, device)
-        return decode_blocks(payloads, ns, cp.block, group=group, device=device)
+        return decode_blocks(payloads, ns, cp.block, mesh=mesh, group=group,
+                             device=device)
 
     pool = ThreadPoolExecutor(max_workers=1)
 

@@ -12,7 +12,11 @@ order, one (sym, xtr, bits) triple per token) and the static rANS encoder
 the tokens' events, whose flagged words K3b compacts into the stream).
 Decode is the static rANS decoder (K10: slot table, the forward loop, one
 u32 per token with the repeat distances resolved); the LZ copies run on
-the host (``utils/native.f2_execute``), then the content CRC.
+the host (``utils/native.f2_execute``), then the content CRC.  Under
+``CPX_F_FINDER=scan`` (the JAX package's ratio-sweep route) the decisions
+are mode X's instead (``block.x_decisions``: K4x, or KSx under
+``CPX_X_FINDER=scan``; K6 at mode X's prices, K11, K6 with the repeat
+pair), under mode X's knobs; K8, K9 and K10 as on the default route.
 
 Alphabet: sym = literal byte (0..255) | 256 + dist_bucket * 13 + len_bucket
 (distance buckets 0..23 = floor(log2 d), 24 = the previous distance; length
@@ -30,6 +34,7 @@ one for the other.
 
 from __future__ import annotations
 
+import dataclasses
 import os as _os
 import zlib
 
@@ -59,7 +64,10 @@ _i32 = torch.int32
 _i64 = torch.int64
 
 # Encoder knobs, read at import like the JAX package's (fast.py::_F_FINDER,
-# _F_CANDS, _F_PRICES, _EXTW, _F_DIAG_TAIL, CPX_F_ENC_WIN).
+# _F_CANDS, _F_PRICES, _EXTW, _F_DIAG_TAIL, CPX_F_ENC_WIN).  The finder:
+# 'sort' (K7 and K6 at this profile's prices) or 'scan' (mode X's finder
+# and parse, under mode X's knobs; the JAX package's ratio-sweep route)
+_F_FINDERS = ("sort", "scan")
 _F_FINDER = _os.environ.get("CPX_F_FINDER", "sort")
 _F_CANDS = int(_os.environ.get("CPX_F_CANDS", "2"))  # candidates per position
 # parse prices in fifths of a bit: literal, match, per distance bucket (the
@@ -94,17 +102,20 @@ def check_supported(p: BlockParams) -> None:
     blk.check_supported(p)
     if p.mode != "F":
         raise ValueError(f"the fast profile codes mode F blocks, not {p.mode!r}")
-    if _F_FINDER != "sort":
+    if _F_FINDER not in _F_FINDERS:
         raise NotImplementedError(
-            f"CPX_F_FINDER={_F_FINDER!r} is not ported to comprox_tpu_torch "
-            "(ROADMAP.md item 16); only the default 'sort' finder is"
+            f"CPX_F_FINDER={_F_FINDER!r} is not a finder of comprox_tpu_torch "
+            f"(only {' or '.join(repr(f) for f in _F_FINDERS)})"
         )
     if _F_ENC_WIN:
         raise NotImplementedError(
             f"CPX_F_ENC_WIN={_F_ENC_WIN}: the narrow stream-write window is a "
             "TPU cost strategy that never changes the bytes; the port has "
-            "only the default 0 (ROADMAP.md item 16)"
+            "only the default 0 (ROADMAP.md item 17)"
         )
+    if _F_FINDER == "scan":  # mode X's finder and parse: its knobs, not F's
+        blk.check_x_finder()
+        return
     if not 1 <= _F_CANDS <= MAX_CANDS:
         raise NotImplementedError(
             f"CPX_F_CANDS={_F_CANDS}: the port keeps 1..{MAX_CANDS} candidates"
@@ -256,9 +267,20 @@ def f2_find(p: BlockParams, inp, n: int):
     return out
 
 
+def _search_params(p: BlockParams) -> BlockParams:
+    """Mode F's parameters in mode X, for mode X's finder and parse
+    (fast.py::_search_params)."""
+    return dataclasses.replace(p, mode="X")
+
+
 def _fast_find_matches(p: BlockParams, inp, n: int):
     """Candidates + parse -> the decision grids ``dec [>= 2, T, S]`` int32
-    (take, src) (fast.py::_fast_find_matches)."""
+    (take, src) (fast.py::_fast_find_matches).  Under ``CPX_F_FINDER=scan``
+    they are mode X's decisions on the block (``block.x_decisions``: K4x or,
+    under ``CPX_X_FINDER=scan``, KSx; K6 and K11 at mode X's prices), K7 and
+    this profile's prices play no part."""
+    if _F_FINDER == "scan":
+        return blk.x_decisions(_search_params(p), inp, n)
     cands = f2_find(p, inp, n)
     if p.flexible:
         return blk.parse_scan(p, n, cands, prices=_F_PRICES, n_c=_F_CANDS)

@@ -27,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -39,6 +40,7 @@ NVCC_TIMEOUT_S = 600  # a whole build takes well under a minute
 
 # (extra nvcc flags, sources or None for all) -> loaded library
 _libs: dict = {}
+_LIBS_LOCK = threading.Lock()  # a mesh's host threads may ask at once
 _VARIANT: tuple = ((), None)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -236,16 +238,19 @@ def _load(defines, only) -> ctypes.CDLL:
 def lib():
     """The loaded kernel library (built on first call), or inside
     :func:`variant` the variant's."""
-    if _VARIANT not in _libs:
-        defines, only = _VARIANT
-        handle = _load(defines, only)
-        if only is not None:
-            main = ((), None)
-            if main not in _libs:
-                _libs[main] = _load(*main)
-            handle = _Overlay(handle, _libs[main])
-        _libs[_VARIANT] = handle
-    return _libs[_VARIANT]
+    key = _VARIANT
+    if key not in _libs:
+        with _LIBS_LOCK:
+            if key not in _libs:
+                defines, only = key
+                handle = _load(defines, only)
+                if only is not None:
+                    main = ((), None)
+                    if main not in _libs:
+                        _libs[main] = _load(*main)
+                    handle = _Overlay(handle, _libs[main])
+                _libs[key] = handle
+    return _libs[key]
 
 
 def check(err: int, name: str) -> None:

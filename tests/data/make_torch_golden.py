@@ -20,6 +20,10 @@ on the same corpus.  With ``--codec crx`` it writes ``crx_f0_...`` and
 ``--finder scan`` the candidates come from the per-step search scan
 (``CPX_X_FINDER=scan``, set here before the JAX package is imported) and
 the archives are named ``crx_scan_f0_...`` and ``crx_scan_flex_...``.  With
+``--codec crf``, ``--finder scan`` sets ``CPX_F_FINDER=scan`` (mode F's
+decisions from mode X's finder and parse, the X finder ``sort``; archives
+``crf_scan_...``) and ``--finder xscan`` sets ``CPX_X_FINDER=scan`` as
+well (archives ``crf_xscan_...``).  With
 ``--codec crp`` it writes ``crp_<mb>MiB_S512.cpx`` (the LZP codec, mode P,
 which has no parse: one archive per size).
 
@@ -67,6 +71,8 @@ Usage::
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --mb 8 --parse flex
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --finder scan --mb 1 --parse flex
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crp --mb 1 --mb 8
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crf --finder scan --mb 1 --mb 8
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crf --finder xscan --mb 1
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crf --corpus words --kib 32 --lanes 2048 --steps 8
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --codec crx --corpus elf --filters --kib 256 --parse flex
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py --chain C --mb 8 --steps 4096 --parse flex
@@ -166,8 +172,9 @@ def main() -> int:
     ap.add_argument("--codec", choices=("crz", "crf", "crx", "crp"),
                     default="crz",
                     help="crf and crp write one archive per size")
-    ap.add_argument("--finder", choices=("sort", "scan"), default="sort",
-                    help="crx only: the candidate source (CPX_X_FINDER)")
+    ap.add_argument("--finder", choices=("sort", "scan", "xscan"), default="sort",
+                    help="crx: the candidate source (CPX_X_FINDER); crf: scan "
+                         "sets CPX_F_FINDER=scan, xscan also CPX_X_FINDER=scan")
     ap.add_argument("--corpus", choices=("text", "elf", "words", "textelf"),
                     default="text",
                     help="the committed text corpus, the x86-64 ELF build, "
@@ -184,10 +191,18 @@ def main() -> int:
     args = ap.parse_args()
     sizes = [mb << 20 for mb in args.mb or []] + [k << 10 for k in args.kib or []]
     sizes = sizes or [1 << 20]
+    # the finder knobs are read at import: set before the JAX package loads
+    env_knobs = {}
     if args.finder != "sort":
-        if args.codec != "crx":
-            raise SystemExit("--finder applies to --codec crx")
-        os.environ["CPX_X_FINDER"] = args.finder  # read at import
+        if args.codec == "crx" and args.finder == "scan":
+            env_knobs = {"CPX_X_FINDER": "scan"}
+        elif args.codec == "crf":
+            env_knobs = {"CPX_F_FINDER": "scan"}
+            if args.finder == "xscan":
+                env_knobs["CPX_X_FINDER"] = "scan"
+        else:
+            raise SystemExit("--finder scan applies to crx and crf, xscan to crf")
+        os.environ.update(env_knobs)
     if args.filters != (args.corpus == "elf"):
         raise SystemExit("--filters goes with --corpus elf")
     if args.chain == "C" and args.codec != "crz":
@@ -258,7 +273,7 @@ def main() -> int:
             flag += "-F " if args.filters else ""
             flag += f"-{args.chain} " if args.chain else ""
             flag += f"-g{args.group} " if args.group > 1 else ""
-            env = "" if args.finder == "sort" else f"CPX_X_FINDER={args.finder} "
+            env = "".join(f"{k}={v} " for k, v in env_knobs.items())
             # read again: another run may have added entries meanwhile
             meta = (json.loads(meta_path.read_text())
                     if meta_path.exists() else {})

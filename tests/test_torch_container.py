@@ -18,6 +18,7 @@ import torch
 from comprox_tpu.cli import main as jcli
 from comprox_tpu.codec import block as jblk
 from comprox_tpu.codec import container as jcon
+from comprox_tpu.parallel import mesh as jmesh
 from comprox_tpu_torch.cli import main as cli
 from comprox_tpu_torch.codec import block as blk
 from comprox_tpu_torch.codec import container as con
@@ -183,13 +184,15 @@ def test_chained_archives_and_other_codecs_raise():
         assert con.decode_stream(io.BytesIO(f.getvalue()), io.BytesIO(), "cpu") == 0
 
 
-# The switch -j is not ported and raises; -c and -C are (chain modes), and
-# so is -g (block batching): an accepted command line codes a short input at
-# a small geometry and JAX decodes the archive (under -g it equals JAX's
-# archive of the same command line), a refused one raises the JAX package's
-# error.
+# Every switch is ported: -c and -C (chain modes), -g (block batching) and
+# -j (blocks over devices; on the CPU a mesh of the one device): an accepted
+# command line codes a short input at a small geometry and JAX decodes the
+# archive (under -g and -j it equals JAX's archive of the same command line,
+# -j's over JAX's whole virtual mesh), a refused one (chain mode with -g or
+# -j, -C outside crz, -c/-C in crf) raises the JAX package's error.
 _CHAIN_OK = "chained"
 _GROUP_OK = "grouped"
+_JOBS_OK = "over devices"
 
 
 @pytest.mark.parametrize(
@@ -197,7 +200,7 @@ _GROUP_OK = "grouped"
     [
         (["crz", "e", "a", "b", "-f0", "-c"], _CHAIN_OK),
         (["crz", "e", "a", "b", "-f0", "-C"], ValueError),
-        (["crz", "e", "a", "b", "-f0", "-j"], NotImplementedError),
+        (["crz", "e", "a", "b", "-f0", "-j"], _JOBS_OK),
         (["crz", "e", "a", "b", "-f0", "-g2"], _GROUP_OK),
         (["crz", "e", "a", "b", "-c"], _CHAIN_OK),
         (["crx", "e", "a", "b", "-c"], _CHAIN_OK),
@@ -205,12 +208,13 @@ _GROUP_OK = "grouped"
         (["crf", "e", "a", "b", "-c"], ValueError),
         (["crf", "e", "a", "b", "-C"], ValueError),
         (["crf", "e", "a", "b", "-g2"], _GROUP_OK),
-        (["crf", "e", "a", "b", "-j"], NotImplementedError),
+        (["crf", "e", "a", "b", "-j"], _JOBS_OK),
         (["crx", "e", "a", "b", "-C"], ValueError),
-        (["crx", "e", "a", "b", "-j"], NotImplementedError),
+        (["crx", "e", "a", "b", "-j"], _JOBS_OK),
         (["crx", "e", "a", "b", "-g2"], _GROUP_OK),
         (["crp", "e", "a", "b", "-g2"], _GROUP_OK),
         (["crz", "e", "a", "b", "-g2", "-c"], ValueError),
+        (["crz", "e", "a", "b", "-c", "-j"], ValueError),
     ],
 )
 def test_cli_unported_switches_raise(argv, expect, tmp_path):
@@ -227,11 +231,14 @@ def test_cli_unported_switches_raise(argv, expect, tmp_path):
         return
     cli.run(argv[0], argv[1:] + ["-b0.0001", "-l8", "-q"], device="cpu")
     arc = (tmp_path / "b").read_bytes()
-    if expect == _GROUP_OK:
+    if expect == _JOBS_OK:
+        assert cli.parse_args(argv)[4]["jobs"] == jcli.parse_args(argv)[4]["jobs"] == -1
+    if expect in (_GROUP_OK, _JOBS_OK):
         _, _, _, _, opts = jcli.parse_args(argv + ["-b0.0001", "-l8", "-q"])
         want = io.BytesIO()
         jcon.encode_stream(data, want, jcli.make_params(argv[0], opts),
-                           group=opts["group"])
+                           group=opts["group"],
+                           mesh=jmesh.make_mesh() if opts["jobs"] else None)
         assert arc == want.getvalue()
     else:
         assert con.read_header(io.BytesIO(arc))[1] & con.F_CHAIN
@@ -255,6 +262,10 @@ CHAINED = {"crz_chain_flex_8MiB_S512.cpx", "crz_chainm_flex_8MiB_S512.cpx",
 # the unchained -g4 -b2 goldens (four blocks of the 8 MiB corpus), one a codec
 GROUPED = {"crz_g4_flex_8MiB_S512.cpx", "crx_g4_flex_8MiB_S512.cpx",
            "crp_g4_8MiB_S512.cpx", "crf_g4_flex_8MiB_S512.cpx"}
+# crf under CPX_F_FINDER=scan (mode X's finder and parse), the X finder sort
+# (1 and 8 MiB) and scan (1 MiB)
+F_SCAN = {"crf_scan_flex_1MiB_S512.cpx", "crf_scan_flex_8MiB_S512.cpx",
+          "crf_xscan_flex_1MiB_S512.cpx"}
 
 
 def test_golden_fixture_metadata():
@@ -269,13 +280,16 @@ def test_golden_fixture_metadata():
         f"{c}_elfF_flex_{size}.cpx" for c in ("crx", "crz")
         for size in ("256KiB_S512", "8MiB_S256")} | {
         f"{c}_words_flex_32KiB_S2048.cpx" for c in ("crz", "crx", "crf")} | {
-        "crp_words_32KiB_S2048.cpx"} | CHAINED | GROUPED
+        "crp_words_32KiB_S2048.cpx"} | CHAINED | GROUPED | F_SCAN
+    for name in F_SCAN:
+        env = "CPX_F_FINDER=scan " + ("CPX_X_FINDER=scan " if "_xscan_" in name else "")
+        assert meta[name]["argv"] == env + "crf e -b%s -l512" % name.split("_")[3][0]
     assert {"crx_scan_flex_1MiB_S512.cpx", "crx_scan_f0_1MiB_S512.cpx"} <= set(meta)
     assert meta["crx_scan_flex_1MiB_S512.cpx"]["argv"].startswith("CPX_X_FINDER=scan ")
     assert (meta["crx_f0_1MiB_S512.cpx"]["input_sha256"]
             == meta["crz_f0_1MiB_S512.cpx"]["input_sha256"])
     for mb in (1, 8):  # every archive of one size codes the same bytes
-        for other in ("crz_flex", "crf_flex", "crx_flex", "crp"):
+        for other in ("crz_flex", "crf_flex", "crx_flex", "crp", "crf_scan_flex"):
             assert (meta[f"{other}_{mb}MiB_S512.cpx"]["input_sha256"]
                     == meta[f"crz_f0_{mb}MiB_S512.cpx"]["input_sha256"])
     for name in CHAINED:  # the 8 MiB corpus in four blocks, or 16 MiB in two

@@ -492,7 +492,7 @@ def test_python_walk_is_what_a_machine_without_cc_runs(monkeypatch):
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"CPX_F_FINDER": "scan"}, "item 16"),
+    ({"CPX_F_FINDER": "chain"}, "CPX_F_FINDER='chain'"),
     ({"CPX_F_ENC_WIN": "128"}, "CPX_F_ENC_WIN"),
     ({"CPX_F_CANDS": "0"}, "CPX_F_CANDS"),
     ({"CPX_F_CANDS": "9"}, "CPX_F_CANDS"),

@@ -35,6 +35,8 @@ PORT_MODULES = [
     "comprox_tpu_torch.ops.filters",
     "comprox_tpu_torch.ops.rans",
     "comprox_tpu_torch.ops.rans_scalar",
+    "comprox_tpu_torch.parallel.distributed",
+    "comprox_tpu_torch.parallel.dryrun",
     "comprox_tpu_torch.parallel.mesh",
     "comprox_tpu_torch.utils.build",
     "comprox_tpu_torch.utils.native",

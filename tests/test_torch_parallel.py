@@ -105,12 +105,25 @@ def test_decode_blocks_errors_match_jax(fault):
 
 
 def test_mesh_is_refused():
+    """``mesh=`` is ported (``tests/test_torch_mesh.py`` holds it to JAX):
+    a mesh of two CPU entries gives the group's payloads and bytes; only a
+    mesh that cannot exist is refused: a CUDA mesh without a card, an empty
+    one, a device type the port does not run on."""
     _, pp, blocks, payloads = _payloads()
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        pmesh.encode_blocks_list(blocks, pp, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        pmesh.decode_blocks(payloads, [b.size for b in blocks], pp, mesh=object(),
-                            device="cpu")
+    mesh = pmesh.make_mesh(devices=["cpu", "cpu"])
+    assert pmesh.encode_blocks_list(blocks, pp, mesh=mesh) == payloads
+    ns = [b.size for b in blocks]
+    np.testing.assert_array_equal(pmesh.decode_blocks(payloads, ns, pp, mesh=mesh),
+                                  np.concatenate(blocks))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pmesh.make_mesh()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pmesh.make_mesh(devices=["cuda:0"])
+    with pytest.raises(ValueError, match="at least one device"):
+        pmesh.make_mesh(devices=[])
+    with pytest.raises(ValueError, match="unsupported device"):
+        pmesh.make_mesh(devices=["meta"])
 
 
 CODECS = {"R": dict(BASE), "X": dict(BASE, mode="X", min_len=6),
