@@ -463,7 +463,8 @@ _ARM_PARAMS = {"k1_kernel": ("MAXT", "CL"), "k12d_kernel": ("MAXT", "MODE", "CL"
                "k11_kernel": (), "k3_kernel": ("NS",), "k3p_kernel": (),
                "k4_find": ("NC",), "k4_heads": ("NC",), "k4_final": ("NC", "WALK"),
                "k3b_pass": (), "k9_events": (),
-               "pr_row_bulk": (), "pr_row_ring": ("DEPTH",), "pr_onehot_wgmma": ()}
+               "pr_row_gather": ("VEC",), "pr_steps": (), "pr_row_bulk": (),
+               "pr_row_ring": ("DEPTH",), "pr_onehot_wgmma": ()}
 _MANGLED = re.compile(r"_ZN(\d+)")
 _ARM_ARG = re.compile(r"L[ib](\d+)E")
 
@@ -495,7 +496,8 @@ def _arm_name(fn: str):
 def _arms(log: str) -> list:
     """(library, kernel arm, registers, spill stores, spill loads) of each
     step scan's and per-lane pass's arm, each K13c kernel and the probes'
-    bulk-copy, ring and wgmma kernels in a verbose build's output."""
+    flat gather, steps, bulk-copy, ring and wgmma kernels in a verbose
+    build's output."""
     out, lib, fn, spill = [], "", None, (0, 0)
     for line in log.splitlines():
         if line.startswith("libcpx_kernels_"):

@@ -44,7 +44,10 @@ twice, in the order named, for turns),
 nanoseconds per row where JAX printed them, ``exact=`` (the kernel equals
 its plain version), the plain version's time, the time of one PyTorch call
 for the same function (``library=``, never used here) and the least time
-the card could take (``bound=``).  ``LAUNCHES`` counts each probe's kernel
+the card could take (``bound=``), after one line of the launch floor (an
+empty kernel by the same timing, no probe).  ``... probes --trace p4``
+prints instead each headline case's kernels by name and device time, from
+a ``torch.profiler`` trace (:func:`trace`).  ``LAUNCHES`` counts each probe's kernel
 launches, each probe's headline arm under its name and the other arms
 apart: P1's thread a row under ``P1t``, P3's one warp under ``P3w``, P4's
 launch a step (from the host or a CUDA graph) under ``P4s`` and P5's warp
@@ -78,6 +81,7 @@ PEAK_OPS_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
 L2_FLUSH_BYTES = 96 << 20  # twice the 50 MB L2
 ONEHOT_MAX_S = 512  # P8's output rows a CTA holds (probes.cu's OH_S)
+STEPS_MAX_ROWS = 232448 // 4  # P4's column in a CTA (probes.cu's STEPS_SMEM_MAX)
 
 LAUNCHES = {k: 0 for k in ("P1", "P1t", "P1b", "P3", "P3w", "P4", "P4s", "P5",
                            "P5w", "P6", "P7", "P8", "P9")}
@@ -150,8 +154,10 @@ def _row_gather(name, table, idx, arm="warp"):
 
 def probe_vmem_gather(table, idx, arm="warp"):
     """P1: ``table[idx]`` ([rows, width] int32, [S] int32 -> [S, width]);
-    ``arm`` "warp" (a warp a row) or "thread" (a thread a row, counted
-    under ``P1t``)."""
+    ``arm`` "warp" (the output flat, a 16-byte word a thread where the
+    width and alignment allow, else a 4-byte word: probes.cu's
+    ``pr_row_gather``) or "thread" (a thread a row, counted under
+    ``P1t``)."""
     return _row_gather("P1t" if arm == "thread" else "P1", table, idx, arm)
 
 
@@ -238,7 +244,9 @@ def probe_persistent_steps(table, lanes: int = S, steps: int = STEPS,
                            arm="persistent"):
     """P4: ``steps`` dependent steps of ``lanes`` f32 states, ``s +=
     table[int(s) & (rows - 1), 0]`` from zero ([rows, width] f32).  Arm
-    "persistent" (one launch, JAX's ``run_pallas``) -> [lanes, 1]; "launch"
+    "persistent" (one launch, JAX's ``run_pallas``; on the card each CTA
+    stages column 0 in its shared memory, so at most ``STEPS_MAX_ROWS``
+    rows) -> [lanes, 1]; "launch"
     (one launch a step) and "graph" (the same launches replayed from a CUDA
     graph), JAX's ``run_scan`` -> [lanes], counted under ``P4s``."""
     if arm not in ("persistent", "launch", "graph"):
@@ -251,11 +259,16 @@ def probe_persistent_steps(table, lanes: int = S, steps: int = STEPS,
         raise ValueError("table: expected [rows, width]")
     if arm == "graph":
         return _StepGraph(table, lanes, steps)()
-    s = torch.zeros(lanes, dtype=_f32, device=table.device)
     if arm == "persistent":
+        if table.shape[0] > STEPS_MAX_ROWS:
+            raise ValueError(
+                f"the persistent arm stages column 0 in a CTA's shared memory: "
+                f"at most {STEPS_MAX_ROWS} rows ({table.shape[0]} given)")
+        s = torch.empty(lanes, dtype=_f32, device=table.device)  # every lane written
         _launch("P4", "cpx_pr_steps_launch", table.data_ptr(), s.data_ptr(),
                 *table.shape, lanes, steps)
         return s.unsqueeze(1)
+    s = torch.zeros(lanes, dtype=_f32, device=table.device)  # updated in place
     for _ in range(steps):
         _launch("P4s", "cpx_pr_step_launch", table.data_ptr(), s.data_ptr(),
                 *table.shape, lanes)
@@ -651,15 +664,15 @@ def measure(case: Case) -> dict:
     t_plain = timeit(case.plain, **kw)
     t_lib = timeit(case.library, **kw) if case.library else None
     bound, by = case.bound()
-    line = f"{case.label}: {t * 1e6:.1f} us"
+    line = f"{case.label}: {t * 1e6:.3f} us"
     if case.rows:
         line += f" ({t / case.rows * 1e9:.0f} ns/{'step' if case.probe == 'P4' else 'row'})"
     line += f" exact={err == 0}"
     if case.reference is not None:
         line += f" (f32 gather: max abs err {max_abs_err(got, case.reference()):g})"
-    line += f" plain={t_plain * 1e6:.1f}"
+    line += f" plain={t_plain * 1e6:.3f}"
     if t_lib is not None:
-        line += f" library={t_lib * 1e6:.1f}"
+        line += f" library={t_lib * 1e6:.3f}"
     print(line + f" bound={bound * 1e6:.3f} ({by})", flush=True)
     return dict(probe=case.probe, label=case.label, us=t * 1e6,
                 plain_us=t_plain * 1e6,
@@ -668,21 +681,69 @@ def measure(case: Case) -> dict:
                 headline=case.headline)
 
 
+def launch_floor() -> float:
+    """Seconds a call of an empty kernel (one CTA of 32 threads) by
+    :func:`timeit`: the floor every probe's time stands on.  A yardstick,
+    not a probe: no ``LAUNCHES`` key counts it."""
+    lib = build.lib()
+    return timeit(lambda: build.check(lib.cpx_pr_empty_launch(_stream_ptr()),
+                                      "cpx_pr_empty_launch"))
+
+
 def run(names=None) -> list:
-    """Measure the named probes (all by default) on the card: their records."""
+    """Measure the named probes (all by default) on the card: their records.
+    The launch floor's line comes first."""
     if not torch.cuda.is_available():
         raise RuntimeError("the probes run on a CUDA card; none found")
+    print(f"launch floor (an empty kernel): {launch_floor() * 1e6:.3f} us", flush=True)
     return [measure(case) for name in names or PROBES for case in PROBES[name]("cuda")]
 
 
+def trace(names, reps: int = 20) -> dict:
+    """{label: {kernel name: device us a call}} of the named probes'
+    headline cases, from the kernels' names in a ``torch.profiler`` trace
+    of ``reps`` calls after 3 warm-ups.  The cases come from the probes
+    module of the tree on ``sys.path``, so this file traces another tree's
+    wrappers too: ``cd TREE && PYTHONPATH=$PWD python
+    REPO/comprox_tpu_torch/benchmarks/probes.py --trace p4``."""
+    from comprox_tpu_torch.benchmarks import probes as tree
+
+    out = {}
+    for name in names:
+        for case in tree.PROBES[name]("cuda"):
+            if not case.headline:
+                continue
+            for _ in range(3):
+                case.kernel()
+            torch.cuda.synchronize()
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            with prof:
+                for _ in range(reps):
+                    case.kernel()
+                torch.cuda.synchronize()
+            us: dict = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
+            out[case.label] = us
+            kernels = "; ".join(f"{k} {v:.3f} us" for k, v in us.items())
+            print(f"{case.label} (trace): {kernels or 'no device time'}", flush=True)
+    return out
+
+
 def main(argv) -> int:
-    names = argv or list(PROBES)
+    tracing = argv[:1] == ["--trace"]
+    names = argv[tracing:] or list(PROBES)
     unknown = [n for n in names if n not in PROBES]
     if unknown:
         raise SystemExit(f"unknown probe(s) {unknown}: {' '.join(PROBES)}")
     if torch.cuda.is_available():
         print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
-    run(names)
+    if tracing:
+        trace(names)
+    else:
+        run(names)
     return 0
 
 

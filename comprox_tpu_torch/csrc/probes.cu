@@ -28,33 +28,65 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 // ---------------------------------------------------------------- P1, P6
 // Replaces pallas_probe.py::probe_vmem_gather (kernel :51, pallas_call :56)
 // and pallas_probe2.py::probe_taa (kernel :45, pallas_call :51): out[k, :] =
-// table[idx[k], :].  Bound by load latency (one dependent index load, then
-// the row): WARP_PER_ROW puts one warp on a row, 16-byte loads across its
-// lanes where the width allows, so a row of 128 int32 is one coalesced
-// request; the other arm gives each thread a whole row (uncoalesced), to
+// table[idx[k], :].  Bound by load latency: the index, then the row, two
+// dependent L2 round trips behind a launch (the bytes take 0.157-0.319 us).
+//
+// pr_row_gather maps the output flat, as n = S * words words of 16 bytes
+// (VEC: a width that is a multiple of 4, table and out 16-byte aligned) or
+// of 4 bytes: CTA b's thread t owns the words g = b * GATHER_THREADS *
+// GATHER_WPT + i * GATHER_THREADS + t, i < GATHER_WPT, each word j = g %
+// words of row k = g / words.  A thread loads its rows' indices (the
+// threads of a row share the address), then all its words, then stores
+// them: no thread loops over a row, so no store stands between two loads,
+// and a row of 260 int32 costs what a row of 128 does.  GATHER_THREADS and
+// GATHER_WPT by a sweep on the card (PERF.md).
+constexpr int GATHER_THREADS = 256;
+constexpr int GATHER_WPT = 1;
+
+template <bool VEC>
+__global__ void __launch_bounds__(GATHER_THREADS)
+    pr_row_gather(const int* __restrict__ table, const int* __restrict__ idx,
+                  int* __restrict__ out, int words, int n) {
+  using W = typename std::conditional<VEC, int4, int>::type;
+  const W* src = reinterpret_cast<const W*>(table);
+  W* dst = reinterpret_cast<W*>(out);
+  const int g0 = blockIdx.x * (GATHER_THREADS * GATHER_WPT) + threadIdx.x;
+  size_t at[GATHER_WPT];
+#pragma unroll
+  for (int i = 0; i < GATHER_WPT; ++i) {
+    const int g = g0 + i * GATHER_THREADS, k = g / words;
+    at[i] = g < n ? (size_t)idx[k] * words + (g - k * words) : 0;
+  }
+  W v[GATHER_WPT];
+#pragma unroll
+  for (int i = 0; i < GATHER_WPT; ++i)
+    if (g0 + i * GATHER_THREADS < n) v[i] = src[at[i]];
+#pragma unroll
+  for (int i = 0; i < GATHER_WPT; ++i)
+    if (g0 + i * GATHER_THREADS < n) dst[g0 + i * GATHER_THREADS] = v[i];
+}
+
+// P1's second arm (P1t): each thread copies a whole row (uncoalesced), to
 // time the difference.
-template <bool WARP_PER_ROW>
-__global__ void pr_row_gather(const int* __restrict__ table,
+__global__ void pr_row_thread(const int* __restrict__ table,
                               const int* __restrict__ idx, int* __restrict__ out,
-                              int rows, int width, int S, bool vec) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const int k = WARP_PER_ROW ? g >> 5 : g;
+                              int width, int S, bool vec) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= S) return;
-  const int first = WARP_PER_ROW ? (threadIdx.x & 31) : 0;
-  const int step = WARP_PER_ROW ? 32 : 1;
   const size_t r = idx[k];
   if (vec) {
     const int4* src = reinterpret_cast<const int4*>(table + r * width);
     int4* dst = reinterpret_cast<int4*>(out + (size_t)k * width);
-    for (int j = first; j < width / 4; j += step) dst[j] = src[j];
+    for (int j = 0; j < width / 4; ++j) dst[j] = src[j];
   } else {
-    for (int j = first; j < width; j += step)
-      out[(size_t)k * width + j] = table[r * width + j];
+    for (int j = 0; j < width; ++j) out[(size_t)k * width + j] = table[r * width + j];
   }
 }
 
@@ -172,21 +204,46 @@ __global__ void pr_row_loop(const int* __restrict__ table,
 // ---------------------------------------------------------------- P4
 // Replaces pallas_probe.py::probe_persistent_steps (kernel :191,
 // pallas_call :204; its run_scan arm :211): T dependent steps per lane,
-// s += table[int(s) & (rows - 1), 0], the state f32 from zero.  The TPU
-// read the row by a one-hot dot; the value is the same (the table holds
-// small integers, exact in f32).  pr_steps keeps all T steps in one
-// persistent CTA (each step one dependent L2 load); pr_step is one step a
-// launch, for the launch-per-step arm (directly, or replayed from a CUDA
-// graph).
-__global__ void pr_steps(const float* __restrict__ table, float* __restrict__ out,
-                         int rows, int width, int S, int T) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+// s += table[int(s) & (rows - 1), 0], the state f32 from zero, int()
+// truncating toward zero (F2I.TRUNC, as XLA's astype and torch's
+// .to(int32)).  The TPU read the row by a one-hot dot; the value is the
+// same (the table holds small integers, exact in f32).  Bound by the chain:
+// each step waits on the step before it (the operations take 0.012 us).
+//
+// pr_steps stages column 0 of the table in the CTA's shared memory first
+// (rows x 4 B, 8 KB at the probe's [2048x128]): a thread a row, 4-byte
+// cp.async copies all in flight together, one wait and one barrier.  Each
+// lane then runs its T steps from there, every step a shared-memory load,
+// FADD, F2I, AND and the next address, where PR 6's design paid an L2 round
+// trip a step (the column's 2048 lines, 512 B apart, overflow the L1).
+// STEPS_LANES lanes a CTA, each CTA staging its own copy, by a sweep on the
+// card (PERF.md).  A column above STEPS_SMEM_MAX bytes (58,112 rows) does
+// not fit a CTA: the launcher refuses it.  pr_step is one step a launch,
+// for the launch-per-step arm (directly, or replayed from a CUDA graph).
+constexpr int STEPS_LANES = 128;
+constexpr int STEPS_SMEM_MAX = 232448;  // a CTA's shared memory on sm_90
+
+__global__ void __launch_bounds__(STEPS_LANES)
+    pr_steps(const float* __restrict__ table, float* __restrict__ out, int rows,
+             int width, int S, int T) {
+  extern __shared__ float col[];  // [rows]: column 0
+  for (int r = threadIdx.x; r < rows; r += STEPS_LANES)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(col + r)),
+                 "l"(table + (size_t)r * width)
+                 : "memory");
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const int k = blockIdx.x * STEPS_LANES + threadIdx.x;
   if (k >= S) return;
+  const int mask = rows - 1;
   float s = 0.f;
-#pragma unroll 1
-  for (int t = 0; t < T; ++t) s += table[(size_t)((int)s & (rows - 1)) * width];
+#pragma unroll 4
+  for (int t = 0; t < T; ++t) s += col[(int)s & mask];
   out[k] = s;
 }
+
+// No probe: an empty kernel, the launch floor the probes' times stand on.
+__global__ void pr_empty() {}
 
 __global__ void pr_step(const float* __restrict__ table, float* __restrict__ state,
                         int rows, int width, int S) {
@@ -541,19 +598,24 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
-// table [rows, width] i32, idx [S] i32, out [S, width] i32; arm 0: a warp a
-// row, arm 1: a thread a row.
+// table [rows, width] i32, idx [S] i32, out [S, width] i32; arm 0: the
+// output flat, a word a thread (pr_row_gather), arm 1: a thread a row.
 extern "C" int cpx_pr_row_gather_launch(const void* table, const void* idx,
                                         void* out, int rows, int width, int S,
                                         int arm, void* stream) {
   if (rows < 1 || width < 1 || S < 1) return (int)cudaErrorInvalidValue;
   const bool vec = width % 4 == 0 && aligned16(table) && aligned16(out);
-  const int threads = 128;
-  const long long work = arm == 0 ? 32LL * S : S;
-  const int blocks = (int)((work + threads - 1) / threads);
-  auto kernel = arm == 0 ? pr_row_gather<true> : pr_row_gather<false>;
-  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)table, (const int*)idx, (int*)out, rows, width, S, vec);
+  if (arm == 1) {
+    pr_row_thread<<<(S + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        (const int*)table, (const int*)idx, (int*)out, width, S, vec);
+    return (int)cudaGetLastError();
+  }
+  const int words = vec ? width / 4 : width;
+  const long long n = (long long)S * words, per = GATHER_THREADS * GATHER_WPT;
+  if (n > INT_MAX - per) return (int)cudaErrorInvalidValue;
+  auto kernel = vec ? pr_row_gather<true> : pr_row_gather<false>;
+  kernel<<<(int)((n + per - 1) / per), GATHER_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)table, (const int*)idx, (int*)out, words, (int)n);
   return (int)cudaGetLastError();
 }
 
@@ -605,14 +667,29 @@ static int lane_blocks(int S, int* threads) {
   return (S + *threads - 1) / *threads;
 }
 
-// table [rows, width] f32, out [S] f32: T steps from zero in one launch.
+// table [rows, width] f32, out [S] f32: T steps from zero in one launch;
+// column 0 (rows x 4 B) within STEPS_SMEM_MAX.
 extern "C" int cpx_pr_steps_launch(const void* table, void* out, int rows,
                                    int width, int S, int T, void* stream) {
-  if (rows < 1 || width < 1 || S < 1 || T < 0) return (int)cudaErrorInvalidValue;
-  int threads;
-  const int blocks = lane_blocks(S, &threads);
-  pr_steps<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)table, (float*)out, rows, width, S, T);
+  if (rows < 1 || width < 1 || S < 1 || T < 0 || rows > STEPS_SMEM_MAX / 4)
+    return (int)cudaErrorInvalidValue;
+  const int smem = rows * 4;
+  if (smem > 48 * 1024) {
+    // above 48 KB only once the kernel's limit is raised, once a device
+    static bool raised[64];
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (!raised[dev]) {
+      err = cudaFuncSetAttribute(pr_steps, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 STEPS_SMEM_MAX);
+      if (err != cudaSuccess) return (int)err;
+      raised[dev] = true;
+    }
+  }
+  pr_steps<<<(S + STEPS_LANES - 1) / STEPS_LANES, STEPS_LANES, smem,
+             (cudaStream_t)stream>>>((const float*)table, (float*)out, rows, width, S, T);
   return (int)cudaGetLastError();
 }
 
@@ -624,6 +701,12 @@ extern "C" int cpx_pr_step_launch(const void* table, void* state, int rows,
   const int blocks = lane_blocks(S, &threads);
   pr_step<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)table, (float*)state, rows, width, S);
+  return (int)cudaGetLastError();
+}
+
+// One CTA of 32 threads that does nothing.
+extern "C" int cpx_pr_empty_launch(void* stream) {
+  pr_empty<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

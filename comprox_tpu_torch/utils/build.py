@@ -86,6 +86,7 @@ _SIGNATURES = {
     "cpx_pr_row_loop_launch": [_P] * 3 + [_I] * 3 + [_P],
     "cpx_pr_steps_launch": [_P] * 2 + [_I] * 4 + [_P],
     "cpx_pr_step_launch": [_P] * 2 + [_I] * 3 + [_P],
+    "cpx_pr_empty_launch": [_P],
     "cpx_pr_row_ring_smem": [_I] * 3,
     "cpx_pr_row_ring_launch": [_P] * 3 + [_I] * 4 + [_P],
     "cpx_pr_onehot_wgmma_launch": [_P] * 3 + [_I] * 3 + [_P],

@@ -1197,6 +1197,69 @@ def test_probe_kernels_match_plain(cuda_device, key):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("key", ["P1", "P6"])
+@pytest.mark.parametrize("width,offset", [(1, 0), (3, 0), (8, 0), (260, 0), (8, 1), (260, 1)])
+def test_row_gather_takes_ragged_and_unaligned_rows(cuda_device, key, width, offset):
+    """P1's and P6's flat gather against its plain version, tolerance 0, at
+    S = 104 (the last CTA ragged), widths 1, 3, 8 and 260, and a table 4
+    bytes past 16-byte alignment (offset 1: the 4-byte word arm); each
+    launch counted under the probe's key."""
+    from comprox_tpu_torch.benchmarks import probes
+
+    rng = np.random.default_rng([width, offset])
+    base = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, 300 * width + offset,
+                                         dtype=np.int32)).to(cuda_device)
+    table = base[offset:].view(300, width)
+    assert (table.data_ptr() % 16 != 0) == bool(offset)
+    idx = torch.from_numpy(rng.integers(0, 300, 104, dtype=np.int32)).to(cuda_device)
+    fn = probes.probe_vmem_gather if key == "P1" else probes.probe_taa
+    before = dict(probes.LAUNCHES)
+    got = fn(table, idx)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES[key] == before[key] + 1
+    assert all(probes.LAUNCHES[k] == n for k, n in before.items() if k != key)
+    assert torch.equal(got, probes.row_gather_plain(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width,lanes,steps", [(2048, 128, 512, 512), (1000, 3, 104, 64),
+                                                    (58112, 1, 512, 64)])
+def test_p4_steps_take_signed_tables(cuda_device, rows, width, lanes, steps):
+    """P4's persistent arm on a table of negative and fractional values
+    (quarters: the states go below zero, where truncation and floor
+    differ), tolerance 0: the probe's shape, a ragged last CTA with rows
+    not a power of two, and the most rows a CTA's shared memory stages;
+    each launch counted under P4."""
+    from comprox_tpu_torch.benchmarks import probes
+
+    rng = np.random.default_rng(rows)
+    table = torch.from_numpy((rng.integers(-600, 600, (rows, width)) / 4)
+                             .astype(np.float32)).to(cuda_device)
+    before = probes.LAUNCHES["P4"]
+    got = probes.probe_persistent_steps(table, lanes, steps)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["P4"] == before + 1
+    want = probes.steps_plain(table, lanes, steps)
+    assert tuple(got.shape) == (lanes, 1) and torch.equal(got[:, 0], want)
+    assert bool((want < 0).any())
+
+
+@pytest.mark.cuda
+def test_p4_refuses_a_column_above_shared_memory(cuda_device):
+    from comprox_tpu_torch.benchmarks import probes
+
+    table = torch.zeros((probes.STEPS_MAX_ROWS + 1, 1), device=cuda_device)
+    before = probes.LAUNCHES["P4"]
+    with pytest.raises(ValueError, match=f"at most {probes.STEPS_MAX_ROWS} rows"):
+        probes.probe_persistent_steps(table, 512, 8)
+    assert probes.LAUNCHES["P4"] == before
+    # the launcher refuses it too
+    out = torch.empty(512, device=cuda_device)
+    assert build.lib().cpx_pr_steps_launch(table.data_ptr(), out.data_ptr(), *table.shape,
+                                           512, 8, torch.cuda.current_stream().cuda_stream) != 0
+
+
+@pytest.mark.cuda
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     from comprox_tpu_torch.benchmarks import probes
 
