@@ -117,12 +117,13 @@ no result line:
    version, one PyTorch call for the same function and the bound; one line
    a geometry, as ``python -m comprox_tpu_torch.benchmarks.probes`` prints
    them.  The kernels line carries each probe's last headline case (P1: its
-   warp arm; P3: its bulk-copy arm; P4: its persistent arm; P5: its ring at
-   depth 32) and the launches of the whole phase under the probe's name,
-   which count the headline arms only: the other arms count apart (P1's
-   thread a row under ``P1t``, P3's one warp under ``P3w``, P4's launch a
-   step under ``P4s``, P5's warp a row under ``P5w``).  Every key must
-   launch.
+   flat gather; P3: its bulk-copy arm; P4: its persistent arm; P5: its ring
+   at depth 32) and the launches of the whole phase under the probe's
+   name, which count the headline arms only: the other arms count apart
+   (P1's thread a row under ``P1t``, P3's one warp under ``P3w``, P4's
+   launch a step under ``P4s``, P1's flat gather on P5's rows under
+   ``P5w``).  Every key must launch.  The phase's first line is the launch
+   floor (an empty kernel, no key).
 13. full width, the crp path: ``crp e -b8 -l512`` then ``crp d`` through the
    CLI; archive SHA-256 == the JAX golden; fails if K13c, K13e, K3, K3p,
    K3b or K13d was not launched.

@@ -10,7 +10,14 @@ timed at P1's and P6's shapes ([8192x256], [512x260], [2048x128],
 P4's ([2048x128], S = 512, T = 512), by :func:`probes.timeit`, each
 configuration in turn, in two rounds (forward, then back); every result
 must equal its plain version; ``index_select`` at each gather shape is
-timed in each round beside them.  On the card::
+timed in each round beside them.
+
+Then P4's chain alone: ``pr_steps``' loop (the same source line, column 0
+staged in shared memory) with ``clock64()`` read around a lane's T steps,
+at one lane, one warp, and the lanes a CTA of the sweep, the SM cycles a
+step of each lane printed as their mean and maximum.  One lane alone gives
+the step's dependent latency (LDS, FADD, F2I, LOP3, LEA in the SASS), so
+512 of them over the SM clock is the chain's floor.  On the card::
 
     python -m comprox_tpu_torch.benchmarks.probe_sweep
 """
@@ -32,8 +39,32 @@ from comprox_tpu_torch.utils import build
 
 SWEEP_DIR = Path(__file__).resolve().parents[2] / "build" / "probe_sweep"
 # (GATHER_THREADS, GATHER_WPT, STEPS_LANES)
-GATHER = [(t, w, 128) for t in (128, 256, 512, 1024) for w in (1, 2, 4)]
+GATHER = [(t, w, 128) for t in (64, 128, 256, 512, 1024) for w in (1, 2)]
 STEPS = [(256, 1, lanes) for lanes in (32, 64, 128, 256, 512)]
+# (CTAs, lanes a CTA) of the chain's clock
+CHAIN = [(1, 1), (1, 32), (4, 128), (2, 256), (1, 512)]
+CHAIN_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void chain_clock(const float* __restrict__ table, int rows, int width, int T,
+                            long long* __restrict__ cycles, float* __restrict__ out) {
+  extern __shared__ float col[];
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) col[r] = table[(size_t)r * width];
+  __syncthreads();
+  const int mask = rows - 1, k = blockIdx.x * blockDim.x + threadIdx.x;
+  float s = 0.f;
+  const long long t0 = clock64();
+#pragma unroll 4
+  for (int t = 0; t < T; ++t) s += col[(int)s & mask];
+  out[k] = s;
+  cycles[k] = clock64() - t0;
+}
+extern "C" int chain_clock_launch(const void* table, int rows, int width, int T,
+                                  void* cycles, void* out, int ctas, int lanes) {
+  chain_clock<<<ctas, lanes, rows * 4>>>((const float*)table, rows, width, T,
+                                         (long long*)cycles, (float*)out);
+  return (int)cudaDeviceSynchronize();
+}
+"""
 GATHER_SHAPES = [(8192, 256), (512, 260), (2048, 128), (8192, 128), (65536, 128),
                  (65536, 8)]
 
@@ -81,6 +112,41 @@ def build_all(configs) -> dict:
     return libs
 
 
+def build_chain():
+    """The chain's clock kernel, built on its own."""
+    d = SWEEP_DIR / "chain"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "chain.cu").write_text(CHAIN_SRC)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+                    str(d / "chain.cu")], check=True, timeout=build.NVCC_TIMEOUT_S)
+    lib = ctypes.CDLL(str(d / "lib.so"))
+    lib.chain_clock_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    lib.chain_clock_launch.restype = ctypes.c_int
+    return lib
+
+
+def chain(lib, table) -> dict:
+    """{(CTAs, lanes a CTA): (mean, max) SM cycles a step of a lane}; each
+    lane's state must equal ``steps_plain``'s."""
+    res = {}
+    for ctas, lanes in CHAIN:
+        n = ctas * lanes
+        cycles = torch.empty(n, dtype=torch.int64, device="cuda")
+        out = torch.empty(n, dtype=torch.float32, device="cuda")
+        for _ in range(2):  # the second run's clocks
+            build.check(lib.chain_clock_launch(table.data_ptr(), *table.shape, probes.STEPS,
+                                               cycles.data_ptr(), out.data_ptr(), ctas,
+                                               lanes), "chain_clock")
+        if not torch.equal(out, probes.steps_plain(table, n, probes.STEPS)):
+            raise AssertionError(f"chain {ctas}x{lanes}: != steps_plain")
+        per = cycles.double() / probes.STEPS
+        res[(ctas, lanes)] = (per.mean().item(), per.max().item())
+        print(f"chain {ctas} CTA(s) x {lanes} lanes: {res[(ctas, lanes)][0]:.2f} mean, "
+              f"{res[(ctas, lanes)][1]:.2f} max cycles a step", flush=True)
+    return res
+
+
 def _gather_inputs(rows, width):
     rng = probes._rng(0, f"sweep{rows}x{width}")
     table = probes._on("cuda", rng.integers(0, 24576, (rows, width)).astype(np.int32))
@@ -108,6 +174,7 @@ def run() -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the sweep runs on a CUDA card; none found")
     libs = build_all(sorted(set(GATHER + STEPS)))
+    chain_lib = build_chain()
     gather_in = {shape: _gather_inputs(*shape) for shape in GATHER_SHAPES}
     p4 = probes._on("cuda", probes._rng(0, "p4").integers(0, 255, (2048, 128))
                     .astype(np.float32))
@@ -136,6 +203,7 @@ def run() -> dict:
             f"threads {cfg[0]} words {cfg[1]}" if kernel == "gather" else f"lanes {cfg[2]}")
         print(f"{kernel} {what} [{shape[0]}x{shape[1]}]: "
               + " / ".join(f"{u:.3f}" for u in us) + " us", flush=True)
+    chain(chain_lib, p4)
     return times
 
 

@@ -47,11 +47,11 @@ for the same function (``library=``, never used here) and the least time
 the card could take (``bound=``), after one line of the launch floor (an
 empty kernel by the same timing, no probe).  ``... probes --trace p4``
 prints instead each headline case's kernels by name and device time, from
-a ``torch.profiler`` trace (:func:`trace`).  ``LAUNCHES`` counts each probe's kernel
-launches, each probe's headline arm under its name and the other arms
-apart: P1's thread a row under ``P1t``, P3's one warp under ``P3w``, P4's
-launch a step (from the host or a CUDA graph) under ``P4s`` and P5's warp
-a row (P1's kernel on P5's rows) under ``P5w``.  P5 and P9 flush the L2
+a ``torch.profiler`` trace (:func:`trace`).  ``LAUNCHES`` counts each
+probe's kernel launches, each probe's headline arm under its name and the
+other arms apart: P1's thread a row under ``P1t``, P3's one warp under
+``P3w``, P4's launch a step (from the host or a CUDA graph) under ``P4s``
+and P1's flat gather on P5's rows under ``P5w``.  P5 and P9 flush the L2
 cache before each timed call: their table stands for one in device
 memory.
 """
@@ -140,11 +140,11 @@ def onehot_bf16_plain(table, idx):
 # --------------------------------------------------------------------------
 
 
-def _row_gather(name, table, idx, arm="warp"):
+def _row_gather(name, table, idx, arm="flat"):
     if _dispatch(table, idx) == "cpu":
         return row_gather_plain(table, idx)
-    if arm not in ("warp", "thread"):
-        raise ValueError(f"arm {arm!r}: 'warp' or 'thread'")
+    if arm not in ("flat", "thread"):
+        raise ValueError(f"arm {arm!r}: 'flat' or 'thread'")
     _expect_rows(table, idx)
     out = torch.empty((idx.shape[0], table.shape[1]), dtype=_i32, device=idx.device)
     _launch(name, "cpx_pr_row_gather_launch", table.data_ptr(), idx.data_ptr(),
@@ -152,9 +152,9 @@ def _row_gather(name, table, idx, arm="warp"):
     return out
 
 
-def probe_vmem_gather(table, idx, arm="warp"):
+def probe_vmem_gather(table, idx, arm="flat"):
     """P1: ``table[idx]`` ([rows, width] int32, [S] int32 -> [S, width]);
-    ``arm`` "warp" (the output flat, a 16-byte word a thread where the
+    ``arm`` "flat" (the output flat, a 16-byte word a thread where the
     width and alignment allow, else a 4-byte word: probes.cu's
     ``pr_row_gather``) or "thread" (a thread a row, counted under
     ``P1t``)."""
@@ -425,11 +425,11 @@ def cases_p1(device, lanes=S, seed=0):
         rng = _rng(seed, f"p1{rows}x{width}")
         table = _on(device, np.arange(rows * width, dtype=np.int32).reshape(rows, width))
         idx = _on(device, rng.integers(0, rows, lanes, dtype=np.int32))
-        for arm in ("warp", "thread"):
+        for arm, words in (("flat", "a word a thread"), ("thread", "a thread a row")):
             out.append(_gather(
-                "P1", f"P1 take[{rows}x{width}] -> [{lanes},{width}], a {arm} a row",
+                "P1", f"P1 take[{rows}x{width}] -> [{lanes},{width}], {words}",
                 functools.partial(probe_vmem_gather, arm=arm), table, idx,
-                headline=arm == "warp", counter="P1" if arm == "warp" else "P1t"))
+                headline=arm == "flat", counter="P1" if arm == "flat" else "P1t"))
     return out
 
 
@@ -517,14 +517,14 @@ def _dma_table(device):
 
 
 def cases_p5(device, lanes=S, seed=0):
-    """The ring at depth 16 and 32 (the headlines), and a warp a row (P1's
-    kernel) on the same cold rows, counted under ``P5w``."""
+    """The ring at depth 16 and 32 (the headlines), and P1's flat gather
+    on the same cold rows, counted under ``P5w``."""
     table = _dma_table(device)
     idx = _on(device, _rng(seed, "p5").integers(0, table.shape[0], lanes, dtype=np.int32))
     return [_gather("P5", f"P5 HBM row-DMA depth={depth}",
                     functools.partial(probe_dma_depth, depth=depth), table, idx,
                     rows=lanes, cold=True) for depth in (16, 32)] + [
-        _gather("P5", "P5 HBM rows, a warp a row",
+        _gather("P5", "P5 HBM rows, P1's flat gather",
                 functools.partial(_row_gather, "P5w"), table, idx, rows=lanes,
                 cold=True, headline=False, counter="P5w")]
 

@@ -214,8 +214,9 @@ __global__ void pr_row_loop(const int* __restrict__ table,
 // (rows x 4 B, 8 KB at the probe's [2048x128]): a thread a row, 4-byte
 // cp.async copies all in flight together, one wait and one barrier.  Each
 // lane then runs its T steps from there, every step a shared-memory load,
-// FADD, F2I, AND and the next address, where PR 6's design paid an L2 round
-// trip a step (the column's 2048 lines, 512 B apart, overflow the L1).
+// FADD, F2I, AND and the next address, where a load from the table would
+// pay an L2 round trip a step (the column's 2048 lines, 512 B apart,
+// overflow the L1).
 // STEPS_LANES lanes a CTA, each CTA staging its own copy, by a sweep on the
 // card (PERF.md).  A column above STEPS_SMEM_MAX bytes (58,112 rows) does
 // not fit a CTA: the launcher refuses it.  pr_step is one step a launch,

@@ -1183,7 +1183,7 @@ def test_probe_kernels_match_plain(cuda_device, key):
     (S=512), tolerance 0 (P8: against bf16(table)[idx]); each launch is
     counted under its case's key: the probe's name for its headline arm,
     P1t, P3w, P4s and P5w for P1's thread a row, P3's one warp, P4's launch
-    a step and P5's warp a row."""
+    a step and P1's flat gather on P5's rows."""
     from comprox_tpu_torch.benchmarks import probes
 
     for case in probes.PROBES[key](cuda_device, probes.S, seed=3):
@@ -1226,22 +1226,23 @@ def test_row_gather_takes_ragged_and_unaligned_rows(cuda_device, key, width, off
                                                     (58112, 1, 512, 64)])
 def test_p4_steps_take_signed_tables(cuda_device, rows, width, lanes, steps):
     """P4's persistent arm on a table of negative and fractional values
-    (quarters: the states go below zero, where truncation and floor
-    differ), tolerance 0: the probe's shape, a ragged last CTA with rows
-    not a power of two, and the most rows a CTA's shared memory stages;
-    each launch counted under P4."""
+    (quarters; row 0's -2.75 takes every chain below zero at its first
+    step, where truncation and floor differ), tolerance 0: the probe's
+    shape, a ragged last CTA with rows not a power of two, and the most
+    rows a CTA's shared memory stages; each launch counted under P4."""
     from comprox_tpu_torch.benchmarks import probes
 
     rng = np.random.default_rng(rows)
-    table = torch.from_numpy((rng.integers(-600, 600, (rows, width)) / 4)
-                             .astype(np.float32)).to(cuda_device)
+    values = rng.integers(-600, 600, (rows, width)) / 4
+    values[0, 0] = -2.75
+    table = torch.from_numpy(values.astype(np.float32)).to(cuda_device)
     before = probes.LAUNCHES["P4"]
     got = probes.probe_persistent_steps(table, lanes, steps)
     torch.cuda.synchronize()
     assert probes.LAUNCHES["P4"] == before + 1
     want = probes.steps_plain(table, lanes, steps)
     assert tuple(got.shape) == (lanes, 1) and torch.equal(got[:, 0], want)
-    assert bool((want < 0).any())
+    assert bool((probes.steps_plain(table, lanes, 1) == -2.75).all())
 
 
 @pytest.mark.cuda

@@ -169,10 +169,10 @@ def test_probe_cases_on_the_cpu(key):
     (both plain on the CPU), the bound is positive, and a probe with a
     kernel counts under its own name.  P8's bound is its bf16 operations
     (the bytes of bf16(table)[idx] take less time); the headline cases (the
-    probe's row of chip_smoke's kernels line is its last) are P1's warp
+    probe's row of chip_smoke's kernels line is its last) are P1's flat
     arm, P3's bulk-copy arm, P4's persistent arm and P5's ring at depth 16
-    and 32 (not its warp a row), and only they count under the probe's
-    name."""
+    and 32 (not P1's flat gather on its rows), and only they count under
+    the probe's name."""
     cases = probes.PROBES[key]("cpu", LANES, seed=1)
     heads = [c for c in cases if c.headline]
     assert len(heads) == {"p1": len(cases) // 2, "p3": 1, "p4": 1, "p5": 2}.get(

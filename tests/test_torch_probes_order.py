@@ -413,7 +413,7 @@ def test_p3_arms_count_under_their_own_keys():
         ("P3", "P3", True), ("P3", "P3w", False)]
     assert all(c.counter in probes.LAUNCHES for c in cases)
     # every other probe: the headline arms under the probe's name, the
-    # others apart (P1's thread a row, P4's launch a step, P5's warp a row)
+    # others apart (P1's thread a row, P4's launch a step, P5's flat gather)
     apart = {"p1": ["P1", "P1t"] * 4, "p4": ["P4", "P4s", "P4s"],
              "p5": ["P5", "P5", "P5w"]}
     for name, make in probes.PROBES.items():
